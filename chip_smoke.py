@@ -2,26 +2,46 @@
 """Drive the PyTorch/CUDA port (room_slam_torch) on one CUDA card and check it.
 
     python3 chip_smoke.py [--seed 0] [--requests 5] [--warmup 20]
-                          [--window 200]
+                          [--window 200] [--rooms 40] [--epochs 2]
+                          [--steps 50] [--step_warmup 5]
 
-Phases, one line each (a failed check raises; nothing is caught):
+Phases, one line each or more (a failed check raises; nothing is caught):
 
 1. device: card name, count, and ``nvidia-smi`` name and power limit;
-2. build: every kernel in ``room_slam_torch/csrc`` with ``nvcc`` (registers
-   and shared memory from ``-Xptxas -v``);
-3. kernel check: ``bilstm_fwd`` against its plain PyTorch version on the card
-   at the bench, serving and a ragged shape;
-4. kernel timing: kernel, plain version, cuDNN ``nn.LSTM`` (yardstick only)
-   and the roofline bound at the bench and serving shapes;
+2. build: every kernel source in ``room_slam_torch/csrc``, one ``nvcc`` each,
+   all started together (registers and spills from ``-Xptxas -v``);
+3. kernel check on the card: ``bilstm_fwd`` against its plain version at
+   the bench, serving and a ragged shape; ``bilstm_fwd_train`` (ys, c,
+   gates) and ``bilstm_bwd`` (dg) against theirs, and ``BiLSTMFunction``'s
+   four gradients against torch autograd through the plain loop, at the
+   bench, flagship training and a ragged shape;
+4. kernel timing: each kernel, its plain version, the cuDNN yardstick
+   (never called by the port) and the roofline bound, at the bench and
+   serving shapes (``bilstm_fwd``) or bench and training shapes (the
+   training kernels);
 5. model: the flagship model (``configs/flagship_v15.json``) at full width
    with seeded random weights, forward at B=32, N=500 through the kernel,
    against the same model through the plain recurrence;
-6. serving (the main path): a predictor answers requests on seeded walk
+6. serving (a main path): a predictor answers requests on seeded walk
    traces of up to 3000 points (1500 after downsampling), writes collider
    JSON, and one answer is held against the same predictor on the CPU;
 7. serving latency: ``--window`` full-length requests after ``--warmup``,
    p50 and p99 over all of them, each request split into its stages on the
-   host clock, and the forward and post-process on CUDA events.
+   host clock, and the forward and post-process on CUDA events;
+8. training (a main path): ``--rooms`` seeded rooms written as
+   trace/collider JSON, ``train_benchmark`` on the flagship config at full
+   width for ``--epochs`` epochs; finite losses, a checkpoint, and the
+   launch counts (two training forwards and two BPTT launches per step,
+   light launches only in validation);
+9. the checkpoint served: the port's predictor loads the best model and
+   answers one request on the card;
+10. one-step parity: one train step on the card and the same step on the
+    CPU from the same parameters and batch (augmentation off, dropout 0):
+    losses, Hungarian assignments and updated parameters agree;
+11. train-step timing at the flagship training shape (B=20, N=1500) and the
+    bench shape (B=32, N=500): p50 step ms and traces/s over ``--steps``
+    steps after ``--step_warmup``, then a per-stage mean with a
+    synchronise between stages.
 
 Then a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without a CUDA card.
@@ -45,11 +65,17 @@ import torch
 from room_slam_torch import resolve_device
 from room_slam_torch.config import ExperimentConfig
 from room_slam_torch.data import formats
-from room_slam_torch.data.features import featurize, process_traces_np
+from room_slam_torch.data.dataset import TraceColliderArrays
+from room_slam_torch.data.features import featurize
+from room_slam_torch.data.rooms import write_rooms
 from room_slam_torch.models import lstm as lstm_mod
 from room_slam_torch.models.factory import build_model
 from room_slam_torch.ops import build, rnn_cuda
+from room_slam_torch.ops import losses as losses_mod
 from room_slam_torch.predictor import build_predictor
+from room_slam_torch.train import loop
+from room_slam_torch.train.driver import (load_model_for_inference,
+                                          train_benchmark)
 from room_slam_torch.weights import load_params, random_params
 
 REPO = Path(__file__).resolve().parent
@@ -57,9 +83,14 @@ CONFIG = REPO / "configs" / "flagship_v15.json"
 # H100 SXM published peaks at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
-KERNEL_ATOL = 1e-4   # on h in (-1, 1): f32 sum order over <= 1500 steps
+KERNEL_ATOL = 1e-4   # on h, c and gates: f32 sum order over <= 1500 steps
+GRAD_REL = 1e-4      # max abs error / max abs reference, the JAX suite's
 MODEL_TOL = 1e-3     # rtol and atol on the model outputs (boxes in metres)
+LOSS_RTOL = 1e-4     # card vs CPU train step: losses
+PARAM_ATOL = 1e-5    # card vs CPU train step: updated parameters
 BENCH, SERVE, RAGGED = (32, 500, 64), (1, 1500, 64), (5, 43, 64)
+TRAIN = (20, 1500, 64)   # flagship batch_size, max_trace_len, d_model / 2
+STEP_SHAPES = ((20, 1500), (32, 500))
 
 
 def log(phase: str, msg: str) -> None:
@@ -82,16 +113,35 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bilstm_bound(B: int, N: int, H: int):
-    """Least time for one fused BiLSTM layer on the card: bytes moved (xg
-    read once, W_hh read once, ys written once) over HBM bandwidth, and f32
-    operations (h @ W_hh, the xg add and the cell update, both directions)
-    over the f32 peak. Returns (ms, 'bytes' | 'operations')."""
-    nbytes = 4 * 2 * (B * N * 4 * H + H * 4 * H + B * N * H)
-    flops = 2 * B * N * (2 * H * 4 * H + 4 * H + 5 * H)
+def bound(nbytes: float, flops: float):
+    """Least time in ms for ``nbytes`` moved and ``flops`` f32 operations
+    on the card, and which of the two sets it."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bilstm_bound(B: int, N: int, H: int):
+    """Light forward, both directions: xg read once, W_hh read once, ys
+    written once; h @ W_hh, the xg add and the cell update."""
+    return bound(4 * 2 * (B * N * 4 * H + H * 4 * H + B * N * H),
+                 2 * B * N * (2 * H * 4 * H + 4 * H + 5 * H))
+
+
+def fwd_train_bound(B: int, N: int, H: int):
+    """Training forward: as the light one, and c (H) and the activated
+    gates (4H) written once per step."""
+    return bound(4 * 2 * (B * N * (4 * H + H + H + 4 * H) + 4 * H * H),
+                 2 * B * N * (2 * H * 4 * H + 4 * H + 5 * H))
+
+
+def bwd_bound(B: int, N: int, H: int):
+    """BPTT, both directions: gates (4H), c, c_prev and dy (3H) read once,
+    dg (4H) written once, W_hh read once; per (row, step) the 4H-deep dot
+    product for each of H units and 25 operations per unit (coefficients,
+    carries, tanh counted as one)."""
+    return bound(4 * 2 * (B * N * (4 * H + 3 * H + 4 * H) + 4 * H * H),
+                 2 * B * N * (2 * 4 * H * H + 25 * H))
 
 
 def kernel_inputs(B, N, H, dev, seed):
@@ -101,6 +151,21 @@ def kernel_inputs(B, N, H, dev, seed):
             g.uniform(-1, 1, size=(H, 4 * H)) / np.sqrt(H),
             g.uniform(-1, 1, size=(H, 4 * H)) / np.sqrt(H)]
     return [torch.tensor(a, dtype=torch.float32, device=dev) for a in arrs]
+
+
+def bwd_inputs(ins, seed):
+    """The BPTT kernel's arguments on the plain training forward's
+    residuals of ``ins``, with a seeded upstream gradient."""
+    ys_f, ys_b, cs_f, cs_b, gs_f, gs_b = rnn_cuda.bilstm_fwd_train_plain(*ins)
+    g = torch.Generator(ins[0].device).manual_seed(seed)
+    dy_f = torch.randn(ys_f.shape, device=ys_f.device, generator=g)
+    dy_b = torch.randn(ys_b.shape, device=ys_b.device, generator=g)
+    return (ins[2], ins[3], gs_f, cs_f, rnn_cuda.prev_steps(cs_f, False),
+            dy_f, gs_b, cs_b, rnn_cuda.prev_steps(cs_b, True), dy_b)
+
+
+def max_rel(a, b) -> float:
+    return ((a - b).abs().max() / (b.abs().max() + 1e-9)).item()
 
 
 def walk(n: int, seed: int) -> np.ndarray:
@@ -118,6 +183,321 @@ def collider_values(c):
     return [c["confidence"], *c["center"].values(), *c["size"].values()]
 
 
+def counts():
+    return {"bilstm_fwd": rnn_cuda.bilstm_fwd_cuda.launches,
+            "bilstm_fwd_train": rnn_cuda.bilstm_fwd_train_cuda.launches,
+            "bilstm_bwd": rnn_cuda.bilstm_bwd_cuda.launches}
+
+
+def reset_counts() -> None:
+    for fn in (rnn_cuda.bilstm_fwd_cuda, rnn_cuda.bilstm_fwd_train_cuda,
+               rnn_cuda.bilstm_bwd_cuda):
+        fn.launches = 0
+
+
+def check_training_kernels(dev, seed):
+    """Phase 3 for the training kernels; returns per-shape errors."""
+    errs = {}
+    for shape in (BENCH, TRAIN, RAGGED):
+        ins = kernel_inputs(*shape, dev, seed)
+        got = rnn_cuda.bilstm_fwd_train_cuda(*ins)
+        ref = rnn_cuda.bilstm_fwd_train_plain(*ins)
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(a).all() for a in got), shape
+        fwd_err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        args = bwd_inputs(ins, seed + 1)
+        dg = rnn_cuda.bilstm_bwd_cuda(*args)
+        dg_ref = rnn_cuda.bilstm_bwd_plain(*args)
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(a).all() for a in dg), shape
+        bwd_abs = max((a - b).abs().max().item() for a, b in zip(dg, dg_ref))
+        bwd_rel = max(max_rel(a, b) for a, b in zip(dg, dg_ref))
+        x = [t.clone().requires_grad_(True) for t in ins]
+        ys = rnn_cuda.bilstm_recurrence(*x)
+        dys = [args[5], args[9]]
+        grads = torch.autograd.grad(ys, x, dys)
+        ref_grads = torch.autograd.grad(
+            rnn_cuda.bilstm_recurrence_plain(*x), x, dys)
+        fn_rel = {name: max_rel(a, b) for name, a, b in zip(
+            ("dxg_f", "dxg_b", "dW_f", "dW_b"), grads, ref_grads)}
+        errs[shape] = {"fwd_train": fwd_err, "bwd_abs": bwd_abs,
+                       "bwd_rel": bwd_rel, "function_rel": fn_rel}
+        log("kernel_check",
+            f"bilstm_fwd_train B,N,H={shape} max_abs_err(ys,c,gates)="
+            f"{fwd_err:.3e} tol={KERNEL_ATOL:.0e}; bilstm_bwd dg max_abs_err="
+            f"{bwd_abs:.3e} max_rel_err={bwd_rel:.3e} tol={GRAD_REL:.0e}; "
+            "BiLSTMFunction vs autograd through the plain loop max_rel_err "
+            + " ".join(f"{k}={v:.3e}" for k, v in fn_rel.items()))
+        assert fwd_err <= KERNEL_ATOL, (shape, fwd_err)
+        assert bwd_rel <= GRAD_REL, (shape, bwd_rel)
+        assert max(fn_rel.values()) <= GRAD_REL, (shape, fn_rel)
+    return errs
+
+
+def time_training_kernels(dev, seed, errs):
+    """Phase 4 for the training kernels; returns one row per kernel and
+    shape."""
+    rows = {"bilstm_fwd_train": [], "bilstm_bwd": []}
+    for shape, iters in ((BENCH, 20), (TRAIN, 10)):
+        B, N, H = shape
+        ins = kernel_inputs(*shape, dev, seed)
+        args = bwd_inputs(ins, seed + 1)
+        fwd_ms = cuda_ms(lambda: rnn_cuda.bilstm_fwd_train_cuda(*ins), iters)
+        fwd_plain = cuda_ms(lambda: rnn_cuda.bilstm_fwd_train_plain(*ins),
+                            2, warmup=1)
+        bwd_ms = cuda_ms(lambda: rnn_cuda.bilstm_bwd_cuda(*args), iters)
+        bwd_plain = cuda_ms(lambda: rnn_cuda.bilstm_bwd_plain(*args), 2,
+                            warmup=1)
+        lib = torch.nn.LSTM(2 * H, H, batch_first=True,
+                            bidirectional=True).to(dev)
+        x = torch.randn(B, N, 2 * H, device=dev, requires_grad=True,
+                        generator=torch.Generator(dev).manual_seed(seed))
+        dy = torch.randn(B, N, 2 * H, device=dev,
+                         generator=torch.Generator(dev).manual_seed(seed))
+        lib_fwd = cuda_ms(lambda: lib(x), iters)
+        lib_fb = cuda_ms(lambda: lib(x)[0].backward(dy), iters)
+        for name, ms, plain, b, lib_ms in (
+                ("bilstm_fwd_train", fwd_ms, fwd_plain,
+                 fwd_train_bound(*shape), lib_fwd),
+                ("bilstm_bwd", bwd_ms, bwd_plain, bwd_bound(*shape),
+                 lib_fb - lib_fwd)):
+            row = {"shape": list(shape), "kernel_ms": ms, "plain_ms": plain,
+                   "library_ms": lib_ms, "bound_us": b[0] * 1e3,
+                   "bound_by": b[1],
+                   "err": (errs[shape]["fwd_train"]
+                           if name == "bilstm_fwd_train"
+                           else errs[shape]["bwd_abs"])}
+            rows[name].append(row)
+            log("kernel_time", f"{name} " + json.dumps(row) + (
+                "  (library_ms: cuDNN bidirectional nn.LSTM forward with "
+                "grad on" if name == "bilstm_fwd_train" else
+                "  (library_ms: cuDNN bidirectional nn.LSTM forward + "
+                "backward minus forward") + ", includes the input projection)")
+    return rows
+
+
+def make_rooms(root: Path, n_rooms: int, seed: int):
+    """``n_rooms`` seeded rooms, one in five for validation."""
+    n_val = max(n_rooms // 5, 1)
+    write_rooms(root / "train", n_rooms - n_val, seed)
+    write_rooms(root / "val", n_val, seed + 1)
+    return root / "train", root / "val"
+
+
+def train_main_path(cfg, train_dir, val_dir, save_dir, epochs, dev, smi):
+    """Phase 8: the trainer on the card, launch counts read around it."""
+    cfg = copy.deepcopy(cfg)
+    cfg.data.data_dir, cfg.data.val_dir = str(train_dir), str(val_dir)
+    cfg.train.num_epochs = epochs
+    cfg.train.save_dir = str(save_dir)
+    train_ds = TraceColliderArrays(train_dir, cfg.data, augment=True,
+                                   verbose=False)
+    val_ds = TraceColliderArrays(val_dir, cfg.data, augment=False,
+                                 verbose=False)
+    steps = epochs * train_ds.num_batches(cfg.train.batch_size)
+    val_batches = epochs * val_ds.num_batches(cfg.train.batch_size)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = train_benchmark(cfg, device=dev, verbose=True, train_ds=train_ds,
+                          val_ds=val_ds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    layers = cfg.model.lstm_layers
+    assert launched == {"bilstm_fwd": layers * val_batches,
+                        "bilstm_fwd_train": layers * steps,
+                        "bilstm_bwd": layers * steps}, launched
+    assert len(res["history"]) == epochs
+    for row in res["history"]:
+        assert np.isfinite(row["train_loss"]) and \
+            np.isfinite(row["val_loss"]), row
+    best = Path(save_dir) / "best_model"
+    assert best.with_suffix(".msgpack").exists()
+    assert json.loads(best.with_suffix(".json").read_text())[
+        "has_opt_state"] is False
+    log("train", f"train_benchmark {epochs} epochs of "
+                 f"{train_ds.num_samples} samples ({train_ds.n_base} rooms x "
+                 f"{len(train_ds.rotation_angles)} rotations), B="
+                 f"{cfg.train.batch_size}, N={cfg.data.max_trace_len}: "
+                 f"{steps} steps, {val_batches} validation batches in "
+                 f"{wall:.1f} s on {smi}; losses "
+                 + json.dumps([{k: r[k] for k in ("epoch", "train_loss",
+                                                  "val_loss", "mIoU")}
+                               for r in res["history"]])
+                 + f"; launches {launched}")
+    return launched, best
+
+
+def serve_checkpoint(best, trace_file, dev):
+    """Phase 9: the written checkpoint through the port's predictor."""
+    model, cfg = load_model_for_inference(str(best), device=dev)
+    predict = build_predictor(model, max_trace_len=cfg.data.max_trace_len,
+                              confidence_threshold=0.0, nms_threshold=0.3,
+                              device=dev, verbose=False)
+    before = counts()["bilstm_fwd"]
+    cols = predict(formats.load_trace_json(trace_file))
+    torch.cuda.synchronize()
+    assert counts()["bilstm_fwd"] == before + cfg.model.lstm_layers
+    assert len(cols) > 0
+    for c in cols:
+        assert np.isfinite(collider_values(c)).all()
+    log("serve_checkpoint", f"{best.name} served {trace_file.name}: "
+                            f"{len(cols)} colliders, labels "
+                            f"{sorted(set(c['label'] for c in cols))}")
+
+
+def step_parity(cfg, train_dir, dev, seed):
+    """Phase 10: one step on the card and on the CPU from the same
+    parameters and batch, augmentation off, dropout 0."""
+    cfg = copy.deepcopy(cfg)
+    cfg.model.dropout = 0.0
+    ds = TraceColliderArrays(train_dir, cfg.data, augment=False,
+                             verbose=False)
+    host = ds.gather(np.arange(cfg.train.batch_size) % ds.num_samples)
+    model = build_model(cfg.model)
+    params = random_params(model, seed)
+    # As in phase 5, a sharp attention spreads the queries over the walk,
+    # so no two of them tie in the match cost: at temperature 10 the
+    # random queries sit so close together that card vs CPU rounding
+    # already moves an assignment. It also keeps the float32 softmax
+    # backward well conditioned.
+    params["params"]["decoder"]["inv_temp"] = np.float32(100.0)
+    load_params(model, params)
+    res = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = copy.deepcopy(model).to(d)
+        batch = {k: torch.from_numpy(v).to(d) for k, v in host.items()}
+        feats, mask, targets = loop.prepare_batch(batch, cfg.data)
+        with torch.no_grad():
+            out = m.train()(feats, mask)
+            rows, matched = losses_mod.match(
+                out["pred_boxes"], out["pred_classes"], targets["boxes"],
+                targets["labels"], targets["valid_mask"])
+        opt = loop.make_optimizer(m, cfg)
+        step = loop.make_train_step(m, opt, cfg, augment=False)
+        losses = step(batch, torch.Generator(d).manual_seed(seed))
+        res[name] = ({k: float(v) for k, v in losses.items()},
+                     rows.cpu(), matched.cpu(),
+                     {n: p.detach().cpu() for n, p in m.named_parameters()},
+                     {n: p.grad.cpu() for n, p in opt.named})
+    (l_gpu, r_gpu, m_gpu, p_gpu, _), (l_cpu, r_cpu, m_cpu, p_cpu, g_cpu) = \
+        res["card"], res["cpu"]
+    assert torch.equal(r_gpu, r_cpu) and torch.equal(m_gpu, m_cpu)
+    loss_rel = max(abs(l_gpu[k] - v) / max(abs(v), 1e-12)
+                   for k, v in l_cpu.items())
+    scale = max(g.abs().max().item() for g in g_cpu.values())
+    live_err, other_err = 0.0, 0.0
+    for n, p in p_cpu.items():
+        diff = (p_gpu[n] - p).abs()
+        live = g_cpu[n].abs() > 1e-5 * scale
+        live_err = max(live_err, diff[live].max().item() if live.any()
+                       else 0.0)
+        other_err = max(other_err, diff.max().item())
+    log("step_parity",
+        f"card vs CPU, one step B={cfg.train.batch_size} N="
+        f"{cfg.data.max_trace_len}: assignments equal "
+        f"({int(m_cpu.sum())} matched pairs); losses max_rel_diff="
+        f"{loss_rel:.3e} tol={LOSS_RTOL:.0e}; updated params max_abs_diff="
+        f"{live_err:.3e} tol={PARAM_ATOL:.0e} where |grad| > 1e-5 of the "
+        f"largest, {other_err:.3e} elsewhere (tol 2*lr="
+        f"{2 * cfg.train.lr:.0e}: AdamW's first step maps rounding noise "
+        "to +-lr)")
+    assert loss_rel <= LOSS_RTOL, l_gpu
+    assert live_err <= PARAM_ATOL, live_err
+    assert other_err <= 2 * cfg.train.lr + PARAM_ATOL, other_err
+
+
+def time_steps(cfg, train_dir, dev, seed, n_steps, n_warmup, smi,
+               kernel_rows):
+    """Phase 11: p50 step time of the trainer's step, then a per-stage
+    mean with a synchronise between stages."""
+    out = []
+    for B, N in STEP_SHAPES:
+        c = copy.deepcopy(cfg)
+        c.train.batch_size, c.data.max_trace_len = B, N
+        ds = TraceColliderArrays(train_dir, c.data, augment=True,
+                                 verbose=False)
+        data = {k: torch.from_numpy(v).to(dev)
+                for k, v in ds.device_arrays().items()}
+        plan = ds.epoch_plan(B, seed=seed)
+        nb = plan["base_idx"].shape[0]
+        model = build_model(c.model, generator=torch.Generator()
+                            .manual_seed(seed)).to(dev)
+        opt = loop.make_optimizer(model, c)
+        step = loop.make_train_step(model, opt, c, augment=True)
+        gen = torch.Generator(dev).manual_seed(seed)
+        batches = [loop.gather_batch(data, plan, i % nb)
+                   for i in range(n_steps + n_warmup)]
+        ms = []
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            losses = step(batch, gen)
+            torch.cuda.synchronize()
+            if i >= n_warmup:
+                ms.append((time.perf_counter() - t0) * 1e3)
+            assert np.isfinite(float(losses["total_loss"]))
+        p50 = float(np.percentile(ms, 50))
+
+        # per stage, with a synchronise between stages
+        lw = loop._loss_weight_dict(c)
+        match_ms = []
+        match = losses_mod.match
+
+        def timed_match(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = match(*a)
+            torch.cuda.synchronize()
+            match_ms.append((time.perf_counter() - t) * 1e3)
+            return r
+
+        stages = np.zeros((n_steps, 5))
+        with mock.patch.object(losses_mod, "match", timed_match):
+            for i, batch in enumerate(batches[n_warmup:]):
+                t = [time.perf_counter()]
+                feats, mask, targets = loop.prepare_batch(batch, c.data, gen)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                model.train()
+                opt.zero_grad()
+                o = model(feats, mask, generator=gen)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                ls = losses_mod.set_criterion(o, targets, batch["weight"], lw)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                ls["total_loss"].backward()
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                opt.step()
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                stages[i] = np.diff(t) * 1e3
+        mean = stages.mean(0)
+        m_ms = float(np.mean(match_ms))
+        layers = c.model.lstm_layers
+        k_ms = {name: next((r["kernel_ms"] for r in rows
+                            if r["shape"] == [B, N, c.model.d_model // 2]),
+                           None) for name, rows in kernel_rows.items()}
+        row = {"B": B, "N": N, "steps": n_steps, "p50_ms": p50,
+               "p99_ms": float(np.percentile(ms, 99)),
+               "traces_per_s": B / p50 * 1e3,
+               "stage_ms": {"augment_featurize": mean[0],
+                            "forward": mean[1],
+                            "criterion_host_matching": m_ms,
+                            "criterion_rest": mean[2] - m_ms,
+                            "backward": mean[3], "optimizer": mean[4]},
+               "staged_step_ms": float(mean.sum()),
+               "fwd_train_kernels_ms": (layers * k_ms["bilstm_fwd_train"]
+                                        if k_ms["bilstm_fwd_train"]
+                                        else None),
+               "bwd_kernels_ms": (layers * k_ms["bilstm_bwd"]
+                                  if k_ms["bilstm_bwd"] else None)}
+        out.append(row)
+        log("train_step", json.dumps(row) + f" on {smi}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -127,6 +507,12 @@ def main() -> int:
                     help="full-length requests before the latency window")
     ap.add_argument("--window", type=int, default=200,
                     help="full-length requests timed for p50 / p99")
+    ap.add_argument("--rooms", type=int, default=40,
+                    help="seeded rooms written for training (1 in 5 val)")
+    ap.add_argument("--epochs", type=int, default=2)
+    ap.add_argument("--steps", type=int, default=50,
+                    help="train steps timed per shape")
+    ap.add_argument("--step_warmup", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -156,7 +542,7 @@ def main() -> int:
                      + (" | ".join(ptxas) if res.log else "reused"))
     log("build", f"all kernels in {time.perf_counter() - t0:.1f} s")
 
-    # 3. kernel check against the plain version on the card
+    # 3. kernel check against the plain versions on the card
     errs = {}
     for shape in (BENCH, SERVE, RAGGED):
         ins = kernel_inputs(*shape, dev, args.seed)
@@ -170,6 +556,7 @@ def main() -> int:
         log("kernel_check", f"bilstm_fwd B,N,H={shape} max_abs_err={err:.3e} "
                             f"max_rel_err={rel:.3e} tol={KERNEL_ATOL:.0e}")
         assert err <= KERNEL_ATOL, (shape, err)
+    train_errs = check_training_kernels(dev, args.seed)
 
     # 4. kernel timing
     shapes = []
@@ -193,6 +580,7 @@ def main() -> int:
         shapes.append(row)
         log("kernel_time", json.dumps(row) + "  (library_ms: cuDNN "
             "bidirectional nn.LSTM, includes the input projection)")
+    train_rows = time_training_kernels(dev, args.seed, train_errs)
 
     # 5. the flagship model at full width
     cfg = ExperimentConfig.from_json(CONFIG)
@@ -235,7 +623,7 @@ def main() -> int:
                  f"{B / fwd_ms * 1e3:.1f} traces/s on {smi}; "
                  f"kernel launches per forward={per_fwd}")
 
-    # 6. serving: the main path
+    # 6. serving: a main path
     max_len = cfg.data.max_trace_len
     full = walk(2 * max_len, args.seed + 100)
     sizes = np.linspace(len(full) / args.requests, len(full),
@@ -250,7 +638,7 @@ def main() -> int:
                                   nms_threshold=0.3, device=dev,
                                   verbose=False)
         predict(formats.load_trace_json(files[0]))        # warm-up
-        rnn_cuda.bilstm_fwd_cuda.launches = 0
+        reset_counts()
         answers, lat, load_ms = [], [], []
         for f in files:
             t0 = time.perf_counter()
@@ -261,6 +649,7 @@ def main() -> int:
             load_ms.append((t1 - t0) * 1e3)
         launches = rnn_cuda.bilstm_fwd_cuda.launches
         assert launches == args.requests * mcfg.lstm_layers, launches
+        assert counts()["bilstm_fwd_train"] == counts()["bilstm_bwd"] == 0
         out_json = Path(tmp) / "colliders.json"
         formats.save_predictions_json(out_json, answers[-1], 0.0, 0.3)
         back = json.loads(out_json.read_text())
@@ -318,7 +707,7 @@ def main() -> int:
     run_ms = cuda_ms(lambda: predict.run(x, m), 50)
     bench_row, serve_row = shapes
     bench_row["launches"] = per_fwd       # one bench-shape forward
-    serve_row["launches"] = launches      # the main path's requests
+    serve_row["launches"] = launches      # the serving path's requests
     log("serve_latency",
         f"{args.window} requests of {len(full)} points "
         f"({min(len(full), max_len)} after downsampling), after "
@@ -337,20 +726,44 @@ def main() -> int:
         f"{serve_row['kernel_ms']:.3f} ms; run {run_ms:.3f} ms, so "
         f"post_process {run_ms - fwd1_ms:.3f} ms")
 
-    kernels = [{
-        "name": "bilstm_fwd",
-        "route": "cuda",
-        "source": "room_slam_torch/csrc/bilstm_fwd.cu",
-        "replaces": "room_slam_tpu/ops/rnn_pallas.py:390",
-        "launches": launches,
-        "max_abs_err": serve_row["err"],
-        "ms": serve_row["kernel_ms"],
-        "plain_ms": serve_row["plain_ms"],
-        "bound_ms": serve_row["bound_us"] / 1e3,
-        "bound_by": serve_row["bound_by"],
-        "library_ms": serve_row["library_ms"],
-        "shapes": shapes,
-    }]
+    # 8-11. training: the main path, its checkpoint served, card vs CPU
+    # parity of one step, step timing
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dir, val_dir = make_rooms(Path(tmp) / "rooms", args.rooms,
+                                        args.seed)
+        trained, best = train_main_path(cfg, train_dir, val_dir,
+                                        Path(tmp) / "ckpt", args.epochs, dev,
+                                        smi)
+        serve_checkpoint(best, sorted(val_dir.glob("*_trace.json"))[0], dev)
+        step_parity(cfg, train_dir, dev, args.seed)
+        time_steps(cfg, train_dir, dev, args.seed, args.steps,
+                   args.step_warmup, smi, train_rows)
+
+    def entry(name, source, replaces, launched, row):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launched,
+                "max_abs_err": row["err"], "ms": row["kernel_ms"],
+                "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_us"] / 1e3,
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"]}
+
+    train_row = {name: next(r for r in rows if r["shape"] == list(TRAIN))
+                 for name, rows in train_rows.items()}
+    kernels = [
+        {**entry("bilstm_fwd", "room_slam_torch/csrc/bilstm_fwd.cu",
+                 "room_slam_tpu/ops/rnn_pallas.py:390", launches, serve_row),
+         "shapes": shapes},
+        {**entry("bilstm_fwd_train", "room_slam_torch/csrc/bilstm_fwd.cu",
+                 "room_slam_tpu/ops/rnn_pallas.py:531",
+                 trained["bilstm_fwd_train"], train_row["bilstm_fwd_train"]),
+         "shapes": train_rows["bilstm_fwd_train"]},
+        {**entry("bilstm_bwd", "room_slam_torch/csrc/bilstm_bwd.cu",
+                 "room_slam_tpu/ops/rnn_pallas.py:438",
+                 trained["bilstm_bwd"], train_row["bilstm_bwd"]),
+         "max_rel_err": train_errs[TRAIN]["bwd_rel"],
+         "shapes": train_rows["bilstm_bwd"]},
+    ]
     log("done", f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

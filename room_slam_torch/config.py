@@ -119,6 +119,9 @@ class ExperimentConfig:
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 
+    def to_json(self, path: str | Path) -> None:
+        Path(path).write_text(json.dumps(self.to_dict(), indent=2))
+
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ExperimentConfig":
         def build(tp, sub):

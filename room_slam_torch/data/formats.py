@@ -1,21 +1,25 @@
 """Host-side trace and collider JSON I/O (own copy of the JAX package's
-``data/formats.py``; the native C++ trace parser is not ported).
+``data/formats.py``; the native C++ trace parser and the legacy CSV surface
+are not ported).
 
 - trace JSON: a list of ``{"timestamp","x","y","z"}`` rows, or a dict with a
   ``traces`` / ``trajectory`` key.
 - collider JSON: ``{"colliders": [{"type","label","center","size",
-  "radius","height"}, ...], "metadata": {...}}``.
+  "radius","height"}, ...], "metadata": {...}}``, or a bare list.
+- a data directory pairs ``*_trace.json`` with ``*_collider.json``, or
+  ``agent_data_*.json`` / ``human_data_*.json`` with a shared
+  ``colliders.json``.
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from room_slam_torch.config import BENCH_ID_TO_LABEL
+from room_slam_torch.config import BENCH_ID_TO_LABEL, BENCH_LABELS
 
 
 def parse_trace_records(data) -> np.ndarray:
@@ -46,6 +50,74 @@ def save_trace_json(path: str | Path, arr: np.ndarray) -> None:
              "z": float(z)} for x, y, z, t in arr]
     with open(path, "w") as f:
         json.dump(rows, f)
+
+
+def parse_collider_records(colliders: Sequence[Dict],
+                           label_to_id: Dict[str, int] = BENCH_LABELS
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+    """Collider dicts to ``boxes [M, 6]`` (cx, cy, cz, sx, sy, sz) float32
+    and ``labels [M]`` int32 (an unknown label counts as BLOCK)."""
+    m = len(colliders)
+    boxes = np.zeros((m, 6), dtype=np.float32)
+    labels = np.zeros((m,), dtype=np.int32)
+    for i, col in enumerate(colliders):
+        c = col.get("center", {})
+        s = col.get("size", {})
+        boxes[i] = [c.get("x", 0.0), c.get("y", 0.0), c.get("z", 0.0),
+                    s.get("x", 0.0), s.get("y", 0.0), s.get("z", 0.0)]
+        labels[i] = label_to_id.get(col.get("label", "BLOCK"), 0)
+    return boxes, labels
+
+
+def load_colliders_json(path: str | Path) -> Tuple[np.ndarray, np.ndarray]:
+    """Load a collider JSON file (``{"colliders": [...]}`` or a bare
+    list) to ``(boxes [M, 6], labels [M])``."""
+    with open(path, "r") as f:
+        data = json.load(f)
+    cols = data.get("colliders", []) if isinstance(data, dict) else data
+    return parse_collider_records(cols)
+
+
+def save_colliders_json(path: str | Path, boxes: np.ndarray,
+                        labels: np.ndarray) -> None:
+    """Write ground truth as ``{"colliders": [...]}``."""
+    cols = [collider_to_dict(b, lab) for b, lab in zip(boxes, labels)]
+    with open(path, "w") as f:
+        json.dump({"colliders": cols}, f, indent=2)
+
+
+def find_data_pairs(data_dir: str | Path) -> List[Tuple[Path, Path]]:
+    """``(trace_file, collider_file)`` pairs of a data directory:
+    ``*_trace.json`` + ``*_collider.json``, else ``agent_data_*.json`` /
+    ``human_data_*.json`` + a shared ``colliders.json``."""
+    data_dir = Path(data_dir)
+    pairs: List[Tuple[Path, Path]] = []
+    for trace_file in sorted(data_dir.glob("*_trace.json")):
+        base = trace_file.stem.replace("_trace", "")
+        collider_file = data_dir / f"{base}_collider.json"
+        if collider_file.exists():
+            pairs.append((trace_file, collider_file))
+    if not pairs:
+        shared = data_dir / "colliders.json"
+        if shared.exists():
+            traces = sorted(data_dir.glob("agent_data_*.json")) + sorted(
+                data_dir.glob("human_data_*.json"))
+            pairs = [(t, shared) for t in traces]
+    return pairs
+
+
+def sort_by_time(arr: np.ndarray, time_col: int = 3) -> np.ndarray:
+    """Stable sort of rows by timestamp."""
+    if arr.shape[0] == 0:
+        return arr
+    return arr[np.argsort(arr[:, time_col], kind="stable")]
+
+
+def linspace_downsample(arr: np.ndarray, max_len: int) -> np.ndarray:
+    """Uniform index downsampling to at most ``max_len`` rows."""
+    if arr.shape[0] <= max_len:
+        return arr
+    return arr[np.linspace(0, arr.shape[0] - 1, max_len, dtype=int)]
 
 
 def collider_to_dict(box: np.ndarray, label_id: int,

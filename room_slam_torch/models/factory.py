@@ -27,6 +27,7 @@ def build_model(cfg: ModelConfig,
             d_model=cfg.d_model,
             num_queries=cfg.num_queries,
             lstm_layers=cfg.lstm_layers,
+            dropout=cfg.dropout,
             num_classes=cfg.num_classes,
             compute_dtype=cfg.compute_dtype,
             objectness=cfg.objectness,

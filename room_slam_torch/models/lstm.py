@@ -27,6 +27,21 @@ from room_slam_torch.models.common import (MLP, ContactRefineStage, Dense,
 from room_slam_torch.ops.rnn_cuda import bilstm_recurrence
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: zero each element with probability ``rate`` and
+    scale the kept ones by ``1 / (1 - rate)``; the identity in eval mode or
+    at rate 0. The mask is drawn from ``generator`` (``torch.rand``), so a
+    seeded trainer draws the same masks run after run."""
+    if not training or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def _check_compute_dtype(compute_dtype: str) -> None:
     if compute_dtype != "float32":
         raise NotImplementedError(
@@ -74,9 +89,10 @@ class LSTMTraceEncoder(nn.Module):
     coordinate statistics used for relative decoding."""
 
     def __init__(self, input_dim: int = 11, d_model: int = 128,
-                 num_layers: int = 2):
+                 num_layers: int = 2, dropout: float = 0.1):
         super().__init__()
         hidden = d_model // 2
+        self.dropout = dropout
         self.input_proj = Dense(input_dim, d_model)
         for layer in range(num_layers):
             self.add_module(f"lstm_{layer}", BiLSTMLayer(
@@ -85,16 +101,19 @@ class LSTMTraceEncoder(nn.Module):
         self.out_proj = Dense(2 * hidden, d_model)
 
     def forward(self, traces: torch.Tensor,
-                mask: Optional[torch.Tensor] = None):
+                mask: Optional[torch.Tensor] = None,
+                generator: torch.Generator | None = None):
         B, N, _ = traces.shape
         coords = traces[..., :3]
         if mask is None:
             mask = torch.ones(B, N, dtype=torch.bool, device=traces.device)
         mean, scale = trace_stats(coords, mask)
         x = self.input_proj(traces)
-        # inter-layer dropout is inactive at inference
         for layer in range(self.num_layers):
             x = getattr(self, f"lstm_{layer}")(x)
+            if layer < self.num_layers - 1:
+                # inter-layer dropout, as torch nn.LSTM and the reference
+                x = dropout(x, self.dropout, self.training, generator)
         return self.out_proj(x), coords, mean, scale
 
 
@@ -188,11 +207,13 @@ class SimpleQueryDecoder(nn.Module):
 class TraceToColliderLSTM(nn.Module):
     """LSTM encoder + simple query decoder.
 
-    ``generator`` seeds the initial weights (the JAX package's init
+    ``dropout`` is the encoder's inter-layer dropout rate (training mode
+    only). ``generator`` seeds the initial weights (the JAX package's init
     distributions); serving loads real weights through ``weights.py``."""
 
     def __init__(self, input_dim: int = 11, d_model: int = 128,
                  num_queries: int = 30, lstm_layers: int = 2,
+                 dropout: float = 0.1,
                  num_classes: int = 4, compute_dtype: str = "float32",
                  objectness: bool = False, center_xz: bool = False,
                  refine_stages: int = 0, extent_features: bool = False,
@@ -206,18 +227,22 @@ class TraceToColliderLSTM(nn.Module):
         self.objectness = objectness
         self.center_xz = center_xz
         self.refine_stages = refine_stages
-        self.encoder = LSTMTraceEncoder(input_dim, d_model, lstm_layers)
+        self.encoder = LSTMTraceEncoder(input_dim, d_model, lstm_layers,
+                                        dropout)
         self.decoder = SimpleQueryDecoder(
             d_model, num_queries, num_classes, objectness, refine_stages,
             extent_features)
         reset_parameters(self, generator)
 
     def forward(self, traces: torch.Tensor,
-                mask: Optional[torch.Tensor] = None):
+                mask: Optional[torch.Tensor] = None,
+                generator: torch.Generator | None = None):
+        """``generator`` draws the dropout masks in training mode
+        (``model.train()``); it is unused in eval mode."""
         offs = None
         if self.center_xz:
             traces, offs = center_traces_xz(traces, mask)
-        memory, coords, mean, scale = self.encoder(traces, mask)
+        memory, coords, mean, scale = self.encoder(traces, mask, generator)
         outs = self.decoder(memory, coords, mean, scale, mask)
         return assemble_output(outs, offs, self.objectness,
                                self.refine_stages)

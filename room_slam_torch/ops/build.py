@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 from typing import List
@@ -75,8 +76,11 @@ def build(name: str) -> BuildResult:
 
 
 def build_all() -> List[BuildResult]:
-    """Build every kernel source in ``csrc/``, one after another."""
-    return [build(name) for name in kernel_sources()]
+    """Build every kernel source in ``csrc/``, one ``nvcc`` per source, all
+    started together."""
+    names = kernel_sources()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return list(pool.map(build, names))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,1 +1,1 @@
-"""Checkpoints and model loading of room_slam_torch."""
+"""Training, checkpoints and model loading of room_slam_torch."""

@@ -1,22 +1,26 @@
-"""Read the JAX package's checkpoints without flax.
+"""Read and write the JAX package's checkpoints without flax.
 
 A checkpoint is ``<stem>.msgpack`` (``{"params": ..., ["opt_state": ...]}``
 serialized by ``flax.serialization.to_bytes``, where ``params`` is the
 model's variables ``{"params": {...}}``) plus ``<stem>.json`` (the sidecar:
 epoch, metrics, config). flax stores every array as msgpack
 extension type 1 holding a packed ``(shape, dtype_name, bytes)`` tuple,
-and numpy scalars as type 3.
+and numpy scalars as type 3. The port writes the same layout (params only,
+``has_opt_state: false``), so the JAX package's ``load_checkpoint`` and
+``load_model_for_inference`` read what the port trains.
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
+import torch
 
 from room_slam_torch.config import ExperimentConfig
+from room_slam_torch.weights import state_dict_to_params
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -46,6 +50,50 @@ def read_msgpack_tree(data: bytes) -> Dict[str, Any]:
     tree = msgpack.unpackb(data, ext_hook=ext_hook, raw=False)
     _reject_chunked(tree)
     return tree
+
+
+def _ext_from_array(code: int, arr: np.ndarray):
+    import msgpack
+
+    return msgpack.ExtType(code, msgpack.packb(
+        (arr.shape, arr.dtype.name, arr.tobytes("C")), use_bin_type=True))
+
+
+def write_msgpack_tree(tree: Mapping[str, Any]) -> bytes:
+    """Encode nested dicts of numpy arrays as flax msgpack bytes (what
+    ``flax.serialization.to_bytes`` writes for the same tree)."""
+    import msgpack
+
+    def default(x):
+        if isinstance(x, np.ndarray):
+            return _ext_from_array(_EXT_NDARRAY, x)
+        if isinstance(x, np.generic):
+            return _ext_from_array(_EXT_NPSCALAR, np.asarray(x))
+        raise TypeError(f"cannot serialize {type(x).__name__}")
+
+    return msgpack.packb(tree, default=default, strict_types=True)
+
+
+def save_checkpoint(path: str | Path,
+                    state_dict: Mapping[str, torch.Tensor],
+                    epoch: int = 0, val_loss: float = float("nan"),
+                    metrics: Optional[Dict] = None,
+                    config: Optional[ExperimentConfig] = None,
+                    extra: Optional[Dict] = None) -> None:
+    """Write ``<path>.msgpack`` (the model's parameters in the JAX layout,
+    through ``weights.state_dict_to_params``) and the ``<path>.json``
+    sidecar. No optimizer state is written (``has_opt_state: false``):
+    resuming needs optax's state layout, which is later work."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tree = {"params": state_dict_to_params(state_dict)}
+    path.with_suffix(".msgpack").write_bytes(write_msgpack_tree(tree))
+    side = {"epoch": int(epoch), "val_loss": float(val_loss),
+            "metrics": metrics or {}, "has_opt_state": False,
+            **(extra or {})}
+    if config is not None:
+        side["config"] = config.to_dict()
+    path.with_suffix(".json").write_text(json.dumps(side, indent=2))
 
 
 def _reject_chunked(node) -> None:

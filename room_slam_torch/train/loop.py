@@ -1,0 +1,283 @@
+"""Training and evaluation steps (counterpart of the JAX package's
+``train/loop.py``).
+
+One training step: augment -> featurize -> forward (train mode, dropout
+from the step's generator) -> set criterion (host Hungarian matching) ->
+backward (the BiLSTM recurrence through ``BiLSTMFunction``: the training
+forward and BPTT kernels on the card) -> clip by global norm -> AdamW
+[-> parameter EMA]. PyTorch runs eagerly, so there is no fused whole-epoch
+or whole-run dispatch; a CUDA graph is the tool for that, later.
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from room_slam_torch.config import DataConfig, ExperimentConfig
+from room_slam_torch.data.augment import Sample, apply_augment, draw_rands
+from room_slam_torch.data.features import featurize
+from room_slam_torch.ops.losses import set_criterion
+from room_slam_torch.train.metrics import metrics_sums
+
+Batch = Dict[str, torch.Tensor]
+
+
+class Optimizer:
+    """optax's ``chain(clip_by_global_norm(grad_clip), adamw(lr,
+    weight_decay))``, plus the parameter EMA when ``train.ema_decay > 0``.
+
+    Clipping uses optax's formula: when the global norm ``g`` reaches
+    ``grad_clip``, every gradient becomes ``grad / g * grad_clip`` (torch's
+    ``clip_grad_norm_`` divides by ``g + 1e-6`` instead). AdamW is
+    ``torch.optim.AdamW`` with optax's defaults (betas 0.9 / 0.999, eps
+    1e-8 outside the square root, decoupled decay on every parameter); a
+    parameter without a gradient gets a zero gradient, as in optax."""
+
+    def __init__(self, model: nn.Module, cfg: ExperimentConfig):
+        t = cfg.train
+        self.named = list(model.named_parameters())
+        self.params = [p for _, p in self.named]
+        self.grad_clip = t.grad_clip
+        self.adamw = torch.optim.AdamW(self.params, lr=t.lr,
+                                       betas=(0.9, 0.999), eps=1e-8,
+                                       weight_decay=t.weight_decay)
+        self.ema_decay = t.ema_decay
+        self.ema = ({n: p.detach().clone() for n, p in self.named}
+                    if t.ema_decay > 0 else None)
+
+    @property
+    def lr(self) -> float:
+        return float(self.adamw.param_groups[0]["lr"])
+
+    def set_learning_rate(self, lr: float) -> None:
+        for group in self.adamw.param_groups:
+            group["lr"] = float(lr)
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        trigger = g_norm < self.grad_clip
+        for g in grads:
+            g.copy_(torch.where(trigger, g, g / g_norm * self.grad_clip))
+        self.adamw.step()
+        if self.ema is not None:
+            d = self.ema_decay
+            for n, p in self.named:
+                self.ema[n].mul_(d).add_(p, alpha=1.0 - d)
+
+
+def make_optimizer(model: nn.Module, cfg: ExperimentConfig) -> Optimizer:
+    return Optimizer(model, cfg)
+
+
+def eval_model(model: nn.Module, opt: Optimizer) -> nn.Module:
+    """The model to validate with and save as best model: a copy holding
+    the Polyak average when ``train.ema_decay > 0``, else ``model``."""
+    if opt.ema is None:
+        return model
+    avg = copy.deepcopy(model)
+    avg.load_state_dict(opt.ema, strict=False)
+    return avg
+
+
+def warmup_cosine_lr(cfg: ExperimentConfig, epoch: int) -> float:
+    """Linear warmup over ``warmup_epochs``, then cosine decay to 0 over
+    the remaining epochs (``train.lr_schedule = 'cosine'``)."""
+    t = cfg.train
+    if epoch < t.warmup_epochs:
+        scale = (epoch + 1) / t.warmup_epochs
+    else:
+        scale = 0.5 * (1 + math.cos(
+            math.pi * (epoch - t.warmup_epochs)
+            / max(t.num_epochs - t.warmup_epochs, 1)))
+    return t.lr * scale
+
+
+class PlateauScheduler:
+    """Host-side ReduceLROnPlateau with torch semantics: mode=min,
+    relative threshold, cooldown, min_lr."""
+
+    def __init__(self, lr: float, factor: float = 0.5, patience: int = 5,
+                 threshold: float = 1e-3, cooldown: int = 1,
+                 min_lr: float = 1e-6):
+        self.lr = lr
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.best = float("inf")
+        self.num_bad = 0
+        self.cooldown_counter = 0
+
+    def step(self, value: float) -> float:
+        # torch order: count the bad epoch first, then, in cooldown,
+        # decrement the counter and suppress num_bad
+        if value < self.best * (1.0 - self.threshold):
+            self.best = value
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad = 0
+        if self.num_bad > self.patience:
+            self.lr = max(self.lr * self.factor, self.min_lr)
+            self.cooldown_counter = self.cooldown
+            self.num_bad = 0
+        return self.lr
+
+    def state_dict(self) -> Dict[str, float]:
+        return {"lr": self.lr, "best": self.best, "num_bad": self.num_bad,
+                "cooldown_counter": self.cooldown_counter}
+
+
+def _loss_weight_dict(cfg: ExperimentConfig) -> Dict[str, float]:
+    t = cfg.train
+    return {
+        "class_loss": t.loss_weights[0],
+        "l1_loss": t.loss_weights[1],
+        "giou_loss": t.loss_weights[2],
+        "footprint_loss": t.footprint_weight,
+        "objectness_loss": t.objectness_weight,
+        "objectness_iou": 1.0 if t.objectness_iou else 0.0,
+        "size_log_loss": t.size_log_weight,
+        "aux_loss": t.aux_weight,
+        "coverage_loss": t.coverage_weight,
+        "coverage_furniture_only": 1.0 if t.coverage_furniture_only else 0.0,
+    }
+
+
+def _targets(sample: Sample) -> Batch:
+    return {"boxes": sample.boxes, "labels": sample.labels,
+            "valid_mask": sample.valid}
+
+
+def prepare_batch(batch: Batch, cfg: DataConfig,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, Batch]:
+    """Augment (when ``generator`` is given) and featurize a batch:
+    returns ``(feats, mask, targets)``."""
+    sample = Sample(raw=batch["raw"], length=batch["length"],
+                    boxes=batch["boxes"], labels=batch["labels"],
+                    valid=batch["valid"])
+    if generator is not None:
+        B, L = sample.raw.shape[:2]
+        r = draw_rands(generator, B, L, sample.boxes.shape[1], cfg,
+                       device=sample.raw.device)
+        sample = apply_augment(sample, batch["rotation_k"], r, cfg)
+    feats, mask = featurize(sample.raw, sample.length)
+    return feats, mask, _targets(sample)
+
+
+def make_train_step(model: nn.Module, opt: Optimizer, cfg: ExperimentConfig,
+                    augment: bool = True
+                    ) -> Callable[[Batch, torch.Generator], Batch]:
+    """Return ``step(batch, generator) -> losses``: one optimizer update.
+    ``generator`` (on the batch's device) draws the augmentation and the
+    dropout masks. With ``train.grad_accum = A`` the batch is split into A
+    microbatches, each normalizing its own weighted loss, and their
+    gradients are averaged into one update. Losses come back as detached
+    device tensors (the mean over microbatches)."""
+    lw = _loss_weight_dict(cfg)
+    A = max(1, int(cfg.train.grad_accum))
+
+    def step(batch: Batch, generator: torch.Generator) -> Batch:
+        feats, mask, targets = prepare_batch(
+            batch, cfg.data, generator if augment else None)
+        B = feats.shape[0]
+        if B % A:
+            raise ValueError(f"train.grad_accum={A} must divide the batch "
+                             f"size {B}")
+        mb = B // A
+        model.train()
+        opt.zero_grad()
+        losses: Batch = {}
+        for a in range(A):
+            sl = slice(a * mb, (a + 1) * mb)
+            out = model(feats[sl], mask[sl], generator=generator)
+            part = set_criterion(out, {k: v[sl] for k, v in targets.items()},
+                                 batch["weight"][sl], lw)
+            (part["total_loss"] / A).backward()
+            for k, v in part.items():
+                losses[k] = losses.get(k, 0.0) + v.detach() / A
+        opt.step()
+        return losses
+
+    return step
+
+
+def make_eval_step(model: nn.Module, cfg: ExperimentConfig
+                   ) -> Callable[[Batch], Tuple[Batch, Batch]]:
+    """Validation loss step (no augmentation, eval mode): ``step(batch) ->
+    (losses, outputs)``. The objectness term is monitored but kept out of
+    the total, so the total stays comparable with the reference's."""
+    lw = {
+        "class_loss": cfg.train.loss_weights[0],
+        "l1_loss": cfg.train.loss_weights[1],
+        "giou_loss": cfg.train.loss_weights[2],
+        "objectness_loss": 0.0,
+        "objectness_iou": 1.0 if cfg.train.objectness_iou else 0.0,
+    }
+
+    @torch.no_grad()
+    def step(batch: Batch):
+        model.eval()
+        feats, mask, targets = prepare_batch(batch, cfg.data)
+        out = model(feats, mask)
+        return set_criterion(out, targets, batch["weight"], lw), out
+
+    return step
+
+
+def make_eval_epoch(cfg: ExperimentConfig, iou_thresh: float = 0.5
+                    ) -> Callable:
+    """Whole-split evaluation: ``epoch(model, data, plan) -> (mean losses,
+    metric sums)`` with the training loss weights, over the batches of an
+    index plan (``TraceColliderArrays.epoch_plan``) on device-resident
+    ``data``."""
+    lw = _loss_weight_dict(cfg)
+
+    @torch.no_grad()
+    def epoch(model: nn.Module, data: Batch, plan: Dict[str, np.ndarray]):
+        model.eval()
+        losses: Batch = {}
+        sums: Batch = {}
+        nb = plan["base_idx"].shape[0]
+        for i in range(nb):
+            batch = gather_batch(data, plan, i)
+            feats, mask, targets = prepare_batch(batch, cfg.data)
+            out = model(feats, mask)
+            for k, v in set_criterion(out, targets, batch["weight"],
+                                      lw).items():
+                losses[k] = losses.get(k, 0.0) + v / nb
+            for k, v in metrics_sums(out, batch, iou_thresh).items():
+                sums[k] = sums.get(k, 0) + v
+        return losses, sums
+
+    return epoch
+
+
+def gather_batch(data: Batch, plan: Dict[str, np.ndarray], i: int) -> Batch:
+    """Batch ``i`` of an index plan from device-resident dataset arrays."""
+    dev = data["raw"].device
+    idx = torch.from_numpy(plan["base_idx"][i]).to(dev).long()
+    batch = {k: v[idx] for k, v in data.items()}
+    batch["weight"] = torch.from_numpy(plan["weight"][i]).to(dev)
+    if "rotation_k" in plan:
+        batch["rotation_k"] = torch.from_numpy(plan["rotation_k"][i]).to(dev)
+    return batch

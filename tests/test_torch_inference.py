@@ -127,7 +127,14 @@ def _imported_modules(path):
 def test_port_imports_no_jax():
     files = sorted((REPO / "room_slam_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 15
+    # the training slice's modules are among those checked
+    training = {"ops/hungarian.py", "ops/losses.py", "data/augment.py",
+                "data/dataset.py", "data/rooms.py", "train/loop.py",
+                "train/metrics.py", "train/__main__.py",
+                "utils/logging.py"}
+    rel = {str(f.relative_to(REPO / "room_slam_torch")) for f in files[:-1]}
+    assert training <= rel, training - rel
+    assert len(files) > 25
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]

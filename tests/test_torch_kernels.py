@@ -75,15 +75,21 @@ def test_bilstm_wrapper_checks_shapes():
 
 
 def test_bilstm_kernel_refuses_grad():
-    """The kernel has no backward yet: with grad on, an input that needs a
-    gradient is refused before any device work instead of being cut off
-    from the graph. Without grad the same call goes on to the device
-    check (CPU tensors here)."""
+    """The light kernel never sees an input that needs a gradient: with
+    grad on, ``bilstm_recurrence`` routes it to ``BiLSTMFunction`` (on the
+    CPU its plain training forward, no kernel launch), whose outputs stay
+    in the graph. The light wrapper itself takes CUDA tensors only."""
     xgf, xgb, wf, wb = map(torch.from_numpy, _inputs(2, 5, 8))
     wf.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        rnn_cuda.bilstm_fwd_cuda(xgf, xgb, wf, wb)
-    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+    counts = (rnn_cuda.bilstm_fwd_cuda.launches,
+              rnn_cuda.bilstm_fwd_train_cuda.launches)
+    ys_f, ys_b = bilstm_recurrence(xgf, xgb, wf, wb)
+    assert type(ys_f.grad_fn).__name__ == "BiLSTMFunctionBackward"
+    assert (rnn_cuda.bilstm_fwd_cuda.launches,
+            rnn_cuda.bilstm_fwd_train_cuda.launches) == counts
+    with torch.no_grad():
+        assert bilstm_recurrence(xgf, xgb, wf, wb)[0].grad_fn is None
+    with pytest.raises(ValueError, match="CUDA"):
         rnn_cuda.bilstm_fwd_cuda(xgf, xgb, wf, wb)
 
 
