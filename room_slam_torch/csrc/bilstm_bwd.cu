@@ -9,7 +9,8 @@
 // matrix product outside the kernel, as in the reference.
 //
 // Per step, with the linearized coefficients of the reference (:459-473)
-// computed from the saved activated gates (i, f, g, o), c_t and c_{t-1}:
+// computed from the saved activated gates (i, f, g, o), c_t and c_{t-1}
+// (c at the walk's next step, zero after its last):
 //
 //   c_c = o * (1 - tanh(c)^2)
 //   c4  = [g * i(1-i), c_prev * f(1-f), i * (1-g^2), tanh(c) * o(1-o)]
@@ -23,8 +24,8 @@
 // walks t = 0 .. N-1. All arrays are in original time order.
 //
 // What bounds it on an H100. At the flagship training shape (B=20,
-// N=1500, H=64) it reads 4H + 3H floats and writes 4H floats per (row, step)
-// and direction, 169 MB in all (about 50 us at 3.35 TB/s), and does about
+// N=1500, H=64) it reads 4H + 2H floats and writes 4H floats per (row, step)
+// and direction, 154 MB in all (about 46 us at 3.35 TB/s), and does about
 // 2 GFLOP (about 30 us at 67 TFLOP/s f32). The real floor is the serial
 // chain of N dependent steps, each a 256-deep dot product and a barrier.
 //
@@ -35,10 +36,14 @@
 // at H=64) is transposed once into dynamic shared memory and stays there for
 // the whole walk, so the dot product's W reads are conflict-free and its dg
 // reads are broadcasts. dg goes through a double-buffered shared tile, so
-// each step needs one barrier. The next step's gates, c, c_prev and dy are
-// prefetched into registers before this step's dot product, and the
-// coefficients are computed beside the chain, so no extra pass over the
-// residuals is made.
+// each step needs one barrier. The next step's gates, c, c_{t-1} and dy are
+// prefetched into registers before this step's dot product, every load
+// independent of earlier steps. c_{t-1} is read through a second pointer
+// into cs, shifted by one step, at the same index as c and dy: each c is read
+// twice and the second read hits the cache (measured faster on an H100 than
+// a separate c_prev array, a guarded read at t +- 1, or taking it from the
+// next step's prefetch). The coefficients are computed beside the chain, so
+// no extra pass over the residuals is made.
 
 #include <cuda_runtime.h>
 
@@ -58,11 +63,9 @@ bilstm_bwd_kernel(const float* __restrict__ w_f,
                   const float* __restrict__ w_b,
                   const float* __restrict__ gs_f,
                   const float* __restrict__ cs_f,
-                  const float* __restrict__ cp_f,
                   const float* __restrict__ dy_f,
                   const float* __restrict__ gs_b,
                   const float* __restrict__ cs_b,
-                  const float* __restrict__ cp_b,
                   const float* __restrict__ dy_b,
                   float* __restrict__ dg_f,
                   float* __restrict__ dg_b,
@@ -87,13 +90,16 @@ bilstm_bwd_kernel(const float* __restrict__ w_f,
   const bool valid = row0 + cb < B;
   const size_t row = static_cast<size_t>(valid ? row0 + cb : 0);
   const size_t goff = row * N * G + cu;   // gates / dg of this cell at t = 0
-  const size_t coff = row * N * H + cu;   // c, c_prev, dy of this cell
+  const size_t coff = row * N * H + cu;   // c, dy of this cell
   const float* gs = (bwd ? gs_b : gs_f) + goff;
   const float* cs = (bwd ? cs_b : cs_f) + coff;
-  const float* cp = (bwd ? cp_b : cp_f) + coff;
   const float* dy = (bwd ? dy_b : dy_f) + coff;
   float* dg = (bwd ? dg_b : dg_f) + goff;
 
+  // c at the direction's previous step (t - 1 forward, t + 1 backward),
+  // read only after the direction's first step
+  const int first = bwd ? N - 1 : 0;
+  const float* cps = cs + (bwd ? H : -H);
   auto load = [&](int t) {
     StepIn in{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (valid) {
@@ -104,7 +110,7 @@ bilstm_bwd_kernel(const float* __restrict__ w_f,
       in.g = gt[2 * H];
       in.o = gt[3 * H];
       in.c = cs[tc];
-      in.cp = cp[tc];
+      if (t != first) in.cp = cps[tc];
       in.dy = dy[tc];
     }
     return in;
@@ -185,14 +191,12 @@ extern "C" {
 
 // Launch on `stream` (a cudaStream_t) of the calling thread's current
 // device. All tensors are contiguous float32: w_* [H, 4H]; gs_* and dg_*
-// [B, N, 4H]; cs_*, cp_* (c_{t-1} in each direction's own order, zero at
-// its first step) and dy_* [B, N, H]. Returns a cudaError_t code; 0 means
+// [B, N, 4H]; cs_* and dy_* [B, N, H]. Returns a cudaError_t code; 0 means
 // the launch was accepted.
 int bilstm_bwd_f32(const float* w_f, const float* w_b, const float* gs_f,
-                   const float* cs_f, const float* cp_f, const float* dy_f,
-                   const float* gs_b, const float* cs_b, const float* cp_b,
-                   const float* dy_b, float* dg_f, float* dg_b, int B, int N,
-                   int H, void* stream) {
+                   const float* cs_f, const float* dy_f, const float* gs_b,
+                   const float* cs_b, const float* dy_b, float* dg_f,
+                   float* dg_b, int B, int N, int H, void* stream) {
   if (B <= 0 || N <= 0 || H <= 0 || 4 * H > 512)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(H);
@@ -200,8 +204,7 @@ int bilstm_bwd_f32(const float* w_f, const float* w_b, const float* gs_f,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((B + kRows - 1) / kRows, 2);
   bilstm_bwd_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-      w_f, w_b, gs_f, cs_f, cp_f, dy_f, gs_b, cs_b, cp_b, dy_b, dg_f, dg_b, B,
-      N, H);
+      w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b, dg_f, dg_b, B, N, H);
   return static_cast<int>(cudaGetLastError());
 }
 

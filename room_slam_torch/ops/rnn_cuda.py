@@ -109,13 +109,14 @@ def bilstm_fwd_train_plain(xg_f: torch.Tensor, xg_b: torch.Tensor,
     return ys_f, ys_b, cs_f, cs_b, gs_f, gs_b
 
 
-def _lstm_bwd_plain(w, gs, cs, cp, dy, reverse: bool) -> torch.Tensor:
+def _lstm_bwd_plain(w, gs, cs, dy, reverse: bool) -> torch.Tensor:
     """One direction of the kernel's BPTT, step for step: the linearized
     coefficients of the reference, then the serial walk against the
     direction's forward order."""
     B, N, G = gs.shape
     H = G // 4
     i, f, gg, o = gs.split(H, dim=-1)
+    cp = prev_steps(cs, reverse)
     tanh_c = torch.tanh(cs)
     c_c = o * (1.0 - tanh_c * tanh_c)
     c4 = torch.cat([gg * i * (1.0 - i), cp * f * (1.0 - f),
@@ -134,13 +135,13 @@ def _lstm_bwd_plain(w, gs, cs, cp, dy, reverse: bool) -> torch.Tensor:
     return dg
 
 
-def bilstm_bwd_plain(w_f, w_b, gs_f, cs_f, cp_f, dy_f, gs_b, cs_b, cp_b,
-                     dy_b) -> Tuple[torch.Tensor, torch.Tensor]:
+def bilstm_bwd_plain(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``bilstm_bwd``: ``(dg_f, dg_b)``, each
-    ``[B, N, 4H]``. ``cp_*`` is ``c_{t-1}`` in each direction's own order
-    (zero at its first step)."""
-    return (_lstm_bwd_plain(w_f, gs_f, cs_f, cp_f, dy_f, reverse=False),
-            _lstm_bwd_plain(w_b, gs_b, cs_b, cp_b, dy_b, reverse=True))
+    ``[B, N, 4H]``, from the training forward's gates and c and the
+    upstream ``dy``."""
+    return (_lstm_bwd_plain(w_f, gs_f, cs_f, dy_f, reverse=False),
+            _lstm_bwd_plain(w_b, gs_b, cs_b, dy_b, reverse=True))
 
 
 # ---------------------------------------------------------------------------
@@ -180,16 +181,15 @@ def bilstm_fwd_train(xg_f, xg_b, w_f, w_b):
     """Training forward: ``(ys_f, ys_b, cs_f, cs_b, gs_f, gs_b)``; CUDA
     tensors launch ``bilstm_fwd_train``, CPU tensors take the plain
     version."""
-    _check_shapes(xg_f, xg_b, w_f, w_b)
     if _device_type("bilstm_fwd_train", xg_f, xg_b, w_f, w_b) == "cpu":
         return bilstm_fwd_train_plain(xg_f, xg_b, w_f, w_b)
     return bilstm_fwd_train_cuda(xg_f, xg_b, w_f, w_b)
 
 
-def bilstm_bwd(w_f, w_b, gs_f, cs_f, cp_f, dy_f, gs_b, cs_b, cp_b, dy_b):
+def bilstm_bwd(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b):
     """BPTT of both directions: ``(dg_f, dg_b)``; CUDA tensors launch
     ``bilstm_bwd``, CPU tensors take the plain version."""
-    ins = (w_f, w_b, gs_f, cs_f, cp_f, dy_f, gs_b, cs_b, cp_b, dy_b)
+    ins = (w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b)
     if _device_type("bilstm_bwd", *ins) == "cpu":
         return bilstm_bwd_plain(*ins)
     return bilstm_bwd_cuda(*ins)
@@ -213,10 +213,8 @@ class BiLSTMFunction(torch.autograd.Function):
         # autograd hands zeros for an output that got no gradient; the
         # halves of a concatenation arrive as strided views
         w_f, w_b, ys_f, ys_b, cs_f, cs_b, gs_f, gs_b = ctx.saved_tensors
-        dg_f, dg_b = bilstm_bwd(
-            w_f, w_b, gs_f, cs_f, prev_steps(cs_f, reverse=False),
-            dy_f.contiguous(), gs_b, cs_b, prev_steps(cs_b, reverse=True),
-            dy_b.contiguous())
+        dg_f, dg_b = bilstm_bwd(w_f, w_b, gs_f, cs_f, dy_f.contiguous(),
+                                gs_b, cs_b, dy_b.contiguous())
         H = w_f.shape[0]
 
         def dw(ys, dg, reverse):
@@ -256,7 +254,7 @@ def _library(name: str):
         lib.bilstm_fwd_train_f32.argtypes = [p] * 10 + [i] * 3 + [p]
         fns = (lib.bilstm_fwd_f32, lib.bilstm_fwd_train_f32)
     else:
-        lib.bilstm_bwd_f32.argtypes = [p] * 12 + [i] * 3 + [p]
+        lib.bilstm_bwd_f32.argtypes = [p] * 10 + [i] * 3 + [p]
         fns = (lib.bilstm_bwd_f32,)
     for fn in fns:
         fn.restype = ctypes.c_int
@@ -347,21 +345,19 @@ def bilstm_fwd_train_cuda(xg_f: torch.Tensor, xg_b: torch.Tensor,
 bilstm_fwd_train_cuda.launches = 0
 
 
-def bilstm_bwd_cuda(w_f, w_b, gs_f, cs_f, cp_f, dy_f, gs_b, cs_b, cp_b,
-                    dy_b) -> Tuple[torch.Tensor, torch.Tensor]:
+def bilstm_bwd_cuda(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/bilstm_bwd.cu``: returns ``(dg_f, dg_b)``. Counts each
     launch in ``bilstm_bwd_cuda.launches``."""
-    H = w_f.shape[0]
+    _check_shapes(gs_f, gs_b, w_f, w_b)
     B, N, G = gs_f.shape
-    if w_f.shape != (H, 4 * H) or w_b.shape != w_f.shape or G != 4 * H \
-            or gs_b.shape != gs_f.shape \
-            or any(t.shape != (B, N, H)
-                   for t in (cs_f, cp_f, dy_f, cs_b, cp_b, dy_b)):
+    H = G // 4
+    if any(t.shape != (B, N, H) for t in (cs_f, dy_f, cs_b, dy_b)):
         raise ValueError(
-            "bilstm_bwd: w_* must be [H, 4H], gs_* [B, N, 4H] and cs_*, "
-            "cp_*, dy_* [B, N, H]; got "
-            f"{[tuple(t.shape) for t in (w_f, gs_f, cs_f, cp_f, dy_f)]}")
-    ins = (w_f, w_b, gs_f, cs_f, cp_f, dy_f, gs_b, cs_b, cp_b, dy_b)
+            "bilstm_bwd: cs_* and dy_* must be [B, N, H] with gs_* "
+            f"[B, N, 4H] = {tuple(gs_f.shape)}; got "
+            f"{[tuple(t.shape) for t in (cs_f, dy_f, cs_b, dy_b)]}")
+    ins = (w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b)
     dev = _check_cuda("bilstm_bwd", ins, bilstm_bwd_smem_bytes(H))
     dg_f = torch.empty(B, N, G, dtype=torch.float32, device=dev)
     dg_b = torch.empty_like(dg_f)

@@ -81,8 +81,7 @@ def test_bwd_kernel_matches_plain(cuda, shape):
     g = torch.Generator(cuda).manual_seed(1)
     dy_f = torch.randn(ys_f.shape, device=cuda, generator=g)
     dy_b = torch.randn(ys_b.shape, device=cuda, generator=g)
-    args = (ins[2], ins[3], gs_f, cs_f, rnn_cuda.prev_steps(cs_f, False),
-            dy_f, gs_b, cs_b, rnn_cuda.prev_steps(cs_b, True), dy_b)
+    args = (ins[2], ins[3], gs_f, cs_f, dy_f, gs_b, cs_b, dy_b)
     before = rnn_cuda.bilstm_bwd_cuda.launches
     got = rnn_cuda.bilstm_bwd(*args)
     torch.cuda.synchronize()
@@ -152,13 +151,13 @@ def test_new_kernels_raise_on_bad_inputs(cuda):
     with pytest.raises(ValueError):
         rnn_cuda.bilstm_fwd_train(ins[0], ins[1].cpu(), *ins[2:])
     ys_f, ys_b, cs_f, cs_b, gs_f, gs_b = rnn_cuda.bilstm_fwd_train(*ins)
-    args = [ins[2], ins[3], gs_f, cs_f, cs_f, ys_f, gs_b, cs_b, cs_b, ys_b]
+    args = [ins[2], ins[3], gs_f, cs_f, ys_f, gs_b, cs_b, ys_b]
     with pytest.raises(TypeError):
         rnn_cuda.bilstm_bwd_cuda(*[a.double() for a in args])
     with pytest.raises(ValueError):
-        rnn_cuda.bilstm_bwd_cuda(*args[:5], ys_f[:, :4], *args[6:])
+        rnn_cuda.bilstm_bwd_cuda(*args[:4], ys_f[:, :4], *args[5:])
     with pytest.raises(ValueError):
-        rnn_cuda.bilstm_bwd(*args[:9], ys_b.cpu())
+        rnn_cuda.bilstm_bwd(*args[:7], ys_b.cpu())
     wide = _inputs(1, 3, 128, cuda)     # W_hh^T of H=128 overflows a block
     with pytest.raises(ValueError, match="shared memory"):
         rnn_cuda.bilstm_fwd_train_cuda(*wide)
