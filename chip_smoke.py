@@ -41,7 +41,28 @@ Phases, one line each or more (a failed check raises; nothing is caught):
 11. train-step timing at the flagship training shape (B=20, N=1500) and the
     bench shape (B=32, N=500): p50 step ms and traces/s over ``STEPS``
     steps after ``STEP_WARMUP``, then a per-stage mean with a
-    synchronise between stages.
+    synchronise between stages;
+12. BiGRU kernel check on the card: ``bigru_fwd`` (ys), ``bigru_fwd_train``
+    (ys, gates, hn) and ``bigru_bwd`` (dx, dhn) against their plain
+    versions, and ``BiGRUFunction``'s six gradients against torch autograd
+    through the plain loop, at the scale-up shape (128, 5000, 256) in bf16,
+    (16, 5000, 256) in f32 and (5, 43, 16) in both, with each launch's
+    cluster size and batch tile;
+13. BiGRU kernel timing at the scale-up shape: each kernel, its plain
+    version, torch ``nn.GRU`` (never called by the port), the bound and the
+    time per step;
+14. scale-up training (a main path): seeded rooms of 5000-7500 points,
+    ``train_benchmark`` on the scale-up bigru config (d_model 512, 32
+    queries, bf16 streams, B=128, N=5000) for 3 steps; finite losses, a
+    checkpoint, launch counts, peak device memory;
+15. scale-up serving (a main path): the checkpoint answers one request of
+    7500 points with two ``bigru_fwd`` launches; outputs and colliders
+    against the same model through the plain recurrence on the card;
+16. one scale-up step at B=8 with the kernels and with their plain
+    versions patched in, on the card: equal assignments, losses within the
+    bf16 tolerance;
+17. scale-up train-step timing (B=128, N=5000): p50 over
+    ``SCALEUP_STEPS`` after ``SCALEUP_WARMUP``, then the per-stage split.
 
 Then a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without a CUDA card.
@@ -50,6 +71,7 @@ Exits non-zero without a CUDA card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import subprocess
@@ -68,9 +90,10 @@ from room_slam_torch.data import formats
 from room_slam_torch.data.dataset import TraceColliderArrays
 from room_slam_torch.data.features import featurize
 from room_slam_torch.data.rooms import write_rooms
+from room_slam_torch.models import gru as gru_mod
 from room_slam_torch.models import lstm as lstm_mod
 from room_slam_torch.models.factory import build_model
-from room_slam_torch.ops import build, rnn_cuda
+from room_slam_torch.ops import build, gru_cuda, rnn_cuda
 from room_slam_torch.ops import losses as losses_mod
 from room_slam_torch.predictor import build_predictor
 from room_slam_torch.train import loop
@@ -83,6 +106,7 @@ CONFIG = REPO / "configs" / "flagship_v15.json"
 # H100 SXM published peaks at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 KERNEL_ATOL = 1e-4   # on h, c and gates: f32 sum order over <= 1500 steps
 GRAD_REL = 1e-4      # max abs error / max abs reference, the JAX suite's
 MODEL_TOL = 1e-3     # rtol and atol on the model outputs (boxes in metres)
@@ -93,6 +117,23 @@ TRAIN = (20, 1500, 64)   # flagship batch_size, max_trace_len, d_model / 2
 STEP_SHAPES = ((20, 1500), (32, 500))
 ROOMS, EPOCHS = 40, 2        # seeded rooms (1 in 5 for validation), epochs
 STEPS, STEP_WARMUP = 50, 5   # train steps timed per shape, after warm-up
+# the scale-up bigru config (bench.py bench_scaleup): B, N, d_model / 2
+SCALEUP = (128, 5000, 256)
+SCALEUP_SETS = ("model.model_type=bigru", "model.d_model=512",
+                "model.num_queries=32", "model.compute_dtype=bfloat16",
+                "data.max_colliders=32")
+GRU_SHAPES = ((SCALEUP, torch.bfloat16), ((16, 5000, 256), torch.float32),
+              ((5, 43, 16), torch.float32), ((5, 43, 16), torch.bfloat16))
+BF16_RTOL, BF16_ATOL = 0.05, 0.03   # bf16 streams: values (the JAX suite's)
+BF16_GRAD_REL = 0.1                 # bf16 streams: gradients, max-rel
+SCALEUP_TRAIN_ROOMS, SCALEUP_VAL_ROOMS = 96, 8   # x 4 rotations: 3 steps
+SCALEUP_POINTS = (5000, 7500)       # walk length per room, before the cut
+SCALEUP_REQUEST = 7500              # points of the served request
+SCALEUP_PARITY_B = 8                # batch of the kernel-vs-plain step
+SCALEUP_STEPS, SCALEUP_WARMUP = 10, 3   # bench_scaleup's own counts
+GRU_PLAIN = {"bigru_fwd_cuda": gru_cuda.bigru_fwd_plain,
+             "bigru_fwd_train_cuda": gru_cuda.bigru_fwd_train_plain,
+             "bigru_bwd_cuda": gru_cuda.bigru_bwd_plain}
 
 
 def log(phase: str, msg: str) -> None:
@@ -115,11 +156,11 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
-    """Least time in ms for ``nbytes`` moved and ``flops`` f32 operations
-    on the card, and which of the two sets it."""
+def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOP_PER_S):
+    """Least time in ms for ``nbytes`` moved and ``flops`` operations at
+    ``peak`` (f32 by default) on the card, and which of the two sets it."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -144,6 +185,179 @@ def bwd_bound(B: int, N: int, H: int):
     tanh counted as one)."""
     return bound(4 * 2 * (B * N * (4 * H + 2 * H + 4 * H) + 4 * H * H),
                  2 * B * N * (2 * 4 * H * H + 25 * H))
+
+
+GRU_COLS = {"bigru_fwd": 4, "bigru_fwd_train": 8, "bigru_bwd": 10}
+
+
+def gru_bound(name: str, B: int, N: int, H: int, dtype: torch.dtype):
+    """Both directions: per (row, step) the stream values each kernel must
+    read and write (``bigru_fwd`` 3H in + H out; ``bigru_fwd_train`` also
+    3H + H of residuals out; ``bigru_bwd`` 3H + H + H + H in, 3H + H out),
+    W_hh read once; operations: the h @ W_hh (dg @ W_hh^T) products,
+    2 * 3H * H per (row, step), at the peak of the operand type."""
+    item = torch.finfo(dtype).bits // 8
+    nbytes = 2 * (B * N * GRU_COLS[name] * H + 3 * H * H) * item
+    peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
+        else PEAK_F32_FLOP_PER_S
+    return bound(nbytes, 2 * B * N * 2 * 3 * H * H, peak)
+
+
+def gru_inputs(B, N, H, dtype, dev, seed):
+    """Seeded BiGRU kernel inputs: gate streams in ``dtype``, W_hh and b_hh
+    float32 U(+-1/sqrt(H))."""
+    g = np.random.default_rng(seed)
+    xs = [torch.tensor(g.normal(size=(B, N, 3 * H)) * 0.5,
+                       dtype=torch.float32, device=dev).to(dtype)
+          for _ in range(2)]
+    ws = [torch.tensor(g.uniform(-1, 1, size=sz) / np.sqrt(H),
+                       dtype=torch.float32, device=dev)
+          for sz in ((H, 3 * H), (3 * H,), (H, 3 * H), (3 * H,))]
+    return [*xs, *ws]
+
+
+def gru_bwd_inputs(ins, seed):
+    """``bigru_bwd``'s arguments on the plain training forward's residuals
+    of ``ins``, with a seeded upstream gradient in the stream dtype."""
+    ys_f, ys_b, gs_f, gs_b, hn_f, hn_b = gru_cuda.bigru_fwd_train_plain(*ins)
+    g = torch.Generator(ins[0].device).manual_seed(seed)
+    dy_f, dy_b = (torch.randn(ys_f.shape, device=ys_f.device, generator=g
+                              ).to(ys_f.dtype) for _ in range(2))
+    return ins[2], ins[4], gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b, dy_b
+
+
+def value_err(got, ref, dtype) -> float:
+    """Max abs error over output pairs; asserts the tolerance of ``dtype``
+    (f32: ``KERNEL_ATOL``; bf16: rtol ``BF16_RTOL`` / atol ``BF16_ATOL``)."""
+    err = 0.0
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.isfinite(a).all()
+        a, b = a.float(), b.float()
+        err = max(err, (a - b).abs().max().item())
+        if dtype == torch.bfloat16:
+            assert torch.allclose(a, b, rtol=BF16_RTOL, atol=BF16_ATOL), \
+                (a - b).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= KERNEL_ATOL, err
+    return err
+
+
+def plan_text(fn) -> str:
+    p = fn.last_launch
+    return (f"cluster {p['cluster']} x rows {p['rows']}, {p['clusters']} "
+            f"clusters, {p['resident']} resident")
+
+
+def check_gru_kernels(dev, seed):
+    """Phase 12: the three BiGRU kernels against their plain versions and
+    ``BiGRUFunction``'s six gradients against torch autograd through the
+    plain loop; returns errors by (shape, dtype)."""
+    errs = {}
+    for shape, dtype in GRU_SHAPES:
+        ins = gru_inputs(*shape, dtype, dev, seed)
+        light_err = value_err(gru_cuda.bigru_fwd_cuda(*ins),
+                              gru_cuda.bigru_fwd_plain(*ins), dtype)
+        plans = {"bigru_fwd": plan_text(gru_cuda.bigru_fwd_cuda)}
+        train_err = value_err(gru_cuda.bigru_fwd_train_cuda(*ins),
+                              gru_cuda.bigru_fwd_train_plain(*ins), dtype)
+        plans["bigru_fwd_train"] = plan_text(gru_cuda.bigru_fwd_train_cuda)
+        args = gru_bwd_inputs(ins, seed + 1)
+        got = gru_cuda.bigru_bwd_cuda(*args)
+        plans["bigru_bwd"] = plan_text(gru_cuda.bigru_bwd_cuda)
+        ref = gru_cuda.bigru_bwd_plain(*args)
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(a).all() for a in got), shape
+        bwd_abs = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got, ref))
+        bwd_rel = max(max_rel(a.float(), b.float()) for a, b in zip(got, ref))
+        del got, ref
+        x = [t.clone().requires_grad_(True) for t in ins]
+        dys = [args[5], args[9]]
+        grads = torch.autograd.grad(gru_cuda.bigru_recurrence(*x), x, dys)
+        ref_grads = torch.autograd.grad(gru_cuda.bigru_fwd_plain(*x), x, dys)
+        fn_rel = {name: max_rel(a.float(), b.float()) for name, a, b in zip(
+            ("dxg_f", "dxg_b", "dW_f", "db_f", "dW_b", "db_b"), grads,
+            ref_grads)}
+        del x, grads, ref_grads, args
+        key = (shape, dtype)
+        errs[key] = {"fwd": light_err, "fwd_train": train_err,
+                     "bwd_abs": bwd_abs, "bwd_rel": bwd_rel,
+                     "function_rel": fn_rel}
+        rel_tol = GRAD_REL if dtype == torch.float32 else BF16_GRAD_REL
+        tol = (f"tol {KERNEL_ATOL:.0e}" if dtype == torch.float32 else
+               f"tol rtol {BF16_RTOL} atol {BF16_ATOL}")
+        log("kernel_check",
+            f"B,N,H={shape} {str(dtype)[6:]}: bigru_fwd ys max_abs_err="
+            f"{light_err:.3e}, bigru_fwd_train (ys, gates, hn) max_abs_err="
+            f"{train_err:.3e} ({tol}); bigru_bwd (dx, dhn) max_abs_err="
+            f"{bwd_abs:.3e} max_rel_err={bwd_rel:.3e} tol {rel_tol:g}; "
+            "BiGRUFunction vs autograd through the plain loop max_rel_err "
+            + " ".join(f"{k}={v:.3e}" for k, v in fn_rel.items())
+            + "; launches: " + "; ".join(f"{k} {v}" for k, v in plans.items()))
+        assert bwd_rel <= rel_tol, (shape, bwd_rel)
+        assert max(fn_rel.values()) <= rel_tol, (shape, fn_rel)
+    return errs
+
+
+def time_gru_kernels(dev, seed, errs):
+    """Phase 13: each BiGRU kernel at the scale-up shape in bf16, its plain
+    version, torch ``nn.GRU`` (bidirectional, bf16, its input projection
+    included; never called by the port) and the bound."""
+    B, N, H = SCALEUP
+    dtype = torch.bfloat16
+    ins = gru_inputs(B, N, H, dtype, dev, seed)
+    args = gru_bwd_inputs(ins, seed + 1)
+    lib = torch.nn.GRU(2 * H, H, batch_first=True, bidirectional=True).to(
+        dev, dtype)
+    x = torch.randn(B, N, 2 * H, device=dev, dtype=dtype, requires_grad=True,
+                    generator=torch.Generator(dev).manual_seed(seed))
+    dy = torch.randn(B, N, 2 * H, device=dev, dtype=dtype,
+                     generator=torch.Generator(dev).manual_seed(seed))
+    cudnn = torch.backends.cudnn.is_acceptable(x)
+    lib_ms = {}
+    # cuDNN takes no bf16 RNN (is_acceptable), so nn.GRU in bf16 runs
+    # PyTorch's own step loop; cuDNN in fp16 (same bytes per value) is timed
+    # beside it
+    for key, dt in (("bf16", dtype), ("cudnn_fp16", torch.float16)):
+        m = lib.to(dt)
+        m.flatten_parameters()
+        xi = x.detach().to(dt).requires_grad_(True)
+        dyi = dy.to(dt)
+        with torch.no_grad():
+            light = cuda_ms(lambda: m(xi), 3, warmup=1)
+        fwd = cuda_ms(lambda: m(xi), 3, warmup=1)
+        fb = cuda_ms(lambda: m(xi)[0].backward(dyi), 3, warmup=1)
+        lib_ms[key] = {"bigru_fwd": light, "bigru_fwd_train": fwd,
+                       "bigru_bwd": fb - fwd}
+    err = errs[(SCALEUP, dtype)]
+    rows = {}
+    for name, fn, plain, a, e in (
+            ("bigru_fwd", gru_cuda.bigru_fwd_cuda, gru_cuda.bigru_fwd_plain,
+             ins, err["fwd"]),
+            ("bigru_fwd_train", gru_cuda.bigru_fwd_train_cuda,
+             gru_cuda.bigru_fwd_train_plain, ins, err["fwd_train"]),
+            ("bigru_bwd", gru_cuda.bigru_bwd_cuda, gru_cuda.bigru_bwd_plain,
+             args, err["bwd_abs"])):
+        ms = cuda_ms(lambda: fn(*a), 3, warmup=1)
+        plain_ms = cuda_ms(lambda: plain(*a), 1, warmup=0)
+        b = gru_bound(name, B, N, H, dtype)
+        rows[name] = {"shape": [B, N, H], "dtype": "bfloat16",
+                      "kernel_ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms["bf16"][name],
+                      "cudnn_fp16_ms": lib_ms["cudnn_fp16"][name],
+                      "bound_us": b[0] * 1e3,
+                      "bound_by": b[1], "us_per_step": ms / N * 1e3,
+                      "err": e, "launch": dict(fn.last_launch)}
+        log("kernel_time", f"{name} " + json.dumps(rows[name]) + (
+            "  (library_ms: nn.GRU bidirectional bf16, "
+            f"cudnn.is_acceptable={cudnn}; cudnn_fp16_ms: the same in fp16 "
+            "through cuDNN; both "
+            + {"bigru_fwd": "forward without grad",
+               "bigru_fwd_train": "forward with grad on",
+               "bigru_bwd": "forward + backward minus forward"}[name]
+            + ", includes the input projection)"))
+    return rows
 
 
 def kernel_inputs(B, N, H, dev, seed):
@@ -184,16 +398,26 @@ def collider_values(c):
     return [c["confidence"], *c["center"].values(), *c["size"].values()]
 
 
+WRAPPERS = {"bilstm_fwd": (rnn_cuda, "bilstm_fwd_cuda"),
+            "bilstm_fwd_train": (rnn_cuda, "bilstm_fwd_train_cuda"),
+            "bilstm_bwd": (rnn_cuda, "bilstm_bwd_cuda"),
+            "bigru_fwd": (gru_cuda, "bigru_fwd_cuda"),
+            "bigru_fwd_train": (gru_cuda, "bigru_fwd_train_cuda"),
+            "bigru_bwd": (gru_cuda, "bigru_bwd_cuda")}
+
+
 def counts():
-    return {"bilstm_fwd": rnn_cuda.bilstm_fwd_cuda.launches,
-            "bilstm_fwd_train": rnn_cuda.bilstm_fwd_train_cuda.launches,
-            "bilstm_bwd": rnn_cuda.bilstm_bwd_cuda.launches}
+    return {k: getattr(mod, fn).launches for k, (mod, fn) in WRAPPERS.items()}
 
 
 def reset_counts() -> None:
-    for fn in (rnn_cuda.bilstm_fwd_cuda, rnn_cuda.bilstm_fwd_train_cuda,
-               rnn_cuda.bilstm_bwd_cuda):
-        fn.launches = 0
+    for mod, fn in WRAPPERS.values():
+        getattr(mod, fn).launches = 0
+
+
+def expected_counts(**launched):
+    """Every wrapper's count: the given ones, zero for the rest."""
+    return {k: launched.get(k, 0) for k in WRAPPERS}
 
 
 def check_training_kernels(dev, seed):
@@ -285,8 +509,11 @@ def make_rooms(root: Path, n_rooms: int, seed: int):
     return root / "train", root / "val"
 
 
-def train_main_path(cfg, train_dir, val_dir, save_dir, epochs, dev, smi):
-    """Phase 8: the trainer on the card, launch counts read around it."""
+def train_main_path(cfg, train_dir, val_dir, save_dir, epochs, dev, smi,
+                    prefix="bilstm"):
+    """Phases 8 and 14: the trainer on the card, launch counts read around
+    it: two training forwards and two BPTT launches of the ``prefix``
+    kernels per step, light launches only in validation, nothing else."""
     cfg = copy.deepcopy(cfg)
     cfg.data.data_dir, cfg.data.val_dir = str(train_dir), str(val_dir)
     cfg.train.num_epochs = epochs
@@ -297,6 +524,7 @@ def train_main_path(cfg, train_dir, val_dir, save_dir, epochs, dev, smi):
                                  verbose=False)
     steps = epochs * train_ds.num_batches(cfg.train.batch_size)
     val_batches = epochs * val_ds.num_batches(cfg.train.batch_size)
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     res = train_benchmark(cfg, device=dev, verbose=True, train_ds=train_ds,
@@ -304,10 +532,12 @@ def train_main_path(cfg, train_dir, val_dir, save_dir, epochs, dev, smi):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     layers = cfg.model.lstm_layers
-    assert launched == {"bilstm_fwd": layers * val_batches,
-                        "bilstm_fwd_train": layers * steps,
-                        "bilstm_bwd": layers * steps}, launched
+    assert launched == expected_counts(**{
+        f"{prefix}_fwd": layers * val_batches,
+        f"{prefix}_fwd_train": layers * steps,
+        f"{prefix}_bwd": layers * steps}), launched
     assert len(res["history"]) == epochs
     for row in res["history"]:
         assert np.isfinite(row["train_loss"]) and \
@@ -316,7 +546,8 @@ def train_main_path(cfg, train_dir, val_dir, save_dir, epochs, dev, smi):
     assert best.with_suffix(".msgpack").exists()
     assert json.loads(best.with_suffix(".json").read_text())[
         "has_opt_state"] is False
-    log("train", f"train_benchmark {epochs} epochs of "
+    log("train", f"{cfg.model.model_type} d_model={cfg.model.d_model} "
+                 f"{cfg.model.compute_dtype}: train_benchmark {epochs} epochs of "
                  f"{train_ds.num_samples} samples ({train_ds.n_base} rooms x "
                  f"{len(train_ds.rotation_angles)} rotations), B="
                  f"{cfg.train.batch_size}, N={cfg.data.max_trace_len}: "
@@ -325,7 +556,8 @@ def train_main_path(cfg, train_dir, val_dir, save_dir, epochs, dev, smi):
                  + json.dumps([{k: r[k] for k in ("epoch", "train_loss",
                                                   "val_loss", "mIoU")}
                                for r in res["history"]])
-                 + f"; launches {launched}")
+                 + f"; launches {launched}; peak device memory "
+                 f"{peak_gb:.2f} GB")
     return launched, best
 
 
@@ -335,10 +567,10 @@ def serve_checkpoint(best, trace_file, dev):
     predict = build_predictor(model, max_trace_len=cfg.data.max_trace_len,
                               confidence_threshold=0.0, nms_threshold=0.3,
                               device=dev, verbose=False)
-    before = counts()["bilstm_fwd"]
+    reset_counts()
     cols = predict(formats.load_trace_json(trace_file))
     torch.cuda.synchronize()
-    assert counts()["bilstm_fwd"] == before + cfg.model.lstm_layers
+    assert counts() == expected_counts(bilstm_fwd=cfg.model.lstm_layers)
     assert len(cols) > 0
     for c in cols:
         assert np.isfinite(collider_values(c)).all()
@@ -429,12 +661,110 @@ def step_parity(cfg, train_dir, dev, seed):
     assert other_err <= 2 * cfg.train.lr + PARAM_ATOL, other_err
 
 
-def time_steps(cfg, train_dir, dev, seed, smi, kernel_rows):
-    """Phase 11: p50 step time of the trainer's step, then a per-stage
-    mean with a synchronise between stages."""
-    n_steps, n_warmup = STEPS, STEP_WARMUP
+def scaleup_config():
+    """The scale-up config from the default one, as the training CLI's
+    ``--set`` builds it, at bench_scaleup's batch and sequence length."""
+    cfg = ExperimentConfig().apply_overrides(list(SCALEUP_SETS))
+    cfg.train.batch_size, cfg.data.max_trace_len = SCALEUP[0], SCALEUP[1]
+    return cfg
+
+
+def bf16_close(a, b) -> float:
+    """Max abs difference; asserts the bf16 tolerance."""
+    a, b = torch.as_tensor(a).float(), torch.as_tensor(b).float()
+    assert torch.allclose(a, b, rtol=BF16_RTOL, atol=BF16_ATOL), \
+        (a - b).abs().max().item()
+    return (a - b).abs().max().item() if a.numel() else 0.0
+
+
+def serve_scaleup(best, dev, seed):
+    """Phase 15: the scale-up checkpoint served; the answer and the model's
+    outputs against the same model through the plain recurrence on the
+    card."""
+    model, cfg = load_model_for_inference(str(best), device=dev)
+    predict = build_predictor(model, max_trace_len=cfg.data.max_trace_len,
+                              confidence_threshold=0.0, nms_threshold=0.3,
+                              device=dev, verbose=False)
+    arr = walk(SCALEUP_REQUEST, seed + 300)
+    reset_counts()
+    cols = predict(arr)
+    torch.cuda.synchronize()
+    launched = counts()
+    assert launched == expected_counts(bigru_fwd=cfg.model.lstm_layers), \
+        launched
+    assert len(cols) > 0
+    x, m = predict.prepare(arr)
+    with torch.inference_mode():
+        out = model(x, m)
+        with mock.patch.object(gru_mod, "bigru_recurrence",
+                               gru_cuda.bigru_fwd_plain):
+            ref_out = model(x, m)
+            ref = predict(arr)
+    out_err = max(bf16_close(out[k], ref_out[k]) for k in out)
+    assert [c["label"] for c in cols] == [c["label"] for c in ref]
+    col_err = max(bf16_close(collider_values(a), collider_values(b))
+                  for a, b in zip(cols, ref))
+    log("serve_scaleup",
+        f"{best.name} ({cfg.model.model_type} d_model={cfg.model.d_model} "
+        f"{cfg.model.compute_dtype}) answered {len(arr)} points "
+        f"({min(len(arr), cfg.data.max_trace_len)} after downsampling): "
+        f"{len(cols)} colliders; launches {launched} "
+        f"({plan_text(gru_cuda.bigru_fwd_cuda)}); vs the plain recurrence "
+        f"on the card: outputs max abs diff {out_err:.3e}, colliders "
+        f"{col_err:.3e} (rtol {BF16_RTOL} atol {BF16_ATOL}), labels equal")
+    return launched
+
+
+def step_parity_scaleup(cfg, train_dir, dev, seed):
+    """Phase 16: one scale-up train step (B=SCALEUP_PARITY_B, bf16) with
+    the kernels and with their plain versions patched in, on the card, from
+    the same parameters and batch (augmentation off, dropout 0,
+    inv_temp 100)."""
+    cfg = copy.deepcopy(cfg)
+    cfg.model.dropout = 0.0
+    cfg.train.batch_size = SCALEUP_PARITY_B
+    ds = TraceColliderArrays(train_dir, cfg.data, augment=False,
+                             verbose=False)
+    host = ds.gather(np.arange(SCALEUP_PARITY_B) % ds.num_samples)
+    model = build_model(cfg.model)
+    params = random_params(model, seed)
+    params["params"]["decoder"]["inv_temp"] = np.float32(100.0)
+    load_params(model, params)
+    res = {}
+    for name, patch in (("kernels", None), ("plain", GRU_PLAIN)):
+        reset_counts()
+        with (mock.patch.multiple(gru_cuda, **patch) if patch
+              else contextlib.nullcontext()):
+            m, rows, matched, batch = assignments(model, host, cfg.data, dev)
+            opt = loop.make_optimizer(m, cfg)
+            step = loop.make_train_step(m, opt, cfg, augment=False)
+            losses = step(batch, torch.Generator(dev).manual_seed(seed))
+            torch.cuda.synchronize()
+        res[name] = ({k: float(v) for k, v in losses.items()}, rows, matched,
+                     counts())
+    (l_k, r_k, m_k, c_k), (l_p, r_p, m_p, c_p) = res["kernels"], res["plain"]
+    layers = cfg.model.lstm_layers
+    assert c_k == expected_counts(bigru_fwd=layers, bigru_fwd_train=layers,
+                                  bigru_bwd=layers), c_k
+    assert c_p == expected_counts(), c_p
+    assert torch.equal(r_k, r_p) and torch.equal(m_k, m_p)
+    loss_err = max(bf16_close(l_k[k], v) for k, v in l_p.items())
+    log("step_parity_scaleup",
+        f"one step B={SCALEUP_PARITY_B} N={cfg.data.max_trace_len} "
+        f"{cfg.model.compute_dtype}, inv_temp=100, kernels vs plain versions "
+        f"on the card: assignments equal ({int(m_p.sum())} matched pairs); "
+        f"losses max abs diff {loss_err:.3e} (rtol {BF16_RTOL} atol "
+        f"{BF16_ATOL}); " + json.dumps({"kernels": l_k, "plain": l_p}))
+
+
+def time_steps(cfg, train_dir, dev, seed, smi, kernel_rows, shapes,
+               n_steps, n_warmup, prefix):
+    """Phases 11 and 17: p50 step time of the trainer's step at each (B, N)
+    of ``shapes`` over ``n_steps`` after ``n_warmup``, then a per-stage
+    mean with a synchronise between stages; ``kernel_rows`` (phase 4 or
+    13) give the ``prefix`` kernels' share."""
     out = []
-    for B, N in STEP_SHAPES:
+    for B, N in shapes:
         c = copy.deepcopy(cfg)
         c.train.batch_size, c.data.max_trace_len = B, N
         ds = TraceColliderArrays(train_dir, c.data, augment=True,
@@ -510,11 +840,11 @@ def time_steps(cfg, train_dir, dev, seed, smi, kernel_rows):
                             "criterion_rest": mean[2] - m_ms,
                             "backward": mean[3], "optimizer": mean[4]},
                "staged_step_ms": float(mean.sum()),
-               "fwd_train_kernels_ms": (layers * k_ms["bilstm_fwd_train"]
-                                        if k_ms["bilstm_fwd_train"]
-                                        else None),
-               "bwd_kernels_ms": (layers * k_ms["bilstm_bwd"]
-                                  if k_ms["bilstm_bwd"] else None)}
+               "fwd_train_kernels_ms": (
+                   layers * k_ms[f"{prefix}_fwd_train"]
+                   if k_ms.get(f"{prefix}_fwd_train") else None),
+               "bwd_kernels_ms": (layers * k_ms[f"{prefix}_bwd"]
+                                  if k_ms.get(f"{prefix}_bwd") else None)}
         out.append(row)
         log("train_step", json.dumps(row) + f" on {smi}")
     return out
@@ -751,7 +1081,36 @@ def main() -> int:
                                         Path(tmp) / "ckpt", EPOCHS, dev, smi)
         serve_checkpoint(best, sorted(val_dir.glob("*_trace.json"))[0], dev)
         step_parity(cfg, train_dir, dev, args.seed)
-        time_steps(cfg, train_dir, dev, args.seed, smi, train_rows)
+        time_steps(cfg, train_dir, dev, args.seed, smi, train_rows,
+                   STEP_SHAPES, STEPS, STEP_WARMUP, "bilstm")
+
+    # 12-17. the scale-up bigru: kernel checks and timing, training (a
+    # main path), its checkpoint served (a main path), kernels vs plain
+    # versions in one step, step timing
+    gru_errs = check_gru_kernels(dev, args.seed)
+    gru_rows = time_gru_kernels(dev, args.seed, gru_errs)
+    up = scaleup_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        rooms = Path(tmp) / "rooms"
+        t0 = time.perf_counter()
+        write_rooms(rooms / "train", SCALEUP_TRAIN_ROOMS, args.seed + 10,
+                    points=SCALEUP_POINTS)
+        write_rooms(rooms / "val", SCALEUP_VAL_ROOMS, args.seed + 11,
+                    points=SCALEUP_POINTS)
+        log("train_scaleup", f"wrote {SCALEUP_TRAIN_ROOMS} + "
+                             f"{SCALEUP_VAL_ROOMS} rooms of {SCALEUP_POINTS} "
+                             f"points in {time.perf_counter() - t0:.1f} s")
+        gru_trained, gru_best = train_main_path(
+            up, rooms / "train", rooms / "val", Path(tmp) / "ckpt", 1, dev,
+            smi, prefix="bigru")
+        log("train_scaleup", "last launches: bigru_fwd_train "
+            f"{plan_text(gru_cuda.bigru_fwd_train_cuda)}; bigru_bwd "
+            f"{plan_text(gru_cuda.bigru_bwd_cuda)}")
+        gru_served = serve_scaleup(gru_best, dev, args.seed)
+        step_parity_scaleup(up, rooms / "train", dev, args.seed)
+        time_steps(up, rooms / "train", dev, args.seed, smi,
+                   {k: [v] for k, v in gru_rows.items()}, [SCALEUP[:2]],
+                   SCALEUP_STEPS, SCALEUP_WARMUP, "bigru")
 
     def entry(name, source, replaces, launched, row):
         return {"name": name, "route": "cuda", "source": source,
@@ -777,6 +1136,19 @@ def main() -> int:
                  trained["bilstm_bwd"], train_row["bilstm_bwd"]),
          "max_rel_err": train_errs[TRAIN]["bwd_rel"],
          "shapes": train_rows["bilstm_bwd"]},
+        {**entry("bigru_fwd", "room_slam_torch/csrc/bigru_fwd.cu",
+                 "room_slam_tpu/ops/gru_pallas.py:314",
+                 gru_served["bigru_fwd"], gru_rows["bigru_fwd"]),
+         "shapes": [gru_rows["bigru_fwd"]]},
+        {**entry("bigru_fwd_train", "room_slam_torch/csrc/bigru_fwd.cu",
+                 "room_slam_tpu/ops/gru_pallas.py:454",
+                 gru_trained["bigru_fwd_train"], gru_rows["bigru_fwd_train"]),
+         "shapes": [gru_rows["bigru_fwd_train"]]},
+        {**entry("bigru_bwd", "room_slam_torch/csrc/bigru_bwd.cu",
+                 "room_slam_tpu/ops/gru_pallas.py:357",
+                 gru_trained["bigru_bwd"], gru_rows["bigru_bwd"]),
+         "max_rel_err": gru_errs[(SCALEUP, torch.bfloat16)]["bwd_rel"],
+         "shapes": [gru_rows["bigru_bwd"]]},
     ]
     log("done", f"{time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -13,7 +13,7 @@ import dataclasses
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 # Class labels of the benchmark (3D JSON) surface.
 BENCH_LABELS: Dict[str, int] = {"BLOCK": 0, "LOW": 1, "MID": 2, "HIGH": 3}
@@ -139,3 +139,28 @@ class ExperimentConfig:
     @classmethod
     def from_json(cls, path: str | Path) -> "ExperimentConfig":
         return cls.from_dict(json.loads(Path(path).read_text()))
+
+    def apply_overrides(self, overrides: List[str]) -> "ExperimentConfig":
+        """Apply ``section.key=value`` overrides in place (the JAX
+        package's ``--set``): the value takes the field's current type
+        (bool from 1/true/yes, tuples as JSON lists); an unknown section or
+        key raises."""
+        for ov in overrides:
+            key, sep, raw = ov.partition("=")
+            section, _, name = key.partition(".")
+            if not sep or not name:
+                raise ValueError(f"override {ov!r}: expected section.key=value")
+            target = getattr(self, section)
+            old = getattr(target, name)
+            if isinstance(old, bool):
+                val: Any = raw.lower() in ("1", "true", "yes")
+            elif isinstance(old, int):
+                val = int(raw)
+            elif isinstance(old, float):
+                val = float(raw)
+            elif isinstance(old, tuple):
+                val = tuple(json.loads(raw))
+            else:
+                val = raw
+            setattr(target, name, val)
+        return self

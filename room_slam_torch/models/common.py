@@ -14,12 +14,24 @@ from torch import nn
 class Dense(nn.Linear):
     """``nn.Linear`` with the JAX package's init: weight and bias
     ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)); ``zero_init`` starts both at 0
-    (the refinement deltas, so an untrained stage is the identity)."""
+    (the refinement deltas, so an untrained stage is the identity).
+
+    ``dtype`` is flax's compute dtype: input, weight and bias are cast to it
+    and the output comes in it (bfloat16 halves the ``[B, N, D]`` streams).
+    The parameters stay float32."""
 
     def __init__(self, in_features: int, out_features: int,
-                 zero_init: bool = False):
+                 zero_init: bool = False, dtype: torch.dtype | None = None):
         self.zero_init = zero_init
+        self.compute_dtype = dtype
         super().__init__(in_features, out_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        if cd is None:
+            return super().forward(x)
+        return nn.functional.linear(x.to(cd), self.weight.to(cd),
+                                    self.bias.to(cd))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -30,6 +42,16 @@ class Dense(nn.Linear):
         bound = 1.0 / math.sqrt(self.in_features)
         self.weight.uniform_(-bound, bound, generator=generator)
         self.bias.uniform_(-bound, bound, generator=generator)
+
+
+def compute_dtype_of(name: str) -> torch.dtype | None:
+    """``ModelConfig.compute_dtype`` as the ``Dense`` compute dtype: None
+    for float32 (plain float32 layers), else the torch dtype."""
+    if name == "float32":
+        return None
+    if name != "bfloat16":
+        raise ValueError(f"compute_dtype={name!r}: float32 or bfloat16")
+    return torch.bfloat16
 
 
 def reset_parameters(module: nn.Module,

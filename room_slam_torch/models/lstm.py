@@ -38,16 +38,8 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) < 1.0 - rate
+                      dtype=torch.float32) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
-
-
-def _check_compute_dtype(compute_dtype: str) -> None:
-    if compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: the port runs float32 only; "
-            "bf16 streams come with the bf16 kernel path (ROADMAP queue 1 "
-            "item 5)")
 
 
 class BiLSTMLayer(nn.Module):
@@ -124,16 +116,20 @@ class SimpleQueryDecoder(nn.Module):
 
     def __init__(self, d_model: int = 128, num_queries: int = 30,
                  num_classes: int = 4, objectness: bool = False,
-                 refine_stages: int = 0, extent_features: bool = False):
+                 refine_stages: int = 0, extent_features: bool = False,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         D = d_model
         self.objectness = objectness
         self.refine_stages = refine_stages
         self.extent_features = extent_features
         self.query_embed = nn.Parameter(torch.empty(num_queries, D))
-        for name in ("gamma_1", "gamma_2", "beta_1", "beta_2",
-                     "q_proj", "k_proj", "v_proj"):
+        for name in ("gamma_1", "gamma_2", "beta_1", "beta_2"):
             self.add_module(name, Dense(D, D))
+        # under bf16 the [B, N, D] projections stream in bf16; the FiLM
+        # reduction, the softmax and every head stay float32
+        for name in ("q_proj", "k_proj", "v_proj"):
+            self.add_module(name, Dense(D, D, dtype=compute_dtype))
         self.inv_temp = nn.Parameter(torch.empty(()))
         self.center_delta_head = MLP(D, D, 3, 2)
         self.size_head = MLP(D, D, 3, 2)
@@ -154,25 +150,27 @@ class SimpleQueryDecoder(nn.Module):
                 mask: Optional[torch.Tensor] = None):
         B, N, D = memory.shape
         q_batch = self.query_embed.expand(B, -1, -1)
+        mem32 = memory.float()
         if mask is not None:
             m = mask[..., None].float()
             denom = torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)
-            global_feat = (memory * m).sum(dim=1, keepdim=True) / denom
+            global_feat = (mem32 * m).sum(dim=1, keepdim=True) / denom
         else:
-            global_feat = memory.mean(dim=1, keepdim=True)
+            global_feat = mem32.mean(dim=1, keepdim=True)
         gamma = self.gamma_2(torch.relu(self.gamma_1(global_feat)))
         beta = self.beta_2(torch.relu(self.beta_1(global_feat)))
 
         q = self.q_proj(q_batch)
         k = self.k_proj(memory)
         v = self.v_proj(memory)
-        scores = torch.einsum("bqd,bnd->bqn", q, k) * self.inv_temp \
-            / math.sqrt(D)
+        scores = torch.einsum("bqd,bnd->bqn", q, k).float() \
+            * self.inv_temp / math.sqrt(D)
         if mask is not None:
             scores = torch.where(mask[:, None, :], scores,
                                  torch.finfo(scores.dtype).min)
         attn = torch.softmax(scores, dim=-1)                   # [B, Q, N]
-        qfeat = torch.einsum("bqn,bnd->bqd", attn, v)
+        # v is consumed in its own dtype, as the reference does
+        qfeat = torch.einsum("bqn,bnd->bqd", attn.to(v.dtype), v).float()
         decoded = qfeat * (1.0 + gamma) + beta
 
         norm_coords = (coords - mean) / scale
@@ -220,7 +218,11 @@ class TraceToColliderLSTM(nn.Module):
                  hole_tokens: int = 0,
                  generator: torch.Generator | None = None):
         super().__init__()
-        _check_compute_dtype(compute_dtype)
+        if compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype={compute_dtype!r}: the lstm model runs "
+                "float32 only; its BiLSTM kernels take no bf16 streams yet "
+                "(ROADMAP queue 1 item 5)")
         if hole_tokens:
             raise NotImplementedError(
                 "hole_tokens > 0 is not ported yet (ROADMAP queue 1 item 11)")

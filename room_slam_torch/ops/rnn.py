@@ -1,12 +1,14 @@
-"""LSTM recurrence, plain PyTorch.
+"""LSTM and GRU recurrences, plain PyTorch.
 
 The input matmul ``x @ W_ih + b`` is hoisted out of the time loop by the
-caller; only ``h @ W_hh`` stays sequential. Gate order is torch's
-``nn.LSTM`` (i, f, g, o) with one merged bias. The carry is float32 for
-any stream dtype; outputs take the stream dtype.
+caller; only ``h @ W_hh`` stays sequential. LSTM gate order is torch's
+``nn.LSTM`` (i, f, g, o) with one merged bias; GRU gate order is torch's
+``nn.GRU`` (r, z, n) with ``b_hh`` kept apart, since the reset gate
+multiplies ``W_hn h + b_hn``. The carry is float32 for any stream dtype;
+outputs take the stream dtype.
 
-This is the CPU path and the plain version the BiLSTM kernel
-(``ops/rnn_cuda.py``) is held against.
+These are the CPU path and what the plain versions of the recurrence
+kernels (``ops/rnn_cuda.py``, ``ops/gru_cuda.py``) are built on.
 """
 
 from __future__ import annotations
@@ -42,6 +44,37 @@ def lstm_recurrence(xg: torch.Tensor, w_hh: torch.Tensor,
     ys = [None] * N
     for t in (range(N - 1, -1, -1) if reverse else range(N)):
         h, c = lstm_cell_step(xg[:, t].float(), h, c, w)
+        ys[t] = h.to(xg.dtype)
+    if N == 0:
+        return xg.new_zeros(B, 0, H)
+    return torch.stack(ys, dim=1)
+
+
+def gru_cell(x: torch.Tensor, h: torch.Tensor, hg: torch.Tensor):
+    """One GRU step from the input gates ``x [B, 3H]``, the carry ``h``
+    and the hidden gates ``hg = h @ W_hh + b_hh [B, 3H]``, all float32.
+    Returns ``(h_new, r, z, n, hn)`` with ``hn = hg[:, 2H:]``."""
+    H = h.shape[-1]
+    r = torch.sigmoid(x[..., :H] + hg[..., :H])
+    z = torch.sigmoid(x[..., H:2 * H] + hg[..., H:2 * H])
+    hn = hg[..., 2 * H:]
+    n = torch.tanh(x[..., 2 * H:] + r * hn)
+    return (1.0 - z) * n + z * h, r, z, n, hn
+
+
+def gru_recurrence(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                   reverse: bool = False) -> torch.Tensor:
+    """Run the GRU recurrence over ``xg [B, N, 3H]`` (= x @ W_ih + b_ih)
+    with ``w_hh [H, 3H]`` and ``b_hh [3H]``; ``reverse`` walks back to
+    front with outputs aligned to input positions. Returns ``[B, N, H]`` in
+    the stream dtype."""
+    B, N, _ = xg.shape
+    H = w_hh.shape[0]
+    w, b = w_hh.float(), b_hh.float()
+    h = torch.zeros(B, H, dtype=torch.float32, device=xg.device)
+    ys = [None] * N
+    for t in (range(N - 1, -1, -1) if reverse else range(N)):
+        h = gru_cell(xg[:, t].float(), h, h @ w + b)[0]
         ys[t] = h.to(xg.dtype)
     if N == 0:
         return xg.new_zeros(B, 0, H)

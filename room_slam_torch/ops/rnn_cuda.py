@@ -258,11 +258,18 @@ def _library(name: str):
         fns = (lib.bilstm_bwd_f32,)
     for fn in fns:
         fn.restype = ctypes.c_int
+    set_error_string(lib, name)
+    return lib
+
+
+def set_error_string(lib, name: str) -> None:
+    """Bind ``<name>_error_string`` of a kernel library as
+    ``lib.error_string`` and mark its argument types as set."""
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
+    lib.error_string = err
     lib._argtypes_set = True
-    return lib
 
 
 def _check_cuda(name: str, tensors, smem: int) -> torch.device:
@@ -283,16 +290,15 @@ def _check_cuda(name: str, tensors, smem: int) -> torch.device:
     return dev
 
 
-def _launch(lib_name: str, fn_name: str, dev: torch.device, *args) -> None:
-    """Call ``fn_name`` of library ``lib_name`` on the current stream of
-    ``dev``; raise if the launch was refused."""
-    lib = _library(lib_name)
+def launch(lib, fn_name: str, dev: torch.device, *args) -> None:
+    """Call ``fn_name`` of the kernel library ``lib`` on the current stream
+    of ``dev``; raise if the launch was refused."""
     with torch.cuda.device(dev):
         rc = getattr(lib, fn_name)(*args,
                                    torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        err = getattr(lib, f"{lib_name}_error_string")(rc).decode()
-        raise RuntimeError(f"{fn_name} launch failed: {err}")
+        raise RuntimeError(f"{fn_name} launch failed: "
+                           f"{lib.error_string(rc).decode()}")
 
 
 def bilstm_fwd_cuda(xg_f: torch.Tensor, xg_b: torch.Tensor,
@@ -311,9 +317,9 @@ def bilstm_fwd_cuda(xg_f: torch.Tensor, xg_b: torch.Tensor,
     ys_b = torch.empty_like(ys_f)
     if B == 0 or N == 0:
         return ys_f, ys_b
-    _launch("bilstm_fwd", "bilstm_fwd_f32", dev,
-            xg_f.data_ptr(), xg_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
-            ys_f.data_ptr(), ys_b.data_ptr(), B, N, H)
+    launch(_library("bilstm_fwd"), "bilstm_fwd_f32", dev,
+           xg_f.data_ptr(), xg_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
+           ys_f.data_ptr(), ys_b.data_ptr(), B, N, H)
     bilstm_fwd_cuda.launches += 1
     return ys_f, ys_b
 
@@ -335,9 +341,9 @@ def bilstm_fwd_train_cuda(xg_f: torch.Tensor, xg_b: torch.Tensor,
             for d in (H, H, H, H, G, G)]
     if B == 0 or N == 0:
         return tuple(outs)
-    _launch("bilstm_fwd", "bilstm_fwd_train_f32", dev,
-            xg_f.data_ptr(), xg_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
-            *(o.data_ptr() for o in outs), B, N, H)
+    launch(_library("bilstm_fwd"), "bilstm_fwd_train_f32", dev,
+           xg_f.data_ptr(), xg_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
+           *(o.data_ptr() for o in outs), B, N, H)
     bilstm_fwd_train_cuda.launches += 1
     return tuple(outs)
 
@@ -363,9 +369,9 @@ def bilstm_bwd_cuda(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b
     dg_b = torch.empty_like(dg_f)
     if B == 0 or N == 0:
         return dg_f, dg_b
-    _launch("bilstm_bwd", "bilstm_bwd_f32", dev,
-            *(t.data_ptr() for t in ins), dg_f.data_ptr(), dg_b.data_ptr(),
-            B, N, H)
+    launch(_library("bilstm_bwd"), "bilstm_bwd_f32", dev,
+           *(t.data_ptr() for t in ins), dg_f.data_ptr(), dg_b.data_ptr(),
+           B, N, H)
     bilstm_bwd_cuda.launches += 1
     return dg_f, dg_b
 

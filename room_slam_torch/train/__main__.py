@@ -3,7 +3,12 @@
     python -m room_slam_torch.train --config configs/flagship_v15.json \\
         --data_dir DIR [--val_dir DIR] [--epochs N] [--batch_size B] \\
         [--lr LR] [--max_trace_len L] [--save_dir DIR] [--seed S] \\
-        [--device cuda|cpu]
+        [--set section.key=value ...] [--device cuda|cpu]
+
+The scale-up BiGRU trains from the default config with
+``--set model.model_type=bigru --set model.d_model=512 --set
+model.num_queries=32 --set model.compute_dtype=bfloat16 --set
+data.max_colliders=32 --max_trace_len 5000 --batch_size 128``.
 
 ``--device`` defaults to ``cuda`` and raises without a card unless
 ``--device cpu`` is given. Prints the summary dict as JSON.
@@ -31,6 +36,8 @@ def main(argv=None) -> None:
     p.add_argument("--max_trace_len", type=int, default=None)
     p.add_argument("--save_dir", type=str, default="./checkpoints")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--set", dest="overrides", action="append", default=[],
+                   help="config override section.key=value (repeatable)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     args = p.parse_args(argv)
@@ -49,6 +56,7 @@ def main(argv=None) -> None:
         cfg.data.max_trace_len = args.max_trace_len
     cfg.train.save_dir = args.save_dir
     cfg.train.seed = args.seed
+    cfg.apply_overrides(args.overrides)     # last, as in the JAX CLI
     result = train_benchmark(cfg, device=args.device)
     print(json.dumps({k: v for k, v in result.items()
                       if isinstance(v, (int, float, str))}, indent=2))

@@ -61,7 +61,8 @@ def train_benchmark(cfg: ExperimentConfig,
     t = cfg.train
     if verbose and t.matmul_precision != "float32":
         print(f"[train] train.matmul_precision={t.matmul_precision!r} is not "
-              "honoured: the port trains in float32 with TF32 off")
+              "honoured: the port's float32 matmuls run with TF32 off "
+              "(model.compute_dtype sets the bf16 streams)")
     if train_ds is None:
         train_ds = TraceColliderArrays(cfg.data.data_dir, cfg.data,
                                        augment=True, verbose=verbose)

@@ -161,3 +161,110 @@ def test_new_kernels_raise_on_bad_inputs(cuda):
     wide = _inputs(1, 3, 128, cuda)     # W_hh^T of H=128 overflows a block
     with pytest.raises(ValueError, match="shared memory"):
         rnn_cuda.bilstm_fwd_train_cuda(*wide)
+
+
+# ---------------------------------------------------------------------------
+# BiGRU kernels (csrc/bigru_fwd.cu, csrc/bigru_bwd.cu): W_hh split across a
+# thread-block cluster at H=256. float32: values max abs error 1e-4,
+# gradients max-rel 1e-4; bfloat16 streams: values rtol 0.05 / atol 0.03,
+# gradients max-rel 0.1 (the JAX suite's bf16 bounds; kernel and plain
+# version round at the same points, and a sum order that flips one rounding
+# moves a value by one bf16 ulp).
+# ---------------------------------------------------------------------------
+
+from room_slam_torch.ops import gru_cuda  # noqa: E402
+
+GRU_CASES = [((5, 43, 16), torch.float32), ((5, 43, 16), torch.bfloat16),
+             ((16, 300, 256), torch.float32), ((128, 200, 256), torch.bfloat16)]
+
+
+def _gru_inputs(B, N, H, dtype, device, seed=0):
+    g = np.random.default_rng(seed)
+    xs = [torch.tensor(g.normal(size=(B, N, 3 * H)) * 0.5,
+                       dtype=torch.float32, device=device).to(dtype)
+          for _ in range(2)]
+    ws = [torch.tensor(g.uniform(-1, 1, size=s) / np.sqrt(H),
+                       dtype=torch.float32, device=device)
+          for s in ((H, 3 * H), (3 * H,), (H, 3 * H), (3 * H,))]
+    return [xs[0], xs[1], *ws]
+
+
+def _assert_close(a, b, dtype):
+    assert a.shape == b.shape and a.dtype == b.dtype
+    assert torch.isfinite(a).all()
+    if dtype == torch.float32:
+        assert (a - b).abs().max().item() <= ATOL
+    else:
+        torch.testing.assert_close(a.float(), b.float(), rtol=0.05, atol=0.03)
+
+
+@pytest.mark.parametrize("shape,dtype", GRU_CASES)
+def test_bigru_fwd_kernels_match_plain(cuda, shape, dtype):
+    ins = _gru_inputs(*shape, dtype, cuda)
+    counts = (gru_cuda.bigru_fwd_cuda.launches,
+              gru_cuda.bigru_fwd_train_cuda.launches)
+    light = gru_cuda.bigru_recurrence(*ins)
+    train = gru_cuda.bigru_fwd_train(*ins)
+    torch.cuda.synchronize()
+    assert (gru_cuda.bigru_fwd_cuda.launches,
+            gru_cuda.bigru_fwd_train_cuda.launches) == (counts[0] + 1,
+                                                        counts[1] + 1)
+    for a, b in zip(light, gru_cuda.bigru_fwd_plain(*ins)):
+        _assert_close(a, b, dtype)
+    for a, b in zip(train, gru_cuda.bigru_fwd_train_plain(*ins)):
+        _assert_close(a, b, dtype)
+
+
+@pytest.mark.parametrize("shape,dtype", GRU_CASES)
+def test_bigru_bwd_kernel_matches_plain(cuda, shape, dtype):
+    ins = _gru_inputs(*shape, dtype, cuda)
+    ys_f, ys_b, gs_f, gs_b, hn_f, hn_b = gru_cuda.bigru_fwd_train_plain(*ins)
+    g = torch.Generator(cuda).manual_seed(1)
+    dy_f, dy_b = (torch.randn(ys_f.shape, device=cuda, generator=g).to(dtype)
+                  for _ in range(2))
+    args = (ins[2], ins[4], gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b, dy_b)
+    before = gru_cuda.bigru_bwd_cuda.launches
+    got = gru_cuda.bigru_bwd(*args)
+    torch.cuda.synchronize()
+    assert gru_cuda.bigru_bwd_cuda.launches == before + 1
+    bound = GRAD_REL if dtype == torch.float32 else 0.1
+    for a, b in zip(got, gru_cuda.bigru_bwd_plain(*args)):
+        assert a.dtype == b.dtype and torch.isfinite(a).all()
+        assert _max_rel(a.float(), b.float()) <= bound
+
+
+@pytest.mark.parametrize("shape,dtype", GRU_CASES)
+def test_bigru_function_grads_match_autograd(cuda, shape, dtype):
+    """All six gradients of the kernel path against torch autograd through
+    the plain loop, for one fixed upstream gradient."""
+    ins = [t.requires_grad_(True) for t in _gru_inputs(*shape, dtype, cuda)]
+    g = torch.Generator(cuda).manual_seed(2)
+    ys = gru_cuda.bigru_recurrence(*ins)
+    dys = [torch.randn(y.shape, device=cuda, generator=g).to(dtype)
+           for y in ys]
+    got = torch.autograd.grad(ys, ins, dys)
+    ref = torch.autograd.grad(gru_cuda.bigru_fwd_plain(*ins), ins, dys)
+    bound = GRAD_REL if dtype == torch.float32 else 0.1
+    for name, a, b in zip(("dxg_f", "dxg_b", "dW_f", "db_f", "dW_b", "db_b"),
+                          got, ref):
+        assert a.dtype == b.dtype and torch.isfinite(a).all(), name
+        assert _max_rel(a.float(), b.float()) <= bound, (name, _max_rel(
+            a.float(), b.float()))
+
+
+def test_bigru_cluster_launches(cuda):
+    """The scale-up shape (B=128, H=256) runs on clusters of several
+    blocks, and the planner, told how many clusters the card holds at once,
+    picks a grid that runs in one wave."""
+    ins = _gru_inputs(128, 3, 256, torch.bfloat16, cuda)
+    ys = gru_cuda.bigru_fwd_train_cuda(*ins)
+    gru_cuda.bigru_bwd_cuda(ins[2], ins[4], ys[2], ys[4], ys[0], ys[0],
+                            ys[3], ys[5], ys[1], ys[1])
+    torch.cuda.synchronize()
+    for fn in (gru_cuda.bigru_fwd_train_cuda, gru_cuda.bigru_bwd_cuda):
+        last = fn.last_launch
+        assert last["cluster"] >= 4, last
+        assert last["resident"] >= last["clusters"], last
+    with pytest.raises(TypeError):
+        gru_cuda.bigru_fwd_cuda(*[t.half() if t.dim() == 3 else t
+                                  for t in ins])
