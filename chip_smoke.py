@@ -50,7 +50,8 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     cluster size and batch tile;
 13. BiGRU kernel timing at the scale-up shape: each kernel, its plain
     version, torch ``nn.GRU`` (never called by the port), the bound and the
-    time per step;
+    time per step; then the dW_hh / db_hh products outside the kernels,
+    with TF32 off (as the port runs them) and on;
 14. scale-up training (a main path): seeded rooms of 5000-7500 points,
     ``train_benchmark`` on the scale-up bigru config (d_model 512, 32
     queries, bf16 streams, B=128, N=5000) for 3 steps; finite losses, a
@@ -358,6 +359,30 @@ def time_gru_kernels(dev, seed, errs):
                "bigru_bwd": "forward + backward minus forward"}[name]
             + ", includes the input projection)"))
     return rows
+
+
+def time_hidden_grads(dev, seed):
+    """Phase 13, last: dW_hh and db_hh of one direction and layer
+    (``gru_cuda.hidden_grads``, four per scale-up step) at the scale-up
+    shape from bf16 residuals, with float32 matmuls as the port runs them
+    (TF32 off) and, beside it, with TF32 allowed; the flag is restored."""
+    B, N, H = SCALEUP
+    g = torch.Generator(dev).manual_seed(seed)
+    ys, dhn = (torch.randn(B, N, H, device=dev, generator=g).bfloat16()
+               for _ in range(2))
+    dx = torch.randn(B, N, 3 * H, device=dev, generator=g).bfloat16()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    row = {"shape": [B, N, H]}
+    try:
+        for key, tf32 in (("ms", False), ("tf32_ms", True)):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            row[key] = cuda_ms(lambda: gru_cuda.hidden_grads(
+                ys, dx, dhn, False, torch.float32), 10, warmup=3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    log("kernel_time", "hidden_grads (dW_hh, db_hh of one direction and "
+        "layer, outside the kernels) " + json.dumps(row))
+    return row
 
 
 def kernel_inputs(B, N, H, dev, seed):
@@ -1089,6 +1114,7 @@ def main() -> int:
     # versions in one step, step timing
     gru_errs = check_gru_kernels(dev, args.seed)
     gru_rows = time_gru_kernels(dev, args.seed, gru_errs)
+    time_hidden_grads(dev, args.seed)
     up = scaleup_config()
     with tempfile.TemporaryDirectory() as tmp:
         rooms = Path(tmp) / "rooms"

@@ -26,9 +26,9 @@
 //
 // What bounds it on an H100. At the scale-up shape (B=128, N=5000, H=256,
 // bf16) it reads 3H + H + H + H and writes 3H + H values per (row, step) and
-// direction, 3.3 GB (0.98 ms at 3.35 TB/s), and does 2 * 3H * H
-// multiply-adds per (row, step) and direction for dg @ W_hh^T, 504 GFLOP
-// (0.51 ms at 989 TFLOP/s for bf16 operands). The real floor is the serial
+// direction, 6.6 GB for both directions (1.96 ms at 3.35 TB/s), and does
+// 2 * 3H * H multiply-adds per (row, step) and direction for dg @ W_hh^T,
+// 504 GFLOP for both (0.51 ms at 989 TFLOP/s for bf16 operands). The real floor is the serial
 // chain of 5000 dependent steps, each a 768-deep dot product per (row, unit);
 // measured on an H100 a step takes 18.5 us, by the look of it bound by
 // shared-memory loads: per j, one W load and one 128-bit broadcast load of
@@ -381,11 +381,9 @@ int bigru_bwd_bf16(const void* w_f, const void* w_b, const void* gs_f,
                                C, R, stream);
 }
 
-// How many clusters the current device runs at once (bf16: 0 or 1; save is
-// unused and kept for the forward's signature); a negative cudaError_t code
-// on failure.
-int bigru_bwd_max_active_clusters(int bf16, int save, int H, int C, int R) {
-  (void)save;
+// How many clusters the current device runs at once (bf16: 0 or 1); a
+// negative cudaError_t code on failure.
+int bigru_bwd_max_active_clusters(int bf16, int H, int C, int R) {
   if (!valid_plan(1, 1, H, C, R))
     return -static_cast<int>(cudaErrorInvalidValue);
   return bf16 ? max_active_clusters<__nv_bfloat16>(H, C, R)

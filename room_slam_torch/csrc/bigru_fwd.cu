@@ -23,8 +23,9 @@
 //
 // What bounds it on an H100. At the scale-up shape (B=128, N=5000, H=256,
 // bf16) the light kernel moves 3H in and H out per (row, step) and direction,
-// 1.3 GB (0.39 ms at 3.35 TB/s), and does 2 * 3H * H multiply-adds per (row,
-// step) and direction, 504 GFLOP (0.51 ms at 989 TFLOP/s for bf16 operands).
+// 2.6 GB for both directions (0.78 ms at 3.35 TB/s), and does 2 * 3H * H
+// multiply-adds per (row, step) and direction, 504 GFLOP for both (0.51 ms
+// at 989 TFLOP/s for bf16 operands).
 // Neither is the real floor: the recurrence is a chain of 5000 dependent
 // steps, each a 256-deep dot product for 768 gate columns of every row, so
 // the time is 5000 times the latency of one step. On CUDA cores with

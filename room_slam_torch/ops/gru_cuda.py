@@ -41,19 +41,17 @@ each kernel splits it across the blocks of a thread-block cluster
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import Callable, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from room_slam_torch.ops.rnn import gru_cell
+from room_slam_torch.ops.rnn import gru_recurrence
 from room_slam_torch.ops.rnn_cuda import (MAX_SMEM_BYTES, _device_type,
                                           _work_dtype, launch, prev_steps,
                                           set_error_string)
 
-SM_COUNT = 132            # streaming multiprocessors of an H100 SXM
 CLUSTER_SIZES = (1, 2, 4, 8)
 ROWS_PER_THREAD = 4       # kRowsPerThread in csrc/bigru_*.cu
 MAX_ROWS = 32             # largest batch tile one cluster takes
@@ -82,8 +80,7 @@ def bigru_smem_bytes(kind: str, hidden: int, cluster: int, rows: int) -> int:
 
 
 def bigru_plan(kind: str, batch: int, hidden: int,
-               resident: Callable[[int, int], int] | None = None,
-               sm_count: int = SM_COUNT) -> Tuple[int, int]:
+               resident: Callable[[int, int], int]) -> Tuple[int, int]:
     """``(cluster, rows)`` for kernel ``kind`` ("fwd" or "bwd") at this
     batch and H: the cluster size (dividing H) and batch tile (a multiple
     of ``ROWS_PER_THREAD`` up to ``MAX_ROWS``) whose W_hh slice and
@@ -92,12 +89,9 @@ def bigru_plan(kind: str, batch: int, hidden: int,
     A step's time is taken as the block's thread count, at least 128 (four
     warps, one per scheduler: fewer do not finish a step sooner), times
     the waves the grid needs: ``resident(cluster, rows)`` clusters run at
-    once (the card's count; by default one block per SM). Ties go to the
-    smaller cluster, then the smaller tile. Raises for a shape no cluster
-    size takes."""
-    if resident is None:
-        def resident(c, rows):
-            return sm_count // c
+    once (the card's own count, ``cudaOccupancyMaxActiveClusters``). Ties
+    go to the smaller cluster, then the smaller tile. Raises for a shape no
+    cluster size takes."""
     best = None
     for c in CLUSTER_SIZES:
         if hidden % c:
@@ -127,45 +121,21 @@ def bigru_plan(kind: str, batch: int, hidden: int,
 # ---------------------------------------------------------------------------
 
 
-def _gru_walk(xg: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-              reverse: bool, save: bool):
-    """One direction, step for step as the forward kernels: ``ys`` and,
-    with ``save``, the activated gates and hn, all in the stream dtype."""
-    B, N, G = xg.shape
-    H = G // 3
-    T, dt = xg.dtype, _work_dtype(xg)
-    if N == 0:
-        return xg.new_zeros(B, 0, H), xg.new_zeros(B, 0, G), \
-            xg.new_zeros(B, 0, H)
-    w = w.to(T).to(dt)
-    b = b.to(dt)
-    h = xg.new_zeros(B, H, dtype=dt)
-    ys, gs, hns = [None] * N, [None] * N, [None] * N
-    for t in (range(N - 1, -1, -1) if reverse else range(N)):
-        h, r, z, n, hn = gru_cell(xg[:, t].to(dt), h, h.to(T).to(dt) @ w + b)
-        ys[t] = h.to(T)
-        if save:
-            gs[t] = torch.cat([r, z, n], dim=-1).to(T)
-            hns[t] = hn.to(T)
-    if not save:
-        return torch.stack(ys, dim=1), None, None
-    return (torch.stack(ys, dim=1), torch.stack(gs, dim=1),
-            torch.stack(hns, dim=1))
-
-
 def bigru_fwd_plain(xg_f, xg_b, w_f, b_f, w_b, b_b
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``bigru_fwd``: ``(ys_f, ys_b)``."""
-    return (_gru_walk(xg_f, w_f, b_f, False, False)[0],
-            _gru_walk(xg_b, w_b, b_b, True, False)[0])
+    """Plain version of ``bigru_fwd``: ``(ys_f, ys_b)``, each direction
+    step for step as the kernel (``ops/rnn.py`` ``gru_recurrence``)."""
+    return (gru_recurrence(xg_f, w_f, b_f),
+            gru_recurrence(xg_b, w_b, b_b, reverse=True))
 
 
 def bigru_fwd_train_plain(xg_f, xg_b, w_f, b_f, w_b, b_b):
     """Plain version of ``bigru_fwd_train``: ``(ys_f, ys_b, gs_f, gs_b,
     hn_f, hn_b)`` in original time order, gates activated (sigmoid r,
     sigmoid z, tanh n)."""
-    ys_f, gs_f, hn_f = _gru_walk(xg_f, w_f, b_f, False, True)
-    ys_b, gs_b, hn_b = _gru_walk(xg_b, w_b, b_b, True, True)
+    ys_f, gs_f, hn_f = gru_recurrence(xg_f, w_f, b_f, residuals=True)
+    ys_b, gs_b, hn_b = gru_recurrence(xg_b, w_b, b_b, reverse=True,
+                                      residuals=True)
     return ys_f, ys_b, gs_f, gs_b, hn_f, hn_b
 
 
@@ -241,22 +211,6 @@ def bigru_bwd(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b, dy_b):
     return bigru_bwd_cuda(*ins)
 
 
-@contextlib.contextmanager
-def _tf32_if_exact(dtype: torch.dtype):
-    """Let float32 matmuls use TF32 while the operands hold bf16 values:
-    a bf16 value (8 significant bits) is exact in TF32 (11), so the
-    products are exact and the sums float32, as with TF32 off."""
-    if dtype != torch.bfloat16:
-        yield
-        return
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def hidden_grads(ys, dx, dhn, reverse: bool, dtype: torch.dtype):
     """``dW_hh = h_prev^T [dx_r, dx_z, dhn]`` and ``db_hh = sum [dx_r,
     dx_z, dhn]`` of one direction, accumulated in float32 (float64 for
@@ -267,8 +221,7 @@ def hidden_grads(ys, dx, dhn, reverse: bool, dtype: torch.dtype):
     hp = prev_steps(ys, reverse).reshape(-1, H).to(acc)
     d2 = dx[..., :2 * H].reshape(-1, 2 * H).to(acc)
     dn = dhn.reshape(-1, H).to(acc)
-    with _tf32_if_exact(ys.dtype):
-        dw = torch.cat([hp.t() @ d2, hp.t() @ dn], dim=-1)
+    dw = torch.cat([hp.t() @ d2, hp.t() @ dn], dim=-1)
     db = torch.cat([d2.sum(0), dn.sum(0)])
     return dw.to(dtype), db.to(dtype)
 
@@ -327,8 +280,9 @@ def _library(name: str):
     if getattr(lib, "_argtypes_set", False):
         return lib
     p, i = ctypes.c_void_p, ctypes.c_int
+    fwd = name == "bigru_fwd"
     for sfx in _SUFFIX.values():
-        if name == "bigru_fwd":
+        if fwd:
             fns = {f"bigru_fwd_{sfx}": 8, f"bigru_fwd_train_{sfx}": 12}
         else:
             fns = {f"bigru_bwd_{sfx}": 14}
@@ -337,7 +291,7 @@ def _library(name: str):
             fn.argtypes = [p] * n_ptr + [i] * 5 + [p]
             fn.restype = ctypes.c_int
     clusters = getattr(lib, f"{name}_max_active_clusters")
-    clusters.argtypes = [i] * 5
+    clusters.argtypes = [i] * (5 if fwd else 4)   # fwd: also the kSave flag
     clusters.restype = ctypes.c_int
     set_error_string(lib, name)
     return lib
@@ -370,10 +324,11 @@ def _plan_launch(kind: str, fn, B: int, H: int, dev: torch.device, T):
     lib = _library(f"bigru_{kind}")
     query = getattr(lib, f"bigru_{kind}_max_active_clusters")
     save = int(fn is bigru_fwd_train_cuda)
+    flags = (int(T == torch.bfloat16),) + ((save,) if kind == "fwd" else ())
 
     def resident(c, rows):
         with torch.cuda.device(dev):
-            return query(int(T == torch.bfloat16), save, H, c, rows)
+            return query(*flags, H, c, rows)
 
     key = (kind, B, H, str(dev), T, save)
     if key not in _PLANS:

@@ -63,19 +63,35 @@ def gru_cell(x: torch.Tensor, h: torch.Tensor, hg: torch.Tensor):
 
 
 def gru_recurrence(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-                   reverse: bool = False) -> torch.Tensor:
+                   reverse: bool = False, residuals: bool = False):
     """Run the GRU recurrence over ``xg [B, N, 3H]`` (= x @ W_ih + b_ih)
     with ``w_hh [H, 3H]`` and ``b_hh [3H]``; ``reverse`` walks back to
-    front with outputs aligned to input positions. Returns ``[B, N, H]`` in
-    the stream dtype."""
-    B, N, _ = xg.shape
-    H = w_hh.shape[0]
-    w, b = w_hh.float(), b_hh.float()
-    h = torch.zeros(B, H, dtype=torch.float32, device=xg.device)
-    ys = [None] * N
-    for t in (range(N - 1, -1, -1) if reverse else range(N)):
-        h = gru_cell(xg[:, t].float(), h, h @ w + b)[0]
-        ys[t] = h.to(xg.dtype)
+    front with outputs aligned to input positions. Returns ``ys [B, N, H]``
+    in the stream dtype; with ``residuals``, ``(ys, gates, hn)`` with the
+    activated gates ``r, z, n [B, N, 3H]`` and ``hn = W_hn h + b_hn
+    [B, N, H]`` in it too.
+
+    The carry and the sums are float32 (float64 for float64 streams). W_hh
+    and h are rounded to the stream dtype before the dot product, as the
+    Pallas kernels do; for float32 streams that is no rounding at all."""
+    B, N, G = xg.shape
+    H = G // 3
+    T = xg.dtype
+    dt = torch.promote_types(T, torch.float32)
     if N == 0:
-        return xg.new_zeros(B, 0, H)
-    return torch.stack(ys, dim=1)
+        ys = xg.new_zeros(B, 0, H)
+        return (ys, xg.new_zeros(B, 0, G), xg.new_zeros(B, 0, H)) \
+            if residuals else ys
+    w, b = w_hh.to(T).to(dt), b_hh.to(dt)
+    h = xg.new_zeros(B, H, dtype=dt)
+    ys, gs, hns = [None] * N, [None] * N, [None] * N
+    for t in (range(N - 1, -1, -1) if reverse else range(N)):
+        h, r, z, n, hn = gru_cell(xg[:, t].to(dt), h, h.to(T).to(dt) @ w + b)
+        ys[t] = h.to(T)
+        if residuals:
+            gs[t] = torch.cat([r, z, n], dim=-1).to(T)
+            hns[t] = hn.to(T)
+    if not residuals:
+        return torch.stack(ys, dim=1)
+    return (torch.stack(ys, dim=1), torch.stack(gs, dim=1),
+            torch.stack(hns, dim=1))

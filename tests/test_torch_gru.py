@@ -97,7 +97,8 @@ def test_gru_recurrence_matches_scan(N):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_forwards_match_pallas(dtype):
     """Light forward (outputs) and training forward (outputs and the
-    residuals r, z, n and hn) against the interpret-mode Pallas kernel."""
+    residuals r, z, n and hn) against the interpret-mode Pallas kernel's
+    training call, whose outputs are the light call's (one kernel body)."""
     tins, jins = _cast(_inputs(3, 17, 16), dtype)
     tol = F32 if dtype == "float32" else BF16
     before = gru_cuda.bigru_fwd_cuda.launches
@@ -105,20 +106,20 @@ def test_plain_forwards_match_pallas(dtype):
     assert gru_cuda.bigru_fwd_cuda.launches == before    # CPU: no kernel
     ys_f, ys_b, gs_f, gs_b, hn_f, hn_b = bigru_fwd_train(*tins)
     assert ys_f.dtype == gs_f.dtype == hn_b.dtype == DTYPES[dtype][0]
-    ref_f, ref_b = bigru_recurrence_pallas(*jins, interpret=True)
     # JAX: the backward direction on the flipped stream, time-major
     # residuals in its walk order
     xgf, xgb, wf, bf, wb, bb = jins
-    _, _, jgf, jhnf, jgb, jhnb = _bigru_fwd_pallas(
+    jyf, jyb, jgf, jhnf, jgb, jhnb = _bigru_fwd_pallas(
         xgf, jnp.flip(xgb, 1), wf, bf, wb, bb, interpret=True,
         save_residuals=True)
+    ref_f, ref_b = _np(jyf), _np(jyb)[:, ::-1]
 
     def tm(x, flip):
         x = np.swapaxes(_np(x), 0, 1)
         return x[:, ::-1] if flip else x
 
-    pairs = [(light[0], _np(ref_f)), (light[1], _np(ref_b)),
-             (ys_f, _np(ref_f)), (ys_b, _np(ref_b)),
+    pairs = [(light[0], ref_f), (light[1], ref_b),
+             (ys_f, ref_f), (ys_b, ref_b),
              (gs_f, tm(jgf, False)), (gs_b, tm(jgb, True)),
              (hn_f, tm(jhnf, False)), (hn_b, tm(jhnb, True))]
     for got, ref in pairs:
@@ -217,7 +218,8 @@ def test_model_output_dict_matches_jax(dtype):
     params["params"]["decoder"]["inv_temp"] = np.float32(5.0)
     load_params(model, params)
     traces, mask = _traces()
-    ref = jmodel.apply(params, jnp.asarray(traces), jnp.asarray(mask))
+    ref = jax.jit(jmodel.apply)(params, jnp.asarray(traces),
+                                jnp.asarray(mask))
     with torch.no_grad():
         got = model.eval()(torch.from_numpy(traces), torch.from_numpy(mask))
     assert set(got) == set(ref) == {"pred_boxes", "pred_classes",
@@ -248,8 +250,10 @@ def _batch(seed=0):
 
 
 def test_train_step_matches_jax():
-    """One ``bigru`` step from identical parameters (``random_params``) and
-    batch (augmentation off, dropout 0, ``inv_temp`` 10), as
+    """One ``bigru`` step (one GRU layer: the model tests above stack two,
+    and a second layer only lengthens JAX's compile) from identical
+    parameters (``random_params``) and batch (augmentation off, dropout 0,
+    ``inv_temp`` 10), as
     ``tests/test_torch_train.py`` holds
     the ``lstm`` step: losses rtol 1e-4, equal Hungarian assignments, and
     updated parameters within 1e-6 where the gradient is live (more than
@@ -262,7 +266,7 @@ def test_train_step_matches_jax():
 
     cfg = ExperimentConfig(
         data=DataConfig(max_trace_len=L, max_colliders=M),
-        model=_model_cfg(extent_features=False),
+        model=_model_cfg(extent_features=False, lstm_layers=1),
         train=TrainConfig(batch_size=B, lr=3e-3, footprint_weight=1.0,
                           objectness_iou=True))
     jmodel = build_model(cfg.model)
@@ -368,7 +372,8 @@ def test_serves_jax_bigru_checkpoint(tmp_path):
                                            device="cpu")
     assert tcfg.model.model_type == "bigru" and not model.training
     traces, mask = _traces(seed=5)
-    ref = jmodel.apply(params, jnp.asarray(traces), jnp.asarray(mask))
+    ref = jax.jit(jmodel.apply)(params, jnp.asarray(traces),
+                                jnp.asarray(mask))
     with torch.no_grad():
         got = model(torch.from_numpy(traces), torch.from_numpy(mask))
     for k in ref:
@@ -411,31 +416,36 @@ def test_set_overrides_match_jax_and_train_bigru(tmp_path, capsys):
 
 
 def test_cluster_plan():
-    """W_hh of H=256 needs a cluster. With one block per SM: 4 blocks of 64
-    units for the forward kernels at B=128 (8-row tiles, 16 tiles x 2
-    directions x 4 = 128 blocks), 8 for the BPTT (16-row tiles); the test
-    width H=16 takes one block. A card that holds only 30 clusters of 4
-    and 15 of 8 at once gets larger tiles instead of a second wave. A shape
-    no cluster size takes raises."""
-    assert bigru_plan("fwd", 128, 256) == (4, 8)
-    assert bigru_plan("bwd", 128, 256) == (8, 16)
-    assert bigru_plan("fwd", 16, 256) == bigru_plan("bwd", 16, 256) == (4, 4)
-    assert bigru_plan("fwd", 3, 16) == bigru_plan("bwd", 5, 16) == (1, 4)
-    for kind in ("fwd", "bwd"):
-        c, r = bigru_plan(kind, 128, 256)
-        assert gru_cuda.bigru_smem_bytes(kind, 256, c, r) \
-            <= gru_cuda.MAX_SMEM_BYTES
-        assert gru_cuda.bigru_smem_bytes(kind, 256, c // 2, r) \
-            > gru_cuda.MAX_SMEM_BYTES
+    """W_hh of H=256 needs a cluster. On a card that holds 132 clusters of
+    1 block, 66 of 2, 30 of 4 and 15 of 8 at once (an H100's counts at
+    these shared-memory sizes), both kernels take 8 blocks of 32 units at
+    B=128 with 20-row tiles: 7 tiles x 2 directions = 14 clusters, one
+    wave, where smaller tiles would need a second. Smaller batches take 4
+    blocks and 4-row tiles; the test width H=16 takes one block. On a card
+    that holds only 8 clusters of 8, the forward moves to 4 blocks of
+    12-row tiles (22 clusters, one wave); the BPTT, whose exchange tile
+    leaves room for at most 20 rows in 8 blocks and 4 in 4, runs 16
+    clusters of 8 blocks with 16-row tiles in two waves. A shape no
+    cluster size takes raises."""
+    counts = {1: 132, 2: 66, 4: 30, 8: 15}
 
     def resident(c, rows):
-        return {1: 132, 2: 66, 4: 30, 8: 15}[c]
+        return counts[c]
 
     for kind in ("fwd", "bwd"):
-        c, r = bigru_plan(kind, 128, 256, resident)
-        assert 2 * -(-128 // r) <= resident(c, r), (kind, c, r)
+        assert bigru_plan(kind, 128, 256, resident) == (8, 20)
+        assert bigru_plan(kind, 16, 256, resident) == (4, 4)
+        assert bigru_plan(kind, 1, 256, resident) == (4, 4)
+        assert bigru_plan(kind, 3, 16, resident) == (1, 4)
+        assert gru_cuda.bigru_smem_bytes(kind, 256, 8, 20) \
+            <= gru_cuda.MAX_SMEM_BYTES
+        assert gru_cuda.bigru_smem_bytes(kind, 256, 4, 20) \
+            > gru_cuda.MAX_SMEM_BYTES
+    counts[8] = 8
+    assert bigru_plan("fwd", 128, 256, resident) == (4, 12)
+    assert bigru_plan("bwd", 128, 256, resident) == (8, 16)
     with pytest.raises(ValueError, match="cluster"):
-        bigru_plan("fwd", 8, 526)     # 526 = 2 x 263: no cluster fits
+        bigru_plan("fwd", 8, 526, resident)   # 526 = 2 x 263: none fits
 
 
 def test_cuda_path_never_falls_back(monkeypatch):
