@@ -63,7 +63,35 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     versions patched in, on the card: equal assignments, losses within the
     bf16 tolerance;
 17. scale-up train-step timing (B=128, N=5000): p50 over
-    ``SCALEUP_STEPS`` after ``SCALEUP_WARMUP``, then the per-stage split.
+    ``SCALEUP_STEPS`` after ``SCALEUP_WARMUP``, then the per-stage split;
+18. single-direction kernel check on the card: ``gru_fwd``,
+    ``gru_fwd_train`` and ``gru_bwd`` (the BiGRU sources with a grid of one
+    direction) at the legacy shape (32, 500, 64) f32, (5, 43, 16) in f32
+    and bf16 and (8, 1000, 256) bf16 (a cluster of several blocks), and
+    ``lstm_fwd``, ``lstm_fwd_train`` and ``lstm_bwd`` at (32, 500, 64) and
+    (5, 43, 64) f32, both walk orders, against their plain versions, and
+    ``GRUFunction``'s / ``LSTMFunction``'s gradients against autograd
+    through the plain loop;
+19. their timing at (32, 500, 64) f32: kernel, plain version, bound and
+    cuDNN's unidirectional ``nn.GRU`` / ``nn.LSTM`` (never called by the
+    port);
+20. legacy training (a main path): ``LEGACY_ROOMS`` seeded rooms written as
+    legacy CSV/objects pairs, ``train_legacy`` at its defaults (hidden 128,
+    seq 500, batch 32) for ``LEGACY_EPOCHS`` epochs; finite losses, a
+    ``best_model_legacy`` checkpoint, and exactly 4 ``gru_fwd_train`` and 4
+    ``gru_bwd`` launches a step, 4 ``gru_fwd`` a validation batch, nothing
+    else;
+21. legacy evaluation (a main path): ``evaluate_legacy`` with the
+    occupancy baseline on the card (4 ``gru_fwd`` launches), mAP and the
+    baseline's, and the model's boxes, labels and mAP against the same
+    evaluation on the CPU;
+22. one legacy step card vs CPU (dropout 0, same parameters and batch):
+    equal assignments, losses and updated parameters;
+23. legacy train-step timing (B=32, N=500): p50 over ``LEGACY_STEPS``
+    after ``LEGACY_WARMUP``, then the per-stage split;
+24. the ops-level LSTM path: ``ops/rnn.py`` ``lstm_recurrence(use_kernel=
+    True)`` forward and backward at (32, 500, 64), its launches and its
+    values and gradients against the plain loop.
 
 Then a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without a CUDA card.
@@ -90,16 +118,24 @@ from room_slam_torch.config import ExperimentConfig
 from room_slam_torch.data import formats
 from room_slam_torch.data.dataset import TraceColliderArrays
 from room_slam_torch.data.features import featurize
-from room_slam_torch.data.rooms import write_rooms
+from room_slam_torch.data.legacy import LegacyArrays
+from room_slam_torch.data.rooms import write_legacy_rooms, write_rooms
+from room_slam_torch.evaluate import evaluate_legacy, load_legacy_model
 from room_slam_torch.models import gru as gru_mod
 from room_slam_torch.models import lstm as lstm_mod
 from room_slam_torch.models.factory import build_model
+from room_slam_torch.models.legacy_gru import RoomSlamGRU
 from room_slam_torch.ops import build, gru_cuda, rnn_cuda
 from room_slam_torch.ops import losses as losses_mod
+from room_slam_torch.ops import rnn as rnn_ops
+from room_slam_torch.ops.losses import legacy_criterion, legacy_match
 from room_slam_torch.predictor import build_predictor
 from room_slam_torch.train import loop
-from room_slam_torch.train.driver import (load_model_for_inference,
-                                          train_benchmark)
+from room_slam_torch.train.driver import (legacy_batches, legacy_data,
+                                          legacy_optimizer, legacy_targets,
+                                          load_model_for_inference,
+                                          make_legacy_step, train_benchmark,
+                                          train_legacy)
 from room_slam_torch.weights import load_params, random_params
 
 REPO = Path(__file__).resolve().parent
@@ -132,6 +168,16 @@ SCALEUP_POINTS = (5000, 7500)       # walk length per room, before the cut
 SCALEUP_REQUEST = 7500              # points of the served request
 SCALEUP_PARITY_B = 8                # batch of the kernel-vs-plain step
 SCALEUP_STEPS, SCALEUP_WARMUP = 10, 3   # bench_scaleup's own counts
+# the legacy GRU surface (train_legacy's defaults): B, N, hidden_size / 2
+LEGACY = (32, 500, 64)
+SINGLE_GRU_SHAPES = ((LEGACY, torch.float32), ((5, 43, 16), torch.float32),
+                     ((5, 43, 16), torch.bfloat16),
+                     ((8, 1000, 256), torch.bfloat16))
+SINGLE_LSTM_SHAPES = (LEGACY, (5, 43, 64))
+LEGACY_ROOMS, LEGACY_POINTS = 40, (1500, 3000)   # about 180 windows of 500
+LEGACY_EPOCHS = 2
+LEGACY_THRESHOLD = 0.0       # every slot scored: mAP over a full ranking
+LEGACY_STEPS, LEGACY_WARMUP = 50, 5
 GRU_PLAIN = {"bigru_fwd_cuda": gru_cuda.bigru_fwd_plain,
              "bigru_fwd_train_cuda": gru_cuda.bigru_fwd_train_plain,
              "bigru_bwd_cuda": gru_cuda.bigru_bwd_plain}
@@ -165,43 +211,44 @@ def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOP_PER_S):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def bilstm_bound(B: int, N: int, H: int):
-    """Light forward, both directions: xg read once, W_hh read once, ys
+def bilstm_bound(B: int, N: int, H: int, dirs: int = 2):
+    """Light forward, ``dirs`` directions: xg read once, W_hh read once, ys
     written once; h @ W_hh, the xg add and the cell update."""
-    return bound(4 * 2 * (B * N * 4 * H + H * 4 * H + B * N * H),
-                 2 * B * N * (2 * H * 4 * H + 4 * H + 5 * H))
+    return bound(4 * dirs * (B * N * 4 * H + H * 4 * H + B * N * H),
+                 dirs * B * N * (2 * H * 4 * H + 4 * H + 5 * H))
 
 
-def fwd_train_bound(B: int, N: int, H: int):
+def fwd_train_bound(B: int, N: int, H: int, dirs: int = 2):
     """Training forward: as the light one, and c (H) and the activated
     gates (4H) written once per step."""
-    return bound(4 * 2 * (B * N * (4 * H + H + H + 4 * H) + 4 * H * H),
-                 2 * B * N * (2 * H * 4 * H + 4 * H + 5 * H))
+    return bound(4 * dirs * (B * N * (4 * H + H + H + 4 * H) + 4 * H * H),
+                 dirs * B * N * (2 * H * 4 * H + 4 * H + 5 * H))
 
 
-def bwd_bound(B: int, N: int, H: int):
-    """BPTT, both directions: gates (4H), c and dy (2H) read once, dg (4H)
-    written once, W_hh read once; per (row, step) the 4H-deep dot product
-    for each of H units and 25 operations per unit (coefficients, carries,
-    tanh counted as one)."""
-    return bound(4 * 2 * (B * N * (4 * H + 2 * H + 4 * H) + 4 * H * H),
-                 2 * B * N * (2 * 4 * H * H + 25 * H))
+def bwd_bound(B: int, N: int, H: int, dirs: int = 2):
+    """BPTT, ``dirs`` directions: gates (4H), c and dy (2H) read once, dg
+    (4H) written once, W_hh read once; per (row, step) the 4H-deep dot
+    product for each of H units and 25 operations per unit (coefficients,
+    carries, tanh counted as one)."""
+    return bound(4 * dirs * (B * N * (4 * H + 2 * H + 4 * H) + 4 * H * H),
+                 dirs * B * N * (2 * 4 * H * H + 25 * H))
 
 
-GRU_COLS = {"bigru_fwd": 4, "bigru_fwd_train": 8, "bigru_bwd": 10}
+GRU_COLS = {"fwd": 4, "fwd_train": 8, "bwd": 10}
 
 
-def gru_bound(name: str, B: int, N: int, H: int, dtype: torch.dtype):
-    """Both directions: per (row, step) the stream values each kernel must
-    read and write (``bigru_fwd`` 3H in + H out; ``bigru_fwd_train`` also
-    3H + H of residuals out; ``bigru_bwd`` 3H + H + H + H in, 3H + H out),
-    W_hh read once; operations: the h @ W_hh (dg @ W_hh^T) products,
-    2 * 3H * H per (row, step), at the peak of the operand type."""
+def gru_bound(kind: str, B: int, N: int, H: int, dtype: torch.dtype,
+              dirs: int = 2):
+    """``dirs`` directions: per (row, step) the stream values each kernel
+    must read and write (``fwd`` 3H in + H out; ``fwd_train`` also 3H + H
+    of residuals out; ``bwd`` 3H + H + H + H in, 3H + H out), W_hh read
+    once; operations: the h @ W_hh (dg @ W_hh^T) products, 2 * 3H * H per
+    (row, step), at the peak of the operand type."""
     item = torch.finfo(dtype).bits // 8
-    nbytes = 2 * (B * N * GRU_COLS[name] * H + 3 * H * H) * item
+    nbytes = dirs * (B * N * GRU_COLS[kind] * H + 3 * H * H) * item
     peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
         else PEAK_F32_FLOP_PER_S
-    return bound(nbytes, 2 * B * N * 2 * 3 * H * H, peak)
+    return bound(nbytes, dirs * B * N * 2 * 3 * H * H, peak)
 
 
 def gru_inputs(B, N, H, dtype, dev, seed):
@@ -342,7 +389,7 @@ def time_gru_kernels(dev, seed, errs):
              args, err["bwd_abs"])):
         ms = cuda_ms(lambda: fn(*a), 3, warmup=1)
         plain_ms = cuda_ms(lambda: plain(*a), 1, warmup=0)
-        b = gru_bound(name, B, N, H, dtype)
+        b = gru_bound(name[len("bigru_"):], B, N, H, dtype)
         rows[name] = {"shape": [B, N, H], "dtype": "bfloat16",
                       "kernel_ms": ms, "plain_ms": plain_ms,
                       "library_ms": lib_ms["bf16"][name],
@@ -428,7 +475,13 @@ WRAPPERS = {"bilstm_fwd": (rnn_cuda, "bilstm_fwd_cuda"),
             "bilstm_bwd": (rnn_cuda, "bilstm_bwd_cuda"),
             "bigru_fwd": (gru_cuda, "bigru_fwd_cuda"),
             "bigru_fwd_train": (gru_cuda, "bigru_fwd_train_cuda"),
-            "bigru_bwd": (gru_cuda, "bigru_bwd_cuda")}
+            "bigru_bwd": (gru_cuda, "bigru_bwd_cuda"),
+            "gru_fwd": (gru_cuda, "gru_fwd_cuda"),
+            "gru_fwd_train": (gru_cuda, "gru_fwd_train_cuda"),
+            "gru_bwd": (gru_cuda, "gru_bwd_cuda"),
+            "lstm_fwd": (rnn_cuda, "lstm_fwd_cuda"),
+            "lstm_fwd_train": (rnn_cuda, "lstm_fwd_train_cuda"),
+            "lstm_bwd": (rnn_cuda, "lstm_bwd_cuda")}
 
 
 def counts():
@@ -659,16 +712,8 @@ def step_parity(cfg, train_dir, dev, seed):
     (l_gpu, r_gpu, m_gpu, p_gpu, _), (l_cpu, r_cpu, m_cpu, p_cpu, g_cpu) = \
         res["card"], res["cpu"]
     assert torch.equal(r_gpu, r_cpu) and torch.equal(m_gpu, m_cpu)
-    loss_rel = max(abs(l_gpu[k] - v) / max(abs(v), 1e-12)
-                   for k, v in l_cpu.items())
-    scale = max(g.abs().max().item() for g in g_cpu.values())
-    live_err, other_err = 0.0, 0.0
-    for n, p in p_cpu.items():
-        diff = (p_gpu[n] - p).abs()
-        live = g_cpu[n].abs() > 1e-5 * scale
-        live_err = max(live_err, diff[live].max().item() if live.any()
-                       else 0.0)
-        other_err = max(other_err, diff.max().item())
+    loss_rel, live_err, other_err = step_diffs(l_gpu, l_cpu, p_gpu, p_cpu,
+                                               g_cpu)
     log("step_parity",
         f"card vs CPU at the unmodified init (inv_temp={init_temp:g}), not "
         f"asserted: {init_moved} matched targets assigned differently")
@@ -684,6 +729,23 @@ def step_parity(cfg, train_dir, dev, seed):
     assert loss_rel <= LOSS_RTOL, l_gpu
     assert live_err <= PARAM_ATOL, live_err
     assert other_err <= 2 * cfg.train.lr + PARAM_ATOL, other_err
+
+
+def step_diffs(l_gpu, l_cpu, p_gpu, p_cpu, g_cpu):
+    """Card vs CPU after one step: the losses' max relative difference and
+    the updated parameters' max abs difference where the CPU gradient is
+    live (over 1e-5 of the largest) and elsewhere."""
+    loss_rel = max(abs(l_gpu[k] - v) / max(abs(v), 1e-12)
+                   for k, v in l_cpu.items())
+    scale = max(g.abs().max().item() for g in g_cpu.values())
+    live_err, other_err = 0.0, 0.0
+    for n, p in p_cpu.items():
+        diff = (p_gpu[n] - p).abs()
+        live = g_cpu[n].abs() > 1e-5 * scale
+        live_err = max(live_err, diff[live].max().item() if live.any()
+                       else 0.0)
+        other_err = max(other_err, diff.max().item())
+    return loss_rel, live_err, other_err
 
 
 def scaleup_config():
@@ -873,6 +935,427 @@ def time_steps(cfg, train_dir, dev, seed, smi, kernel_rows, shapes,
         out.append(row)
         log("train_step", json.dumps(row) + f" on {smi}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 18-24: the single-direction kernels and the legacy GRU surface
+# ---------------------------------------------------------------------------
+
+
+def grads_rel(fn, plain, x, dy, dtype):
+    """Max-rel error of each gradient of ``fn(*x)`` (the Function) against
+    autograd through ``plain(*x)``; asserts the tolerance of ``dtype``."""
+    x = [t.clone().requires_grad_(True) for t in x]
+    got = torch.autograd.grad(fn(*x), x, dy)
+    ref = torch.autograd.grad(plain(*x), x, dy)
+    rel = [max_rel(a.float(), b.float()) for a, b in zip(got, ref)]
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.isfinite(a).all()
+    assert max(rel) <= (GRAD_REL if dtype == torch.float32
+                        else BF16_GRAD_REL), rel
+    return rel
+
+
+def check_single_kernels(dev, seed):
+    """Phase 18: ``gru_fwd``, ``gru_fwd_train``, ``gru_bwd`` and the three
+    LSTM kernels against their plain versions, and ``GRUFunction``'s three
+    / ``LSTMFunction``'s two gradients against torch autograd through the
+    plain loop, both walk orders; returns errors by (kernel, shape)."""
+    errs = {}
+    for shape, dtype in SINGLE_GRU_SHAPES:
+        xg, _, w, b, _, _ = gru_inputs(*shape, dtype, dev, seed)
+        for reverse in (False, True):
+            light = value_err((gru_cuda.gru_fwd_cuda(xg, w, b, reverse),),
+                              (gru_cuda.gru_recurrence(xg, w, b, reverse),),
+                              dtype)
+            train = value_err(gru_cuda.gru_fwd_train_cuda(xg, w, b, reverse),
+                              gru_cuda.gru_fwd_train_plain(xg, w, b, reverse),
+                              dtype)
+            plan = plan_text(gru_cuda.gru_fwd_train_cuda)
+            ys, gs, hn = gru_cuda.gru_fwd_train_plain(xg, w, b, reverse)
+            dy = torch.randn(ys.shape, device=dev, generator=torch.Generator(
+                dev).manual_seed(seed + 1)).to(dtype)
+            got = gru_cuda.gru_bwd_cuda(w, gs, hn, ys, dy, reverse)
+            ref = gru_cuda.gru_bwd_plain(w, gs, hn, ys, dy, reverse)
+            torch.cuda.synchronize()
+            assert all(torch.isfinite(a).all() for a in got)
+            bwd_abs = max((a.float() - r.float()).abs().max().item()
+                          for a, r in zip(got, ref))
+            bwd_rel = max(max_rel(a.float(), r.float())
+                          for a, r in zip(got, ref))
+            assert bwd_rel <= (GRAD_REL if dtype == torch.float32
+                               else BF16_GRAD_REL), bwd_rel
+            fn_rel = grads_rel(
+                lambda *a: gru_cuda.gru_recurrence_kernel(*a, reverse),
+                lambda *a: gru_cuda.gru_recurrence(*a, reverse),
+                (xg, w, b), dy, dtype)
+            if shape[-1] == 256:    # W_hh of H=256 needs a cluster
+                assert gru_cuda.gru_fwd_train_cuda.last_launch[
+                    "cluster"] > 1, plan
+            for name, e in (("gru_fwd", light), ("gru_fwd_train", train),
+                            ("gru_bwd", bwd_abs)):
+                key = (name, shape, dtype)
+                errs[key] = max(errs.get(key, 0.0), e)
+            log("kernel_check",
+                f"B,N,H={shape} {str(dtype)[6:]} reverse={reverse}: gru_fwd "
+                f"ys max_abs_err={light:.3e}, gru_fwd_train (ys, gates, hn) "
+                f"{train:.3e}; gru_bwd (dx, dhn) max_abs_err={bwd_abs:.3e} "
+                f"max_rel_err={bwd_rel:.3e}; GRUFunction vs autograd "
+                "through the plain loop max_rel_err (dxg, dW_hh, db_hh) "
+                + " ".join(f"{v:.3e}" for v in fn_rel) + f"; launch {plan}")
+    for shape in SINGLE_LSTM_SHAPES:
+        xg, _, w, _ = kernel_inputs(*shape, dev, seed)
+        for reverse in (False, True):
+            light = value_err((rnn_cuda.lstm_fwd_cuda(xg, w, reverse),),
+                              (rnn_cuda.lstm_recurrence(xg, w, reverse),),
+                              torch.float32)
+            train = value_err(rnn_cuda.lstm_fwd_train_cuda(xg, w, reverse),
+                              rnn_cuda.lstm_fwd_train_plain(xg, w, reverse),
+                              torch.float32)
+            ys, cs, gs = rnn_cuda.lstm_fwd_train_plain(xg, w, reverse)
+            dy = torch.randn(ys.shape, device=dev, generator=torch.Generator(
+                dev).manual_seed(seed + 1))
+            dg = rnn_cuda.lstm_bwd_cuda(w, gs, cs, dy, reverse)
+            ref = rnn_cuda.lstm_bwd_plain(w, gs, cs, dy, reverse)
+            torch.cuda.synchronize()
+            assert torch.isfinite(dg).all()
+            bwd_abs = (dg - ref).abs().max().item()
+            bwd_rel = max_rel(dg, ref)
+            assert bwd_rel <= GRAD_REL, bwd_rel
+            fn_rel = grads_rel(
+                lambda *a: rnn_cuda.lstm_recurrence_kernel(*a, reverse),
+                lambda *a: rnn_cuda.lstm_recurrence(*a, reverse),
+                (xg, w), dy, torch.float32)
+            for name, e in (("lstm_fwd", light), ("lstm_fwd_train", train),
+                            ("lstm_bwd", bwd_abs)):
+                key = (name, shape, torch.float32)
+                errs[key] = max(errs.get(key, 0.0), e)
+            log("kernel_check",
+                f"B,N,H={shape} float32 reverse={reverse}: lstm_fwd ys "
+                f"max_abs_err={light:.3e}, lstm_fwd_train (ys, c, gates) "
+                f"{train:.3e} (tol {KERNEL_ATOL:.0e}); lstm_bwd dg "
+                f"max_abs_err={bwd_abs:.3e} max_rel_err={bwd_rel:.3e}; "
+                "LSTMFunction vs autograd through the plain loop max_rel_err "
+                "(dxg, dW_hh) " + " ".join(f"{v:.3e}" for v in fn_rel))
+    return errs
+
+
+def time_single_kernels(dev, seed, errs):
+    """Phase 19: each single-direction kernel at the legacy shape in f32,
+    its plain version, the bound and cuDNN's unidirectional ``nn.GRU`` /
+    ``nn.LSTM`` in f32 (never called by the port; input projection
+    included)."""
+    B, N, H = LEGACY
+    f32 = torch.float32
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(B, N, 2 * H, device=dev, generator=g, requires_grad=True)
+    dy = torch.randn(B, N, H, device=dev, generator=g)
+    lib_ms = {}
+    for fam, mod in (("gru", torch.nn.GRU), ("lstm", torch.nn.LSTM)):
+        lib = mod(2 * H, H, batch_first=True).to(dev)
+        with torch.no_grad():
+            lib_ms[f"{fam}_fwd"] = cuda_ms(lambda: lib(x), 20)
+        fwd = cuda_ms(lambda: lib(x), 20)
+        lib_ms[f"{fam}_fwd_train"] = fwd
+        lib_ms[f"{fam}_bwd"] = cuda_ms(lambda: lib(x)[0].backward(dy),
+                                       20) - fwd
+    xg, _, w, b, _, _ = gru_inputs(B, N, H, f32, dev, seed)
+    gres = gru_cuda.gru_fwd_train_plain(xg, w, b)
+    gargs = (w, *gres[1:], gres[0], dy)
+    lx, _, lw, _ = kernel_inputs(B, N, H, dev, seed)
+    ys, cs, gs = rnn_cuda.lstm_fwd_train_plain(lx, lw)
+    largs = (lw, gs, cs, dy)
+    rows = {}
+    for name, fn, plain, a, bnd in (
+            ("gru_fwd", gru_cuda.gru_fwd_cuda, gru_cuda.gru_recurrence,
+             (xg, w, b), gru_bound("fwd", B, N, H, f32, dirs=1)),
+            ("gru_fwd_train", gru_cuda.gru_fwd_train_cuda,
+             gru_cuda.gru_fwd_train_plain, (xg, w, b),
+             gru_bound("fwd_train", B, N, H, f32, dirs=1)),
+            ("gru_bwd", gru_cuda.gru_bwd_cuda, gru_cuda.gru_bwd_plain, gargs,
+             gru_bound("bwd", B, N, H, f32, dirs=1)),
+            ("lstm_fwd", rnn_cuda.lstm_fwd_cuda, rnn_cuda.lstm_recurrence,
+             (lx, lw), bilstm_bound(B, N, H, dirs=1)),
+            ("lstm_fwd_train", rnn_cuda.lstm_fwd_train_cuda,
+             rnn_cuda.lstm_fwd_train_plain, (lx, lw),
+             fwd_train_bound(B, N, H, dirs=1)),
+            ("lstm_bwd", rnn_cuda.lstm_bwd_cuda, rnn_cuda.lstm_bwd_plain,
+             largs, bwd_bound(B, N, H, dirs=1))):
+        ms = cuda_ms(lambda: fn(*a), 20)
+        plain_ms = cuda_ms(lambda: plain(*a), 2, warmup=1)
+        rows[name] = {"shape": [B, N, H], "dtype": "float32",
+                      "kernel_ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms[name], "bound_us": bnd[0] * 1e3,
+                      "bound_by": bnd[1], "us_per_step": ms / N * 1e3,
+                      "err": errs[(name, LEGACY, f32)]}
+        if name.startswith("gru"):
+            rows[name]["launch"] = dict(fn.last_launch)
+        log("kernel_time", f"{name} " + json.dumps(rows[name]) + (
+            "  (library_ms: cuDNN unidirectional nn."
+            + ("GRU" if name.startswith("gru") else "LSTM") + " f32, "
+            + {"fwd": "forward without grad", "fwd_train":
+               "forward with grad on", "bwd": "forward + backward minus "
+               "forward"}[name.split("_", 1)[1]]
+            + ", includes the input projection)"))
+    return rows
+
+
+def train_legacy_path(data, save_dir, dev, seed, smi):
+    """Phase 20: ``train_legacy`` at its documented defaults on the card,
+    launch counts read around it: per step 4 ``gru_fwd_train`` and 4
+    ``gru_bwd`` (2 layers x 2 directions), only ``gru_fwd`` (4 a batch) in
+    validation, nothing else."""
+    B = LEGACY[0]
+    reset_counts()
+    t0 = time.perf_counter()
+    res = train_legacy(str(data), epochs=LEGACY_EPOCHS, batch_size=B,
+                       hidden_size=2 * LEGACY[2], seq_len=LEGACY[1],
+                       save_dir=str(save_dir), seed=seed, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    n_val = len(res["val_idx"])
+    n_train = len(res["dataset"]) - n_val
+    steps = LEGACY_EPOCHS * -(-n_train // B)
+    val_batches = LEGACY_EPOCHS * -(-n_val // B)
+    assert launched == expected_counts(gru_fwd_train=4 * steps,
+                                       gru_bwd=4 * steps,
+                                       gru_fwd=4 * val_batches), launched
+    for row in res["history"]:
+        assert np.isfinite(row["train_loss"]) and \
+            np.isfinite(row["val_loss"]), row
+    best = Path(save_dir) / "best_model_legacy"
+    assert best.with_suffix(".msgpack").exists()
+    log("train_legacy",
+        f"train_legacy (hidden {2 * LEGACY[2]}, seq {LEGACY[1]}, max_objects "
+        f"10, batch {B}, lr 1e-3) {LEGACY_EPOCHS} epochs of {n_train} "
+        f"windows ({n_val} for "
+        f"validation) from {LEGACY_ROOMS} rooms of {LEGACY_POINTS} points: "
+        f"{steps} steps, {val_batches} validation batches in {wall:.1f} s "
+        f"on {smi}; losses {json.dumps(res['history'])}; launches "
+        f"{launched}; last gru_fwd_train "
+        f"{plan_text(gru_cuda.gru_fwd_train_cuda)}, gru_bwd "
+        f"{plan_text(gru_cuda.gru_bwd_cuda)}")
+    return launched, best
+
+
+def evaluate_legacy_path(best, data, dev):
+    """Phase 21: ``evaluate_legacy`` with the baseline on the card (only
+    ``gru_fwd``, 4 launches: one forward over every window), then the
+    model's outputs and the evaluation against the same on the CPU."""
+    reset_counts()
+    hidden = 2 * LEGACY[2]
+    res = evaluate_legacy(str(best), str(data), hidden, threshold=
+                          LEGACY_THRESHOLD, compare_baseline=True, device=dev)
+    torch.cuda.synchronize()
+    launched = counts()
+    assert launched == expected_counts(gru_fwd=4), launched
+    assert np.isfinite(res["mAP"]) and np.isfinite(res["baseline_mAP"])
+    ref = evaluate_legacy(str(best), str(data), hidden, threshold=
+                          LEGACY_THRESHOLD, compare_baseline=True,
+                          device="cpu")
+    ds = LegacyArrays(data)
+    x = torch.from_numpy(np.ascontiguousarray(ds.traces[:, :, 1:3]))
+    with torch.no_grad():
+        out = load_legacy_model(str(best), hidden, device=dev)[0](x.to(dev))
+        cpu = load_legacy_model(str(best), hidden, device="cpu")[0](x)
+    box_err = (out["pred_boxes"].cpu() - cpu["pred_boxes"]).abs().max().item()
+    labels_equal = torch.equal(out["classes"].argmax(-1).cpu(),
+                               cpu["classes"].argmax(-1))
+    log("evaluate_legacy",
+        f"{best.name} on {len(ds)} windows of {len(set(ds.trace_id))} traces "
+        f"(threshold {LEGACY_THRESHOLD}): mAP {res['mAP']:.6f}, baseline "
+        f"mAP {res['baseline_mAP']:.6f}; AP per class "
+        f"{json.dumps(res['AP_per_class'])}, baseline "
+        f"{json.dumps(res['baseline_AP_per_class'])}; launches {launched}; "
+        f"card vs CPU: boxes max abs diff {box_err:.3e} (tol {MODEL_TOL:.0e})"
+        f", labels equal {labels_equal}, mAP {ref['mAP']:.6f} and baseline "
+        f"mAP {ref['baseline_mAP']:.6f} on the CPU")
+    assert box_err <= MODEL_TOL and labels_equal
+    assert abs(res["mAP"] - ref["mAP"]) <= 1e-9, (res, ref)
+    return launched
+
+
+def legacy_batch(ds, model, B, seed):
+    """The first ``B`` windows as a batch (on the CPU), their GT positions
+    moved next to a shuffled subset of ``model``'s predicted positions so no
+    two assignments tie."""
+    traces = np.ascontiguousarray(ds.traces[:B, :, 1:3])
+    with torch.no_grad():
+        pos = model.eval()(torch.from_numpy(traces))["positions"].numpy()
+    rng = np.random.default_rng(seed)
+    boxes = ds.boxes[:B].copy()
+    for i in range(B):
+        boxes[i, :, :2] = pos[i, rng.permutation(pos.shape[1])] + \
+            rng.normal(scale=0.05, size=(pos.shape[1], 2))
+    return {"traces": traces, "boxes": boxes, "labels": ds.labels[:B],
+            "valid": ds.valid[:B], "weight": np.ones(B, np.float32)}
+
+
+def legacy_rows(model, host, d):
+    """Hungarian rows and matched mask of ``model`` on the batch ``host``,
+    computed on device ``d``, back on the CPU."""
+    m = copy.deepcopy(model).to(d).eval()
+    batch = {k: torch.from_numpy(v).to(d) for k, v in host.items()}
+    with torch.no_grad():
+        rows, matched = legacy_match(m(batch["traces"]),
+                                     legacy_targets(batch))
+    return rows.cpu(), matched.cpu()
+
+
+def legacy_step_parity(data, dev, seed):
+    """Phase 22: one legacy step on the card and on the CPU from the same
+    parameters (``random_params``) and batch, dropout 0."""
+    model = RoomSlamGRU(hidden_size=2 * LEGACY[2], dropout=0.0)
+    params = random_params(model, seed)
+    load_params(model, params)
+    ds = LegacyArrays(data, seq_len=LEGACY[1])
+    # At the random init a window's ten predicted positions sit within
+    # ~0.3 m of each other, and card vs CPU rounding can move an
+    # assignment among them: count how many move, without asserting.
+    host = legacy_batch(ds, model, LEGACY[0], seed)
+    init_moved = n_moved(*legacy_rows(model, host, dev),
+                         *legacy_rows(model, host, "cpu"))
+    # A position head 100x larger spreads them over ~20 m, so the targets
+    # placed next to them have one clear assignment.
+    params["params"]["position_head"]["kernel"] *= 100.0
+    load_params(model, params)
+    host = legacy_batch(ds, model, LEGACY[0], seed)
+    res = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        rows, matched = legacy_rows(model, host, d)
+        m = copy.deepcopy(model).to(d)
+        batch = {k: torch.from_numpy(v).to(d) for k, v in host.items()}
+        opt = legacy_optimizer(m, 1e-3)
+        losses = make_legacy_step(m, opt)(batch,
+                                          torch.Generator(d).manual_seed(seed))
+        res[name] = ({k: float(v) for k, v in losses.items()},
+                     rows, matched,
+                     {n: p.detach().cpu() for n, p in m.named_parameters()},
+                     {n: p.grad.cpu() for n, p in opt.named})
+    (l_gpu, r_gpu, m_gpu, p_gpu, _), (l_cpu, r_cpu, m_cpu, p_cpu, g_cpu) = \
+        res["card"], res["cpu"]
+    assert torch.equal(m_gpu, m_cpu)
+    assert torch.equal(torch.where(m_cpu, r_gpu, -1),
+                       torch.where(m_cpu, r_cpu, -1))
+    loss_rel, live_err, other_err = step_diffs(l_gpu, l_cpu, p_gpu, p_cpu,
+                                               g_cpu)
+    log("legacy_step_parity",
+        f"card vs CPU at the unmodified init, not asserted: {init_moved} "
+        "matched targets assigned differently")
+    log("legacy_step_parity",
+        f"card vs CPU, one legacy step B={LEGACY[0]} N={LEGACY[1]}, dropout "
+        f"0, position head x100: assignments equal ({int(m_cpu.sum())} matched pairs); losses "
+        f"max_rel_diff={loss_rel:.3e} tol={LOSS_RTOL:.0e}; updated params "
+        f"max_abs_diff={live_err:.3e} tol={PARAM_ATOL:.0e} where |grad| > "
+        f"1e-5 of the largest, {other_err:.3e} elsewhere (tol 2*lr)")
+    assert loss_rel <= LOSS_RTOL, (l_gpu, l_cpu)
+    assert live_err <= PARAM_ATOL, live_err
+    assert other_err <= 2 * 1e-3 + PARAM_ATOL, other_err
+
+
+def time_legacy_steps(data, dev, seed, smi, rows):
+    """Phase 23: p50 of ``make_legacy_step`` at B=32, N=500 over
+    ``LEGACY_STEPS`` after ``LEGACY_WARMUP``, then a per-stage mean with a
+    synchronise between stages; ``rows`` (phase 19) give the kernels'
+    share."""
+    B = LEGACY[0]
+    ds = LegacyArrays(data, seq_len=LEGACY[1])
+    dev_data = legacy_data(ds, dev)
+    model = RoomSlamGRU(hidden_size=2 * LEGACY[2], generator=torch.Generator(
+        ).manual_seed(seed)).to(dev)
+    opt = legacy_optimizer(model, 1e-3)
+    step = make_legacy_step(model, opt)
+    gen = torch.Generator(dev).manual_seed(seed)
+    n = LEGACY_STEPS + LEGACY_WARMUP
+    batches = []
+    while len(batches) < n:
+        batches += list(legacy_batches(dev_data, np.arange(len(ds)), B,
+                                       seed + len(batches), True))
+    ms = []
+    for i, batch in enumerate(batches[:n]):
+        t0 = time.perf_counter()
+        losses = step(batch, gen)
+        torch.cuda.synchronize()
+        if i >= LEGACY_WARMUP:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        assert np.isfinite(float(losses["total_loss"]))
+    match_ms = []
+    match = losses_mod.hungarian_match_batch
+
+    def timed_match(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = match(*a)
+        torch.cuda.synchronize()
+        match_ms.append((time.perf_counter() - t) * 1e3)
+        return r
+
+    stages = np.zeros((LEGACY_STEPS, 4))
+    with mock.patch.object(losses_mod, "hungarian_match_batch", timed_match):
+        for i, batch in enumerate(batches[LEGACY_WARMUP:n]):
+            t = [time.perf_counter()]
+            model.train()
+            opt.zero_grad()
+            out = model(batch["traces"], generator=gen)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            ls = legacy_criterion(out, legacy_targets(batch), batch["weight"])
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            ls["total_loss"].backward()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            opt.step()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            stages[i] = np.diff(t) * 1e3
+    mean = stages.mean(0)
+    m_ms = float(np.mean(match_ms))
+    p50 = float(np.percentile(ms, 50))
+    row = {"B": B, "N": LEGACY[1], "steps": LEGACY_STEPS, "p50_ms": p50,
+           "p99_ms": float(np.percentile(ms, 99)),
+           "windows_per_s": B / p50 * 1e3,
+           "stage_ms": {"forward": mean[0],
+                        "criterion_host_matching": m_ms,
+                        "criterion_rest": mean[1] - m_ms,
+                        "backward": mean[2], "optimizer": mean[3]},
+           "staged_step_ms": float(mean.sum()),
+           "fwd_train_kernels_ms": 4 * rows["gru_fwd_train"]["kernel_ms"],
+           "bwd_kernels_ms": 4 * rows["gru_bwd"]["kernel_ms"]}
+    log("train_step_legacy", json.dumps(row) + f" on {smi}")
+    return row
+
+
+def lstm_ops_path(dev, seed):
+    """Phase 24: ``ops/rnn.py`` ``lstm_recurrence(use_kernel=True)`` at the
+    legacy shape, forward without grad (one ``lstm_fwd``) and forward and
+    backward with it (one ``lstm_fwd_train``, one ``lstm_bwd``), both walk
+    orders of the JAX package's per-direction calls; held against the plain
+    loop and autograd through it."""
+    xg, _, w, _ = kernel_inputs(*LEGACY, dev, seed)
+    dy = torch.randn(*LEGACY[:2], LEGACY[2], device=dev,
+                     generator=torch.Generator(dev).manual_seed(seed))
+    reset_counts()
+    with torch.no_grad():
+        ys = rnn_ops.lstm_recurrence(xg, w, False, use_kernel=True)
+    x = [t.clone().requires_grad_(True) for t in (xg, w)]
+    yr = rnn_ops.lstm_recurrence(*x, True, use_kernel=True)
+    grads = torch.autograd.grad(yr, x, dy)
+    torch.cuda.synchronize()
+    launched = counts()
+    assert launched == expected_counts(lstm_fwd=1, lstm_fwd_train=1,
+                                       lstm_bwd=1), launched
+    err = max((ys - rnn_ops.lstm_recurrence(xg, w)).abs().max().item(),
+              (yr - rnn_ops.lstm_recurrence(xg, w, True)).abs().max().item())
+    ref = torch.autograd.grad(rnn_ops.lstm_recurrence(*x, True), x, dy)
+    rel = [max_rel(a, b) for a, b in zip(grads, ref)]
+    log("lstm_ops", f"lstm_recurrence(use_kernel=True) B,N,H={LEGACY}: "
+        f"launches {launched}; values max_abs_err={err:.3e} tol "
+        f"{KERNEL_ATOL:.0e}; gradients (dxg, dW_hh) max_rel_err "
+        + " ".join(f"{v:.3e}" for v in rel) + f" tol {GRAD_REL:.0e}")
+    assert err <= KERNEL_ATOL and max(rel) <= GRAD_REL
+    return launched
 
 
 def main() -> int:
@@ -1138,6 +1621,28 @@ def main() -> int:
                    {k: [v] for k, v in gru_rows.items()}, [SCALEUP[:2]],
                    SCALEUP_STEPS, SCALEUP_WARMUP, "bigru")
 
+    # 18-24. the single-direction kernels and the legacy GRU surface:
+    # kernel checks and timing, training and evaluation (main paths), one
+    # step card vs CPU, step timing, then the ops-level LSTM path
+    t_single = time.perf_counter()
+    single_errs = check_single_kernels(dev, args.seed)
+    single_rows = time_single_kernels(dev, args.seed, single_errs)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp) / "legacy"
+        t0 = time.perf_counter()
+        write_legacy_rooms(data, LEGACY_ROOMS, args.seed + 20,
+                           points=LEGACY_POINTS)
+        log("train_legacy", f"wrote {LEGACY_ROOMS} legacy rooms of "
+                            f"{LEGACY_POINTS} points in "
+                            f"{time.perf_counter() - t0:.1f} s")
+        legacy_trained, legacy_best = train_legacy_path(
+            data, Path(tmp) / "ckpt", dev, args.seed, smi)
+        legacy_evaluated = evaluate_legacy_path(legacy_best, data, dev)
+        legacy_step_parity(data, dev, args.seed)
+        time_legacy_steps(data, dev, args.seed, smi, single_rows)
+    lstm_launched = lstm_ops_path(dev, args.seed)
+    log("done", f"phases 18-24 in {time.perf_counter() - t_single:.1f} s")
+
     def entry(name, source, replaces, launched, row):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launched,
@@ -1176,6 +1681,19 @@ def main() -> int:
          "max_rel_err": gru_errs[(SCALEUP, torch.bfloat16)]["bwd_rel"],
          "shapes": [gru_rows["bigru_bwd"]]},
     ]
+    for name, source, line, launched in (
+            ("gru_fwd", "bigru_fwd.cu", "gru_pallas.py:39", legacy_evaluated),
+            ("gru_fwd_train", "bigru_fwd.cu", "gru_pallas.py:155",
+             legacy_trained),
+            ("gru_bwd", "bigru_bwd.cu", "gru_pallas.py:71", legacy_trained),
+            ("lstm_fwd", "bilstm_fwd.cu", "rnn_pallas.py:105", lstm_launched),
+            ("lstm_fwd_train", "bilstm_fwd.cu", "rnn_pallas.py:183",
+             lstm_launched),
+            ("lstm_bwd", "bilstm_bwd.cu", "rnn_pallas.py:242", lstm_launched)):
+        kernels.append({**entry(name, f"room_slam_torch/csrc/{source}",
+                                f"room_slam_tpu/ops/{line}", launched[name],
+                                single_rows[name]),
+                        "shapes": [single_rows[name]]})
     log("done", f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

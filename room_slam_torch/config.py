@@ -20,6 +20,11 @@ BENCH_LABELS: Dict[str, int] = {"BLOCK": 0, "LOW": 1, "MID": 2, "HIGH": 3}
 BENCH_ID_TO_LABEL: Dict[int, str] = {v: k for k, v in BENCH_LABELS.items()}
 NUM_BENCH_CLASSES = 4
 
+# Class labels of the legacy (CSV 2D) surface.
+LEGACY_LABELS: Dict[str, int] = {"GROUND": 0, "LOW": 1, "MID": 2, "BLOCK": 3}
+LEGACY_ID_TO_LABEL: Dict[int, str] = {v: k for k, v in LEGACY_LABELS.items()}
+NUM_LEGACY_CLASSES = 4
+
 
 @dataclass
 class DataConfig:

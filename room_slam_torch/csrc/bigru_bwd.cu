@@ -1,14 +1,18 @@
-// Fused bidirectional GRU recurrence, backward (BPTT), float32 or bfloat16
-// streams, with W_hh^T split across the blocks of a thread-block cluster.
+// Fused GRU recurrence, backward (BPTT), float32 or bfloat16 streams, with
+// W_hh^T split across the blocks of a thread-block cluster. One source, two
+// grids: both directions of a BiGRU layer (bigru_bwd_*), or one direction
+// of a GRU (gru_bwd_*, with a reverse flag).
 //
-// Replaces the TPU kernel room_slam_tpu/ops/gru_pallas.py::_bigru_bwd_kernel
-// (launched through _bigru_bwd_pallas from _bigru_core_bwd). From the
-// residuals of the training forward (bigru_fwd.cu, kSave: activated gates
-// r, z, n, hn = W_hn h + b_hn, and ys) it walks both directions of one BiGRU
-// layer in reverse of their forward order and emits, per direction,
-// dx [B, N, 3H] (the cotangent of the gate stream xg) and dhn [B, N, H].
-// dW_hh and db_hh are a matrix product and a sum outside the kernel, as in
-// the reference.
+// Replaces two TPU kernels: room_slam_tpu/ops/gru_pallas.py::
+// _bigru_bwd_kernel (:357, pallas_call :527, launched through
+// _bigru_bwd_pallas from _bigru_core_bwd) with the grid's two directions,
+// and _gru_bwd_kernel (:71, pallas_call :218, launched through
+// _gru_bwd_pallas from _gru_core_bwd) with a grid of one direction. From
+// the residuals of the training forward (bigru_fwd.cu, kSave: activated
+// gates r, z, n, hn = W_hn h + b_hn, and ys) it walks each direction in
+// reverse of its forward order and emits, per direction, dx [B, N, 3H]
+// (the cotangent of the gate stream xg) and dhn [B, N, H]. dW_hh and db_hh
+// are a matrix product and a sum outside the kernel, as in the reference.
 //
 // Per step, with T() the rounding to the stream type, h_prev the output one
 // step earlier in the forward order (zero at its first step), and the
@@ -22,14 +26,18 @@
 //   dh_carry = dh_t * z + T([dx_r, dx_z, dhn]) @ T(W_hh)^T   (f32 sums)
 //
 // The forward direction walks t = N-1 .. 0; the backward-in-time direction
-// walks t = 0 .. N-1. All arrays are in original time order.
+// (and a single-direction GRU run with reverse) walks t = 0 .. N-1 and takes
+// h_prev from t + 1. All arrays are in original time order.
 //
 // What bounds it on an H100. At the scale-up shape (B=128, N=5000, H=256,
 // bf16) it reads 3H + H + H + H and writes 3H + H values per (row, step) and
 // direction, 6.6 GB for both directions (1.96 ms at 3.35 TB/s), and does
 // 2 * 3H * H multiply-adds per (row, step) and direction for dg @ W_hh^T,
-// 504 GFLOP for both (0.51 ms at 989 TFLOP/s for bf16 operands). The real floor is the serial
-// chain of 5000 dependent steps, each a 768-deep dot product per (row, unit);
+// 504 GFLOP for both (0.51 ms at 989 TFLOP/s for bf16 operands). At the
+// legacy GRU shape (one direction, B=32, N=500, H=64, f32) it moves 41 MB
+// (12.2 us) and does 0.39 GFLOP (5.9 us at 67 TFLOP/s). The real floor is
+// the serial chain of 5000 (500) dependent steps, each a 768-deep (192-deep)
+// dot product per (row, unit);
 // measured on an H100 a step takes 18.5 us, by the look of it bound by
 // shared-memory loads: per j, one W load and one 128-bit broadcast load of
 // four rows of dg feed four FMAs (see bigru_fwd.cu).
@@ -112,7 +120,7 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
                  const T* __restrict__ ys_b, const T* __restrict__ dy_b,
                  T* __restrict__ dx_f, T* __restrict__ dhn_f,
                  T* __restrict__ dx_b, T* __restrict__ dhn_b,
-                 int B, int N, int H, int R) {
+                 int B, int N, int H, int R, int rev) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -123,7 +131,8 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
   float* wt_s = smem;                       // [3H][U] W_hh[unit, j]
   float* dg_s = smem + pad4(static_cast<size_t>(G) * U);   // [2][3H][R]
 
-  const bool bwd = blockIdx.y == 1;
+  // a grid of two directions: y = 1 walks backward; of one: rev says
+  const bool bwd = (blockIdx.y == 1) != (rev != 0);
   const T* w = bwd ? w_b : w_f;
   const int u = threadIdx.x % U;
   const int r0 = (threadIdx.x / U) * kRowsPerThread;
@@ -299,9 +308,9 @@ cudaError_t allow_smem(int smem) {
 }
 
 void make_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int B,
-                 int H, int C, int R, size_t smem, void* stream) {
+                 int H, int C, int R, int dirs, size_t smem, void* stream) {
   *cfg = {};
-  cfg->gridDim = dim3(C * ((B + R - 1) / R), 2, 1);
+  cfg->gridDim = dim3(C * ((B + R - 1) / R), dirs, 1);
   cfg->blockDim = dim3((H / C) * (R / kRowsPerThread), 1, 1);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = static_cast<cudaStream_t>(stream);
@@ -318,7 +327,8 @@ int launch(const void* w_f, const void* w_b, const void* gs_f,
            const void* hn_f, const void* ys_f, const void* dy_f,
            const void* gs_b, const void* hn_b, const void* ys_b,
            const void* dy_b, void* dx_f, void* dhn_f, void* dx_b, void* dhn_b,
-           int B, int N, int H, int C, int R, void* stream) {
+           int B, int N, int H, int C, int R, int dirs, int rev,
+           void* stream) {
   if (!valid_plan(B, N, H, C, R))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(H, C, R);
@@ -326,13 +336,14 @@ int launch(const void* w_f, const void* w_b, const void* gs_f,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  make_config(&cfg, &attr, B, H, C, R, smem, stream);
+  make_config(&cfg, &attr, B, H, C, R, dirs, smem, stream);
   auto in = [](const void* p) { return static_cast<const T*>(p); };
   auto out = [](void* p) { return static_cast<T*>(p); };
   err = cudaLaunchKernelEx(&cfg, bigru_bwd_kernel<T>, in(w_f), in(w_b),
                            in(gs_f), in(hn_f), in(ys_f), in(dy_f), in(gs_b),
                            in(hn_b), in(ys_b), in(dy_b), out(dx_f),
-                           out(dhn_f), out(dx_b), out(dhn_b), B, N, H, R);
+                           out(dhn_f), out(dx_b), out(dhn_b), B, N, H, R,
+                           rev);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -344,7 +355,7 @@ int max_active_clusters(int H, int C, int R) {
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  make_config(&cfg, &attr, R, H, C, R, smem, nullptr);
+  make_config(&cfg, &attr, R, H, C, R, 1, smem, nullptr);
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(&n, bigru_bwd_kernel<T>, &cfg);
   return err == cudaSuccess ? n : -static_cast<int>(err);
@@ -367,7 +378,8 @@ int bigru_bwd_f32(const void* w_f, const void* w_b, const void* gs_f,
                   void* dhn_b, int B, int N, int H, int C, int R,
                   void* stream) {
   return launch<float>(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b,
-                       dy_b, dx_f, dhn_f, dx_b, dhn_b, B, N, H, C, R, stream);
+                       dy_b, dx_f, dhn_f, dx_b, dhn_b, B, N, H, C, R, 2, 0,
+                       stream);
 }
 
 int bigru_bwd_bf16(const void* w_f, const void* w_b, const void* gs_f,
@@ -378,7 +390,25 @@ int bigru_bwd_bf16(const void* w_f, const void* w_b, const void* gs_f,
                    void* stream) {
   return launch<__nv_bfloat16>(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b,
                                ys_b, dy_b, dx_f, dhn_f, dx_b, dhn_b, B, N, H,
-                               C, R, stream);
+                               C, R, 2, 0, stream);
+}
+
+// One direction of a GRU: as bigru_bwd_* with a grid of one direction over
+// w [H, 3H], gs and dx [B, N, 3H], hn, ys, dy and dhn [B, N, H]; reverse != 0
+// for a direction whose forward walked t = N-1 .. 0. The cluster count of
+// bigru_bwd_max_active_clusters holds.
+int gru_bwd_f32(const void* w, const void* gs, const void* hn, const void* ys,
+                const void* dy, void* dx, void* dhn, int B, int N, int H,
+                int C, int R, int reverse, void* stream) {
+  return launch<float>(w, w, gs, hn, ys, dy, gs, hn, ys, dy, dx, dhn, dx, dhn,
+                       B, N, H, C, R, 1, reverse, stream);
+}
+
+int gru_bwd_bf16(const void* w, const void* gs, const void* hn,
+                 const void* ys, const void* dy, void* dx, void* dhn, int B,
+                 int N, int H, int C, int R, int reverse, void* stream) {
+  return launch<__nv_bfloat16>(w, w, gs, hn, ys, dy, gs, hn, ys, dy, dx, dhn,
+                               dx, dhn, B, N, H, C, R, 1, reverse, stream);
 }
 
 // How many clusters the current device runs at once (bf16: 0 or 1); a

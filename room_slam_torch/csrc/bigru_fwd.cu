@@ -1,11 +1,16 @@
-// Fused bidirectional GRU recurrence, forward, float32 or bfloat16 streams:
-// the inference (light) variant and the training variant that also saves
-// residuals, with W_hh split across the blocks of a thread-block cluster.
+// Fused GRU recurrence, forward, float32 or bfloat16 streams: the inference
+// (light) variant and the training variant that also saves residuals, with
+// W_hh split across the blocks of a thread-block cluster. One source, two
+// grids: both directions of a BiGRU layer (bigru_fwd_*), or one direction
+// of a GRU (gru_fwd_*, with a reverse flag).
 //
-// Replaces the TPU kernel room_slam_tpu/ops/gru_pallas.py::_bigru_fwd_kernel
-// (launched through _bigru_fwd_pallas and bigru_recurrence_pallas), both its
-// save_residuals pallas_call and its light one. For one BiGRU layer, both
-// directions, with torch nn.GRU numerics (gate order r, z, n):
+// Replaces two TPU kernels, both their save_residuals pallas_call and their
+// light one: room_slam_tpu/ops/gru_pallas.py::_bigru_fwd_kernel (:314,
+// pallas_call :454 and :483, launched through _bigru_fwd_pallas and
+// bigru_recurrence_pallas) with the grid's two directions, and
+// _gru_fwd_kernel (:39, pallas_call :155 and :182, launched through
+// _gru_fwd_pallas and gru_recurrence_pallas) with a grid of one direction.
+// Per direction, with torch nn.GRU numerics (gate order r, z, n):
 //
 //   hg = T(h_{t-1}) @ T(W_hh) + b_hh     (f32 sums; T = the stream type)
 //   r = sigmoid(xg_r + hg_r), z = sigmoid(xg_z + hg_z)
@@ -18,17 +23,24 @@
 //
 // The forward direction walks t = 0 .. N-1 over xg_f; the backward direction
 // walks t = N-1 .. 0 over xg_b (given in original time order), so no flipped
-// copies are made and every output comes back in original time order. Every
-// step of the padded window runs; there is no mask, as in the reference.
+// copies are made and every output comes back in original time order. The
+// single-direction GRU's reverse walk is that backward direction: the same
+// values as the reference, which flips xg, runs forward and flips back.
+// Every step of the padded window runs; there is no mask, as in the
+// reference.
 //
 // What bounds it on an H100. At the scale-up shape (B=128, N=5000, H=256,
 // bf16) the light kernel moves 3H in and H out per (row, step) and direction,
 // 2.6 GB for both directions (0.78 ms at 3.35 TB/s), and does 2 * 3H * H
 // multiply-adds per (row, step) and direction, 504 GFLOP for both (0.51 ms
 // at 989 TFLOP/s for bf16 operands).
+// At the legacy GRU shape (one direction, B=32, N=500, H=64, f32) the light
+// kernel moves 16.4 MB (4.9 us) and does 0.39 GFLOP (5.9 us at 67 TFLOP/s
+// for f32); the training variant writes 16.4 MB more residuals.
 // Neither is the real floor: the recurrence is a chain of 5000 dependent
 // steps, each a 256-deep dot product for 768 gate columns of every row, so
-// the time is 5000 times the latency of one step. On CUDA cores with
+// the time is 5000 times the latency of one step (500 steps of a 64-deep
+// product at the legacy shape). On CUDA cores with
 // float32 FMAs the FMA issue rate alone would allow ~1.6 us a step (2 *
 // 128 * 768 * 256 FMAs over 132 SMs of 128 lanes); measured on an H100 the
 // step takes 8.9 us. The shared-memory loads look like the bound (no
@@ -120,7 +132,7 @@ bigru_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
                  T* __restrict__ ys_f, T* __restrict__ ys_b,
                  T* __restrict__ gs_f, T* __restrict__ gs_b,
                  T* __restrict__ hn_f, T* __restrict__ hn_b,
-                 int B, int N, int H, int R) {
+                 int B, int N, int H, int R, int rev) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -131,7 +143,8 @@ bigru_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
   float* w_s = smem;                             // [H][3U] W_hh columns
   float* h_s = smem + pad4(static_cast<size_t>(H) * 3 * U);  // [2][H][R]
 
-  const bool bwd = blockIdx.y == 1;
+  // a grid of two directions: y = 1 walks backward; of one: rev says
+  const bool bwd = (blockIdx.y == 1) != (rev != 0);
   const T* xg = bwd ? xg_b : xg_f;
   const T* w = bwd ? w_b : w_f;
   const float* b = bwd ? b_b : b_f;
@@ -283,9 +296,9 @@ cudaError_t allow_smem(int smem) {
 }
 
 void make_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int B,
-                 int H, int C, int R, size_t smem, void* stream) {
+                 int H, int C, int R, int dirs, size_t smem, void* stream) {
   *cfg = {};
-  cfg->gridDim = dim3(C * ((B + R - 1) / R), 2, 1);
+  cfg->gridDim = dim3(C * ((B + R - 1) / R), dirs, 1);
   cfg->blockDim = dim3((H / C) * (R / kRowsPerThread), 1, 1);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = static_cast<cudaStream_t>(stream);
@@ -301,7 +314,7 @@ template <typename T, bool kSave>
 int launch(const void* xg_f, const void* xg_b, const void* w_f,
            const float* b_f, const void* w_b, const float* b_b, void* ys_f,
            void* ys_b, void* gs_f, void* gs_b, void* hn_f, void* hn_b, int B,
-           int N, int H, int C, int R, void* stream) {
+           int N, int H, int C, int R, int dirs, int rev, void* stream) {
   if (!valid_plan(B, N, H, C, R))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(H, C, R);
@@ -309,13 +322,13 @@ int launch(const void* xg_f, const void* xg_b, const void* w_f,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  make_config(&cfg, &attr, B, H, C, R, smem, stream);
+  make_config(&cfg, &attr, B, H, C, R, dirs, smem, stream);
   err = cudaLaunchKernelEx(
       &cfg, bigru_fwd_kernel<T, kSave>, static_cast<const T*>(xg_f),
       static_cast<const T*>(xg_b), static_cast<const T*>(w_f), b_f,
       static_cast<const T*>(w_b), b_b, static_cast<T*>(ys_f),
       static_cast<T*>(ys_b), static_cast<T*>(gs_f), static_cast<T*>(gs_b),
-      static_cast<T*>(hn_f), static_cast<T*>(hn_b), B, N, H, R);
+      static_cast<T*>(hn_f), static_cast<T*>(hn_b), B, N, H, R, rev);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -327,7 +340,7 @@ int max_active_clusters(int H, int C, int R) {
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  make_config(&cfg, &attr, R, H, C, R, smem, nullptr);
+  make_config(&cfg, &attr, R, H, C, R, 1, smem, nullptr);
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(&n, bigru_fwd_kernel<T, kSave>, &cfg);
   return err == cudaSuccess ? n : -static_cast<int>(err);
@@ -349,7 +362,7 @@ int bigru_fwd_f32(const void* xg_f, const void* xg_b, const void* w_f,
                   void* stream) {
   return launch<float, false>(xg_f, xg_b, w_f, b_f, w_b, b_b, ys_f, ys_b,
                               nullptr, nullptr, nullptr, nullptr, B, N, H, C,
-                              R, stream);
+                              R, 2, 0, stream);
 }
 
 int bigru_fwd_bf16(const void* xg_f, const void* xg_b, const void* w_f,
@@ -358,7 +371,7 @@ int bigru_fwd_bf16(const void* xg_f, const void* xg_b, const void* w_f,
                    void* stream) {
   return launch<__nv_bfloat16, false>(xg_f, xg_b, w_f, b_f, w_b, b_b, ys_f,
                                       ys_b, nullptr, nullptr, nullptr,
-                                      nullptr, B, N, H, C, R, stream);
+                                      nullptr, B, N, H, C, R, 2, 0, stream);
 }
 
 // As bigru_fwd_*, and also writes the residuals of every step: gs_*
@@ -369,7 +382,8 @@ int bigru_fwd_train_f32(const void* xg_f, const void* xg_b, const void* w_f,
                         void* hn_f, void* hn_b, int B, int N, int H, int C,
                         int R, void* stream) {
   return launch<float, true>(xg_f, xg_b, w_f, b_f, w_b, b_b, ys_f, ys_b,
-                             gs_f, gs_b, hn_f, hn_b, B, N, H, C, R, stream);
+                             gs_f, gs_b, hn_f, hn_b, B, N, H, C, R, 2, 0,
+                             stream);
 }
 
 int bigru_fwd_train_bf16(const void* xg_f, const void* xg_b, const void* w_f,
@@ -379,7 +393,41 @@ int bigru_fwd_train_bf16(const void* xg_f, const void* xg_b, const void* w_f,
                          int R, void* stream) {
   return launch<__nv_bfloat16, true>(xg_f, xg_b, w_f, b_f, w_b, b_b, ys_f,
                                      ys_b, gs_f, gs_b, hn_f, hn_b, B, N, H, C,
-                                     R, stream);
+                                     R, 2, 0, stream);
+}
+
+// One direction of a GRU: as bigru_fwd_* with a grid of one direction over
+// xg [B, N, 3H], w [H, 3H], b [3H] into ys [B, N, H]; reverse != 0 walks
+// t = N-1 .. 0. The cluster count of bigru_fwd_max_active_clusters holds.
+int gru_fwd_f32(const void* xg, const void* w, const float* b, void* ys,
+                int B, int N, int H, int C, int R, int reverse,
+                void* stream) {
+  return launch<float, false>(xg, xg, w, b, w, b, ys, ys, nullptr, nullptr,
+                              nullptr, nullptr, B, N, H, C, R, 1, reverse,
+                              stream);
+}
+
+int gru_fwd_bf16(const void* xg, const void* w, const float* b, void* ys,
+                 int B, int N, int H, int C, int R, int reverse,
+                 void* stream) {
+  return launch<__nv_bfloat16, false>(xg, xg, w, b, w, b, ys, ys, nullptr,
+                                      nullptr, nullptr, nullptr, B, N, H, C,
+                                      R, 1, reverse, stream);
+}
+
+// As gru_fwd_*, and also writes gs [B, N, 3H] and hn [B, N, H].
+int gru_fwd_train_f32(const void* xg, const void* w, const float* b,
+                      void* ys, void* gs, void* hn, int B, int N, int H,
+                      int C, int R, int reverse, void* stream) {
+  return launch<float, true>(xg, xg, w, b, w, b, ys, ys, gs, gs, hn, hn, B,
+                             N, H, C, R, 1, reverse, stream);
+}
+
+int gru_fwd_train_bf16(const void* xg, const void* w, const float* b,
+                       void* ys, void* gs, void* hn, int B, int N, int H,
+                       int C, int R, int reverse, void* stream) {
+  return launch<__nv_bfloat16, true>(xg, xg, w, b, w, b, ys, ys, gs, gs, hn,
+                                     hn, B, N, H, C, R, 1, reverse, stream);
 }
 
 // How many clusters of this variant (bf16: 0 or 1, save: 0 or 1) the

@@ -1,12 +1,17 @@
-// Fused bidirectional LSTM recurrence, backward (BPTT), float32.
+// Fused LSTM recurrence, backward (BPTT), float32. One source, two grids:
+// both directions of a BiLSTM layer (bilstm_bwd_f32), or one direction of an
+// LSTM (lstm_bwd_f32, with a reverse flag).
 //
-// Replaces the TPU kernel room_slam_tpu/ops/rnn_pallas.py::_bilstm_bwd_kernel
-// (launched through _bilstm_bwd_pallas from _bilstm_core_bwd). From the
-// residuals of the training forward (bilstm_fwd.cu, kSave) it walks both
-// directions of one BiLSTM layer in reverse of their forward order and
-// emits the gate cotangent dg [B, N, 4H] per direction, which is also the
-// cotangent of the gate stream xg. dW_hh = sum_t h_{t-1}^T dg_t is one
-// matrix product outside the kernel, as in the reference.
+// Replaces two TPU kernels: room_slam_tpu/ops/rnn_pallas.py::
+// _bilstm_bwd_kernel (:438, pallas_call :606, launched through
+// _bilstm_bwd_pallas from _bilstm_core_bwd) with the grid's two directions,
+// and _lstm_bwd_chunk_kernel (:242, pallas_call :315, launched through
+// _lstm_bwd_pallas from _lstm_core_bwd) with a grid of one direction. From
+// the residuals of the training forward (bilstm_fwd.cu, kSave) it walks each
+// direction in reverse of its forward order and emits the gate cotangent
+// dg [B, N, 4H] per direction, which is also the cotangent of the gate
+// stream xg. dW_hh = sum_t h_{t-1}^T dg_t is one matrix product outside the
+// kernel, as in the reference.
 //
 // Per step, with the linearized coefficients of the reference (:459-473)
 // computed from the saved activated gates (i, f, g, o), c_t and c_{t-1}
@@ -21,12 +26,15 @@
 //   dc_carry = dc_t * f
 //
 // The forward direction walks t = N-1 .. 0; the backward-in-time direction
-// walks t = 0 .. N-1. All arrays are in original time order.
+// (and a single-direction LSTM run with reverse) walks t = 0 .. N-1 and
+// takes c_prev from t + 1. All arrays are in original time order.
 //
 // What bounds it on an H100. At the flagship training shape (B=20,
 // N=1500, H=64) it reads 4H + 2H floats and writes 4H floats per (row, step)
 // and direction, 154 MB in all (about 46 us at 3.35 TB/s), and does about
-// 2 GFLOP (about 30 us at 67 TFLOP/s f32). The real floor is the serial
+// 2 GFLOP (about 30 us at 67 TFLOP/s f32); at the single-direction shape
+// (B=32, N=500, H=64) 41 MB (12 us) and 0.54 GFLOP (8 us). The real floor
+// is the serial
 // chain of N dependent steps, each a 256-deep dot product and a barrier.
 //
 // What the design does about it. One block per (batch tile of kRows rows,
@@ -69,13 +77,14 @@ bilstm_bwd_kernel(const float* __restrict__ w_f,
                   const float* __restrict__ dy_b,
                   float* __restrict__ dg_f,
                   float* __restrict__ dg_b,
-                  int B, int N, int H) {
+                  int B, int N, int H, int rev) {
   extern __shared__ float smem[];
   const int G = 4 * H;
   float* wt_s = smem;            // [4H, H]  this direction's W_hh^T
   float* dg_s = wt_s + G * H;    // [2][kRows, 4H]  dg, double-buffered
 
-  const bool bwd = blockIdx.y == 1;
+  // a grid of two directions: y = 1 walks backward; of one: rev says
+  const bool bwd = (blockIdx.y == 1) != (rev != 0);
   const float* w = bwd ? w_b : w_f;
   const int row0 = blockIdx.x * kRows;
   const int j = threadIdx.x;
@@ -185,6 +194,21 @@ cudaError_t allow_smem(int smem) {
   return err;
 }
 
+int launch(const float* w_f, const float* w_b, const float* gs_f,
+           const float* cs_f, const float* dy_f, const float* gs_b,
+           const float* cs_b, const float* dy_b, float* dg_f, float* dg_b,
+           int B, int N, int H, int dirs, int rev, void* stream) {
+  if (B <= 0 || N <= 0 || H <= 0 || 4 * H > 512)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(H);
+  const cudaError_t err = allow_smem(static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((B + kRows - 1) / kRows, dirs);
+  bilstm_bwd_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
+      w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b, dg_f, dg_b, B, N, H, rev);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -197,15 +221,18 @@ int bilstm_bwd_f32(const float* w_f, const float* w_b, const float* gs_f,
                    const float* cs_f, const float* dy_f, const float* gs_b,
                    const float* cs_b, const float* dy_b, float* dg_f,
                    float* dg_b, int B, int N, int H, void* stream) {
-  if (B <= 0 || N <= 0 || H <= 0 || 4 * H > 512)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(H);
-  const cudaError_t err = allow_smem(static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + kRows - 1) / kRows, 2);
-  bilstm_bwd_kernel<<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-      w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b, dg_f, dg_b, B, N, H);
-  return static_cast<int>(cudaGetLastError());
+  return launch(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b, dg_f, dg_b, B,
+                N, H, 2, 0, stream);
+}
+
+// One direction of an LSTM: as bilstm_bwd_f32 with a grid of one direction
+// over w [H, 4H], gs and dg [B, N, 4H], cs and dy [B, N, H]; reverse != 0
+// for a direction whose forward walked t = N-1 .. 0.
+int lstm_bwd_f32(const float* w, const float* gs, const float* cs,
+                 const float* dy, float* dg, int B, int N, int H, int reverse,
+                 void* stream) {
+  return launch(w, w, gs, cs, dy, gs, cs, dy, dg, dg, B, N, H, 1, reverse,
+                stream);
 }
 
 const char* bilstm_bwd_error_string(int code) {

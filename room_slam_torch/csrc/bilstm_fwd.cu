@@ -1,10 +1,15 @@
-// Fused bidirectional LSTM recurrence, forward, float32: the inference
-// (light) variant and the training variant that also saves residuals.
+// Fused LSTM recurrence, forward, float32: the inference (light) variant and
+// the training variant that also saves residuals. One source, two grids:
+// both directions of a BiLSTM layer (bilstm_fwd_*), or one direction of an
+// LSTM (lstm_fwd_*, with a reverse flag).
 //
-// Replaces the TPU kernel room_slam_tpu/ops/rnn_pallas.py::_bilstm_fwd_kernel
-// (launched through _bilstm_fwd_pallas and bilstm_recurrence_pallas), both
-// its light pallas_call and its save_residuals one. For one BiLSTM layer,
-// both directions:
+// Replaces two TPU kernels, both their light pallas_call and their
+// save_residuals one: room_slam_tpu/ops/rnn_pallas.py::_bilstm_fwd_kernel
+// (:390, pallas_call :531 and :560, launched through _bilstm_fwd_pallas and
+// bilstm_recurrence_pallas) with the grid's two directions, and
+// _lstm_chunk_kernel (:105, pallas_call :183 and :210, launched through
+// _lstm_fwd_pallas and lstm_recurrence_pallas) with a grid of one
+// direction. Per direction:
 //
 //   g_t = xg_t + h_{t-1} @ W_hh          (gate order i, f, g, o)
 //   c_t = sigmoid(f) * c_{t-1} + sigmoid(i) * tanh(g)
@@ -18,13 +23,16 @@
 // The forward direction walks t = 0 .. N-1 over xg_f; the backward
 // direction walks t = N-1 .. 0 over xg_b (given in original time order), so
 // no flipped copies are made and every output comes back in original time
-// order. Every step of the padded window runs; there is no mask, as in the
+// order. A single-direction LSTM's reverse walk is that backward direction:
+// the same values as the reference, which flips xg, runs forward and flips
+// back. Every step of the padded window runs; there is no mask, as in the
 // reference.
 //
 // What bounds it on an H100. At the bench shape (B=32, N=500, H=64) the
 // light kernel reads 32.8 MB of xg and writes 8.2 MB of ys (about 12 us at
 // 3.35 TB/s) and does about 1.07 GFLOP (about 16 us at 67 TFLOP/s f32); the
-// training variant writes 41 MB more residuals (about 12 us more). Neither
+// training variant writes 41 MB more residuals (about 12 us more); one
+// direction (the single-direction LSTM) is half of each. Neither
 // is the real floor: the recurrence is a chain of N dependent steps, each a
 // 64-deep dot product per gate column, a barrier, the cell update and a
 // second barrier, so the time is N times the latency of one step (expected
@@ -67,14 +75,15 @@ bilstm_fwd_kernel(const float* __restrict__ xg_f,
                   float* __restrict__ cs_b,
                   float* __restrict__ gs_f,
                   float* __restrict__ gs_b,
-                  int B, int N, int H) {
+                  int B, int N, int H, int rev) {
   extern __shared__ float smem[];
   const int G = 4 * H;
   float* w_s = smem;            // [H, 4H]  this direction's W_hh
   float* g_s = w_s + H * G;     // [kRows, 4H]  gate pre-activations
   float* h_s = g_s + kRows * G; // [kRows, H]  h carry
 
-  const bool bwd = blockIdx.y == 1;
+  // a grid of two directions: y = 1 walks backward; of one: rev says
+  const bool bwd = (blockIdx.y == 1) != (rev != 0);
   const float* xg = bwd ? xg_b : xg_f;
   const float* w = bwd ? w_b : w_f;
   float* ys = bwd ? ys_b : ys_f;
@@ -195,16 +204,17 @@ template <bool kSave>
 int launch(const float* xg_f, const float* xg_b, const float* w_f,
            const float* w_b, float* ys_f, float* ys_b, float* cs_f,
            float* cs_b, float* gs_f, float* gs_b, int B, int N, int H,
-           void* stream) {
+           int dirs, int rev, void* stream) {
   if (B <= 0 || N <= 0 || H <= 0 || 4 * H > 512)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(H);
   const cudaError_t err = allow_smem<kSave>(static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + kRows - 1) / kRows, 2);
+  const dim3 grid((B + kRows - 1) / kRows, dirs);
   bilstm_fwd_kernel<kSave>
       <<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-          xg_f, xg_b, w_f, w_b, ys_f, ys_b, cs_f, cs_b, gs_f, gs_b, B, N, H);
+          xg_f, xg_b, w_f, w_b, ys_f, ys_b, cs_f, cs_b, gs_f, gs_b, B, N, H,
+          rev);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -220,7 +230,7 @@ int bilstm_fwd_f32(const float* xg_f, const float* xg_b, const float* w_f,
                    const float* w_b, float* ys_f, float* ys_b, int B, int N,
                    int H, void* stream) {
   return launch<false>(xg_f, xg_b, w_f, w_b, ys_f, ys_b, nullptr, nullptr,
-                       nullptr, nullptr, B, N, H, stream);
+                       nullptr, nullptr, B, N, H, 2, 0, stream);
 }
 
 // As bilstm_fwd_f32, and also writes the residuals of every step:
@@ -230,7 +240,24 @@ int bilstm_fwd_train_f32(const float* xg_f, const float* xg_b,
                          float* ys_b, float* cs_f, float* cs_b, float* gs_f,
                          float* gs_b, int B, int N, int H, void* stream) {
   return launch<true>(xg_f, xg_b, w_f, w_b, ys_f, ys_b, cs_f, cs_b, gs_f,
-                      gs_b, B, N, H, stream);
+                      gs_b, B, N, H, 2, 0, stream);
+}
+
+// One direction of an LSTM: as bilstm_fwd_f32 with a grid of one direction
+// over xg [B, N, 4H], w [H, 4H] into ys [B, N, H]; reverse != 0 walks
+// t = N-1 .. 0.
+int lstm_fwd_f32(const float* xg, const float* w, float* ys, int B, int N,
+                 int H, int reverse, void* stream) {
+  return launch<false>(xg, xg, w, w, ys, ys, nullptr, nullptr, nullptr,
+                       nullptr, B, N, H, 1, reverse, stream);
+}
+
+// As lstm_fwd_f32, and also writes cs [B, N, H] and gs [B, N, 4H].
+int lstm_fwd_train_f32(const float* xg, const float* w, float* ys, float* cs,
+                       float* gs, int B, int N, int H, int reverse,
+                       void* stream) {
+  return launch<true>(xg, xg, w, w, ys, ys, cs, cs, gs, gs, B, N, H, 1,
+                      reverse, stream);
 }
 
 const char* bilstm_fwd_error_string(int code) {

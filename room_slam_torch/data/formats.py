@@ -1,6 +1,6 @@
-"""Host-side trace and collider JSON I/O (own copy of the JAX package's
-``data/formats.py``; the native C++ trace parser and the legacy CSV surface
-are not ported).
+"""Host-side trace and collider JSON I/O and the legacy CSV surface (own
+copy of the JAX package's ``data/formats.py``; the native C++ trace parser
+is not ported).
 
 - trace JSON: a list of ``{"timestamp","x","y","z"}`` rows, or a dict with a
   ``traces`` / ``trajectory`` key.
@@ -9,6 +9,8 @@ are not ported).
 - a data directory pairs ``*_trace.json`` with ``*_collider.json``, or
   ``agent_data_*.json`` / ``human_data_*.json`` with a shared
   ``colliders.json``.
+- legacy CSV trace: ``timestamp, x, y`` rows; legacy objects JSON:
+  ``{"objects": [...]}``.
 """
 
 from __future__ import annotations
@@ -148,3 +150,35 @@ def save_predictions_json(path: str | Path, predictions: List[Dict],
     }
     with open(path, "w") as f:
         json.dump(out, f, indent=2)
+
+
+def load_trace_csv(path: str | Path) -> np.ndarray:
+    """Load a legacy CSV trace (``timestamp, x, y`` rows, no header
+    required; a line that does not parse is skipped) to ``[N, 3]`` float32
+    of (t, x, y)."""
+    rows = []
+    with open(path, "r") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rows.append([float(p) for p in line.split(",")[:3]])
+            except ValueError:
+                continue
+    if not rows:
+        return np.zeros((0, 3), dtype=np.float32)
+    return np.asarray(rows, dtype=np.float32)
+
+
+def save_trace_csv(path: str | Path, arr: np.ndarray) -> None:
+    """Write ``[N, 3]`` (t, x, y) as the legacy CSV format."""
+    with open(path, "w") as f:
+        for t, x, y in arr:
+            f.write(f"{t}, {x}, {y}\n")
+
+
+def save_objects_json(path: str | Path, objects: List[Dict]) -> None:
+    """Write the legacy objects JSON ``{"objects": [...]}``."""
+    with open(path, "w") as f:
+        json.dump({"objects": objects}, f, indent=2)

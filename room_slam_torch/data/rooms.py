@@ -1,5 +1,6 @@
-"""Seeded box rooms written as trace/collider JSON pairs, for smoke runs and
-tests of the training path where no captured dataset is at hand.
+"""Seeded box rooms written as trace/collider JSON pairs (``write_rooms``) or
+as legacy CSV/objects pairs (``write_legacy_rooms``), for smoke runs and
+tests of the training paths where no captured dataset is at hand.
 
 Each room is an axis-aligned box of 5-9 m by 5-9 m with its four walls
 (BLOCK colliders, thin and longer than 5 m, so augmentation never drops
@@ -16,9 +17,13 @@ from typing import List, Tuple
 
 import numpy as np
 
+from room_slam_torch.config import LEGACY_LABELS
 from room_slam_torch.data import formats
 
 _HEIGHTS = {1: (0.3, 0.6), 2: (0.7, 1.2), 3: (1.5, 2.2)}   # LOW, MID, HIGH
+# benchmark label -> legacy class name, as the JAX package's
+# create_sample_data folds them: walls stay BLOCK, HIGH furniture is MID
+_LEGACY_NAME = {0: "BLOCK", 1: "LOW", 2: "MID", 3: "MID"}
 
 
 def seeded_room(rng: np.random.Generator,
@@ -69,4 +74,31 @@ def write_rooms(data_dir: str | Path, n_rooms: int, seed: int,
         formats.save_trace_json(files[-1], trace)
         formats.save_colliders_json(data_dir / f"room_{i:03d}_collider.json",
                                     boxes, labels)
+    return files
+
+
+def write_legacy_rooms(data_dir: str | Path, n_rooms: int, seed: int,
+                       points: Tuple[int, int] = (1500, 3000)) -> List[Path]:
+    """Write ``n_rooms`` seeded rooms to ``data_dir`` as legacy pairs
+    ``room_<i>.csv`` (``t, x, z`` rows: the walk on the floor plane) and
+    ``room_<i>_objects.json`` (each box at position ``[x, z]``, size
+    ``[w, d]``, orientation 0), projected as the JAX package's
+    ``create_sample_data`` projects its rooms; returns the CSV files."""
+    data_dir = Path(data_dir)
+    data_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    files = []
+    for i in range(n_rooms):
+        trace, boxes, labels = seeded_room(rng, points)
+        files.append(data_dir / f"room_{i:03d}.csv")
+        formats.save_trace_csv(files[-1], trace[:, [3, 0, 2]])
+        objs = []
+        for b, lab in zip(boxes, labels):
+            name = _LEGACY_NAME[int(lab)]
+            objs.append({"class_id": LEGACY_LABELS[name], "class_name": name,
+                         "position": [float(b[0]), float(b[2])],
+                         "size": [float(b[3]), float(b[5])],
+                         "orientation": 0.0, "confidence": 1.0})
+        formats.save_objects_json(data_dir / f"room_{i:03d}_objects.json",
+                                  objs)
     return files

@@ -7,19 +7,20 @@ from torch import nn
 
 from room_slam_torch.config import ModelConfig
 from room_slam_torch.models.gru import TraceToColliderGRU
+from room_slam_torch.models.legacy_gru import RoomSlamGRU
 from room_slam_torch.models.lstm import TraceToColliderLSTM
 
 # model types of the JAX package that are still to be ported, with the
 # ROADMAP queue 1 item that ports each
 _NOT_PORTED = {
     "transformer": "item 13 (transformer and MoE)",
-    "gru": "item 14 (legacy surface)",
 }
 
 
 def build_model(cfg: ModelConfig,
                 generator: torch.Generator | None = None) -> nn.Module:
-    """Build a model by type (``lstm`` and ``bigru`` so far)."""
+    """Build a model by type (``lstm``, ``bigru`` and the legacy surface's
+    ``gru`` so far)."""
     t = cfg.model_type.lower()
     if t == "lstm":
         return TraceToColliderLSTM(
@@ -50,6 +51,14 @@ def build_model(cfg: ModelConfig,
             center_xz=cfg.center_xz,
             refine_stages=cfg.refine_stages,
             extent_features=cfg.extent_features,
+            generator=generator,
+        )
+    if t == "gru":
+        return RoomSlamGRU(
+            hidden_size=cfg.d_model,
+            max_objects=cfg.num_queries,
+            num_classes=cfg.num_classes,
+            dropout=cfg.dropout,
             generator=generator,
         )
     if t in _NOT_PORTED:

@@ -1,5 +1,6 @@
-"""Fused BiGRU layer recurrence: CUDA kernels, wrappers, plain versions and
-the autograd ``Function`` that joins them.
+"""GRU recurrences, both directions of a BiGRU layer or one direction of a
+GRU: CUDA kernels, wrappers, plain versions and the autograd ``Function``s
+that join them.
 
 ``bigru_recurrence(xg_f, xg_b, w_f, b_f, w_b, b_b)`` runs both directions
 of one BiGRU layer: the forward direction over ``xg_f`` and the
@@ -37,6 +38,15 @@ launches the kernel (or raises); a CPU tensor takes the plain version.
 At H=256 one direction's W_hh does not fit one block's shared memory, so
 each kernel splits it across the blocks of a thread-block cluster
 (``bigru_plan``).
+
+``gru_recurrence_kernel(xg, w_hh, b_hh, reverse)`` is one direction (the
+counterpart of ``gru_pallas.py::gru_recurrence_pallas`` and its
+``custom_vjp``; ``ops/rnn.py`` ``gru_recurrence(use_kernel=True)`` reaches
+it). The same two sources launch it with a grid of one direction:
+``gru_fwd``, ``gru_fwd_train`` and ``gru_bwd``, with ``GRUFunction`` joining
+them. Their plain versions are ``ops/rnn.py`` ``gru_recurrence``,
+``gru_fwd_train_plain`` (the same loop with ``residuals``) and
+``gru_bwd_plain``.
 """
 
 from __future__ import annotations
@@ -80,11 +90,13 @@ def bigru_smem_bytes(kind: str, hidden: int, cluster: int, rows: int) -> int:
 
 
 def bigru_plan(kind: str, batch: int, hidden: int,
-               resident: Callable[[int, int], int]) -> Tuple[int, int]:
+               resident: Callable[[int, int], int],
+               dirs: int = 2) -> Tuple[int, int]:
     """``(cluster, rows)`` for kernel ``kind`` ("fwd" or "bwd") at this
-    batch and H: the cluster size (dividing H) and batch tile (a multiple
-    of ``ROWS_PER_THREAD`` up to ``MAX_ROWS``) whose W_hh slice and
-    exchange tile fit one block and whose step takes least time.
+    batch and H over ``dirs`` directions (2 for a BiGRU layer, 1 for a
+    GRU): the cluster size (dividing H) and batch tile (a multiple of
+    ``ROWS_PER_THREAD`` up to ``MAX_ROWS``) whose W_hh slice and exchange
+    tile fit one block and whose step takes least time.
 
     A step's time is taken as the block's thread count, at least 128 (four
     warps, one per scheduler: fewer do not finish a step sooner), times
@@ -104,7 +116,7 @@ def bigru_plan(kind: str, batch: int, hidden: int,
             at_once = resident(c, rows)
             if at_once <= 0:
                 continue
-            waves = -(-2 * -(-batch // rows) // at_once)
+            waves = -(-dirs * -(-batch // rows) // at_once)
             key = (max(threads, 128) * waves, c, rows)
             best = min(best or key, key)
     if best is None:
@@ -139,10 +151,16 @@ def bigru_fwd_train_plain(xg_f, xg_b, w_f, b_f, w_b, b_b):
     return ys_f, ys_b, gs_f, gs_b, hn_f, hn_b
 
 
-def _gru_bwd_plain(w, gs, hns, ys, dy, reverse: bool):
-    """One direction of the BPTT kernel, step for step: the linearized
-    coefficients of the reference (``gru_pallas.py:374-384``), rounded to
-    the stream dtype, then the serial walk against the forward order."""
+def gru_fwd_train_plain(xg, w, b, reverse: bool = False):
+    """Plain version of ``gru_fwd_train``: ``(ys, gates, hn)``."""
+    return gru_recurrence(xg, w, b, reverse, residuals=True)
+
+
+def gru_bwd_plain(w, gs, hns, ys, dy, reverse: bool = False):
+    """Plain version of ``gru_bwd`` (one direction of the BPTT kernel),
+    step for step: the linearized coefficients of the reference
+    (``gru_pallas.py:97-105``), rounded to the stream dtype, then the
+    serial walk against the forward order. Returns ``(dx, dhn)``."""
     B, N, G = gs.shape
     H = G // 3
     T, dt = gs.dtype, _work_dtype(gs)
@@ -169,8 +187,8 @@ def _gru_bwd_plain(w, gs, hns, ys, dy, reverse: bool):
 def bigru_bwd_plain(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b, dy_b):
     """Plain version of ``bigru_bwd``: ``(dx_f, dhn_f, dx_b, dhn_b)`` from
     the training forward's gates, hn and ys and the upstream ``dy``."""
-    return (*_gru_bwd_plain(w_f, gs_f, hn_f, ys_f, dy_f, reverse=False),
-            *_gru_bwd_plain(w_b, gs_b, hn_b, ys_b, dy_b, reverse=True))
+    return (*gru_bwd_plain(w_f, gs_f, hn_f, ys_f, dy_f, reverse=False),
+            *gru_bwd_plain(w_b, gs_b, hn_b, ys_b, dy_b, reverse=True))
 
 
 # ---------------------------------------------------------------------------
@@ -254,6 +272,62 @@ class BiGRUFunction(torch.autograd.Function):
         return dx_f, dx_b, dw_f, db_f, dw_b, db_b
 
 
+def gru_fwd_train(xg, w, b, reverse: bool = False):
+    """One direction's training forward: ``(ys, gates, hn)``; CUDA tensors
+    launch ``gru_fwd_train``, CPU tensors take the plain version."""
+    if _device_type("gru_fwd_train", xg, w, b) == "cpu":
+        return gru_fwd_train_plain(xg, w, b, reverse)
+    return gru_fwd_train_cuda(xg, w, b, reverse)
+
+
+def gru_bwd(w, gs, hn, ys, dy, reverse: bool = False):
+    """One direction's BPTT: ``(dx, dhn)``; CUDA tensors launch
+    ``gru_bwd``, CPU tensors take the plain version."""
+    if _device_type("gru_bwd", w, gs, hn, ys, dy) == "cpu":
+        return gru_bwd_plain(w, gs, hn, ys, dy, reverse)
+    return gru_bwd_cuda(w, gs, hn, ys, dy, reverse)
+
+
+class GRUFunction(torch.autograd.Function):
+    """One direction of a GRU with its hand-written backward (counterpart
+    of ``_gru_core`` with ``_gru_core_fwd`` and ``_gru_core_bwd``): the
+    training forward, then BPTT, then ``dW_hh`` and ``db_hh`` as matmuls
+    and sums outside the kernel. Gradients: dxg in the stream dtype, dW_hh
+    and db_hh in W_hh's dtype; none for ``reverse``."""
+
+    @staticmethod
+    def forward(ctx, xg, w, b, reverse: bool):
+        ys, gs, hn = gru_fwd_train(xg, w, b, reverse)
+        ctx.save_for_backward(w, ys, gs, hn)
+        ctx.reverse = reverse
+        return ys
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        w, ys, gs, hn = ctx.saved_tensors
+        dx, dhn = gru_bwd(w, gs, hn, ys, dy.to(ys.dtype).contiguous(),
+                          ctx.reverse)
+        dw, db = hidden_grads(ys, dx, dhn, ctx.reverse, w.dtype)
+        return dx, dw, db, None
+
+
+def gru_recurrence_kernel(xg: torch.Tensor, w_hh: torch.Tensor,
+                          b_hh: torch.Tensor, reverse: bool = False
+                          ) -> torch.Tensor:
+    """One direction of a GRU over ``xg [B, N, 3H]`` with ``w_hh [H, 3H]``
+    and ``b_hh [3H]``: ``ys [B, N, H]`` in original time order. With grad
+    enabled and an input that requires it, ``GRUFunction``; otherwise the
+    light kernel for CUDA tensors, the plain loop for CPU tensors."""
+    _check_shapes(xg, xg, w_hh, b_hh, w_hh, b_hh)
+    tensors = (xg, w_hh, b_hh)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return GRUFunction.apply(xg, w_hh, b_hh, reverse)
+    if _device_type("gru_recurrence_kernel", *tensors) == "cpu":
+        return gru_recurrence(xg, w_hh, b_hh, reverse)
+    return gru_fwd_cuda(xg, w_hh, b_hh, reverse)
+
+
 def bigru_recurrence(xg_f: torch.Tensor, xg_b: torch.Tensor,
                      w_f: torch.Tensor, b_f: torch.Tensor,
                      w_b: torch.Tensor, b_b: torch.Tensor
@@ -282,13 +356,16 @@ def _library(name: str):
     p, i = ctypes.c_void_p, ctypes.c_int
     fwd = name == "bigru_fwd"
     for sfx in _SUFFIX.values():
+        # pointers, then B, N, H, C, R, and the reverse flag of one direction
         if fwd:
-            fns = {f"bigru_fwd_{sfx}": 8, f"bigru_fwd_train_{sfx}": 12}
+            fns = {f"bigru_fwd_{sfx}": (8, 5), f"gru_fwd_{sfx}": (4, 6),
+                   f"bigru_fwd_train_{sfx}": (12, 5),
+                   f"gru_fwd_train_{sfx}": (6, 6)}
         else:
-            fns = {f"bigru_bwd_{sfx}": 14}
-        for fn_name, n_ptr in fns.items():
+            fns = {f"bigru_bwd_{sfx}": (14, 5), f"gru_bwd_{sfx}": (7, 6)}
+        for fn_name, (n_ptr, n_int) in fns.items():
             fn = getattr(lib, fn_name)
-            fn.argtypes = [p] * n_ptr + [i] * 5 + [p]
+            fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
             fn.restype = ctypes.c_int
     clusters = getattr(lib, f"{name}_max_active_clusters")
     clusters.argtypes = [i] * (5 if fwd else 4)   # fwd: also the kSave flag
@@ -317,24 +394,26 @@ def _check_cuda(name, streams, weights, biases) -> torch.device:
     return dev
 
 
-def _plan_launch(kind: str, fn, B: int, H: int, dev: torch.device, T):
+def _plan_launch(kind: str, fn, B: int, H: int, dev: torch.device, T,
+                 save: bool, dirs: int):
     """The launch's ``(cluster, rows)`` from ``bigru_plan`` with the card's
-    own count of clusters it runs at once, recorded with the number of the
-    grid's clusters in ``fn.last_launch``."""
+    own count of clusters it runs at once (one count for a grid of one
+    direction or two), recorded with the number of the grid's clusters in
+    ``fn.last_launch``."""
     lib = _library(f"bigru_{kind}")
     query = getattr(lib, f"bigru_{kind}_max_active_clusters")
-    save = int(fn is bigru_fwd_train_cuda)
-    flags = (int(T == torch.bfloat16),) + ((save,) if kind == "fwd" else ())
+    flags = (int(T == torch.bfloat16),) + ((int(save),) if kind == "fwd"
+                                           else ())
 
     def resident(c, rows):
         with torch.cuda.device(dev):
             return query(*flags, H, c, rows)
 
-    key = (kind, B, H, str(dev), T, save)
+    key = (kind, B, H, str(dev), T, save, dirs)
     if key not in _PLANS:
-        cluster, rows = bigru_plan(kind, B, H, resident)
+        cluster, rows = bigru_plan(kind, B, H, resident, dirs)
         _PLANS[key] = {"cluster": cluster, "rows": rows,
-                       "clusters": 2 * -(-B // rows),
+                       "clusters": dirs * -(-B // rows),
                        "resident": resident(cluster, rows)}
     fn.last_launch = _PLANS[key]
     return lib, fn.last_launch["cluster"], fn.last_launch["rows"]
@@ -355,7 +434,7 @@ def _fwd_launch(fn, save: bool, xg_f, xg_b, w_f, b_f, w_b, b_b):
             for d in ((H, H, G, G, H, H) if save else (H, H))]
     if B == 0 or N == 0:
         return tuple(outs)
-    lib, cluster, rows = _plan_launch("fwd", fn, B, H, dev, T)
+    lib, cluster, rows = _plan_launch("fwd", fn, B, H, dev, T, save, 2)
     w_f, w_b = w_f.to(T).contiguous(), w_b.to(T).contiguous()
     launch(lib, f"{name}_{_SUFFIX[T]}", dev,
            *(t.data_ptr() for t in (xg_f, xg_b, w_f, b_f, w_b, b_b)),
@@ -404,7 +483,8 @@ def bigru_bwd_cuda(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b, dy_b):
     outs = [torch.empty(B, N, d, dtype=T, device=dev) for d in (G, H, G, H)]
     if B == 0 or N == 0:
         return tuple(outs)
-    lib, cluster, rows = _plan_launch("bwd", bigru_bwd_cuda, B, H, dev, T)
+    lib, cluster, rows = _plan_launch("bwd", bigru_bwd_cuda, B, H, dev, T,
+                                      False, 2)
     w_f, w_b = w_f.to(T).contiguous(), w_b.to(T).contiguous()
     launch(lib, f"bigru_bwd_{_SUFFIX[T]}", dev,
            *(t.data_ptr() for t in (w_f, w_b, *streams)),
@@ -414,3 +494,73 @@ def bigru_bwd_cuda(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b, dy_b):
 
 
 bigru_bwd_cuda.launches = 0
+
+
+def _gru_fwd_launch(fn, save: bool, xg, w, b, reverse: bool):
+    _check_shapes(xg, xg, w, b, w, b)
+    name = "gru_fwd_train" if save else "gru_fwd"
+    dev = _check_cuda(name, (xg,), (w,), (b,))
+    B, N, G = xg.shape
+    H = G // 3
+    T = xg.dtype
+    outs = [torch.empty(B, N, d, dtype=T, device=dev)
+            for d in ((H, G, H) if save else (H,))]
+    if B == 0 or N == 0:
+        return tuple(outs)
+    lib, cluster, rows = _plan_launch("fwd", fn, B, H, dev, T, save, 1)
+    w = w.to(T).contiguous()
+    launch(lib, f"{name}_{_SUFFIX[T]}", dev,
+           *(t.data_ptr() for t in (xg, w, b, *outs)), B, N, H, cluster, rows,
+           int(reverse))
+    fn.launches += 1
+    return tuple(outs)
+
+
+def gru_fwd_cuda(xg, w, b, reverse: bool = False) -> torch.Tensor:
+    """Launch the light kernel of ``csrc/bigru_fwd.cu`` with a grid of one
+    direction on the current stream: ``ys``. Counts each launch in
+    ``gru_fwd_cuda.launches``. Its output carries no autograd history:
+    ``gru_recurrence_kernel`` sends inputs that need a gradient to
+    ``GRUFunction`` instead."""
+    return _gru_fwd_launch(gru_fwd_cuda, False, xg, w, b, reverse)[0]
+
+
+gru_fwd_cuda.launches = 0
+
+
+def gru_fwd_train_cuda(xg, w, b, reverse: bool = False):
+    """Launch the residual variant of ``csrc/bigru_fwd.cu`` with a grid of
+    one direction: ``(ys, gates, hn)``. Counts each launch in
+    ``gru_fwd_train_cuda.launches``."""
+    return _gru_fwd_launch(gru_fwd_train_cuda, True, xg, w, b, reverse)
+
+
+gru_fwd_train_cuda.launches = 0
+
+
+def gru_bwd_cuda(w, gs, hn, ys, dy, reverse: bool = False):
+    """Launch ``csrc/bigru_bwd.cu`` with a grid of one direction:
+    ``(dx, dhn)``. Counts each launch in ``gru_bwd_cuda.launches``."""
+    H = w.shape[0]
+    B, N, G = gs.shape
+    shapes = [tuple(t.shape) for t in (w, gs, hn, ys, dy)]
+    if shapes != [(H, 3 * H), (B, N, 3 * H)] + [(B, N, H)] * 3:
+        raise ValueError("gru_bwd: w must be [H, 3H], gs [B, N, 3H] and hn, "
+                         f"ys, dy [B, N, H]; got {shapes}")
+    streams = (gs, hn, ys, dy)
+    dev = _check_cuda("gru_bwd", streams, (w,), ())
+    T = gs.dtype
+    outs = [torch.empty(B, N, d, dtype=T, device=dev) for d in (G, H)]
+    if B == 0 or N == 0:
+        return tuple(outs)
+    lib, cluster, rows = _plan_launch("bwd", gru_bwd_cuda, B, H, dev, T,
+                                      False, 1)
+    w = w.to(T).contiguous()
+    launch(lib, f"gru_bwd_{_SUFFIX[T]}", dev,
+           *(t.data_ptr() for t in (w, *streams, *outs)), B, N, H, cluster,
+           rows, int(reverse))
+    gru_bwd_cuda.launches += 1
+    return tuple(outs)
+
+
+gru_bwd_cuda.launches = 0

@@ -12,6 +12,9 @@
 All means are weighted by pair and sample weights, so batch-padding
 samples (weight 0) contribute nothing. Matching runs on the host
 (``ops/hungarian.py``): one device-to-host copy of the cost per call.
+
+``legacy_criterion`` is the legacy surface's 2D loss (class, position,
+size, orientation, validity) with the same matcher.
 """
 
 from __future__ import annotations
@@ -178,3 +181,83 @@ def set_criterion(outputs: Dict[str, torch.Tensor],
             * out["objectness_loss"]
     out["total_loss"] = total
     return out
+
+
+LEGACY_WEIGHTS = {
+    "class_loss": 1.0,
+    "position_loss": 1.0,
+    "size_loss": 1.0,
+    "orientation_loss": 0.5,
+    "validity_loss": 1.0,
+}
+
+
+def legacy_match(outputs: Dict[str, torch.Tensor],
+                 targets: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The legacy surface's Hungarian matching: ``(row_for_col [B, M],
+    matched [B, M])`` for the cost -softmax prob of the GT class + 5 *
+    position L1."""
+    logits, pos = outputs["classes"], outputs["positions"]
+    N, C = logits.shape[1:]
+    prob = torch.softmax(logits, dim=-1)
+    safe = targets["labels"].long().clamp(0, C - 1)               # [B, M]
+    c_class = -torch.gather(prob, 2, safe[:, None, :].expand(-1, N, -1))
+    c_pos = (pos[:, :, None, :] - targets["boxes"][:, None, :, :2]).abs() \
+        .sum(-1)
+    return hungarian_match_batch(c_class + 5.0 * c_pos,
+                                 targets["valid_mask"])
+
+
+def legacy_criterion(outputs: Dict[str, torch.Tensor],
+                     targets: Dict[str, torch.Tensor],
+                     sample_weight: torch.Tensor | None = None,
+                     loss_weights: Dict[str, float] = LEGACY_WEIGHTS
+                     ) -> Dict[str, torch.Tensor]:
+    """Multi-task loss of the legacy surface: cross-entropy (classes), L1
+    (position, size, orientation) over Hungarian-matched pairs, and the
+    validity BCE over every slot (target 1 where the slot got a match).
+
+    outputs: ``classes [B, N, C]``, ``positions [B, N, 2]``, ``sizes
+    [B, N, 2]``, ``orientations [B, N, 1]``, ``validity [B, N, 1]``
+    (logits); targets: ``boxes [B, M, 5]`` (x, y, w, h, theta), ``labels
+    [B, M]``, ``valid_mask [B, M]``.
+
+    The match cost is -softmax prob of the GT class + 5 * position L1. The
+    JAX package solves it with its exact square solver; the host matcher
+    here gives the same assignment to every valid column and row 0 to the
+    invalid ones, which carry weight 0 in every term."""
+    logits = outputs["classes"]
+    pos = outputs["positions"]
+    size = outputs["sizes"]
+    orient = outputs["orientations"][..., 0]
+    validity = outputs["validity"][..., 0]
+    gt = targets["boxes"]
+    B, N, C = logits.shape
+    dt = pos.dtype
+    if sample_weight is None:
+        sample_weight = torch.ones(B, dtype=dt, device=pos.device)
+    safe = targets["labels"].long().clamp(0, C - 1)               # [B, M]
+    rows, matched = legacy_match(outputs, targets)
+    pair_w = matched.to(dt) * sample_weight[:, None]
+
+    logp = F.log_softmax(_take_rows(logits, rows), dim=-1)
+    ce = -torch.gather(logp, 2, safe[..., None])[..., 0]
+    m_orient = torch.gather(orient, 1, rows)
+    slot_target = torch.zeros(B, N, dtype=dt, device=pos.device) \
+        .scatter_reduce(1, rows, matched.to(dt), reduce="amax")
+    bce = optax_sigmoid_bce(validity, slot_target)
+    losses = {
+        "class_loss": _weighted_mean(ce, pair_w),
+        "position_loss": _weighted_mean(
+            (_take_rows(pos, rows) - gt[..., :2]).abs().mean(-1), pair_w),
+        "size_loss": _weighted_mean(
+            (_take_rows(size, rows) - gt[..., 2:4]).abs().mean(-1), pair_w),
+        "orientation_loss": _weighted_mean((m_orient - gt[..., 4]).abs(),
+                                           pair_w),
+        "validity_loss": _weighted_mean(
+            bce, sample_weight[:, None].expand_as(bce)),
+    }
+    losses["total_loss"] = sum(loss_weights.get(k, 1.0) * v
+                               for k, v in losses.items())
+    return losses

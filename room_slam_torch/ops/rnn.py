@@ -8,7 +8,12 @@ multiplies ``W_hn h + b_hn``. The carry is float32 for any stream dtype;
 outputs take the stream dtype.
 
 These are the CPU path and what the plain versions of the recurrence
-kernels (``ops/rnn_cuda.py``, ``ops/gru_cuda.py``) are built on.
+kernels (``ops/rnn_cuda.py``, ``ops/gru_cuda.py``) are built on. With
+``use_kernel=True`` ``lstm_recurrence`` and ``gru_recurrence`` dispatch to
+the single-direction kernels instead (``lstm_recurrence_kernel``,
+``gru_recurrence_kernel``: the kernel for CUDA tensors, a hand-written
+backward under grad, this plain loop for CPU tensors), as the JAX
+package's ``use_pallas`` does.
 """
 
 from __future__ import annotations
@@ -30,12 +35,18 @@ def lstm_cell_step(gates: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
 
 
 def lstm_recurrence(xg: torch.Tensor, w_hh: torch.Tensor,
-                    reverse: bool = False) -> torch.Tensor:
+                    reverse: bool = False,
+                    use_kernel: bool = False) -> torch.Tensor:
     """Run the recurrence over ``xg [B, N, 4H]`` with ``w_hh [H, 4H]``.
 
     ``reverse`` walks back to front; outputs stay aligned with input
     positions (the backward half of a BiLSTM). Returns ``[B, N, H]``.
+    ``use_kernel`` goes through ``rnn_cuda.lstm_recurrence_kernel``.
     """
+    if use_kernel:
+        from room_slam_torch.ops import rnn_cuda
+
+        return rnn_cuda.lstm_recurrence_kernel(xg, w_hh, reverse)
     B, N, _ = xg.shape
     H = w_hh.shape[0]
     w = w_hh.float()
@@ -63,7 +74,8 @@ def gru_cell(x: torch.Tensor, h: torch.Tensor, hg: torch.Tensor):
 
 
 def gru_recurrence(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-                   reverse: bool = False, residuals: bool = False):
+                   reverse: bool = False, residuals: bool = False,
+                   use_kernel: bool = False):
     """Run the GRU recurrence over ``xg [B, N, 3H]`` (= x @ W_ih + b_ih)
     with ``w_hh [H, 3H]`` and ``b_hh [3H]``; ``reverse`` walks back to
     front with outputs aligned to input positions. Returns ``ys [B, N, H]``
@@ -73,7 +85,16 @@ def gru_recurrence(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
 
     The carry and the sums are float32 (float64 for float64 streams). W_hh
     and h are rounded to the stream dtype before the dot product, as the
-    Pallas kernels do; for float32 streams that is no rounding at all."""
+    Pallas kernels do; for float32 streams that is no rounding at all.
+    ``use_kernel`` goes through ``gru_cuda.gru_recurrence_kernel`` (no
+    ``residuals``)."""
+    if use_kernel:
+        if residuals:
+            raise ValueError("gru_recurrence: use_kernel returns ys only; "
+                             "gru_cuda.gru_fwd_train returns the residuals")
+        from room_slam_torch.ops import gru_cuda
+
+        return gru_cuda.gru_recurrence_kernel(xg, w_hh, b_hh, reverse)
     B, N, G = xg.shape
     H = G // 3
     T = xg.dtype

@@ -1,5 +1,6 @@
-"""Fused BiLSTM layer recurrence: CUDA kernels, wrappers, plain versions and
-the autograd ``Function`` that joins them.
+"""LSTM recurrences, both directions of a BiLSTM layer or one direction of
+an LSTM: CUDA kernels, wrappers, plain versions and the autograd
+``Function``s that join them.
 
 ``bilstm_recurrence(xg_f, xg_b, w_f, w_b)`` runs both directions of one
 BiLSTM layer: the forward direction over ``xg_f`` and the backward-in-time
@@ -23,6 +24,14 @@ goes through ``BiLSTMFunction`` (training forward, then BPTT and
 light forward. The tensor's device picks the implementation: a CUDA tensor
 launches the kernel (or raises); a CPU tensor takes the plain version.
 Nothing routes a CUDA tensor to a plain version.
+
+``lstm_recurrence_kernel(xg, w_hh, reverse)`` is one direction (the
+counterpart of ``rnn_pallas.py::lstm_recurrence_pallas`` and its
+``custom_vjp``; ``ops/rnn.py`` ``lstm_recurrence(use_kernel=True)`` reaches
+it). The same two sources launch it with a grid of one direction:
+``lstm_fwd``, ``lstm_fwd_train`` and ``lstm_bwd``, float32 only, with
+``LSTMFunction`` joining them. Their plain versions are ``ops/rnn.py``
+``lstm_recurrence``, ``lstm_fwd_train_plain`` and ``lstm_bwd_plain``.
 """
 
 from __future__ import annotations
@@ -75,7 +84,11 @@ def _work_dtype(t: torch.Tensor) -> torch.dtype:
     return torch.promote_types(t.dtype, torch.float32)
 
 
-def _lstm_fwd_train_plain(xg: torch.Tensor, w: torch.Tensor, reverse: bool):
+def lstm_fwd_train_plain(xg: torch.Tensor, w: torch.Tensor,
+                         reverse: bool = False):
+    """Plain version of ``lstm_fwd_train``: ``(ys, cs, gates)`` in original
+    time order, gates activated (sigmoid i, sigmoid f, tanh g, sigmoid
+    o)."""
     B, N, G = xg.shape
     H = G // 4
     dt = _work_dtype(xg)
@@ -104,15 +117,15 @@ def bilstm_fwd_train_plain(xg_f: torch.Tensor, xg_b: torch.Tensor,
     """Plain version of ``bilstm_fwd_train``: returns
     ``(ys_f, ys_b, cs_f, cs_b, gs_f, gs_b)`` in original time order, gates
     activated (sigmoid i, sigmoid f, tanh g, sigmoid o)."""
-    ys_f, cs_f, gs_f = _lstm_fwd_train_plain(xg_f, w_f, reverse=False)
-    ys_b, cs_b, gs_b = _lstm_fwd_train_plain(xg_b, w_b, reverse=True)
+    ys_f, cs_f, gs_f = lstm_fwd_train_plain(xg_f, w_f, reverse=False)
+    ys_b, cs_b, gs_b = lstm_fwd_train_plain(xg_b, w_b, reverse=True)
     return ys_f, ys_b, cs_f, cs_b, gs_f, gs_b
 
 
-def _lstm_bwd_plain(w, gs, cs, dy, reverse: bool) -> torch.Tensor:
-    """One direction of the kernel's BPTT, step for step: the linearized
-    coefficients of the reference, then the serial walk against the
-    direction's forward order."""
+def lstm_bwd_plain(w, gs, cs, dy, reverse: bool = False) -> torch.Tensor:
+    """Plain version of ``lstm_bwd`` (one direction of the kernel's BPTT),
+    step for step: the linearized coefficients of the reference, then the
+    serial walk against the direction's forward order. Returns ``dg``."""
     B, N, G = gs.shape
     H = G // 4
     i, f, gg, o = gs.split(H, dim=-1)
@@ -140,8 +153,8 @@ def bilstm_bwd_plain(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b
     """Plain version of ``bilstm_bwd``: ``(dg_f, dg_b)``, each
     ``[B, N, 4H]``, from the training forward's gates and c and the
     upstream ``dy``."""
-    return (_lstm_bwd_plain(w_f, gs_f, cs_f, dy_f, reverse=False),
-            _lstm_bwd_plain(w_b, gs_b, cs_b, dy_b, reverse=True))
+    return (lstm_bwd_plain(w_f, gs_f, cs_f, dy_f, reverse=False),
+            lstm_bwd_plain(w_b, gs_b, cs_b, dy_b, reverse=True))
 
 
 # ---------------------------------------------------------------------------
@@ -215,13 +228,67 @@ class BiLSTMFunction(torch.autograd.Function):
         w_f, w_b, ys_f, ys_b, cs_f, cs_b, gs_f, gs_b = ctx.saved_tensors
         dg_f, dg_b = bilstm_bwd(w_f, w_b, gs_f, cs_f, dy_f.contiguous(),
                                 gs_b, cs_b, dy_b.contiguous())
-        H = w_f.shape[0]
+        return (dg_f, dg_b, _hidden_grad(ys_f, dg_f, False),
+                _hidden_grad(ys_b, dg_b, True))
 
-        def dw(ys, dg, reverse):
-            hp = prev_steps(ys, reverse)
-            return torch.matmul(hp.reshape(-1, H).t(), dg.reshape(-1, 4 * H))
 
-        return dg_f, dg_b, dw(ys_f, dg_f, False), dw(ys_b, dg_b, True)
+def _hidden_grad(ys, dg, reverse: bool) -> torch.Tensor:
+    """``dW_hh = sum_t h_{t-1}^T dg_t`` of one direction, one matmul (the
+    reference's einsum, ``rnn_pallas.py:352``)."""
+    H = ys.shape[-1]
+    hp = prev_steps(ys, reverse)
+    return torch.matmul(hp.reshape(-1, H).t(), dg.reshape(-1, 4 * H))
+
+
+def lstm_fwd_train(xg, w, reverse: bool = False):
+    """One direction's training forward: ``(ys, cs, gates)``; CUDA tensors
+    launch ``lstm_fwd_train``, CPU tensors take the plain version."""
+    if _device_type("lstm_fwd_train", xg, w) == "cpu":
+        return lstm_fwd_train_plain(xg, w, reverse)
+    return lstm_fwd_train_cuda(xg, w, reverse)
+
+
+def lstm_bwd(w, gs, cs, dy, reverse: bool = False) -> torch.Tensor:
+    """One direction's BPTT: ``dg``; CUDA tensors launch ``lstm_bwd``, CPU
+    tensors take the plain version."""
+    if _device_type("lstm_bwd", w, gs, cs, dy) == "cpu":
+        return lstm_bwd_plain(w, gs, cs, dy, reverse)
+    return lstm_bwd_cuda(w, gs, cs, dy, reverse)
+
+
+class LSTMFunction(torch.autograd.Function):
+    """One direction of an LSTM with its hand-written backward (counterpart
+    of ``_lstm_core`` with ``_lstm_core_fwd`` and ``_lstm_core_bwd``): the
+    training forward, then BPTT, then ``dW_hh`` as one matmul outside the
+    kernel. No gradient for ``reverse``."""
+
+    @staticmethod
+    def forward(ctx, xg, w, reverse: bool):
+        ys, cs, gs = lstm_fwd_train(xg, w, reverse)
+        ctx.save_for_backward(w, ys, cs, gs)
+        ctx.reverse = reverse
+        return ys
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        w, ys, cs, gs = ctx.saved_tensors
+        dg = lstm_bwd(w, gs, cs, dy.contiguous(), ctx.reverse)
+        return dg, _hidden_grad(ys, dg, ctx.reverse), None
+
+
+def lstm_recurrence_kernel(xg: torch.Tensor, w_hh: torch.Tensor,
+                           reverse: bool = False) -> torch.Tensor:
+    """One direction of an LSTM over ``xg [B, N, 4H]`` with ``w_hh
+    [H, 4H]``: ``ys [B, N, H]`` in original time order. With grad enabled
+    and an input that requires it, ``LSTMFunction``; otherwise the light
+    kernel for CUDA tensors, the plain loop for CPU tensors."""
+    _check_shapes(xg, xg, w_hh, w_hh)
+    if torch.is_grad_enabled() and (xg.requires_grad or w_hh.requires_grad):
+        return LSTMFunction.apply(xg, w_hh, reverse)
+    if _device_type("lstm_recurrence_kernel", xg, w_hh) == "cpu":
+        return lstm_recurrence(xg, w_hh, reverse)
+    return lstm_fwd_cuda(xg, w_hh, reverse)
 
 
 def bilstm_recurrence(xg_f: torch.Tensor, xg_b: torch.Tensor,
@@ -249,13 +316,18 @@ def _library(name: str):
     if getattr(lib, "_argtypes_set", False):
         return lib
     p, i = ctypes.c_void_p, ctypes.c_int
+    # pointers, then B, N, H, and the reverse flag of one direction
     if name == "bilstm_fwd":
         lib.bilstm_fwd_f32.argtypes = [p] * 6 + [i] * 3 + [p]
         lib.bilstm_fwd_train_f32.argtypes = [p] * 10 + [i] * 3 + [p]
-        fns = (lib.bilstm_fwd_f32, lib.bilstm_fwd_train_f32)
+        lib.lstm_fwd_f32.argtypes = [p] * 3 + [i] * 4 + [p]
+        lib.lstm_fwd_train_f32.argtypes = [p] * 5 + [i] * 4 + [p]
+        fns = (lib.bilstm_fwd_f32, lib.bilstm_fwd_train_f32,
+               lib.lstm_fwd_f32, lib.lstm_fwd_train_f32)
     else:
         lib.bilstm_bwd_f32.argtypes = [p] * 10 + [i] * 3 + [p]
-        fns = (lib.bilstm_bwd_f32,)
+        lib.lstm_bwd_f32.argtypes = [p] * 5 + [i] * 4 + [p]
+        fns = (lib.bilstm_bwd_f32, lib.lstm_bwd_f32)
     for fn in fns:
         fn.restype = ctypes.c_int
     set_error_string(lib, name)
@@ -278,8 +350,8 @@ def _check_cuda(name: str, tensors, smem: int) -> torch.device:
         raise ValueError(f"{name}: all inputs must be on one CUDA device, "
                          f"got {[str(t.device) for t in tensors]}")
     if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"{name} takes float32 only, got "
-                        f"{[t.dtype for t in tensors]}")
+        raise TypeError(f"{name} takes float32 only (bfloat16 LSTM streams "
+                        f"are not ported), got {[t.dtype for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
     if smem > MAX_SMEM_BYTES:
@@ -377,3 +449,67 @@ def bilstm_bwd_cuda(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b
 
 
 bilstm_bwd_cuda.launches = 0
+
+
+def _lstm_fwd_launch(fn, save: bool, xg, w, reverse: bool):
+    _check_shapes(xg, xg, w, w)
+    name = "lstm_fwd_train" if save else "lstm_fwd"
+    B, N, G = xg.shape
+    H = G // 4
+    dev = _check_cuda(name, (xg, w), bilstm_smem_bytes(H))
+    outs = [torch.empty(B, N, d, dtype=torch.float32, device=dev)
+            for d in ((H, H, G) if save else (H,))]
+    if B == 0 or N == 0:
+        return tuple(outs)
+    launch(_library("bilstm_fwd"), f"{name}_f32", dev, xg.data_ptr(),
+           w.data_ptr(), *(o.data_ptr() for o in outs), B, N, H, int(reverse))
+    fn.launches += 1
+    return tuple(outs)
+
+
+def lstm_fwd_cuda(xg: torch.Tensor, w: torch.Tensor,
+                  reverse: bool = False) -> torch.Tensor:
+    """Launch the light kernel of ``csrc/bilstm_fwd.cu`` with a grid of one
+    direction on the current stream: ``ys``. Counts each launch in
+    ``lstm_fwd_cuda.launches``. Its output carries no autograd history:
+    ``lstm_recurrence_kernel`` sends inputs that need a gradient to
+    ``LSTMFunction`` instead."""
+    return _lstm_fwd_launch(lstm_fwd_cuda, False, xg, w, reverse)[0]
+
+
+lstm_fwd_cuda.launches = 0
+
+
+def lstm_fwd_train_cuda(xg: torch.Tensor, w: torch.Tensor,
+                        reverse: bool = False):
+    """Launch the residual variant of ``csrc/bilstm_fwd.cu`` with a grid of
+    one direction: ``(ys, cs, gates)``. Counts each launch in
+    ``lstm_fwd_train_cuda.launches``."""
+    return _lstm_fwd_launch(lstm_fwd_train_cuda, True, xg, w, reverse)
+
+
+lstm_fwd_train_cuda.launches = 0
+
+
+def lstm_bwd_cuda(w, gs, cs, dy, reverse: bool = False) -> torch.Tensor:
+    """Launch ``csrc/bilstm_bwd.cu`` with a grid of one direction: ``dg``.
+    Counts each launch in ``lstm_bwd_cuda.launches``."""
+    _check_shapes(gs, gs, w, w)
+    B, N, G = gs.shape
+    H = G // 4
+    if cs.shape != (B, N, H) or dy.shape != (B, N, H):
+        raise ValueError(
+            "lstm_bwd: cs and dy must be [B, N, H] with gs [B, N, 4H] = "
+            f"{tuple(gs.shape)}; got {tuple(cs.shape)}, {tuple(dy.shape)}")
+    ins = (w, gs, cs, dy)
+    dev = _check_cuda("lstm_bwd", ins, bilstm_bwd_smem_bytes(H))
+    dg = torch.empty(B, N, G, dtype=torch.float32, device=dev)
+    if B == 0 or N == 0:
+        return dg
+    launch(_library("bilstm_bwd"), "lstm_bwd_f32", dev,
+           *(t.data_ptr() for t in ins), dg.data_ptr(), B, N, H, int(reverse))
+    lstm_bwd_cuda.launches += 1
+    return dg
+
+
+lstm_bwd_cuda.launches = 0

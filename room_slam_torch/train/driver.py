@@ -1,6 +1,7 @@
 """Training driver and model loading (counterpart of the JAX package's
 ``train/driver.py``: ``train_benchmark`` with its per-epoch host loop,
-``_check_query_capacity`` and ``load_model_for_inference``).
+``_check_query_capacity``, ``train_legacy`` and
+``load_model_for_inference``).
 
 Not ported: the fused whole-run dispatch (``train_benchmark_fused``),
 resuming from a checkpoint, and recovery from a lost device.
@@ -11,20 +12,24 @@ from __future__ import annotations
 import time
 import warnings
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Callable, Dict, Iterator, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from room_slam_torch import resolve_device
-from room_slam_torch.config import ExperimentConfig
+from room_slam_torch.config import ExperimentConfig, TrainConfig
 from room_slam_torch.data.dataset import TraceColliderArrays
+from room_slam_torch.data.legacy import LegacyArrays
 from room_slam_torch.models.factory import build_model
+from room_slam_torch.models.legacy_gru import RoomSlamGRU
+from room_slam_torch.ops.losses import legacy_criterion
 from room_slam_torch.train import checkpoint as ckpt_lib
-from room_slam_torch.train.loop import (PlateauScheduler, eval_model,
-                                        gather_batch, make_eval_epoch,
-                                        make_optimizer, make_train_step,
-                                        warmup_cosine_lr)
+from room_slam_torch.train.loop import (Batch, Optimizer, PlateauScheduler,
+                                        eval_model, gather_batch,
+                                        make_eval_epoch, make_optimizer,
+                                        make_train_step, warmup_cosine_lr)
 from room_slam_torch.train.metrics import summarize_metrics
 from room_slam_torch.utils.logging import MetricsLogger
 from room_slam_torch.weights import load_params
@@ -163,6 +168,140 @@ def train_benchmark(cfg: ExperimentConfig,
         "samples_per_sec": samples_seen / max(wall, 1e-9),
         "n_params": n_params,
         "save_dir": str(save_dir),
+    }
+
+
+def legacy_data(ds: LegacyArrays, device: torch.device) -> Batch:
+    """A legacy dataset's windows on ``device``: ``traces [S, seq, 2]``
+    (x, y), ``boxes``, ``labels``, ``valid``."""
+    arrays = {"traces": ds.traces[:, :, 1:3], "boxes": ds.boxes,
+              "labels": ds.labels, "valid": ds.valid}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in arrays.items()}
+
+
+def legacy_batches(data: Batch, idx: Sequence[int], batch_size: int,
+                   seed: int, shuffle: bool) -> Iterator[Batch]:
+    """Batches of the windows ``idx`` of device-resident ``data``, shuffled
+    by ``numpy.random.default_rng(seed)``; the last one is padded with
+    window 0 at ``weight`` 0, as the JAX package's ``train_legacy``
+    gathers them."""
+    order = (np.random.default_rng(seed).permutation(idx) if shuffle
+             else np.asarray(idx))
+    dev = data["traces"].device
+    for lo in range(0, len(order), batch_size):
+        chunk = order[lo: lo + batch_size]
+        pad = batch_size - len(chunk)
+        sel = np.concatenate([chunk, np.zeros((pad,), chunk.dtype)])
+        w = np.ones((batch_size,), np.float32)
+        if pad:
+            w[-pad:] = 0.0
+        batch = {k: v[torch.from_numpy(sel).to(dev).long()]
+                 for k, v in data.items()}
+        batch["weight"] = torch.from_numpy(w).to(dev)
+        yield batch
+
+
+def legacy_targets(batch: Batch) -> Batch:
+    return {"boxes": batch["boxes"], "labels": batch["labels"],
+            "valid_mask": batch["valid"]}
+
+
+def legacy_optimizer(model: nn.Module, lr: float) -> Optimizer:
+    """optax's ``chain(clip_by_global_norm(1.0), adamw(lr))``: the trainer's
+    optimizer with its defaults (weight decay 1e-4 as optax's adamw, no
+    EMA)."""
+    return Optimizer(model, ExperimentConfig(train=TrainConfig(lr=lr)))
+
+
+def make_legacy_step(model: nn.Module, opt: Optimizer
+                     ) -> Callable[[Batch, torch.Generator], Batch]:
+    """``step(batch, generator) -> losses``: one update of the legacy
+    model (train mode, dropout masks from ``generator``); the losses come
+    back as detached device tensors."""
+
+    def step(batch: Batch, generator: torch.Generator) -> Batch:
+        model.train()
+        opt.zero_grad()
+        out = model(batch["traces"], generator=generator)
+        losses = legacy_criterion(out, legacy_targets(batch), batch["weight"])
+        losses["total_loss"].backward()
+        opt.step()
+        return {k: v.detach() for k, v in losses.items()}
+
+    return step
+
+
+def train_legacy(data_dir: str, epochs: int = 100, batch_size: int = 32,
+                 lr: float = 1e-3, hidden_size: int = 128, seq_len: int = 500,
+                 max_objects: int = 10, save_dir: str = "./checkpoints",
+                 seed: int = 0, val_fraction: float = 0.2,
+                 verbose: bool = True,
+                 device: str | torch.device = "cuda") -> Dict:
+    """Train the legacy GRU surface on ``device`` with the documented
+    defaults (batch 32, lr 1e-3, hidden 128, seq 500, max_objects 10, 100
+    epochs), as the JAX package's ``train_legacy``: a seeded split of the
+    windows (``val_fraction`` for validation), a shuffled pass per epoch,
+    the validation loss after each, and the best model saved as
+    ``<save_dir>/best_model_legacy`` in the JAX checkpoint layout."""
+    dev = resolve_device(device)
+    ds = LegacyArrays(data_dir, seq_len=seq_len, max_objects=max_objects)
+    n = len(ds)
+    n_val = max(1, int(n * val_fraction))
+    perm = np.random.default_rng(seed).permutation(n)
+    val_idx, train_idx = perm[:n_val], perm[n_val:]
+    if verbose:
+        print(f"Legacy dataset: {n} windows ({len(train_idx)} train / "
+              f"{n_val} val)")
+
+    model = RoomSlamGRU(hidden_size=hidden_size, max_objects=max_objects,
+                        generator=torch.Generator().manual_seed(seed)).to(dev)
+    opt = legacy_optimizer(model, lr)
+    step = make_legacy_step(model, opt)
+    data = legacy_data(ds, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    save_path = Path(save_dir)
+    save_path.mkdir(parents=True, exist_ok=True)
+    best_val = float("inf")
+    history = []
+    t0 = time.time()
+    for epoch in range(epochs):
+        total, nb = torch.zeros((), device=dev), 0
+        for batch in legacy_batches(data, train_idx, batch_size, seed + epoch,
+                                    True):
+            total += step(batch, gen)["total_loss"]
+            nb += 1
+        model.eval()
+        vl, nv = torch.zeros((), device=dev), 0
+        with torch.no_grad():
+            for batch in legacy_batches(data, val_idx, batch_size, 0, False):
+                vl += legacy_criterion(model(batch["traces"]),
+                                       legacy_targets(batch),
+                                       batch["weight"])["total_loss"]
+                nv += 1
+        train_loss = float(total) / max(nb, 1)
+        val_loss = float(vl) / max(nv, 1)
+        history.append({"epoch": epoch, "train_loss": train_loss,
+                        "val_loss": val_loss})
+        if verbose:
+            print(f"Epoch {epoch}: Train {train_loss:.4f} | "
+                  f"Val {val_loss:.4f}")
+        if val_loss < best_val:
+            best_val = val_loss
+            ckpt_lib.save_checkpoint(save_path / "best_model_legacy",
+                                     model.state_dict(), epoch=epoch,
+                                     val_loss=val_loss)
+    wall = time.time() - t0
+    return {
+        "best_val_loss": best_val,
+        "history": history,
+        "wall_time_s": wall,
+        "samples_per_sec": epochs * len(train_idx) / max(wall, 1e-9),
+        "save_dir": str(save_path),
+        "model": model,
+        "dataset": ds,
+        "val_idx": val_idx,
     }
 
 

@@ -449,16 +449,26 @@ def test_cluster_plan():
 
 
 def test_cuda_path_never_falls_back(monkeypatch):
-    """When the tensors' device says CUDA, every BiGRU entry launches the
-    kernel's wrapper, which refuses tensors that are not on a card: no
+    """When the tensors' device says CUDA, every BiGRU entry, every
+    single-direction GRU and LSTM entry (``gru_cuda``, ``rnn_cuda`` and the
+    ``use_kernel`` dispatch of ``ops/rnn.py``) and the legacy model launch
+    the kernel's wrapper, which refuses tensors that are not on a card: no
     path sends them to a plain version."""
+    from room_slam_torch.models.legacy_gru import RoomSlamGRU
+    from room_slam_torch.ops import rnn, rnn_cuda
+
     ins = [torch.from_numpy(a) for a in _inputs(2, 5, 8)]
-    monkeypatch.setattr(gru_cuda, "_device_type", lambda name, *t: "cuda")
+    for mod in (gru_cuda, rnn_cuda):
+        monkeypatch.setattr(mod, "_device_type", lambda name, *t: "cuda")
     plain = []
-    for name in ("bigru_fwd_plain", "bigru_fwd_train_plain",
-                 "bigru_bwd_plain"):
-        monkeypatch.setattr(gru_cuda, name,
-                            lambda *a, n=name: plain.append(n))
+    for mod, names in ((gru_cuda, ("bigru_fwd_plain", "bigru_fwd_train_plain",
+                                   "bigru_bwd_plain", "gru_recurrence",
+                                   "gru_fwd_train_plain", "gru_bwd_plain")),
+                       (rnn_cuda, ("lstm_recurrence", "lstm_fwd_train_plain",
+                                   "lstm_bwd_plain"))):
+        for name in names:
+            monkeypatch.setattr(mod, name,
+                                lambda *a, n=name, **k: plain.append(n))
     with pytest.raises(ValueError, match="CUDA"):
         bigru_recurrence(*ins)
     with pytest.raises(ValueError, match="CUDA"):
@@ -467,4 +477,24 @@ def test_cuda_path_never_falls_back(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         gru_cuda.bigru_bwd(ins[2], ins[4], ins[0], ys[0], ys[0], ys[0],
                            ins[1], ys[1], ys[1], ys[1])
+
+    xg, w, b = ins[0], ins[2], ins[3]
+    for grad in (False, True):
+        x = [t.clone().requires_grad_(grad) for t in (xg, w, b)]
+        for reverse in (False, True):
+            with pytest.raises(ValueError, match="CUDA"):
+                rnn.gru_recurrence(*x, reverse, use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        gru_cuda.gru_bwd(w, xg, ys[0], ys[0], ys[0], True)
+    lx, lw = torch.zeros(2, 5, 32), torch.zeros(8, 32)
+    for grad in (False, True):
+        x = [t.clone().requires_grad_(grad) for t in (lx, lw)]
+        with pytest.raises(ValueError, match="CUDA"):
+            rnn.lstm_recurrence(*x, True, use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        rnn_cuda.lstm_bwd(lw, lx, ys[0], ys[0], True)
+    model = RoomSlamGRU(hidden_size=16, max_objects=3)
+    for train in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            model.train(train)(torch.zeros(2, 5, 2))
     assert plain == []

@@ -268,3 +268,106 @@ def test_bigru_cluster_launches(cuda):
     with pytest.raises(TypeError):
         gru_cuda.bigru_fwd_cuda(*[t.half() if t.dim() == 3 else t
                                   for t in ins])
+
+
+# ---------------------------------------------------------------------------
+# Single-direction kernels: the GRU ones (gru_fwd, gru_fwd_train, gru_bwd)
+# are csrc/bigru_*.cu with a grid of one direction, the LSTM ones
+# (lstm_fwd, lstm_fwd_train, lstm_bwd, float32) csrc/bilstm_*.cu. Both
+# walk orders; tolerances as above.
+# ---------------------------------------------------------------------------
+
+SINGLE_GRU_CASES = [((32, 500, 64), torch.float32),
+                    ((5, 43, 16), torch.float32),
+                    ((5, 43, 16), torch.bfloat16),
+                    ((8, 300, 256), torch.bfloat16)]
+
+
+@pytest.mark.parametrize("shape,dtype", SINGLE_GRU_CASES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_single_kernels_match_plain(cuda, shape, dtype, reverse):
+    xg, _, w, b, _, _ = _gru_inputs(*shape, dtype, cuda)
+    counts = (gru_cuda.gru_fwd_cuda.launches,
+              gru_cuda.gru_fwd_train_cuda.launches,
+              gru_cuda.gru_bwd_cuda.launches)
+    with torch.no_grad():
+        light = gru_cuda.gru_recurrence_kernel(xg, w, b, reverse)
+    train = gru_cuda.gru_fwd_train(xg, w, b, reverse)
+    ref = gru_cuda.gru_fwd_train_plain(xg, w, b, reverse)
+    _assert_close(light, ref[0], dtype)
+    for a, r in zip(train, ref):
+        _assert_close(a, r, dtype)
+    dy = torch.randn(ref[0].shape, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(1)).to(dtype)
+    got = gru_cuda.gru_bwd(w, *ref[1:], ref[0], dy, reverse)
+    torch.cuda.synchronize()
+    assert (gru_cuda.gru_fwd_cuda.launches,
+            gru_cuda.gru_fwd_train_cuda.launches,
+            gru_cuda.gru_bwd_cuda.launches) == tuple(c + 1 for c in counts)
+    bound = GRAD_REL if dtype == torch.float32 else 0.1
+    for a, r in zip(got, gru_cuda.gru_bwd_plain(w, *ref[1:], ref[0], dy,
+                                                reverse)):
+        assert a.dtype == r.dtype and torch.isfinite(a).all()
+        assert _max_rel(a.float(), r.float()) <= bound
+    if shape[-1] == 256:       # W_hh of H=256 is split across a cluster
+        assert gru_cuda.gru_fwd_train_cuda.last_launch["cluster"] > 1
+
+
+@pytest.mark.parametrize("shape,dtype", SINGLE_GRU_CASES[:3])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_function_grads_match_autograd(cuda, shape, dtype, reverse):
+    """``GRUFunction``'s three gradients against torch autograd through the
+    plain loop."""
+    ins = _gru_inputs(*shape, dtype, cuda)
+    x = [t.requires_grad_(True) for t in (ins[0], ins[2], ins[3])]
+    ys = gru_cuda.gru_recurrence_kernel(*x, reverse)
+    assert type(ys.grad_fn).__name__ == "GRUFunctionBackward"
+    dy = torch.randn(ys.shape, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(2)).to(dtype)
+    got = torch.autograd.grad(ys, x, dy)
+    ref = torch.autograd.grad(gru_cuda.gru_recurrence(*x, reverse), x, dy)
+    bound = GRAD_REL if dtype == torch.float32 else 0.1
+    for name, a, b in zip(("dxg", "dW_hh", "db_hh"), got, ref):
+        assert a.dtype == b.dtype and torch.isfinite(a).all(), name
+        assert _max_rel(a.float(), b.float()) <= bound, name
+
+
+@pytest.mark.parametrize("shape", [(32, 500, 64), (5, 43, 64)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_single_kernels_match_plain(cuda, shape, reverse):
+    xg, _, w, _ = _inputs(*shape, cuda)
+    counts = (rnn_cuda.lstm_fwd_cuda.launches,
+              rnn_cuda.lstm_fwd_train_cuda.launches,
+              rnn_cuda.lstm_bwd_cuda.launches)
+    with torch.no_grad():
+        light = rnn_cuda.lstm_recurrence_kernel(xg, w, reverse)
+    train = rnn_cuda.lstm_fwd_train(xg, w, reverse)
+    ref = rnn_cuda.lstm_fwd_train_plain(xg, w, reverse)
+    for a, r in zip((light, *train), (ref[0], *ref)):
+        assert a.shape == r.shape and torch.isfinite(a).all()
+        assert (a - r).abs().max().item() <= ATOL
+    dy = torch.randn(ref[0].shape, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(1))
+    dg = rnn_cuda.lstm_bwd(w, ref[2], ref[1], dy, reverse)
+    torch.cuda.synchronize()
+    assert (rnn_cuda.lstm_fwd_cuda.launches,
+            rnn_cuda.lstm_fwd_train_cuda.launches,
+            rnn_cuda.lstm_bwd_cuda.launches) == tuple(c + 1 for c in counts)
+    dg_ref = rnn_cuda.lstm_bwd_plain(w, ref[2], ref[1], dy, reverse)
+    assert torch.isfinite(dg).all()
+    assert _max_rel(dg, dg_ref) <= GRAD_REL
+    x = [t.clone().requires_grad_(True) for t in (xg, w)]
+    got = torch.autograd.grad(rnn_cuda.lstm_recurrence_kernel(*x, reverse),
+                              x, dy)
+    ref_g = torch.autograd.grad(rnn_cuda.lstm_recurrence(*x, reverse), x, dy)
+    for name, a, b in zip(("dxg", "dW_hh"), got, ref_g):
+        assert _max_rel(a, b) <= GRAD_REL, name
+
+
+def test_lstm_single_kernels_refuse_bf16(cuda):
+    """bf16 LSTM streams are not ported: a bf16 CUDA input raises."""
+    xg, _, w, _ = _inputs(2, 5, 64, cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        rnn_cuda.lstm_fwd_cuda(xg.bfloat16(), w)
+    with pytest.raises(TypeError, match="bfloat16"):
+        rnn_cuda.lstm_recurrence_kernel(xg.bfloat16(), w.bfloat16())
