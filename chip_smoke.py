@@ -91,7 +91,28 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     after ``LEGACY_WARMUP``, then the per-stage split;
 24. the ops-level LSTM path: ``ops/rnn.py`` ``lstm_recurrence(use_kernel=
     True)`` forward and backward at (32, 500, 64), its launches and its
-    values and gradients against the plain loop.
+    values and gradients against the plain loop;
+25. split BPTT check: ``bigru_bwd_split`` (#10) against its plain version
+    and against ``bigru_bwd`` (#6; in float32 the same function up to sum
+    order) at the phase 12 shapes, with each launch's plan;
+26. fused layer check: ``bigru_layer`` under grad (its backward the fused
+    kernel #9) at (3, 53, 16, 24) f32, (2, 40, 16, 16) bf16 and
+    (16, 1000, 256, 512) bf16: the output and nine gradients against the
+    same layer with #9's plain version on the card, a second run bit for
+    bit, and the unfused layer (``BiGRUFunction`` + torch products);
+27. #9 against #6 plus cuBLAS at the scale-up shape (B=128, N=5000, H=256,
+    D=512, bf16): one layer's forward + backward both ways, 6 after 2
+    warm-up (#9's path: its launches are counted there), then #9 alone,
+    its plain version once, its bound;
+28. the tool (#10's path): ``room_slam_torch.tools.bench_bigru_bwd`` at the
+    scale-up shape, ``--tiles auto --reps 5``, its rows;
+29. the six LSTM kernels in bf16 against their plain versions (values, BPTT
+    and the Functions' gradients) at (32, 500, 64), (20, 1500, 64) and
+    (5, 43, 64), and their timing against ``nn.LSTM`` bf16 and cuDNN fp16;
+30. the bf16 flagship path: ``configs/flagship_v15.json`` with
+    ``compute_dtype`` bfloat16 at full width, a B=32, N=500 forward and one
+    served 3000-point request against the plain recurrence on the card,
+    and 3 training steps, launch counts read around each.
 
 Then a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without a CUDA card.
@@ -178,6 +199,11 @@ LEGACY_ROOMS, LEGACY_POINTS = 40, (1500, 3000)   # about 180 windows of 500
 LEGACY_EPOCHS = 2
 LEGACY_THRESHOLD = 0.0       # every slot scored: mAP over a full ranking
 LEGACY_STEPS, LEGACY_WARMUP = 50, 5
+# the fused BiGRU layer (#9): B, N, H, D and stream dtype
+FUSED_SHAPES = (((3, 53, 16, 24), torch.float32),
+                ((2, 40, 16, 16), torch.bfloat16),
+                ((16, 1000, 256, 512), torch.bfloat16))
+LSTM_BF16_SHAPES = (BENCH, TRAIN, RAGGED)   # bf16 BiLSTM kernel checks
 GRU_PLAIN = {"bigru_fwd_cuda": gru_cuda.bigru_fwd_plain,
              "bigru_fwd_train_cuda": gru_cuda.bigru_fwd_train_plain,
              "bigru_bwd_cuda": gru_cuda.bigru_bwd_plain}
@@ -185,6 +211,18 @@ GRU_PLAIN = {"bigru_fwd_cuda": gru_cuda.bigru_fwd_plain,
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def timed_once(fn):
+    """``fn()`` and its device time in ms, CUDA events around one call."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -211,27 +249,40 @@ def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOP_PER_S):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def bilstm_bound(B: int, N: int, H: int, dirs: int = 2):
+def _item_peak(dtype: torch.dtype):
+    """Bytes per stream value and the peak rate of the operand type."""
+    if dtype == torch.bfloat16:
+        return 2, PEAK_BF16_FLOP_PER_S
+    return 4, PEAK_F32_FLOP_PER_S
+
+
+def bilstm_bound(B: int, N: int, H: int, dirs: int = 2,
+                 dtype: torch.dtype = torch.float32):
     """Light forward, ``dirs`` directions: xg read once, W_hh read once, ys
     written once; h @ W_hh, the xg add and the cell update."""
-    return bound(4 * dirs * (B * N * 4 * H + H * 4 * H + B * N * H),
-                 dirs * B * N * (2 * H * 4 * H + 4 * H + 5 * H))
+    item, peak = _item_peak(dtype)
+    return bound(item * dirs * (B * N * 4 * H + H * 4 * H + B * N * H),
+                 dirs * B * N * (2 * H * 4 * H + 4 * H + 5 * H), peak)
 
 
-def fwd_train_bound(B: int, N: int, H: int, dirs: int = 2):
+def fwd_train_bound(B: int, N: int, H: int, dirs: int = 2,
+                    dtype: torch.dtype = torch.float32):
     """Training forward: as the light one, and c (H) and the activated
     gates (4H) written once per step."""
-    return bound(4 * dirs * (B * N * (4 * H + H + H + 4 * H) + 4 * H * H),
-                 dirs * B * N * (2 * H * 4 * H + 4 * H + 5 * H))
+    item, peak = _item_peak(dtype)
+    return bound(item * dirs * (B * N * (4 * H + H + H + 4 * H) + 4 * H * H),
+                 dirs * B * N * (2 * H * 4 * H + 4 * H + 5 * H), peak)
 
 
-def bwd_bound(B: int, N: int, H: int, dirs: int = 2):
+def bwd_bound(B: int, N: int, H: int, dirs: int = 2,
+              dtype: torch.dtype = torch.float32):
     """BPTT, ``dirs`` directions: gates (4H), c and dy (2H) read once, dg
     (4H) written once, W_hh read once; per (row, step) the 4H-deep dot
     product for each of H units and 25 operations per unit (coefficients,
     carries, tanh counted as one)."""
-    return bound(4 * dirs * (B * N * (4 * H + 2 * H + 4 * H) + 4 * H * H),
-                 dirs * B * N * (2 * 4 * H * H + 25 * H))
+    item, peak = _item_peak(dtype)
+    return bound(item * dirs * (B * N * (4 * H + 2 * H + 4 * H) + 4 * H * H),
+                 dirs * B * N * (2 * 4 * H * H + 25 * H), peak)
 
 
 GRU_COLS = {"fwd": 4, "fwd_train": 8, "bwd": 10}
@@ -249,6 +300,18 @@ def gru_bound(kind: str, B: int, N: int, H: int, dtype: torch.dtype,
     peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
         else PEAK_F32_FLOP_PER_S
     return bound(nbytes, dirs * B * N * 2 * 3 * H * H, peak)
+
+
+def fused_bound(B: int, N: int, H: int, D: int, dtype: torch.dtype):
+    """#9, both directions: #6's streams, plus x read once and dX written
+    once per direction (D each per row and step), W_ih read and the f32
+    weight gradients written once; operations: the dg @ W_hh^T chain, dX =
+    dx @ W_ih^T and dW_ih (2 * 3H * D each) and dW_hh (2 * 3H * H) per
+    (row, step), at the peak of the operand type."""
+    item, peak = _item_peak(dtype)
+    nbytes = 2 * ((B * N * (GRU_COLS["bwd"] * H + 2 * D) + 3 * H * (H + D))
+                  * item + ((D + H) * 3 * H + 6 * H) * 4)
+    return bound(nbytes, 2 * B * N * 2 * 3 * H * (2 * H + 2 * D), peak)
 
 
 def gru_inputs(B, N, H, dtype, dev, seed):
@@ -481,7 +544,9 @@ WRAPPERS = {"bilstm_fwd": (rnn_cuda, "bilstm_fwd_cuda"),
             "gru_bwd": (gru_cuda, "gru_bwd_cuda"),
             "lstm_fwd": (rnn_cuda, "lstm_fwd_cuda"),
             "lstm_fwd_train": (rnn_cuda, "lstm_fwd_train_cuda"),
-            "lstm_bwd": (rnn_cuda, "lstm_bwd_cuda")}
+            "lstm_bwd": (rnn_cuda, "lstm_bwd_cuda"),
+            "bigru_bwd_split": (gru_cuda, "bigru_bwd_split_cuda"),
+            "bigru_bwd_fused": (gru_cuda, "bigru_bwd_fused_cuda")}
 
 
 def counts():
@@ -1358,6 +1423,474 @@ def lstm_ops_path(dev, seed):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# Phases 25-30: the split BPTT (#10), the fused layer VJP (#9), the
+# bench_bigru_bwd tool, and bf16 streams through the BiLSTM kernels
+# ---------------------------------------------------------------------------
+
+
+def bwd_errs(got, ref):
+    """Max abs and max-rel error over output pairs."""
+    assert all(torch.isfinite(a).all() for a in got)
+    return (max((a.float() - b.float()).abs().max().item()
+                for a, b in zip(got, ref)),
+            max(max_rel(a.float(), b.float()) for a, b in zip(got, ref)))
+
+
+def check_tool_plans(args, ref, plans):
+    """At the scale-up shape: #10 and #6 under each plan the tool sweeps
+    (``--tiles auto``) against their plain versions (``ref``: #10's; #6's
+    is computed here), max-rel at the bf16 bound."""
+    ref6 = gru_cuda.bigru_bwd_plain(*args)
+    for p in plans:
+        for name, fn, want in (
+                ("bigru_bwd_split", gru_cuda.bigru_bwd_split_cuda, ref),
+                ("bigru_bwd", gru_cuda.bigru_bwd_cuda, ref6)):
+            err, rel = bwd_errs(fn(*args, plan=p), want)
+            log("split_check",
+                f"B,N,H={SCALEUP} bfloat16, the tool's plan {p[0]}x{p[1]}: "
+                f"{name} vs plain max_abs_err={err:.3e} max_rel_err="
+                f"{rel:.3e} tol {BF16_GRAD_REL:g}; launch "
+                f"{plan_text(fn)}")
+            assert rel <= BF16_GRAD_REL, (name, p, rel)
+
+
+def check_split(dev, seed):
+    """Phase 25: ``bigru_bwd_split`` (#10) against its plain version and
+    against #6 at the BiGRU check shapes, each launch's plan printed, and
+    at the scale-up shape both under every plan the tool sweeps; returns
+    errors by shape and dtype, the plain version's ms at the scale-up shape
+    and the plans checked there."""
+    errs, plain_ms = {}, None
+    plans = gru_cuda.card_plans("bwd", SCALEUP[0], SCALEUP[2], dev,
+                                torch.bfloat16)[:6]
+    for shape, dtype in GRU_SHAPES:
+        args = gru_bwd_inputs(gru_inputs(*shape, dtype, dev, seed), seed + 1)
+        got = gru_cuda.bigru_bwd_split_cuda(*args)
+        plan = plan_text(gru_cuda.bigru_bwd_split_cuda)
+        if shape == SCALEUP:
+            ref, plain_ms = timed_once(
+                lambda: gru_cuda.bigru_bwd_split_plain(*args))
+        else:
+            ref = gru_cuda.bigru_bwd_split_plain(*args)
+        err, rel = bwd_errs(got, ref)
+        if dtype == torch.bfloat16:
+            value_err(got, ref, dtype)
+        if shape == SCALEUP:
+            check_tool_plans(args, ref, plans)
+        del ref
+        vs6, vs6_rel = bwd_errs(got, gru_cuda.bigru_bwd_cuda(*args))
+        rel_tol = GRAD_REL if dtype == torch.float32 else BF16_GRAD_REL
+        errs[(shape, dtype)] = {"abs": err, "rel": rel, "vs6_abs": vs6}
+        log("split_check",
+            f"B,N,H={shape} {str(dtype)[6:]}: bigru_bwd_split (dx, dhn) vs "
+            f"plain max_abs_err={err:.3e} max_rel_err={rel:.3e} tol "
+            f"{rel_tol:g}; vs bigru_bwd (#6) max_abs_diff={vs6:.3e} "
+            f"max_rel_diff={vs6_rel:.3e}"
+            + (f" tol {KERNEL_ATOL:.0e}" if dtype == torch.float32 else
+               " (the coefficients' bf16 rounding differs)")
+            + f"; launch {plan}")
+        assert rel <= rel_tol, (shape, rel)
+        if dtype == torch.float32:
+            assert vs6 <= KERNEL_ATOL, (shape, vs6)
+    return errs, plain_ms, plans
+
+
+def fused_case(B, N, H, D, dtype, dev, seed):
+    """``bigru_layer``'s inputs: x in the stream dtype, the eight float32
+    weights U(+-1/sqrt(H)) (W_ih U(+-1/sqrt(D))), and an upstream
+    gradient."""
+    g = np.random.default_rng(seed)
+    x = torch.tensor(g.normal(size=(B, N, D)) * 0.5, dtype=torch.float32,
+                     device=dev).to(dtype)
+    ws = [torch.tensor(g.uniform(-1, 1, size=sz) / np.sqrt(sz[0]),
+                       dtype=torch.float32, device=dev)
+          for _ in range(2)
+          for sz in ((D, 3 * H), (3 * H,), (H, 3 * H), (3 * H,))]
+    dy = torch.randn(B, N, 2 * H, device=dev, generator=torch.Generator(
+        dev).manual_seed(seed)).to(dtype)
+    return x, ws, dy
+
+
+def layer_grads(fn, x, ws, dy):
+    """``fn``'s output and the gradients of its nine inputs (x and the
+    eight weights) for the upstream gradient ``dy``."""
+    ins = [t.clone().requires_grad_(True) for t in (x, *ws)]
+    y = fn(*ins)
+    return y, torch.autograd.grad(y, ins, dy)
+
+
+def unfused_layer(x, wih_f, bih_f, whh_f, bhh_f, wih_b, bih_b, whh_b, bhh_b):
+    """The same layer unfused: the gate products in torch and
+    ``BiGRUFunction`` (#5t, #6 and the dW_hh products), as the models run
+    it."""
+    ys_f, ys_b = gru_cuda.BiGRUFunction.apply(
+        rnn_ops.input_gates(x, wih_f, bih_f),
+        rnn_ops.input_gates(x, wih_b, bih_b), whh_f, bhh_f, whh_b, bhh_b)
+    return torch.cat([ys_f, ys_b], dim=-1)
+
+
+GRAD_NAMES = ("dx", "dW_ih_f", "db_ih_f", "dW_hh_f", "db_hh_f", "dW_ih_b",
+              "db_ih_b", "dW_hh_b", "db_hh_b")
+
+
+def check_fused(dev, seed):
+    """Phase 26: ``bigru_layer`` under grad (its backward #9) against the
+    same layer with #9's plain version on the card, output and nine
+    gradients, twice (bit for bit), and against the unfused
+    composition."""
+    for shape, dtype in FUSED_SHAPES:
+        x, ws, dy = fused_case(*shape, dtype, dev, seed)
+        before = gru_cuda.bigru_bwd_fused_cuda.launches
+        y, got = layer_grads(gru_cuda.bigru_layer, x, ws, dy)
+        _, again = layer_grads(gru_cuda.bigru_layer, x, ws, dy)
+        torch.cuda.synchronize()
+        assert gru_cuda.bigru_bwd_fused_cuda.launches == before + 2
+        plan = plan_text(gru_cuda.bigru_bwd_fused_cuda)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        with mock.patch.object(gru_cuda, "bigru_bwd_fused",
+                               gru_cuda.bigru_bwd_fused_plain):
+            y_ref, ref = layer_grads(gru_cuda.bigru_layer, x, ws, dy)
+        _, unf = layer_grads(unfused_layer, x, ws, dy)
+        rel_tol = GRAD_REL if dtype == torch.float32 else BF16_GRAD_REL
+        y_err = value_err((y,), (y_ref,), dtype)
+        rel = {n: max_rel(a.float(), b.float())
+               for n, a, b in zip(GRAD_NAMES, got, ref)}
+        rel_unf = {n: max_rel(a.float(), b.float())
+                   for n, a, b in zip(GRAD_NAMES, got, unf)}
+        for a, b in zip(got, ref):
+            assert a.dtype == b.dtype and torch.isfinite(a).all()
+        log("fused_check",
+            f"B,N,H,D={shape} {str(dtype)[6:]}: bigru_layer output "
+            f"max_abs_err={y_err:.3e}; the nine gradients (#9) vs #9's plain "
+            "version max_rel_err "
+            + " ".join(f"{k}={v:.3e}" for k, v in rel.items())
+            + f" tol {rel_tol:g}; run twice bit-equal={same}; vs the "
+            "unfused layer (BiGRUFunction + torch products) max_rel_diff "
+            + " ".join(f"{k}={v:.3e}" for k, v in rel_unf.items())
+            + f"; launch {plan}")
+        assert same
+        assert max(rel.values()) <= rel_tol, rel
+        assert max(rel_unf.values()) <= rel_tol, rel_unf
+        del got, again, ref, unf
+
+
+def fused_ab(dev, seed, smi, lib_ms):
+    """Phase 27: one BiGRU layer's forward + backward at the scale-up shape
+    (B=128, N=5000, H=256, D=512, bf16), fused (``bigru_layer``, #5t then
+    #9) against unfused (``BiGRUFunction`` + torch products), 6 steps after
+    2 warm-up each on CUDA events; then #9 alone at this shape and plan:
+    its ten outputs twice (bit for bit) and against its plain version
+    (max-rel at the bf16 bound), its time and its bound. The fused side is
+    #9's path: its launches are counted around it."""
+    B, N, H = SCALEUP
+    D = 2 * H
+    x, ws, dy = fused_case(B, N, H, D, torch.bfloat16, dev, seed)
+    ins = [t.clone().requires_grad_(True) for t in (x, *ws)]
+
+    def step(fn):
+        return lambda: torch.autograd.grad(fn(*ins), ins, dy)
+
+    unfused_ms = cuda_ms(step(unfused_layer), 6)
+    reset_counts()
+    fused_ms = cuda_ms(step(gru_cuda.bigru_layer), 6)
+    launched = gru_cuda.bigru_bwd_fused_cuda.launches
+    assert launched == 8 and counts()["bigru_fwd_train"] == 8, launched
+    ys_f, ys_b, gs_f, gs_b, hn_f, hn_b = gru_cuda.bigru_fwd_train(
+        rnn_ops.input_gates(x, ws[0], ws[1]),
+        rnn_ops.input_gates(x, ws[4], ws[5]), ws[2], ws[3], ws[6], ws[7])
+    args = (x, ws[0], ws[2], ws[4], ws[6], gs_f, hn_f, ys_f,
+            dy[..., :H].contiguous(), gs_b, hn_b, ys_b,
+            dy[..., H:].contiguous())
+    got = gru_cuda.bigru_bwd_fused_cuda(*args)
+    again = gru_cuda.bigru_bwd_fused_cuda(*args)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    kernel_ms = cuda_ms(lambda: gru_cuda.bigru_bwd_fused_cuda(*args), 3,
+                        warmup=0)
+    ref, plain_ms = timed_once(lambda: gru_cuda.bigru_bwd_fused_plain(*args))
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape and a.dtype == r.dtype
+    err, _ = bwd_errs(got, ref)
+    rel = {n: max_rel(a.float(), r.float()) for n, a, r in zip(
+        ("dX_f", "dX_b", *GRAD_NAMES[1:]), got, ref)}
+    del got, ref
+    b = fused_bound(B, N, H, D, torch.bfloat16)
+    row = {"shape": [B, N, H, D], "dtype": "bfloat16",
+           "fused_layer_fwd_bwd_ms": fused_ms,
+           "unfused_layer_fwd_bwd_ms": unfused_ms,
+           "fused_over_unfused": fused_ms / unfused_ms,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_us": b[0] * 1e3, "bound_by": b[1],
+           "us_per_step": kernel_ms / N * 1e3, "err": err,
+           "max_rel_err": max(rel.values()), "bit_equal": same,
+           "launch": dict(gru_cuda.bigru_bwd_fused_cuda.last_launch)}
+    log("fused_ab", json.dumps(row) + f" on {smi}  (library_ms: nn.GRU "
+        "bidirectional bf16 forward + backward minus forward, phase 13: "
+        "the layer's VJP with its input projection)")
+    log("fused_ab", "#9's ten outputs vs its plain version max_rel_err "
+        + " ".join(f"{k}={v:.3e}" for k, v in rel.items())
+        + f" tol {BF16_GRAD_REL:g}; run twice bit-equal={same}; launch "
+        + plan_text(gru_cuda.bigru_bwd_fused_cuda))
+    assert same
+    assert max(rel.values()) <= BF16_GRAD_REL, rel
+    return row, launched
+
+
+def run_bench_tool(dev, smi, checked):
+    """Phase 28: ``room_slam_torch.tools.bench_bigru_bwd`` at the scale-up
+    shape, ``--tiles auto --reps 5``; #6 and #10 launch in it (#10's path:
+    its launches are counted around it), at the plans phase 25 checked
+    (``checked``)."""
+    from room_slam_torch.tools import bench_bigru_bwd
+
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "bench_bigru_bwd.json"
+        t0 = time.perf_counter()
+        result = bench_bigru_bwd.main(
+            ["--batch", str(SCALEUP[0]), "--seq", str(SCALEUP[1]),
+             "--hidden", str(SCALEUP[2]), "--tiles", "auto", "--reps", "5",
+             "--output", str(out)])
+        assert json.loads(out.read_text()) == json.loads(json.dumps(result))
+    launched = gru_cuda.bigru_bwd_split_cuda.launches
+    assert launched > 0 and counts()["bigru_bwd"] > 0, launched
+    assert result["config"]["platform"] == "gpu"
+    assert result["config"]["tiles"] == [f"{c}x{r}" for c, r in checked], \
+        (result["config"]["tiles"], checked)
+    log("bench_tool", f"bench_bigru_bwd in {time.perf_counter() - t0:.1f} s "
+        f"on {smi}: launches bigru_bwd {counts()['bigru_bwd']}, "
+        f"bigru_bwd_split {launched}; rows " + json.dumps(
+            result["measured_ms"]))
+    return result, launched
+
+
+LSTM_BF16_NAMES = ("bilstm_fwd", "bilstm_fwd_train", "bilstm_bwd",
+                   "lstm_fwd", "lstm_fwd_train", "lstm_bwd")
+
+
+def check_lstm_bf16(dev, seed):
+    """Phase 29, check: the six LSTM kernels in bf16 against their plain
+    versions (values; BPTT max-rel) and the Functions' gradients against
+    autograd through the plain loop; returns errors by kernel and shape."""
+    bf = torch.bfloat16
+    errs = {}
+
+    def note(name, shape, e):
+        errs[(name, shape)] = max(errs.get((name, shape), 0.0), e)
+
+    for shape in LSTM_BF16_SHAPES:
+        xg_f, xg_b, w_f, w_b = kernel_inputs(*shape, dev, seed)
+        xg_f, xg_b = xg_f.to(bf), xg_b.to(bf)
+        ins = (xg_f, xg_b, w_f, w_b)
+        note("bilstm_fwd", shape, value_err(
+            rnn_cuda.bilstm_fwd_cuda(*ins),
+            rnn_cuda.bilstm_recurrence_plain(*ins), bf))
+        res = rnn_cuda.bilstm_fwd_train_plain(*ins)
+        note("bilstm_fwd_train", shape, value_err(
+            rnn_cuda.bilstm_fwd_train_cuda(*ins), res, bf))
+        g = torch.Generator(dev).manual_seed(seed + 1)
+        dy_f, dy_b = (torch.randn(res[0].shape, device=dev, generator=g
+                                  ).to(bf) for _ in range(2))
+        args = (w_f, w_b, res[4], res[2], dy_f, res[5], res[3], dy_b)
+        b_abs, b_rel = bwd_errs(rnn_cuda.bilstm_bwd_cuda(*args),
+                                rnn_cuda.bilstm_bwd_plain(*args))
+        assert b_rel <= BF16_GRAD_REL, b_rel
+        note("bilstm_bwd", shape, b_abs)
+        fn_rel = grads_rel(rnn_cuda.bilstm_recurrence,
+                           rnn_cuda.bilstm_recurrence_plain, ins,
+                           [dy_f, dy_b], bf)
+        single = []
+        for reverse in (False, True):
+            note("lstm_fwd", shape, value_err(
+                (rnn_cuda.lstm_fwd_cuda(xg_f, w_f, reverse),),
+                (rnn_cuda.lstm_recurrence(xg_f, w_f, reverse),), bf))
+            ref = rnn_cuda.lstm_fwd_train_plain(xg_f, w_f, reverse)
+            note("lstm_fwd_train", shape, value_err(
+                rnn_cuda.lstm_fwd_train_cuda(xg_f, w_f, reverse), ref, bf))
+            s_abs, s_rel = bwd_errs(
+                (rnn_cuda.lstm_bwd_cuda(w_f, ref[2], ref[1], dy_f, reverse),),
+                (rnn_cuda.lstm_bwd_plain(w_f, ref[2], ref[1], dy_f,
+                                         reverse),))
+            assert s_rel <= BF16_GRAD_REL, s_rel
+            note("lstm_bwd", shape, s_abs)
+            single += grads_rel(
+                lambda *a: rnn_cuda.lstm_recurrence_kernel(*a, reverse),
+                lambda *a: rnn_cuda.lstm_recurrence(*a, reverse),
+                (xg_f, w_f), dy_f, bf)
+        log("lstm_bf16_check",
+            f"B,N,H={shape} bfloat16: max_abs_err "
+            + " ".join(f"{n}={errs[(n, shape)]:.3e}" for n in LSTM_BF16_NAMES)
+            + f" (values rtol {BF16_RTOL} atol {BF16_ATOL}); bilstm_bwd "
+            f"max_rel_err={b_rel:.3e}; BiLSTMFunction vs autograd through "
+            "the plain loop max_rel_err (dxg_f, dxg_b, dW_f, dW_b) "
+            + " ".join(f"{v:.3e}" for v in fn_rel)
+            + "; LSTMFunction (dxg, dW_hh, both walk orders) "
+            + " ".join(f"{v:.3e}" for v in single)
+            + f" tol {BF16_GRAD_REL:g}")
+    return errs
+
+
+def time_lstm_bf16(dev, seed, errs):
+    """Phase 29, timing: each LSTM kernel in bf16 at its f32 table shape,
+    its plain version, the bound, torch ``nn.LSTM`` in bf16 (cuDNN takes no
+    bf16 RNN, so PyTorch's own step loop) and cuDNN in fp16 (never called
+    by the port; input projection included)."""
+    bf = torch.bfloat16
+    shapes = {"bilstm_fwd": BENCH, "bilstm_fwd_train": TRAIN,
+              "bilstm_bwd": TRAIN, "lstm_fwd": LEGACY,
+              "lstm_fwd_train": LEGACY, "lstm_bwd": LEGACY}
+    lib = {}
+    for shape, dirs in ((BENCH, 2), (TRAIN, 2), (LEGACY, 1)):
+        B, N, H = shape
+        g = torch.Generator(dev).manual_seed(seed)
+        x = torch.randn(B, N, 2 * H, device=dev, generator=g)
+        dy = torch.randn(B, N, dirs * H, device=dev, generator=g)
+        m = torch.nn.LSTM(2 * H, H, batch_first=True,
+                          bidirectional=dirs == 2).to(dev)
+        for key, dt in (("bf16", bf), ("cudnn_fp16", torch.float16)):
+            m = m.to(dt)
+            m.flatten_parameters()
+            xi = x.to(dt).requires_grad_(True)
+            with torch.no_grad():
+                light = cuda_ms(lambda: m(xi), 3, warmup=1)
+            fwd = cuda_ms(lambda: m(xi), 3, warmup=1)
+            fb = cuda_ms(lambda: m(xi)[0].backward(dy.to(dt)), 3, warmup=1)
+            lib[(shape, dirs, key)] = {"fwd": light, "fwd_train": fwd,
+                                       "bwd": fb - fwd}
+    rows = {}
+    for name in LSTM_BF16_NAMES:
+        B, N, H = shape = shapes[name]
+        dirs = 2 if name.startswith("bi") else 1
+        xg_f, xg_b, w_f, w_b = kernel_inputs(*shape, dev, seed)
+        xg_f, xg_b = xg_f.to(bf), xg_b.to(bf)
+        dy = torch.randn(B, N, H, device=dev, generator=torch.Generator(
+            dev).manual_seed(seed + 1)).to(bf)
+        if dirs == 2:
+            res = rnn_cuda.bilstm_fwd_train_plain(xg_f, xg_b, w_f, w_b)
+            a = {"bilstm_fwd": (xg_f, xg_b, w_f, w_b),
+                 "bilstm_fwd_train": (xg_f, xg_b, w_f, w_b),
+                 "bilstm_bwd": (w_f, w_b, res[4], res[2], dy, res[5],
+                                res[3], dy)}[name]
+        else:
+            res = rnn_cuda.lstm_fwd_train_plain(xg_f, w_f)
+            a = {"lstm_fwd": (xg_f, w_f), "lstm_fwd_train": (xg_f, w_f),
+                 "lstm_bwd": (w_f, res[2], res[1], dy)}[name]
+        fn = getattr(rnn_cuda, f"{name}_cuda")
+        plain = {"bilstm_fwd": rnn_cuda.bilstm_recurrence_plain,
+                 "bilstm_fwd_train": rnn_cuda.bilstm_fwd_train_plain,
+                 "bilstm_bwd": rnn_cuda.bilstm_bwd_plain,
+                 "lstm_fwd": rnn_cuda.lstm_recurrence,
+                 "lstm_fwd_train": rnn_cuda.lstm_fwd_train_plain,
+                 "lstm_bwd": rnn_cuda.lstm_bwd_plain}[name]
+        kind = name.split("_", 1)[1]
+        bnd = {"fwd": bilstm_bound, "fwd_train": fwd_train_bound,
+               "bwd": bwd_bound}[kind](B, N, H, dirs, bf)
+        ms = cuda_ms(lambda: fn(*a), 10)
+        rows[name] = {
+            "shape": list(shape), "dtype": "bfloat16", "kernel_ms": ms,
+            "plain_ms": cuda_ms(lambda: plain(*a), 1, warmup=1),
+            "library_ms": lib[(shape, dirs, "bf16")][kind],
+            "cudnn_fp16_ms": lib[(shape, dirs, "cudnn_fp16")][kind],
+            "bound_us": bnd[0] * 1e3, "bound_by": bnd[1],
+            "us_per_step": ms / N * 1e3,
+            "err": max(v for (n, _), v in errs.items() if n == name)}
+        log("lstm_bf16_time", f"{name} " + json.dumps(rows[name]) + (
+            "  (library_ms: nn.LSTM " + ("bidirectional " if dirs == 2
+                                         else "unidirectional ")
+            + "bf16, PyTorch's own step loop; cudnn_fp16_ms: the same in fp16"
+            " through cuDNN; both " + {
+                "fwd": "forward without grad",
+                "fwd_train": "forward with grad on",
+                "bwd": "forward + backward minus forward"}[kind]
+            + ", includes the input projection)"))
+    return rows
+
+
+def flagship_bf16_path(dev, seed, smi):
+    """Phase 30: the flagship config with ``compute_dtype`` bfloat16 at full
+    width with seeded weights: a B=32, N=500 forward through the kernels
+    against the plain recurrence on the card, one served 3000-point
+    request against the plain recurrence, and 3 training steps on phase
+    8's rooms, launch counts read around each."""
+    cfg = ExperimentConfig.from_json(CONFIG).apply_overrides(
+        ["model.compute_dtype=bfloat16"])
+    mcfg = cfg.model
+    layers = mcfg.lstm_layers
+    model = build_model(mcfg)
+    params = random_params(model, seed)
+    params["params"]["decoder"]["inv_temp"] = np.float32(100.0)
+    load_params(model, params)
+    model = model.to(dev).eval()
+    B, N = BENCH[:2]
+    raw = np.stack([walk(N, seed + 1 + b) for b in range(B)])
+    lengths = np.random.default_rng(seed).integers(N // 2, N + 1, size=B)
+    lengths[0] = N
+    feats, mask = featurize(torch.from_numpy(raw).to(dev),
+                            torch.from_numpy(lengths).to(dev))
+    def plain():
+        return mock.patch.object(lstm_mod, "bilstm_recurrence",
+                                 rnn_cuda.bilstm_recurrence_plain)
+
+    with torch.inference_mode():
+        reset_counts()
+        out = model(feats, mask)
+        torch.cuda.synchronize()
+        fwd_counts = counts()
+        assert fwd_counts == expected_counts(bilstm_fwd=layers), fwd_counts
+        with plain():
+            ref = model(feats, mask)
+    fwd_err = max(bf16_close(out[k], ref[k]) for k in out)
+    predict = build_predictor(model, max_trace_len=cfg.data.max_trace_len,
+                              confidence_threshold=0.0, nms_threshold=0.3,
+                              device=dev, verbose=False)
+    arr = walk(2 * cfg.data.max_trace_len, seed + 100)
+    reset_counts()
+    cols = predict(arr)
+    torch.cuda.synchronize()
+    serve_counts = counts()
+    assert serve_counts == expected_counts(bilstm_fwd=layers), serve_counts
+    with plain():
+        ref_cols = predict(arr)
+    assert len(cols) > 0
+    assert [c["label"] for c in cols] == [c["label"] for c in ref_cols]
+    col_err = max(bf16_close(collider_values(a), collider_values(b))
+                  for a, b in zip(cols, ref_cols))
+    steps = 3
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dir, _ = make_rooms(Path(tmp) / "rooms", ROOMS, seed)
+        ds = TraceColliderArrays(train_dir, cfg.data, augment=True,
+                                 verbose=False)
+        data = {k: torch.from_numpy(v).to(dev)
+                for k, v in ds.device_arrays().items()}
+        plan = ds.epoch_plan(cfg.train.batch_size, seed=seed)
+        tmodel = build_model(mcfg, generator=torch.Generator()
+                             .manual_seed(seed)).to(dev)
+        step = loop.make_train_step(tmodel, loop.make_optimizer(tmodel, cfg),
+                                    cfg, augment=True)
+        gen = torch.Generator(dev).manual_seed(seed)
+        reset_counts()
+        losses = [float(step(loop.gather_batch(data, plan, i), gen)
+                        ["total_loss"]) for i in range(steps)]
+        torch.cuda.synchronize()
+    train_counts = counts()
+    assert train_counts == expected_counts(
+        bilstm_fwd_train=layers * steps, bilstm_bwd=layers * steps), \
+        train_counts
+    assert np.isfinite(losses).all(), losses
+    log("flagship_bf16",
+        f"lstm d_model={mcfg.d_model} {mcfg.compute_dtype}: forward B={B} "
+        f"N={N} vs the plain recurrence on the card max abs diff "
+        f"{fwd_err:.3e}; served {len(arr)} points: {len(cols)} colliders, "
+        f"labels equal to the plain recurrence's, values max abs diff "
+        f"{col_err:.3e} (rtol {BF16_RTOL} atol {BF16_ATOL}); {steps} train "
+        f"steps B={cfg.train.batch_size} N={cfg.data.max_trace_len}: losses "
+        f"{losses}; launches forward {fwd_counts}, serving {serve_counts}, "
+        f"training {train_counts} on {smi}")
+    return {k: fwd_counts[k] + serve_counts[k] + train_counts[k]
+            for k in fwd_counts}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1643,6 +2176,22 @@ def main() -> int:
     lstm_launched = lstm_ops_path(dev, args.seed)
     log("done", f"phases 18-24 in {time.perf_counter() - t_single:.1f} s")
 
+    # 25-30. the split BPTT (#10) and the fused layer VJP (#9) against
+    # their plain versions, #9 against #6 plus cuBLAS, the bench_bigru_bwd
+    # tool (#10's path), the bf16 BiLSTM kernels and the bf16 flagship
+    t_new = time.perf_counter()
+    split_errs, split_plain_ms, split_plans = check_split(dev, args.seed)
+    check_fused(dev, args.seed)
+    ab_row, fused_launched = fused_ab(dev, args.seed, smi,
+                                      gru_rows["bigru_bwd"]["library_ms"])
+    tool, split_launched = run_bench_tool(dev, smi, split_plans)
+    lstm_bf16_errs = check_lstm_bf16(dev, args.seed)
+    lstm_bf16_rows = time_lstm_bf16(dev, args.seed, lstm_bf16_errs)
+    bf16_launched = flagship_bf16_path(dev, args.seed, smi)
+    for name in ("bilstm_fwd", "bilstm_fwd_train", "bilstm_bwd"):
+        lstm_bf16_rows[name]["launches"] = bf16_launched[name]
+    log("done", f"phases 25-30 in {time.perf_counter() - t_new:.1f} s")
+
     def entry(name, source, replaces, launched, row):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launched,
@@ -1694,6 +2243,28 @@ def main() -> int:
                                 f"room_slam_tpu/ops/{line}", launched[name],
                                 single_rows[name]),
                         "shapes": [single_rows[name]]})
+    pick = tool["config"]["tiles"][0]
+    b = gru_bound("bwd", *SCALEUP, torch.bfloat16)
+    split_row = {"shape": list(SCALEUP), "dtype": "bfloat16",
+                 "plan": pick,
+                 "kernel_ms": tool["measured_ms"][f"bwd_split@{pick}_ms"],
+                 "plain_ms": split_plain_ms,
+                 "library_ms": gru_rows["bigru_bwd"]["library_ms"],
+                 "bound_us": b[0] * 1e3, "bound_by": b[1],
+                 "err": split_errs[(SCALEUP, torch.bfloat16)]["abs"]}
+    kernels += [
+        {**entry("bigru_bwd_split", "room_slam_torch/csrc/bigru_bwd.cu",
+                 "room_slam_tpu/tools/bench_bigru_bwd.py:127",
+                 split_launched, split_row),
+         "max_rel_err": split_errs[(SCALEUP, torch.bfloat16)]["rel"],
+         "shapes": [split_row]},
+        {**entry("bigru_bwd_fused", "room_slam_torch/csrc/bigru_bwd.cu",
+                 "room_slam_tpu/ops/gru_pallas.py:646", fused_launched,
+                 ab_row),
+         "max_rel_err": ab_row["max_rel_err"], "shapes": [ab_row]}]
+    for k in kernels:
+        if k["name"] in lstm_bf16_rows:
+            k["shapes"] = [*k["shapes"], lstm_bf16_rows[k["name"]]]
     log("done", f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,46 +1,82 @@
 // Fused GRU recurrence, backward (BPTT), float32 or bfloat16 streams, with
-// W_hh^T split across the blocks of a thread-block cluster. One source, two
-// grids: both directions of a BiGRU layer (bigru_bwd_*), or one direction
-// of a GRU (gru_bwd_*, with a reverse flag).
+// W_hh^T split across the blocks of a thread-block cluster. One source,
+// three kinds of one kernel (a template switch, one copy of the chain) and
+// two grids: both directions of a BiGRU layer (bigru_bwd_*,
+// bigru_bwd_split_*, bigru_bwd_fused_*), or one direction of a GRU
+// (gru_bwd_*, with a reverse flag).
 //
-// Replaces two TPU kernels: room_slam_tpu/ops/gru_pallas.py::
-// _bigru_bwd_kernel (:357, pallas_call :527, launched through
-// _bigru_bwd_pallas from _bigru_core_bwd) with the grid's two directions,
-// and _gru_bwd_kernel (:71, pallas_call :218, launched through
-// _gru_bwd_pallas from _gru_core_bwd) with a grid of one direction. From
-// the residuals of the training forward (bigru_fwd.cu, kSave: activated
-// gates r, z, n, hn = W_hn h + b_hn, and ys) it walks each direction in
-// reverse of its forward order and emits, per direction, dx [B, N, 3H]
-// (the cotangent of the gate stream xg) and dhn [B, N, H]. dW_hh and db_hh
-// are a matrix product and a sum outside the kernel, as in the reference.
+// Replaces four TPU kernels:
+// - room_slam_tpu/ops/gru_pallas.py::_bigru_bwd_kernel (:357, pallas_call
+//   :527, launched through _bigru_bwd_pallas from _bigru_core_bwd): the
+//   linearized kind (kLinear) with the grid's two directions;
+// - _gru_bwd_kernel (:71, pallas_call :218, launched through
+//   _gru_bwd_pallas from _gru_core_bwd): kLinear with a grid of one
+//   direction;
+// - room_slam_tpu/tools/bench_bigru_bwd.py::_bwd_kernel_split (:127,
+//   pallas_call :198, a closure of the micro-benchmark's main()): the split
+//   kind (kSplit);
+// - gru_pallas.py::_bigru_bwd_fused_kernel (:646, pallas_call :784,
+//   launched through _bigru_bwd_fused_pallas from _bigru_layer_core_bwd,
+//   reached by bigru_layer_pallas): the fused layer VJP (kFused).
 //
-// Per step, with T() the rounding to the stream type, h_prev the output one
-// step earlier in the forward order (zero at its first step), and the
-// linearized coefficients of the reference (:374-384):
+// From the residuals of the training forward (bigru_fwd.cu, kSave:
+// activated gates r, z, n, hn = W_hn h + b_hn, and ys) every kind walks
+// each direction in reverse of its forward order and emits, per direction,
+// dx [B, N, 3H] (the cotangent of the gate stream xg) and dhn [B, N, H].
+// With T() the rounding to the stream type and h_prev the output one step
+// earlier in the forward order (zero at its first step):
+//
+// kLinear and kFused, the linearized coefficients of the reference
+// (gru_pallas.py:374-384):
 //
 //   a   = (1 - z) * (1 - n^2)
 //   c   = T([a * hn * r * (1 - r), (h_prev - n) * z * (1 - z), a])
 //   dh_t = dy_t + dh_carry
 //   dx   = [dh_t, dh_t, dh_t] * c                 (stored as T)
 //   dhn  = dx_n * r                               (stored as T)
-//   dh_carry = dh_t * z + T([dx_r, dx_z, dhn]) @ T(W_hh)^T   (f32 sums)
+//   dh_carry = dh_t * z + T([dx_r, dx_z, dhn]) @ T(W_hh)^T   (f32 sums, two
+//              interleaved partial sums over the whole 3H)
+//
+// kSplit, from the gates without pre-rounded coefficients
+// (bench_bigru_bwd.py:140-159):
+//
+//   dn_pre = dh_t (1 - z)(1 - n^2),  dr_pre = dn_pre hn r (1 - r)
+//   dz_pre = dh_t (h_prev - n) z (1 - z),  dhn = dn_pre r
+//   dx = [dr_pre, dz_pre, dn_pre], dhn         (stored as T)
+//   dh_carry = ((dh_t z + T(dr_pre) . T(W_r)^T) + T(dz_pre) . T(W_z)^T)
+//              + T(dhn) . T(W_n)^T              (three H-deep f32 sums)
+//
+// kFused (both directions only) is kLinear's chain, and in the same launch
+// the input-side gradients of the layer (gru_pallas.py:704-730), with x the
+// layer input [B, N, D] and W_ih [D, 3H] in T:
+//
+//   dX_t  = T(T(dx_t) @ T(W_ih)^T)                [R, D] per step, stored
+//   dW_hh += T(h_prev)^T T([dx_r, dx_z, dhn])     f32 sums
+//   dW_ih += T(x_t)^T T(dx_t)                     f32 sums
+//   db_ih += sum_rows dx_t,  db_hh += sum_rows [dx_r, dx_z, dhn]
+//                                                 (unrounded f32 values)
 //
 // The forward direction walks t = N-1 .. 0; the backward-in-time direction
 // (and a single-direction GRU run with reverse) walks t = 0 .. N-1 and takes
 // h_prev from t + 1. All arrays are in original time order.
 //
 // What bounds it on an H100. At the scale-up shape (B=128, N=5000, H=256,
-// bf16) it reads 3H + H + H + H and writes 3H + H values per (row, step) and
-// direction, 6.6 GB for both directions (1.96 ms at 3.35 TB/s), and does
-// 2 * 3H * H multiply-adds per (row, step) and direction for dg @ W_hh^T,
-// 504 GFLOP for both (0.51 ms at 989 TFLOP/s for bf16 operands). At the
-// legacy GRU shape (one direction, B=32, N=500, H=64, f32) it moves 41 MB
-// (12.2 us) and does 0.39 GFLOP (5.9 us at 67 TFLOP/s). The real floor is
-// the serial chain of 5000 (500) dependent steps, each a 768-deep (192-deep)
-// dot product per (row, unit);
-// measured on an H100 a step takes 18.5 us, by the look of it bound by
-// shared-memory loads: per j, one W load and one 128-bit broadcast load of
-// four rows of dg feed four FMAs (see bigru_fwd.cu).
+// bf16) kLinear and kSplit read 3H + H + H + H and write 3H + H values per
+// (row, step) and direction, 6.6 GB for both directions (1.96 ms at 3.35
+// TB/s), and do 2 * 3H * H multiply-adds per (row, step) and direction for
+// dg @ W_hh^T, 504 GFLOP for both (0.51 ms at 989 TFLOP/s for bf16
+// operands). kFused also reads x and writes dX (D = 512: 2.6 GB more) and
+// does three more products, dX, dW_ih (2 * 3H * D each) and dW_hh
+// (2 * 3H * H) per (row, step) and direction: 2.5 TFLOP more, 3.0 in all
+// (3.05 ms at the bf16 rate, which the CUDA cores used here do not reach:
+// 67 TFLOP/s for f32 FMAs makes it 45 ms). At the legacy GRU shape (one
+// direction, B=32, N=500, H=64, f32) kLinear moves 41 MB (12.2 us) and does
+// 0.39 GFLOP (5.9 us at 67 TFLOP/s). The real floor of the chain is the
+// serial walk of 5000 (500) dependent steps, each a 768-deep (192-deep) dot
+// product per (row, unit); measured on an H100 a kLinear step takes 18.5 us,
+// by the look of it bound by shared-memory loads: per j, one W load and one
+// 128-bit broadcast load of four rows of dg feed four FMAs (see
+// bigru_fwd.cu).
 //
 // What the design does about it. W_hh^T is [3H, H]: 768 KiB in float32 at
 // H=256. One cluster of C blocks (1, 2, 4 or 8, planned by the wrapper as
@@ -58,7 +94,21 @@
 // shared memory (float4 broadcasts of dg, conflict-free W reads). The next
 // step's six inputs are prefetched into registers before this step's
 // exchange; h_prev is read through a second pointer into ys shifted by one
-// step. Tensor cores are left for later work.
+// step.
+//
+// kFused keeps that chain, writes dx and dhn to a scratch stream as kLinear
+// writes its outputs, and every kChunk steps stops the walk for the chunk's
+// input-side products: after a fence and a cluster.sync() the chunk's dx,
+// dhn, x and h_prev are re-read (dx and dhn mostly from L2) and the three
+// products run as tiled matrix products on CUDA cores, staged through a
+// small shared tile, their output tiles dealt round-robin to the blocks of
+// the cluster. TPU grids run in order, so the TPU kernel sums dW into one
+// resident block; clusters here run at once, so each cluster keeps its own
+// float32 partials of dW_ih, dW_hh and the biases in global memory, every
+// partial tile owned by one block (no atomics), and a second kernel
+// (bigru_bwd_reduce_kernel, launched right after on the same stream) sums
+// them over the clusters in a fixed order: the gradients are the same from
+// run to run. Tensor cores (mma.sync, wgmma) are left for later work.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -74,6 +124,16 @@ namespace {
 constexpr int kRowsPerThread = 4;  // batch rows of one thread (a float4)
 static_assert(kRowsPerThread == 4, "rows travel as one float4");
 constexpr int kMaxThreads = 512;
+
+enum Kind : int { kLinear = 0, kSplit = 1, kFused = 2 };
+constexpr int kFusedMaxThreads = 256;  // room for the products' registers
+constexpr int kChunk = 48;   // walk steps between kFused's products
+constexpr int kSlab = 16;    // depth of one staged slab of a product
+constexpr int kTileN = 64;   // output columns of one product tile
+
+constexpr int max_threads(int kind) {
+  return kind == kFused ? kFusedMaxThreads : kMaxThreads;
+}
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -111,8 +171,214 @@ struct StepIn {
   float r, z, n, hn, hp, dy;
 };
 
+// What kFused reads and writes besides the chain's streams.
 template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
+struct FusedArgs {
+  const T* x;       // [B, N, D] layer input, read by both directions
+  const T* wih_f;   // [D, 3H]
+  const T* wih_b;
+  T* dxin_f;        // [B, N, D] dX of each direction
+  T* dxin_b;
+  float* part;      // per cluster: dW_ih [D, 3H], dW_hh [H, 3H], then
+                    // (R / 4) x [db_r, db_z, db_n, db_hn] [4H]; zeroed
+  int D;
+};
+
+// Floats of one cluster's partials.
+__host__ __device__ __forceinline__ size_t part_stride(int D, int H, int R) {
+  return static_cast<size_t>(D + H) * 3 * H +
+         static_cast<size_t>(R / kRowsPerThread) * 4 * H;
+}
+
+// One block's share of C (+)= A B, A [Mc, Kd] and B [Kd, Nc] read through
+// a(m, k) and b(k, n): the output tiles of (blockDim / 4) x kTileN numbered
+// tile0, tile0 + tile_step, ...; each thread sums a 4 x 4 cell of a tile in
+// registers over slabs of kSlab staged in shared memory, then hands every
+// element to c(m, n, v). kAK / kBK: consecutive threads load consecutive k
+// of A / B (else consecutive m / n), whichever is contiguous in memory.
+// A slab's loads are issued together into registers one slab ahead, so
+// their latency overlaps the previous slab's FMAs (a block of 128 threads
+// or more holds a whole B slab there; fewer load the rest in place). Every
+// thread of the block calls it with the same arguments.
+template <bool kAK, bool kBK, typename FA, typename FB, typename FC>
+__device__ void block_product(int Mc, int Nc, int Kd, int tile0,
+                              int tile_step, float* stage, FA a, FB b,
+                              FC c) {
+  constexpr int kRegB = 8;             // B values a thread holds ahead
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const int TM = nt / 4;               // 16 threads per row of cells
+  float* As = stage;                   // [kSlab][TM], 4 values a thread
+  float* Bs = stage + kSlab * TM;      // [kSlab][kTileN]
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int ntm = (Mc + TM - 1) / TM;
+  const int ntn = (Nc + kTileN - 1) / kTileN;
+  auto a_slot = [&](int idx, int& m, int& k) {
+    if (kAK) {
+      m = idx / kSlab;
+      k = idx - m * kSlab;
+    } else {
+      k = idx / TM;
+      m = idx - k * TM;
+    }
+  };
+  auto b_slot = [&](int idx, int& n, int& k) {
+    if (kBK) {
+      n = idx / kSlab;
+      k = idx - n * kSlab;
+    } else {
+      k = idx / kTileN;
+      n = idx - k * kTileN;
+    }
+  };
+  for (int tile = tile0; tile < ntm * ntn; tile += tile_step) {
+    const int m0 = (tile / ntn) * TM;
+    const int n0 = (tile % ntn) * kTileN;
+    float ra[4], rb[kRegB];
+    auto fetch = [&](int k0) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        int m, k;
+        a_slot(tid + q * nt, m, k);
+        ra[q] = (m0 + m < Mc && k0 + k < Kd) ? a(m0 + m, k0 + k) : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < kRegB; ++q) {
+        const int idx = tid + q * nt;
+        int n, k;
+        b_slot(idx, n, k);
+        rb[q] = (idx < kSlab * kTileN && n0 + n < Nc && k0 + k < Kd)
+                    ? b(k0 + k, n0 + n) : 0.0f;
+      }
+    };
+    float acc[4][4] = {};
+    fetch(0);
+    for (int k0 = 0; k0 < Kd; k0 += kSlab) {
+      __syncthreads();  // the previous slab is read
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        int m, k;
+        a_slot(tid + q * nt, m, k);
+        As[k * TM + m] = ra[q];
+      }
+#pragma unroll
+      for (int q = 0; q < kRegB; ++q) {
+        const int idx = tid + q * nt;
+        int n, k;
+        b_slot(idx, n, k);
+        if (idx < kSlab * kTileN) Bs[k * kTileN + n] = rb[q];
+      }
+      for (int idx = tid + kRegB * nt; idx < kSlab * kTileN; idx += nt) {
+        int n, k;
+        b_slot(idx, n, k);
+        Bs[k * kTileN + n] =
+            (n0 + n < Nc && k0 + k < Kd) ? b(k0 + k, n0 + n) : 0.0f;
+      }
+      __syncthreads();
+      if (k0 + kSlab < Kd) fetch(k0 + kSlab);
+#pragma unroll
+      for (int k = 0; k < kSlab; ++k) {
+        const float4 av = *reinterpret_cast<const float4*>(As + k * TM + ty * 4);
+        const float4 bv =
+            *reinterpret_cast<const float4*>(Bs + k * kTileN + tx * 4);
+        const float ar[4] = {av.x, av.y, av.z, av.w};
+        const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + ty * 4 + i;
+      if (m >= Mc) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + tx * 4 + j;
+        if (n < Nc) c(m, n, acc[i][j]);
+      }
+    }
+  }
+}
+
+// kFused: the input-side products of walk steps s0 .. s0+ns-1 of this
+// cluster's (direction, batch tile). Sample m = (s - s0) * R + r is row
+// tile_row0 + r at the step's t; smp[m] is its index row * N + t into the
+// [B, N, *] streams, or -1 for a row past B.
+template <typename T>
+__device__ void fused_products(FusedArgs<T> fa, bool bwd,
+                               const T* __restrict__ dx,
+                               const T* __restrict__ dhn,
+                               const T* __restrict__ ys, float* stage,
+                               int* smp, int s0, int ns, int tile_row0,
+                               int B, int N, int H, int R, int rank, int C,
+                               float* part) {
+  const int G = 3 * H;
+  const int D = fa.D;
+  const int Ms = ns * R;
+  for (int idx = threadIdx.x; idx < Ms; idx += blockDim.x) {
+    const int s = s0 + idx / R;
+    const int row = tile_row0 + idx % R;
+    const int t = bwd ? s : N - 1 - s;
+    smp[idx] = row < B ? row * N + t : -1;
+  }
+  __syncthreads();
+
+  // dX [Ms, D] = T(dx) [Ms, 3H] @ T(W_ih)^T, rounded to T once
+  const T* wih = bwd ? fa.wih_b : fa.wih_f;
+  T* dxin = bwd ? fa.dxin_b : fa.dxin_f;
+  block_product<true, true>(
+      Ms, D, G, rank, C, stage,
+      [&](int m, int k) {
+        const int i = smp[m];
+        return i < 0 ? 0.0f : to_f32<T>(dx[static_cast<size_t>(i) * G + k]);
+      },
+      [&](int k, int n) { return to_f32<T>(wih[static_cast<size_t>(n) * G + k]); },
+      [&](int m, int n, float v) {
+        const int i = smp[m];
+        if (i >= 0) dxin[static_cast<size_t>(i) * D + n] = from_f32<T>(v);
+      });
+
+  // dW_ih [D, 3H] += T(x)^T T(dx)
+  block_product<false, false>(
+      D, G, Ms, rank, C, stage,
+      [&](int d, int m) {
+        const int i = smp[m];
+        return i < 0 ? 0.0f : to_f32<T>(fa.x[static_cast<size_t>(i) * D + d]);
+      },
+      [&](int m, int j) {
+        const int i = smp[m];
+        return i < 0 ? 0.0f : to_f32<T>(dx[static_cast<size_t>(i) * G + j]);
+      },
+      [&](int d, int j, float v) { part[static_cast<size_t>(d) * G + j] += v; });
+
+  // dW_hh [H, 3H] += T(h_prev)^T T([dx_r, dx_z, dhn]); h_prev is zero at
+  // the walk's last step (the forward order's first)
+  const int m_first = (N - 1 - s0) * R;
+  const int shift = bwd ? 1 : -1;
+  float* pw = part + static_cast<size_t>(D) * G;
+  block_product<false, false>(
+      H, G, Ms, rank, C, stage,
+      [&](int h, int m) {
+        const int i = smp[m];
+        return (i < 0 || m >= m_first)
+                   ? 0.0f
+                   : to_f32<T>(ys[static_cast<size_t>(i + shift) * H + h]);
+      },
+      [&](int m, int j) {
+        const int i = smp[m];
+        if (i < 0) return 0.0f;
+        return j < 2 * H ? to_f32<T>(dx[static_cast<size_t>(i) * G + j])
+                         : to_f32<T>(dhn[static_cast<size_t>(i) * H + j - 2 * H]);
+      },
+      [&](int h, int j, float v) { pw[static_cast<size_t>(h) * G + j] += v; });
+}
+
+template <typename T, int kKind>
+__global__ void __launch_bounds__(kKind == kFused ? kFusedMaxThreads
+                                                     : kMaxThreads)
 bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
                  const T* __restrict__ gs_f, const T* __restrict__ hn_f,
                  const T* __restrict__ ys_f, const T* __restrict__ dy_f,
@@ -120,7 +386,7 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
                  const T* __restrict__ ys_b, const T* __restrict__ dy_b,
                  T* __restrict__ dx_f, T* __restrict__ dhn_f,
                  T* __restrict__ dx_b, T* __restrict__ dhn_b,
-                 int B, int N, int H, int R, int rev) {
+                 int B, int N, int H, int R, int rev, FusedArgs<T> fa) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -130,6 +396,10 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
   const int G = 3 * H;
   float* wt_s = smem;                       // [3H][U] W_hh[unit, j]
   float* dg_s = smem + pad4(static_cast<size_t>(G) * U);   // [2][3H][R]
+  // kFused: a product's staging tile and the chunk's sample indices
+  float* stage = dg_s + 2 * static_cast<size_t>(G) * R;
+  int* smp = reinterpret_cast<int*>(
+      stage + kSlab * (static_cast<int>(blockDim.x) / 4 + kTileN));
 
   // a grid of two directions: y = 1 walks backward; of one: rev says
   const bool bwd = (blockIdx.y == 1) != (rev != 0);
@@ -137,7 +407,8 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
   const int u = threadIdx.x % U;
   const int r0 = (threadIdx.x / U) * kRowsPerThread;
   const int gu = rank * U + u;
-  const int row0 = (blockIdx.x / C) * R + r0;
+  const int tile_row0 = (blockIdx.x / C) * R;
+  const int row0 = tile_row0 + r0;
 
   // rows rank*U .. rank*U+U-1 of W_hh, transposed: consecutive threads read
   // consecutive columns of one row
@@ -161,12 +432,13 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
   const T* gs = bwd ? gs_b : gs_f;
   const T* hns = bwd ? hn_b : hn_f;
   const T* dys = bwd ? dy_b : dy_f;
+  const T* yss = bwd ? ys_b : ys_f;
   T* dx = bwd ? dx_b : dx_f;
   T* dhn = bwd ? dhn_b : dhn_f;
   // h at the forward order's previous step (t - 1 forward, t + 1
   // backward), read only after that order's first step
   const int first = bwd ? N - 1 : 0;
-  const T* hps = (bwd ? ys_b : ys_f) + (bwd ? H : -H);
+  const T* hps = yss + (bwd ? H : -H);
 
   StepIn nxt[kRowsPerThread];
   auto load = [&](int t) {
@@ -189,6 +461,12 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
   };
   load(bwd ? 0 : N - 1);
   float dh[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
+  // kFused: this thread's bias sums over its rows, unrounded
+  float db_r = 0.0f, db_z = 0.0f, db_n = 0.0f, db_hn = 0.0f;
+  float* part = nullptr;
+  if constexpr (kKind == kFused)
+    part = fa.part + (static_cast<size_t>(blockIdx.y) * (gridDim.x / C) +
+                      blockIdx.x / C) * part_stride(fa.D, H, R);
 
   // every block of the cluster runs and holds its W_hh^T slice before any
   // block writes into another's shared memory
@@ -206,21 +484,35 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) {
       const StepIn& c = cur[i];
-      const float a = (1.0f - c.z) * (1.0f - c.n * c.n);
-      const float c_r = round_to<T>(a * c.hn * c.r * (1.0f - c.r));
-      const float c_z = round_to<T>((c.hp - c.n) * c.z * (1.0f - c.z));
-      const float c_n = round_to<T>(a);
       const float dh_t = c.dy + dh[i];
-      const float dxr = dh_t * c_r;
-      const float dxz = dh_t * c_z;
-      const float dxn = dh_t * c_n;
-      const float dhn_t = dxn * c.r;
+      float dxr, dxz, dxn, dhn_t;
+      if constexpr (kKind == kSplit) {
+        dxn = dh_t * (1.0f - c.z) * (1.0f - c.n * c.n);
+        dxz = dh_t * (c.hp - c.n) * c.z * (1.0f - c.z);
+        dxr = dxn * c.hn * c.r * (1.0f - c.r);
+        dhn_t = dxn * c.r;
+      } else {
+        const float a = (1.0f - c.z) * (1.0f - c.n * c.n);
+        const float c_r = round_to<T>(a * c.hn * c.r * (1.0f - c.r));
+        const float c_z = round_to<T>((c.hp - c.n) * c.z * (1.0f - c.z));
+        const float c_n = round_to<T>(a);
+        dxr = dh_t * c_r;
+        dxz = dh_t * c_z;
+        dxn = dh_t * c_n;
+        dhn_t = dxn * c.r;
+      }
       if (valid[i]) {
         T* o = dx + goff[i] + static_cast<size_t>(t) * G;
         o[0] = from_f32<T>(dxr);
         o[H] = from_f32<T>(dxz);
         o[2 * H] = from_f32<T>(dxn);
         dhn[hoff[i] + static_cast<size_t>(t) * H] = from_f32<T>(dhn_t);
+        if constexpr (kKind == kFused) {
+          db_r += dxr;
+          db_z += dxz;
+          db_n += dxn;
+          db_hn += dhn_t;
+        }
       }
       dgr[i] = round_to<T>(dxr);
       dgz[i] = round_to<T>(dxz);
@@ -242,68 +534,157 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
     }
     cluster.sync();
 
-    // dh_carry = dh_t * z + dg . W_hh^T[:, unit]; two partial sums a row
     const float* dgb = slot + r0;
-    float a0[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float a1[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
-    int j = 0;
-#pragma unroll 4
-    for (; j + 1 < G; j += 2) {
-      const float4 d0 = *reinterpret_cast<const float4*>(dgb + j * R);
-      const float4 d1 = *reinterpret_cast<const float4*>(dgb + (j + 1) * R);
-      const float w0 = wt_s[j * U + u];
-      const float w1 = wt_s[(j + 1) * U + u];
-      a0[0] = fmaf(d0.x, w0, a0[0]);
-      a0[1] = fmaf(d0.y, w0, a0[1]);
-      a0[2] = fmaf(d0.z, w0, a0[2]);
-      a0[3] = fmaf(d0.w, w0, a0[3]);
-      a1[0] = fmaf(d1.x, w1, a1[0]);
-      a1[1] = fmaf(d1.y, w1, a1[1]);
-      a1[2] = fmaf(d1.z, w1, a1[2]);
-      a1[3] = fmaf(d1.w, w1, a1[3]);
-    }
-    if (j < G) {  // odd H
-      const float4 d0 = *reinterpret_cast<const float4*>(dgb + j * R);
-      const float w0 = wt_s[j * U + u];
-      a0[0] = fmaf(d0.x, w0, a0[0]);
-      a0[1] = fmaf(d0.y, w0, a0[1]);
-      a0[2] = fmaf(d0.z, w0, a0[2]);
-      a0[3] = fmaf(d0.w, w0, a0[3]);
-    }
+    if constexpr (kKind == kSplit) {
+      // three H-deep sums, one per gate block of W_hh^T, added in order
+      float acc[3][kRowsPerThread] = {};
 #pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) dh[i] = dhz[i] + (a0[i] + a1[i]);
+      for (int gate = 0; gate < 3; ++gate) {
+#pragma unroll 4
+        for (int j = gate * H; j < (gate + 1) * H; ++j) {
+          const float4 d = *reinterpret_cast<const float4*>(dgb + j * R);
+          const float wv = wt_s[j * U + u];
+          acc[gate][0] = fmaf(d.x, wv, acc[gate][0]);
+          acc[gate][1] = fmaf(d.y, wv, acc[gate][1]);
+          acc[gate][2] = fmaf(d.z, wv, acc[gate][2]);
+          acc[gate][3] = fmaf(d.w, wv, acc[gate][3]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i)
+        dh[i] = ((dhz[i] + acc[0][i]) + acc[1][i]) + acc[2][i];
+    } else {
+      // dh_carry = dh_t * z + dg . W_hh^T[:, unit]; two partial sums a row
+      float a0[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float a1[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
+      int j = 0;
+#pragma unroll 4
+      for (; j + 1 < G; j += 2) {
+        const float4 d0 = *reinterpret_cast<const float4*>(dgb + j * R);
+        const float4 d1 = *reinterpret_cast<const float4*>(dgb + (j + 1) * R);
+        const float w0 = wt_s[j * U + u];
+        const float w1 = wt_s[(j + 1) * U + u];
+        a0[0] = fmaf(d0.x, w0, a0[0]);
+        a0[1] = fmaf(d0.y, w0, a0[1]);
+        a0[2] = fmaf(d0.z, w0, a0[2]);
+        a0[3] = fmaf(d0.w, w0, a0[3]);
+        a1[0] = fmaf(d1.x, w1, a1[0]);
+        a1[1] = fmaf(d1.y, w1, a1[1]);
+        a1[2] = fmaf(d1.z, w1, a1[2]);
+        a1[3] = fmaf(d1.w, w1, a1[3]);
+      }
+      if (j < G) {  // odd H
+        const float4 d0 = *reinterpret_cast<const float4*>(dgb + j * R);
+        const float w0 = wt_s[j * U + u];
+        a0[0] = fmaf(d0.x, w0, a0[0]);
+        a0[1] = fmaf(d0.y, w0, a0[1]);
+        a0[2] = fmaf(d0.z, w0, a0[2]);
+        a0[3] = fmaf(d0.w, w0, a0[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i)
+        dh[i] = dhz[i] + (a0[i] + a1[i]);
+    }
+
+    if constexpr (kKind == kFused) {
+      if ((s + 1) % kChunk == 0 || s + 1 == N) {
+        // the chunk's dx and dhn, written by every block of the cluster, are
+        // visible to all of them after the fence and the barrier
+        __threadfence();
+        cluster.sync();
+        const int s0 = s / kChunk * kChunk;
+        fused_products<T>(fa, bwd, dx, dhn, yss, stage, smp, s0, s + 1 - s0,
+                          tile_row0, B, N, H, R, rank, C, part);
+      }
+    }
+  }
+
+  if constexpr (kKind == kFused) {
+    float* db = part + static_cast<size_t>(fa.D + H) * G +
+                static_cast<size_t>(threadIdx.x / U) * 4 * H;
+    db[gu] = db_r;
+    db[H + gu] = db_z;
+    db[2 * H + gu] = db_n;
+    db[3 * H + gu] = db_hn;
   }
 }
 
-// Dynamic shared memory one block needs, in bytes (the wrapper's
-// bigru_smem_bytes("bwd", ...) mirrors it to pick the cluster size).
-size_t smem_bytes(int H, int C, int R) {
-  const size_t U = static_cast<size_t>(H / C);
-  const size_t G = 3 * static_cast<size_t>(H);
-  return (pad4(G * U) + 2 * G * R) * sizeof(float);
+// kFused, second kernel: each gradient of each direction (blockIdx.y) as
+// the sum of the clusters' partials in cluster order, then row-group order
+// for the biases. Entries: dW_ih [D, 3H], dW_hh [H, 3H], db_ih [3H], db_hh
+// [3H] (db_hh's r and z parts are db_ih's).
+__global__ void bigru_bwd_reduce_kernel(const float* __restrict__ part,
+                                        int tiles, int D, int H, int R,
+                                        float* dwih_f, float* dbih_f,
+                                        float* dwhh_f, float* dbhh_f,
+                                        float* dwih_b, float* dbih_b,
+                                        float* dwhh_b, float* dbhh_b) {
+  const int G = 3 * H;
+  const size_t nw = static_cast<size_t>(D + H) * G;
+  const size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= nw + 2 * G) return;
+  const bool bwd = blockIdx.y == 1;
+  const size_t stride = part_stride(D, H, R);
+  const float* p = part + static_cast<size_t>(blockIdx.y) * tiles * stride;
+  float sum = 0.0f;
+  if (e < nw) {
+    for (int c = 0; c < tiles; ++c) sum += p[c * stride + e];
+    if (e < static_cast<size_t>(D) * G)
+      (bwd ? dwih_b : dwih_f)[e] = sum;
+    else
+      (bwd ? dwhh_b : dwhh_f)[e - static_cast<size_t>(D) * G] = sum;
+    return;
+  }
+  const int k = static_cast<int>(e - nw);          // 0 .. 6H-1
+  const bool hh = k >= G;
+  const int j = hh ? k - G : k;
+  const int src = (hh && j >= 2 * H) ? j + H : j;  // db_hn after db_n
+  for (int c = 0; c < tiles; ++c)
+    for (int g = 0; g < R / kRowsPerThread; ++g)
+      sum += p[c * stride + nw + static_cast<size_t>(g) * 4 * H + src];
+  if (hh)
+    (bwd ? dbhh_b : dbhh_f)[j] = sum;
+  else
+    (bwd ? dbih_b : dbih_f)[j] = sum;
 }
 
-bool valid_plan(int B, int N, int H, int C, int R) {
+// Dynamic shared memory one block needs, in bytes (the wrapper's
+// bigru_smem_bytes mirrors it to pick the cluster size, and is held to it
+// through bigru_bwd_smem_bytes when the library loads).
+size_t smem_bytes(int kind, int H, int C, int R) {
+  const size_t U = static_cast<size_t>(H / C);
+  const size_t G = 3 * static_cast<size_t>(H);
+  size_t floats = pad4(G * U) + 2 * G * R;
+  if (kind == kFused) {
+    const size_t threads = U * (R / kRowsPerThread);
+    floats += kSlab * (threads / 4 + kTileN) + kChunk * static_cast<size_t>(R);
+  }
+  return floats * sizeof(float);
+}
+
+bool valid_plan(int kind, int B, int N, int H, int C, int R) {
+  const int threads = (C >= 1 && H % C == 0 ? H / C : 0) *
+                      (R / kRowsPerThread);
   return B > 0 && N > 0 && H > 0 && C >= 1 && C <= 8 && H % C == 0 &&
-         R > 0 && R % kRowsPerThread == 0 &&
-         (H / C) * (R / kRowsPerThread) <= kMaxThreads;
+         R > 0 && R % kRowsPerThread == 0 && threads <= max_threads(kind) &&
+         (kind != kFused || (H / C) % 16 == 0);
 }
 
 constexpr int kMaxDevices = 64;
-template <typename T>
+template <typename T, int kKind>
 std::atomic<int> g_smem_allowed[kMaxDevices];
 
-template <typename T>
+template <typename T, int kKind>
 cudaError_t allow_smem(int smem) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  if (device < kMaxDevices && g_smem_allowed<T>[device].load() >= smem)
+  if (device < kMaxDevices && g_smem_allowed<T, kKind>[device].load() >= smem)
     return cudaSuccess;
-  err = cudaFuncSetAttribute(bigru_bwd_kernel<T>,
+  err = cudaFuncSetAttribute(bigru_bwd_kernel<T, kKind>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && device < kMaxDevices)
-    g_smem_allowed<T>[device].store(smem);
+    g_smem_allowed<T, kKind>[device].store(smem);
   return err;
 }
 
@@ -322,43 +703,78 @@ void make_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int B,
   cfg->numAttrs = 1;
 }
 
-template <typename T>
+template <typename T, int kKind>
 int launch(const void* w_f, const void* w_b, const void* gs_f,
            const void* hn_f, const void* ys_f, const void* dy_f,
            const void* gs_b, const void* hn_b, const void* ys_b,
            const void* dy_b, void* dx_f, void* dhn_f, void* dx_b, void* dhn_b,
            int B, int N, int H, int C, int R, int dirs, int rev,
-           void* stream) {
-  if (!valid_plan(B, N, H, C, R))
+           const FusedArgs<T>& fa, void* stream) {
+  if (!valid_plan(kKind, B, N, H, C, R))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(H, C, R);
-  cudaError_t err = allow_smem<T>(static_cast<int>(smem));
+  const size_t smem = smem_bytes(kKind, H, C, R);
+  cudaError_t err = allow_smem<T, kKind>(static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   make_config(&cfg, &attr, B, H, C, R, dirs, smem, stream);
   auto in = [](const void* p) { return static_cast<const T*>(p); };
   auto out = [](void* p) { return static_cast<T*>(p); };
-  err = cudaLaunchKernelEx(&cfg, bigru_bwd_kernel<T>, in(w_f), in(w_b),
-                           in(gs_f), in(hn_f), in(ys_f), in(dy_f), in(gs_b),
-                           in(hn_b), in(ys_b), in(dy_b), out(dx_f),
-                           out(dhn_f), out(dx_b), out(dhn_b), B, N, H, R,
-                           rev);
+  err = cudaLaunchKernelEx(&cfg, bigru_bwd_kernel<T, kKind>, in(w_f),
+                           in(w_b), in(gs_f), in(hn_f), in(ys_f), in(dy_f),
+                           in(gs_b), in(hn_b), in(ys_b), in(dy_b), out(dx_f),
+                           out(dhn_f), out(dx_b), out(dhn_b), B, N, H, R, rev,
+                           fa);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
+int launch_fused(const void* w_f, const void* w_b, const void* gs_f,
+                 const void* hn_f, const void* ys_f, const void* dy_f,
+                 const void* gs_b, const void* hn_b, const void* ys_b,
+                 const void* dy_b, void* dx_f, void* dhn_f, void* dx_b,
+                 void* dhn_b, const void* x, const void* wih_f,
+                 const void* wih_b, void* dxin_f, void* dxin_b, float* part,
+                 float* dwih_f, float* dbih_f, float* dwhh_f, float* dbhh_f,
+                 float* dwih_b, float* dbih_b, float* dwhh_b, float* dbhh_b,
+                 int B, int N, int H, int D, int C, int R, void* stream) {
+  if (D <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  FusedArgs<T> fa{static_cast<const T*>(x), static_cast<const T*>(wih_f),
+                  static_cast<const T*>(wih_b), static_cast<T*>(dxin_f),
+                  static_cast<T*>(dxin_b), part, D};
+  int rc = launch<T, kFused>(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b,
+                             ys_b, dy_b, dx_f, dhn_f, dx_b, dhn_b, B, N, H, C,
+                             R, 2, 0, fa, stream);
+  if (rc != 0) return rc;
+  const size_t entries = static_cast<size_t>(D + H) * 3 * H + 6 * H;
+  const dim3 grid(static_cast<unsigned>((entries + 255) / 256), 2);
+  bigru_bwd_reduce_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      part, (B + R - 1) / R, D, H, R, dwih_f, dbih_f, dwhh_f, dbhh_f, dwih_b,
+      dbih_b, dwhh_b, dbhh_b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int kKind>
 int max_active_clusters(int H, int C, int R) {
-  const size_t smem = smem_bytes(H, C, R);
-  cudaError_t err = allow_smem<T>(static_cast<int>(smem));
+  const size_t smem = smem_bytes(kKind, H, C, R);
+  cudaError_t err = allow_smem<T, kKind>(static_cast<int>(smem));
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   make_config(&cfg, &attr, R, H, C, R, 1, smem, nullptr);
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, bigru_bwd_kernel<T>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, bigru_bwd_kernel<T, kKind>, &cfg);
   return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+template <typename T>
+int max_active_clusters_of(int kind, int H, int C, int R) {
+  switch (kind) {
+    case kLinear: return max_active_clusters<T, kLinear>(H, C, R);
+    case kSplit: return max_active_clusters<T, kSplit>(H, C, R);
+    default: return max_active_clusters<T, kFused>(H, C, R);
+  }
 }
 
 }  // namespace
@@ -371,53 +787,89 @@ extern "C" {
 // (_f32) or bfloat16 (_bf16): w_* [H, 3H]; gs_* and dx_* [B, N, 3H]; hn_*,
 // ys_*, dy_* and dhn_* [B, N, H]. Returns a cudaError_t code; 0 means the
 // launch was accepted.
-int bigru_bwd_f32(const void* w_f, const void* w_b, const void* gs_f,
-                  const void* hn_f, const void* ys_f, const void* dy_f,
-                  const void* gs_b, const void* hn_b, const void* ys_b,
-                  const void* dy_b, void* dx_f, void* dhn_f, void* dx_b,
-                  void* dhn_b, int B, int N, int H, int C, int R,
-                  void* stream) {
-  return launch<float>(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b,
-                       dy_b, dx_f, dhn_f, dx_b, dhn_b, B, N, H, C, R, 2, 0,
-                       stream);
-}
+#define BIGRU_BWD_ENTRY(NAME, TYPE, KIND)                                     \
+  int NAME(const void* w_f, const void* w_b, const void* gs_f,               \
+           const void* hn_f, const void* ys_f, const void* dy_f,             \
+           const void* gs_b, const void* hn_b, const void* ys_b,             \
+           const void* dy_b, void* dx_f, void* dhn_f, void* dx_b,            \
+           void* dhn_b, int B, int N, int H, int C, int R, void* stream) {   \
+    return launch<TYPE, KIND>(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b,  \
+                              ys_b, dy_b, dx_f, dhn_f, dx_b, dhn_b, B, N, H, \
+                              C, R, 2, 0, FusedArgs<TYPE>{}, stream);        \
+  }
 
-int bigru_bwd_bf16(const void* w_f, const void* w_b, const void* gs_f,
-                   const void* hn_f, const void* ys_f, const void* dy_f,
-                   const void* gs_b, const void* hn_b, const void* ys_b,
-                   const void* dy_b, void* dx_f, void* dhn_f, void* dx_b,
-                   void* dhn_b, int B, int N, int H, int C, int R,
-                   void* stream) {
-  return launch<__nv_bfloat16>(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b,
-                               ys_b, dy_b, dx_f, dhn_f, dx_b, dhn_b, B, N, H,
-                               C, R, 2, 0, stream);
-}
+BIGRU_BWD_ENTRY(bigru_bwd_f32, float, kLinear)
+BIGRU_BWD_ENTRY(bigru_bwd_bf16, __nv_bfloat16, kLinear)
+// The split kind (#10): as bigru_bwd_*, with the coefficients taken from
+// the gates unrounded and the carry's product as three H-deep sums.
+BIGRU_BWD_ENTRY(bigru_bwd_split_f32, float, kSplit)
+BIGRU_BWD_ENTRY(bigru_bwd_split_bf16, __nv_bfloat16, kSplit)
+#undef BIGRU_BWD_ENTRY
+
+// The fused layer VJP (#9): bigru_bwd_*'s walk, whose dx_* and dhn_* are
+// scratch here, and the input-side gradients of the layer. x [B, N, D] and
+// wih_* [D, 3H] in the stream type; dxin_* [B, N, D] out in it; part holds
+// 2 * ceil(B / R) clusters' float32 partials of (D + H) * 3H + (R / 4) * 4H
+// floats each, zeroed by the caller; dwih_* [D, 3H], dbih_* [3H], dwhh_*
+// [H, 3H], dbhh_* [3H] out in float32. (H / C) must be a multiple of 16.
+// Two launches on `stream`: the walk, then the reduction of the partials.
+#define BIGRU_BWD_FUSED_ENTRY(NAME, TYPE)                                     \
+  int NAME(const void* w_f, const void* w_b, const void* gs_f,               \
+           const void* hn_f, const void* ys_f, const void* dy_f,             \
+           const void* gs_b, const void* hn_b, const void* ys_b,             \
+           const void* dy_b, void* dx_f, void* dhn_f, void* dx_b,            \
+           void* dhn_b, const void* x, const void* wih_f, const void* wih_b, \
+           void* dxin_f, void* dxin_b, float* part, float* dwih_f,           \
+           float* dbih_f, float* dwhh_f, float* dbhh_f, float* dwih_b,       \
+           float* dbih_b, float* dwhh_b, float* dbhh_b, int B, int N, int H, \
+           int D, int C, int R, void* stream) {                              \
+    return launch_fused<TYPE>(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b,  \
+                              ys_b, dy_b, dx_f, dhn_f, dx_b, dhn_b, x, wih_f, \
+                              wih_b, dxin_f, dxin_b, part, dwih_f, dbih_f,   \
+                              dwhh_f, dbhh_f, dwih_b, dbih_b, dwhh_b,        \
+                              dbhh_b, B, N, H, D, C, R, stream);             \
+  }
+
+BIGRU_BWD_FUSED_ENTRY(bigru_bwd_fused_f32, float)
+BIGRU_BWD_FUSED_ENTRY(bigru_bwd_fused_bf16, __nv_bfloat16)
+#undef BIGRU_BWD_FUSED_ENTRY
 
 // One direction of a GRU: as bigru_bwd_* with a grid of one direction over
 // w [H, 3H], gs and dx [B, N, 3H], hn, ys, dy and dhn [B, N, H]; reverse != 0
 // for a direction whose forward walked t = N-1 .. 0. The cluster count of
-// bigru_bwd_max_active_clusters holds.
+// bigru_bwd_max_active_clusters (kind 0) holds.
 int gru_bwd_f32(const void* w, const void* gs, const void* hn, const void* ys,
                 const void* dy, void* dx, void* dhn, int B, int N, int H,
                 int C, int R, int reverse, void* stream) {
-  return launch<float>(w, w, gs, hn, ys, dy, gs, hn, ys, dy, dx, dhn, dx, dhn,
-                       B, N, H, C, R, 1, reverse, stream);
+  return launch<float, kLinear>(w, w, gs, hn, ys, dy, gs, hn, ys, dy, dx, dhn,
+                                dx, dhn, B, N, H, C, R, 1, reverse,
+                                FusedArgs<float>{}, stream);
 }
 
 int gru_bwd_bf16(const void* w, const void* gs, const void* hn,
                  const void* ys, const void* dy, void* dx, void* dhn, int B,
                  int N, int H, int C, int R, int reverse, void* stream) {
-  return launch<__nv_bfloat16>(w, w, gs, hn, ys, dy, gs, hn, ys, dy, dx, dhn,
-                               dx, dhn, B, N, H, C, R, 1, reverse, stream);
+  return launch<__nv_bfloat16, kLinear>(
+      w, w, gs, hn, ys, dy, gs, hn, ys, dy, dx, dhn, dx, dhn, B, N, H, C, R,
+      1, reverse, FusedArgs<__nv_bfloat16>{}, stream);
 }
 
-// How many clusters the current device runs at once (bf16: 0 or 1); a
-// negative cudaError_t code on failure.
-int bigru_bwd_max_active_clusters(int bf16, int H, int C, int R) {
-  if (!valid_plan(1, 1, H, C, R))
+// How many clusters of kind (0 linear, 1 split, 2 fused) the current device
+// runs at once (bf16: 0 or 1); a negative cudaError_t code on failure.
+int bigru_bwd_max_active_clusters(int bf16, int kind, int H, int C, int R) {
+  if (kind < kLinear || kind > kFused || !valid_plan(kind, 1, 1, H, C, R))
     return -static_cast<int>(cudaErrorInvalidValue);
-  return bf16 ? max_active_clusters<__nv_bfloat16>(H, C, R)
-              : max_active_clusters<float>(H, C, R);
+  return bf16 ? max_active_clusters_of<__nv_bfloat16>(kind, H, C, R)
+              : max_active_clusters_of<float>(kind, H, C, R);
+}
+
+// Dynamic shared memory, in bytes, one block of kind needs at H, C and R,
+// or -1 for a plan the kind does not take. The wrapper holds its mirror of
+// the plan rule and of smem_bytes (bigru_smem_bytes) to this at load.
+int bigru_bwd_smem_bytes(int kind, int H, int C, int R) {
+  if (kind < kLinear || kind > kFused || !valid_plan(kind, 1, 1, H, C, R))
+    return -1;
+  return static_cast<int>(smem_bytes(kind, H, C, R));
 }
 
 const char* bigru_bwd_error_string(int code) {

@@ -1,5 +1,5 @@
-// Fused LSTM recurrence, forward, float32: the inference (light) variant and
-// the training variant that also saves residuals. One source, two grids:
+// Fused LSTM recurrence, forward, float32 or bfloat16 streams: the inference
+// (light) variant and the training variant that also saves residuals. One source, two grids:
 // both directions of a BiLSTM layer (bilstm_fwd_*), or one direction of an
 // LSTM (lstm_fwd_*, with a reverse flag).
 //
@@ -11,9 +11,14 @@
 // _lstm_fwd_pallas and lstm_recurrence_pallas) with a grid of one
 // direction. Per direction:
 //
-//   g_t = xg_t + h_{t-1} @ W_hh          (gate order i, f, g, o)
+//   g_t = xg_t + T(h_{t-1}) @ T(W_hh)    (gate order i, f, g, o; f32 sums)
 //   c_t = sigmoid(f) * c_{t-1} + sigmoid(i) * tanh(g)
 //   h_t = sigmoid(o) * tanh(c_t)
+//
+// with T() the rounding to the stream type, where the Pallas kernels round
+// (rnn_pallas.py:126-127, :407): W_hh and h before the dot product; the h
+// and c carries stay float32, and the outputs and residuals are stored in
+// the stream type.
 //
 // The training variant (kSave) also stores, per direction, c_t [B, N, H]
 // and the activated gates (sigmoid i, sigmoid f, tanh g, sigmoid o)
@@ -50,6 +55,7 @@
 // more rows per block, splitting a step across a cluster) is left for
 // later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -59,38 +65,60 @@ namespace {
 
 constexpr int kRows = 4;  // batch rows per block; kRows * H == 4H threads
 
+template <typename T>
+__device__ __forceinline__ float to_f32(T v);
+template <>
+__device__ __forceinline__ float to_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-template <bool kSave>
+template <typename T, bool kSave>
 __global__ void __launch_bounds__(512)
-bilstm_fwd_kernel(const float* __restrict__ xg_f,
-                  const float* __restrict__ xg_b,
-                  const float* __restrict__ w_f,
-                  const float* __restrict__ w_b,
-                  float* __restrict__ ys_f,
-                  float* __restrict__ ys_b,
-                  float* __restrict__ cs_f,
-                  float* __restrict__ cs_b,
-                  float* __restrict__ gs_f,
-                  float* __restrict__ gs_b,
+bilstm_fwd_kernel(const T* __restrict__ xg_f,
+                  const T* __restrict__ xg_b,
+                  const T* __restrict__ w_f,
+                  const T* __restrict__ w_b,
+                  T* __restrict__ ys_f,
+                  T* __restrict__ ys_b,
+                  T* __restrict__ cs_f,
+                  T* __restrict__ cs_b,
+                  T* __restrict__ gs_f,
+                  T* __restrict__ gs_b,
                   int B, int N, int H, int rev) {
   extern __shared__ float smem[];
   const int G = 4 * H;
   float* w_s = smem;            // [H, 4H]  this direction's W_hh
   float* g_s = w_s + H * G;     // [kRows, 4H]  gate pre-activations
-  float* h_s = g_s + kRows * G; // [kRows, H]  h carry
+  float* h_s = g_s + kRows * G; // [kRows, H]  h, rounded to T for the dot
 
   // a grid of two directions: y = 1 walks backward; of one: rev says
   const bool bwd = (blockIdx.y == 1) != (rev != 0);
-  const float* xg = bwd ? xg_b : xg_f;
-  const float* w = bwd ? w_b : w_f;
-  float* ys = bwd ? ys_b : ys_f;
+  const T* xg = bwd ? xg_b : xg_f;
+  const T* w = bwd ? w_b : w_f;
+  T* ys = bwd ? ys_b : ys_f;
   const int row0 = blockIdx.x * kRows;
   const int j = threadIdx.x;  // gate column, 0 .. 4H-1
 
-  for (int idx = j; idx < H * G; idx += G) w_s[idx] = w[idx];
+  for (int idx = j; idx < H * G; idx += G) w_s[idx] = to_f32<T>(w[idx]);
   for (int idx = j; idx < kRows * H; idx += G) h_s[idx] = 0.0f;
 
   // The (row, unit) cell this thread updates; its c carry is a register.
@@ -102,27 +130,30 @@ bilstm_fwd_kernel(const float* __restrict__ xg_f,
 
   const size_t row_stride = static_cast<size_t>(N) * G;
   bool valid[kRows];
-  const float* xrow[kRows];
+  const T* xrow[kRows];
 #pragma unroll
   for (int b = 0; b < kRows; ++b) {
     valid[b] = row0 + b < B;
     xrow[b] = xg + static_cast<size_t>(valid[b] ? row0 + b : 0) * row_stride +
               j;
   }
-  float* yrow = ys + cell_row * N * H + cu;
-  float* crow = nullptr;
-  float* grow = nullptr;
+  T* yrow = ys + cell_row * N * H + cu;
+  T* crow = nullptr;
+  T* grow = nullptr;
   if (kSave) {
     crow = (bwd ? cs_b : cs_f) + cell_row * N * H + cu;
     grow = (bwd ? gs_b : gs_f) + cell_row * row_stride + cu;
   }
 
-  float xnext[kRows];
+  // the next step's xg as loaded, converted to float only when used, so
+  // no conversion waits on a load in flight
+  T xnext[kRows];
   {
     const int t0 = bwd ? N - 1 : 0;
 #pragma unroll
     for (int b = 0; b < kRows; ++b)
-      xnext[b] = valid[b] ? xrow[b][static_cast<size_t>(t0) * G] : 0.0f;
+      xnext[b] = valid[b] ? xrow[b][static_cast<size_t>(t0) * G]
+                          : from_f32<T>(0.0f);
   }
   __syncthreads();
 
@@ -130,12 +161,12 @@ bilstm_fwd_kernel(const float* __restrict__ xg_f,
     const int t = bwd ? N - 1 - s : s;
     float acc[kRows];
 #pragma unroll
-    for (int b = 0; b < kRows; ++b) acc[b] = xnext[b];
+    for (int b = 0; b < kRows; ++b) acc[b] = to_f32<T>(xnext[b]);
     if (s + 1 < N) {
       const size_t tn = static_cast<size_t>(bwd ? t - 1 : t + 1) * G;
 #pragma unroll
       for (int b = 0; b < kRows; ++b)
-        xnext[b] = valid[b] ? xrow[b][tn] : 0.0f;
+        xnext[b] = valid[b] ? xrow[b][tn] : from_f32<T>(0.0f);
     }
 
 #pragma unroll 8
@@ -156,16 +187,17 @@ bilstm_fwd_kernel(const float* __restrict__ xg_f,
     const float og = sigmoid_f(gr[3 * H + cu]);
     c = fg * c + ig * gg;
     const float h = og * tanhf(c);
-    h_s[cb * H + cu] = h;
+    const T h_t = from_f32<T>(h);
+    h_s[cb * H + cu] = to_f32<T>(h_t);
     if (cell_valid) {
-      yrow[static_cast<size_t>(t) * H] = h;
+      yrow[static_cast<size_t>(t) * H] = h_t;
       if (kSave) {
-        crow[static_cast<size_t>(t) * H] = c;
-        float* gt = grow + static_cast<size_t>(t) * G;
-        gt[0] = ig;
-        gt[H] = fg;
-        gt[2 * H] = gg;
-        gt[3 * H] = og;
+        crow[static_cast<size_t>(t) * H] = from_f32<T>(c);
+        T* gt = grow + static_cast<size_t>(t) * G;
+        gt[0] = from_f32<T>(ig);
+        gt[H] = from_f32<T>(fg);
+        gt[2 * H] = from_f32<T>(gg);
+        gt[3 * H] = from_f32<T>(og);
       }
     }
     __syncthreads();
@@ -183,38 +215,41 @@ size_t smem_bytes(int H) {
 // Dynamic shared memory each variant is already allowed on each device, so
 // the attribute is set once per device (and again only for a larger H).
 constexpr int kMaxDevices = 64;
-template <bool kSave>
+template <typename T, bool kSave>
 std::atomic<int> g_smem_allowed[kMaxDevices];
 
-template <bool kSave>
+template <typename T, bool kSave>
 cudaError_t allow_smem(int smem) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  if (device < kMaxDevices && g_smem_allowed<kSave>[device].load() >= smem)
+  if (device < kMaxDevices &&
+      g_smem_allowed<T, kSave>[device].load() >= smem)
     return cudaSuccess;
-  err = cudaFuncSetAttribute(bilstm_fwd_kernel<kSave>,
+  err = cudaFuncSetAttribute(bilstm_fwd_kernel<T, kSave>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && device < kMaxDevices)
-    g_smem_allowed<kSave>[device].store(smem);
+    g_smem_allowed<T, kSave>[device].store(smem);
   return err;
 }
 
-template <bool kSave>
-int launch(const float* xg_f, const float* xg_b, const float* w_f,
-           const float* w_b, float* ys_f, float* ys_b, float* cs_f,
-           float* cs_b, float* gs_f, float* gs_b, int B, int N, int H,
-           int dirs, int rev, void* stream) {
+template <typename T, bool kSave>
+int launch(const void* xg_f, const void* xg_b, const void* w_f,
+           const void* w_b, void* ys_f, void* ys_b, void* cs_f, void* cs_b,
+           void* gs_f, void* gs_b, int B, int N, int H, int dirs, int rev,
+           void* stream) {
   if (B <= 0 || N <= 0 || H <= 0 || 4 * H > 512)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(H);
-  const cudaError_t err = allow_smem<kSave>(static_cast<int>(smem));
+  const cudaError_t err = allow_smem<T, kSave>(static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((B + kRows - 1) / kRows, dirs);
-  bilstm_fwd_kernel<kSave>
+  auto in = [](const void* p) { return static_cast<const T*>(p); };
+  auto out = [](void* p) { return static_cast<T*>(p); };
+  bilstm_fwd_kernel<T, kSave>
       <<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-          xg_f, xg_b, w_f, w_b, ys_f, ys_b, cs_f, cs_b, gs_f, gs_b, B, N, H,
-          rev);
+          in(xg_f), in(xg_b), in(w_f), in(w_b), out(ys_f), out(ys_b),
+          out(cs_f), out(cs_b), out(gs_f), out(gs_b), B, N, H, rev);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -223,42 +258,46 @@ int launch(const float* xg_f, const float* xg_b, const float* w_f,
 extern "C" {
 
 // Launch on `stream` (a cudaStream_t) of the calling thread's current
-// device. All tensors are contiguous float32: xg_* [B, N, 4H],
-// w_* [H, 4H], ys_* [B, N, H]. Returns a cudaError_t code; 0 means the
-// launch was accepted.
-int bilstm_fwd_f32(const float* xg_f, const float* xg_b, const float* w_f,
-                   const float* w_b, float* ys_f, float* ys_b, int B, int N,
-                   int H, void* stream) {
-  return launch<false>(xg_f, xg_b, w_f, w_b, ys_f, ys_b, nullptr, nullptr,
-                       nullptr, nullptr, B, N, H, 2, 0, stream);
-}
+// device. All tensors are contiguous, in the stream type float (_f32) or
+// bfloat16 (_bf16): xg_* [B, N, 4H], w_* [H, 4H], ys_* [B, N, H]. Returns a
+// cudaError_t code; 0 means the launch was accepted.
+#define BILSTM_FWD_ENTRIES(SFX, TYPE)                                         \
+  int bilstm_fwd_##SFX(const void* xg_f, const void* xg_b, const void* w_f,  \
+                       const void* w_b, void* ys_f, void* ys_b, int B,       \
+                       int N, int H, void* stream) {                         \
+    return launch<TYPE, false>(xg_f, xg_b, w_f, w_b, ys_f, ys_b, nullptr,    \
+                               nullptr, nullptr, nullptr, B, N, H, 2, 0,     \
+                               stream);                                      \
+  }                                                                          \
+  /* as bilstm_fwd, and also the residuals of every step: cs_* [B, N, H]     \
+     (c_t) and gs_* [B, N, 4H] (activated i, f, g, o) */                     \
+  int bilstm_fwd_train_##SFX(const void* xg_f, const void* xg_b,             \
+                             const void* w_f, const void* w_b, void* ys_f,   \
+                             void* ys_b, void* cs_f, void* cs_b, void* gs_f, \
+                             void* gs_b, int B, int N, int H,                \
+                             void* stream) {                                 \
+    return launch<TYPE, true>(xg_f, xg_b, w_f, w_b, ys_f, ys_b, cs_f, cs_b,  \
+                              gs_f, gs_b, B, N, H, 2, 0, stream);            \
+  }                                                                          \
+  /* one direction of an LSTM: a grid of one direction over xg [B, N, 4H],   \
+     w [H, 4H] into ys [B, N, H]; reverse != 0 walks t = N-1 .. 0 */         \
+  int lstm_fwd_##SFX(const void* xg, const void* w, void* ys, int B, int N,  \
+                     int H, int reverse, void* stream) {                     \
+    return launch<TYPE, false>(xg, xg, w, w, ys, ys, nullptr, nullptr,       \
+                               nullptr, nullptr, B, N, H, 1, reverse,        \
+                               stream);                                      \
+  }                                                                          \
+  /* as lstm_fwd, and also cs [B, N, H] and gs [B, N, 4H] */                 \
+  int lstm_fwd_train_##SFX(const void* xg, const void* w, void* ys,          \
+                           void* cs, void* gs, int B, int N, int H,          \
+                           int reverse, void* stream) {                      \
+    return launch<TYPE, true>(xg, xg, w, w, ys, ys, cs, cs, gs, gs, B, N, H, \
+                              1, reverse, stream);                           \
+  }
 
-// As bilstm_fwd_f32, and also writes the residuals of every step:
-// cs_* [B, N, H] (c_t) and gs_* [B, N, 4H] (activated i, f, g, o).
-int bilstm_fwd_train_f32(const float* xg_f, const float* xg_b,
-                         const float* w_f, const float* w_b, float* ys_f,
-                         float* ys_b, float* cs_f, float* cs_b, float* gs_f,
-                         float* gs_b, int B, int N, int H, void* stream) {
-  return launch<true>(xg_f, xg_b, w_f, w_b, ys_f, ys_b, cs_f, cs_b, gs_f,
-                      gs_b, B, N, H, 2, 0, stream);
-}
-
-// One direction of an LSTM: as bilstm_fwd_f32 with a grid of one direction
-// over xg [B, N, 4H], w [H, 4H] into ys [B, N, H]; reverse != 0 walks
-// t = N-1 .. 0.
-int lstm_fwd_f32(const float* xg, const float* w, float* ys, int B, int N,
-                 int H, int reverse, void* stream) {
-  return launch<false>(xg, xg, w, w, ys, ys, nullptr, nullptr, nullptr,
-                       nullptr, B, N, H, 1, reverse, stream);
-}
-
-// As lstm_fwd_f32, and also writes cs [B, N, H] and gs [B, N, 4H].
-int lstm_fwd_train_f32(const float* xg, const float* w, float* ys, float* cs,
-                       float* gs, int B, int N, int H, int reverse,
-                       void* stream) {
-  return launch<true>(xg, xg, w, w, ys, ys, cs, cs, gs, gs, B, N, H, 1,
-                      reverse, stream);
-}
+BILSTM_FWD_ENTRIES(f32, float)
+BILSTM_FWD_ENTRIES(bf16, __nv_bfloat16)
+#undef BILSTM_FWD_ENTRIES
 
 const char* bilstm_fwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -28,6 +28,7 @@ from room_slam_torch.models.common import (Dense, assemble_output,
                                            reset_parameters)
 from room_slam_torch.models.lstm import SimpleQueryDecoder, dropout
 from room_slam_torch.ops.gru_cuda import bigru_recurrence
+from room_slam_torch.ops.rnn import input_gates
 
 
 class BiGRULayer(nn.Module):
@@ -60,17 +61,12 @@ class BiGRULayer(nn.Module):
         for p in self.parameters(recurse=False):
             p.uniform_(-k, k, generator=generator)
 
-    def _gates(self, x: torch.Tensor, d: str) -> torch.Tensor:
-        w, b = getattr(self, f"w_ih_{d}"), getattr(self, f"b_ih_{d}")
-        cd = self.compute_dtype
-        if cd is not None:      # the weights are cast, so xg comes in cd
-            x, w, b = x.to(cd), w.to(cd), b.to(cd)
-        xg = torch.addmm(b, x.flatten(0, 1), w)
-        return xg.view(*x.shape[:2], 3 * self.hidden)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         ys_f, ys_b = bigru_recurrence(
-            self._gates(x, "fwd"), self._gates(x, "bwd"),
+            input_gates(x, self.w_ih_fwd, self.b_ih_fwd),
+            input_gates(x, self.w_ih_bwd, self.b_ih_bwd),
             self.w_hh_fwd.contiguous(), self.b_hh_fwd,
             self.w_hh_bwd.contiguous(), self.b_hh_bwd)
         return torch.cat([ys_f, ys_b], dim=-1)

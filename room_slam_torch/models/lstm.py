@@ -5,6 +5,11 @@ The input gate matmuls for the whole sequence run outside the time loop;
 the recurrence itself is ``ops/rnn_cuda.bilstm_recurrence``, which launches
 the CUDA kernel for CUDA tensors and runs the plain loop for CPU tensors.
 
+With ``compute_dtype="bfloat16"`` the ``[B, N, *]`` streams (the encoder
+projections, the gate streams and the recurrence's outputs and residuals,
+the decoder's q/k/v) are bfloat16, as in the JAX model; parameters,
+carries, the softmax and the heads stay float32.
+
 Output: ``{'pred_boxes': [B, Q, 6], 'pred_classes': [B, Q, C]}`` plus
 ``pred_objectness [B, Q]`` and ``pred_aux_boxes [S, B, Q, 6]`` when
 enabled. Parameter names and layouts follow the JAX tree, so
@@ -22,8 +27,10 @@ from torch import nn
 from room_slam_torch.data.features import trace_stats
 from room_slam_torch.models.common import (MLP, ContactRefineStage, Dense,
                                            assemble_output, center_traces_xz,
+                                           compute_dtype_of,
                                            reset_parameters,
                                            trace_extent_planes)
+from room_slam_torch.ops.rnn import input_gates
 from room_slam_torch.ops.rnn_cuda import bilstm_recurrence
 
 
@@ -46,11 +53,15 @@ class BiLSTMLayer(nn.Module):
     """One bidirectional LSTM layer; output = concat(fwd, bwd), ``[B, N, 2H]``.
 
     Weights keep the JAX layout: ``w_ih_* [in, 4H]``, ``w_hh_* [H, 4H]``,
-    one merged bias ``b_* [4H]``, gate order i, f, g, o."""
+    one merged bias ``b_* [4H]``, gate order i, f, g, o. Under a compute
+    dtype the weights are cast, not the product, so the gate streams come
+    in that dtype."""
 
-    def __init__(self, d_in: int, hidden: int):
+    def __init__(self, d_in: int, hidden: int,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.hidden = hidden
+        self.compute_dtype = compute_dtype
         for d in ("fwd", "bwd"):
             self.register_parameter(
                 f"w_ih_{d}", nn.Parameter(torch.empty(d_in, 4 * hidden)))
@@ -67,11 +78,11 @@ class BiLSTMLayer(nn.Module):
             p.uniform_(-k, k, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xg_f = torch.addmm(self.b_fwd, x.flatten(0, 1), self.w_ih_fwd)
-        xg_b = torch.addmm(self.b_bwd, x.flatten(0, 1), self.w_ih_bwd)
-        shape = (*x.shape[:2], 4 * self.hidden)
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         ys_f, ys_b = bilstm_recurrence(
-            xg_f.view(shape), xg_b.view(shape),
+            input_gates(x, self.w_ih_fwd, self.b_fwd),
+            input_gates(x, self.w_ih_bwd, self.b_bwd),
             self.w_hh_fwd.contiguous(), self.w_hh_bwd.contiguous())
         return torch.cat([ys_f, ys_b], dim=-1)
 
@@ -81,16 +92,18 @@ class LSTMTraceEncoder(nn.Module):
     coordinate statistics used for relative decoding."""
 
     def __init__(self, input_dim: int = 11, d_model: int = 128,
-                 num_layers: int = 2, dropout: float = 0.1):
+                 num_layers: int = 2, dropout: float = 0.1,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         hidden = d_model // 2
         self.dropout = dropout
-        self.input_proj = Dense(input_dim, d_model)
+        self.input_proj = Dense(input_dim, d_model, dtype=compute_dtype)
         for layer in range(num_layers):
             self.add_module(f"lstm_{layer}", BiLSTMLayer(
-                d_model if layer == 0 else 2 * hidden, hidden))
+                d_model if layer == 0 else 2 * hidden, hidden,
+                compute_dtype))
         self.num_layers = num_layers
-        self.out_proj = Dense(2 * hidden, d_model)
+        self.out_proj = Dense(2 * hidden, d_model, dtype=compute_dtype)
 
     def forward(self, traces: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
@@ -218,11 +231,7 @@ class TraceToColliderLSTM(nn.Module):
                  hole_tokens: int = 0,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: the lstm model runs "
-                "float32 only; its BiLSTM kernels take no bf16 streams yet "
-                "(ROADMAP queue 1 item 5)")
+        cd = compute_dtype_of(compute_dtype)
         if hole_tokens:
             raise NotImplementedError(
                 "hole_tokens > 0 is not ported yet (ROADMAP queue 1 item 11)")
@@ -230,10 +239,10 @@ class TraceToColliderLSTM(nn.Module):
         self.center_xz = center_xz
         self.refine_stages = refine_stages
         self.encoder = LSTMTraceEncoder(input_dim, d_model, lstm_layers,
-                                        dropout)
+                                        dropout, cd)
         self.decoder = SimpleQueryDecoder(
             d_model, num_queries, num_classes, objectness, refine_stages,
-            extent_features)
+            extent_features, compute_dtype=cd)
         reset_parameters(self, generator)
 
     def forward(self, traces: torch.Tensor,

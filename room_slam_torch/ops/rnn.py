@@ -21,6 +21,16 @@ from __future__ import annotations
 import torch
 
 
+def input_gates(x: torch.Tensor, w_ih: torch.Tensor, b: torch.Tensor
+                ) -> torch.Tensor:
+    """One direction's gate stream ``x @ W_ih + b`` for the whole sequence,
+    ``[B, N, G]``, in the dtype of ``x``: the weights are cast to it, not
+    the product, as the reference does under a compute dtype."""
+    T = x.dtype
+    xg = torch.addmm(b.to(T), x.flatten(0, 1), w_ih.to(T))
+    return xg.view(*x.shape[:2], w_ih.shape[-1])
+
+
 def lstm_cell_step(gates: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
                    w_hh: torch.Tensor):
     """One LSTM step; ``gates`` = x_t @ W_ih + b, ``[B, 4H]``."""
@@ -40,7 +50,10 @@ def lstm_recurrence(xg: torch.Tensor, w_hh: torch.Tensor,
     """Run the recurrence over ``xg [B, N, 4H]`` with ``w_hh [H, 4H]``.
 
     ``reverse`` walks back to front; outputs stay aligned with input
-    positions (the backward half of a BiLSTM). Returns ``[B, N, H]``.
+    positions (the backward half of a BiLSTM). Returns ``[B, N, H]`` in the
+    stream dtype. The carries and the sums are float32 (float64 for float64
+    streams); W_hh and h are rounded to the stream dtype before the dot
+    product, as the Pallas kernels do (the identity for float32 streams).
     ``use_kernel`` goes through ``rnn_cuda.lstm_recurrence_kernel``.
     """
     if use_kernel:
@@ -49,13 +62,15 @@ def lstm_recurrence(xg: torch.Tensor, w_hh: torch.Tensor,
         return rnn_cuda.lstm_recurrence_kernel(xg, w_hh, reverse)
     B, N, _ = xg.shape
     H = w_hh.shape[0]
-    w = w_hh.float()
-    h = torch.zeros(B, H, dtype=torch.float32, device=xg.device)
+    T = xg.dtype
+    dt = torch.promote_types(T, torch.float32)
+    w = w_hh.to(T).to(dt)
+    h = torch.zeros(B, H, dtype=dt, device=xg.device)
     c = torch.zeros_like(h)
     ys = [None] * N
     for t in (range(N - 1, -1, -1) if reverse else range(N)):
-        h, c = lstm_cell_step(xg[:, t].float(), h, c, w)
-        ys[t] = h.to(xg.dtype)
+        h, c = lstm_cell_step(xg[:, t].to(dt), h.to(T).to(dt), c, w)
+        ys[t] = h.to(T)
     if N == 0:
         return xg.new_zeros(B, 0, H)
     return torch.stack(ys, dim=1)

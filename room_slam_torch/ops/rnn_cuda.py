@@ -9,6 +9,13 @@ direction over ``xg_b``, both ``[B, N, 4H]`` in original time order, with
 original time order. It is the counterpart of the JAX package's
 ``ops/rnn_pallas.py::bilstm_recurrence_pallas`` and its ``custom_vjp``.
 
+Streams are float32 or bfloat16. Whatever the stream dtype, the carries
+and every sum are float32, and values are rounded to the stream dtype where
+the Pallas kernels round them: W_hh (W_hh^T in the BPTT) and h before each
+dot product, the outputs and the c and gate residuals, the linearized BPTT
+coefficients and the gate cotangent. ``dW_hh`` is summed in float32 and
+returned in W_hh's dtype.
+
 Three kernels, each with a wrapper that counts its launches and a plain
 PyTorch version beside it:
 
@@ -29,8 +36,8 @@ Nothing routes a CUDA tensor to a plain version.
 counterpart of ``rnn_pallas.py::lstm_recurrence_pallas`` and its
 ``custom_vjp``; ``ops/rnn.py`` ``lstm_recurrence(use_kernel=True)`` reaches
 it). The same two sources launch it with a grid of one direction:
-``lstm_fwd``, ``lstm_fwd_train`` and ``lstm_bwd``, float32 only, with
-``LSTMFunction`` joining them. Their plain versions are ``ops/rnn.py``
+``lstm_fwd``, ``lstm_fwd_train`` and ``lstm_bwd``, with ``LSTMFunction``
+joining them. Their plain versions are ``ops/rnn.py``
 ``lstm_recurrence``, ``lstm_fwd_train_plain`` and ``lstm_bwd_plain``.
 """
 
@@ -48,6 +55,7 @@ from room_slam_torch.ops.rnn import lstm_recurrence
 # Largest dynamic shared memory one block may use on an H100 (227 KB).
 MAX_SMEM_BYTES = 232448
 _ROWS_PER_BLOCK = 4   # kRows in csrc/bilstm_fwd.cu and csrc/bilstm_bwd.cu
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def bilstm_smem_bytes(hidden: int) -> int:
@@ -87,19 +95,20 @@ def _work_dtype(t: torch.Tensor) -> torch.dtype:
 def lstm_fwd_train_plain(xg: torch.Tensor, w: torch.Tensor,
                          reverse: bool = False):
     """Plain version of ``lstm_fwd_train``: ``(ys, cs, gates)`` in original
-    time order, gates activated (sigmoid i, sigmoid f, tanh g, sigmoid
-    o)."""
+    time order and in the stream dtype, gates activated (sigmoid i, sigmoid
+    f, tanh g, sigmoid o); W_hh and h rounded to the stream dtype before
+    the dot product, the carries float32."""
     B, N, G = xg.shape
     H = G // 4
-    dt = _work_dtype(xg)
-    w = w.to(dt)
+    T, dt = xg.dtype, _work_dtype(xg)
+    w = w.to(T).to(dt)
     h = xg.new_zeros(B, H, dtype=dt)
     c = torch.zeros_like(h)
-    ys = xg.new_empty(B, N, H, dtype=dt)
+    ys = xg.new_empty(B, N, H)
     cs = torch.empty_like(ys)
-    gs = xg.new_empty(B, N, G, dtype=dt)
+    gs = xg.new_empty(B, N, G)
     for t in (range(N - 1, -1, -1) if reverse else range(N)):
-        g = xg[:, t].to(dt) + h @ w
+        g = xg[:, t].to(dt) + h.to(T).to(dt) @ w
         i = torch.sigmoid(g[:, :H])
         f = torch.sigmoid(g[:, H:2 * H])
         gg = torch.tanh(g[:, 2 * H:3 * H])
@@ -124,26 +133,29 @@ def bilstm_fwd_train_plain(xg_f: torch.Tensor, xg_b: torch.Tensor,
 
 def lstm_bwd_plain(w, gs, cs, dy, reverse: bool = False) -> torch.Tensor:
     """Plain version of ``lstm_bwd`` (one direction of the kernel's BPTT),
-    step for step: the linearized coefficients of the reference, then the
-    serial walk against the direction's forward order. Returns ``dg``."""
+    step for step: the linearized coefficients of the reference, rounded to
+    the stream dtype, then the serial walk against the direction's forward
+    order. Returns ``dg`` in the stream dtype."""
     B, N, G = gs.shape
     H = G // 4
-    i, f, gg, o = gs.split(H, dim=-1)
-    cp = prev_steps(cs, reverse)
-    tanh_c = torch.tanh(cs)
-    c_c = o * (1.0 - tanh_c * tanh_c)
+    T, dt = gs.dtype, _work_dtype(gs)
+    i, f, gg, o = gs.to(dt).split(H, dim=-1)
+    cp = prev_steps(cs, reverse).to(dt)
+    tanh_c = torch.tanh(cs.to(dt))
+    c_c = (o * (1.0 - tanh_c * tanh_c)).to(T).to(dt)
     c4 = torch.cat([gg * i * (1.0 - i), cp * f * (1.0 - f),
-                    i * (1.0 - gg * gg), tanh_c * o * (1.0 - o)], dim=-1)
-    wt = w.to(gs.dtype).t()
-    dh = gs.new_zeros(B, H)
+                    i * (1.0 - gg * gg), tanh_c * o * (1.0 - o)],
+                   dim=-1).to(T).to(dt)
+    wt = w.to(T).to(dt).t()
+    dh = gs.new_zeros(B, H, dtype=dt)
     dc = torch.zeros_like(dh)
     dg = torch.empty_like(gs)
     for t in (range(N) if reverse else range(N - 1, -1, -1)):
-        dh_t = dy[:, t] + dh
+        dh_t = dy[:, t].to(dt) + dh
         dc_t = dc + dh_t * c_c[:, t]
         d = torch.cat([dc_t, dc_t, dc_t, dh_t], dim=-1) * c4[:, t]
         dg[:, t] = d
-        dh = d @ wt
+        dh = d.to(T).to(dt) @ wt
         dc = dc_t * f[:, t]
     return dg
 
@@ -226,18 +238,22 @@ class BiLSTMFunction(torch.autograd.Function):
         # autograd hands zeros for an output that got no gradient; the
         # halves of a concatenation arrive as strided views
         w_f, w_b, ys_f, ys_b, cs_f, cs_b, gs_f, gs_b = ctx.saved_tensors
-        dg_f, dg_b = bilstm_bwd(w_f, w_b, gs_f, cs_f, dy_f.contiguous(),
-                                gs_b, cs_b, dy_b.contiguous())
-        return (dg_f, dg_b, _hidden_grad(ys_f, dg_f, False),
-                _hidden_grad(ys_b, dg_b, True))
+        T = ys_f.dtype
+        dg_f, dg_b = bilstm_bwd(w_f, w_b, gs_f, cs_f,
+                                dy_f.to(T).contiguous(), gs_b, cs_b,
+                                dy_b.to(T).contiguous())
+        return (dg_f, dg_b, _hidden_grad(ys_f, dg_f, False, w_f.dtype),
+                _hidden_grad(ys_b, dg_b, True, w_b.dtype))
 
 
-def _hidden_grad(ys, dg, reverse: bool) -> torch.Tensor:
-    """``dW_hh = sum_t h_{t-1}^T dg_t`` of one direction, one matmul (the
-    reference's einsum, ``rnn_pallas.py:352``)."""
+def _hidden_grad(ys, dg, reverse: bool, dtype: torch.dtype) -> torch.Tensor:
+    """``dW_hh = sum_t h_{t-1}^T dg_t`` of one direction, one matmul
+    accumulated in float32 (float64 for float64 streams) and returned in
+    ``dtype`` (the reference's einsum, ``rnn_pallas.py:352``)."""
     H = ys.shape[-1]
-    hp = prev_steps(ys, reverse)
-    return torch.matmul(hp.reshape(-1, H).t(), dg.reshape(-1, 4 * H))
+    acc = _work_dtype(ys)
+    hp = prev_steps(ys, reverse).reshape(-1, H).to(acc)
+    return torch.matmul(hp.t(), dg.reshape(-1, 4 * H).to(acc)).to(dtype)
 
 
 def lstm_fwd_train(xg, w, reverse: bool = False):
@@ -273,8 +289,8 @@ class LSTMFunction(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dy):
         w, ys, cs, gs = ctx.saved_tensors
-        dg = lstm_bwd(w, gs, cs, dy.contiguous(), ctx.reverse)
-        return dg, _hidden_grad(ys, dg, ctx.reverse), None
+        dg = lstm_bwd(w, gs, cs, dy.to(ys.dtype).contiguous(), ctx.reverse)
+        return dg, _hidden_grad(ys, dg, ctx.reverse, w.dtype), None
 
 
 def lstm_recurrence_kernel(xg: torch.Tensor, w_hh: torch.Tensor,
@@ -318,18 +334,15 @@ def _library(name: str):
     p, i = ctypes.c_void_p, ctypes.c_int
     # pointers, then B, N, H, and the reverse flag of one direction
     if name == "bilstm_fwd":
-        lib.bilstm_fwd_f32.argtypes = [p] * 6 + [i] * 3 + [p]
-        lib.bilstm_fwd_train_f32.argtypes = [p] * 10 + [i] * 3 + [p]
-        lib.lstm_fwd_f32.argtypes = [p] * 3 + [i] * 4 + [p]
-        lib.lstm_fwd_train_f32.argtypes = [p] * 5 + [i] * 4 + [p]
-        fns = (lib.bilstm_fwd_f32, lib.bilstm_fwd_train_f32,
-               lib.lstm_fwd_f32, lib.lstm_fwd_train_f32)
+        fns = {"bilstm_fwd": (6, 3), "bilstm_fwd_train": (10, 3),
+               "lstm_fwd": (3, 4), "lstm_fwd_train": (5, 4)}
     else:
-        lib.bilstm_bwd_f32.argtypes = [p] * 10 + [i] * 3 + [p]
-        lib.lstm_bwd_f32.argtypes = [p] * 5 + [i] * 4 + [p]
-        fns = (lib.bilstm_bwd_f32, lib.lstm_bwd_f32)
-    for fn in fns:
-        fn.restype = ctypes.c_int
+        fns = {"bilstm_bwd": (10, 3), "lstm_bwd": (5, 4)}
+    for fn_name, (n_ptr, n_int) in fns.items():
+        for sfx in _SUFFIX.values():
+            fn = getattr(lib, f"{fn_name}_{sfx}")
+            fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
+            fn.restype = ctypes.c_int
     set_error_string(lib, name)
     return lib
 
@@ -344,14 +357,23 @@ def set_error_string(lib, name: str) -> None:
     lib._argtypes_set = True
 
 
-def _check_cuda(name: str, tensors, smem: int) -> torch.device:
+def _check_cuda(name: str, streams, weights, smem: int):
+    """The inputs' device and stream dtype; raises unless they lie on one
+    CUDA device, the streams are float32 or bfloat16 of one dtype, W_hh is
+    float32 or the stream dtype, all are contiguous and a block's shared
+    memory fits."""
+    tensors = (*streams, *weights)
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: all inputs must be on one CUDA device, "
                          f"got {[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"{name} takes float32 only (bfloat16 LSTM streams "
-                        f"are not ported), got {[t.dtype for t in tensors]}")
+    T = streams[0].dtype
+    if T not in _SUFFIX or any(t.dtype != T for t in streams):
+        raise TypeError(f"{name} takes float32 or bfloat16 streams of one "
+                        f"dtype, got {[t.dtype for t in streams]}")
+    if any(t.dtype not in (torch.float32, T) for t in weights):
+        raise TypeError(f"{name}: W_hh must be float32 or the stream dtype, "
+                        f"got {[t.dtype for t in weights]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
     if smem > MAX_SMEM_BYTES:
@@ -359,7 +381,7 @@ def _check_cuda(name: str, tensors, smem: int) -> torch.device:
             f"{name}: needs {smem} bytes of shared memory per block, over "
             f"the {MAX_SMEM_BYTES} a block can have (larger H needs W_hh "
             "split across a thread-block cluster)")
-    return dev
+    return dev, T
 
 
 def launch(lib, fn_name: str, dev: torch.device, *args) -> None:
@@ -373,6 +395,24 @@ def launch(lib, fn_name: str, dev: torch.device, *args) -> None:
                            f"{lib.error_string(rc).decode()}")
 
 
+def _bilstm_fwd_launch(fn, save: bool, xg_f, xg_b, w_f, w_b):
+    _check_shapes(xg_f, xg_b, w_f, w_b)
+    name = "bilstm_fwd_train" if save else "bilstm_fwd"
+    B, N, G = xg_f.shape
+    H = G // 4
+    dev, T = _check_cuda(name, (xg_f, xg_b), (w_f, w_b),
+                         bilstm_smem_bytes(H))
+    outs = [torch.empty(B, N, d, dtype=T, device=dev)
+            for d in ((H, H, H, H, G, G) if save else (H, H))]
+    if B == 0 or N == 0:
+        return tuple(outs)
+    w_f, w_b = w_f.to(T), w_b.to(T)
+    launch(_library("bilstm_fwd"), f"{name}_{_SUFFIX[T]}", dev,
+           *(t.data_ptr() for t in (xg_f, xg_b, w_f, w_b, *outs)), B, N, H)
+    fn.launches += 1
+    return tuple(outs)
+
+
 def bilstm_fwd_cuda(xg_f: torch.Tensor, xg_b: torch.Tensor,
                     w_f: torch.Tensor, w_b: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -380,20 +420,7 @@ def bilstm_fwd_cuda(xg_f: torch.Tensor, xg_b: torch.Tensor,
     stream. Counts each launch in ``bilstm_fwd_cuda.launches``. Its outputs
     carry no autograd history: ``bilstm_recurrence`` sends inputs that need
     a gradient to ``BiLSTMFunction`` instead."""
-    _check_shapes(xg_f, xg_b, w_f, w_b)
-    B, N, G = xg_f.shape
-    H = G // 4
-    dev = _check_cuda("bilstm_fwd", (xg_f, xg_b, w_f, w_b),
-                      bilstm_smem_bytes(H))
-    ys_f = torch.empty(B, N, H, dtype=torch.float32, device=dev)
-    ys_b = torch.empty_like(ys_f)
-    if B == 0 or N == 0:
-        return ys_f, ys_b
-    launch(_library("bilstm_fwd"), "bilstm_fwd_f32", dev,
-           xg_f.data_ptr(), xg_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
-           ys_f.data_ptr(), ys_b.data_ptr(), B, N, H)
-    bilstm_fwd_cuda.launches += 1
-    return ys_f, ys_b
+    return _bilstm_fwd_launch(bilstm_fwd_cuda, False, xg_f, xg_b, w_f, w_b)
 
 
 bilstm_fwd_cuda.launches = 0
@@ -404,20 +431,8 @@ def bilstm_fwd_train_cuda(xg_f: torch.Tensor, xg_b: torch.Tensor,
     """Launch the residual variant of ``csrc/bilstm_fwd.cu``: returns
     ``(ys_f, ys_b, cs_f, cs_b, gs_f, gs_b)``. Counts each launch in
     ``bilstm_fwd_train_cuda.launches``."""
-    _check_shapes(xg_f, xg_b, w_f, w_b)
-    B, N, G = xg_f.shape
-    H = G // 4
-    dev = _check_cuda("bilstm_fwd_train", (xg_f, xg_b, w_f, w_b),
-                      bilstm_smem_bytes(H))
-    outs = [torch.empty(B, N, d, dtype=torch.float32, device=dev)
-            for d in (H, H, H, H, G, G)]
-    if B == 0 or N == 0:
-        return tuple(outs)
-    launch(_library("bilstm_fwd"), "bilstm_fwd_train_f32", dev,
-           xg_f.data_ptr(), xg_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
-           *(o.data_ptr() for o in outs), B, N, H)
-    bilstm_fwd_train_cuda.launches += 1
-    return tuple(outs)
+    return _bilstm_fwd_launch(bilstm_fwd_train_cuda, True, xg_f, xg_b, w_f,
+                              w_b)
 
 
 bilstm_fwd_train_cuda.launches = 0
@@ -435,15 +450,17 @@ def bilstm_bwd_cuda(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b
             "bilstm_bwd: cs_* and dy_* must be [B, N, H] with gs_* "
             f"[B, N, 4H] = {tuple(gs_f.shape)}; got "
             f"{[tuple(t.shape) for t in (cs_f, dy_f, cs_b, dy_b)]}")
-    ins = (w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b)
-    dev = _check_cuda("bilstm_bwd", ins, bilstm_bwd_smem_bytes(H))
-    dg_f = torch.empty(B, N, G, dtype=torch.float32, device=dev)
+    streams = (gs_f, cs_f, dy_f, gs_b, cs_b, dy_b)
+    dev, T = _check_cuda("bilstm_bwd", streams, (w_f, w_b),
+                         bilstm_bwd_smem_bytes(H))
+    dg_f = torch.empty(B, N, G, dtype=T, device=dev)
     dg_b = torch.empty_like(dg_f)
     if B == 0 or N == 0:
         return dg_f, dg_b
-    launch(_library("bilstm_bwd"), "bilstm_bwd_f32", dev,
-           *(t.data_ptr() for t in ins), dg_f.data_ptr(), dg_b.data_ptr(),
-           B, N, H)
+    w_f, w_b = w_f.to(T), w_b.to(T)
+    launch(_library("bilstm_bwd"), f"bilstm_bwd_{_SUFFIX[T]}", dev,
+           *(t.data_ptr() for t in (w_f, w_b, *streams)), dg_f.data_ptr(),
+           dg_b.data_ptr(), B, N, H)
     bilstm_bwd_cuda.launches += 1
     return dg_f, dg_b
 
@@ -456,13 +473,15 @@ def _lstm_fwd_launch(fn, save: bool, xg, w, reverse: bool):
     name = "lstm_fwd_train" if save else "lstm_fwd"
     B, N, G = xg.shape
     H = G // 4
-    dev = _check_cuda(name, (xg, w), bilstm_smem_bytes(H))
-    outs = [torch.empty(B, N, d, dtype=torch.float32, device=dev)
+    dev, T = _check_cuda(name, (xg,), (w,), bilstm_smem_bytes(H))
+    outs = [torch.empty(B, N, d, dtype=T, device=dev)
             for d in ((H, H, G) if save else (H,))]
     if B == 0 or N == 0:
         return tuple(outs)
-    launch(_library("bilstm_fwd"), f"{name}_f32", dev, xg.data_ptr(),
-           w.data_ptr(), *(o.data_ptr() for o in outs), B, N, H, int(reverse))
+    w = w.to(T)
+    launch(_library("bilstm_fwd"), f"{name}_{_SUFFIX[T]}", dev,
+           xg.data_ptr(), w.data_ptr(), *(o.data_ptr() for o in outs),
+           B, N, H, int(reverse))
     fn.launches += 1
     return tuple(outs)
 
@@ -501,13 +520,15 @@ def lstm_bwd_cuda(w, gs, cs, dy, reverse: bool = False) -> torch.Tensor:
         raise ValueError(
             "lstm_bwd: cs and dy must be [B, N, H] with gs [B, N, 4H] = "
             f"{tuple(gs.shape)}; got {tuple(cs.shape)}, {tuple(dy.shape)}")
-    ins = (w, gs, cs, dy)
-    dev = _check_cuda("lstm_bwd", ins, bilstm_bwd_smem_bytes(H))
-    dg = torch.empty(B, N, G, dtype=torch.float32, device=dev)
+    dev, T = _check_cuda("lstm_bwd", (gs, cs, dy), (w,),
+                         bilstm_bwd_smem_bytes(H))
+    dg = torch.empty(B, N, G, dtype=T, device=dev)
     if B == 0 or N == 0:
         return dg
-    launch(_library("bilstm_bwd"), "lstm_bwd_f32", dev,
-           *(t.data_ptr() for t in ins), dg.data_ptr(), B, N, H, int(reverse))
+    w = w.to(T)
+    launch(_library("bilstm_bwd"), f"lstm_bwd_{_SUFFIX[T]}", dev,
+           *(t.data_ptr() for t in (w, gs, cs, dy, dg)), B, N, H,
+           int(reverse))
     lstm_bwd_cuda.launches += 1
     return dg
 

@@ -15,7 +15,7 @@ unused, or a shape that differs raises.
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -137,3 +137,24 @@ def random_params(model: nn.Module, seed: int) -> Dict[str, Any]:
         bound = 1.0 / np.sqrt(fan_in)
         out[key] = rng.uniform(-bound, bound, arr.shape).astype(np.float32)
     return {"params": _unflatten(out)}
+
+
+BIGRU_LAYER_PARAMS = tuple(f"{k}_{d}" for d in ("fwd", "bwd")
+                           for k in ("w_ih", "b_ih", "w_hh", "b_hh"))
+
+
+def bigru_layer_args(layer_params: Mapping[str, Any]
+                     ) -> Tuple[torch.Tensor, ...]:
+    """One ``BiGRULayer``'s flax parameters (``w_ih_fwd [D, 3H]``,
+    ``b_ih_fwd [3H]``, ``w_hh_fwd [H, 3H]``, ``b_hh_fwd [3H]`` and the
+    ``_bwd`` ones) as the eight weight tensors of ``ops/gru_cuda.py``
+    ``bigru_layer``, in its order (CPU float32, the JAX layout). Strict: a
+    name missing or unknown raises."""
+    names = set(layer_params)
+    if names != set(BIGRU_LAYER_PARAMS):
+        raise KeyError(f"a BiGRULayer has {sorted(BIGRU_LAYER_PARAMS)}; got "
+                       f"missing {sorted(set(BIGRU_LAYER_PARAMS) - names)}, "
+                       f"unknown {sorted(names - set(BIGRU_LAYER_PARAMS))}")
+    return tuple(torch.from_numpy(np.array(layer_params[n], dtype=np.float32,
+                                           order="C"))
+                 for n in BIGRU_LAYER_PARAMS)

@@ -449,7 +449,8 @@ def test_cluster_plan():
 
 
 def test_cuda_path_never_falls_back(monkeypatch):
-    """When the tensors' device says CUDA, every BiGRU entry, every
+    """When the tensors' device says CUDA, every BiGRU entry (the fused
+    layer ``bigru_layer`` and the split BPTT ``bigru_bwd_split`` too), every
     single-direction GRU and LSTM entry (``gru_cuda``, ``rnn_cuda`` and the
     ``use_kernel`` dispatch of ``ops/rnn.py``) and the legacy model launch
     the kernel's wrapper, which refuses tensors that are not on a card: no
@@ -462,7 +463,8 @@ def test_cuda_path_never_falls_back(monkeypatch):
         monkeypatch.setattr(mod, "_device_type", lambda name, *t: "cuda")
     plain = []
     for mod, names in ((gru_cuda, ("bigru_fwd_plain", "bigru_fwd_train_plain",
-                                   "bigru_bwd_plain", "gru_recurrence",
+                                   "bigru_bwd_plain", "bigru_bwd_split_plain",
+                                   "bigru_bwd_fused_plain", "gru_recurrence",
                                    "gru_fwd_train_plain", "gru_bwd_plain")),
                        (rnn_cuda, ("lstm_recurrence", "lstm_fwd_train_plain",
                                    "lstm_bwd_plain"))):
@@ -474,9 +476,20 @@ def test_cuda_path_never_falls_back(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         bigru_recurrence(*[t.clone().requires_grad_(True) for t in ins])
     ys = [torch.zeros(2, 5, 8)] * 2
+    bwd_args = (ins[2], ins[4], ins[0], ys[0], ys[0], ys[0], ins[1], ys[1],
+                ys[1], ys[1])
+    for fn in (gru_cuda.bigru_bwd, gru_cuda.bigru_bwd_split_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*bwd_args)
+    x = torch.zeros(2, 5, 6)
+    layer = [torch.zeros(6, 24), torch.zeros(24), ins[2], ins[3]] * 2
+    for grad in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            gru_cuda.bigru_layer(*[t.clone().requires_grad_(grad)
+                                   for t in (x, *layer)])
     with pytest.raises(ValueError, match="CUDA"):
-        gru_cuda.bigru_bwd(ins[2], ins[4], ins[0], ys[0], ys[0], ys[0],
-                           ins[1], ys[1], ys[1], ys[1])
+        gru_cuda.bigru_bwd_fused(x, layer[0], ins[2], layer[0], ins[2],
+                                 *bwd_args[2:])
 
     xg, w, b = ins[0], ins[2], ins[3]
     for grad in (False, True):

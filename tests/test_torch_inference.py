@@ -127,15 +127,16 @@ def _imported_modules(path):
 def test_port_imports_no_jax():
     files = sorted((REPO / "room_slam_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    # the training, scale-up and legacy slices' modules are among those
-    # checked
+    # the training, scale-up and legacy slices' modules and the tools are
+    # among those checked
     training = {"ops/hungarian.py", "ops/losses.py", "data/augment.py",
                 "data/dataset.py", "data/rooms.py", "train/loop.py",
                 "train/metrics.py", "train/__main__.py",
                 "utils/logging.py", "models/gru.py", "ops/gru_cuda.py",
                 "models/legacy_gru.py", "models/baseline.py",
                 "data/legacy.py", "evaluate.py", "ops/iou.py",
-                "ops/rnn.py", "ops/rnn_cuda.py"}
+                "ops/rnn.py", "ops/rnn_cuda.py", "tools/__init__.py",
+                "tools/bench_bigru_bwd.py"}
     rel = {str(f.relative_to(REPO / "room_slam_torch")) for f in files[:-1]}
     assert training <= rel, training - rel
     assert len(files) > 25

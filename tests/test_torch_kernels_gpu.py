@@ -11,6 +11,8 @@ the reference's max abs value) 1e-4, the JAX suite's bound for its Pallas
 BPTT against autograd through the scan.
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -364,10 +366,142 @@ def test_lstm_single_kernels_match_plain(cuda, shape, reverse):
         assert _max_rel(a, b) <= GRAD_REL, name
 
 
-def test_lstm_single_kernels_refuse_bf16(cuda):
-    """bf16 LSTM streams are not ported: a bf16 CUDA input raises."""
-    xg, _, w, _ = _inputs(2, 5, 64, cuda)
-    with pytest.raises(TypeError, match="bfloat16"):
-        rnn_cuda.lstm_fwd_cuda(xg.bfloat16(), w)
-    with pytest.raises(TypeError, match="bfloat16"):
-        rnn_cuda.lstm_recurrence_kernel(xg.bfloat16(), w.bfloat16())
+LSTM_BF16_SHAPES = [(32, 500, 64), (20, 1500, 64), (5, 43, 64)]
+
+
+@pytest.mark.parametrize("shape", LSTM_BF16_SHAPES)
+def test_lstm_kernels_bf16_match_plain(cuda, shape):
+    """bf16 streams: the six LSTM kernels against their plain versions
+    (values rtol 0.05 / atol 0.03, BPTT max-rel 0.1), and the Functions'
+    gradients against autograd through the plain loop (max-rel 0.1)."""
+    xg_f, xg_b, w_f, w_b = _inputs(*shape, cuda)
+    bf = torch.bfloat16
+    xg_f, xg_b = xg_f.to(bf), xg_b.to(bf)
+    g = torch.Generator(cuda).manual_seed(1)
+    dy = torch.randn(*shape, device=cuda, generator=g).to(bf)
+    for a, b in zip(rnn_cuda.bilstm_fwd_cuda(xg_f, xg_b, w_f, w_b),
+                    rnn_cuda.bilstm_recurrence_plain(xg_f, xg_b, w_f, w_b)):
+        _assert_close(a, b, bf)
+    res = rnn_cuda.bilstm_fwd_train_plain(xg_f, xg_b, w_f, w_b)
+    for a, b in zip(rnn_cuda.bilstm_fwd_train_cuda(xg_f, xg_b, w_f, w_b),
+                    res):
+        _assert_close(a, b, bf)
+    args = (w_f, w_b, res[4], res[2], dy, res[5], res[3], dy)
+    for a, b in zip(rnn_cuda.bilstm_bwd_cuda(*args),
+                    rnn_cuda.bilstm_bwd_plain(*args)):
+        assert a.dtype == b.dtype == bf and torch.isfinite(a).all()
+        assert _max_rel(a.float(), b.float()) <= 0.1
+    x = [t.clone().requires_grad_(True) for t in (xg_f, xg_b, w_f, w_b)]
+    got = torch.autograd.grad(rnn_cuda.bilstm_recurrence(*x), x, [dy, dy])
+    ref = torch.autograd.grad(rnn_cuda.bilstm_recurrence_plain(*x), x,
+                              [dy, dy])
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and _max_rel(a.float(), b.float()) <= 0.1
+    for reverse in (False, True):
+        _assert_close(rnn_cuda.lstm_fwd_cuda(xg_f, w_f, reverse),
+                      rnn_cuda.lstm_recurrence(xg_f, w_f, reverse), bf)
+        ref = rnn_cuda.lstm_fwd_train_plain(xg_f, w_f, reverse)
+        for a, b in zip(rnn_cuda.lstm_fwd_train_cuda(xg_f, w_f, reverse),
+                        ref):
+            _assert_close(a, b, bf)
+        dg = rnn_cuda.lstm_bwd_cuda(w_f, ref[2], ref[1], dy, reverse)
+        dg_ref = rnn_cuda.lstm_bwd_plain(w_f, ref[2], ref[1], dy, reverse)
+        assert dg.dtype == bf and _max_rel(dg.float(), dg_ref.float()) <= 0.1
+        x = [t.clone().requires_grad_(True) for t in (xg_f, w_f)]
+        got = torch.autograd.grad(
+            rnn_cuda.lstm_recurrence_kernel(*x, reverse), x, dy)
+        ref_g = torch.autograd.grad(rnn_cuda.lstm_recurrence(*x, reverse),
+                                    x, dy)
+        for a, b in zip(got, ref_g):
+            assert a.dtype == b.dtype and _max_rel(a.float(),
+                                                   b.float()) <= 0.1
+
+
+def _bwd_args(shape, dtype, device):
+    ins = _gru_inputs(*shape, dtype, device)
+    ys_f, ys_b, gs_f, gs_b, hn_f, hn_b = gru_cuda.bigru_fwd_train_plain(*ins)
+    g = torch.Generator(device).manual_seed(1)
+    dy_f, dy_b = (torch.randn(ys_f.shape, device=device, generator=g
+                              ).to(dtype) for _ in range(2))
+    return (ins[2], ins[4], gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b, dy_b)
+
+
+@pytest.mark.parametrize("shape,dtype", GRU_CASES)
+def test_bigru_bwd_split_kernel_matches_plain(cuda, shape, dtype):
+    """#10 against its plain version (max-rel 1e-4 f32, 0.1 bf16) and, in
+    float32, against #6 (the same function up to sum order)."""
+    args = _bwd_args(shape, dtype, cuda)
+    before = gru_cuda.bigru_bwd_split_cuda.launches
+    got = gru_cuda.bigru_bwd_split_cuda(*args)
+    torch.cuda.synchronize()
+    assert gru_cuda.bigru_bwd_split_cuda.launches == before + 1
+    bound = GRAD_REL if dtype == torch.float32 else 0.1
+    for a, b in zip(got, gru_cuda.bigru_bwd_split_plain(*args)):
+        assert a.dtype == b.dtype and torch.isfinite(a).all()
+        assert _max_rel(a.float(), b.float()) <= bound
+    if dtype == torch.float32:
+        for a, b in zip(got, gru_cuda.bigru_bwd_cuda(*args)):
+            assert (a - b).abs().max().item() <= ATOL
+
+
+def test_bigru_bwd_kernels_every_tool_plan(cuda):
+    """#10 and #6 under each plan ``bench_bigru_bwd --tiles auto`` sweeps at
+    the scale-up batch and width (fewer steps) against their plain
+    versions, max-rel 0.1 in bf16."""
+    args = _bwd_args((128, 200, 256), torch.bfloat16, cuda)
+    plans = gru_cuda.card_plans("bwd", 128, 256, cuda, torch.bfloat16)[:6]
+    assert len(plans) > 1
+    for fn, plain in ((gru_cuda.bigru_bwd_split_cuda,
+                       gru_cuda.bigru_bwd_split_plain),
+                      (gru_cuda.bigru_bwd_cuda, gru_cuda.bigru_bwd_plain)):
+        ref = plain(*args)
+        for p in plans:
+            got = fn(*args, plan=p)
+            assert (fn.last_launch["cluster"], fn.last_launch["rows"]) == p
+            for a, b in zip(got, ref):
+                assert _max_rel(a.float(), b.float()) <= 0.1, (fn, p)
+
+
+# the last case takes the scale-up batch and width, so the planner gives
+# it the scale-up plan (8 x 20 on an H100: 160 threads, 14 clusters)
+FUSED_CASES = [((3, 53, 16, 24), torch.float32),
+               ((2, 40, 16, 16), torch.bfloat16),
+               ((16, 300, 256, 512), torch.bfloat16),
+               ((128, 300, 256, 512), torch.bfloat16)]
+
+
+@pytest.mark.parametrize("shape,dtype", FUSED_CASES)
+def test_bigru_layer_fused_matches_plain(cuda, shape, dtype):
+    """#9 through ``bigru_layer`` under grad: the output and the nine
+    gradients against the same layer with the fused backward's plain
+    version, and bit for bit the same on a second run."""
+    B, N, H, D = shape
+    g = np.random.default_rng(4)
+    x = torch.tensor(g.normal(size=(B, N, D)) * 0.5, dtype=torch.float32,
+                     device=cuda).to(dtype)
+    ws = [torch.tensor(g.uniform(-1, 1, size=sz) / np.sqrt(H),
+                       dtype=torch.float32, device=cuda)
+          for _ in range(2)
+          for sz in ((D, 3 * H), (3 * H,), (H, 3 * H), (3 * H,))]
+    dy = torch.randn(B, N, 2 * H, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(5)).to(dtype)
+
+    def grads():
+        ins = [t.clone().requires_grad_(True) for t in (x, *ws)]
+        y = gru_cuda.bigru_layer(*ins)
+        return y, torch.autograd.grad(y, ins, dy)
+
+    before = gru_cuda.bigru_bwd_fused_cuda.launches
+    y, got = grads()
+    _, again = grads()
+    torch.cuda.synchronize()
+    assert gru_cuda.bigru_bwd_fused_cuda.launches == before + 2
+    with mock.patch.object(gru_cuda, "bigru_bwd_fused",
+                           gru_cuda.bigru_bwd_fused_plain):
+        y_ref, ref = grads()
+    _assert_close(y, y_ref, dtype)
+    bound = GRAD_REL if dtype == torch.float32 else 0.1
+    for a, a2, b in zip(got, again, ref):
+        assert torch.equal(a, a2)
+        assert a.dtype == b.dtype and torch.isfinite(a).all()
+        assert _max_rel(a.float(), b.float()) <= bound

@@ -90,7 +90,6 @@ def test_model_without_mask_or_extras_matches_jax():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(hole_tokens=4), "hole_tokens"),
-    (dict(compute_dtype="bfloat16"), "compute_dtype"),
     (dict(model_type="transformer"), "item 13"),
 ])
 def test_unported_options_raise(kw, match):
