@@ -9,15 +9,18 @@ Phases, one line each or more (a failed check raises; nothing is caught):
 1. device: card name, count, and ``nvidia-smi`` name and power limit;
 2. build: every kernel source in ``room_slam_torch/csrc``, one ``nvcc`` each,
    all started together (registers and spills from ``-Xptxas -v``);
-3. kernel check on the card: ``bilstm_fwd`` against its plain version at
-   the bench, serving and a ragged shape; ``bilstm_fwd_train`` (ys, c,
-   gates) and ``bilstm_bwd`` (dg) against theirs, and ``BiLSTMFunction``'s
-   four gradients against torch autograd through the plain loop, at the
-   bench, flagship training and a ragged shape;
+3. kernel check on the card: ``bilstm_fwd`` (the unit kernel, H <= 64)
+   against its plain version, ``bilstm_fwd_train`` (ys, c, gates) and
+   ``bilstm_bwd`` (dg) against theirs, and ``BiLSTMFunction``'s four
+   gradients against torch autograd through the plain loop, at the bench,
+   serving, flagship training and a ragged shape, H=16 and 17 rows; the
+   wide kernel (the first design) forced at the ragged shape;
 4. kernel timing: each kernel, its plain version, the cuDNN yardstick
    (never called by the port) and the roofline bound, at the bench and
    serving shapes (``bilstm_fwd``) or bench and training shapes (the
-   training kernels);
+   training kernels), µs per step beside cuDNN's, and the forward kernels
+   under every plan (each unit tile the card runs, and the wide kernel)
+   with the planner's pick beside the fastest;
 5. model: the flagship model (``configs/flagship_v15.json``) at full width
    with seeded random weights, forward at B=32, N=500 through the kernel,
    against the same model through the plain recurrence;
@@ -65,16 +68,20 @@ Phases, one line each or more (a failed check raises; nothing is caught):
 17. scale-up train-step timing (B=128, N=5000): p50 over
     ``SCALEUP_STEPS`` after ``SCALEUP_WARMUP``, then the per-stage split;
 18. single-direction kernel check on the card: ``gru_fwd``,
-    ``gru_fwd_train`` and ``gru_bwd`` (the BiGRU sources with a grid of one
-    direction) at the legacy shape (32, 500, 64) f32, (5, 43, 16) in f32
-    and bf16 and (8, 1000, 256) bf16 (a cluster of several blocks), and
-    ``lstm_fwd``, ``lstm_fwd_train`` and ``lstm_bwd`` at (32, 500, 64) and
-    (5, 43, 64) f32, both walk orders, against their plain versions, and
-    ``GRUFunction``'s / ``LSTMFunction``'s gradients against autograd
-    through the plain loop;
+    ``gru_fwd_train`` (the unit kernel at H <= 64, asserted) and
+    ``gru_bwd`` at the legacy shape (32, 500, 64) in f32 and bf16, the
+    serving, training and ragged shapes in f32, (5, 43, 16) and (17, 300,
+    64) in f32 and bf16, and (8, 1000, 256) bf16 (the cluster kernel,
+    asserted), and ``lstm_fwd``, ``lstm_fwd_train`` and ``lstm_bwd`` at
+    phase 3's shapes in f32, both walk orders, against their plain
+    versions, and ``GRUFunction``'s / ``LSTMFunction``'s gradients against
+    autograd through the plain loop;
 19. their timing at (32, 500, 64) f32: kernel, plain version, bound and
     cuDNN's unidirectional ``nn.GRU`` / ``nn.LSTM`` (never called by the
-    port);
+    port), µs per step beside cuDNN's, and the forward kernels under every
+    plan (each unit tile the card runs, and the first design: the cluster
+    kernel at its planner's pick, the wide LSTM kernel) with the planner's
+    pick beside the fastest;
 20. legacy training (a main path): ``LEGACY_ROOMS`` seeded rooms written as
     legacy CSV/objects pairs, ``train_legacy`` at its defaults (hidden 128,
     seq 500, batch 32) for ``LEGACY_EPOCHS`` epochs; finite losses, a
@@ -90,8 +97,8 @@ Phases, one line each or more (a failed check raises; nothing is caught):
 23. legacy train-step timing (B=32, N=500): p50 over ``LEGACY_STEPS``
     after ``LEGACY_WARMUP``, then the per-stage split;
 24. the ops-level LSTM path: ``ops/rnn.py`` ``lstm_recurrence(use_kernel=
-    True)`` forward and backward at (32, 500, 64), its launches and its
-    values and gradients against the plain loop;
+    True)`` forward and backward at (32, 500, 64) in f32 and in bf16, its
+    launches and its values and gradients against the plain loop;
 25. split BPTT check: ``bigru_bwd_split`` (#10) against its plain version
     and against ``bigru_bwd`` (#6; in float32 the same function up to sum
     order) at the phase 12 shapes, with each launch's plan;
@@ -107,8 +114,9 @@ Phases, one line each or more (a failed check raises; nothing is caught):
 28. the tool (#10's path): ``room_slam_torch.tools.bench_bigru_bwd`` at the
     scale-up shape, ``--tiles auto --reps 5``, its rows;
 29. the six LSTM kernels in bf16 against their plain versions (values, BPTT
-    and the Functions' gradients) at (32, 500, 64), (20, 1500, 64) and
-    (5, 43, 64), and their timing against ``nn.LSTM`` bf16 and cuDNN fp16;
+    and the Functions' gradients) at phase 3's shapes, and their timing
+    against ``nn.LSTM`` bf16 and cuDNN fp16, µs per step beside cuDNN's,
+    the forward kernels under every plan;
 30. the bf16 flagship path: ``configs/flagship_v15.json`` with
     ``compute_dtype`` bfloat16 at full width, a B=32, N=500 forward and one
     served 3000-point request against the plain recurrence on the card,
@@ -169,9 +177,17 @@ KERNEL_ATOL = 1e-4   # on h, c and gates: f32 sum order over <= 1500 steps
 GRAD_REL = 1e-4      # max abs error / max abs reference, the JAX suite's
 MODEL_TOL = 1e-3     # rtol and atol on the model outputs (boxes in metres)
 LOSS_RTOL = 1e-4     # card vs CPU train step: losses
+# card vs CPU matching: the card's assignment priced with the CPU's costs
+# (entries ~40, float32 ulp ~4e-6) may exceed the CPU's optimum only by
+# rounding; a real mismatch costs O(1)
+TIE_RTOL = 1e-5
 PARAM_ATOL = 1e-5    # card vs CPU train step: updated parameters
 BENCH, SERVE, RAGGED = (32, 500, 64), (1, 1500, 64), (5, 43, 64)
 TRAIN = (20, 1500, 64)   # flagship batch_size, max_trace_len, d_model / 2
+# the unit kernels' checks also run at a narrow H and at 17 rows, no
+# multiple of a 2- or 4-row tile
+NARROW, ODD = (5, 43, 16), (17, 300, 64)
+LSTM_SHAPES = (BENCH, SERVE, TRAIN, RAGGED, NARROW, ODD)   # phases 3, 29
 STEP_SHAPES = ((20, 1500), (32, 500))
 ROOMS, EPOCHS = 40, 2        # seeded rooms (1 in 5 for validation), epochs
 STEPS, STEP_WARMUP = 50, 5   # train steps timed per shape, after warm-up
@@ -191,10 +207,13 @@ SCALEUP_PARITY_B = 8                # batch of the kernel-vs-plain step
 SCALEUP_STEPS, SCALEUP_WARMUP = 10, 3   # bench_scaleup's own counts
 # the legacy GRU surface (train_legacy's defaults): B, N, hidden_size / 2
 LEGACY = (32, 500, 64)
-SINGLE_GRU_SHAPES = ((LEGACY, torch.float32), ((5, 43, 16), torch.float32),
-                     ((5, 43, 16), torch.bfloat16),
+SINGLE_GRU_SHAPES = ((LEGACY, torch.float32), (LEGACY, torch.bfloat16),
+                     (SERVE, torch.float32), (TRAIN, torch.float32),
+                     (RAGGED, torch.float32), (NARROW, torch.float32),
+                     (NARROW, torch.bfloat16), (ODD, torch.float32),
+                     (ODD, torch.bfloat16),
                      ((8, 1000, 256), torch.bfloat16))
-SINGLE_LSTM_SHAPES = (LEGACY, (5, 43, 64))
+SINGLE_LSTM_SHAPES = LSTM_SHAPES
 LEGACY_ROOMS, LEGACY_POINTS = 40, (1500, 3000)   # about 180 windows of 500
 LEGACY_EPOCHS = 2
 LEGACY_THRESHOLD = 0.0       # every slot scored: mAP over a full ranking
@@ -203,7 +222,7 @@ LEGACY_STEPS, LEGACY_WARMUP = 50, 5
 FUSED_SHAPES = (((3, 53, 16, 24), torch.float32),
                 ((2, 40, 16, 16), torch.bfloat16),
                 ((16, 1000, 256, 512), torch.bfloat16))
-LSTM_BF16_SHAPES = (BENCH, TRAIN, RAGGED)   # bf16 BiLSTM kernel checks
+LSTM_BF16_SHAPES = LSTM_SHAPES   # bf16 BiLSTM kernel checks
 GRU_PLAIN = {"bigru_fwd_cuda": gru_cuda.bigru_fwd_plain,
              "bigru_fwd_train_cuda": gru_cuda.bigru_fwd_train_plain,
              "bigru_bwd_cuda": gru_cuda.bigru_bwd_plain}
@@ -356,8 +375,53 @@ def value_err(got, ref, dtype) -> float:
 
 def plan_text(fn) -> str:
     p = fn.last_launch
-    return (f"cluster {p['cluster']} x rows {p['rows']}, {p['clusters']} "
-            f"clusters, {p['resident']} resident")
+    return (f"{p['kernel']} kernel, cluster {p['cluster']} x rows "
+            f"{p['rows']}, {p['clusters']} clusters, {p['resident']} "
+            "resident")
+
+
+def plan_key(plan) -> str:
+    """A forward launch plan as text: "unit x1", "wide x4", "cluster 1x4"."""
+    if plan[0] == "cluster":
+        return f"cluster {plan[1]}x{plan[2]}"
+    return f"{plan[0]} x{plan[1]}"
+
+
+def lstm_plans(B, H, dev, dtype, save, dirs):
+    """Every forward plan of ``csrc/bilstm_fwd.cu`` at this shape: the unit
+    kernel's tiles the card runs (the planner's order) and the wide kernel
+    (the first design)."""
+    return [*(("unit", r) for r in rnn_cuda.card_lstm_unit_plans(
+        B, H, dev, dtype, save, dirs)), ("wide", 4)]
+
+
+def gru_single_plans(B, H, dev, dtype, save):
+    """Every one-direction forward plan of ``csrc/bigru_fwd.cu`` at this
+    shape: the unit kernel's tiles the card runs (the planner's order) and
+    the cluster kernel at its planner's pick (the first design)."""
+    c, r = gru_cuda.card_plans("fwd", B, H, dev, dtype, dirs=1)[0]
+    return [*(("unit", t) for t in gru_cuda.card_gru_unit_plans(
+        B, H, dev, dtype, save)), ("cluster", c, r)]
+
+
+def plan_sweep(name, fn, args, plans, shape, iters):
+    """Phases 4, 19 and 29: µs per step of ``fn(*args, plan=p)`` at ``shape``
+    (B, N, H) for every plan, CUDA events over ``iters`` launches each, then
+    one launch without a plan; returns the times, the planner's pick and
+    the fastest plan."""
+    N = shape[1]
+    us = {plan_key(p): cuda_ms(lambda: fn(*args, plan=p), iters) / N * 1e3
+          for p in plans}
+    fn(*args)
+    last = fn.last_launch
+    pick = plan_key((last["kernel"], last["cluster"], last["rows"])
+                    if last["kernel"] == "cluster"
+                    else (last["kernel"], last["rows"]))
+    fastest = min(us, key=us.get)
+    log("plan_sweep", f"{name} B,N,H={shape} {str(args[0].dtype)[6:]}: us "
+        "per step " + ", ".join(f"{k} {v:.3f}" for k, v in us.items())
+        + f"; planner's pick {pick}, fastest {fastest}")
+    return {"us_per_step": us, "pick": pick, "fastest": fastest}
 
 
 def check_gru_kernels(dev, seed):
@@ -566,7 +630,7 @@ def expected_counts(**launched):
 def check_training_kernels(dev, seed):
     """Phase 3 for the training kernels; returns per-shape errors."""
     errs = {}
-    for shape in (BENCH, TRAIN, RAGGED):
+    for shape in LSTM_SHAPES:
         ins = kernel_inputs(*shape, dev, seed)
         got = rnn_cuda.bilstm_fwd_train_cuda(*ins)
         ref = rnn_cuda.bilstm_fwd_train_plain(*ins)
@@ -631,10 +695,18 @@ def time_training_kernels(dev, seed, errs):
                  lib_fb - lib_fwd)):
             row = {"shape": list(shape), "kernel_ms": ms, "plain_ms": plain,
                    "library_ms": lib_ms, "bound_us": b[0] * 1e3,
-                   "bound_by": b[1],
+                   "bound_by": b[1], "us_per_step": ms / N * 1e3,
+                   "library_us_per_step": lib_ms / N * 1e3,
                    "err": (errs[shape]["fwd_train"]
                            if name == "bilstm_fwd_train"
                            else errs[shape]["bwd_abs"])}
+            if name == "bilstm_fwd_train":
+                row["plans"] = plan_sweep(
+                    name, rnn_cuda.bilstm_fwd_train_cuda, ins,
+                    lstm_plans(B, H, dev, torch.float32, True, 2), shape,
+                    iters)
+                row["launch"] = dict(
+                    rnn_cuda.bilstm_fwd_train_cuda.last_launch)
             rows[name].append(row)
             log("kernel_time", f"{name} " + json.dumps(row) + (
                 "  (library_ms: cuDNN bidirectional nn.LSTM forward with "
@@ -724,16 +796,25 @@ def serve_checkpoint(best, trace_file, dev):
 
 def assignments(model, host, data_cfg, d):
     """A copy of ``model`` on device ``d``, its Hungarian rows and matched
-    mask on the batch ``host`` (on the CPU), and the batch on ``d``."""
+    mask on the batch ``host`` (on the CPU), the batch on ``d`` and the
+    match cost ``[B, Q, M]`` (on the CPU)."""
     m = copy.deepcopy(model).to(d)
     batch = {k: torch.from_numpy(v).to(d) for k, v in host.items()}
     feats, mask, targets = loop.prepare_batch(batch, data_cfg)
     with torch.no_grad():
         out = m.train()(feats, mask)
-        rows, matched = losses_mod.match(
-            out["pred_boxes"], out["pred_classes"], targets["boxes"],
-            targets["labels"], targets["valid_mask"])
-    return m, rows.cpu(), matched.cpu(), batch
+        cost = losses_mod.match_cost(out["pred_boxes"], out["pred_classes"],
+                                     targets["boxes"], targets["labels"])
+        rows, matched = losses_mod.hungarian_match_batch(
+            cost, targets["valid_mask"])
+    return m, rows.cpu(), matched.cpu(), batch, cost.cpu()
+
+
+def assignment_cost(cost, rows, matched):
+    """Total match cost of each batch item's assignment, float64."""
+    cols = torch.arange(cost.shape[2])
+    return torch.stack([cost[b].double()[rows[b], cols][matched[b]].sum()
+                        for b in range(cost.shape[0])])
 
 
 def n_moved(rows_a, matched_a, rows_b, matched_b) -> int:
@@ -764,19 +845,41 @@ def step_parity(cfg, train_dir, dev, seed):
     # softmax backward well conditioned.
     params["params"]["decoder"]["inv_temp"] = np.float32(100.0)
     load_params(model, params)
-    res = {}
-    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
-        m, rows, matched, batch = assignments(model, host, cfg.data, d)
+    # The L1 match cost of boxes that lie on one side of two targets in
+    # every coordinate is additive, so two such queries tie exactly over
+    # those targets and rounding picks between the optima. The card's
+    # assignment must be optimal under the CPU's costs; the two steps then
+    # take the CPU's matcher output, replayed on the card.
+    res, replay = {}, []
+    match_batch = losses_mod.hungarian_match_batch
+
+    def record(cost, valid):
+        replay.append(match_batch(cost, valid))
+        return replay[-1]
+
+    def replayed(cost, valid):
+        rows, matched = replay.pop(0)
+        return rows.to(cost.device), matched.to(cost.device)
+
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        m, rows, matched, batch, cost = assignments(model, host, cfg.data, d)
         opt = loop.make_optimizer(m, cfg)
         step = loop.make_train_step(m, opt, cfg, augment=False)
-        losses = step(batch, torch.Generator(d).manual_seed(seed))
+        with mock.patch.object(losses_mod, "hungarian_match_batch",
+                               record if name == "cpu" else replayed):
+            losses = step(batch, torch.Generator(d).manual_seed(seed))
         res[name] = ({k: float(v) for k, v in losses.items()},
                      rows, matched,
                      {n: p.detach().cpu() for n, p in m.named_parameters()},
-                     {n: p.grad.cpu() for n, p in opt.named})
-    (l_gpu, r_gpu, m_gpu, p_gpu, _), (l_cpu, r_cpu, m_cpu, p_cpu, g_cpu) = \
-        res["card"], res["cpu"]
-    assert torch.equal(r_gpu, r_cpu) and torch.equal(m_gpu, m_cpu)
+                     {n: p.grad.cpu() for n, p in opt.named}, cost)
+    assert not replay, len(replay)
+    ((l_gpu, r_gpu, m_gpu, p_gpu, _, _),
+     (l_cpu, r_cpu, m_cpu, p_cpu, g_cpu, c_cpu)) = res["card"], res["cpu"]
+    assert torch.equal(m_gpu, m_cpu)
+    best = assignment_cost(c_cpu, r_cpu, m_cpu)
+    tie_gap = ((assignment_cost(c_cpu, r_gpu, m_gpu) - best).abs()
+               / best.abs().clamp_min(1.0)).max().item()
+    assert tie_gap <= TIE_RTOL, tie_gap
     loss_rel, live_err, other_err = step_diffs(l_gpu, l_cpu, p_gpu, p_cpu,
                                                g_cpu)
     log("step_parity",
@@ -784,8 +887,11 @@ def step_parity(cfg, train_dir, dev, seed):
         f"asserted: {init_moved} matched targets assigned differently")
     log("step_parity",
         f"card vs CPU, one step B={cfg.train.batch_size} N="
-        f"{cfg.data.max_trace_len}, inv_temp=100: assignments equal "
-        f"({int(m_cpu.sum())} matched pairs); losses max_rel_diff="
+        f"{cfg.data.max_trace_len}, inv_temp=100: {int(m_cpu.sum())} matched "
+        f"pairs, {n_moved(r_gpu, m_gpu, r_cpu, m_cpu)} assigned differently "
+        f"across exact ties (the card's assignment under the CPU's costs: "
+        f"max_rel_gap={tie_gap:.3e} tol={TIE_RTOL:.0e}); both steps on the "
+        f"CPU's assignment: losses max_rel_diff="
         f"{loss_rel:.3e} tol={LOSS_RTOL:.0e}; updated params max_abs_diff="
         f"{live_err:.3e} tol={PARAM_ATOL:.0e} where |grad| > 1e-5 of the "
         f"largest, {other_err:.3e} elsewhere (tol 2*lr="
@@ -887,7 +993,8 @@ def step_parity_scaleup(cfg, train_dir, dev, seed):
         reset_counts()
         with (mock.patch.multiple(gru_cuda, **patch) if patch
               else contextlib.nullcontext()):
-            m, rows, matched, batch = assignments(model, host, cfg.data, dev)
+            m, rows, matched, batch, _ = assignments(model, host, cfg.data,
+                                                     dev)
             opt = loop.make_optimizer(m, cfg)
             step = loop.make_train_step(m, opt, cfg, augment=False)
             losses = step(batch, torch.Generator(dev).manual_seed(seed))
@@ -1054,9 +1161,13 @@ def check_single_kernels(dev, seed):
                 lambda *a: gru_cuda.gru_recurrence_kernel(*a, reverse),
                 lambda *a: gru_cuda.gru_recurrence(*a, reverse),
                 (xg, w, b), dy, dtype)
+            last = gru_cuda.gru_fwd_train_cuda.last_launch
             if shape[-1] == 256:    # W_hh of H=256 needs a cluster
-                assert gru_cuda.gru_fwd_train_cuda.last_launch[
-                    "cluster"] > 1, plan
+                assert last["kernel"] == "cluster" and last["cluster"] > 1, \
+                    plan
+            else:                   # H <= 64, one direction: the unit kernel
+                assert last["kernel"] == "unit", plan
+                assert gru_cuda.gru_fwd_cuda.last_launch["kernel"] == "unit"
             for name, e in (("gru_fwd", light), ("gru_fwd_train", train),
                             ("gru_bwd", bwd_abs)):
                 key = (name, shape, dtype)
@@ -1095,13 +1206,16 @@ def check_single_kernels(dev, seed):
                             ("lstm_bwd", bwd_abs)):
                 key = (name, shape, torch.float32)
                 errs[key] = max(errs.get(key, 0.0), e)
+            for fn in (rnn_cuda.lstm_fwd_cuda, rnn_cuda.lstm_fwd_train_cuda):
+                assert fn.last_launch["kernel"] == "unit", fn.last_launch
             log("kernel_check",
                 f"B,N,H={shape} float32 reverse={reverse}: lstm_fwd ys "
                 f"max_abs_err={light:.3e}, lstm_fwd_train (ys, c, gates) "
                 f"{train:.3e} (tol {KERNEL_ATOL:.0e}); lstm_bwd dg "
                 f"max_abs_err={bwd_abs:.3e} max_rel_err={bwd_rel:.3e}; "
                 "LSTMFunction vs autograd through the plain loop max_rel_err "
-                "(dxg, dW_hh) " + " ".join(f"{v:.3e}" for v in fn_rel))
+                "(dxg, dW_hh) " + " ".join(f"{v:.3e}" for v in fn_rel)
+                + f"; launch {plan_text(rnn_cuda.lstm_fwd_train_cuda)}")
     return errs
 
 
@@ -1152,8 +1266,15 @@ def time_single_kernels(dev, seed, errs):
                       "kernel_ms": ms, "plain_ms": plain_ms,
                       "library_ms": lib_ms[name], "bound_us": bnd[0] * 1e3,
                       "bound_by": bnd[1], "us_per_step": ms / N * 1e3,
+                      "library_us_per_step": lib_ms[name] / N * 1e3,
                       "err": errs[(name, LEGACY, f32)]}
-        if name.startswith("gru"):
+        if name != "gru_bwd" and name != "lstm_bwd":
+            save = name.endswith("train")
+            plans = (gru_single_plans(B, H, dev, f32, save)
+                     if name.startswith("gru")
+                     else lstm_plans(B, H, dev, f32, save, 1))
+            rows[name]["plans"] = plan_sweep(name, fn, a, plans, LEGACY, 20)
+        if hasattr(fn, "last_launch"):
             rows[name]["launch"] = dict(fn.last_launch)
         log("kernel_time", f"{name} " + json.dumps(rows[name]) + (
             "  (library_ms: cuDNN unidirectional nn."
@@ -1396,30 +1517,37 @@ def lstm_ops_path(dev, seed):
     """Phase 24: ``ops/rnn.py`` ``lstm_recurrence(use_kernel=True)`` at the
     legacy shape, forward without grad (one ``lstm_fwd``) and forward and
     backward with it (one ``lstm_fwd_train``, one ``lstm_bwd``), both walk
-    orders of the JAX package's per-direction calls; held against the plain
-    loop and autograd through it."""
-    xg, _, w, _ = kernel_inputs(*LEGACY, dev, seed)
-    dy = torch.randn(*LEGACY[:2], LEGACY[2], device=dev,
-                     generator=torch.Generator(dev).manual_seed(seed))
-    reset_counts()
-    with torch.no_grad():
-        ys = rnn_ops.lstm_recurrence(xg, w, False, use_kernel=True)
-    x = [t.clone().requires_grad_(True) for t in (xg, w)]
-    yr = rnn_ops.lstm_recurrence(*x, True, use_kernel=True)
-    grads = torch.autograd.grad(yr, x, dy)
-    torch.cuda.synchronize()
-    launched = counts()
-    assert launched == expected_counts(lstm_fwd=1, lstm_fwd_train=1,
-                                       lstm_bwd=1), launched
-    err = max((ys - rnn_ops.lstm_recurrence(xg, w)).abs().max().item(),
-              (yr - rnn_ops.lstm_recurrence(xg, w, True)).abs().max().item())
-    ref = torch.autograd.grad(rnn_ops.lstm_recurrence(*x, True), x, dy)
-    rel = [max_rel(a, b) for a, b in zip(grads, ref)]
-    log("lstm_ops", f"lstm_recurrence(use_kernel=True) B,N,H={LEGACY}: "
-        f"launches {launched}; values max_abs_err={err:.3e} tol "
-        f"{KERNEL_ATOL:.0e}; gradients (dxg, dW_hh) max_rel_err "
-        + " ".join(f"{v:.3e}" for v in rel) + f" tol {GRAD_REL:.0e}")
-    assert err <= KERNEL_ATOL and max(rel) <= GRAD_REL
+    orders of the JAX package's per-direction calls, with float32 and with
+    bfloat16 streams; held against the plain loop and autograd through it.
+    Returns the launches of each dtype's run."""
+    launched = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xg, _, w, _ = kernel_inputs(*LEGACY, dev, seed)
+        xg = xg.to(dtype)
+        dy = torch.randn(*LEGACY[:2], LEGACY[2], device=dev,
+                         generator=torch.Generator(dev).manual_seed(seed)
+                         ).to(dtype)
+        reset_counts()
+        with torch.no_grad():
+            ys = rnn_ops.lstm_recurrence(xg, w, False, use_kernel=True)
+        x = [t.clone().requires_grad_(True) for t in (xg, w)]
+        yr = rnn_ops.lstm_recurrence(*x, True, use_kernel=True)
+        grads = torch.autograd.grad(yr, x, dy)
+        torch.cuda.synchronize()
+        launched[dtype] = counts()
+        assert launched[dtype] == expected_counts(
+            lstm_fwd=1, lstm_fwd_train=1, lstm_bwd=1), launched[dtype]
+        err = value_err((ys, yr), (rnn_ops.lstm_recurrence(xg, w),
+                                   rnn_ops.lstm_recurrence(xg, w, True)),
+                        dtype)
+        ref = torch.autograd.grad(rnn_ops.lstm_recurrence(*x, True), x, dy)
+        rel = [max_rel(a.float(), b.float()) for a, b in zip(grads, ref)]
+        rel_tol = GRAD_REL if dtype == torch.float32 else BF16_GRAD_REL
+        log("lstm_ops", f"lstm_recurrence(use_kernel=True) B,N,H={LEGACY} "
+            f"{str(dtype)[6:]}: launches {launched[dtype]}; values "
+            f"max_abs_err={err:.3e}; gradients (dxg, dW_hh) max_rel_err "
+            + " ".join(f"{v:.3e}" for v in rel) + f" tol {rel_tol:g}")
+        assert max(rel) <= rel_tol, rel
     return launched
 
 
@@ -1794,7 +1922,14 @@ def time_lstm_bf16(dev, seed, errs):
             "cudnn_fp16_ms": lib[(shape, dirs, "cudnn_fp16")][kind],
             "bound_us": bnd[0] * 1e3, "bound_by": bnd[1],
             "us_per_step": ms / N * 1e3,
+            "cudnn_fp16_us_per_step":
+                lib[(shape, dirs, "cudnn_fp16")][kind] / N * 1e3,
             "err": max(v for (n, _), v in errs.items() if n == name)}
+        if kind != "bwd":
+            rows[name]["plans"] = plan_sweep(
+                name, fn, a, lstm_plans(B, H, dev, bf, kind == "fwd_train",
+                                        dirs), shape, 10)
+            rows[name]["launch"] = dict(fn.last_launch)
         log("lstm_bf16_time", f"{name} " + json.dumps(rows[name]) + (
             "  (library_ms: nn.LSTM " + ("bidirectional " if dirs == 2
                                          else "unidirectional ")
@@ -1931,7 +2066,7 @@ def main() -> int:
 
     # 3. kernel check against the plain versions on the card
     errs = {}
-    for shape in (BENCH, SERVE, RAGGED):
+    for shape in LSTM_SHAPES:
         ins = kernel_inputs(*shape, dev, args.seed)
         got = rnn_cuda.bilstm_fwd_cuda(*ins)
         ref = rnn_cuda.bilstm_recurrence_plain(*ins)
@@ -1940,9 +2075,19 @@ def main() -> int:
         rel = err / max(b.abs().max().item() for b in ref)
         errs[shape] = err
         assert all(torch.isfinite(a).all() for a in got), shape
+        assert rnn_cuda.bilstm_fwd_cuda.last_launch["kernel"] == "unit"
         log("kernel_check", f"bilstm_fwd B,N,H={shape} max_abs_err={err:.3e} "
-                            f"max_rel_err={rel:.3e} tol={KERNEL_ATOL:.0e}")
+                            f"max_rel_err={rel:.3e} tol={KERNEL_ATOL:.0e}; "
+                            f"launch {plan_text(rnn_cuda.bilstm_fwd_cuda)}")
         assert err <= KERNEL_ATOL, (shape, err)
+    # the wide kernel (the first design, H > 64) forced at H=64: phase 4
+    # times it beside the unit kernel
+    ins = kernel_inputs(*RAGGED, dev, args.seed)
+    wide_err = value_err(
+        rnn_cuda.bilstm_fwd_train_cuda(*ins, plan=("wide", 4)),
+        rnn_cuda.bilstm_fwd_train_plain(*ins), torch.float32)
+    log("kernel_check", f"bilstm_fwd_train on the wide kernel B,N,H={RAGGED}"
+        f" max_abs_err={wide_err:.3e} tol={KERNEL_ATOL:.0e}")
     train_errs = check_training_kernels(dev, args.seed)
 
     # 4. kernel timing
@@ -1963,7 +2108,13 @@ def main() -> int:
         row = {"shape": list(shape), "err": errs[shape],
                "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_us": bound_ms * 1e3,
-               "bound_by": bound_by}
+               "bound_by": bound_by, "us_per_step": kernel_ms / N * 1e3,
+               "library_us_per_step": library_ms / N * 1e3,
+               "plans": plan_sweep(
+                   "bilstm_fwd", rnn_cuda.bilstm_fwd_cuda, ins,
+                   lstm_plans(B, H, dev, torch.float32, False, 2), shape,
+                   iters),
+               "launch": dict(rnn_cuda.bilstm_fwd_cuda.last_launch)}
         shapes.append(row)
         log("kernel_time", json.dumps(row) + "  (library_ms: cuDNN "
             "bidirectional nn.LSTM, includes the input projection)")
@@ -2173,7 +2324,8 @@ def main() -> int:
         legacy_evaluated = evaluate_legacy_path(legacy_best, data, dev)
         legacy_step_parity(data, dev, args.seed)
         time_legacy_steps(data, dev, args.seed, smi, single_rows)
-    lstm_launched = lstm_ops_path(dev, args.seed)
+    lstm_ops_launched = lstm_ops_path(dev, args.seed)
+    lstm_launched = lstm_ops_launched[torch.float32]
     log("done", f"phases 18-24 in {time.perf_counter() - t_single:.1f} s")
 
     # 25-30. the split BPTT (#10) and the fused layer VJP (#9) against
@@ -2190,6 +2342,9 @@ def main() -> int:
     bf16_launched = flagship_bf16_path(dev, args.seed, smi)
     for name in ("bilstm_fwd", "bilstm_fwd_train", "bilstm_bwd"):
         lstm_bf16_rows[name]["launches"] = bf16_launched[name]
+    for name in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd"):
+        lstm_bf16_rows[name]["launches"] = lstm_ops_launched[
+            torch.bfloat16][name]
     log("done", f"phases 25-30 in {time.perf_counter() - t_new:.1f} s")
 
     def entry(name, source, replaces, launched, row):

@@ -72,6 +72,30 @@
 // and the output stores are fire-and-forget, so global memory sits off the
 // chain. More outputs per thread (fewer loads per FMA) and tensor cores
 // (mma.sync / wgmma for the h @ W_hh product) are left for later work.
+//
+// The single-direction GRU at small H (gru_fwd_unit_kernel, H <= 64, the
+// legacy model's H=64). What held the cluster kernel back there:
+// the planner's step cost ties every small plan, so B=32, H=64 ran 8 blocks
+// of 64 threads (2 warps) on 8 of 132 SMs, each thread a 64-deep chain of 3
+// shared loads of W and a float4 of h per 12 FMAs, full-precision expf /
+// tanhf, then a cluster.sync() and a distributed-shared-memory push even for
+// a cluster of one block. Measured on an H100: 2.66 us a step, against
+// cuDNN's 0.60. The unit kernel is one block per (tile of R rows), R = 1, 2
+// or 4 (rnn_cuda unit_plans sizes it to the batch and the card: 32 blocks
+// at B=32): four lanes of one warp own hidden unit u, lane p holds the W_hh
+// values of u's r, z and n columns for its quarter of the k sum in
+// registers (48 floats at H=64), reads h_{t-1} ([k][R] in shared memory) as
+// 16-byte broadcasts, and the four lanes' sums meet by __shfl_xor_sync so
+// that lane p ends with row p % R's three sums and runs its gate math and
+// f32 carry in registers; one block barrier a step, no cluster, __expf and
+// a fast reciprocal in the activations, xg loaded kAhead = 8 steps ahead
+// into a register ring (the step loop unrolled by 8). Measured on an H100:
+// 0.42 us a step at B=32 (cuDNN 0.60). A row's FMA issue is about 0.06 us
+// of it (the 2- and 4-row tiles take that much more a row); the rest is
+// the step's fixed chain: barrier, two shuffle rounds, the activations'
+// MUFU latency and the h broadcast. The wrapper (ops/gru_cuda.py
+// gru_fwd_kernel_route) sends a one-direction launch at H <= 64 here and
+// everything else to the cluster kernel.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -87,6 +111,15 @@ namespace {
 constexpr int kRowsPerThread = 4;  // batch rows of one thread (a float4)
 static_assert(kRowsPerThread == 4, "rows travel as one float4");
 constexpr int kMaxThreads = 512;
+
+// unit kernel: lanes per hidden unit, k values of the sum held in registers
+// (over the four lanes), and the threads of a block at H = kMaxUnitH
+constexpr int kLanes = 4;
+constexpr int kMaxUnitH = 64;
+constexpr int kKPerLane = kMaxUnitH / kLanes;
+constexpr int kUnitThreads = kLanes * kMaxUnitH;
+constexpr int kAhead = 8;  // steps of xg in flight ahead of the chain
+constexpr unsigned kFullMask = 0xffffffffu;
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -118,6 +151,15 @@ __device__ __forceinline__ float round_to(float v) {
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// __expf and a fast reciprocal: a few ulp; exp overflowing to inf gives the
+// limits 0 and -1 / +1
+__device__ __forceinline__ float fast_sigmoid(float x) {
+  return __fdividef(1.0f, 1.0f + __expf(-x));
+}
+__device__ __forceinline__ float fast_tanh(float x) {
+  return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * x));
 }
 
 __host__ __device__ __forceinline__ size_t pad4(size_t n) {
@@ -261,6 +303,181 @@ bigru_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
   }
 }
 
+// The four lanes of a unit each hold partial sums v[g][r] of 3 gates for R
+// rows; afterwards lane p holds in out[g] the full sums of row p % R (a
+// reduce-scatter over lane bits 0 and 1; an all-reduce where R < 4).
+template <int R>
+__device__ __forceinline__ void reduce_lanes(const float (&v)[3][R],
+                                             float (&out)[3], int lane) {
+  const bool b0 = (lane & 1) != 0;
+  const bool b1 = (lane & 2) != 0;
+  if constexpr (R == 4) {
+    float half[3][2];  // rows 2j + b0, summed over lanes p and p ^ 1
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float keep = b0 ? v[g][2 * j + 1] : v[g][2 * j];
+        const float send = b0 ? v[g][2 * j] : v[g][2 * j + 1];
+        half[g][j] = keep + __shfl_xor_sync(kFullMask, send, 1);
+      }
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      const float keep = b1 ? half[g][1] : half[g][0];
+      const float send = b1 ? half[g][0] : half[g][1];
+      out[g] = keep + __shfl_xor_sync(kFullMask, send, 2);
+    }
+  } else if constexpr (R == 2) {
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      const float keep = b0 ? v[g][1] : v[g][0];
+      const float send = b0 ? v[g][0] : v[g][1];
+      out[g] = keep + __shfl_xor_sync(kFullMask, send, 1);
+      out[g] += __shfl_xor_sync(kFullMask, out[g], 2);
+    }
+  } else {
+    static_assert(R == 1, "tiles of 1, 2 or 4 rows");
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      out[g] = v[g][0] + __shfl_xor_sync(kFullMask, v[g][0], 1);
+      out[g] += __shfl_xor_sync(kFullMask, out[g], 2);
+    }
+  }
+}
+
+// The unit kernel: one block per (tile of R rows, direction), four lanes
+// per hidden unit, W_hh in registers (see the notes at the top). Same
+// function, rounding points and outputs as bigru_fwd_kernel.
+template <typename T, bool kSave, int R>
+__global__ void __launch_bounds__(kUnitThreads)
+gru_fwd_unit_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
+                    const T* __restrict__ w_f, const float* __restrict__ b_f,
+                    const T* __restrict__ w_b, const float* __restrict__ b_b,
+                    T* __restrict__ ys_f, T* __restrict__ ys_b,
+                    T* __restrict__ gs_f, T* __restrict__ gs_b,
+                    T* __restrict__ hn_f, T* __restrict__ hn_b, int B, int N,
+                    int H, int rev) {
+  constexpr int KC = 4 / R;                  // k values in one float4 of h
+  constexpr int kChunks = kKPerLane / KC;    // float4 loads a lane a step
+  // h_{t-1} rounded to T, as [k][R] floats, double buffered; k >= H stays 0
+  __shared__ float4 h_s[2][kMaxUnitH * R / 4];
+  const int G = 3 * H;
+
+  // a grid of two directions: y = 1 walks backward; of one: rev says
+  const bool bwd = (blockIdx.y == 1) != (rev != 0);
+  const T* xg = bwd ? xg_b : xg_f;
+  const T* w = bwd ? w_b : w_f;
+  const float* b = bwd ? b_b : b_f;
+  const int lane = threadIdx.x % kLanes;
+  const int u = threadIdx.x / kLanes;  // hidden unit; u >= H pads the warp
+  const bool unit_valid = u < H;
+  const int uu = unit_valid ? u : 0;
+  const int row0 = blockIdx.x * R;
+
+  // this lane's W_hh values: chunk c of the lane covers k = (c * kLanes +
+  // lane) * KC + e, e < KC, for the r, z and n columns of unit u
+  float wr[3][kKPerLane];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int e = 0; e < KC; ++e) {
+      const int k = (c * kLanes + lane) * KC + e;
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        wr[g][c * KC + e] =
+            unit_valid && k < H ? to_f32<T>(w[static_cast<size_t>(k) * G +
+                                              g * H + u])
+                                : 0.0f;
+    }
+  float* h_flat = reinterpret_cast<float*>(h_s);
+  for (int i = threadIdx.x; i < 2 * kMaxUnitH * R; i += blockDim.x)
+    h_flat[i] = 0.0f;
+  const float br = b[uu];
+  const float bz = b[H + uu];
+  const float bn = b[2 * H + uu];
+
+  // the (row, unit) cell this lane updates: row p % R; lanes p < R store it
+  const int orow = lane % R;
+  const bool cell_valid = unit_valid && row0 + orow < B;
+  const bool owner = lane < R && cell_valid;
+  const size_t row = static_cast<size_t>(cell_valid ? row0 + orow : 0);
+  const size_t xoff = row * N * G + uu;  // xg / gates of (row, t = 0, u)
+  const size_t yoff = row * N * H + uu;  // ys / hn of (row, t = 0, u)
+  T* ys = bwd ? ys_b : ys_f;
+  T* gs = bwd ? gs_b : gs_f;
+  T* hns = bwd ? hn_b : hn_f;
+
+  // xg of this lane's cell for the next kAhead steps as loaded, converted
+  // when used: a ring indexed by the step's place in an unrolled group, so
+  // each load has kAhead steps to land before the chain needs it
+  T xq[kAhead][3];
+  auto load_x = [&](T (&dst)[3], int s) {
+    const T* x = xg + xoff + static_cast<size_t>(bwd ? N - 1 - s : s) * G;
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+      dst[g] = cell_valid ? x[g * H] : from_f32<T>(0.0f);
+  };
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j)
+    if (j < N) load_x(xq[j], j);
+  float h = 0.0f;
+  __syncthreads();
+
+  auto step = [&](int s, T (&xs)[3]) {
+    const int t = bwd ? N - 1 - s : s;
+    float x[3];
+#pragma unroll
+    for (int g = 0; g < 3; ++g) x[g] = to_f32<T>(xs[g]);
+    if (s + kAhead < N) load_x(xs, s + kAhead);
+
+    float acc[3][R];
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[g][r] = 0.0f;
+    const float4* hb = h_s[s & 1];
+#pragma unroll
+    for (int ch = 0; ch < kChunks; ++ch) {
+      const float4 hv = hb[ch * kLanes + lane];
+      const float hk[4] = {hv.x, hv.y, hv.z, hv.w};  // [e][r]
+#pragma unroll
+      for (int e = 0; e < KC; ++e)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+            acc[g][r] = fmaf(hk[e * R + r], wr[g][ch * KC + e], acc[g][r]);
+    }
+    float hg[3];
+    reduce_lanes<R>(acc, hg, lane);
+
+    const float hn = hg[2] + bn;
+    const float r = fast_sigmoid(x[0] + (hg[0] + br));
+    const float z = fast_sigmoid(x[1] + (hg[1] + bz));
+    const float n = fast_tanh(x[2] + r * hn);
+    h = (1.0f - z) * n + z * h;
+    if (lane < R && unit_valid)
+      reinterpret_cast<float*>(h_s[(s + 1) & 1])[u * R + orow] =
+          round_to<T>(h);
+    if (owner) {
+      ys[yoff + static_cast<size_t>(t) * H] = from_f32<T>(h);
+      if (kSave) {
+        T* gt = gs + xoff + static_cast<size_t>(t) * G;
+        gt[0] = from_f32<T>(r);
+        gt[H] = from_f32<T>(z);
+        gt[2 * H] = from_f32<T>(n);
+        hns[yoff + static_cast<size_t>(t) * H] = from_f32<T>(hn);
+      }
+    }
+    __syncthreads();
+  };
+  for (int s0 = 0; s0 < N; s0 += kAhead) {
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j)
+      if (s0 + j < N) step(s0 + j, xq[j]);
+  }
+}
+
 // Dynamic shared memory one block needs, in bytes (the wrapper's
 // bigru_smem_bytes("fwd", ...) mirrors it to pick the cluster size).
 size_t smem_bytes(int H, int C, int R) {
@@ -346,6 +563,62 @@ int max_active_clusters(int H, int C, int R) {
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
+// The unit kernel's static shared memory (the h tile, double buffered) and
+// threads: four lanes for each of H units, padded to whole warps (the
+// wrapper's gru_unit_smem_bytes and unit_threads mirror them).
+constexpr size_t unit_smem_bytes(int R) {
+  return 2 * static_cast<size_t>(kMaxUnitH) * R * sizeof(float);
+}
+constexpr int unit_threads(int H) { return kLanes * ((H + 7) / 8 * 8); }
+
+bool valid_unit_plan(int B, int N, int H, int R) {
+  return B > 0 && N > 0 && H > 0 && H <= kMaxUnitH &&
+         (R == 1 || R == 2 || R == 4);
+}
+
+template <typename T, bool kSave>
+const void* unit_kernel(int R) {
+  if (R == 1) return reinterpret_cast<const void*>(
+      gru_fwd_unit_kernel<T, kSave, 1>);
+  if (R == 2) return reinterpret_cast<const void*>(
+      gru_fwd_unit_kernel<T, kSave, 2>);
+  return reinterpret_cast<const void*>(gru_fwd_unit_kernel<T, kSave, 4>);
+}
+
+template <typename T, bool kSave>
+int launch_unit(const void* xg, const void* w, const float* b, void* ys,
+                void* gs, void* hn, int B, int N, int H, int R, int rev,
+                void* stream) {
+  if (!valid_unit_plan(B, N, H, R))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((B + R - 1) / R, 1);
+  const int threads = unit_threads(H);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* x = static_cast<const T*>(xg);
+  const T* wt = static_cast<const T*>(w);
+  T* y = static_cast<T*>(ys);
+  T* g = static_cast<T*>(gs);
+  T* n = static_cast<T*>(hn);
+  if (R == 1)
+    gru_fwd_unit_kernel<T, kSave, 1><<<grid, threads, 0, st>>>(
+        x, x, wt, b, wt, b, y, y, g, g, n, n, B, N, H, rev);
+  else if (R == 2)
+    gru_fwd_unit_kernel<T, kSave, 2><<<grid, threads, 0, st>>>(
+        x, x, wt, b, wt, b, y, y, g, g, n, n, B, N, H, rev);
+  else
+    gru_fwd_unit_kernel<T, kSave, 4><<<grid, threads, 0, st>>>(
+        x, x, wt, b, wt, b, y, y, g, g, n, n, B, N, H, rev);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kSave>
+int unit_blocks_per_sm(int H, int R) {
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, unit_kernel<T, kSave>(R), unit_threads(H), 0);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -428,6 +701,62 @@ int gru_fwd_train_bf16(const void* xg, const void* w, const float* b,
                        int C, int R, int reverse, void* stream) {
   return launch<__nv_bfloat16, true>(xg, xg, w, b, w, b, ys, ys, gs, gs, hn,
                                      hn, B, N, H, C, R, 1, reverse, stream);
+}
+
+// One direction of a GRU on the unit kernel (H <= 64), batch tiles of R
+// rows (1, 2 or 4): arguments and outputs as gru_fwd_* and gru_fwd_train_*
+// without the cluster size.
+int gru_fwd_unit_f32(const void* xg, const void* w, const float* b, void* ys,
+                     int B, int N, int H, int R, int reverse, void* stream) {
+  return launch_unit<float, false>(xg, w, b, ys, nullptr, nullptr, B, N, H,
+                                   R, reverse, stream);
+}
+
+int gru_fwd_unit_bf16(const void* xg, const void* w, const float* b,
+                      void* ys, int B, int N, int H, int R, int reverse,
+                      void* stream) {
+  return launch_unit<__nv_bfloat16, false>(xg, w, b, ys, nullptr, nullptr, B,
+                                           N, H, R, reverse, stream);
+}
+
+int gru_fwd_unit_train_f32(const void* xg, const void* w, const float* b,
+                           void* ys, void* gs, void* hn, int B, int N, int H,
+                           int R, int reverse, void* stream) {
+  return launch_unit<float, true>(xg, w, b, ys, gs, hn, B, N, H, R, reverse,
+                                  stream);
+}
+
+int gru_fwd_unit_train_bf16(const void* xg, const void* w, const float* b,
+                            void* ys, void* gs, void* hn, int B, int N,
+                            int H, int R, int reverse, void* stream) {
+  return launch_unit<__nv_bfloat16, true>(xg, w, b, ys, gs, hn, B, N, H, R,
+                                          reverse, stream);
+}
+
+// How many blocks of the unit kernel (bf16: 0 or 1, save: 0 or 1) at hidden
+// size H and tile R one SM of the current device runs at once; a negative
+// cudaError_t code on failure.
+int gru_fwd_unit_blocks_per_sm(int bf16, int save, int H, int R) {
+  if (!valid_unit_plan(1, 1, H, R))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  if (bf16)
+    return save ? unit_blocks_per_sm<__nv_bfloat16, true>(H, R)
+                : unit_blocks_per_sm<__nv_bfloat16, false>(H, R);
+  return save ? unit_blocks_per_sm<float, true>(H, R)
+              : unit_blocks_per_sm<float, false>(H, R);
+}
+
+// The unit kernel's layout at hidden size H and tile R, for the wrapper's
+// mirror: what 0 = static shared memory in bytes, 1 = threads a block, 2 =
+// W_hh values a lane holds in registers; -1 for a plan it does not take.
+int gru_fwd_unit_layout(int what, int H, int R) {
+  if (!valid_unit_plan(1, 1, H, R)) return -1;
+  switch (what) {
+    case 0: return static_cast<int>(unit_smem_bytes(R));
+    case 1: return unit_threads(H);
+    case 2: return 3 * kKPerLane;
+    default: return -1;
+  }
 }
 
 // How many clusters of this variant (bf16: 0 or 1, save: 0 or 1) the

@@ -37,23 +37,45 @@
 // light kernel reads 32.8 MB of xg and writes 8.2 MB of ys (about 12 us at
 // 3.35 TB/s) and does about 1.07 GFLOP (about 16 us at 67 TFLOP/s f32); the
 // training variant writes 41 MB more residuals (about 12 us more); one
-// direction (the single-direction LSTM) is half of each. Neither
-// is the real floor: the recurrence is a chain of N dependent steps, each a
-// 64-deep dot product per gate column, a barrier, the cell update and a
-// second barrier, so the time is N times the latency of one step (expected
-// near a millisecond at N=500).
+// direction (the single-direction LSTM) is half of each. Neither is the
+// real floor: the recurrence is a chain of N dependent steps, each a 64-deep
+// dot product per gate column and the cell update, so the time is N times
+// the latency of one step.
 //
-// What the design does about it. One block per (batch tile of kRows rows,
-// direction); each direction's W_hh (64 x 256 f32 = 64 KiB at H=64) stays
-// resident in dynamic shared memory for the whole walk, as do the h carry
-// and the step's gate pre-activations; the c carry lives in a register of
-// the thread that owns the (row, unit) cell. Thread j owns gate column j,
-// so W_hh reads are conflict-free and h reads are broadcasts. Next step's
-// xg is prefetched into registers before this step's dot products, so the
-// global-memory latency sits off the serial chain. The residual stores are
-// fire-and-forget and sit off the chain too. Everything else (wgmma, TMA,
-// more rows per block, splitting a step across a cluster) is left for
-// later work.
+// What held the first design back (now the wide kernel below). One
+// block of 4H threads per (4-row tile, direction), thread j owning gate
+// column j with W_hh in shared memory: per k one load of W and four scalar
+// loads of h for 4 FMAs, about 2,560 warp-level shared loads a step for 8
+// warps; two block barriers a step; three of the four rows padding at the
+// serving batch of 1. Measured on an H100: 1.74 us a step at B=1, 1.92 us at
+// B=20, against cuDNN's 0.90 and 1.04 (input projection included).
+//
+// What the design does about it (bilstm_fwd_kernel, H <= kMaxRegH = 64).
+// Four lanes of one warp own hidden unit u of a tile of R rows (R = 1, 2 or
+// 4, a template; the wrapper sizes it to the batch and the card, rnn_cuda
+// unit_plans). Lane p holds the W_hh values of all four gate columns of u
+// for its quarter of the k sum in registers for the whole walk (64 floats
+// at H=64), and reads h_{t-1}, laid out [k][R] in shared memory, as 16-byte
+// broadcasts, each feeding 4 k x R rows x 4 gates = 16 FMAs. The four lanes'
+// partial sums meet by __shfl_xor_sync (a reduce-scatter: lane p ends with
+// the four gate sums of row p % R, xg already added), so the cell update
+// and the c carry stay in the lane's registers, and one block barrier a
+// step orders the double-buffered h tile. Activations use __expf and a
+// fast reciprocal (a few ulp, far inside the 1e-4 bound). xg is loaded
+// kAhead = 8 steps ahead into a register ring (the step loop unrolled by
+// 8) and the stores are fire-and-forget, off the chain.
+//
+// What bounds it now. Measured on an H100: 0.45 us a step at B=1 and 0.55
+// at B=20 with residuals (cuDNN 0.90 and 1.04). A row's FMA issue is about
+// 0.06 us of it (the 2- and 4-row tiles take that much more a row); the
+// rest is the step's fixed chain: barrier, two shuffle rounds, the
+// activations' MUFU latency and the h broadcast.
+//
+// H above 64 (no model runs one: the flagship and legacy LSTMs are H=64)
+// takes the wide kernel, the first design kept as it was: W_hh [H, 4H] in
+// dynamic shared memory (64 KiB at H=64, up to H=118 in f32), thread j owns
+// gate column j of a 4-row tile. The wrapper picks the kernel
+// (rnn_cuda.lstm_fwd_kernel_route) and may force either one for an A/B.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,7 +85,16 @@
 
 namespace {
 
-constexpr int kRows = 4;  // batch rows per block; kRows * H == 4H threads
+constexpr int kRows = 4;  // wide kernel: batch rows per block, 4H threads
+
+// unit kernel: lanes per hidden unit, k values of the sum held in registers
+// (over the four lanes), and the threads of a block at H = kMaxRegH
+constexpr int kLanes = 4;
+constexpr int kMaxRegH = 64;
+constexpr int kKPerLane = kMaxRegH / kLanes;
+constexpr int kUnitThreads = kLanes * kMaxRegH;
+constexpr int kAhead = 8;  // steps of xg in flight ahead of the chain
+constexpr unsigned kFullMask = 0xffffffffu;
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -91,19 +122,209 @@ __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// __expf and a fast reciprocal: a few ulp; exp overflowing to inf gives the
+// limits 0 and -1 / +1
+__device__ __forceinline__ float fast_sigmoid(float x) {
+  return __fdividef(1.0f, 1.0f + __expf(-x));
+}
+__device__ __forceinline__ float fast_tanh(float x) {
+  return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * x));
+}
+
+// The four lanes of a unit each hold partial sums v[g][r] of G gates for R
+// rows; afterwards lane p holds in out[g] the full sums of row p % R
+// (a reduce-scatter over lane bits 0 and 1; an all-reduce where R < 4).
+template <int G, int R>
+__device__ __forceinline__ void reduce_lanes(const float (&v)[G][R],
+                                             float (&out)[G], int lane) {
+  const bool b0 = (lane & 1) != 0;
+  const bool b1 = (lane & 2) != 0;
+  if constexpr (R == 4) {
+    float half[G][2];  // rows 2j + b0, summed over lanes p and p ^ 1
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float keep = b0 ? v[g][2 * j + 1] : v[g][2 * j];
+        const float send = b0 ? v[g][2 * j] : v[g][2 * j + 1];
+        half[g][j] = keep + __shfl_xor_sync(kFullMask, send, 1);
+      }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float keep = b1 ? half[g][1] : half[g][0];
+      const float send = b1 ? half[g][0] : half[g][1];
+      out[g] = keep + __shfl_xor_sync(kFullMask, send, 2);
+    }
+  } else if constexpr (R == 2) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float keep = b0 ? v[g][1] : v[g][0];
+      const float send = b0 ? v[g][0] : v[g][1];
+      out[g] = keep + __shfl_xor_sync(kFullMask, send, 1);
+      out[g] += __shfl_xor_sync(kFullMask, out[g], 2);
+    }
+  } else {
+    static_assert(R == 1, "tiles of 1, 2 or 4 rows");
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      out[g] = v[g][0] + __shfl_xor_sync(kFullMask, v[g][0], 1);
+      out[g] += __shfl_xor_sync(kFullMask, out[g], 2);
+    }
+  }
+}
+
+// The unit kernel: one block per (tile of R rows, direction), four lanes per
+// hidden unit, W_hh in registers (see the notes at the top).
+template <typename T, bool kSave, int R>
+__global__ void __launch_bounds__(kUnitThreads)
+bilstm_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
+                  const T* __restrict__ w_f, const T* __restrict__ w_b,
+                  T* __restrict__ ys_f, T* __restrict__ ys_b,
+                  T* __restrict__ cs_f, T* __restrict__ cs_b,
+                  T* __restrict__ gs_f, T* __restrict__ gs_b, int B, int N,
+                  int H, int rev) {
+  constexpr int KC = 4 / R;                  // k values in one float4 of h
+  constexpr int kChunks = kKPerLane / KC;    // float4 loads a lane a step
+  // h_{t-1} as [k][R] floats, double buffered; k >= H stays zero
+  __shared__ float4 h_s[2][kMaxRegH * R / 4];
+  const int G = 4 * H;
+
+  // a grid of two directions: y = 1 walks backward; of one: rev says
+  const bool bwd = (blockIdx.y == 1) != (rev != 0);
+  const T* xg = bwd ? xg_b : xg_f;
+  const T* w = bwd ? w_b : w_f;
+  const int lane = threadIdx.x % kLanes;
+  const int u = threadIdx.x / kLanes;  // hidden unit; u >= H pads the warp
+  const bool unit_valid = u < H;
+  const int row0 = blockIdx.x * R;
+
+  // this lane's W_hh values: chunk c of the lane covers k = (c * kLanes +
+  // lane) * KC + e, e < KC, for all four gate columns of unit u
+  float wr[4][kKPerLane];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int e = 0; e < KC; ++e) {
+      const int k = (c * kLanes + lane) * KC + e;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        wr[g][c * KC + e] =
+            unit_valid && k < H ? to_f32<T>(w[static_cast<size_t>(k) * G +
+                                              g * H + u])
+                                : 0.0f;
+    }
+  float* h_flat = reinterpret_cast<float*>(h_s);
+  for (int i = threadIdx.x; i < 2 * kMaxRegH * R; i += blockDim.x)
+    h_flat[i] = 0.0f;
+
+  // lane p starts the sums of gate p with xg of its R rows
+  const size_t row_stride = static_cast<size_t>(N) * G;
+  bool xvalid[R];
+  const T* xrow[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    xvalid[r] = unit_valid && row0 + r < B;
+    xrow[r] = xg + static_cast<size_t>(xvalid[r] ? row0 + r : 0) * row_stride +
+              lane * H + (unit_valid ? u : 0);
+  }
+  // the (row, unit) cell this lane updates: row p % R; lanes p < R store it
+  const int orow = lane % R;
+  const bool owner = lane < R && unit_valid && row0 + orow < B;
+  const size_t cell_row = static_cast<size_t>(owner ? row0 + orow : 0);
+  T* yrow = (bwd ? ys_b : ys_f) + cell_row * N * H + (unit_valid ? u : 0);
+  T* crow = nullptr;
+  T* grow = nullptr;
+  if (kSave) {
+    crow = (bwd ? cs_b : cs_f) + cell_row * N * H + (unit_valid ? u : 0);
+    grow = (bwd ? gs_b : gs_f) + cell_row * row_stride + (unit_valid ? u : 0);
+  }
+  float c = 0.0f;
+
+  // xg of the next kAhead steps as loaded, converted to float only when
+  // used: a ring indexed by the step's place in an unrolled group, so each
+  // load has kAhead steps to land before the chain needs it
+  T xq[kAhead][R];
+  auto load_x = [&](T (&dst)[R], int s) {
+    const size_t ts = static_cast<size_t>(bwd ? N - 1 - s : s) * G;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      dst[r] = xvalid[r] ? xrow[r][ts] : from_f32<T>(0.0f);
+  };
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j)
+    if (j < N) load_x(xq[j], j);
+  __syncthreads();
+
+  auto step = [&](int s, T (&xs)[R]) {
+    const int t = bwd ? N - 1 - s : s;
+    float acc[4][R];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        acc[g][r] = g == lane ? to_f32<T>(xs[r]) : 0.0f;
+    if (s + kAhead < N) load_x(xs, s + kAhead);
+
+    const float4* hb = h_s[s & 1];
+#pragma unroll
+    for (int ch = 0; ch < kChunks; ++ch) {
+      const float4 hv = hb[ch * kLanes + lane];
+      const float hk[4] = {hv.x, hv.y, hv.z, hv.w};  // [e][r]
+#pragma unroll
+      for (int e = 0; e < KC; ++e)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            acc[g][r] = fmaf(hk[e * R + r], wr[g][ch * KC + e], acc[g][r]);
+    }
+    float gsum[4];
+    reduce_lanes<4, R>(acc, gsum, lane);
+
+    const float ig = fast_sigmoid(gsum[0]);
+    const float fg = fast_sigmoid(gsum[1]);
+    const float gg = fast_tanh(gsum[2]);
+    const float og = fast_sigmoid(gsum[3]);
+    c = fg * c + ig * gg;
+    const T h_t = from_f32<T>(og * fast_tanh(c));
+    if (lane < R && unit_valid)
+      reinterpret_cast<float*>(h_s[(s + 1) & 1])[u * R + orow] =
+          to_f32<T>(h_t);
+    if (owner) {
+      yrow[static_cast<size_t>(t) * H] = h_t;
+      if (kSave) {
+        crow[static_cast<size_t>(t) * H] = from_f32<T>(c);
+        T* gt = grow + static_cast<size_t>(t) * G;
+        gt[0] = from_f32<T>(ig);
+        gt[H] = from_f32<T>(fg);
+        gt[2 * H] = from_f32<T>(gg);
+        gt[3 * H] = from_f32<T>(og);
+      }
+    }
+    __syncthreads();
+  };
+  for (int s0 = 0; s0 < N; s0 += kAhead) {
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j)
+      if (s0 + j < N) step(s0 + j, xq[j]);
+  }
+}
+
+// The wide kernel (H > kMaxRegH): W_hh in dynamic shared memory, thread j
+// owns gate column j of a kRows-row tile.
 template <typename T, bool kSave>
 __global__ void __launch_bounds__(512)
-bilstm_fwd_kernel(const T* __restrict__ xg_f,
-                  const T* __restrict__ xg_b,
-                  const T* __restrict__ w_f,
-                  const T* __restrict__ w_b,
-                  T* __restrict__ ys_f,
-                  T* __restrict__ ys_b,
-                  T* __restrict__ cs_f,
-                  T* __restrict__ cs_b,
-                  T* __restrict__ gs_f,
-                  T* __restrict__ gs_b,
-                  int B, int N, int H, int rev) {
+bilstm_fwd_wide_kernel(const T* __restrict__ xg_f,
+                       const T* __restrict__ xg_b,
+                       const T* __restrict__ w_f,
+                       const T* __restrict__ w_b,
+                       T* __restrict__ ys_f,
+                       T* __restrict__ ys_b,
+                       T* __restrict__ cs_f,
+                       T* __restrict__ cs_b,
+                       T* __restrict__ gs_f,
+                       T* __restrict__ gs_b,
+                       int B, int N, int H, int rev) {
   extern __shared__ float smem[];
   const int G = 4 * H;
   float* w_s = smem;            // [H, 4H]  this direction's W_hh
@@ -204,16 +425,30 @@ bilstm_fwd_kernel(const T* __restrict__ xg_f,
   }
 }
 
-// Dynamic shared memory one block needs at hidden size H, in bytes (the
-// wrapper's bilstm_smem_bytes mirrors it to refuse an H that cannot fit).
+// Dynamic shared memory one block of the wide kernel needs at hidden size
+// H, in bytes (the wrapper's bilstm_smem_bytes mirrors it to refuse an H
+// that cannot fit).
 size_t smem_bytes(int H) {
   const size_t G = 4 * static_cast<size_t>(H);
   return (static_cast<size_t>(H) * G + kRows * G +
           kRows * static_cast<size_t>(H)) * sizeof(float);
 }
 
-// Dynamic shared memory each variant is already allowed on each device, so
-// the attribute is set once per device (and again only for a larger H).
+// The unit kernel's static shared memory (the h tile, double buffered) and
+// threads: four lanes for each of H units, padded to whole warps (the
+// wrapper's unit_smem_bytes and unit_threads mirror them).
+constexpr size_t unit_smem_bytes(int R) {
+  return 2 * static_cast<size_t>(kMaxRegH) * R * sizeof(float);
+}
+constexpr int unit_threads(int H) { return kLanes * ((H + 7) / 8 * 8); }
+
+bool valid_unit_plan(int H, int R) {
+  return H > 0 && H <= kMaxRegH && (R == 1 || R == 2 || R == 4);
+}
+
+// Dynamic shared memory each wide variant is already allowed on each
+// device, so the attribute is set once per device (and again only for a
+// larger H).
 constexpr int kMaxDevices = 64;
 template <typename T, bool kSave>
 std::atomic<int> g_smem_allowed[kMaxDevices];
@@ -226,7 +461,7 @@ cudaError_t allow_smem(int smem) {
   if (device < kMaxDevices &&
       g_smem_allowed<T, kSave>[device].load() >= smem)
     return cudaSuccess;
-  err = cudaFuncSetAttribute(bilstm_fwd_kernel<T, kSave>,
+  err = cudaFuncSetAttribute(bilstm_fwd_wide_kernel<T, kSave>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && device < kMaxDevices)
     g_smem_allowed<T, kSave>[device].store(smem);
@@ -234,23 +469,62 @@ cudaError_t allow_smem(int smem) {
 }
 
 template <typename T, bool kSave>
+const void* unit_kernel(int R) {
+  if (R == 1)
+    return reinterpret_cast<const void*>(bilstm_fwd_kernel<T, kSave, 1>);
+  if (R == 2)
+    return reinterpret_cast<const void*>(bilstm_fwd_kernel<T, kSave, 2>);
+  return reinterpret_cast<const void*>(bilstm_fwd_kernel<T, kSave, 4>);
+}
+
+// R: the unit kernel's batch tile (1, 2 or 4); wide != 0 launches the wide
+// kernel instead, whose tile is kRows.
+template <typename T, bool kSave>
 int launch(const void* xg_f, const void* xg_b, const void* w_f,
            const void* w_b, void* ys_f, void* ys_b, void* cs_f, void* cs_b,
-           void* gs_f, void* gs_b, int B, int N, int H, int dirs, int rev,
-           void* stream) {
-  if (B <= 0 || N <= 0 || H <= 0 || 4 * H > 512)
+           void* gs_f, void* gs_b, int B, int N, int H, int R, int wide,
+           int dirs, int rev, void* stream) {
+  if (B <= 0 || N <= 0 || H <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(H);
-  const cudaError_t err = allow_smem<T, kSave>(static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + kRows - 1) / kRows, dirs);
   auto in = [](const void* p) { return static_cast<const T*>(p); };
   auto out = [](void* p) { return static_cast<T*>(p); };
-  bilstm_fwd_kernel<T, kSave>
-      <<<grid, 4 * H, smem, static_cast<cudaStream_t>(stream)>>>(
-          in(xg_f), in(xg_b), in(w_f), in(w_b), out(ys_f), out(ys_b),
-          out(cs_f), out(cs_b), out(gs_f), out(gs_b), B, N, H, rev);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide) {
+    if (4 * H > 512 || R != kRows)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = smem_bytes(H);
+    const cudaError_t err = allow_smem<T, kSave>(static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((B + kRows - 1) / kRows, dirs);
+    bilstm_fwd_wide_kernel<T, kSave><<<grid, 4 * H, smem, st>>>(
+        in(xg_f), in(xg_b), in(w_f), in(w_b), out(ys_f), out(ys_b),
+        out(cs_f), out(cs_b), out(gs_f), out(gs_b), B, N, H, rev);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (!valid_unit_plan(H, R)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((B + R - 1) / R, dirs);
+  const int threads = unit_threads(H);
+  if (R == 1)
+    bilstm_fwd_kernel<T, kSave, 1><<<grid, threads, 0, st>>>(
+        in(xg_f), in(xg_b), in(w_f), in(w_b), out(ys_f), out(ys_b),
+        out(cs_f), out(cs_b), out(gs_f), out(gs_b), B, N, H, rev);
+  else if (R == 2)
+    bilstm_fwd_kernel<T, kSave, 2><<<grid, threads, 0, st>>>(
+        in(xg_f), in(xg_b), in(w_f), in(w_b), out(ys_f), out(ys_b),
+        out(cs_f), out(cs_b), out(gs_f), out(gs_b), B, N, H, rev);
+  else
+    bilstm_fwd_kernel<T, kSave, 4><<<grid, threads, 0, st>>>(
+        in(xg_f), in(xg_b), in(w_f), in(w_b), out(ys_f), out(ys_b),
+        out(cs_f), out(cs_b), out(gs_f), out(gs_b), B, N, H, rev);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kSave>
+int unit_blocks_per_sm(int H, int R) {
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, unit_kernel<T, kSave>(R), unit_threads(H), 0);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 }  // namespace
@@ -259,45 +533,72 @@ extern "C" {
 
 // Launch on `stream` (a cudaStream_t) of the calling thread's current
 // device. All tensors are contiguous, in the stream type float (_f32) or
-// bfloat16 (_bf16): xg_* [B, N, 4H], w_* [H, 4H], ys_* [B, N, H]. Returns a
-// cudaError_t code; 0 means the launch was accepted.
+// bfloat16 (_bf16): xg_* [B, N, 4H], w_* [H, 4H], ys_* [B, N, H]. R is the
+// unit kernel's batch tile (1, 2 or 4, H <= 64); wide != 0 launches the
+// wide kernel (R must be 4). Returns a cudaError_t code; 0 means the launch
+// was accepted.
 #define BILSTM_FWD_ENTRIES(SFX, TYPE)                                         \
   int bilstm_fwd_##SFX(const void* xg_f, const void* xg_b, const void* w_f,  \
                        const void* w_b, void* ys_f, void* ys_b, int B,       \
-                       int N, int H, void* stream) {                         \
+                       int N, int H, int R, int wide, void* stream) {        \
     return launch<TYPE, false>(xg_f, xg_b, w_f, w_b, ys_f, ys_b, nullptr,    \
-                               nullptr, nullptr, nullptr, B, N, H, 2, 0,     \
-                               stream);                                      \
+                               nullptr, nullptr, nullptr, B, N, H, R, wide,  \
+                               2, 0, stream);                                \
   }                                                                          \
   /* as bilstm_fwd, and also the residuals of every step: cs_* [B, N, H]     \
      (c_t) and gs_* [B, N, 4H] (activated i, f, g, o) */                     \
   int bilstm_fwd_train_##SFX(const void* xg_f, const void* xg_b,             \
                              const void* w_f, const void* w_b, void* ys_f,   \
                              void* ys_b, void* cs_f, void* cs_b, void* gs_f, \
-                             void* gs_b, int B, int N, int H,                \
-                             void* stream) {                                 \
+                             void* gs_b, int B, int N, int H, int R,         \
+                             int wide, void* stream) {                       \
     return launch<TYPE, true>(xg_f, xg_b, w_f, w_b, ys_f, ys_b, cs_f, cs_b,  \
-                              gs_f, gs_b, B, N, H, 2, 0, stream);            \
+                              gs_f, gs_b, B, N, H, R, wide, 2, 0, stream);   \
   }                                                                          \
   /* one direction of an LSTM: a grid of one direction over xg [B, N, 4H],   \
      w [H, 4H] into ys [B, N, H]; reverse != 0 walks t = N-1 .. 0 */         \
   int lstm_fwd_##SFX(const void* xg, const void* w, void* ys, int B, int N,  \
-                     int H, int reverse, void* stream) {                     \
+                     int H, int R, int wide, int reverse, void* stream) {    \
     return launch<TYPE, false>(xg, xg, w, w, ys, ys, nullptr, nullptr,       \
-                               nullptr, nullptr, B, N, H, 1, reverse,        \
-                               stream);                                      \
+                               nullptr, nullptr, B, N, H, R, wide, 1,        \
+                               reverse, stream);                             \
   }                                                                          \
   /* as lstm_fwd, and also cs [B, N, H] and gs [B, N, 4H] */                 \
   int lstm_fwd_train_##SFX(const void* xg, const void* w, void* ys,          \
-                           void* cs, void* gs, int B, int N, int H,          \
-                           int reverse, void* stream) {                      \
+                           void* cs, void* gs, int B, int N, int H, int R,   \
+                           int wide, int reverse, void* stream) {            \
     return launch<TYPE, true>(xg, xg, w, w, ys, ys, cs, cs, gs, gs, B, N, H, \
-                              1, reverse, stream);                           \
+                              R, wide, 1, reverse, stream);                  \
   }
 
 BILSTM_FWD_ENTRIES(f32, float)
 BILSTM_FWD_ENTRIES(bf16, __nv_bfloat16)
 #undef BILSTM_FWD_ENTRIES
+
+// How many blocks of the unit kernel (bf16: 0 or 1, save: 0 or 1) at hidden
+// size H and tile R one SM of the current device runs at once; a negative
+// cudaError_t code on failure.
+int bilstm_fwd_unit_blocks_per_sm(int bf16, int save, int H, int R) {
+  if (!valid_unit_plan(H, R)) return -static_cast<int>(cudaErrorInvalidValue);
+  if (bf16)
+    return save ? unit_blocks_per_sm<__nv_bfloat16, true>(H, R)
+                : unit_blocks_per_sm<__nv_bfloat16, false>(H, R);
+  return save ? unit_blocks_per_sm<float, true>(H, R)
+              : unit_blocks_per_sm<float, false>(H, R);
+}
+
+// The unit kernel's layout at hidden size H and tile R, for the wrapper's
+// mirror: what 0 = static shared memory in bytes, 1 = threads a block, 2 =
+// W_hh values a lane holds in registers; -1 for a plan it does not take.
+int bilstm_fwd_unit_layout(int what, int H, int R) {
+  if (!valid_unit_plan(H, R)) return -1;
+  switch (what) {
+    case 0: return static_cast<int>(unit_smem_bytes(R));
+    case 1: return unit_threads(H);
+    case 2: return 4 * kKPerLane;
+    default: return -1;
+  }
+}
 
 const char* bilstm_fwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

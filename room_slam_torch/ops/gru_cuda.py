@@ -59,7 +59,12 @@ it). The same two sources launch it with a grid of one direction:
 ``gru_fwd``, ``gru_fwd_train`` and ``gru_bwd``, with ``GRUFunction`` joining
 them. Their plain versions are ``ops/rnn.py`` ``gru_recurrence``,
 ``gru_fwd_train_plain`` (the same loop with ``residuals``) and
-``gru_bwd_plain``.
+``gru_bwd_plain``. At H <= ``UNIT_MAX_H`` (the legacy model's H=64) the
+one-direction forward runs the unit kernel of ``csrc/bigru_fwd.cu``
+instead of the cluster kernel: four lanes of a warp own one hidden unit of
+a tile of 1, 2 or 4 rows, W_hh in their registers, one block barrier a
+step; ``gru_fwd_kernel_route`` chooses, ``rnn_cuda.unit_plan`` sizes the
+tile, and ``last_launch`` records both.
 """
 
 from __future__ import annotations
@@ -71,9 +76,11 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from room_slam_torch.ops.rnn import gru_recurrence, input_gates
-from room_slam_torch.ops.rnn_cuda import (MAX_SMEM_BYTES, _device_type,
-                                          _work_dtype, launch, prev_steps,
-                                          set_error_string)
+from room_slam_torch.ops.rnn_cuda import (MAX_SMEM_BYTES, UNIT_MAX_H,
+                                          _device_type, _work_dtype,
+                                          bind_unit_queries, card_unit_plans,
+                                          launch, prev_steps,
+                                          set_error_string, unit_launch_rows)
 
 CLUSTER_SIZES = (1, 2, 4, 8)
 ROWS_PER_THREAD = 4       # kRowsPerThread in csrc/bigru_*.cu
@@ -201,6 +208,15 @@ def bigru_plan(kind: str, batch: int, hidden: int,
             f"exchange tile must fit {MAX_SMEM_BYTES} bytes of shared memory "
             "per block)")
     return plans[0]
+
+
+def gru_fwd_kernel_route(hidden: int, dirs: int) -> str:
+    """The forward kernel of ``csrc/bigru_fwd.cu`` that takes a launch of
+    ``dirs`` directions at hidden size ``hidden`` (whatever the batch or
+    stream dtype): "unit" for one direction at H <= ``UNIT_MAX_H``, else
+    "cluster" (``bigru_plan`` then picks its cluster and tile, or raises
+    for an H no cluster size takes)."""
+    return "unit" if dirs == 1 and 0 < hidden <= UNIT_MAX_H else "cluster"
 
 
 # ---------------------------------------------------------------------------
@@ -573,7 +589,9 @@ def _library(name: str):
         if fwd:
             fns = {f"bigru_fwd_{sfx}": (8, 5), f"gru_fwd_{sfx}": (4, 6),
                    f"bigru_fwd_train_{sfx}": (12, 5),
-                   f"gru_fwd_train_{sfx}": (6, 6)}
+                   f"gru_fwd_train_{sfx}": (6, 6),
+                   f"gru_fwd_unit_{sfx}": (4, 5),
+                   f"gru_fwd_unit_train_{sfx}": (6, 5)}
         else:
             fns = {f"bigru_bwd_{sfx}": (14, 5),
                    f"bigru_bwd_split_{sfx}": (14, 5),
@@ -587,7 +605,9 @@ def _library(name: str):
     # the bf16 flag, the kSave flag (fwd) or kind (bwd), then H, C, R
     clusters.argtypes = [i] * 5
     clusters.restype = ctypes.c_int
-    if not fwd:
+    if fwd:
+        bind_unit_queries(lib, "gru_fwd", gates=3)
+    else:
         lib.bigru_bwd_smem_bytes.argtypes = [i] * 4
         lib.bigru_bwd_smem_bytes.restype = ctypes.c_int
         _check_mirror(lib)
@@ -669,7 +689,7 @@ def _plan_launch(kind: str, fn, B: int, H: int, dev: torch.device, T,
             if resident(cluster, rows) <= 0:
                 raise ValueError(f"bigru_{kind}: the card runs no cluster "
                                  f"of plan {cluster}x{rows} at once")
-        _PLANS[key] = {"cluster": cluster, "rows": rows,
+        _PLANS[key] = {"kernel": "cluster", "cluster": cluster, "rows": rows,
                        "clusters": dirs * -(-B // rows),
                        "resident": resident(cluster, rows)}
     fn.last_launch = _PLANS[key]
@@ -823,7 +843,16 @@ def bigru_bwd_fused_cuda(x, wih_f, whh_f, wih_b, whh_b, gs_f, hn_f, ys_f,
 bigru_bwd_fused_cuda.launches = 0
 
 
-def _gru_fwd_launch(fn, save: bool, xg, w, b, reverse: bool):
+def card_gru_unit_plans(B: int, H: int, dev: torch.device,
+                        dtype: torch.dtype, save: bool) -> List[int]:
+    """``rnn_cuda.unit_plans`` of the one-direction GRU unit kernel on the
+    card ``dev`` (its own counts), fastest first; the first is the tile a
+    launch takes."""
+    return card_unit_plans(_library("bigru_fwd"), "gru_fwd", B, H, dev,
+                           dtype, save, 1)
+
+
+def _gru_fwd_launch(fn, save: bool, xg, w, b, reverse: bool, plan):
     _check_shapes(xg, xg, w, b, w, b)
     name = "gru_fwd_train" if save else "gru_fwd"
     dev = _check_cuda(name, (xg,), (w,), (b,))
@@ -834,32 +863,51 @@ def _gru_fwd_launch(fn, save: bool, xg, w, b, reverse: bool):
             for d in ((H, G, H) if save else (H,))]
     if B == 0 or N == 0:
         return tuple(outs)
-    lib, cluster, rows = _plan_launch("fwd", fn, B, H, dev, T, save, 1)
+    kernel = gru_fwd_kernel_route(H, 1) if plan is None else plan[0]
     w = w.to(T).contiguous()
-    launch(lib, f"{name}_{_SUFFIX[T]}", dev,
-           *(t.data_ptr() for t in (xg, w, b, *outs)), B, N, H, cluster, rows,
-           int(reverse))
+    ptrs = [t.data_ptr() for t in (xg, w, b, *outs)]
+    if kernel == "unit":
+        if H > UNIT_MAX_H:
+            raise ValueError(f"{name}: the unit kernel takes H <= "
+                             f"{UNIT_MAX_H}, not {H}")
+        lib = _library("bigru_fwd")
+        rows = unit_launch_rows(fn, lib, "gru_fwd", B, H, dev, T, save, 1,
+                                None if plan is None else plan[1])
+        launch(lib, f"gru_fwd_unit{name[len('gru_fwd'):]}_{_SUFFIX[T]}", dev,
+               *ptrs, B, N, H, rows, int(reverse))
+    elif kernel == "cluster":
+        lib, cluster, rows = _plan_launch("fwd", fn, B, H, dev, T, save, 1,
+                                          None if plan is None else plan[1:])
+        launch(lib, f"{name}_{_SUFFIX[T]}", dev, *ptrs, B, N, H, cluster,
+               rows, int(reverse))
+    else:
+        raise ValueError(f"{name}: plan must be ('unit', rows) or "
+                         f"('cluster', cluster, rows), got {plan}")
     fn.launches += 1
     return tuple(outs)
 
 
-def gru_fwd_cuda(xg, w, b, reverse: bool = False) -> torch.Tensor:
+def gru_fwd_cuda(xg, w, b, reverse: bool = False,
+                 plan: Optional[tuple] = None) -> torch.Tensor:
     """Launch the light kernel of ``csrc/bigru_fwd.cu`` with a grid of one
-    direction on the current stream: ``ys``. Counts each launch in
+    direction on the current stream: ``ys``. ``plan=("unit", rows)`` or
+    ``("cluster", cluster, rows)`` overrides the route and the planner
+    (raises if it does not fit). Counts each launch in
     ``gru_fwd_cuda.launches``. Its output carries no autograd history:
     ``gru_recurrence_kernel`` sends inputs that need a gradient to
     ``GRUFunction`` instead."""
-    return _gru_fwd_launch(gru_fwd_cuda, False, xg, w, b, reverse)[0]
+    return _gru_fwd_launch(gru_fwd_cuda, False, xg, w, b, reverse, plan)[0]
 
 
 gru_fwd_cuda.launches = 0
 
 
-def gru_fwd_train_cuda(xg, w, b, reverse: bool = False):
+def gru_fwd_train_cuda(xg, w, b, reverse: bool = False,
+                       plan: Optional[tuple] = None):
     """Launch the residual variant of ``csrc/bigru_fwd.cu`` with a grid of
-    one direction: ``(ys, gates, hn)``. Counts each launch in
-    ``gru_fwd_train_cuda.launches``."""
-    return _gru_fwd_launch(gru_fwd_train_cuda, True, xg, w, b, reverse)
+    one direction: ``(ys, gates, hn)``; ``plan`` as ``gru_fwd_cuda``.
+    Counts each launch in ``gru_fwd_train_cuda.launches``."""
+    return _gru_fwd_launch(gru_fwd_train_cuda, True, xg, w, b, reverse, plan)
 
 
 gru_fwd_train_cuda.launches = 0

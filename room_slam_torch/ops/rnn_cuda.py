@@ -25,6 +25,15 @@ PyTorch version beside it:
 - ``bilstm_bwd`` (``csrc/bilstm_bwd.cu``): reverse-time BPTT from those
   residuals to the gate cotangent ``dg [B, N, 4H]`` per direction.
 
+The forward source holds two kernels. At H <= ``UNIT_MAX_H`` (64, the
+flagship's and the legacy LSTM's width) the unit kernel runs: four lanes
+of a warp own one hidden unit of a tile of 1, 2 or 4 batch rows, W_hh in
+their registers, one block barrier a step; ``unit_plan`` sizes the tile to
+the batch and the card. Above it the wide kernel (the first design, W_hh in
+shared memory, one block of 4H threads per 4-row tile) runs, up to H=118
+in float32. ``lstm_fwd_kernel_route`` chooses, and each launch records its
+kernel and tile in the wrapper's ``last_launch``.
+
 With grad enabled and an input that requires it, ``bilstm_recurrence``
 goes through ``BiLSTMFunction`` (training forward, then BPTT and
 ``dW_hh = sum_t h_{t-1}^T dg_t`` as one matmul); otherwise it runs the
@@ -44,7 +53,7 @@ joining them. Their plain versions are ``ops/rnn.py``
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,15 +63,113 @@ from room_slam_torch.ops.rnn import lstm_recurrence
 
 # Largest dynamic shared memory one block may use on an H100 (227 KB).
 MAX_SMEM_BYTES = 232448
-_ROWS_PER_BLOCK = 4   # kRows in csrc/bilstm_fwd.cu and csrc/bilstm_bwd.cu
+_ROWS_PER_BLOCK = 4   # kRows in csrc/bilstm_bwd.cu (and the wide forward)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+# The unit kernels of csrc/bilstm_fwd.cu and csrc/bigru_fwd.cu: kLanes,
+# kMaxRegH / kMaxUnitH and the templated batch tiles
+UNIT_LANES = 4
+UNIT_MAX_H = 64
+UNIT_ROWS = (1, 2, 4)
+# A step's fixed part (block barrier, lane reduction, gate math) in rows'
+# worth of a block's FMA issue, for unit_plans' cost model
+UNIT_STEP_FIXED = 2
 
 
 def bilstm_smem_bytes(hidden: int) -> int:
-    """Shared memory one block of the forward kernels needs (mirrors
+    """Shared memory one block of the wide forward kernel needs (mirrors
     ``smem_bytes`` in ``csrc/bilstm_fwd.cu``)."""
     G = 4 * hidden
     return (hidden * G + _ROWS_PER_BLOCK * G + _ROWS_PER_BLOCK * hidden) * 4
+
+
+def unit_smem_bytes(rows: int) -> int:
+    """Static shared memory of a unit kernel's block: the h tile [64][rows]
+    in float32, double buffered (``unit_smem_bytes`` of the sources)."""
+    return 2 * UNIT_MAX_H * rows * 4
+
+
+def unit_threads(hidden: int) -> int:
+    """Threads of a unit kernel's block: ``UNIT_LANES`` for each hidden
+    unit, the units padded to whole warps."""
+    return UNIT_LANES * (-(-hidden // 8) * 8)
+
+
+def unit_weight_regs(gates: int) -> int:
+    """W_hh values one lane of a unit kernel holds in registers: its
+    quarter of the 64-deep k sum for each of ``gates`` gate columns."""
+    return gates * UNIT_MAX_H // UNIT_LANES
+
+
+def check_unit_mirror(layout, gates: int, name: str) -> None:
+    """Hold ``unit_smem_bytes``, ``unit_threads`` and ``unit_weight_regs``
+    to a built source's ``<name>_unit_layout(what, H, R)`` over every H and
+    tile it takes (and -1 for one it does not); raises on the first
+    difference."""
+    for hidden in range(1, UNIT_MAX_H + 2):
+        for rows in (*UNIT_ROWS, 3):
+            fits = hidden <= UNIT_MAX_H and rows in UNIT_ROWS
+            want = ((unit_smem_bytes(rows), unit_threads(hidden),
+                     unit_weight_regs(gates)) if fits else (-1, -1, -1))
+            got = tuple(layout(what, hidden, rows) for what in range(3))
+            if got != want:
+                raise RuntimeError(
+                    f"{name}: the wrapper's unit-kernel mirror gives {want} "
+                    f"(shared bytes, threads, W_hh registers) at H={hidden}, "
+                    f"R={rows}, the built source {got}: update UNIT_* to "
+                    "match the source")
+
+
+def unit_plans(batch: int, dirs: int, sms: int,
+               per_sm: Callable[[int], int]) -> List[int]:
+    """Every batch tile of ``UNIT_ROWS`` a unit kernel takes at this batch
+    over ``dirs`` directions, fastest first.
+
+    A block's step costs its rows' FMA issue (``rows``) plus a fixed part
+    (``UNIT_STEP_FIXED``: the barrier, the lane reduction and the gate
+    math). ``load = ceil(blocks / sms)`` blocks share an SM and their FMA
+    issue adds up; ``per_sm(rows)`` of them (the card's own count,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) run at once and
+    overlap their fixed parts. Ties go to the smaller tile."""
+    keys = []
+    for rows in UNIT_ROWS:
+        at_once = per_sm(rows)
+        if at_once <= 0:
+            continue
+        load = -(-dirs * -(-batch // rows) // sms)
+        keys.append((load * rows + UNIT_STEP_FIXED * -(-load // at_once),
+                     rows))
+    return [rows for _, rows in sorted(keys)]
+
+
+def unit_plan(batch: int, dirs: int, sms: int,
+              per_sm: Callable[[int], int]) -> int:
+    """The batch tile a unit kernel launch takes: the first of
+    ``unit_plans``. Raises if the card runs no block of any tile."""
+    plans = unit_plans(batch, dirs, sms, per_sm)
+    if not plans:
+        raise ValueError("unit kernel: the card runs no block of any tile "
+                         f"of {UNIT_ROWS} rows")
+    return plans[0]
+
+
+def lstm_fwd_kernel_route(hidden: int) -> str:
+    """The forward kernel of ``csrc/bilstm_fwd.cu`` that takes hidden size
+    ``hidden`` (whatever the batch, stream dtype or direction count):
+    "unit" up to ``UNIT_MAX_H``, else "wide" where its W_hh fits one
+    block's shared memory. Raises for an H neither takes."""
+    if hidden <= 0:
+        raise ValueError(f"bilstm_fwd: H must be positive, got {hidden}")
+    if hidden <= UNIT_MAX_H:
+        return "unit"
+    if 4 * hidden <= 512 and bilstm_smem_bytes(hidden) <= MAX_SMEM_BYTES:
+        return "wide"
+    raise ValueError(
+        f"bilstm_fwd: no kernel takes H={hidden}: the unit kernel holds "
+        f"H <= {UNIT_MAX_H}, and the wide kernel needs "
+        f"{bilstm_smem_bytes(hidden)} bytes of shared memory per block, over "
+        f"the {MAX_SMEM_BYTES} a block can have (larger H needs W_hh split "
+        "across a thread-block cluster)")
 
 
 def bilstm_bwd_smem_bytes(hidden: int) -> int:
@@ -332,10 +439,11 @@ def _library(name: str):
     if getattr(lib, "_argtypes_set", False):
         return lib
     p, i = ctypes.c_void_p, ctypes.c_int
-    # pointers, then B, N, H, and the reverse flag of one direction
+    # pointers, then B, N, H (the forward: and the tile R and the wide
+    # flag), and the reverse flag of one direction
     if name == "bilstm_fwd":
-        fns = {"bilstm_fwd": (6, 3), "bilstm_fwd_train": (10, 3),
-               "lstm_fwd": (3, 4), "lstm_fwd_train": (5, 4)}
+        fns = {"bilstm_fwd": (6, 5), "bilstm_fwd_train": (10, 5),
+               "lstm_fwd": (3, 6), "lstm_fwd_train": (5, 6)}
     else:
         fns = {"bilstm_bwd": (10, 3), "lstm_bwd": (5, 4)}
     for fn_name, (n_ptr, n_int) in fns.items():
@@ -343,8 +451,80 @@ def _library(name: str):
             fn = getattr(lib, f"{fn_name}_{sfx}")
             fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
             fn.restype = ctypes.c_int
+    if name == "bilstm_fwd":
+        bind_unit_queries(lib, name, gates=4)
     set_error_string(lib, name)
     return lib
+
+
+def bind_unit_queries(lib, name: str, gates: int) -> None:
+    """Bind ``<name>_unit_blocks_per_sm`` (the bf16 flag, the kSave flag,
+    H, R) and ``<name>_unit_layout`` (what, H, R) of a forward source and
+    hold the wrapper's unit-kernel mirror to the latter."""
+    i = ctypes.c_int
+    per_sm = getattr(lib, f"{name}_unit_blocks_per_sm")
+    per_sm.argtypes = [i] * 4
+    per_sm.restype = i
+    layout = getattr(lib, f"{name}_unit_layout")
+    layout.argtypes = [i] * 3
+    layout.restype = i
+    check_unit_mirror(layout, gates, name)
+
+
+_UNIT_PLANS: dict = {}   # unit-kernel launch plans by source, shape, dtype
+
+
+def _unit_counts(lib, name: str, H: int, dev: torch.device, T, save: bool):
+    """The card's SM count and ``per_sm(rows)``: how many blocks of the
+    unit kernel of source ``name`` at this H and tile one SM runs at
+    once."""
+    query = getattr(lib, f"{name}_unit_blocks_per_sm")
+
+    def per_sm(rows):
+        with torch.cuda.device(dev):
+            return query(int(T == torch.bfloat16), int(save), H, rows)
+
+    return torch.cuda.get_device_properties(dev).multi_processor_count, per_sm
+
+
+def card_unit_plans(lib, name: str, B: int, H: int, dev: torch.device,
+                    T: torch.dtype, save: bool, dirs: int) -> List[int]:
+    """``unit_plans`` of the unit kernel of source ``name`` on the card
+    ``dev`` (its own counts), fastest first; the first is the tile a launch
+    takes."""
+    return unit_plans(B, dirs, *_unit_counts(lib, name, H, dev, T, save))
+
+
+def card_lstm_unit_plans(B: int, H: int, dev: torch.device,
+                         dtype: torch.dtype, save: bool,
+                         dirs: int) -> List[int]:
+    """``card_unit_plans`` of the LSTM unit kernel (``dirs`` directions):
+    the tiles the card runs, fastest first."""
+    return card_unit_plans(_library("bilstm_fwd"), "bilstm_fwd", B, H, dev,
+                           dtype, save, dirs)
+
+
+def unit_launch_rows(fn, lib, name: str, B: int, H: int, dev: torch.device,
+                     T, save: bool, dirs: int,
+                     rows: Optional[int] = None) -> int:
+    """The batch tile of a unit-kernel launch: ``unit_plan``'s pick with
+    the card's own counts, or the caller's ``rows``, refused unless it is a
+    tile of ``UNIT_ROWS`` the card runs. Recorded with the grid's block
+    count and the card's resident count in ``fn.last_launch``."""
+    key = (name, B, H, str(dev), T, save, dirs, rows)
+    if key not in _UNIT_PLANS:
+        sms, per_sm = _unit_counts(lib, name, H, dev, T, save)
+        if rows is None:
+            rows = unit_plan(B, dirs, sms, per_sm)
+        elif rows not in UNIT_ROWS or per_sm(rows) <= 0:
+            raise ValueError(f"{name}: the unit kernel takes tiles of "
+                             f"{UNIT_ROWS} rows that the card runs, not "
+                             f"{rows}")
+        _UNIT_PLANS[key] = {"kernel": "unit", "cluster": 1, "rows": rows,
+                            "clusters": dirs * -(-B // rows),
+                            "resident": sms * per_sm(rows)}
+    fn.last_launch = _UNIT_PLANS[key]
+    return fn.last_launch["rows"]
 
 
 def set_error_string(lib, name: str) -> None:
@@ -395,44 +575,85 @@ def launch(lib, fn_name: str, dev: torch.device, *args) -> None:
                            f"{lib.error_string(rc).decode()}")
 
 
-def _bilstm_fwd_launch(fn, save: bool, xg_f, xg_b, w_f, w_b):
+def _fwd_plan(fn, name: str, B: int, H: int, dev, T, save: bool,
+              dirs: int, plan):
+    """The kernel library and ``(rows, wide)`` of a forward launch of
+    ``csrc/bilstm_fwd.cu``: ``lstm_fwd_kernel_route``'s kernel and, for the
+    unit kernel, ``unit_plan``'s tile; or the caller's ``plan`` ("unit",
+    rows) or ("wide", 4). Recorded in ``fn.last_launch``."""
+    kernel = lstm_fwd_kernel_route(H) if plan is None else plan[0]
+    lib = _library("bilstm_fwd")
+    if kernel == "unit":
+        if H > UNIT_MAX_H:
+            raise ValueError(f"{name}: the unit kernel takes H <= "
+                             f"{UNIT_MAX_H}, not {H}")
+        return lib, unit_launch_rows(fn, lib, "bilstm_fwd", B, H, dev, T,
+                                     save, dirs,
+                                     None if plan is None else plan[1]), 0
+    if kernel != "wide" or (plan is not None
+                            and plan[1] != _ROWS_PER_BLOCK):
+        raise ValueError(f"{name}: plan must be ('unit', rows) or ('wide', "
+                         f"{_ROWS_PER_BLOCK}), got {plan}")
+    fn.last_launch = {"kernel": "wide", "cluster": 1,
+                      "rows": _ROWS_PER_BLOCK,
+                      "clusters": dirs * -(-B // _ROWS_PER_BLOCK),
+                      "resident": None}
+    return lib, _ROWS_PER_BLOCK, 1
+
+
+def _fwd_smem(H: int, plan) -> int:
+    """Shared memory of the forward kernel ``plan`` (or the route's) picks
+    at H, for ``_check_cuda``; the unit kernel's largest tile."""
+    kernel = lstm_fwd_kernel_route(H) if plan is None else plan[0]
+    return (unit_smem_bytes(max(UNIT_ROWS)) if kernel == "unit"
+            else bilstm_smem_bytes(H))
+
+
+def _bilstm_fwd_launch(fn, save: bool, xg_f, xg_b, w_f, w_b, plan):
     _check_shapes(xg_f, xg_b, w_f, w_b)
     name = "bilstm_fwd_train" if save else "bilstm_fwd"
     B, N, G = xg_f.shape
     H = G // 4
-    dev, T = _check_cuda(name, (xg_f, xg_b), (w_f, w_b),
-                         bilstm_smem_bytes(H))
+    dev, T = _check_cuda(name, (xg_f, xg_b), (w_f, w_b), _fwd_smem(H, plan))
     outs = [torch.empty(B, N, d, dtype=T, device=dev)
             for d in ((H, H, H, H, G, G) if save else (H, H))]
     if B == 0 or N == 0:
         return tuple(outs)
+    lib, rows, wide = _fwd_plan(fn, name, B, H, dev, T, save, 2, plan)
     w_f, w_b = w_f.to(T), w_b.to(T)
-    launch(_library("bilstm_fwd"), f"{name}_{_SUFFIX[T]}", dev,
-           *(t.data_ptr() for t in (xg_f, xg_b, w_f, w_b, *outs)), B, N, H)
+    launch(lib, f"{name}_{_SUFFIX[T]}", dev,
+           *(t.data_ptr() for t in (xg_f, xg_b, w_f, w_b, *outs)), B, N, H,
+           rows, wide)
     fn.launches += 1
     return tuple(outs)
 
 
 def bilstm_fwd_cuda(xg_f: torch.Tensor, xg_b: torch.Tensor,
-                    w_f: torch.Tensor, w_b: torch.Tensor
+                    w_f: torch.Tensor, w_b: torch.Tensor,
+                    plan: Optional[Tuple[str, int]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the light kernel of ``csrc/bilstm_fwd.cu`` on the current
-    stream. Counts each launch in ``bilstm_fwd_cuda.launches``. Its outputs
-    carry no autograd history: ``bilstm_recurrence`` sends inputs that need
-    a gradient to ``BiLSTMFunction`` instead."""
-    return _bilstm_fwd_launch(bilstm_fwd_cuda, False, xg_f, xg_b, w_f, w_b)
+    stream. ``plan=("unit", rows)`` or ``("wide", 4)`` overrides the route
+    and the planner (raises if it does not fit). Counts each launch in
+    ``bilstm_fwd_cuda.launches``. Its outputs carry no autograd history:
+    ``bilstm_recurrence`` sends inputs that need a gradient to
+    ``BiLSTMFunction`` instead."""
+    return _bilstm_fwd_launch(bilstm_fwd_cuda, False, xg_f, xg_b, w_f, w_b,
+                              plan)
 
 
 bilstm_fwd_cuda.launches = 0
 
 
 def bilstm_fwd_train_cuda(xg_f: torch.Tensor, xg_b: torch.Tensor,
-                          w_f: torch.Tensor, w_b: torch.Tensor):
+                          w_f: torch.Tensor, w_b: torch.Tensor,
+                          plan: Optional[Tuple[str, int]] = None):
     """Launch the residual variant of ``csrc/bilstm_fwd.cu``: returns
-    ``(ys_f, ys_b, cs_f, cs_b, gs_f, gs_b)``. Counts each launch in
+    ``(ys_f, ys_b, cs_f, cs_b, gs_f, gs_b)``; ``plan`` as
+    ``bilstm_fwd_cuda``. Counts each launch in
     ``bilstm_fwd_train_cuda.launches``."""
     return _bilstm_fwd_launch(bilstm_fwd_train_cuda, True, xg_f, xg_b, w_f,
-                              w_b)
+                              w_b, plan)
 
 
 bilstm_fwd_train_cuda.launches = 0
@@ -468,43 +689,45 @@ def bilstm_bwd_cuda(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b
 bilstm_bwd_cuda.launches = 0
 
 
-def _lstm_fwd_launch(fn, save: bool, xg, w, reverse: bool):
+def _lstm_fwd_launch(fn, save: bool, xg, w, reverse: bool, plan):
     _check_shapes(xg, xg, w, w)
     name = "lstm_fwd_train" if save else "lstm_fwd"
     B, N, G = xg.shape
     H = G // 4
-    dev, T = _check_cuda(name, (xg,), (w,), bilstm_smem_bytes(H))
+    dev, T = _check_cuda(name, (xg,), (w,), _fwd_smem(H, plan))
     outs = [torch.empty(B, N, d, dtype=T, device=dev)
             for d in ((H, H, G) if save else (H,))]
     if B == 0 or N == 0:
         return tuple(outs)
+    lib, rows, wide = _fwd_plan(fn, name, B, H, dev, T, save, 1, plan)
     w = w.to(T)
-    launch(_library("bilstm_fwd"), f"{name}_{_SUFFIX[T]}", dev,
+    launch(lib, f"{name}_{_SUFFIX[T]}", dev,
            xg.data_ptr(), w.data_ptr(), *(o.data_ptr() for o in outs),
-           B, N, H, int(reverse))
+           B, N, H, rows, wide, int(reverse))
     fn.launches += 1
     return tuple(outs)
 
 
-def lstm_fwd_cuda(xg: torch.Tensor, w: torch.Tensor,
-                  reverse: bool = False) -> torch.Tensor:
+def lstm_fwd_cuda(xg: torch.Tensor, w: torch.Tensor, reverse: bool = False,
+                  plan: Optional[Tuple[str, int]] = None) -> torch.Tensor:
     """Launch the light kernel of ``csrc/bilstm_fwd.cu`` with a grid of one
-    direction on the current stream: ``ys``. Counts each launch in
-    ``lstm_fwd_cuda.launches``. Its output carries no autograd history:
-    ``lstm_recurrence_kernel`` sends inputs that need a gradient to
-    ``LSTMFunction`` instead."""
-    return _lstm_fwd_launch(lstm_fwd_cuda, False, xg, w, reverse)[0]
+    direction on the current stream: ``ys``; ``plan`` as
+    ``bilstm_fwd_cuda``. Counts each launch in ``lstm_fwd_cuda.launches``.
+    Its output carries no autograd history: ``lstm_recurrence_kernel``
+    sends inputs that need a gradient to ``LSTMFunction`` instead."""
+    return _lstm_fwd_launch(lstm_fwd_cuda, False, xg, w, reverse, plan)[0]
 
 
 lstm_fwd_cuda.launches = 0
 
 
 def lstm_fwd_train_cuda(xg: torch.Tensor, w: torch.Tensor,
-                        reverse: bool = False):
+                        reverse: bool = False,
+                        plan: Optional[Tuple[str, int]] = None):
     """Launch the residual variant of ``csrc/bilstm_fwd.cu`` with a grid of
-    one direction: ``(ys, cs, gates)``. Counts each launch in
-    ``lstm_fwd_train_cuda.launches``."""
-    return _lstm_fwd_launch(lstm_fwd_train_cuda, True, xg, w, reverse)
+    one direction: ``(ys, cs, gates)``; ``plan`` as ``bilstm_fwd_cuda``.
+    Counts each launch in ``lstm_fwd_train_cuda.launches``."""
+    return _lstm_fwd_launch(lstm_fwd_train_cuda, True, xg, w, reverse, plan)
 
 
 lstm_fwd_train_cuda.launches = 0

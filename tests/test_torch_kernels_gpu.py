@@ -505,3 +505,69 @@ def test_bigru_layer_fused_matches_plain(cuda, shape, dtype):
         assert torch.equal(a, a2)
         assert a.dtype == b.dtype and torch.isfinite(a).all()
         assert _max_rel(a.float(), b.float()) <= bound
+
+
+# ---------------------------------------------------------------------------
+# The unit kernels of csrc/bilstm_fwd.cu and csrc/bigru_fwd.cu (H <= 64):
+# every batch tile the card runs and the planner's own pick, at batches of
+# 1, 5 and 17 rows (no multiple of a 2- or 4-row tile), H of 16, 48 and 64,
+# both walk orders, float32 and bfloat16, against the plain versions;
+# tolerances as above. Above H=64 the wide LSTM kernel still runs.
+# ---------------------------------------------------------------------------
+
+UNIT_SHAPES = [(B, 37, H) for B in (1, 5, 17) for H in (16, 48, 64)]
+UNIT_PLANS = [None, ("unit", 1), ("unit", 2), ("unit", 4)]
+
+
+@pytest.mark.parametrize("shape", UNIT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_unit_kernels_match_plain(cuda, shape, dtype):
+    xg_f, xg_b, w_f, w_b = _inputs(*shape, cuda)
+    xg_f, xg_b = xg_f.to(dtype), xg_b.to(dtype)
+    light_ref = rnn_cuda.bilstm_recurrence_plain(xg_f, xg_b, w_f, w_b)
+    train_ref = rnn_cuda.bilstm_fwd_train_plain(xg_f, xg_b, w_f, w_b)
+    single_ref = [rnn_cuda.lstm_fwd_train_plain(xg_f, w_f, rev)
+                  for rev in (False, True)]
+    for plan in UNIT_PLANS:
+        got = rnn_cuda.bilstm_fwd_cuda(xg_f, xg_b, w_f, w_b, plan=plan)
+        assert rnn_cuda.bilstm_fwd_cuda.last_launch["kernel"] == "unit"
+        for a, r in zip(got, light_ref):
+            _assert_close(a, r, dtype)
+        got = rnn_cuda.bilstm_fwd_train_cuda(xg_f, xg_b, w_f, w_b, plan=plan)
+        for a, r in zip(got, train_ref):
+            _assert_close(a, r, dtype)
+        for rev, ref in zip((False, True), single_ref):
+            _assert_close(rnn_cuda.lstm_fwd_cuda(xg_f, w_f, rev, plan=plan),
+                          ref[0], dtype)
+            for a, r in zip(rnn_cuda.lstm_fwd_train_cuda(xg_f, w_f, rev,
+                                                         plan=plan), ref):
+                _assert_close(a, r, dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", UNIT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_unit_kernels_match_plain(cuda, shape, dtype):
+    xg, _, w, b, _, _ = _gru_inputs(*shape, dtype, cuda)
+    for rev in (False, True):
+        ref = gru_cuda.gru_fwd_train_plain(xg, w, b, rev)
+        for plan in UNIT_PLANS:
+            _assert_close(gru_cuda.gru_fwd_cuda(xg, w, b, rev, plan=plan),
+                          ref[0], dtype)
+            assert gru_cuda.gru_fwd_cuda.last_launch["kernel"] == "unit"
+            for a, r in zip(gru_cuda.gru_fwd_train_cuda(xg, w, b, rev,
+                                                        plan=plan), ref):
+                _assert_close(a, r, dtype)
+    torch.cuda.synchronize()
+
+
+def test_lstm_wide_kernel_above_unit_width(cuda):
+    """H=96 takes the wide kernel (W_hh in shared memory), both grids."""
+    xg_f, xg_b, w_f, w_b = _inputs(5, 43, 96, cuda)
+    got = rnn_cuda.bilstm_fwd_train_cuda(xg_f, xg_b, w_f, w_b)
+    assert rnn_cuda.bilstm_fwd_train_cuda.last_launch["kernel"] == "wide"
+    for a, r in zip(got, rnn_cuda.bilstm_fwd_train_plain(xg_f, xg_b, w_f,
+                                                         w_b)):
+        _assert_close(a, r, torch.float32)
+    _assert_close(rnn_cuda.lstm_fwd_cuda(xg_b, w_b, True),
+                  rnn_cuda.lstm_recurrence(xg_b, w_b, True), torch.float32)
