@@ -8,7 +8,9 @@ Phases, one line each or more (a failed check raises; nothing is caught):
 
 1. device: card name, count, and ``nvidia-smi`` name and power limit;
 2. build: every kernel source in ``room_slam_torch/csrc``, one ``nvcc`` each,
-   all started together (registers and spills from ``-Xptxas -v``);
+   all started together (registers and spills from ``-Xptxas -v``); the
+   fused kind (#9) and the GRU BPTT unit kernel by name, #9's bf16 kind
+   asserted free of spills;
 3. kernel check on the card: ``bilstm_fwd`` (the unit kernel, H <= 64)
    against its plain version, ``bilstm_fwd_train`` (ys, c, gates) and
    ``bilstm_bwd`` (dg) against theirs, and ``BiLSTMFunction``'s four
@@ -68,8 +70,8 @@ Phases, one line each or more (a failed check raises; nothing is caught):
 17. scale-up train-step timing (B=128, N=5000): p50 over
     ``SCALEUP_STEPS`` after ``SCALEUP_WARMUP``, then the per-stage split;
 18. single-direction kernel check on the card: ``gru_fwd``,
-    ``gru_fwd_train`` (the unit kernel at H <= 64, asserted) and
-    ``gru_bwd`` at the legacy shape (32, 500, 64) in f32 and bf16, the
+    ``gru_fwd_train`` and ``gru_bwd`` (each the unit kernel at H <= 64,
+    asserted) at the legacy shape (32, 500, 64) in f32 and bf16, the
     serving, training and ragged shapes in f32, (5, 43, 16) and (17, 300,
     64) in f32 and bf16, and (8, 1000, 256) bf16 (the cluster kernel,
     asserted), and ``lstm_fwd``, ``lstm_fwd_train`` and ``lstm_bwd`` at
@@ -78,10 +80,11 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     autograd through the plain loop;
 19. their timing at (32, 500, 64) f32: kernel, plain version, bound and
     cuDNN's unidirectional ``nn.GRU`` / ``nn.LSTM`` (never called by the
-    port), µs per step beside cuDNN's, and the forward kernels under every
-    plan (each unit tile the card runs, and the first design: the cluster
-    kernel at its planner's pick, the wide LSTM kernel) with the planner's
-    pick beside the fastest;
+    port), µs per step beside cuDNN's, and the GRU kernels and the LSTM
+    forward kernels under every plan (each unit tile the card runs, and the
+    first design: the cluster kernel at its planner's pick, the wide LSTM
+    kernel) with the planner's pick beside the fastest; ``gru_bwd`` also
+    in bf16 against ``nn.GRU`` bf16 and cuDNN fp16;
 20. legacy training (a main path): ``LEGACY_ROOMS`` seeded rooms written as
     legacy CSV/objects pairs, ``train_legacy`` at its defaults (hidden 128,
     seq 500, batch 32) for ``LEGACY_EPOCHS`` epochs; finite losses, a
@@ -103,13 +106,15 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     and against ``bigru_bwd`` (#6; in float32 the same function up to sum
     order) at the phase 12 shapes, with each launch's plan;
 26. fused layer check: ``bigru_layer`` under grad (its backward the fused
-    kernel #9) at (3, 53, 16, 24) f32, (2, 40, 16, 16) bf16 and
-    (16, 1000, 256, 512) bf16: the output and nine gradients against the
+    kernel #9) at (3, 53, 16, 24) f32, (2, 40, 16, 16) bf16,
+    (16, 1000, 256, 512) bf16 and (5, 97, 32, 40) bf16 (samples, D and 3H
+    off the tensor-core tiles): the output and nine gradients against the
     same layer with #9's plain version on the card, a second run bit for
     bit, and the unfused layer (``BiGRUFunction`` + torch products);
 27. #9 against #6 plus cuBLAS at the scale-up shape (B=128, N=5000, H=256,
     D=512, bf16): one layer's forward + backward both ways, 6 after 2
     warm-up (#9's path: its launches are counted there), then #9 alone,
+    #6 at #9's plan and their difference (what the chunks' products cost),
     its plain version once, its bound;
 28. the tool (#10's path): ``room_slam_torch.tools.bench_bigru_bwd`` at the
     scale-up shape, ``--tiles auto --reps 5``, its rows;
@@ -221,7 +226,8 @@ LEGACY_STEPS, LEGACY_WARMUP = 50, 5
 # the fused BiGRU layer (#9): B, N, H, D and stream dtype
 FUSED_SHAPES = (((3, 53, 16, 24), torch.float32),
                 ((2, 40, 16, 16), torch.bfloat16),
-                ((16, 1000, 256, 512), torch.bfloat16))
+                ((16, 1000, 256, 512), torch.bfloat16),
+                ((5, 97, 32, 40), torch.bfloat16))
 LSTM_BF16_SHAPES = LSTM_SHAPES   # bf16 BiLSTM kernel checks
 GRU_PLAIN = {"bigru_fwd_cuda": gru_cuda.bigru_fwd_plain,
              "bigru_fwd_train_cuda": gru_cuda.bigru_fwd_train_plain,
@@ -230,6 +236,30 @@ GRU_PLAIN = {"bigru_fwd_cuda": gru_cuda.bigru_fwd_plain,
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+# mangled-name parts of the BPTT source's kernels that phase 2 reports
+BWD_KERNELS = {"bigru_bwd_fused_bf16": ("bigru_bwd_kernel", "bfloat16Li2E"),
+               "bigru_bwd_fused_f32": ("bigru_bwd_kernel", "IfLi2E"),
+               "gru_bwd_unit_f32": ("gru_bwd_unit_kernel", "IfLi"),
+               "gru_bwd_unit_bf16": ("gru_bwd_unit_kernel", "bfloat16Li")}
+
+
+def check_bwd_usage(usage):
+    """Phase 2: registers, stack and spills of the fused kind (#9) and the
+    GRU BPTT unit kernels from ``-Xptxas -v``; #9's bf16 kind (its products
+    on tensor cores) must spill nothing."""
+    for key, parts in BWD_KERNELS.items():
+        found = {name: u for name, u in usage.items()
+                 if all(p in name for p in parts)}
+        assert found, (key, sorted(usage))
+        for name, u in sorted(found.items()):
+            log("build", f"{key} ({name[:60]}...): {u.get('registers')} "
+                f"registers, {u.get('stack')} bytes stack, "
+                f"{u.get('spill_stores')} / {u.get('spill_loads')} bytes "
+                "spill stores / loads")
+            if key == "bigru_bwd_fused_bf16":
+                assert u.get("spill_stores") == u.get("spill_loads") == 0, u
 
 
 def timed_once(fn):
@@ -404,6 +434,15 @@ def gru_single_plans(B, H, dev, dtype, save):
         B, H, dev, dtype, save)), ("cluster", c, r)]
 
 
+def gru_bwd_plans(B, H, dev, dtype):
+    """Every one-direction BPTT plan of ``csrc/bigru_bwd.cu`` at this
+    shape: the unit kernel's tiles the card runs (the planner's order) and
+    kLinear at its planner's pick (the first design)."""
+    c, r = gru_cuda.card_plans("bwd", B, H, dev, dtype, dirs=1)[0]
+    return [*(("unit", t) for t in gru_cuda.card_gru_bwd_unit_plans(
+        B, H, dev, dtype)), ("cluster", c, r)]
+
+
 def plan_sweep(name, fn, args, plans, shape, iters):
     """Phases 4, 19 and 29: µs per step of ``fn(*args, plan=p)`` at ``shape``
     (B, N, H) for every plan, CUDA events over ``iters`` launches each, then
@@ -418,7 +457,8 @@ def plan_sweep(name, fn, args, plans, shape, iters):
                     if last["kernel"] == "cluster"
                     else (last["kernel"], last["rows"]))
     fastest = min(us, key=us.get)
-    log("plan_sweep", f"{name} B,N,H={shape} {str(args[0].dtype)[6:]}: us "
+    dtype = next(a.dtype for a in args if a.dim() == 3)   # the streams'
+    log("plan_sweep", f"{name} B,N,H={shape} {str(dtype)[6:]}: us "
         "per step " + ", ".join(f"{k} {v:.3f}" for k, v in us.items())
         + f"; planner's pick {pick}, fastest {fastest}")
     return {"us_per_step": us, "pick": pick, "fastest": fastest}
@@ -1148,6 +1188,7 @@ def check_single_kernels(dev, seed):
             dy = torch.randn(ys.shape, device=dev, generator=torch.Generator(
                 dev).manual_seed(seed + 1)).to(dtype)
             got = gru_cuda.gru_bwd_cuda(w, gs, hn, ys, dy, reverse)
+            bwd_plan = plan_text(gru_cuda.gru_bwd_cuda)
             ref = gru_cuda.gru_bwd_plain(w, gs, hn, ys, dy, reverse)
             torch.cuda.synchronize()
             assert all(torch.isfinite(a).all() for a in got)
@@ -1162,12 +1203,15 @@ def check_single_kernels(dev, seed):
                 lambda *a: gru_cuda.gru_recurrence(*a, reverse),
                 (xg, w, b), dy, dtype)
             last = gru_cuda.gru_fwd_train_cuda.last_launch
+            bwd_kernel = gru_cuda.gru_bwd_cuda.last_launch["kernel"]
             if shape[-1] == 256:    # W_hh of H=256 needs a cluster
                 assert last["kernel"] == "cluster" and last["cluster"] > 1, \
                     plan
+                assert bwd_kernel == "cluster", bwd_plan
             else:                   # H <= 64, one direction: the unit kernel
                 assert last["kernel"] == "unit", plan
                 assert gru_cuda.gru_fwd_cuda.last_launch["kernel"] == "unit"
+                assert bwd_kernel == "unit", bwd_plan
             for name, e in (("gru_fwd", light), ("gru_fwd_train", train),
                             ("gru_bwd", bwd_abs)):
                 key = (name, shape, dtype)
@@ -1178,7 +1222,8 @@ def check_single_kernels(dev, seed):
                 f"{train:.3e}; gru_bwd (dx, dhn) max_abs_err={bwd_abs:.3e} "
                 f"max_rel_err={bwd_rel:.3e}; GRUFunction vs autograd "
                 "through the plain loop max_rel_err (dxg, dW_hh, db_hh) "
-                + " ".join(f"{v:.3e}" for v in fn_rel) + f"; launch {plan}")
+                + " ".join(f"{v:.3e}" for v in fn_rel) + f"; launch {plan}"
+                + f"; gru_bwd launch {bwd_plan}")
     for shape in SINGLE_LSTM_SHAPES:
         xg, _, w, _ = kernel_inputs(*shape, dev, seed)
         for reverse in (False, True):
@@ -1268,7 +1313,10 @@ def time_single_kernels(dev, seed, errs):
                       "bound_by": bnd[1], "us_per_step": ms / N * 1e3,
                       "library_us_per_step": lib_ms[name] / N * 1e3,
                       "err": errs[(name, LEGACY, f32)]}
-        if name != "gru_bwd" and name != "lstm_bwd":
+        if name == "gru_bwd":
+            rows[name]["plans"] = plan_sweep(
+                name, fn, a, gru_bwd_plans(B, H, dev, f32), LEGACY, 20)
+        elif name != "lstm_bwd":
             save = name.endswith("train")
             plans = (gru_single_plans(B, H, dev, f32, save)
                      if name.startswith("gru")
@@ -1283,7 +1331,50 @@ def time_single_kernels(dev, seed, errs):
                "forward with grad on", "bwd": "forward + backward minus "
                "forward"}[name.split("_", 1)[1]]
             + ", includes the input projection)"))
+    rows["gru_bwd_bf16"] = time_gru_bwd_bf16(dev, seed, x, dy)
     return rows
+
+
+def time_gru_bwd_bf16(dev, seed, x, dy):
+    """Phase 19, last: ``gru_bwd`` at the legacy shape with bf16 streams,
+    held to its plain version (values rtol / atol, max-rel 0.1), its time,
+    plain time, bound and plans, against unidirectional ``nn.GRU`` in bf16
+    (PyTorch's own step loop: cuDNN takes no bf16 RNN) and through cuDNN in
+    fp16 (never called by the port; forward + backward minus forward)."""
+    B, N, H = LEGACY
+    bf = torch.bfloat16
+    lib_ms = {}
+    for key, dt in (("bf16", bf), ("cudnn_fp16", torch.float16)):
+        lib = torch.nn.GRU(2 * H, H, batch_first=True).to(dev, dt)
+        xi = x.detach().to(dt).requires_grad_(True)
+        dyi = dy.to(dt)
+        fwd = cuda_ms(lambda: lib(xi), 5)
+        lib_ms[key] = cuda_ms(lambda: lib(xi)[0].backward(dyi), 5) - fwd
+    xg, _, w, b, _, _ = gru_inputs(B, N, H, bf, dev, seed)
+    ys, gs, hn = gru_cuda.gru_fwd_train_plain(xg, w, b)
+    a = (w, gs, hn, ys, dy.to(bf))
+    got = gru_cuda.gru_bwd_cuda(*a)
+    ref = gru_cuda.gru_bwd_plain(*a)
+    err = value_err(got, ref, bf)
+    rel = max(max_rel(g.float(), r.float()) for g, r in zip(got, ref))
+    assert rel <= BF16_GRAD_REL, rel
+    ms = cuda_ms(lambda: gru_cuda.gru_bwd_cuda(*a), 20)
+    plain_ms = cuda_ms(lambda: gru_cuda.gru_bwd_plain(*a), 2, warmup=1)
+    bnd = gru_bound("bwd", B, N, H, bf, dirs=1)
+    row = {"shape": [B, N, H], "dtype": "bfloat16", "kernel_ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms["bf16"],
+           "cudnn_fp16_ms": lib_ms["cudnn_fp16"], "bound_us": bnd[0] * 1e3,
+           "bound_by": bnd[1], "us_per_step": ms / N * 1e3,
+           "library_us_per_step": lib_ms["cudnn_fp16"] / N * 1e3,
+           "err": err, "max_rel_err": rel,
+           "plans": plan_sweep("gru_bwd", gru_cuda.gru_bwd_cuda, a,
+                               gru_bwd_plans(B, H, dev, bf), LEGACY, 20),
+           "launch": dict(gru_cuda.gru_bwd_cuda.last_launch)}
+    log("kernel_time", "gru_bwd bf16 " + json.dumps(row) + "  (library_ms: "
+        "unidirectional nn.GRU bf16; cudnn_fp16_ms: the same in fp16 through "
+        "cuDNN; both forward + backward minus forward, input projection "
+        "included; library_us_per_step from cuDNN fp16)")
+    return row
 
 
 def train_legacy_path(data, save_dir, dev, seed, smi):
@@ -1736,6 +1827,14 @@ def fused_ab(dev, seed, smi, lib_ms):
     del again
     kernel_ms = cuda_ms(lambda: gru_cuda.bigru_bwd_fused_cuda(*args), 3,
                         warmup=0)
+    # #6 (the same chain without the products) at #9's plan: the difference
+    # is what the chunks' stops and products cost
+    last = gru_cuda.bigru_bwd_fused_cuda.last_launch
+    plan = (last["cluster"], last["rows"])
+    args6 = (ws[2], ws[6], gs_f, hn_f, ys_f, args[8], gs_b, hn_b, ys_b,
+             args[12])
+    chain_ms = cuda_ms(lambda: gru_cuda.bigru_bwd_cuda(*args6, plan=plan), 3)
+    assert gru_cuda.bigru_bwd_cuda.last_launch["rows"] == plan[1]
     ref, plain_ms = timed_once(lambda: gru_cuda.bigru_bwd_fused_plain(*args))
     for a, r in zip(got, ref):
         assert a.shape == r.shape and a.dtype == r.dtype
@@ -1748,7 +1847,8 @@ def fused_ab(dev, seed, smi, lib_ms):
            "fused_layer_fwd_bwd_ms": fused_ms,
            "unfused_layer_fwd_bwd_ms": unfused_ms,
            "fused_over_unfused": fused_ms / unfused_ms,
-           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "kernel_ms": kernel_ms, "chain_ms": chain_ms,
+           "products_ms": kernel_ms - chain_ms, "plain_ms": plain_ms,
            "library_ms": lib_ms, "bound_us": b[0] * 1e3, "bound_by": b[1],
            "us_per_step": kernel_ms / N * 1e3, "err": err,
            "max_rel_err": max(rel.values()), "bit_equal": same,
@@ -1756,6 +1856,9 @@ def fused_ab(dev, seed, smi, lib_ms):
     log("fused_ab", json.dumps(row) + f" on {smi}  (library_ms: nn.GRU "
         "bidirectional bf16 forward + backward minus forward, phase 13: "
         "the layer's VJP with its input projection)")
+    log("fused_ab", f"at plan {plan[0]}x{plan[1]}: #9 {kernel_ms:.3f} ms, #6 "
+        f"{chain_ms:.3f} ms, #9 - #6 {kernel_ms - chain_ms:.3f} ms (the "
+        "chunks' stops and products)")
     log("fused_ab", "#9's ten outputs vs its plain version max_rel_err "
         + " ".join(f"{k}={v:.3e}" for k, v in rel.items())
         + f" tol {BF16_GRAD_REL:g}; run twice bit-equal={same}; launch "
@@ -2060,8 +2163,11 @@ def main() -> int:
     for res in build.build_all():
         ptxas = [ln.strip() for ln in res.log.splitlines()
                  if "registers" in ln or "bytes stack" in ln]
-        log("build", f"{res.name}: {res.seconds:.1f} s {res.path.name} | "
-                     + (" | ".join(ptxas) if res.log else "reused"))
+        log("build", f"{res.name}: {res.seconds:.1f} s {res.path.name}"
+                     + (" (reused)" if res.reused else "") + " | "
+                     + " | ".join(ptxas))
+        if res.name == "bigru_bwd":
+            check_bwd_usage(build.ptxas_usage(res.log))
     log("build", f"all kernels in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernel check against the plain versions on the card
@@ -2394,10 +2500,11 @@ def main() -> int:
             ("lstm_fwd_train", "bilstm_fwd.cu", "rnn_pallas.py:183",
              lstm_launched),
             ("lstm_bwd", "bilstm_bwd.cu", "rnn_pallas.py:242", lstm_launched)):
+        extra = [single_rows["gru_bwd_bf16"]] if name == "gru_bwd" else []
         kernels.append({**entry(name, f"room_slam_torch/csrc/{source}",
                                 f"room_slam_tpu/ops/{line}", launched[name],
                                 single_rows[name]),
-                        "shapes": [single_rows[name]]})
+                        "shapes": [single_rows[name], *extra]})
     pick = tool["config"]["tiles"][0]
     b = gru_bound("bwd", *SCALEUP, torch.bfloat16)
     split_row = {"shape": list(SCALEUP), "dtype": "bfloat16",

@@ -10,7 +10,8 @@
 //   :527, launched through _bigru_bwd_pallas from _bigru_core_bwd): the
 //   linearized kind (kLinear) with the grid's two directions;
 // - _gru_bwd_kernel (:71, pallas_call :218, launched through
-//   _gru_bwd_pallas from _gru_core_bwd): kLinear with a grid of one
+//   _gru_bwd_pallas from _gru_core_bwd): at H <= 64 the unit kernel
+//   (gru_bwd_unit_kernel, below), above it kLinear with a grid of one
 //   direction;
 // - room_slam_tpu/tools/bench_bigru_bwd.py::_bwd_kernel_split (:127,
 //   pallas_call :198, a closure of the micro-benchmark's main()): the split
@@ -100,15 +101,59 @@
 // writes its outputs, and every kChunk steps stops the walk for the chunk's
 // input-side products: after a fence and a cluster.sync() the chunk's dx,
 // dhn, x and h_prev are re-read (dx and dhn mostly from L2) and the three
-// products run as tiled matrix products on CUDA cores, staged through a
-// small shared tile, their output tiles dealt round-robin to the blocks of
-// the cluster. TPU grids run in order, so the TPU kernel sums dW into one
+// products run as tiled matrix products, their output tiles dealt
+// round-robin to the blocks of the cluster; a second cluster.sync() ends
+// the stop. TPU grids run in order, so the TPU kernel sums dW into one
 // resident block; clusters here run at once, so each cluster keeps its own
 // float32 partials of dW_ih, dW_hh and the biases in global memory, every
 // partial tile owned by one block (no atomics), and a second kernel
 // (bigru_bwd_reduce_kernel, launched right after on the same stream) sums
 // them over the clusters in a fixed order: the gradients are the same from
-// run to run. Tensor cores (mma.sync, wgmma) are left for later work.
+// run to run.
+//
+// The products on an H100. First on CUDA cores (float32 FMAs in 4 x 4
+// register tiles beside the chain's 5 warps an SM, the kind at 255
+// registers and spilling) they ran at about 2.8 TFLOP/s and took ~890 of the
+// 983 ms of #9 at the scale-up shape, against 91 ms for the same chain
+// without them (kLinear). The JAX kernel fills the MXU with them while the
+// chain stalls; the tensor core is Hopper's counterpart. So a kFused block
+// has kFusedMaxThreads (8 warps) whatever its chain uses (the plan's
+// U * R / 4 threads walk, the rest wait at the step's cluster.sync()), and
+// with bfloat16 streams the products run as mma.sync m16n8k16 (bf16
+// operands, the T()-rounded values the JAX kernel feeds its dots; f32 sums):
+// block tiles of 128 x 128 outputs, 8 warps of 64 x 32, 32-deep slabs
+// staged by cp.async into a ring of four buffers, three slabs in flight
+// (each staged row gathered through the chunk's sample indices,
+// zero-filled past an edge), fragments read by ldmatrix (.trans for the
+// operands whose contraction runs over samples: x^T dx and h_prev^T dg),
+// each output tile summed over the whole depth in registers and added once
+// into the cluster's partial (all of a warp's partial sums read before any
+// is written back, so the reads overlap). The staging buffers reuse the
+// exchange tile, idle between the two cluster.sync()s (grown where a small
+// plan's tile is smaller). float32 streams keep the CUDA-core products
+// (block_product): TF32 would miss the float32 bound. Measured on an H100
+// at the scale-up shape the kind takes ~123 ms against ~91 ms for kLinear
+// at the same plan; the products are bound by L2 traffic (each operand
+// re-read by every tile of the other dimension), not by the tensor cores,
+// and taking them off the chain's path (warps that run chunk c while the
+// chain walks chunk c + 1) is left for later work.
+//
+// The single-direction GRU at small H (gru_bwd_unit_kernel, H <= 64, the
+// legacy model's H=64). kLinear with a grid of one direction tied every
+// small plan there: at B=32, H=64 a few blocks of 2 warps on a handful of
+// SMs, each thread a 192-deep chain of shared loads, and a cluster.sync()
+// plus a distributed-shared-memory push every step even for a cluster of
+// one block (4.1 us a step on an H100, cuDNN 2.1). The unit kernel is the
+// BPTT counterpart of bigru_fwd.cu's gru_fwd_unit_kernel: one block per
+// tile of R = 1, 2 or 4 rows (rnn_cuda unit_plans sizes it), four lanes of
+// a warp own hidden unit u and lane p holds in registers row u of W_hh for
+// its quarter of the 3H-deep sum (48 floats at H=64: dh_carry[u] = sum_j
+// dg[j] W_hh[u, j], the transpose of the forward's layout); the step's
+// rounded dg sits in shared memory as a double-buffered [3][64][R] tile read
+// as 16-byte broadcasts, the four lanes' sums meet by __shfl_xor_sync so
+// that lane p holds row p % R's carry and runs that cell's coefficients,
+// dx and dhn; one block barrier a step, no cluster, and the six inputs of
+// a step loaded kAhead = 8 steps ahead into a register ring.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -116,6 +161,8 @@
 
 #include <atomic>
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -126,10 +173,37 @@ static_assert(kRowsPerThread == 4, "rows travel as one float4");
 constexpr int kMaxThreads = 512;
 
 enum Kind : int { kLinear = 0, kSplit = 1, kFused = 2 };
-constexpr int kFusedMaxThreads = 256;  // room for the products' registers
-constexpr int kChunk = 48;   // walk steps between kFused's products
-constexpr int kSlab = 16;    // depth of one staged slab of a product
-constexpr int kTileN = 64;   // output columns of one product tile
+// kFused: threads of a block (8 warps for the products; the chain uses the
+// plan's U * R / 4 of them)
+constexpr int kFusedMaxThreads = 256;
+constexpr int kChunk = 96;   // walk steps between kFused's products
+constexpr int kSlab = 16;    // depth of one staged slab of a CUDA-core product
+constexpr int kTileN = 64;   // output columns of one CUDA-core product tile
+// the tensor-core products: a block tile of kTcM x kTcN outputs over
+// kTcK-deep slabs, staged rows padded by kTcPad bf16 (conflict-free
+// ldmatrix), a ring of kTcStages buffers of the larger layout of A and of B
+constexpr int kTcM = 128, kTcN = 128, kTcK = 32, kTcPad = 8, kTcStages = 4;
+constexpr int kTcStageA = kTcM * (kTcK + kTcPad);   // >= kTcK * (kTcM + pad)
+constexpr int kTcStageB = kTcN * (kTcK + kTcPad);   // >= kTcK * (kTcN + pad)
+static_assert(kTcStageA >= kTcK * (kTcM + kTcPad) &&
+              kTcStageB >= kTcK * (kTcN + kTcPad), "staged tile sizes");
+static_assert(kFusedMaxThreads == 256, "the products take 2 x 4 warps");
+// floats of kFused's staging region: the ring of bf16 buffers of A and B,
+// which also holds block_product's float tiles
+constexpr int kFusedStageFloats = kTcStages * (kTcStageA + kTcStageB) / 2;
+static_assert(kFusedStageFloats >=
+                  kSlab * (kFusedMaxThreads / 4 + kTileN),
+              "block_product's tiles fit the staging region");
+
+// the unit kernel (one direction, H <= kMaxUnitH): lanes per hidden unit,
+// W_hh values of the sum held in registers (over the four lanes, for each
+// gate block of W_hh's row), threads of a block at H = kMaxUnitH
+constexpr int kLanes = 4;
+constexpr int kMaxUnitH = 64;
+constexpr int kKPerLane = kMaxUnitH / kLanes;
+constexpr int kUnitThreads = kLanes * kMaxUnitH;
+constexpr int kAhead = 8;  // steps of inputs in flight ahead of the chain
+constexpr unsigned kFullMask = 0xffffffffu;
 
 constexpr int max_threads(int kind) {
   return kind == kFused ? kFusedMaxThreads : kMaxThreads;
@@ -165,6 +239,13 @@ __device__ __forceinline__ float round_to(float v) {
 
 __host__ __device__ __forceinline__ size_t pad4(size_t n) {
   return (n + 3) / 4 * 4;
+}
+
+// Floats of kFused's exchange tile, which doubles as the products' staging
+// region: [2][3H][R], grown to kFusedStageFloats where smaller.
+__host__ __device__ __forceinline__ size_t fused_stage_floats(size_t G,
+                                                              size_t R) {
+  return 2 * G * R > kFusedStageFloats ? 2 * G * R : kFusedStageFloats;
 }
 
 struct StepIn {
@@ -303,10 +384,328 @@ __device__ void block_product(int Mc, int Nc, int Kd, int tile0,
   }
 }
 
+// Tensor-core building blocks (sm_80 and later instructions, in PTX).
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global src to shared dst, of which the first `bytes` are
+// read and the rest zero-filled; both addresses 16-byte aligned
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d (+)= a b for one 16 x 8 tile over a depth of 16: bf16 operands in the
+// m16n8k16 fragment layouts, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Whether rows of `stride` bf16 values from p travel as 16-byte copies.
+__device__ __forceinline__ bool rows_vec(const void* p, int stride) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && stride % 8 == 0;
+}
+
+// Stage a kRows x kCols tile of bf16 values (rows padded to kCols + kTcPad)
+// from global memory: row r, columns c .. c+7 come from src(row0 + r,
+// col0 + c), a pointer to that run (nullptr: zeros), valid up to row_lim and
+// col_lim (zero past them). With vec, each run of 8 is one cp.async (the
+// caller commits and waits); otherwise it is loaded by value.
+template <int kRows, int kCols, typename F>
+__device__ __forceinline__ void tc_stage(__nv_bfloat16* dst, F src, int row0,
+                                         int col0, int row_lim, int col_lim,
+                                         bool vec) {
+  constexpr int kRuns = kCols / 8;
+  constexpr int kLd = kCols + kTcPad;
+  for (int idx = threadIdx.x; idx < kRows * kRuns; idx += blockDim.x) {
+    const int r = idx / kRuns;
+    const int c = (idx - r * kRuns) * 8;
+    __nv_bfloat16* d = dst + r * kLd + c;
+    const int nv = min(max(col_lim - (col0 + c), 0), 8);
+    const __nv_bfloat16* s =
+        (row0 + r < row_lim && nv > 0) ? src(row0 + r, col0 + c) : nullptr;
+    if (s == nullptr) {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    } else if (vec) {
+      cp_async16(d, s, 2 * nv);
+    } else {
+      __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = e < nv ? s[e] : __float2bfloat16_rn(0.0f);
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(v);
+    }
+  }
+}
+
+// One block's share of C (+)= A B on tensor cores, A [Mc, Kd] and B [Kd, Nc]
+// in bf16, f32 sums: the output tiles of kTcM x kTcN numbered tile0,
+// tile0 + tile_step, ...; warp w sums the kTcM / 2 x 32 corner (w % 2,
+// w / 2) of a tile over the whole depth in registers, slab by slab from a
+// ring of kTcStages staged buffers (kTcStages - 1 slabs in flight), then
+// stores element (m, n) through out(m, n), a pointer (nullptr: dropped):
+// with kAcc a float it adds to (Nc even: pairs (n, n + 1) as one float2,
+// 8-byte aligned), else a bf16 it sets. The operands come as runs
+// of 8 contiguous values: kAT false, a(m, k) points to A[m, k .. k+7] (k
+// contiguous); kAT true, a(k, m) points to A[m .. m+7, k] (m contiguous);
+// likewise b(n, k) for kBT false (B[k .. k+7, n]) and b(k, n) for kBT true
+// (B[k, n .. n+7]); nullptr for zeros. a_vec / b_vec: the runs are 16-byte
+// aligned (rows_vec). Every thread of the block calls it with the same
+// arguments.
+template <bool kAT, bool kBT, bool kAcc, typename FA, typename FB,
+          typename FO>
+__device__ void tc_product(int Mc, int Nc, int Kd, int tile0, int tile_step,
+                           __nv_bfloat16* stage, FA a, bool a_vec, FB b,
+                           bool b_vec, FO out) {
+  constexpr int kLdA = (kAT ? kTcM : kTcK) + kTcPad;
+  constexpr int kLdB = (kBT ? kTcN : kTcK) + kTcPad;
+  constexpr int kMT = kTcM / 32;   // 16-row fragments of a warp's rows
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wm = (warp % 2) * (kTcM / 2);
+  const int wn = (warp / 2) * 32;
+  const int ntm = (Mc + kTcM - 1) / kTcM;
+  const int ntn = (Nc + kTcN - 1) / kTcN;
+  const int nk = (Kd + kTcK - 1) / kTcK;
+  for (int tile = tile0; tile < ntm * ntn; tile += tile_step) {
+    const int m0 = (tile / ntn) * kTcM;
+    const int n0 = (tile % ntn) * kTcN;
+    // stage slab ks (if any) into buffer ks % kTcStages; one commit group
+    // a call, empty or not, so that the waits count slabs
+    auto fetch = [&](int ks) {
+      if (ks < nk) {
+        __nv_bfloat16* As =
+            stage + (ks % kTcStages) * (kTcStageA + kTcStageB);
+        __nv_bfloat16* Bs = As + kTcStageA;
+        const int k0 = ks * kTcK;
+        if (kAT)
+          tc_stage<kTcK, kTcM>(As, a, k0, m0, Kd, Mc, a_vec);
+        else
+          tc_stage<kTcM, kTcK>(As, a, m0, k0, Mc, Kd, a_vec);
+        if (kBT)
+          tc_stage<kTcK, kTcN>(Bs, b, k0, n0, Kd, Nc, b_vec);
+        else
+          tc_stage<kTcN, kTcK>(Bs, b, n0, k0, Nc, Kd, b_vec);
+      }
+      cp_async_commit();
+    };
+    float acc[kMT][4][4];
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < kTcStages - 1; ++ks) fetch(ks);
+    for (int ks = 0; ks < nk; ++ks) {
+      cp_async_wait<kTcStages - 2>();   // slab ks has landed
+      // slab ks is staged by every thread, and slab ks - 1 read by every
+      // warp, so its buffer takes slab ks + kTcStages - 1
+      __syncthreads();
+      fetch(ks + kTcStages - 1);
+      const __nv_bfloat16* As =
+          stage + (ks % kTcStages) * (kTcStageA + kTcStageB);
+      const __nv_bfloat16* Bs = As + kTcStageA;
+#pragma unroll
+      for (int kk = 0; kk < kTcK; kk += 16) {
+        // lane l addresses row l % 8 of 8 x 8 matrix l / 8 of the fragment
+        const int q = lane & 7;
+        const int h8 = ((lane >> 3) & 1) * 8;
+        const int h16 = (lane >> 4) * 8;
+        unsigned af[kMT][4], bf[4][2];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          const int mb = wm + mt * 16;
+          if (kAT)
+            ldmatrix_x4_trans(af[mt], As + (kk + q + h16) * kLdA + mb + h8);
+          else
+            ldmatrix_x4(af[mt], As + (mb + q + h8) * kLdA + kk + h16);
+        }
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          const int nb = wn + np * 16;
+          unsigned t[4];
+          if (kBT)
+            ldmatrix_x4_trans(t, Bs + (kk + q + h8) * kLdB + nb + h16);
+          else
+            ldmatrix_x4(t, Bs + (nb + q + h16) * kLdB + kk + h8);
+          bf[2 * np][0] = t[0];
+          bf[2 * np][1] = t[1];
+          bf[2 * np + 1][0] = t[2];
+          bf[2 * np + 1][1] = t[3];
+        }
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma_bf16(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
+      }
+    }
+    __syncthreads();   // every warp is done with the ring before the next tile
+    // element e of acc[mt][nt] is (m, n) = (.. + (e / 2) * 8, .. + e % 2)
+    auto at = [&](int mt, int nt, int e) {
+      const int m = m0 + wm + mt * 16 + (lane >> 2) + (e >> 1) * 8;
+      const int n = n0 + wn + nt * 8 + (lane & 3) * 2 + (e & 1);
+      return (m < Mc && n < Nc) ? out(m, n) : nullptr;
+    };
+    if constexpr (kAcc) {
+      // elements e = 2h, 2h + 1 are (n, n + 1), n even: every pair of sums
+      // read before any is written back, so the reads overlap
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; e += 2)
+            if (const float* p = at(mt, nt, e)) {
+              const float2 old = *reinterpret_cast<const float2*>(p);
+              acc[mt][nt][e] += old.x;
+              acc[mt][nt][e + 1] += old.y;
+            }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; e += 2)
+            if (float* p = at(mt, nt, e))
+              *reinterpret_cast<float2*>(p) =
+                  make_float2(acc[mt][nt][e], acc[mt][nt][e + 1]);
+    } else {
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (__nv_bfloat16* p = at(mt, nt, e))
+              *p = __float2bfloat16_rn(acc[mt][nt][e]);
+    }
+  }
+}
+
+// Output tiles of kTcM x kTcN in an Mc x Nc product.
+__device__ __forceinline__ int tc_tiles(int Mc, int Nc) {
+  return ((Mc + kTcM - 1) / kTcM) * ((Nc + kTcN - 1) / kTcN);
+}
+
+// kFused with bf16 streams: the chunk's three products on tensor cores
+// (see fused_products), staged in `stage`; the tiles of each product dealt
+// to the blocks of the cluster from where the previous product's ended.
+__device__ void fused_products_tc(FusedArgs<__nv_bfloat16> fa, bool bwd,
+                                  const __nv_bfloat16* dx,
+                                  const __nv_bfloat16* dhn,
+                                  const __nv_bfloat16* ys,
+                                  __nv_bfloat16* stage, const int* smp,
+                                  int Ms, int m_first, int H, int rank,
+                                  int C, float* part) {
+  using bf16 = __nv_bfloat16;
+  const int G = 3 * H;
+  const int D = fa.D;
+  const bf16* wih = bwd ? fa.wih_b : fa.wih_f;
+  bf16* dxin = bwd ? fa.dxin_b : fa.dxin_f;
+  const bool dx_vec = rows_vec(dx, G);
+
+  // dX [Ms, D] = T(dx) [Ms, 3H] @ T(W_ih)^T, rounded to T once
+  int first = rank;
+  tc_product<false, false, false>(
+      Ms, D, G, first, C, stage,
+      [&](int m, int k) -> const bf16* {
+        const int i = smp[m];
+        return i < 0 ? nullptr : dx + static_cast<size_t>(i) * G + k;
+      },
+      dx_vec,
+      [&](int n, int k) -> const bf16* {
+        return wih + static_cast<size_t>(n) * G + k;
+      },
+      rows_vec(wih, G),
+      [&](int m, int n) -> bf16* {
+        const int i = smp[m];
+        return i < 0 ? nullptr : dxin + static_cast<size_t>(i) * D + n;
+      });
+  first = (first + tc_tiles(Ms, D)) % C;
+
+  // dW_ih [D, 3H] += T(x)^T T(dx)
+  tc_product<true, true, true>(
+      D, G, Ms, first, C, stage,
+      [&](int k, int d) -> const bf16* {
+        const int i = smp[k];
+        return i < 0 ? nullptr : fa.x + static_cast<size_t>(i) * D + d;
+      },
+      rows_vec(fa.x, D),
+      [&](int k, int j) -> const bf16* {
+        const int i = smp[k];
+        return i < 0 ? nullptr : dx + static_cast<size_t>(i) * G + j;
+      },
+      dx_vec,
+      [&](int d, int j) { return part + static_cast<size_t>(d) * G + j; });
+  first = (first + tc_tiles(D, G)) % C;
+
+  // dW_hh [H, 3H] += T(h_prev)^T T([dx_r, dx_z, dhn]); h_prev is zero at
+  // the walk's last step (the forward order's first)
+  const int shift = bwd ? 1 : -1;
+  float* pw = part + static_cast<size_t>(D) * G;
+  tc_product<true, true, true>(
+      H, G, Ms, first, C, stage,
+      [&](int k, int h) -> const bf16* {
+        const int i = smp[k];
+        return (i < 0 || k >= m_first)
+                   ? nullptr
+                   : ys + static_cast<size_t>(i + shift) * H + h;
+      },
+      rows_vec(ys, H),
+      [&](int k, int j) -> const bf16* {
+        const int i = smp[k];
+        if (i < 0) return nullptr;
+        return j < 2 * H ? dx + static_cast<size_t>(i) * G + j
+                         : dhn + static_cast<size_t>(i) * H + (j - 2 * H);
+      },
+      dx_vec && rows_vec(dhn, H),
+      [&](int h, int j) { return pw + static_cast<size_t>(h) * G + j; });
+}
+
 // kFused: the input-side products of walk steps s0 .. s0+ns-1 of this
 // cluster's (direction, batch tile). Sample m = (s - s0) * R + r is row
 // tile_row0 + r at the step's t; smp[m] is its index row * N + t into the
-// [B, N, *] streams, or -1 for a row past B.
+// [B, N, *] streams, or -1 for a row past B. bf16 streams take the tensor
+// cores (fused_products_tc), float32 streams the CUDA cores.
 template <typename T>
 __device__ void fused_products(FusedArgs<T> fa, bool bwd,
                                const T* __restrict__ dx,
@@ -325,60 +724,76 @@ __device__ void fused_products(FusedArgs<T> fa, bool bwd,
     smp[idx] = row < B ? row * N + t : -1;
   }
   __syncthreads();
-
-  // dX [Ms, D] = T(dx) [Ms, 3H] @ T(W_ih)^T, rounded to T once
-  const T* wih = bwd ? fa.wih_b : fa.wih_f;
-  T* dxin = bwd ? fa.dxin_b : fa.dxin_f;
-  block_product<true, true>(
-      Ms, D, G, rank, C, stage,
-      [&](int m, int k) {
-        const int i = smp[m];
-        return i < 0 ? 0.0f : to_f32<T>(dx[static_cast<size_t>(i) * G + k]);
-      },
-      [&](int k, int n) { return to_f32<T>(wih[static_cast<size_t>(n) * G + k]); },
-      [&](int m, int n, float v) {
-        const int i = smp[m];
-        if (i >= 0) dxin[static_cast<size_t>(i) * D + n] = from_f32<T>(v);
-      });
-
-  // dW_ih [D, 3H] += T(x)^T T(dx)
-  block_product<false, false>(
-      D, G, Ms, rank, C, stage,
-      [&](int d, int m) {
-        const int i = smp[m];
-        return i < 0 ? 0.0f : to_f32<T>(fa.x[static_cast<size_t>(i) * D + d]);
-      },
-      [&](int m, int j) {
-        const int i = smp[m];
-        return i < 0 ? 0.0f : to_f32<T>(dx[static_cast<size_t>(i) * G + j]);
-      },
-      [&](int d, int j, float v) { part[static_cast<size_t>(d) * G + j] += v; });
-
-  // dW_hh [H, 3H] += T(h_prev)^T T([dx_r, dx_z, dhn]); h_prev is zero at
-  // the walk's last step (the forward order's first)
   const int m_first = (N - 1 - s0) * R;
-  const int shift = bwd ? 1 : -1;
-  float* pw = part + static_cast<size_t>(D) * G;
-  block_product<false, false>(
-      H, G, Ms, rank, C, stage,
-      [&](int h, int m) {
-        const int i = smp[m];
-        return (i < 0 || m >= m_first)
-                   ? 0.0f
-                   : to_f32<T>(ys[static_cast<size_t>(i + shift) * H + h]);
-      },
-      [&](int m, int j) {
-        const int i = smp[m];
-        if (i < 0) return 0.0f;
-        return j < 2 * H ? to_f32<T>(dx[static_cast<size_t>(i) * G + j])
-                         : to_f32<T>(dhn[static_cast<size_t>(i) * H + j - 2 * H]);
-      },
-      [&](int h, int j, float v) { pw[static_cast<size_t>(h) * G + j] += v; });
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    fused_products_tc(fa, bwd, dx, dhn, ys,
+                      reinterpret_cast<__nv_bfloat16*>(stage), smp, Ms,
+                      m_first, H, rank, C, part);
+  } else {
+    // dX [Ms, D] = T(dx) [Ms, 3H] @ T(W_ih)^T, rounded to T once
+    const T* wih = bwd ? fa.wih_b : fa.wih_f;
+    T* dxin = bwd ? fa.dxin_b : fa.dxin_f;
+    block_product<true, true>(
+        Ms, D, G, rank, C, stage,
+        [&](int m, int k) {
+          const int i = smp[m];
+          return i < 0 ? 0.0f : to_f32<T>(dx[static_cast<size_t>(i) * G + k]);
+        },
+        [&](int k, int n) {
+          return to_f32<T>(wih[static_cast<size_t>(n) * G + k]);
+        },
+        [&](int m, int n, float v) {
+          const int i = smp[m];
+          if (i >= 0) dxin[static_cast<size_t>(i) * D + n] = from_f32<T>(v);
+        });
+
+    // dW_ih [D, 3H] += T(x)^T T(dx)
+    block_product<false, false>(
+        D, G, Ms, rank, C, stage,
+        [&](int d, int m) {
+          const int i = smp[m];
+          return i < 0 ? 0.0f : to_f32<T>(fa.x[static_cast<size_t>(i) * D + d]);
+        },
+        [&](int m, int j) {
+          const int i = smp[m];
+          return i < 0 ? 0.0f : to_f32<T>(dx[static_cast<size_t>(i) * G + j]);
+        },
+        [&](int d, int j, float v) {
+          part[static_cast<size_t>(d) * G + j] += v;
+        });
+
+    // dW_hh [H, 3H] += T(h_prev)^T T([dx_r, dx_z, dhn]); h_prev is zero at
+    // the walk's last step (the forward order's first)
+    const int shift = bwd ? 1 : -1;
+    float* pw = part + static_cast<size_t>(D) * G;
+    block_product<false, false>(
+        H, G, Ms, rank, C, stage,
+        [&](int h, int m) {
+          const int i = smp[m];
+          return (i < 0 || m >= m_first)
+                     ? 0.0f
+                     : to_f32<T>(ys[static_cast<size_t>(i + shift) * H + h]);
+        },
+        [&](int m, int j) {
+          const int i = smp[m];
+          if (i < 0) return 0.0f;
+          return j < 2 * H
+                     ? to_f32<T>(dx[static_cast<size_t>(i) * G + j])
+                     : to_f32<T>(dhn[static_cast<size_t>(i) * H + j - 2 * H]);
+        },
+        [&](int h, int j, float v) {
+          pw[static_cast<size_t>(h) * G + j] += v;
+        });
+  }
 }
 
+// At least one block an SM, and no more asked: with the thread bound alone
+// ptxas held kFused to 128 registers and spilled its products (a kFused
+// block at the scale-up plan fills an SM's shared memory anyway).
 template <typename T, int kKind>
 __global__ void __launch_bounds__(kKind == kFused ? kFusedMaxThreads
-                                                     : kMaxThreads)
+                                                     : kMaxThreads,
+                                  1)
 bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
                  const T* __restrict__ gs_f, const T* __restrict__ hn_f,
                  const T* __restrict__ ys_f, const T* __restrict__ dy_f,
@@ -396,10 +811,10 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
   const int G = 3 * H;
   float* wt_s = smem;                       // [3H][U] W_hh[unit, j]
   float* dg_s = smem + pad4(static_cast<size_t>(G) * U);   // [2][3H][R]
-  // kFused: a product's staging tile and the chunk's sample indices
-  float* stage = dg_s + 2 * static_cast<size_t>(G) * R;
-  int* smp = reinterpret_cast<int*>(
-      stage + kSlab * (static_cast<int>(blockDim.x) / 4 + kTileN));
+  // kFused: the exchange tile is the products' staging region between the
+  // chunk's two cluster.sync()s (grown to kFusedStageFloats where smaller),
+  // then the chunk's sample indices
+  int* smp = reinterpret_cast<int*>(dg_s + fused_stage_floats(G, R));
 
   // a grid of two directions: y = 1 walks backward; of one: rev says
   const bool bwd = (blockIdx.y == 1) != (rev != 0);
@@ -409,6 +824,10 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
   const int gu = rank * U + u;
   const int tile_row0 = (blockIdx.x / C) * R;
   const int row0 = tile_row0 + r0;
+  // kFused blocks have kFusedMaxThreads; those past the plan's U * R / 4
+  // take no part in the walk but its barriers
+  const bool chain = kKind != kFused ||
+                     static_cast<int>(threadIdx.x) < U * (R / kRowsPerThread);
 
   // rows rank*U .. rank*U+U-1 of W_hh, transposed: consecutive threads read
   // consecutive columns of one row
@@ -424,7 +843,7 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
   size_t hoff[kRowsPerThread];  // hn, ys, dy, dhn of (row, t = 0, unit gu)
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) {
-    valid[i] = row0 + i < B;
+    valid[i] = chain && row0 + i < B;
     const size_t row = static_cast<size_t>(valid[i] ? row0 + i : 0);
     goff[i] = row * N * G + gu;
     hoff[i] = row * N * H + gu;
@@ -526,7 +945,7 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
     const float4 vr = make_float4(dgr[0], dgr[1], dgr[2], dgr[3]);
     const float4 vz = make_float4(dgz[0], dgz[1], dgz[2], dgz[3]);
     const float4 vn = make_float4(dgn[0], dgn[1], dgn[2], dgn[3]);
-    for (int q = 0; q < C; ++q) {
+    for (int q = 0; chain && q < C; ++q) {
       float* dst = cluster.map_shared_rank(mine, q);
       *reinterpret_cast<float4*>(dst) = vr;
       *reinterpret_cast<float4*>(dst + H * R) = vz;
@@ -534,56 +953,58 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
     }
     cluster.sync();
 
-    const float* dgb = slot + r0;
-    if constexpr (kKind == kSplit) {
-      // three H-deep sums, one per gate block of W_hh^T, added in order
-      float acc[3][kRowsPerThread] = {};
-#pragma unroll
-      for (int gate = 0; gate < 3; ++gate) {
-#pragma unroll 4
-        for (int j = gate * H; j < (gate + 1) * H; ++j) {
-          const float4 d = *reinterpret_cast<const float4*>(dgb + j * R);
-          const float wv = wt_s[j * U + u];
-          acc[gate][0] = fmaf(d.x, wv, acc[gate][0]);
-          acc[gate][1] = fmaf(d.y, wv, acc[gate][1]);
-          acc[gate][2] = fmaf(d.z, wv, acc[gate][2]);
-          acc[gate][3] = fmaf(d.w, wv, acc[gate][3]);
+    if (chain) {
+      const float* dgb = slot + r0;
+      if constexpr (kKind == kSplit) {
+        // three H-deep sums, one per gate block of W_hh^T, added in order
+        float acc[3][kRowsPerThread] = {};
+  #pragma unroll
+        for (int gate = 0; gate < 3; ++gate) {
+  #pragma unroll 4
+          for (int j = gate * H; j < (gate + 1) * H; ++j) {
+            const float4 d = *reinterpret_cast<const float4*>(dgb + j * R);
+            const float wv = wt_s[j * U + u];
+            acc[gate][0] = fmaf(d.x, wv, acc[gate][0]);
+            acc[gate][1] = fmaf(d.y, wv, acc[gate][1]);
+            acc[gate][2] = fmaf(d.z, wv, acc[gate][2]);
+            acc[gate][3] = fmaf(d.w, wv, acc[gate][3]);
+          }
         }
+  #pragma unroll
+        for (int i = 0; i < kRowsPerThread; ++i)
+          dh[i] = ((dhz[i] + acc[0][i]) + acc[1][i]) + acc[2][i];
+      } else {
+        // dh_carry = dh_t * z + dg . W_hh^T[:, unit]; two partial sums a row
+        float a0[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float a1[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
+        int j = 0;
+  #pragma unroll 4
+        for (; j + 1 < G; j += 2) {
+          const float4 d0 = *reinterpret_cast<const float4*>(dgb + j * R);
+          const float4 d1 = *reinterpret_cast<const float4*>(dgb + (j + 1) * R);
+          const float w0 = wt_s[j * U + u];
+          const float w1 = wt_s[(j + 1) * U + u];
+          a0[0] = fmaf(d0.x, w0, a0[0]);
+          a0[1] = fmaf(d0.y, w0, a0[1]);
+          a0[2] = fmaf(d0.z, w0, a0[2]);
+          a0[3] = fmaf(d0.w, w0, a0[3]);
+          a1[0] = fmaf(d1.x, w1, a1[0]);
+          a1[1] = fmaf(d1.y, w1, a1[1]);
+          a1[2] = fmaf(d1.z, w1, a1[2]);
+          a1[3] = fmaf(d1.w, w1, a1[3]);
+        }
+        if (j < G) {  // odd H
+          const float4 d0 = *reinterpret_cast<const float4*>(dgb + j * R);
+          const float w0 = wt_s[j * U + u];
+          a0[0] = fmaf(d0.x, w0, a0[0]);
+          a0[1] = fmaf(d0.y, w0, a0[1]);
+          a0[2] = fmaf(d0.z, w0, a0[2]);
+          a0[3] = fmaf(d0.w, w0, a0[3]);
+        }
+  #pragma unroll
+        for (int i = 0; i < kRowsPerThread; ++i)
+          dh[i] = dhz[i] + (a0[i] + a1[i]);
       }
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        dh[i] = ((dhz[i] + acc[0][i]) + acc[1][i]) + acc[2][i];
-    } else {
-      // dh_carry = dh_t * z + dg . W_hh^T[:, unit]; two partial sums a row
-      float a0[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float a1[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
-      int j = 0;
-#pragma unroll 4
-      for (; j + 1 < G; j += 2) {
-        const float4 d0 = *reinterpret_cast<const float4*>(dgb + j * R);
-        const float4 d1 = *reinterpret_cast<const float4*>(dgb + (j + 1) * R);
-        const float w0 = wt_s[j * U + u];
-        const float w1 = wt_s[(j + 1) * U + u];
-        a0[0] = fmaf(d0.x, w0, a0[0]);
-        a0[1] = fmaf(d0.y, w0, a0[1]);
-        a0[2] = fmaf(d0.z, w0, a0[2]);
-        a0[3] = fmaf(d0.w, w0, a0[3]);
-        a1[0] = fmaf(d1.x, w1, a1[0]);
-        a1[1] = fmaf(d1.y, w1, a1[1]);
-        a1[2] = fmaf(d1.z, w1, a1[2]);
-        a1[3] = fmaf(d1.w, w1, a1[3]);
-      }
-      if (j < G) {  // odd H
-        const float4 d0 = *reinterpret_cast<const float4*>(dgb + j * R);
-        const float w0 = wt_s[j * U + u];
-        a0[0] = fmaf(d0.x, w0, a0[0]);
-        a0[1] = fmaf(d0.y, w0, a0[1]);
-        a0[2] = fmaf(d0.z, w0, a0[2]);
-        a0[3] = fmaf(d0.w, w0, a0[3]);
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        dh[i] = dhz[i] + (a0[i] + a1[i]);
     }
 
     if constexpr (kKind == kFused) {
@@ -593,13 +1014,15 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
         __threadfence();
         cluster.sync();
         const int s0 = s / kChunk * kChunk;
-        fused_products<T>(fa, bwd, dx, dhn, yss, stage, smp, s0, s + 1 - s0,
+        fused_products<T>(fa, bwd, dx, dhn, yss, dg_s, smp, s0, s + 1 - s0,
                           tile_row0, B, N, H, R, rank, C, part);
+        // no block pushes the next step's dg into a block still staging
+        cluster.sync();
       }
     }
   }
 
-  if constexpr (kKind == kFused) {
+  if (kKind == kFused && chain) {
     float* db = part + static_cast<size_t>(fa.D + H) * G +
                 static_cast<size_t>(threadIdx.x / U) * 4 * H;
     db[gu] = db_r;
@@ -648,6 +1071,224 @@ __global__ void bigru_bwd_reduce_kernel(const float* __restrict__ part,
     (bwd ? dbih_b : dbih_f)[j] = sum;
 }
 
+// The four lanes of a unit each hold partial sums v[r] for R rows;
+// afterwards lane p holds the full sum of row p % R (a reduce-scatter over
+// lane bits 0 and 1; an all-reduce where R < 4).
+template <int R>
+__device__ __forceinline__ float reduce_lanes(const float (&v)[R], int lane) {
+  const bool b0 = (lane & 1) != 0;
+  const bool b1 = (lane & 2) != 0;
+  if constexpr (R == 4) {
+    float half[2];  // rows 2j + b0, summed over lanes p and p ^ 1
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float keep = b0 ? v[2 * j + 1] : v[2 * j];
+      const float send = b0 ? v[2 * j] : v[2 * j + 1];
+      half[j] = keep + __shfl_xor_sync(kFullMask, send, 1);
+    }
+    const float keep = b1 ? half[1] : half[0];
+    const float send = b1 ? half[0] : half[1];
+    return keep + __shfl_xor_sync(kFullMask, send, 2);
+  } else if constexpr (R == 2) {
+    const float keep = b0 ? v[1] : v[0];
+    const float send = b0 ? v[0] : v[1];
+    const float out = keep + __shfl_xor_sync(kFullMask, send, 1);
+    return out + __shfl_xor_sync(kFullMask, out, 2);
+  } else {
+    static_assert(R == 1, "tiles of 1, 2 or 4 rows");
+    const float out = v[0] + __shfl_xor_sync(kFullMask, v[0], 1);
+    return out + __shfl_xor_sync(kFullMask, out, 2);
+  }
+}
+
+// The unit BPTT kernel: one block per tile of R rows of one direction, four
+// lanes per hidden unit, row u of W_hh in registers (see the notes at the
+// top). Same function, rounding points and outputs as kLinear with a grid
+// of one direction: dx [B, N, 3H] and dhn [B, N, H] from the gates gs, hn,
+// ys and dy; rev != 0 for a direction whose forward walked t = N-1 .. 0.
+template <typename T, int R>
+__global__ void __launch_bounds__(kUnitThreads)
+gru_bwd_unit_kernel(const T* __restrict__ w, const T* __restrict__ gs,
+                    const T* __restrict__ hns, const T* __restrict__ ys,
+                    const T* __restrict__ dys, T* __restrict__ dx,
+                    T* __restrict__ dhn, int B, int N, int H, int rev) {
+  constexpr int KC = 4 / R;                  // k values in one float4 of dg
+  constexpr int kChunks = kKPerLane / KC;    // float4 loads a gate a step
+  // the step's rounded dg = [dx_r, dx_z, dhn] as [gate][k][R] floats (j =
+  // gate * H + k), double buffered; k >= H stays 0
+  __shared__ float4 dg_s[2][3][kMaxUnitH * R / 4];
+  const int G = 3 * H;
+  const bool bwd = rev != 0;
+  const int lane = threadIdx.x % kLanes;
+  const int u = threadIdx.x / kLanes;  // hidden unit; u >= H pads the warp
+  const bool unit_valid = u < H;
+  const int uu = unit_valid ? u : 0;
+  const int row0 = blockIdx.x * R;
+
+  // this lane's values of row u of W_hh: chunk c of the lane covers k =
+  // (c * kLanes + lane) * KC + e, e < KC, in each gate block g * H + k
+  float wr[3][kKPerLane];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int e = 0; e < KC; ++e) {
+      const int k = (c * kLanes + lane) * KC + e;
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        wr[g][c * KC + e] =
+            unit_valid && k < H
+                ? to_f32<T>(w[static_cast<size_t>(u) * G + g * H + k])
+                : 0.0f;
+    }
+  float* dg_flat = reinterpret_cast<float*>(dg_s);
+  for (int i = threadIdx.x; i < 2 * 3 * kMaxUnitH * R; i += blockDim.x)
+    dg_flat[i] = 0.0f;
+
+  // the (row, unit) cell this lane updates: row p % R; lanes p < R store it
+  const int orow = lane % R;
+  const bool cell_valid = unit_valid && row0 + orow < B;
+  const bool owner = lane < R && cell_valid;
+  const size_t row = static_cast<size_t>(cell_valid ? row0 + orow : 0);
+  const size_t goff = row * N * G + uu;  // gates / dx of (row, t = 0, u)
+  const size_t hoff = row * N * H + uu;  // hn, ys, dy, dhn of (row, t = 0, u)
+  // h at the forward order's previous step (t - 1 forward, t + 1
+  // backward), read only after that order's first step
+  const int first = bwd ? N - 1 : 0;
+  const T* hps = ys + (bwd ? H : -H);
+
+  // r, z, n, hn, h_prev and dy of this lane's cell for the next kAhead
+  // steps as loaded, converted when used: a ring indexed by the step's place
+  // in an unrolled group, so each load has kAhead steps to land
+  T in[kAhead][6];
+  auto load = [&](T (&dst)[6], int s) {
+    const int t = bwd ? s : N - 1 - s;
+    const T zero = from_f32<T>(0.0f);
+    const T* gt = gs + goff + static_cast<size_t>(t) * G;
+    const size_t th = hoff + static_cast<size_t>(t) * H;
+    dst[0] = cell_valid ? gt[0] : zero;
+    dst[1] = cell_valid ? gt[H] : zero;
+    dst[2] = cell_valid ? gt[2 * H] : zero;
+    dst[3] = cell_valid ? hns[th] : zero;
+    dst[4] = cell_valid && t != first ? hps[th] : zero;
+    dst[5] = cell_valid ? dys[th] : zero;
+  };
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j)
+    if (j < N) load(in[j], j);
+  float dhz = 0.0f;   // dh_t * z of the previous step
+  __syncthreads();
+
+  auto step = [&](int s, T (&cur)[6]) {
+    const int t = bwd ? s : N - 1 - s;
+    float v[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) v[i] = to_f32<T>(cur[i]);
+    if (s + kAhead < N) load(cur, s + kAhead);
+
+    // the previous step's dg . W_hh[u, :] (zero at the first step)
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+#pragma unroll
+    for (int ch = 0; ch < kChunks; ++ch)
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        const float4 dv = dg_s[s & 1][g][ch * kLanes + lane];
+        const float dk[4] = {dv.x, dv.y, dv.z, dv.w};  // [e][r]
+#pragma unroll
+        for (int e = 0; e < KC; ++e)
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            acc[r] = fmaf(dk[e * R + r], wr[g][ch * KC + e], acc[r]);
+      }
+    const float dh_t = v[5] + (dhz + reduce_lanes<R>(acc, lane));
+
+    const float r = v[0], z = v[1], n = v[2], hn = v[3], hp = v[4];
+    const float a = (1.0f - z) * (1.0f - n * n);
+    const float c_r = round_to<T>(a * hn * r * (1.0f - r));
+    const float c_z = round_to<T>((hp - n) * z * (1.0f - z));
+    const float c_n = round_to<T>(a);
+    const float dxr = dh_t * c_r;
+    const float dxz = dh_t * c_z;
+    const float dxn = dh_t * c_n;
+    const float dhn_t = dxn * r;
+    dhz = dh_t * z;
+    if (lane < R && unit_valid) {
+      const int i = u * R + orow;
+      reinterpret_cast<float*>(dg_s[(s + 1) & 1][0])[i] = round_to<T>(dxr);
+      reinterpret_cast<float*>(dg_s[(s + 1) & 1][1])[i] = round_to<T>(dxz);
+      reinterpret_cast<float*>(dg_s[(s + 1) & 1][2])[i] = round_to<T>(dhn_t);
+    }
+    if (owner) {
+      T* o = dx + goff + static_cast<size_t>(t) * G;
+      o[0] = from_f32<T>(dxr);
+      o[H] = from_f32<T>(dxz);
+      o[2 * H] = from_f32<T>(dxn);
+      dhn[hoff + static_cast<size_t>(t) * H] = from_f32<T>(dhn_t);
+    }
+    __syncthreads();
+  };
+  for (int s0 = 0; s0 < N; s0 += kAhead) {
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j)
+      if (s0 + j < N) step(s0 + j, in[j]);
+  }
+}
+
+// The unit kernel's static shared memory (the dg tile, double buffered) and
+// threads: four lanes for each of H units, padded to whole warps (the
+// wrapper's unit_smem_bytes(R, 3) and unit_threads mirror them).
+constexpr size_t unit_smem_bytes(int R) {
+  return 2 * 3 * static_cast<size_t>(kMaxUnitH) * R * sizeof(float);
+}
+constexpr int unit_threads(int H) { return kLanes * ((H + 7) / 8 * 8); }
+
+bool valid_unit_plan(int B, int N, int H, int R) {
+  return B > 0 && N > 0 && H > 0 && H <= kMaxUnitH &&
+         (R == 1 || R == 2 || R == 4);
+}
+
+template <typename T>
+const void* unit_kernel(int R) {
+  if (R == 1) return reinterpret_cast<const void*>(gru_bwd_unit_kernel<T, 1>);
+  if (R == 2) return reinterpret_cast<const void*>(gru_bwd_unit_kernel<T, 2>);
+  return reinterpret_cast<const void*>(gru_bwd_unit_kernel<T, 4>);
+}
+
+template <typename T>
+int launch_unit(const void* w, const void* gs, const void* hn, const void* ys,
+                const void* dy, void* dx, void* dhn, int B, int N, int H,
+                int R, int rev, void* stream) {
+  if (!valid_unit_plan(B, N, H, R))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((B + R - 1) / R, 1);
+  const int threads = unit_threads(H);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto in = [](const void* p) { return static_cast<const T*>(p); };
+  auto out = [](void* p) { return static_cast<T*>(p); };
+  if (R == 1)
+    gru_bwd_unit_kernel<T, 1><<<grid, threads, 0, st>>>(
+        in(w), in(gs), in(hn), in(ys), in(dy), out(dx), out(dhn), B, N, H,
+        rev);
+  else if (R == 2)
+    gru_bwd_unit_kernel<T, 2><<<grid, threads, 0, st>>>(
+        in(w), in(gs), in(hn), in(ys), in(dy), out(dx), out(dhn), B, N, H,
+        rev);
+  else
+    gru_bwd_unit_kernel<T, 4><<<grid, threads, 0, st>>>(
+        in(w), in(gs), in(hn), in(ys), in(dy), out(dx), out(dhn), B, N, H,
+        rev);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int unit_blocks_per_sm(int H, int R) {
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, unit_kernel<T>(R), unit_threads(H), 0);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
 // Dynamic shared memory one block needs, in bytes (the wrapper's
 // bigru_smem_bytes mirrors it to pick the cluster size, and is held to it
 // through bigru_bwd_smem_bytes when the library loads).
@@ -655,10 +1296,9 @@ size_t smem_bytes(int kind, int H, int C, int R) {
   const size_t U = static_cast<size_t>(H / C);
   const size_t G = 3 * static_cast<size_t>(H);
   size_t floats = pad4(G * U) + 2 * G * R;
-  if (kind == kFused) {
-    const size_t threads = U * (R / kRowsPerThread);
-    floats += kSlab * (threads / 4 + kTileN) + kChunk * static_cast<size_t>(R);
-  }
+  if (kind == kFused)   // the exchange tile doubles as the staging region
+    floats = pad4(G * U) + fused_stage_floats(G, R) +
+             kChunk * static_cast<size_t>(R);
   return floats * sizeof(float);
 }
 
@@ -688,11 +1328,14 @@ cudaError_t allow_smem(int smem) {
   return err;
 }
 
-void make_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int B,
-                 int H, int C, int R, int dirs, size_t smem, void* stream) {
+void make_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                 int kind, int B, int H, int C, int R, int dirs, size_t smem,
+                 void* stream) {
   *cfg = {};
   cfg->gridDim = dim3(C * ((B + R - 1) / R), dirs, 1);
-  cfg->blockDim = dim3((H / C) * (R / kRowsPerThread), 1, 1);
+  cfg->blockDim = dim3(kind == kFused ? kFusedMaxThreads
+                                      : (H / C) * (R / kRowsPerThread),
+                       1, 1);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = static_cast<cudaStream_t>(stream);
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -717,7 +1360,7 @@ int launch(const void* w_f, const void* w_b, const void* gs_f,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  make_config(&cfg, &attr, B, H, C, R, dirs, smem, stream);
+  make_config(&cfg, &attr, kKind, B, H, C, R, dirs, smem, stream);
   auto in = [](const void* p) { return static_cast<const T*>(p); };
   auto out = [](void* p) { return static_cast<T*>(p); };
   err = cudaLaunchKernelEx(&cfg, bigru_bwd_kernel<T, kKind>, in(w_f),
@@ -762,7 +1405,7 @@ int max_active_clusters(int H, int C, int R) {
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  make_config(&cfg, &attr, R, H, C, R, 1, smem, nullptr);
+  make_config(&cfg, &attr, kKind, R, H, C, R, 1, smem, nullptr);
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(&n, bigru_bwd_kernel<T, kKind>, &cfg);
   return err == cudaSuccess ? n : -static_cast<int>(err);
@@ -852,6 +1495,48 @@ int gru_bwd_bf16(const void* w, const void* gs, const void* hn,
   return launch<__nv_bfloat16, kLinear>(
       w, w, gs, hn, ys, dy, gs, hn, ys, dy, dx, dhn, dx, dhn, B, N, H, C, R,
       1, reverse, FusedArgs<__nv_bfloat16>{}, stream);
+}
+
+// One direction of a GRU on the unit kernel (H <= 64), batch tiles of R
+// rows (1, 2 or 4): arguments and outputs as gru_bwd_* without the cluster
+// size.
+int gru_bwd_unit_f32(const void* w, const void* gs, const void* hn,
+                     const void* ys, const void* dy, void* dx, void* dhn,
+                     int B, int N, int H, int R, int reverse, void* stream) {
+  return launch_unit<float>(w, gs, hn, ys, dy, dx, dhn, B, N, H, R, reverse,
+                            stream);
+}
+
+int gru_bwd_unit_bf16(const void* w, const void* gs, const void* hn,
+                      const void* ys, const void* dy, void* dx, void* dhn,
+                      int B, int N, int H, int R, int reverse, void* stream) {
+  return launch_unit<__nv_bfloat16>(w, gs, hn, ys, dy, dx, dhn, B, N, H, R,
+                                    reverse, stream);
+}
+
+// How many blocks of the unit kernel (bf16: 0 or 1) at hidden size H and
+// tile R one SM of the current device runs at once; a negative cudaError_t
+// code on failure. `save` is taken for the forward sources' signature of
+// this query and ignored (the BPTT has one variant).
+int gru_bwd_unit_blocks_per_sm(int bf16, int save, int H, int R) {
+  (void)save;
+  if (!valid_unit_plan(1, 1, H, R))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return bf16 ? unit_blocks_per_sm<__nv_bfloat16>(H, R)
+              : unit_blocks_per_sm<float>(H, R);
+}
+
+// The unit kernel's layout at hidden size H and tile R, for the wrapper's
+// mirror: what 0 = static shared memory in bytes, 1 = threads a block, 2 =
+// W_hh values a lane holds in registers; -1 for a plan it does not take.
+int gru_bwd_unit_layout(int what, int H, int R) {
+  if (!valid_unit_plan(1, 1, H, R)) return -1;
+  switch (what) {
+    case 0: return static_cast<int>(unit_smem_bytes(R));
+    case 1: return unit_threads(H);
+    case 2: return 3 * kKPerLane;
+    default: return -1;
+  }
 }
 
 // How many clusters of kind (0 linear, 1 split, 2 fused) the current device

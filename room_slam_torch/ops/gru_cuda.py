@@ -60,11 +60,15 @@ it). The same two sources launch it with a grid of one direction:
 them. Their plain versions are ``ops/rnn.py`` ``gru_recurrence``,
 ``gru_fwd_train_plain`` (the same loop with ``residuals``) and
 ``gru_bwd_plain``. At H <= ``UNIT_MAX_H`` (the legacy model's H=64) the
-one-direction forward runs the unit kernel of ``csrc/bigru_fwd.cu``
-instead of the cluster kernel: four lanes of a warp own one hidden unit of
-a tile of 1, 2 or 4 rows, W_hh in their registers, one block barrier a
-step; ``gru_fwd_kernel_route`` chooses, ``rnn_cuda.unit_plan`` sizes the
-tile, and ``last_launch`` records both.
+one-direction forward and BPTT run the unit kernels of
+``csrc/bigru_fwd.cu`` and ``csrc/bigru_bwd.cu`` instead of the cluster
+kernels: four lanes of a warp own one hidden unit of a tile of 1, 2 or 4
+rows, W_hh in their registers, one block barrier a step;
+``gru_fwd_kernel_route`` / ``gru_bwd_kernel_route`` choose,
+``rnn_cuda.unit_plan`` sizes the tile, and ``last_launch`` records both.
+
+With bf16 streams the fused kind (#9) runs its three input-side products on
+tensor cores (``mma.sync``); with float32 streams on CUDA cores.
 """
 
 from __future__ import annotations
@@ -103,25 +107,26 @@ def _pad4(n: int) -> int:
 # source (bigru_bwd_smem_bytes) before the first launch.
 KIND_THREADS = {"fwd": MAX_THREADS, "bwd": MAX_THREADS, "split": MAX_THREADS,
                 "fused": 256}   # __launch_bounds__ of each kernel kind
-_FUSED_SLAB, _FUSED_TILE_N, _FUSED_CHUNK = 16, 64, 48   # kSlab, kTileN, kChunk
+# kFusedStageFloats (a ring of four staged bf16 buffers of two 128 x 32
+# tiles, rows padded by 8) and kChunk
+_FUSED_STAGE, _FUSED_CHUNK = 4 * (128 + 128) * (32 + 8) // 2, 96
 
 
 def bigru_smem_bytes(kind: str, hidden: int, cluster: int, rows: int) -> int:
     """Dynamic shared memory one block of ``kind`` needs: its W_hh slice and
     a double-buffered exchange tile, both float32 (a bf16 value is exact in
     float32). ``kind`` is "fwd" (both forward kernels), "bwd" (the BPTT,
-    #6), "split" (#10, as "bwd") or "fused" (#9: also a product's staging
-    tile and a chunk's sample indices)."""
+    #6), "split" (#10, as "bwd") or "fused" (#9: the exchange tile doubles
+    as the products' staging region, grown to ``_FUSED_STAGE`` floats where
+    smaller, then a chunk's sample indices)."""
     U = hidden // cluster
     if kind == "fwd":    # W_hh[:, r|z|n of its U units] and h_{t-1} [H, R]
         return (_pad4(hidden * 3 * U) + 2 * hidden * rows) * 4
     # W_hh[its U units, :]^T and the gate cotangent dg [3H, R]
-    floats = _pad4(3 * hidden * U) + 2 * 3 * hidden * rows
+    tile = 2 * 3 * hidden * rows
     if kind == "fused":
-        threads = U * (rows // ROWS_PER_THREAD)
-        floats += (_FUSED_SLAB * (threads // 4 + _FUSED_TILE_N)
-                   + _FUSED_CHUNK * rows)
-    return floats * 4
+        tile = max(tile, _FUSED_STAGE) + _FUSED_CHUNK * rows
+    return (_pad4(3 * hidden * U) + tile) * 4
 
 
 def _plan_rule(kind: str, hidden: int, cluster: int, rows: int) -> bool:
@@ -217,6 +222,14 @@ def gru_fwd_kernel_route(hidden: int, dirs: int) -> str:
     "cluster" (``bigru_plan`` then picks its cluster and tile, or raises
     for an H no cluster size takes)."""
     return "unit" if dirs == 1 and 0 < hidden <= UNIT_MAX_H else "cluster"
+
+
+def gru_bwd_kernel_route(hidden: int, dirs: int) -> str:
+    """The BPTT kernel of ``csrc/bigru_bwd.cu`` that takes a launch of
+    ``dirs`` directions at hidden size ``hidden``: the forward's route,
+    "unit" (``gru_bwd_unit_kernel``) for one direction at H <=
+    ``UNIT_MAX_H``, else "cluster" (kLinear)."""
+    return gru_fwd_kernel_route(hidden, dirs)
 
 
 # ---------------------------------------------------------------------------
@@ -596,7 +609,8 @@ def _library(name: str):
             fns = {f"bigru_bwd_{sfx}": (14, 5),
                    f"bigru_bwd_split_{sfx}": (14, 5),
                    f"bigru_bwd_fused_{sfx}": (28, 6),
-                   f"gru_bwd_{sfx}": (7, 6)}
+                   f"gru_bwd_{sfx}": (7, 6),
+                   f"gru_bwd_unit_{sfx}": (7, 5)}
         for fn_name, (n_ptr, n_int) in fns.items():
             fn = getattr(lib, fn_name)
             fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
@@ -611,6 +625,7 @@ def _library(name: str):
         lib.bigru_bwd_smem_bytes.argtypes = [i] * 4
         lib.bigru_bwd_smem_bytes.restype = ctypes.c_int
         _check_mirror(lib)
+        bind_unit_queries(lib, "gru_bwd", gates=3, tiles=3)
     set_error_string(lib, name)
     return lib
 
@@ -852,6 +867,38 @@ def card_gru_unit_plans(B: int, H: int, dev: torch.device,
                            dtype, save, 1)
 
 
+def _gru_launch(fn, name: str, route, save: bool, ptrs, B, N, H, dev, T,
+                reverse: bool, plan):
+    """Launch one direction of a GRU: ``name`` "gru_fwd" or
+    "gru_fwd_train" (``csrc/bigru_fwd.cu``) or "gru_bwd"
+    (``csrc/bigru_bwd.cu``) on the pointers ``ptrs``, on the unit kernel
+    (``rnn_cuda.unit_plan``'s tile) or the cluster kernel (``bigru_plan``'s
+    plan) as ``route(H, 1)`` says, or as the caller's ``plan`` ("unit",
+    rows) or ("cluster", cluster, rows) forces; counted and recorded on
+    ``fn``."""
+    src = name[:len("gru_fwd")]          # the unit queries' name
+    kernel = route(H, 1) if plan is None else plan[0]
+    if kernel == "unit":
+        if H > UNIT_MAX_H:
+            raise ValueError(f"{name}: the unit kernel takes H <= "
+                             f"{UNIT_MAX_H}, not {H}")
+        lib = _library(f"bi{src}")
+        rows = unit_launch_rows(fn, lib, src, B, H, dev, T, save, 1,
+                                None if plan is None else plan[1])
+        launch(lib, f"{src}_unit{name[len(src):]}_{_SUFFIX[T]}", dev, *ptrs,
+               B, N, H, rows, int(reverse))
+    elif kernel == "cluster":
+        lib, cluster, rows = _plan_launch(src[len("gru_"):], fn, B, H, dev,
+                                          T, save, 1,
+                                          None if plan is None else plan[1:])
+        launch(lib, f"{name}_{_SUFFIX[T]}", dev, *ptrs, B, N, H, cluster,
+               rows, int(reverse))
+    else:
+        raise ValueError(f"{name}: plan must be ('unit', rows) or "
+                         f"('cluster', cluster, rows), got {plan}")
+    fn.launches += 1
+
+
 def _gru_fwd_launch(fn, save: bool, xg, w, b, reverse: bool, plan):
     _check_shapes(xg, xg, w, b, w, b)
     name = "gru_fwd_train" if save else "gru_fwd"
@@ -863,27 +910,10 @@ def _gru_fwd_launch(fn, save: bool, xg, w, b, reverse: bool, plan):
             for d in ((H, G, H) if save else (H,))]
     if B == 0 or N == 0:
         return tuple(outs)
-    kernel = gru_fwd_kernel_route(H, 1) if plan is None else plan[0]
     w = w.to(T).contiguous()
-    ptrs = [t.data_ptr() for t in (xg, w, b, *outs)]
-    if kernel == "unit":
-        if H > UNIT_MAX_H:
-            raise ValueError(f"{name}: the unit kernel takes H <= "
-                             f"{UNIT_MAX_H}, not {H}")
-        lib = _library("bigru_fwd")
-        rows = unit_launch_rows(fn, lib, "gru_fwd", B, H, dev, T, save, 1,
-                                None if plan is None else plan[1])
-        launch(lib, f"gru_fwd_unit{name[len('gru_fwd'):]}_{_SUFFIX[T]}", dev,
-               *ptrs, B, N, H, rows, int(reverse))
-    elif kernel == "cluster":
-        lib, cluster, rows = _plan_launch("fwd", fn, B, H, dev, T, save, 1,
-                                          None if plan is None else plan[1:])
-        launch(lib, f"{name}_{_SUFFIX[T]}", dev, *ptrs, B, N, H, cluster,
-               rows, int(reverse))
-    else:
-        raise ValueError(f"{name}: plan must be ('unit', rows) or "
-                         f"('cluster', cluster, rows), got {plan}")
-    fn.launches += 1
+    _gru_launch(fn, name, gru_fwd_kernel_route, save,
+                [t.data_ptr() for t in (xg, w, b, *outs)], B, N, H, dev, T,
+                reverse, plan)
     return tuple(outs)
 
 
@@ -913,9 +943,23 @@ def gru_fwd_train_cuda(xg, w, b, reverse: bool = False,
 gru_fwd_train_cuda.launches = 0
 
 
-def gru_bwd_cuda(w, gs, hn, ys, dy, reverse: bool = False):
+def card_gru_bwd_unit_plans(B: int, H: int, dev: torch.device,
+                            dtype: torch.dtype) -> List[int]:
+    """``rnn_cuda.unit_plans`` of the one-direction GRU BPTT unit kernel on
+    the card ``dev``, fastest first; the first is the tile a launch
+    takes."""
+    return card_unit_plans(_library("bigru_bwd"), "gru_bwd", B, H, dev,
+                           dtype, False, 1)
+
+
+def gru_bwd_cuda(w, gs, hn, ys, dy, reverse: bool = False,
+                 plan: Optional[tuple] = None):
     """Launch ``csrc/bigru_bwd.cu`` with a grid of one direction:
-    ``(dx, dhn)``. Counts each launch in ``gru_bwd_cuda.launches``."""
+    ``(dx, dhn)``. ``gru_bwd_kernel_route`` picks the unit kernel or the
+    cluster kernel (kLinear); ``plan=("unit", rows)`` or ``("cluster",
+    cluster, rows)`` overrides the route and the planner (raises if it does
+    not fit). Records the plan in ``gru_bwd_cuda.last_launch`` and counts
+    each launch in ``gru_bwd_cuda.launches``."""
     H = w.shape[0]
     B, N, G = gs.shape
     shapes = [tuple(t.shape) for t in (w, gs, hn, ys, dy)]
@@ -928,13 +972,10 @@ def gru_bwd_cuda(w, gs, hn, ys, dy, reverse: bool = False):
     outs = [torch.empty(B, N, d, dtype=T, device=dev) for d in (G, H)]
     if B == 0 or N == 0:
         return tuple(outs)
-    lib, cluster, rows = _plan_launch("bwd", gru_bwd_cuda, B, H, dev, T,
-                                      False, 1)
     w = w.to(T).contiguous()
-    launch(lib, f"gru_bwd_{_SUFFIX[T]}", dev,
-           *(t.data_ptr() for t in (w, *streams, *outs)), B, N, H, cluster,
-           rows, int(reverse))
-    gru_bwd_cuda.launches += 1
+    _gru_launch(gru_bwd_cuda, "gru_bwd", gru_bwd_kernel_route, False,
+                [t.data_ptr() for t in (w, *streams, *outs)], B, N, H, dev, T,
+                reverse, plan)
     return tuple(outs)
 
 

@@ -83,10 +83,12 @@ def bilstm_smem_bytes(hidden: int) -> int:
     return (hidden * G + _ROWS_PER_BLOCK * G + _ROWS_PER_BLOCK * hidden) * 4
 
 
-def unit_smem_bytes(rows: int) -> int:
-    """Static shared memory of a unit kernel's block: the h tile [64][rows]
-    in float32, double buffered (``unit_smem_bytes`` of the sources)."""
-    return 2 * UNIT_MAX_H * rows * 4
+def unit_smem_bytes(rows: int, tiles: int = 1) -> int:
+    """Static shared memory of a unit kernel's block: ``tiles`` tiles of
+    [64][rows] float32, double buffered (``unit_smem_bytes`` of the
+    sources): the forward kernels' h tile (one), the GRU BPTT's dg tile
+    (three, one per gate block of W_hh's row)."""
+    return 2 * tiles * UNIT_MAX_H * rows * 4
 
 
 def unit_threads(hidden: int) -> int:
@@ -101,15 +103,15 @@ def unit_weight_regs(gates: int) -> int:
     return gates * UNIT_MAX_H // UNIT_LANES
 
 
-def check_unit_mirror(layout, gates: int, name: str) -> None:
-    """Hold ``unit_smem_bytes``, ``unit_threads`` and ``unit_weight_regs``
-    to a built source's ``<name>_unit_layout(what, H, R)`` over every H and
-    tile it takes (and -1 for one it does not); raises on the first
-    difference."""
+def check_unit_mirror(layout, gates: int, name: str, tiles: int = 1) -> None:
+    """Hold ``unit_smem_bytes`` (of ``tiles`` tiles), ``unit_threads`` and
+    ``unit_weight_regs`` to a built source's ``<name>_unit_layout(what, H,
+    R)`` over every H and tile it takes (and -1 for one it does not);
+    raises on the first difference."""
     for hidden in range(1, UNIT_MAX_H + 2):
         for rows in (*UNIT_ROWS, 3):
             fits = hidden <= UNIT_MAX_H and rows in UNIT_ROWS
-            want = ((unit_smem_bytes(rows), unit_threads(hidden),
+            want = ((unit_smem_bytes(rows, tiles), unit_threads(hidden),
                      unit_weight_regs(gates)) if fits else (-1, -1, -1))
             got = tuple(layout(what, hidden, rows) for what in range(3))
             if got != want:
@@ -457,10 +459,11 @@ def _library(name: str):
     return lib
 
 
-def bind_unit_queries(lib, name: str, gates: int) -> None:
+def bind_unit_queries(lib, name: str, gates: int, tiles: int = 1) -> None:
     """Bind ``<name>_unit_blocks_per_sm`` (the bf16 flag, the kSave flag,
-    H, R) and ``<name>_unit_layout`` (what, H, R) of a forward source and
-    hold the wrapper's unit-kernel mirror to the latter."""
+    H, R) and ``<name>_unit_layout`` (what, H, R) of a unit kernel
+    (``tiles`` as ``unit_smem_bytes``) and hold the wrapper's unit-kernel
+    mirror to the latter."""
     i = ctypes.c_int
     per_sm = getattr(lib, f"{name}_unit_blocks_per_sm")
     per_sm.argtypes = [i] * 4
@@ -468,7 +471,7 @@ def bind_unit_queries(lib, name: str, gates: int) -> None:
     layout = getattr(lib, f"{name}_unit_layout")
     layout.argtypes = [i] * 3
     layout.restype = i
-    check_unit_mirror(layout, gates, name)
+    check_unit_mirror(layout, gates, name, tiles)
 
 
 _UNIT_PLANS: dict = {}   # unit-kernel launch plans by source, shape, dtype

@@ -571,3 +571,82 @@ def test_lstm_wide_kernel_above_unit_width(cuda):
         _assert_close(a, r, torch.float32)
     _assert_close(rnn_cuda.lstm_fwd_cuda(xg_b, w_b, True),
                   rnn_cuda.lstm_recurrence(xg_b, w_b, True), torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# The one-direction GRU BPTT unit kernel of csrc/bigru_bwd.cu (H <= 64): every
+# batch tile the card runs and the planner's own pick, at the unit shapes
+# above, both walk orders, float32 and bfloat16, against gru_bwd_plain
+# (values as above, max-rel GRAD_REL / 0.1), and GRUFunction's gradients
+# against autograd through the plain loop.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", UNIT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_bwd_unit_kernels_match_plain(cuda, shape, dtype):
+    xg, _, w, b, _, _ = _gru_inputs(*shape, dtype, cuda)
+    bound = GRAD_REL if dtype == torch.float32 else 0.1
+    for rev in (False, True):
+        ys, gs, hn = gru_cuda.gru_fwd_train_plain(xg, w, b, rev)
+        dy = torch.randn(ys.shape, device=cuda, generator=torch.Generator(
+            cuda).manual_seed(3)).to(dtype)
+        ref = gru_cuda.gru_bwd_plain(w, gs, hn, ys, dy, rev)
+        for plan in UNIT_PLANS:
+            before = gru_cuda.gru_bwd_cuda.launches
+            got = gru_cuda.gru_bwd_cuda(w, gs, hn, ys, dy, rev, plan=plan)
+            assert gru_cuda.gru_bwd_cuda.launches == before + 1
+            assert gru_cuda.gru_bwd_cuda.last_launch["kernel"] == "unit"
+            for a, r in zip(got, ref):
+                _assert_close(a, r, dtype)
+                assert _max_rel(a.float(), r.float()) <= bound, plan
+        x = [t.clone().requires_grad_(True) for t in (xg, w, b)]
+        grads = torch.autograd.grad(gru_cuda.gru_recurrence_kernel(*x, rev),
+                                    x, dy)
+        assert gru_cuda.gru_bwd_cuda.last_launch["kernel"] == "unit"
+        ref_g = torch.autograd.grad(gru_cuda.gru_recurrence(*x, rev), x, dy)
+        for name, a, r in zip(("dxg", "dW_hh", "db_hh"), grads, ref_g):
+            assert a.dtype == r.dtype and torch.isfinite(a).all(), name
+            assert _max_rel(a.float(), r.float()) <= bound, name
+    torch.cuda.synchronize()
+
+
+# sample counts (B x 96-step chunks, a last chunk of 1), D and 3H that are
+# no multiple of the 64 x 128 x 32 tensor-core tiles; D = 36 also leaves x's
+# rows off 16-byte alignment (staged by value, not cp.async)
+FUSED_EDGE_SHAPES = [(5, 97, 32, 40), (5, 97, 32, 36), (7, 61, 48, 20)]
+
+
+@pytest.mark.parametrize("shape", FUSED_EDGE_SHAPES)
+def test_bigru_layer_fused_tensor_core_edges(cuda, shape):
+    """#9 in bf16 (its products on tensor cores) through ``bigru_layer``
+    under grad at shapes off the mma tiles: the nine gradients against the
+    layer with #9's plain version (max-rel 0.1), and a second run bit for
+    bit."""
+    B, N, H, D = shape
+    g = np.random.default_rng(6)
+    bf = torch.bfloat16
+    x = torch.tensor(g.normal(size=(B, N, D)) * 0.5, dtype=torch.float32,
+                     device=cuda).to(bf)
+    ws = [torch.tensor(g.uniform(-1, 1, size=sz) / np.sqrt(sz[0]),
+                       dtype=torch.float32, device=cuda)
+          for _ in range(2)
+          for sz in ((D, 3 * H), (3 * H,), (H, 3 * H), (3 * H,))]
+    dy = torch.randn(B, N, 2 * H, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(7)).to(bf)
+
+    def grads():
+        ins = [t.clone().requires_grad_(True) for t in (x, *ws)]
+        return torch.autograd.grad(gru_cuda.bigru_layer(*ins), ins, dy)
+
+    before = gru_cuda.bigru_bwd_fused_cuda.launches
+    got, again = grads(), grads()
+    torch.cuda.synchronize()
+    assert gru_cuda.bigru_bwd_fused_cuda.launches == before + 2
+    with mock.patch.object(gru_cuda, "bigru_bwd_fused",
+                           gru_cuda.bigru_bwd_fused_plain):
+        ref = grads()
+    for a, a2, r in zip(got, again, ref):
+        assert torch.equal(a, a2)
+        assert a.dtype == r.dtype and torch.isfinite(a).all()
+        assert _max_rel(a.float(), r.float()) <= 0.1

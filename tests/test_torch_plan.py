@@ -1,15 +1,17 @@
-"""Launch planning of the forward recurrences, on the CPU: which kernel of
-``csrc/bilstm_fwd.cu`` / ``csrc/bigru_fwd.cu`` takes a shape, the unit
-kernels' batch tile from the card's counts (fake H100 counts here: 132 SMs),
-the wrappers' mirrors of the sources' layouts, and what each wrapper
-launches and records in ``last_launch`` (the kernel library and the launch
-replaced by fakes that record the call)."""
+"""Launch planning of the recurrences, on the CPU: which kernel of
+``csrc/bilstm_fwd.cu`` / ``csrc/bigru_fwd.cu`` / ``csrc/bigru_bwd.cu``
+takes a shape, the unit kernels' batch tile from the card's counts (fake
+H100 counts here: 132 SMs), the wrappers' mirrors of the sources' layouts,
+and what each wrapper launches and records in ``last_launch`` (the kernel
+library and the launch replaced by fakes that record the call)."""
 
 import pytest
 import torch
 
 from room_slam_torch.ops import gru_cuda, rnn_cuda
-from room_slam_torch.ops.gru_cuda import bigru_plan, gru_fwd_kernel_route
+from room_slam_torch.ops.gru_cuda import (bigru_plan, bigru_smem_bytes,
+                                          gru_bwd_kernel_route,
+                                          gru_fwd_kernel_route)
 from room_slam_torch.ops.rnn_cuda import (check_unit_mirror,
                                           lstm_fwd_kernel_route, unit_plan,
                                           unit_plans, unit_smem_bytes,
@@ -207,3 +209,112 @@ def test_lstm_wrappers_launch_and_record(fake_card):
         rnn_cuda.lstm_fwd_cuda(z(4, 3, 384), z(96, 384), plan=("unit", 1))
     with pytest.raises(ValueError, match="plan"):
         rnn_cuda.lstm_fwd_cuda(z(4, 3, 256), z(64, 256), plan=("wide", 2))
+
+
+# ---------------------------------------------------------------------------
+# The one-direction GRU BPTT: the unit kernel at H <= 64, the cluster kernel
+# (kLinear) above it and for two directions
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("hidden,dirs,want", [
+    (16, 1, "unit"), (64, 1, "unit"), (65, 1, "cluster"), (64, 2, "cluster"),
+    (256, 2, "cluster")])
+def test_gru_bwd_route(hidden, dirs, want):
+    assert gru_bwd_kernel_route(hidden, dirs) == want
+
+
+def test_gru_bwd_unit_mirror_check_against_source_layout():
+    """The BPTT unit kernel's dg tile holds three [64][R] tiles (one per
+    gate block of W_hh's row); ``check_unit_mirror`` with ``tiles=3``
+    accepts a source laid out so and names the first plan of one laid out
+    as the forward's single h tile."""
+    def layout(what, hidden, rows, tiles=3):
+        if hidden > 64 or rows not in (1, 2, 4):
+            return -1
+        return (unit_smem_bytes(rows, tiles), unit_threads(hidden),
+                unit_weight_regs(3))[what]
+
+    assert unit_smem_bytes(4, 3) == 2 * 3 * 64 * 4 * 4
+    check_unit_mirror(layout, 3, "gru_bwd", tiles=3)
+    with pytest.raises(RuntimeError, match="H=1, R=1"):
+        check_unit_mirror(lambda w, h, r: layout(w, h, r, tiles=1), 3,
+                          "gru_bwd", tiles=3)
+
+
+def _bwd_args(B, N, H, dtype=torch.float32):
+    z = torch.zeros
+    return (z(H, 3 * H), z(B, N, 3 * H, dtype=dtype),
+            *(z(B, N, H, dtype=dtype) for _ in range(3)))
+
+
+def test_gru_bwd_wrapper_launches_unit_and_cluster(fake_card):
+    """The legacy shape (32, 500, 64) launches ``gru_bwd_unit_*`` (7
+    pointers, B, N, H, R, reverse) with the planner's one-row tile; the
+    one-direction H=256 launch the cluster entry (7 pointers, B, N, H, C,
+    R, reverse) at the planner's plan; both record it."""
+    fn = gru_cuda.gru_bwd_cuda
+    fn(*_bwd_args(32, 500, 64), True)
+    name, args = fake_card.calls[-1]
+    assert name == "gru_bwd_unit_f32"
+    assert len(args) == 12 and args[7:] == (32, 500, 64, 1, 1)
+    assert fn.last_launch == {"kernel": "unit", "cluster": 1, "rows": 1,
+                              "clusters": 32, "resident": 264}
+    fn(*_bwd_args(8, 1000, 256, torch.bfloat16))
+    name, args = fake_card.calls[-1]
+    c, r = bigru_plan("bwd", 8, 256, _clusters, dirs=1)
+    assert name == "gru_bwd_bf16"
+    assert len(args) == 13 and args[7:] == (8, 1000, 256, c, r, 0)
+    assert fn.last_launch["kernel"] == "cluster"
+    assert fn.last_launch["clusters"] == -(-8 // r)
+
+
+def test_gru_bwd_launch_follows_its_route(fake_card, monkeypatch):
+    """``gru_bwd_cuda`` asks ``gru_bwd_kernel_route``, not the forward's
+    route: sending the legacy shape to the cluster kernel there moves the
+    BPTT's launch and leaves the forward's on the unit kernel."""
+    monkeypatch.setattr(gru_cuda, "gru_bwd_kernel_route",
+                        lambda hidden, dirs: "cluster")
+    gru_cuda.gru_bwd_cuda(*_bwd_args(32, 5, 64))
+    assert fake_card.calls[-1][0] == "gru_bwd_f32"
+    assert gru_cuda.gru_bwd_cuda.last_launch["kernel"] == "cluster"
+    gru_cuda.gru_fwd_cuda(*_gru_args(32, 5, 64))
+    assert fake_card.calls[-1][0] == "gru_fwd_unit_f32"
+
+
+def test_gru_bwd_plan_forced_or_refused(fake_card):
+    """``plan=`` takes a unit tile or a cluster plan that fits, and refuses
+    a tile the unit kernel has not, the unit kernel above H=64, a cluster
+    plan that does not fit and another kernel's plan."""
+    fn = gru_cuda.gru_bwd_cuda
+    fn(*_bwd_args(17, 5, 48), False, plan=("unit", 4))
+    assert fake_card.calls[-1][0] == "gru_bwd_unit_f32"
+    assert fake_card.calls[-1][1][7:] == (17, 5, 48, 4, 0)
+    assert fn.last_launch["clusters"] == 5
+    fn(*_bwd_args(32, 5, 64), True, plan=("cluster", 1, 4))
+    assert fake_card.calls[-1][0] == "gru_bwd_f32"
+    assert fake_card.calls[-1][1][7:] == (32, 5, 64, 1, 4, 1)
+    n = len(fake_card.calls)
+    with pytest.raises(ValueError, match="tiles"):
+        fn(*_bwd_args(32, 5, 64), plan=("unit", 3))
+    with pytest.raises(ValueError, match="unit kernel"):
+        fn(*_bwd_args(4, 5, 256), plan=("unit", 1))
+    with pytest.raises(ValueError, match="does not fit"):
+        fn(*_bwd_args(32, 5, 64), plan=("cluster", 3, 4))
+    with pytest.raises(ValueError, match="plan"):
+        fn(*_bwd_args(32, 5, 64), plan=("wide", 4))
+    assert len(fake_card.calls) == n
+
+
+@pytest.mark.parametrize("hidden,cluster,rows,floats", [
+    (256, 8, 20, 24576 + 2 * 768 * 20 + 96 * 20),   # the exchange tile
+    (16, 1, 4, 768 + 20480 + 96 * 4)])              # grown to the stage
+def test_fused_staging_reuses_exchange_tile(hidden, cluster, rows, floats):
+    """#9's tensor-core products stage their operands in the exchange tile
+    (idle between the chunk's two cluster barriers), grown to a ring of
+    four bf16 buffers of two 128 x 32 tiles where it is smaller, then the
+    chunk's 96 steps of sample indices; the scale-up plan (8 blocks of 20
+    rows) still fits one block."""
+    assert bigru_smem_bytes("fused", hidden, cluster, rows) == 4 * floats
+    assert bigru_smem_bytes("fused", 256, 8, 20) <= gru_cuda.MAX_SMEM_BYTES
+    assert bigru_plan("fused", 128, 256, _clusters) == (8, 20)
