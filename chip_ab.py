@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time chip_smoke.py's legacy train step and fused BiGRU layer from two
-checkouts of this repository on one CUDA card, in turns.
+"""Time chip_smoke.py's flagship and legacy train steps, the LSTM BPTT
+kernels and the fused BiGRU layer from two checkouts of this repository on
+one CUDA card, in turns.
 
     python3 chip_ab.py --parent DIR [--output FILE]
 
@@ -16,7 +17,12 @@ checkout's root that imports that checkout's ``chip_smoke.py`` and
   split; the ``gru_fwd_train`` and ``gru_bwd`` kernel times beside it
   from CUDA events;
 - phase 27: ``fused_ab``, one scale-up BiGRU layer's forward + backward
-  fused (#9) and unfused, and #9 alone.
+  fused (#9) and unfused, and #9 alone;
+- phase 11: ``time_steps``, the flagship train step at ``TRAIN`` (B=20,
+  N=1500) p50 over ``STEPS`` after ``STEP_WARMUP`` on phase 8's rooms,
+  then its per-stage split; the ``bilstm_fwd_train`` and ``bilstm_bwd``
+  kernel times at that shape beside it, and ``lstm_bwd`` at the legacy
+  shape (B=32, N=500, one direction), from CUDA events.
 
 It prints one line per run and, last, a JSON object of all runs (also
 written to ``--output``). Exits non-zero without a CUDA card; every
@@ -38,7 +44,7 @@ from pathlib import Path
 import torch
 import chip_smoke as cs
 from room_slam_torch.data.rooms import write_legacy_rooms
-from room_slam_torch.ops import build, gru_cuda
+from room_slam_torch.ops import build, gru_cuda, rnn_cuda
 
 seed = 0   # chip_smoke.py's default --seed
 dev = cs.resolve_device("cuda")
@@ -62,8 +68,26 @@ with tempfile.TemporaryDirectory() as tmp:
                        points=cs.LEGACY_POINTS)
     legacy = cs.time_legacy_steps(data, dev, seed, smi, rows)
 fused, _ = cs.fused_ab(dev, seed, smi, None)
-print("AB_RESULT " + json.dumps({"card": smi, "legacy": legacy,
-                                 "fused": fused}), flush=True)
+ins = cs.kernel_inputs(*cs.TRAIN, dev, seed)
+args = cs.bwd_inputs(ins, seed + 1)
+flag_rows = {"bilstm_fwd_train": [{"shape": list(cs.TRAIN), "kernel_ms":
+                 cs.cuda_ms(lambda: rnn_cuda.bilstm_fwd_train_cuda(*ins),
+                            10)}],
+             "bilstm_bwd": [{"shape": list(cs.TRAIN), "kernel_ms":
+                 cs.cuda_ms(lambda: rnn_cuda.bilstm_bwd_cuda(*args), 10)}]}
+lx, _, lw, _ = cs.kernel_inputs(*cs.LEGACY, dev, seed)
+_, lc, lg = rnn_cuda.lstm_fwd_train_plain(lx, lw)
+lstm_bwd_ms = cs.cuda_ms(lambda: rnn_cuda.lstm_bwd_cuda(lw, lg, lc, dy), 20)
+cfg = cs.ExperimentConfig.from_json(cs.CONFIG)
+with tempfile.TemporaryDirectory() as tmp:
+    train_dir, _ = cs.make_rooms(Path(tmp) / "rooms", cs.ROOMS, seed)
+    flagship = cs.time_steps(cfg, train_dir, dev, seed, smi, flag_rows,
+                             [cs.TRAIN[:2]], cs.STEPS, cs.STEP_WARMUP,
+                             "bilstm")[0]
+print("AB_RESULT " + json.dumps({
+    "card": smi, "legacy": legacy, "fused": fused, "flagship": flagship,
+    "bilstm_bwd_ms": flag_rows["bilstm_bwd"][0]["kernel_ms"],
+    "lstm_bwd_ms": lstm_bwd_ms}), flush=True)
 '''
 
 
@@ -97,11 +121,15 @@ def main(argv=None) -> int:
     runs = []
     for i, key in enumerate(ORDER):
         res = run_one(roots[key])
-        leg, fus = res["legacy"], res["fused"]
+        leg, fus, flag = res["legacy"], res["fused"], res["flagship"]
         runs.append({"run": i + 1, "tree": "parent" if key == "p"
                      else "change", **res})
         stage = leg["stage_ms"]
-        print(f"[{i + 1} {runs[-1]['tree']}] legacy step p50 "
+        print(f"[{i + 1} {runs[-1]['tree']}] flagship step p50 "
+              f"{flag['p50_ms']:.3f} ms (backward "
+              f"{flag['stage_ms']['backward']:.3f}; bilstm_bwd kernel "
+              f"{res['bilstm_bwd_ms']:.3f} ms); lstm_bwd kernel "
+              f"{res['lstm_bwd_ms']:.3f} ms; legacy step p50 "
               f"{leg['p50_ms']:.3f} ms (forward {stage['forward']:.3f}, "
               f"backward {stage['backward']:.3f}; gru_bwd kernel "
               f"{leg['bwd_kernels_ms'] / 4:.3f} ms); fused layer "

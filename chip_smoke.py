@@ -9,20 +9,23 @@ Phases, one line each or more (a failed check raises; nothing is caught):
 1. device: card name, count, and ``nvidia-smi`` name and power limit;
 2. build: every kernel source in ``room_slam_torch/csrc``, one ``nvcc`` each,
    all started together (registers and spills from ``-Xptxas -v``); the
-   fused kind (#9) and the GRU BPTT unit kernel by name, #9's bf16 kind
-   asserted free of spills;
+   fused kind (#9) and the GRU and LSTM BPTT unit kernels by name, #9's
+   bf16 kind and the LSTM BPTT unit kernels asserted free of spills;
 3. kernel check on the card: ``bilstm_fwd`` (the unit kernel, H <= 64)
    against its plain version, ``bilstm_fwd_train`` (ys, c, gates) and
-   ``bilstm_bwd`` (dg) against theirs, and ``BiLSTMFunction``'s four
-   gradients against torch autograd through the plain loop, at the bench,
-   serving, flagship training and a ragged shape, H=16 and 17 rows; the
-   wide kernel (the first design) forced at the ragged shape;
+   ``bilstm_bwd`` (dg; the unit kernel, asserted, then every unit tile the
+   card runs and the wide kernel) against theirs, and ``BiLSTMFunction``'s
+   four gradients against torch autograd through the plain loop, at the
+   bench, serving, flagship training and a ragged shape, H=16 and 17 rows;
+   the wide forward kernel (the first design) forced at the ragged shape;
+   ``bilstm_bwd`` and ``lstm_bwd`` (both walk orders) on the wide kernel
+   at its own width, ``WIDE`` (H=96, asserted);
 4. kernel timing: each kernel, its plain version, the cuDNN yardstick
    (never called by the port) and the roofline bound, at the bench and
    serving shapes (``bilstm_fwd``) or bench and training shapes (the
-   training kernels), µs per step beside cuDNN's, and the forward kernels
-   under every plan (each unit tile the card runs, and the wide kernel)
-   with the planner's pick beside the fastest;
+   training kernels), µs per step beside cuDNN's, and each kernel under
+   every plan (each unit tile the card runs, and the wide kernel) with the
+   planner's pick beside the fastest;
 5. model: the flagship model (``configs/flagship_v15.json``) at full width
    with seeded random weights, forward at B=32, N=500 through the kernel,
    against the same model through the plain recurrence;
@@ -76,15 +79,16 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     64) in f32 and bf16, and (8, 1000, 256) bf16 (the cluster kernel,
     asserted), and ``lstm_fwd``, ``lstm_fwd_train`` and ``lstm_bwd`` at
     phase 3's shapes in f32, both walk orders, against their plain
-    versions, and ``GRUFunction``'s / ``LSTMFunction``'s gradients against
-    autograd through the plain loop;
+    versions (the LSTM kernels on the unit kernel, asserted), and
+    ``GRUFunction``'s / ``LSTMFunction``'s gradients against autograd
+    through the plain loop;
 19. their timing at (32, 500, 64) f32: kernel, plain version, bound and
     cuDNN's unidirectional ``nn.GRU`` / ``nn.LSTM`` (never called by the
-    port), µs per step beside cuDNN's, and the GRU kernels and the LSTM
-    forward kernels under every plan (each unit tile the card runs, and the
-    first design: the cluster kernel at its planner's pick, the wide LSTM
-    kernel) with the planner's pick beside the fastest; ``gru_bwd`` also
-    in bf16 against ``nn.GRU`` bf16 and cuDNN fp16;
+    port), µs per step beside cuDNN's, and every kernel under every plan
+    (each unit tile the card runs, and the first design: the cluster
+    kernel at its planner's pick, the wide LSTM kernels) with the
+    planner's pick beside the fastest; ``gru_bwd`` also in bf16 against
+    ``nn.GRU`` bf16 and cuDNN fp16;
 20. legacy training (a main path): ``LEGACY_ROOMS`` seeded rooms written as
     legacy CSV/objects pairs, ``train_legacy`` at its defaults (hidden 128,
     seq 500, batch 32) for ``LEGACY_EPOCHS`` epochs; finite losses, a
@@ -119,9 +123,11 @@ Phases, one line each or more (a failed check raises; nothing is caught):
 28. the tool (#10's path): ``room_slam_torch.tools.bench_bigru_bwd`` at the
     scale-up shape, ``--tiles auto --reps 5``, its rows;
 29. the six LSTM kernels in bf16 against their plain versions (values, BPTT
-    and the Functions' gradients) at phase 3's shapes, and their timing
-    against ``nn.LSTM`` bf16 and cuDNN fp16, µs per step beside cuDNN's,
-    the forward kernels under every plan;
+    on the unit kernel and under every plan, and the Functions'
+    gradients) at phase 3's shapes, and their timing against ``nn.LSTM``
+    bf16 and cuDNN fp16 (each the median of three rounds of 20 calls
+    after 2 warm-up, with the rounds' spread), µs per step beside cuDNN's,
+    each kernel under every plan;
 30. the bf16 flagship path: ``configs/flagship_v15.json`` with
     ``compute_dtype`` bfloat16 at full width, a B=32, N=500 forward and one
     served 3000-point request against the plain recurrence on the card,
@@ -193,6 +199,7 @@ TRAIN = (20, 1500, 64)   # flagship batch_size, max_trace_len, d_model / 2
 # multiple of a 2- or 4-row tile
 NARROW, ODD = (5, 43, 16), (17, 300, 64)
 LSTM_SHAPES = (BENCH, SERVE, TRAIN, RAGGED, NARROW, ODD)   # phases 3, 29
+WIDE = (5, 43, 96)   # above the unit kernels' H <= 64: the wide BPTT kernel
 STEP_SHAPES = ((20, 1500), (32, 500))
 ROOMS, EPOCHS = 40, 2        # seeded rooms (1 in 5 for validation), epochs
 STEPS, STEP_WARMUP = 50, 5   # train steps timed per shape, after warm-up
@@ -205,6 +212,7 @@ GRU_SHAPES = ((SCALEUP, torch.bfloat16), ((16, 5000, 256), torch.float32),
               ((5, 43, 16), torch.float32), ((5, 43, 16), torch.bfloat16))
 BF16_RTOL, BF16_ATOL = 0.05, 0.03   # bf16 streams: values (the JAX suite's)
 BF16_GRAD_REL = 0.1                 # bf16 streams: gradients, max-rel
+YARDSTICK_ROUNDS = 3   # phase 29: rounds of the bf16 / fp16 library timing
 SCALEUP_TRAIN_ROOMS, SCALEUP_VAL_ROOMS = 96, 8   # x 4 rotations: 3 steps
 SCALEUP_POINTS = (5000, 7500)       # walk length per room, before the cut
 SCALEUP_REQUEST = 7500              # points of the served request
@@ -238,27 +246,38 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-# mangled-name parts of the BPTT source's kernels that phase 2 reports
-BWD_KERNELS = {"bigru_bwd_fused_bf16": ("bigru_bwd_kernel", "bfloat16Li2E"),
-               "bigru_bwd_fused_f32": ("bigru_bwd_kernel", "IfLi2E"),
-               "gru_bwd_unit_f32": ("gru_bwd_unit_kernel", "IfLi"),
-               "gru_bwd_unit_bf16": ("gru_bwd_unit_kernel", "bfloat16Li")}
+# mangled-name parts of the BPTT sources' kernels that phase 2 reports, by
+# library
+BWD_KERNELS = {
+    "bigru_bwd": {"bigru_bwd_fused_bf16": ("bigru_bwd_kernel", "bfloat16Li2E"),
+                  "bigru_bwd_fused_f32": ("bigru_bwd_kernel", "IfLi2E"),
+                  "gru_bwd_unit_f32": ("gru_bwd_unit_kernel", "IfLi"),
+                  "gru_bwd_unit_bf16": ("gru_bwd_unit_kernel", "bfloat16Li")},
+    "bilstm_bwd": {
+        "bilstm_bwd_unit_f32": ("bilstm_bwd_unit_kernel", "IfLi"),
+        "bilstm_bwd_unit_bf16": ("bilstm_bwd_unit_kernel", "bfloat16Li")}}
+# the kernels that must spill nothing: #9's bf16 kind (its products on
+# tensor cores) and the LSTM BPTT unit kernels (W_hh and an 8-step input
+# ring in registers)
+NO_SPILL = ("bigru_bwd_fused_bf16", "bilstm_bwd_unit_f32",
+            "bilstm_bwd_unit_bf16")
 
 
-def check_bwd_usage(usage):
-    """Phase 2: registers, stack and spills of the fused kind (#9) and the
-    GRU BPTT unit kernels from ``-Xptxas -v``; #9's bf16 kind (its products
-    on tensor cores) must spill nothing."""
-    for key, parts in BWD_KERNELS.items():
+def check_bwd_usage(lib: str, usage):
+    """Phase 2: registers, stack and spills of the BPTT kernels of library
+    ``lib`` named in ``BWD_KERNELS`` from ``-Xptxas -v``; those of
+    ``NO_SPILL`` must spill nothing."""
+    for key, parts in BWD_KERNELS[lib].items():
         found = {name: u for name, u in usage.items()
                  if all(p in name for p in parts)}
         assert found, (key, sorted(usage))
         for name, u in sorted(found.items()):
-            log("build", f"{key} ({name[:60]}...): {u.get('registers')} "
+            inst = name[name.index(parts[0]):][:48]   # kernel<T, R>'s part
+            log("build", f"{key} ({inst}...): {u.get('registers')} "
                 f"registers, {u.get('stack')} bytes stack, "
                 f"{u.get('spill_stores')} / {u.get('spill_loads')} bytes "
                 "spill stores / loads")
-            if key == "bigru_bwd_fused_bf16":
+            if key in NO_SPILL:
                 assert u.get("spill_stores") == u.get("spill_loads") == 0, u
 
 
@@ -423,6 +442,14 @@ def lstm_plans(B, H, dev, dtype, save, dirs):
     (the first design)."""
     return [*(("unit", r) for r in rnn_cuda.card_lstm_unit_plans(
         B, H, dev, dtype, save, dirs)), ("wide", 4)]
+
+
+def lstm_bwd_plans(B, H, dev, dtype, dirs):
+    """Every BPTT plan of ``csrc/bilstm_bwd.cu`` at this shape: the unit
+    kernel's tiles the card runs (the planner's order) and the wide kernel
+    (the first design)."""
+    return [*(("unit", r) for r in rnn_cuda.card_lstm_bwd_unit_plans(
+        B, H, dev, dtype, dirs)), ("wide", 4)]
 
 
 def gru_single_plans(B, H, dev, dtype, save):
@@ -679,11 +706,22 @@ def check_training_kernels(dev, seed):
         fwd_err = max((a - b).abs().max().item() for a, b in zip(got, ref))
         args = bwd_inputs(ins, seed + 1)
         dg = rnn_cuda.bilstm_bwd_cuda(*args)
+        launch = plan_text(rnn_cuda.bilstm_bwd_cuda)
+        # H <= 64 (the flagship's H=64): the BPTT's unit kernel
+        assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == "unit", \
+            launch
         dg_ref = rnn_cuda.bilstm_bwd_plain(*args)
         torch.cuda.synchronize()
         assert all(torch.isfinite(a).all() for a in dg), shape
         bwd_abs = max((a - b).abs().max().item() for a, b in zip(dg, dg_ref))
         bwd_rel = max(max_rel(a, b) for a, b in zip(dg, dg_ref))
+        plan_rel = {}
+        for plan in lstm_bwd_plans(shape[0], shape[2], dev, torch.float32,
+                                   2):
+            got = rnn_cuda.bilstm_bwd_cuda(*args, plan=plan)
+            assert all(torch.isfinite(a).all() for a in got), plan
+            plan_rel[plan_key(plan)] = max(max_rel(a, b)
+                                           for a, b in zip(got, dg_ref))
         x = [t.clone().requires_grad_(True) for t in ins]
         ys = rnn_cuda.bilstm_recurrence(*x)
         dys = [args[4], args[7]]
@@ -693,17 +731,45 @@ def check_training_kernels(dev, seed):
         fn_rel = {name: max_rel(a, b) for name, a, b in zip(
             ("dxg_f", "dxg_b", "dW_f", "dW_b"), grads, ref_grads)}
         errs[shape] = {"fwd_train": fwd_err, "bwd_abs": bwd_abs,
-                       "bwd_rel": bwd_rel, "function_rel": fn_rel}
+                       "bwd_rel": bwd_rel, "function_rel": fn_rel,
+                       "bwd_plan_rel": plan_rel}
         log("kernel_check",
             f"bilstm_fwd_train B,N,H={shape} max_abs_err(ys,c,gates)="
             f"{fwd_err:.3e} tol={KERNEL_ATOL:.0e}; bilstm_bwd dg max_abs_err="
-            f"{bwd_abs:.3e} max_rel_err={bwd_rel:.3e} tol={GRAD_REL:.0e}; "
-            "BiLSTMFunction vs autograd through the plain loop max_rel_err "
-            + " ".join(f"{k}={v:.3e}" for k, v in fn_rel.items()))
+            f"{bwd_abs:.3e} max_rel_err={bwd_rel:.3e} tol={GRAD_REL:.0e} "
+            f"(launch {launch}; every plan max_rel_err "
+            + ", ".join(f"{k} {v:.3e}" for k, v in plan_rel.items())
+            + "); BiLSTMFunction vs autograd through the plain loop "
+            "max_rel_err " + " ".join(f"{k}={v:.3e}" for k, v in
+                                      fn_rel.items()))
         assert fwd_err <= KERNEL_ATOL, (shape, fwd_err)
         assert bwd_rel <= GRAD_REL, (shape, bwd_rel)
+        assert max(plan_rel.values()) <= GRAD_REL, (shape, plan_rel)
         assert max(fn_rel.values()) <= GRAD_REL, (shape, fn_rel)
+    check_wide_bwd(dev, seed)
     return errs
+
+
+def check_wide_bwd(dev, seed):
+    """Phase 3, last: the BPTT at ``WIDE`` (H above the unit kernel's 64)
+    takes the wide kernel, both directions and one direction in both walk
+    orders, against the plain versions."""
+    args = bwd_inputs(kernel_inputs(*WIDE, dev, seed), seed + 1)
+    ref = rnn_cuda.bilstm_bwd_plain(*args)
+    rel = {"bilstm_bwd": max(max_rel(a, b) for a, b in zip(
+        rnn_cuda.bilstm_bwd_cuda(*args), ref))}
+    assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == "wide"
+    for rev, w, streams, r in ((False, args[0], args[2:5], ref[0]),
+                               (True, args[1], args[5:8], ref[1])):
+        got = rnn_cuda.lstm_bwd_cuda(w, *streams, rev)
+        assert rnn_cuda.lstm_bwd_cuda.last_launch["kernel"] == "wide"
+        rel[f"lstm_bwd reverse={rev}"] = max_rel(got, r)
+    torch.cuda.synchronize()
+    log("kernel_check", f"BPTT on the wide kernel B,N,H={WIDE} max_rel_err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+        + f" tol={GRAD_REL:.0e}; launch "
+        + plan_text(rnn_cuda.bilstm_bwd_cuda))
+    assert max(rel.values()) <= GRAD_REL, rel
 
 
 def time_training_kernels(dev, seed, errs):
@@ -740,13 +806,15 @@ def time_training_kernels(dev, seed, errs):
                    "err": (errs[shape]["fwd_train"]
                            if name == "bilstm_fwd_train"
                            else errs[shape]["bwd_abs"])}
-            if name == "bilstm_fwd_train":
-                row["plans"] = plan_sweep(
-                    name, rnn_cuda.bilstm_fwd_train_cuda, ins,
-                    lstm_plans(B, H, dev, torch.float32, True, 2), shape,
-                    iters)
-                row["launch"] = dict(
-                    rnn_cuda.bilstm_fwd_train_cuda.last_launch)
+            fn, a, plans = {
+                "bilstm_fwd_train": (
+                    rnn_cuda.bilstm_fwd_train_cuda, ins,
+                    lstm_plans(B, H, dev, torch.float32, True, 2)),
+                "bilstm_bwd": (rnn_cuda.bilstm_bwd_cuda, args,
+                               lstm_bwd_plans(B, H, dev, torch.float32, 2))
+            }[name]
+            row["plans"] = plan_sweep(name, fn, a, plans, shape, iters)
+            row["launch"] = dict(fn.last_launch)
             rows[name].append(row)
             log("kernel_time", f"{name} " + json.dumps(row) + (
                 "  (library_ms: cuDNN bidirectional nn.LSTM forward with "
@@ -793,6 +861,10 @@ def train_main_path(cfg, train_dir, val_dir, save_dir, epochs, dev, smi,
         f"{prefix}_fwd": layers * val_batches,
         f"{prefix}_fwd_train": layers * steps,
         f"{prefix}_bwd": layers * steps}), launched
+    bwd_plan = plan_text(getattr(*WRAPPERS[f"{prefix}_bwd"]))
+    if prefix == "bilstm":   # the flagship's H=64: the BPTT's unit kernel
+        assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == "unit", \
+            bwd_plan
     assert len(res["history"]) == epochs
     for row in res["history"]:
         assert np.isfinite(row["train_loss"]) and \
@@ -812,7 +884,7 @@ def train_main_path(cfg, train_dir, val_dir, save_dir, epochs, dev, smi,
                                                   "val_loss", "mIoU")}
                                for r in res["history"]])
                  + f"; launches {launched}; peak device memory "
-                 f"{peak_gb:.2f} GB")
+                 f"{peak_gb:.2f} GB; last {prefix}_bwd launch {bwd_plan}")
     return launched, best
 
 
@@ -1088,6 +1160,8 @@ def time_steps(cfg, train_dir, dev, seed, smi, kernel_rows, shapes,
                 ms.append((time.perf_counter() - t0) * 1e3)
             assert np.isfinite(float(losses["total_loss"]))
         p50 = float(np.percentile(ms, 50))
+        if prefix == "bilstm":   # the flagship's H=64: the unit BPTT kernel
+            assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == "unit"
 
         # per stage, with a synchronise between stages
         lw = loop._loss_weight_dict(c)
@@ -1251,7 +1325,8 @@ def check_single_kernels(dev, seed):
                             ("lstm_bwd", bwd_abs)):
                 key = (name, shape, torch.float32)
                 errs[key] = max(errs.get(key, 0.0), e)
-            for fn in (rnn_cuda.lstm_fwd_cuda, rnn_cuda.lstm_fwd_train_cuda):
+            for fn in (rnn_cuda.lstm_fwd_cuda, rnn_cuda.lstm_fwd_train_cuda,
+                       rnn_cuda.lstm_bwd_cuda):
                 assert fn.last_launch["kernel"] == "unit", fn.last_launch
             log("kernel_check",
                 f"B,N,H={shape} float32 reverse={reverse}: lstm_fwd ys "
@@ -1260,7 +1335,8 @@ def check_single_kernels(dev, seed):
                 f"max_abs_err={bwd_abs:.3e} max_rel_err={bwd_rel:.3e}; "
                 "LSTMFunction vs autograd through the plain loop max_rel_err "
                 "(dxg, dW_hh) " + " ".join(f"{v:.3e}" for v in fn_rel)
-                + f"; launch {plan_text(rnn_cuda.lstm_fwd_train_cuda)}")
+                + f"; launch {plan_text(rnn_cuda.lstm_fwd_train_cuda)}; "
+                f"lstm_bwd launch {plan_text(rnn_cuda.lstm_bwd_cuda)}")
     return errs
 
 
@@ -1316,7 +1392,10 @@ def time_single_kernels(dev, seed, errs):
         if name == "gru_bwd":
             rows[name]["plans"] = plan_sweep(
                 name, fn, a, gru_bwd_plans(B, H, dev, f32), LEGACY, 20)
-        elif name != "lstm_bwd":
+        elif name == "lstm_bwd":
+            rows[name]["plans"] = plan_sweep(
+                name, fn, a, lstm_bwd_plans(B, H, dev, f32, 1), LEGACY, 20)
+        else:
             save = name.endswith("train")
             plans = (gru_single_plans(B, H, dev, f32, save)
                      if name.startswith("gru")
@@ -1924,9 +2003,14 @@ def check_lstm_bf16(dev, seed):
         dy_f, dy_b = (torch.randn(res[0].shape, device=dev, generator=g
                                   ).to(bf) for _ in range(2))
         args = (w_f, w_b, res[4], res[2], dy_f, res[5], res[3], dy_b)
-        b_abs, b_rel = bwd_errs(rnn_cuda.bilstm_bwd_cuda(*args),
-                                rnn_cuda.bilstm_bwd_plain(*args))
-        assert b_rel <= BF16_GRAD_REL, b_rel
+        b_ref = rnn_cuda.bilstm_bwd_plain(*args)
+        b_abs, b_rel = bwd_errs(rnn_cuda.bilstm_bwd_cuda(*args), b_ref)
+        assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == "unit"
+        # the BPTT under every plan the card runs (unit tiles, wide)
+        plan_rel = [bwd_errs(rnn_cuda.bilstm_bwd_cuda(*args, plan=p),
+                             b_ref)[1]
+                    for p in lstm_bwd_plans(shape[0], shape[2], dev, bf, 2)]
+        assert max(b_rel, *plan_rel) <= BF16_GRAD_REL, (b_rel, plan_rel)
         note("bilstm_bwd", shape, b_abs)
         fn_rel = grads_rel(rnn_cuda.bilstm_recurrence,
                            rnn_cuda.bilstm_recurrence_plain, ins,
@@ -1939,11 +2023,15 @@ def check_lstm_bf16(dev, seed):
             ref = rnn_cuda.lstm_fwd_train_plain(xg_f, w_f, reverse)
             note("lstm_fwd_train", shape, value_err(
                 rnn_cuda.lstm_fwd_train_cuda(xg_f, w_f, reverse), ref, bf))
-            s_abs, s_rel = bwd_errs(
-                (rnn_cuda.lstm_bwd_cuda(w_f, ref[2], ref[1], dy_f, reverse),),
-                (rnn_cuda.lstm_bwd_plain(w_f, ref[2], ref[1], dy_f,
-                                         reverse),))
-            assert s_rel <= BF16_GRAD_REL, s_rel
+            s_args = (w_f, ref[2], ref[1], dy_f, reverse)
+            s_ref = (rnn_cuda.lstm_bwd_plain(*s_args),)
+            s_abs, s_rel = bwd_errs((rnn_cuda.lstm_bwd_cuda(*s_args),), s_ref)
+            assert rnn_cuda.lstm_bwd_cuda.last_launch["kernel"] == "unit"
+            plan_rel += [bwd_errs((rnn_cuda.lstm_bwd_cuda(*s_args, plan=p),),
+                                  s_ref)[1]
+                         for p in lstm_bwd_plans(shape[0], shape[2], dev, bf,
+                                                 1)]
+            assert max(s_rel, *plan_rel) <= BF16_GRAD_REL, (s_rel, plan_rel)
             note("lstm_bwd", shape, s_abs)
             single += grads_rel(
                 lambda *a: rnn_cuda.lstm_recurrence_kernel(*a, reverse),
@@ -1953,7 +2041,8 @@ def check_lstm_bf16(dev, seed):
             f"B,N,H={shape} bfloat16: max_abs_err "
             + " ".join(f"{n}={errs[(n, shape)]:.3e}" for n in LSTM_BF16_NAMES)
             + f" (values rtol {BF16_RTOL} atol {BF16_ATOL}); bilstm_bwd "
-            f"max_rel_err={b_rel:.3e}; BiLSTMFunction vs autograd through "
+            f"max_rel_err={b_rel:.3e}, every BPTT plan (bilstm_bwd, lstm_bwd)"
+            f" {max(plan_rel):.3e}; BiLSTMFunction vs autograd through "
             "the plain loop max_rel_err (dxg_f, dxg_b, dW_f, dW_b) "
             + " ".join(f"{v:.3e}" for v in fn_rel)
             + "; LSTMFunction (dxg, dW_hh, both walk orders) "
@@ -1962,11 +2051,27 @@ def check_lstm_bf16(dev, seed):
     return errs
 
 
+def yardstick_ms(fns, rounds: int = YARDSTICK_ROUNDS):
+    """Library times for phase 29: each of ``fns`` (a name to a callable)
+    over 20 calls after 2 warm-up (phase 19's counts), in ``rounds`` rounds;
+    per name the median, the spread (max - min) and the rounds. The "bwd"
+    entry is "fwd_bwd" minus "fwd_train" round by round."""
+    runs = []
+    for _ in range(rounds):
+        r = {k: cuda_ms(f, 20) for k, f in fns.items()}
+        r["bwd"] = r.pop("fwd_bwd") - r["fwd_train"]
+        runs.append(r)
+    return {k: {"median": float(np.median([r[k] for r in runs])),
+                "spread": max(r[k] for r in runs) - min(r[k] for r in runs),
+                "rounds": [r[k] for r in runs]} for k in runs[0]}
+
+
 def time_lstm_bf16(dev, seed, errs):
     """Phase 29, timing: each LSTM kernel in bf16 at its f32 table shape,
     its plain version, the bound, torch ``nn.LSTM`` in bf16 (cuDNN takes no
     bf16 RNN, so PyTorch's own step loop) and cuDNN in fp16 (never called
-    by the port; input projection included)."""
+    by the port; input projection included), each the median of
+    ``yardstick_ms``'s rounds with their spread."""
     bf = torch.bfloat16
     shapes = {"bilstm_fwd": BENCH, "bilstm_fwd_train": TRAIN,
               "bilstm_bwd": TRAIN, "lstm_fwd": LEGACY,
@@ -1983,12 +2088,15 @@ def time_lstm_bf16(dev, seed, errs):
             m = m.to(dt)
             m.flatten_parameters()
             xi = x.to(dt).requires_grad_(True)
-            with torch.no_grad():
-                light = cuda_ms(lambda: m(xi), 3, warmup=1)
-            fwd = cuda_ms(lambda: m(xi), 3, warmup=1)
-            fb = cuda_ms(lambda: m(xi)[0].backward(dy.to(dt)), 3, warmup=1)
-            lib[(shape, dirs, key)] = {"fwd": light, "fwd_train": fwd,
-                                       "bwd": fb - fwd}
+            dyi = dy.to(dt)
+
+            def light():
+                with torch.no_grad():
+                    return m(xi)
+
+            lib[(shape, dirs, key)] = yardstick_ms({
+                "fwd": light, "fwd_train": lambda: m(xi),
+                "fwd_bwd": lambda: m(xi)[0].backward(dyi)})
     rows = {}
     for name in LSTM_BF16_NAMES:
         B, N, H = shape = shapes[name]
@@ -2018,26 +2126,30 @@ def time_lstm_bf16(dev, seed, errs):
         bnd = {"fwd": bilstm_bound, "fwd_train": fwd_train_bound,
                "bwd": bwd_bound}[kind](B, N, H, dirs, bf)
         ms = cuda_ms(lambda: fn(*a), 10)
+        torch_bf16 = lib[(shape, dirs, "bf16")][kind]
+        fp16 = lib[(shape, dirs, "cudnn_fp16")][kind]
         rows[name] = {
             "shape": list(shape), "dtype": "bfloat16", "kernel_ms": ms,
             "plain_ms": cuda_ms(lambda: plain(*a), 1, warmup=1),
-            "library_ms": lib[(shape, dirs, "bf16")][kind],
-            "cudnn_fp16_ms": lib[(shape, dirs, "cudnn_fp16")][kind],
+            "library_ms": torch_bf16["median"],
+            "library_spread_ms": torch_bf16["spread"],
+            "cudnn_fp16_ms": fp16["median"],
+            "cudnn_fp16_spread_ms": fp16["spread"],
+            "cudnn_fp16_rounds_ms": fp16["rounds"],
             "bound_us": bnd[0] * 1e3, "bound_by": bnd[1],
             "us_per_step": ms / N * 1e3,
-            "cudnn_fp16_us_per_step":
-                lib[(shape, dirs, "cudnn_fp16")][kind] / N * 1e3,
+            "cudnn_fp16_us_per_step": fp16["median"] / N * 1e3,
             "err": max(v for (n, _), v in errs.items() if n == name)}
-        if kind != "bwd":
-            rows[name]["plans"] = plan_sweep(
-                name, fn, a, lstm_plans(B, H, dev, bf, kind == "fwd_train",
-                                        dirs), shape, 10)
-            rows[name]["launch"] = dict(fn.last_launch)
+        plans = (lstm_bwd_plans(B, H, dev, bf, dirs) if kind == "bwd" else
+                 lstm_plans(B, H, dev, bf, kind == "fwd_train", dirs))
+        rows[name]["plans"] = plan_sweep(name, fn, a, plans, shape, 10)
+        rows[name]["launch"] = dict(fn.last_launch)
         log("lstm_bf16_time", f"{name} " + json.dumps(rows[name]) + (
             "  (library_ms: nn.LSTM " + ("bidirectional " if dirs == 2
                                          else "unidirectional ")
             + "bf16, PyTorch's own step loop; cudnn_fp16_ms: the same in fp16"
-            " through cuDNN; both " + {
+            f" through cuDNN; each the median of {YARDSTICK_ROUNDS} rounds of"
+            " 20 calls after 2 warm-up, spread = max - min; both " + {
                 "fwd": "forward without grad",
                 "fwd_train": "forward with grad on",
                 "bwd": "forward + backward minus forward"}[kind]
@@ -2166,8 +2278,8 @@ def main() -> int:
         log("build", f"{res.name}: {res.seconds:.1f} s {res.path.name}"
                      + (" (reused)" if res.reused else "") + " | "
                      + " | ".join(ptxas))
-        if res.name == "bigru_bwd":
-            check_bwd_usage(build.ptxas_usage(res.log))
+        if res.name in BWD_KERNELS:
+            check_bwd_usage(res.name, build.ptxas_usage(res.log))
     log("build", f"all kernels in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernel check against the plain versions on the card
@@ -2460,7 +2572,8 @@ def main() -> int:
                 "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_us"] / 1e3,
                 "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"]}
+                "library_ms": row["library_ms"],
+                **({"launch": row["launch"]} if "launch" in row else {})}
 
     train_row = {name: next(r for r in rows if r["shape"] == list(TRAIN))
                  for name, rows in train_rows.items()}

@@ -1,6 +1,7 @@
 // Fused LSTM recurrence, backward (BPTT), float32 or bfloat16 streams. One
-// source, two grids: both directions of a BiLSTM layer (bilstm_bwd_*), or one
-// direction of an LSTM (lstm_bwd_*, with a reverse flag).
+// source, two kernels (the unit kernel at H <= 64, the wide kernel above
+// it) and two grids: both directions of a BiLSTM layer (bilstm_bwd_*), or
+// one direction of an LSTM (lstm_bwd_*, with a reverse flag).
 //
 // Replaces two TPU kernels: room_slam_tpu/ops/rnn_pallas.py::
 // _bilstm_bwd_kernel (:438, pallas_call :606, launched through
@@ -35,24 +36,52 @@
 // and direction, 154 MB in all (about 46 us at 3.35 TB/s), and does about
 // 2 GFLOP (about 30 us at 67 TFLOP/s f32); at the single-direction shape
 // (B=32, N=500, H=64) 41 MB (12 us) and 0.54 GFLOP (8 us). The real floor
-// is the serial
-// chain of N dependent steps, each a 256-deep dot product and a barrier.
+// is the serial chain of N dependent steps, each a 4H-deep dot product per
+// (row, unit), the carries' update and a barrier.
 //
-// What the design does about it. One block per (batch tile of kRows rows,
-// direction), 4H threads; thread j owns the (row, unit) cell (j / H, j % H)
-// and keeps that cell's dh and dc carries in registers, since the dot
-// product for dh_carry[row, unit] is its own. W_hh^T (256 x 64 f32 = 64 KiB
-// at H=64) is transposed once into dynamic shared memory and stays there for
-// the whole walk, so the dot product's W reads are conflict-free and its dg
-// reads are broadcasts. dg goes through a double-buffered shared tile, so
-// each step needs one barrier. The next step's gates, c, c_{t-1} and dy are
-// prefetched into registers before this step's dot product, every load
-// independent of earlier steps. c_{t-1} is read through a second pointer
-// into cs, shifted by one step, at the same index as c and dy: each c is read
-// twice and the second read hits the cache (measured faster on an H100 than
-// a separate c_prev array, a guarded read at t +- 1, or taking it from the
-// next step's prefetch). The coefficients are computed beside the chain, so
-// no extra pass over the residuals is made.
+// What held the first design back (now the wide kernel below). One block of
+// 4H threads per (4-row tile, direction), thread j owning the (row, unit)
+// cell (j / H, j % H), W_hh^T (64 KiB at H=64) in dynamic shared memory:
+// each thread ran a 256-deep dot product a step as one chain of shared
+// loads (two loads, one of W and one of dg, per FMA), so a step took about
+// 2.0 us on an H100 (cuDNN 1.75 at the flagship shape), and three of four
+// rows padded a single-row batch.
+//
+// What the design does about it (bilstm_bwd_unit_kernel, H <= kMaxUnitH =
+// 64), the BPTT counterpart of bilstm_fwd.cu's unit kernel and the LSTM
+// counterpart of bigru_bwd.cu's gru_bwd_unit_kernel. One block per (tile of
+// R = 1, 2 or 4 rows, direction); rnn_cuda unit_plans sizes R to the batch
+// and the card. Four lanes of a warp own hidden unit u, and lane p holds in
+// registers row u of W_hh for its quarter of each gate block's k (dh_carry[u]
+// = sum_j dg[j] W_hh[u, j], j = gate * H + k: 16 k values in each of 4 gate
+// blocks, 64 floats at H=64). The step's rounded dg sits in shared memory as
+// a double-buffered [4][64][R] tile, read as 16-byte broadcasts, each
+// feeding 4 k x R rows FMAs: the lane sums its 64 terms of a row in one
+// chain, and the four lanes' partials meet by __shfl_xor_sync, so lane p
+// holds row p % R's dh_carry and runs that cell's carries and dg, and lanes
+// p < R write it to the next tile. One block barrier a step, no cluster.
+// The seven inputs of a step (i, f, g, o, c, c_{t-1}, dy) are loaded kAhead
+// = 8 steps ahead into a register ring (the step loop unrolled by 8), and
+// the coefficients, which need only those residuals, are computed at the
+// top of the step while the tile's loads are in flight, so the chain itself
+// is dh_t = dy + dh, dc_t, dg, the tile store, the barrier and the dot
+// product. c_{t-1} is read through a second pointer into cs, shifted by one
+// step, at the same index as c and dy (the second read of each c hits the
+// cache), and only after the direction's first step.
+//
+// Throwaway variants of this source, timed on an H100 against it, were all
+// slower: four 16-deep chains (one per gate block; also 40 more registers),
+// the coefficients computed after the dot product, the step's stores shared
+// among the cell's lanes, and its dg stores moved after the barrier (by far
+// the slowest). So the step is bound by the tile's 16 R 16-byte loads a
+// lane, not by the FMA chain's depth: the GRU BPTT unit kernel (12 R loads)
+// and the forward unit kernel (4 R) take less a step (PERF.md).
+//
+// H above 64 (no model runs one: the flagship and legacy LSTMs are H=64)
+// takes the wide kernel, the first design kept as it was: W_hh^T and a
+// double-buffered [4][4H] dg tile in dynamic shared memory, up to H=116 in
+// f32. The wrapper picks the kernel (rnn_cuda.lstm_bwd_kernel_route) and may
+// force either one for an A/B.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,7 +92,17 @@
 
 namespace {
 
-constexpr int kRows = 4;  // batch rows per block; kRows * H == 4H threads
+constexpr int kRows = 4;  // wide kernel: batch rows per block, 4H threads
+
+// unit kernel: lanes per hidden unit, W_hh values of the sum held in
+// registers (over the four lanes, for each gate block of W_hh's row), and
+// the threads of a block at H = kMaxUnitH
+constexpr int kLanes = 4;
+constexpr int kMaxUnitH = 64;
+constexpr int kKPerLane = kMaxUnitH / kLanes;
+constexpr int kUnitThreads = kLanes * kMaxUnitH;
+constexpr int kAhead = 8;  // steps of inputs in flight ahead of the chain
+constexpr unsigned kFullMask = 0xffffffffu;
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -93,6 +132,184 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f32<T>(from_f32<T>(v));
 }
 
+// The four lanes of a unit each hold partial sums v[r] for R rows;
+// afterwards lane p holds the full sum of row p % R (a reduce-scatter over
+// lane bits 0 and 1; an all-reduce where R < 4).
+template <int R>
+__device__ __forceinline__ float reduce_lanes(const float (&v)[R], int lane) {
+  const bool b0 = (lane & 1) != 0;
+  const bool b1 = (lane & 2) != 0;
+  if constexpr (R == 4) {
+    float half[2];  // rows 2j + b0, summed over lanes p and p ^ 1
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float keep = b0 ? v[2 * j + 1] : v[2 * j];
+      const float send = b0 ? v[2 * j] : v[2 * j + 1];
+      half[j] = keep + __shfl_xor_sync(kFullMask, send, 1);
+    }
+    const float keep = b1 ? half[1] : half[0];
+    const float send = b1 ? half[0] : half[1];
+    return keep + __shfl_xor_sync(kFullMask, send, 2);
+  } else if constexpr (R == 2) {
+    const float keep = b0 ? v[1] : v[0];
+    const float send = b0 ? v[0] : v[1];
+    const float out = keep + __shfl_xor_sync(kFullMask, send, 1);
+    return out + __shfl_xor_sync(kFullMask, out, 2);
+  } else {
+    static_assert(R == 1, "tiles of 1, 2 or 4 rows");
+    const float out = v[0] + __shfl_xor_sync(kFullMask, v[0], 1);
+    return out + __shfl_xor_sync(kFullMask, out, 2);
+  }
+}
+
+// The unit kernel: one block per (tile of R rows, direction), four lanes
+// per hidden unit, row u of W_hh in registers (see the notes at the top).
+template <typename T, int R>
+__global__ void __launch_bounds__(kUnitThreads)
+bilstm_bwd_unit_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
+                       const T* __restrict__ gs_f, const T* __restrict__ cs_f,
+                       const T* __restrict__ dy_f, const T* __restrict__ gs_b,
+                       const T* __restrict__ cs_b, const T* __restrict__ dy_b,
+                       T* __restrict__ dg_f, T* __restrict__ dg_b, int B,
+                       int N, int H, int rev) {
+  constexpr int KC = 4 / R;                  // k values in one float4 of dg
+  constexpr int kChunks = kKPerLane / KC;    // float4 loads a gate a step
+  // the step's rounded dg as [gate][k][R] floats (j = gate * H + k), double
+  // buffered; k >= H stays 0
+  __shared__ float4 dg_s[2][4][kMaxUnitH * R / 4];
+  const int G = 4 * H;
+
+  // a grid of two directions: y = 1 walks backward; of one: rev says
+  const bool bwd = (blockIdx.y == 1) != (rev != 0);
+  const T* w = bwd ? w_b : w_f;
+  const int lane = threadIdx.x % kLanes;
+  const int u = threadIdx.x / kLanes;  // hidden unit; u >= H pads the warp
+  const bool unit_valid = u < H;
+  const int uu = unit_valid ? u : 0;
+  const int row0 = blockIdx.x * R;
+
+  // this lane's values of row u of W_hh: chunk c of the lane covers k =
+  // (c * kLanes + lane) * KC + e, e < KC, in each gate block g * H + k
+  float wr[4][kKPerLane];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int e = 0; e < KC; ++e) {
+      const int k = (c * kLanes + lane) * KC + e;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        wr[g][c * KC + e] =
+            unit_valid && k < H
+                ? to_f32<T>(w[static_cast<size_t>(u) * G + g * H + k])
+                : 0.0f;
+    }
+  float* dg_flat = reinterpret_cast<float*>(dg_s);
+  for (int i = threadIdx.x; i < 2 * 4 * kMaxUnitH * R; i += blockDim.x)
+    dg_flat[i] = 0.0f;
+
+  // the (row, unit) cell this lane updates: row p % R; lanes p < R store it
+  const int orow = lane % R;
+  const bool cell_valid = unit_valid && row0 + orow < B;
+  const bool owner = lane < R && cell_valid;
+  const size_t row = static_cast<size_t>(cell_valid ? row0 + orow : 0);
+  const size_t goff = row * N * G + uu;   // gates / dg of (row, t = 0, u)
+  const size_t coff = row * N * H + uu;   // c, dy of (row, t = 0, u)
+  const T* gs = (bwd ? gs_b : gs_f) + goff;
+  const T* cs = (bwd ? cs_b : cs_f) + coff;
+  const T* dys = (bwd ? dy_b : dy_f) + coff;
+  T* dg = (bwd ? dg_b : dg_f) + goff;
+  // c at the direction's previous step (t - 1 forward, t + 1 backward),
+  // read only after the direction's first step
+  const int first = bwd ? N - 1 : 0;
+  const T* cps = cs + (bwd ? H : -H);
+
+  // i, f, g, o, c, c_{t-1} and dy of this lane's cell for the next kAhead
+  // steps as loaded, converted when used: a ring indexed by the step's place
+  // in an unrolled group, so each load has kAhead steps to land
+  T in[kAhead][7];
+  auto load = [&](T (&dst)[7], int s) {
+    const int t = bwd ? s : N - 1 - s;
+    const T zero = from_f32<T>(0.0f);
+    const T* gt = gs + static_cast<size_t>(t) * G;
+    const size_t tc = static_cast<size_t>(t) * H;
+    dst[0] = cell_valid ? gt[0] : zero;
+    dst[1] = cell_valid ? gt[H] : zero;
+    dst[2] = cell_valid ? gt[2 * H] : zero;
+    dst[3] = cell_valid ? gt[3 * H] : zero;
+    dst[4] = cell_valid ? cs[tc] : zero;
+    dst[5] = cell_valid && t != first ? cps[tc] : zero;
+    dst[6] = cell_valid ? dys[tc] : zero;
+  };
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j)
+    if (j < N) load(in[j], j);
+  float dc = 0.0f;
+  __syncthreads();
+
+  auto step = [&](int s, T (&cur)[7]) {
+    const int t = bwd ? s : N - 1 - s;
+    float v[7];
+#pragma unroll
+    for (int i = 0; i < 7; ++i) v[i] = to_f32<T>(cur[i]);
+    if (s + kAhead < N) load(cur, s + kAhead);
+
+    // the coefficients: this step's residuals only, off the chain
+    const float ig = v[0], fg = v[1], gg = v[2], og = v[3];
+    const float tanh_c = tanhf(v[4]);
+    const float c_c = round_to<T>(og * (1.0f - tanh_c * tanh_c));
+    const float c_i = round_to<T>(gg * ig * (1.0f - ig));
+    const float c_f = round_to<T>(v[5] * fg * (1.0f - fg));
+    const float c_g = round_to<T>(ig * (1.0f - gg * gg));
+    const float c_o = round_to<T>(tanh_c * og * (1.0f - og));
+
+    // the previous step's dg . W_hh[u, :] (zero at the first step): the
+    // lane's 64 terms a row in one chain, then the four lanes' partials
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+#pragma unroll
+    for (int ch = 0; ch < kChunks; ++ch)
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float4 dv = dg_s[s & 1][g][ch * kLanes + lane];
+        const float dk[4] = {dv.x, dv.y, dv.z, dv.w};  // [e][r]
+#pragma unroll
+        for (int e = 0; e < KC; ++e)
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            acc[r] = fmaf(dk[e * R + r], wr[g][ch * KC + e], acc[r]);
+      }
+    const float dh_t = v[6] + reduce_lanes<R>(acc, lane);
+
+    const float dc_t = dc + dh_t * c_c;
+    const float d_i = dc_t * c_i;
+    const float d_f = dc_t * c_f;
+    const float d_g = dc_t * c_g;
+    const float d_o = dh_t * c_o;
+    dc = dc_t * fg;
+    if (lane < R && unit_valid) {
+      const float d[4] = {d_i, d_f, d_g, d_o};
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        reinterpret_cast<float*>(dg_s[(s + 1) & 1][g])[u * R + orow] =
+            round_to<T>(d[g]);
+    }
+    if (owner) {
+      T* o = dg + static_cast<size_t>(t) * G;
+      o[0] = from_f32<T>(d_i);
+      o[H] = from_f32<T>(d_f);
+      o[2 * H] = from_f32<T>(d_g);
+      o[3 * H] = from_f32<T>(d_o);
+    }
+    __syncthreads();
+  };
+  for (int s0 = 0; s0 < N; s0 += kAhead) {
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j)
+      if (s0 + j < N) step(s0 + j, in[j]);
+  }
+}
+
 // One step's inputs as loaded, in the stream type. A bf16 step is widened
 // at the top of the step that uses it, so no conversion waits on a load in
 // flight; a float32 step is copied whole. Both shapes were timed on an H100
@@ -104,19 +321,21 @@ struct StepIn {
   T i, f, g, o, c, cp, dy;
 };
 
+// The wide kernel (H > kMaxUnitH): W_hh^T in dynamic shared memory, thread
+// j owns the (row, unit) cell (j / H, j % H) of a kRows-row tile.
 template <typename T>
 __global__ void __launch_bounds__(512)
-bilstm_bwd_kernel(const T* __restrict__ w_f,
-                  const T* __restrict__ w_b,
-                  const T* __restrict__ gs_f,
-                  const T* __restrict__ cs_f,
-                  const T* __restrict__ dy_f,
-                  const T* __restrict__ gs_b,
-                  const T* __restrict__ cs_b,
-                  const T* __restrict__ dy_b,
-                  T* __restrict__ dg_f,
-                  T* __restrict__ dg_b,
-                  int B, int N, int H, int rev) {
+bilstm_bwd_wide_kernel(const T* __restrict__ w_f,
+                       const T* __restrict__ w_b,
+                       const T* __restrict__ gs_f,
+                       const T* __restrict__ cs_f,
+                       const T* __restrict__ dy_f,
+                       const T* __restrict__ gs_b,
+                       const T* __restrict__ cs_b,
+                       const T* __restrict__ dy_b,
+                       T* __restrict__ dg_f,
+                       T* __restrict__ dg_b,
+                       int B, int N, int H, int rev) {
   extern __shared__ float smem[];
   const int G = 4 * H;
   float* wt_s = smem;            // [4H, H]  this direction's W_hh^T
@@ -221,11 +440,24 @@ bilstm_bwd_kernel(const T* __restrict__ w_f,
   }
 }
 
-// Dynamic shared memory one block needs at hidden size H, in bytes (the
-// wrapper's bilstm_bwd_smem_bytes mirrors it).
+// Dynamic shared memory one block of the wide kernel needs at hidden size
+// H, in bytes (the wrapper's bilstm_bwd_smem_bytes mirrors it).
 size_t smem_bytes(int H) {
   const size_t G = 4 * static_cast<size_t>(H);
   return (G * static_cast<size_t>(H) + 2 * kRows * G) * sizeof(float);
+}
+
+// The unit kernel's static shared memory (the dg tile, double buffered) and
+// threads: four lanes for each of H units, padded to whole warps (the
+// wrapper's unit_smem_bytes(R, 4) and unit_threads mirror them).
+constexpr size_t unit_smem_bytes(int R) {
+  return 2 * 4 * static_cast<size_t>(kMaxUnitH) * R * sizeof(float);
+}
+constexpr int unit_threads(int H) { return kLanes * ((H + 7) / 8 * 8); }
+
+bool valid_unit_plan(int B, int N, int H, int R) {
+  return B > 0 && N > 0 && H > 0 && H <= kMaxUnitH &&
+         (R == 1 || R == 2 || R == 4);
 }
 
 constexpr int kMaxDevices = 64;
@@ -239,7 +471,7 @@ cudaError_t allow_smem(int smem) {
   if (err != cudaSuccess) return err;
   if (device < kMaxDevices && g_smem_allowed<T>[device].load() >= smem)
     return cudaSuccess;
-  err = cudaFuncSetAttribute(bilstm_bwd_kernel<T>,
+  err = cudaFuncSetAttribute(bilstm_bwd_wide_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && device < kMaxDevices)
     g_smem_allowed<T>[device].store(smem);
@@ -259,11 +491,55 @@ int launch(const void* w_f, const void* w_b, const void* gs_f,
   const dim3 grid((B + kRows - 1) / kRows, dirs);
   auto in = [](const void* p) { return static_cast<const T*>(p); };
   auto out = [](void* p) { return static_cast<T*>(p); };
-  bilstm_bwd_kernel<T><<<grid, 4 * H, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  bilstm_bwd_wide_kernel<T><<<grid, 4 * H, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
       in(w_f), in(w_b), in(gs_f), in(cs_f), in(dy_f), in(gs_b), in(cs_b),
       in(dy_b), out(dg_f), out(dg_b), B, N, H, rev);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+const void* unit_kernel(int R) {
+  if (R == 1)
+    return reinterpret_cast<const void*>(bilstm_bwd_unit_kernel<T, 1>);
+  if (R == 2)
+    return reinterpret_cast<const void*>(bilstm_bwd_unit_kernel<T, 2>);
+  return reinterpret_cast<const void*>(bilstm_bwd_unit_kernel<T, 4>);
+}
+
+template <typename T>
+int launch_unit(const void* w_f, const void* w_b, const void* gs_f,
+                const void* cs_f, const void* dy_f, const void* gs_b,
+                const void* cs_b, const void* dy_b, void* dg_f, void* dg_b,
+                int B, int N, int H, int R, int dirs, int rev, void* stream) {
+  if (!valid_unit_plan(B, N, H, R))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((B + R - 1) / R, dirs);
+  const int threads = unit_threads(H);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto in = [](const void* p) { return static_cast<const T*>(p); };
+  auto out = [](void* p) { return static_cast<T*>(p); };
+  if (R == 1)
+    bilstm_bwd_unit_kernel<T, 1><<<grid, threads, 0, st>>>(
+        in(w_f), in(w_b), in(gs_f), in(cs_f), in(dy_f), in(gs_b), in(cs_b),
+        in(dy_b), out(dg_f), out(dg_b), B, N, H, rev);
+  else if (R == 2)
+    bilstm_bwd_unit_kernel<T, 2><<<grid, threads, 0, st>>>(
+        in(w_f), in(w_b), in(gs_f), in(cs_f), in(dy_f), in(gs_b), in(cs_b),
+        in(dy_b), out(dg_f), out(dg_b), B, N, H, rev);
+  else
+    bilstm_bwd_unit_kernel<T, 4><<<grid, threads, 0, st>>>(
+        in(w_f), in(w_b), in(gs_f), in(cs_f), in(dy_f), in(gs_b), in(cs_b),
+        in(dy_b), out(dg_f), out(dg_b), B, N, H, rev);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int unit_blocks_per_sm(int H, int R) {
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, unit_kernel<T>(R), unit_threads(H), 0);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 }  // namespace
@@ -274,6 +550,9 @@ extern "C" {
 // device. All tensors are contiguous, in the stream type float (_f32) or
 // bfloat16 (_bf16): w_* [H, 4H]; gs_* and dg_* [B, N, 4H]; cs_* and dy_*
 // [B, N, H]. Returns a cudaError_t code; 0 means the launch was accepted.
+// bilstm_bwd_* and lstm_bwd_* launch the wide kernel (tiles of kRows rows,
+// 4H <= 512 threads); bilstm_bwd_unit_* and lstm_bwd_unit_* the unit kernel
+// (H <= 64) with batch tiles of R rows (1, 2 or 4).
 // lstm_bwd_*: one direction of an LSTM, a grid of one direction over w
 // [H, 4H], gs and dg [B, N, 4H], cs and dy [B, N, H]; reverse != 0 for a
 // direction whose forward walked t = N-1 .. 0.
@@ -290,11 +569,51 @@ extern "C" {
                      int reverse, void* stream) {                            \
     return launch<TYPE>(w, w, gs, cs, dy, gs, cs, dy, dg, dg, B, N, H, 1,    \
                         reverse, stream);                                    \
+  }                                                                          \
+  int bilstm_bwd_unit_##SFX(const void* w_f, const void* w_b,                \
+                            const void* gs_f, const void* cs_f,              \
+                            const void* dy_f, const void* gs_b,              \
+                            const void* cs_b, const void* dy_b, void* dg_f,  \
+                            void* dg_b, int B, int N, int H, int R,          \
+                            void* stream) {                                  \
+    return launch_unit<TYPE>(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b,   \
+                             dg_f, dg_b, B, N, H, R, 2, 0, stream);          \
+  }                                                                          \
+  int lstm_bwd_unit_##SFX(const void* w, const void* gs, const void* cs,     \
+                          const void* dy, void* dg, int B, int N, int H,     \
+                          int R, int reverse, void* stream) {                \
+    return launch_unit<TYPE>(w, w, gs, cs, dy, gs, cs, dy, dg, dg, B, N, H,  \
+                             R, 1, reverse, stream);                         \
   }
 
 BILSTM_BWD_ENTRIES(f32, float)
 BILSTM_BWD_ENTRIES(bf16, __nv_bfloat16)
 #undef BILSTM_BWD_ENTRIES
+
+// How many blocks of the unit kernel (bf16: 0 or 1) at hidden size H and
+// tile R one SM of the current device runs at once; a negative cudaError_t
+// code on failure. `save` is taken for the forward sources' signature of
+// this query and ignored (the BPTT has one variant).
+int bilstm_bwd_unit_blocks_per_sm(int bf16, int save, int H, int R) {
+  (void)save;
+  if (!valid_unit_plan(1, 1, H, R))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return bf16 ? unit_blocks_per_sm<__nv_bfloat16>(H, R)
+              : unit_blocks_per_sm<float>(H, R);
+}
+
+// The unit kernel's layout at hidden size H and tile R, for the wrapper's
+// mirror: what 0 = static shared memory in bytes, 1 = threads a block, 2 =
+// W_hh values a lane holds in registers; -1 for a plan it does not take.
+int bilstm_bwd_unit_layout(int what, int H, int R) {
+  if (!valid_unit_plan(1, 1, H, R)) return -1;
+  switch (what) {
+    case 0: return static_cast<int>(unit_smem_bytes(R));
+    case 1: return unit_threads(H);
+    case 2: return 4 * kKPerLane;
+    default: return -1;
+  }
+}
 
 const char* bilstm_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -25,14 +25,16 @@ PyTorch version beside it:
 - ``bilstm_bwd`` (``csrc/bilstm_bwd.cu``): reverse-time BPTT from those
   residuals to the gate cotangent ``dg [B, N, 4H]`` per direction.
 
-The forward source holds two kernels. At H <= ``UNIT_MAX_H`` (64, the
-flagship's and the legacy LSTM's width) the unit kernel runs: four lanes
-of a warp own one hidden unit of a tile of 1, 2 or 4 batch rows, W_hh in
-their registers, one block barrier a step; ``unit_plan`` sizes the tile to
-the batch and the card. Above it the wide kernel (the first design, W_hh in
-shared memory, one block of 4H threads per 4-row tile) runs, up to H=118
-in float32. ``lstm_fwd_kernel_route`` chooses, and each launch records its
-kernel and tile in the wrapper's ``last_launch``.
+Each source holds two kernels. At H <= ``UNIT_MAX_H`` (64, the flagship's
+and the legacy LSTM's width) the unit kernel runs: four lanes of a warp own
+one hidden unit of a tile of 1, 2 or 4 batch rows, W_hh (the forward's
+columns, the BPTT's row) in their registers, one block barrier a step;
+``unit_plan`` sizes the tile to the batch and the card. Above it the wide
+kernel (the first design, W_hh in shared memory, one block of 4H threads
+per 4-row tile) runs, up to H=118 in the forward and H=116 in the BPTT in
+float32. ``lstm_fwd_kernel_route`` and ``lstm_bwd_kernel_route`` choose,
+and each launch records its kernel and tile in the wrapper's
+``last_launch``.
 
 With grad enabled and an input that requires it, ``bilstm_recurrence``
 goes through ``BiLSTMFunction`` (training forward, then BPTT and
@@ -86,8 +88,9 @@ def bilstm_smem_bytes(hidden: int) -> int:
 def unit_smem_bytes(rows: int, tiles: int = 1) -> int:
     """Static shared memory of a unit kernel's block: ``tiles`` tiles of
     [64][rows] float32, double buffered (``unit_smem_bytes`` of the
-    sources): the forward kernels' h tile (one), the GRU BPTT's dg tile
-    (three, one per gate block of W_hh's row)."""
+    sources): the forward kernels' h tile (one), the GRU BPTT's and the
+    LSTM BPTT's dg tile (three and four, one per gate block of W_hh's
+    row)."""
     return 2 * tiles * UNIT_MAX_H * rows * 4
 
 
@@ -180,6 +183,26 @@ def bilstm_bwd_smem_bytes(hidden: int) -> int:
     dg tile."""
     G = 4 * hidden
     return (G * hidden + 2 * _ROWS_PER_BLOCK * G) * 4
+
+
+def lstm_bwd_kernel_route(hidden: int) -> str:
+    """The BPTT kernel of ``csrc/bilstm_bwd.cu`` that takes hidden size
+    ``hidden`` (whatever the batch, stream dtype or direction count):
+    "unit" (``bilstm_bwd_unit_kernel``) up to ``UNIT_MAX_H``, else "wide"
+    where its W_hh^T and dg tile fit one block's shared memory (H <= 116).
+    Raises for an H neither takes."""
+    if hidden <= 0:
+        raise ValueError(f"bilstm_bwd: H must be positive, got {hidden}")
+    if hidden <= UNIT_MAX_H:
+        return "unit"
+    if bilstm_bwd_smem_bytes(hidden) <= MAX_SMEM_BYTES:
+        return "wide"
+    raise ValueError(
+        f"bilstm_bwd: no kernel takes H={hidden}: the unit kernel holds "
+        f"H <= {UNIT_MAX_H}, and the wide kernel needs "
+        f"{bilstm_bwd_smem_bytes(hidden)} bytes of shared memory per block, "
+        f"over the {MAX_SMEM_BYTES} a block can have (larger H needs W_hh "
+        "split across a thread-block cluster)")
 
 
 # ---------------------------------------------------------------------------
@@ -442,12 +465,14 @@ def _library(name: str):
         return lib
     p, i = ctypes.c_void_p, ctypes.c_int
     # pointers, then B, N, H (the forward: and the tile R and the wide
-    # flag), and the reverse flag of one direction
+    # flag; the BPTT's unit kernel: and R), and the reverse flag of one
+    # direction
     if name == "bilstm_fwd":
         fns = {"bilstm_fwd": (6, 5), "bilstm_fwd_train": (10, 5),
                "lstm_fwd": (3, 6), "lstm_fwd_train": (5, 6)}
     else:
-        fns = {"bilstm_bwd": (10, 3), "lstm_bwd": (5, 4)}
+        fns = {"bilstm_bwd": (10, 3), "lstm_bwd": (5, 4),
+               "bilstm_bwd_unit": (10, 4), "lstm_bwd_unit": (5, 5)}
     for fn_name, (n_ptr, n_int) in fns.items():
         for sfx in _SUFFIX.values():
             fn = getattr(lib, f"{fn_name}_{sfx}")
@@ -455,6 +480,8 @@ def _library(name: str):
             fn.restype = ctypes.c_int
     if name == "bilstm_fwd":
         bind_unit_queries(lib, name, gates=4)
+    else:
+        bind_unit_queries(lib, name, gates=4, tiles=4)
     set_error_string(lib, name)
     return lib
 
@@ -505,6 +532,14 @@ def card_lstm_unit_plans(B: int, H: int, dev: torch.device,
     the tiles the card runs, fastest first."""
     return card_unit_plans(_library("bilstm_fwd"), "bilstm_fwd", B, H, dev,
                            dtype, save, dirs)
+
+
+def card_lstm_bwd_unit_plans(B: int, H: int, dev: torch.device,
+                             dtype: torch.dtype, dirs: int) -> List[int]:
+    """``card_unit_plans`` of the LSTM BPTT unit kernel (``dirs``
+    directions): the tiles the card runs, fastest first."""
+    return card_unit_plans(_library("bilstm_bwd"), "bilstm_bwd", B, H, dev,
+                           dtype, False, dirs)
 
 
 def unit_launch_rows(fn, lib, name: str, B: int, H: int, dev: torch.device,
@@ -578,23 +613,44 @@ def launch(lib, fn_name: str, dev: torch.device, *args) -> None:
                            f"{lib.error_string(rc).decode()}")
 
 
-def _fwd_plan(fn, name: str, B: int, H: int, dev, T, save: bool,
-              dirs: int, plan):
-    """The kernel library and ``(rows, wide)`` of a forward launch of
-    ``csrc/bilstm_fwd.cu``: ``lstm_fwd_kernel_route``'s kernel and, for the
-    unit kernel, ``unit_plan``'s tile; or the caller's ``plan`` ("unit",
-    rows) or ("wide", 4). Recorded in ``fn.last_launch``."""
-    kernel = lstm_fwd_kernel_route(H) if plan is None else plan[0]
-    lib = _library("bilstm_fwd")
+def _kernel(source: str, H: int, plan) -> str:
+    """The kernel of ``source`` ("bilstm_fwd" or "bilstm_bwd") that a
+    launch at H takes: the caller's ``plan`` or the source's route."""
+    if plan is not None:
+        return plan[0]
+    route = (lstm_fwd_kernel_route if source == "bilstm_fwd"
+             else lstm_bwd_kernel_route)
+    return route(H)
+
+
+def _smem(source: str, H: int, plan) -> int:
+    """Shared memory of the kernel of ``source`` that ``plan`` (or the
+    route) picks at H, for ``_check_cuda``; the unit kernel's largest
+    tile (the forward's h tile, the BPTT's four dg tiles)."""
+    if _kernel(source, H, plan) == "unit":
+        return unit_smem_bytes(max(UNIT_ROWS),
+                               tiles=1 if source == "bilstm_fwd" else 4)
+    return (bilstm_smem_bytes if source == "bilstm_fwd"
+            else bilstm_bwd_smem_bytes)(H)
+
+
+def _plan(fn, source: str, name: str, B: int, H: int, dev, T, save: bool,
+          dirs: int, plan):
+    """The kernel library and ``(rows, wide)`` of a launch of ``source``
+    ("bilstm_fwd" or "bilstm_bwd"): the route's kernel and, for the unit
+    kernel, ``unit_plan``'s tile; or the caller's ``plan`` ("unit", rows)
+    or ("wide", 4). Recorded in ``fn.last_launch``."""
+    kernel = _kernel(source, H, plan)
+    lib = _library(source)
     if kernel == "unit":
         if H > UNIT_MAX_H:
             raise ValueError(f"{name}: the unit kernel takes H <= "
                              f"{UNIT_MAX_H}, not {H}")
-        return lib, unit_launch_rows(fn, lib, "bilstm_fwd", B, H, dev, T,
-                                     save, dirs,
+        return lib, unit_launch_rows(fn, lib, source, B, H, dev, T, save,
+                                     dirs,
                                      None if plan is None else plan[1]), 0
     if kernel != "wide" or (plan is not None
-                            and plan[1] != _ROWS_PER_BLOCK):
+                            and tuple(plan[1:]) != (_ROWS_PER_BLOCK,)):
         raise ValueError(f"{name}: plan must be ('unit', rows) or ('wide', "
                          f"{_ROWS_PER_BLOCK}), got {plan}")
     fn.last_launch = {"kernel": "wide", "cluster": 1,
@@ -604,25 +660,19 @@ def _fwd_plan(fn, name: str, B: int, H: int, dev, T, save: bool,
     return lib, _ROWS_PER_BLOCK, 1
 
 
-def _fwd_smem(H: int, plan) -> int:
-    """Shared memory of the forward kernel ``plan`` (or the route's) picks
-    at H, for ``_check_cuda``; the unit kernel's largest tile."""
-    kernel = lstm_fwd_kernel_route(H) if plan is None else plan[0]
-    return (unit_smem_bytes(max(UNIT_ROWS)) if kernel == "unit"
-            else bilstm_smem_bytes(H))
-
-
 def _bilstm_fwd_launch(fn, save: bool, xg_f, xg_b, w_f, w_b, plan):
     _check_shapes(xg_f, xg_b, w_f, w_b)
     name = "bilstm_fwd_train" if save else "bilstm_fwd"
     B, N, G = xg_f.shape
     H = G // 4
-    dev, T = _check_cuda(name, (xg_f, xg_b), (w_f, w_b), _fwd_smem(H, plan))
+    dev, T = _check_cuda(name, (xg_f, xg_b), (w_f, w_b),
+                         _smem("bilstm_fwd", H, plan))
     outs = [torch.empty(B, N, d, dtype=T, device=dev)
             for d in ((H, H, H, H, G, G) if save else (H, H))]
     if B == 0 or N == 0:
         return tuple(outs)
-    lib, rows, wide = _fwd_plan(fn, name, B, H, dev, T, save, 2, plan)
+    lib, rows, wide = _plan(fn, "bilstm_fwd", name, B, H, dev, T, save, 2,
+                            plan)
     w_f, w_b = w_f.to(T), w_b.to(T)
     launch(lib, f"{name}_{_SUFFIX[T]}", dev,
            *(t.data_ptr() for t in (xg_f, xg_b, w_f, w_b, *outs)), B, N, H,
@@ -662,10 +712,31 @@ def bilstm_fwd_train_cuda(xg_f: torch.Tensor, xg_b: torch.Tensor,
 bilstm_fwd_train_cuda.launches = 0
 
 
-def bilstm_bwd_cuda(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b
+def _bwd_launch(fn, name: str, ptrs, B: int, N: int, H: int, dev, T,
+                dirs: int, plan, *tail) -> None:
+    """Launch ``name`` ("bilstm_bwd" or "lstm_bwd", ``csrc/bilstm_bwd.cu``)
+    on the pointers ``ptrs``, then B, N, H, the unit kernel's tile and
+    ``tail`` (the reverse flag of one direction), as ``_plan`` picks; the
+    wide kernel's entries take no tile. Counted on ``fn``."""
+    lib, rows, wide = _plan(fn, "bilstm_bwd", name, B, H, dev, T, False,
+                            dirs, plan)
+    sfx = _SUFFIX[T]
+    if wide:
+        launch(lib, f"{name}_{sfx}", dev, *ptrs, B, N, H, *tail)
+    else:
+        launch(lib, f"{name}_unit_{sfx}", dev, *ptrs, B, N, H, rows, *tail)
+    fn.launches += 1
+
+
+def bilstm_bwd_cuda(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b,
+                    plan: Optional[Tuple[str, int]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/bilstm_bwd.cu``: returns ``(dg_f, dg_b)``. Counts each
-    launch in ``bilstm_bwd_cuda.launches``."""
+    """Launch ``csrc/bilstm_bwd.cu``: returns ``(dg_f, dg_b)``.
+    ``lstm_bwd_kernel_route`` picks the unit kernel or the wide kernel;
+    ``plan=("unit", rows)`` or ``("wide", 4)`` overrides the route and the
+    planner (raises if it does not fit). Records the plan in
+    ``bilstm_bwd_cuda.last_launch`` and counts each launch in
+    ``bilstm_bwd_cuda.launches``."""
     _check_shapes(gs_f, gs_b, w_f, w_b)
     B, N, G = gs_f.shape
     H = G // 4
@@ -676,16 +747,15 @@ def bilstm_bwd_cuda(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b
             f"{[tuple(t.shape) for t in (cs_f, dy_f, cs_b, dy_b)]}")
     streams = (gs_f, cs_f, dy_f, gs_b, cs_b, dy_b)
     dev, T = _check_cuda("bilstm_bwd", streams, (w_f, w_b),
-                         bilstm_bwd_smem_bytes(H))
+                         _smem("bilstm_bwd", H, plan))
     dg_f = torch.empty(B, N, G, dtype=T, device=dev)
     dg_b = torch.empty_like(dg_f)
     if B == 0 or N == 0:
         return dg_f, dg_b
     w_f, w_b = w_f.to(T), w_b.to(T)
-    launch(_library("bilstm_bwd"), f"bilstm_bwd_{_SUFFIX[T]}", dev,
-           *(t.data_ptr() for t in (w_f, w_b, *streams)), dg_f.data_ptr(),
-           dg_b.data_ptr(), B, N, H)
-    bilstm_bwd_cuda.launches += 1
+    _bwd_launch(bilstm_bwd_cuda, "bilstm_bwd",
+                [t.data_ptr() for t in (w_f, w_b, *streams, dg_f, dg_b)],
+                B, N, H, dev, T, 2, plan)
     return dg_f, dg_b
 
 
@@ -697,12 +767,13 @@ def _lstm_fwd_launch(fn, save: bool, xg, w, reverse: bool, plan):
     name = "lstm_fwd_train" if save else "lstm_fwd"
     B, N, G = xg.shape
     H = G // 4
-    dev, T = _check_cuda(name, (xg,), (w,), _fwd_smem(H, plan))
+    dev, T = _check_cuda(name, (xg,), (w,), _smem("bilstm_fwd", H, plan))
     outs = [torch.empty(B, N, d, dtype=T, device=dev)
             for d in ((H, H, G) if save else (H,))]
     if B == 0 or N == 0:
         return tuple(outs)
-    lib, rows, wide = _fwd_plan(fn, name, B, H, dev, T, save, 1, plan)
+    lib, rows, wide = _plan(fn, "bilstm_fwd", name, B, H, dev, T, save, 1,
+                            plan)
     w = w.to(T)
     launch(lib, f"{name}_{_SUFFIX[T]}", dev,
            xg.data_ptr(), w.data_ptr(), *(o.data_ptr() for o in outs),
@@ -736,9 +807,12 @@ def lstm_fwd_train_cuda(xg: torch.Tensor, w: torch.Tensor,
 lstm_fwd_train_cuda.launches = 0
 
 
-def lstm_bwd_cuda(w, gs, cs, dy, reverse: bool = False) -> torch.Tensor:
-    """Launch ``csrc/bilstm_bwd.cu`` with a grid of one direction: ``dg``.
-    Counts each launch in ``lstm_bwd_cuda.launches``."""
+def lstm_bwd_cuda(w, gs, cs, dy, reverse: bool = False,
+                  plan: Optional[Tuple[str, int]] = None) -> torch.Tensor:
+    """Launch ``csrc/bilstm_bwd.cu`` with a grid of one direction: ``dg``;
+    ``plan`` as ``bilstm_bwd_cuda``. Records the plan in
+    ``lstm_bwd_cuda.last_launch`` and counts each launch in
+    ``lstm_bwd_cuda.launches``."""
     _check_shapes(gs, gs, w, w)
     B, N, G = gs.shape
     H = G // 4
@@ -747,15 +821,14 @@ def lstm_bwd_cuda(w, gs, cs, dy, reverse: bool = False) -> torch.Tensor:
             "lstm_bwd: cs and dy must be [B, N, H] with gs [B, N, 4H] = "
             f"{tuple(gs.shape)}; got {tuple(cs.shape)}, {tuple(dy.shape)}")
     dev, T = _check_cuda("lstm_bwd", (gs, cs, dy), (w,),
-                         bilstm_bwd_smem_bytes(H))
+                         _smem("bilstm_bwd", H, plan))
     dg = torch.empty(B, N, G, dtype=T, device=dev)
     if B == 0 or N == 0:
         return dg
     w = w.to(T)
-    launch(_library("bilstm_bwd"), f"lstm_bwd_{_SUFFIX[T]}", dev,
-           *(t.data_ptr() for t in (w, gs, cs, dy, dg)), B, N, H,
-           int(reverse))
-    lstm_bwd_cuda.launches += 1
+    _bwd_launch(lstm_bwd_cuda, "lstm_bwd",
+                [t.data_ptr() for t in (w, gs, cs, dy, dg)], B, N, H, dev, T,
+                1, plan, int(reverse))
     return dg
 
 

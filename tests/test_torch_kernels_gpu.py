@@ -650,3 +650,87 @@ def test_bigru_layer_fused_tensor_core_edges(cuda, shape):
         assert torch.equal(a, a2)
         assert a.dtype == r.dtype and torch.isfinite(a).all()
         assert _max_rel(a.float(), r.float()) <= 0.1
+
+
+# ---------------------------------------------------------------------------
+# The LSTM BPTT of csrc/bilstm_bwd.cu: the unit kernel (H <= 64) at every
+# batch tile the card runs and the planner's own pick, B in {1, 5, 17}
+# (ragged tiles) x N in {5, 17, 500} (5: shorter than the 8-step input
+# ring; 17: two of its groups and a step) x H in {16, 20, 48, 64} (20:
+# padding lanes), float32 and
+# bfloat16, both grids (both directions; one direction in both walk
+# orders), against bilstm_bwd_plain / lstm_bwd_plain (max-rel GRAD_REL /
+# 0.1), bit-equal on a second launch, and BiLSTMFunction's /
+# LSTMFunction's gradients against autograd through the plain loop; the
+# wide kernel (H > 64) the same way at H=96.
+# ---------------------------------------------------------------------------
+
+LSTM_BWD_SHAPES = [(B, N, H) for B in (1, 5, 17) for N in (5, 17, 500)
+                   for H in (16, 20, 48, 64)]
+LSTM_BWD_WIDE_SHAPES = [(1, 17, 96), (5, 500, 96), (17, 43, 96)]
+
+
+def _check_lstm_bwd(cuda, shape, dtype, plans, kernel):
+    xg_f, xg_b, w_f, w_b = _inputs(*shape, cuda)
+    xg_f, xg_b = xg_f.to(dtype), xg_b.to(dtype)
+    bound = GRAD_REL if dtype == torch.float32 else 0.1
+    res = rnn_cuda.bilstm_fwd_train_plain(xg_f, xg_b, w_f, w_b)
+    g = torch.Generator(cuda).manual_seed(3)
+    dy_f, dy_b = (torch.randn(res[0].shape, device=cuda, generator=g
+                              ).to(dtype) for _ in range(2))
+    args = (w_f, w_b, res[4], res[2], dy_f, res[5], res[3], dy_b)
+    ref = rnn_cuda.bilstm_bwd_plain(*args)
+    # one direction: the forward direction's walk, and the backward one's
+    # as a reverse LSTM; their plain versions are ref's two halves
+    singles = ((False, args[0], args[2:5], ref[0]),
+               (True, args[1], args[5:8], ref[1]))
+    for plan in plans:
+        before = rnn_cuda.bilstm_bwd_cuda.launches
+        got = rnn_cuda.bilstm_bwd_cuda(*args, plan=plan)
+        assert rnn_cuda.bilstm_bwd_cuda.launches == before + 1
+        assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == kernel
+        again = rnn_cuda.bilstm_bwd_cuda(*args, plan=plan)
+        for a, a2, r in zip(got, again, ref):
+            assert torch.equal(a, a2), plan
+            assert a.dtype == r.dtype and torch.isfinite(a).all()
+            assert _max_rel(a.float(), r.float()) <= bound, plan
+        for rev, w, streams, r in singles:
+            before = rnn_cuda.lstm_bwd_cuda.launches
+            got = rnn_cuda.lstm_bwd_cuda(w, *streams, rev, plan=plan)
+            assert rnn_cuda.lstm_bwd_cuda.launches == before + 1
+            assert rnn_cuda.lstm_bwd_cuda.last_launch["kernel"] == kernel
+            assert torch.equal(got, rnn_cuda.lstm_bwd_cuda(w, *streams, rev,
+                                                           plan=plan))
+            assert got.dtype == r.dtype and torch.isfinite(got).all()
+            assert _max_rel(got.float(), r.float()) <= bound, (plan, rev)
+    x = [t.clone().requires_grad_(True) for t in (xg_f, xg_b, w_f, w_b)]
+    got = torch.autograd.grad(rnn_cuda.bilstm_recurrence(*x), x, [dy_f, dy_b])
+    assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == kernel
+    ref_g = torch.autograd.grad(rnn_cuda.bilstm_recurrence_plain(*x), x,
+                                [dy_f, dy_b])
+    for name, a, r in zip(("dxg_f", "dxg_b", "dW_f", "dW_b"), got, ref_g):
+        assert a.dtype == r.dtype and torch.isfinite(a).all(), name
+        assert _max_rel(a.float(), r.float()) <= bound, name
+    for rev in (False, True):
+        x = [t.clone().requires_grad_(True) for t in (xg_f, w_f)]
+        got = torch.autograd.grad(rnn_cuda.lstm_recurrence_kernel(*x, rev),
+                                  x, dy_f)
+        assert rnn_cuda.lstm_bwd_cuda.last_launch["kernel"] == kernel
+        ref_g = torch.autograd.grad(rnn_cuda.lstm_recurrence(*x, rev), x,
+                                    dy_f)
+        for name, a, r in zip(("dxg", "dW_hh"), got, ref_g):
+            assert a.dtype == r.dtype and torch.isfinite(a).all(), name
+            assert _max_rel(a.float(), r.float()) <= bound, (name, rev)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", LSTM_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_bwd_unit_kernels_match_plain(cuda, shape, dtype):
+    _check_lstm_bwd(cuda, shape, dtype, UNIT_PLANS, "unit")
+
+
+@pytest.mark.parametrize("shape", LSTM_BWD_WIDE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_bwd_wide_kernel_matches_plain(cuda, shape, dtype):
+    _check_lstm_bwd(cuda, shape, dtype, [None, ("wide", 4)], "wide")

@@ -1,6 +1,6 @@
 """Launch planning of the recurrences, on the CPU: which kernel of
-``csrc/bilstm_fwd.cu`` / ``csrc/bigru_fwd.cu`` / ``csrc/bigru_bwd.cu``
-takes a shape, the unit kernels' batch tile from the card's counts (fake
+``csrc/bilstm_fwd.cu`` / ``csrc/bilstm_bwd.cu`` / ``csrc/bigru_fwd.cu`` /
+``csrc/bigru_bwd.cu`` takes a shape, the unit kernels' batch tile from the card's counts (fake
 H100 counts here: 132 SMs), the wrappers' mirrors of the sources' layouts,
 and what each wrapper launches and records in ``last_launch`` (the kernel
 library and the launch replaced by fakes that record the call)."""
@@ -13,6 +13,7 @@ from room_slam_torch.ops.gru_cuda import (bigru_plan, bigru_smem_bytes,
                                           gru_bwd_kernel_route,
                                           gru_fwd_kernel_route)
 from room_slam_torch.ops.rnn_cuda import (check_unit_mirror,
+                                          lstm_bwd_kernel_route,
                                           lstm_fwd_kernel_route, unit_plan,
                                           unit_plans, unit_smem_bytes,
                                           unit_threads, unit_weight_regs)
@@ -318,3 +319,156 @@ def test_fused_staging_reuses_exchange_tile(hidden, cluster, rows, floats):
     assert bigru_smem_bytes("fused", hidden, cluster, rows) == 4 * floats
     assert bigru_smem_bytes("fused", 256, 8, 20) <= gru_cuda.MAX_SMEM_BYTES
     assert bigru_plan("fused", 128, 256, _clusters) == (8, 20)
+
+
+# ---------------------------------------------------------------------------
+# The LSTM BPTT (both grids): the unit kernel at H <= 64, the wide kernel
+# above it
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("hidden,want", [
+    (16, "unit"), (64, "unit"), (65, "wide"), (96, "wide"), (116, "wide")])
+def test_lstm_bwd_route(hidden, want):
+    assert lstm_bwd_kernel_route(hidden) == want
+
+
+@pytest.mark.parametrize("hidden", [0, 117, 118, 119])
+def test_lstm_bwd_route_raises_where_no_kernel_fits(hidden):
+    """The wide BPTT kernel's W_hh^T and double-buffered [4][4H] dg tile
+    fit one block to H=116; the wide forward's smaller tile to H=118."""
+    with pytest.raises(ValueError, match="H"):
+        lstm_bwd_kernel_route(hidden)
+    if 0 < hidden <= 118:
+        assert lstm_fwd_kernel_route(hidden) == "wide"
+
+
+def test_lstm_bwd_unit_mirror_check_against_source_layout():
+    """The LSTM BPTT unit kernel's dg tile holds four [64][R] tiles (one per
+    gate block of W_hh's row); ``check_unit_mirror`` with ``tiles=4``
+    accepts a source laid out so and names the first plan of one laid out
+    as the GRU BPTT's three tiles."""
+    def layout(what, hidden, rows, tiles=4):
+        if hidden > 64 or rows not in (1, 2, 4):
+            return -1
+        return (unit_smem_bytes(rows, tiles), unit_threads(hidden),
+                unit_weight_regs(4))[what]
+
+    assert unit_smem_bytes(4, 4) == 2 * 4 * 64 * 4 * 4
+    check_unit_mirror(layout, 4, "bilstm_bwd", tiles=4)
+    with pytest.raises(RuntimeError, match="H=1, R=1"):
+        check_unit_mirror(lambda w, h, r: layout(w, h, r, tiles=3), 4,
+                          "bilstm_bwd", tiles=4)
+
+
+def _lstm_bwd_args(B, N, H, dtype=torch.float32):
+    """``bilstm_bwd_cuda``'s arguments: w_f, w_b, then gs, cs, dy of each
+    direction."""
+    z = torch.zeros
+    one = (z(B, N, 4 * H, dtype=dtype), z(B, N, H, dtype=dtype),
+           z(B, N, H, dtype=dtype))
+    return (z(H, 4 * H), z(H, 4 * H), *one, *one)
+
+
+def _lstm_bwd_one(B, N, H, dtype=torch.float32):
+    """``lstm_bwd_cuda``'s arguments: w, gs, cs, dy."""
+    return _lstm_bwd_args(B, N, H, dtype)[1:5]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_bwd_wrappers_launch_unit(fake_card, dtype):
+    """The flagship training shape (20, 1500, 64) launches
+    ``bilstm_bwd_unit_*`` (10 pointers, B, N, H, R) and the legacy-LSTM
+    shape (32, 500, 64) ``lstm_bwd_unit_*`` (5 pointers, B, N, H, R,
+    reverse), both with the planner's one-row tile, and record it."""
+    sfx = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    fn = rnn_cuda.bilstm_bwd_cuda
+    fn(*_lstm_bwd_args(20, 1500, 64, dtype))
+    name, args = fake_card.calls[-1]
+    assert name == f"bilstm_bwd_unit_{sfx}"
+    assert len(args) == 14 and args[10:] == (20, 1500, 64, 1)
+    assert fn.last_launch == {"kernel": "unit", "cluster": 1, "rows": 1,
+                              "clusters": 40, "resident": 264}
+    fn = rnn_cuda.lstm_bwd_cuda
+    fn(*_lstm_bwd_one(32, 500, 64, dtype), True)
+    name, args = fake_card.calls[-1]
+    assert name == f"lstm_bwd_unit_{sfx}"
+    assert len(args) == 10 and args[5:] == (32, 500, 64, 1, 1)
+    assert fn.last_launch == {"kernel": "unit", "cluster": 1, "rows": 1,
+                              "clusters": 32, "resident": 264}
+    assert rnn_cuda.bilstm_bwd_cuda.launches >= 1 and fn.launches >= 1
+
+
+def test_lstm_bwd_wide_entry_above_unit_width(fake_card):
+    """H=96 launches the wide entries: ``bilstm_bwd_*`` (10 pointers, B, N,
+    H) and ``lstm_bwd_*`` (5 pointers, B, N, H, reverse), 4-row tiles."""
+    rnn_cuda.bilstm_bwd_cuda(*_lstm_bwd_args(5, 3, 96))
+    name, args = fake_card.calls[-1]
+    assert name == "bilstm_bwd_f32" and len(args) == 13
+    assert args[10:] == (5, 3, 96)
+    assert rnn_cuda.bilstm_bwd_cuda.last_launch == {
+        "kernel": "wide", "cluster": 1, "rows": 4, "clusters": 4,
+        "resident": None}
+    rnn_cuda.lstm_bwd_cuda(*_lstm_bwd_one(5, 3, 96, torch.bfloat16), True)
+    name, args = fake_card.calls[-1]
+    assert name == "lstm_bwd_bf16" and len(args) == 9
+    assert args[5:] == (5, 3, 96, 1)
+    assert rnn_cuda.lstm_bwd_cuda.last_launch["clusters"] == 2
+
+
+def test_lstm_bwd_launch_follows_its_route(fake_card, monkeypatch):
+    """``bilstm_bwd_cuda`` and ``lstm_bwd_cuda`` ask
+    ``lstm_bwd_kernel_route``, not the forward's route: sending H=64 to the
+    wide kernel there moves both BPTT launches and leaves the forward's on
+    the unit kernel, and the converse leaves the BPTT's on it."""
+    monkeypatch.setattr(rnn_cuda, "lstm_bwd_kernel_route",
+                        lambda hidden: "wide")
+    rnn_cuda.bilstm_bwd_cuda(*_lstm_bwd_args(20, 5, 64))
+    assert fake_card.calls[-1][0] == "bilstm_bwd_f32"
+    assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == "wide"
+    rnn_cuda.lstm_bwd_cuda(*_lstm_bwd_one(32, 5, 64))
+    assert fake_card.calls[-1][0] == "lstm_bwd_f32"
+    z = torch.zeros
+    rnn_cuda.bilstm_fwd_train_cuda(z(20, 5, 256), z(20, 5, 256), z(64, 256),
+                                   z(64, 256))
+    assert fake_card.calls[-1][0] == "bilstm_fwd_train_f32"
+    assert rnn_cuda.bilstm_fwd_train_cuda.last_launch["kernel"] == "unit"
+    monkeypatch.setattr(rnn_cuda, "lstm_bwd_kernel_route",
+                        lstm_bwd_kernel_route)
+    monkeypatch.setattr(rnn_cuda, "lstm_fwd_kernel_route",
+                        lambda hidden: "wide")
+    rnn_cuda.bilstm_bwd_cuda(*_lstm_bwd_args(20, 5, 64))
+    assert fake_card.calls[-1][0] == "bilstm_bwd_unit_f32"
+    rnn_cuda.lstm_bwd_cuda(*_lstm_bwd_one(32, 5, 64))
+    assert fake_card.calls[-1][0] == "lstm_bwd_unit_f32"
+
+
+def test_lstm_bwd_plan_forced_or_refused(fake_card):
+    """``plan=`` takes a unit tile or the wide kernel, and refuses a tile
+    the unit kernel has not, the unit kernel above H=64, a wide tile other
+    than 4 rows and another kernel's plan."""
+    fn = rnn_cuda.bilstm_bwd_cuda
+    fn(*_lstm_bwd_args(17, 5, 48), plan=("unit", 4))
+    assert fake_card.calls[-1][0] == "bilstm_bwd_unit_f32"
+    assert fake_card.calls[-1][1][10:] == (17, 5, 48, 4)
+    assert fn.last_launch["clusters"] == 10
+    rnn_cuda.lstm_bwd_cuda(*_lstm_bwd_one(17, 5, 48), True, plan=("unit", 2))
+    assert fake_card.calls[-1][1][5:] == (17, 5, 48, 2, 1)
+    assert rnn_cuda.lstm_bwd_cuda.last_launch["clusters"] == 9
+    fn(*_lstm_bwd_args(32, 5, 64), plan=("wide", 4))
+    assert fake_card.calls[-1][0] == "bilstm_bwd_f32"
+    assert fn.last_launch["kernel"] == "wide"
+    rnn_cuda.lstm_bwd_cuda(*_lstm_bwd_one(32, 5, 64), plan=("wide", 4))
+    assert fake_card.calls[-1][0] == "lstm_bwd_f32"
+    assert fake_card.calls[-1][1][5:] == (32, 5, 64, 0)
+    n = len(fake_card.calls)
+    with pytest.raises(ValueError, match="tiles"):
+        fn(*_lstm_bwd_args(32, 5, 64), plan=("unit", 3))
+    with pytest.raises(ValueError, match="unit kernel"):
+        fn(*_lstm_bwd_args(4, 5, 96), plan=("unit", 1))
+    with pytest.raises(ValueError, match="plan"):
+        fn(*_lstm_bwd_args(32, 5, 64), plan=("wide", 2))
+    with pytest.raises(ValueError, match="plan"):
+        rnn_cuda.lstm_bwd_cuda(*_lstm_bwd_one(32, 5, 64),
+                               plan=("cluster", 1, 4))
+    assert len(fake_card.calls) == n
