@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time chip_smoke.py's flagship and legacy train steps, the LSTM BPTT
-kernels and the fused BiGRU layer from two checkouts of this repository on
-one CUDA card, in turns.
+"""Time chip_smoke.py's flagship, legacy and scale-up train steps, the LSTM
+and BiGRU kernels on them and the fused BiGRU layer from two checkouts of
+this repository on one CUDA card, in turns.
 
     python3 chip_ab.py --parent DIR [--output FILE]
 
@@ -22,7 +22,12 @@ checkout's root that imports that checkout's ``chip_smoke.py`` and
   N=1500) p50 over ``STEPS`` after ``STEP_WARMUP`` on phase 8's rooms,
   then its per-stage split; the ``bilstm_fwd_train`` and ``bilstm_bwd``
   kernel times at that shape beside it, and ``lstm_bwd`` at the legacy
-  shape (B=32, N=500, one direction), from CUDA events.
+  shape (B=32, N=500, one direction), from CUDA events;
+- phase 17: ``time_steps``, the scale-up train step (the bigru config at
+  ``SCALEUP``: B=128, N=5000, d_model 512, bf16) p50 over
+  ``SCALEUP_STEPS`` after ``SCALEUP_WARMUP`` on phase 14's rooms, then its
+  per-stage split; the ``bigru_fwd_train`` and ``bigru_bwd`` kernel times
+  at that shape beside it, from CUDA events.
 
 It prints one line per run and, last, a JSON object of all runs (also
 written to ``--output``). Exits non-zero without a CUDA card; every
@@ -43,7 +48,7 @@ import json, subprocess, sys, tempfile
 from pathlib import Path
 import torch
 import chip_smoke as cs
-from room_slam_torch.data.rooms import write_legacy_rooms
+from room_slam_torch.data.rooms import write_legacy_rooms, write_rooms
 from room_slam_torch.ops import build, gru_cuda, rnn_cuda
 
 seed = 0   # chip_smoke.py's default --seed
@@ -84,8 +89,29 @@ with tempfile.TemporaryDirectory() as tmp:
     flagship = cs.time_steps(cfg, train_dir, dev, seed, smi, flag_rows,
                              [cs.TRAIN[:2]], cs.STEPS, cs.STEP_WARMUP,
                              "bilstm")[0]
+B, N, H = cs.SCALEUP
+ins = cs.gru_inputs(B, N, H, torch.bfloat16, dev, seed)
+args = cs.gru_bwd_inputs(ins, seed + 1)
+up_rows = {"bigru_fwd_train": [{"shape": [B, N, H], "kernel_ms": cs.cuda_ms(
+               lambda: gru_cuda.bigru_fwd_train_cuda(*ins), 3)}],
+           "bigru_bwd": [{"shape": [B, N, H], "kernel_ms": cs.cuda_ms(
+               lambda: gru_cuda.bigru_bwd_cuda(*args), 3)}]}
+up_plans = {k: dict(getattr(gru_cuda, k + "_cuda").last_launch)
+            for k in up_rows}
+del ins, args
+with tempfile.TemporaryDirectory() as tmp:
+    rooms = Path(tmp) / "rooms"
+    write_rooms(rooms, cs.SCALEUP_TRAIN_ROOMS, seed + 10,
+                points=cs.SCALEUP_POINTS)
+    scaleup = cs.time_steps(cs.scaleup_config(), rooms, dev, seed, smi,
+                            up_rows, [cs.SCALEUP[:2]], cs.SCALEUP_STEPS,
+                            cs.SCALEUP_WARMUP, "bigru")[0]
 print("AB_RESULT " + json.dumps({
     "card": smi, "legacy": legacy, "fused": fused, "flagship": flagship,
+    "scaleup": scaleup,
+    "bigru_fwd_train_ms": up_rows["bigru_fwd_train"][0]["kernel_ms"],
+    "bigru_bwd_ms": up_rows["bigru_bwd"][0]["kernel_ms"],
+    "bigru_launches": up_plans,
     "bilstm_bwd_ms": flag_rows["bilstm_bwd"][0]["kernel_ms"],
     "lstm_bwd_ms": lstm_bwd_ms}), flush=True)
 '''
@@ -122,6 +148,7 @@ def main(argv=None) -> int:
     for i, key in enumerate(ORDER):
         res = run_one(roots[key])
         leg, fus, flag = res["legacy"], res["fused"], res["flagship"]
+        up = res["scaleup"]
         runs.append({"run": i + 1, "tree": "parent" if key == "p"
                      else "change", **res})
         stage = leg["stage_ms"]
@@ -135,7 +162,14 @@ def main(argv=None) -> int:
               f"{leg['bwd_kernels_ms'] / 4:.3f} ms); fused layer "
               f"{fus['fused_layer_fwd_bwd_ms']:.3f} ms, unfused "
               f"{fus['unfused_layer_fwd_bwd_ms']:.3f} ms, #9 "
-              f"{fus['kernel_ms']:.3f} ms on {res['card']}", flush=True)
+              f"{fus['kernel_ms']:.3f} ms; scale-up step p50 "
+              f"{up['p50_ms']:.3f} ms (forward "
+              f"{up['stage_ms']['forward']:.3f}, backward "
+              f"{up['stage_ms']['backward']:.3f}; bigru_fwd_train kernel "
+              f"{res['bigru_fwd_train_ms']:.3f} ms, bigru_bwd kernel "
+              f"{res['bigru_bwd_ms']:.3f} ms, "
+              f"{res['bigru_launches']['bigru_bwd']['kernel']} kernel) on "
+              f"{res['card']}", flush=True)
     out = json.dumps({"order": ORDER, "runs": runs})
     if args.output:
         args.output.parent.mkdir(parents=True, exist_ok=True)

@@ -9,8 +9,9 @@ Phases, one line each or more (a failed check raises; nothing is caught):
 1. device: card name, count, and ``nvidia-smi`` name and power limit;
 2. build: every kernel source in ``room_slam_torch/csrc``, one ``nvcc`` each,
    all started together (registers and spills from ``-Xptxas -v``); the
-   fused kind (#9) and the GRU and LSTM BPTT unit kernels by name, #9's
-   bf16 kind and the LSTM BPTT unit kernels asserted free of spills;
+   BiGRU tensor-core kernels, the fused kind (#9) and the GRU and LSTM BPTT
+   unit kernels by name, the tensor-core kernels, #9's bf16 kind and the
+   LSTM BPTT unit kernels asserted free of spills;
 3. kernel check on the card: ``bilstm_fwd`` (the unit kernel, H <= 64)
    against its plain version, ``bilstm_fwd_train`` (ys, c, gates) and
    ``bilstm_bwd`` (dg; the unit kernel, asserted, then every unit tile the
@@ -54,16 +55,22 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     (ys, gates, hn) and ``bigru_bwd`` (dx, dhn) against their plain
     versions, and ``BiGRUFunction``'s six gradients against torch autograd
     through the plain loop, at the scale-up shape (128, 5000, 256) in bf16,
-    (16, 5000, 256) in f32 and (5, 43, 16) in both, with each launch's
-    cluster size and batch tile;
+    (16, 5000, 256) in f32, (5, 43, 16) in both and the tensor-core
+    kernels' edges in bf16 ((17, 300, 256), (5, 43, 64), (1, 500, 256)),
+    with each launch's kernel (asserted: "tc" for bf16 where the rule
+    holds, else "cluster"), cluster size and batch tile; where the
+    tensor-core kernels run, also under every tc plan the card runs;
 13. BiGRU kernel timing at the scale-up shape: each kernel, its plain
     version, torch ``nn.GRU`` (never called by the port), the bound and the
-    time per step; then the dW_hh / db_hh products outside the kernels,
+    time per step, and each kernel under every plan (the tensor-core
+    kernel's and the cluster kernel at its planner's pick) there and at a
+    batch of one row; then the dW_hh / db_hh products outside the kernels,
     with TF32 off (as the port runs them) and on;
 14. scale-up training (a main path): seeded rooms of 5000-7500 points,
     ``train_benchmark`` on the scale-up bigru config (d_model 512, 32
     queries, bf16 streams, B=128, N=5000) for 3 steps; finite losses, a
-    checkpoint, launch counts, peak device memory;
+    checkpoint, launch counts (the tensor-core kernels, asserted), peak
+    device memory;
 15. scale-up serving (a main path): the checkpoint answers one request of
     7500 points with two ``bigru_fwd`` launches; outputs and colliders
     against the same model through the plain recurrence on the card;
@@ -210,6 +217,12 @@ SCALEUP_SETS = ("model.model_type=bigru", "model.d_model=512",
                 "data.max_colliders=32")
 GRU_SHAPES = ((SCALEUP, torch.bfloat16), ((16, 5000, 256), torch.float32),
               ((5, 43, 16), torch.float32), ((5, 43, 16), torch.bfloat16))
+# the tensor-core kernels' edges (bf16, both directions): a batch off the
+# 16-row tiles, a narrow H the rule takes (8-unit warps at C = 4 and 8) and
+# the served request's batch of one row
+TC_EDGE_SHAPES = (((17, 300, 256), torch.bfloat16),
+                  ((5, 43, 64), torch.bfloat16),
+                  ((1, 500, 256), torch.bfloat16))
 BF16_RTOL, BF16_ATOL = 0.05, 0.03   # bf16 streams: values (the JAX suite's)
 BF16_GRAD_REL = 0.1                 # bf16 streams: gradients, max-rel
 YARDSTICK_ROUNDS = 3   # phase 29: rounds of the bf16 / fp16 library timing
@@ -246,28 +259,30 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-# mangled-name parts of the BPTT sources' kernels that phase 2 reports, by
-# library
-BWD_KERNELS = {
-    "bigru_bwd": {"bigru_bwd_fused_bf16": ("bigru_bwd_kernel", "bfloat16Li2E"),
+# mangled-name parts of the kernels that phase 2 reports, by library
+USAGE_KERNELS = {
+    "bigru_fwd": {"bigru_fwd_tc": ("bigru_fwd_tc_kernel",)},
+    "bigru_bwd": {"bigru_bwd_tc": ("bigru_bwd_tc_kernel",),
+                  "bigru_bwd_fused_bf16": ("bigru_bwd_kernel", "bfloat16Li2E"),
                   "bigru_bwd_fused_f32": ("bigru_bwd_kernel", "IfLi2E"),
                   "gru_bwd_unit_f32": ("gru_bwd_unit_kernel", "IfLi"),
                   "gru_bwd_unit_bf16": ("gru_bwd_unit_kernel", "bfloat16Li")},
     "bilstm_bwd": {
         "bilstm_bwd_unit_f32": ("bilstm_bwd_unit_kernel", "IfLi"),
         "bilstm_bwd_unit_bf16": ("bilstm_bwd_unit_kernel", "bfloat16Li")}}
-# the kernels that must spill nothing: #9's bf16 kind (its products on
-# tensor cores) and the LSTM BPTT unit kernels (W_hh and an 8-step input
-# ring in registers)
-NO_SPILL = ("bigru_bwd_fused_bf16", "bilstm_bwd_unit_f32",
-            "bilstm_bwd_unit_bf16")
+# the kernels that must spill nothing: the tensor-core BiGRU kernels (W_hh
+# fragments and an input ring in registers), #9's bf16 kind (its products
+# on tensor cores) and the LSTM BPTT unit kernels (W_hh and an 8-step
+# input ring in registers)
+NO_SPILL = ("bigru_fwd_tc", "bigru_bwd_tc", "bigru_bwd_fused_bf16",
+            "bilstm_bwd_unit_f32", "bilstm_bwd_unit_bf16")
 
 
-def check_bwd_usage(lib: str, usage):
-    """Phase 2: registers, stack and spills of the BPTT kernels of library
-    ``lib`` named in ``BWD_KERNELS`` from ``-Xptxas -v``; those of
+def check_usage(lib: str, usage):
+    """Phase 2: registers, stack and spills of the kernels of library
+    ``lib`` named in ``USAGE_KERNELS`` from ``-Xptxas -v``; those of
     ``NO_SPILL`` must spill nothing."""
-    for key, parts in BWD_KERNELS[lib].items():
+    for key, parts in USAGE_KERNELS[lib].items():
         found = {name: u for name, u in usage.items()
                  if all(p in name for p in parts)}
         assert found, (key, sorted(usage))
@@ -430,9 +445,12 @@ def plan_text(fn) -> str:
 
 
 def plan_key(plan) -> str:
-    """A forward launch plan as text: "unit x1", "wide x4", "cluster 1x4"."""
-    if plan[0] == "cluster":
-        return f"cluster {plan[1]}x{plan[2]}"
+    """A launch plan as text: "unit x1", "wide x4", "cluster 1x4", "tc
+    4x16"; a BiGRU wrapper's ``(cluster, rows)`` is the cluster kernel's."""
+    if isinstance(plan[0], int):
+        return f"cluster {plan[0]}x{plan[1]}"
+    if plan[0] in ("cluster", "tc"):
+        return f"{plan[0]} {plan[1]}x{plan[2]}"
     return f"{plan[0]} x{plan[1]}"
 
 
@@ -481,7 +499,7 @@ def plan_sweep(name, fn, args, plans, shape, iters):
     fn(*args)
     last = fn.last_launch
     pick = plan_key((last["kernel"], last["cluster"], last["rows"])
-                    if last["kernel"] == "cluster"
+                    if last["kernel"] in ("cluster", "tc")
                     else (last["kernel"], last["rows"]))
     fastest = min(us, key=us.get)
     dtype = next(a.dtype for a in args if a.dim() == 3)   # the streams'
@@ -491,29 +509,77 @@ def plan_sweep(name, fn, args, plans, shape, iters):
     return {"us_per_step": us, "pick": pick, "fastest": fastest}
 
 
+def gru_route(shape, dtype):
+    """The kernel a two-direction BiGRU launch at ``shape`` takes ("tc" or
+    "cluster", the forward's and the BPTT's routes agreeing)."""
+    H = shape[2]
+    route = gru_cuda.gru_fwd_kernel_route(H, 2, dtype)
+    assert gru_cuda.gru_bwd_kernel_route(H, 2, dtype) == route, shape
+    return route
+
+
+def check_tc_plans(shape, ins, args, refs):
+    """Phase 12 at a shape the tensor-core kernels take: the three kernels
+    under every tc plan the card runs against the plain versions' outputs
+    ``refs`` (values at the bf16 bound, the BPTT max-rel); returns the
+    worst error of each kernel by plan."""
+    B, _, H = shape
+    out = {}
+    for name, fn, a, ref in (
+            ("bigru_fwd", gru_cuda.bigru_fwd_cuda, ins, refs[0]),
+            ("bigru_fwd_train", gru_cuda.bigru_fwd_train_cuda, ins, refs[1]),
+            ("bigru_bwd", gru_cuda.bigru_bwd_cuda, args, refs[2])):
+        kind = name[len("bigru_"):]
+        for c, r in gru_cuda.card_tc_plans(kind, B, H, a[0].device):
+            got = fn(*a, plan=("tc", c, r))
+            assert fn.last_launch["kernel"] == "tc"
+            assert (fn.last_launch["cluster"], fn.last_launch["rows"]) == (c, r)
+            if kind == "bwd":
+                err, rel = bwd_errs(got, ref)
+                assert rel <= BF16_GRAD_REL, (shape, c, r, rel)
+                err = rel
+            else:
+                err = value_err(got, ref, torch.bfloat16)
+            out.setdefault(name, {})[f"tc {c}x{r}"] = err
+            del got
+    return out
+
+
 def check_gru_kernels(dev, seed):
     """Phase 12: the three BiGRU kernels against their plain versions and
     ``BiGRUFunction``'s six gradients against torch autograd through the
-    plain loop; returns errors by (shape, dtype)."""
+    plain loop, at ``GRU_SHAPES`` and ``TC_EDGE_SHAPES``; at the shapes the
+    tensor-core kernels take also under every tc plan the card runs. Each
+    launch records the kernel its route names ("tc" for bf16 streams where
+    the rule holds, else "cluster"). Returns errors by (shape, dtype)."""
     errs = {}
-    for shape, dtype in GRU_SHAPES:
+    for shape, dtype in (*GRU_SHAPES, *TC_EDGE_SHAPES):
+        route = gru_route(shape, dtype)
         ins = gru_inputs(*shape, dtype, dev, seed)
-        light_err = value_err(gru_cuda.bigru_fwd_cuda(*ins),
-                              gru_cuda.bigru_fwd_plain(*ins), dtype)
+        light_ref = gru_cuda.bigru_fwd_plain(*ins)
+        light_err = value_err(gru_cuda.bigru_fwd_cuda(*ins), light_ref, dtype)
         plans = {"bigru_fwd": plan_text(gru_cuda.bigru_fwd_cuda)}
-        train_err = value_err(gru_cuda.bigru_fwd_train_cuda(*ins),
-                              gru_cuda.bigru_fwd_train_plain(*ins), dtype)
+        train_ref = gru_cuda.bigru_fwd_train_plain(*ins)
+        train_err = value_err(gru_cuda.bigru_fwd_train_cuda(*ins), train_ref,
+                              dtype)
         plans["bigru_fwd_train"] = plan_text(gru_cuda.bigru_fwd_train_cuda)
         args = gru_bwd_inputs(ins, seed + 1)
         got = gru_cuda.bigru_bwd_cuda(*args)
         plans["bigru_bwd"] = plan_text(gru_cuda.bigru_bwd_cuda)
         ref = gru_cuda.bigru_bwd_plain(*args)
         torch.cuda.synchronize()
+        for fn in (gru_cuda.bigru_fwd_cuda, gru_cuda.bigru_fwd_train_cuda,
+                   gru_cuda.bigru_bwd_cuda):
+            assert fn.last_launch["kernel"] == route, (shape, dtype, route)
         assert all(torch.isfinite(a).all() for a in got), shape
         bwd_abs = max((a.float() - b.float()).abs().max().item()
                       for a, b in zip(got, ref))
         bwd_rel = max(max_rel(a.float(), b.float()) for a, b in zip(got, ref))
-        del got, ref
+        del got
+        tc_errs = (check_tc_plans(shape, ins, args, (light_ref, train_ref,
+                                                     ref))
+                   if route == "tc" else {})
+        del light_ref, train_ref, ref
         x = [t.clone().requires_grad_(True) for t in ins]
         dys = [args[5], args[9]]
         grads = torch.autograd.grad(gru_cuda.bigru_recurrence(*x), x, dys)
@@ -525,7 +591,7 @@ def check_gru_kernels(dev, seed):
         key = (shape, dtype)
         errs[key] = {"fwd": light_err, "fwd_train": train_err,
                      "bwd_abs": bwd_abs, "bwd_rel": bwd_rel,
-                     "function_rel": fn_rel}
+                     "function_rel": fn_rel, "tc_plans": tc_errs}
         rel_tol = GRAD_REL if dtype == torch.float32 else BF16_GRAD_REL
         tol = (f"tol {KERNEL_ATOL:.0e}" if dtype == torch.float32 else
                f"tol rtol {BF16_RTOL} atol {BF16_ATOL}")
@@ -536,16 +602,32 @@ def check_gru_kernels(dev, seed):
             f"{bwd_abs:.3e} max_rel_err={bwd_rel:.3e} tol {rel_tol:g}; "
             "BiGRUFunction vs autograd through the plain loop max_rel_err "
             + " ".join(f"{k}={v:.3e}" for k, v in fn_rel.items())
-            + "; launches: " + "; ".join(f"{k} {v}" for k, v in plans.items()))
+            + "; launches: " + "; ".join(f"{k} {v}" for k, v in plans.items())
+            + (("; every tc plan (fwd, fwd_train: max abs err; bwd: "
+                "max-rel err) " + json.dumps(tc_errs)) if tc_errs else ""))
         assert bwd_rel <= rel_tol, (shape, bwd_rel)
         assert max(fn_rel.values()) <= rel_tol, (shape, fn_rel)
     return errs
 
 
+def bigru_plans(name, B, H, dev, dtype):
+    """Every two-direction plan of BiGRU wrapper ``name`` at this batch and
+    H: the tensor-core kernel's plans the card runs (the planner's order)
+    and the cluster kernel at its planner's pick (the first design)."""
+    kind = name[len("bigru_"):]
+    src = "bwd" if kind == "bwd" else "fwd"
+    return [*(("tc", c, r) for c, r in gru_cuda.card_tc_plans(kind, B, H,
+                                                               dev)),
+            gru_cuda.card_plans(src, B, H, dev, dtype)[0]]
+
+
 def time_gru_kernels(dev, seed, errs):
     """Phase 13: each BiGRU kernel at the scale-up shape in bf16, its plain
     version, torch ``nn.GRU`` (bidirectional, bf16, its input projection
-    included; never called by the port) and the bound."""
+    included; never called by the port) and the bound; then each kernel
+    under every plan (the tensor-core kernel's and the cluster kernel at
+    its planner's pick) at the scale-up shape and at the served request's
+    batch of one row."""
     B, N, H = SCALEUP
     dtype = torch.bfloat16
     ins = gru_inputs(B, N, H, dtype, dev, seed)
@@ -591,6 +673,8 @@ def time_gru_kernels(dev, seed, errs):
                       "bound_us": b[0] * 1e3,
                       "bound_by": b[1], "us_per_step": ms / N * 1e3,
                       "err": e, "launch": dict(fn.last_launch)}
+        rows[name]["plans"] = plan_sweep(
+            name, fn, a, bigru_plans(name, B, H, dev, dtype), (B, N, H), 3)
         log("kernel_time", f"{name} " + json.dumps(rows[name]) + (
             "  (library_ms: nn.GRU bidirectional bf16, "
             f"cudnn.is_acceptable={cudnn}; cudnn_fp16_ms: the same in fp16 "
@@ -599,6 +683,17 @@ def time_gru_kernels(dev, seed, errs):
                "bigru_fwd_train": "forward with grad on",
                "bigru_bwd": "forward + backward minus forward"}[name]
             + ", includes the input projection)"))
+    del ins, args
+    # the served request's batch: one row, the planner's pick among the
+    # same plans
+    ins = gru_inputs(1, N, H, dtype, dev, seed)
+    args = gru_bwd_inputs(ins, seed + 1)
+    for name, fn, a in (("bigru_fwd", gru_cuda.bigru_fwd_cuda, ins),
+                        ("bigru_fwd_train", gru_cuda.bigru_fwd_train_cuda,
+                         ins),
+                        ("bigru_bwd", gru_cuda.bigru_bwd_cuda, args)):
+        rows[name]["plans_b1"] = plan_sweep(
+            name, fn, a, bigru_plans(name, 1, H, dev, dtype), (1, N, H), 3)
     return rows
 
 
@@ -865,6 +960,8 @@ def train_main_path(cfg, train_dir, val_dir, save_dir, epochs, dev, smi,
     if prefix == "bilstm":   # the flagship's H=64: the BPTT's unit kernel
         assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == "unit", \
             bwd_plan
+    else:   # the scale-up's bf16 streams: the tensor-core kernels
+        assert_tc("bigru_fwd", "bigru_fwd_train", "bigru_bwd")
     assert len(res["history"]) == epochs
     for row in res["history"]:
         assert np.isfinite(row["train_loss"]) and \
@@ -886,6 +983,14 @@ def train_main_path(cfg, train_dir, val_dir, save_dir, epochs, dev, smi,
                  + f"; launches {launched}; peak device memory "
                  f"{peak_gb:.2f} GB; last {prefix}_bwd launch {bwd_plan}")
     return launched, best
+
+
+def assert_tc(*names):
+    """Each BiGRU wrapper of ``names`` last launched the tensor-core
+    kernel."""
+    for name in names:
+        last = getattr(*WRAPPERS[name]).last_launch
+        assert last["kernel"] == "tc", (name, last)
 
 
 def serve_checkpoint(best, trace_file, dev):
@@ -1062,6 +1167,7 @@ def serve_scaleup(best, dev, seed):
     launched = counts()
     assert launched == expected_counts(bigru_fwd=cfg.model.lstm_layers), \
         launched
+    assert_tc("bigru_fwd")
     assert len(cols) > 0
     x, m = predict.prepare(arr)
     with torch.inference_mode():
@@ -1117,6 +1223,7 @@ def step_parity_scaleup(cfg, train_dir, dev, seed):
     layers = cfg.model.lstm_layers
     assert c_k == expected_counts(bigru_fwd=layers, bigru_fwd_train=layers,
                                   bigru_bwd=layers), c_k
+    assert_tc("bigru_fwd", "bigru_fwd_train", "bigru_bwd")
     assert c_p == expected_counts(), c_p
     assert torch.equal(r_k, r_p) and torch.equal(m_k, m_p)
     loss_err = max(bf16_close(l_k[k], v) for k, v in l_p.items())
@@ -1162,6 +1269,8 @@ def time_steps(cfg, train_dir, dev, seed, smi, kernel_rows, shapes,
         p50 = float(np.percentile(ms, 50))
         if prefix == "bilstm":   # the flagship's H=64: the unit BPTT kernel
             assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == "unit"
+        else:   # the scale-up's bf16 streams: the tensor-core kernels
+            assert_tc("bigru_fwd_train", "bigru_bwd")
 
         # per stage, with a synchronise between stages
         lw = loop._loss_weight_dict(c)
@@ -2278,8 +2387,8 @@ def main() -> int:
         log("build", f"{res.name}: {res.seconds:.1f} s {res.path.name}"
                      + (" (reused)" if res.reused else "") + " | "
                      + " | ".join(ptxas))
-        if res.name in BWD_KERNELS:
-            check_bwd_usage(res.name, build.ptxas_usage(res.log))
+        if res.name in USAGE_KERNELS:
+            check_usage(res.name, build.ptxas_usage(res.log))
     log("build", f"all kernels in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernel check against the plain versions on the card

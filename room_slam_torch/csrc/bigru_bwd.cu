@@ -154,6 +154,32 @@
 // that lane p holds row p % R's carry and runs that cell's coefficients,
 // dx and dhn; one block barrier a step, no cluster, and the six inputs of
 // a step loaded kAhead = 8 steps ahead into a register ring.
+//
+// The tensor-core BPTT (bigru_bwd_tc_kernel: kLinear, both directions,
+// bfloat16 streams, the scale-up model's launches). kLinear's cluster chain
+// took 18.4 us a step at the scale-up shape: each thread a serial 768-deep
+// chain of shared loads and f32 FMAs on CUDA cores, 160 threads a block and
+// a full cluster.sync() after float4 pushes of f32 dg. Here the carry's
+// product T(dg) [R, 3H] @ T(W_hh)^T [3H, H] runs as mma.sync m16n8k16 (bf16
+// operands, f32 sums: the MXU's product in the reference), laid out as the
+// forward's tensor-core kernel (bigru_fwd.cu): a cluster of C = 4 or 8
+// blocks per (direction, batch tile of R = 16 or 32 rows), each warp the dh
+// of 8 units (one n8 tile), those units' rows of W_hh over all j < 3H held
+// as B fragments in registers (48 k-steps x 2 = 96 at H=256). The lane that
+// owns a cell of the product's output owns that (row, unit) cell of the
+// walk: from its staged r, z, n, hn, h_prev and dy it forms the
+// coefficients, dh_t, dx and dhn, stages them for the store, and writes
+// T([dx_r, dx_z, dhn]) into its block's dg tile [2][R][768 + 8] (768 wide
+// whatever H, so that the product has no branch); each warp then sends its
+// rows of it (16 bytes) to the other blocks by st.async on their
+// mbarriers, and a step waits on its own (see bigru_fwd.cu for the
+// exchange and the staging of the streams). The 48 k-steps sum into one
+// accumulator per gate block (r, z, n: chains of 16), added as ((dh_t z +
+// acc_r) + acc_z) + acc_n, #10's order. No cross-warp reduction and no
+// second barrier. Measured on an H100 at the scale-up shape with (4, 16):
+// 2.79 us a step (kLinear 18.4), of which the product and gate math about
+// 0.9; the exchange, 3/4 of the R x 3H tile into every block a step, bounds
+// the rest.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -204,6 +230,7 @@ constexpr int kKPerLane = kMaxUnitH / kLanes;
 constexpr int kUnitThreads = kLanes * kMaxUnitH;
 constexpr int kAhead = 8;  // steps of inputs in flight ahead of the chain
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kMaxDevices = 64;   // devices whose shared-memory limit is kept
 
 constexpr int max_threads(int kind) {
   return kind == kFused ? kFusedMaxThreads : kMaxThreads;
@@ -1289,6 +1316,473 @@ int unit_blocks_per_sm(int H, int R) {
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core BPTT (see the notes at the top)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcMaxH = 256;             // W_hh fragments of H <= 256 a warp holds
+constexpr int kTcMaxKg = kTcMaxH / 16;   // k16 steps of one gate block at kTcMaxH
+constexpr int kTcMaxThreads = 256;       // 8 warps of up to 255 registers
+constexpr int kTcRowPad = 8;             // bf16 padding of a dg tile row
+// bf16 values of a dg tile row, whatever H: the k-steps past a gate
+// block's H columns meet zero fragments, so the product has no branch
+constexpr int kTcLd = 3 * kTcMaxH + kTcRowPad;
+
+// the shared::cluster address of shared::cta address `addr` in block `rank`
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// The exchange (see bigru_fwd.cu): st.async rows into the other blocks'
+// tiles, their bytes counted by each receiving block's mbarrier.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// this block's arrival on its own mbarrier, expecting `bytes` for the phase
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], "
+      "%1;\n\t"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// v into shared::cluster address addr of a block of the cluster, its 16
+// bytes completed on that block's mbarrier bar (a shared::cluster address)
+__device__ __forceinline__ void st_async16(uint32_t addr, const uint4& v,
+                                           uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void ldmatrix_x4_at(uint32_t (&r)[4],
+                                               uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// two bf16 values as one 32-bit word, lo in the low half (the lower index)
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(
+              __bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+}
+
+__device__ __forceinline__ float lo_f32(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+
+__device__ __forceinline__ float hi_f32(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+__device__ __forceinline__ float half_f32(uint32_t v, int e) {
+  return e ? hi_f32(v) : lo_f32(v);
+}
+
+// The streams' staging in shared memory, as rows [q][R][U + kTcRowPad] of
+// a block's units for each stream q (see bigru_fwd.cu): the step's inputs
+// arrive as 16-byte cp.async copies (a ring of kRing steps, kRing - 1 in
+// flight), its outputs leave as 16-byte stores a step later (double
+// buffered).
+template <int kMT>
+__host__ __device__ constexpr int tc_ring() {
+  return kMT == 1 ? 4 : 3;
+}
+constexpr int kTcInStreams = 6;    // r, z, n, hn, h_prev, dy
+constexpr int kTcOutStreams = 4;   // dx_r, dx_z, dx_n, dhn
+
+// kLinear of both directions (blockIdx.y = 1 walks forward in time) with
+// bf16 streams on tensor cores: a cluster of C blocks per batch tile of R =
+// 16 * kMT rows, U / 8 warps a block, each warp the dh of 8 units. Same
+// function, rounding points and outputs as bigru_bwd_kernel<bf16, kLinear>;
+// the carry's product is summed per gate block, ((dh_t z + acc_r) + acc_z)
+// + acc_n.
+template <int kMT>
+__global__ void __launch_bounds__(kTcMaxThreads, 1)
+bigru_bwd_tc_kernel(const bf16* __restrict__ w_f, const bf16* __restrict__ w_b,
+                    const bf16* __restrict__ gs_f, const bf16* __restrict__ hn_f,
+                    const bf16* __restrict__ ys_f, const bf16* __restrict__ dy_f,
+                    const bf16* __restrict__ gs_b, const bf16* __restrict__ hn_b,
+                    const bf16* __restrict__ ys_b, const bf16* __restrict__ dy_b,
+                    bf16* __restrict__ dx_f, bf16* __restrict__ dhn_f,
+                    bf16* __restrict__ dx_b, bf16* __restrict__ dhn_b, int B,
+                    int N, int H) {
+  constexpr int R = 16 * kMT;
+  constexpr int kRing = tc_ring<kMT>();
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ uint4 tc_smem[];
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int U = H / C;
+  const int G = 3 * H;
+  constexpr int ld = kTcLd;
+  const int ldq = U + kTcRowPad;       // bf16 values of a staged row
+  const int nk = H / 16;               // k16 steps of a gate block
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int quad = lane >> 2;          // the fragments' row (and B's column)
+  const int pair = (lane & 3) * 2;     // the fragments' first column (k or n)
+  const int lu = warp * 8 + pair;      // the lane's two units in the block
+  const int unit = rank * U + lu;      // ... and in the layer
+  const bool bwd = blockIdx.y == 1;
+  const bf16* w = bwd ? w_b : w_f;
+  const bf16* gs = bwd ? gs_b : gs_f;
+  const bf16* hns = bwd ? hn_b : hn_f;
+  const bf16* yss = bwd ? ys_b : ys_f;
+  const bf16* dys = bwd ? dy_b : dy_f;
+  bf16* dx = bwd ? dx_b : dx_f;
+  bf16* dhn = bwd ? dhn_b : dhn_f;
+  const int tile_row0 = (blockIdx.x / C) * R;
+  // h at the forward order's previous step (t - 1 forward, t + 1
+  // backward), read only after that order's first step
+  const int first = bwd ? N - 1 : 0;
+  const int prev = bwd ? 1 : -1;
+
+  // B fragments of W_hh^T restricted to the warp's units: word h8 of
+  // k-step kk of gate block g holds W[u][j], W[u][j + 1] for u = the warp's
+  // unit `quad`, j = g * H + kk * 16 + h8 * 8 + pair
+  uint32_t bw[3][kTcMaxKg][2];
+  const bf16* wrow = w + static_cast<size_t>(rank * U + warp * 8 + quad) * G;
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int kk = 0; kk < kTcMaxKg; ++kk)
+#pragma unroll
+      for (int h8 = 0; h8 < 2; ++h8)
+        bw[g][kk][h8] = kk < nk
+            ? *reinterpret_cast<const uint32_t*>(
+                  wrow + g * H + kk * 16 + h8 * 8 + pair)
+            : 0u;
+
+  // shared memory: the dg tile [2][R][ld], the input ring
+  // [kRing][6][R][ldq] and the output staging [2][4][R][ldq]
+  bf16* tile = reinterpret_cast<bf16*>(tc_smem);
+  bf16* ring = tile + 2 * R * ld;
+  bf16* stage = ring + kRing * kTcInStreams * R * ldq;
+  for (int i = threadIdx.x; i < R * ld; i += blockDim.x)
+    reinterpret_cast<uint32_t*>(tile)[i] = 0u;
+  const uint32_t tile_addr = smem_addr(tile);
+  const uint32_t buf_bytes = static_cast<uint32_t>(R * ld * 2);
+  auto t_of = [&](int s) { return bwd ? s : N - 1 - s; };
+
+  // the block's copies: thread i moves chunk i % (U / 8) of staged rows
+  // i / (U / 8) + 32 j (the block's 4U threads cover 32 rows a pass)
+  const int cpr = U / 8;
+  const int chunk = static_cast<int>(threadIdx.x) % cpr;
+  const int row_in_pass = static_cast<int>(threadIdx.x) / cpr;
+  auto load = [&](int s) {   // the inputs of step s into its ring slot
+    if (s < N) {
+      const int t = t_of(s);
+      bf16* slot = ring + (s % kRing) * kTcInStreams * R * ldq;
+#pragma unroll
+      for (int pass = 0; pass < kTcInStreams * R / 32; ++pass) {
+        const int qr = pass * 32 + row_in_pass;
+        const int q = qr / R, r = qr % R;
+        const int row = tile_row0 + r;
+        const bool ok = row < B && (q != 4 || t != first);
+        const size_t cell = static_cast<size_t>(row < B ? row : 0) * N + t;
+        const size_t col = static_cast<size_t>(rank * U + chunk * 8);
+        const bf16* src = q < 3  ? gs + cell * G + q * H + col
+                        : q == 3 ? hns + cell * H + col
+                        : q == 4 ? yss + (ok ? (cell + prev) * H + col : col)
+                                 : dys + cell * H + col;
+        cp_async16(slot + (q * R + r) * ldq + chunk * 8, src, ok ? 16 : 0);
+      }
+    }
+    cp_async_commit();   // one group a step, empty or not
+  };
+  auto flush = [&](int s) {   // the outputs of step s from its staging
+    const int t = t_of(s);
+    const bf16* st = stage + (s & 1) * kTcOutStreams * R * ldq;
+#pragma unroll
+    for (int pass = 0; pass < kTcOutStreams * R / 32; ++pass) {
+      const int qr = pass * 32 + row_in_pass;
+      const int q = qr / R, r = qr % R;
+      const int row = tile_row0 + r;
+      if (row < B) {
+        const size_t cell = static_cast<size_t>(row) * N + t;
+        bf16* dst = q < 3 ? dx + cell * G + q * H : dhn + cell * H;
+        *reinterpret_cast<uint4*>(dst + rank * U + chunk * 8) =
+            *reinterpret_cast<const uint4*>(st + (q * R + r) * ldq +
+                                            chunk * 8);
+      }
+    }
+  };
+  for (int j = 0; j < kRing - 1; ++j) load(j);
+
+  float dhz[kMT][2][2];   // dh_t * z of the previous step
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) dhz[mt][hr][0] = dhz[mt][hr][1] = 0.0f;
+
+  // full[b] counts the bytes of dg landing in buffer b: step s pushes dg_s
+  // into buffer s & 1, and step c > 0 reads buffer (c - 1) & 1 after the
+  // ((c - 1) / 2)-th phase of its full. Armed two steps ahead.
+  __shared__ __align__(8) uint64_t full[2];
+  const uint32_t bar = smem_addr(full);
+  // the bytes the other blocks send into a buffer each step
+  const uint32_t tile_tx = static_cast<uint32_t>(R * 3 * (H - U) * 2);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 8, 1);
+    if (N > 1) mbar_expect(bar, tile_tx);       // dg_0, read at step 1
+    if (N > 2) mbar_expect(bar + 8, tile_tx);   // dg_1, read at step 2
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  // every block of the cluster runs and holds its mbarriers before any
+  // block writes into another's shared memory
+  cluster.sync();
+
+  for (int s = 0; s < N; ++s) {
+    // this step's inputs have landed (this thread's copies, then every
+    // thread's), every thread is done with the previous step's ring slot
+    // and staging; the previous step's outputs leave, this slot refills
+    cp_async_wait<kRing - 2>();
+    __syncthreads();
+    if (s > 0) flush(s - 1);
+    load(s + kRing - 1);
+
+    // the previous step's T(dg) @ T(W_hh)^T for the warp's units, one
+    // accumulator per gate block (zero at the first step)
+    float acc[3][kMT][4];
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[g][mt][e] = 0.0f;
+    if (s > 0) {   // dg of every block has landed
+      mbar_wait(bar + ((s - 1) & 1) * 8, ((s - 1) >> 1) & 1);
+      if (threadIdx.x == 0 && s + 2 < N)
+        mbar_expect(bar + ((s - 1) & 1) * 8, tile_tx);
+      const uint32_t db = tile_addr + ((s - 1) & 1) * buf_bytes;
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int kk = 0; kk < kTcMaxKg; ++kk) {
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            // lane l addresses row l % 16, k half l / 16 of the 16 x 16 tile
+            uint32_t a[4];
+            ldmatrix_x4_at(a, db + ((mt * 16 + (lane & 15)) * ld + g * H +
+                                    kk * 16 + (lane >> 4) * 8) * 2);
+            mma_bf16(acc[g][mt], a, bw[g][kk][0], bw[g][kk][1]);
+          }
+        }
+    }
+
+    // element e of an accumulator is (row quad + (e / 2) * 8, unit pair +
+    // e % 2): the lane's cells; their inputs from the ring, their outputs
+    // into the staging
+    const bf16* in = ring + (s % kRing) * kTcInStreams * R * ldq;
+    bf16* out = stage + (s & 1) * kTcOutStreams * R * ldq;
+    uint32_t wr[kMT][2], wz[kMT][2], whn[kMT][2];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int cell = (mt * 16 + quad + hr * 8) * ldq + lu;
+        uint32_t c[kTcInStreams];
+#pragma unroll
+        for (int q = 0; q < kTcInStreams; ++q)
+          c[q] = *reinterpret_cast<const uint32_t*>(in + q * R * ldq + cell);
+        float vr[2], vz[2], vn[2], vhn[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = hr * 2 + e;
+          const float r = half_f32(c[0], e), z = half_f32(c[1], e);
+          const float n = half_f32(c[2], e), hn = half_f32(c[3], e);
+          const float hp = half_f32(c[4], e), dy = half_f32(c[5], e);
+          const float dh_t =
+              dy + (((dhz[mt][hr][e] + acc[0][mt][i]) + acc[1][mt][i]) +
+                    acc[2][mt][i]);
+          const float a = (1.0f - z) * (1.0f - n * n);
+          const float c_r = round_to<bf16>(a * hn * r * (1.0f - r));
+          const float c_z = round_to<bf16>((hp - n) * z * (1.0f - z));
+          const float c_n = round_to<bf16>(a);
+          vr[e] = dh_t * c_r;
+          vz[e] = dh_t * c_z;
+          vn[e] = dh_t * c_n;
+          vhn[e] = vn[e] * r;
+          dhz[mt][hr][e] = dh_t * z;
+        }
+        wr[mt][hr] = pack_f32(vr[0], vr[1]);
+        wz[mt][hr] = pack_f32(vz[0], vz[1]);
+        whn[mt][hr] = pack_f32(vhn[0], vhn[1]);
+        const uint32_t words[kTcOutStreams] = {
+            wr[mt][hr], wz[mt][hr], pack_f32(vn[0], vn[1]), whn[mt][hr]};
+#pragma unroll
+        for (int q = 0; q < kTcOutStreams; ++q)
+          *reinterpret_cast<uint32_t*>(out + q * R * ldq + cell) = words[q];
+      }
+
+    // T([dx_r, dx_z, dhn]) into buffer s & 1 of this block (seen by its
+    // warps after the next step's __syncthreads), then the warp's rows of
+    // it (8 units of a gate block, 16 bytes) into that buffer of every other
+    // block of the cluster; the last step's dg is read by no step
+    const uint32_t nb = tile_addr + (s & 1) * buf_bytes;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const uint32_t off = nb + ((mt * 16 + quad + hr * 8) * ld + unit) * 2;
+        st_shared(off, wr[mt][hr]);
+        st_shared(off + H * 2, wz[mt][hr]);
+        st_shared(off + H * 4, whn[mt][hr]);
+      }
+    __syncwarp();
+    if (s + 1 < N) {
+      const uint32_t nbar = bar + (s & 1) * 8;
+#pragma unroll
+      for (int v0 = 0; v0 < 3 * R; v0 += 32) {
+        const int v = v0 + lane;   // row v % R of gate block v / R
+        if (v < 3 * R) {
+          const uint32_t off =
+              nb + ((v % R) * ld + (v / R) * H + rank * U + warp * 8) * 2;
+          const uint4 val = ld_shared16(off);
+          for (int q = 0; q < C; ++q)
+            if (q != rank)
+              st_async16(cluster_addr(off, q), val, cluster_addr(nbar, q));
+        }
+      }
+    }
+  }
+  __syncthreads();
+  flush(N - 1);
+  // no block exits while another may still write into it
+  cluster.sync();
+}
+
+// The tensor-core kernel's dynamic shared memory (the dg tile, double
+// buffered, the input ring and the output staging), threads and W_hh
+// fragment registers a lane holds (the wrapper's tc_smem_bytes("bwd", ...),
+// tc_threads and TC_WEIGHT_REGS mirror them, held to this source by
+// bigru_bwd_tc_layout).
+size_t tc_smem_bytes(int H, int C, int R) {
+  const size_t ldq = static_cast<size_t>(H / C) + kTcRowPad;
+  const size_t ring = R == 16 ? tc_ring<1>() : tc_ring<2>();
+  return (2 * static_cast<size_t>(R) * kTcLd +
+          (ring * kTcInStreams + 2 * kTcOutStreams) * R * ldq) * sizeof(bf16);
+}
+constexpr int tc_threads(int H, int C) { return 4 * (H / C); }
+constexpr int kTcWeightRegs = 3 * kTcMaxKg * 2;
+
+// H a multiple of 16 up to kTcMaxH, the cluster dividing H into a whole
+// number of 8-unit warps, at most kTcMaxThreads threads a block, and one
+// or two m16 tiles of rows.
+bool valid_tc_plan(int B, int N, int H, int C, int R) {
+  return B > 0 && N > 0 && H > 0 && H % 16 == 0 && H <= kTcMaxH &&
+         (C == 1 || C == 2 || C == 4 || C == 8) && H % C == 0 &&
+         (H / C) % 8 == 0 && tc_threads(H, C) <= kTcMaxThreads &&
+         (R == 16 || R == 32);
+}
+
+template <int kMT>
+cudaError_t allow_tc_smem(int smem) {
+  static std::atomic<int> allowed[kMaxDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices && allowed[device].load() >= smem)
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(bigru_bwd_tc_kernel<kMT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && device < kMaxDevices) allowed[device].store(smem);
+  return err;
+}
+
+void make_tc_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                    int grid_x, int dirs, int H, int C, size_t smem,
+                    void* stream) {
+  *cfg = {};
+  cfg->gridDim = dim3(grid_x, dirs, 1);
+  cfg->blockDim = dim3(tc_threads(H, C), 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = static_cast<cudaStream_t>(stream);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+template <int kMT>
+int launch_tc_as(const void* w_f, const void* w_b, const void* gs_f,
+                 const void* hn_f, const void* ys_f, const void* dy_f,
+                 const void* gs_b, const void* hn_b, const void* ys_b,
+                 const void* dy_b, void* dx_f, void* dhn_f, void* dx_b,
+                 void* dhn_b, int B, int N, int H, int C, void* stream) {
+  constexpr int R = 16 * kMT;
+  const size_t smem = tc_smem_bytes(H, C, R);
+  cudaError_t err = allow_tc_smem<kMT>(static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  make_tc_config(&cfg, &attr, C * ((B + R - 1) / R), 2, H, C, smem, stream);
+  auto in = [](const void* p) { return static_cast<const bf16*>(p); };
+  auto out = [](void* p) { return static_cast<bf16*>(p); };
+  err = cudaLaunchKernelEx(&cfg, bigru_bwd_tc_kernel<kMT>, in(w_f), in(w_b),
+                           in(gs_f), in(hn_f), in(ys_f), in(dy_f), in(gs_b),
+                           in(hn_b), in(ys_b), in(dy_b), out(dx_f),
+                           out(dhn_f), out(dx_b), out(dhn_b), B, N, H);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kMT>
+int tc_max_active_clusters_as(int H, int C) {
+  const size_t smem = tc_smem_bytes(H, C, 16 * kMT);
+  cudaError_t err = allow_tc_smem<kMT>(static_cast<int>(smem));
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  make_tc_config(&cfg, &attr, C, 1, H, C, smem, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, bigru_bwd_tc_kernel<kMT>, &cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
 // Dynamic shared memory one block needs, in bytes (the wrapper's
 // bigru_smem_bytes mirrors it to pick the cluster size, and is held to it
 // through bigru_bwd_smem_bytes when the library loads).
@@ -1310,7 +1804,6 @@ bool valid_plan(int kind, int B, int N, int H, int C, int R) {
          (kind != kFused || (H / C) % 16 == 0);
 }
 
-constexpr int kMaxDevices = 64;
 template <typename T, int kKind>
 std::atomic<int> g_smem_allowed[kMaxDevices];
 
@@ -1448,6 +1941,48 @@ BIGRU_BWD_ENTRY(bigru_bwd_bf16, __nv_bfloat16, kLinear)
 BIGRU_BWD_ENTRY(bigru_bwd_split_f32, float, kSplit)
 BIGRU_BWD_ENTRY(bigru_bwd_split_bf16, __nv_bfloat16, kSplit)
 #undef BIGRU_BWD_ENTRY
+
+// The tensor-core BPTT (bf16 streams, both directions): arguments and
+// outputs as bigru_bwd_bf16, with clusters of C blocks (C in 1, 2, 4, 8
+// dividing H into a whole number of 8-unit warps, at most 256 threads)
+// over batch tiles of R = 16 or 32 rows; H a multiple of 16 up to 256.
+int bigru_bwd_tc_bf16(const void* w_f, const void* w_b, const void* gs_f,
+                      const void* hn_f, const void* ys_f, const void* dy_f,
+                      const void* gs_b, const void* hn_b, const void* ys_b,
+                      const void* dy_b, void* dx_f, void* dhn_f, void* dx_b,
+                      void* dhn_b, int B, int N, int H, int C, int R,
+                      void* stream) {
+  if (!valid_tc_plan(B, N, H, C, R))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return (R == 16 ? launch_tc_as<1> : launch_tc_as<2>)(
+      w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b, dy_b, dx_f, dhn_f,
+      dx_b, dhn_b, B, N, H, C, stream);
+}
+
+// How many clusters of the tensor-core BPTT at hidden size H, cluster size
+// C and tile R the current device runs at once; a negative cudaError_t code
+// on failure. `save` is taken for the forward source's signature of this
+// query and ignored.
+int bigru_bwd_tc_max_active_clusters(int save, int H, int C, int R) {
+  (void)save;
+  if (!valid_tc_plan(1, 1, H, C, R))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return R == 16 ? tc_max_active_clusters_as<1>(H, C)
+                 : tc_max_active_clusters_as<2>(H, C);
+}
+
+// The tensor-core BPTT's layout at H, C and R, for the wrapper's mirror:
+// what 0 = dynamic shared memory in bytes, 1 = threads a block, 2 = W_hh
+// fragment registers a lane holds; -1 for a plan it does not take.
+int bigru_bwd_tc_layout(int what, int H, int C, int R) {
+  if (!valid_tc_plan(1, 1, H, C, R)) return -1;
+  switch (what) {
+    case 0: return static_cast<int>(tc_smem_bytes(H, C, R));
+    case 1: return tc_threads(H, C);
+    case 2: return kTcWeightRegs;
+    default: return -1;
+  }
+}
 
 // The fused layer VJP (#9): bigru_bwd_*'s walk, whose dx_* and dhn_* are
 // scratch here, and the input-side gradients of the layer. x [B, N, D] and

@@ -96,6 +96,52 @@
 // MUFU latency and the h broadcast. The wrapper (ops/gru_cuda.py
 // gru_fwd_kernel_route) sends a one-direction launch at H <= 64 here and
 // everything else to the cluster kernel.
+//
+// The tensor-core kernel (bigru_fwd_tc_kernel: both directions, bfloat16
+// streams, the scale-up model's launches). What held the cluster kernel
+// back at the scale-up shape (9.1 us a step): every thread walks a serial
+// 256-deep chain of shared-memory loads and f32 FMAs on CUDA cores, W_hh
+// read from shared memory as float on every k, 160 threads a block leave
+// the latency uncovered, and each step ends in a full cluster.sync() after
+// float4 pushes of f32 h. Here the step's product T(h_{t-1}) [R, H] @
+// T(W_hh) [H, 3H] runs as mma.sync m16n8k16 (bf16 operands, f32 sums: the
+// MXU's product in the reference). One cluster of C blocks (C = 4 or 8)
+// per (direction, batch tile of R = 16 or 32 rows: one or two m16 tiles);
+// block `rank` owns the units U = H / C, and each warp 8 of them. For
+// those units the warp owns three n8 tiles of the product, the r, z and n
+// columns, so the accumulator a lane ends with holds the r, z and n
+// pre-activations of the same two rows x two units: the gate math and the
+// f32 carry need no exchange inside the block. The warp's [H x 24] slice
+// of W_hh is held as B fragments in registers, loaded once (3 x 16 x 2 = 96
+// registers). h_{t-1} is a double-buffered bf16 tile [2][R][256 + 8] in
+// shared memory (rows padded so that ldmatrix is conflict-free), read as A
+// fragments; the 16 k-steps alternate between two accumulators (chains of
+// 8 mma), summed in a fixed order. The tile is 256 wide whatever H, its
+// columns past H zero and the fragments past H zero: a k-step guarded by H
+// compiled to a branch around each ldmatrix and its mma, nothing
+// overlapped across k-steps, and the product took 1.1 us a step instead of
+// about 0.45.
+//
+// The exchange: each warp writes its T(h_t) into its own block's other
+// buffer and sends its rows of it (16 bytes: 8 units) to the other blocks
+// by st.async, whose bytes complete on the receiving block's mbarrier; a
+// step waits on its own mbarrier only. A split cluster barrier
+// (barrier.cluster.arrive.release / wait.acquire) cost 0.5 us a step more:
+// its release is a MEMBAR.ALL.GPU. The streams go through shared memory:
+// xg arrives by 16-byte cp.async copies of the block's units, two or three
+// steps ahead (a ring), and ys, gates and hn leave as 16-byte stores a step
+// later; each lane's own 4-byte loads and stores touched 8 rows per warp
+// instruction and cost 0.45 us a step (0.6 with the residuals). One
+// __syncthreads() a step orders the block's staging. Padding rows past B
+// are computed (finite, independent in the product) and never stored.
+// Measured on an H100 at the scale-up shape with (4, 16): 1.42 us a step
+// (cluster kernel 9.1), of which the product and gate math about 0.66 and
+// the rest the exchange, whose bytes (3/4 of the R x H tile into every
+// block a step) bound it. The wrapper (ops/gru_cuda.py
+// gru_fwd_kernel_route, bigru_tc_plan) sends bf16 launches of two
+// directions here where tc_plan_fits holds; float32 streams (TF32 would
+// miss the float32 bound), one direction and other shapes keep the
+// cluster kernel.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -103,6 +149,7 @@
 
 #include <atomic>
 #include <cstddef>
+#include <cstdint>
 
 namespace cg = cooperative_groups;
 
@@ -120,6 +167,7 @@ constexpr int kKPerLane = kMaxUnitH / kLanes;
 constexpr int kUnitThreads = kLanes * kMaxUnitH;
 constexpr int kAhead = 8;  // steps of xg in flight ahead of the chain
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kMaxDevices = 64;   // devices whose shared-memory limit is kept
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -478,6 +526,510 @@ gru_fwd_unit_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core kernel (see the notes at the top)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcMaxH = 256;             // W_hh fragments of H <= 256 a warp holds
+constexpr int kTcMaxK = kTcMaxH / 16;    // k16 steps of the product at kTcMaxH
+constexpr int kTcMaxThreads = 256;       // 8 warps of up to 255 registers
+constexpr int kTcPad = 8;                // bf16 padding of an h tile row
+// bf16 values of an h tile row, whatever H: the k-steps past H read zero
+// columns against zero fragments, so the product has no branch
+constexpr int kTcLd = kTcMaxH + kTcPad;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the shared::cluster address of shared::cta address `addr` in block `rank`
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// The exchange: each warp writes its slice of a step's tile into its own
+// block's buffer, then sends it in 16-byte rows to the other blocks of the
+// cluster by st.async, whose bytes complete on the receiving block's
+// mbarrier: a step waits only for its own tile, with no fence and no
+// cluster barrier (barrier.cluster.arrive.release put a MEMBAR.ALL.GPU on
+// every step), and the remote stores move a warp's 8 units of a row at
+// once (4-byte pushes of each lane's two units took twice as long).
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// this block's arrival on its own mbarrier, expecting `bytes` for the phase
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], "
+      "%1;\n\t"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// v into shared::cluster address addr of a block of the cluster, its 16
+// bytes completed on that block's mbarrier bar (a shared::cluster address)
+__device__ __forceinline__ void st_async16(uint32_t addr, const uint4& v,
+                                           uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d += a b for one 16 x 8 tile over a depth of 16: bf16 operands in the
+// m16n8k16 fragment layouts, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two bf16 values as one 32-bit word, lo in the low half (the lower index)
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+}
+
+__device__ __forceinline__ float lo_f32(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+
+__device__ __forceinline__ float hi_f32(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+// 16 bytes from global src to shared dst, of which the first `bytes` are
+// read and the rest zero-filled; both addresses 16-byte aligned
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// The streams' staging in shared memory, as rows [q][R][U + kTcPad] of a
+// block's units for each stream q: the step's inputs arrive as 16-byte
+// cp.async copies (a ring of kRing steps, kRing - 1 in flight), its outputs
+// leave as 16-byte stores a step later (double buffered). A warp's own
+// accesses touch 16 bytes of each of 8 rows; through the staging a row's
+// U units travel together.
+template <int kMT>
+__host__ __device__ constexpr int tc_ring() {
+  return kMT == 1 ? 4 : 3;
+}
+constexpr int kTcInStreams = 3;    // xg: r, z, n
+constexpr int kTcOutStreams = 5;   // ys, then (kSave) r, z, n and hn
+
+// Both directions (blockIdx.y = 1 walks backward) with bf16 streams, a
+// cluster of C blocks per batch tile of R = 16 * kMT rows, U / 8 warps a
+// block. Same function, rounding points and outputs as bigru_fwd_kernel.
+template <bool kSave, int kMT>
+__global__ void __launch_bounds__(kTcMaxThreads, 1)
+bigru_fwd_tc_kernel(const bf16* __restrict__ xg_f, const bf16* __restrict__ xg_b,
+                    const bf16* __restrict__ w_f, const float* __restrict__ b_f,
+                    const bf16* __restrict__ w_b, const float* __restrict__ b_b,
+                    bf16* __restrict__ ys_f, bf16* __restrict__ ys_b,
+                    bf16* __restrict__ gs_f, bf16* __restrict__ gs_b,
+                    bf16* __restrict__ hn_f, bf16* __restrict__ hn_b, int B,
+                    int N, int H) {
+  constexpr int R = 16 * kMT;
+  constexpr int kRing = tc_ring<kMT>();
+  constexpr int kOut = kSave ? kTcOutStreams : 1;   // streams a step stores
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ uint4 tc_smem[];
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int U = H / C;
+  const int G = 3 * H;
+  constexpr int ld = kTcLd;
+  const int ldq = U + kTcPad;          // bf16 values of a staged row
+  const int nk = H / 16;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int quad = lane >> 2;          // the fragments' row (and B's column)
+  const int pair = (lane & 3) * 2;     // the fragments' first column (k or n)
+  const int lu = warp * 8 + pair;      // the lane's two units in the block
+  const int unit = rank * U + lu;      // ... and in the layer
+  const bool bwd = blockIdx.y == 1;
+  const bf16* xg = bwd ? xg_b : xg_f;
+  const bf16* w = bwd ? w_b : w_f;
+  const float* b = bwd ? b_b : b_f;
+  bf16* ys = bwd ? ys_b : ys_f;
+  bf16* gs = bwd ? gs_b : gs_f;
+  bf16* hns = bwd ? hn_b : hn_f;
+  const int tile_row0 = (blockIdx.x / C) * R;
+
+  // B fragments of the warp's r, z and n columns: word h8 of k-step ks
+  // holds W[k][col], W[k + 1][col] for k = ks * 16 + h8 * 8 + pair, col =
+  // gate * H + the warp's unit `quad`
+  uint32_t bw[3][kTcMaxK][2];
+  const int col = rank * U + warp * 8 + quad;
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int ks = 0; ks < kTcMaxK; ++ks)
+#pragma unroll
+      for (int h8 = 0; h8 < 2; ++h8) {
+        const int k = ks * 16 + h8 * 8 + pair;
+        const bf16* p = w + static_cast<size_t>(k) * G + g * H + col;
+        bw[g][ks][h8] = ks < nk ? pack_bf16(p[0], p[G]) : 0u;
+      }
+  float bias[3][2];
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) bias[g][e] = b[g * H + unit + e];
+
+  // shared memory: the h tile [2][R][ld], the input ring
+  // [kRing][3][R][ldq] and the output staging [2][5][R][ldq]
+  bf16* tile = reinterpret_cast<bf16*>(tc_smem);
+  bf16* ring = tile + 2 * R * ld;
+  bf16* stage = ring + kRing * kTcInStreams * R * ldq;
+  for (int i = threadIdx.x; i < R * ld; i += blockDim.x)
+    reinterpret_cast<uint32_t*>(tile)[i] = 0u;
+  const uint32_t tile_addr = smem_addr(tile);
+  const uint32_t buf_bytes = static_cast<uint32_t>(R * ld * 2);
+  auto t_of = [&](int s) { return bwd ? N - 1 - s : s; };
+
+  // the block's copies: thread i moves chunk i % (U / 8) of staged rows
+  // i / (U / 8) + 32 j (the block's 4U threads cover 32 rows a pass)
+  const int cpr = U / 8;
+  const int chunk = static_cast<int>(threadIdx.x) % cpr;
+  const int row_in_pass = static_cast<int>(threadIdx.x) / cpr;
+  auto load = [&](int s) {   // the inputs of step s into its ring slot
+    if (s < N) {
+      const int t = t_of(s);
+      const uint32_t slot =
+          smem_addr(ring + (s % kRing) * kTcInStreams * R * ldq);
+#pragma unroll
+      for (int pass = 0; pass < (kTcInStreams * R + 31) / 32; ++pass) {
+        const int qr = pass * 32 + row_in_pass;
+        if (qr < kTcInStreams * R) {
+          const int q = qr / R, r = qr % R;
+          const int row = tile_row0 + r;
+          const bf16* src = xg + (static_cast<size_t>(row < B ? row : 0) * N +
+                                  t) * G + q * H + rank * U + chunk * 8;
+          cp_async16(slot + ((q * R + r) * ldq + chunk * 8) * 2, src,
+                     row < B ? 16 : 0);
+        }
+      }
+    }
+    cp_async_commit();   // one group a step, empty or not
+  };
+  auto flush = [&](int s) {   // the outputs of step s from its staging
+    const int t = t_of(s);
+    const bf16* st = stage + (s & 1) * kTcOutStreams * R * ldq;
+#pragma unroll
+    for (int pass = 0; pass < (kOut * R + 31) / 32; ++pass) {
+      const int qr = pass * 32 + row_in_pass;
+      const int q = qr / R, r = qr % R;
+      const int row = tile_row0 + r;
+      if (qr < kOut * R && row < B) {
+        const size_t cell = static_cast<size_t>(row) * N + t;
+        bf16* dst = q == 0 ? ys + cell * H
+                  : q < 4  ? gs + cell * G + (q - 1) * H
+                           : hns + cell * H;
+        *reinterpret_cast<uint4*>(dst + rank * U + chunk * 8) =
+            *reinterpret_cast<const uint4*>(st + (q * R + r) * ldq +
+                                            chunk * 8);
+      }
+    }
+  };
+  for (int j = 0; j < kRing - 1; ++j) load(j);
+
+  float h[kMT][2][2];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) h[mt][hr][0] = h[mt][hr][1] = 0.0f;
+
+  // full[b] counts the bytes of h landing in buffer b: step s reads buffer
+  // s & 1 (h_{s-1}; zeros at step 0), and the phase a step s > 0 waits for
+  // is the ((s - 1) / 2)-th of full[s & 1]. Armed two steps ahead.
+  __shared__ __align__(8) uint64_t full[2];
+  const uint32_t bar = smem_addr(full);
+  // the bytes the other blocks send into a buffer each step
+  const uint32_t tile_tx = static_cast<uint32_t>(R * (H - U) * 2);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 8, 1);
+    mbar_expect(bar + 8, tile_tx);              // h_0, read at step 1
+    if (N > 2) mbar_expect(bar, tile_tx);       // h_1, read at step 2
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  // every block of the cluster runs and holds a zero h_{-1} and its
+  // mbarriers before any block writes into another's shared memory
+  cluster.sync();
+
+  for (int s = 0; s < N; ++s) {
+    // this step's inputs have landed (this thread's copies, then every
+    // thread's), every thread is done with the previous step's ring slot
+    // and staging; the previous step's outputs leave, this slot refills
+    cp_async_wait<kRing - 2>();
+    __syncthreads();
+    if (s > 0) flush(s - 1);
+    load(s + kRing - 1);
+    if (s > 0) {   // h_{t-1} of every block has landed
+      mbar_wait(bar + (s & 1) * 8, ((s - 1) >> 1) & 1);
+      if (threadIdx.x == 0 && s + 2 < N) mbar_expect(bar + (s & 1) * 8, tile_tx);
+    }
+
+    // pre-activations T(h_{t-1}) @ T(W_hh[:, r|z|n of the warp's units]):
+    // even and odd k-steps in two accumulators
+    float acc[2][kMT][3][4];
+#pragma unroll
+    for (int a2 = 0; a2 < 2; ++a2)
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[a2][mt][g][e] = 0.0f;
+    const uint32_t hb = tile_addr + (s & 1) * buf_bytes;
+#pragma unroll
+    for (int ks = 0; ks < kTcMaxK; ++ks) {
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        // lane l addresses row l % 16, k half l / 16 of the 16 x 16 tile
+        uint32_t a[4];
+        ldmatrix_x4(a, hb + ((mt * 16 + (lane & 15)) * ld + ks * 16 +
+                             (lane >> 4) * 8) * 2);
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          mma_bf16(acc[ks & 1][mt][g], a, bw[g][ks][0], bw[g][ks][1]);
+      }
+    }
+
+    // element e of an accumulator is (row quad + (e / 2) * 8, unit pair +
+    // e % 2): the lane's cells; their inputs from the ring, their outputs
+    // into the staging
+    const bf16* in = ring + (s % kRing) * kTcInStreams * R * ldq;
+    bf16* out = stage + (s & 1) * kTcOutStreams * R * ldq;
+    uint32_t hy[kMT][2];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int cell = (mt * 16 + quad + hr * 8) * ldq + lu;
+        uint32_t x[3];
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          x[g] = *reinterpret_cast<const uint32_t*>(in + g * R * ldq + cell);
+        float vr[2], vz[2], vn[2], vhn[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = hr * 2 + e;
+          const float pr = acc[0][mt][0][i] + acc[1][mt][0][i];
+          const float pz = acc[0][mt][1][i] + acc[1][mt][1][i];
+          const float pn = acc[0][mt][2][i] + acc[1][mt][2][i];
+          const float xr = e ? hi_f32(x[0]) : lo_f32(x[0]);
+          const float xz = e ? hi_f32(x[1]) : lo_f32(x[1]);
+          const float xn = e ? hi_f32(x[2]) : lo_f32(x[2]);
+          const float hn = pn + bias[2][e];
+          const float r = fast_sigmoid(xr + (pr + bias[0][e]));
+          const float z = fast_sigmoid(xz + (pz + bias[1][e]));
+          const float n = fast_tanh(xn + r * hn);
+          h[mt][hr][e] = (1.0f - z) * n + z * h[mt][hr][e];
+          vr[e] = r;
+          vz[e] = z;
+          vn[e] = n;
+          vhn[e] = hn;
+        }
+        hy[mt][hr] = pack_f32(h[mt][hr][0], h[mt][hr][1]);
+        const uint32_t words[kTcOutStreams] = {
+            hy[mt][hr], pack_f32(vr[0], vr[1]), pack_f32(vz[0], vz[1]),
+            pack_f32(vn[0], vn[1]), pack_f32(vhn[0], vhn[1])};
+#pragma unroll
+        for (int q = 0; q < kOut; ++q)
+          *reinterpret_cast<uint32_t*>(out + q * R * ldq + cell) = words[q];
+      }
+
+    // T(h_t) into the other buffer of this block (seen by its warps after
+    // the next step's __syncthreads), then the warp's rows of it (8 units,
+    // 16 bytes) into that buffer of every other block of the cluster; the
+    // last step's h_t is read by no step
+    const uint32_t nb = tile_addr + ((s + 1) & 1) * buf_bytes;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        st_shared(nb + ((mt * 16 + quad + hr * 8) * ld + unit) * 2,
+                  hy[mt][hr]);
+    __syncwarp();
+    if (s + 1 < N && lane < R) {
+      const uint32_t off = nb + (lane * ld + rank * U + warp * 8) * 2;
+      const uint4 v = ld_shared16(off);
+      const uint32_t nbar = bar + ((s + 1) & 1) * 8;
+      for (int q = 0; q < C; ++q)
+        if (q != rank) st_async16(cluster_addr(off, q), v, cluster_addr(nbar, q));
+    }
+  }
+  __syncthreads();
+  flush(N - 1);
+  // no block exits while another may still write into it
+  cluster.sync();
+}
+
+// The tensor-core kernel's dynamic shared memory (the h tile, double
+// buffered, the input ring and the output staging), threads and W_hh
+// fragment registers a lane holds (the wrapper's tc_smem_bytes("fwd", ...),
+// tc_threads and TC_WEIGHT_REGS mirror them, held to this source by
+// bigru_fwd_tc_layout).
+size_t tc_smem_bytes(int H, int C, int R) {
+  const size_t ldq = static_cast<size_t>(H / C) + kTcPad;
+  const size_t ring = R == 16 ? tc_ring<1>() : tc_ring<2>();
+  return (2 * static_cast<size_t>(R) * kTcLd +
+          (ring * kTcInStreams + 2 * kTcOutStreams) * R * ldq) * sizeof(bf16);
+}
+constexpr int tc_threads(int H, int C) { return 4 * (H / C); }
+constexpr int kTcWeightRegs = 3 * kTcMaxK * 2;
+
+// H a multiple of 16 up to kTcMaxH, the cluster dividing H into a whole
+// number of 8-unit warps, at most kTcMaxThreads threads a block, and one
+// or two m16 tiles of rows.
+bool valid_tc_plan(int B, int N, int H, int C, int R) {
+  return B > 0 && N > 0 && H > 0 && H % 16 == 0 && H <= kTcMaxH &&
+         (C == 1 || C == 2 || C == 4 || C == 8) && H % C == 0 &&
+         (H / C) % 8 == 0 && tc_threads(H, C) <= kTcMaxThreads &&
+         (R == 16 || R == 32);
+}
+
+template <bool kSave, int kMT>
+cudaError_t allow_tc_smem(int smem) {
+  static std::atomic<int> allowed[kMaxDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices && allowed[device].load() >= smem)
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(bigru_fwd_tc_kernel<kSave, kMT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && device < kMaxDevices) allowed[device].store(smem);
+  return err;
+}
+
+template <bool kSave, int kMT>
+int launch_tc_as(const void* xg_f, const void* xg_b, const void* w_f,
+                 const float* b_f, const void* w_b, const float* b_b,
+                 void* ys_f, void* ys_b, void* gs_f, void* gs_b, void* hn_f,
+                 void* hn_b, int B, int N, int H, int C, void* stream) {
+  constexpr int R = 16 * kMT;
+  const size_t smem = tc_smem_bytes(H, C, R);
+  cudaError_t err = allow_tc_smem<kSave, kMT>(static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cfg.gridDim = dim3(C * ((B + R - 1) / R), 2, 1);
+  cfg.blockDim = dim3(tc_threads(H, C), 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  auto in = [](const void* p) { return static_cast<const bf16*>(p); };
+  auto out = [](void* p) { return static_cast<bf16*>(p); };
+  err = cudaLaunchKernelEx(&cfg, bigru_fwd_tc_kernel<kSave, kMT>, in(xg_f),
+                           in(xg_b), in(w_f), b_f, in(w_b), b_b, out(ys_f),
+                           out(ys_b), out(gs_f), out(gs_b), out(hn_f),
+                           out(hn_b), B, N, H);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kSave>
+int launch_tc(const void* xg_f, const void* xg_b, const void* w_f,
+              const float* b_f, const void* w_b, const float* b_b, void* ys_f,
+              void* ys_b, void* gs_f, void* gs_b, void* hn_f, void* hn_b,
+              int B, int N, int H, int C, int R, void* stream) {
+  if (!valid_tc_plan(B, N, H, C, R))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return (R == 16 ? launch_tc_as<kSave, 1> : launch_tc_as<kSave, 2>)(
+      xg_f, xg_b, w_f, b_f, w_b, b_b, ys_f, ys_b, gs_f, gs_b, hn_f, hn_b, B,
+      N, H, C, stream);
+}
+
+template <bool kSave, int kMT>
+int tc_max_active_clusters_as(int H, int C) {
+  const size_t smem = tc_smem_bytes(H, C, 16 * kMT);
+  cudaError_t err = allow_tc_smem<kSave, kMT>(static_cast<int>(smem));
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(tc_threads(H, C), 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, bigru_fwd_tc_kernel<kSave, kMT>,
+                                       &cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
 // Dynamic shared memory one block needs, in bytes (the wrapper's
 // bigru_smem_bytes("fwd", ...) mirrors it to pick the cluster size).
 size_t smem_bytes(int H, int C, int R) {
@@ -494,7 +1046,6 @@ bool valid_plan(int B, int N, int H, int C, int R) {
 
 // Dynamic shared memory each variant is already allowed on each device, so
 // the attribute is set once per device (and again only for a larger size).
-constexpr int kMaxDevices = 64;
 template <typename T, bool kSave>
 std::atomic<int> g_smem_allowed[kMaxDevices];
 
@@ -667,6 +1218,56 @@ int bigru_fwd_train_bf16(const void* xg_f, const void* xg_b, const void* w_f,
   return launch<__nv_bfloat16, true>(xg_f, xg_b, w_f, b_f, w_b, b_b, ys_f,
                                      ys_b, gs_f, gs_b, hn_f, hn_b, B, N, H, C,
                                      R, 2, 0, stream);
+}
+
+// The tensor-core kernel (bf16 streams, both directions): arguments and
+// outputs as bigru_fwd_bf16 / bigru_fwd_train_bf16, with clusters of C
+// blocks (C in 1, 2, 4, 8 dividing H into a whole number of 8-unit warps,
+// at most 256 threads) over batch tiles of R = 16 or 32 rows; H a multiple
+// of 16 up to 256.
+int bigru_fwd_tc_bf16(const void* xg_f, const void* xg_b, const void* w_f,
+                      const float* b_f, const void* w_b, const float* b_b,
+                      void* ys_f, void* ys_b, int B, int N, int H, int C,
+                      int R, void* stream) {
+  return launch_tc<false>(xg_f, xg_b, w_f, b_f, w_b, b_b, ys_f, ys_b,
+                          nullptr, nullptr, nullptr, nullptr, B, N, H, C, R,
+                          stream);
+}
+
+int bigru_fwd_train_tc_bf16(const void* xg_f, const void* xg_b,
+                            const void* w_f, const float* b_f,
+                            const void* w_b, const float* b_b, void* ys_f,
+                            void* ys_b, void* gs_f, void* gs_b, void* hn_f,
+                            void* hn_b, int B, int N, int H, int C, int R,
+                            void* stream) {
+  return launch_tc<true>(xg_f, xg_b, w_f, b_f, w_b, b_b, ys_f, ys_b, gs_f,
+                         gs_b, hn_f, hn_b, B, N, H, C, R, stream);
+}
+
+// How many clusters of the tensor-core kernel (save: 0 or 1) at hidden size
+// H, cluster size C and tile R the current device runs at once; a negative
+// cudaError_t code on failure.
+int bigru_fwd_tc_max_active_clusters(int save, int H, int C, int R) {
+  if (!valid_tc_plan(1, 1, H, C, R))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  if (R == 16)
+    return save ? tc_max_active_clusters_as<true, 1>(H, C)
+                : tc_max_active_clusters_as<false, 1>(H, C);
+  return save ? tc_max_active_clusters_as<true, 2>(H, C)
+              : tc_max_active_clusters_as<false, 2>(H, C);
+}
+
+// The tensor-core kernel's layout at H, C and R, for the wrapper's mirror:
+// what 0 = dynamic shared memory in bytes, 1 = threads a block, 2 = W_hh
+// fragment registers a lane holds; -1 for a plan it does not take.
+int bigru_fwd_tc_layout(int what, int H, int C, int R) {
+  if (!valid_tc_plan(1, 1, H, C, R)) return -1;
+  switch (what) {
+    case 0: return static_cast<int>(tc_smem_bytes(H, C, R));
+    case 1: return tc_threads(H, C);
+    case 2: return kTcWeightRegs;
+    default: return -1;
+  }
 }
 
 // One direction of a GRU: as bigru_fwd_* with a grid of one direction over

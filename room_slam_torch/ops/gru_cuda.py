@@ -50,7 +50,13 @@ launches the kernel (or raises); a CPU tensor takes the plain version.
 
 At H=256 one direction's W_hh does not fit one block's shared memory, so
 each kernel splits it across the blocks of a thread-block cluster
-(``bigru_plan``).
+(``bigru_plan``). With bf16 streams and both directions (the scale-up
+model's launches) ``bigru_fwd``, ``bigru_fwd_train`` and ``bigru_bwd`` run
+tensor-core kernels of the same sources instead (``gru_fwd_kernel_route``
+/ ``gru_bwd_kernel_route`` say "tc"): each warp holds its 8 units' slice
+of W_hh as ``mma.sync`` fragments in registers, a cluster of 4 or 8
+blocks walks a batch tile of 16 or 32 rows, and ``bigru_tc_plan`` picks
+the plan from the card's own counts.
 
 ``gru_recurrence_kernel(xg, w_hh, b_hh, reverse)`` is one direction (the
 counterpart of ``gru_pallas.py::gru_recurrence_pallas`` and its
@@ -215,21 +221,173 @@ def bigru_plan(kind: str, batch: int, hidden: int,
     return plans[0]
 
 
-def gru_fwd_kernel_route(hidden: int, dirs: int) -> str:
+# ---------------------------------------------------------------------------
+# The tensor-core kernels (bigru_fwd_tc_kernel, bigru_bwd_tc_kernel): bf16
+# streams, both directions; the plan rule and layout mirror valid_tc_plan,
+# tc_smem_bytes and tc_threads of csrc/bigru_*.cu, held to the built
+# sources by bigru_*_tc_layout when a library loads
+# ---------------------------------------------------------------------------
+
+TC_CLUSTER_SIZES = (4, 8)   # the planner's cluster sizes
+TC_ROWS = (16, 32)          # batch tiles: one or two m16 tiles
+TC_MAX_H = 256              # kTcMaxH: W_hh fragments a warp holds
+TC_MAX_THREADS = 256        # 8 warps of up to 255 registers fill an SM's file
+TC_PAD = 8                  # bf16 padding of a tile row (conflict-free ldmatrix)
+# W_hh fragment registers a lane holds: three n8 tiles (r, z, n) over H/16
+# k-steps in the forward, three gate blocks of H/16 k-steps in the BPTT
+TC_WEIGHT_REGS = 3 * (TC_MAX_H // 16) * 2
+TC_RING = {16: 4, 32: 3}     # steps of staged inputs by tile (tc_ring)
+# staged input and output streams: the forward's xg (r, z, n) in, ys, r,
+# z, n and hn out; the BPTT's r, z, n, hn, h_prev and dy in, dx (r, z, n)
+# and dhn out
+TC_STREAMS = {"fwd": (3, 5), "bwd": (6, 4)}
+
+
+def tc_smem_bytes(kind: str, hidden: int, cluster: int, rows: int) -> int:
+    """Dynamic shared memory one block of the tensor-core kernel ``kind``
+    ("fwd": both forward variants; "bwd": the BPTT) needs, in bf16 values
+    times two: the double-buffered tile of h_{t-1} [R, H] or dg [R, 3H],
+    whatever H as wide as at ``TC_MAX_H`` (the product runs every k-step,
+    past H on zeros), rows padded by ``TC_PAD``; then the block's streams
+    staged as rows of its U units (padded by ``TC_PAD``): a ring of
+    ``TC_RING`` steps of inputs and two steps of outputs."""
+    tile = (TC_MAX_H if kind == "fwd" else 3 * TC_MAX_H) + TC_PAD
+    ldq = hidden // cluster + TC_PAD
+    n_in, n_out = TC_STREAMS[kind]
+    return (2 * rows * tile
+            + (TC_RING[rows] * n_in + 2 * n_out) * rows * ldq) * 2
+
+
+def tc_threads(hidden: int, cluster: int) -> int:
+    """Threads of a tensor-core block: a warp for each 8 of its units."""
+    return 4 * (hidden // cluster)
+
+
+def _tc_rule(hidden: int, cluster: int, rows: int) -> bool:
+    """H a multiple of 16 up to ``TC_MAX_H``, the cluster dividing H into a
+    whole number of 8-unit warps (U / 8 warps of up to 255 registers, at
+    most ``TC_MAX_THREADS`` threads: C = 2 at H=256 would need 16), and one
+    or two m16 tiles of rows."""
+    if cluster not in CLUSTER_SIZES or rows not in TC_ROWS or hidden <= 0 \
+            or hidden % 16 or hidden > TC_MAX_H or hidden % cluster:
+        return False
+    units = hidden // cluster
+    return units % 8 == 0 and tc_threads(hidden, cluster) <= TC_MAX_THREADS
+
+
+def tc_plan_fits(kind: str, hidden: int, cluster: int, rows: int) -> bool:
+    """Whether the tensor-core kernel ``kind`` takes this cluster size and
+    batch tile at H: ``_tc_rule`` holds and the tile fits a block's shared
+    memory."""
+    return (_tc_rule(hidden, cluster, rows)
+            and tc_smem_bytes(kind, hidden, cluster, rows) <= MAX_SMEM_BYTES)
+
+
+def check_tc_mirror(layout, kind: str) -> None:
+    """Hold ``_tc_rule``, ``tc_smem_bytes``, ``tc_threads`` and
+    ``TC_WEIGHT_REGS`` to a built source's ``bigru_<kind>_tc_layout(what,
+    H, C, R)`` over H, every cluster size and a few tiles (-1 for a plan
+    the kernel does not take); raises naming the first plan where they
+    differ."""
+    for hidden in (16, 24, 32, 48, 64, 96, 128, 256, 272, 512):
+        for c in CLUSTER_SIZES:
+            for rows in (8, *TC_ROWS, 24, 48):
+                want = ((tc_smem_bytes(kind, hidden, c, rows),
+                         tc_threads(hidden, c), TC_WEIGHT_REGS)
+                        if _tc_rule(hidden, c, rows) else (-1, -1, -1))
+                got = tuple(layout(what, hidden, c, rows) for what in range(3))
+                if got != want:
+                    raise RuntimeError(
+                        f"bigru_{kind}_tc: the wrapper's tensor-core mirror "
+                        f"gives {want} (shared bytes, threads, W_hh "
+                        f"registers) at H={hidden}, plan {c}x{rows}, the "
+                        f"built source {got}: update TC_* or tc_smem_bytes "
+                        "to match the source")
+
+
+def _tc_cost(batch: int, hidden: int, cluster: int, rows: int,
+             sms: int) -> tuple:
+    """A step's cost between plans that run in one wave, the order an
+    H100 sweep of every plan gave at the scale-up width (B=128 and B=1,
+    all three kernels): one m16 tile before two (twice the ``mma.sync``
+    chain and the bytes a block exchanges); then plans whose grid leaves
+    half the card's ``sms`` free (clusters of 8 that spread over more share
+    the card's GPCs and lost to clusters of 4 at B=128, while they won at
+    B=1); then the ``mma.sync`` work of one SM scheduler (U / 8 warps a
+    block over four schedulers, times the m16 tiles); then the smaller
+    cluster."""
+    blocks = 2 * -(-batch // rows) * cluster
+    warps = hidden // cluster // 8
+    return (rows // 16, blocks > sms // 2, max(1, warps // 4) * (rows // 16),
+            cluster)
+
+
+def bigru_tc_plans(kind: str, batch: int, hidden: int,
+                   resident: Callable[[int, int], int],
+                   sms: int) -> List[Tuple[int, int]]:
+    """Every ``(cluster, rows)`` of ``TC_CLUSTER_SIZES`` x ``TC_ROWS`` that
+    the tensor-core kernel ``kind`` ("fwd" or "bwd") takes at this batch
+    and H over two directions, fastest first: plans whose grid needs a
+    second wave (``resident(cluster, rows)`` clusters run at once, the
+    card's own count) last, then by ``_tc_cost`` on a card of ``sms``
+    SMs."""
+    keys = []
+    for c in TC_CLUSTER_SIZES:
+        for rows in TC_ROWS:
+            if not tc_plan_fits(kind, hidden, c, rows):
+                continue
+            at_once = resident(c, rows)
+            if at_once <= 0:
+                continue
+            waves = -(-2 * -(-batch // rows) // at_once)
+            keys.append((waves, _tc_cost(batch, hidden, c, rows, sms), c,
+                         rows))
+    return [(c, rows) for *_, c, rows in sorted(keys)]
+
+
+def bigru_tc_plan(kind: str, batch: int, hidden: int,
+                  resident: Callable[[int, int], int],
+                  sms: int) -> Tuple[int, int]:
+    """``(cluster, rows)`` of the tensor-core kernel ``kind``: the first of
+    ``bigru_tc_plans``. Raises where the card runs no plan."""
+    plans = bigru_tc_plans(kind, batch, hidden, resident, sms)
+    if not plans:
+        raise ValueError(
+            f"bigru_{kind}_tc: no plan of {TC_CLUSTER_SIZES} x {TC_ROWS} "
+            f"takes H={hidden} on this card")
+    return plans[0]
+
+
+def _route(kind: str, hidden: int, dirs: int, dtype: torch.dtype) -> str:
+    if dirs == 1 and 0 < hidden <= UNIT_MAX_H:
+        return "unit"
+    if dirs == 2 and dtype == torch.bfloat16 and any(
+            tc_plan_fits(kind, hidden, c, r)
+            for c in TC_CLUSTER_SIZES for r in TC_ROWS):
+        return "tc"
+    return "cluster"
+
+
+def gru_fwd_kernel_route(hidden: int, dirs: int,
+                         dtype: torch.dtype = torch.float32) -> str:
     """The forward kernel of ``csrc/bigru_fwd.cu`` that takes a launch of
-    ``dirs`` directions at hidden size ``hidden`` (whatever the batch or
-    stream dtype): "unit" for one direction at H <= ``UNIT_MAX_H``, else
-    "cluster" (``bigru_plan`` then picks its cluster and tile, or raises
-    for an H no cluster size takes)."""
-    return "unit" if dirs == 1 and 0 < hidden <= UNIT_MAX_H else "cluster"
+    ``dirs`` directions at hidden size ``hidden`` with ``dtype`` streams
+    (whatever the batch): "unit" for one direction at H <=
+    ``UNIT_MAX_H``; "tc" (the tensor-core kernel) for two directions with
+    bf16 streams where ``tc_plan_fits`` holds for a plan of the planner's;
+    else "cluster" (``bigru_plan`` then picks its cluster and tile, or
+    raises for an H no cluster size takes)."""
+    return _route("fwd", hidden, dirs, dtype)
 
 
-def gru_bwd_kernel_route(hidden: int, dirs: int) -> str:
+def gru_bwd_kernel_route(hidden: int, dirs: int,
+                         dtype: torch.dtype = torch.float32) -> str:
     """The BPTT kernel of ``csrc/bigru_bwd.cu`` that takes a launch of
-    ``dirs`` directions at hidden size ``hidden``: the forward's route,
+    ``dirs`` directions at hidden size ``hidden`` with ``dtype`` streams:
     "unit" (``gru_bwd_unit_kernel``) for one direction at H <=
-    ``UNIT_MAX_H``, else "cluster" (kLinear)."""
-    return gru_fwd_kernel_route(hidden, dirs)
+    ``UNIT_MAX_H``; "tc" (``bigru_bwd_tc_kernel``) for two directions with
+    bf16 streams where ``tc_plan_fits`` holds; else "cluster" (kLinear)."""
+    return _route("bwd", hidden, dirs, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -615,10 +773,24 @@ def _library(name: str):
             fn = getattr(lib, fn_name)
             fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
             fn.restype = ctypes.c_int
+    # the tensor-core kernels: bf16 only, the pointers of the cluster
+    # entries, then B, N, H, C, R
+    tc = ({"bigru_fwd_tc_bf16": 8, "bigru_fwd_train_tc_bf16": 12} if fwd
+          else {"bigru_bwd_tc_bf16": 14})
+    for fn_name, n_ptr in tc.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = [p] * n_ptr + [i] * 5 + [p]
+        fn.restype = ctypes.c_int
     clusters = getattr(lib, f"{name}_max_active_clusters")
     # the bf16 flag, the kSave flag (fwd) or kind (bwd), then H, C, R
     clusters.argtypes = [i] * 5
     clusters.restype = ctypes.c_int
+    # the kSave flag (ignored by the BPTT), then H, C, R; what, H, C, R
+    for query in ("max_active_clusters", "layout"):
+        fn = getattr(lib, f"{name}_tc_{query}")
+        fn.argtypes = [i] * 4
+        fn.restype = ctypes.c_int
+    check_tc_mirror(getattr(lib, f"{name}_tc_layout"), name[len("bigru_"):])
     if fwd:
         bind_unit_queries(lib, "gru_fwd", gates=3)
     else:
@@ -668,6 +840,32 @@ def _resident(kind: str, H: int, dev: torch.device, T, save: bool):
     return lib, resident
 
 
+def _tc_resident(kind: str, H: int, dev: torch.device, save: bool):
+    """The kernel library of the tensor-core kernel ``kind`` ("fwd" or
+    "bwd"), ``resident(cluster, rows)``: how many clusters of that plan the
+    card ``dev`` runs at once, and the card's SM count."""
+    lib = _library(f"bigru_{kind}")
+    query = getattr(lib, f"bigru_{kind}_tc_max_active_clusters")
+
+    def resident(c, rows):
+        with torch.cuda.device(dev):
+            return query(int(save), H, c, rows)
+
+    return (lib, resident,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+def card_tc_plans(kind: str, B: int, H: int, dev: torch.device
+                  ) -> List[Tuple[int, int]]:
+    """``bigru_tc_plans`` of the tensor-core kernel behind wrapper ``kind``
+    ("fwd", "fwd_train" or "bwd") on the card ``dev`` (its own
+    resident-cluster counts), fastest first; the first is the plan a launch
+    takes."""
+    src = "bwd" if kind == "bwd" else "fwd"
+    _, resident, sms = _tc_resident(src, H, dev, kind == "fwd_train")
+    return bigru_tc_plans(src, B, H, resident, sms)
+
+
 def card_plans(kind: str, B: int, H: int, dev: torch.device,
                dtype: torch.dtype, dirs: int = 2) -> List[Tuple[int, int]]:
     """``bigru_plans`` of kernel ``kind`` on the card ``dev`` (its own
@@ -714,7 +912,55 @@ def _plan_launch(kind: str, fn, B: int, H: int, dev: torch.device, T,
 _PLANS: dict = {}     # launch plans by kernel, shape, device and dtype
 
 
-def _fwd_launch(fn, save: bool, xg_f, xg_b, w_f, b_f, w_b, b_b):
+def _tc_plan_launch(kind: str, fn, B: int, H: int, dev: torch.device,
+                    save: bool, plan: Optional[Tuple[int, int]] = None):
+    """The launch's ``(cluster, rows)`` for the tensor-core kernel ``kind``
+    ("fwd" or "bwd"): ``bigru_tc_plan``'s pick with the card's own counts,
+    or the caller's ``plan``, refused unless ``tc_plan_fits`` holds and the
+    card runs at least one such cluster. Recorded with the number of the
+    grid's clusters in ``fn.last_launch``."""
+    lib, resident, sms = _tc_resident(kind, H, dev, save)
+    key = ("tc", kind, B, H, str(dev), save, plan)
+    if key not in _PLANS:
+        if plan is None:
+            cluster, rows = bigru_tc_plan(kind, B, H, resident, sms)
+        else:
+            cluster, rows = plan
+            if not tc_plan_fits(kind, H, cluster, rows):
+                raise ValueError(
+                    f"bigru_{kind}_tc: plan {cluster}x{rows} does not fit "
+                    f"H={H}: H must be a multiple of 16 up to {TC_MAX_H}, "
+                    "the cluster divide it into 8-unit warps, at most "
+                    f"{TC_MAX_THREADS} threads a block, and the tile "
+                    f"{TC_ROWS} rows")
+            if resident(cluster, rows) <= 0:
+                raise ValueError(f"bigru_{kind}_tc: the card runs no "
+                                 f"cluster of plan {cluster}x{rows} at once")
+        _PLANS[key] = {"kernel": "tc", "cluster": cluster, "rows": rows,
+                       "clusters": 2 * -(-B // rows),
+                       "resident": resident(cluster, rows)}
+    fn.last_launch = _PLANS[key]
+    return lib, fn.last_launch["cluster"], fn.last_launch["rows"]
+
+
+def _bigru_kernel(kind: str, H: int, T: torch.dtype, plan):
+    """The kernel a two-direction launch of ``kind`` ("fwd" or "bwd")
+    takes, "tc" or "cluster", and the plan the caller forces (None: the
+    planner's): ``plan=None`` follows the route, ``(cluster, rows)`` forces
+    the cluster kernel, ``("tc", cluster, rows)`` the tensor-core kernel,
+    refused for float32 streams."""
+    if plan is None:
+        route = gru_fwd_kernel_route if kind == "fwd" else gru_bwd_kernel_route
+        return route(H, 2, T), None
+    if plan[0] != "tc":
+        return "cluster", tuple(plan)
+    if T != torch.bfloat16:
+        raise ValueError(f"bigru_{kind}: the tensor-core kernel takes "
+                         f"bfloat16 streams, not {T}")
+    return "tc", tuple(plan[1:])
+
+
+def _fwd_launch(fn, save: bool, plan, xg_f, xg_b, w_f, b_f, w_b, b_b):
     ins = (xg_f, xg_b, w_f, b_f, w_b, b_b)
     _check_shapes(*ins)
     name = "bigru_fwd_train" if save else "bigru_fwd"
@@ -726,7 +972,14 @@ def _fwd_launch(fn, save: bool, xg_f, xg_b, w_f, b_f, w_b, b_b):
             for d in ((H, H, G, G, H, H) if save else (H, H))]
     if B == 0 or N == 0:
         return tuple(outs)
-    lib, cluster, rows = _plan_launch("fwd", fn, B, H, dev, T, save, 2)
+    kernel, forced = _bigru_kernel("fwd", H, T, plan)
+    if kernel == "tc":
+        lib, cluster, rows = _tc_plan_launch("fwd", fn, B, H, dev, save,
+                                             forced)
+        name = f"{name}_tc"
+    else:
+        lib, cluster, rows = _plan_launch("fwd", fn, B, H, dev, T, save, 2,
+                                          forced)
     w_f, w_b = w_f.to(T).contiguous(), w_b.to(T).contiguous()
     launch(lib, f"{name}_{_SUFFIX[T]}", dev,
            *(t.data_ptr() for t in (xg_f, xg_b, w_f, b_f, w_b, b_b)),
@@ -735,25 +988,32 @@ def _fwd_launch(fn, save: bool, xg_f, xg_b, w_f, b_f, w_b, b_b):
     return tuple(outs)
 
 
-def bigru_fwd_cuda(xg_f, xg_b, w_f, b_f, w_b, b_b
+def bigru_fwd_cuda(xg_f, xg_b, w_f, b_f, w_b, b_b,
+                   plan: Optional[tuple] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the light kernel of ``csrc/bigru_fwd.cu`` on the current
-    stream: ``(ys_f, ys_b)``. Counts each launch in
+    stream: ``(ys_f, ys_b)``. ``gru_fwd_kernel_route`` picks the
+    tensor-core kernel or the cluster kernel; ``plan=(cluster, rows)``
+    forces the cluster kernel's plan, ``plan=("tc", cluster, rows)`` the
+    tensor-core kernel's (raises if it does not fit). Records the plan in
+    ``bigru_fwd_cuda.last_launch`` and counts each launch in
     ``bigru_fwd_cuda.launches``. Its outputs carry no autograd history:
     ``bigru_recurrence`` sends inputs that need a gradient to
     ``BiGRUFunction`` instead."""
-    return _fwd_launch(bigru_fwd_cuda, False, xg_f, xg_b, w_f, b_f, w_b, b_b)
+    return _fwd_launch(bigru_fwd_cuda, False, plan, xg_f, xg_b, w_f, b_f,
+                       w_b, b_b)
 
 
 bigru_fwd_cuda.launches = 0
 
 
-def bigru_fwd_train_cuda(xg_f, xg_b, w_f, b_f, w_b, b_b):
+def bigru_fwd_train_cuda(xg_f, xg_b, w_f, b_f, w_b, b_b,
+                         plan: Optional[tuple] = None):
     """Launch the residual variant of ``csrc/bigru_fwd.cu``: ``(ys_f, ys_b,
-    gs_f, gs_b, hn_f, hn_b)``. Counts each launch in
-    ``bigru_fwd_train_cuda.launches``."""
-    return _fwd_launch(bigru_fwd_train_cuda, True, xg_f, xg_b, w_f, b_f, w_b,
-                       b_b)
+    gs_f, gs_b, hn_f, hn_b)``; route and ``plan`` as ``bigru_fwd_cuda``.
+    Counts each launch in ``bigru_fwd_train_cuda.launches``."""
+    return _fwd_launch(bigru_fwd_train_cuda, True, plan, xg_f, xg_b, w_f, b_f,
+                       w_b, b_b)
 
 
 bigru_fwd_train_cuda.launches = 0
@@ -775,7 +1035,15 @@ def _bwd_launch(fn, kind: str, plan, w_f, w_b, gs_f, hn_f, ys_f, dy_f,
     outs = [torch.empty(B, N, d, dtype=T, device=dev) for d in (G, H, G, H)]
     if B == 0 or N == 0:
         return tuple(outs)
-    lib, cluster, rows = _plan_launch(kind, fn, B, H, dev, T, False, 2, plan)
+    kernel, forced = ("cluster", plan) if kind == "split" \
+        else _bigru_kernel("bwd", H, T, plan)
+    if kernel == "tc":
+        lib, cluster, rows = _tc_plan_launch("bwd", fn, B, H, dev, False,
+                                             forced)
+        name = f"{name}_tc"
+    else:
+        lib, cluster, rows = _plan_launch(kind, fn, B, H, dev, T, False, 2,
+                                          forced)
     w_f, w_b = w_f.to(T).contiguous(), w_b.to(T).contiguous()
     launch(lib, f"{name}_{_SUFFIX[T]}", dev,
            *(t.data_ptr() for t in (w_f, w_b, *streams)),
@@ -785,10 +1053,13 @@ def _bwd_launch(fn, kind: str, plan, w_f, w_b, gs_f, hn_f, ys_f, dy_f,
 
 
 def bigru_bwd_cuda(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b, dy_b,
-                   plan: Optional[Tuple[int, int]] = None):
+                   plan: Optional[tuple] = None):
     """Launch ``csrc/bigru_bwd.cu`` (#6): ``(dx_f, dhn_f, dx_b, dhn_b)``.
-    ``plan=(cluster, rows)`` overrides the planner (raises if it does not
-    fit). Counts each launch in ``bigru_bwd_cuda.launches``."""
+    ``gru_bwd_kernel_route`` picks the tensor-core kernel or kLinear's
+    cluster kernel; ``plan=(cluster, rows)`` forces the cluster kernel's
+    plan, ``plan=("tc", cluster, rows)`` the tensor-core kernel's (raises
+    if it does not fit). Records the plan in ``bigru_bwd_cuda.last_launch``
+    and counts each launch in ``bigru_bwd_cuda.launches``."""
     return _bwd_launch(bigru_bwd_cuda, "bwd", plan, w_f, w_b, gs_f, hn_f,
                        ys_f, dy_f, gs_b, hn_b, ys_b, dy_b)
 

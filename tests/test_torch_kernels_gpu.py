@@ -734,3 +734,62 @@ def test_lstm_bwd_unit_kernels_match_plain(cuda, shape, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lstm_bwd_wide_kernel_matches_plain(cuda, shape, dtype):
     _check_lstm_bwd(cuda, shape, dtype, [None, ("wide", 4)], "wide")
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core kernels of csrc/bigru_fwd.cu and csrc/bigru_bwd.cu (bf16
+# streams, both directions): every plan the card runs and the route's own
+# pick, at batches of 1, 5, 17 and 32 rows (padding rows in a 16- or 32-row
+# tile), 17 and 300 steps, H of 64, 128 and 256, against the plain versions
+# (values rtol 0.05 / atol 0.03, BPTT and gradients max-rel 0.1), a second
+# launch bit for bit, and BiGRUFunction's six gradients against autograd
+# through the plain loop.
+# ---------------------------------------------------------------------------
+
+TC_SHAPES = [(B, N, H) for B in (1, 5, 17, 32) for N in (17, 300)
+             for H in (64, 128, 256)]
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES)
+def test_bigru_tc_kernels_match_plain(cuda, shape):
+    B, N, H = shape
+    bf16 = torch.bfloat16
+    ins = _gru_inputs(*shape, bf16, cuda)
+    args = _bwd_args(shape, bf16, cuda)
+    for kind, fn, a, ref in (
+            ("fwd", gru_cuda.bigru_fwd_cuda, ins,
+             gru_cuda.bigru_fwd_plain(*ins)),
+            ("fwd_train", gru_cuda.bigru_fwd_train_cuda, ins,
+             gru_cuda.bigru_fwd_train_plain(*ins)),
+            ("bwd", gru_cuda.bigru_bwd_cuda, args,
+             gru_cuda.bigru_bwd_plain(*args))):
+        plans = gru_cuda.card_tc_plans(kind, B, H, cuda)
+        assert plans, kind
+        for plan in (None, *(("tc", c, r) for c, r in plans)):
+            before = fn.launches
+            got = fn(*a, plan=plan)
+            again = fn(*a, plan=plan)
+            assert fn.launches == before + 2
+            last = fn.last_launch
+            assert last["kernel"] == "tc", (kind, last)
+            want = plans[0] if plan is None else plan[1:]
+            assert (last["cluster"], last["rows"]) == want, (kind, last)
+            for x, x2, r in zip(got, again, ref):
+                assert torch.equal(x, x2), (kind, plan)
+                if kind == "bwd":
+                    assert x.dtype == r.dtype and torch.isfinite(x).all()
+                    assert _max_rel(x.float(), r.float()) <= 0.1, (kind, plan)
+                else:
+                    _assert_close(x, r, bf16)
+    x = [t.clone().requires_grad_(True) for t in ins]
+    dys = [args[5], args[9]]
+    grads = torch.autograd.grad(gru_cuda.bigru_recurrence(*x), x, dys)
+    assert gru_cuda.bigru_fwd_train_cuda.last_launch["kernel"] == "tc"
+    assert gru_cuda.bigru_bwd_cuda.last_launch["kernel"] == "tc"
+    ref = torch.autograd.grad(gru_cuda.bigru_fwd_plain(*x), x, dys)
+    for name, a, r in zip(("dxg_f", "dxg_b", "dW_f", "db_f", "dW_b", "db_b"),
+                          grads, ref):
+        assert a.dtype == r.dtype and torch.isfinite(a).all(), name
+        assert _max_rel(a.float(), r.float()) <= 0.1, (name, _max_rel(
+            a.float(), r.float()))
+    torch.cuda.synchronize()

@@ -472,3 +472,208 @@ def test_lstm_bwd_plan_forced_or_refused(fake_card):
         rnn_cuda.lstm_bwd_cuda(*_lstm_bwd_one(32, 5, 64),
                                plan=("cluster", 1, 4))
     assert len(fake_card.calls) == n
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core kernels (bigru_fwd_tc_kernel, bigru_bwd_tc_kernel): bf16
+# streams of two directions; f32 and one direction keep their kernels
+# ---------------------------------------------------------------------------
+
+# an H100's resident clusters of 4 and 8 blocks, as the cluster kernel's
+TC_CLUSTERS = {4: 30, 8: 15}
+
+
+@pytest.mark.parametrize("route", [gru_fwd_kernel_route,
+                                   gru_bwd_kernel_route])
+def test_tc_route_takes_bf16_two_directions(route):
+    """bf16 streams of two directions at H=256 take the tensor-core
+    kernel; float32 (also the default dtype) keeps the cluster kernel; one
+    direction keeps its route whatever the dtype; an H no tensor-core plan
+    takes (not a multiple of 16, above 256, or no 8-unit warps at C = 4
+    and 8) keeps the cluster kernel."""
+    bf16 = torch.bfloat16
+    assert route(256, 2, bf16) == "tc"
+    assert route(64, 2, bf16) == route(32, 2, bf16) == "tc"
+    assert route(256, 2) == route(256, 2, torch.float32) == "cluster"
+    assert route(64, 1, bf16) == "unit" and route(256, 1, bf16) == "cluster"
+    for hidden in (16, 24, 40, 264, 512):
+        assert route(hidden, 2, bf16) == "cluster", hidden
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("batch,counts,want", [
+    # (8, 16) needs 16 clusters of 8, a card of 15 runs a second wave
+    (128, TC_CLUSTERS, [(4, 16), (8, 32), (4, 32), (8, 16)]),
+    # the H100's own counts: 30 of each; (8, 16)'s 128 blocks fill more than
+    # half the card and follow (4, 16), the order its sweep gave
+    (128, {4: 30, 8: 30}, [(4, 16), (8, 16), (8, 32), (4, 32)]),
+    (17, TC_CLUSTERS, [(8, 16), (4, 16), (8, 32), (4, 32)]),
+    (1, TC_CLUSTERS, [(8, 16), (4, 16), (8, 32), (4, 32)])])
+def test_tc_plans_from_card_counts(kind, batch, counts, want):
+    """The plan whose grid needs a second wave comes last; between one-wave
+    plans one m16 tile goes before two, a grid that leaves half the card's
+    SMs free before one that does not, then the least mma.sync work a
+    scheduler takes a step, ties to the smaller cluster."""
+    resident = lambda c, rows: counts[c]   # noqa: E731
+    assert gru_cuda.bigru_tc_plans(kind, batch, 256, resident,
+                                   H100_SMS) == want
+    assert gru_cuda.bigru_tc_plan(kind, batch, 256, resident,
+                                  H100_SMS) == want[0]
+    # a plan the card runs no cluster of is dropped; none at all raises
+    assert (8, 16) not in gru_cuda.bigru_tc_plans(
+        kind, batch, 256, lambda c, rows: 0 if (c, rows) == (8, 16) else 30,
+        H100_SMS)
+    with pytest.raises(ValueError, match="no plan"):
+        gru_cuda.bigru_tc_plan(kind, batch, 256, lambda c, rows: 0, H100_SMS)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+def test_tc_plan_rule(kind):
+    """C = 2 at H=256 would need 16 warps of more than 128 registers: the
+    rule refuses it, and tiles other than one or two m16 tiles, and H off
+    the 16-deep k-steps or above 256; the double-buffered bf16 tile and the
+    staged streams fit (219 KB for the BPTT at 4 x 32)."""
+    fits = gru_cuda.tc_plan_fits
+    assert fits(kind, 256, 4, 16) and fits(kind, 256, 8, 32)
+    assert not fits(kind, 256, 2, 16) and not fits(kind, 256, 2, 32)
+    assert fits(kind, 64, 2, 16) and fits(kind, 64, 8, 32)
+    assert not fits(kind, 256, 4, 20) and not fits(kind, 256, 4, 8)
+    assert not fits(kind, 264, 4, 16) and not fits(kind, 512, 8, 16)
+    assert not fits(kind, 64, 16, 16)
+    # the h or dg tile (as wide as at H=256 whatever H), then the staged
+    # streams in rows of the block's U units: a ring of 3 steps of inputs
+    # (3 xg streams; the BPTT's 6) and two steps of outputs (5; 4)
+    tile, n_in, n_out = (256, 3, 5) if kind == "fwd" else (768, 6, 4)
+    assert gru_cuda.tc_smem_bytes(kind, 256, 4, 32) == 2 * (
+        2 * 32 * (tile + 8) + (3 * n_in + 2 * n_out) * 32 * (64 + 8))
+    assert gru_cuda.tc_smem_bytes(kind, 256, 8, 16) == 2 * (
+        2 * 16 * (tile + 8) + (4 * n_in + 2 * n_out) * 16 * (32 + 8))
+    assert gru_cuda.tc_smem_bytes("bwd", 256, 4, 32) <= 232448
+    assert gru_cuda.tc_threads(256, 4) == 256
+    assert gru_cuda.tc_threads(256, 8) == 128
+
+
+def _tc_layout(kind, pad=8, clusters=(1, 2, 4, 8)):
+    """A source's ``bigru_<kind>_tc_layout`` laid out as the wrapper's
+    mirror (tiles as wide as at H=256, the streams staged in rows of U
+    units), with the rows' padding and the cluster sizes it takes."""
+    def layout(what, hidden, c, rows):
+        units = hidden // c if hidden % c == 0 else 0
+        if (c not in clusters or rows not in (16, 32) or hidden % 16
+                or hidden > 256 or units % 8 or not units or 4 * units > 256):
+            return -1
+        tile, n_in, n_out = (256, 3, 5) if kind == "fwd" else (768, 6, 4)
+        ring = {16: 4, 32: 3}[rows]
+        smem = 2 * (2 * rows * (tile + pad)
+                    + (ring * n_in + 2 * n_out) * rows * (units + pad))
+        return (smem, 4 * units, 96)[what]
+    return layout
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+def test_tc_mirror_check_against_source_layout(kind):
+    """``check_tc_mirror`` accepts a source laid out as the wrapper's
+    mirror, and names the first plan of one with unpadded rows or one that
+    takes no cluster of 1 or 2 blocks."""
+    gru_cuda.check_tc_mirror(_tc_layout(kind), kind)
+    with pytest.raises(RuntimeError, match="H=16, plan 1x16"):
+        gru_cuda.check_tc_mirror(_tc_layout(kind, pad=0), kind)
+    with pytest.raises(RuntimeError, match="H=16, plan 1x16"):
+        gru_cuda.check_tc_mirror(_tc_layout(kind, clusters=(4, 8)), kind)
+
+
+@pytest.fixture
+def fake_tc_card(fake_card, monkeypatch):
+    """``fake_card`` whose tensor-core kernels run ``TC_CLUSTERS``
+    clusters at once."""
+    monkeypatch.setattr(gru_cuda, "_tc_resident", lambda kind, *a: (
+        f"bigru_{kind}", lambda c, rows: TC_CLUSTERS[c], H100_SMS))
+    return fake_card
+
+
+def _bigru_args(B, N, H, dtype):
+    """``bigru_fwd_cuda``'s arguments: xg_f, xg_b, w_f, b_f, w_b, b_b."""
+    z = torch.zeros
+    return (z(B, N, 3 * H, dtype=dtype), z(B, N, 3 * H, dtype=dtype),
+            z(H, 3 * H), z(3 * H), z(H, 3 * H), z(3 * H))
+
+
+def _bigru_bwd_args(B, N, H, dtype):
+    """``bigru_bwd_cuda``'s arguments: w_f, w_b, then gs, hn, ys, dy of
+    each direction."""
+    one = _bwd_args(B, N, H, dtype)[1:]
+    return (torch.zeros(H, 3 * H), torch.zeros(H, 3 * H), *one, *one)
+
+
+def test_bigru_wrappers_launch_tc_entries(fake_tc_card):
+    """At the scale-up batch and width with bf16 streams the three BiGRU
+    wrappers launch the ``*_tc_bf16`` entries (the cluster entries'
+    pointers, then B, N, H, C, R) with the planner's (4, 16) and record
+    it; float32 streams launch the cluster entries at ``bigru_plan``'s
+    (8, 20)."""
+    bf16 = torch.bfloat16
+    for fn, n_ptr, name in ((gru_cuda.bigru_fwd_cuda, 8, "bigru_fwd"),
+                            (gru_cuda.bigru_fwd_train_cuda, 12,
+                             "bigru_fwd_train")):
+        fn(*_bigru_args(128, 3, 256, bf16))
+        got, args = fake_tc_card.calls[-1]
+        assert got == f"{name}_tc_bf16" and len(args) == n_ptr + 5
+        assert args[n_ptr:] == (128, 3, 256, 4, 16)
+        assert fn.last_launch == {"kernel": "tc", "cluster": 4, "rows": 16,
+                                  "clusters": 16, "resident": 30}
+        fn(*_bigru_args(128, 3, 256, torch.float32))
+        got, args = fake_tc_card.calls[-1]
+        assert got == f"{name}_f32" and args[n_ptr:] == (128, 3, 256, 8, 20)
+        assert fn.last_launch["kernel"] == "cluster"
+    fn = gru_cuda.bigru_bwd_cuda
+    before = fn.launches
+    fn(*_bigru_bwd_args(128, 3, 256, bf16))
+    got, args = fake_tc_card.calls[-1]
+    assert got == "bigru_bwd_tc_bf16" and len(args) == 19
+    assert args[14:] == (128, 3, 256, 4, 16)
+    assert fn.last_launch["kernel"] == "tc" and fn.launches == before + 1
+    fn(*_bigru_bwd_args(128, 3, 256, torch.float32))
+    got, args = fake_tc_card.calls[-1]
+    c, r = bigru_plan("bwd", 128, 256, _clusters)
+    assert got == "bigru_bwd_f32" and args[14:] == (128, 3, 256, c, r)
+    # the served request's batch of one row takes the planner's pick there
+    gru_cuda.bigru_fwd_cuda(*_bigru_args(1, 3, 256, bf16))
+    assert fake_tc_card.calls[-1][1][8:] == (1, 3, 256, 8, 16)
+    assert gru_cuda.bigru_fwd_cuda.last_launch["clusters"] == 2
+
+
+def test_bigru_plans_forced_or_refused(fake_tc_card):
+    """``plan=(C, R)`` still forces the cluster kernel for bf16 streams;
+    ``plan=("tc", C, R)`` forces a tensor-core plan, and is refused for
+    float32 streams, for H off the 16-deep k-steps and for a plan the
+    rule does not take; the split kind (#10) keeps the cluster plans."""
+    bf16 = torch.bfloat16
+    fwd, bwd = gru_cuda.bigru_fwd_cuda, gru_cuda.bigru_bwd_cuda
+    fwd(*_bigru_args(128, 3, 256, bf16), plan=(8, 20))
+    assert fake_tc_card.calls[-1][0] == "bigru_fwd_bf16"
+    assert fake_tc_card.calls[-1][1][8:] == (128, 3, 256, 8, 20)
+    assert fwd.last_launch["kernel"] == "cluster"
+    bwd(*_bigru_bwd_args(128, 3, 256, bf16), plan=(8, 20))
+    assert fake_tc_card.calls[-1][0] == "bigru_bwd_bf16"
+    gru_cuda.bigru_fwd_train_cuda(*_bigru_args(17, 3, 256, bf16),
+                                  plan=("tc", 8, 32))
+    assert fake_tc_card.calls[-1][0] == "bigru_fwd_train_tc_bf16"
+    assert fake_tc_card.calls[-1][1][12:] == (17, 3, 256, 8, 32)
+    assert gru_cuda.bigru_fwd_train_cuda.last_launch["clusters"] == 2
+    bwd(*_bigru_bwd_args(5, 3, 64, bf16), plan=("tc", 4, 16))
+    assert fake_tc_card.calls[-1][1][14:] == (5, 3, 64, 4, 16)
+    gru_cuda.bigru_bwd_split_cuda(*_bigru_bwd_args(128, 3, 256, bf16),
+                                  plan=(8, 20))
+    assert fake_tc_card.calls[-1][0] == "bigru_bwd_split_bf16"
+    n = len(fake_tc_card.calls)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fwd(*_bigru_args(128, 3, 256, torch.float32), plan=("tc", 4, 16))
+    with pytest.raises(ValueError, match="bfloat16"):
+        bwd(*_bigru_bwd_args(128, 3, 256, torch.float32), plan=("tc", 4, 16))
+    with pytest.raises(ValueError, match="does not fit"):
+        fwd(*_bigru_args(5, 3, 24, bf16), plan=("tc", 1, 16))
+    with pytest.raises(ValueError, match="does not fit"):
+        bwd(*_bigru_bwd_args(5, 3, 40, bf16), plan=("tc", 1, 16))
+    with pytest.raises(ValueError, match="does not fit"):
+        fwd(*_bigru_args(128, 3, 256, bf16), plan=("tc", 2, 16))
+    assert len(fake_tc_card.calls) == n
