@@ -27,7 +27,9 @@ checkout's root that imports that checkout's ``chip_smoke.py`` and
   ``SCALEUP``: B=128, N=5000, d_model 512, bf16) p50 over
   ``SCALEUP_STEPS`` after ``SCALEUP_WARMUP`` on phase 14's rooms, then its
   per-stage split; the ``bigru_fwd_train`` and ``bigru_bwd`` kernel times
-  at that shape beside it, from CUDA events.
+  at that shape beside it, from CUDA events; and before it phase 13's
+  ``time_hidden_grads``, the dW_hh / db_hh products of one direction and
+  layer as the checkout runs them.
 
 It prints one line per run and, last, a JSON object of all runs (also
 written to ``--output``). Exits non-zero without a CUDA card; every
@@ -89,6 +91,7 @@ with tempfile.TemporaryDirectory() as tmp:
     flagship = cs.time_steps(cfg, train_dir, dev, seed, smi, flag_rows,
                              [cs.TRAIN[:2]], cs.STEPS, cs.STEP_WARMUP,
                              "bilstm")[0]
+hidden_grads_ms = cs.time_hidden_grads(dev, seed)["ms"]
 B, N, H = cs.SCALEUP
 ins = cs.gru_inputs(B, N, H, torch.bfloat16, dev, seed)
 args = cs.gru_bwd_inputs(ins, seed + 1)
@@ -111,7 +114,7 @@ print("AB_RESULT " + json.dumps({
     "scaleup": scaleup,
     "bigru_fwd_train_ms": up_rows["bigru_fwd_train"][0]["kernel_ms"],
     "bigru_bwd_ms": up_rows["bigru_bwd"][0]["kernel_ms"],
-    "bigru_launches": up_plans,
+    "bigru_launches": up_plans, "hidden_grads_ms": hidden_grads_ms,
     "bilstm_bwd_ms": flag_rows["bilstm_bwd"][0]["kernel_ms"],
     "lstm_bwd_ms": lstm_bwd_ms}), flush=True)
 '''
@@ -168,7 +171,8 @@ def main(argv=None) -> int:
               f"{up['stage_ms']['backward']:.3f}; bigru_fwd_train kernel "
               f"{res['bigru_fwd_train_ms']:.3f} ms, bigru_bwd kernel "
               f"{res['bigru_bwd_ms']:.3f} ms, "
-              f"{res['bigru_launches']['bigru_bwd']['kernel']} kernel) on "
+              f"{res['bigru_launches']['bigru_bwd']['kernel']} kernel; "
+              f"hidden_grads {res['hidden_grads_ms']:.3f} ms) on "
               f"{res['card']}", flush=True)
     out = json.dumps({"order": ORDER, "runs": runs})
     if args.output:

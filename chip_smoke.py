@@ -38,9 +38,14 @@ Phases, one line each or more (a failed check raises; nothing is caught):
    host clock, and the forward and post-process on CUDA events;
 8. training (a main path): ``ROOMS`` seeded rooms written as
    trace/collider JSON, ``train_benchmark`` on the flagship config at full
-   width for ``EPOCHS`` epochs; finite losses, a checkpoint, and the
-   launch counts (two training forwards and two BPTT launches per step,
-   light launches only in validation);
+   width for ``EPOCHS`` epochs; finite losses, a checkpoint with the
+   optimizer state, and the launch counts (two training forwards and two
+   BPTT launches per step, light launches only in validation); then the
+   run resumed from the last epoch's periodic checkpoint for one more
+   epoch (the restored epoch, learning rate and AdamW count asserted, no
+   recovery), and ``evaluate_benchmark`` on the best model on the card
+   against the same call on the CPU (metrics within 1e-3, mAP equal where
+   the kept detections are);
 9. the checkpoint served: the port's predictor loads the best model and
    answers one request on the card;
 10. one-step parity: one train step on the card and the same step on the
@@ -64,8 +69,10 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     version, torch ``nn.GRU`` (never called by the port), the bound and the
     time per step, and each kernel under every plan (the tensor-core
     kernel's and the cluster kernel at its planner's pick) there and at a
-    batch of one row; then the dW_hh / db_hh products outside the kernels,
-    with TF32 off (as the port runs them) and on;
+    batch of one row; then the dW_hh / db_hh products outside the kernels
+    as the port runs them (bf16 operands, f32 sums and result) beside the
+    f32 products of upcast copies (the port's before), held to max-rel
+    1e-4;
 14. scale-up training (a main path): seeded rooms of 5000-7500 points,
     ``train_benchmark`` on the scale-up bigru config (d_model 512, 32
     queries, bf16 streams, B=128, N=5000) for 3 steps; finite losses, a
@@ -138,7 +145,25 @@ Phases, one line each or more (a failed check raises; nothing is caught):
 30. the bf16 flagship path: ``configs/flagship_v15.json`` with
     ``compute_dtype`` bfloat16 at full width, a B=32, N=500 forward and one
     served 3000-point request against the plain recurrence on the card,
-    and 3 training steps, launch counts read around each.
+    and 3 training steps, launch counts read around each;
+31. the LSTM cluster route (H above the wide kernels, to 256) at
+    ``CLUSTER_WIDTHS`` x ``CLUSTER_BATCHES``, N=``CLUSTER_N``, f32 and
+    bf16: the light and training forward and the BPTT, two directions and
+    one, each launch's route asserted "cluster" and its plan printed,
+    against the plain versions;
+32. the GRU cluster kernels' masked slices (the cluster size need not
+    divide H) at ``MASKED_WIDTHS`` and the first even H no dividing plan
+    fits, checked the same way, each plan's cluster asserted not to divide
+    H;
+33. the new routes' timing at ``WIDE_TIME`` (B=32, N=500; H=256 for the
+    LSTM, 255 for the GRU masked slices), f32: kernel, plain version,
+    bound and cuDNN ``nn.LSTM`` / ``nn.GRU``;
+34. their main paths, counted: the flagship ``lstm`` at d_model 512
+    (H=256) forward against the plain recurrence and one train step with
+    the kernels and with the plain versions patched in (equal assignments,
+    losses rel 1e-4); ``lstm_recurrence`` / ``gru_recurrence``
+    (``use_kernel=True``) at H=256 / 139; a ``bigru`` at H=139, one
+    forward and one train step.
 
 Then a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without a CUDA card.
@@ -167,7 +192,8 @@ from room_slam_torch.data.dataset import TraceColliderArrays
 from room_slam_torch.data.features import featurize
 from room_slam_torch.data.legacy import LegacyArrays
 from room_slam_torch.data.rooms import write_legacy_rooms, write_rooms
-from room_slam_torch.evaluate import evaluate_legacy, load_legacy_model
+from room_slam_torch.evaluate import (benchmark_rows, evaluate_benchmark,
+                                      evaluate_legacy, load_legacy_model)
 from room_slam_torch.models import gru as gru_mod
 from room_slam_torch.models import lstm as lstm_mod
 from room_slam_torch.models.factory import build_model
@@ -245,6 +271,14 @@ LEGACY_EPOCHS = 2
 LEGACY_THRESHOLD = 0.0       # every slot scored: mAP over a full ranking
 LEGACY_STEPS, LEGACY_WARMUP = 50, 5
 # the fused BiGRU layer (#9): B, N, H, D and stream dtype
+# phases 31-34: the widths above the unit and wide kernels
+CLUSTER_WIDTHS = (119, 128, 130, 192, 256)   # the LSTM cluster route
+CLUSTER_BATCHES = (1, 5, 32)
+CLUSTER_N = 300
+MASKED_WIDTHS = (139, 201, 255)   # and the first even H no dividing plan fits
+WIDE_TIME = (32, 500, 256)        # the new routes' timing (GRU: H=255)
+WIDE_LSTM_D = 512                 # the wide lstm model's d_model (H=256)
+WIDE_GRU = (8, 300, 139)          # the masked BiGRU / GRU paths
 FUSED_SHAPES = (((3, 53, 16, 24), torch.float32),
                 ((2, 40, 16, 16), torch.bfloat16),
                 ((16, 1000, 256, 512), torch.bfloat16),
@@ -697,27 +731,44 @@ def time_gru_kernels(dev, seed, errs):
     return rows
 
 
+def hidden_grads_f32(ys, dx, dhn, reverse):
+    """``hidden_grads`` as the port ran it before: the bf16 streams upcast
+    to float32 copies, float32 products (TF32 off)."""
+    H = ys.shape[-1]
+    f32 = torch.float32
+    hp = rnn_cuda.prev_steps(ys, reverse).reshape(-1, H).to(f32)
+    d2 = dx[..., :2 * H].reshape(-1, 2 * H).to(f32)
+    dn = dhn.reshape(-1, H).to(f32)
+    return (torch.cat([hp.t() @ d2, hp.t() @ dn], dim=-1),
+            torch.cat([d2.sum(0), dn.sum(0)]))
+
+
 def time_hidden_grads(dev, seed):
     """Phase 13, last: dW_hh and db_hh of one direction and layer
     (``gru_cuda.hidden_grads``, four per scale-up step) at the scale-up
-    shape from bf16 residuals, with float32 matmuls as the port runs them
-    (TF32 off) and, beside it, with TF32 allowed; the flag is restored."""
+    shape from bf16 residuals, as the port runs them (bf16 operands, float32
+    sums and result) beside the float32 products of upcast copies (the
+    port's products before, TF32 off), the two held to max-rel 1e-4."""
     B, N, H = SCALEUP
     g = torch.Generator(dev).manual_seed(seed)
     ys, dhn = (torch.randn(B, N, H, device=dev, generator=g).bfloat16()
                for _ in range(2))
     dx = torch.randn(B, N, 3 * H, device=dev, generator=g).bfloat16()
-    prev = torch.backends.cuda.matmul.allow_tf32
-    row = {"shape": [B, N, H]}
-    try:
-        for key, tf32 in (("ms", False), ("tf32_ms", True)):
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-            row[key] = cuda_ms(lambda: gru_cuda.hidden_grads(
-                ys, dx, dhn, False, torch.float32), 10, warmup=3)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+    got = gru_cuda.hidden_grads(ys, dx, dhn, False, torch.float32)
+    ref = hidden_grads_f32(ys, dx, dhn, False)
+    rel = [max_rel(a, r) for a, r in zip(got, ref)]
+    assert all(a.dtype == torch.float32 for a in got)
+    assert max(rel) <= 1e-4, rel
+    row = {"shape": [B, N, H],
+           "ms": cuda_ms(lambda: gru_cuda.hidden_grads(
+               ys, dx, dhn, False, torch.float32), 10, warmup=3),
+           "f32_ms": cuda_ms(lambda: hidden_grads_f32(ys, dx, dhn, False),
+                             10, warmup=3),
+           "max_rel_err": rel}
     log("kernel_time", "hidden_grads (dW_hh, db_hh of one direction and "
-        "layer, outside the kernels) " + json.dumps(row))
+        "layer, outside the kernels; ms: bf16 operands, f32 sums, as the "
+        "port runs them; f32_ms: the f32 products of upcast copies) "
+        + json.dumps(row))
     return row
 
 
@@ -946,7 +997,7 @@ def train_main_path(cfg, train_dir, val_dir, save_dir, epochs, dev, smi,
     reset_counts()
     t0 = time.perf_counter()
     res = train_benchmark(cfg, device=dev, verbose=True, train_ds=train_ds,
-                          val_ds=val_ds)
+                          val_ds=val_ds, checkpoint_every=epochs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = counts()
@@ -969,7 +1020,7 @@ def train_main_path(cfg, train_dir, val_dir, save_dir, epochs, dev, smi,
     best = Path(save_dir) / "best_model"
     assert best.with_suffix(".msgpack").exists()
     assert json.loads(best.with_suffix(".json").read_text())[
-        "has_opt_state"] is False
+        "has_opt_state"] is True
     log("train", f"{cfg.model.model_type} d_model={cfg.model.d_model} "
                  f"{cfg.model.compute_dtype}: train_benchmark {epochs} epochs of "
                  f"{train_ds.num_samples} samples ({train_ds.n_base} rooms x "
@@ -982,7 +1033,7 @@ def train_main_path(cfg, train_dir, val_dir, save_dir, epochs, dev, smi,
                                for r in res["history"]])
                  + f"; launches {launched}; peak device memory "
                  f"{peak_gb:.2f} GB; last {prefix}_bwd launch {bwd_plan}")
-    return launched, best
+    return launched, best, res
 
 
 def assert_tc(*names):
@@ -2350,6 +2401,511 @@ def flagship_bf16_path(dev, seed, smi):
             for k in fwd_counts}
 
 
+# ---------------------------------------------------------------------------
+# Phases 8 (resume, evaluation) and 31-34: resuming the flagship run, the
+# benchmark surface's evaluation, and the widths above the unit and wide
+# kernels: the LSTM cluster route and the GRU cluster kernels' masked
+# slices
+# ---------------------------------------------------------------------------
+
+
+def resume_path(cfg, train_dir, val_dir, save_dir, epochs, dev, first):
+    """Phase 8, then: ``train_benchmark`` resumed from the periodic
+    checkpoint of the last epoch for one more epoch; the restored epoch,
+    the learning rate its schedule gives there, AdamW's step count (the
+    first run's and this epoch's steps) and no recovery are asserted.
+    Returns the launches (counted around the resumed run)."""
+    cfg = copy.deepcopy(cfg)
+    cfg.data.data_dir, cfg.data.val_dir = str(train_dir), str(val_dir)
+    cfg.train.num_epochs = epochs + 1
+    cfg.train.save_dir = str(save_dir)
+    ck = Path(save_dir) / f"checkpoint_epoch_{epochs - 1}"
+    side = json.loads(ck.with_suffix(".json").read_text())
+    assert side["has_opt_state"] and side["epoch"] == epochs - 1, side
+    train_ds = TraceColliderArrays(train_dir, cfg.data, augment=True,
+                                   verbose=False)
+    val_ds = TraceColliderArrays(val_dir, cfg.data, augment=False,
+                                 verbose=False)
+    steps = train_ds.num_batches(cfg.train.batch_size)
+    reset_counts()
+    res = train_benchmark(cfg, device=dev, verbose=True, train_ds=train_ds,
+                          val_ds=val_ds, resume=str(ck))
+    torch.cuda.synchronize()
+    launched = counts()
+    if cfg.train.lr_schedule == "cosine":
+        want_lr = loop.warmup_cosine_lr(cfg, epochs)
+    else:
+        t = cfg.train
+        sched = loop.PlateauScheduler(
+            lr=t.lr, factor=t.plateau_factor, patience=t.plateau_patience,
+            cooldown=t.plateau_cooldown, min_lr=t.lr * t.plateau_min_scale)
+        sched.load_state_dict(side["sched"])
+        want_lr = sched.step(res["history"][-1]["val_loss"])
+    assert res["start_epoch"] == epochs and res["recoveries"] == 0, res
+    assert [h["epoch"] for h in res["history"]] == [epochs]
+    assert res["count"] == first["count"] + steps, (res["count"],
+                                                    first["count"], steps)
+    assert abs(res["lr"] - want_lr) <= 1e-9 * max(want_lr, 1.0), (
+        res["lr"], want_lr)
+    layers = cfg.model.lstm_layers
+    assert launched["bilstm_fwd_train"] == launched["bilstm_bwd"] == \
+        layers * steps, launched
+    log("train_resume", f"resumed {ck.name} (epoch {side['epoch']}, AdamW "
+        f"count {first['count']}) for epoch {res['start_epoch']}: count "
+        f"{res['count']} (+{steps} steps), lr {res['lr']:.6g} "
+        f"({cfg.train.lr_schedule}), recoveries {res['recoveries']}, "
+        f"train_loss {res['history'][-1]['train_loss']:.4f}; launches "
+        f"{launched}")
+    return launched
+
+
+EVAL_KW = dict(batch_size=8, iou_thresh=0.5, threshold=0.1, nms=0.3)
+
+
+def evaluate_path(best, val_dir, dev):
+    """Phase 8, last: ``evaluate_benchmark`` on the flagship checkpoint on
+    the card against the same call on the CPU: the metric sums' mIoU,
+    precision, recall, F1 and class accuracy within 1e-3, and the kept
+    detections compared; mAP equal where the kept sets are equal. Returns
+    the launches of the card's evaluation."""
+    reset_counts()
+    t0 = time.perf_counter()
+    got = evaluate_benchmark(str(best), str(val_dir), device=dev, **EVAL_KW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    want = evaluate_benchmark(str(best), str(val_dir), device="cpu",
+                              **EVAL_KW)
+    for k in ("mIoU", "precision", "recall", "f1", "cls_acc"):
+        assert abs(got[k] - want[k]) <= 1e-3, (k, got[k], want[k])
+    rows = {d: benchmark_rows(str(best), str(val_dir), device=d,
+                              **EVAL_KW)[1] for d in (dev, "cpu")}
+    kept = [[(r[1], r[3]) for r in rows[d]] for d in (dev, "cpu")]
+    same = kept[0] == kept[1]
+    if same and "mAP" in want:
+        assert abs(got["mAP"] - want["mAP"]) <= 1e-6, (got["mAP"],
+                                                      want["mAP"])
+    log("evaluate", f"evaluate_benchmark {best.name} on {val_dir.name} "
+        f"({EVAL_KW}) in {wall:.1f} s: "
+        + json.dumps({k: got[k] for k in got if k != "AP_per_class"})
+        + f"; vs the CPU: "
+        + " ".join(f"{k} {abs(got[k] - want[k]):.2e}" for k in
+                   ("mIoU", "precision", "recall", "f1", "cls_acc"))
+        + f" (tol 1e-3); kept sets equal: {same} ({len(kept[0])} / "
+          f"{len(kept[1])} detections); mAP card {got.get('mAP')} CPU "
+          f"{want.get('mAP')}; launches {launched}")
+    return launched
+
+
+def _lstm_bwd_case(ins, dtype, seed):
+    """The BPTT's arguments on the plain training forward's residuals of
+    ``ins``, the upstream gradient in the stream dtype."""
+    res = rnn_cuda.bilstm_fwd_train_plain(*ins)
+    g = torch.Generator(ins[0].device).manual_seed(seed)
+    dy_f, dy_b = (torch.randn(res[0].shape, device=ins[0].device,
+                              generator=g).to(dtype) for _ in range(2))
+    return (ins[2], ins[3], res[4], res[2], dy_f, res[5], res[3], dy_b)
+
+
+def check_lstm_cluster(dev, seed):
+    """Phase 31: the LSTM cluster route (H above the wide kernels) at
+    ``CLUSTER_WIDTHS`` x ``CLUSTER_BATCHES``, N=``CLUSTER_N``, float32 and
+    bf16: the light and training forward and the BPTT, two directions and
+    one (both walk orders), each launch's route asserted "cluster" and its
+    plan printed, against the plain versions (f32 max abs err
+    ``KERNEL_ATOL`` on values, ``GRAD_REL`` on dg; bf16 rtol / atol and
+    ``BF16_GRAD_REL``)."""
+    worst = {}
+    for H in CLUSTER_WIDTHS:
+        for B in CLUSTER_BATCHES:
+            for dtype in (torch.float32, torch.bfloat16):
+                xg_f, xg_b, w_f, w_b = kernel_inputs(B, CLUSTER_N, H, dev,
+                                                     seed)
+                xg_f, xg_b = xg_f.to(dtype), xg_b.to(dtype)
+                ins = (xg_f, xg_b, w_f, w_b)
+                plans, errs = [], []
+                for name, fn, a, ref in (
+                        ("bilstm_fwd", rnn_cuda.bilstm_fwd_cuda, ins,
+                         rnn_cuda.bilstm_recurrence_plain(*ins)),
+                        ("bilstm_fwd_train", rnn_cuda.bilstm_fwd_train_cuda,
+                         ins, rnn_cuda.bilstm_fwd_train_plain(*ins)),
+                        ("lstm_fwd", rnn_cuda.lstm_fwd_cuda,
+                         (xg_b, w_b, True),
+                         (rnn_cuda.lstm_recurrence(xg_b, w_b, True),)),
+                        ("lstm_fwd_train", rnn_cuda.lstm_fwd_train_cuda,
+                         (xg_f, w_f, False),
+                         rnn_cuda.lstm_fwd_train_plain(xg_f, w_f))):
+                    got = fn(*a)
+                    got = got if isinstance(got, tuple) else (got,)
+                    assert fn.last_launch["kernel"] == "cluster", (
+                        name, fn.last_launch)
+                    errs.append(value_err(got, ref, dtype))
+                    plans.append(f"{name} {plan_text(fn)}")
+                args = _lstm_bwd_case(ins, dtype, seed + 1)
+                ref = rnn_cuda.bilstm_bwd_plain(*args)
+                tol = GRAD_REL if dtype == torch.float32 else BF16_GRAD_REL
+                rels = []
+                for name, fn, a, r in (
+                        ("bilstm_bwd", rnn_cuda.bilstm_bwd_cuda, args, ref),
+                        ("lstm_bwd", rnn_cuda.lstm_bwd_cuda,
+                         (args[0], *args[2:5], False), ref[:1]),
+                        ("lstm_bwd", rnn_cuda.lstm_bwd_cuda,
+                         (args[1], *args[5:8], True), ref[1:])):
+                    got = fn(*a)
+                    got = got if isinstance(got, tuple) else (got,)
+                    assert fn.last_launch["kernel"] == "cluster", (
+                        name, fn.last_launch)
+                    rels += [max_rel(x.float(), y.float())
+                             for x, y in zip(got, r)]
+                    assert all(torch.isfinite(x).all() for x in got)
+                    plans.append(f"{name} {plan_text(fn)}")
+                assert max(rels) <= tol, (H, B, dtype, rels)
+                torch.cuda.synchronize()
+                key = str(dtype)[6:]
+                worst[key] = max(worst.get(key, 0.0), *errs)
+                log("lstm_cluster", f"B,N,H=({B}, {CLUSTER_N}, {H}) {key}: "
+                    f"values max_abs_err={max(errs):.3e}, dg max_rel_err="
+                    f"{max(rels):.3e}; " + "; ".join(plans))
+    return worst
+
+
+def first_masked_even(dev):
+    """The first even H up to 256 at which the BiGRU cluster planner, with
+    the card's counts, takes a masked plan for both kinds (no dividing plan
+    fits) at B=32."""
+    for H in range(2, 257, 2):
+        plans = [p for kind in ("fwd", "bwd")
+                 for p in gru_cuda.card_plans(kind, 32, H, dev,
+                                              torch.float32)]
+        if plans and all(H % c for c, _ in plans):
+            return H
+    raise AssertionError("no even H takes a masked plan")
+
+
+def check_gru_masked(dev, seed):
+    """Phase 32: the GRU cluster kernels' masked slices at ``MASKED_WIDTHS``
+    and the first even H no dividing plan fits, B in ``CLUSTER_BATCHES``,
+    N=``CLUSTER_N``, float32 and bf16: the BiGRU light and training
+    forward and BPTT and the one-direction GRU's, each launch on the
+    cluster kernel with a cluster size that does not divide H (asserted,
+    printed), against the plain versions (bounds as phase 31)."""
+    widths = (*MASKED_WIDTHS, first_masked_even(dev))
+    for H in widths:
+        for B in CLUSTER_BATCHES:
+            for dtype in (torch.float32, torch.bfloat16):
+                ins = gru_inputs(B, CLUSTER_N, H, dtype, dev, seed)
+                args = gru_bwd_inputs(ins, seed + 1)
+                ref_b = gru_cuda.bigru_bwd_plain(*args)
+                tol = GRAD_REL if dtype == torch.float32 else BF16_GRAD_REL
+                plans, errs, rels = [], [], []
+                for name, fn, a, ref, bwd in (
+                        ("bigru_fwd", gru_cuda.bigru_fwd_cuda, ins,
+                         gru_cuda.bigru_fwd_plain(*ins), False),
+                        ("bigru_fwd_train", gru_cuda.bigru_fwd_train_cuda,
+                         ins, gru_cuda.bigru_fwd_train_plain(*ins), False),
+                        ("bigru_bwd", gru_cuda.bigru_bwd_cuda, args, ref_b,
+                         True),
+                        ("gru_fwd", gru_cuda.gru_fwd_cuda,
+                         (ins[1], ins[4], ins[5], True),
+                         (gru_cuda.gru_recurrence(ins[1], ins[4], ins[5],
+                                                  True),), False),
+                        ("gru_fwd_train", gru_cuda.gru_fwd_train_cuda,
+                         (ins[0], ins[2], ins[3], False),
+                         gru_cuda.gru_fwd_train_plain(ins[0], ins[2],
+                                                      ins[3]), False),
+                        ("gru_bwd", gru_cuda.gru_bwd_cuda,
+                         (args[1], *args[6:], True), ref_b[2:], True)):
+                    got = fn(*a)
+                    got = got if isinstance(got, tuple) else (got,)
+                    last = fn.last_launch
+                    assert last["kernel"] == "cluster" and \
+                        H % last["cluster"], (name, last)
+                    if bwd:
+                        rels += [max_rel(x.float(), y.float())
+                                 for x, y in zip(got, ref)]
+                        assert all(torch.isfinite(x).all() for x in got)
+                    else:
+                        errs.append(value_err(got, ref, dtype))
+                    plans.append(f"{name} {plan_text(fn)}")
+                assert max(rels) <= tol, (H, B, dtype, rels)
+                torch.cuda.synchronize()
+                log("gru_masked", f"B,N,H=({B}, {CLUSTER_N}, {H}) "
+                    f"{str(dtype)[6:]}: values max_abs_err={max(errs):.3e},"
+                    f" dx/dhn max_rel_err={max(rels):.3e}; "
+                    + "; ".join(plans))
+    return widths
+
+
+def time_new_routes(dev, seed):
+    """Phase 33: the new routes at B=32, N=500 in float32: the six LSTM
+    kernels on the cluster route at H=256, the six GRU kernels on masked
+    slices at H=255; kernel ms (CUDA events), plain ms, the bound, cuDNN's
+    ``nn.LSTM`` / ``nn.GRU`` (bidirectional for the two-direction kernels;
+    never called by the port; input projection included) and µs a
+    step."""
+    rows = {}
+    f32 = torch.float32
+    for fam, H in (("lstm", WIDE_TIME[2]), ("gru", WIDE_TIME[2] - 1)):
+        B, N = WIDE_TIME[:2]
+        g = torch.Generator(dev).manual_seed(seed)
+        lib_ms = {}
+        for dirs in (2, 1):
+            mod = torch.nn.LSTM if fam == "lstm" else torch.nn.GRU
+            lib = mod(2 * H, H, batch_first=True,
+                      bidirectional=dirs == 2).to(dev)
+            x = torch.randn(B, N, 2 * H, device=dev, generator=g,
+                            requires_grad=True)
+            dy = torch.randn(B, N, dirs * H, device=dev, generator=g)
+            pre = "bi" if dirs == 2 else ""
+            with torch.no_grad():
+                lib_ms[f"{pre}{fam}_fwd"] = cuda_ms(lambda: lib(x), 5)
+            fwd = cuda_ms(lambda: lib(x), 5)
+            lib_ms[f"{pre}{fam}_fwd_train"] = fwd
+            lib_ms[f"{pre}{fam}_bwd"] = cuda_ms(
+                lambda: lib(x)[0].backward(dy), 5) - fwd
+        if fam == "lstm":
+            ins = kernel_inputs(B, N, H, dev, seed)
+            args = _lstm_bwd_case(ins, f32, seed + 1)
+            cases = (
+                ("bilstm_fwd", rnn_cuda.bilstm_fwd_cuda,
+                 rnn_cuda.bilstm_recurrence_plain, ins,
+                 bilstm_bound(B, N, H)),
+                ("bilstm_fwd_train", rnn_cuda.bilstm_fwd_train_cuda,
+                 rnn_cuda.bilstm_fwd_train_plain, ins,
+                 fwd_train_bound(B, N, H)),
+                ("bilstm_bwd", rnn_cuda.bilstm_bwd_cuda,
+                 rnn_cuda.bilstm_bwd_plain, args, bwd_bound(B, N, H)),
+                ("lstm_fwd", rnn_cuda.lstm_fwd_cuda, rnn_cuda.lstm_recurrence,
+                 (ins[0], ins[2]), bilstm_bound(B, N, H, dirs=1)),
+                ("lstm_fwd_train", rnn_cuda.lstm_fwd_train_cuda,
+                 rnn_cuda.lstm_fwd_train_plain, (ins[0], ins[2]),
+                 fwd_train_bound(B, N, H, dirs=1)),
+                ("lstm_bwd", rnn_cuda.lstm_bwd_cuda, rnn_cuda.lstm_bwd_plain,
+                 (args[0], *args[2:5]), bwd_bound(B, N, H, dirs=1)))
+        else:
+            ins = gru_inputs(B, N, H, f32, dev, seed)
+            args = gru_bwd_inputs(ins, seed + 1)
+            cases = (
+                ("bigru_fwd", gru_cuda.bigru_fwd_cuda,
+                 gru_cuda.bigru_fwd_plain, ins, gru_bound("fwd", B, N, H,
+                                                          f32)),
+                ("bigru_fwd_train", gru_cuda.bigru_fwd_train_cuda,
+                 gru_cuda.bigru_fwd_train_plain, ins,
+                 gru_bound("fwd_train", B, N, H, f32)),
+                ("bigru_bwd", gru_cuda.bigru_bwd_cuda,
+                 gru_cuda.bigru_bwd_plain, args, gru_bound("bwd", B, N, H,
+                                                           f32)),
+                ("gru_fwd", gru_cuda.gru_fwd_cuda, gru_cuda.gru_recurrence,
+                 (ins[0], ins[2], ins[3]),
+                 gru_bound("fwd", B, N, H, f32, dirs=1)),
+                ("gru_fwd_train", gru_cuda.gru_fwd_train_cuda,
+                 gru_cuda.gru_fwd_train_plain, (ins[0], ins[2], ins[3]),
+                 gru_bound("fwd_train", B, N, H, f32, dirs=1)),
+                ("gru_bwd", gru_cuda.gru_bwd_cuda, gru_cuda.gru_bwd_plain,
+                 (args[0], *args[2:6]), gru_bound("bwd", B, N, H, f32,
+                                                  dirs=1)))
+        for name, fn, plain, a, bnd in cases:
+            got = fn(*a)
+            ref, plain_ms = timed_once(lambda: plain(*a))
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            if name.endswith("bwd"):
+                err = max((x - y).abs().max().item()
+                          for x, y in zip(got, ref))
+                assert max(max_rel(x, y) for x, y in zip(got, ref)) \
+                    <= GRAD_REL, name
+            else:
+                err = value_err(got, ref, f32)
+            ms = cuda_ms(lambda: fn(*a), 5)
+            rows[name] = {"shape": [B, N, H], "dtype": "float32",
+                          "kernel_ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms[name],
+                          "bound_us": bnd[0] * 1e3, "bound_by": bnd[1],
+                          "us_per_step": ms / N * 1e3,
+                          "library_us_per_step": lib_ms[name] / N * 1e3,
+                          "err": err, "launch": dict(fn.last_launch)}
+            assert fn.last_launch["kernel"] == "cluster", name
+            log("kernel_time", f"{name} (new route) "
+                + json.dumps(rows[name]) + "  (library_ms: cuDNN "
+                + ("bidirectional " if name.startswith("bi") else
+                   "unidirectional ")
+                + ("nn.LSTM" if fam == "lstm" else "nn.GRU") + " f32, "
+                + {"fwd": "forward without grad", "fwd_train":
+                   "forward with grad on", "bwd": "forward + backward "
+                   "minus forward"}[name.split("_", 1)[1]]
+                + ", includes the input projection)")
+    return rows
+
+
+LSTM_PLAIN = {"bilstm_fwd_cuda": rnn_cuda.bilstm_recurrence_plain,
+              "bilstm_fwd_train_cuda": rnn_cuda.bilstm_fwd_train_plain,
+              "bilstm_bwd_cuda": rnn_cuda.bilstm_bwd_plain}
+
+
+def wide_paths(dev, seed, smi):
+    """Phase 34, the new routes' main paths, the counts set to 0 just
+    before each and read just after: (a) the flagship ``lstm`` at
+    d_model ``WIDE_LSTM_D`` (H=256, f32), a forward at ``WIDE_TIME``'s B and
+    N through the cluster kernels against the plain recurrence, then one train step with
+    the kernels and with the plain versions patched in (equal assignments,
+    losses rel ``LOSS_RTOL``); (b) ``lstm_recurrence(use_kernel=True)`` at
+    ``WIDE_TIME`` forward and backward; (c) a ``bigru`` at d_model
+    2 x ``WIDE_GRU``'s H (f32, masked slices), one forward and one train
+    step; (d) ``gru_recurrence(use_kernel=True)`` at ``WIDE_GRU`` forward
+    and backward. Returns each path's launches."""
+    out = {}
+    cfg = ExperimentConfig.from_json(CONFIG)
+    cfg.model.d_model = WIDE_LSTM_D
+    cfg.model.dropout = 0.0
+    model = build_model(cfg.model)
+    params = random_params(model, seed)
+    params["params"]["decoder"]["inv_temp"] = np.float32(100.0)
+    load_params(model, params)
+    model = model.to(dev).eval()
+    B, N = WIDE_TIME[:2]
+    raw = np.stack([walk(N, seed + 500 + b) for b in range(B)])
+    feats, mask = featurize(torch.from_numpy(raw).to(dev),
+                            torch.full((B,), N, device=dev))
+    layers = cfg.model.lstm_layers
+    with torch.inference_mode():
+        reset_counts()
+        res = model(feats, mask)
+        torch.cuda.synchronize()
+        out["lstm_forward"] = counts()
+        assert out["lstm_forward"] == expected_counts(bilstm_fwd=layers)
+        assert rnn_cuda.bilstm_fwd_cuda.last_launch["kernel"] == "cluster"
+        with mock.patch.object(lstm_mod, "bilstm_recurrence",
+                               rnn_cuda.bilstm_recurrence_plain):
+            ref = model(feats, mask)
+    fwd_err = max((res[k] - ref[k]).abs().max().item() for k in res)
+    for k in res:
+        assert torch.allclose(res[k], ref[k], rtol=MODEL_TOL,
+                              atol=MODEL_TOL), k
+    # one train step with the kernels and with the plain versions
+    tcfg = copy.deepcopy(cfg)
+    tcfg.train.batch_size = 8
+    with tempfile.TemporaryDirectory() as tmp:
+        write_rooms(Path(tmp), 8, seed + 600)
+        ds = TraceColliderArrays(tmp, tcfg.data, augment=False,
+                                 verbose=False)
+        host = ds.gather(np.arange(8) % ds.num_samples)
+    cpu_model = copy.deepcopy(model).cpu()
+    res_steps = {}
+    for name, patch in (("kernels", None), ("plain", LSTM_PLAIN)):
+        reset_counts()
+        with (mock.patch.multiple(rnn_cuda, **patch) if patch
+              else contextlib.nullcontext()):
+            m, rows, matched, batch, _ = assignments(cpu_model, host,
+                                                     tcfg.data, dev)
+            opt = loop.make_optimizer(m, tcfg)
+            step = loop.make_train_step(m, opt, tcfg, augment=False)
+            losses = step(batch, torch.Generator(dev).manual_seed(seed))
+            torch.cuda.synchronize()
+        res_steps[name] = ({k: float(v) for k, v in losses.items()}, rows,
+                           matched, counts())
+    (l_k, r_k, m_k, c_k), (l_p, r_p, m_p, c_p) = (res_steps["kernels"],
+                                                  res_steps["plain"])
+    assert c_k == expected_counts(bilstm_fwd=layers, bilstm_fwd_train=layers,
+                                  bilstm_bwd=layers), c_k
+    assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == "cluster"
+    assert c_p == expected_counts(), c_p
+    assert torch.equal(r_k, r_p) and torch.equal(m_k, m_p)
+    loss_rel = max(abs(l_k[k] - v) / max(abs(v), 1e-12)
+                   for k, v in l_p.items())
+    assert loss_rel <= LOSS_RTOL, loss_rel
+    out["lstm_step"] = c_k
+    log("wide_lstm", f"flagship lstm d_model={WIDE_LSTM_D} (H=256) f32: "
+        f"forward B={B} N={N} launches {out['lstm_forward']} "
+        f"({plan_text(rnn_cuda.bilstm_fwd_cuda)}), vs the plain recurrence "
+        f"max abs diff {fwd_err:.3e} (tol {MODEL_TOL:.0e}); one step B=8 "
+        f"kernels vs plain versions: assignments equal "
+        f"({int(m_p.sum())} pairs), losses max rel {loss_rel:.2e} (tol "
+        f"{LOSS_RTOL:.0e}); launches {c_k} (bilstm_bwd "
+        f"{plan_text(rnn_cuda.bilstm_bwd_cuda)}) on {smi}")
+
+    # (b) and (d): the ops-level one-direction paths
+    for fam, shape in (("lstm", WIDE_TIME), ("gru", WIDE_GRU)):
+        Bs, Ns, Hs = shape
+        if fam == "lstm":
+            xg, _, w, _ = kernel_inputs(*shape, dev, seed)
+            extra = ()
+            fn = rnn_ops.lstm_recurrence
+        else:
+            xg, _, w, b, _, _ = gru_inputs(*shape, torch.float32, dev, seed)
+            extra = (b,)
+            fn = rnn_ops.gru_recurrence
+        dy = torch.randn(Bs, Ns, Hs, device=dev,
+                         generator=torch.Generator(dev).manual_seed(seed))
+        reset_counts()
+        with torch.no_grad():
+            ys = fn(xg, w, *extra, False, use_kernel=True)
+        x = [t.clone().requires_grad_(True) for t in (xg, w, *extra)]
+        yr = fn(*x, True, use_kernel=True)
+        grads = torch.autograd.grad(yr, x, dy)
+        torch.cuda.synchronize()
+        launched = counts()
+        assert launched == expected_counts(**{
+            f"{fam}_fwd": 1, f"{fam}_fwd_train": 1, f"{fam}_bwd": 1}), \
+            launched
+        mod = rnn_cuda if fam == "lstm" else gru_cuda
+        last = getattr(mod, f"{fam}_bwd_cuda").last_launch
+        assert last["kernel"] == "cluster" and (fam == "lstm"
+                                                or Hs % last["cluster"])
+        err = value_err((ys,), (fn(xg, w, *extra),), torch.float32)
+        ref_g = torch.autograd.grad(fn(*x, True), x, dy)
+        rel = max(max_rel(a, r) for a, r in zip(grads, ref_g))
+        assert rel <= GRAD_REL, rel
+        out[f"{fam}_ops"] = launched
+        log("wide_ops", f"{fam}_recurrence(use_kernel=True) B,N,H={shape}: "
+            f"launches {launched}; values max_abs_err={err:.3e}; gradients "
+            f"max_rel_err={rel:.3e}; BPTT {plan_text(getattr(mod, fam + '_bwd_cuda'))}")
+
+    # (c): a bigru at a masked width, one forward and one train step
+    Bg, Ng, Hg = WIDE_GRU
+    gcfg = ExperimentConfig().apply_overrides(
+        ["model.model_type=bigru", f"model.d_model={2 * Hg}",
+         "model.dropout=0.0"])
+    gcfg.train.batch_size, gcfg.data.max_trace_len = Bg, Ng
+    gmodel = build_model(gcfg.model).to(dev)
+    raw = np.stack([walk(Ng, seed + 700 + b) for b in range(Bg)])
+    gfeats, gmask = featurize(torch.from_numpy(raw).to(dev),
+                              torch.full((Bg,), Ng, device=dev))
+    reset_counts()
+    with torch.inference_mode():
+        gout = gmodel.eval()(gfeats, gmask)
+    with mock.patch.object(gru_mod, "bigru_recurrence",
+                           gru_cuda.bigru_fwd_plain), torch.inference_mode():
+        gref = gmodel(gfeats, gmask)
+    gerr = max((gout[k] - gref[k]).abs().max().item() for k in gout)
+    assert all(torch.allclose(gout[k], gref[k], rtol=MODEL_TOL,
+                              atol=MODEL_TOL) for k in gout), gerr
+    with tempfile.TemporaryDirectory() as tmp:
+        write_rooms(Path(tmp), Bg, seed + 800)
+        ds = TraceColliderArrays(tmp, gcfg.data, augment=False,
+                                 verbose=False)
+        host = ds.gather(np.arange(Bg) % ds.num_samples)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    opt = loop.make_optimizer(gmodel, gcfg)
+    losses = loop.make_train_step(gmodel, opt, gcfg, augment=False)(
+        batch, torch.Generator(dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    launched = counts()
+    gl = gcfg.model.lstm_layers
+    assert launched == expected_counts(bigru_fwd=gl, bigru_fwd_train=gl,
+                                       bigru_bwd=gl), launched
+    for name in ("bigru_fwd", "bigru_fwd_train", "bigru_bwd"):
+        last = getattr(*WRAPPERS[name]).last_launch
+        assert last["kernel"] == "cluster" and Hg % last["cluster"], last
+    assert all(np.isfinite(float(v)) for v in losses.values())
+    out["bigru"] = launched
+    log("wide_bigru", f"bigru d_model={2 * Hg} (H={Hg}) f32: forward "
+        f"B={Bg} N={Ng} vs the plain recurrence max abs diff {gerr:.3e} "
+        f"(tol {MODEL_TOL:.0e}); one train step, total_loss "
+        f"{float(losses['total_loss']):.4f}; launches {launched} (bigru_bwd "
+        f"{plan_text(gru_cuda.bigru_bwd_cuda)})")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2596,8 +3152,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         train_dir, val_dir = make_rooms(Path(tmp) / "rooms", ROOMS,
                                         args.seed)
-        trained, best = train_main_path(cfg, train_dir, val_dir,
-                                        Path(tmp) / "ckpt", EPOCHS, dev, smi)
+        trained, best, first = train_main_path(
+            cfg, train_dir, val_dir, Path(tmp) / "ckpt", EPOCHS, dev, smi)
+        resume_path(cfg, train_dir, val_dir, Path(tmp) / "ckpt", EPOCHS, dev,
+                    first)
+        evaluated = evaluate_path(best, val_dir, dev)
         serve_checkpoint(best, sorted(val_dir.glob("*_trace.json"))[0], dev)
         step_parity(cfg, train_dir, dev, args.seed)
         time_steps(cfg, train_dir, dev, args.seed, smi, train_rows,
@@ -2620,7 +3179,7 @@ def main() -> int:
         log("train_scaleup", f"wrote {SCALEUP_TRAIN_ROOMS} + "
                              f"{SCALEUP_VAL_ROOMS} rooms of {SCALEUP_POINTS} "
                              f"points in {time.perf_counter() - t0:.1f} s")
-        gru_trained, gru_best = train_main_path(
+        gru_trained, gru_best, _ = train_main_path(
             up, rooms / "train", rooms / "val", Path(tmp) / "ckpt", 1, dev,
             smi, prefix="bigru")
         log("train_scaleup", "last launches: bigru_fwd_train "
@@ -2673,6 +3232,17 @@ def main() -> int:
         lstm_bf16_rows[name]["launches"] = lstm_ops_launched[
             torch.bfloat16][name]
     log("done", f"phases 25-30 in {time.perf_counter() - t_new:.1f} s")
+
+    # 31-34. the widths above the unit and wide kernels: the LSTM cluster
+    # route and the GRU cluster kernels' masked slices against their plain
+    # versions, their timing, and their main paths
+    t_wide = time.perf_counter()
+    check_lstm_cluster(dev, args.seed)
+    masked = check_gru_masked(dev, args.seed)
+    wide_rows = time_new_routes(dev, args.seed)
+    wide_launched = wide_paths(dev, args.seed, smi)
+    log("done", f"phases 31-34 (GRU masked widths {list(masked)}) in "
+                f"{time.perf_counter() - t_wide:.1f} s")
 
     def entry(name, source, replaces, launched, row):
         return {"name": name, "route": "cuda", "source": source,
@@ -2749,6 +3319,40 @@ def main() -> int:
     for k in kernels:
         if k["name"] in lstm_bf16_rows:
             k["shapes"] = [*k["shapes"], lstm_bf16_rows[k["name"]]]
+    # the new routes, each with its own main path's launches
+    lstm_step = wide_launched["lstm_step"]
+    for name, source, line, launched in (
+            ("bilstm_fwd", "bilstm_fwd.cu", "rnn_pallas.py:390",
+             wide_launched["lstm_forward"]),
+            ("bilstm_fwd_train", "bilstm_fwd.cu", "rnn_pallas.py:531",
+             lstm_step),
+            ("bilstm_bwd", "bilstm_bwd.cu", "rnn_pallas.py:438", lstm_step),
+            ("lstm_fwd", "bilstm_fwd.cu", "rnn_pallas.py:105",
+             wide_launched["lstm_ops"]),
+            ("lstm_fwd_train", "bilstm_fwd.cu", "rnn_pallas.py:183",
+             wide_launched["lstm_ops"]),
+            ("lstm_bwd", "bilstm_bwd.cu", "rnn_pallas.py:242",
+             wide_launched["lstm_ops"]),
+            ("bigru_fwd", "bigru_fwd.cu", "gru_pallas.py:314",
+             wide_launched["bigru"]),
+            ("bigru_fwd_train", "bigru_fwd.cu", "gru_pallas.py:454",
+             wide_launched["bigru"]),
+            ("bigru_bwd", "bigru_bwd.cu", "gru_pallas.py:357",
+             wide_launched["bigru"]),
+            ("gru_fwd", "bigru_fwd.cu", "gru_pallas.py:39",
+             wide_launched["gru_ops"]),
+            ("gru_fwd_train", "bigru_fwd.cu", "gru_pallas.py:155",
+             wide_launched["gru_ops"]),
+            ("gru_bwd", "bigru_bwd.cu", "gru_pallas.py:71",
+             wide_launched["gru_ops"])):
+        route = "cluster" if name.startswith(("bilstm", "lstm")) \
+            else "masked"
+        kernels.append({**entry(f"{name}_{route}",
+                                f"room_slam_torch/csrc/{source}",
+                                f"room_slam_tpu/ops/{line}", launched[name],
+                                wide_rows[name]),
+                        "shapes": [wide_rows[name]]})
+    kernels[0]["launches_evaluate"] = evaluated["bilstm_fwd"]
     log("done", f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -82,7 +82,10 @@
 // What the design does about it. W_hh^T is [3H, H]: 768 KiB in float32 at
 // H=256. One cluster of C blocks (1, 2, 4 or 8, planned by the wrapper as
 // for bigru_fwd.cu) handles one (direction, batch tile of R rows); its
-// block of rank q owns the U = H / C units q*U .. q*U+U-1 of dh and holds
+// block of rank q owns the U = ceil(H / C) units q*U .. min(H, q*U+U)-1
+// of dh (kLinear and kSplit: the last block's slice masked past H where C
+// does not divide H, a plan the planner takes only at an H no dividing
+// plan fits; kFused: C divides H) and holds
 // those rows of W_hh (a [3H, U] slice of W_hh^T, as float32) in shared
 // memory. Thread (u, g) owns unit u of kRowsPerThread rows: it reads that
 // unit's r, z, n, hn, h_prev and dy (all its own), computes the coefficients
@@ -834,7 +837,7 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
   float* smem = reinterpret_cast<float*>(smem4);
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const int U = H / C;
+  const int U = (H + C - 1) / C;  // units a block owns (the last: fewer)
   const int G = 3 * H;
   float* wt_s = smem;                       // [3H][U] W_hh[unit, j]
   float* dg_s = smem + pad4(static_cast<size_t>(G) * U);   // [2][3H][R]
@@ -849,6 +852,7 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
   const int u = threadIdx.x % U;
   const int r0 = (threadIdx.x / U) * kRowsPerThread;
   const int gu = rank * U + u;
+  const bool unit_ok = gu < H;  // else masked: a slice past H (H % C != 0)
   const int tile_row0 = (blockIdx.x / C) * R;
   const int row0 = tile_row0 + r0;
   // kFused blocks have kFusedMaxThreads; those past the plan's U * R / 4
@@ -856,13 +860,14 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
   const bool chain = kKind != kFused ||
                      static_cast<int>(threadIdx.x) < U * (R / kRowsPerThread);
 
-  // rows rank*U .. rank*U+U-1 of W_hh, transposed: consecutive threads read
-  // consecutive columns of one row
+  // rows rank*U .. rank*U+U-1 of W_hh, transposed (zero past H):
+  // consecutive threads read consecutive columns of one row
   for (int idx = threadIdx.x; idx < U * G; idx += blockDim.x) {
     const int uu = idx / G;
     const int j = idx - uu * G;
-    const size_t row = static_cast<size_t>(rank * U + uu);
-    wt_s[j * U + uu] = to_f32<T>(w[row * G + j]);
+    const int row = rank * U + uu;
+    wt_s[j * U + uu] =
+        row < H ? to_f32<T>(w[static_cast<size_t>(row) * G + j]) : 0.0f;
   }
 
   bool valid[kRowsPerThread];
@@ -870,10 +875,10 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
   size_t hoff[kRowsPerThread];  // hn, ys, dy, dhn of (row, t = 0, unit gu)
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) {
-    valid[i] = chain && row0 + i < B;
+    valid[i] = chain && unit_ok && row0 + i < B;
     const size_t row = static_cast<size_t>(valid[i] ? row0 + i : 0);
-    goff[i] = row * N * G + gu;
-    hoff[i] = row * N * H + gu;
+    goff[i] = row * N * G + (unit_ok ? gu : 0);
+    hoff[i] = row * N * H + (unit_ok ? gu : 0);
   }
   const T* gs = bwd ? gs_b : gs_f;
   const T* hns = bwd ? hn_b : hn_f;
@@ -972,7 +977,7 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
     const float4 vr = make_float4(dgr[0], dgr[1], dgr[2], dgr[3]);
     const float4 vz = make_float4(dgz[0], dgz[1], dgz[2], dgz[3]);
     const float4 vn = make_float4(dgn[0], dgn[1], dgn[2], dgn[3]);
-    for (int q = 0; chain && q < C; ++q) {
+    for (int q = 0; chain && unit_ok && q < C; ++q) {
       float* dst = cluster.map_shared_rank(mine, q);
       *reinterpret_cast<float4*>(dst) = vr;
       *reinterpret_cast<float4*>(dst + H * R) = vz;
@@ -1787,7 +1792,7 @@ int tc_max_active_clusters_as(int H, int C) {
 // bigru_smem_bytes mirrors it to pick the cluster size, and is held to it
 // through bigru_bwd_smem_bytes when the library loads).
 size_t smem_bytes(int kind, int H, int C, int R) {
-  const size_t U = static_cast<size_t>(H / C);
+  const size_t U = static_cast<size_t>((H + C - 1) / C);
   const size_t G = 3 * static_cast<size_t>(H);
   size_t floats = pad4(G * U) + 2 * G * R;
   if (kind == kFused)   // the exchange tile doubles as the staging region
@@ -1796,12 +1801,17 @@ size_t smem_bytes(int kind, int H, int C, int R) {
   return floats * sizeof(float);
 }
 
+// C in 1, 2, 4, 8 with every block owning one unit at least (kLinear and
+// kSplit: a slice of ceil(H / C) units, the last one masked where C does
+// not divide H; kFused: C divides H into multiples of 16 units), R a
+// multiple of kRowsPerThread, within the kind's thread bound
 bool valid_plan(int kind, int B, int N, int H, int C, int R) {
-  const int threads = (C >= 1 && H % C == 0 ? H / C : 0) *
-                      (R / kRowsPerThread);
-  return B > 0 && N > 0 && H > 0 && C >= 1 && C <= 8 && H % C == 0 &&
-         R > 0 && R % kRowsPerThread == 0 && threads <= max_threads(kind) &&
-         (kind != kFused || (H / C) % 16 == 0);
+  if (B <= 0 || N <= 0 || H <= 0 || (C != 1 && C != 2 && C != 4 && C != 8) ||
+      R <= 0 || R % kRowsPerThread != 0)
+    return false;
+  const int U = (H + C - 1) / C;
+  if (kind == kFused && (H % C != 0 || U % 16 != 0)) return false;
+  return (C - 1) * U < H && U * (R / kRowsPerThread) <= max_threads(kind);
 }
 
 template <typename T, int kKind>
@@ -1827,7 +1837,7 @@ void make_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
   *cfg = {};
   cfg->gridDim = dim3(C * ((B + R - 1) / R), dirs, 1);
   cfg->blockDim = dim3(kind == kFused ? kFusedMaxThreads
-                                      : (H / C) * (R / kRowsPerThread),
+                                      : (H + C - 1) / C * (R / kRowsPerThread),
                        1, 1);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = static_cast<cudaStream_t>(stream);
@@ -1918,8 +1928,9 @@ int max_active_clusters_of(int kind, int H, int C, int R) {
 extern "C" {
 
 // Launch on `stream` (a cudaStream_t) of the calling thread's current
-// device, with clusters of C blocks over batch tiles of R rows (H % C == 0,
-// R a multiple of 4). All tensors are contiguous, in the stream type float
+// device, with clusters of C blocks over batch tiles of R rows (R a
+// multiple of 4; each block owns ceil(H / C) units, the last block's slice
+// masked past H; kFused: C divides H). All tensors are contiguous, in the stream type float
 // (_f32) or bfloat16 (_bf16): w_* [H, 3H]; gs_* and dx_* [B, N, 3H]; hn_*,
 // ys_*, dy_* and dhn_* [B, N, H]. Returns a cudaError_t code; 0 means the
 // launch was accepted.

@@ -52,8 +52,10 @@
 // What the design does about it. One direction's W_hh at H=256 is 768 KiB in
 // float32 (384 KiB in bf16), over the 227 KB of shared memory one block has.
 // So one cluster of C blocks (C = 1, 2, 4 or 8) handles one (direction,
-// batch tile of R rows), and its block of rank q owns the U = H / C hidden
-// units q*U .. q*U+U-1: it holds the W_hh columns of the r, z and n gates of
+// batch tile of R rows), and its block of rank q owns the U = ceil(H / C)
+// hidden units q*U .. min(H, q*U+U)-1 (where C does not divide H the last
+// block's slice is short and its other threads are masked; the planner
+// takes such a plan only at an H no dividing plan fits): it holds the W_hh columns of the r, z and n gates of
 // those units in shared memory (as float32; a bf16 value is exact there),
 // so all gate math of a unit is local to one thread. Thread (u, g) computes
 // the three gate columns of unit u for kRowsPerThread rows and keeps those
@@ -228,7 +230,7 @@ bigru_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
   float* smem = reinterpret_cast<float*>(smem4);
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const int U = H / C;
+  const int U = (H + C - 1) / C;  // units a block owns (the last: fewer)
   const int G = 3 * H;
   float* w_s = smem;                             // [H][3U] W_hh columns
   float* h_s = smem + pad4(static_cast<size_t>(H) * 3 * U);  // [2][H][R]
@@ -241,30 +243,34 @@ bigru_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
   const int u = threadIdx.x % U;
   const int r0 = (threadIdx.x / U) * kRowsPerThread;  // first row in tile
   const int gu = rank * U + u;                        // global hidden unit
+  const bool unit_ok = gu < H;  // else masked: a slice past H (H % C != 0)
   const int row0 = (blockIdx.x / C) * R + r0;
 
-  // this block's W_hh columns: c = gate * U + unit, for every k
+  // this block's W_hh columns: c = gate * U + unit, for every k; the
+  // columns of units past H are zero
   for (int idx = threadIdx.x; idx < H * 3 * U; idx += blockDim.x) {
     const int k = idx / (3 * U);
     const int c = idx - k * 3 * U;
     const int gate = c / U;
-    w_s[idx] = to_f32<T>(w[static_cast<size_t>(k) * G + gate * H + rank * U +
-                           (c - gate * U)]);
+    const int unit = rank * U + (c - gate * U);
+    w_s[idx] = unit < H ? to_f32<T>(w[static_cast<size_t>(k) * G +
+                                      gate * H + unit])
+                        : 0.0f;
   }
   for (int idx = threadIdx.x; idx < H * R; idx += blockDim.x) h_s[idx] = 0.0f;
-  const float br = b[gu];
-  const float bz = b[H + gu];
-  const float bn = b[2 * H + gu];
+  const float br = unit_ok ? b[gu] : 0.0f;
+  const float bz = unit_ok ? b[H + gu] : 0.0f;
+  const float bn = unit_ok ? b[2 * H + gu] : 0.0f;
 
   bool valid[kRowsPerThread];
   size_t xoff[kRowsPerThread];  // xg / gates of (row, t = 0, unit gu)
   size_t yoff[kRowsPerThread];  // ys / hn of (row, t = 0, unit gu)
 #pragma unroll
   for (int i = 0; i < kRowsPerThread; ++i) {
-    valid[i] = row0 + i < B;
+    valid[i] = unit_ok && row0 + i < B;
     const size_t row = static_cast<size_t>(valid[i] ? row0 + i : 0);
-    xoff[i] = row * N * G + gu;
-    yoff[i] = row * N * H + gu;
+    xoff[i] = row * N * G + (unit_ok ? gu : 0);
+    yoff[i] = row * N * H + (unit_ok ? gu : 0);
   }
   T* ys = bwd ? ys_b : ys_f;
   T* gs = bwd ? gs_b : gs_f;
@@ -343,10 +349,12 @@ bigru_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
     }
 
     // push this thread's h_t into the other buffer of every block
-    float* slot = h_s + ((s + 1) & 1) * H * R + gu * R + r0;
-    const float4 hv = make_float4(hq[0], hq[1], hq[2], hq[3]);
-    for (int q = 0; q < C; ++q)
-      *reinterpret_cast<float4*>(cluster.map_shared_rank(slot, q)) = hv;
+    if (unit_ok) {
+      float* slot = h_s + ((s + 1) & 1) * H * R + gu * R + r0;
+      const float4 hv = make_float4(hq[0], hq[1], hq[2], hq[3]);
+      for (int q = 0; q < C; ++q)
+        *reinterpret_cast<float4*>(cluster.map_shared_rank(slot, q)) = hv;
+    }
     cluster.sync();
   }
 }
@@ -1030,18 +1038,28 @@ int tc_max_active_clusters_as(int H, int C) {
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
+// The units a block of a cluster of C owns: ceil(H / C), the last block's
+// slice masked past H where C does not divide H.
+int cluster_units(int H, int C) { return (H + C - 1) / C; }
+
 // Dynamic shared memory one block needs, in bytes (the wrapper's
-// bigru_smem_bytes("fwd", ...) mirrors it to pick the cluster size).
+// bigru_smem_bytes("fwd", ...) mirrors it to pick the cluster size, held
+// to bigru_fwd_smem_bytes when the library loads).
 size_t smem_bytes(int H, int C, int R) {
-  const size_t U = static_cast<size_t>(H / C);
+  const size_t U = static_cast<size_t>(cluster_units(H, C));
   return (pad4(static_cast<size_t>(H) * 3 * U) +
           2 * static_cast<size_t>(H) * R) * sizeof(float);
 }
 
+// C in 1, 2, 4, 8 with every block owning one unit at least (a slice of
+// ceil(H / C) units, the last one masked where C does not divide H), R a
+// multiple of kRowsPerThread, at most kMaxThreads threads
 bool valid_plan(int B, int N, int H, int C, int R) {
-  return B > 0 && N > 0 && H > 0 && C >= 1 && C <= 8 && H % C == 0 &&
-         R > 0 && R % kRowsPerThread == 0 &&
-         (H / C) * (R / kRowsPerThread) <= kMaxThreads;
+  if (B <= 0 || N <= 0 || H <= 0 || (C != 1 && C != 2 && C != 4 && C != 8) ||
+      R <= 0 || R % kRowsPerThread != 0)
+    return false;
+  const int U = cluster_units(H, C);
+  return (C - 1) * U < H && U * (R / kRowsPerThread) <= kMaxThreads;
 }
 
 // Dynamic shared memory each variant is already allowed on each device, so
@@ -1067,7 +1085,7 @@ void make_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int B,
                  int H, int C, int R, int dirs, size_t smem, void* stream) {
   *cfg = {};
   cfg->gridDim = dim3(C * ((B + R - 1) / R), dirs, 1);
-  cfg->blockDim = dim3((H / C) * (R / kRowsPerThread), 1, 1);
+  cfg->blockDim = dim3(cluster_units(H, C) * (R / kRowsPerThread), 1, 1);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = static_cast<cudaStream_t>(stream);
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -1175,8 +1193,9 @@ int unit_blocks_per_sm(int H, int R) {
 extern "C" {
 
 // Launch on `stream` (a cudaStream_t) of the calling thread's current
-// device, with clusters of C blocks over batch tiles of R rows (H % C == 0,
-// R a multiple of 4). Streams are contiguous float (_f32) or bfloat16
+// device, with clusters of C blocks over batch tiles of R rows (R a
+// multiple of 4; each block owns ceil(H / C) units, the last block's slice
+// masked past H). Streams are contiguous float (_f32) or bfloat16
 // (_bf16): xg_* [B, N, 3H], w_* [H, 3H] already in the stream type, ys_*
 // [B, N, H]; b_* [3H] is float. Returns a cudaError_t code; 0 means the
 // launch was accepted.
@@ -1370,6 +1389,14 @@ int bigru_fwd_max_active_clusters(int bf16, int save, int H, int C, int R) {
                 : max_active_clusters<__nv_bfloat16, false>(H, C, R);
   return save ? max_active_clusters<float, true>(H, C, R)
               : max_active_clusters<float, false>(H, C, R);
+}
+
+// The cluster kernel's dynamic shared memory in bytes at H, C and R, for
+// the wrapper's mirror (bigru_smem_bytes("fwd", ...)); -1 for a plan it
+// does not take.
+int bigru_fwd_smem_bytes(int H, int C, int R) {
+  if (!valid_plan(1, 1, H, C, R)) return -1;
+  return static_cast<int>(smem_bytes(H, C, R));
 }
 
 const char* bigru_fwd_error_string(int code) {

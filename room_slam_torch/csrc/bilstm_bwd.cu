@@ -80,15 +80,36 @@
 // H above 64 (no model runs one: the flagship and legacy LSTMs are H=64)
 // takes the wide kernel, the first design kept as it was: W_hh^T and a
 // double-buffered [4][4H] dg tile in dynamic shared memory, up to H=116 in
-// f32. The wrapper picks the kernel (rnn_cuda.lstm_bwd_kernel_route) and may
-// force either one for an A/B.
+// f32.
+//
+// Above that, up to H = kMaxClusterH = 256 (an lstm model at d_model 512),
+// the cluster kernel (bilstm_bwd_cluster_kernel) splits W_hh by hidden
+// units across a thread-block cluster of C = 1, 2, 4 or 8 blocks, the
+// scheme of bigru_bwd.cu's cluster kernel (kind kLinear): one cluster per
+// (direction, batch tile of R rows); the block of rank q owns the U =
+// ceil(H / C) units q*U .. min(H, q*U+U)-1 of dh (the last block's slice
+// may be short: its other threads are masked) and holds their rows of W_hh
+// as a [4H, U] float32 slice in shared memory (128 KiB at H=256, C=8).
+// Thread (u, g) owns unit u of kRowsPerThread rows: it reads that cell's
+// i, f, g, o, c, c_{t-1} and dy, runs the coefficients, dg and the f32
+// carries as the wide kernel does, and pushes its rounded dg (four gate
+// values a row) into the double-buffered [4H, R] dg tile of every block of
+// the cluster (distributed shared memory); one cluster.sync() a step makes
+// the tile whole, and each thread takes its 4H-deep dot product from its
+// own shared memory. Bound like the BiGRU cluster kernel: the serial
+// 4H-deep chain of shared loads a step. The wrapper picks the kernel
+// (rnn_cuda.lstm_bwd_kernel_route, and lstm_cluster_plan for the cluster
+// and tile) and may force any of the three for an A/B.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <cstddef>
 #include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -440,6 +461,179 @@ bilstm_bwd_wide_kernel(const T* __restrict__ w_f,
   }
 }
 
+// The cluster kernel: clusters of C blocks, kRowsPerThread rows a thread
+constexpr int kRowsPerThread = 4;
+constexpr int kClusterThreads = 512;   // __launch_bounds__
+constexpr int kMaxClusterH = 256;
+
+__host__ __device__ __forceinline__ size_t pad4(size_t n) {
+  return (n + 3) / 4 * 4;
+}
+
+// The cluster kernel (H above the wide kernel's, see the notes at the top):
+// W_hh split by hidden units across a thread-block cluster.
+template <typename T>
+__global__ void __launch_bounds__(kClusterThreads)
+bilstm_bwd_cluster_kernel(const T* __restrict__ w_f,
+                          const T* __restrict__ w_b,
+                          const T* __restrict__ gs_f,
+                          const T* __restrict__ cs_f,
+                          const T* __restrict__ dy_f,
+                          const T* __restrict__ gs_b,
+                          const T* __restrict__ cs_b,
+                          const T* __restrict__ dy_b, T* __restrict__ dg_f,
+                          T* __restrict__ dg_b, int B, int N, int H, int R,
+                          int rev) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int U = (H + C - 1) / C;   // units a block owns (the last: fewer)
+  const int G = 4 * H;
+  float* wt_s = smem;                                     // [4H][U]
+  float* dg_s = smem + pad4(static_cast<size_t>(G) * U);  // [2][4H][R]
+
+  // a grid of two directions: y = 1 walks backward; of one: rev says
+  const bool bwd = (blockIdx.y == 1) != (rev != 0);
+  const T* w = bwd ? w_b : w_f;
+  const int u = threadIdx.x % U;
+  const int r0 = (threadIdx.x / U) * kRowsPerThread;
+  const int gu = rank * U + u;
+  const bool unit_ok = gu < H;   // else masked
+  const int row0 = (blockIdx.x / C) * R + r0;
+
+  // rows rank*U .. rank*U+U-1 of W_hh, transposed (zero past H):
+  // consecutive threads read consecutive columns of one row
+  for (int idx = threadIdx.x; idx < U * G; idx += blockDim.x) {
+    const int uu = idx / G;
+    const int j = idx - uu * G;
+    const int unit = rank * U + uu;
+    wt_s[j * U + uu] =
+        unit < H ? to_f32<T>(w[static_cast<size_t>(unit) * G + j]) : 0.0f;
+  }
+
+  bool valid[kRowsPerThread];
+  size_t goff[kRowsPerThread];  // gates / dg of (row, t = 0, unit gu)
+  size_t coff[kRowsPerThread];  // c, dy of (row, t = 0, unit gu)
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i) {
+    valid[i] = unit_ok && row0 + i < B;
+    const size_t row = static_cast<size_t>(valid[i] ? row0 + i : 0);
+    goff[i] = row * N * G + (unit_ok ? gu : 0);
+    coff[i] = row * N * H + (unit_ok ? gu : 0);
+  }
+  const T* gs = bwd ? gs_b : gs_f;
+  const T* cs = bwd ? cs_b : cs_f;
+  const T* dys = bwd ? dy_b : dy_f;
+  T* dg = bwd ? dg_b : dg_f;
+  // c at the direction's previous step (t - 1 forward, t + 1 backward),
+  // read only after the direction's first step
+  const int first = bwd ? N - 1 : 0;
+  const T* cps = cs + (bwd ? H : -H);
+
+  StepIn<T> nxt[kRowsPerThread];
+  auto load = [&](int t) {
+    const T zero = from_f32<T>(0.0f);
+    const size_t tg = static_cast<size_t>(t) * G;
+    const size_t tc = static_cast<size_t>(t) * H;
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      StepIn<T> in{zero, zero, zero, zero, zero, zero, zero};
+      if (valid[i]) {
+        const T* gt = gs + goff[i] + tg;
+        in.i = gt[0];
+        in.f = gt[H];
+        in.g = gt[2 * H];
+        in.o = gt[3 * H];
+        in.c = cs[coff[i] + tc];
+        if (t != first) in.cp = cps[coff[i] + tc];
+        in.dy = dys[coff[i] + tc];
+      }
+      nxt[i] = in;
+    }
+  };
+  load(bwd ? 0 : N - 1);
+  float dh[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float dc[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
+
+  // every block of the cluster runs and holds its W_hh^T slice before any
+  // block writes into another's shared memory
+  cluster.sync();
+
+  for (int s = 0; s < N; ++s) {
+    const int t = bwd ? s : N - 1 - s;
+    StepIn<T> cur[kRowsPerThread];
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) cur[i] = nxt[i];
+    if (s + 1 < N) load(bwd ? t + 1 : t - 1);
+
+    float d4[4][kRowsPerThread];   // the rounded dg of the rows, by gate
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      const float ci = to_f32<T>(cur[i].i), cf = to_f32<T>(cur[i].f);
+      const float cg_ = to_f32<T>(cur[i].g), co = to_f32<T>(cur[i].o);
+      const float cc = to_f32<T>(cur[i].c), ccp = to_f32<T>(cur[i].cp);
+      const float tanh_c = tanhf(cc);
+      const float dh_t = to_f32<T>(cur[i].dy) + dh[i];
+      const float dc_t =
+          dc[i] + dh_t * round_to<T>(co * (1.0f - tanh_c * tanh_c));
+      const float d_i = dc_t * round_to<T>(cg_ * ci * (1.0f - ci));
+      const float d_f = dc_t * round_to<T>(ccp * cf * (1.0f - cf));
+      const float d_g = dc_t * round_to<T>(ci * (1.0f - cg_ * cg_));
+      const float d_o = dh_t * round_to<T>(tanh_c * co * (1.0f - co));
+      dc[i] = dc_t * cf;
+      if (valid[i]) {
+        T* o = dg + goff[i] + static_cast<size_t>(t) * G;
+        o[0] = from_f32<T>(d_i);
+        o[H] = from_f32<T>(d_f);
+        o[2 * H] = from_f32<T>(d_g);
+        o[3 * H] = from_f32<T>(d_o);
+      }
+      d4[0][i] = round_to<T>(d_i);
+      d4[1][i] = round_to<T>(d_f);
+      d4[2][i] = round_to<T>(d_g);
+      d4[3][i] = round_to<T>(d_o);
+    }
+
+    // push this thread's dg into every block's tile
+    float* slot = dg_s + (s & 1) * G * R;
+    if (unit_ok) {
+      float* mine = slot + gu * R + r0;
+      for (int q = 0; q < C; ++q) {
+        float* dst = cluster.map_shared_rank(mine, q);
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          *reinterpret_cast<float4*>(dst + g * H * R) =
+              make_float4(d4[g][0], d4[g][1], d4[g][2], d4[g][3]);
+      }
+    }
+    cluster.sync();
+
+    // dh_carry = dg . W_hh[unit, :]; two partial sums a row (4H is even)
+    const float* dgb = slot + r0;
+    float a0[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float a1[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+    for (int j = 0; j < G; j += 2) {
+      const float4 d0 = *reinterpret_cast<const float4*>(dgb + j * R);
+      const float4 d1 = *reinterpret_cast<const float4*>(dgb + (j + 1) * R);
+      const float w0 = wt_s[j * U + u];
+      const float w1 = wt_s[(j + 1) * U + u];
+      a0[0] = fmaf(d0.x, w0, a0[0]);
+      a0[1] = fmaf(d0.y, w0, a0[1]);
+      a0[2] = fmaf(d0.z, w0, a0[2]);
+      a0[3] = fmaf(d0.w, w0, a0[3]);
+      a1[0] = fmaf(d1.x, w1, a1[0]);
+      a1[1] = fmaf(d1.y, w1, a1[1]);
+      a1[2] = fmaf(d1.z, w1, a1[2]);
+      a1[3] = fmaf(d1.w, w1, a1[3]);
+    }
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) dh[i] = a0[i] + a1[i];
+  }
+}
+
 // Dynamic shared memory one block of the wide kernel needs at hidden size
 // H, in bytes (the wrapper's bilstm_bwd_smem_bytes mirrors it).
 size_t smem_bytes(int H) {
@@ -496,6 +690,97 @@ int launch(const void* w_f, const void* w_b, const void* gs_f,
       in(w_f), in(w_b), in(gs_f), in(cs_f), in(dy_f), in(gs_b), in(cs_b),
       in(dy_b), out(dg_f), out(dg_b), B, N, H, rev);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The cluster kernel's slice, block and shared memory at H, C and R (the
+// wrapper's lstm_cluster_smem_bytes("bwd", ...) and _lstm_cluster_rule
+// mirror them, held to bilstm_bwd_cluster_smem_bytes when the library
+// loads): U = ceil(H / C) units a block, every block owning one at least.
+int cluster_units(int H, int C) { return (H + C - 1) / C; }
+
+size_t cluster_smem_bytes(int H, int C, int R) {
+  const size_t G = 4 * static_cast<size_t>(H);
+  return (pad4(G * cluster_units(H, C)) + 2 * G * R) * sizeof(float);
+}
+
+bool valid_cluster_plan(int B, int N, int H, int C, int R) {
+  if (B <= 0 || N <= 0 || H <= 0 || H > kMaxClusterH ||
+      (C != 1 && C != 2 && C != 4 && C != 8) || R <= 0 ||
+      R % kRowsPerThread != 0)
+    return false;
+  const int U = cluster_units(H, C);
+  return (C - 1) * U < H && U * (R / kRowsPerThread) <= kClusterThreads;
+}
+
+template <typename T>
+std::atomic<int> g_cluster_smem_allowed[kMaxDevices];
+
+template <typename T>
+cudaError_t allow_cluster_smem(int smem) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices && g_cluster_smem_allowed<T>[device].load() >= smem)
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(bilstm_bwd_cluster_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && device < kMaxDevices)
+    g_cluster_smem_allowed<T>[device].store(smem);
+  return err;
+}
+
+void make_cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                         int B, int H, int C, int R, int dirs, size_t smem,
+                         void* stream) {
+  *cfg = {};
+  cfg->gridDim = dim3(C * ((B + R - 1) / R), dirs, 1);
+  cfg->blockDim = dim3(cluster_units(H, C) * (R / kRowsPerThread), 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = static_cast<cudaStream_t>(stream);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+template <typename T>
+int launch_cluster(const void* w_f, const void* w_b, const void* gs_f,
+                   const void* cs_f, const void* dy_f, const void* gs_b,
+                   const void* cs_b, const void* dy_b, void* dg_f, void* dg_b,
+                   int B, int N, int H, int C, int R, int dirs, int rev,
+                   void* stream) {
+  if (!valid_cluster_plan(B, N, H, C, R))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = cluster_smem_bytes(H, C, R);
+  cudaError_t err = allow_cluster_smem<T>(static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  make_cluster_config(&cfg, &attr, B, H, C, R, dirs, smem, stream);
+  auto in = [](const void* p) { return static_cast<const T*>(p); };
+  auto out = [](void* p) { return static_cast<T*>(p); };
+  err = cudaLaunchKernelEx(&cfg, bilstm_bwd_cluster_kernel<T>, in(w_f),
+                           in(w_b), in(gs_f), in(cs_f), in(dy_f), in(gs_b),
+                           in(cs_b), in(dy_b), out(dg_f), out(dg_b), B, N, H,
+                           R, rev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int cluster_max_active(int H, int C, int R) {
+  const size_t smem = cluster_smem_bytes(H, C, R);
+  cudaError_t err = allow_cluster_smem<T>(static_cast<int>(smem));
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  make_cluster_config(&cfg, &attr, R, H, C, R, 1, smem, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, bilstm_bwd_cluster_kernel<T>,
+                                       &cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 template <typename T>
@@ -589,6 +874,50 @@ extern "C" {
 BILSTM_BWD_ENTRIES(f32, float)
 BILSTM_BWD_ENTRIES(bf16, __nv_bfloat16)
 #undef BILSTM_BWD_ENTRIES
+
+// The cluster kernel: arguments and outputs as the entries above, with
+// clusters of C blocks (1, 2, 4 or 8) over batch tiles of R rows (a
+// multiple of 4); H up to 256.
+#define BILSTM_BWD_CLUSTER_ENTRIES(SFX, TYPE)                                 \
+  int bilstm_bwd_cluster_##SFX(const void* w_f, const void* w_b,             \
+                               const void* gs_f, const void* cs_f,           \
+                               const void* dy_f, const void* gs_b,           \
+                               const void* cs_b, const void* dy_b,           \
+                               void* dg_f, void* dg_b, int B, int N, int H,  \
+                               int C, int R, void* stream) {                 \
+    return launch_cluster<TYPE>(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b,      \
+                                dy_b, dg_f, dg_b, B, N, H, C, R, 2, 0,       \
+                                stream);                                     \
+  }                                                                          \
+  int lstm_bwd_cluster_##SFX(const void* w, const void* gs, const void* cs,  \
+                             const void* dy, void* dg, int B, int N, int H,  \
+                             int C, int R, int reverse, void* stream) {      \
+    return launch_cluster<TYPE>(w, w, gs, cs, dy, gs, cs, dy, dg, dg, B, N,  \
+                                H, C, R, 1, reverse, stream);                \
+  }
+
+BILSTM_BWD_CLUSTER_ENTRIES(f32, float)
+BILSTM_BWD_CLUSTER_ENTRIES(bf16, __nv_bfloat16)
+#undef BILSTM_BWD_CLUSTER_ENTRIES
+
+// How many clusters of the cluster kernel (bf16: 0 or 1; `save` is taken
+// for the forward source's signature and ignored) at H, C and R the
+// current device runs at once; a negative cudaError_t code on failure.
+int bilstm_bwd_cluster_max_active_clusters(int bf16, int save, int H, int C,
+                                           int R) {
+  (void)save;
+  if (!valid_cluster_plan(1, 1, H, C, R))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return bf16 ? cluster_max_active<__nv_bfloat16>(H, C, R)
+              : cluster_max_active<float>(H, C, R);
+}
+
+// The cluster kernel's dynamic shared memory in bytes at H, C and R, for
+// the wrapper's mirror; -1 for a plan it does not take.
+int bilstm_bwd_cluster_smem_bytes(int H, int C, int R) {
+  if (!valid_cluster_plan(1, 1, H, C, R)) return -1;
+  return static_cast<int>(cluster_smem_bytes(H, C, R));
+}
 
 // How many blocks of the unit kernel (bf16: 0 or 1) at hidden size H and
 // tile R one SM of the current device runs at once; a negative cudaError_t

@@ -74,14 +74,34 @@
 // H above 64 (no model runs one: the flagship and legacy LSTMs are H=64)
 // takes the wide kernel, the first design kept as it was: W_hh [H, 4H] in
 // dynamic shared memory (64 KiB at H=64, up to H=118 in f32), thread j owns
-// gate column j of a 4-row tile. The wrapper picks the kernel
-// (rnn_cuda.lstm_fwd_kernel_route) and may force either one for an A/B.
+// gate column j of a 4-row tile.
+//
+// Above that, up to H = kMaxClusterH = 256 (an lstm model at d_model 512),
+// one direction's W_hh (1 MiB in f32 at H=256) fits no block, so the
+// cluster kernel (bilstm_fwd_cluster_kernel) splits it by hidden units
+// across a thread-block cluster of C = 1, 2, 4 or 8 blocks, the scheme of
+// bigru_fwd.cu's cluster kernel: one cluster per (direction, batch tile of
+// R rows); the block of rank q owns the U = ceil(H / C) units q*U ..
+// min(H, q*U+U)-1 (the last block's slice may be short: its other threads
+// are masked) and holds their four gate columns of W_hh in shared memory as
+// float32 (128 KiB at H=256, C=8). Thread (u, g) runs the four gate sums of
+// unit u for kRowsPerThread rows, its cell update and the c carries in
+// registers; it pushes its T(h_t) into the double-buffered h tile [H, R] of
+// every block of the cluster (distributed shared memory) and one
+// cluster.sync() a step orders the pushes before the next step's reads.
+// Bound like the BiGRU cluster kernel: a serial H-deep chain of shared
+// loads a step. The wrapper picks the kernel (rnn_cuda.lstm_fwd_kernel_route,
+// and lstm_cluster_plan for the cluster and tile) and may force any of the
+// three for an A/B.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <cstddef>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -425,6 +445,150 @@ bilstm_fwd_wide_kernel(const T* __restrict__ xg_f,
   }
 }
 
+// The cluster kernel: clusters of C blocks, kRowsPerThread rows a thread
+constexpr int kRowsPerThread = 4;
+constexpr int kClusterThreads = 512;   // __launch_bounds__
+constexpr int kMaxClusterH = 256;
+
+__host__ __device__ __forceinline__ size_t pad4(size_t n) {
+  return (n + 3) / 4 * 4;
+}
+
+// The cluster kernel (H above the wide kernel's, see the notes at the top):
+// W_hh split by hidden units across a thread-block cluster.
+template <typename T, bool kSave>
+__global__ void __launch_bounds__(kClusterThreads)
+bilstm_fwd_cluster_kernel(const T* __restrict__ xg_f,
+                          const T* __restrict__ xg_b,
+                          const T* __restrict__ w_f,
+                          const T* __restrict__ w_b, T* __restrict__ ys_f,
+                          T* __restrict__ ys_b, T* __restrict__ cs_f,
+                          T* __restrict__ cs_b, T* __restrict__ gs_f,
+                          T* __restrict__ gs_b, int B, int N, int H, int R,
+                          int rev) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int U = (H + C - 1) / C;   // units a block owns (the last: fewer)
+  const int G = 4 * H;
+  float* w_s = smem;                                         // [H][4U]
+  float* h_s = smem + pad4(static_cast<size_t>(H) * 4 * U);  // [2][H][R]
+
+  // a grid of two directions: y = 1 walks backward; of one: rev says
+  const bool bwd = (blockIdx.y == 1) != (rev != 0);
+  const T* xg = bwd ? xg_b : xg_f;
+  const T* w = bwd ? w_b : w_f;
+  const int u = threadIdx.x % U;
+  const int r0 = (threadIdx.x / U) * kRowsPerThread;  // first row in tile
+  const int gu = rank * U + u;                        // global hidden unit
+  const bool unit_ok = gu < H;                        // else masked
+  const int row0 = (blockIdx.x / C) * R + r0;
+
+  // this block's W_hh columns: c = gate * U + unit, for every k; the
+  // columns of units past H are zero
+  for (int idx = threadIdx.x; idx < H * 4 * U; idx += blockDim.x) {
+    const int k = idx / (4 * U);
+    const int c = idx - k * 4 * U;
+    const int gate = c / U;
+    const int unit = rank * U + (c - gate * U);
+    w_s[idx] = unit < H ? to_f32<T>(w[static_cast<size_t>(k) * G +
+                                      gate * H + unit])
+                        : 0.0f;
+  }
+  for (int idx = threadIdx.x; idx < H * R; idx += blockDim.x) h_s[idx] = 0.0f;
+
+  bool valid[kRowsPerThread];
+  size_t xoff[kRowsPerThread];  // xg / gates of (row, t = 0, unit gu)
+  size_t yoff[kRowsPerThread];  // ys / cs of (row, t = 0, unit gu)
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i) {
+    valid[i] = unit_ok && row0 + i < B;
+    const size_t row = static_cast<size_t>(valid[i] ? row0 + i : 0);
+    xoff[i] = row * N * G + (unit_ok ? gu : 0);
+    yoff[i] = row * N * H + (unit_ok ? gu : 0);
+  }
+  T* ys = bwd ? ys_b : ys_f;
+  T* cs = bwd ? cs_b : cs_f;
+  T* gs = bwd ? gs_b : gs_f;
+
+  // the next step's xg of the thread's rows and four gates, as loaded
+  T xnext[kRowsPerThread][4];
+  auto load_x = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      const T* x = xg + xoff[i] + static_cast<size_t>(t) * G;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        xnext[i][g] = valid[i] ? x[g * H] : from_f32<T>(0.0f);
+    }
+  };
+  load_x(bwd ? N - 1 : 0);
+  float c[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
+
+  // every block of the cluster runs and holds its W_hh slice and a zero
+  // h_{-1} before any block writes into another's shared memory
+  cluster.sync();
+
+  for (int s = 0; s < N; ++s) {
+    const int t = bwd ? N - 1 - s : s;
+    float acc[4][kRowsPerThread];  // [gate][row], started with xg
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+      for (int g = 0; g < 4; ++g) acc[g][i] = to_f32<T>(xnext[i][g]);
+    if (s + 1 < N) load_x(bwd ? t - 1 : t + 1);
+
+    const float* hb = h_s + (s & 1) * H * R + r0;
+#pragma unroll 4
+    for (int k = 0; k < H; ++k) {
+      const float4 hv = *reinterpret_cast<const float4*>(hb + k * R);
+      const float* wk = w_s + k * 4 * U + u;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float wv = wk[g * U];
+        acc[g][0] = fmaf(hv.x, wv, acc[g][0]);
+        acc[g][1] = fmaf(hv.y, wv, acc[g][1]);
+        acc[g][2] = fmaf(hv.z, wv, acc[g][2]);
+        acc[g][3] = fmaf(hv.w, wv, acc[g][3]);
+      }
+    }
+
+    float hq[kRowsPerThread];  // h_t rounded to the stream type
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      const float ig = sigmoid_f(acc[0][i]);
+      const float fg = sigmoid_f(acc[1][i]);
+      const float gg = tanhf(acc[2][i]);
+      const float og = sigmoid_f(acc[3][i]);
+      c[i] = fg * c[i] + ig * gg;
+      const T h_t = from_f32<T>(og * tanhf(c[i]));
+      hq[i] = to_f32<T>(h_t);
+      if (valid[i]) {
+        ys[yoff[i] + static_cast<size_t>(t) * H] = h_t;
+        if (kSave) {
+          cs[yoff[i] + static_cast<size_t>(t) * H] = from_f32<T>(c[i]);
+          T* gt = gs + xoff[i] + static_cast<size_t>(t) * G;
+          gt[0] = from_f32<T>(ig);
+          gt[H] = from_f32<T>(fg);
+          gt[2 * H] = from_f32<T>(gg);
+          gt[3 * H] = from_f32<T>(og);
+        }
+      }
+    }
+
+    // push this thread's h_t into the other buffer of every block
+    if (unit_ok) {
+      float* slot = h_s + ((s + 1) & 1) * H * R + gu * R + r0;
+      const float4 hv = make_float4(hq[0], hq[1], hq[2], hq[3]);
+      for (int q = 0; q < C; ++q)
+        *reinterpret_cast<float4*>(cluster.map_shared_rank(slot, q)) = hv;
+    }
+    cluster.sync();
+  }
+}
+
 // Dynamic shared memory one block of the wide kernel needs at hidden size
 // H, in bytes (the wrapper's bilstm_smem_bytes mirrors it to refuse an H
 // that cannot fit).
@@ -519,6 +683,98 @@ int launch(const void* xg_f, const void* xg_b, const void* w_f,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The cluster kernel's slice, block and shared memory at H, C and R (the
+// wrapper's lstm_cluster_smem_bytes("fwd", ...) and _lstm_cluster_rule
+// mirror them, held to bilstm_fwd_cluster_smem_bytes when the library
+// loads): U = ceil(H / C) units a block, every block owning one at least.
+int cluster_units(int H, int C) { return (H + C - 1) / C; }
+
+size_t cluster_smem_bytes(int H, int C, int R) {
+  const size_t U = static_cast<size_t>(cluster_units(H, C));
+  return (pad4(static_cast<size_t>(H) * 4 * U) +
+          2 * static_cast<size_t>(H) * R) * sizeof(float);
+}
+
+bool valid_cluster_plan(int B, int N, int H, int C, int R) {
+  if (B <= 0 || N <= 0 || H <= 0 || H > kMaxClusterH ||
+      (C != 1 && C != 2 && C != 4 && C != 8) || R <= 0 ||
+      R % kRowsPerThread != 0)
+    return false;
+  const int U = cluster_units(H, C);
+  return (C - 1) * U < H && U * (R / kRowsPerThread) <= kClusterThreads;
+}
+
+template <typename T, bool kSave>
+std::atomic<int> g_cluster_smem_allowed[kMaxDevices];
+
+template <typename T, bool kSave>
+cudaError_t allow_cluster_smem(int smem) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices &&
+      g_cluster_smem_allowed<T, kSave>[device].load() >= smem)
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(bilstm_fwd_cluster_kernel<T, kSave>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && device < kMaxDevices)
+    g_cluster_smem_allowed<T, kSave>[device].store(smem);
+  return err;
+}
+
+void make_cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                         int B, int H, int C, int R, int dirs, size_t smem,
+                         void* stream) {
+  *cfg = {};
+  cfg->gridDim = dim3(C * ((B + R - 1) / R), dirs, 1);
+  cfg->blockDim = dim3(cluster_units(H, C) * (R / kRowsPerThread), 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = static_cast<cudaStream_t>(stream);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+template <typename T, bool kSave>
+int launch_cluster(const void* xg_f, const void* xg_b, const void* w_f,
+                   const void* w_b, void* ys_f, void* ys_b, void* cs_f,
+                   void* cs_b, void* gs_f, void* gs_b, int B, int N, int H,
+                   int C, int R, int dirs, int rev, void* stream) {
+  if (!valid_cluster_plan(B, N, H, C, R))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = cluster_smem_bytes(H, C, R);
+  cudaError_t err = allow_cluster_smem<T, kSave>(static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  make_cluster_config(&cfg, &attr, B, H, C, R, dirs, smem, stream);
+  auto in = [](const void* p) { return static_cast<const T*>(p); };
+  auto out = [](void* p) { return static_cast<T*>(p); };
+  err = cudaLaunchKernelEx(&cfg, bilstm_fwd_cluster_kernel<T, kSave>,
+                           in(xg_f), in(xg_b), in(w_f), in(w_b), out(ys_f),
+                           out(ys_b), out(cs_f), out(cs_b), out(gs_f),
+                           out(gs_b), B, N, H, R, rev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kSave>
+int cluster_max_active(int H, int C, int R) {
+  const size_t smem = cluster_smem_bytes(H, C, R);
+  cudaError_t err = allow_cluster_smem<T, kSave>(static_cast<int>(smem));
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  make_cluster_config(&cfg, &attr, R, H, C, R, 1, smem, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(
+      &n, bilstm_fwd_cluster_kernel<T, kSave>, &cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
 template <typename T, bool kSave>
 int unit_blocks_per_sm(int H, int R) {
   int n = 0;
@@ -574,6 +830,66 @@ extern "C" {
 BILSTM_FWD_ENTRIES(f32, float)
 BILSTM_FWD_ENTRIES(bf16, __nv_bfloat16)
 #undef BILSTM_FWD_ENTRIES
+
+// The cluster kernel: arguments and outputs as the entries above, with
+// clusters of C blocks (1, 2, 4 or 8) over batch tiles of R rows (a
+// multiple of 4) in place of the unit tile and the wide flag; H up to 256.
+#define BILSTM_FWD_CLUSTER_ENTRIES(SFX, TYPE)                                 \
+  int bilstm_fwd_cluster_##SFX(const void* xg_f, const void* xg_b,           \
+                               const void* w_f, const void* w_b, void* ys_f, \
+                               void* ys_b, int B, int N, int H, int C,       \
+                               int R, void* stream) {                        \
+    return launch_cluster<TYPE, false>(xg_f, xg_b, w_f, w_b, ys_f, ys_b,     \
+                                       nullptr, nullptr, nullptr, nullptr,   \
+                                       B, N, H, C, R, 2, 0, stream);         \
+  }                                                                          \
+  int bilstm_fwd_train_cluster_##SFX(                                        \
+      const void* xg_f, const void* xg_b, const void* w_f, const void* w_b,  \
+      void* ys_f, void* ys_b, void* cs_f, void* cs_b, void* gs_f,            \
+      void* gs_b, int B, int N, int H, int C, int R, void* stream) {         \
+    return launch_cluster<TYPE, true>(xg_f, xg_b, w_f, w_b, ys_f, ys_b,      \
+                                      cs_f, cs_b, gs_f, gs_b, B, N, H, C, R, \
+                                      2, 0, stream);                         \
+  }                                                                          \
+  int lstm_fwd_cluster_##SFX(const void* xg, const void* w, void* ys, int B, \
+                             int N, int H, int C, int R, int reverse,        \
+                             void* stream) {                                 \
+    return launch_cluster<TYPE, false>(xg, xg, w, w, ys, ys, nullptr,        \
+                                       nullptr, nullptr, nullptr, B, N, H,   \
+                                       C, R, 1, reverse, stream);            \
+  }                                                                          \
+  int lstm_fwd_train_cluster_##SFX(const void* xg, const void* w, void* ys,  \
+                                   void* cs, void* gs, int B, int N, int H,  \
+                                   int C, int R, int reverse,                \
+                                   void* stream) {                           \
+    return launch_cluster<TYPE, true>(xg, xg, w, w, ys, ys, cs, cs, gs, gs,  \
+                                      B, N, H, C, R, 1, reverse, stream);    \
+  }
+
+BILSTM_FWD_CLUSTER_ENTRIES(f32, float)
+BILSTM_FWD_CLUSTER_ENTRIES(bf16, __nv_bfloat16)
+#undef BILSTM_FWD_CLUSTER_ENTRIES
+
+// How many clusters of the cluster kernel (bf16: 0 or 1, save: 0 or 1) at
+// H, C and R the current device runs at once; a negative cudaError_t code
+// on failure.
+int bilstm_fwd_cluster_max_active_clusters(int bf16, int save, int H, int C,
+                                           int R) {
+  if (!valid_cluster_plan(1, 1, H, C, R))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  if (bf16)
+    return save ? cluster_max_active<__nv_bfloat16, true>(H, C, R)
+                : cluster_max_active<__nv_bfloat16, false>(H, C, R);
+  return save ? cluster_max_active<float, true>(H, C, R)
+              : cluster_max_active<float, false>(H, C, R);
+}
+
+// The cluster kernel's dynamic shared memory in bytes at H, C and R, for
+// the wrapper's mirror; -1 for a plan it does not take.
+int bilstm_fwd_cluster_smem_bytes(int H, int C, int R) {
+  if (!valid_cluster_plan(1, 1, H, C, R)) return -1;
+  return static_cast<int>(cluster_smem_bytes(H, C, R));
+}
 
 // How many blocks of the unit kernel (bf16: 0 or 1, save: 0 or 1) at hidden
 // size H and tile R one SM of the current device runs at once; a negative

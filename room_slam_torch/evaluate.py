@@ -1,12 +1,24 @@
-"""Evaluation CLI of the port (the JAX package's ``evaluate.py``), the
-legacy surface:
+"""Evaluation CLI of the port (the JAX package's ``evaluate.py``), both
+surfaces:
 
+    python -m room_slam_torch.evaluate --checkpoint DIR/best_model \\
+        --data_dir DIR [--batch_size 8] [--iou_thresh 0.5] \\
+        [--threshold 0.5] [--nms 0.3] [--consensus] \\
+        [--output metrics.json] [--device cuda|cpu]
     python -m room_slam_torch.evaluate --checkpoint DIR/best_model_legacy \\
         --data_dir DIR [--compare_baseline] [--threshold 0.5] \\
         [--iou_thresh 0.5] [--hidden_size 128] [--max_objects 10] \\
         [--output metrics.json] [--device cuda|cpu]
 
-Scores a legacy GRU checkpoint per trace: every window of a CSV trace goes
+The benchmark surface (``evaluate_benchmark``): the Hungarian-aligned
+metric sums of every batch (``summarize_metrics``: mIoU, precision,
+recall, F1, class accuracy), then each sample's post-processed detections
+(confidence threshold, per-class NMS, optional consensus rescoring)
+against its ground truth: ``mAP`` and ``AP_per_class`` by label name, and
+the operating point's ``det_precision``, ``det_recall``, ``det_f1`` and
+``det_tp``.
+
+The legacy surface scores a legacy GRU checkpoint per trace: every window of a CSV trace goes
 through the model in one batch, the slots whose confidence (sigmoid
 validity times the top class probability) exceeds ``--threshold`` pool
 into the trace's predictions, and the trace's ground truth counts once;
@@ -14,8 +26,10 @@ rotated-box mAP at ``--iou_thresh``. ``--compare_baseline`` scores the
 rule-based occupancy baseline on each whole trace beside it. Prints the
 metrics as JSON.
 
-Not ported yet: the benchmark surface (``--surface bench``, ROADMAP queue 1
-item 9) and ``--visualize`` (item 16); both raise ``NotImplementedError``.
+Not ported yet, each raising ``NotImplementedError``: ``--extent_slack``
+(ROADMAP queue 1 item 10, the inference options), ``--refine`` /
+``--refine_furniture`` (item 11, the post-passes) and ``--visualize`` (item
+16).
 ``--device`` defaults to ``cuda`` and raises without a card unless
 ``--device cpu`` is given.
 """
@@ -31,12 +45,101 @@ import torch
 from torch import nn
 
 from room_slam_torch import resolve_device
+from room_slam_torch.config import BENCH_ID_TO_LABEL
+from room_slam_torch.data.dataset import TraceColliderArrays
+from room_slam_torch.data.features import featurize
 from room_slam_torch.data.legacy import LegacyArrays
 from room_slam_torch.models.baseline import OccupancyBaseline
 from room_slam_torch.models.legacy_gru import RoomSlamGRU
+from room_slam_torch.ops.nms import post_process
 from room_slam_torch.train import checkpoint as ckpt_lib
-from room_slam_torch.train.metrics import average_precision_rotated_2d
+from room_slam_torch.train.driver import load_model_for_inference
+from room_slam_torch.train.loop import gather_batch
+from room_slam_torch.train.metrics import (average_precision_3d,
+                                           average_precision_rotated_2d,
+                                           detection_prf, make_metrics_step,
+                                           summarize_metrics)
 from room_slam_torch.weights import load_params
+
+
+@torch.no_grad()
+def benchmark_rows(checkpoint: str, data_dir: str, batch_size: int = 8,
+                   iou_thresh: float = 0.5, threshold: float = 0.5,
+                   nms: float = 0.3, consensus: bool = False,
+                   device: str | torch.device = "cuda"
+                   ) -> Tuple[Dict[str, float], List[Tuple], List[Tuple]]:
+    """What ``evaluate_benchmark`` scores: the metric sums of the batches of
+    an unshuffled epoch plan, and per sample of weight 1 (in the
+    reference's order) its post-processed detections ``(box, label,
+    confidence, sample)`` and its GT ``(box, label, sample)``."""
+    model, cfg = load_model_for_inference(checkpoint, device)
+    dev = next(model.parameters()).device
+    ds = TraceColliderArrays(data_dir, cfg.data, augment=False,
+                             verbose=False)
+    mstep = make_metrics_step(model, iou_thresh)
+    data = {k: torch.from_numpy(v).to(dev)
+            for k, v in ds.device_arrays().items()}
+    plan = ds.epoch_plan(batch_size, shuffle=False)
+    acc: Dict[str, float] = {}
+    pred_rows: List[Tuple] = []
+    gt: List[Tuple] = []
+    img = 0
+    for i in range(plan["base_idx"].shape[0]):
+        batch = gather_batch(data, plan, i)
+        for k, v in mstep(batch).items():
+            acc[k] = acc.get(k, 0.0) + float(v)
+        out = model(*featurize(batch["raw"], batch["length"]))
+        obj = out.get("pred_objectness")
+        boxes_all = out["pred_boxes"].cpu().numpy()
+        for b in range(batch["raw"].shape[0]):
+            if plan["weight"][i, b] == 0:
+                continue
+            keep, labels, conf = post_process(
+                out["pred_boxes"][b], out["pred_classes"][b],
+                confidence_threshold=threshold, nms_threshold=nms,
+                consensus=consensus,
+                objectness=None if obj is None else obj[b])
+            keep, labels, conf = (keep.cpu().numpy(), labels.cpu().numpy(),
+                                  conf.cpu().numpy())
+            for q in np.where(keep)[0]:
+                pred_rows.append((boxes_all[b, q], int(labels[q]),
+                                  float(conf[q]), img))
+            j = int(plan["base_idx"][i, b])
+            for m in np.where(ds.valid[j])[0]:
+                gt.append((ds.boxes[j, m], int(ds.labels[j, m]), img))
+            img += 1
+    return acc, pred_rows, gt
+
+
+def evaluate_benchmark(checkpoint: str, data_dir: str, batch_size: int = 8,
+                       iou_thresh: float = 0.5, threshold: float = 0.5,
+                       nms: float = 0.3, consensus: bool = False,
+                       device: str | torch.device = "cuda") -> Dict:
+    """The metrics of the JAX package's ``evaluate_benchmark`` for the
+    benchmark checkpoint stem ``checkpoint`` on the trace/collider pairs of
+    ``data_dir`` (``benchmark_rows``), scored as described in the module
+    docstring."""
+    acc, pred_rows, gt = benchmark_rows(checkpoint, data_dir, batch_size,
+                                        iou_thresh, threshold, nms,
+                                        consensus, device)
+    metrics = summarize_metrics(acc)
+    if pred_rows and gt:
+        rows = (np.stack([r[0] for r in pred_rows]),
+                np.asarray([r[1] for r in pred_rows]),
+                np.asarray([r[2] for r in pred_rows]),
+                np.asarray([r[3] for r in pred_rows]),
+                np.stack([r[0] for r in gt]), np.asarray([r[1] for r in gt]),
+                np.asarray([r[2] for r in gt]))
+        mAP, aps = average_precision_3d(*rows, iou_thresh=iou_thresh)
+        metrics["mAP"] = mAP
+        metrics["AP_per_class"] = {BENCH_ID_TO_LABEL[c]: round(v, 4)
+                                   for c, v in aps.items()}
+        dp, dr, df1, dtp = detection_prf(*rows, iou_thresh=iou_thresh)
+        metrics["det_precision"] = round(dp, 4)
+        metrics["det_recall"] = round(dr, 4)
+        metrics["det_f1"] = round(df1, 4)
+        metrics["det_tp"] = dtp
+    return metrics
 
 
 def load_legacy_model(checkpoint: str, hidden_size: int = 128,
@@ -137,9 +240,17 @@ def main(argv: List[str] | None = None) -> None:
     p.add_argument("--data_dir", type=str, default="dataset/val")
     p.add_argument("--surface", choices=["auto", "bench", "legacy"],
                    default="auto")
+    p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--iou_thresh", type=float, default=0.5)
     p.add_argument("--threshold", type=float, default=0.5,
                    help="confidence threshold for detection metrics")
+    p.add_argument("--nms", type=float, default=0.3)
+    p.add_argument("--consensus", action="store_true",
+                   help="rescore detections by NMS cluster-size consensus")
+    p.add_argument("--extent_slack", type=float, default=None,
+                   metavar="METERS")
+    p.add_argument("--refine", type=float, default=None, metavar="CLEARANCE")
+    p.add_argument("--refine_furniture", action="store_true")
     p.add_argument("--hidden_size", type=int, default=128)
     p.add_argument("--max_objects", type=int, default=10)
     p.add_argument("--compare_baseline", action="store_true")
@@ -153,16 +264,26 @@ def main(argv: List[str] | None = None) -> None:
     if surface == "auto":
         surface = "legacy" if "legacy" in args.checkpoint else "bench"
         print(f"[evaluate] auto-detected surface: {surface}")
-    if surface == "bench":
+    if args.extent_slack is not None:
         raise NotImplementedError(
-            "the benchmark surface's evaluation is not ported yet (ROADMAP "
-            "queue 1 item 9); the port evaluates the legacy surface")
+            "--extent_slack is not ported yet (ROADMAP queue 1 item 10, the "
+            "inference options)")
+    if args.refine is not None or args.refine_furniture:
+        raise NotImplementedError(
+            "--refine / --refine_furniture are not ported yet (ROADMAP queue "
+            "1 item 11, the post-passes)")
     if args.visualize:
         raise NotImplementedError(
             "--visualize is not ported yet (ROADMAP queue 1 item 16)")
-    metrics = evaluate_legacy(
-        args.checkpoint, args.data_dir, args.hidden_size, args.max_objects,
-        args.threshold, args.iou_thresh, args.compare_baseline, args.device)
+    if surface == "bench":
+        metrics = evaluate_benchmark(
+            args.checkpoint, args.data_dir, args.batch_size, args.iou_thresh,
+            args.threshold, args.nms, args.consensus, args.device)
+    else:
+        metrics = evaluate_legacy(
+            args.checkpoint, args.data_dir, args.hidden_size,
+            args.max_objects, args.threshold, args.iou_thresh,
+            args.compare_baseline, args.device)
     print(json.dumps(metrics, indent=2, default=float))
     if args.output:
         with open(args.output, "w") as f:

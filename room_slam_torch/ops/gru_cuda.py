@@ -86,16 +86,17 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from room_slam_torch.ops.rnn import gru_recurrence, input_gates
-from room_slam_torch.ops.rnn_cuda import (MAX_SMEM_BYTES, UNIT_MAX_H,
-                                          _device_type, _work_dtype,
-                                          bind_unit_queries, card_unit_plans,
-                                          launch, prev_steps,
-                                          set_error_string, unit_launch_rows)
+from room_slam_torch.ops.rnn_cuda import (CLUSTER_MAX_H, CLUSTER_SIZES,
+                                          MAX_ROWS, MAX_SMEM_BYTES,
+                                          MAX_THREADS, ROWS_PER_THREAD,
+                                          UNIT_MAX_H, _device_type, _pad4,
+                                          _work_dtype, bind_unit_queries,
+                                          card_unit_plans, grad_product,
+                                          grad_sum, launch, prev_steps,
+                                          rank_cluster_plans,
+                                          set_error_string, slice_units,
+                                          unit_launch_rows)
 
-CLUSTER_SIZES = (1, 2, 4, 8)
-ROWS_PER_THREAD = 4       # kRowsPerThread in csrc/bigru_*.cu
-MAX_ROWS = 32             # largest batch tile one cluster takes
-MAX_THREADS = 512         # __launch_bounds__ of the kernels
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -104,13 +105,9 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # ---------------------------------------------------------------------------
 
 
-def _pad4(n: int) -> int:
-    return (n + 3) // 4 * 4
-
-
-# The BPTT kinds' plan rule and shared memory mirror valid_plan and
-# smem_bytes of csrc/bigru_bwd.cu; _library checks them against the built
-# source (bigru_bwd_smem_bytes) before the first launch.
+# The plan rule and shared memory mirror valid_plan and smem_bytes of
+# csrc/bigru_fwd.cu and csrc/bigru_bwd.cu; _library checks them against the
+# built source (bigru_*_smem_bytes) before the first launch.
 KIND_THREADS = {"fwd": MAX_THREADS, "bwd": MAX_THREADS, "split": MAX_THREADS,
                 "fused": 256}   # __launch_bounds__ of each kernel kind
 # kFusedStageFloats (a ring of four staged bf16 buffers of two 128 x 32
@@ -119,13 +116,14 @@ _FUSED_STAGE, _FUSED_CHUNK = 4 * (128 + 128) * (32 + 8) // 2, 96
 
 
 def bigru_smem_bytes(kind: str, hidden: int, cluster: int, rows: int) -> int:
-    """Dynamic shared memory one block of ``kind`` needs: its W_hh slice and
-    a double-buffered exchange tile, both float32 (a bf16 value is exact in
-    float32). ``kind`` is "fwd" (both forward kernels), "bwd" (the BPTT,
-    #6), "split" (#10, as "bwd") or "fused" (#9: the exchange tile doubles
-    as the products' staging region, grown to ``_FUSED_STAGE`` floats where
-    smaller, then a chunk's sample indices)."""
-    U = hidden // cluster
+    """Dynamic shared memory one block of ``kind`` needs: its W_hh slice
+    (of ``slice_units`` units) and a double-buffered exchange tile, both
+    float32 (a bf16 value is exact in float32). ``kind`` is "fwd" (both
+    forward kernels), "bwd" (the BPTT, #6), "split" (#10, as "bwd") or
+    "fused" (#9: the exchange tile doubles as the products' staging region,
+    grown to ``_FUSED_STAGE`` floats where smaller, then a chunk's sample
+    indices)."""
+    U = slice_units(hidden, cluster)
     if kind == "fwd":    # W_hh[:, r|z|n of its U units] and h_{t-1} [H, R]
         return (_pad4(hidden * 3 * U) + 2 * hidden * rows) * 4
     # W_hh[its U units, :]^T and the gate cotangent dg [3H, R]
@@ -136,15 +134,19 @@ def bigru_smem_bytes(kind: str, hidden: int, cluster: int, rows: int) -> int:
 
 
 def _plan_rule(kind: str, hidden: int, cluster: int, rows: int) -> bool:
-    """The cluster divides H, the tile is a multiple of ``ROWS_PER_THREAD``
-    and the threads are within the kind's launch bound (the fused kind: a
-    multiple of 16 units per block)."""
-    if cluster not in CLUSTER_SIZES or hidden % cluster or rows <= 0 \
+    """Every block of the cluster owns a unit at least (a slice of
+    ``slice_units`` units, the last one masked past H where the cluster
+    does not divide H; the fused kind: the cluster divides H into multiples
+    of 16 units per block), the tile is a multiple of ``ROWS_PER_THREAD``
+    and the threads are within the kind's launch bound."""
+    if cluster not in CLUSTER_SIZES or hidden <= 0 or rows <= 0 \
             or rows % ROWS_PER_THREAD:
         return False
-    U = hidden // cluster
-    return (U * (rows // ROWS_PER_THREAD) <= KIND_THREADS[kind]
-            and (kind != "fused" or U % 16 == 0))
+    U = slice_units(hidden, cluster)
+    if kind == "fused" and (hidden % cluster or U % 16):
+        return False
+    return ((cluster - 1) * U < hidden
+            and U * (rows // ROWS_PER_THREAD) <= KIND_THREADS[kind])
 
 
 def plan_fits(kind: str, hidden: int, cluster: int, rows: int) -> bool:
@@ -156,24 +158,32 @@ def plan_fits(kind: str, hidden: int, cluster: int, rows: int) -> bool:
             <= MAX_SMEM_BYTES)
 
 
-def _check_mirror(lib) -> None:
-    """Hold ``_plan_rule`` and ``bigru_smem_bytes`` of the BPTT kinds to the
-    built ``csrc/bigru_bwd.cu`` (``bigru_bwd_smem_bytes``: bytes, or -1 for
-    a plan the kind does not take) over H in 16..512 and every cluster
-    size and tile; raises on the first plan where they differ."""
-    for kind, code in _BWD_KINDS.items():
-        for hidden in (16, 48, 64, 128, 256, 512):
+def _check_mirror(lib, name: str = "bigru_bwd") -> None:
+    """Hold ``_plan_rule`` and ``bigru_smem_bytes`` of the kinds of
+    ``name`` ("bigru_fwd": "fwd"; "bigru_bwd": the BPTT kinds) to the built
+    source (``bigru_fwd_smem_bytes`` / ``bigru_bwd_smem_bytes``: bytes, or
+    -1 for a plan the kind does not take) over H in 9..512, dividing and
+    masked slices, and every cluster size and tile; raises on the first
+    plan where they differ."""
+    if name == "bigru_fwd":
+        kinds = {"fwd": lambda h, c, r: lib.bigru_fwd_smem_bytes(h, c, r)}
+    else:
+        kinds = {k: (lambda h, c, r, code=code:
+                     lib.bigru_bwd_smem_bytes(code, h, c, r))
+                 for k, code in _BWD_KINDS.items()}
+    for kind, query in kinds.items():
+        for hidden in (9, 16, 48, 64, 128, 139, 201, 250, 255, 256, 512):
             for c in CLUSTER_SIZES:
                 for rows in range(ROWS_PER_THREAD, MAX_ROWS + 1,
                                   ROWS_PER_THREAD):
                     want = (bigru_smem_bytes(kind, hidden, c, rows)
                             if _plan_rule(kind, hidden, c, rows) else -1)
-                    got = lib.bigru_bwd_smem_bytes(code, hidden, c, rows)
+                    got = query(hidden, c, rows)
                     if got != want:
                         raise RuntimeError(
                             f"bigru_{kind}: the wrapper's plan mirror gives "
                             f"{want} bytes at H={hidden}, plan {c}x{rows}, "
-                            f"csrc/bigru_bwd.cu {got}: update KIND_THREADS, "
+                            f"csrc/{name}.cu {got}: update KIND_THREADS, "
                             "_FUSED_* or bigru_smem_bytes to match the "
                             "source")
 
@@ -183,26 +193,27 @@ def bigru_plans(kind: str, batch: int, hidden: int,
                 dirs: int = 2) -> List[Tuple[int, int]]:
     """Every ``(cluster, rows)`` that fits kernel ``kind`` at this batch and
     H over ``dirs`` directions (2 for a BiGRU layer, 1 for a GRU), the
-    cluster size dividing H and the batch tile a multiple of
-    ``ROWS_PER_THREAD`` up to ``MAX_ROWS``, fastest first.
+    batch tile a multiple of ``ROWS_PER_THREAD`` up to ``MAX_ROWS``,
+    fastest first (``rank_cluster_plans``: the block's threads, at least
+    128, times the waves of the grid by the card's own resident count).
 
-    A step's time is taken as the block's thread count, at least 128 (four
-    warps, one per scheduler: fewer do not finish a step sooner), times
-    the waves the grid needs: ``resident(cluster, rows)`` clusters run at
-    once (the card's own count, ``cudaOccupancyMaxActiveClusters``). Ties
-    go to the smaller cluster, then the smaller tile."""
-    keys = []
-    for c in CLUSTER_SIZES:
-        for rows in range(ROWS_PER_THREAD, MAX_ROWS + 1, ROWS_PER_THREAD):
-            if not plan_fits(kind, hidden, c, rows):
-                continue
-            at_once = resident(c, rows)
-            if at_once <= 0:
-                continue
-            threads = hidden // c * (rows // ROWS_PER_THREAD)
-            waves = -(-dirs * -(-batch // rows) // at_once)
-            keys.append((max(threads, 128) * waves, c, rows))
-    return [(c, rows) for _, c, rows in sorted(keys)]
+    Plans whose cluster size divides H come first and alone: masked plans
+    (a last slice short of ``slice_units``) are considered only where no
+    dividing plan fits, and only up to ``CLUSTER_MAX_H``, so every H a
+    dividing plan takes keeps its pick."""
+    def plans(masked: bool):
+        return rank_cluster_plans(
+            [(c, rows) for c in CLUSTER_SIZES
+             for rows in range(ROWS_PER_THREAD, MAX_ROWS + 1,
+                               ROWS_PER_THREAD)
+             if (masked or hidden % c == 0)
+             and plan_fits(kind, hidden, c, rows)],
+            batch, hidden, resident, dirs)
+
+    found = plans(False)
+    if not found and hidden <= CLUSTER_MAX_H:
+        found = plans(True)
+    return found
 
 
 def bigru_plan(kind: str, batch: int, hidden: int,
@@ -215,9 +226,9 @@ def bigru_plan(kind: str, batch: int, hidden: int,
     if not plans:
         raise ValueError(
             f"bigru_{kind}: no cluster of {CLUSTER_SIZES} blocks takes H="
-            f"{hidden} (it must divide H, and the W_hh slice plus the "
-            f"exchange tile must fit {MAX_SMEM_BYTES} bytes of shared memory "
-            "per block)")
+            f"{hidden} (above H={CLUSTER_MAX_H} it must divide H, and the "
+            "W_hh slice plus the exchange tile must fit "
+            f"{MAX_SMEM_BYTES} bytes of shared memory per block)")
     return plans[0]
 
 
@@ -573,16 +584,18 @@ def bigru_bwd_fused(x, wih_f, whh_f, wih_b, whh_b, gs_f, hn_f, ys_f, dy_f,
 
 def hidden_grads(ys, dx, dhn, reverse: bool, dtype: torch.dtype):
     """``dW_hh = h_prev^T [dx_r, dx_z, dhn]`` and ``db_hh = sum [dx_r,
-    dx_z, dhn]`` of one direction, accumulated in float32 (float64 for
-    float64 streams) and returned in ``dtype``. Two products instead of a
-    ``[B, N, 3H]`` concatenation, as the reference does (``:582-594``)."""
+    dx_z, dhn]`` of one direction, summed in float32 (float64 for float64
+    streams) and returned in ``dtype``. Two products instead of a
+    ``[B, N, 3H]`` concatenation, as the reference does (``:582-594``);
+    with bf16 streams on the card the products take the bf16 streams as
+    they are (``rnn_cuda.grad_product``: float32 sums and result)."""
     H = ys.shape[-1]
-    acc = _work_dtype(ys)
-    hp = prev_steps(ys, reverse).reshape(-1, H).to(acc)
-    d2 = dx[..., :2 * H].reshape(-1, 2 * H).to(acc)
-    dn = dhn.reshape(-1, H).to(acc)
-    dw = torch.cat([hp.t() @ d2, hp.t() @ dn], dim=-1)
-    db = torch.cat([d2.sum(0), dn.sum(0)])
+    hp = prev_steps(ys, reverse).reshape(-1, H)
+    d2 = dx[..., :2 * H].reshape(-1, 2 * H)
+    dn = dhn.reshape(-1, H)
+    dw = torch.cat([grad_product(hp.t(), d2), grad_product(hp.t(), dn)],
+                   dim=-1)
+    db = torch.cat([grad_sum(d2), grad_sum(dn)])
     return dw.to(dtype), db.to(dtype)
 
 
@@ -791,12 +804,14 @@ def _library(name: str):
         fn.argtypes = [i] * 4
         fn.restype = ctypes.c_int
     check_tc_mirror(getattr(lib, f"{name}_tc_layout"), name[len("bigru_"):])
+    # (kind,) H, C, R
+    smem_query = getattr(lib, f"{name}_smem_bytes")
+    smem_query.argtypes = [i] * (3 if fwd else 4)
+    smem_query.restype = ctypes.c_int
+    _check_mirror(lib, name)
     if fwd:
         bind_unit_queries(lib, "gru_fwd", gates=3)
     else:
-        lib.bigru_bwd_smem_bytes.argtypes = [i] * 4
-        lib.bigru_bwd_smem_bytes.restype = ctypes.c_int
-        _check_mirror(lib)
         bind_unit_queries(lib, "gru_bwd", gates=3, tiles=3)
     set_error_string(lib, name)
     return lib
@@ -894,7 +909,8 @@ def _plan_launch(kind: str, fn, B: int, H: int, dev: torch.device, T,
             if not plan_fits(kind, H, cluster, rows):
                 raise ValueError(
                     f"bigru_{kind}: plan {cluster}x{rows} does not fit H={H}:"
-                    f" the cluster must divide H, the tile be a multiple of "
+                    f" every block of the cluster must own a unit (#9: the "
+                    f"cluster divide H), the tile be a multiple of "
                     f"{ROWS_PER_THREAD}, at most {KIND_THREADS[kind]} "
                     "threads a block, and bigru_smem_bytes (here "
                     f"{bigru_smem_bytes(kind, H, cluster, max(rows, 0))}) at"

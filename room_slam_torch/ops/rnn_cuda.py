@@ -25,16 +25,20 @@ PyTorch version beside it:
 - ``bilstm_bwd`` (``csrc/bilstm_bwd.cu``): reverse-time BPTT from those
   residuals to the gate cotangent ``dg [B, N, 4H]`` per direction.
 
-Each source holds two kernels. At H <= ``UNIT_MAX_H`` (64, the flagship's
-and the legacy LSTM's width) the unit kernel runs: four lanes of a warp own
-one hidden unit of a tile of 1, 2 or 4 batch rows, W_hh (the forward's
-columns, the BPTT's row) in their registers, one block barrier a step;
-``unit_plan`` sizes the tile to the batch and the card. Above it the wide
-kernel (the first design, W_hh in shared memory, one block of 4H threads
-per 4-row tile) runs, up to H=118 in the forward and H=116 in the BPTT in
-float32. ``lstm_fwd_kernel_route`` and ``lstm_bwd_kernel_route`` choose,
-and each launch records its kernel and tile in the wrapper's
-``last_launch``.
+Each source holds three kernels. At H <= ``UNIT_MAX_H`` (64, the
+flagship's and the legacy LSTM's width) the unit kernel runs: four lanes of
+a warp own one hidden unit of a tile of 1, 2 or 4 batch rows, W_hh (the
+forward's columns, the BPTT's row) in their registers, one block barrier a
+step; ``unit_plan`` sizes the tile to the batch and the card. Above it the
+wide kernel (the first design, W_hh in shared memory, one block of 4H
+threads per 4-row tile) runs, up to H=118 in the forward and H=116 in the
+BPTT. Above that, up to ``CLUSTER_MAX_H`` (256), the cluster kernel splits
+W_hh by hidden units across a thread-block cluster of up to 8 blocks,
+slices of ceil(H / C) units with the last one masked (the BiGRU cluster
+kernels' scheme); ``lstm_cluster_plan`` picks the cluster and the batch
+tile from the card's own counts. ``lstm_fwd_kernel_route`` and
+``lstm_bwd_kernel_route`` choose, and each launch records its kernel and
+plan in the wrapper's ``last_launch``.
 
 With grad enabled and an input that requires it, ``bilstm_recurrence``
 goes through ``BiLSTMFunction`` (training forward, then BPTT and
@@ -76,6 +80,17 @@ UNIT_ROWS = (1, 2, 4)
 # A step's fixed part (block barrier, lane reduction, gate math) in rows'
 # worth of a block's FMA issue, for unit_plans' cost model
 UNIT_STEP_FIXED = 2
+
+# The cluster kernels (csrc/bilstm_*.cu bilstm_*_cluster_kernel and the
+# BiGRU ones of csrc/bigru_*.cu): cluster sizes, rows of a thread
+# (kRowsPerThread), the largest batch tile the planners take, the launch
+# bound, and the largest H of the LSTM cluster kernels (kMaxClusterH; the
+# BiGRU planner's masked slices stop there too)
+CLUSTER_SIZES = (1, 2, 4, 8)
+ROWS_PER_THREAD = 4
+MAX_ROWS = 32
+MAX_THREADS = 512
+CLUSTER_MAX_H = 256
 
 
 def bilstm_smem_bytes(hidden: int) -> int:
@@ -158,23 +173,148 @@ def unit_plan(batch: int, dirs: int, sms: int,
     return plans[0]
 
 
+def slice_units(hidden: int, cluster: int) -> int:
+    """Hidden units one block of a cluster kernel owns: ceil(H / C); the
+    last block's slice is masked past H where C does not divide H."""
+    return -(-hidden // cluster)
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def rank_cluster_plans(plans, batch: int, hidden: int,
+                       resident: Callable[[int, int], int],
+                       dirs: int) -> List[Tuple[int, int]]:
+    """The ``(cluster, rows)`` plans of a cluster kernel, fastest first.
+
+    A step's time is taken as the block's thread count (``slice_units``
+    times the rows over ``ROWS_PER_THREAD``), at least 128 (four warps, one
+    per scheduler: fewer do not finish a step sooner), times the waves the
+    grid of ``dirs`` directions needs: ``resident(cluster, rows)`` clusters
+    run at once (the card's own count, ``cudaOccupancyMaxActiveClusters``);
+    a plan the card runs none of is dropped. Ties go to the smaller
+    cluster, then the smaller tile."""
+    keys = []
+    for c, rows in plans:
+        at_once = resident(c, rows)
+        if at_once <= 0:
+            continue
+        threads = slice_units(hidden, c) * (rows // ROWS_PER_THREAD)
+        waves = -(-dirs * -(-batch // rows) // at_once)
+        keys.append((max(threads, 128) * waves, c, rows))
+    return [(c, rows) for _, c, rows in sorted(keys)]
+
+
+def lstm_cluster_smem_bytes(kind: str, hidden: int, cluster: int,
+                            rows: int) -> int:
+    """Dynamic shared memory one block of the LSTM cluster kernel ``kind``
+    ("fwd": both forward variants; "bwd": the BPTT) needs, float32 (a bf16
+    value is exact there): its W_hh slice (the forward's [H, 4U] gate
+    columns, the BPTT's [4H, U] rows) and the double-buffered exchange tile
+    (h [H, R], dg [4H, R]); mirrors ``cluster_smem_bytes`` of the
+    sources."""
+    U = slice_units(hidden, cluster)
+    tile = hidden if kind == "fwd" else 4 * hidden
+    return (_pad4(4 * hidden * U) + 2 * tile * rows) * 4
+
+
+def _lstm_cluster_rule(hidden: int, cluster: int, rows: int) -> bool:
+    """The LSTM cluster kernels' plan rule (``valid_cluster_plan``): H up
+    to ``CLUSTER_MAX_H``, a cluster of ``CLUSTER_SIZES`` in which every
+    block owns one unit at least, a tile a multiple of
+    ``ROWS_PER_THREAD``, at most ``MAX_THREADS`` threads a block."""
+    if cluster not in CLUSTER_SIZES or not 0 < hidden <= CLUSTER_MAX_H \
+            or rows <= 0 or rows % ROWS_PER_THREAD:
+        return False
+    U = slice_units(hidden, cluster)
+    return ((cluster - 1) * U < hidden
+            and U * (rows // ROWS_PER_THREAD) <= MAX_THREADS)
+
+
+def lstm_cluster_fits(kind: str, hidden: int, cluster: int,
+                      rows: int) -> bool:
+    """Whether the LSTM cluster kernel ``kind`` takes this plan at H: the
+    rule holds and a block's shared memory fits."""
+    return (_lstm_cluster_rule(hidden, cluster, rows)
+            and lstm_cluster_smem_bytes(kind, hidden, cluster, rows)
+            <= MAX_SMEM_BYTES)
+
+
+def check_lstm_cluster_mirror(smem_query, kind: str) -> None:
+    """Hold ``_lstm_cluster_rule`` and ``lstm_cluster_smem_bytes`` to a
+    built source's ``bilstm_<kind>_cluster_smem_bytes(H, C, R)`` (bytes, or
+    -1 for a plan it does not take) over H, every cluster size and tile;
+    raises naming the first plan where they differ."""
+    for hidden in (1, 7, 64, 119, 128, 130, 201, 255, 256, 257):
+        for c in CLUSTER_SIZES:
+            for rows in range(ROWS_PER_THREAD, MAX_ROWS + 1,
+                              ROWS_PER_THREAD):
+                want = (lstm_cluster_smem_bytes(kind, hidden, c, rows)
+                        if _lstm_cluster_rule(hidden, c, rows) else -1)
+                got = smem_query(hidden, c, rows)
+                if got != want:
+                    raise RuntimeError(
+                        f"bilstm_{kind}_cluster: the wrapper's plan mirror "
+                        f"gives {want} bytes at H={hidden}, plan {c}x{rows}, "
+                        f"the built source {got}: update CLUSTER_* or "
+                        "lstm_cluster_smem_bytes to match the source")
+
+
+def lstm_cluster_plans(kind: str, batch: int, hidden: int,
+                       resident: Callable[[int, int], int],
+                       dirs: int = 2) -> List[Tuple[int, int]]:
+    """Every ``(cluster, rows)`` the LSTM cluster kernel ``kind`` takes at
+    this batch and H over ``dirs`` directions, tiles up to ``MAX_ROWS``,
+    fastest first (``rank_cluster_plans``)."""
+    return rank_cluster_plans(
+        [(c, rows) for c in CLUSTER_SIZES
+         for rows in range(ROWS_PER_THREAD, MAX_ROWS + 1, ROWS_PER_THREAD)
+         if lstm_cluster_fits(kind, hidden, c, rows)],
+        batch, hidden, resident, dirs)
+
+
+def lstm_cluster_plan(kind: str, batch: int, hidden: int,
+                      resident: Callable[[int, int], int],
+                      dirs: int = 2) -> Tuple[int, int]:
+    """``(cluster, rows)`` of the LSTM cluster kernel ``kind``: the first
+    of ``lstm_cluster_plans``. Raises where the card runs no plan."""
+    plans = lstm_cluster_plans(kind, batch, hidden, resident, dirs)
+    if not plans:
+        raise ValueError(f"bilstm_{kind}_cluster: no plan of "
+                         f"{CLUSTER_SIZES} blocks takes H={hidden} on this "
+                         "card")
+    return plans[0]
+
+
+def _lstm_route(kind: str, hidden: int, wide: bool, wide_smem: int) -> str:
+    name = f"bilstm_{kind}"
+    if hidden <= 0:
+        raise ValueError(f"{name}: H must be positive, got {hidden}")
+    if hidden <= UNIT_MAX_H:
+        return "unit"
+    if wide:
+        return "wide"
+    if any(lstm_cluster_fits(kind, hidden, c, ROWS_PER_THREAD)
+           for c in CLUSTER_SIZES):
+        return "cluster"
+    raise ValueError(
+        f"{name}: no kernel takes H={hidden}: the unit kernel holds "
+        f"H <= {UNIT_MAX_H}, the wide kernel needs {wide_smem} bytes of "
+        f"shared memory per block, over the {MAX_SMEM_BYTES} a block can "
+        f"have, and the cluster kernel takes H <= {CLUSTER_MAX_H}")
+
+
 def lstm_fwd_kernel_route(hidden: int) -> str:
     """The forward kernel of ``csrc/bilstm_fwd.cu`` that takes hidden size
     ``hidden`` (whatever the batch, stream dtype or direction count):
     "unit" up to ``UNIT_MAX_H``, else "wide" where its W_hh fits one
-    block's shared memory. Raises for an H neither takes."""
-    if hidden <= 0:
-        raise ValueError(f"bilstm_fwd: H must be positive, got {hidden}")
-    if hidden <= UNIT_MAX_H:
-        return "unit"
-    if 4 * hidden <= 512 and bilstm_smem_bytes(hidden) <= MAX_SMEM_BYTES:
-        return "wide"
-    raise ValueError(
-        f"bilstm_fwd: no kernel takes H={hidden}: the unit kernel holds "
-        f"H <= {UNIT_MAX_H}, and the wide kernel needs "
-        f"{bilstm_smem_bytes(hidden)} bytes of shared memory per block, over "
-        f"the {MAX_SMEM_BYTES} a block can have (larger H needs W_hh split "
-        "across a thread-block cluster)")
+    block's shared memory (H <= 118), else "cluster" up to
+    ``CLUSTER_MAX_H``. Raises, naming the width, for an H none takes."""
+    return _lstm_route("fwd", hidden,
+                       4 * hidden <= 512
+                       and bilstm_smem_bytes(hidden) <= MAX_SMEM_BYTES,
+                       bilstm_smem_bytes(hidden))
 
 
 def bilstm_bwd_smem_bytes(hidden: int) -> int:
@@ -189,20 +329,12 @@ def lstm_bwd_kernel_route(hidden: int) -> str:
     """The BPTT kernel of ``csrc/bilstm_bwd.cu`` that takes hidden size
     ``hidden`` (whatever the batch, stream dtype or direction count):
     "unit" (``bilstm_bwd_unit_kernel``) up to ``UNIT_MAX_H``, else "wide"
-    where its W_hh^T and dg tile fit one block's shared memory (H <= 116).
-    Raises for an H neither takes."""
-    if hidden <= 0:
-        raise ValueError(f"bilstm_bwd: H must be positive, got {hidden}")
-    if hidden <= UNIT_MAX_H:
-        return "unit"
-    if bilstm_bwd_smem_bytes(hidden) <= MAX_SMEM_BYTES:
-        return "wide"
-    raise ValueError(
-        f"bilstm_bwd: no kernel takes H={hidden}: the unit kernel holds "
-        f"H <= {UNIT_MAX_H}, and the wide kernel needs "
-        f"{bilstm_bwd_smem_bytes(hidden)} bytes of shared memory per block, "
-        f"over the {MAX_SMEM_BYTES} a block can have (larger H needs W_hh "
-        "split across a thread-block cluster)")
+    where its W_hh^T and dg tile fit one block's shared memory (H <= 116),
+    else "cluster" up to ``CLUSTER_MAX_H``. Raises, naming the width, for an
+    H none takes."""
+    return _lstm_route("bwd", hidden,
+                       bilstm_bwd_smem_bytes(hidden) <= MAX_SMEM_BYTES,
+                       bilstm_bwd_smem_bytes(hidden))
 
 
 # ---------------------------------------------------------------------------
@@ -378,14 +510,40 @@ class BiLSTMFunction(torch.autograd.Function):
                 _hidden_grad(ys_b, dg_b, True, w_b.dtype))
 
 
+def grad_product(at: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``at @ b`` summed and returned in float32 (float64 for float64
+    operands), for the weight gradients outside the kernels. bf16 operands
+    on the card multiply as they are, with float32 sums and a float32
+    result (``torch.mm(..., out_dtype=torch.float32)``, the reference's
+    ``preferred_element_type=f32``): a bf16 x bf16 product is exact in
+    float32, so the values are the upcast product's up to summation order,
+    with no float32 copy of a stream and no process-wide precision flag.
+    float32 operands (TF32 off, as every float32 matmul of the port) and
+    CPU tensors multiply upcast to the work dtype."""
+    if at.is_cuda and at.dtype == torch.bfloat16 == b.dtype:
+        return torch.mm(at, b, out_dtype=torch.float32)
+    acc = _work_dtype(at)
+    return torch.matmul(at.to(acc), b.to(acc))
+
+
+def grad_sum(x: torch.Tensor) -> torch.Tensor:
+    """The column sums of ``x [M, K]`` in float32 (float64 for float64):
+    on the card a bf16 stream is summed in float32 as it is; CPU tensors
+    sum upcast."""
+    acc = _work_dtype(x)
+    if x.is_cuda:
+        return x.sum(0, dtype=acc)
+    return x.to(acc).sum(0)
+
+
 def _hidden_grad(ys, dg, reverse: bool, dtype: torch.dtype) -> torch.Tensor:
-    """``dW_hh = sum_t h_{t-1}^T dg_t`` of one direction, one matmul
-    accumulated in float32 (float64 for float64 streams) and returned in
-    ``dtype`` (the reference's einsum, ``rnn_pallas.py:352``)."""
+    """``dW_hh = sum_t h_{t-1}^T dg_t`` of one direction, one product
+    summed in float32 (float64 for float64 streams, ``grad_product``) and
+    returned in ``dtype`` (the reference's einsum, ``rnn_pallas.py:352``).
+    """
     H = ys.shape[-1]
-    acc = _work_dtype(ys)
-    hp = prev_steps(ys, reverse).reshape(-1, H).to(acc)
-    return torch.matmul(hp.t(), dg.reshape(-1, 4 * H).to(acc)).to(dtype)
+    hp = prev_steps(ys, reverse).reshape(-1, H)
+    return grad_product(hp.t(), dg.reshape(-1, 4 * H)).to(dtype)
 
 
 def lstm_fwd_train(xg, w, reverse: bool = False):
@@ -473,6 +631,11 @@ def _library(name: str):
     else:
         fns = {"bilstm_bwd": (10, 3), "lstm_bwd": (5, 4),
                "bilstm_bwd_unit": (10, 4), "lstm_bwd_unit": (5, 5)}
+    # the cluster kernel: the pointers, then B, N, H, C, R (and reverse)
+    for fn_name in [f for f in fns if not f.endswith("_unit")]:
+        n_ptr, n_int = fns[fn_name]
+        fns[f"{fn_name}_cluster"] = (n_ptr,
+                                     5 + int(fn_name.startswith("lstm")))
     for fn_name, (n_ptr, n_int) in fns.items():
         for sfx in _SUFFIX.values():
             fn = getattr(lib, f"{fn_name}_{sfx}")
@@ -482,6 +645,13 @@ def _library(name: str):
         bind_unit_queries(lib, name, gates=4)
     else:
         bind_unit_queries(lib, name, gates=4, tiles=4)
+    # the bf16 and kSave flags, then H, C, R; H, C, R
+    for query, n_int in (("max_active_clusters", 5), ("smem_bytes", 3)):
+        fn = getattr(lib, f"{name}_cluster_{query}")
+        fn.argtypes = [i] * n_int
+        fn.restype = i
+    check_lstm_cluster_mirror(getattr(lib, f"{name}_cluster_smem_bytes"),
+                              name[len("bilstm_"):])
     set_error_string(lib, name)
     return lib
 
@@ -502,6 +672,67 @@ def bind_unit_queries(lib, name: str, gates: int, tiles: int = 1) -> None:
 
 
 _UNIT_PLANS: dict = {}   # unit-kernel launch plans by source, shape, dtype
+_CLUSTER_PLANS: dict = {}   # cluster-kernel launch plans, likewise
+
+
+def _cluster_resident(source: str, H: int, dev: torch.device, T,
+                      save: bool) -> Callable[[int, int], int]:
+    """``resident(cluster, rows)``: how many clusters of that plan of the
+    LSTM cluster kernel of ``source`` ("bilstm_fwd" or "bilstm_bwd") the
+    card ``dev`` runs at once."""
+    query = getattr(_library(source), f"{source}_cluster_max_active_clusters")
+
+    def resident(c, rows):
+        with torch.cuda.device(dev):
+            return query(int(T == torch.bfloat16), int(save), H, c, rows)
+
+    return resident
+
+
+def card_lstm_cluster_plans(kind: str, B: int, H: int, dev: torch.device,
+                            dtype: torch.dtype, save: bool,
+                            dirs: int) -> List[Tuple[int, int]]:
+    """``lstm_cluster_plans`` of the LSTM cluster kernel ``kind`` ("fwd"
+    or "bwd") on the card ``dev`` (its own counts), fastest first; the
+    first is the plan a launch takes."""
+    return lstm_cluster_plans(
+        kind, B, H, _cluster_resident(f"bilstm_{kind}", H, dev, dtype, save),
+        dirs)
+
+
+def cluster_launch_plan(fn, source: str, B: int, H: int, dev: torch.device,
+                        T, save: bool, dirs: int,
+                        plan: Optional[Tuple[int, int]] = None
+                        ) -> Tuple[int, int]:
+    """``(cluster, rows)`` of a launch of the LSTM cluster kernel of
+    ``source``: ``lstm_cluster_plan``'s pick with the card's own counts, or
+    the caller's ``plan``, refused unless it fits and the card runs such a
+    cluster. Recorded with the grid's cluster count in
+    ``fn.last_launch``."""
+    kind = source[len("bilstm_"):]
+    key = (source, B, H, str(dev), T, save, dirs, plan)
+    if key not in _CLUSTER_PLANS:
+        resident = _cluster_resident(source, H, dev, T, save)
+        if plan is None:
+            cluster, rows = lstm_cluster_plan(kind, B, H, resident, dirs)
+        else:
+            cluster, rows = plan
+            if not lstm_cluster_fits(kind, H, cluster, rows):
+                raise ValueError(
+                    f"{source}: plan {cluster}x{rows} does not fit H={H}: "
+                    f"H at most {CLUSTER_MAX_H}, a cluster of "
+                    f"{CLUSTER_SIZES} blocks each owning a unit, the tile a "
+                    f"multiple of {ROWS_PER_THREAD}, at most {MAX_THREADS} "
+                    f"threads and {MAX_SMEM_BYTES} bytes of shared memory "
+                    "a block")
+            if resident(cluster, rows) <= 0:
+                raise ValueError(f"{source}: the card runs no cluster of "
+                                 f"plan {cluster}x{rows} at once")
+        _CLUSTER_PLANS[key] = {"kernel": "cluster", "cluster": cluster,
+                               "rows": rows, "clusters": dirs * -(-B // rows),
+                               "resident": resident(cluster, rows)}
+    fn.last_launch = _CLUSTER_PLANS[key]
+    return fn.last_launch["cluster"], fn.last_launch["rows"]
 
 
 def _unit_counts(lib, name: str, H: int, dev: torch.device, T, save: bool):
@@ -626,38 +857,57 @@ def _kernel(source: str, H: int, plan) -> str:
 def _smem(source: str, H: int, plan) -> int:
     """Shared memory of the kernel of ``source`` that ``plan`` (or the
     route) picks at H, for ``_check_cuda``; the unit kernel's largest
-    tile (the forward's h tile, the BPTT's four dg tiles)."""
-    if _kernel(source, H, plan) == "unit":
+    tile (the forward's h tile, the BPTT's four dg tiles); 0 for the
+    cluster kernel, whose planner keeps each plan within a block's."""
+    kernel = _kernel(source, H, plan)
+    if kernel == "unit":
         return unit_smem_bytes(max(UNIT_ROWS),
                                tiles=1 if source == "bilstm_fwd" else 4)
+    if kernel == "cluster":
+        return 0
     return (bilstm_smem_bytes if source == "bilstm_fwd"
             else bilstm_bwd_smem_bytes)(H)
 
 
 def _plan(fn, source: str, name: str, B: int, H: int, dev, T, save: bool,
           dirs: int, plan):
-    """The kernel library and ``(rows, wide)`` of a launch of ``source``
-    ("bilstm_fwd" or "bilstm_bwd"): the route's kernel and, for the unit
-    kernel, ``unit_plan``'s tile; or the caller's ``plan`` ("unit", rows)
-    or ("wide", 4). Recorded in ``fn.last_launch``."""
+    """The kernel library, the kernel ("unit", "wide" or "cluster") and
+    the plan's integers of a launch of ``source`` ("bilstm_fwd" or
+    "bilstm_bwd"): the route's kernel with ``unit_plan``'s tile ``(rows,)``,
+    the wide kernel's ``(4,)`` or ``lstm_cluster_plan``'s ``(cluster,
+    rows)``; or the caller's ``plan`` ("unit", rows), ("wide", 4) or
+    ("cluster", cluster, rows). Recorded in ``fn.last_launch``."""
     kernel = _kernel(source, H, plan)
     lib = _library(source)
+    forced = None if plan is None else tuple(plan[1:])
     if kernel == "unit":
         if H > UNIT_MAX_H:
             raise ValueError(f"{name}: the unit kernel takes H <= "
                              f"{UNIT_MAX_H}, not {H}")
-        return lib, unit_launch_rows(fn, lib, source, B, H, dev, T, save,
-                                     dirs,
-                                     None if plan is None else plan[1]), 0
-    if kernel != "wide" or (plan is not None
-                            and tuple(plan[1:]) != (_ROWS_PER_BLOCK,)):
-        raise ValueError(f"{name}: plan must be ('unit', rows) or ('wide', "
-                         f"{_ROWS_PER_BLOCK}), got {plan}")
+        return lib, kernel, (unit_launch_rows(
+            fn, lib, source, B, H, dev, T, save, dirs,
+            None if forced is None else forced[0]),)
+    if kernel == "cluster":
+        return lib, kernel, cluster_launch_plan(fn, source, B, H, dev, T,
+                                                save, dirs, forced)
+    if kernel != "wide" or forced not in (None, (_ROWS_PER_BLOCK,)):
+        raise ValueError(f"{name}: plan must be ('unit', rows), ('wide', "
+                         f"{_ROWS_PER_BLOCK}) or ('cluster', cluster, rows),"
+                         f" got {plan}")
     fn.last_launch = {"kernel": "wide", "cluster": 1,
                       "rows": _ROWS_PER_BLOCK,
                       "clusters": dirs * -(-B // _ROWS_PER_BLOCK),
                       "resident": None}
-    return lib, _ROWS_PER_BLOCK, 1
+    return lib, kernel, (_ROWS_PER_BLOCK,)
+
+
+def _fwd_plan_args(lib_name: str, kernel: str, ints) -> Tuple[str, tuple]:
+    """The entry point of ``csrc/bilstm_fwd.cu`` and the plan's integers
+    it takes: the cluster entries (``<name>_cluster_*``) take (C, R), the
+    others the unit tile or 4 and the wide flag."""
+    if kernel == "cluster":
+        return f"{lib_name}_cluster", tuple(ints)
+    return lib_name, (ints[0], int(kernel == "wide"))
 
 
 def _bilstm_fwd_launch(fn, save: bool, xg_f, xg_b, w_f, w_b, plan):
@@ -671,12 +921,13 @@ def _bilstm_fwd_launch(fn, save: bool, xg_f, xg_b, w_f, w_b, plan):
             for d in ((H, H, H, H, G, G) if save else (H, H))]
     if B == 0 or N == 0:
         return tuple(outs)
-    lib, rows, wide = _plan(fn, "bilstm_fwd", name, B, H, dev, T, save, 2,
-                            plan)
+    lib, kernel, ints = _plan(fn, "bilstm_fwd", name, B, H, dev, T, save, 2,
+                              plan)
+    entry, ints = _fwd_plan_args(name, kernel, ints)
     w_f, w_b = w_f.to(T), w_b.to(T)
-    launch(lib, f"{name}_{_SUFFIX[T]}", dev,
+    launch(lib, f"{entry}_{_SUFFIX[T]}", dev,
            *(t.data_ptr() for t in (xg_f, xg_b, w_f, w_b, *outs)), B, N, H,
-           rows, wide)
+           *ints)
     fn.launches += 1
     return tuple(outs)
 
@@ -686,8 +937,9 @@ def bilstm_fwd_cuda(xg_f: torch.Tensor, xg_b: torch.Tensor,
                     plan: Optional[Tuple[str, int]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the light kernel of ``csrc/bilstm_fwd.cu`` on the current
-    stream. ``plan=("unit", rows)`` or ``("wide", 4)`` overrides the route
-    and the planner (raises if it does not fit). Counts each launch in
+    stream. ``plan=("unit", rows)``, ``("wide", 4)`` or ``("cluster",
+    cluster, rows)`` overrides the route and the planner (raises if it does
+    not fit). Records the plan in ``bilstm_fwd_cuda.last_launch``. Counts each launch in
     ``bilstm_fwd_cuda.launches``. Its outputs carry no autograd history:
     ``bilstm_recurrence`` sends inputs that need a gradient to
     ``BiLSTMFunction`` instead."""
@@ -715,16 +967,19 @@ bilstm_fwd_train_cuda.launches = 0
 def _bwd_launch(fn, name: str, ptrs, B: int, N: int, H: int, dev, T,
                 dirs: int, plan, *tail) -> None:
     """Launch ``name`` ("bilstm_bwd" or "lstm_bwd", ``csrc/bilstm_bwd.cu``)
-    on the pointers ``ptrs``, then B, N, H, the unit kernel's tile and
-    ``tail`` (the reverse flag of one direction), as ``_plan`` picks; the
-    wide kernel's entries take no tile. Counted on ``fn``."""
-    lib, rows, wide = _plan(fn, "bilstm_bwd", name, B, H, dev, T, False,
-                            dirs, plan)
+    on the pointers ``ptrs``, then B, N, H, the plan's integers and
+    ``tail`` (the reverse flag of one direction), as ``_plan`` picks: the
+    wide kernel's entries take no tile, the unit kernel's
+    (``<name>_unit_*``) its tile, the cluster kernel's
+    (``<name>_cluster_*``) C and R. Counted on ``fn``."""
+    lib, kernel, ints = _plan(fn, "bilstm_bwd", name, B, H, dev, T, False,
+                              dirs, plan)
     sfx = _SUFFIX[T]
-    if wide:
+    if kernel == "wide":
         launch(lib, f"{name}_{sfx}", dev, *ptrs, B, N, H, *tail)
     else:
-        launch(lib, f"{name}_unit_{sfx}", dev, *ptrs, B, N, H, rows, *tail)
+        launch(lib, f"{name}_{kernel}_{sfx}", dev, *ptrs, B, N, H, *ints,
+               *tail)
     fn.launches += 1
 
 
@@ -732,9 +987,10 @@ def bilstm_bwd_cuda(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b,
                     plan: Optional[Tuple[str, int]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/bilstm_bwd.cu``: returns ``(dg_f, dg_b)``.
-    ``lstm_bwd_kernel_route`` picks the unit kernel or the wide kernel;
-    ``plan=("unit", rows)`` or ``("wide", 4)`` overrides the route and the
-    planner (raises if it does not fit). Records the plan in
+    ``lstm_bwd_kernel_route`` picks the unit, wide or cluster kernel;
+    ``plan=("unit", rows)``, ``("wide", 4)`` or ``("cluster", cluster,
+    rows)`` overrides the route and the planner (raises if it does not
+    fit). Records the plan in
     ``bilstm_bwd_cuda.last_launch`` and counts each launch in
     ``bilstm_bwd_cuda.launches``."""
     _check_shapes(gs_f, gs_b, w_f, w_b)
@@ -772,12 +1028,13 @@ def _lstm_fwd_launch(fn, save: bool, xg, w, reverse: bool, plan):
             for d in ((H, H, G) if save else (H,))]
     if B == 0 or N == 0:
         return tuple(outs)
-    lib, rows, wide = _plan(fn, "bilstm_fwd", name, B, H, dev, T, save, 1,
-                            plan)
+    lib, kernel, ints = _plan(fn, "bilstm_fwd", name, B, H, dev, T, save, 1,
+                              plan)
+    entry, ints = _fwd_plan_args(name, kernel, ints)
     w = w.to(T)
-    launch(lib, f"{name}_{_SUFFIX[T]}", dev,
+    launch(lib, f"{entry}_{_SUFFIX[T]}", dev,
            xg.data_ptr(), w.data_ptr(), *(o.data_ptr() for o in outs),
-           B, N, H, rows, wide, int(reverse))
+           B, N, H, *ints, int(reverse))
     fn.launches += 1
     return tuple(outs)
 

@@ -2,8 +2,10 @@
 
     python -m room_slam_torch.train --config configs/flagship_v15.json \\
         --data_dir DIR [--val_dir DIR] [--epochs N] [--batch_size B] \\
-        [--lr LR] [--max_trace_len L] [--save_dir DIR] [--seed S] \\
-        [--set section.key=value ...] [--device cuda|cpu]
+        [--lr LR] [--model lstm|bigru] [--d_model D] [--num_queries Q] \\
+        [--max_trace_len L] [--schedule plateau|cosine] [--resume STEM] \\
+        [--save_dir DIR] [--seed S] [--set section.key=value ...] \\
+        [--device cuda|cpu]
     python -m room_slam_torch.train --surface legacy --data_dir DIR \\
         [--epochs N] [--batch_size B] [--lr LR] [--hidden_size 128] \\
         [--seq_len 500] [--max_objects 10] [--save_dir DIR] [--device cuda]
@@ -13,10 +15,12 @@
 legacy surface writes ``<save_dir>/best_model_legacy``; its defaults are
 the JAX package's (100 epochs, batch 32, lr 1e-3).
 
-The scale-up BiGRU trains from the default config with
-``--set model.model_type=bigru --set model.d_model=512 --set
-model.num_queries=32 --set model.compute_dtype=bfloat16 --set
+The scale-up BiGRU trains from the default config with ``--model bigru
+--d_model 512 --num_queries 32 --set model.compute_dtype=bfloat16 --set
 data.max_colliders=32 --max_trace_len 5000 --batch_size 128``.
+``--resume <save_dir>/checkpoint_epoch_N`` (or ``best_model``) continues a
+run from the checkpoint's parameters, optimizer state, epoch and plateau
+scheduler, as the JAX package's ``--resume`` does.
 
 ``--device`` defaults to ``cuda`` and raises without a card unless
 ``--device cpu`` is given. Prints the summary dict as JSON.
@@ -44,6 +48,10 @@ def main(argv=None) -> None:
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--model", type=str, default=None,
+                   help="model.model_type: lstm | bigru")
+    p.add_argument("--d_model", type=int, default=None)
+    p.add_argument("--num_queries", type=int, default=None)
     p.add_argument("--max_trace_len", type=int, default=None)
     p.add_argument("--hidden_size", type=int, default=128,
                    help="legacy GRU hidden size")
@@ -53,6 +61,12 @@ def main(argv=None) -> None:
                    help="legacy object slots")
     p.add_argument("--save_dir", type=str, default="./checkpoints")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--schedule", choices=["plateau", "cosine"], default=None,
+                   help="LR schedule: ReduceLROnPlateau (the default) or "
+                        "warmup + cosine")
+    p.add_argument("--resume", type=str, default=None,
+                   help="continue from a checkpoint stem (params + "
+                        "optimizer state + epoch + scheduler)")
     p.add_argument("--set", dest="overrides", action="append", default=[],
                    help="config override section.key=value (repeatable)")
     p.add_argument("--device", type=str, default="cuda",
@@ -84,12 +98,21 @@ def main(argv=None) -> None:
             cfg.train.batch_size = args.batch_size
         if args.lr is not None:
             cfg.train.lr = args.lr
+        if args.model is not None:
+            cfg.model.model_type = args.model
+        if args.d_model is not None:
+            cfg.model.d_model = args.d_model
+        if args.num_queries is not None:
+            cfg.model.num_queries = args.num_queries
         if args.max_trace_len is not None:
             cfg.data.max_trace_len = args.max_trace_len
         cfg.train.save_dir = args.save_dir
         cfg.train.seed = args.seed
+        if args.schedule is not None:
+            cfg.train.lr_schedule = args.schedule
         cfg.apply_overrides(args.overrides)     # last, as in the JAX CLI
-        result = train_benchmark(cfg, device=args.device)
+        result = train_benchmark(cfg, device=args.device,
+                                 resume=args.resume)
     print(json.dumps({k: v for k, v in result.items()
                       if isinstance(v, (int, float, str))}, indent=2))
 

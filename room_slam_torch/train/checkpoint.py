@@ -5,16 +5,18 @@ serialized by ``flax.serialization.to_bytes``, where ``params`` is the
 model's variables ``{"params": {...}}``) plus ``<stem>.json`` (the sidecar:
 epoch, metrics, config). flax stores every array as msgpack
 extension type 1 holding a packed ``(shape, dtype_name, bytes)`` tuple,
-and numpy scalars as type 3. The port writes the same layout (params only,
-``has_opt_state: false``), so the JAX package's ``load_checkpoint`` and
-``load_model_for_inference`` read what the port trains.
+and numpy scalars as type 3. The port writes the same layout, with the
+optimizer state in optax's layout when it is given one
+(``loop.Optimizer.state_dict``, ``has_opt_state: true``), so the JAX
+package's ``load_checkpoint`` and ``load_model_for_inference`` read what
+the port trains, and each package resumes from the other's checkpoints.
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -76,20 +78,24 @@ def write_msgpack_tree(tree: Mapping[str, Any]) -> bytes:
 
 def save_checkpoint(path: str | Path,
                     state_dict: Mapping[str, torch.Tensor],
+                    opt_state: Optional[Mapping[str, Any]] = None,
                     epoch: int = 0, val_loss: float = float("nan"),
                     metrics: Optional[Dict] = None,
                     config: Optional[ExperimentConfig] = None,
                     extra: Optional[Dict] = None) -> None:
     """Write ``<path>.msgpack`` (the model's parameters in the JAX layout,
-    through ``weights.state_dict_to_params``) and the ``<path>.json``
-    sidecar. No optimizer state is written (``has_opt_state: false``):
-    resuming needs optax's state layout, which is later work."""
+    through ``weights.state_dict_to_params``, and ``opt_state`` when given:
+    ``loop.Optimizer.state_dict()``, optax's layout) and the ``<path>.json``
+    sidecar (``has_opt_state`` says which). ``extra`` merges more JSON state
+    (the plateau scheduler) into the sidecar."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    tree = {"params": state_dict_to_params(state_dict)}
+    tree: Dict[str, Any] = {"params": state_dict_to_params(state_dict)}
+    if opt_state is not None:
+        tree["opt_state"] = opt_state
     path.with_suffix(".msgpack").write_bytes(write_msgpack_tree(tree))
     side = {"epoch": int(epoch), "val_loss": float(val_loss),
-            "metrics": metrics or {}, "has_opt_state": False,
+            "metrics": metrics or {}, "has_opt_state": opt_state is not None,
             **(extra or {})}
     if config is not None:
         side["config"] = config.to_dict()
@@ -105,13 +111,17 @@ def _reject_chunked(node) -> None:
             _reject_chunked(v)
 
 
-def load_checkpoint(path: str | Path) -> Tuple[Dict[str, Any], Dict]:
+def load_checkpoint(path: str | Path, with_opt_state: bool = False) -> tuple:
     """Return (the model's ``{"params": ...}`` tree of numpy arrays, the
-    sidecar dict) of checkpoint stem ``path``; an optimizer state in the
-    file is dropped."""
+    sidecar dict) of checkpoint stem ``path``; with ``with_opt_state``,
+    (params, the optimizer state tree in optax's layout or None where the
+    file has none, sidecar), the state ready for
+    ``loop.Optimizer.load_state_dict``."""
     path = Path(path)
     side = json.loads(path.with_suffix(".json").read_text())
     tree = read_msgpack_tree(path.with_suffix(".msgpack").read_bytes())
+    if with_opt_state:
+        return tree["params"], tree.get("opt_state"), side
     return tree["params"], side
 
 

@@ -3,16 +3,18 @@
 ``_check_query_capacity``, ``train_legacy`` and
 ``load_model_for_inference``).
 
-Not ported: the fused whole-run dispatch (``train_benchmark_fused``),
-resuming from a checkpoint, and recovery from a lost device.
+``train_benchmark`` resumes from a checkpoint (``resume=``) and recovers
+from a CUDA runtime error (``max_recoveries``), as the JAX package's does.
+Not ported: the fused whole-run dispatch (``train_benchmark_fused``).
 """
 
 from __future__ import annotations
 
+import math
 import time
 import warnings
 from pathlib import Path
-from typing import Callable, Dict, Iterator, Sequence, Tuple
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,16 +54,29 @@ def train_benchmark(cfg: ExperimentConfig,
                     device: str | torch.device = "cuda",
                     verbose: bool = True,
                     train_ds: TraceColliderArrays | None = None,
-                    val_ds: TraceColliderArrays | None = None) -> Dict:
+                    val_ds: TraceColliderArrays | None = None,
+                    resume: Optional[str] = None,
+                    max_recoveries: int = 3,
+                    checkpoint_every: int = 10) -> Dict:
     """Train a benchmark-surface model end to end on ``device``; returns a
     summary dict.
 
     Per epoch: the learning rate (cosine schedule, or plateau on the
     validation loss), one pass over a shuffled, rotation-expanded index
     plan with augmentation, then every ``val_every`` epochs the validation
-    loss and metrics, the best model (``best_model``) and every 10 epochs a
-    periodic checkpoint (``checkpoint_epoch_<e>``), all in the JAX
-    package's checkpoint layout under ``train.save_dir``."""
+    loss and metrics, the best model (``best_model``) and every
+    ``checkpoint_every`` epochs (10, the JAX package's) a periodic
+    checkpoint (``checkpoint_epoch_<e>``), all in the JAX package's
+    checkpoint layout under ``train.save_dir``, with the optimizer state.
+
+    ``resume``: continue from a checkpoint stem (parameters, optimizer
+    state, epoch + 1, a finite ``best_val``, the plateau scheduler; the
+    learning rate follows the scheduler unless the schedule is cosine).
+    Recovery: a ``torch.AcceleratorError`` (the CUDA runtime's error)
+    during an epoch's training reloads the last periodic checkpoint, or the
+    initial state, moves the data to the device again and redoes the
+    epoch; each recovery is printed, and the error is raised again after
+    ``max_recoveries``. Nothing else is caught."""
     dev = resolve_device(device)
     t = cfg.train
     if verbose and t.matmul_precision != "float32":
@@ -75,16 +90,30 @@ def train_benchmark(cfg: ExperimentConfig,
         val_ds = TraceColliderArrays(cfg.data.val_dir, cfg.data,
                                      augment=False, verbose=verbose)
 
-    model = build_model(cfg.model,
-                        generator=torch.Generator().manual_seed(t.seed))
-    model = model.to(dev)
+    def fresh(ckpt: Optional[str | Path] = None):
+        """Model, optimizer and step from the seed, or from ``ckpt``'s
+        parameters and optimizer state; and the checkpoint's sidecar."""
+        model = build_model(cfg.model,
+                            generator=torch.Generator().manual_seed(t.seed))
+        side: Dict = {}
+        opt_state = None
+        if ckpt is not None:
+            params, opt_state, side = ckpt_lib.load_checkpoint(
+                ckpt, with_opt_state=True)
+            load_params(model, params)
+        model = model.to(dev)
+        opt = make_optimizer(model, cfg)
+        if opt_state is not None:
+            opt.load_state_dict(opt_state)
+        return model, opt, make_train_step(model, opt, cfg, augment=True), \
+            side, opt_state is not None
+
+    model, opt, step, side, has_opt = fresh(resume)
     n_params = sum(p.numel() for p in model.parameters())
     if verbose:
         print(f"Model parameters: {n_params:,}")
     _check_query_capacity(cfg, train_ds, val_ds)
 
-    opt = make_optimizer(model, cfg)
-    step = make_train_step(model, opt, cfg, augment=True)
     eval_epoch = make_eval_epoch(cfg, t.iou_thresh)
     sched = PlateauScheduler(lr=t.lr, factor=t.plateau_factor,
                              patience=t.plateau_patience,
@@ -95,30 +124,66 @@ def train_benchmark(cfg: ExperimentConfig,
     cfg.to_json(save_dir / "config.json")
     mlog = MetricsLogger(save_dir / "history.jsonl")
 
+    best_val = float("inf")
+    start_epoch = 0
+    if resume:
+        start_epoch = int(side.get("epoch", -1)) + 1
+        # a periodic checkpoint's sidecar has val_loss NaN; a NaN best_val
+        # would keep every later epoch from saving a best model
+        bv = side.get("val_loss")
+        if isinstance(bv, (int, float)) and math.isfinite(bv):
+            best_val = float(bv)
+        if isinstance(side.get("sched"), dict):
+            sched.load_state_dict(side["sched"])
+        elif has_opt:
+            sched.lr = opt.lr
+        if t.lr_schedule != "cosine":
+            opt.set_learning_rate(sched.lr)
+        if verbose:
+            print(f"Resumed from {resume} at epoch {start_epoch} "
+                  f"(best_val={best_val:.4f}, lr={sched.lr:.6f})")
+
     # the datasets live on the device for the whole run; epochs only
     # ship index plans
-    def to_dev(arrays):
-        return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+    def put_data():
+        return ({k: torch.from_numpy(v).to(dev)
+                 for k, v in train_ds.device_arrays().items()},
+                {k: torch.from_numpy(v).to(dev)
+                 for k, v in val_ds.device_arrays().items()})
 
-    train_data = to_dev(train_ds.device_arrays())
-    val_data = to_dev(val_ds.device_arrays())
+    train_data, val_data = put_data()
     val_plan = val_ds.epoch_plan(t.batch_size, shuffle=False)
     gen = torch.Generator(device=dev).manual_seed(t.seed)
 
-    best_val = float("inf")
     history = []
     samples_seen = 0
+    recoveries = 0
+    last_ckpt: Optional[Path] = None
     t0 = time.time()
-    for epoch in range(t.num_epochs):
+    epoch = start_epoch
+    while epoch < t.num_epochs:
         if t.lr_schedule == "cosine":
             opt.set_learning_rate(warmup_cosine_lr(cfg, epoch))
-        plan = train_ds.epoch_plan(t.batch_size, seed=t.seed + epoch)
-        nb = plan["base_idx"].shape[0]
-        total = torch.zeros((), device=dev)
-        for i in range(nb):
-            total += step(gather_batch(train_data, plan, i),
-                          gen)["total_loss"]
-        train_loss = float(total) / nb
+        try:
+            plan = train_ds.epoch_plan(t.batch_size, seed=t.seed + epoch)
+            nb = plan["base_idx"].shape[0]
+            total = torch.zeros((), device=dev)
+            for i in range(nb):
+                total += step(gather_batch(train_data, plan, i),
+                              gen)["total_loss"]
+            train_loss = float(total) / nb
+        except torch.AcceleratorError as e:
+            recoveries += 1
+            if recoveries > max_recoveries:
+                raise
+            print(f"⚠ device failure in epoch {epoch} ({type(e).__name__}); "
+                  f"recovery {recoveries}/{max_recoveries} from "
+                  f"{last_ckpt or 'initial state'}")
+            model, opt, step, side, _ = fresh(last_ckpt)
+            epoch = (int(side.get("epoch", epoch - 1)) + 1
+                     if last_ckpt is not None else start_epoch)
+            train_data, val_data = put_data()
+            continue
         samples_seen += train_ds.num_samples
 
         if (epoch + 1) % t.val_every == 0:
@@ -145,19 +210,21 @@ def train_benchmark(cfg: ExperimentConfig,
             if val_loss < best_val:
                 best_val = val_loss
                 ckpt_lib.save_checkpoint(
-                    save_dir / "best_model", em.state_dict(), epoch=epoch,
-                    val_loss=val_loss, metrics=metrics, config=cfg,
+                    save_dir / "best_model", em.state_dict(),
+                    opt.state_dict(), epoch=epoch, val_loss=val_loss,
+                    metrics=metrics, config=cfg,
                     extra={"sched": sched.state_dict()})
                 if verbose:
                     print(f"✓ Saved BEST model (val_loss={best_val:.4f})")
         elif verbose:
             print(f"Epoch {epoch}: Train {train_loss:.4f}")
 
-        if (epoch + 1) % 10 == 0:
+        if (epoch + 1) % checkpoint_every == 0:
+            last_ckpt = save_dir / f"checkpoint_epoch_{epoch}"
             ckpt_lib.save_checkpoint(
-                save_dir / f"checkpoint_epoch_{epoch}", model.state_dict(),
-                epoch=epoch, config=cfg,
-                extra={"sched": sched.state_dict()})
+                last_ckpt, model.state_dict(), opt.state_dict(), epoch=epoch,
+                config=cfg, extra={"sched": sched.state_dict()})
+        epoch += 1
 
     wall = time.time() - t0
     return {
@@ -168,6 +235,10 @@ def train_benchmark(cfg: ExperimentConfig,
         "samples_per_sec": samples_seen / max(wall, 1e-9),
         "n_params": n_params,
         "save_dir": str(save_dir),
+        "start_epoch": start_epoch,
+        "recoveries": recoveries,
+        "lr": opt.lr,
+        "count": opt.count,
     }
 
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +24,7 @@ from room_slam_torch.data.augment import Sample, apply_augment, draw_rands
 from room_slam_torch.data.features import featurize
 from room_slam_torch.ops.losses import set_criterion
 from room_slam_torch.train.metrics import metrics_sums
+from room_slam_torch.weights import params_to_state_dict, state_dict_to_params
 
 Batch = Dict[str, torch.Tensor]
 
@@ -37,10 +38,16 @@ class Optimizer:
     ``clip_grad_norm_`` divides by ``g + 1e-6`` instead). AdamW is
     ``torch.optim.AdamW`` with optax's defaults (betas 0.9 / 0.999, eps
     1e-8 outside the square root, decoupled decay on every parameter); a
-    parameter without a gradient gets a zero gradient, as in optax."""
+    parameter without a gradient gets a zero gradient, as in optax.
+
+    ``state_dict`` / ``load_state_dict`` read and write the state in the
+    layout flax serializes for the JAX package's optimizer,
+    ``inject_hyperparams(chain(clip_by_global_norm, adamw[, ema]))``, so a
+    checkpoint resumes in either package."""
 
     def __init__(self, model: nn.Module, cfg: ExperimentConfig):
         t = cfg.train
+        self.model = model
         self.named = list(model.named_parameters())
         self.params = [p for _, p in self.named]
         self.grad_clip = t.grad_clip
@@ -78,6 +85,61 @@ class Optimizer:
             d = self.ema_decay
             for n, p in self.named:
                 self.ema[n].mul_(d).add_(p, alpha=1.0 - d)
+
+
+    @property
+    def count(self) -> int:
+        """Updates taken (optax's ``count``)."""
+        st = self.adamw.state.get(self.params[0]) if self.params else None
+        return int(st["step"]) if st else 0
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The state as flax serializes the JAX package's optimizer state:
+        ``count`` and ``hyperparams/learning_rate`` of
+        ``inject_hyperparams``; ``inner_state/1/0/{count, mu, nu}`` of
+        AdamW's ``scale_by_adam``, ``mu`` and ``nu`` in the parameters'
+        tree; ``inner_state/2/ema`` with ``train.ema_decay > 0``; the
+        stateless transforms as the empty dicts flax writes. Scalars are
+        0-d numpy arrays (int32 counts, a float32 learning rate)."""
+        count = np.asarray(self.count, np.int32)
+        moments = {}
+        for key in ("exp_avg", "exp_avg_sq"):
+            moments[key] = state_dict_to_params({
+                n: self.adamw.state.get(p, {}).get(key, torch.zeros_like(p))
+                for n, p in self.named})
+        inner: Dict[str, Any] = {
+            "0": {},
+            "1": {"0": {"count": count, "mu": moments["exp_avg"],
+                        "nu": moments["exp_avg_sq"]}, "1": {}, "2": {}}}
+        if self.ema is not None:
+            inner["2"] = {"ema": state_dict_to_params(self.ema)}
+        return {"count": count.copy(),
+                "hyperparams": {"learning_rate": np.asarray(self.lr,
+                                                            np.float32)},
+                "hyperparams_states": {}, "inner_state": inner}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore a state of ``state_dict``'s layout (as the JAX package
+        or this port wrote it): AdamW's moments and step count, the
+        learning rate and, where both sides keep one, the EMA."""
+        adam = state["inner_state"]["1"]["0"]
+        mu = params_to_state_dict(adam["mu"], self.model)
+        nu = params_to_state_dict(adam["nu"], self.model)
+        count = int(np.asarray(adam["count"]))
+        self.adamw.state.clear()
+        if count > 0:
+            for n, p in self.named:
+                self.adamw.state[p] = {
+                    "step": torch.tensor(float(count)),
+                    "exp_avg": mu[n].to(p.device, p.dtype),
+                    "exp_avg_sq": nu[n].to(p.device, p.dtype)}
+        self.set_learning_rate(float(np.asarray(
+            state["hyperparams"]["learning_rate"])))
+        ema = state["inner_state"].get("2", {}).get("ema")
+        if self.ema is not None and ema is not None:
+            with torch.no_grad():
+                for n, v in params_to_state_dict(ema, self.model).items():
+                    self.ema[n].copy_(v)
 
 
 def make_optimizer(model: nn.Module, cfg: ExperimentConfig) -> Optimizer:
@@ -144,6 +206,12 @@ class PlateauScheduler:
     def state_dict(self) -> Dict[str, float]:
         return {"lr": self.lr, "best": self.best, "num_bad": self.num_bad,
                 "cooldown_counter": self.cooldown_counter}
+
+    def load_state_dict(self, state: Dict[str, float]) -> None:
+        self.lr = float(state["lr"])
+        self.best = float(state["best"])
+        self.num_bad = int(state["num_bad"])
+        self.cooldown_counter = int(state["cooldown_counter"])
 
 
 def _loss_weight_dict(cfg: ExperimentConfig) -> Dict[str, float]:

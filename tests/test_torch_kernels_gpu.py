@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch.utils._python_dispatch import TorchDispatchMode
+
 from room_slam_torch.ops import rnn_cuda
 
 pytestmark = pytest.mark.gpu
@@ -160,8 +162,8 @@ def test_new_kernels_raise_on_bad_inputs(cuda):
         rnn_cuda.bilstm_bwd_cuda(*args[:4], ys_f[:, :4], *args[5:])
     with pytest.raises(ValueError):
         rnn_cuda.bilstm_bwd(*args[:7], ys_b.cpu())
-    wide = _inputs(1, 3, 128, cuda)     # W_hh^T of H=128 overflows a block
-    with pytest.raises(ValueError, match="shared memory"):
+    wide = _inputs(1, 3, 257, cuda)     # above every LSTM kernel's width
+    with pytest.raises(ValueError, match="H=257"):
         rnn_cuda.bilstm_fwd_train_cuda(*wide)
 
 
@@ -793,3 +795,168 @@ def test_bigru_tc_kernels_match_plain(cuda, shape):
         assert _max_rel(a.float(), r.float()) <= 0.1, (name, _max_rel(
             a.float(), r.float()))
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The LSTM cluster kernels (H above the wide kernels' 118 / 116, up to 256):
+# W_hh split by hidden units across a cluster, slices of ceil(H / C) units
+# with the last one masked; light and training forward and the BPTT, one and
+# two directions, float32 and bf16, under the planner's pick and the card's
+# next plans, against the plain versions (bounds as above), a second launch
+# bit for bit, and the Functions' gradients.
+# ---------------------------------------------------------------------------
+
+LSTM_CLUSTER_SHAPES = [(1, 17, 119), (5, 43, 130), (32, 60, 192),
+                       (17, 300, 256), (3, 20, 117)]
+
+
+def _lstm_fwd_cases(shape, dtype, cuda):
+    xg_f, xg_b, w_f, w_b = _inputs(*shape, cuda)
+    xg_f, xg_b = xg_f.to(dtype), xg_b.to(dtype)
+    ins = (xg_f, xg_b, w_f, w_b)
+    return ((rnn_cuda.bilstm_fwd_cuda, ins,
+             rnn_cuda.bilstm_recurrence_plain(*ins), 2, False),
+            (rnn_cuda.bilstm_fwd_train_cuda, ins,
+             rnn_cuda.bilstm_fwd_train_plain(*ins), 2, True),
+            (rnn_cuda.lstm_fwd_cuda, (xg_b, w_b, True),
+             (rnn_cuda.lstm_recurrence(xg_b, w_b, True),), 1, False),
+            (rnn_cuda.lstm_fwd_train_cuda, (xg_f, w_f, False),
+             rnn_cuda.lstm_fwd_train_plain(xg_f, w_f, False), 1, True))
+
+
+@pytest.mark.parametrize("shape", LSTM_CLUSTER_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_cluster_kernels_match_plain(cuda, shape, dtype):
+    B, N, H = shape
+    assert rnn_cuda.lstm_bwd_kernel_route(H) == "cluster"
+    if H > 118:
+        assert rnn_cuda.lstm_fwd_kernel_route(H) == "cluster"
+    for fn, ins, ref, dirs, save in _lstm_fwd_cases(shape, dtype, cuda):
+        plans = rnn_cuda.card_lstm_cluster_plans("fwd", B, H, cuda, dtype,
+                                                 save, dirs)
+        assert plans
+        # at H <= 118 the route takes the wide forward; force the cluster's
+        route = [None] if H > 118 else []
+        for plan in (*route, *(("cluster", c, r) for c, r in plans[:3])):
+            before = fn.launches
+            got = fn(*ins, plan=plan)
+            got = got if isinstance(got, tuple) else (got,)
+            assert fn.launches == before + 1
+            last = fn.last_launch
+            assert last["kernel"] == "cluster", last
+            want = plans[0] if plan is None else plan[1:]
+            assert (last["cluster"], last["rows"]) == want, last
+            again = fn(*ins, plan=plan)
+            again = again if isinstance(again, tuple) else (again,)
+            for a, a2, r in zip(got, again, ref):
+                assert torch.equal(a, a2), plan
+                _assert_close(a, r, dtype)
+    plans = rnn_cuda.card_lstm_cluster_plans("bwd", B, H, cuda, dtype,
+                                             False, 2)
+    _check_lstm_bwd(cuda, shape, dtype,
+                    [None, *(("cluster", c, r) for c, r in plans[:2])],
+                    "cluster")
+
+
+# ---------------------------------------------------------------------------
+# The GRU cluster kernels at widths no dividing plan fits: slices of
+# ceil(H / C) units, the last block's masked; BiGRU forward, training
+# forward and BPTT, the one-direction GRU's, and BiGRUFunction's gradients.
+# ---------------------------------------------------------------------------
+
+MASKED_GRU_SHAPES = [((5, 43, 139), torch.float32),
+                     ((5, 43, 201), torch.bfloat16),
+                     ((17, 60, 255), torch.float32),
+                     ((3, 30, 250), torch.bfloat16)]
+
+
+@pytest.mark.parametrize("shape,dtype", MASKED_GRU_SHAPES)
+def test_gru_masked_slice_kernels_match_plain(cuda, shape, dtype):
+    B, N, H = shape
+    ins = _gru_inputs(*shape, dtype, cuda)
+    args = _bwd_args(shape, dtype, cuda)
+    bound = GRAD_REL if dtype == torch.float32 else 0.1
+    for fn, a, ref in (
+            (gru_cuda.bigru_fwd_cuda, ins, gru_cuda.bigru_fwd_plain(*ins)),
+            (gru_cuda.bigru_fwd_train_cuda, ins,
+             gru_cuda.bigru_fwd_train_plain(*ins)),
+            (gru_cuda.bigru_bwd_cuda, args, gru_cuda.bigru_bwd_plain(*args)),
+            (gru_cuda.gru_fwd_cuda, (ins[1], ins[4], ins[5], True),
+             (gru_cuda.bigru_fwd_plain(*ins)[1],)),
+            (gru_cuda.gru_bwd_cuda, (args[1], *args[6:], True),
+             gru_cuda.bigru_bwd_plain(*args)[2:])):
+        got = fn(*a)
+        got = got if isinstance(got, tuple) else (got,)
+        last = fn.last_launch
+        assert last["kernel"] == "cluster" and H % last["cluster"], last
+        again = fn(*a)
+        again = again if isinstance(again, tuple) else (again,)
+        for x, x2, r in zip(got, again, ref):
+            assert torch.equal(x, x2)
+            if fn in (gru_cuda.bigru_bwd_cuda, gru_cuda.gru_bwd_cuda):
+                assert x.dtype == r.dtype and torch.isfinite(x).all()
+                assert _max_rel(x.float(), r.float()) <= bound, fn.__name__
+            else:
+                _assert_close(x, r, dtype)
+    x = [t.clone().requires_grad_(True) for t in ins]
+    dys = [args[5], args[9]]
+    grads = torch.autograd.grad(gru_cuda.bigru_recurrence(*x), x, dys)
+    ref = torch.autograd.grad(gru_cuda.bigru_fwd_plain(*x), x, dys)
+    for name, a, r in zip(("dxg_f", "dxg_b", "dW_f", "db_f", "dW_b", "db_b"),
+                          grads, ref):
+        assert a.dtype == r.dtype and torch.isfinite(a).all(), name
+        assert _max_rel(a.float(), r.float()) <= bound, name
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# dW_hh and db_hh from bf16 operands: the products take the bf16 streams as
+# they are with float32 sums and result, no float32 copy of a stream; they
+# agree with the float32 products of the upcast streams (a bf16 x bf16
+# product is exact in float32, so only the summation order differs).
+# ---------------------------------------------------------------------------
+
+
+class _Float32Outputs(TorchDispatchMode):
+    """Records every operator (ours and those the library's own kernels
+    dispatch) whose float32 output holds ``numel`` values or more."""
+
+    def __init__(self, numel):
+        super().__init__()
+        self.numel = numel
+        self.big = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(t, torch.Tensor) and t.dtype == torch.float32 \
+                    and t.numel() >= self.numel:
+                self.big.append((str(func), tuple(t.shape)))
+        return out
+
+
+@pytest.mark.parametrize("shape", [(8, 300, 64), (32, 2000, 256)])
+def test_hidden_grads_take_bf16_operands(cuda, shape):
+    B, N, H = shape
+    g = torch.Generator(cuda).manual_seed(5)
+    bf16 = torch.bfloat16
+    ys, dhn = (torch.randn(B, N, H, device=cuda, generator=g).to(bf16)
+               for _ in range(2))
+    dx = torch.randn(B, N, 3 * H, device=cuda, generator=g).to(bf16)
+    dg = torch.randn(B, N, 4 * H, device=cuda, generator=g).to(bf16)
+    with _Float32Outputs(B * N * H) as seen:
+        dw, db = gru_cuda.hidden_grads(ys, dx, dhn, True, torch.float32)
+        dw4 = rnn_cuda._hidden_grad(ys, dg, False, torch.float32)
+        torch.cuda.synchronize()
+    assert not seen.big, seen.big    # no float32 copy of a stream
+    assert dw.dtype == db.dtype == dw4.dtype == torch.float32
+    f32 = torch.float32
+    hp = rnn_cuda.prev_steps(ys, True).reshape(-1, H).to(f32)
+    want_w = hp.t() @ torch.cat([dx[..., :2 * H], dhn], -1).reshape(
+        -1, 3 * H).to(f32)
+    want_b = torch.cat([dx[..., :2 * H], dhn], -1).reshape(
+        -1, 3 * H).to(f32).sum(0)
+    hp4 = rnn_cuda.prev_steps(ys, False).reshape(-1, H).to(f32)
+    want_w4 = hp4.t() @ dg.reshape(-1, 4 * H).to(f32)
+    for got, want in ((dw, want_w), (db, want_b), (dw4, want_w4)):
+        assert _max_rel(got, want) <= 1e-4, _max_rel(got, want)

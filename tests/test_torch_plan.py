@@ -74,8 +74,10 @@ def test_lstm_route():
     assert lstm_fwd_kernel_route(118) == "wide"
 
 
-@pytest.mark.parametrize("hidden", [0, 119, 128, 200])
+@pytest.mark.parametrize("hidden", [0, 257, 300, 512])
 def test_shapes_no_kernel_takes_raise(hidden):
+    """No LSTM forward kernel takes H <= 0 or H above the cluster kernel's
+    256; the error names the width."""
     with pytest.raises(ValueError, match="H"):
         lstm_fwd_kernel_route(hidden)
     if hidden > 0:
@@ -141,7 +143,10 @@ def fake_card(monkeypatch):
                         lambda *a: (H100_SMS, lambda rows: 2))
     monkeypatch.setattr(gru_cuda, "_resident",
                         lambda *a: ("bigru_fwd", _clusters))
+    monkeypatch.setattr(rnn_cuda, "_cluster_resident",
+                        lambda *a: _clusters)
     monkeypatch.setattr(rnn_cuda, "_UNIT_PLANS", {})
+    monkeypatch.setattr(rnn_cuda, "_CLUSTER_PLANS", {})
     monkeypatch.setattr(gru_cuda, "_PLANS", {})
     return rec
 
@@ -328,19 +333,23 @@ def test_fused_staging_reuses_exchange_tile(hidden, cluster, rows, floats):
 
 
 @pytest.mark.parametrize("hidden,want", [
-    (16, "unit"), (64, "unit"), (65, "wide"), (96, "wide"), (116, "wide")])
+    (16, "unit"), (64, "unit"), (65, "wide"), (96, "wide"), (116, "wide"),
+    (117, "cluster"), (118, "cluster"), (119, "cluster"), (256, "cluster")])
 def test_lstm_bwd_route(hidden, want):
-    assert lstm_bwd_kernel_route(hidden) == want
-
-
-@pytest.mark.parametrize("hidden", [0, 117, 118, 119])
-def test_lstm_bwd_route_raises_where_no_kernel_fits(hidden):
     """The wide BPTT kernel's W_hh^T and double-buffered [4][4H] dg tile
-    fit one block to H=116; the wide forward's smaller tile to H=118."""
-    with pytest.raises(ValueError, match="H"):
-        lstm_bwd_kernel_route(hidden)
-    if 0 < hidden <= 118:
+    fit one block to H=116 (the wide forward's smaller tile to H=118); the
+    cluster kernel takes the widths above, to 256."""
+    assert lstm_bwd_kernel_route(hidden) == want
+    if 64 < hidden <= 118:
         assert lstm_fwd_kernel_route(hidden) == "wide"
+
+
+@pytest.mark.parametrize("hidden", [0, 257, 260, 384])
+def test_lstm_bwd_route_raises_where_no_kernel_fits(hidden):
+    """No BPTT kernel takes H <= 0 or H above the cluster kernel's 256; the
+    error names the width."""
+    with pytest.raises(ValueError, match=f"H={hidden}" if hidden else "H"):
+        lstm_bwd_kernel_route(hidden)
 
 
 def test_lstm_bwd_unit_mirror_check_against_source_layout():
@@ -444,9 +453,10 @@ def test_lstm_bwd_launch_follows_its_route(fake_card, monkeypatch):
 
 
 def test_lstm_bwd_plan_forced_or_refused(fake_card):
-    """``plan=`` takes a unit tile or the wide kernel, and refuses a tile
-    the unit kernel has not, the unit kernel above H=64, a wide tile other
-    than 4 rows and another kernel's plan."""
+    """``plan=`` takes a unit tile, the wide kernel or a cluster plan, and
+    refuses a tile the unit kernel has not, the unit kernel above H=64, a
+    wide tile other than 4 rows, a cluster plan whose slice does not fit
+    and another kernel's plan."""
     fn = rnn_cuda.bilstm_bwd_cuda
     fn(*_lstm_bwd_args(17, 5, 48), plan=("unit", 4))
     assert fake_card.calls[-1][0] == "bilstm_bwd_unit_f32"
@@ -470,8 +480,14 @@ def test_lstm_bwd_plan_forced_or_refused(fake_card):
         fn(*_lstm_bwd_args(32, 5, 64), plan=("wide", 2))
     with pytest.raises(ValueError, match="plan"):
         rnn_cuda.lstm_bwd_cuda(*_lstm_bwd_one(32, 5, 64),
-                               plan=("cluster", 1, 4))
+                               plan=("tc", 4, 16))
+    with pytest.raises(ValueError, match="does not fit"):
+        rnn_cuda.lstm_bwd_cuda(*_lstm_bwd_one(32, 5, 256),
+                               plan=("cluster", 4, 4))
     assert len(fake_card.calls) == n
+    rnn_cuda.lstm_bwd_cuda(*_lstm_bwd_one(32, 5, 64), plan=("cluster", 1, 4))
+    assert fake_card.calls[-1][0] == "lstm_bwd_cluster_f32"
+    assert fake_card.calls[-1][1][5:] == (32, 5, 64, 1, 4, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -677,3 +693,174 @@ def test_bigru_plans_forced_or_refused(fake_tc_card):
     with pytest.raises(ValueError, match="does not fit"):
         fwd(*_bigru_args(128, 3, 256, bf16), plan=("tc", 2, 16))
     assert len(fake_tc_card.calls) == n
+
+
+# ---------------------------------------------------------------------------
+# Every width H = 1..256 on the card: each kernel, dtype and direction
+# count gets a route and a plan, and wherever a kernel took H before the
+# LSTM cluster kernels and the GRU's masked slices, the pick is unchanged
+# (the planner of that time is kept here as it was).
+# ---------------------------------------------------------------------------
+
+def _before_bigru_plans(kind, batch, hidden, resident, dirs):
+    """``bigru_plans`` as it was: the cluster size divides H."""
+    keys = []
+    for c in (1, 2, 4, 8):
+        for rows in range(4, 33, 4):
+            if hidden % c:
+                continue
+            U = hidden // c
+            if U * (rows // 4) > gru_cuda.KIND_THREADS[kind] or (
+                    kind == "fused" and U % 16) or bigru_smem_bytes(
+                    kind, hidden, c, rows) > rnn_cuda.MAX_SMEM_BYTES:
+                continue
+            at_once = resident(c, rows)
+            if at_once <= 0:
+                continue
+            waves = -(-dirs * -(-batch // rows) // at_once)
+            keys.append((max(U * (rows // 4), 128) * waves, c, rows))
+    return [(c, rows) for _, c, rows in sorted(keys)]
+
+
+def _before_lstm_route(kind, hidden):
+    """The LSTM routes as they were: unit to H=64, wide where it fits."""
+    if hidden <= 64:
+        return "unit"
+    if kind == "fwd":
+        fits = 4 * hidden <= 512 and rnn_cuda.bilstm_smem_bytes(
+            hidden) <= rnn_cuda.MAX_SMEM_BYTES
+    else:
+        fits = rnn_cuda.bilstm_bwd_smem_bytes(
+            hidden) <= rnn_cuda.MAX_SMEM_BYTES
+    return "wide" if fits else None
+
+
+@pytest.mark.parametrize("batch", [1, 5, 32, 128])
+def test_every_width_gets_a_kernel_and_keeps_its_pick(batch):
+    tc_counts = {4: 30, 8: 15}
+    for hidden in range(1, 257):
+        for kind in ("fwd", "bwd"):
+            route = (rnn_cuda.lstm_fwd_kernel_route if kind == "fwd"
+                     else rnn_cuda.lstm_bwd_kernel_route)(hidden)
+            before = _before_lstm_route(kind, hidden)
+            if before is not None:
+                assert route == before, (kind, hidden)
+            elif route == "cluster":
+                for dirs in (1, 2):
+                    assert rnn_cuda.lstm_cluster_plans(
+                        kind, batch, hidden, _clusters, dirs), (kind, hidden)
+            else:
+                pytest.fail(f"LSTM {kind} H={hidden}: route {route}")
+            for dtype in (torch.float32, torch.bfloat16):
+                for dirs in (1, 2):
+                    groute = (gru_fwd_kernel_route if kind == "fwd"
+                              else gru_bwd_kernel_route)(hidden, dirs, dtype)
+                    if groute == "unit":
+                        assert unit_plans(batch, dirs, H100_SMS,
+                                          lambda rows: 2)
+                        continue
+                    if groute == "tc":
+                        assert gru_cuda.bigru_tc_plans(
+                            kind, batch, hidden,
+                            lambda c, r: tc_counts[c], H100_SMS)
+                        continue
+                    got = gru_cuda.bigru_plans(kind, batch, hidden,
+                                               _clusters, dirs)
+                    assert got, (kind, hidden, dtype, dirs)
+                    was = _before_bigru_plans(kind, batch, hidden,
+                                              _clusters, dirs)
+                    if was:
+                        assert got == was, (kind, hidden, dirs)
+                    else:   # a masked slice: the cluster does not divide H
+                        assert all(hidden % c for c, _ in got)
+
+
+def test_widths_refused_before_now_planned():
+    """The widths up to 256 that no kernel took at B=32 (the H100 counts):
+    LSTM forward H=119..256 (138), BPTT H=117..256 (140); the GRU cluster
+    kernels 74 widths in the forward, 77 in the BPTT. Each now has a
+    plan."""
+    lstm = {k: [h for h in range(1, 257)
+                if _before_lstm_route(k, h) is None] for k in ("fwd", "bwd")}
+    assert lstm["fwd"] == list(range(119, 257))
+    assert lstm["bwd"] == list(range(117, 257))
+    for kind, want in (("fwd", 74), ("bwd", 77)):
+        refused = [h for h in range(1, 257)
+                   if not _before_bigru_plans(kind, 32, h, _clusters, 2)]
+        assert len(refused) == want, kind
+        for h in refused:
+            assert gru_cuda.bigru_plans(kind, 32, h, _clusters, 2)
+        for h in lstm[kind]:
+            assert rnn_cuda.lstm_cluster_plan(kind, 32, h, _clusters)
+
+
+def _lstm_cluster_source(kind, hidden, c, rows, every_block=True):
+    """The sources' ``cluster_smem_bytes`` / ``valid_cluster_plan``,
+    written out again (``every_block``: each block owns a unit)."""
+    U = (hidden + c - 1) // c
+    if not (0 < hidden <= 256 and c in (1, 2, 4, 8) and rows > 0
+            and rows % 4 == 0 and ((c - 1) * U < hidden or not every_block)
+            and U * (rows // 4) <= 512):
+        return -1
+    tile = hidden if kind == "fwd" else 4 * hidden
+    return (4 * hidden * U + 2 * tile * rows) * 4
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+def test_lstm_cluster_mirror_check_against_source_layout(kind):
+    rnn_cuda.check_lstm_cluster_mirror(
+        lambda h, c, r: _lstm_cluster_source(kind, h, c, r), kind)
+    other = "bwd" if kind == "fwd" else "fwd"
+    with pytest.raises(RuntimeError, match="H=1, plan 1x4"):
+        rnn_cuda.check_lstm_cluster_mirror(
+            lambda h, c, r: _lstm_cluster_source(other, h, c, r), kind)
+    with pytest.raises(RuntimeError, match="H=1, plan 2x4"):
+        rnn_cuda.check_lstm_cluster_mirror(
+            lambda h, c, r: _lstm_cluster_source(kind, h, c, r, False), kind)
+
+
+def test_gru_mirror_check_covers_masked_slices():
+    """``_check_mirror`` holds the masked rule too: a source that still
+    demands a dividing cluster fails at the first masked plan."""
+    def source(h, c, r, masked=True):
+        if not gru_cuda._plan_rule("fwd", h, c, r) or (
+                not masked and h % c):
+            return -1
+        return bigru_smem_bytes("fwd", h, c, r)
+
+    class Lib:
+        def __init__(self, masked):
+            self.bigru_fwd_smem_bytes = (
+                lambda h, c, r: source(h, c, r, masked))
+
+    gru_cuda._check_mirror(Lib(True), "bigru_fwd")
+    with pytest.raises(RuntimeError, match="H=9, plan 2x4"):
+        gru_cuda._check_mirror(Lib(False), "bigru_fwd")
+
+
+def test_cluster_routes_launch_and_record(fake_card):
+    """H=256 launches the LSTM cluster entries (pointers, B, N, H, C, R and
+    a one-direction grid's reverse flag) with the planner's plan; a GRU
+    width no dividing cluster fits launches a masked plan."""
+    z = torch.zeros
+    rnn_cuda.bilstm_fwd_cuda(z(32, 5, 1024), z(32, 5, 1024), z(256, 1024),
+                             z(256, 1024))
+    name, args = fake_card.calls[-1]
+    want = rnn_cuda.lstm_cluster_plan("fwd", 32, 256, _clusters)
+    assert name == "bilstm_fwd_cluster_f32"
+    assert args[6:] == (32, 5, 256, *want)
+    assert rnn_cuda.bilstm_fwd_cuda.last_launch == {
+        "kernel": "cluster", "cluster": want[0], "rows": want[1],
+        "clusters": 2 * -(-32 // want[1]), "resident": 15}
+    rnn_cuda.lstm_fwd_train_cuda(z(3, 5, 520, dtype=torch.bfloat16),
+                                 z(130, 520), True)
+    name, args = fake_card.calls[-1]
+    assert name == "lstm_fwd_train_cluster_bf16" and args[-1] == 1
+    assert args[5:8] == (3, 5, 130)
+    ins = _lstm_bwd_args(5, 4, 200)
+    rnn_cuda.bilstm_bwd_cuda(*ins)
+    name, args = fake_card.calls[-1]
+    assert name == "bilstm_bwd_cluster_f32" and args[10:13] == (5, 4, 200)
+    gru_cuda.bigru_fwd_cuda(*_bigru_args(32, 5, 139, torch.float32))
+    last = gru_cuda.bigru_fwd_cuda.last_launch
+    assert last["kernel"] == "cluster" and 139 % last["cluster"]
