@@ -11,7 +11,8 @@ Phases, one line each or more (a failed check raises; nothing is caught):
    all started together (registers and spills from ``-Xptxas -v``); the
    BiGRU tensor-core kernels, the fused kind (#9) and the GRU and LSTM BPTT
    unit kernels by name, the tensor-core kernels, #9's bf16 kind and the
-   LSTM BPTT unit kernels asserted free of spills;
+   LSTM BPTT unit kernels asserted free of spills; the native trace parser
+   (``room_slam_torch/native/trace_parser.cc``, g++) into ``build/native``;
 3. kernel check on the card: ``bilstm_fwd`` (the unit kernel, H <= 64)
    against its plain version, ``bilstm_fwd_train`` (ys, c, gates) and
    ``bilstm_bwd`` (dg; the unit kernel, asserted, then every unit tile the
@@ -31,11 +32,13 @@ Phases, one line each or more (a failed check raises; nothing is caught):
    with seeded random weights, forward at B=32, N=500 through the kernel,
    against the same model through the plain recurrence;
 6. serving (a main path): a predictor answers requests on seeded walk
-   traces of up to 3000 points (1500 after downsampling), writes collider
-   JSON, and one answer is held against the same predictor on the CPU;
+   traces of up to 3000 points (1500 after downsampling; loaded through the
+   native parser), writes collider JSON, and one answer is held against
+   the same predictor on the CPU;
 7. serving latency: ``--window`` full-length requests after ``--warmup``,
    p50 and p99 over all of them, each request split into its stages on the
-   host clock, and the forward and post-process on CUDA events;
+   host clock (the JSON stage beside the Python parser's earlier time), and
+   the forward and post-process on CUDA events;
 8. training (a main path): ``ROOMS`` seeded rooms written as
    trace/collider JSON, ``train_benchmark`` on the flagship config at full
    width for ``EPOCHS`` epochs; finite losses, a checkpoint with the
@@ -45,7 +48,8 @@ Phases, one line each or more (a failed check raises; nothing is caught):
    epoch (the restored epoch, learning rate and AdamW count asserted, no
    recovery), and ``evaluate_benchmark`` on the best model on the card
    against the same call on the CPU (metrics within 1e-3, mAP equal where
-   the kept detections are);
+   the kept detections are), plain and with ``refine`` 0.3,
+   ``refine_furniture`` and ``extent_slack`` 1.0;
 9. the checkpoint served: the port's predictor loads the best model and
    answers one request on the card;
 10. one-step parity: one train step on the card and the same step on the
@@ -163,7 +167,30 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     the kernels and with the plain versions patched in (equal assignments,
     losses rel 1e-4); ``lstm_recurrence`` / ``gru_recurrence``
     (``use_kernel=True``) at H=256 / 139; a ``bigru`` at H=139, one
-    forward and one train step.
+    forward and one train step;
+35. serving recipes on the flagship (a main path): ``unseen`` (``y_planes``
+    from a written colliders JSON, soft-NMS 0.25 at ``nms`` 0.5, ttopt with
+    deadband 0.25 behind its auto gate), ``tta`` (rotations, reflection,
+    scales 0.9 and 1.1: R = 24 views; fuse, consensus, top_k 15) and
+    ``passes`` (refine 0.3 furniture-aware, wall and v2 furniture
+    synthesis, extent slack 1.0, qscore behind its auto gate, ttopt with
+    the adopted deadband 0.25 and no gate), each
+    ``RECIPE_REQUESTS`` seeded 3000-point walks on the card against the
+    same predictor on the CPU (labels equal, values within 1e-3), two
+    ``bilstm_fwd`` launches a request at B = R (asserted); the gates' tau
+    0.448, or between the middle signals when 0.448 does not split the
+    requests, each request's way printed; one request each at R = 4 and 8;
+    p50 / p99 over ``RECIPE_WINDOW`` requests after ``RECIPE_WARMUP``,
+    split into load / prepare / run / finish, with the NMS and ttopt stages
+    on CUDA events; and ``post_process(support=0.25)`` on the passes
+    recipe's pooled candidates, card vs CPU;
+36. ``bilstm_fwd`` at the view batches (4, 8, 24) x (1500, 64) f32 against
+    its plain version (the planner's unit tile), its time against the
+    bound and cuDNN's bidirectional ``nn.LSTM``, µs a step, and phase 35's
+    launches at each batch;
+37. the flagship with ``hole_tokens`` 8 on ``HOLE_ROOMS`` seeded rooms: a
+    B=32, N=500 forward against the plain recurrence, one train step card
+    vs CPU (as phase 10), one request served card vs CPU.
 
 Then a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without a CUDA card.
@@ -185,6 +212,7 @@ from unittest import mock
 import numpy as np
 import torch
 
+from room_slam_torch import predictor as predictor_mod
 from room_slam_torch import resolve_device
 from room_slam_torch.config import ExperimentConfig
 from room_slam_torch.data import formats
@@ -198,10 +226,13 @@ from room_slam_torch.models import gru as gru_mod
 from room_slam_torch.models import lstm as lstm_mod
 from room_slam_torch.models.factory import build_model
 from room_slam_torch.models.legacy_gru import RoomSlamGRU
+from room_slam_torch.native import trace_parser
 from room_slam_torch.ops import build, gru_cuda, rnn_cuda
 from room_slam_torch.ops import losses as losses_mod
 from room_slam_torch.ops import rnn as rnn_ops
 from room_slam_torch.ops.losses import legacy_criterion, legacy_match
+from room_slam_torch.ops.nms import post_process
+from room_slam_torch.ops.refine import y_planes_from_colliders
 from room_slam_torch.predictor import build_predictor
 from room_slam_torch.train import loop
 from room_slam_torch.train.driver import (legacy_batches, legacy_data,
@@ -284,6 +315,17 @@ FUSED_SHAPES = (((3, 53, 16, 24), torch.float32),
                 ((16, 1000, 256, 512), torch.bfloat16),
                 ((5, 97, 32, 40), torch.bfloat16))
 LSTM_BF16_SHAPES = LSTM_SHAPES   # bf16 BiLSTM kernel checks
+# phases 35-37: the serving path's options, #1 at the test-time view
+# batches, hole tokens
+RECIPE_REQUESTS = 5                       # requests checked card vs CPU
+RECIPE_WINDOW, RECIPE_WARMUP = 50, 5      # requests timed per recipe
+GATE_TAU = 0.448                          # the adopted auto gates' tau
+QSCORE_WEIGHTS = REPO / "results" / "r5_qscore_multi.json"
+TTA_SHAPES = ((4, 1500, 64), (8, 1500, 64), (24, 1500, 64))
+HOLE_TOKENS, HOLE_ROOMS = 8, 32
+# phase 7's JSON stage measured with the Python parser before the native
+# one (NVIDIA H100 80GB HBM3, 700.00 W)
+PYTHON_PARSER_JSON_MS = 7.710
 GRU_PLAIN = {"bigru_fwd_cuda": gru_cuda.bigru_fwd_plain,
              "bigru_fwd_train_cuda": gru_cuda.bigru_fwd_train_plain,
              "bigru_bwd_cuda": gru_cuda.bigru_bwd_plain}
@@ -1091,9 +1133,10 @@ def n_moved(rows_a, matched_a, rows_b, matched_b) -> int:
     return int(((matched_a != matched_b) | (both & (rows_a != rows_b))).sum())
 
 
-def step_parity(cfg, train_dir, dev, seed):
+def step_parity(cfg, train_dir, dev, seed, tag="step_parity"):
     """Phase 10: one step on the card and on the CPU from the same
-    parameters and batch, augmentation off, dropout 0."""
+    parameters and batch, augmentation off, dropout 0 (phase 37 under
+    ``tag`` "hole_step")."""
     cfg = copy.deepcopy(cfg)
     cfg.model.dropout = 0.0
     ds = TraceColliderArrays(train_dir, cfg.data, augment=False,
@@ -1150,10 +1193,10 @@ def step_parity(cfg, train_dir, dev, seed):
     assert tie_gap <= TIE_RTOL, tie_gap
     loss_rel, live_err, other_err = step_diffs(l_gpu, l_cpu, p_gpu, p_cpu,
                                                g_cpu)
-    log("step_parity",
+    log(tag,
         f"card vs CPU at the unmodified init (inv_temp={init_temp:g}), not "
         f"asserted: {init_moved} matched targets assigned differently")
-    log("step_parity",
+    log(tag,
         f"card vs CPU, one step B={cfg.train.batch_size} N="
         f"{cfg.data.max_trace_len}, inv_temp=100: {int(m_cpu.sum())} matched "
         f"pairs, {n_moved(r_gpu, m_gpu, r_cpu, m_cpu)} assigned differently "
@@ -2462,31 +2505,33 @@ def resume_path(cfg, train_dir, val_dir, save_dir, epochs, dev, first):
 EVAL_KW = dict(batch_size=8, iou_thresh=0.5, threshold=0.1, nms=0.3)
 
 
-def evaluate_path(best, val_dir, dev):
+def evaluate_path(best, val_dir, dev, **passes):
     """Phase 8, last: ``evaluate_benchmark`` on the flagship checkpoint on
     the card against the same call on the CPU: the metric sums' mIoU,
     precision, recall, F1 and class accuracy within 1e-3, and the kept
-    detections compared; mAP equal where the kept sets are equal. Returns
-    the launches of the card's evaluation."""
+    detections compared; mAP equal where the kept sets are equal. Then
+    again with the post-passes ``passes`` (``refine``,
+    ``refine_furniture``, ``extent_slack``). Returns the launches of the
+    card's evaluation."""
+    kw = dict(EVAL_KW, **passes)
     reset_counts()
     t0 = time.perf_counter()
-    got = evaluate_benchmark(str(best), str(val_dir), device=dev, **EVAL_KW)
+    got = evaluate_benchmark(str(best), str(val_dir), device=dev, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = counts()
-    want = evaluate_benchmark(str(best), str(val_dir), device="cpu",
-                              **EVAL_KW)
+    want = evaluate_benchmark(str(best), str(val_dir), device="cpu", **kw)
     for k in ("mIoU", "precision", "recall", "f1", "cls_acc"):
         assert abs(got[k] - want[k]) <= 1e-3, (k, got[k], want[k])
-    rows = {d: benchmark_rows(str(best), str(val_dir), device=d,
-                              **EVAL_KW)[1] for d in (dev, "cpu")}
+    rows = {d: benchmark_rows(str(best), str(val_dir), device=d, **kw)[1]
+            for d in (dev, "cpu")}
     kept = [[(r[1], r[3]) for r in rows[d]] for d in (dev, "cpu")]
     same = kept[0] == kept[1]
     if same and "mAP" in want:
         assert abs(got["mAP"] - want["mAP"]) <= 1e-6, (got["mAP"],
                                                       want["mAP"])
     log("evaluate", f"evaluate_benchmark {best.name} on {val_dir.name} "
-        f"({EVAL_KW}) in {wall:.1f} s: "
+        f"({kw}) in {wall:.1f} s: "
         + json.dumps({k: got[k] for k in got if k != "AP_per_class"})
         + f"; vs the CPU: "
         + " ".join(f"{k} {abs(got[k] - want[k]):.2e}" for k in
@@ -2906,6 +2951,342 @@ def wide_paths(dev, seed, smi):
     return out
 
 
+class EventTimer:
+    """CUDA events around every call of the functions it wraps."""
+
+    def __init__(self):
+        self.pairs = []
+
+    def wrap(self, fn):
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+        return timed
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.pairs]
+
+
+@contextlib.contextmanager
+def fwd_batches():
+    """The batch of every ``bilstm_fwd`` launch made inside the block."""
+    seen = []
+    launch = rnn_cuda._bilstm_fwd_launch
+
+    def spy(fn, save, xg_f, *args, **kwargs):
+        if fn is rnn_cuda.bilstm_fwd_cuda:
+            seen.append(xg_f.shape[0])
+        return launch(fn, save, xg_f, *args, **kwargs)
+
+    with mock.patch.object(rnn_cuda, "_bilstm_fwd_launch", spy):
+        yield seen
+
+
+def max_confidence(model, x, m) -> float:
+    """The auto gates' signal: the largest raw candidate confidence."""
+    with torch.no_grad():
+        out = model(x, m)
+    return float(predictor_mod._max_confidence(out["pred_classes"],
+                                               out.get("pred_objectness")))
+
+
+def serving_recipes(y_planes, tau):
+    """Phase 35's three recipes (``build_predictor`` arguments). ttopt runs
+    with the adopted deadband 0.25: without it, a box the walk grazes
+    switches its plow force on and off as points cross its faces, and 150
+    Adam steps turn a 1e-6 difference in the model's boxes (the kernel's
+    summation order against the plain recurrence's) into steps of the
+    order of lr (0.02 m) and a changed ranking."""
+    return {
+        "unseen": dict(confidence_threshold=0.0, nms_threshold=0.5,
+                       y_planes=y_planes, soft_sigma=0.25, ttopt=True,
+                       ttopt_params={"deadband": 0.25, "auto": tau}),
+        "tta": dict(confidence_threshold=0.0, nms_threshold=0.3,
+                    tta_rotations=True, tta_reflect=True,
+                    tta_scales=(0.9, 1.1), fuse=True, consensus=True,
+                    top_k=15),
+        "passes": dict(confidence_threshold=0.0, nms_threshold=0.3,
+                       refine_clearance=0.3, refine_furniture=True,
+                       synth_walls=True, synth_furniture="v2",
+                       extent_slack=1.0, qscore=str(QSCORE_WEIGHTS),
+                       qscore_auto=tau, ttopt=True,
+                       ttopt_params={"deadband": 0.25}),
+    }
+
+
+def colliders_diff(got, ref) -> float:
+    """Card vs CPU answers: labels equal (asserted), the largest abs
+    difference of confidences, centers and sizes."""
+    assert [c["label"] for c in got] == [c["label"] for c in ref], (
+        [c["label"] for c in got], [c["label"] for c in ref])
+    return max((np.abs(np.subtract(collider_values(a), collider_values(b))
+                       ).max() for a, b in zip(got, ref)), default=0.0)
+
+
+def serve_recipes(model, max_len, dev, seed, smi):
+    """Phase 35: the flagship served with the three recipes. Per recipe,
+    ``RECIPE_REQUESTS`` requests on the card against the same predictor on
+    the CPU (labels equal, values within MODEL_TOL), exactly two
+    ``bilstm_fwd`` launches a request at B = R views (asserted), then p50 /
+    p99 over ``RECIPE_WINDOW`` requests after ``RECIPE_WARMUP``, split into
+    load / prepare / run / finish on the host clock with the NMS
+    (``post_process``) and ttopt stages on CUDA events. Returns the launch
+    batches of the checked requests and the rows."""
+    traces = [walk(2 * max_len, seed + 200 + i)
+              for i in range(RECIPE_REQUESTS)]
+    cpu_model = copy.deepcopy(model).cpu()
+    batches, rows = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for i, t in enumerate(traces):
+            files.append(Path(tmp) / f"request_{i}.json")
+            formats.save_trace_json(files[-1], t)
+        cols = Path(tmp) / "colliders.json"
+        cols.write_text(json.dumps({"colliders": [
+            {"label": "BLOCK", "center": {"x": 0.0, "y": 1.8, "z": -3.1},
+             "size": {"x": 6.0, "y": 3.6, "z": 0.12}},
+            {"label": "BLOCK", "center": {"x": 3.1, "y": 1.75, "z": 0.0},
+             "size": {"x": 0.12, "y": 3.5, "z": 6.0}},
+            {"label": "MID", "center": {"x": 1.0, "y": 0.5, "z": 1.0},
+             "size": {"x": 1.0, "y": 1.0, "z": 0.6}}]}))
+        y_planes = y_planes_from_colliders(str(cols))
+        assert np.allclose(y_planes, (0.0, 3.6)), y_planes
+        probe = build_predictor(model, max_trace_len=max_len, device=dev,
+                                verbose=False)
+        signals = [max_confidence(model, *probe.prepare(
+            formats.load_trace_json(f))) for f in files]
+        tau = GATE_TAU
+        if not min(signals) < tau <= max(signals):
+            s = sorted(signals)
+            tau = (s[len(s) // 2 - 1] + s[len(s) // 2]) / 2
+        fires = [sig < tau for sig in signals]
+        assert any(fires) and not all(fires), (signals, tau)
+        log("serve_recipes",
+            f"gate signals (max raw confidence) {[round(v, 4) for v in signals]}"
+            f"; tau {tau:.4f} (the adopted {GATE_TAU} "
+            + ("reaches both ways" if tau == GATE_TAU else
+               "does not split them: set between the middle signals")
+            + f"): the gates fire for requests "
+            f"{[i for i, f in enumerate(fires) if f]}, skip "
+            f"{[i for i, f in enumerate(fires) if not f]}")
+        recipes = serving_recipes(y_planes, tau)
+        # the view batches the tta recipe's R = 24 leaves out, one request
+        # each, card vs CPU
+        extra = {"tta_rot": dict(confidence_threshold=0.0, nms_threshold=0.3,
+                                 tta_rotations=True),
+                 "tta_rot_reflect": dict(confidence_threshold=0.0,
+                                         nms_threshold=0.3,
+                                         tta_rotations=True,
+                                         tta_reflect=True, fuse=True)}
+        for name, kw in {**recipes, **extra}.items():
+            predict = build_predictor(model, max_trace_len=max_len,
+                                      device=dev, verbose=False, **kw)
+            cpu_predict = build_predictor(cpu_model, max_trace_len=max_len,
+                                          device="cpu", verbose=False, **kw)
+            R = len(predict.views)
+            checked = files if name in recipes else files[:1]
+            reset_counts()
+            with fwd_batches() as seen:
+                answers = [predict(formats.load_trace_json(f))
+                           for f in checked]
+            torch.cuda.synchronize()
+            assert counts() == expected_counts(
+                bilstm_fwd=2 * len(checked)), counts()
+            assert seen == [R] * (2 * len(checked)), seen
+            batches += seen
+            errs = [colliders_diff(a, cpu_predict(formats.load_trace_json(f)))
+                    for a, f in zip(answers, checked)]
+            assert max(errs) <= MODEL_TOL, (name, errs)
+            assert all(len(a) > 0 for a in answers), name
+            log("serve_recipes",
+                f"{name} {kw}: R={R} views, {len(checked)} requests, "
+                f"colliders {[len(a) for a in answers]}, bilstm_fwd launches "
+                f"at B={sorted(set(seen))}: {len(seen)}; card vs CPU max abs "
+                f"diff {max(errs):.3e} tol {MODEL_TOL:.0e}, labels equal")
+            if name not in recipes:
+                continue
+            rows[name] = time_recipe(name, predict, files, R, smi)
+        support_direct(recipes["passes"], model, cpu_model, max_len, dev,
+                       files[0])
+    return batches, rows
+
+
+def time_recipe(name, predict, files, R, smi):
+    """Phase 35's timing of one recipe: the window's requests cycle over
+    the checked traces."""
+    stages = ("load", "prepare", "run", "finish")
+    for i in range(RECIPE_WARMUP):
+        predict(formats.load_trace_json(files[i % len(files)]))
+    nms, ttopt = EventTimer(), EventTimer()
+    ms = np.zeros((RECIPE_WINDOW, len(stages)))
+    with mock.patch.object(predictor_mod, "post_process",
+                           nms.wrap(predictor_mod.post_process)), \
+            mock.patch.object(predictor_mod, "adapt_boxes",
+                              ttopt.wrap(predictor_mod.adapt_boxes)):
+        for i in range(RECIPE_WINDOW):
+            t = [time.perf_counter()]
+            arr = formats.load_trace_json(files[i % len(files)])
+            t.append(time.perf_counter())
+            x, m = predict.prepare(arr)
+            t.append(time.perf_counter())
+            stacked = predict.run(x, m)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            predict.finish(stacked)
+            t.append(time.perf_counter())
+            ms[i] = np.diff(t) * 1e3
+    req = ms.sum(1)
+    nms_ms, ttopt_ms = nms.ms(), ttopt.ms()
+    row = {"recipe": name, "views": R, "requests": RECIPE_WINDOW,
+           "warmup": RECIPE_WARMUP,
+           "p50_ms": float(np.percentile(req, 50)),
+           "p99_ms": float(np.percentile(req, 99)),
+           "mean_ms": float(req.mean()),
+           **{f"{k}_ms": float(v) for k, v in zip(stages, ms.mean(0))},
+           "nms_ms": float(np.median(nms_ms)),
+           "ttopt_ms": float(np.median(ttopt_ms)) if ttopt_ms else None,
+           "candidates": int(stacked.shape[0])}
+    log("serve_recipes", f"{name}: {json.dumps(row)} (host clock; nms_ms "
+        f"and ttopt_ms: CUDA events, median a request) on {smi}")
+    return row
+
+
+def support_direct(kw, model, cpu_model, max_len, dev, trace_file):
+    """Phase 35: support-ordered NMS (``post_process(support=)``, which no
+    predictor argument reaches) on the passes recipe's pooled candidates of
+    one request, card vs CPU on the same inputs."""
+    captured = []
+
+    def capture(*args, **kwargs):
+        captured.append((args, kwargs))
+        return post_process(*args, **kwargs)
+
+    predict = build_predictor(model, max_trace_len=max_len, device=dev,
+                              verbose=False, **kw)
+    with mock.patch.object(predictor_mod, "post_process", capture):
+        predict(formats.load_trace_json(trace_file))
+    (boxes, logits), opts = captured[0]
+    opts = dict(opts, support=0.25)
+    got, ms = timed_once(lambda: post_process(boxes, logits, **opts))
+    cpu_opts = {k: (v.cpu() if torch.is_tensor(v) else v)
+                for k, v in opts.items()}
+    ref = post_process(boxes.cpu(), logits.cpu(), **cpu_opts)
+    assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(
+        got[1].cpu(), ref[1])
+    err = max((g.cpu() - r).abs().max().item()
+              for g, r in zip(got[2:], ref[2:]))
+    assert err <= MODEL_TOL, err
+    log("serve_recipes", f"support=0.25 through post_process on the passes "
+        f"recipe's {boxes.shape[0]} pooled candidates: {int(got[0].sum())} "
+        f"kept, keep and labels equal card vs CPU, values max abs diff "
+        f"{err:.3e}; {ms:.3f} ms (CUDA events, one call)")
+
+
+def time_tta_batches(dev, seed, launched):
+    """Phase 36: ``bilstm_fwd`` at the test-time view batches against its
+    plain version (the planner's unit tile), its time against the bound and
+    cuDNN's bidirectional ``nn.LSTM`` (never called by the port), µs a
+    step; ``launched`` maps a batch to phase 35's launches at it."""
+    rows = []
+    for shape in TTA_SHAPES:
+        B, N, H = shape
+        ins = kernel_inputs(*shape, dev, seed)
+        got = rnn_cuda.bilstm_fwd_cuda(*ins)
+        plan = dict(rnn_cuda.bilstm_fwd_cuda.last_launch)
+        ref, plain_ms = timed_once(
+            lambda: rnn_cuda.bilstm_recurrence_plain(*ins))
+        err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        assert plan["kernel"] == "unit", plan
+        assert err <= KERNEL_ATOL, (shape, err)
+        kernel_ms = cuda_ms(lambda: rnn_cuda.bilstm_fwd_cuda(*ins), 10)
+        lib = torch.nn.LSTM(2 * H, H, batch_first=True,
+                            bidirectional=True).to(dev)
+        x = torch.randn(B, N, 2 * H, device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed))
+        with torch.no_grad():
+            library_ms = cuda_ms(lambda: lib(x), 10)
+        bound_ms, bound_by = bilstm_bound(B, N, H)
+        row = {"shape": list(shape), "err": err, "kernel_ms": kernel_ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_us": bound_ms * 1e3, "bound_by": bound_by,
+               "us_per_step": kernel_ms / N * 1e3,
+               "library_us_per_step": library_ms / N * 1e3,
+               "launch": plan, "launches": launched.get(B, 0)}
+        rows.append(row)
+        log("tta_kernel", json.dumps(row) + "  (library_ms: cuDNN "
+            "bidirectional nn.LSTM, includes the input projection; plain_ms "
+            "one call; launches: phase 35's at this batch)")
+    return rows
+
+
+def hole_tokens_path(cfg, dev, seed, smi):
+    """Phase 37: the flagship with ``hole_tokens`` at full width, seeded
+    weights, on ``HOLE_ROOMS`` seeded rooms (their walks leave interior
+    holes): a B=32, N=500 forward on the card against the plain
+    recurrence, one train step card vs CPU (as phase 10), one request
+    served card vs CPU."""
+    hcfg = copy.deepcopy(cfg)
+    hcfg.model.hole_tokens = HOLE_TOKENS
+    model = build_model(hcfg.model)
+    params = random_params(model, seed)
+    params["params"]["decoder"]["inv_temp"] = np.float32(100.0)
+    load_params(model, params)
+    model = model.to(dev).eval()
+    B, N = 32, 500
+    with tempfile.TemporaryDirectory() as tmp:
+        rooms = write_rooms(Path(tmp), HOLE_ROOMS, seed + 30)
+        walks = [formats.load_trace_json(f) for f in rooms]
+        raw = np.stack([formats.linspace_downsample(w, N)
+                        for w in walks[:B]])
+        lengths = np.random.default_rng(seed + 3).integers(N // 2, N + 1,
+                                                           size=len(raw))
+        lengths[0] = N
+        feats, mask = featurize(torch.from_numpy(raw).to(dev),
+                                torch.from_numpy(lengths).to(dev))
+        with torch.inference_mode():
+            reset_counts()
+            out = model(feats, mask)
+            torch.cuda.synchronize()
+            assert counts() == expected_counts(bilstm_fwd=2), counts()
+            with mock.patch.object(lstm_mod, "bilstm_recurrence",
+                                   rnn_cuda.bilstm_recurrence_plain):
+                ref = model(feats, mask)
+            errs = {}
+            for k, v in out.items():
+                assert torch.isfinite(v).all(), k
+                errs[k] = (v - ref[k]).abs().max().item()
+                assert torch.allclose(v, ref[k], rtol=MODEL_TOL,
+                                      atol=MODEL_TOL), (k, errs[k])
+            holes = lstm_mod.hole_components(feats[..., 0], feats[..., 2],
+                                             mask, HOLE_TOKENS)
+            live = int((holes["area_m2"] > 0.02).sum())
+            fwd_ms = cuda_ms(lambda: model(feats, mask), 10)
+        assert live > 0
+        log("hole_tokens", f"lstm hole_tokens={HOLE_TOKENS} forward "
+            f"B={len(raw)} N={N} on {HOLE_ROOMS} seeded rooms: {live} of "
+            f"{len(raw) * HOLE_TOKENS} hole slots live; max abs err vs plain "
+            + " ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" tol {MODEL_TOL:.0e}; {fwd_ms:.3f} ms (CUDA events) on {smi}")
+        step_parity(hcfg, Path(tmp), dev, seed, tag="hole_step")
+        kw = dict(max_trace_len=hcfg.data.max_trace_len,
+                  confidence_threshold=0.0, nms_threshold=0.3, verbose=False)
+        reset_counts()
+        got = build_predictor(model, device=dev, **kw)(walks[-1])
+        assert counts() == expected_counts(bilstm_fwd=2), counts()
+        err = colliders_diff(got, build_predictor(
+            copy.deepcopy(model).cpu(), device="cpu", **kw)(walks[-1]))
+        assert err <= MODEL_TOL and len(got) > 0, err
+        log("hole_tokens", f"one request of {len(walks[-1])} points served: "
+            f"{len(got)} colliders, card vs CPU max abs diff {err:.3e}, "
+            "labels equal")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2946,6 +3327,14 @@ def main() -> int:
         if res.name in USAGE_KERNELS:
             check_usage(res.name, build.ptxas_usage(res.log))
     log("build", f"all kernels in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    parser_lib = trace_parser.build()
+    trace_parser.load_library()
+    assert parser_lib.parent == REPO / "build" / "native", parser_lib
+    log("build", f"native trace parser (g++ {' '.join(trace_parser.GXX_FLAGS)}"
+                 f") from {trace_parser.SRC.relative_to(REPO)}: "
+                 f"{parser_lib.relative_to(REPO)} in "
+                 f"{time.perf_counter() - t0:.1f} s")
 
     # 3. kernel check against the plain versions on the card
     errs = {}
@@ -3137,10 +3526,12 @@ def main() -> int:
         f"ms, mean {req.mean():.3f}, min {req.min():.3f}, max "
         f"{req.max():.3f} ms on {smi}")
     log("serve_latency",
-        "mean per request (host clock): JSON load {load:.3f} ms; prepare "
-        "(featurize, pad, H2D) {prepare:.3f} ms; run (forward + "
-        "post_process, launch and wait) {run:.3f} ms; finish (D2H, collider "
-        "dicts) {finish:.3f} ms".format(**mean))
+        "mean per request (host clock): JSON load {load:.3f} ms (native "
+        "parser; the Python parser's earlier run: {py:.3f} ms on NVIDIA "
+        "H100 80GB HBM3, 700.00 W); prepare (featurize, pad, H2D) "
+        "{prepare:.3f} ms; run (forward + post_process, launch and wait) "
+        "{run:.3f} ms; finish (D2H, collider dicts) {finish:.3f} ms".format(
+            py=PYTHON_PARSER_JSON_MS, **mean))
     log("serve_latency",
         f"device (CUDA events, 50 calls back to back): forward "
         f"{fwd1_ms:.3f} ms, of which bilstm_fwd {mcfg.lstm_layers} x "
@@ -3157,6 +3548,8 @@ def main() -> int:
         resume_path(cfg, train_dir, val_dir, Path(tmp) / "ckpt", EPOCHS, dev,
                     first)
         evaluated = evaluate_path(best, val_dir, dev)
+        evaluate_path(best, val_dir, dev, refine=0.3, refine_furniture=True,
+                      extent_slack=1.0)
         serve_checkpoint(best, sorted(val_dir.glob("*_trace.json"))[0], dev)
         step_parity(cfg, train_dir, dev, args.seed)
         time_steps(cfg, train_dir, dev, args.seed, smi, train_rows,
@@ -3243,6 +3636,17 @@ def main() -> int:
     wide_launched = wide_paths(dev, args.seed, smi)
     log("done", f"phases 31-34 (GRU masked widths {list(masked)}) in "
                 f"{time.perf_counter() - t_wide:.1f} s")
+
+    # 35-37. the serving path's recipes on the flagship (a main path), #1
+    # at the test-time view batches, the flagship with hole tokens
+    t_serve = time.perf_counter()
+    recipe_batches, recipe_rows = serve_recipes(model, max_len, dev,
+                                                args.seed, smi)
+    tta_rows = time_tta_batches(
+        dev, args.seed, {B: recipe_batches.count(B) for B in
+                         set(recipe_batches)})
+    hole_tokens_path(cfg, dev, args.seed, smi)
+    log("done", f"phases 35-37 in {time.perf_counter() - t_serve:.1f} s")
 
     def entry(name, source, replaces, launched, row):
         return {"name": name, "route": "cuda", "source": source,
@@ -3353,6 +3757,8 @@ def main() -> int:
                                 wide_rows[name]),
                         "shapes": [wide_rows[name]]})
     kernels[0]["launches_evaluate"] = evaluated["bilstm_fwd"]
+    kernels[0]["shapes"] += tta_rows
+    kernels[0]["recipes"] = recipe_rows
     log("done", f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

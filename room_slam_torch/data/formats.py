@@ -1,6 +1,7 @@
 """Host-side trace and collider JSON I/O and the legacy CSV surface (own
-copy of the JAX package's ``data/formats.py``; the native C++ trace parser
-is not ported).
+copy of the JAX package's ``data/formats.py``). Trace JSON loads through
+the native parser (``native/trace_parser.py``); a file it declines is
+parsed in Python.
 
 - trace JSON: a list of ``{"timestamp","x","y","z"}`` rows, or a dict with a
   ``traces`` / ``trajectory`` key.
@@ -22,6 +23,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from room_slam_torch.config import BENCH_ID_TO_LABEL, BENCH_LABELS
+from room_slam_torch.native import trace_parser
 
 
 def parse_trace_records(data) -> np.ndarray:
@@ -41,7 +43,12 @@ def parse_trace_records(data) -> np.ndarray:
 
 
 def load_trace_json(path: str | Path) -> np.ndarray:
-    """Load a trace JSON file to ``[N, 4]`` (x, y, z, t) float32."""
+    """Load a trace JSON file to ``[N, 4]`` (x, y, z, t) float32 with the
+    native parser; a file the parser declines goes to
+    ``parse_trace_records``."""
+    arr = trace_parser.parse_trace_file(path)
+    if arr is not None:
+        return arr
     with open(path, "r") as f:
         return parse_trace_records(json.load(f))
 

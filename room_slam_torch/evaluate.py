@@ -16,7 +16,10 @@ recall, F1, class accuracy), then each sample's post-processed detections
 (confidence threshold, per-class NMS, optional consensus rescoring)
 against its ground truth: ``mAP`` and ``AP_per_class`` by label name, and
 the operating point's ``det_precision``, ``det_recall``, ``det_f1`` and
-``det_tp``.
+``det_tp``. ``--refine CLEARANCE`` (with ``--refine_furniture``) snaps each
+sample's wall boxes to its trace-extent planes before post-processing;
+``--extent_slack M`` drops kept detections entirely outside the trace
+extent + M after NMS (the predictor applies it before NMS).
 
 The legacy surface scores a legacy GRU checkpoint per trace: every window of a CSV trace goes
 through the model in one batch, the slots whose confidence (sigmoid
@@ -26,10 +29,8 @@ rotated-box mAP at ``--iou_thresh``. ``--compare_baseline`` scores the
 rule-based occupancy baseline on each whole trace beside it. Prints the
 metrics as JSON.
 
-Not ported yet, each raising ``NotImplementedError``: ``--extent_slack``
-(ROADMAP queue 1 item 10, the inference options), ``--refine`` /
-``--refine_furniture`` (item 11, the post-passes) and ``--visualize`` (item
-16).
+Not ported yet, raising ``NotImplementedError``: ``--visualize`` (ROADMAP
+queue 1 item 16).
 ``--device`` defaults to ``cuda`` and raises without a card unless
 ``--device cpu`` is given.
 """
@@ -52,6 +53,7 @@ from room_slam_torch.data.legacy import LegacyArrays
 from room_slam_torch.models.baseline import OccupancyBaseline
 from room_slam_torch.models.legacy_gru import RoomSlamGRU
 from room_slam_torch.ops.nms import post_process
+from room_slam_torch.ops.refine import outside_extent_mask, refine_walls
 from room_slam_torch.train import checkpoint as ckpt_lib
 from room_slam_torch.train.driver import load_model_for_inference
 from room_slam_torch.train.loop import gather_batch
@@ -66,12 +68,16 @@ from room_slam_torch.weights import load_params
 def benchmark_rows(checkpoint: str, data_dir: str, batch_size: int = 8,
                    iou_thresh: float = 0.5, threshold: float = 0.5,
                    nms: float = 0.3, consensus: bool = False,
-                   device: str | torch.device = "cuda"
+                   device: str | torch.device = "cuda",
+                   refine: float | None = None,
+                   refine_furniture: bool = False,
+                   extent_slack: float | None = None
                    ) -> Tuple[Dict[str, float], List[Tuple], List[Tuple]]:
     """What ``evaluate_benchmark`` scores: the metric sums of the batches of
     an unshuffled epoch plan, and per sample of weight 1 (in the
     reference's order) its post-processed detections ``(box, label,
-    confidence, sample)`` and its GT ``(box, label, sample)``."""
+    confidence, sample)`` and its GT ``(box, label, sample)``; ``refine``
+    and ``extent_slack`` as in the module docstring."""
     model, cfg = load_model_for_inference(checkpoint, device)
     dev = next(model.parameters()).device
     ds = TraceColliderArrays(data_dir, cfg.data, augment=False,
@@ -90,19 +96,28 @@ def benchmark_rows(checkpoint: str, data_dir: str, batch_size: int = 8,
             acc[k] = acc.get(k, 0.0) + float(v)
         out = model(*featurize(batch["raw"], batch["length"]))
         obj = out.get("pred_objectness")
-        boxes_all = out["pred_boxes"].cpu().numpy()
         for b in range(batch["raw"].shape[0]):
             if plan["weight"][i, b] == 0:
                 continue
+            pred_b = out["pred_boxes"][b]
+            raw_b, len_b = batch["raw"][b], batch["length"][b]
+            if refine is not None:
+                pred_b = refine_walls(
+                    pred_b, out["pred_classes"][b].argmax(-1), raw_b, len_b,
+                    clearance=refine, furniture_aware=refine_furniture)
             keep, labels, conf = post_process(
-                out["pred_boxes"][b], out["pred_classes"][b],
+                pred_b, out["pred_classes"][b],
                 confidence_threshold=threshold, nms_threshold=nms,
                 consensus=consensus,
                 objectness=None if obj is None else obj[b])
+            if extent_slack is not None:
+                keep = keep & ~outside_extent_mask(pred_b, raw_b, len_b,
+                                                   slack=extent_slack)
             keep, labels, conf = (keep.cpu().numpy(), labels.cpu().numpy(),
                                   conf.cpu().numpy())
+            boxes = pred_b.cpu().numpy()
             for q in np.where(keep)[0]:
-                pred_rows.append((boxes_all[b, q], int(labels[q]),
+                pred_rows.append((boxes[q], int(labels[q]),
                                   float(conf[q]), img))
             j = int(plan["base_idx"][i, b])
             for m in np.where(ds.valid[j])[0]:
@@ -114,14 +129,17 @@ def benchmark_rows(checkpoint: str, data_dir: str, batch_size: int = 8,
 def evaluate_benchmark(checkpoint: str, data_dir: str, batch_size: int = 8,
                        iou_thresh: float = 0.5, threshold: float = 0.5,
                        nms: float = 0.3, consensus: bool = False,
-                       device: str | torch.device = "cuda") -> Dict:
+                       device: str | torch.device = "cuda",
+                       refine: float | None = None,
+                       refine_furniture: bool = False,
+                       extent_slack: float | None = None) -> Dict:
     """The metrics of the JAX package's ``evaluate_benchmark`` for the
     benchmark checkpoint stem ``checkpoint`` on the trace/collider pairs of
     ``data_dir`` (``benchmark_rows``), scored as described in the module
     docstring."""
-    acc, pred_rows, gt = benchmark_rows(checkpoint, data_dir, batch_size,
-                                        iou_thresh, threshold, nms,
-                                        consensus, device)
+    acc, pred_rows, gt = benchmark_rows(
+        checkpoint, data_dir, batch_size, iou_thresh, threshold, nms,
+        consensus, device, refine, refine_furniture, extent_slack)
     metrics = summarize_metrics(acc)
     if pred_rows and gt:
         rows = (np.stack([r[0] for r in pred_rows]),
@@ -264,21 +282,14 @@ def main(argv: List[str] | None = None) -> None:
     if surface == "auto":
         surface = "legacy" if "legacy" in args.checkpoint else "bench"
         print(f"[evaluate] auto-detected surface: {surface}")
-    if args.extent_slack is not None:
-        raise NotImplementedError(
-            "--extent_slack is not ported yet (ROADMAP queue 1 item 10, the "
-            "inference options)")
-    if args.refine is not None or args.refine_furniture:
-        raise NotImplementedError(
-            "--refine / --refine_furniture are not ported yet (ROADMAP queue "
-            "1 item 11, the post-passes)")
     if args.visualize:
         raise NotImplementedError(
             "--visualize is not ported yet (ROADMAP queue 1 item 16)")
     if surface == "bench":
         metrics = evaluate_benchmark(
             args.checkpoint, args.data_dir, args.batch_size, args.iou_thresh,
-            args.threshold, args.nms, args.consensus, args.device)
+            args.threshold, args.nms, args.consensus, args.device,
+            args.refine, args.refine_furniture, args.extent_slack)
     else:
         metrics = evaluate_legacy(
             args.checkpoint, args.data_dir, args.hidden_size,

@@ -93,14 +93,17 @@ def center_traces_xz(traces: torch.Tensor, mask: Optional[torch.Tensor]):
 
     Returns (shifted traces, offsets ``[B, 1, 2]``). Padded rows are
     re-zeroed after the shift: the recurrences consume padding steps, so a
-    shifted padding row would break translation invariance.
+    shifted padding row would break translation invariance. The mean sums
+    in float64 and rounds once, so the card and the CPU shift by the same
+    float32 offset: the hole tokens' raster (``ops/refine.hole_components``)
+    moves a point to another cell on a one-ulp shift.
     """
     if mask is None:
         mask = _full_mask(traces)
-    m = mask[..., None].to(traces.dtype)
+    m = mask[..., None].double()
     denom = torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)
-    xz = torch.stack([traces[..., 0], traces[..., 2]], dim=-1)
-    offs = (xz * m).sum(dim=1, keepdim=True) / denom          # [B, 1, 2]
+    xz = torch.stack([traces[..., 0], traces[..., 2]], dim=-1).double()
+    offs = ((xz * m).sum(dim=1, keepdim=True) / denom).to(traces.dtype)
     shifted = traces.clone()
     shifted[..., 0] -= offs[..., 0]
     shifted[..., 2] -= offs[..., 1]

@@ -10,6 +10,12 @@ projections, the gate streams and the recurrence's outputs and residuals,
 the decoder's q/k/v) are bfloat16, as in the JAX model; parameters,
 carries, the softmax and the heads stay float32.
 
+With ``hole_tokens=K`` the K largest interior holes of each walk's
+raster (``ops/refine.hole_components``, no gradient) join the decoder's
+memory as tokens whose coordinate is the hole centroid and whose feature
+is its normalized geometry through the ``hole_proj`` MLP plus the learned
+``hole_embed``.
+
 Output: ``{'pred_boxes': [B, Q, 6], 'pred_classes': [B, Q, C]}`` plus
 ``pred_objectness [B, Q]`` and ``pred_aux_boxes [S, B, Q, 6]`` when
 enabled. Parameter names and layouts follow the JAX tree, so
@@ -30,6 +36,7 @@ from room_slam_torch.models.common import (MLP, ContactRefineStage, Dense,
                                            compute_dtype_of,
                                            reset_parameters,
                                            trace_extent_planes)
+from room_slam_torch.ops.refine import hole_components
 from room_slam_torch.ops.rnn import input_gates
 from room_slam_torch.ops.rnn_cuda import bilstm_recurrence
 
@@ -232,9 +239,7 @@ class TraceToColliderLSTM(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         cd = compute_dtype_of(compute_dtype)
-        if hole_tokens:
-            raise NotImplementedError(
-                "hole_tokens > 0 is not ported yet (ROADMAP queue 1 item 11)")
+        self.hole_tokens = hole_tokens
         self.objectness = objectness
         self.center_xz = center_xz
         self.refine_stages = refine_stages
@@ -243,7 +248,13 @@ class TraceToColliderLSTM(nn.Module):
         self.decoder = SimpleQueryDecoder(
             d_model, num_queries, num_classes, objectness, refine_stages,
             extent_features, compute_dtype=cd)
+        if hole_tokens:
+            self.hole_embed = nn.Parameter(torch.empty(d_model))
+            self.hole_proj = MLP(6, d_model, d_model, 2)
         reset_parameters(self, generator)
+        if hole_tokens:
+            with torch.no_grad():
+                self.hole_embed.normal_(0.0, 0.02, generator=generator)
 
     def forward(self, traces: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
@@ -254,6 +265,51 @@ class TraceToColliderLSTM(nn.Module):
         if self.center_xz:
             traces, offs = center_traces_xz(traces, mask)
         memory, coords, mean, scale = self.encoder(traces, mask, generator)
+        if self.hole_tokens:
+            memory, coords, mask = self._append_hole_tokens(
+                memory, coords, mask, mean, scale)
         outs = self.decoder(memory, coords, mean, scale, mask)
         return assemble_output(outs, offs, self.objectness,
                                self.refine_stages)
+
+    def _append_hole_tokens(self, memory, coords, mask, mean, scale):
+        """Append the K largest interior holes of each walk's raster to
+        the decoder memory (``[B, N + K, *]``): coordinate the hole
+        centroid at the trace's mean height, feature the normalized
+        geometry through ``hole_proj`` plus ``hole_embed``; slots of
+        under 0.02 m^2 are masked out."""
+        B, N, _ = memory.shape
+        K = self.hole_tokens
+        if mask is None:
+            mask = torch.ones(B, N, dtype=torch.bool, device=memory.device)
+        # the raster statistics are piecewise constant in the coordinates:
+        # no gradient through them
+        with torch.no_grad():
+            h = hole_components(coords[..., 0].detach(),
+                                coords[..., 2].detach(), mask, K)
+        valid = h["area_m2"] > 0.02
+
+        # empty slots read +-inf extents: zero them before the MLP
+        def safe(a):
+            return torch.where(valid, torch.nan_to_num(a, posinf=0.0,
+                                                       neginf=0.0), 0.0)
+
+        c_x, c_z = safe(h["c_x"]), safe(h["c_z"])
+        s_x, s_z = safe(h["s_x"]), safe(h["s_z"])
+        area = safe(h["area_m2"])
+        sc = scale[:, :, 0]                                     # [B, 1]
+        geom = torch.stack([
+            (c_x - mean[:, :, 0]) / sc,
+            (c_z - mean[:, :, 2]) / sc,
+            s_x / sc,
+            s_z / sc,
+            torch.log1p(area),
+            torch.minimum(s_x, s_z) / torch.clamp(torch.maximum(s_x, s_z),
+                                                  min=1e-3),
+        ], dim=-1)                                              # [B, K, 6]
+        h_feat = self.hole_proj(geom) + self.hole_embed
+        h_coords = torch.stack([c_x, mean[:, :, 1].expand(B, K), c_z],
+                               dim=-1)
+        return (torch.cat([memory, h_feat.to(memory.dtype)], dim=1),
+                torch.cat([coords, h_coords], dim=1),
+                torch.cat([mask, valid], dim=1))

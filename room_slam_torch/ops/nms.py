@@ -1,10 +1,16 @@
-"""Greedy 3D NMS at fixed shape and confidence post-processing
-(counterpart of the JAX package's ``ops/nms.py``).
+"""Greedy 3D NMS, soft-NMS and confidence post-processing (counterpart of
+the JAX package's ``ops/nms.py``).
 
 The greedy sweep runs on the boxes' device as a loop of Q steps over all
 classes at once, with no host synchronization. Score order matches the JAX
 package exactly: a stable ascending sort, reversed, so among tied scores
 the higher index goes first.
+
+The soft-NMS sweep picks the argmax of the current (decayed) scores each
+pass, all classes at once. The reference's ``while_loop`` stops once no
+candidate is left; a pass with none left changes nothing, so this loop
+reads that condition on the host every ``SOFT_CHECK_EVERY`` passes and
+stops there, with the reference's result.
 """
 
 from __future__ import annotations
@@ -43,6 +49,64 @@ def _nms_fused_batched(boxes: torch.Tensor, scores: torch.Tensor,
         fused[rows, idx] = torch.where(alive[:, None], mean, fused[rows, idx])
         suppressed = suppressed | sup
     return keep, counts, fused
+
+
+SOFT_CHECK_EVERY = 8
+
+
+def _soft_nms_fused_batched(boxes: torch.Tensor, scores: torch.Tensor,
+                            masks: torch.Tensor, dup_threshold: float,
+                            sigma: float):
+    """Soft-NMS of the same ``boxes [Q, 6]`` / ``scores [Q]`` under each of
+    ``masks [C, Q]``. Returns keep ``[C, Q]``, cluster counts ``[C, Q]``
+    (int32), fused boxes ``[C, Q, 6]`` and rescored confidences
+    ``[C, Q]``."""
+    C, Q = masks.shape
+    dev = boxes.device
+    iou = pairwise_iou_3d(boxes, boxes)
+    cur = scores.float().expand(C, Q).clone()
+    neg_inf = torch.finfo(cur.dtype).min
+    rows = torch.arange(C, device=dev)
+    keep = torch.zeros(C, Q, dtype=torch.bool, device=dev)
+    absorbed = torch.zeros_like(keep)
+    counts = torch.zeros(C, Q, dtype=torch.int32, device=dev)
+    fused = boxes.expand(C, Q, 6).clone()
+    for i in range(Q):
+        avail = masks & ~keep & ~absorbed
+        if i % SOFT_CHECK_EVERY == 0 and not bool(avail.any()):
+            break
+        s = torch.where(avail, cur, neg_inf)
+        idx = s.argmax(dim=-1)
+        alive = s[rows, idx] > neg_inf
+        chosen = torch.zeros_like(keep)
+        chosen[rows, idx] = alive
+        keep = keep | chosen
+        dup = ((iou[idx] >= dup_threshold) & avail & alive[:, None]
+               & ~chosen)
+        wsel = chosen | dup
+        w = torch.where(wsel, torch.clamp(cur, min=1e-12), 0.0)
+        mean = (w @ boxes) / torch.clamp(w.sum(-1, keepdim=True), min=1e-12)
+        fused[rows, idx] = torch.where(alive[:, None], mean, fused[rows, idx])
+        counts[rows, idx] = torch.where(alive, wsel.sum(-1).to(torch.int32),
+                                        counts[rows, idx])
+        absorbed = absorbed | dup
+        decay = torch.exp(-(iou[idx] ** 2) / sigma)
+        cur = torch.where(avail & ~wsel & alive[:, None], cur * decay, cur)
+    return keep, counts, fused, cur
+
+
+def soft_nms_3d_fused(boxes: torch.Tensor, scores: torch.Tensor,
+                      mask: torch.Tensor, dup_threshold: float = 0.5,
+                      sigma: float = 0.25):
+    """Soft-NMS (Gaussian rescoring) with tight-cluster fusion: the
+    candidate of highest current score is kept, candidates with IoU >=
+    ``dup_threshold`` are absorbed into its fused box, and every other one
+    decays by ``exp(-iou^2 / sigma)``. Returns (keep ``[Q]``, cluster
+    counts ``[Q]``, fused boxes ``[Q, 6]``, rescored confidences ``[Q]``);
+    a kept box's confidence is its score when it was kept."""
+    out = _soft_nms_fused_batched(boxes, scores, mask[None], dup_threshold,
+                                  sigma)
+    return tuple(t[0] for t in out)
 
 
 def nms_3d_fused(boxes: torch.Tensor, scores: torch.Tensor,
@@ -89,17 +153,17 @@ def post_process(
     Confidence is the max softmax probability, times ``sigmoid(objectness)``
     when given; ``candidate_mask`` gates candidates before NMS;
     ``conf_scale`` rescales the ranking confidence after thresholding;
-    ``fuse`` returns each kept box's fused cluster box (needs
+    ``support`` (support-ordered NMS) then multiplies it by the share of
+    same-class passed confidence mass at IoU >= ``support``;
+    ``soft_sigma`` makes the per-class sweep soft-NMS (``nms_threshold``
+    is then the absorb threshold) and the kept boxes carry their decayed
+    confidences; ``fuse`` returns each kept box's fused cluster box (needs
     ``return_boxes``); ``consensus`` multiplies confidence by the NMS
     cluster's share of queries; ``top_k`` keeps the K best survivors.
 
     Returns (keep ``[Q]`` bool, labels ``[Q]`` int32, confidences ``[Q]``)
     and the output boxes ``[Q, 6]`` when ``return_boxes``.
     """
-    if support is not None or soft_sigma is not None:
-        raise NotImplementedError(
-            "support-ordered NMS and soft-NMS are not ported yet (ROADMAP "
-            "queue 1 item 10)")
     if fuse and not return_boxes:
         raise ValueError("fuse=True changes boxes; pass return_boxes=True")
     probs = torch.softmax(pred_logits, dim=-1)
@@ -112,13 +176,28 @@ def post_process(
         passed = passed & candidate_mask
     if conf_scale is not None:
         conf = conf * conf_scale
+    if support is not None:
+        iou = pairwise_iou_3d(pred_boxes, pred_boxes)
+        same = labels[None, :] == labels[:, None]
+        votes = ((iou >= support) & same & passed[None, :]).to(conf.dtype)
+        mass = torch.where(passed, conf, 0.0)
+        total = same.to(conf.dtype) @ mass
+        conf = conf * (votes @ mass) / torch.clamp(total, min=1e-12)
 
     classes = torch.arange(num_classes, device=labels.device)
     masks = passed[None] & (labels[None] == classes[:, None])
-    keep_pc, counts_pc, fused_pc = _nms_fused_batched(
-        pred_boxes, conf, masks, nms_threshold)
-    keep = keep_pc.any(dim=0)
     qi = torch.arange(labels.shape[0], device=labels.device)
+    if soft_sigma is None:
+        keep_pc, counts_pc, fused_pc = _nms_fused_batched(
+            pred_boxes, conf, masks, nms_threshold)
+        keep = keep_pc.any(dim=0)
+    else:
+        keep_pc, counts_pc, fused_pc, conf_pc = _soft_nms_fused_batched(
+            pred_boxes, conf, masks, nms_threshold, soft_sigma)
+        keep = keep_pc.any(dim=0)
+        # a box is kept only by its own class's pass: adopt its decayed
+        # confidence as the ranking signal
+        conf = torch.where(keep, conf_pc[labels.long(), qi], conf)
     out_boxes = pred_boxes
     if fuse:
         out_boxes = torch.where(keep[:, None], fused_pc[labels.long(), qi],

@@ -111,8 +111,9 @@ def random_params(model: nn.Module, seed: int) -> Dict[str, Any]:
     Dense and LSTM leaves are U(-1/sqrt(fan_in), 1/sqrt(fan_in)), fan_in
     being the dense layer's input width or the LSTM's H. That includes the
     refinement deltas, which a fresh model starts at zero, so every stage
-    does work. ``query_embed`` is N(0, 1); ``inv_temp`` and
-    ``log_radius_slack`` sit near their initial 1 and log(0.3)."""
+    does work. ``query_embed`` is N(0, 1), ``hole_embed`` N(0, 0.02^2);
+    ``inv_temp`` and ``log_radius_slack`` sit near their initial 1 and
+    log(0.3)."""
     rng = np.random.default_rng(seed)
     flat = _flatten(state_dict_to_params(model.state_dict())["params"])
     out: Dict[str, np.ndarray] = {}
@@ -124,6 +125,9 @@ def random_params(model: nn.Module, seed: int) -> Dict[str, Any]:
             fan_in = flat[f"{head}.w_hh_fwd"].shape[0]
         elif leaf == "query_embed":
             out[key] = rng.normal(size=arr.shape).astype(np.float32)
+            continue
+        elif leaf == "hole_embed":
+            out[key] = (0.02 * rng.normal(size=arr.shape)).astype(np.float32)
             continue
         elif leaf == "inv_temp":
             out[key] = np.asarray(1.0 + rng.uniform(-0.1, 0.1), np.float32)

@@ -20,7 +20,8 @@ import pytest
 
 import evaluate as jax_evaluate
 from room_slam_torch.data.rooms import write_rooms
-from room_slam_torch.evaluate import evaluate_benchmark
+from room_slam_torch import evaluate as tevaluate
+from room_slam_torch.evaluate import benchmark_rows, evaluate_benchmark
 from room_slam_torch.evaluate import main as eval_cli
 from room_slam_torch.train import metrics as tmetrics
 from room_slam_tpu.config import ExperimentConfig
@@ -114,6 +115,12 @@ SETTINGS = {"default": dict(iou_thresh=0.5, threshold=0.5, nms=0.3,
                             consensus=False),
             "loose": dict(iou_thresh=0.01, threshold=0.0, nms=0.5,
                           consensus=True)}
+PASSES = {"refine": dict(refine=0.3, refine_furniture=False,
+                         extent_slack=None),
+          "refine_furniture_slack": dict(refine=0.5, refine_furniture=True,
+                                         extent_slack=0.3),
+          "slack": dict(refine=None, refine_furniture=False,
+                        extent_slack=0.0)}
 
 
 @pytest.mark.parametrize("name", list(SETTINGS))
@@ -149,7 +156,62 @@ def test_evaluate_cli_bench_surface(bench, tmp_path, capsys):
     assert "auto-detected surface: bench" in capsys.readouterr().out
     metrics = json.loads(out.read_text())
     assert {"mIoU", "f1", "mAP", "AP_per_class", "det_f1"} <= set(metrics)
-    for flag in (["--extent_slack", "0.5"], ["--refine", "0.5"],
-                 ["--refine_furniture"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            eval_cli(base + ["--surface", "bench", *flag])
+    loose = base + ["--threshold", "0.0", "--iou_thresh", "0.01",
+                    "--surface", "bench"]
+    for flag in (["--extent_slack", "0.3"], ["--refine", "0.5"],
+                 ["--refine", "0.5", "--refine_furniture"]):
+        out = tmp_path / f"m{len(flag)}{flag[0]}.json"
+        eval_cli(loose + [*flag, "--output", str(out)])
+        name = {"--extent_slack": "slack"}.get(flag[0], "refine")
+        kw = dict(PASSES[name], refine_furniture="--refine_furniture" in flag)
+        if flag[0] == "--extent_slack":
+            kw["extent_slack"] = 0.3
+        if flag[0] == "--refine":
+            kw["refine"] = 0.5
+        want = evaluate_benchmark(str(bench / "best_model"),
+                                  str(bench / "val"), iou_thresh=0.01,
+                                  threshold=0.0, device="cpu", **kw)
+        assert json.loads(out.read_text()) == json.loads(
+            json.dumps(want, default=float))
+
+
+@pytest.mark.parametrize("name", list(PASSES))
+def test_evaluate_benchmark_passes_match_jax(bench, name, monkeypatch):
+    """``--refine`` (wall snap before post-processing) and
+    ``--extent_slack`` (after NMS) against the root ``evaluate.py``; each
+    pass runs once a sample."""
+    calls = {"refine_walls": 0, "outside_extent_mask": 0}
+    for fn in calls:
+        def spy(*a, _fn=getattr(tevaluate, fn), _name=fn, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(tevaluate, fn, spy)
+    kw = dict(iou_thresh=0.01, threshold=0.0, nms=0.5, consensus=False)
+    args = argparse.Namespace(
+        checkpoint=str(bench / "best_model"), data_dir=str(bench / "val"),
+        batch_size=2, **kw, **PASSES[name])
+    want = jax_evaluate.evaluate_benchmark(args)
+    got = evaluate_benchmark(str(bench / "best_model"), str(bench / "val"),
+                             batch_size=2, device="cpu", **kw,
+                             **PASSES[name])
+    assert set(got) == set(want)
+    for k in ("mIoU", "precision", "recall", "f1", "cls_acc"):
+        assert abs(got[k] - want[k]) <= 1e-4, k
+    if "mAP" in want:
+        assert abs(got["mAP"] - want["mAP"]) <= 1e-6
+        assert got["AP_per_class"] == want["AP_per_class"]
+        for k in ("det_precision", "det_recall", "det_f1", "det_tp"):
+            assert got[k] == want[k], k
+    n = len({r[2] for r in benchmark_rows(
+        str(bench / "best_model"), str(bench / "val"), batch_size=2,
+        device="cpu", **kw)[2]})
+    assert calls == {
+        "refine_walls": n if PASSES[name]["refine"] is not None else 0,
+        "outside_extent_mask": (n if PASSES[name]["extent_slack"]
+                                is not None else 0)}
+    if name == "slack":     # at slack 0 kept detections are dropped
+        kept = [len(benchmark_rows(str(bench / "best_model"),
+                                   str(bench / "val"), batch_size=2,
+                                   device="cpu", **kw, **extra)[1])
+                for extra in ({}, PASSES[name])]
+        assert kept[0] > kept[1]

@@ -1,6 +1,8 @@
 """Port's featurization, IoU and post-processing against the JAX package on
-the same seeded inputs. Features: exact or 1e-6. post_process: keep masks
-and labels equal, confidences and boxes at 1e-6."""
+the same seeded inputs. Features: exact or 1e-6. post_process (hard, soft
+and support-ordered NMS): keep masks and labels equal, confidences and
+boxes at 1e-6; soft_nms_3d_fused: keep and counts equal, fused boxes and
+rescored confidences at rtol 1e-5 / atol 1e-6."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -99,6 +101,24 @@ CASES = {
                               consensus=True, top_k=7, return_boxes=True),
     "ties": dict(confidence_threshold=0.0, nms_threshold=0.3, ties=True,
                  objectness=True, top_k=8, fuse=True, return_boxes=True),
+    "support": dict(confidence_threshold=0.1, nms_threshold=0.3,
+                    support=0.25, objectness=True),
+    "support_consensus_topk": dict(confidence_threshold=0.0,
+                                   nms_threshold=0.2, support=0.5,
+                                   consensus=True, top_k=6,
+                                   candidates=True),
+    "soft": dict(confidence_threshold=0.0, nms_threshold=0.5,
+                 soft_sigma=0.25, objectness=True),
+    "soft_fuse_topk": dict(confidence_threshold=0.05, nms_threshold=0.5,
+                           soft_sigma=0.5, fuse=True, return_boxes=True,
+                           top_k=7, objectness=True),
+    "soft_consensus_scaled": dict(confidence_threshold=0.0,
+                                  nms_threshold=0.4, soft_sigma=0.1,
+                                  consensus=True, conf_scale=True,
+                                  candidates=True, return_boxes=True),
+    "soft_support_ties": dict(confidence_threshold=0.0, nms_threshold=0.5,
+                              soft_sigma=0.25, support=0.25, ties=True,
+                              objectness=True, fuse=True, return_boxes=True),
 }
 
 
@@ -148,9 +168,40 @@ def test_nms_tie_order_higher_index_first():
     assert keep_t.tolist() == [False, False, True, False]
 
 
-def test_unported_post_process_options_raise():
-    boxes, logits, _ = _detections(0)
-    for kw in (dict(support=0.5), dict(soft_sigma=0.25)):
-        with pytest.raises(NotImplementedError):
-            tnms.post_process(torch.from_numpy(boxes),
-                              torch.from_numpy(logits), **kw)
+@pytest.mark.parametrize("seed,dup,sigma", [(0, 0.5, 0.25), (1, 0.3, 0.5),
+                                             (2, 0.7, 0.1)])
+def test_soft_nms_matches_jax(seed, dup, sigma):
+    boxes, logits, obj = _detections(seed, Q=40)
+    scores = (np.exp(logits).max(-1) / np.exp(logits).sum(-1)
+              ).astype(np.float32)
+    mask = np.random.default_rng(seed).uniform(size=40) > 0.15
+    got = tnms.soft_nms_3d_fused(torch.from_numpy(boxes),
+                                 torch.from_numpy(scores),
+                                 torch.from_numpy(mask), dup, sigma)
+    ref = jnms.soft_nms_3d_fused(jnp.asarray(boxes), jnp.asarray(scores),
+                                 jnp.asarray(mask), dup, sigma)
+    keep, counts = np.asarray(ref[0]), np.asarray(ref[1])
+    np.testing.assert_array_equal(got[0].numpy(), keep)
+    np.testing.assert_array_equal(got[1].numpy(), counts)
+    # every masked candidate is kept or absorbed, and some are absorbed
+    assert counts.sum() == mask.sum() > keep.sum() > 0
+    for g, r in zip(got[2:], ref[2:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_soft_nms_stops_early_with_the_reference_result():
+    """The sweep reads its stop condition every SOFT_CHECK_EVERY passes;
+    a pass with nothing left changes nothing, so every cut gives the same
+    result."""
+    boxes, logits, _ = _detections(5, Q=33)
+    scores = torch.softmax(torch.from_numpy(logits), -1).amax(-1)
+    mask = torch.ones(33, dtype=torch.bool)
+    args = (torch.from_numpy(boxes), scores, mask, 0.5, 0.25)
+    ref = tnms.soft_nms_3d_fused(*args)
+    for every in (1, 3, 100):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tnms, "SOFT_CHECK_EVERY", every)
+            got = tnms.soft_nms_3d_fused(*args)
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, rtol=0, atol=0)

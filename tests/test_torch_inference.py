@@ -1,7 +1,9 @@
 """The serving slice end to end: one JAX checkpoint and one trace JSON
 through the JAX package's ``inference.predict`` and through the port's
-``predict`` on the CPU; the port's CLI; no silent CPU fallback; and the
-port's import hygiene."""
+``predict`` on the CPU, plain and with each serving option (TTA views,
+soft-NMS, ycal, refine, synthesis, ttopt with and without its gate,
+extent slack, qscore with and without its gate); the port's CLI with every
+flag; no silent CPU fallback; and the port's import hygiene."""
 
 import ast
 import json
@@ -16,6 +18,7 @@ import torch
 
 import inference as jax_inference
 from room_slam_torch import resolve_device
+from room_slam_torch.data import formats
 from room_slam_torch.inference import predict
 from room_slam_torch.predictor import build_predictor
 from room_slam_torch.train.driver import load_model_for_inference
@@ -54,17 +57,93 @@ def served(tmp_path_factory):
     return d / "best_model", trace
 
 
+QSCORE = str(REPO / "results" / "r5_qscore_multi.json")
 CASES = {
     "threshold": dict(confidence_threshold=0.1, nms_threshold=0.3),
     "consensus_topk_fuse": dict(confidence_threshold=0.0, nms_threshold=0.2,
                                 consensus=True, top_k=5, fuse=True),
+    "tta_rotations": dict(confidence_threshold=0.1, tta_rotations=True),
+    "tta_reflect": dict(confidence_threshold=0.1, tta_rotations=True,
+                        tta_reflect=True, fuse=True),
+    "tta_scales": dict(confidence_threshold=0.05, tta_rotations=True,
+                       tta_reflect=True, tta_scales=(0.9, 1.1), fuse=True,
+                       consensus=True, top_k=15),
+    "soft": dict(confidence_threshold=0.05, nms_threshold=0.5,
+                 soft_sigma=0.25),
+    "ycal": dict(confidence_threshold=0.1, y_planes=(0.0, 3.6)),
+    "refine_furniture": dict(confidence_threshold=0.1, refine_clearance=0.3,
+                             refine_trust=1.5, refine_furniture=True),
+    "synth_walls": dict(confidence_threshold=0.05, synth_walls=True),
+    "synth_furniture_v1": dict(confidence_threshold=0.05,
+                               synth_furniture=True),
+    "synth_furniture_v2": dict(confidence_threshold=0.05,
+                               synth_furniture="v2", y_planes=(0.0, 3.6)),
+    "ttopt": dict(confidence_threshold=0.1, ttopt=True),
+    "ttopt_auto_fires": dict(confidence_threshold=0.1, ttopt=True,
+                             ttopt_params={"deadband": 0.25,
+                                           "auto": "above"}),
+    "ttopt_auto_skips": dict(confidence_threshold=0.1, ttopt=True,
+                             ttopt_params={"deadband": 0.25,
+                                           "auto": "below"}),
+    "extent_slack": dict(confidence_threshold=0.0, nms_threshold=0.5,
+                         tta_rotations=True, tta_reflect=True,
+                         extent_slack=0.3),
+    "qscore": dict(confidence_threshold=0.0, nms_threshold=0.5,
+                   tta_rotations=True, qscore=QSCORE),
+    "qscore_auto_fires": dict(confidence_threshold=0.0, nms_threshold=0.5,
+                              tta_rotations=True, qscore=QSCORE,
+                              qscore_auto="above"),
+    "qscore_auto_skips": dict(confidence_threshold=0.0, nms_threshold=0.5,
+                              tta_rotations=True, qscore=QSCORE,
+                              qscore_auto="below"),
 }
+
+
+def _max_conf(ckpt, trace, kw):
+    """The auto gates' signal on the served trace: the largest raw
+    candidate confidence over the case's views (port model)."""
+    model, _ = load_model_for_inference(str(ckpt), device="cpu")
+    views = {k: kw[k] for k in ("tta_rotations", "tta_reflect", "tta_scales")
+             if k in kw}
+    pa = build_predictor(model, max_trace_len=MAX_LEN, device="cpu",
+                         verbose=False, **views)
+    with torch.no_grad():
+        out = model(*pa.prepare(formats.load_trace_json(trace)))
+    conf = torch.softmax(out["pred_classes"], -1).amax(-1) * torch.sigmoid(
+        out["pred_objectness"])
+    return float(conf.max())
+
+
+def _resolve_taus(kw, tau):
+    """'above' / 'below' stand for a tau just above or below the served
+    trace's max confidence, so the gate fires or does not."""
+    kw = dict(kw)
+    pick = {"above": tau + 0.01, "below": tau - 0.01}
+    if "ttopt_params" in kw:
+        tp = dict(kw["ttopt_params"])
+        tp["auto"] = pick[tp["auto"]]
+        kw["ttopt_params"] = tp
+    if isinstance(kw.get("qscore_auto"), str):
+        kw["qscore_auto"] = pick[kw["qscore_auto"]]
+    return kw
+
+
+def _values(c):
+    return [c["confidence"], *c["center"].values(), *c["size"].values()]
+
+
+def _assert_same(got, ref):
+    assert [c["label"] for c in got] == [c["label"] for c in ref]
+    for g, r in zip(got, ref):
+        assert set(g) == set(r)
+        np.testing.assert_allclose(_values(g), _values(r), rtol=1e-4,
+                                   atol=1e-4)
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_predict_matches_jax(served, case):
     ckpt, trace = served
-    kw = CASES[case]
+    kw = _resolve_taus(CASES[case], _max_conf(ckpt, trace, CASES[case]))
     jmodel, jparams, _ = jax_load_model(str(ckpt))
     ref = jax_inference.predict(jmodel, jparams, str(trace),
                                 max_trace_len=MAX_LEN, **kw)
@@ -73,12 +152,20 @@ def test_predict_matches_jax(served, case):
     got = predict(model, str(trace), max_trace_len=MAX_LEN, device="cpu",
                   **kw)
     assert len(ref) > 1
-    assert [c["label"] for c in got] == [c["label"] for c in ref]
-    for g, r in zip(got, ref):
-        assert set(g) == set(r)
-        vals = lambda c: [c["confidence"], *c["center"].values(),  # noqa
-                          *c["size"].values()]
-        np.testing.assert_allclose(vals(g), vals(r), rtol=1e-4, atol=1e-4)
+    _assert_same(got, ref)
+    if case.endswith(("_fires", "_skips")):
+        # the gate went the way its tau says: the same answer as the pass
+        # always on (fires) or off (skips)
+        plain = {k: v for k, v in kw.items() if k != "qscore_auto"}
+        if "ttopt_params" in plain:
+            plain["ttopt_params"] = {"deadband": 0.25}
+        if case.endswith("_skips"):
+            plain.pop("ttopt", None)
+            plain.pop("ttopt_params", None)
+            plain.pop("qscore", None)
+        same = predict(model, str(trace), max_trace_len=MAX_LEN,
+                       device="cpu", **plain)
+        _assert_same(got, same)
 
 
 def test_cli_writes_collider_json(served, tmp_path):
@@ -97,6 +184,51 @@ def test_cli_writes_collider_json(served, tmp_path):
     assert data["metadata"]["num_colliders"] == len(direct) > 0
     assert [c["label"] for c in data["colliders"]] == \
         [c["label"] for c in direct]
+
+
+def test_cli_takes_every_serving_flag(served, tmp_path):
+    """One run with every flag of the root ``inference.py``, against the
+    same options through ``predict``."""
+    ckpt, trace = served
+    out = tmp_path / "preds.json"
+    flags = ["--threshold", "0.05", "--nms", "0.5", "--tta", "--tta_reflect",
+             "--tta_scales", "0.9,1.1", "--soft", "0.25", "--ycal",
+             "0.0,3.6", "--refine", "0.3", "--refine_trust", "0.5",
+             "--refine_furniture", "--synth_walls", "--synth_furniture",
+             "v2", "--ttopt", "--ttopt_params",
+             '{"deadband": 0.25, "auto": 0.9}', "--extent_slack", "1.0",
+             "--qscore", QSCORE, "--qscore_auto", "0.9", "--fuse",
+             "--consensus", "--top_k", "12"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "room_slam_torch.inference",
+         "--checkpoint", str(ckpt), "--input", str(trace),
+         "--output", str(out), "--device", "cpu", *flags],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(out.read_text())["colliders"]
+    model, _ = load_model_for_inference(str(ckpt), device="cpu")
+    direct = predict(
+        model, str(trace), max_trace_len=MAX_LEN, confidence_threshold=0.05,
+        nms_threshold=0.5, tta_rotations=True, tta_reflect=True,
+        tta_scales=(0.9, 1.1), soft_sigma=0.25, y_planes=(0.0, 3.6),
+        refine_clearance=0.3, refine_trust=0.5, refine_furniture=True,
+        synth_walls=True, synth_furniture="v2", ttopt=True,
+        ttopt_params={"deadband": 0.25, "auto": 0.9}, extent_slack=1.0,
+        qscore=QSCORE, qscore_auto=0.9, fuse=True, consensus=True, top_k=12,
+        device="cpu")
+    assert 0 < len(got) <= 12
+    _assert_same(got, direct)
+
+
+def test_ycal_spec_matches_jax(tmp_path):
+    from room_slam_torch.inference import _ycal
+
+    cols = tmp_path / "colliders.json"
+    cols.write_text(json.dumps({"colliders": [
+        {"center": {"x": 0, "y": 1.8, "z": 0},
+         "size": {"x": 4, "y": 3.7, "z": 0.1}}]}))
+    for spec in (None, "", "0.0,3.6", "-0.25,3.5", str(cols)):
+        assert _ycal(spec) == jax_inference._ycal(spec), spec
 
 
 def test_entry_points_raise_without_card(served, monkeypatch):
@@ -136,10 +268,12 @@ def test_port_imports_no_jax():
                 "models/legacy_gru.py", "models/baseline.py",
                 "data/legacy.py", "evaluate.py", "ops/iou.py",
                 "ops/rnn.py", "ops/rnn_cuda.py", "tools/__init__.py",
-                "tools/bench_bigru_bwd.py"}
+                "tools/bench_bigru_bwd.py", "ops/refine.py", "ops/ttopt.py",
+                "ops/qscore.py", "native/__init__.py",
+                "native/trace_parser.py", "predictor.py", "inference.py"}
     rel = {str(f.relative_to(REPO / "room_slam_torch")) for f in files[:-1]}
     assert training <= rel, training - rel
-    assert len(files) > 25
+    assert len(files) > 30
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]

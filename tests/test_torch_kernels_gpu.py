@@ -960,3 +960,63 @@ def test_hidden_grads_take_bf16_operands(cuda, shape):
     want_w4 = hp4.t() @ dg.reshape(-1, 4 * H).to(f32)
     for got, want in ((dw, want_w), (db, want_b), (dw4, want_w4)):
         assert _max_rel(got, want) <= 1e-4, _max_rel(got, want)
+
+
+@pytest.mark.parametrize("B", [4, 8, 24])
+def test_kernel_at_tta_view_batches(cuda, B):
+    """#1 at the serving path's test-time view batches (R = 4, 8, 24 views
+    of one 1500-step trace) on the unit kernel, against its plain
+    version."""
+    ins = _inputs(B, 1500, 64, cuda, seed=B)
+    before = rnn_cuda.bilstm_fwd_cuda.launches
+    got = rnn_cuda.bilstm_recurrence(*ins)
+    torch.cuda.synchronize()
+    assert rnn_cuda.bilstm_fwd_cuda.launches == before + 1
+    assert rnn_cuda.bilstm_fwd_cuda.last_launch["kernel"] == "unit"
+    ref = rnn_cuda.bilstm_recurrence_plain(*ins)
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        err = (a - b).abs().max().item()
+        assert err <= ATOL, err
+
+
+def test_tta_serving_card_matches_cpu(cuda):
+    """A small flagship-shaped model served with 8 test-time views, soft-NMS
+    and the trace-informed passes on the card: two #1 launches at B=8 a
+    request, and the colliders of the same predictor on the CPU."""
+    import copy
+
+    from room_slam_torch.config import ModelConfig
+    from room_slam_torch.models.factory import build_model
+    from room_slam_torch.predictor import build_predictor
+
+    model = build_model(ModelConfig(d_model=32, num_queries=8,
+                                    objectness=True, center_xz=True,
+                                    refine_stages=2),
+                        torch.Generator().manual_seed(0)).eval()
+    g = np.random.default_rng(0)
+    arr = np.cumsum(g.normal(size=(400, 4)) * [0.2, 0.01, 0.2, 0.0], 0)
+    arr[:, 3] = np.arange(400) * 0.033
+    arr = arr.astype(np.float32)
+    kw = dict(max_trace_len=300, confidence_threshold=0.0,
+              nms_threshold=0.5, tta_rotations=True, tta_reflect=True,
+              soft_sigma=0.25, synth_walls=True, synth_furniture="v2",
+              ttopt=True, ttopt_params={"deadband": 0.25}, extent_slack=1.0,
+              verbose=False)
+    on_card = build_predictor(copy.deepcopy(model), device=cuda, **kw)
+    batches = []
+    launch = rnn_cuda._bilstm_fwd_launch
+
+    def spy(fn, save, xg_f, *args, **kwargs):
+        batches.append((fn is rnn_cuda.bilstm_fwd_cuda, xg_f.shape[0]))
+        return launch(fn, save, xg_f, *args, **kwargs)
+
+    with mock.patch.object(rnn_cuda, "_bilstm_fwd_launch", spy):
+        got = on_card(arr)
+    assert batches == [(True, 8), (True, 8)]
+    ref = build_predictor(model, device="cpu", **kw)(arr)
+    assert [c["label"] for c in got] == [c["label"] for c in ref]
+    for a, b in zip(got, ref):
+        va = [a["confidence"], *a["center"].values(), *a["size"].values()]
+        vb = [b["confidence"], *b["center"].values(), *b["size"].values()]
+        np.testing.assert_allclose(va, vb, rtol=1e-3, atol=1e-3)

@@ -16,9 +16,13 @@ import torch
 
 from room_slam_torch.config import ModelConfig as TorchModelConfig
 from room_slam_torch.models.factory import build_model as build_torch
-from room_slam_torch.weights import load_params
-from room_slam_tpu.config import ModelConfig
+from room_slam_torch.models.common import center_traces_xz
+from room_slam_torch.ops.refine import hole_components
+from room_slam_torch.train.driver import load_model_for_inference
+from room_slam_torch.weights import load_params, state_dict_to_params
+from room_slam_tpu.config import ExperimentConfig, ModelConfig
 from room_slam_tpu.models.factory import build_model, init_params
+from room_slam_tpu.train.checkpoint import save_checkpoint
 
 RTOL, ATOL = 1e-4, 1e-5
 B, N, SHORT = 2, 40, 17
@@ -89,13 +93,72 @@ def test_model_without_mask_or_extras_matches_jax():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(hole_tokens=4), "hole_tokens"),
     (dict(model_type="transformer"), "item 13"),
 ])
 def test_unported_options_raise(kw, match):
     _, tcfg = small_cfg(**kw)
     with pytest.raises(NotImplementedError, match=match):
         build_torch(tcfg)
+
+
+def _ring_inputs(seed=0, N=300):
+    """Walks around a room whose middle is never visited (interior holes
+    for the hole tokens); row 1 is ragged."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 20 * np.pi, N)
+    r = 2.0 + 0.5 * np.sin(3 * t)
+    traces = rng.normal(size=(B, N, 11)).astype(np.float32) * 0.1
+    traces[..., 0] = r * np.cos(t) + rng.normal(size=(B, 1)) * 0.3
+    traces[..., 1] = 1.5
+    traces[..., 2] = r * np.sin(t)
+    mask = np.ones((B, N), bool)
+    mask[1, 2 * N // 3:] = False
+    traces[~mask] = 0.0
+    return traces, mask
+
+
+def test_hole_tokens_model_matches_jax(tmp_path):
+    """``hole_tokens=4`` through the weight bridge (``hole_embed`` and the
+    ``hole_proj`` MLP) and through a msgpack checkpoint: the outputs, and
+    the hole slots are live."""
+    jcfg, tcfg = small_cfg(hole_tokens=4)
+    jmodel = build_model(jcfg)
+    traces, mask = _ring_inputs()
+    params = noisy_params(init_params(jmodel, jcfg, seq_len=traces.shape[1]),
+                          seed=5)
+    assert {"hole_embed", "hole_proj"} <= set(params["params"])
+    ref = jmodel.apply(params, jnp.asarray(traces), jnp.asarray(mask),
+                      deterministic=True)
+    model = load_params(build_torch(tcfg), params).eval()
+    with torch.no_grad():
+        got = model(torch.from_numpy(traces), torch.from_numpy(mask))
+        coords = center_traces_xz(torch.from_numpy(traces),
+                                  torch.from_numpy(mask))[0]
+        holes = hole_components(coords[..., 0], coords[..., 2],
+                                torch.from_numpy(mask), 4)
+    assert (holes["area_m2"] > 0.02).any(dim=1).all()
+    assert set(got) == set(ref)
+    for k in ref:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
+                                   rtol=RTOL, atol=ATOL, err_msg=k)
+    # a JAX checkpoint of the model loads with its hole parameters
+    jax_cfg = ExperimentConfig()
+    jax_cfg.model = jcfg
+    save_checkpoint(tmp_path / "holes", params, config=jax_cfg)
+    loaded, cfg = load_model_for_inference(str(tmp_path / "holes"),
+                                           device="cpu")
+    assert cfg.model.hole_tokens == 4
+    with torch.no_grad():
+        again = loaded(torch.from_numpy(traces), torch.from_numpy(mask))
+    for k in got:
+        torch.testing.assert_close(again[k], got[k], rtol=0, atol=0)
+    # the weight bridge round-trips the hole parameters
+    back = state_dict_to_params(model.state_dict())["params"]
+    np.testing.assert_array_equal(back["hole_embed"],
+                                  params["params"]["hole_embed"])
+    np.testing.assert_array_equal(
+        back["hole_proj"]["layer_1"]["kernel"],
+        params["params"]["hole_proj"]["layer_1"]["kernel"])
 
 
 def test_seeded_init_follows_jax_init_rules():
@@ -111,7 +174,6 @@ def test_seeded_init_follows_jax_init_rules():
             for _ in range(2))
     for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(va, vb), k
-    from room_slam_torch.weights import state_dict_to_params
     got = state_dict_to_params(a.state_dict())
 
     def walk(g, r, path=""):
