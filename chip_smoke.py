@@ -53,9 +53,13 @@ Phases, one line each or more (a failed check raises; nothing is caught):
 9. the checkpoint served: the port's predictor loads the best model and
    answers one request on the card;
 10. one-step parity: one train step on the card and the same step on the
-    CPU from the same parameters and batch (augmentation off, dropout 0):
-    losses, Hungarian assignments and updated parameters agree; and, not
-    asserted, how many assignments differ at the unmodified random init;
+    CPU from the same parameters and batch (augmentation off, dropout 0,
+    ``train.matmul_precision`` float32 on both): losses, Hungarian
+    assignments and updated parameters agree; and, not asserted, how many
+    assignments differ at the unmodified random init; then the step at the
+    config's own precision ('bfloat16': TF32 products) against float32 on
+    the card (losses rel ``PRECISION_LOSS_RTOL``, gradients max-rel
+    ``PRECISION_GRAD_REL``, not equal);
 11. train-step timing at the flagship training shape (B=20, N=1500) and the
     bench shape (B=32, N=500): p50 step ms and traces/s over ``STEPS``
     steps after ``STEP_WARMUP``, then a per-stage mean with a
@@ -190,7 +194,21 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     launches at each batch;
 37. the flagship with ``hole_tokens`` 8 on ``HOLE_ROOMS`` seeded rooms: a
     B=32, N=500 forward against the plain recurrence, one train step card
-    vs CPU (as phase 10), one request served card vs CPU.
+    vs CPU (as phase 10), one request served card vs CPU;
+38. the flagship's frozen recipe (FINAL.md): ``make_synthetic_datasets``
+    at 2048 mixed rooms, seed 100, L 1500 and its val split on the card
+    (time, walks/s, peak memory; time strictly increasing, inside the
+    walls within 0.05 m and never inside a blocking footprint on every
+    walk; the first 16 rooms of each half against the CPU: labels and
+    valid equal, boxes within 1e-5, the share of traces within 1e-3),
+    ``make_rooms``' captures tiled 16 times in with ``concat``, one epoch
+    at the config's ``bfloat16`` precision (TF32 on in every step,
+    asserted; step p50; #1t and #2 twice a step, #1 only in validation),
+    then ``demo`` and ``create_sample_data`` on the card.
+
+Phases 10 (and 37's step), 16 and 34 pin ``train.matmul_precision`` to
+float32: they compare two float32 computations (card and CPU, or kernels
+and plain versions).
 
 Then a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without a CUDA card.
@@ -216,9 +234,11 @@ from room_slam_torch import predictor as predictor_mod
 from room_slam_torch import resolve_device
 from room_slam_torch.config import ExperimentConfig
 from room_slam_torch.data import formats
+from room_slam_torch import demo
+from room_slam_torch.data import synthetic
 from room_slam_torch.data.dataset import TraceColliderArrays
 from room_slam_torch.data.features import featurize
-from room_slam_torch.data.legacy import LegacyArrays
+from room_slam_torch.data.legacy import LegacyArrays, create_sample_data
 from room_slam_torch.data.rooms import write_legacy_rooms, write_rooms
 from room_slam_torch.evaluate import (benchmark_rows, evaluate_benchmark,
                                       evaluate_legacy, load_legacy_model)
@@ -234,12 +254,14 @@ from room_slam_torch.ops.losses import legacy_criterion, legacy_match
 from room_slam_torch.ops.nms import post_process
 from room_slam_torch.ops.refine import y_planes_from_colliders
 from room_slam_torch.predictor import build_predictor
+from room_slam_torch.train import driver as driver_mod
 from room_slam_torch.train import loop
 from room_slam_torch.train.driver import (legacy_batches, legacy_data,
                                           legacy_optimizer, legacy_targets,
                                           load_model_for_inference,
-                                          make_legacy_step, train_benchmark,
-                                          train_legacy)
+                                          make_legacy_step,
+                                          make_synthetic_datasets,
+                                          train_benchmark, train_legacy)
 from room_slam_torch.weights import load_params, random_params
 
 REPO = Path(__file__).resolve().parent
@@ -323,6 +345,19 @@ GATE_TAU = 0.448                          # the adopted auto gates' tau
 QSCORE_WEIGHTS = REPO / "results" / "r5_qscore_multi.json"
 TTA_SHAPES = ((4, 1500, 64), (8, 1500, 64), (24, 1500, 64))
 HOLE_TOKENS, HOLE_ROOMS = 8, 32
+# phase 10: the config's matmul_precision ('bfloat16': TF32) against
+# 'float32', one flagship step on the card; measured 8.3e-05 and 2.0e-02
+# (NVIDIA H100 80GB HBM3, 700.00 W), inside the bf16 bounds (0.05, 0.1)
+PRECISION_LOSS_RTOL = 1e-3
+PRECISION_GRAD_REL = 5e-2
+# phase 38: the flagship's frozen recipe (FINAL.md: --synthetic 2048
+# --synthetic_mode mixed --mix_real DIR --mix_copies C --seed 100)
+RECIPE_ROOMS, RECIPE_SEED = 2048, 100
+RECIPE_CPU_ROOMS = 16          # per half, generated again on the CPU
+RECIPE_REAL_ROOMS = 8          # make_rooms: 7 captures to mix in, 1 val
+RECIPE_MIX_COPIES = 16
+WALL_SLACK = 0.05              # the JAX suite's: inside the walls
+DEMO_ROOMS, SAMPLE_TRACES = 3, 10
 # phase 7's JSON stage measured with the Python parser before the native
 # one (NVIDIA H100 80GB HBM3, 700.00 W)
 PYTHON_PARSER_JSON_MS = 7.710
@@ -1139,6 +1174,9 @@ def step_parity(cfg, train_dir, dev, seed, tag="step_parity"):
     ``tag`` "hole_step")."""
     cfg = copy.deepcopy(cfg)
     cfg.model.dropout = 0.0
+    # two float32 computations: TF32 products would be the difference
+    # (precision_check holds the config's own level against this one)
+    cfg.train.matmul_precision = "float32"
     ds = TraceColliderArrays(train_dir, cfg.data, augment=False,
                              verbose=False)
     host = ds.gather(np.arange(cfg.train.batch_size) % ds.num_samples)
@@ -1211,6 +1249,69 @@ def step_parity(cfg, train_dir, dev, seed, tag="step_parity"):
     assert loss_rel <= LOSS_RTOL, l_gpu
     assert live_err <= PARAM_ATOL, live_err
     assert other_err <= 2 * cfg.train.lr + PARAM_ATOL, other_err
+
+
+def precision_check(cfg, train_dir, dev, seed, smi):
+    """Phase 10, then: one step on the card at the config's own
+    ``train.matmul_precision`` ('bfloat16': TF32 products in cuBLAS and
+    cuDNN inside the step) against the same step at 'float32', from the
+    same parameters and batch (augmentation off, dropout 0, inv_temp 100,
+    the float32 step's assignment replayed): losses and gradients within
+    ``PRECISION_LOSS_RTOL`` / ``PRECISION_GRAD_REL`` and not equal (the
+    setting took effect), TF32 off again after each step."""
+    cfg = copy.deepcopy(cfg)
+    cfg.model.dropout = 0.0
+    level = cfg.train.matmul_precision
+    ds = TraceColliderArrays(train_dir, cfg.data, augment=False,
+                             verbose=False)
+    host = ds.gather(np.arange(cfg.train.batch_size) % ds.num_samples)
+    model = build_model(cfg.model)
+    params = random_params(model, seed)
+    params["params"]["decoder"]["inv_temp"] = np.float32(100.0)
+    load_params(model, params)
+    replay = []
+    match_batch = losses_mod.hungarian_match_batch
+
+    def record(cost, valid):
+        replay.append(match_batch(cost, valid))
+        return replay[-1]
+
+    def replayed(cost, valid):
+        rows, matched = replay.pop(0)
+        return rows.to(cost.device), matched.to(cost.device)
+
+    res = {}
+    for prec in ("float32", level):
+        c = copy.deepcopy(cfg)
+        c.train.matmul_precision = prec
+        m, _, _, batch, _ = assignments(model, host, c.data, dev)
+        opt = loop.make_optimizer(m, c)
+        step = loop.make_train_step(m, opt, c, augment=False)
+        with mock.patch.object(losses_mod, "hungarian_match_batch",
+                               record if prec == "float32" else replayed):
+            losses = step(batch, torch.Generator(dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        assert not torch.backends.cuda.matmul.allow_tf32
+        res[prec] = ({k: float(v) for k, v in losses.items()},
+                     {n: p.grad.cpu() for n, p in opt.named},
+                     {n: p.detach().cpu() for n, p in m.named_parameters()})
+    assert not replay, len(replay)
+    (l_ref, g_ref, p_ref), (l_got, g_got, p_got) = res["float32"], res[level]
+    loss_rel = max(abs(l_got[k] - v) / max(abs(v), 1e-12)
+                   for k, v in l_ref.items())
+    scale = max(g.abs().max().item() for g in g_ref.values())
+    grad_rel = max((g_got[n] - g).abs().max().item()
+                   for n, g in g_ref.items()) / scale
+    param_err = max((p_got[n] - p).abs().max().item()
+                    for n, p in p_ref.items())
+    log("precision", f"one step B={cfg.train.batch_size} N="
+        f"{cfg.data.max_trace_len} on the card, train.matmul_precision="
+        f"{level!r} (TF32 in the step) vs 'float32': losses max rel "
+        f"{loss_rel:.3e} (tol {PRECISION_LOSS_RTOL:.0e}), gradients max-rel "
+        f"{grad_rel:.3e} (tol {PRECISION_GRAD_REL:.0e}), updated params max "
+        f"abs diff {param_err:.3e}, on {smi}")
+    assert 0 < grad_rel <= PRECISION_GRAD_REL, grad_rel
+    assert loss_rel <= PRECISION_LOSS_RTOL, loss_rel
 
 
 def step_diffs(l_gpu, l_cpu, p_gpu, p_cpu, g_cpu):
@@ -1293,6 +1394,7 @@ def step_parity_scaleup(cfg, train_dir, dev, seed):
     cfg = copy.deepcopy(cfg)
     cfg.model.dropout = 0.0
     cfg.train.batch_size = SCALEUP_PARITY_B
+    cfg.train.matmul_precision = "float32"     # the kernels are the change
     ds = TraceColliderArrays(train_dir, cfg.data, augment=False,
                              verbose=False)
     host = ds.gather(np.arange(SCALEUP_PARITY_B) % ds.num_samples)
@@ -2829,6 +2931,7 @@ def wide_paths(dev, seed, smi):
     # one train step with the kernels and with the plain versions
     tcfg = copy.deepcopy(cfg)
     tcfg.train.batch_size = 8
+    tcfg.train.matmul_precision = "float32"    # the kernels are the change
     with tempfile.TemporaryDirectory() as tmp:
         write_rooms(Path(tmp), 8, seed + 600)
         ds = TraceColliderArrays(tmp, tcfg.data, augment=False,
@@ -3287,6 +3390,184 @@ def hole_tokens_path(cfg, dev, seed, smi):
             "labels equal")
 
 
+def check_walks(ds, name):
+    """Phase 38: the generator's invariants on every walk of ``ds``: time
+    strictly increasing, inside the walls within ``WALL_SLACK``, never
+    strictly inside a blocking footprint (valid, bottom below knee
+    height). Returns the walks checked."""
+    n = ds.n_base
+    for c0 in range(0, n, 256):
+        raw = ds.raw[c0:c0 + 256]
+        boxes, valid = ds.boxes[c0:c0 + 256], ds.valid[c0:c0 + 256]
+        assert (np.diff(raw[..., 3], axis=1) > 0).all(), (name, c0)
+        wv = valid[:, :synthetic.N_WALL_SLOTS]
+        for ax, col in ((0, 0), (2, 2)):
+            wc = boxes[:, :synthetic.N_WALL_SLOTS, col]
+            lo = np.where(wv, wc, np.inf).min(1) - WALL_SLACK
+            hi = np.where(wv, wc, -np.inf).max(1) + WALL_SLACK
+            p = raw[..., ax]
+            assert ((p >= lo[:, None]) & (p <= hi[:, None])).all(), \
+                (name, c0, ax)
+        blocking = valid & (boxes[..., 1] - boxes[..., 4] / 2
+                            < synthetic.FLOOR_Y + 0.4)
+        inside = ((np.abs(raw[:, :, None, 0] - boxes[:, None, :, 0])
+                   < boxes[:, None, :, 3] / 2)
+                  & (np.abs(raw[:, :, None, 2] - boxes[:, None, :, 2])
+                     < boxes[:, None, :, 5] / 2) & blocking[:, None])
+        assert not inside.any(), (name, c0, np.argwhere(inside)[:3])
+    return n
+
+
+def recipe_path(cfg, dev, seed, smi):
+    """Phase 38: the flagship's frozen training recipe on the card. (a)
+    ``make_synthetic_datasets`` at ``RECIPE_ROOMS`` rooms, mixed, seed
+    ``RECIPE_SEED``, at the flagship's width (L 1500, 50 colliders; agent
+    6000 ticks at 30 Hz, human 3600 at 37 Hz) and its val split: time,
+    walks/s, peak memory; the invariants on every walk; the first
+    ``RECIPE_CPU_ROOMS`` rooms of each half generated again on the CPU
+    (labels and valid equal, boxes within 1e-5, the share of traces
+    within 1e-3 printed). (b) ``make_rooms``' seeded captures tiled
+    ``RECIPE_MIX_COPIES`` times into the train split with ``concat``, one
+    epoch of ``train_benchmark`` with the config's precision honoured in
+    every step: step p50, launch counts (#1t and #2 twice a step, #1 only
+    in validation). (c) ``demo.run_demo`` and ``create_sample_data`` on the
+    card. Returns the launches of (b)."""
+    rcfg = copy.deepcopy(cfg)
+    L, B = rcfg.data.max_trace_len, rcfg.train.batch_size
+    gen_times = []
+    real_gen = synthetic.generate_rooms_and_traces
+
+    def timed_gen(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_gen(*a, **kw)
+        torch.cuda.synchronize()
+        gen_times.append({"rooms": a[1], "human": kw["human"],
+                          "ticks": kw["sim_steps"],
+                          "s": time.perf_counter() - t0})
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(synthetic, "generate_rooms_and_traces",
+                           timed_gen):
+        tr, va = make_synthetic_datasets(rcfg, RECIPE_ROOMS, RECIPE_SEED,
+                                         mode="mixed", device=dev)
+    gen_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    walks = tr.n_base + va.n_base
+    assert tr.n_base == RECIPE_ROOMS and va.n_base == RECIPE_ROOMS // 8
+    assert tr.raw.shape[1:] == (L, 4) and np.isfinite(tr.raw).all()
+    checked = check_walks(tr, "train") + check_walks(va, "val")
+    log("recipe", f"generated {tr.n_base} train + {va.n_base} val rooms "
+        f"(mixed, seed {RECIPE_SEED}, L={L}, {rcfg.data.max_colliders} "
+        f"colliders) in {gen_s:.3f} s = {walks / gen_s:.1f} walks/s; peak "
+        f"device memory {peak_gb:.3f} GB; per call " + json.dumps(
+            [{**g, "walks_per_s": g["rooms"] / g["s"]} for g in gen_times])
+        + f"; invariants held on all {checked} walks; on {smi}")
+    t0 = time.perf_counter()
+    ctr, _ = make_synthetic_datasets(rcfg, 2 * RECIPE_CPU_ROOMS, RECIPE_SEED,
+                                     mode="mixed", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    half, k = RECIPE_ROOMS // 2, RECIPE_CPU_ROOMS
+    idx = np.r_[0:k, half:half + k]
+    assert (tr.labels[idx] == ctr.labels).all()
+    assert (tr.valid[idx] == ctr.valid).all()
+    box_err = float(np.abs(tr.boxes[idx] - ctr.boxes).max())
+    assert box_err <= 1e-5, box_err
+    trace_err = np.abs(tr.raw[idx] - ctr.raw).reshape(2 * k, -1).max(1)
+    log("recipe", f"the first {k} rooms of each half card vs CPU (CPU "
+        f"{cpu_s:.1f} s): labels and valid equal, boxes max abs diff "
+        f"{box_err:.3e} (tol 1e-5); traces within 1e-3: "
+        f"{(trace_err <= 1e-3).mean():.4f} of {2 * k} (max abs diff "
+        f"{trace_err.max():.3e}, median {np.median(trace_err):.3e})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        real_dir, _ = make_rooms(Path(tmp) / "real", RECIPE_REAL_ROOMS,
+                                 seed + 40)
+        real = TraceColliderArrays(real_dir, rcfg.data, augment=True,
+                                   verbose=False)
+        mixed = TraceColliderArrays.concat([tr, real],
+                                           [1, RECIPE_MIX_COPIES])
+        assert mixed.n_base == tr.n_base + real.n_base * RECIPE_MIX_COPIES
+        rcfg.train.num_epochs = 1
+        rcfg.train.save_dir = str(Path(tmp) / "ckpt")
+        steps = mixed.num_batches(B)
+        val_batches = va.num_batches(B)
+        step_ms, levels = [], []
+        make_step, precision = driver_mod.make_train_step, \
+            loop.matmul_precision
+
+        def timed_make(*a, **kw):
+            step = make_step(*a, **kw)
+
+            def timed(batch, gen):
+                t = time.perf_counter()
+                out = step(batch, gen)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                return out
+            return timed
+
+        @contextlib.contextmanager
+        def seen(level, device):
+            with precision(level, device):
+                levels.append((level, torch.backends.cuda.matmul.allow_tf32))
+                yield
+
+        reset_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(driver_mod, "make_train_step", timed_make), \
+                mock.patch.object(loop, "matmul_precision", seen):
+            res = train_benchmark(rcfg, device=dev, verbose=False,
+                                  train_ds=mixed, val_ds=va,
+                                  checkpoint_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+    layers = rcfg.model.lstm_layers
+    assert launched == expected_counts(
+        bilstm_fwd=layers * val_batches, bilstm_fwd_train=layers * steps,
+        bilstm_bwd=layers * steps), launched
+    assert levels == [(rcfg.train.matmul_precision, True)] * steps, \
+        levels[:3]
+    assert not torch.backends.cuda.matmul.allow_tf32
+    row = res["history"][0]
+    assert np.isfinite(row["train_loss"]) and np.isfinite(row["val_loss"])
+    log("recipe", f"one epoch of {mixed.num_samples} samples ({tr.n_base} "
+        f"generated + {real.n_base} captures x {RECIPE_MIX_COPIES}, x "
+        f"{len(mixed.rotation_angles)} rotations), B={B} N={L}, "
+        f"train.matmul_precision={rcfg.train.matmul_precision!r} (TF32 on in "
+        f"all {steps} steps): {wall:.1f} s; step p50 "
+        f"{np.percentile(step_ms, 50):.3f} ms (p50 after 5: "
+        f"{np.percentile(step_ms[5:], 50):.3f}, p99 "
+        f"{np.percentile(step_ms, 99):.3f}, mean {np.mean(step_ms):.3f}); "
+        f"{val_batches} validation batches; train_loss "
+        f"{row['train_loss']:.4f} val_loss {row['val_loss']:.4f} mIoU "
+        f"{row['mIoU']:.4f}; launches {launched} on {smi}")
+
+    t0 = time.perf_counter()
+    results = demo.run_demo(DEMO_ROOMS, 3000, seed, device=dev,
+                            verbose=False)
+    demo_s = time.perf_counter() - t0
+    assert [r["room"] for r in results] == list(range(DEMO_ROOMS))
+    n_obj = [len(r["objects"]) for r in results]
+    assert sum(n_obj) > 0, n_obj
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        create_sample_data(Path(tmp), n_traces=SAMPLE_TRACES, seed=seed,
+                           device=dev)
+        sample_s = time.perf_counter() - t0
+        legacy = LegacyArrays(tmp)
+        assert len(list(Path(tmp).glob("*.csv"))) == SAMPLE_TRACES
+        assert np.isfinite(legacy.traces).all()
+    log("recipe", f"demo: {DEMO_ROOMS} rooms of 3000 ticks and the "
+        f"occupancy baseline on the card in {demo_s:.2f} s, objects "
+        f"{n_obj}; create_sample_data: {SAMPLE_TRACES} legacy CSV rooms in "
+        f"{sample_s:.2f} s, {legacy.num_samples} windows")
+    return launched
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3552,6 +3833,7 @@ def main() -> int:
                       extent_slack=1.0)
         serve_checkpoint(best, sorted(val_dir.glob("*_trace.json"))[0], dev)
         step_parity(cfg, train_dir, dev, args.seed)
+        precision_check(cfg, train_dir, dev, args.seed, smi)
         time_steps(cfg, train_dir, dev, args.seed, smi, train_rows,
                    STEP_SHAPES, STEPS, STEP_WARMUP, "bilstm")
 
@@ -3647,6 +3929,13 @@ def main() -> int:
                          set(recipe_batches)})
     hole_tokens_path(cfg, dev, args.seed, smi)
     log("done", f"phases 35-37 in {time.perf_counter() - t_serve:.1f} s")
+
+    # 38. the flagship's frozen training recipe: generated rooms (a main
+    # path), the captures mixed in, one epoch at the config's precision,
+    # the demo and the legacy sample data
+    t_recipe = time.perf_counter()
+    recipe_launched = recipe_path(cfg, dev, args.seed, smi)
+    log("done", f"phase 38 in {time.perf_counter() - t_recipe:.1f} s")
 
     def entry(name, source, replaces, launched, row):
         return {"name": name, "route": "cuda", "source": source,
@@ -3756,6 +4045,8 @@ def main() -> int:
                                 f"room_slam_tpu/ops/{line}", launched[name],
                                 wide_rows[name]),
                         "shapes": [wide_rows[name]]})
+    for k in kernels[:3]:
+        k["launches_recipe"] = recipe_launched[k["name"]]
     kernels[0]["launches_evaluate"] = evaluated["bilstm_fwd"]
     kernels[0]["shapes"] += tta_rows
     kernels[0]["recipes"] = recipe_rows

@@ -86,6 +86,42 @@ class TraceColliderArrays:
             print(f"Augmented to {self.num_samples} samples with rotations: "
                   f"{self.rotation_angles}°")
 
+    @classmethod
+    def concat(cls, parts: List["TraceColliderArrays"],
+               copies: List[int] | None = None) -> "TraceColliderArrays":
+        """Concatenate datasets base sample by base sample, part ``i``
+        tiled ``copies[i]`` times (folding a few real captures into a
+        large synthetic set). The parts must share their fixed shapes and
+        rotation set; the first part's config and augmentation carry
+        over."""
+        if copies is None:
+            copies = [1] * len(parts)
+        first = parts[0]
+        for p in parts[1:]:
+            if p.raw.shape[1:] != first.raw.shape[1:] or \
+                    p.boxes.shape[1:] != first.boxes.shape[1:]:
+                raise ValueError("concat: mismatched fixed shapes "
+                                 f"{p.raw.shape} vs {first.raw.shape}")
+            if p.rotation_angles != first.rotation_angles:
+                raise ValueError("concat: mismatched rotation sets")
+
+        def tile(name):
+            return np.concatenate([np.concatenate([getattr(p, name)] * c)
+                                   for p, c in zip(parts, copies)])
+
+        self = cls.__new__(cls)
+        self.cfg = first.cfg
+        self.augment = first.augment
+        self.data_dir = None
+        for name in ("raw", "length", "boxes", "labels", "valid"):
+            setattr(self, name, tile(name))
+        self.names = [n for p, c in zip(parts, copies)
+                      for _ in range(c) for n in p.names]
+        self.rotation_angles = first.rotation_angles
+        self.n_base = self.raw.shape[0]
+        self.num_samples = self.n_base * len(self.rotation_angles)
+        return self
+
     def _set_rotations(self) -> None:
         self.rotation_angles = (list(self.cfg.rotation_angles)
                                 if self.augment and self.cfg.augment_rotation

@@ -4,9 +4,9 @@ fixed windows of ``SEQ_LEN`` points, each paired with up to
 ``MAX_OBJECTS`` ground-truth objects of its ``<stem>_objects.json``
 (class, 2D position and size, orientation).
 
-``create_sample_data`` (the synthetic generator's CSV export) is not
-ported; ``data/rooms.py`` ``write_legacy_rooms`` writes seeded smoke and
-test data in the same layout.
+``create_sample_data`` writes generated rooms in this layout (the JAX
+package's for the same seed); ``data/rooms.py`` ``write_legacy_rooms``
+writes numpy-seeded smoke and test data in it.
 """
 
 from __future__ import annotations
@@ -16,9 +16,10 @@ from pathlib import Path
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
 from room_slam_torch.config import LEGACY_LABELS
-from room_slam_torch.data import formats
+from room_slam_torch.data import formats, prng, synthetic
 
 SEQ_LEN = 500
 MAX_OBJECTS = 10
@@ -118,3 +119,36 @@ class LegacyArrays:
 
     def __len__(self) -> int:
         return self.num_samples
+
+
+def create_sample_data(out_dir: str | Path, n_traces: int = 10,
+                       seed: int = 0, num_steps: int = 1500,
+                       device: str | torch.device = "cuda") -> None:
+    """``train --create_sample_data``: ``n_traces`` generated rooms
+    (agent walks of ``num_steps`` ticks, on ``device``) as legacy
+    ``sample_<i>.csv`` traces ``(t, x, z)`` and ``sample_<i>_objects.json``
+    ground truth, the boxes projected to the (x, z) plane. Walls stay
+    BLOCK; HIGH furniture folds into MID."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    data = synthetic.to_numpy(synthetic.generate_rooms_and_traces(
+        prng.key(seed), n_traces, num_steps, device=device))
+    for i in range(n_traces):
+        raw = data["raw"][i]                     # [T, 4] x, y, z, t
+        csv = np.stack([raw[:, 3], raw[:, 0], raw[:, 2]], axis=1)
+        formats.save_trace_csv(out_dir / f"sample_{i:03d}.csv", csv)
+        objs = []
+        v = data["valid"][i]
+        for b, lab in zip(data["boxes"][i][v], data["labels"][i][v]):
+            name = {0: "BLOCK", 1: "LOW", 2: "MID", 3: "MID"}[int(lab)]
+            objs.append({
+                "class_id": int(LEGACY_LABELS[name]),
+                "class_name": name,
+                "position": [float(b[0]), float(b[2])],
+                "size": [float(b[3]), float(b[5])],
+                "orientation": 0.0,
+                "confidence": 1.0,
+            })
+        formats.save_objects_json(out_dir / f"sample_{i:03d}_objects.json",
+                                  objs)
+    print(f"Wrote {n_traces} legacy CSV samples to {out_dir}")

@@ -7,7 +7,7 @@ Each room is an axis-aligned box of 5-9 m by 5-9 m with its four walls
 them) and 3-8 furniture boxes (LOW, MID or HIGH by height), walked by a
 smooth random walk of 2000-3000 points at 30 Hz inside it. All draws come
 from ``numpy.random.default_rng(seed)``. This is not the JAX package's
-synthetic generator (``data/synthetic.py``, still to be ported).
+synthetic generator (the port's ``data/synthetic.py`` reproduces that).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Training driver and model loading (counterpart of the JAX package's
-``train/driver.py``: ``train_benchmark`` with its per-epoch host loop,
-``_check_query_capacity``, ``train_legacy`` and
+``train/driver.py``: ``make_synthetic_datasets``, ``train_benchmark`` with
+its per-epoch host loop, ``_check_query_capacity``, ``train_legacy`` and
 ``load_model_for_inference``).
 
 ``train_benchmark`` resumes from a checkpoint (``resume=``) and recovers
@@ -22,6 +22,7 @@ from torch import nn
 
 from room_slam_torch import resolve_device
 from room_slam_torch.config import ExperimentConfig, TrainConfig
+from room_slam_torch.data import prng, synthetic
 from room_slam_torch.data.dataset import TraceColliderArrays
 from room_slam_torch.data.legacy import LegacyArrays
 from room_slam_torch.models.factory import build_model
@@ -48,6 +49,70 @@ def _check_query_capacity(cfg: ExperimentConfig, *datasets) -> None:
             f"will truncate to the first {cfg.model.num_queries} valid GT "
             "boxes per sample (excess GT count as FN). Raise "
             "model.num_queries to cover max_valid.", stacklevel=3)
+
+
+# sampling rates of the real captures (the ARKit human stream ~37 Hz; the
+# agent's per-frame records downsampled to 30 Hz) and each mode's walk
+# duration as a multiple of max_trace_len ticks (human 3587 points -> 1500;
+# the agent's minutes-long runs)
+HUMAN_HZ, AGENT_HZ = 37.0, 30.0
+HUMAN_SIM, AGENT_SIM = 2.4, 4.0
+
+
+def make_synthetic_datasets(cfg: ExperimentConfig, n_rooms: int,
+                            seed: int = 0, mode: str = "agent",
+                            multi_room_prob: float = 0.0,
+                            sim_factor: float | None = None,
+                            wall_adjacent_prob: float = 0.0,
+                            captures_per_room: int = 1,
+                            evidence_mask: bool = False,
+                            device: str | torch.device = "cuda"
+                            ) -> Tuple[TraceColliderArrays,
+                                       TraceColliderArrays]:
+    """Synthetic train and val datasets generated on ``device``, the JAX
+    package's rooms for the same seed: train ``n_rooms`` samples from
+    ``key(seed)``, val ``max(n_rooms // 8, 4)`` rooms from ``key(seed +
+    10_000)`` with one full-GT walk each.
+
+    ``mode``: 'agent' (constant sensor height, 30 Hz), 'human' (waypoint
+    walk, phone-height wander, 37 Hz) or 'mixed' (``n // 2`` agent rooms
+    from the first half of ``split(key)``, ``n - n // 2`` human rooms from
+    the second). Each walk runs ``round(max_trace_len * f)`` ticks (``f``
+    = ``sim_factor``, default human 2.4 / agent 4.0) and is downsampled to
+    ``max_trace_len``. ``captures_per_room`` and ``evidence_mask`` apply
+    to the train split only (``synthetic.generate_rooms_and_traces``)."""
+    dev = resolve_device(device)
+    L = cfg.data.max_trace_len
+
+    def steps(human: bool) -> int:
+        f = sim_factor if sim_factor is not None else (
+            HUMAN_SIM if human else AGENT_SIM)
+        return int(round(L * f))
+
+    def one(key, n, human, cpr, emask):
+        return synthetic.to_numpy(synthetic.generate_rooms_and_traces(
+            key, n, L, max_colliders=cfg.data.max_colliders,
+            hz=HUMAN_HZ if human else AGENT_HZ, human=human,
+            multi_room_prob=multi_room_prob, sim_steps=steps(human),
+            wall_adjacent_prob=wall_adjacent_prob, captures_per_room=cpr,
+            evidence_mask=emask, device=dev))
+
+    def gen(key, n, cpr, emask):
+        if mode == "mixed":
+            k1, k2 = prng.split(key).unbind(0)
+            a = one(k1, n // 2, False, cpr, emask)
+            b = one(k2, n - n // 2, True, cpr, emask)
+            return {k: np.concatenate([a[k], b[k]]) for k in a}
+        if mode not in ("agent", "human"):
+            raise ValueError(f"synthetic mode {mode!r}: expected agent, "
+                             "human or mixed")
+        return one(key, n, mode == "human", cpr, emask)
+
+    n_val = max(n_rooms // 8, 4)
+    train = gen(prng.key(seed), n_rooms, captures_per_room, evidence_mask)
+    val = gen(prng.key(seed + 10_000), n_val, 1, False)
+    return (TraceColliderArrays.from_arrays(train, cfg.data, augment=True),
+            TraceColliderArrays.from_arrays(val, cfg.data, augment=False))
 
 
 def train_benchmark(cfg: ExperimentConfig,
@@ -79,10 +144,6 @@ def train_benchmark(cfg: ExperimentConfig,
     ``max_recoveries``. Nothing else is caught."""
     dev = resolve_device(device)
     t = cfg.train
-    if verbose and t.matmul_precision != "float32":
-        print(f"[train] train.matmul_precision={t.matmul_precision!r} is not "
-              "honoured: the port's float32 matmuls run with TF32 off "
-              "(model.compute_dtype sets the bf16 streams)")
     if train_ds is None:
         train_ds = TraceColliderArrays(cfg.data.data_dir, cfg.data,
                                        augment=True, verbose=verbose)

@@ -11,6 +11,7 @@ or whole-run dispatch; a CUDA graph is the tool for that, later.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -252,6 +253,37 @@ def prepare_batch(batch: Batch, cfg: DataConfig,
     return feats, mask, _targets(sample)
 
 
+# train.matmul_precision (JAX's jax_default_matmul_precision names) -> TF32
+# products in cuBLAS / cuDNN, as XLA's GPU backend computes each level on
+# float32 operands: 'bfloat16' is JAX's legacy name for DEFAULT, the
+# fastest level, which XLA runs as TF32 on this card
+TF32_BY_PRECISION = {"float32": False, "highest": False,
+                     "tensorfloat32": True, "high": True,
+                     "bfloat16": True, "default": True}
+
+
+@contextlib.contextmanager
+def matmul_precision(level: str, device: torch.device | str):
+    """Run the body with float32 matmuls and convolutions at ``level`` on a
+    CUDA ``device`` (TF32 on or off, ``TF32_BY_PRECISION``); the previous
+    ``torch.backends`` flags come back on exit, also on an exception. On
+    the CPU nothing changes (as in JAX). The hand-written kernels keep
+    their own operand types."""
+    if level not in TF32_BY_PRECISION:
+        raise ValueError(f"train.matmul_precision={level!r}: expected one "
+                         f"of {sorted(TF32_BY_PRECISION)}")
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (matmul.allow_tf32, cudnn.allow_tf32)
+    matmul.allow_tf32 = cudnn.allow_tf32 = TF32_BY_PRECISION[level]
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved
+
+
 def make_train_step(model: nn.Module, opt: Optimizer, cfg: ExperimentConfig,
                     augment: bool = True
                     ) -> Callable[[Batch, torch.Generator], Batch]:
@@ -259,10 +291,12 @@ def make_train_step(model: nn.Module, opt: Optimizer, cfg: ExperimentConfig,
     ``generator`` (on the batch's device) draws the augmentation and the
     dropout masks. With ``train.grad_accum = A`` the batch is split into A
     microbatches, each normalizing its own weighted loss, and their
-    gradients are averaged into one update. Losses come back as detached
-    device tensors (the mean over microbatches)."""
+    gradients are averaged into one update. The forward and backward run
+    at ``train.matmul_precision`` (``matmul_precision``). Losses come back
+    as detached device tensors (the mean over microbatches)."""
     lw = _loss_weight_dict(cfg)
     A = max(1, int(cfg.train.grad_accum))
+    precision = cfg.train.matmul_precision
 
     def step(batch: Batch, generator: torch.Generator) -> Batch:
         feats, mask, targets = prepare_batch(
@@ -275,14 +309,16 @@ def make_train_step(model: nn.Module, opt: Optimizer, cfg: ExperimentConfig,
         model.train()
         opt.zero_grad()
         losses: Batch = {}
-        for a in range(A):
-            sl = slice(a * mb, (a + 1) * mb)
-            out = model(feats[sl], mask[sl], generator=generator)
-            part = set_criterion(out, {k: v[sl] for k, v in targets.items()},
-                                 batch["weight"][sl], lw)
-            (part["total_loss"] / A).backward()
-            for k, v in part.items():
-                losses[k] = losses.get(k, 0.0) + v.detach() / A
+        with matmul_precision(precision, feats.device):
+            for a in range(A):
+                sl = slice(a * mb, (a + 1) * mb)
+                out = model(feats[sl], mask[sl], generator=generator)
+                part = set_criterion(
+                    out, {k: v[sl] for k, v in targets.items()},
+                    batch["weight"][sl], lw)
+                (part["total_loss"] / A).backward()
+                for k, v in part.items():
+                    losses[k] = losses.get(k, 0.0) + v.detach() / A
         opt.step()
         return losses
 

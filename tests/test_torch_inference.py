@@ -270,7 +270,8 @@ def test_port_imports_no_jax():
                 "ops/rnn.py", "ops/rnn_cuda.py", "tools/__init__.py",
                 "tools/bench_bigru_bwd.py", "ops/refine.py", "ops/ttopt.py",
                 "ops/qscore.py", "native/__init__.py",
-                "native/trace_parser.py", "predictor.py", "inference.py"}
+                "native/trace_parser.py", "predictor.py", "inference.py",
+                "data/prng.py", "data/synthetic.py", "demo.py"}
     rel = {str(f.relative_to(REPO / "room_slam_torch")) for f in files[:-1]}
     assert training <= rel, training - rel
     assert len(files) > 30
