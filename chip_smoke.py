@@ -202,13 +202,34 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     walk; the first 16 rooms of each half against the CPU: labels and
     valid equal, boxes within 1e-5, the share of traces within 1e-3),
     ``make_rooms``' captures tiled 16 times in with ``concat``, one epoch
-    at the config's ``bfloat16`` precision (TF32 on in every step,
-    asserted; step p50; #1t and #2 twice a step, #1 only in validation),
-    then ``demo`` and ``create_sample_data`` on the card.
+    at the config's ``bfloat16`` precision (TF32 on in every step and in
+    the validation, asserted; step p50; #1t and #2 twice a step, #1 only
+    in validation), then ``demo`` and ``create_sample_data`` on the card;
+39. the transformer family at ModelConfig's width (d_model 128, 4 heads,
+    3 + 3 layers, FFN 512, 30 queries; seeded weights, the anchor
+    attention sharpened as in phase 5): (a) ``TRANSFORMER_REQUESTS``
+    3000-point requests (1500 after downsampling) card vs CPU, then
+    phase 7's latency window; (b) phase 11's step timing at B=20, N=1500
+    at the config's ``bfloat16`` precision (with peak memory) and one
+    step card vs CPU at float32 (phase 10's rule); (c) the same with
+    ``moe_experts`` 4 (``moe_aux`` within rel 1e-4), then its timing; (d)
+    reference-named ``.pth`` files (``tests/torch_pth_cases.py``) of the
+    transformer at d_model 128 and the lstm at 128 and 256, each loaded
+    by ``load_model_for_inference`` and serving 5 requests card vs CPU,
+    #1's launches and route (unit at H=64, cluster at H=128) asserted;
+    (e) one encoder self-attention forward + backward at (b)'s shape,
+    the port's plain attention against ``F.scaled_dot_product_attention``
+    (values and gradients, then CUDA-event times and peak memory); (f)
+    ``tools.parity.score_checkpoint`` on 16 ``make_rooms`` traces for the
+    (d) transformer and a port checkpoint, card vs CPU. No kernel launches
+    on the transformer's paths (asserted).
 
-Phases 10 (and 37's step), 16 and 34 pin ``train.matmul_precision`` to
-float32: they compare two float32 computations (card and CPU, or kernels
-and plain versions).
+Phases 10 (and 37's step), 16, 34 and 39's steps pin
+``train.matmul_precision`` to float32: they compare two float32
+computations (card and CPU, or kernels and plain versions). In-run
+validation runs at the run's precision; no phase compares an in-run
+validation loss card vs CPU (phase 8's resumed run holds the card's own
+plateau step), so none needed a new pin.
 
 Then a ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero without a CUDA card.
@@ -229,6 +250,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from room_slam_torch import predictor as predictor_mod
 from room_slam_torch import resolve_device
@@ -245,6 +267,7 @@ from room_slam_torch.evaluate import (benchmark_rows, evaluate_benchmark,
 from room_slam_torch.models import gru as gru_mod
 from room_slam_torch.models import lstm as lstm_mod
 from room_slam_torch.models.factory import build_model
+from room_slam_torch.models.common import MultiHeadAttention
 from room_slam_torch.models.legacy_gru import RoomSlamGRU
 from room_slam_torch.native import trace_parser
 from room_slam_torch.ops import build, gru_cuda, rnn_cuda
@@ -254,6 +277,8 @@ from room_slam_torch.ops.losses import legacy_criterion, legacy_match
 from room_slam_torch.ops.nms import post_process
 from room_slam_torch.ops.refine import y_planes_from_colliders
 from room_slam_torch.predictor import build_predictor
+from room_slam_torch.tools import parity as parity_tool
+from room_slam_torch.train import checkpoint as ckpt_lib
 from room_slam_torch.train import driver as driver_mod
 from room_slam_torch.train import loop
 from room_slam_torch.train.driver import (legacy_batches, legacy_data,
@@ -340,7 +365,9 @@ LSTM_BF16_SHAPES = LSTM_SHAPES   # bf16 BiLSTM kernel checks
 # phases 35-37: the serving path's options, #1 at the test-time view
 # batches, hole tokens
 RECIPE_REQUESTS = 5                       # requests checked card vs CPU
-RECIPE_WINDOW, RECIPE_WARMUP = 50, 5      # requests timed per recipe
+# requests timed per recipe (25: 50 before phase 39 was added, cut to keep
+# the whole run near half its time limit)
+RECIPE_WINDOW, RECIPE_WARMUP = 25, 5
 GATE_TAU = 0.448                          # the adopted auto gates' tau
 QSCORE_WEIGHTS = REPO / "results" / "r5_qscore_multi.json"
 TTA_SHAPES = ((4, 1500, 64), (8, 1500, 64), (24, 1500, 64))
@@ -358,6 +385,20 @@ RECIPE_REAL_ROOMS = 8          # make_rooms: 7 captures to mix in, 1 val
 RECIPE_MIX_COPIES = 16
 WALL_SLACK = 0.05              # the JAX suite's: inside the walls
 DEMO_ROOMS, SAMPLE_TRACES = 3, 10
+# phase 39: the transformer family at ModelConfig's width (d_model 128, 4
+# heads, 3 + 3 layers, FFN 512, 30 queries) and the flagship's B=20,
+# N=1500
+TRANSFORMER_REQUESTS = 5                  # requests checked card vs CPU
+TRANSFORMER_ROOMS = 10                    # make_rooms: 8 train rooms
+TRANSFORMER_STEPS, TRANSFORMER_WARMUP = 50, 5
+MOE_EXPERTS = 4
+MOE_STEPS, MOE_WARMUP = 20, 3
+PTH_MODELS = (("transformer", 128), ("lstm", 128), ("lstm", 256))
+PTH_ROUTE = {128: "unit", 256: "cluster"}  # #1's route at H = d_model / 2
+PTH_REQUESTS = 5
+ATTN_ITERS = 10                           # attention yardstick calls
+PARITY_ROOMS = 20                         # make_rooms: 16 traces scored
+PARITY_KW = dict(batch_size=8, iou_thresh=0.5, threshold=0.1, nms=0.3)
 # phase 7's JSON stage measured with the Python parser before the native
 # one (NVIDIA H100 80GB HBM3, 700.00 W)
 PYTHON_PARSER_JSON_MS = 7.710
@@ -1186,13 +1227,12 @@ def step_parity(cfg, train_dir, dev, seed, tag="step_parity"):
     # At the unmodified init the random queries sit so close together in
     # the match cost that card vs CPU rounding can move an assignment:
     # count how many move, without asserting.
-    init_temp = float(params["params"]["decoder"]["inv_temp"])
     init_moved = n_moved(*assignments(model, host, cfg.data, dev)[1:3],
                          *assignments(model, host, cfg.data, "cpu")[1:3])
     # As in phase 5, a sharp attention spreads the queries over the walk,
     # so no two of them tie in the match cost. It also keeps the float32
     # softmax backward well conditioned.
-    params["params"]["decoder"]["inv_temp"] = np.float32(100.0)
+    sharpen(params)
     load_params(model, params)
     # The L1 match cost of boxes that lie on one side of two targets in
     # every coordinate is additive, so two such queries tie exactly over
@@ -1232,11 +1272,12 @@ def step_parity(cfg, train_dir, dev, seed, tag="step_parity"):
     loss_rel, live_err, other_err = step_diffs(l_gpu, l_cpu, p_gpu, p_cpu,
                                                g_cpu)
     log(tag,
-        f"card vs CPU at the unmodified init (inv_temp={init_temp:g}), not "
+        f"{cfg.model.model_type} card vs CPU at the unmodified init, not "
         f"asserted: {init_moved} matched targets assigned differently")
     log(tag,
         f"card vs CPU, one step B={cfg.train.batch_size} N="
-        f"{cfg.data.max_trace_len}, inv_temp=100: {int(m_cpu.sum())} matched "
+        f"{cfg.data.max_trace_len}, anchor attention x100: "
+        f"{int(m_cpu.sum())} matched "
         f"pairs, {n_moved(r_gpu, m_gpu, r_cpu, m_cpu)} assigned differently "
         f"across exact ties (the card's assignment under the CPU's costs: "
         f"max_rel_gap={tie_gap:.3e} tol={TIE_RTOL:.0e}); both steps on the "
@@ -1249,6 +1290,21 @@ def step_parity(cfg, train_dir, dev, seed, tag="step_parity"):
     assert loss_rel <= LOSS_RTOL, l_gpu
     assert live_err <= PARAM_ATOL, live_err
     assert other_err <= 2 * cfg.train.lr + PARAM_ATOL, other_err
+    return l_gpu, l_cpu
+
+
+def sharpen(params, factor: float = 100.0) -> None:
+    """Give the anchor attention of the seeded weights ``params`` the
+    temperature ``factor``: the lstm's ``inv_temp``, the transformer's
+    anchor query projection scaled. Random weights give a near-uniform
+    attention, so every query would decode the same box; a sharp one
+    spreads the queries over the walk."""
+    dec = params["params"]["decoder"]
+    if "inv_temp" in dec:
+        dec["inv_temp"] = np.float32(factor)
+        return
+    for k in ("kernel", "bias"):
+        dec["q_proj"][k] = (dec["q_proj"][k] * factor).astype(np.float32)
 
 
 def precision_check(cfg, train_dir, dev, seed, smi):
@@ -1267,7 +1323,7 @@ def precision_check(cfg, train_dir, dev, seed, smi):
     host = ds.gather(np.arange(cfg.train.batch_size) % ds.num_samples)
     model = build_model(cfg.model)
     params = random_params(model, seed)
-    params["params"]["decoder"]["inv_temp"] = np.float32(100.0)
+    sharpen(params)
     load_params(model, params)
     replay = []
     match_batch = losses_mod.hungarian_match_batch
@@ -1400,7 +1456,7 @@ def step_parity_scaleup(cfg, train_dir, dev, seed):
     host = ds.gather(np.arange(SCALEUP_PARITY_B) % ds.num_samples)
     model = build_model(cfg.model)
     params = random_params(model, seed)
-    params["params"]["decoder"]["inv_temp"] = np.float32(100.0)
+    sharpen(params)
     load_params(model, params)
     res = {}
     for name, patch in (("kernels", None), ("plain", GRU_PLAIN)):
@@ -1455,6 +1511,8 @@ def time_steps(cfg, train_dir, dev, seed, smi, kernel_rows, shapes,
         batches = [loop.gather_batch(data, plan, i % nb)
                    for i in range(n_steps + n_warmup)]
         ms = []
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
         for i, batch in enumerate(batches):
             t0 = time.perf_counter()
             losses = step(batch, gen)
@@ -1463,10 +1521,13 @@ def time_steps(cfg, train_dir, dev, seed, smi, kernel_rows, shapes,
                 ms.append((time.perf_counter() - t0) * 1e3)
             assert np.isfinite(float(losses["total_loss"]))
         p50 = float(np.percentile(ms, 50))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         if prefix == "bilstm":   # the flagship's H=64: the unit BPTT kernel
             assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == "unit"
-        else:   # the scale-up's bf16 streams: the tensor-core kernels
+        elif prefix == "bigru":   # the scale-up's bf16: the tc kernels
             assert_tc("bigru_fwd_train", "bigru_bwd")
+        else:   # the transformer: no kernel of the JAX package's
+            assert counts() == expected_counts(), counts()
 
         # per stage, with a synchronise between stages
         lw = loop._loss_weight_dict(c)
@@ -1509,9 +1570,11 @@ def time_steps(cfg, train_dir, dev, seed, smi, kernel_rows, shapes,
         k_ms = {name: next((r["kernel_ms"] for r in rows
                             if r["shape"] == [B, N, c.model.d_model // 2]),
                            None) for name, rows in kernel_rows.items()}
-        row = {"B": B, "N": N, "steps": n_steps, "p50_ms": p50,
+        row = {"model": c.model.model_type, "B": B, "N": N,
+               "steps": n_steps, "p50_ms": p50,
                "p99_ms": float(np.percentile(ms, 99)),
-               "traces_per_s": B / p50 * 1e3,
+               "traces_per_s": B / p50 * 1e3, "peak_gb": peak_gb,
+               "last_losses": {k: float(v) for k, v in losses.items()},
                "stage_ms": {"augment_featurize": mean[0],
                             "forward": mean[1],
                             "criterion_host_matching": m_ms,
@@ -2474,7 +2537,7 @@ def flagship_bf16_path(dev, seed, smi):
     layers = mcfg.lstm_layers
     model = build_model(mcfg)
     params = random_params(model, seed)
-    params["params"]["decoder"]["inv_temp"] = np.float32(100.0)
+    sharpen(params)
     load_params(model, params)
     model = model.to(dev).eval()
     B, N = BENCH[:2]
@@ -2906,7 +2969,7 @@ def wide_paths(dev, seed, smi):
     cfg.model.dropout = 0.0
     model = build_model(cfg.model)
     params = random_params(model, seed)
-    params["params"]["decoder"]["inv_temp"] = np.float32(100.0)
+    sharpen(params)
     load_params(model, params)
     model = model.to(dev).eval()
     B, N = WIDE_TIME[:2]
@@ -3338,7 +3401,7 @@ def hole_tokens_path(cfg, dev, seed, smi):
     hcfg.model.hole_tokens = HOLE_TOKENS
     model = build_model(hcfg.model)
     params = random_params(model, seed)
-    params["params"]["decoder"]["inv_temp"] = np.float32(100.0)
+    sharpen(params)
     load_params(model, params)
     model = model.to(dev).eval()
     B, N = 32, 500
@@ -3509,16 +3572,23 @@ def recipe_path(cfg, dev, seed, smi):
                 return out
             return timed
 
-        @contextlib.contextmanager
-        def seen(level, device):
-            with precision(level, device):
-                levels.append((level, torch.backends.cuda.matmul.allow_tf32))
-                yield
+        def recorder(into):
+            @contextlib.contextmanager
+            def seen(level, device):
+                with precision(level, device):
+                    into.append((level,
+                                 torch.backends.cuda.matmul.allow_tf32))
+                    yield
+            return seen
 
+        val_levels = []
         reset_counts()
         t0 = time.perf_counter()
         with mock.patch.object(driver_mod, "make_train_step", timed_make), \
-                mock.patch.object(loop, "matmul_precision", seen):
+                mock.patch.object(loop, "matmul_precision",
+                                  recorder(levels)), \
+                mock.patch.object(driver_mod, "matmul_precision",
+                                  recorder(val_levels)):
             res = train_benchmark(rcfg, device=dev, verbose=False,
                                   train_ds=mixed, val_ds=va,
                                   checkpoint_every=1)
@@ -3531,6 +3601,8 @@ def recipe_path(cfg, dev, seed, smi):
         bilstm_bwd=layers * steps), launched
     assert levels == [(rcfg.train.matmul_precision, True)] * steps, \
         levels[:3]
+    # the epoch's validation too runs at the run's precision
+    assert val_levels == [(rcfg.train.matmul_precision, True)], val_levels
     assert not torch.backends.cuda.matmul.allow_tf32
     row = res["history"][0]
     assert np.isfinite(row["train_loss"]) and np.isfinite(row["val_loss"])
@@ -3538,7 +3610,7 @@ def recipe_path(cfg, dev, seed, smi):
         f"generated + {real.n_base} captures x {RECIPE_MIX_COPIES}, x "
         f"{len(mixed.rotation_angles)} rotations), B={B} N={L}, "
         f"train.matmul_precision={rcfg.train.matmul_precision!r} (TF32 on in "
-        f"all {steps} steps): {wall:.1f} s; step p50 "
+        f"all {steps} steps and the validation): {wall:.1f} s; step p50 "
         f"{np.percentile(step_ms, 50):.3f} ms (p50 after 5: "
         f"{np.percentile(step_ms[5:], 50):.3f}, p99 "
         f"{np.percentile(step_ms, 99):.3f}, mean {np.mean(step_ms):.3f}); "
@@ -3565,6 +3637,316 @@ def recipe_path(cfg, dev, seed, smi):
         f"occupancy baseline on the card in {demo_s:.2f} s, objects "
         f"{n_obj}; create_sample_data: {SAMPLE_TRACES} legacy CSV rooms in "
         f"{sample_s:.2f} s, {legacy.num_samples} windows")
+    return launched
+
+
+# ---------------------------------------------------------------------------
+# Phase 39: the transformer family
+# ---------------------------------------------------------------------------
+
+
+def transformer_config(**model):
+    """The default config's model as the transformer (ModelConfig's
+    defaults are the reference's training config) at the flagship's B=20,
+    N=1500 and the config's ``bfloat16`` matmul precision."""
+    cfg = ExperimentConfig()
+    cfg.model.model_type = "transformer"
+    for k, v in model.items():
+        setattr(cfg.model, k, v)
+    cfg.train.batch_size, cfg.data.max_trace_len = TRAIN[:2]
+    return cfg
+
+
+def matched_diff(got, ref):
+    """Card vs CPU answers, each card collider paired one to one with the
+    CPU's collider of its label closest in value (confidence, center,
+    size): the largest abs difference over the pairs and how many pairs
+    sit at another rank. Two colliders whose confidences differ by less
+    than the card-vs-CPU rounding may rank either way; the pairing holds
+    their confidences to the same tolerance as every other value."""
+    assert len(got) == len(ref), (len(got), len(ref))
+    left = list(range(len(ref)))
+    worst, moved = 0.0, 0
+    for i, a in enumerate(got):
+        va = np.asarray(collider_values(a))
+        same = [j for j in left if ref[j]["label"] == a["label"]]
+        assert same, (i, a["label"])
+        j = min(same, key=lambda j: np.abs(
+            va - collider_values(ref[j])).max())
+        worst = max(worst, float(np.abs(va - collider_values(ref[j])).max()))
+        moved += j != i
+        left.remove(j)
+    return worst, moved
+
+
+def serve_timed(model, predict, cpu_predict, files, window, warmup, smi,
+                tag, **launched):
+    """Phase 7's protocol on ``predict`` (of ``model``, on the card): each
+    request of ``files`` on the card against ``cpu_predict`` (the answers
+    paired by ``matched_diff``: labels equal, values within
+    ``MODEL_TOL``) with the kernel launches ``launched`` per request, then
+    ``window`` requests of ``files[0]`` after ``warmup``, each split into
+    load / prepare / run / finish on the host clock. Returns the card's
+    answers."""
+    predict(formats.load_trace_json(files[0]))          # warm-up
+    reset_counts()
+    answers, errs, moved = [], [], []
+    for f in files:
+        arr = formats.load_trace_json(f)
+        answers.append(predict(arr))
+        ref = cpu_predict(arr)
+        err, n = matched_diff(answers[-1], ref)
+        if err > MODEL_TOL:
+            log(tag, f"{f.name}: card {answers[-1]} CPU {ref}")
+        errs.append(err)
+        moved.append(n)
+    torch.cuda.synchronize()
+    want = {k: v * len(files) for k, v in launched.items()}
+    assert counts() == expected_counts(**want), counts()
+    assert max(errs) <= MODEL_TOL and min(map(len, answers)) > 0, errs
+    log(tag, f"{len(files)} requests card vs CPU: colliders "
+        f"{[len(a) for a in answers]}, labels equal, max abs diff "
+        f"{max(errs):.3e} (tol {MODEL_TOL:.0e}), colliders at another rank "
+        f"{moved}; launches {want}")
+    if not window:
+        return answers
+    stages = ("load", "prepare", "run", "finish")
+    for _ in range(warmup):
+        predict(formats.load_trace_json(files[0]))
+    ms = np.zeros((window, len(stages)))
+    for i in range(window):
+        t = [time.perf_counter()]
+        arr = formats.load_trace_json(files[0])
+        t.append(time.perf_counter())
+        x, m = predict.prepare(arr)
+        t.append(time.perf_counter())
+        stacked = predict.run(x, m)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        predict.finish(stacked)
+        t.append(time.perf_counter())
+        ms[i] = np.diff(t) * 1e3
+    req = ms.sum(1)
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model(x, m), 50)
+    run_ms = cuda_ms(lambda: predict.run(x, m), 50)
+    log(tag, f"{window} requests of {len(formats.load_trace_json(files[0]))}"
+        f" points (N={x.shape[1]}) after {warmup} warm-up: p50 "
+        f"{np.percentile(req, 50):.3f} ms, p99 {np.percentile(req, 99):.3f}"
+        f" ms, mean {req.mean():.3f}; mean "
+        + ", ".join(f"{k} {v:.3f}" for k, v in zip(stages, ms.mean(0)))
+        + f" ms; device (CUDA events): forward {fwd_ms:.3f} ms, run "
+        f"{run_ms:.3f} ms on {smi}")
+    return answers
+
+
+def serve_transformer(model, cfg, dev, seed, smi, window, warmup, tmp):
+    """Phase 39a: the seeded transformer served at full length (3000-point
+    walks, 1500 after downsampling), card vs CPU, then timed; no kernel
+    launches."""
+    kw = dict(max_trace_len=cfg.data.max_trace_len, confidence_threshold=0.0,
+              nms_threshold=0.3, verbose=False)
+    files = []
+    for i in range(TRANSFORMER_REQUESTS):
+        files.append(tmp / f"request_{i}.json")
+        formats.save_trace_json(
+            files[-1], walk(2 * cfg.data.max_trace_len, seed + 300 + i))
+    serve_timed(model, build_predictor(model, device=dev, **kw),
+                build_predictor(copy.deepcopy(model).cpu(), device="cpu",
+                                **kw),
+                files, window, warmup, smi, "transformer_serve")
+    return files
+
+
+def reference_checkpoints(dev, seed, smi, tmp, files):
+    """Phase 39d: reference-named ``.pth`` files (tests/torch_pth_cases.py)
+    of the transformer and the lstm at the loader's defaults, each loaded
+    through ``load_model_for_inference`` on the card and on the CPU and
+    serving ``files`` card vs CPU; #1's launches and route asserted for
+    the lstm. Returns the #1 launches per lstm width and the paths."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_pth_cases import write_reference_pth
+    launched, paths = {}, {}
+    for model_type, d_model in PTH_MODELS:
+        name = f"{model_type}_{d_model}"
+        mcfg = copy.deepcopy(ExperimentConfig().model)
+        mcfg.model_type, mcfg.d_model = model_type, d_model
+        params = random_params(build_model(mcfg), seed)
+        sharpen(params)
+        # Random weights also give near-uniform class probabilities: the
+        # reference lstm (no objectness head) then ranks its queries by
+        # confidences within 1e-7 of each other, and NMS keeps one of two
+        # overlapping equals by rounding (one of 35 colliders moved by
+        # 0.2 m on an NVIDIA H100 80GB HBM3, 700.00 W). A class head ten
+        # times larger spreads the confidences.
+        head = params["params"]["decoder"]["class_head"]
+        head["kernel"] = (head["kernel"] * 10.0).astype(np.float32)
+        paths[name] = tmp / f"reference_{name}.pth"
+        write_reference_pth(paths[name], params, {
+            "model_type": model_type, "d_model": d_model,
+            "num_queries": mcfg.num_queries})
+        model, cfg = load_model_for_inference(str(paths[name]), device=dev)
+        cpu_model, _ = load_model_for_inference(str(paths[name]),
+                                                device="cpu")
+        assert (cfg.model.model_type, cfg.model.d_model) == (model_type,
+                                                              d_model)
+        kw = dict(max_trace_len=cfg.data.max_trace_len,
+                  confidence_threshold=0.0, nms_threshold=0.3,
+                  verbose=False)
+        lstm = model_type == "lstm"
+        per_request = {"bilstm_fwd": cfg.model.lstm_layers} if lstm else {}
+        serve_timed(model, build_predictor(model, device=dev, **kw),
+                    build_predictor(cpu_model, device="cpu", **kw),
+                    files[:PTH_REQUESTS], 0, 0, smi, f"pth_{name}",
+                    **per_request)
+        launched[name] = counts()["bilstm_fwd"]
+        if lstm:
+            last = rnn_cuda.bilstm_fwd_cuda.last_launch
+            assert last["kernel"] == PTH_ROUTE[d_model], last
+            log(f"pth_{name}", f"#1 at H={d_model // 2}: "
+                f"{plan_text(rnn_cuda.bilstm_fwd_cuda)}")
+    return launched, paths
+
+
+def attention_yardstick(dev, seed, smi):
+    """Phase 39e: one encoder self-attention forward + backward at (b)'s
+    shape (B=20, N=1500, d_model 128, 4 heads, a ragged boolean mask, no
+    dropout): the port's plain attention against the same projections
+    around ``F.scaled_dot_product_attention`` (never called by the port),
+    values and gradients compared at IEEE float32, then both timed on CUDA
+    events at IEEE float32 and at the config's TF32, with peak memory."""
+    B, N = TRAIN[:2]
+    D, H = 128, 4
+    g = torch.Generator(dev).manual_seed(seed)
+    mha = MultiHeadAttention(D, H).to(dev)
+    x = torch.randn(B, N, D, device=dev, generator=g)
+    dy = torch.randn(B, N, D, device=dev, generator=g)
+    lengths = torch.randint(N // 2, N + 1, (B,), device=dev, generator=g)
+    lengths[0] = N
+    mask = torch.arange(N, device=dev)[None, :] < lengths[:, None]
+
+    def library(xr):
+        def split(t):
+            return t.view(B, N, H, D // H).transpose(1, 2)
+
+        q, k, v = (split(getattr(mha, f"{n}_proj")(xr)) for n in "qkv")
+        o = F.scaled_dot_product_attention(q, k, v,
+                                           attn_mask=mask[:, None, None, :])
+        return mha.out_proj(o.transpose(1, 2).reshape(B, N, D))
+
+    def plain(xr):
+        return mha(xr, xr, xr, key_padding_mask=mask)
+
+    names = ["out", "dx", *(n for n, _ in mha.named_parameters())]
+
+    def fwd_bwd(fn):
+        xr = x.detach().requires_grad_(True)
+        out = fn(xr)
+        return (out, *torch.autograd.grad(out, [xr, *mha.parameters()], dy))
+
+    got, ref = fwd_bwd(library), fwd_bwd(plain)
+    # k_proj's bias shifts a softmax row evenly: its gradient is 0 up to
+    # rounding, held to the largest gradient instead
+    top = max(b.abs().max().item() for b in ref[1:])
+    err = max((a - b).abs().max().item()
+              / (top if n == "k_proj.bias" else b.abs().max().item())
+              for n, a, b in zip(names, got, ref))
+    assert err <= GRAD_REL, err
+    row = {"shape": [B, N, D, H], "max_rel_err": err}
+    for level in ("float32", "bfloat16"):
+        with loop.matmul_precision(level, dev):
+            for name, fn in (("plain", plain), ("sdpa", library)):
+                torch.cuda.reset_peak_memory_stats()
+                row[f"{name}_ms_{level}"] = cuda_ms(lambda: fwd_bwd(fn),
+                                                    ATTN_ITERS)
+                row[f"{name}_peak_gb_{level}"] = (
+                    torch.cuda.max_memory_allocated() / 1e9)
+    row["plain_over_sdpa_bfloat16"] = (row["plain_ms_bfloat16"]
+                                       / row["sdpa_ms_bfloat16"])
+    log("attention", json.dumps(row) + "  (sdpa: F.scaled_dot_product_"
+        "attention with the boolean mask, the same projections; values and "
+        f"grads max-rel vs plain, tol {GRAD_REL:.0e}) on {smi}")
+    return row
+
+
+def parity_path(ckpts, dev, seed, smi, tmp):
+    """Phase 39f: ``tools.parity.score_checkpoint`` on 16 ``make_rooms``
+    traces for each checkpoint of ``ckpts``, on the card against the CPU:
+    the metric sums' mIoU, precision, recall, F1 and class accuracy within
+    1e-3, mAP equal where the kept detections are; no kernel launches."""
+    rooms, _ = make_rooms(tmp / "parity", PARITY_ROOMS, seed + 50)
+    n = len(list(rooms.glob("*_trace.json")))
+    kept = []
+
+    def rows(*args, **kwargs):       # the detections each score kept
+        out = benchmark_rows(*args, **kwargs)
+        kept.append([(r[1], r[3]) for r in out[1]])
+        return out
+
+    for name, ck in ckpts.items():
+        kept.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(parity_tool, "benchmark_rows", rows):
+            got = parity_tool.score_checkpoint(str(ck), str(rooms),
+                                               device=dev, **PARITY_KW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            assert counts() == expected_counts(), counts()
+            want = parity_tool.score_checkpoint(str(ck), str(rooms),
+                                                device="cpu", **PARITY_KW)
+        diffs = {k: abs(got[k] - want[k])
+                 for k in ("mIoU", "precision", "recall", "f1", "cls_acc")}
+        assert max(diffs.values()) <= 1e-3, diffs
+        same = kept[0] == kept[1]
+        if same:
+            assert abs(got["mAP"] - want["mAP"]) <= 1e-6, (got["mAP"],
+                                                          want["mAP"])
+        log("parity", f"score_checkpoint {name} on {n} traces in "
+            f"{wall:.1f} s: " + json.dumps(
+                {k: v for k, v in got.items() if k != "AP_per_class"})
+            + " vs the CPU: " + " ".join(f"{k} {v:.2e}"
+                                         for k, v in diffs.items())
+            + f" (tol 1e-3); kept sets equal: {same} ({len(kept[0])} / "
+            f"{len(kept[1])}); mAP card {got['mAP']} CPU {want['mAP']} "
+            f"on {smi}")
+
+
+def transformer_path(dev, seed, smi, window, warmup):
+    """Phase 39: the transformer family on the card (a-f). Returns the #1
+    launches of the reference lstm checkpoints' serving."""
+    cfg = transformer_config()
+    model = build_model(cfg.model)
+    params = random_params(model, seed)
+    sharpen(params)
+    load_params(model, params)
+    model = model.to(dev).eval()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        files = serve_transformer(model, cfg, dev, seed, smi, window, warmup,
+                                  tmp)
+        train_dir, _ = make_rooms(tmp / "rooms", TRANSFORMER_ROOMS,
+                                  seed + 40)
+        time_steps(cfg, train_dir, dev, seed, smi, {}, [TRAIN[:2]],
+                   TRANSFORMER_STEPS, TRANSFORMER_WARMUP, "transformer")
+        step_parity(cfg, train_dir, dev, seed, tag="transformer_step")
+        moe = transformer_config(moe_experts=MOE_EXPERTS)
+        l_gpu, l_cpu = step_parity(moe, train_dir, dev, seed, tag="moe_step")
+        rel = abs(l_gpu["moe_aux"] - l_cpu["moe_aux"]) / l_cpu["moe_aux"]
+        assert rel <= LOSS_RTOL, rel
+        log("moe_step", f"moe_experts={MOE_EXPERTS}: moe_aux card "
+            f"{l_gpu['moe_aux']:.6f} CPU {l_cpu['moe_aux']:.6f} (rel "
+            f"{rel:.3e}, tol {LOSS_RTOL:.0e}), total_loss card "
+            f"{l_gpu['total_loss']:.6f} CPU {l_cpu['total_loss']:.6f}")
+        time_steps(moe, train_dir, dev, seed, smi, {}, [TRAIN[:2]],
+                   MOE_STEPS, MOE_WARMUP, "transformer")
+        launched, pths = reference_checkpoints(dev, seed, smi, tmp, files)
+        attention_yardstick(dev, seed, smi)
+        ours = tmp / "transformer_checkpoint"
+        ckpt_lib.save_checkpoint(ours, model.state_dict(), config=cfg,
+                                 model=model)
+        parity_path({"reference_transformer_128": pths["transformer_128"],
+                     "port_transformer": ours}, dev, seed, smi, tmp)
     return launched
 
 
@@ -3681,7 +4063,7 @@ def main() -> int:
     # Random weights give near-uniform attention, so every query would
     # decode the same box; a sharp attention temperature spreads the
     # queries over the walk and the answers hold several colliders.
-    params["params"]["decoder"]["inv_temp"] = np.float32(100.0)
+    sharpen(params)
     load_params(model, params)
     model = model.to(dev).eval()
     g = np.random.default_rng(args.seed)
@@ -3937,6 +4319,14 @@ def main() -> int:
     recipe_launched = recipe_path(cfg, dev, args.seed, smi)
     log("done", f"phase 38 in {time.perf_counter() - t_recipe:.1f} s")
 
+    # 39. the transformer family: serving, the train step, the MoE step,
+    # reference .pth checkpoints (the lstm's through #1), the attention
+    # yardstick and the parity tool
+    t_trans = time.perf_counter()
+    pth_launched = transformer_path(dev, args.seed, smi, args.window,
+                                    args.warmup)
+    log("done", f"phase 39 in {time.perf_counter() - t_trans:.1f} s")
+
     def entry(name, source, replaces, launched, row):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launched,
@@ -4048,6 +4438,10 @@ def main() -> int:
     for k in kernels[:3]:
         k["launches_recipe"] = recipe_launched[k["name"]]
     kernels[0]["launches_evaluate"] = evaluated["bilstm_fwd"]
+    # the reference lstm checkpoints' requests: H=64 (unit), H=128 (cluster)
+    kernels[0]["launches_pth"] = pth_launched["lstm_128"]
+    next(k for k in kernels if k["name"] == "bilstm_fwd_cluster")[
+        "launches_pth"] = pth_launched["lstm_256"]
     kernels[0]["shapes"] += tta_rows
     kernels[0]["recipes"] = recipe_rows
     log("done", f"{time.perf_counter() - t_start:.1f} s")

@@ -9,8 +9,9 @@
         [--extent_slack M] [--soft SIGMA] [--qscore weights.json]
         [--qscore_auto TAU] [--device cuda]
 
-Reads the JAX package's checkpoints (msgpack + JSON sidecar) and writes the
-same collider JSON.
+Reads the JAX package's and the port's checkpoints (msgpack + JSON
+sidecar) and the reference's ``.pth`` files, and writes the same collider
+JSON.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-"""Shared model pieces: dense layers, MLP heads, trace centering, output
-assembly and the contact-evidence refinement stage (counterparts of the JAX
-package's ``models/common.py``)."""
+"""Shared model pieces: dense layers, MLP heads, dropout, layer norm,
+sinusoidal positions, multi-head attention, the switch-MoE FFN, trace
+centering, output assembly and the contact-evidence refinement stage
+(counterparts of the JAX package's ``models/common.py``)."""
 
 from __future__ import annotations
 
@@ -62,6 +63,165 @@ def reset_parameters(module: nn.Module,
     for m in module.modules():
         if m is not module and hasattr(m, "reset_parameters"):
             m.reset_parameters(generator)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: zero each element with probability ``rate`` and
+    scale the kept ones by ``1 / (1 - rate)``; the identity in eval mode or
+    at rate 0. The mask is drawn from ``generator`` (``torch.rand``), so a
+    seeded trainer draws the same masks run after run."""
+    if not training or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=torch.float32) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm``'s numerics (not torch's): epsilon 1e-6 and
+    the fast variance ``E[x^2] - E[x]^2`` clipped at 0, then ``(x - mean)
+    * (rsqrt(var + eps) * scale) + bias``. The scale is torch's ``weight``
+    (flax's ``scale``; ``weights.py`` renames it by this type)."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__(features, eps=eps)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(dim=-1, keepdim=True)
+        var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+
+
+def sinusoidal_positions(length: int, d_model: int,
+                         dtype: torch.dtype = torch.float32,
+                         device: torch.device | str | None = None
+                         ) -> torch.Tensor:
+    """Sinusoidal position table ``[length, d_model]``: even columns
+    ``sin(pos * div)``, odd ones ``cos``, computed in float32 and then
+    cast to ``dtype``."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32,
+                                 device=device)
+                    * (-math.log(10000.0) / d_model))
+    pe = torch.zeros(length, d_model, dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe.to(dtype)
+
+
+def masked_scores(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``scores`` with the keys where ``mask`` (broadcast to it) is False
+    set to the dtype's lowest finite value, as the JAX package masks."""
+    return scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
+
+
+class MultiHeadAttention(nn.Module):
+    """Multi-head attention with torch ``nn.MultiheadAttention``'s
+    numerics: separate ``q_proj`` / ``k_proj`` / ``v_proj`` / ``out_proj``
+    dense layers, q divided by ``sqrt(head_dim)`` before the product, masked
+    keys at the dtype's lowest value, the softmax in the stream dtype and
+    dropout on the attention probabilities from ``generator``. Plain
+    tensor ops: the JAX package computes attention outside any kernel."""
+
+    def __init__(self, d_model: int, nhead: int, dropout: float = 0.0):
+        super().__init__()
+        self.nhead = nhead
+        self.dropout = dropout
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            self.add_module(name, Dense(d_model, d_model))
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor,
+                value: torch.Tensor,
+                key_padding_mask: Optional[torch.Tensor] = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``query [B, Tq, D]``, ``key`` / ``value [B, Tk, D]``,
+        ``key_padding_mask [B, Tk]`` (True = valid)."""
+        B, Tq, D = query.shape
+        hd = D // self.nhead
+
+        def split(x):
+            return x.view(B, x.shape[1], self.nhead, hd).transpose(1, 2)
+
+        q = split(self.q_proj(query)) / math.sqrt(hd)
+        k = split(self.k_proj(key))
+        v = split(self.v_proj(value))
+        scores = torch.matmul(q, k.transpose(-1, -2))        # [B, H, Tq, Tk]
+        if key_padding_mask is not None:
+            scores = masked_scores(scores, key_padding_mask[:, None, None, :])
+        attn = dropout(torch.softmax(scores, dim=-1), self.dropout,
+                       self.training, generator)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(B, Tq, D)
+        return self.out_proj(out)
+
+
+class MoEFFN(nn.Module):
+    """Switch-style mixture-of-experts FFN: top-1 routing (``argmax``, a tie
+    goes to the first expert) with dense dispatch, every expert computing
+    every token (``[B, E, N, F]``) and the winner's output scaled by its
+    gate probability, so gradients reach the router.
+
+    Parameters as the JAX tree: ``gate`` a dense layer, ``w1 [E, D, F]``,
+    ``b1 [E, F]`` (U(+-1/sqrt(D))), ``w2 [E, F, D]``, ``b2 [E, D]``
+    (U(+-1/sqrt(F))). Each forward stores the load-balance term ``E *
+    sum_e f_e * p_e`` over the valid tokens (``mask``) as ``self.aux``,
+    where flax sows it under ``'losses'``; the train step
+    (``train/loop.py``) reads it and clears it."""
+
+    def __init__(self, d_model: int, dim_feedforward: int, num_experts: int,
+                 dropout: float = 0.0):
+        super().__init__()
+        E, D, F = num_experts, d_model, dim_feedforward
+        self.num_experts = E
+        self.dropout = dropout
+        self.gate = Dense(D, E)
+        self.w1 = nn.Parameter(torch.empty(E, D, F))
+        self.b1 = nn.Parameter(torch.empty(E, F))
+        self.w2 = nn.Parameter(torch.empty(E, F, D))
+        self.b2 = nn.Parameter(torch.empty(E, D))
+        self.aux: Optional[torch.Tensor] = None
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        b1 = 1.0 / math.sqrt(self.w1.shape[1])
+        b2 = 1.0 / math.sqrt(self.w2.shape[1])
+        for p, bound in ((self.w1, b1), (self.b1, b1), (self.w2, b2),
+                         (self.b2, b2)):
+            p.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        E = self.num_experts
+        probs = torch.softmax(self.gate(x), dim=-1)             # [B, N, E]
+        top = probs.argmax(dim=-1)                              # [B, N]
+        onehot = nn.functional.one_hot(top, E).to(x.dtype)
+        route = onehot * probs.gather(-1, top[..., None])
+        h = torch.relu(torch.einsum("bnd,edf->benf", x, self.w1)
+                       + self.b1[None, :, None, :])             # [B, E, N, F]
+        h = dropout(h, self.dropout, self.training, generator)
+        y = (torch.einsum("benf,efd->bend", h, self.w2)
+             + self.b2[None, :, None, :])                       # [B, E, N, D]
+        out = torch.einsum("bend,bne->bnd", y, route)
+        if mask is None:
+            frac = onehot.float().mean(dim=(0, 1))
+            mean_p = probs.float().mean(dim=(0, 1))
+        else:
+            m = mask.float()[..., None]
+            denom = torch.clamp(m.sum(), min=1.0)
+            frac = (onehot.float() * m).sum(dim=(0, 1)) / denom
+            mean_p = (probs.float() * m).sum(dim=(0, 1)) / denom
+        self.aux = E * torch.sum(frac * mean_p)
+        return out
 
 
 class MLP(nn.Sequential):

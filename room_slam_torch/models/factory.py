@@ -9,19 +9,32 @@ from room_slam_torch.config import ModelConfig
 from room_slam_torch.models.gru import TraceToColliderGRU
 from room_slam_torch.models.legacy_gru import RoomSlamGRU
 from room_slam_torch.models.lstm import TraceToColliderLSTM
-
-# model types of the JAX package that are still to be ported, with the
-# ROADMAP queue 1 item that ports each
-_NOT_PORTED = {
-    "transformer": "item 13 (transformer and MoE)",
-}
+from room_slam_torch.models.transformer import TraceToColliderTransformer
 
 
 def build_model(cfg: ModelConfig,
                 generator: torch.Generator | None = None) -> nn.Module:
-    """Build a model by type (``lstm``, ``bigru`` and the legacy surface's
-    ``gru`` so far)."""
+    """Build a model by type: ``transformer``, ``lstm``, ``bigru`` or the
+    legacy surface's ``gru``."""
     t = cfg.model_type.lower()
+    if t == "transformer":
+        return TraceToColliderTransformer(
+            input_dim=cfg.input_dim,
+            d_model=cfg.d_model,
+            nhead=cfg.nhead,
+            num_encoder_layers=cfg.enc_layers,
+            num_decoder_layers=cfg.dec_layers,
+            num_queries=cfg.num_queries,
+            dim_feedforward=cfg.dim_feedforward,
+            dropout=cfg.dropout,
+            num_classes=cfg.num_classes,
+            objectness=cfg.objectness,
+            center_xz=cfg.center_xz,
+            refine_stages=cfg.refine_stages,
+            extent_features=cfg.extent_features,
+            moe_experts=cfg.moe_experts,
+            generator=generator,
+        )
     if t == "lstm":
         return TraceToColliderLSTM(
             input_dim=cfg.input_dim,
@@ -61,8 +74,6 @@ def build_model(cfg: ModelConfig,
             dropout=cfg.dropout,
             generator=generator,
         )
-    if t in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model_type {cfg.model_type!r} is not ported yet: ROADMAP queue "
-            f"1 {_NOT_PORTED[t]}")
-    raise ValueError(f"Unknown model_type: {cfg.model_type}")
+    raise ValueError(f"Unknown model_type: {cfg.model_type}. Use "
+                     "'transformer', 'lstm', 'bigru' or 'gru' (legacy "
+                     "surface).")

@@ -24,9 +24,9 @@ from torch import nn
 from room_slam_torch.data.features import trace_stats
 from room_slam_torch.models.common import (Dense, assemble_output,
                                            center_traces_xz,
-                                           compute_dtype_of,
+                                           compute_dtype_of, dropout,
                                            reset_parameters)
-from room_slam_torch.models.lstm import SimpleQueryDecoder, dropout
+from room_slam_torch.models.lstm import SimpleQueryDecoder
 from room_slam_torch.ops.gru_cuda import bigru_recurrence
 from room_slam_torch.ops.rnn import input_gates
 

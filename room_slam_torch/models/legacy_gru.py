@@ -23,8 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from room_slam_torch.models.common import Dense, reset_parameters
-from room_slam_torch.models.lstm import dropout
+from room_slam_torch.models.common import Dense, dropout, reset_parameters
 from room_slam_torch.ops.rnn import gru_recurrence
 
 

@@ -33,27 +33,12 @@ from torch import nn
 from room_slam_torch.data.features import trace_stats
 from room_slam_torch.models.common import (MLP, ContactRefineStage, Dense,
                                            assemble_output, center_traces_xz,
-                                           compute_dtype_of,
+                                           compute_dtype_of, dropout,
                                            reset_parameters,
                                            trace_extent_planes)
 from room_slam_torch.ops.refine import hole_components
 from room_slam_torch.ops.rnn import input_gates
 from room_slam_torch.ops.rnn_cuda import bilstm_recurrence
-
-
-def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: torch.Generator | None = None) -> torch.Tensor:
-    """flax ``nn.Dropout``: zero each element with probability ``rate`` and
-    scale the kept ones by ``1 / (1 - rate)``; the identity in eval mode or
-    at rate 0. The mask is drawn from ``generator`` (``torch.rand``), so a
-    seeded trainer draws the same masks run after run."""
-    if not training or rate == 0.0:
-        return x
-    if rate >= 1.0:
-        return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=torch.float32) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class BiLSTMLayer(nn.Module):

@@ -2,10 +2,10 @@
 
     python -m room_slam_torch.train --config configs/flagship_v15.json \\
         --data_dir DIR [--val_dir DIR] [--epochs N] [--batch_size B] \\
-        [--lr LR] [--model lstm|bigru] [--d_model D] [--num_queries Q] \\
-        [--max_trace_len L] [--schedule plateau|cosine] [--resume STEM] \\
-        [--save_dir DIR] [--seed S] [--set section.key=value ...] \\
-        [--device cuda|cpu]
+        [--lr LR] [--model lstm|bigru|transformer] [--d_model D] \\
+        [--num_queries Q] [--max_trace_len L] [--schedule plateau|cosine] \\
+        [--resume STEM] [--save_dir DIR] [--seed S] \\
+        [--set section.key=value ...] [--device cuda|cpu]
     python -m room_slam_torch.train --surface legacy --data_dir DIR \\
         [--epochs N] [--batch_size B] [--lr LR] [--hidden_size 128] \\
         [--seq_len 500] [--max_objects 10] [--save_dir DIR] [--device cuda]
@@ -18,6 +18,10 @@ the JAX package's (100 epochs, batch 32, lr 1e-3).
 The scale-up BiGRU trains from the default config with ``--model bigru
 --d_model 512 --num_queries 32 --set model.compute_dtype=bfloat16 --set
 data.max_colliders=32 --max_trace_len 5000 --batch_size 128``.
+The transformer's fields (``nhead``, ``enc_layers``, ``dec_layers``,
+``dim_feedforward``, ``moe_experts``) and ``train.moe_aux_weight`` are set
+through ``--set``, as in the JAX CLI: ``--model transformer --set
+model.moe_experts=4`` trains the switch-MoE encoder.
 ``--resume <save_dir>/checkpoint_epoch_N`` (or ``best_model``) continues a
 run from the checkpoint's parameters, optimizer state, epoch and plateau
 scheduler, as the JAX package's ``--resume`` does.
@@ -67,7 +71,7 @@ def main(argv=None) -> None:
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--model", type=str, default=None,
-                   help="model.model_type: lstm | bigru")
+                   help="model.model_type: lstm | bigru | transformer | gru")
     p.add_argument("--d_model", type=int, default=None)
     p.add_argument("--num_queries", type=int, default=None)
     p.add_argument("--max_trace_len", type=int, default=None)

@@ -20,6 +20,7 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from room_slam_torch.config import ExperimentConfig
 from room_slam_torch.weights import state_dict_to_params
@@ -82,15 +83,18 @@ def save_checkpoint(path: str | Path,
                     epoch: int = 0, val_loss: float = float("nan"),
                     metrics: Optional[Dict] = None,
                     config: Optional[ExperimentConfig] = None,
-                    extra: Optional[Dict] = None) -> None:
+                    extra: Optional[Dict] = None,
+                    model: Optional[nn.Module] = None) -> None:
     """Write ``<path>.msgpack`` (the model's parameters in the JAX layout,
-    through ``weights.state_dict_to_params``, and ``opt_state`` when given:
+    through ``weights.state_dict_to_params``, which needs ``model`` where it
+    has layer norms, and ``opt_state`` when given:
     ``loop.Optimizer.state_dict()``, optax's layout) and the ``<path>.json``
     sidecar (``has_opt_state`` says which). ``extra`` merges more JSON state
     (the plateau scheduler) into the sidecar."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    tree: Dict[str, Any] = {"params": state_dict_to_params(state_dict)}
+    tree: Dict[str, Any] = {"params": state_dict_to_params(state_dict,
+                                                           model)}
     if opt_state is not None:
         tree["opt_state"] = opt_state
     path.with_suffix(".msgpack").write_bytes(write_msgpack_tree(tree))

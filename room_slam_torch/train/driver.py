@@ -4,7 +4,8 @@ its per-epoch host loop, ``_check_query_capacity``, ``train_legacy`` and
 ``load_model_for_inference``).
 
 ``train_benchmark`` resumes from a checkpoint (``resume=``) and recovers
-from a CUDA runtime error (``max_recoveries``), as the JAX package's does.
+from a CUDA runtime error (``max_recoveries``), as the JAX package's does;
+its validation runs at ``train.matmul_precision``, as its steps.
 Not ported: the fused whole-run dispatch (``train_benchmark_fused``).
 """
 
@@ -32,8 +33,10 @@ from room_slam_torch.train import checkpoint as ckpt_lib
 from room_slam_torch.train.loop import (Batch, Optimizer, PlateauScheduler,
                                         eval_model, gather_batch,
                                         make_eval_epoch, make_optimizer,
-                                        make_train_step, warmup_cosine_lr)
+                                        make_train_step, matmul_precision,
+                                        warmup_cosine_lr)
 from room_slam_torch.train.metrics import summarize_metrics
+from room_slam_torch.train.torch_import import load_pth_checkpoint
 from room_slam_torch.utils.logging import MetricsLogger
 from room_slam_torch.weights import load_params
 
@@ -249,7 +252,11 @@ def train_benchmark(cfg: ExperimentConfig,
 
         if (epoch + 1) % t.val_every == 0:
             em = eval_model(model, opt)
-            losses, sums = eval_epoch(em, val_data, val_plan)
+            # the reference sets the run's matmul precision process-wide,
+            # so its validation (the plateau and best-model decisions)
+            # runs at that level too
+            with matmul_precision(t.matmul_precision, dev):
+                losses, sums = eval_epoch(em, val_data, val_plan)
             val_loss = float(losses["total_loss"])
             metrics = summarize_metrics({k: float(v)
                                          for k, v in sums.items()})
@@ -274,7 +281,7 @@ def train_benchmark(cfg: ExperimentConfig,
                     save_dir / "best_model", em.state_dict(),
                     opt.state_dict(), epoch=epoch, val_loss=val_loss,
                     metrics=metrics, config=cfg,
-                    extra={"sched": sched.state_dict()})
+                    extra={"sched": sched.state_dict()}, model=em)
                 if verbose:
                     print(f"✓ Saved BEST model (val_loss={best_val:.4f})")
         elif verbose:
@@ -284,7 +291,7 @@ def train_benchmark(cfg: ExperimentConfig,
             last_ckpt = save_dir / f"checkpoint_epoch_{epoch}"
             ckpt_lib.save_checkpoint(
                 last_ckpt, model.state_dict(), opt.state_dict(), epoch=epoch,
-                config=cfg, extra={"sched": sched.state_dict()})
+                config=cfg, extra={"sched": sched.state_dict()}, model=model)
         epoch += 1
 
     wall = time.time() - t0
@@ -442,13 +449,19 @@ def load_model_for_inference(checkpoint: str,
                              ) -> Tuple[nn.Module, ExperimentConfig]:
     """Rebuild the model of checkpoint stem ``checkpoint`` (``<stem>.json``
     + ``<stem>.msgpack``, as the JAX package and ``train_benchmark`` write
-    them), load its weights and move it to ``device`` in eval mode."""
-    if checkpoint.endswith(".pth"):
-        raise NotImplementedError(
-            "reference .pth checkpoints are not ported yet (ROADMAP queue 1 "
-            "item 13)")
+    them), or import a reference ``.pth`` (``train/torch_import.py``:
+    ``model_type`` from its ``config``, default ``transformer``, ``d_model``
+    256 and ``num_queries`` 50 by default, every other field the default
+    config's), load its weights and move it to ``device`` in eval mode."""
     dev = resolve_device(device)
-    cfg = ckpt_lib.load_config_from_checkpoint(checkpoint)
-    params, _ = ckpt_lib.load_checkpoint(checkpoint)
+    if checkpoint.endswith(".pth"):
+        params, ref_cfg = load_pth_checkpoint(checkpoint)
+        cfg = ExperimentConfig()
+        cfg.model.model_type = ref_cfg.get("model_type", "transformer")
+        cfg.model.d_model = ref_cfg.get("d_model", 256)
+        cfg.model.num_queries = ref_cfg.get("num_queries", 50)
+    else:
+        cfg = ckpt_lib.load_config_from_checkpoint(checkpoint)
+        params, _ = ckpt_lib.load_checkpoint(checkpoint)
     model = load_params(build_model(cfg.model), params)
     return model.to(dev).eval(), cfg

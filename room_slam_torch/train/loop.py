@@ -23,6 +23,7 @@ from torch import nn
 from room_slam_torch.config import DataConfig, ExperimentConfig
 from room_slam_torch.data.augment import Sample, apply_augment, draw_rands
 from room_slam_torch.data.features import featurize
+from room_slam_torch.models.common import MoEFFN
 from room_slam_torch.ops.losses import set_criterion
 from room_slam_torch.train.metrics import metrics_sums
 from room_slam_torch.weights import params_to_state_dict, state_dict_to_params
@@ -107,13 +108,14 @@ class Optimizer:
         for key in ("exp_avg", "exp_avg_sq"):
             moments[key] = state_dict_to_params({
                 n: self.adamw.state.get(p, {}).get(key, torch.zeros_like(p))
-                for n, p in self.named})
+                for n, p in self.named}, self.model)
         inner: Dict[str, Any] = {
             "0": {},
             "1": {"0": {"count": count, "mu": moments["exp_avg"],
                         "nu": moments["exp_avg_sq"]}, "1": {}, "2": {}}}
         if self.ema is not None:
-            inner["2"] = {"ema": state_dict_to_params(self.ema)}
+            inner["2"] = {"ema": state_dict_to_params(self.ema,
+                                                      self.model)}
         return {"count": count.copy(),
                 "hyperparams": {"learning_rate": np.asarray(self.lr,
                                                             np.float32)},
@@ -293,15 +295,21 @@ def make_train_step(model: nn.Module, opt: Optimizer, cfg: ExperimentConfig,
     microbatches, each normalizing its own weighted loss, and their
     gradients are averaged into one update. The forward and backward run
     at ``train.matmul_precision`` (``matmul_precision``). Losses come back
-    as detached device tensors (the mean over microbatches)."""
+    as detached device tensors (the mean over microbatches).
+
+    With ``model.moe_experts`` and a non-zero ``train.moe_aux_weight`` w,
+    each microbatch's ``moe_aux`` is the mean over the ``MoEFFN`` layers of
+    their load-balance terms, and ``total_loss`` gains ``w * moe_aux``."""
     lw = _loss_weight_dict(cfg)
     A = max(1, int(cfg.train.grad_accum))
     precision = cfg.train.matmul_precision
+    moe_w = cfg.train.moe_aux_weight if cfg.model.moe_experts else 0.0
+    moe_layers = [m for m in model.modules() if isinstance(m, MoEFFN)]
 
     def step(batch: Batch, generator: torch.Generator) -> Batch:
         feats, mask, targets = prepare_batch(
             batch, cfg.data, generator if augment else None)
-        B = feats.shape[0]
+        B, dev = feats.shape[0], feats.device
         if B % A:
             raise ValueError(f"train.grad_accum={A} must divide the batch "
                              f"size {B}")
@@ -316,6 +324,17 @@ def make_train_step(model: nn.Module, opt: Optimizer, cfg: ExperimentConfig,
                 part = set_criterion(
                     out, {k: v[sl] for k, v in targets.items()},
                     batch["weight"][sl], lw)
+                if moe_w:
+                    # the mean over the layers, so the weight does not
+                    # depend on the encoder's depth
+                    aux = (sum(m.aux for m in moe_layers) / len(moe_layers)
+                           if moe_layers else torch.zeros((), device=dev))
+                    part["moe_aux"] = aux
+                    part["total_loss"] = part["total_loss"] + moe_w * aux
+                for m in moe_layers:
+                    # a term with autograd history would keep the model
+                    # from being copied (the EMA's evaluation model)
+                    m.aux = None
                 (part["total_loss"] / A).backward()
                 for k, v in part.items():
                     losses[k] = losses.get(k, 0.0) + v.detach() / A

@@ -93,11 +93,13 @@ def test_model_without_mask_or_extras_matches_jax():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(model_type="transformer"), "item 13"),
+    (dict(model_type="rnn"), "Unknown model_type: rnn"),
 ])
 def test_unported_options_raise(kw, match):
+    """Every model type of the JAX package is ported; a type neither
+    package knows raises, naming the four."""
     _, tcfg = small_cfg(**kw)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         build_torch(tcfg)
 
 
