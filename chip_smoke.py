@@ -9,9 +9,10 @@ Phases, one line each or more (a failed check raises; nothing is caught):
 1. device: card name, count, and ``nvidia-smi`` name and power limit;
 2. build: every kernel source in ``room_slam_torch/csrc``, one ``nvcc`` each,
    all started together (registers and spills from ``-Xptxas -v``); the
-   BiGRU tensor-core kernels, the fused kind (#9) and the GRU and LSTM BPTT
-   unit kernels by name, the tensor-core kernels, #9's bf16 kind and the
-   LSTM BPTT unit kernels asserted free of spills; the native trace parser
+   BiGRU tensor-core kernels, the fused kind (#9), the GRU and LSTM BPTT
+   unit kernels and the LSTM register cluster kernels by name, the
+   tensor-core kernels, #9's bf16 kind and the LSTM BPTT unit kernels
+   asserted free of spills; the native trace parser
    (``room_slam_torch/native/trace_parser.cc``, g++) into ``build/native``;
 3. kernel check on the card: ``bilstm_fwd`` (the unit kernel, H <= 64)
    against its plain version, ``bilstm_fwd_train`` (ys, c, gates) and
@@ -157,15 +158,21 @@ Phases, one line each or more (a failed check raises; nothing is caught):
 31. the LSTM cluster route (H above the wide kernels, to 256) at
     ``CLUSTER_WIDTHS`` x ``CLUSTER_BATCHES``, N=``CLUSTER_N``, f32 and
     bf16: the light and training forward and the BPTT, two directions and
-    one, each launch's route asserted "cluster" and its plan printed,
-    against the plain versions;
+    one, each launch's route asserted "reg" (the register cluster kernels)
+    and its plan printed, against the plain versions, the BPTT bit-equal
+    on a second launch; the first cluster kernels, forced at their
+    planner's pick, the same way at ``OLD_CLUSTER_WIDTHS`` (one width a
+    kind and dtype);
 32. the GRU cluster kernels' masked slices (the cluster size need not
     divide H) at ``MASKED_WIDTHS`` and the first even H no dividing plan
     fits, checked the same way, each plan's cluster asserted not to divide
     H;
-33. the new routes' timing at ``WIDE_TIME`` (B=32, N=500; H=256 for the
-    LSTM, 255 for the GRU masked slices), f32: kernel, plain version,
-    bound and cuDNN ``nn.LSTM`` / ``nn.GRU``;
+33. the new routes' timing: the LSTM kernels at ``LSTM_REG_TIME``
+    ((32, 500, 256) f32 and bf16, the reference lstm request's (1, 3000,
+    128) f32), the register cluster kernel beside the first cluster kernel
+    forced at its planner's pick in the same call; the GRU masked slices
+    at ``WIDE_TIME`` with H=255, f32: kernel, plain version, bound and
+    cuDNN ``nn.LSTM`` / ``nn.GRU`` (fp16 for the bf16 rows), µs a step;
 34. their main paths, counted: the flagship ``lstm`` at d_model 512
     (H=256) forward against the plain recurrence and one train step with
     the kernels and with the plain versions patched in (equal assignments,
@@ -329,7 +336,9 @@ TC_EDGE_SHAPES = (((17, 300, 256), torch.bfloat16),
                   ((1, 500, 256), torch.bfloat16))
 BF16_RTOL, BF16_ATOL = 0.05, 0.03   # bf16 streams: values (the JAX suite's)
 BF16_GRAD_REL = 0.1                 # bf16 streams: gradients, max-rel
-YARDSTICK_ROUNDS = 3   # phase 29: rounds of the bf16 / fp16 library timing
+# phase 29: rounds of the bf16 / fp16 library timing (3 until the register
+# cluster kernels' timing was added to phase 33)
+YARDSTICK_ROUNDS = 2
 SCALEUP_TRAIN_ROOMS, SCALEUP_VAL_ROOMS = 96, 8   # x 4 rotations: 3 steps
 SCALEUP_POINTS = (5000, 7500)       # walk length per room, before the cut
 SCALEUP_REQUEST = 7500              # points of the served request
@@ -352,6 +361,12 @@ LEGACY_STEPS, LEGACY_WARMUP = 50, 5
 # phases 31-34: the widths above the unit and wide kernels
 CLUSTER_WIDTHS = (119, 128, 130, 192, 256)   # the LSTM cluster route
 CLUSTER_BATCHES = (1, 5, 32)
+OLD_CLUSTER_WIDTHS = {torch.float32: 130, torch.bfloat16: 256}
+# phase 33: the register cluster kernels against the first cluster kernels
+LSTM_REG_TIME = (((32, 500, 256), torch.float32),
+                 ((32, 500, 256), torch.bfloat16),
+                 ((1, 3000, 128), torch.float32))
+REG_SWEEP_PLANS = 4   # register plans swept at LSTM_REG_TIME's first shape
 CLUSTER_N = 300
 MASKED_WIDTHS = (139, 201, 255)   # and the first even H no dividing plan fits
 WIDE_TIME = (32, 500, 256)        # the new routes' timing (GRU: H=255)
@@ -394,7 +409,7 @@ TRANSFORMER_STEPS, TRANSFORMER_WARMUP = 50, 5
 MOE_EXPERTS = 4
 MOE_STEPS, MOE_WARMUP = 20, 3
 PTH_MODELS = (("transformer", 128), ("lstm", 128), ("lstm", 256))
-PTH_ROUTE = {128: "unit", 256: "cluster"}  # #1's route at H = d_model / 2
+PTH_ROUTE = {128: "unit", 256: "reg"}  # #1's route at H = d_model / 2
 PTH_REQUESTS = 5
 ATTN_ITERS = 10                           # attention yardstick calls
 PARITY_ROOMS = 20                         # make_rooms: 16 traces scored
@@ -421,11 +436,14 @@ USAGE_KERNELS = {
                   "gru_bwd_unit_bf16": ("gru_bwd_unit_kernel", "bfloat16Li")},
     "bilstm_bwd": {
         "bilstm_bwd_unit_f32": ("bilstm_bwd_unit_kernel", "IfLi"),
-        "bilstm_bwd_unit_bf16": ("bilstm_bwd_unit_kernel", "bfloat16Li")}}
+        "bilstm_bwd_unit_bf16": ("bilstm_bwd_unit_kernel", "bfloat16Li"),
+        "bilstm_bwd_reg": ("bilstm_bwd_reg_kernel",)},
+    "bilstm_fwd": {"bilstm_fwd_reg": ("bilstm_fwd_reg_kernel",)}}
 # the kernels that must spill nothing: the tensor-core BiGRU kernels (W_hh
 # fragments and an input ring in registers), #9's bf16 kind (its products
-# on tensor cores) and the LSTM BPTT unit kernels (W_hh and an 8-step
-# input ring in registers)
+# on tensor cores) and the LSTM BPTT unit kernels (W_hh and an 8-step input
+# ring in registers). The LSTM register cluster kernels are reported, not
+# held: at two blocks an SM (128 registers) their 8-row tiles spill.
 NO_SPILL = ("bigru_fwd_tc", "bigru_bwd_tc", "bigru_bwd_fused_bf16",
             "bilstm_bwd_unit_f32", "bilstm_bwd_unit_bf16")
 
@@ -598,10 +616,11 @@ def plan_text(fn) -> str:
 
 def plan_key(plan) -> str:
     """A launch plan as text: "unit x1", "wide x4", "cluster 1x4", "tc
-    4x16"; a BiGRU wrapper's ``(cluster, rows)`` is the cluster kernel's."""
+    4x16", "reg 16x8"; a BiGRU wrapper's ``(cluster, rows)`` is the cluster
+    kernel's."""
     if isinstance(plan[0], int):
         return f"cluster {plan[0]}x{plan[1]}"
-    if plan[0] in ("cluster", "tc"):
+    if plan[0] in ("cluster", "tc", "reg"):
         return f"{plan[0]} {plan[1]}x{plan[2]}"
     return f"{plan[0]} x{plan[1]}"
 
@@ -641,7 +660,8 @@ def gru_bwd_plans(B, H, dev, dtype):
 
 
 def plan_sweep(name, fn, args, plans, shape, iters):
-    """Phases 4, 19 and 29: µs per step of ``fn(*args, plan=p)`` at ``shape``
+    """Phases 4, 19, 29 and 33: µs per step of ``fn(*args, plan=p)`` at
+    ``shape``
     (B, N, H) for every plan, CUDA events over ``iters`` launches each, then
     one launch without a plan; returns the times, the planner's pick and
     the fastest plan."""
@@ -651,7 +671,7 @@ def plan_sweep(name, fn, args, plans, shape, iters):
     fn(*args)
     last = fn.last_launch
     pick = plan_key((last["kernel"], last["cluster"], last["rows"])
-                    if last["kernel"] in ("cluster", "tc")
+                    if last["kernel"] in ("cluster", "tc", "reg")
                     else (last["kernel"], last["rows"]))
     fastest = min(us, key=us.get)
     dtype = next(a.dtype for a in args if a.dim() == 3)   # the streams'
@@ -2717,65 +2737,93 @@ def _lstm_bwd_case(ins, dtype, seed):
     return (ins[2], ins[3], res[4], res[2], dy_f, res[5], res[3], dy_b)
 
 
+def _lstm_cluster_case(H, B, dtype, dev, seed, kernel, plan_of=None):
+    """The six LSTM kernels at (B, ``CLUSTER_N``, H) in ``dtype`` against
+    their plain versions (f32 max abs err ``KERNEL_ATOL`` on values,
+    ``GRAD_REL`` on dg; bf16 rtol / atol and ``BF16_GRAD_REL``), each
+    launch's kernel asserted ``kernel``, the BPTT bit-equal on a second
+    launch; ``plan_of(kind, save, dirs)`` forces a plan. Returns the
+    values' and dg's worst errors and the plans."""
+    xg_f, xg_b, w_f, w_b = kernel_inputs(B, CLUSTER_N, H, dev, seed)
+    xg_f, xg_b = xg_f.to(dtype), xg_b.to(dtype)
+    ins = (xg_f, xg_b, w_f, w_b)
+    plans, errs = [], []
+
+    def kw(kind, save, dirs):
+        return {} if plan_of is None else {"plan": plan_of(kind, save,
+                                                           dirs)}
+    for name, fn, a, ref, save, dirs in (
+            ("bilstm_fwd", rnn_cuda.bilstm_fwd_cuda, ins,
+             rnn_cuda.bilstm_recurrence_plain(*ins), False, 2),
+            ("bilstm_fwd_train", rnn_cuda.bilstm_fwd_train_cuda,
+             ins, rnn_cuda.bilstm_fwd_train_plain(*ins), True, 2),
+            ("lstm_fwd", rnn_cuda.lstm_fwd_cuda,
+             (xg_b, w_b, True),
+             (rnn_cuda.lstm_recurrence(xg_b, w_b, True),), False, 1),
+            ("lstm_fwd_train", rnn_cuda.lstm_fwd_train_cuda,
+             (xg_f, w_f, False),
+             rnn_cuda.lstm_fwd_train_plain(xg_f, w_f), True, 1)):
+        got = fn(*a, **kw("fwd", save, dirs))
+        got = got if isinstance(got, tuple) else (got,)
+        assert fn.last_launch["kernel"] == kernel, (name, fn.last_launch)
+        errs.append(value_err(got, ref, dtype))
+        plans.append(f"{name} {plan_text(fn)}")
+    args = _lstm_bwd_case(ins, dtype, seed + 1)
+    ref = rnn_cuda.bilstm_bwd_plain(*args)
+    tol = GRAD_REL if dtype == torch.float32 else BF16_GRAD_REL
+    rels = []
+    for name, fn, a, r, dirs in (
+            ("bilstm_bwd", rnn_cuda.bilstm_bwd_cuda, args, ref, 2),
+            ("lstm_bwd", rnn_cuda.lstm_bwd_cuda,
+             (args[0], *args[2:5], False), ref[:1], 1),
+            ("lstm_bwd", rnn_cuda.lstm_bwd_cuda,
+             (args[1], *args[5:8], True), ref[1:], 1)):
+        got = fn(*a, **kw("bwd", False, dirs))
+        got = got if isinstance(got, tuple) else (got,)
+        assert fn.last_launch["kernel"] == kernel, (name, fn.last_launch)
+        again = fn(*a, **kw("bwd", False, dirs))
+        again = again if isinstance(again, tuple) else (again,)
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), name
+        rels += [max_rel(x.float(), y.float()) for x, y in zip(got, r)]
+        assert all(torch.isfinite(x).all() for x in got)
+        plans.append(f"{name} {plan_text(fn)}")
+    assert max(rels) <= tol, (H, B, dtype, rels)
+    torch.cuda.synchronize()
+    return max(errs), max(rels), plans
+
+
 def check_lstm_cluster(dev, seed):
     """Phase 31: the LSTM cluster route (H above the wide kernels) at
     ``CLUSTER_WIDTHS`` x ``CLUSTER_BATCHES``, N=``CLUSTER_N``, float32 and
     bf16: the light and training forward and the BPTT, two directions and
-    one (both walk orders), each launch's route asserted "cluster" and its
-    plan printed, against the plain versions (f32 max abs err
-    ``KERNEL_ATOL`` on values, ``GRAD_REL`` on dg; bf16 rtol / atol and
-    ``BF16_GRAD_REL``)."""
+    one (both walk orders), each launch's route asserted "reg" (the
+    register cluster kernels) and its plan printed, against the plain
+    versions, the BPTT bit-equal run to run (``_lstm_cluster_case``); then
+    the first cluster kernels, forced at their planner's pick, at
+    ``OLD_CLUSTER_WIDTHS`` and B=5."""
     worst = {}
     for H in CLUSTER_WIDTHS:
         for B in CLUSTER_BATCHES:
             for dtype in (torch.float32, torch.bfloat16):
-                xg_f, xg_b, w_f, w_b = kernel_inputs(B, CLUSTER_N, H, dev,
-                                                     seed)
-                xg_f, xg_b = xg_f.to(dtype), xg_b.to(dtype)
-                ins = (xg_f, xg_b, w_f, w_b)
-                plans, errs = [], []
-                for name, fn, a, ref in (
-                        ("bilstm_fwd", rnn_cuda.bilstm_fwd_cuda, ins,
-                         rnn_cuda.bilstm_recurrence_plain(*ins)),
-                        ("bilstm_fwd_train", rnn_cuda.bilstm_fwd_train_cuda,
-                         ins, rnn_cuda.bilstm_fwd_train_plain(*ins)),
-                        ("lstm_fwd", rnn_cuda.lstm_fwd_cuda,
-                         (xg_b, w_b, True),
-                         (rnn_cuda.lstm_recurrence(xg_b, w_b, True),)),
-                        ("lstm_fwd_train", rnn_cuda.lstm_fwd_train_cuda,
-                         (xg_f, w_f, False),
-                         rnn_cuda.lstm_fwd_train_plain(xg_f, w_f))):
-                    got = fn(*a)
-                    got = got if isinstance(got, tuple) else (got,)
-                    assert fn.last_launch["kernel"] == "cluster", (
-                        name, fn.last_launch)
-                    errs.append(value_err(got, ref, dtype))
-                    plans.append(f"{name} {plan_text(fn)}")
-                args = _lstm_bwd_case(ins, dtype, seed + 1)
-                ref = rnn_cuda.bilstm_bwd_plain(*args)
-                tol = GRAD_REL if dtype == torch.float32 else BF16_GRAD_REL
-                rels = []
-                for name, fn, a, r in (
-                        ("bilstm_bwd", rnn_cuda.bilstm_bwd_cuda, args, ref),
-                        ("lstm_bwd", rnn_cuda.lstm_bwd_cuda,
-                         (args[0], *args[2:5], False), ref[:1]),
-                        ("lstm_bwd", rnn_cuda.lstm_bwd_cuda,
-                         (args[1], *args[5:8], True), ref[1:])):
-                    got = fn(*a)
-                    got = got if isinstance(got, tuple) else (got,)
-                    assert fn.last_launch["kernel"] == "cluster", (
-                        name, fn.last_launch)
-                    rels += [max_rel(x.float(), y.float())
-                             for x, y in zip(got, r)]
-                    assert all(torch.isfinite(x).all() for x in got)
-                    plans.append(f"{name} {plan_text(fn)}")
-                assert max(rels) <= tol, (H, B, dtype, rels)
-                torch.cuda.synchronize()
+                err, rel, plans = _lstm_cluster_case(H, B, dtype, dev, seed,
+                                                     "reg")
                 key = str(dtype)[6:]
-                worst[key] = max(worst.get(key, 0.0), *errs)
+                worst[key] = max(worst.get(key, 0.0), err)
                 log("lstm_cluster", f"B,N,H=({B}, {CLUSTER_N}, {H}) {key}: "
-                    f"values max_abs_err={max(errs):.3e}, dg max_rel_err="
-                    f"{max(rels):.3e}; " + "; ".join(plans))
+                    f"values max_abs_err={err:.3e}, dg max_rel_err="
+                    f"{rel:.3e}, BPTT bit-equal run to run; "
+                    + "; ".join(plans))
+    for dtype, H in OLD_CLUSTER_WIDTHS.items():
+        B = 5
+
+        def old(kind, save, dirs):
+            return ("cluster", *rnn_cuda.card_lstm_cluster_plans(
+                kind, B, H, dev, dtype, save, dirs)[0])
+        err, rel, plans = _lstm_cluster_case(H, B, dtype, dev, seed,
+                                             "cluster", old)
+        log("lstm_cluster", f"first cluster kernels, forced: B,N,H=({B}, "
+            f"{CLUSTER_N}, {H}) {str(dtype)[6:]}: values max_abs_err="
+            f"{err:.3e}, dg max_rel_err={rel:.3e}; " + "; ".join(plans))
     return worst
 
 
@@ -2846,104 +2894,160 @@ def check_gru_masked(dev, seed):
     return widths
 
 
+def _library_ms(mod, B, N, H, dtype, dev, seed):
+    """cuDNN's ``mod`` (``nn.LSTM`` / ``nn.GRU``; fp16 for bf16 streams,
+    which cuDNN refuses) at (B, N, H) in both direction counts, input
+    projection included, never called by the port: forward without grad,
+    forward with grad on, and forward + backward minus forward, ms by
+    wrapper name."""
+    fam = "lstm" if mod is torch.nn.LSTM else "gru"
+    dt = torch.float16 if dtype == torch.bfloat16 else torch.float32
+    g = torch.Generator(dev).manual_seed(seed)
+    out = {}
+    for dirs in (2, 1):
+        lib = mod(2 * H, H, batch_first=True,
+                  bidirectional=dirs == 2).to(dev, dt)
+        x = torch.randn(B, N, 2 * H, device=dev, generator=g).to(dt)
+        x.requires_grad_(True)
+        dy = torch.randn(B, N, dirs * H, device=dev, generator=g).to(dt)
+        pre = "bi" if dirs == 2 else ""
+        with torch.no_grad():
+            out[f"{pre}{fam}_fwd"] = cuda_ms(lambda: lib(x), 5)
+        fwd = cuda_ms(lambda: lib(x), 5)
+        out[f"{pre}{fam}_fwd_train"] = fwd
+        out[f"{pre}{fam}_bwd"] = cuda_ms(lambda: lib(x)[0].backward(dy),
+                                         5) - fwd
+    return out
+
+
+def _time_row(name, fn, plain, a, bnd, lib_ms, dtype, shape, **extra):
+    """One kernel's row: its time over 5 calls after 2 (CUDA events),
+    the plain version's over one call, the bound, the library's time and
+    µs a step; errors against the plain version asserted."""
+    got = fn(*a)
+    launch = dict(fn.last_launch)
+    ref, plain_ms = timed_once(lambda: plain(*a))
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    if name.endswith("bwd"):
+        err = max((x.float() - y.float()).abs().max().item()
+                  for x, y in zip(got, ref))
+        assert max(max_rel(x.float(), y.float()) for x, y in zip(got, ref)) \
+            <= (GRAD_REL if dtype == torch.float32 else BF16_GRAD_REL), name
+    else:
+        err = value_err(got, ref, dtype)
+    ms = cuda_ms(lambda: fn(*a), 5)
+    N = shape[1]
+    return {"shape": list(shape),
+            "dtype": str(dtype)[6:], "kernel_ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_us": bnd[0] * 1e3,
+            "bound_by": bnd[1], "us_per_step": ms / N * 1e3,
+            "library_us_per_step": lib_ms / N * 1e3, "err": err,
+            "launch": launch, **extra}
+
+
+def _lstm_cases(B, N, H, dtype, dev, seed):
+    """The six LSTM wrappers at (B, N, H) in ``dtype``: name, wrapper,
+    plain version, arguments, bound, kind, kSave and directions."""
+    xg_f, xg_b, w_f, w_b = kernel_inputs(B, N, H, dev, seed)
+    ins = (xg_f.to(dtype), xg_b.to(dtype), w_f, w_b)
+    args = _lstm_bwd_case(ins, dtype, seed + 1)
+    kw = {"dtype": dtype}
+    return (
+        ("bilstm_fwd", rnn_cuda.bilstm_fwd_cuda,
+         rnn_cuda.bilstm_recurrence_plain, ins, bilstm_bound(B, N, H, **kw),
+         "fwd", False, 2),
+        ("bilstm_fwd_train", rnn_cuda.bilstm_fwd_train_cuda,
+         rnn_cuda.bilstm_fwd_train_plain, ins,
+         fwd_train_bound(B, N, H, **kw), "fwd", True, 2),
+        ("bilstm_bwd", rnn_cuda.bilstm_bwd_cuda, rnn_cuda.bilstm_bwd_plain,
+         args, bwd_bound(B, N, H, **kw), "bwd", False, 2),
+        ("lstm_fwd", rnn_cuda.lstm_fwd_cuda, rnn_cuda.lstm_recurrence,
+         (ins[0], ins[2]), bilstm_bound(B, N, H, dirs=1, **kw), "fwd",
+         False, 1),
+        ("lstm_fwd_train", rnn_cuda.lstm_fwd_train_cuda,
+         rnn_cuda.lstm_fwd_train_plain, (ins[0], ins[2]),
+         fwd_train_bound(B, N, H, dirs=1, **kw), "fwd", True, 1),
+        ("lstm_bwd", rnn_cuda.lstm_bwd_cuda, rnn_cuda.lstm_bwd_plain,
+         (args[0], *args[2:5]), bwd_bound(B, N, H, dirs=1, **kw), "bwd",
+         False, 1))
+
+
 def time_new_routes(dev, seed):
-    """Phase 33: the new routes at B=32, N=500 in float32: the six LSTM
-    kernels on the cluster route at H=256, the six GRU kernels on masked
-    slices at H=255; kernel ms (CUDA events), plain ms, the bound, cuDNN's
+    """Phase 33: the new routes' timing. The six LSTM kernels on the
+    register cluster route at ``LSTM_REG_TIME``, each beside the first
+    cluster kernel forced at its planner's pick in the same call (ms, µs a
+    step), and at the first shape under the card's first
+    ``REG_SWEEP_PLANS`` register plans; the six GRU kernels on masked slices at ``WIDE_TIME`` with
+    H=255, f32; kernel ms (CUDA events), plain ms, the bound, cuDNN's
     ``nn.LSTM`` / ``nn.GRU`` (bidirectional for the two-direction kernels;
-    never called by the port; input projection included) and µs a
-    step."""
+    fp16 for bf16 streams; never called by the port; input projection
+    included) and µs a step. Returns the rows by wrapper name (the LSTM
+    ones as a list, the (32, 500, 256) f32 row first)."""
     rows = {}
-    f32 = torch.float32
-    for fam, H in (("lstm", WIDE_TIME[2]), ("gru", WIDE_TIME[2] - 1)):
-        B, N = WIDE_TIME[:2]
-        g = torch.Generator(dev).manual_seed(seed)
-        lib_ms = {}
-        for dirs in (2, 1):
-            mod = torch.nn.LSTM if fam == "lstm" else torch.nn.GRU
-            lib = mod(2 * H, H, batch_first=True,
-                      bidirectional=dirs == 2).to(dev)
-            x = torch.randn(B, N, 2 * H, device=dev, generator=g,
-                            requires_grad=True)
-            dy = torch.randn(B, N, dirs * H, device=dev, generator=g)
-            pre = "bi" if dirs == 2 else ""
-            with torch.no_grad():
-                lib_ms[f"{pre}{fam}_fwd"] = cuda_ms(lambda: lib(x), 5)
-            fwd = cuda_ms(lambda: lib(x), 5)
-            lib_ms[f"{pre}{fam}_fwd_train"] = fwd
-            lib_ms[f"{pre}{fam}_bwd"] = cuda_ms(
-                lambda: lib(x)[0].backward(dy), 5) - fwd
-        if fam == "lstm":
-            ins = kernel_inputs(B, N, H, dev, seed)
-            args = _lstm_bwd_case(ins, f32, seed + 1)
-            cases = (
-                ("bilstm_fwd", rnn_cuda.bilstm_fwd_cuda,
-                 rnn_cuda.bilstm_recurrence_plain, ins,
-                 bilstm_bound(B, N, H)),
-                ("bilstm_fwd_train", rnn_cuda.bilstm_fwd_train_cuda,
-                 rnn_cuda.bilstm_fwd_train_plain, ins,
-                 fwd_train_bound(B, N, H)),
-                ("bilstm_bwd", rnn_cuda.bilstm_bwd_cuda,
-                 rnn_cuda.bilstm_bwd_plain, args, bwd_bound(B, N, H)),
-                ("lstm_fwd", rnn_cuda.lstm_fwd_cuda, rnn_cuda.lstm_recurrence,
-                 (ins[0], ins[2]), bilstm_bound(B, N, H, dirs=1)),
-                ("lstm_fwd_train", rnn_cuda.lstm_fwd_train_cuda,
-                 rnn_cuda.lstm_fwd_train_plain, (ins[0], ins[2]),
-                 fwd_train_bound(B, N, H, dirs=1)),
-                ("lstm_bwd", rnn_cuda.lstm_bwd_cuda, rnn_cuda.lstm_bwd_plain,
-                 (args[0], *args[2:5]), bwd_bound(B, N, H, dirs=1)))
-        else:
-            ins = gru_inputs(B, N, H, f32, dev, seed)
-            args = gru_bwd_inputs(ins, seed + 1)
-            cases = (
-                ("bigru_fwd", gru_cuda.bigru_fwd_cuda,
-                 gru_cuda.bigru_fwd_plain, ins, gru_bound("fwd", B, N, H,
-                                                          f32)),
-                ("bigru_fwd_train", gru_cuda.bigru_fwd_train_cuda,
-                 gru_cuda.bigru_fwd_train_plain, ins,
-                 gru_bound("fwd_train", B, N, H, f32)),
-                ("bigru_bwd", gru_cuda.bigru_bwd_cuda,
-                 gru_cuda.bigru_bwd_plain, args, gru_bound("bwd", B, N, H,
-                                                           f32)),
-                ("gru_fwd", gru_cuda.gru_fwd_cuda, gru_cuda.gru_recurrence,
-                 (ins[0], ins[2], ins[3]),
-                 gru_bound("fwd", B, N, H, f32, dirs=1)),
-                ("gru_fwd_train", gru_cuda.gru_fwd_train_cuda,
-                 gru_cuda.gru_fwd_train_plain, (ins[0], ins[2], ins[3]),
-                 gru_bound("fwd_train", B, N, H, f32, dirs=1)),
-                ("gru_bwd", gru_cuda.gru_bwd_cuda, gru_cuda.gru_bwd_plain,
-                 (args[0], *args[2:6]), gru_bound("bwd", B, N, H, f32,
-                                                  dirs=1)))
-        for name, fn, plain, a, bnd in cases:
-            got = fn(*a)
-            ref, plain_ms = timed_once(lambda: plain(*a))
-            got = got if isinstance(got, tuple) else (got,)
-            ref = ref if isinstance(ref, tuple) else (ref,)
-            if name.endswith("bwd"):
-                err = max((x - y).abs().max().item()
-                          for x, y in zip(got, ref))
-                assert max(max_rel(x, y) for x, y in zip(got, ref)) \
-                    <= GRAD_REL, name
-            else:
-                err = value_err(got, ref, f32)
-            ms = cuda_ms(lambda: fn(*a), 5)
-            rows[name] = {"shape": [B, N, H], "dtype": "float32",
-                          "kernel_ms": ms, "plain_ms": plain_ms,
-                          "library_ms": lib_ms[name],
-                          "bound_us": bnd[0] * 1e3, "bound_by": bnd[1],
-                          "us_per_step": ms / N * 1e3,
-                          "library_us_per_step": lib_ms[name] / N * 1e3,
-                          "err": err, "launch": dict(fn.last_launch)}
-            assert fn.last_launch["kernel"] == "cluster", name
-            log("kernel_time", f"{name} (new route) "
-                + json.dumps(rows[name]) + "  (library_ms: cuDNN "
+    for (B, N, H), dtype in LSTM_REG_TIME:
+        lib_ms = _library_ms(torch.nn.LSTM, B, N, H, dtype, dev, seed)
+        for name, fn, plain, a, bnd, kind, save, dirs in _lstm_cases(
+                B, N, H, dtype, dev, seed):
+            old = ("cluster", *rnn_cuda.card_lstm_cluster_plans(
+                kind, B, H, dev, dtype, save, dirs)[0])
+            old_ms = cuda_ms(lambda: fn(*a, plan=old), 3, warmup=1)
+            old_launch = dict(fn.last_launch)
+            row = _time_row(name, fn, plain, a, bnd, lib_ms[name], dtype,
+                            (B, N, H), old_cluster_ms=old_ms,
+                            old_cluster_us_per_step=old_ms / N * 1e3,
+                            old_cluster_launch=old_launch)
+            assert row["launch"]["kernel"] == "reg", (name, row["launch"])
+            if name not in rows:   # the first shape: the plans swept
+                row["plans"] = plan_sweep(
+                    name, fn, a, [("reg", *p) for p in
+                                  rnn_cuda.card_lstm_reg_plans(
+                                      kind, B, H, dev, dtype, save, dirs)[
+                                      :REG_SWEEP_PLANS]], (B, N, H), 3)
+            rows.setdefault(name, []).append(row)
+            log("kernel_time", f"{name} (register cluster route) "
+                + json.dumps(row) + "  (library_ms: cuDNN "
                 + ("bidirectional " if name.startswith("bi") else
-                   "unidirectional ")
-                + ("nn.LSTM" if fam == "lstm" else "nn.GRU") + " f32, "
+                   "unidirectional ") + "nn.LSTM "
+                + ("fp16" if dtype == torch.bfloat16 else "f32") + ", "
                 + {"fwd": "forward without grad", "fwd_train":
                    "forward with grad on", "bwd": "forward + backward "
                    "minus forward"}[name.split("_", 1)[1]]
-                + ", includes the input projection)")
+                + ", includes the input projection; old_cluster_ms: the "
+                "first cluster kernel forced at its planner's pick)")
+    B, N, H = WIDE_TIME[0], WIDE_TIME[1], WIDE_TIME[2] - 1
+    f32 = torch.float32
+    lib_ms = _library_ms(torch.nn.GRU, B, N, H, f32, dev, seed)
+    ins = gru_inputs(B, N, H, f32, dev, seed)
+    args = gru_bwd_inputs(ins, seed + 1)
+    cases = (
+        ("bigru_fwd", gru_cuda.bigru_fwd_cuda, gru_cuda.bigru_fwd_plain, ins,
+         gru_bound("fwd", B, N, H, f32)),
+        ("bigru_fwd_train", gru_cuda.bigru_fwd_train_cuda,
+         gru_cuda.bigru_fwd_train_plain, ins,
+         gru_bound("fwd_train", B, N, H, f32)),
+        ("bigru_bwd", gru_cuda.bigru_bwd_cuda, gru_cuda.bigru_bwd_plain, args,
+         gru_bound("bwd", B, N, H, f32)),
+        ("gru_fwd", gru_cuda.gru_fwd_cuda, gru_cuda.gru_recurrence,
+         (ins[0], ins[2], ins[3]), gru_bound("fwd", B, N, H, f32, dirs=1)),
+        ("gru_fwd_train", gru_cuda.gru_fwd_train_cuda,
+         gru_cuda.gru_fwd_train_plain, (ins[0], ins[2], ins[3]),
+         gru_bound("fwd_train", B, N, H, f32, dirs=1)),
+        ("gru_bwd", gru_cuda.gru_bwd_cuda, gru_cuda.gru_bwd_plain,
+         (args[0], *args[2:6]), gru_bound("bwd", B, N, H, f32, dirs=1)))
+    for name, fn, plain, a, bnd in cases:
+        row = _time_row(name, fn, plain, a, bnd, lib_ms[name], f32,
+                        (B, N, H))
+        assert row["launch"]["kernel"] == "cluster", name
+        rows[name] = row
+        log("kernel_time", f"{name} (new route) "
+            + json.dumps(row) + "  (library_ms: cuDNN "
+            + ("bidirectional " if name.startswith("bi") else
+               "unidirectional ") + "nn.GRU f32, "
+            + {"fwd": "forward without grad", "fwd_train":
+               "forward with grad on", "bwd": "forward + backward "
+               "minus forward"}[name.split("_", 1)[1]]
+            + ", includes the input projection)")
     return rows
 
 
@@ -2956,9 +3060,9 @@ def wide_paths(dev, seed, smi):
     """Phase 34, the new routes' main paths, the counts set to 0 just
     before each and read just after: (a) the flagship ``lstm`` at
     d_model ``WIDE_LSTM_D`` (H=256, f32), a forward at ``WIDE_TIME``'s B and
-    N through the cluster kernels against the plain recurrence, then one train step with
-    the kernels and with the plain versions patched in (equal assignments,
-    losses rel ``LOSS_RTOL``); (b) ``lstm_recurrence(use_kernel=True)`` at
+    N through the register cluster kernels against the plain recurrence,
+    then one train step with the kernels, with the plain versions patched
+    in and on the CPU (equal assignments, losses rel ``LOSS_RTOL``); (b) ``lstm_recurrence(use_kernel=True)`` at
     ``WIDE_TIME`` forward and backward; (c) a ``bigru`` at d_model
     2 x ``WIDE_GRU``'s H (f32, masked slices), one forward and one train
     step; (d) ``gru_recurrence(use_kernel=True)`` at ``WIDE_GRU`` forward
@@ -2983,7 +3087,7 @@ def wide_paths(dev, seed, smi):
         torch.cuda.synchronize()
         out["lstm_forward"] = counts()
         assert out["lstm_forward"] == expected_counts(bilstm_fwd=layers)
-        assert rnn_cuda.bilstm_fwd_cuda.last_launch["kernel"] == "cluster"
+        assert rnn_cuda.bilstm_fwd_cuda.last_launch["kernel"] == "reg"
         with mock.patch.object(lstm_mod, "bilstm_recurrence",
                                rnn_cuda.bilstm_recurrence_plain):
             ref = model(feats, mask)
@@ -2991,7 +3095,8 @@ def wide_paths(dev, seed, smi):
     for k in res:
         assert torch.allclose(res[k], ref[k], rtol=MODEL_TOL,
                               atol=MODEL_TOL), k
-    # one train step with the kernels and with the plain versions
+    # one train step with the kernels, with the plain versions on the card
+    # and on the CPU
     tcfg = copy.deepcopy(cfg)
     tcfg.train.batch_size = 8
     tcfg.train.matmul_precision = "float32"    # the kernels are the change
@@ -3002,36 +3107,42 @@ def wide_paths(dev, seed, smi):
         host = ds.gather(np.arange(8) % ds.num_samples)
     cpu_model = copy.deepcopy(model).cpu()
     res_steps = {}
-    for name, patch in (("kernels", None), ("plain", LSTM_PLAIN)):
+    cpu = torch.device("cpu")
+    for name, patch, d in (("kernels", None, dev), ("plain", LSTM_PLAIN, dev),
+                           ("cpu", None, cpu)):
         reset_counts()
         with (mock.patch.multiple(rnn_cuda, **patch) if patch
               else contextlib.nullcontext()):
             m, rows, matched, batch, _ = assignments(cpu_model, host,
-                                                     tcfg.data, dev)
+                                                     tcfg.data, d)
             opt = loop.make_optimizer(m, tcfg)
             step = loop.make_train_step(m, opt, tcfg, augment=False)
-            losses = step(batch, torch.Generator(dev).manual_seed(seed))
+            losses = step(batch, torch.Generator(d).manual_seed(seed))
             torch.cuda.synchronize()
         res_steps[name] = ({k: float(v) for k, v in losses.items()}, rows,
                            matched, counts())
-    (l_k, r_k, m_k, c_k), (l_p, r_p, m_p, c_p) = (res_steps["kernels"],
-                                                  res_steps["plain"])
+    (l_k, r_k, m_k, c_k), (l_p, r_p, m_p, c_p), (l_c, r_c, m_c, c_c) = (
+        res_steps["kernels"], res_steps["plain"], res_steps["cpu"])
     assert c_k == expected_counts(bilstm_fwd=layers, bilstm_fwd_train=layers,
                                   bilstm_bwd=layers), c_k
-    assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == "cluster"
-    assert c_p == expected_counts(), c_p
+    assert rnn_cuda.bilstm_fwd_train_cuda.last_launch["kernel"] == "reg"
+    assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == "reg"
+    assert c_p == c_c == expected_counts(), (c_p, c_c)
     assert torch.equal(r_k, r_p) and torch.equal(m_k, m_p)
+    assert torch.equal(r_k, r_c) and torch.equal(m_k, m_c)
     loss_rel = max(abs(l_k[k] - v) / max(abs(v), 1e-12)
                    for k, v in l_p.items())
-    assert loss_rel <= LOSS_RTOL, loss_rel
+    cpu_rel = max(abs(l_k[k] - v) / max(abs(v), 1e-12)
+                  for k, v in l_c.items())
+    assert max(loss_rel, cpu_rel) <= LOSS_RTOL, (loss_rel, cpu_rel)
     out["lstm_step"] = c_k
     log("wide_lstm", f"flagship lstm d_model={WIDE_LSTM_D} (H=256) f32: "
         f"forward B={B} N={N} launches {out['lstm_forward']} "
         f"({plan_text(rnn_cuda.bilstm_fwd_cuda)}), vs the plain recurrence "
         f"max abs diff {fwd_err:.3e} (tol {MODEL_TOL:.0e}); one step B=8 "
-        f"kernels vs plain versions: assignments equal "
-        f"({int(m_p.sum())} pairs), losses max rel {loss_rel:.2e} (tol "
-        f"{LOSS_RTOL:.0e}); launches {c_k} (bilstm_bwd "
+        f"kernels vs plain versions on the card and vs the CPU: assignments "
+        f"equal ({int(m_p.sum())} pairs), losses max rel {loss_rel:.2e} / "
+        f"{cpu_rel:.2e} (tol {LOSS_RTOL:.0e}); launches {c_k} (bilstm_bwd "
         f"{plan_text(rnn_cuda.bilstm_bwd_cuda)}) on {smi}")
 
     # (b) and (d): the ops-level one-direction paths
@@ -3060,8 +3171,10 @@ def wide_paths(dev, seed, smi):
             launched
         mod = rnn_cuda if fam == "lstm" else gru_cuda
         last = getattr(mod, f"{fam}_bwd_cuda").last_launch
-        assert last["kernel"] == "cluster" and (fam == "lstm"
-                                                or Hs % last["cluster"])
+        if fam == "lstm":
+            assert last["kernel"] == "reg", last
+        else:
+            assert last["kernel"] == "cluster" and Hs % last["cluster"], last
         err = value_err((ys,), (fn(xg, w, *extra),), torch.float32)
         ref_g = torch.autograd.grad(fn(*x, True), x, dy)
         rel = max(max_rel(a, r) for a, r in zip(grads, ref_g))
@@ -4428,19 +4541,21 @@ def main() -> int:
              wide_launched["gru_ops"]),
             ("gru_bwd", "bigru_bwd.cu", "gru_pallas.py:71",
              wide_launched["gru_ops"])):
-        route = "cluster" if name.startswith(("bilstm", "lstm")) \
-            else "masked"
-        kernels.append({**entry(f"{name}_{route}",
+        lstm = name.startswith(("bilstm", "lstm"))
+        rows = wide_rows[name] if lstm else [wide_rows[name]]
+        kernels.append({**entry(f"{name}_{'reg' if lstm else 'masked'}",
                                 f"room_slam_torch/csrc/{source}",
                                 f"room_slam_tpu/ops/{line}", launched[name],
-                                wide_rows[name]),
-                        "shapes": [wide_rows[name]]})
+                                rows[0]),
+                        **({"old_cluster_ms": rows[0]["old_cluster_ms"]}
+                           if lstm else {}),
+                        "shapes": rows})
     for k in kernels[:3]:
         k["launches_recipe"] = recipe_launched[k["name"]]
     kernels[0]["launches_evaluate"] = evaluated["bilstm_fwd"]
-    # the reference lstm checkpoints' requests: H=64 (unit), H=128 (cluster)
+    # the reference lstm checkpoints' requests: H=64 (unit), H=128 (reg)
     kernels[0]["launches_pth"] = pth_launched["lstm_128"]
-    next(k for k in kernels if k["name"] == "bilstm_fwd_cluster")[
+    next(k for k in kernels if k["name"] == "bilstm_fwd_reg")[
         "launches_pth"] = pth_launched["lstm_256"]
     kernels[0]["shapes"] += tta_rows
     kernels[0]["recipes"] = recipe_rows

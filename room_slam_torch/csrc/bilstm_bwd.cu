@@ -1,7 +1,9 @@
 // Fused LSTM recurrence, backward (BPTT), float32 or bfloat16 streams. One
-// source, two kernels (the unit kernel at H <= 64, the wide kernel above
-// it) and two grids: both directions of a BiLSTM layer (bilstm_bwd_*), or
-// one direction of an LSTM (lstm_bwd_*, with a reverse flag).
+// source, four kernels (the unit kernel at H <= 64, the wide kernel above
+// it, the register cluster kernel above that and the first cluster design
+// kept for the A/B) and two grids: both directions of a BiLSTM layer
+// (bilstm_bwd_*), or one direction of an LSTM (lstm_bwd_*, with a reverse
+// flag).
 //
 // Replaces two TPU kernels: room_slam_tpu/ops/rnn_pallas.py::
 // _bilstm_bwd_kernel (:438, pallas_call :606, launched through
@@ -83,23 +85,65 @@
 // f32.
 //
 // Above that, up to H = kMaxClusterH = 256 (an lstm model at d_model 512),
-// the cluster kernel (bilstm_bwd_cluster_kernel) splits W_hh by hidden
-// units across a thread-block cluster of C = 1, 2, 4 or 8 blocks, the
-// scheme of bigru_bwd.cu's cluster kernel (kind kLinear): one cluster per
-// (direction, batch tile of R rows); the block of rank q owns the U =
-// ceil(H / C) units q*U .. min(H, q*U+U)-1 of dh (the last block's slice
-// may be short: its other threads are masked) and holds their rows of W_hh
-// as a [4H, U] float32 slice in shared memory (128 KiB at H=256, C=8).
-// Thread (u, g) owns unit u of kRowsPerThread rows: it reads that cell's
-// i, f, g, o, c, c_{t-1} and dy, runs the coefficients, dg and the f32
-// carries as the wide kernel does, and pushes its rounded dg (four gate
-// values a row) into the double-buffered [4H, R] dg tile of every block of
-// the cluster (distributed shared memory); one cluster.sync() a step makes
-// the tile whole, and each thread takes its 4H-deep dot product from its
-// own shared memory. Bound like the BiGRU cluster kernel: the serial
-// 4H-deep chain of shared loads a step. The wrapper picks the kernel
-// (rnn_cuda.lstm_bwd_kernel_route, and lstm_cluster_plan for the cluster
-// and tile) and may force any of the three for an A/B.
+// a cluster of blocks splits W_hh by hidden units: one cluster per
+// (direction, batch tile of R rows), the block of rank q owning units q*U
+// .. q*U+U-1 (the last block's slice masked past H).
+//
+// The first cluster design (bilstm_bwd_cluster_kernel, the scheme of
+// bigru_bwd.cu's cluster kernel, kind kLinear; reached only by a forced
+// plan) holds the slice's rows of W_hh as a [4H, U] float32 slice in shared
+// memory (128 KiB at H=256, C=8). Thread (u, g) owns unit u of
+// kRowsPerThread rows: it reads that cell's i, f, g, o, c, c_{t-1} and dy,
+// runs the coefficients, dg and the f32 carries as the wide kernel does,
+// and pushes its rounded dg (four gate values a row) into the
+// double-buffered [4H, R] dg tile of every block (distributed shared
+// memory); one cluster.sync() a step makes the tile whole, and each thread
+// takes its 4H-deep dot product from its own shared memory. What held it
+// back: that serial 4H-deep chain of shared loads a step, the 4H-wide dg
+// exchanged to every block in the stream type, generic remote stores and
+// the full cluster barrier every step. Measured on an H100: 14.5 us a step
+// at (32, 500, 256) f32, 6.5 at (1, 3000, 128).
+//
+// What the register cluster kernel (bilstm_bwd_reg_kernel, the route)
+// does about it:
+// - The forward's slice in registers. Block q holds W_hh[k, j] for every k
+//   and its own 4U gate columns j (U = ceil(H / C) up to a power of two, at
+//   least 8): thread t holds k0 = 2 (t / JL) and k0 + 1 for 32 of the
+//   columns, JL = U / 8 lanes a pair (64 registers, rounded from the stream
+//   type once).
+// - A K-split. Each step the block's cells (thread t < U R owns unit t / R,
+//   row t % R) write their rounded dg into a [R / RQ][U / 8][32 RQ + 4]
+//   tile of the block's own columns (the padding keeps the JL lanes' reads
+//   on distinct banks), one block barrier, and each thread forms the
+//   partial dh of its k pair for every row from that tile (16-byte
+//   broadcasts, KC columns x RQ rows x 2 k FMAs each); the JL lanes'
+//   partials meet by __shfl_xor_sync. No dg leaves the block.
+// - The exchange: each pair's 2R partials go, as float32 by st.async (16 or
+//   8 bytes a piece), into slot q of the next buffer of the block owning
+//   k0, completing on its mbarrier (this block's own pairs by a store);
+//   each warp then arrives on its own block's mbarrier. (C - 1) / C x H x R
+//   float32 values a block a step, against (C - 1) / C x 4H x R stream
+//   values for the dg exchange: 4x fewer bytes in f32. The receiver's cell
+//   sums the C partials of its unit in rank order, so the result is bit-
+//   equal from run to run. A step waits on its own mbarrier only; the wait
+//   is an acquire at the block's scope (see bilstm_fwd.cu).
+// - Off the chain, as the forward: the seven inputs of a cell loaded two
+//   steps ahead by consecutive threads on consecutive units into a
+//   two-slot ring, dg through a three-slot staging area out as coalesced
+//   stores after the warp's arrival, every index a shift and a mask.
+// Register budget: 64 W_hh values, 2R accumulators and kRegLoads input
+// values a thread (the plan rule keeps 7 U R <= kRegLoads x threads);
+// blocks of at most 256 threads, two blocks an SM, 128 registers a thread:
+// the 8-row tiles spill up to about 200 bytes (phase 2 reports them).
+//
+// What bounds it now (chip_smoke.py phase 33 on an H100 at 700 W; PERF.md
+// section 6): at (32, 500, 256) f32 about 4.5 us a step (the first design
+// 14.7), at 8 rows the FMA issue of two blocks an SM as in the forward; at
+// (1, 3000, 128) about 0.95 (the first design 6.5), the step's chain: the
+// wait, the C partials' sum, the coefficients, the block barrier, a
+// 32-deep FMA chain, the shuffles, the exchange and the arrival. The
+// wrapper picks the kernel (rnn_cuda.lstm_bwd_kernel_route, lstm_reg_plan
+// for the cluster and tile) and may force any of the four for an A/B.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -107,6 +151,7 @@
 
 #include <atomic>
 #include <cstddef>
+#include <cstdint>
 #include <type_traits>
 
 namespace cg = cooperative_groups;
@@ -634,6 +679,417 @@ bilstm_bwd_cluster_kernel(const T* __restrict__ w_f,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The register cluster kernel (bilstm_bwd_reg_kernel; see the notes at the
+// top): block `rank` holds the four gate columns of its U units of W_hh in
+// registers, forms the partial dh_carry of every unit from its own dg (a
+// K-split) and sends each block the partials of that block's units.
+// ---------------------------------------------------------------------------
+
+constexpr int kRegJPerLane = 32;     // gate columns of the sum a lane holds
+constexpr int kRegMaxThreads = 256;  // __launch_bounds__, two blocks an SM
+constexpr int kRegLoads = 4;         // input values a thread loads a step
+constexpr int kRegStages = 3;        // output staging slots (steps)
+constexpr int kRegMaxC = 16;         // a non-portable cluster of 16 at most
+constexpr int kRegIn = 7;            // staged inputs: i, f, g, o, c, c_prev, dy
+constexpr int kMaxSmem = 232448;     // dynamic shared memory of one block
+
+__host__ __device__ __forceinline__ int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// units a block owns: ceil(H / C) up to a power of two, at least 8 (a
+// lane's 32 columns); the last block's slice is masked past H
+__host__ __device__ __forceinline__ int reg_units(int H, int C) {
+  const int u = pow2_at_least((H + C - 1) / C);
+  return u < 8 ? 8 : u;
+}
+
+// threads: JL = U / 8 lanes for each pair of k (of ceil(H / 2)), whole warps
+__host__ __device__ __forceinline__ int reg_threads(int H, int C) {
+  return ((H + 1) / 2 * (reg_units(H, C) / 8) + 31) / 32 * 32;
+}
+
+// floats of a 32-column group of one quad of the dg tile (4 padding floats
+// keep the JL lanes' 16-byte reads on distinct banks)
+__host__ __device__ __forceinline__ int reg_group(int RQ) {
+  return kRegJPerLane * RQ + 4;
+}
+
+// floats of dynamic shared memory: the dg tile [R / RQ][U / 8][group], the
+// partials [2][C][U][R], the input ring [2][R][7][U + 1] and the output
+// staging [3][4][R][U + 1]
+__host__ __device__ __forceinline__ size_t reg_smem_floats(int H, int C,
+                                                           int R) {
+  const int RQ = R < 4 ? R : 4;
+  const size_t U = static_cast<size_t>(reg_units(H, C));
+  return (R / RQ) * (U / 8) * reg_group(RQ) + 2 * C * U * R +
+         (2 * kRegIn + kRegStages * 4) * R * (U + 1);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the shared::cluster address of shared::cta address `addr` in block `rank`
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// one warp's arrival on its block's mbarrier (release: the warp's shared
+// memory writes before it are seen by every thread the phase releases)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// the same, and `bytes` more to land in the phase from the other blocks
+__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar,
+                                                   uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the phase of `parity`, an acquire at the block's scope: the
+// bytes the other blocks sent complete on this block's mbarrier, so no
+// cluster-scope acquire (which invalidates L1 every step) is needed. A wait
+// that outlasts kWaitTries polls (seconds: a lost exchange, never a slow
+// one) traps, so a fault ends the launch with an error instead of hanging
+// the card.
+constexpr uint32_t kWaitTries = 1u << 24;
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == kWaitTries) __trap();
+  }
+}
+
+// four or two floats into shared::cluster address `dst` of another block
+// of the cluster, completed on that block's mbarrier `bar`
+__device__ __forceinline__ void st_async16(uint32_t dst, float a, float b,
+                                           float c, float d, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
+      "r"(__float_as_uint(a)), "r"(__float_as_uint(b)),
+      "r"(__float_as_uint(c)), "r"(__float_as_uint(d)), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async8(uint32_t dst, float a, float b,
+                                          uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(dst),
+      "r"(__float_as_uint(a)), "r"(__float_as_uint(b)), "r"(bar)
+      : "memory");
+}
+
+// One cluster per (direction, batch tile of R rows); see the notes at the
+// top. Thread t holds W_hh[k0 + i, column of jl * 32 + jj] (i < 2, jj < 32)
+// of the block's 4U gate columns, k0 = 2 * (t / JL), jl = t % JL, JL = U / 8;
+// thread t < U * R also owns the cell (unit t / R, row t % R) of the block.
+template <typename T, int R>
+__global__ void __launch_bounds__(kRegMaxThreads, 2)
+bilstm_bwd_reg_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
+                      const T* __restrict__ gs_f, const T* __restrict__ cs_f,
+                      const T* __restrict__ dy_f, const T* __restrict__ gs_b,
+                      const T* __restrict__ cs_b, const T* __restrict__ dy_b,
+                      T* __restrict__ dg_f, T* __restrict__ dg_b, int B,
+                      int N, int H, int rev) {
+  constexpr int RQ = R < 4 ? R : 4;       // rows of one float4 read
+  constexpr int kQuads = R / RQ;
+  constexpr int KC = 4 / RQ;              // columns of one float4 read
+  constexpr int kChunks = kRegJPerLane / KC;
+  constexpr int GP = kRegJPerLane * RQ + 4;
+  constexpr int kPieces = R >= 2 ? R / 2 : 1;   // of 16 (R = 1: 8) bytes
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 reg_smem[];
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int U = reg_units(H, C);
+  const int lgU = __ffs(U) - 1;    // U is a power of two: shifts, no divides
+  const int UP = U + 1;
+  const int JL = U / 8;
+  const int KG = (H + 1) / 2;                    // pairs of k
+  const int G = 4 * H;
+  const int threads = static_cast<int>(blockDim.x);
+  float* dgt = reinterpret_cast<float*>(reg_smem);   // [kQuads][U / 8][GP]
+  float* part = dgt + kQuads * (U / 8) * GP;         // [2][C][U][R]
+  float* ring = part + 2 * C * U * R;                // [2][R][7][UP]
+  float* stage = ring + 2 * kRegIn * R * UP;         // [3][4][R][UP]
+  const int tid = static_cast<int>(threadIdx.x);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int jl = tid % JL;
+  const int kg = tid / JL;
+  const int k0 = 2 * kg;
+  const int row0 = (blockIdx.x / C) * R;
+
+  // a grid of two directions: y = 1 walks backward; of one: rev says
+  const bool bwd = (blockIdx.y == 1) != (rev != 0);
+  const T* w = bwd ? w_b : w_f;
+  const T* gs = bwd ? gs_b : gs_f;
+  const T* cs = bwd ? cs_b : cs_f;
+  const T* dys = bwd ? dy_b : dy_f;
+  T* dg = bwd ? dg_b : dg_f;
+  // the walk: t = N-1 .. 0 for the forward direction; c_prev is c at the
+  // direction's previous step (t - 1 forward, t + 1 backward), zero at its
+  // first
+  auto t_of = [&](int s) { return bwd ? s : N - 1 - s; };
+  const int first = bwd ? N - 1 : 0;
+  const int dprev = bwd ? 1 : -1;
+
+  // this thread's W_hh values: column jb = jl * 32 + jj of the block, gate
+  // jb / U of unit rank * U + jb % U; zero past H
+  float wr[2][kRegJPerLane];
+#pragma unroll
+  for (int jj = 0; jj < kRegJPerLane; ++jj) {
+    const int jb = jl * kRegJPerLane + jj;
+    const int unit = rank * U + jb % U;
+    const int col = (jb / U) * H + unit;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      wr[i][jj] = kg < KG && k0 + i < H && unit < H
+                      ? to_f32<T>(w[static_cast<size_t>(k0 + i) * G + col])
+                      : 0.0f;
+  }
+  // the tile, and the partials: the slots of units past H are never sent
+  for (int i = tid; i < kQuads * (U / 8) * GP + 2 * C * U * R; i += threads)
+    dgt[i] = 0.0f;
+
+  // a step's inputs, element e = (r * 7 + q) * U + u of the block's units
+  // (consecutive threads on consecutive units): loaded into registers two
+  // steps ahead, put into their ring slot the step before they are used
+  const int n_in = kRegIn * R * U;
+  T xr[kRegLoads];
+  auto in_at = [&](int s, int e) -> const T* {   // nullptr: a zero
+    const int t = t_of(s);
+    const int u = e & (U - 1), rq = e >> lgU;
+    const int q = rq % kRegIn, row = row0 + rq / kRegIn;
+    const int gu = rank * U + u;
+    if (row >= B || gu >= H || (q == 5 && t == first)) return nullptr;
+    const size_t cell = static_cast<size_t>(row) * N + t;
+    if (q < 4) return gs + cell * G + q * H + gu;
+    if (q == 4) return cs + cell * H + gu;
+    if (q == 5) return cs + (cell + dprev) * H + gu;
+    return dys + cell * H + gu;
+  };
+  auto load_in = [&](int s) {
+#pragma unroll
+    for (int j = 0; j < kRegLoads; ++j) {
+      const int e = tid + j * threads;
+      if (e < n_in) {
+        const T* p = in_at(s, e);
+        xr[j] = p ? *p : from_f32<T>(0.0f);
+      }
+    }
+  };
+  auto store_in = [&](int s) {
+    float* slot = ring + (s & 1) * kRegIn * R * UP;
+#pragma unroll
+    for (int j = 0; j < kRegLoads; ++j) {
+      const int e = tid + j * threads;
+      if (e < n_in) slot[(e >> lgU) * UP + (e & (U - 1))] = to_f32<T>(xr[j]);
+    }
+  };
+  // the staged dg of a step, element (g * R + r) * U + u, stored with
+  // consecutive threads on consecutive units
+  // (at most 3 a thread: 7UR <= kRegLoads threads)
+  auto flush = [&](int s, int slot) {
+    const size_t t = static_cast<size_t>(t_of(s));
+    const float* st = stage + slot * 4 * R * UP;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int e = tid + j * threads;
+      if (e >= 4 * R * U) break;
+      const int u = e & (U - 1), gr = e >> lgU;
+      const int row = row0 + gr % R, gu = rank * U + u;
+      if (row < B && gu < H)
+        dg[(static_cast<size_t>(row) * N + t) * G + (gr / R) * H + gu] =
+            from_f32<T>(st[gr * UP + u]);
+    }
+  };
+  load_in(0);
+  store_in(0);
+  if (N > 1) load_in(1);
+
+  // full[b] completes when every warp of this block has written its own
+  // partials into buffer b of part (one arrival a warp) and the other
+  // blocks' partials have landed: step s reads buffer s & 1 (step s-1's
+  // partials) and waits for the ((s - 1) / 2)-th phase of full[s & 1]
+  __shared__ __align__(8) uint64_t full[2];
+  const uint32_t bar = smem_addr(full);
+  // the pairs of k of this block's units, each 2R floats from each other
+  // block
+  const int my_pairs = ((rank * U + U < 2 * KG ? rank * U + U : 2 * KG) -
+                        rank * U) / 2;
+  const uint32_t part_tx =
+      static_cast<uint32_t>((C - 1) * my_pairs * 2 * R * 4);
+  if (tid == 0) {
+    mbar_init(bar, threads / 32);
+    mbar_init(bar + 8, threads / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  // every block of the cluster holds its zero tile, its first input slot
+  // and its mbarriers before any block writes into another's shared memory
+  cluster.sync();
+
+  // the block owning the pair k0, k0 + 1, and k0's unit there
+  const int owner = k0 >> lgU;
+  const int k0_unit = k0 & (U - 1);
+  const bool cell = tid < U * R;
+  const int cu = tid / R, cr = tid % R;   // the cell's unit and row
+  float dc = 0.0f;
+  int slot = 0;                   // the step's staging slot, s % kRegStages
+  for (int s = 0; s < N; ++s) {
+    const int buf = s & 1;
+    if (s > 0) mbar_wait(bar + buf * 8, ((s - 1) >> 1) & 1);
+    if (cell) {
+      const float* in = ring + buf * kRegIn * R * UP + cr * kRegIn * UP + cu;
+      const float ig = in[0], fg = in[UP], gg = in[2 * UP], og = in[3 * UP];
+      const float tanh_c = tanhf(in[4 * UP]);
+      const float c_c = round_to<T>(og * (1.0f - tanh_c * tanh_c));
+      const float c_i = round_to<T>(gg * ig * (1.0f - ig));
+      const float c_f = round_to<T>(in[5 * UP] * fg * (1.0f - fg));
+      const float c_g = round_to<T>(ig * (1.0f - gg * gg));
+      const float c_o = round_to<T>(tanh_c * og * (1.0f - og));
+      // dh_carry: the C blocks' partials in rank order (none at step 0)
+      float dh = 0.0f;
+      if (s > 0) {
+        const float* pp = part + (buf * C * U + cu) * R + cr;
+        for (int q = 0; q < C; ++q) dh += pp[q * U * R];
+      }
+      const float dh_t = in[6 * UP] + dh;
+      const float dc_t = dc + dh_t * c_c;
+      const float d[4] = {dc_t * c_i, dc_t * c_f, dc_t * c_g, dh_t * c_o};
+      dc = dc_t * fg;
+      float* st = stage + slot * 4 * R * UP + cr * UP + cu;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const int jb = g * U + cu;
+        dgt[(cr / RQ) * (U / 8) * GP + (jb / kRegJPerLane) * GP +
+            (jb % kRegJPerLane) * RQ + cr % RQ] = round_to<T>(d[g]);
+        st[g * R * UP] = d[g];
+      }
+    }
+    const int prev = slot == 0 ? kRegStages - 1 : slot - 1;
+    if (s + 1 == N) {
+      if (s > 0) flush(s - 1, prev);
+      break;
+    }
+    __syncthreads();   // the step's dg tile is whole
+
+    // partial dh_carry[k0 + i] of the block's columns: T(dg) . T(W_hh[k0 +
+    // i, :]), the lane's 32 columns, then the JL lanes' partials
+    float acc[2][R];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[i][r] = 0.0f;
+#pragma unroll
+    for (int qd = 0; qd < kQuads; ++qd) {
+      const float4* dq = reinterpret_cast<const float4*>(
+          dgt + (qd * (U / 8) + jl) * GP);
+#pragma unroll
+      for (int ch = 0; ch < kChunks; ++ch) {
+        const float4 dv = dq[ch];
+        const float dk[4] = {dv.x, dv.y, dv.z, dv.w};   // [e][r]
+#pragma unroll
+        for (int e = 0; e < KC; ++e)
+#pragma unroll
+          for (int r = 0; r < RQ; ++r)
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              acc[i][qd * RQ + r] = fmaf(dk[e * RQ + r], wr[i][ch * KC + e],
+                                         acc[i][qd * RQ + r]);
+      }
+    }
+    for (int m = 1; m < JL; m <<= 1)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          acc[i][r] += __shfl_xor_sync(kFullMask, acc[i][r], m);
+
+    // the pair's 2R floats (k0 then k0 + 1, R rows each) into slot `rank`
+    // of the next buffer of the block owning k0: this block's by a store,
+    // another's by st.async on its mbarrier
+    const int nb = buf ^ 1;
+    if (kg < KG) {
+      float* dst = part + ((nb * C + rank) * U + k0_unit) * R;
+      // float f of the pair: acc[f / R][f % R]
+#define PAIR(f) acc[(f) / R][(f) % R]
+#pragma unroll
+      for (int pc = 0; pc < kPieces; ++pc) {
+        if ((pc & (JL - 1)) != jl) continue;
+        if (owner == rank) {
+          if (R == 1) {
+            dst[0] = PAIR(0);
+            dst[1] = PAIR(1);
+          } else {
+            *reinterpret_cast<float4*>(dst + 4 * pc) =
+                make_float4(PAIR(4 * pc), PAIR(4 * pc + 1), PAIR(4 * pc + 2),
+                            PAIR(4 * pc + 3));
+          }
+        } else {
+          const uint32_t a = cluster_addr(smem_addr(dst + 4 * pc), owner);
+          const uint32_t b = cluster_addr(bar + nb * 8, owner);
+          if (R == 1)
+            st_async8(a, PAIR(0), PAIR(1), b);
+          else
+            st_async16(a, PAIR(4 * pc), PAIR(4 * pc + 1), PAIR(4 * pc + 2),
+                       PAIR(4 * pc + 3), b);
+        }
+      }
+#undef PAIR
+    }
+    // the next step's inputs (in registers two steps) into their slot
+    store_in(s + 1);
+    // the warp's arrival on this block's own buffer: its partials and input
+    // slot writes and its previous staging reads are done
+    __syncwarp();
+    if (lane == 0) {
+      if (warp == 0)
+        mbar_arrive_expect(bar + nb * 8, part_tx);
+      else
+        mbar_arrive(bar + nb * 8);
+    }
+    // after the arrival, which would wait for them: the global loads and
+    // stores, while the bytes travel. The staging slot of step s - 1 is
+    // written again at step s + 2, after every warp's next arrival.
+    if (s + 2 < N) load_in(s + 2);
+    if (s > 0) flush(s - 1, prev);
+    slot = slot == kRegStages - 1 ? 0 : slot + 1;
+  }
+  __syncthreads();
+  flush(N - 1, slot);
+  // no block exits while another may still write into it
+  cluster.sync();
+}
+
 // Dynamic shared memory one block of the wide kernel needs at hidden size
 // H, in bytes (the wrapper's bilstm_bwd_smem_bytes mirrors it).
 size_t smem_bytes(int H) {
@@ -827,6 +1283,116 @@ int unit_blocks_per_sm(int H, int R) {
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
+// The register cluster kernel's plan rule (the wrapper's _reg_rule and
+// reg_smem_bytes("bwd", ...) mirror it, held to bilstm_bwd_reg_layout when
+// the library loads): H up to kMaxClusterH, a cluster of up to kRegMaxC
+// blocks each owning a unit at least, tiles of 1, 2, 4 or 8 rows, at most
+// kRegMaxThreads threads and kMaxSmem bytes a block, at most kRegLoads
+// input values a thread a step (so a thread for each cell of the block's
+// units).
+bool valid_reg_plan(int B, int N, int H, int C, int R) {
+  if (B <= 0 || N <= 0 || H <= 0 || H > kMaxClusterH || C < 1 ||
+      C > kRegMaxC || (R != 1 && R != 2 && R != 4 && R != 8))
+    return false;
+  const int U = reg_units(H, C);
+  return (C - 1) * U < H && reg_threads(H, C) <= kRegMaxThreads &&
+         kRegIn * U * R <= kRegLoads * reg_threads(H, C) &&
+         reg_smem_floats(H, C, R) * sizeof(float) <= kMaxSmem;
+}
+
+template <typename T, int R>
+cudaError_t reg_prepare(int smem) {
+  static std::atomic<int> allowed[kMaxDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices && allowed[device].load() >= smem)
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(bilstm_bwd_reg_kernel<T, R>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(bilstm_bwd_reg_kernel<T, R>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && device < kMaxDevices) allowed[device].store(smem);
+  return err;
+}
+
+void make_reg_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                     int tiles, int H, int C, int dirs, size_t smem,
+                     void* stream) {
+  *cfg = {};
+  cfg->gridDim = dim3(C * tiles, dirs, 1);
+  cfg->blockDim = dim3(reg_threads(H, C), 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = static_cast<cudaStream_t>(stream);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+template <typename T, int R>
+int launch_reg_as(const void* w_f, const void* w_b, const void* gs_f,
+                  const void* cs_f, const void* dy_f, const void* gs_b,
+                  const void* cs_b, const void* dy_b, void* dg_f, void* dg_b,
+                  int B, int N, int H, int C, int dirs, int rev,
+                  void* stream) {
+  const size_t smem = reg_smem_floats(H, C, R) * sizeof(float);
+  cudaError_t err = reg_prepare<T, R>(static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  make_reg_config(&cfg, &attr, (B + R - 1) / R, H, C, dirs, smem, stream);
+  auto in = [](const void* p) { return static_cast<const T*>(p); };
+  auto out = [](void* p) { return static_cast<T*>(p); };
+  err = cudaLaunchKernelEx(&cfg, bilstm_bwd_reg_kernel<T, R>, in(w_f),
+                           in(w_b), in(gs_f), in(cs_f), in(dy_f), in(gs_b),
+                           in(cs_b), in(dy_b), out(dg_f), out(dg_b), B, N, H,
+                           rev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_reg(const void* w_f, const void* w_b, const void* gs_f,
+               const void* cs_f, const void* dy_f, const void* gs_b,
+               const void* cs_b, const void* dy_b, void* dg_f, void* dg_b,
+               int B, int N, int H, int C, int R, int dirs, int rev,
+               void* stream) {
+  if (!valid_reg_plan(B, N, H, C, R))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* fn = R == 1   ? launch_reg_as<T, 1>
+             : R == 2 ? launch_reg_as<T, 2>
+             : R == 4 ? launch_reg_as<T, 4>
+                      : launch_reg_as<T, 8>;
+  return fn(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b, dg_f, dg_b, B, N, H,
+            C, dirs, rev, stream);
+}
+
+template <typename T, int R>
+int reg_max_active_as(int H, int C) {
+  const size_t smem = reg_smem_floats(H, C, R) * sizeof(float);
+  cudaError_t err = reg_prepare<T, R>(static_cast<int>(smem));
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  make_reg_config(&cfg, &attr, 1, H, C, 1, smem, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, bilstm_bwd_reg_kernel<T, R>, &cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+template <typename T>
+int reg_max_active(int H, int C, int R) {
+  return R == 1   ? reg_max_active_as<T, 1>(H, C)
+         : R == 2 ? reg_max_active_as<T, 2>(H, C)
+         : R == 4 ? reg_max_active_as<T, 4>(H, C)
+                  : reg_max_active_as<T, 8>(H, C);
+}
+
 }  // namespace
 
 extern "C" {
@@ -899,6 +1465,55 @@ BILSTM_BWD_ENTRIES(bf16, __nv_bfloat16)
 BILSTM_BWD_CLUSTER_ENTRIES(f32, float)
 BILSTM_BWD_CLUSTER_ENTRIES(bf16, __nv_bfloat16)
 #undef BILSTM_BWD_CLUSTER_ENTRIES
+
+// The register cluster kernel: arguments and outputs as the cluster
+// entries (clusters of C = 1 .. 16 blocks over batch tiles of R = 1, 2, 4
+// or 8 rows); H up to 256.
+#define BILSTM_BWD_REG_ENTRIES(SFX, TYPE)                                     \
+  int bilstm_bwd_reg_##SFX(const void* w_f, const void* w_b,                 \
+                           const void* gs_f, const void* cs_f,               \
+                           const void* dy_f, const void* gs_b,               \
+                           const void* cs_b, const void* dy_b, void* dg_f,   \
+                           void* dg_b, int B, int N, int H, int C, int R,    \
+                           void* stream) {                                   \
+    return launch_reg<TYPE>(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b,    \
+                            dg_f, dg_b, B, N, H, C, R, 2, 0, stream);        \
+  }                                                                          \
+  int lstm_bwd_reg_##SFX(const void* w, const void* gs, const void* cs,      \
+                         const void* dy, void* dg, int B, int N, int H,      \
+                         int C, int R, int reverse, void* stream) {          \
+    return launch_reg<TYPE>(w, w, gs, cs, dy, gs, cs, dy, dg, dg, B, N, H,   \
+                            C, R, 1, reverse, stream);                       \
+  }
+
+BILSTM_BWD_REG_ENTRIES(f32, float)
+BILSTM_BWD_REG_ENTRIES(bf16, __nv_bfloat16)
+#undef BILSTM_BWD_REG_ENTRIES
+
+// How many clusters of the register cluster kernel (bf16: 0 or 1; `save`
+// is taken for the forward source's signature and ignored) at H, C and R
+// the current device runs at once; a negative cudaError_t code on failure.
+int bilstm_bwd_reg_max_active_clusters(int bf16, int save, int H, int C,
+                                       int R) {
+  (void)save;
+  if (!valid_reg_plan(1, 1, H, C, R))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return bf16 ? reg_max_active<__nv_bfloat16>(H, C, R)
+              : reg_max_active<float>(H, C, R);
+}
+
+// The register cluster kernel's layout at H, C and R, for the wrapper's
+// mirror: what 0 = dynamic shared memory in bytes, 1 = threads a block, 2 =
+// units a block; -1 for a plan it does not take.
+int bilstm_bwd_reg_layout(int what, int H, int C, int R) {
+  if (!valid_reg_plan(1, 1, H, C, R)) return -1;
+  switch (what) {
+    case 0: return static_cast<int>(reg_smem_floats(H, C, R) * sizeof(float));
+    case 1: return reg_threads(H, C);
+    case 2: return reg_units(H, C);
+    default: return -1;
+  }
+}
 
 // How many clusters of the cluster kernel (bf16: 0 or 1; `save` is taken
 // for the forward source's signature and ignored) at H, C and R the

@@ -76,23 +76,74 @@
 // dynamic shared memory (64 KiB at H=64, up to H=118 in f32), thread j owns
 // gate column j of a 4-row tile.
 //
-// Above that, up to H = kMaxClusterH = 256 (an lstm model at d_model 512),
-// one direction's W_hh (1 MiB in f32 at H=256) fits no block, so the
-// cluster kernel (bilstm_fwd_cluster_kernel) splits it by hidden units
-// across a thread-block cluster of C = 1, 2, 4 or 8 blocks, the scheme of
-// bigru_fwd.cu's cluster kernel: one cluster per (direction, batch tile of
-// R rows); the block of rank q owns the U = ceil(H / C) units q*U ..
-// min(H, q*U+U)-1 (the last block's slice may be short: its other threads
-// are masked) and holds their four gate columns of W_hh in shared memory as
-// float32 (128 KiB at H=256, C=8). Thread (u, g) runs the four gate sums of
-// unit u for kRowsPerThread rows, its cell update and the c carries in
-// registers; it pushes its T(h_t) into the double-buffered h tile [H, R] of
-// every block of the cluster (distributed shared memory) and one
-// cluster.sync() a step orders the pushes before the next step's reads.
-// Bound like the BiGRU cluster kernel: a serial H-deep chain of shared
-// loads a step. The wrapper picks the kernel (rnn_cuda.lstm_fwd_kernel_route,
-// and lstm_cluster_plan for the cluster and tile) and may force any of the
-// three for an A/B.
+// Above that, up to H = kMaxClusterH = 256 (an lstm model at d_model 512;
+// H=128 is a reference lstm checkpoint at the loader's d_model 256), one
+// direction's W_hh (1 MiB in f32 at H=256) fits no block, and a cluster of
+// blocks splits it by hidden units: one cluster per (direction, batch tile
+// of R rows), the block of rank q owning units q*U .. q*U+U-1 (the last
+// block's slice masked past H).
+//
+// The first cluster design (bilstm_fwd_cluster_kernel, the scheme of
+// bigru_fwd.cu's cluster kernel; reached only by a forced plan) holds the
+// slice's four gate columns in shared memory as float32 (128 KiB at H=256,
+// C=8): thread (u, g) runs the four gate sums of unit u for kRowsPerThread
+// rows, pushes its T(h_t) into the double-buffered h tile [H, R] of every
+// block by generic distributed-shared-memory stores, and one cluster.sync()
+// a step orders the pushes before the next step's reads. What held it back:
+// a serial H-deep k loop a step, each k one float4 of h and four scalar
+// shared loads of W (about 1,280 dependent shared loads a step at H=256),
+// xg loaded one step ahead by scalar loads, scalar stores, and the full
+// cluster barrier every step. Measured on an H100: 10.8 us a step at (32,
+// 500, 256) f32, 5.6 at the reference request's (1, 3000, 128).
+//
+// What the register cluster kernel (bilstm_fwd_reg_kernel, the route) does
+// about it: the unit kernel's scheme spread over the cluster.
+// - W_hh in registers. U = ceil(H / C) units a block, up to a power of two
+//   (C up to 16, a non-portable cluster size above 8), L = 8 lanes a unit up
+//   to H=128 and 16 above: lane p holds the four gate columns of its unit
+//   for the 16 k = (c * L + p) * KC + e, c < 16 / KC, e < KC, as float32
+//   rounded from the stream type once (64 registers), for the whole walk.
+// - h_{t-1} from a double-buffered [2][TK][R] tile (R = 1, 2 or 4 rows) as
+//   16-byte broadcasts, each feeding KC = 4 / R k x R rows x 4 gates FMAs.
+//   The L lanes' partial sums meet by __shfl_xor_sync, a reduce-scatter
+//   over the rows, then an all-reduce over the rest, so every lane ends
+//   with the four gate sums of row p % R and the cell update and c stay in
+//   its registers (lanes p < R own the row's outputs).
+// - The exchange without a cluster barrier: each warp writes its units'
+//   T(h_t) into its own next buffer, sends that region (16 or 8 bytes a
+//   piece) into the same buffer of every other block by st.async, whose
+//   bytes complete on the receiver's mbarrier, then arrives on its own
+//   block's mbarrier. A step waits on that mbarrier only: its own warps'
+//   arrivals and the other blocks' bytes. The wait is an acquire at the
+//   block's scope; at the cluster's it invalidated L1 every step (a CCTL
+//   in the SASS), which the spilled registers then missed.
+// - Off the chain, while the bytes travel: xg is loaded two steps ahead by
+//   consecutive threads on consecutive units and put into a two-slot ring
+//   in shared memory the step before it is used; the outputs (ys, and with
+//   kSave c and the four activated gates) go through a three-slot staging
+//   area and leave a step later as coalesced stores, issued after the
+//   warp's arrival. Every index is a shift and a mask (U is a power of
+//   two): these loops run every step, and a division by a runtime U is a
+//   few dozen instructions.
+// Register budget: 64 W_hh values, 4R accumulators and 4R / L xg values a
+// thread; blocks of at most 256 threads (U * L), launch bound two blocks an
+// SM, so 128 registers a thread (phase 2 reports the spills, a few dozen
+// bytes in some of the tiles). Two blocks an SM: clusters of 16 at one
+// block an SM are 7 on an H100, at two 14. An 8-row tile (two 4-row halves
+// in turn) spilled up to 200 bytes and took 3.6 us a step at (32, 500,
+// 256), against 3.3 for two waves of 4-row tiles (phase 33's sweep): the
+// forward takes tiles of 1, 2 or 4 rows.
+//
+// What bounds it now (chip_smoke.py phase 33 on an H100 at 700 W; PERF.md
+// section 6): at (32, 500, 256) f32 the 16 clusters of 4-row tiles make two
+// waves at two blocks an SM, each block's step a lane's 256 FMAs, the
+// exchange and the fixed chain below (the first design: 10.9 us a step);
+// at (1, 3000, 128) about 0.8 us a step (the first design 5.6),
+// all of it the step's fixed chain: the wait, a 16-deep FMA chain, three
+// shuffle rounds, the activations' MUFU latency, the exchange and the
+// arrival. The wrapper picks the kernel (rnn_cuda.lstm_fwd_kernel_route,
+// lstm_reg_plan for the cluster and tile) and may force any of the four
+// for an A/B.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -100,6 +151,7 @@
 
 #include <atomic>
 #include <cstddef>
+#include <cstdint>
 
 namespace cg = cooperative_groups;
 
@@ -589,6 +641,432 @@ bilstm_fwd_cluster_kernel(const T* __restrict__ xg_f,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The register cluster kernel (bilstm_fwd_reg_kernel; see the notes at the
+// top): W_hh split by hidden units across a cluster of C blocks and held in
+// registers, h exchanged by st.async on mbarriers.
+// ---------------------------------------------------------------------------
+
+constexpr int kRegKPerLane = 16;     // k values of the sum a lane holds
+constexpr int kRegMaxThreads = 256;  // __launch_bounds__, two blocks an SM
+constexpr int kRegStages = 3;        // output staging slots (steps)
+constexpr int kRegMaxC = 16;         // a non-portable cluster of 16 at most
+constexpr int kRegStreams = 6;       // staged outputs: ys, then c, i, f, g, o
+constexpr int kMaxSmem = 232448;     // dynamic shared memory of one block
+
+// lanes a hidden unit: 8 up to H = 128 (16 k a lane), 16 above
+__host__ __device__ __forceinline__ int reg_lanes(int H) {
+  return H <= 8 * kRegKPerLane ? 8 : 16;
+}
+
+__host__ __device__ __forceinline__ int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// units a block owns: ceil(H / C) up to a power of two, at least a warp's
+// worth (32 / L); the last block's slice is masked past H
+__host__ __device__ __forceinline__ int reg_units(int H, int C) {
+  const int u = pow2_at_least((H + C - 1) / C);
+  const int w = 32 / reg_lanes(H);
+  return u < w ? w : u;
+}
+
+// rows of the h tile: every unit of the cluster and every k a lane reads
+__host__ __device__ __forceinline__ int reg_tile_k(int H, int C) {
+  const int a = C * reg_units(H, C);
+  const int b = kRegKPerLane * reg_lanes(H);
+  return ((a > b ? a : b) + 3) / 4 * 4;
+}
+
+__host__ __device__ __forceinline__ int reg_threads(int H, int C) {
+  return reg_units(H, C) * reg_lanes(H);
+}
+
+// floats of dynamic shared memory: the h tile [2][TK][R], the xg
+// ring [2][R][4][U + 1] and the output staging [3][6][R][U + 1]
+__host__ __device__ __forceinline__ size_t reg_smem_floats(int H, int C,
+                                                           int R) {
+  const size_t up = static_cast<size_t>(reg_units(H, C)) + 1;
+  return 2 * static_cast<size_t>(R) * reg_tile_k(H, C) +
+         (2 * 4 + kRegStages * kRegStreams) * static_cast<size_t>(R) * up;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the shared::cluster address of shared::cta address `addr` in block `rank`
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// one warp's arrival on its block's mbarrier (release: the warp's shared
+// memory writes before it are seen by every thread the phase releases)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// the same, and `bytes` more to land in the phase from the other blocks
+__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar,
+                                                   uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the phase of `parity`, an acquire at the block's scope: the
+// bytes the other blocks sent complete on this block's mbarrier, so no
+// cluster-scope acquire (which invalidates L1 every step) is needed. A wait
+// that outlasts kWaitTries polls (seconds: a lost exchange, never a slow
+// one) traps, so a fault ends the launch with an error instead of hanging
+// the card.
+constexpr uint32_t kWaitTries = 1u << 24;
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == kWaitTries) __trap();
+  }
+}
+
+// 16 or 8 bytes of shared memory at `src` into shared::cluster address
+// `dst` of a block of the cluster, completed on that block's mbarrier `bar`
+__device__ __forceinline__ void send16(uint32_t dst, uint32_t src,
+                                       uint32_t bar) {
+  uint32_t a, b, c, d;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a), "=r"(b), "=r"(c), "=r"(d)
+               : "r"(src)
+               : "memory");
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
+      "r"(a), "r"(b), "r"(c), "r"(d), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void send8(uint32_t dst, uint32_t src,
+                                      uint32_t bar) {
+  uint32_t a, b;
+  asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];\n"
+               : "=r"(a), "=r"(b)
+               : "r"(src)
+               : "memory");
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(dst),
+      "r"(a), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// v rounded to the stream type, as a float (exact for float)
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f32<T>(from_f32<T>(v));
+}
+
+// The L lanes of a unit each hold partial sums v[g][r] of the four gates
+// for the R rows of the tile; afterwards every lane p holds in out[g] the
+// full sums of row p % R: a reduce-scatter over the lane bits below R,
+// then an all-reduce over the bits from R up to L.
+template <int R>
+__device__ __forceinline__ void reduce_rows(const float (&v)[4][R],
+                                            float (&out)[4], int p, int L) {
+  const bool b0 = (p & 1) != 0;
+  const bool b1 = (p & 2) != 0;
+  if constexpr (R == 4) {
+    float half[4][2];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float keep = b0 ? v[g][2 * j + 1] : v[g][2 * j];
+        const float send = b0 ? v[g][2 * j] : v[g][2 * j + 1];
+        half[g][j] = keep + __shfl_xor_sync(kFullMask, send, 1);
+      }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const float keep = b1 ? half[g][1] : half[g][0];
+      const float send = b1 ? half[g][0] : half[g][1];
+      out[g] = keep + __shfl_xor_sync(kFullMask, send, 2);
+    }
+  } else if constexpr (R == 2) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const float keep = b0 ? v[g][1] : v[g][0];
+      const float send = b0 ? v[g][0] : v[g][1];
+      out[g] = keep + __shfl_xor_sync(kFullMask, send, 1);
+    }
+  } else {
+    static_assert(R == 1, "tiles of 1, 2 or 4 rows");
+#pragma unroll
+    for (int g = 0; g < 4; ++g) out[g] = v[g][0];
+  }
+  for (int m = R; m < L; m <<= 1)
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      out[g] += __shfl_xor_sync(kFullMask, out[g], m);
+}
+
+// One cluster per (direction, batch tile of R rows); see the notes at the
+// top. Block `rank` owns units rank * U .. rank * U + U - 1, L lanes each.
+template <typename T, bool kSave, int R>
+__global__ void __launch_bounds__(kRegMaxThreads, 2)
+bilstm_fwd_reg_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
+                      const T* __restrict__ w_f, const T* __restrict__ w_b,
+                      T* __restrict__ ys_f, T* __restrict__ ys_b,
+                      T* __restrict__ cs_f, T* __restrict__ cs_b,
+                      T* __restrict__ gs_f, T* __restrict__ gs_b, int B,
+                      int N, int H, int rev) {
+  constexpr int KC = 4 / R;               // k values of one float4 read
+  constexpr int kChunks = kRegKPerLane / KC;
+  constexpr int NX = (4 * R + 7) / 8;     // xg values a thread loads a step
+  constexpr int NQ = kSave ? kRegStreams : 1;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 reg_smem[];
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int L = reg_lanes(H);
+  const int U = reg_units(H, C);
+  const int lgU = __ffs(U) - 1;    // U is a power of two: shifts, no divides
+  const int UP = U + 1;
+  const int TK = reg_tile_k(H, C);
+  const int G = 4 * H;
+  const int threads = static_cast<int>(blockDim.x);
+  float* tile = reinterpret_cast<float*>(reg_smem);   // [2][TK][R]
+  float* ring = tile + 2 * R * TK;                    // [2][R][4][UP]
+  float* stage = ring + 2 * 4 * R * UP;               // [3][6][R][UP]
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int p = static_cast<int>(threadIdx.x) % L;   // lane of the unit
+  const int ul = static_cast<int>(threadIdx.x) / L;  // unit in the block
+  const int unit = rank * U + ul;                    // ... in the layer
+  const bool unit_ok = unit < H;
+  const int row0 = (blockIdx.x / C) * R;
+
+  // a grid of two directions: y = 1 walks backward; of one: rev says
+  const bool bwd = (blockIdx.y == 1) != (rev != 0);
+  const T* xg = bwd ? xg_b : xg_f;
+  const T* w = bwd ? w_b : w_f;
+  T* ys = bwd ? ys_b : ys_f;
+  T* cs = bwd ? cs_b : cs_f;
+  T* gs = bwd ? gs_b : gs_f;
+  auto t_of = [&](int s) { return bwd ? N - 1 - s : s; };
+
+  // this lane's W_hh values: chunk c covers k = (c * L + p) * KC + e, e <
+  // KC, for the four gate columns of the unit; zero past H
+  float wr[4][kRegKPerLane];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int e = 0; e < KC; ++e) {
+      const int k = (c * L + p) * KC + e;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        wr[g][c * KC + e] =
+            unit_ok && k < H
+                ? to_f32<T>(w[static_cast<size_t>(k) * G + g * H + unit])
+                : 0.0f;
+    }
+  for (int i = threadIdx.x; i < 2 * R * TK; i += threads) tile[i] = 0.0f;
+
+  // xg of a step, element e = (r * 4 + g) * U + u of the block's units
+  // (consecutive threads on consecutive units): loaded into registers two
+  // steps ahead, put into its ring slot the step before it is used
+  const int n_in = 4 * R * U;
+  T xr[NX];
+  auto load_x = [&](int s) {
+    const size_t t = static_cast<size_t>(t_of(s));
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      const int e = static_cast<int>(threadIdx.x) + j * threads;
+      if (e < n_in) {
+        const int rg = e >> lgU;
+        const int row = row0 + rg / 4, gu = rank * U + (e & (U - 1));
+        xr[j] = row < B && gu < H
+                    ? xg[(static_cast<size_t>(row) * N + t) * G +
+                         (rg % 4) * H + gu]
+                    : from_f32<T>(0.0f);
+      }
+    }
+  };
+  auto store_x = [&](int s) {
+    float* slot = ring + (s & 1) * 4 * R * UP;
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      const int e = static_cast<int>(threadIdx.x) + j * threads;
+      if (e < n_in) slot[(e >> lgU) * UP + (e & (U - 1))] = to_f32<T>(xr[j]);
+    }
+  };
+  // the staged outputs of a step, element (q * R + r) * U + u, stored with
+  // consecutive threads on consecutive units
+  // (at most NF a thread: a block has 8U threads at least)
+  constexpr int NF = (NQ * R + 7) / 8;
+  auto flush = [&](int s, int slot) {
+    const size_t t = static_cast<size_t>(t_of(s));
+    const float* st = stage + slot * kRegStreams * R * UP;
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      const int e = static_cast<int>(threadIdx.x) + j * threads;
+      if (e >= NQ * R * U) break;
+      const int u = e & (U - 1), qr = e >> lgU;
+      const int q = qr / R, row = row0 + qr % R, gu = rank * U + u;
+      if (row < B && gu < H) {
+        const T v = from_f32<T>(st[qr * UP + u]);
+        const size_t cell = static_cast<size_t>(row) * N + t;
+        if (q == 0)
+          ys[cell * H + gu] = v;
+        else if (q == 1)
+          cs[cell * H + gu] = v;
+        else
+          gs[cell * G + (q - 2) * H + gu] = v;
+      }
+    }
+  };
+  load_x(0);
+  store_x(0);
+  if (N > 1) load_x(1);
+
+  // full[b] completes when every warp of this block has written its units
+  // of h into buffer b (one arrival a warp) and the other blocks' bytes of
+  // it have landed: step s reads buffer s & 1 (h_{s-1}; zeros at step 0)
+  // and waits for the ((s - 1) / 2)-th phase of full[s & 1]
+  __shared__ __align__(8) uint64_t full[2];
+  const uint32_t bar = smem_addr(full);
+  const int nwarps = threads / 32;
+  const uint32_t tile_tx = static_cast<uint32_t>((C - 1) * U * R * 4);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, nwarps);
+    mbar_init(bar + 8, nwarps);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  // every block of the cluster holds its zero tiles, its first xg slot and
+  // its mbarriers before any block writes into another's shared memory
+  cluster.sync();
+
+  // the warp's units of a buffer: upw units x R rows, contiguous, sent in
+  // 16-byte pieces (8 where that is all of it)
+  const int upw = 32 / L;
+  const int piece = upw * R * 4 >= 16 ? 16 : 8;
+  const int lgp = __ffs(upw * R * 4 / piece) - 1;   // log2 of the pieces
+  const int orow = p % R;         // the row whose cell this lane updates
+  const bool owner = p < R;       // lanes p < R store it
+  float c = 0.0f;
+  int slot = 0;                   // the step's staging slot, s % kRegStages
+
+  for (int s = 0; s < N; ++s) {
+    const int buf = s & 1;
+    if (s > 0) mbar_wait(bar + buf * 8, ((s - 1) >> 1) & 1);
+    // the step's xg of the lane's cell, read before the product
+    const float* xs = ring + buf * 4 * R * UP + orow * 4 * UP + ul;
+    const float x4[4] = {xs[0], xs[UP], xs[2 * UP], xs[3 * UP]};
+
+    // the four gate sums of row orow: T(h_{t-1}) . T(W_hh[:, gate cols])
+    float acc[4][R];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[g][r] = 0.0f;
+    const float4* hrow =
+        reinterpret_cast<const float4*>(tile + buf * TK * R) + p;
+#pragma unroll
+    for (int ch = 0; ch < kChunks; ++ch) {
+      const float4 hv = hrow[ch * L];
+      const float hk[4] = {hv.x, hv.y, hv.z, hv.w};   // [e][r]
+#pragma unroll
+      for (int e = 0; e < KC; ++e)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            acc[g][r] = fmaf(hk[e * R + r], wr[g][ch * KC + e], acc[g][r]);
+    }
+    float gsum[4];
+    reduce_rows<R>(acc, gsum, p, L);
+
+    const float ig = fast_sigmoid(gsum[0] + x4[0]);
+    const float fg = fast_sigmoid(gsum[1] + x4[1]);
+    const float gg = fast_tanh(gsum[2] + x4[2]);
+    const float og = fast_sigmoid(gsum[3] + x4[3]);
+    c = fg * c + ig * gg;
+    const float hq = unit_ok ? round_to<T>(og * fast_tanh(c)) : 0.0f;
+    const int nb = buf ^ 1;
+    if (owner) {
+      float* st = stage + slot * kRegStreams * R * UP + orow * UP + ul;
+      st[0] = hq;
+      if (kSave) {
+        st[R * UP] = c;
+        st[2 * R * UP] = ig;
+        st[3 * R * UP] = fg;
+        st[4 * R * UP] = gg;
+        st[5 * R * UP] = og;
+      }
+      if (s + 1 < N) tile[(nb * TK + unit) * R + orow] = hq;
+    }
+    const uint32_t nbar = bar + nb * 8;
+    if (s + 1 < N) {
+      // the warp's rows of T(h_t) into that buffer of every other block
+      __syncwarp();
+      const int total = (C - 1) << lgp;
+      const uint32_t region =
+          smem_addr(tile + (nb * TK + rank * U + warp * upw) * R);
+      for (int i = lane; i < total; i += 32) {
+        const int q = i >> lgp;
+        const int dst = q < rank ? q : q + 1;
+        const uint32_t src = region + (i & ((1 << lgp) - 1)) * piece;
+        if (piece == 16)
+          send16(cluster_addr(src, dst), src, cluster_addr(nbar, dst));
+        else
+          send8(cluster_addr(src, dst), src, cluster_addr(nbar, dst));
+      }
+    }
+    // the next step's xg (in registers two steps) into its slot
+    if (s + 1 < N) store_x(s + 1);
+    if (s + 1 < N) {
+      // the warp's arrival on this block's own buffer: its h, xg slot and
+      // staging writes and its previous staging reads are done
+      __syncwarp();
+      if (lane == 0) {
+        if (warp == 0)
+          mbar_arrive_expect(nbar, tile_tx);
+        else
+          mbar_arrive(nbar);
+      }
+    }
+    // after the arrival, which would wait for them: the global loads and
+    // stores, while the bytes travel. The staging slot of step s - 1 is
+    // written again at step s + 2, after every warp's next arrival.
+    if (s + 2 < N) load_x(s + 2);
+    if (s > 0) flush(s - 1, slot == 0 ? kRegStages - 1 : slot - 1);
+    slot = slot == kRegStages - 1 ? 0 : slot + 1;
+  }
+  __syncthreads();
+  flush(N - 1, slot == 0 ? kRegStages - 1 : slot - 1);
+  // no block exits while another may still write into it
+  cluster.sync();
+}
+
 // Dynamic shared memory one block of the wide kernel needs at hidden size
 // H, in bytes (the wrapper's bilstm_smem_bytes mirrors it to refuse an H
 // that cannot fit).
@@ -783,6 +1261,110 @@ int unit_blocks_per_sm(int H, int R) {
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
+// The register cluster kernel's plan rule (the wrapper's _reg_rule and
+// reg_smem_bytes("fwd", ...) mirror it, held to bilstm_fwd_reg_layout when
+// the library loads): H up to kMaxClusterH, a cluster of up to kRegMaxC
+// blocks each owning a unit at least, tiles of 1, 2 or 4 rows, at most
+// kRegMaxThreads threads and kMaxSmem bytes a block.
+bool valid_reg_plan(int B, int N, int H, int C, int R) {
+  if (B <= 0 || N <= 0 || H <= 0 || H > kMaxClusterH || C < 1 ||
+      C > kRegMaxC || (R != 1 && R != 2 && R != 4))
+    return false;
+  return (C - 1) * reg_units(H, C) < H &&
+         reg_threads(H, C) <= kRegMaxThreads &&
+         reg_smem_floats(H, C, R) * sizeof(float) <= kMaxSmem;
+}
+
+template <typename T, bool kSave, int R>
+cudaError_t reg_prepare(int smem) {
+  static std::atomic<int> allowed[kMaxDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices && allowed[device].load() >= smem)
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(bilstm_fwd_reg_kernel<T, kSave, R>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(bilstm_fwd_reg_kernel<T, kSave, R>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && device < kMaxDevices) allowed[device].store(smem);
+  return err;
+}
+
+void make_reg_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                     int tiles, int H, int C, int dirs, size_t smem,
+                     void* stream) {
+  *cfg = {};
+  cfg->gridDim = dim3(C * tiles, dirs, 1);
+  cfg->blockDim = dim3(reg_threads(H, C), 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = static_cast<cudaStream_t>(stream);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+template <typename T, bool kSave, int R>
+int launch_reg_as(const void* xg_f, const void* xg_b, const void* w_f,
+                  const void* w_b, void* ys_f, void* ys_b, void* cs_f,
+                  void* cs_b, void* gs_f, void* gs_b, int B, int N, int H,
+                  int C, int dirs, int rev, void* stream) {
+  const size_t smem = reg_smem_floats(H, C, R) * sizeof(float);
+  cudaError_t err = reg_prepare<T, kSave, R>(static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  make_reg_config(&cfg, &attr, (B + R - 1) / R, H, C, dirs, smem, stream);
+  auto in = [](const void* p) { return static_cast<const T*>(p); };
+  auto out = [](void* p) { return static_cast<T*>(p); };
+  err = cudaLaunchKernelEx(&cfg, bilstm_fwd_reg_kernel<T, kSave, R>, in(xg_f),
+                           in(xg_b), in(w_f), in(w_b), out(ys_f), out(ys_b),
+                           out(cs_f), out(cs_b), out(gs_f), out(gs_b), B, N,
+                           H, rev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kSave>
+int launch_reg(const void* xg_f, const void* xg_b, const void* w_f,
+               const void* w_b, void* ys_f, void* ys_b, void* cs_f,
+               void* cs_b, void* gs_f, void* gs_b, int B, int N, int H, int C,
+               int R, int dirs, int rev, void* stream) {
+  if (!valid_reg_plan(B, N, H, C, R))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto* fn = R == 1   ? launch_reg_as<T, kSave, 1>
+             : R == 2 ? launch_reg_as<T, kSave, 2>
+                      : launch_reg_as<T, kSave, 4>;
+  return fn(xg_f, xg_b, w_f, w_b, ys_f, ys_b, cs_f, cs_b, gs_f, gs_b, B, N, H,
+            C, dirs, rev, stream);
+}
+
+template <typename T, bool kSave, int R>
+int reg_max_active_as(int H, int C) {
+  const size_t smem = reg_smem_floats(H, C, R) * sizeof(float);
+  cudaError_t err = reg_prepare<T, kSave, R>(static_cast<int>(smem));
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  make_reg_config(&cfg, &attr, 1, H, C, 1, smem, nullptr);
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(
+      &n, bilstm_fwd_reg_kernel<T, kSave, R>, &cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+template <typename T, bool kSave>
+int reg_max_active(int H, int C, int R) {
+  return R == 1   ? reg_max_active_as<T, kSave, 1>(H, C)
+         : R == 2 ? reg_max_active_as<T, kSave, 2>(H, C)
+                  : reg_max_active_as<T, kSave, 4>(H, C);
+}
+
 }  // namespace
 
 extern "C" {
@@ -869,6 +1451,71 @@ BILSTM_FWD_ENTRIES(bf16, __nv_bfloat16)
 BILSTM_FWD_CLUSTER_ENTRIES(f32, float)
 BILSTM_FWD_CLUSTER_ENTRIES(bf16, __nv_bfloat16)
 #undef BILSTM_FWD_CLUSTER_ENTRIES
+
+// The register cluster kernel: arguments and outputs as the cluster
+// entries (clusters of C = 1 .. 16 blocks over batch tiles of R = 1, 2 or 4
+// rows); H up to 256.
+#define BILSTM_FWD_REG_ENTRIES(SFX, TYPE)                                     \
+  int bilstm_fwd_reg_##SFX(const void* xg_f, const void* xg_b,               \
+                           const void* w_f, const void* w_b, void* ys_f,     \
+                           void* ys_b, int B, int N, int H, int C, int R,    \
+                           void* stream) {                                   \
+    return launch_reg<TYPE, false>(xg_f, xg_b, w_f, w_b, ys_f, ys_b,         \
+                                   nullptr, nullptr, nullptr, nullptr, B, N, \
+                                   H, C, R, 2, 0, stream);                   \
+  }                                                                          \
+  int bilstm_fwd_train_reg_##SFX(                                            \
+      const void* xg_f, const void* xg_b, const void* w_f, const void* w_b,  \
+      void* ys_f, void* ys_b, void* cs_f, void* cs_b, void* gs_f,            \
+      void* gs_b, int B, int N, int H, int C, int R, void* stream) {         \
+    return launch_reg<TYPE, true>(xg_f, xg_b, w_f, w_b, ys_f, ys_b, cs_f,    \
+                                  cs_b, gs_f, gs_b, B, N, H, C, R, 2, 0,     \
+                                  stream);                                   \
+  }                                                                          \
+  int lstm_fwd_reg_##SFX(const void* xg, const void* w, void* ys, int B,     \
+                         int N, int H, int C, int R, int reverse,            \
+                         void* stream) {                                     \
+    return launch_reg<TYPE, false>(xg, xg, w, w, ys, ys, nullptr, nullptr,   \
+                                   nullptr, nullptr, B, N, H, C, R, 1,       \
+                                   reverse, stream);                         \
+  }                                                                          \
+  int lstm_fwd_train_reg_##SFX(const void* xg, const void* w, void* ys,      \
+                               void* cs, void* gs, int B, int N, int H,      \
+                               int C, int R, int reverse, void* stream) {    \
+    return launch_reg<TYPE, true>(xg, xg, w, w, ys, ys, cs, cs, gs, gs, B,   \
+                                  N, H, C, R, 1, reverse, stream);           \
+  }
+
+BILSTM_FWD_REG_ENTRIES(f32, float)
+BILSTM_FWD_REG_ENTRIES(bf16, __nv_bfloat16)
+#undef BILSTM_FWD_REG_ENTRIES
+
+// How many clusters of the register cluster kernel (bf16: 0 or 1, save: 0
+// or 1) at H, C and R the current device runs at once; a negative
+// cudaError_t code on failure.
+int bilstm_fwd_reg_max_active_clusters(int bf16, int save, int H, int C,
+                                       int R) {
+  if (!valid_reg_plan(1, 1, H, C, R))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  if (bf16)
+    return save ? reg_max_active<__nv_bfloat16, true>(H, C, R)
+                : reg_max_active<__nv_bfloat16, false>(H, C, R);
+  return save ? reg_max_active<float, true>(H, C, R)
+              : reg_max_active<float, false>(H, C, R);
+}
+
+// The register cluster kernel's layout at H, C and R, for the wrapper's
+// mirror: what 0 = dynamic shared memory in bytes, 1 = threads a block, 2 =
+// units a block; -1 for a plan it does not take.
+int bilstm_fwd_reg_layout(int what, int H, int C, int R) {
+  if (!valid_reg_plan(1, 1, H, C, R)) return -1;
+  switch (what) {
+    case 0: return static_cast<int>(reg_smem_floats(H, C, R) * sizeof(float));
+    case 1: return reg_threads(H, C);
+    case 2: return reg_units(H, C);
+    default: return -1;
+  }
+}
 
 // How many clusters of the cluster kernel (bf16: 0 or 1, save: 0 or 1) at
 // H, C and R the current device runs at once; a negative cudaError_t code

@@ -25,20 +25,22 @@ PyTorch version beside it:
 - ``bilstm_bwd`` (``csrc/bilstm_bwd.cu``): reverse-time BPTT from those
   residuals to the gate cotangent ``dg [B, N, 4H]`` per direction.
 
-Each source holds three kernels. At H <= ``UNIT_MAX_H`` (64, the
+Each source holds four kernels. At H <= ``UNIT_MAX_H`` (64, the
 flagship's and the legacy LSTM's width) the unit kernel runs: four lanes of
 a warp own one hidden unit of a tile of 1, 2 or 4 batch rows, W_hh (the
 forward's columns, the BPTT's row) in their registers, one block barrier a
 step; ``unit_plan`` sizes the tile to the batch and the card. Above it the
 wide kernel (the first design, W_hh in shared memory, one block of 4H
 threads per 4-row tile) runs, up to H=118 in the forward and H=116 in the
-BPTT. Above that, up to ``CLUSTER_MAX_H`` (256), the cluster kernel splits
-W_hh by hidden units across a thread-block cluster of up to 8 blocks,
-slices of ceil(H / C) units with the last one masked (the BiGRU cluster
-kernels' scheme); ``lstm_cluster_plan`` picks the cluster and the batch
-tile from the card's own counts. ``lstm_fwd_kernel_route`` and
-``lstm_bwd_kernel_route`` choose, and each launch records its kernel and
-plan in the wrapper's ``last_launch``.
+BPTT. Above that, up to ``CLUSTER_MAX_H`` (256), the register cluster
+kernel ("reg") splits W_hh by hidden units across a thread-block cluster
+of up to 16 blocks, each block's slice held in registers, h (the BPTT:
+partial sums of dh) exchanged by ``st.async`` on mbarriers;
+``lstm_reg_plan`` picks the cluster and the batch tile from the card's own
+counts. The first cluster kernel ("cluster": the slice in shared memory, a
+cluster barrier a step) stays for the A/B, reached by a forced plan.
+``lstm_fwd_kernel_route`` and ``lstm_bwd_kernel_route`` choose, and each
+launch records its kernel and plan in the wrapper's ``last_launch``.
 
 With grad enabled and an input that requires it, ``bilstm_recurrence``
 goes through ``BiLSTMFunction`` (training forward, then BPTT and
@@ -91,6 +93,24 @@ ROWS_PER_THREAD = 4
 MAX_ROWS = 32
 MAX_THREADS = 512
 CLUSTER_MAX_H = 256
+
+# The register cluster kernels (bilstm_*_reg_kernel): clusters of 1 to
+# REG_MAX_CLUSTER blocks (above 8 a non-portable size), batch tiles of
+# REG_ROWS[kind] rows, the k values a forward lane holds (kRegKPerLane) and the
+# gate columns a BPTT lane holds (kRegJPerLane), the inputs the BPTT stages
+# a cell (kRegIn) and the outputs the forward stages (kRegStreams)
+REG_MAX_CLUSTER = 16
+REG_ROWS = {"fwd": (1, 2, 4), "bwd": (1, 2, 4, 8)}
+REG_MAX_THREADS = 256   # the launch bound: 255 registers a thread
+REG_K_PER_LANE = 16
+REG_J_PER_LANE = 32
+REG_IN = 7
+REG_LOADS = 4     # input values a BPTT thread loads a step (kRegLoads)
+REG_STREAMS = 6
+REG_STAGES = 3    # output staging slots (kRegStages)
+# A step's fixed part (the exchange, the lane reduction, the gate math) in
+# thread-rows of a block's FMA issue, for rank_reg_plans' cost model
+REG_STEP_FIXED = 2400
 
 
 def bilstm_smem_bytes(hidden: int) -> int:
@@ -287,6 +307,150 @@ def lstm_cluster_plan(kind: str, batch: int, hidden: int,
     return plans[0]
 
 
+def _pow2_at_least(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def reg_lanes(hidden: int) -> int:
+    """Lanes of a hidden unit in the forward register cluster kernel: 8 up
+    to H=128 (16 k values a lane), 16 above."""
+    return 8 if hidden <= 8 * REG_K_PER_LANE else 16
+
+
+def reg_units(kind: str, hidden: int, cluster: int) -> int:
+    """Hidden units one block of the register cluster kernel ``kind``
+    owns: ceil(H / C) up to a power of two, at least a warp's worth of
+    units in the forward (32 / lanes) and 8 in the BPTT (a lane's 32 gate
+    columns); the last block's slice is masked past H."""
+    u = _pow2_at_least(-(-hidden // cluster))
+    return max(u, 32 // reg_lanes(hidden) if kind == "fwd" else 8)
+
+
+def reg_threads(kind: str, hidden: int, cluster: int) -> int:
+    """Threads of a block: the forward's lanes for each unit; the BPTT's
+    U / 8 lanes for each pair of k, whole warps."""
+    U = reg_units(kind, hidden, cluster)
+    if kind == "fwd":
+        return U * reg_lanes(hidden)
+    return -(-(-(-hidden // 2) * (U // 8)) // 32) * 32
+
+
+def reg_smem_bytes(kind: str, hidden: int, cluster: int, rows: int) -> int:
+    """Dynamic shared memory of a block of the register cluster kernel
+    ``kind`` (``reg_smem_floats`` of the sources): the forward's h tile
+    [2][rows][TK] (TK covers the cluster's units and every k a lane reads),
+    xg ring [2][rows][4][U + 1] and output staging [3][6][rows][U + 1]; the
+    BPTT's dg tile (32-column groups padded by 4 floats), partials
+    [2][C][U][rows], input ring [2][rows][7][U + 1] and output staging
+    [3][4][rows][U + 1]."""
+    U = reg_units(kind, hidden, cluster)
+    if kind == "fwd":
+        tk = _pad4(max(cluster * U, REG_K_PER_LANE * reg_lanes(hidden)))
+        floats = (2 * rows * tk
+                  + (2 * 4 + REG_STAGES * REG_STREAMS) * rows * (U + 1))
+    else:
+        rq = min(rows, 4)
+        floats = ((rows // rq) * (U // 8) * (REG_J_PER_LANE * rq + 4)
+                  + 2 * cluster * U * rows + (2 * REG_IN + REG_STAGES * 4)
+                  * rows * (U + 1))
+    return floats * 4
+
+
+def _reg_rule(kind: str, hidden: int, cluster: int, rows: int) -> bool:
+    """The register cluster kernels' plan rule (``valid_reg_plan``): H up
+    to ``CLUSTER_MAX_H``, 1 to ``REG_MAX_CLUSTER`` blocks each owning a
+    unit at least, a tile of ``REG_ROWS[kind]``, at most ``REG_MAX_THREADS``
+    threads and ``MAX_SMEM_BYTES`` bytes a block; the BPTT also at most
+    ``REG_LOADS`` of its ``REG_IN`` input values a cell a thread a step."""
+    if not (0 < hidden <= CLUSTER_MAX_H and 1 <= cluster <= REG_MAX_CLUSTER
+            and rows in REG_ROWS[kind]):
+        return False
+    U = reg_units(kind, hidden, cluster)
+    threads = reg_threads(kind, hidden, cluster)
+    return ((cluster - 1) * U < hidden and threads <= REG_MAX_THREADS
+            and (kind == "fwd" or REG_IN * U * rows <= REG_LOADS * threads)
+            and reg_smem_bytes(kind, hidden, cluster, rows)
+            <= MAX_SMEM_BYTES)
+
+
+def check_reg_mirror(layout, kind: str) -> None:
+    """Hold ``_reg_rule``, ``reg_smem_bytes``, ``reg_threads`` and
+    ``reg_units`` to a built source's ``bilstm_<kind>_reg_layout(what, H,
+    C, R)`` (bytes, threads, units, or -1 for a plan it does not take) over
+    H, every cluster size and tile; raises naming the first plan where
+    they differ."""
+    for hidden in (1, 7, 64, 96, 117, 118, 119, 128, 130, 201, 255, 256,
+                   257):
+        for c in range(1, REG_MAX_CLUSTER + 2):
+            for rows in (1, 2, 3, 4, 8, 16):
+                want = ((reg_smem_bytes(kind, hidden, c, rows),
+                         reg_threads(kind, hidden, c),
+                         reg_units(kind, hidden, c))
+                        if _reg_rule(kind, hidden, c, rows) else (-1,) * 3)
+                got = tuple(layout(what, hidden, c, rows)
+                            for what in range(3))
+                if got != want:
+                    raise RuntimeError(
+                        f"bilstm_{kind}_reg: the wrapper's plan mirror gives "
+                        f"{want} (shared bytes, threads, units) at H={hidden}"
+                        f", plan {c}x{rows}, the built source {got}: update "
+                        "REG_* or reg_* to match the source")
+
+
+def rank_reg_plans(kind: str, plans, batch: int, hidden: int,
+                   resident: Callable[[int, int], int],
+                   dirs: int) -> List[Tuple[int, int]]:
+    """The ``(cluster, rows)`` plans of the register cluster kernel
+    ``kind``, fastest first.
+
+    A lane runs 64 FMAs a row a step whatever the plan, so a block's step
+    costs its threads (at least 128: four warps, one per scheduler) times
+    its rows, plus ``REG_STEP_FIXED`` for the exchange, the lane reduction
+    and the gate math; the grid of ``dirs`` directions takes ``waves`` such
+    steps, with ``resident(cluster, rows)`` clusters at once (the card's
+    own count, ``cudaOccupancyMaxActiveClusters``); a plan the card runs
+    none of is dropped. Ties go to the smaller cluster, then the smaller
+    tile."""
+    keys = []
+    for c, rows in plans:
+        at_once = resident(c, rows)
+        if at_once <= 0:
+            continue
+        waves = -(-dirs * -(-batch // rows) // at_once)
+        step = max(reg_threads(kind, hidden, c), 128) * rows + REG_STEP_FIXED
+        keys.append((waves * step, c, rows))
+    return [(c, rows) for _, c, rows in sorted(keys)]
+
+
+def lstm_reg_plans(kind: str, batch: int, hidden: int,
+                   resident: Callable[[int, int], int],
+                   dirs: int = 2) -> List[Tuple[int, int]]:
+    """Every ``(cluster, rows)`` the register cluster kernel ``kind``
+    takes at this batch and H over ``dirs`` directions, fastest first
+    (``rank_reg_plans``)."""
+    return rank_reg_plans(
+        kind, [(c, rows) for c in range(1, REG_MAX_CLUSTER + 1)
+               for rows in REG_ROWS[kind]
+               if _reg_rule(kind, hidden, c, rows)],
+        batch, hidden, resident, dirs)
+
+
+def lstm_reg_plan(kind: str, batch: int, hidden: int,
+                  resident: Callable[[int, int], int],
+                  dirs: int = 2) -> Tuple[int, int]:
+    """``(cluster, rows)`` of the register cluster kernel ``kind``: the
+    first of ``lstm_reg_plans``. Raises where the card runs no plan."""
+    plans = lstm_reg_plans(kind, batch, hidden, resident, dirs)
+    if not plans:
+        raise ValueError(f"bilstm_{kind}_reg: no plan of 1 to "
+                         f"{REG_MAX_CLUSTER} blocks takes H={hidden} on this "
+                         "card")
+    return plans[0]
+
+
 def _lstm_route(kind: str, hidden: int, wide: bool, wide_smem: int) -> str:
     name = f"bilstm_{kind}"
     if hidden <= 0:
@@ -295,22 +459,24 @@ def _lstm_route(kind: str, hidden: int, wide: bool, wide_smem: int) -> str:
         return "unit"
     if wide:
         return "wide"
-    if any(lstm_cluster_fits(kind, hidden, c, ROWS_PER_THREAD)
-           for c in CLUSTER_SIZES):
-        return "cluster"
+    if any(_reg_rule(kind, hidden, c, rows)
+           for c in range(1, REG_MAX_CLUSTER + 1) for rows in REG_ROWS[kind]):
+        return "reg"
     raise ValueError(
         f"{name}: no kernel takes H={hidden}: the unit kernel holds "
         f"H <= {UNIT_MAX_H}, the wide kernel needs {wide_smem} bytes of "
         f"shared memory per block, over the {MAX_SMEM_BYTES} a block can "
-        f"have, and the cluster kernel takes H <= {CLUSTER_MAX_H}")
+        f"have, and the cluster kernels take H <= {CLUSTER_MAX_H}")
 
 
 def lstm_fwd_kernel_route(hidden: int) -> str:
     """The forward kernel of ``csrc/bilstm_fwd.cu`` that takes hidden size
     ``hidden`` (whatever the batch, stream dtype or direction count):
     "unit" up to ``UNIT_MAX_H``, else "wide" where its W_hh fits one
-    block's shared memory (H <= 118), else "cluster" up to
-    ``CLUSTER_MAX_H``. Raises, naming the width, for an H none takes."""
+    block's shared memory (H <= 118), else "reg" (the register cluster
+    kernel) up to ``CLUSTER_MAX_H``. The first cluster kernel ("cluster")
+    is reached only by a forced plan. Raises, naming the width, for an H
+    none takes."""
     return _lstm_route("fwd", hidden,
                        4 * hidden <= 512
                        and bilstm_smem_bytes(hidden) <= MAX_SMEM_BYTES,
@@ -330,8 +496,9 @@ def lstm_bwd_kernel_route(hidden: int) -> str:
     ``hidden`` (whatever the batch, stream dtype or direction count):
     "unit" (``bilstm_bwd_unit_kernel``) up to ``UNIT_MAX_H``, else "wide"
     where its W_hh^T and dg tile fit one block's shared memory (H <= 116),
-    else "cluster" up to ``CLUSTER_MAX_H``. Raises, naming the width, for an
-    H none takes."""
+    else "reg" (the register cluster kernel) up to ``CLUSTER_MAX_H``; the
+    first cluster kernel is reached only by a forced plan. Raises, naming
+    the width, for an H none takes."""
     return _lstm_route("bwd", hidden,
                        bilstm_bwd_smem_bytes(hidden) <= MAX_SMEM_BYTES,
                        bilstm_bwd_smem_bytes(hidden))
@@ -631,11 +798,12 @@ def _library(name: str):
     else:
         fns = {"bilstm_bwd": (10, 3), "lstm_bwd": (5, 4),
                "bilstm_bwd_unit": (10, 4), "lstm_bwd_unit": (5, 5)}
-    # the cluster kernel: the pointers, then B, N, H, C, R (and reverse)
+    # the cluster kernels: the pointers, then B, N, H, C, R (and reverse)
     for fn_name in [f for f in fns if not f.endswith("_unit")]:
         n_ptr, n_int = fns[fn_name]
-        fns[f"{fn_name}_cluster"] = (n_ptr,
-                                     5 + int(fn_name.startswith("lstm")))
+        for kernel in ("cluster", "reg"):
+            fns[f"{fn_name}_{kernel}"] = (
+                n_ptr, 5 + int(fn_name.startswith("lstm")))
     for fn_name, (n_ptr, n_int) in fns.items():
         for sfx in _SUFFIX.values():
             fn = getattr(lib, f"{fn_name}_{sfx}")
@@ -645,13 +813,17 @@ def _library(name: str):
         bind_unit_queries(lib, name, gates=4)
     else:
         bind_unit_queries(lib, name, gates=4, tiles=4)
-    # the bf16 and kSave flags, then H, C, R; H, C, R
-    for query, n_int in (("max_active_clusters", 5), ("smem_bytes", 3)):
-        fn = getattr(lib, f"{name}_cluster_{query}")
+    # the bf16 and kSave flags, then H, C, R; H, C, R; what, H, C, R
+    for query, n_int in (("cluster_max_active_clusters", 5),
+                         ("cluster_smem_bytes", 3),
+                         ("reg_max_active_clusters", 5), ("reg_layout", 4)):
+        fn = getattr(lib, f"{name}_{query}")
         fn.argtypes = [i] * n_int
         fn.restype = i
     check_lstm_cluster_mirror(getattr(lib, f"{name}_cluster_smem_bytes"),
                               name[len("bilstm_"):])
+    check_reg_mirror(getattr(lib, f"{name}_reg_layout"),
+                     name[len("bilstm_"):])
     set_error_string(lib, name)
     return lib
 
@@ -676,11 +848,13 @@ _CLUSTER_PLANS: dict = {}   # cluster-kernel launch plans, likewise
 
 
 def _cluster_resident(source: str, H: int, dev: torch.device, T,
-                      save: bool) -> Callable[[int, int], int]:
+                      save: bool, kernel: str = "cluster"
+                      ) -> Callable[[int, int], int]:
     """``resident(cluster, rows)``: how many clusters of that plan of the
-    LSTM cluster kernel of ``source`` ("bilstm_fwd" or "bilstm_bwd") the
-    card ``dev`` runs at once."""
-    query = getattr(_library(source), f"{source}_cluster_max_active_clusters")
+    LSTM cluster kernel ``kernel`` ("cluster" or "reg") of ``source``
+    ("bilstm_fwd" or "bilstm_bwd") the card ``dev`` runs at once."""
+    query = getattr(_library(source),
+                    f"{source}_{kernel}_max_active_clusters")
 
     def resident(c, rows):
         with torch.cuda.device(dev):
@@ -700,35 +874,61 @@ def card_lstm_cluster_plans(kind: str, B: int, H: int, dev: torch.device,
         dirs)
 
 
+def card_lstm_reg_plans(kind: str, B: int, H: int, dev: torch.device,
+                        dtype: torch.dtype, save: bool,
+                        dirs: int) -> List[Tuple[int, int]]:
+    """``lstm_reg_plans`` of the register cluster kernel ``kind`` ("fwd"
+    or "bwd") on the card ``dev`` (its own counts), fastest first; the
+    first is the plan a launch takes."""
+    return lstm_reg_plans(
+        kind, B, H,
+        _cluster_resident(f"bilstm_{kind}", H, dev, dtype, save, "reg"),
+        dirs)
+
+
+def _plan_rules(kind: str, H: int):
+    """The register (``"reg"``) and first (``"cluster"``) cluster kernels'
+    plan test, planner and plan rule as text, for ``cluster_launch_plan``."""
+    return {
+        "reg": (lambda c, r: _reg_rule(kind, H, c, r), lstm_reg_plan,
+                f"1 to {REG_MAX_CLUSTER} blocks each owning a unit, a tile "
+                f"of {REG_ROWS[kind]} rows, at most {REG_MAX_THREADS} "
+                "threads"),
+        "cluster": (lambda c, r: lstm_cluster_fits(kind, H, c, r),
+                    lstm_cluster_plan,
+                    f"a cluster of {CLUSTER_SIZES} blocks each owning a unit,"
+                    f" the tile a multiple of {ROWS_PER_THREAD}, at most "
+                    f"{MAX_THREADS} threads")}
+
+
 def cluster_launch_plan(fn, source: str, B: int, H: int, dev: torch.device,
                         T, save: bool, dirs: int,
-                        plan: Optional[Tuple[int, int]] = None
-                        ) -> Tuple[int, int]:
-    """``(cluster, rows)`` of a launch of the LSTM cluster kernel of
-    ``source``: ``lstm_cluster_plan``'s pick with the card's own counts, or
-    the caller's ``plan``, refused unless it fits and the card runs such a
-    cluster. Recorded with the grid's cluster count in
+                        plan: Optional[Tuple[int, int]] = None,
+                        kernel: str = "reg") -> Tuple[int, int]:
+    """``(cluster, rows)`` of a launch of the LSTM cluster kernel
+    ``kernel`` ("reg": the register cluster kernel, "cluster": the first
+    design) of ``source``: its planner's pick with the card's own counts,
+    or the caller's ``plan``, refused unless it fits and the card runs such
+    a cluster. Recorded with the grid's cluster count in
     ``fn.last_launch``."""
     kind = source[len("bilstm_"):]
-    key = (source, B, H, str(dev), T, save, dirs, plan)
+    key = (source, kernel, B, H, str(dev), T, save, dirs, plan)
     if key not in _CLUSTER_PLANS:
-        resident = _cluster_resident(source, H, dev, T, save)
+        fits, planner, rule = _plan_rules(kind, H)[kernel]
+        resident = _cluster_resident(source, H, dev, T, save, kernel)
         if plan is None:
-            cluster, rows = lstm_cluster_plan(kind, B, H, resident, dirs)
+            cluster, rows = planner(kind, B, H, resident, dirs)
         else:
             cluster, rows = plan
-            if not lstm_cluster_fits(kind, H, cluster, rows):
+            if not fits(cluster, rows):
                 raise ValueError(
-                    f"{source}: plan {cluster}x{rows} does not fit H={H}: "
-                    f"H at most {CLUSTER_MAX_H}, a cluster of "
-                    f"{CLUSTER_SIZES} blocks each owning a unit, the tile a "
-                    f"multiple of {ROWS_PER_THREAD}, at most {MAX_THREADS} "
-                    f"threads and {MAX_SMEM_BYTES} bytes of shared memory "
-                    "a block")
+                    f"{source}: {kernel} plan {cluster}x{rows} does not fit "
+                    f"H={H}: H at most {CLUSTER_MAX_H}, {rule} and "
+                    f"{MAX_SMEM_BYTES} bytes of shared memory a block")
             if resident(cluster, rows) <= 0:
                 raise ValueError(f"{source}: the card runs no cluster of "
-                                 f"plan {cluster}x{rows} at once")
-        _CLUSTER_PLANS[key] = {"kernel": "cluster", "cluster": cluster,
+                                 f"{kernel} plan {cluster}x{rows} at once")
+        _CLUSTER_PLANS[key] = {"kernel": kernel, "cluster": cluster,
                                "rows": rows, "clusters": dirs * -(-B // rows),
                                "resident": resident(cluster, rows)}
     fn.last_launch = _CLUSTER_PLANS[key]
@@ -858,12 +1058,12 @@ def _smem(source: str, H: int, plan) -> int:
     """Shared memory of the kernel of ``source`` that ``plan`` (or the
     route) picks at H, for ``_check_cuda``; the unit kernel's largest
     tile (the forward's h tile, the BPTT's four dg tiles); 0 for the
-    cluster kernel, whose planner keeps each plan within a block's."""
+    cluster kernels, whose planners keep each plan within a block's."""
     kernel = _kernel(source, H, plan)
     if kernel == "unit":
         return unit_smem_bytes(max(UNIT_ROWS),
                                tiles=1 if source == "bilstm_fwd" else 4)
-    if kernel == "cluster":
+    if kernel in ("cluster", "reg"):
         return 0
     return (bilstm_smem_bytes if source == "bilstm_fwd"
             else bilstm_bwd_smem_bytes)(H)
@@ -871,12 +1071,13 @@ def _smem(source: str, H: int, plan) -> int:
 
 def _plan(fn, source: str, name: str, B: int, H: int, dev, T, save: bool,
           dirs: int, plan):
-    """The kernel library, the kernel ("unit", "wide" or "cluster") and
-    the plan's integers of a launch of ``source`` ("bilstm_fwd" or
-    "bilstm_bwd"): the route's kernel with ``unit_plan``'s tile ``(rows,)``,
-    the wide kernel's ``(4,)`` or ``lstm_cluster_plan``'s ``(cluster,
-    rows)``; or the caller's ``plan`` ("unit", rows), ("wide", 4) or
-    ("cluster", cluster, rows). Recorded in ``fn.last_launch``."""
+    """The kernel library, the kernel ("unit", "wide", "reg" or
+    "cluster") and the plan's integers of a launch of ``source``
+    ("bilstm_fwd" or "bilstm_bwd"): the route's kernel with ``unit_plan``'s
+    tile ``(rows,)``, the wide kernel's ``(4,)`` or ``lstm_reg_plan``'s
+    ``(cluster, rows)``; or the caller's ``plan`` ("unit", rows), ("wide",
+    4), ("reg", cluster, rows) or ("cluster", cluster, rows), the first
+    cluster kernel's. Recorded in ``fn.last_launch``."""
     kernel = _kernel(source, H, plan)
     lib = _library(source)
     forced = None if plan is None else tuple(plan[1:])
@@ -887,13 +1088,13 @@ def _plan(fn, source: str, name: str, B: int, H: int, dev, T, save: bool,
         return lib, kernel, (unit_launch_rows(
             fn, lib, source, B, H, dev, T, save, dirs,
             None if forced is None else forced[0]),)
-    if kernel == "cluster":
+    if kernel in ("cluster", "reg"):
         return lib, kernel, cluster_launch_plan(fn, source, B, H, dev, T,
-                                                save, dirs, forced)
+                                                save, dirs, forced, kernel)
     if kernel != "wide" or forced not in (None, (_ROWS_PER_BLOCK,)):
         raise ValueError(f"{name}: plan must be ('unit', rows), ('wide', "
-                         f"{_ROWS_PER_BLOCK}) or ('cluster', cluster, rows),"
-                         f" got {plan}")
+                         f"{_ROWS_PER_BLOCK}), ('reg', cluster, rows) or "
+                         f"('cluster', cluster, rows), got {plan}")
     fn.last_launch = {"kernel": "wide", "cluster": 1,
                       "rows": _ROWS_PER_BLOCK,
                       "clusters": dirs * -(-B // _ROWS_PER_BLOCK),
@@ -903,10 +1104,10 @@ def _plan(fn, source: str, name: str, B: int, H: int, dev, T, save: bool,
 
 def _fwd_plan_args(lib_name: str, kernel: str, ints) -> Tuple[str, tuple]:
     """The entry point of ``csrc/bilstm_fwd.cu`` and the plan's integers
-    it takes: the cluster entries (``<name>_cluster_*``) take (C, R), the
-    others the unit tile or 4 and the wide flag."""
-    if kernel == "cluster":
-        return f"{lib_name}_cluster", tuple(ints)
+    it takes: the cluster entries (``<name>_reg_*``, ``<name>_cluster_*``)
+    take (C, R), the others the unit tile or 4 and the wide flag."""
+    if kernel in ("cluster", "reg"):
+        return f"{lib_name}_{kernel}", tuple(ints)
     return lib_name, (ints[0], int(kernel == "wide"))
 
 
@@ -937,9 +1138,10 @@ def bilstm_fwd_cuda(xg_f: torch.Tensor, xg_b: torch.Tensor,
                     plan: Optional[Tuple[str, int]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the light kernel of ``csrc/bilstm_fwd.cu`` on the current
-    stream. ``plan=("unit", rows)``, ``("wide", 4)`` or ``("cluster",
-    cluster, rows)`` overrides the route and the planner (raises if it does
-    not fit). Records the plan in ``bilstm_fwd_cuda.last_launch``. Counts each launch in
+    stream. ``plan=("unit", rows)``, ``("wide", 4)``, ``("reg", cluster,
+    rows)`` or ``("cluster", cluster, rows)`` overrides the route and the
+    planner (raises if it does not fit). Records the plan in
+    ``bilstm_fwd_cuda.last_launch``. Counts each launch in
     ``bilstm_fwd_cuda.launches``. Its outputs carry no autograd history:
     ``bilstm_recurrence`` sends inputs that need a gradient to
     ``BiLSTMFunction`` instead."""
@@ -970,8 +1172,9 @@ def _bwd_launch(fn, name: str, ptrs, B: int, N: int, H: int, dev, T,
     on the pointers ``ptrs``, then B, N, H, the plan's integers and
     ``tail`` (the reverse flag of one direction), as ``_plan`` picks: the
     wide kernel's entries take no tile, the unit kernel's
-    (``<name>_unit_*``) its tile, the cluster kernel's
-    (``<name>_cluster_*``) C and R. Counted on ``fn``."""
+    (``<name>_unit_*``) its tile, the cluster kernels'
+    (``<name>_reg_*``, ``<name>_cluster_*``) C and R. Counted on
+    ``fn``."""
     lib, kernel, ints = _plan(fn, "bilstm_bwd", name, B, H, dev, T, False,
                               dirs, plan)
     sfx = _SUFFIX[T]
@@ -987,10 +1190,10 @@ def bilstm_bwd_cuda(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b,
                     plan: Optional[Tuple[str, int]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/bilstm_bwd.cu``: returns ``(dg_f, dg_b)``.
-    ``lstm_bwd_kernel_route`` picks the unit, wide or cluster kernel;
-    ``plan=("unit", rows)``, ``("wide", 4)`` or ``("cluster", cluster,
-    rows)`` overrides the route and the planner (raises if it does not
-    fit). Records the plan in
+    ``lstm_bwd_kernel_route`` picks the unit, wide or register cluster
+    kernel; ``plan=("unit", rows)``, ``("wide", 4)``, ``("reg", cluster,
+    rows)`` or ``("cluster", cluster, rows)`` overrides the route and the
+    planner (raises if it does not fit). Records the plan in
     ``bilstm_bwd_cuda.last_launch`` and counts each launch in
     ``bilstm_bwd_cuda.launches``."""
     _check_shapes(gs_f, gs_b, w_f, w_b)

@@ -672,7 +672,11 @@ LSTM_BWD_SHAPES = [(B, N, H) for B in (1, 5, 17) for N in (5, 17, 500)
 LSTM_BWD_WIDE_SHAPES = [(1, 17, 96), (5, 500, 96), (17, 43, 96)]
 
 
-def _check_lstm_bwd(cuda, shape, dtype, plans, kernel):
+def _check_lstm_bwd(cuda, shape, dtype, plans, kernel, route=None):
+    """The BPTT under each of ``plans`` on ``kernel``, then the Functions'
+    gradients through the route, whose kernel is ``route`` (default
+    ``kernel``)."""
+    route = route or kernel
     xg_f, xg_b, w_f, w_b = _inputs(*shape, cuda)
     xg_f, xg_b = xg_f.to(dtype), xg_b.to(dtype)
     bound = GRAD_REL if dtype == torch.float32 else 0.1
@@ -707,7 +711,7 @@ def _check_lstm_bwd(cuda, shape, dtype, plans, kernel):
             assert _max_rel(got.float(), r.float()) <= bound, (plan, rev)
     x = [t.clone().requires_grad_(True) for t in (xg_f, xg_b, w_f, w_b)]
     got = torch.autograd.grad(rnn_cuda.bilstm_recurrence(*x), x, [dy_f, dy_b])
-    assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == kernel
+    assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == route
     ref_g = torch.autograd.grad(rnn_cuda.bilstm_recurrence_plain(*x), x,
                                 [dy_f, dy_b])
     for name, a, r in zip(("dxg_f", "dxg_b", "dW_f", "dW_b"), got, ref_g):
@@ -717,7 +721,7 @@ def _check_lstm_bwd(cuda, shape, dtype, plans, kernel):
         x = [t.clone().requires_grad_(True) for t in (xg_f, w_f)]
         got = torch.autograd.grad(rnn_cuda.lstm_recurrence_kernel(*x, rev),
                                   x, dy_f)
-        assert rnn_cuda.lstm_bwd_cuda.last_launch["kernel"] == kernel
+        assert rnn_cuda.lstm_bwd_cuda.last_launch["kernel"] == route
         ref_g = torch.autograd.grad(rnn_cuda.lstm_recurrence(*x, rev), x,
                                     dy_f)
         for name, a, r in zip(("dxg", "dW_hh"), got, ref_g):
@@ -801,9 +805,10 @@ def test_bigru_tc_kernels_match_plain(cuda, shape):
 # The LSTM cluster kernels (H above the wide kernels' 118 / 116, up to 256):
 # W_hh split by hidden units across a cluster, slices of ceil(H / C) units
 # with the last one masked; light and training forward and the BPTT, one and
-# two directions, float32 and bf16, under the planner's pick and the card's
-# next plans, against the plain versions (bounds as above), a second launch
-# bit for bit, and the Functions' gradients.
+# two directions, float32 and bf16, under the card's first plans (forced:
+# the route takes the register cluster kernels), against the plain versions
+# (bounds as above), a second launch bit for bit; the Functions' gradients
+# through the route.
 # ---------------------------------------------------------------------------
 
 LSTM_CLUSTER_SHAPES = [(1, 17, 119), (5, 43, 130), (32, 60, 192),
@@ -827,23 +832,31 @@ def _lstm_fwd_cases(shape, dtype, cuda):
 @pytest.mark.parametrize("shape", LSTM_CLUSTER_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lstm_cluster_kernels_match_plain(cuda, shape, dtype):
+    _check_lstm_cluster_kernels(cuda, shape, dtype, "cluster")
+
+
+def _check_lstm_cluster_kernels(cuda, shape, dtype, kernel):
+    """The cluster kernel ``kernel`` ("cluster": the first design, "reg":
+    the register cluster kernel) under its card's first plans, forced, and
+    (the register kernel, the route above the wide kernels) the route's
+    own pick."""
     B, N, H = shape
-    assert rnn_cuda.lstm_bwd_kernel_route(H) == "cluster"
+    assert rnn_cuda.lstm_bwd_kernel_route(H) == "reg"
     if H > 118:
-        assert rnn_cuda.lstm_fwd_kernel_route(H) == "cluster"
+        assert rnn_cuda.lstm_fwd_kernel_route(H) == "reg"
+    card_plans = (rnn_cuda.card_lstm_cluster_plans if kernel == "cluster"
+                  else rnn_cuda.card_lstm_reg_plans)
     for fn, ins, ref, dirs, save in _lstm_fwd_cases(shape, dtype, cuda):
-        plans = rnn_cuda.card_lstm_cluster_plans("fwd", B, H, cuda, dtype,
-                                                 save, dirs)
+        plans = card_plans("fwd", B, H, cuda, dtype, save, dirs)
         assert plans
-        # at H <= 118 the route takes the wide forward; force the cluster's
-        route = [None] if H > 118 else []
-        for plan in (*route, *(("cluster", c, r) for c, r in plans[:3])):
+        route = [None] if kernel == "reg" and H > 118 else []
+        for plan in (*route, *((kernel, c, r) for c, r in plans[:3])):
             before = fn.launches
             got = fn(*ins, plan=plan)
             got = got if isinstance(got, tuple) else (got,)
             assert fn.launches == before + 1
             last = fn.last_launch
-            assert last["kernel"] == "cluster", last
+            assert last["kernel"] == kernel, last
             want = plans[0] if plan is None else plan[1:]
             assert (last["cluster"], last["rows"]) == want, last
             again = fn(*ins, plan=plan)
@@ -851,11 +864,25 @@ def test_lstm_cluster_kernels_match_plain(cuda, shape, dtype):
             for a, a2, r in zip(got, again, ref):
                 assert torch.equal(a, a2), plan
                 _assert_close(a, r, dtype)
-    plans = rnn_cuda.card_lstm_cluster_plans("bwd", B, H, cuda, dtype,
-                                             False, 2)
+    plans = card_plans("bwd", B, H, cuda, dtype, False, 2)
+    route = [None] if kernel == "reg" else []
     _check_lstm_bwd(cuda, shape, dtype,
-                    [None, *(("cluster", c, r) for c, r in plans[:2])],
-                    "cluster")
+                    [*route, *((kernel, c, r) for c, r in plans[:2])],
+                    kernel, route="reg")
+
+
+# The register cluster kernels, the route at these widths: W_hh in
+# registers, the exchange by st.async on mbarriers; the reference lstm
+# request's H=128 and the lstm at d_model 512's H=256 among the shapes.
+LSTM_REG_SHAPES = [(1, 17, 119), (5, 43, 130), (32, 60, 192),
+                   (17, 300, 256), (3, 20, 117), (1, 300, 128),
+                   (32, 100, 256), (8, 5, 201)]
+
+
+@pytest.mark.parametrize("shape", LSTM_REG_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_reg_kernels_match_plain(cuda, shape, dtype):
+    _check_lstm_cluster_kernels(cuda, shape, dtype, "reg")
 
 
 # ---------------------------------------------------------------------------

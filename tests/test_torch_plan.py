@@ -27,6 +27,12 @@ def _clusters(c, rows):
     return CLUSTERS[c]
 
 
+def _reg_clusters(c, rows):
+    """An H100's resident clusters of the register cluster kernels: 15 of
+    8 blocks, 7 of 16 (a non-portable size)."""
+    return 120 // c if c <= 8 else 7
+
+
 @pytest.mark.parametrize("batch,dirs,per_sm,want", [
     (32, 1, 2, [1, 2, 4]),      # legacy GRU step: 32 blocks of one row
     (1, 2, 2, [1, 2, 4]),       # flagship serving: no padding rows
@@ -144,7 +150,8 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(gru_cuda, "_resident",
                         lambda *a: ("bigru_fwd", _clusters))
     monkeypatch.setattr(rnn_cuda, "_cluster_resident",
-                        lambda *a: _clusters)
+                        lambda *a: _reg_clusters if "reg" in a
+                        else _clusters)
     monkeypatch.setattr(rnn_cuda, "_UNIT_PLANS", {})
     monkeypatch.setattr(rnn_cuda, "_CLUSTER_PLANS", {})
     monkeypatch.setattr(gru_cuda, "_PLANS", {})
@@ -338,8 +345,11 @@ def test_fused_staging_reuses_exchange_tile(hidden, cluster, rows, floats):
 def test_lstm_bwd_route(hidden, want):
     """The wide BPTT kernel's W_hh^T and double-buffered [4][4H] dg tile
     fit one block to H=116 (the wide forward's smaller tile to H=118); the
-    cluster kernel takes the widths above, to 256."""
-    assert lstm_bwd_kernel_route(hidden) == want
+    widths above, to 256, split W_hh across a cluster ("cluster" here):
+    they take the register cluster kernel ("reg"), and the first cluster
+    kernel only by a forced plan."""
+    assert lstm_bwd_kernel_route(hidden) == {"cluster": "reg"}.get(want,
+                                                                   want)
     if 64 < hidden <= 118:
         assert lstm_fwd_kernel_route(hidden) == "wide"
 
@@ -737,6 +747,10 @@ def _before_lstm_route(kind, hidden):
 
 @pytest.mark.parametrize("batch", [1, 5, 32, 128])
 def test_every_width_gets_a_kernel_and_keeps_its_pick(batch):
+    """Every H the unit and wide kernels took keeps its kernel; every H
+    above them takes the register cluster kernel with a plan in each
+    direction count, and the first cluster kernel, reached by a forced
+    plan, still plans there too."""
     tc_counts = {4: 30, 8: 15}
     for hidden in range(1, 257):
         for kind in ("fwd", "bwd"):
@@ -745,8 +759,11 @@ def test_every_width_gets_a_kernel_and_keeps_its_pick(batch):
             before = _before_lstm_route(kind, hidden)
             if before is not None:
                 assert route == before, (kind, hidden)
-            elif route == "cluster":
+            elif route == "reg":
                 for dirs in (1, 2):
+                    assert rnn_cuda.lstm_reg_plans(
+                        kind, batch, hidden, _reg_clusters, dirs), (kind,
+                                                                    hidden)
                     assert rnn_cuda.lstm_cluster_plans(
                         kind, batch, hidden, _clusters, dirs), (kind, hidden)
             else:
@@ -839,28 +856,216 @@ def test_gru_mirror_check_covers_masked_slices():
 
 
 def test_cluster_routes_launch_and_record(fake_card):
-    """H=256 launches the LSTM cluster entries (pointers, B, N, H, C, R and
-    a one-direction grid's reverse flag) with the planner's plan; a GRU
-    width no dividing cluster fits launches a masked plan."""
+    """H=256 launches the register cluster entries (pointers, B, N, H, C, R
+    and a one-direction grid's reverse flag) with the planner's plan; the
+    first cluster kernel's entries take the same arguments under a forced
+    ("cluster", C, R) plan; a GRU width no dividing cluster fits launches a
+    masked plan."""
     z = torch.zeros
-    rnn_cuda.bilstm_fwd_cuda(z(32, 5, 1024), z(32, 5, 1024), z(256, 1024),
-                             z(256, 1024))
+    ins = (z(32, 5, 1024), z(32, 5, 1024), z(256, 1024), z(256, 1024))
+    rnn_cuda.bilstm_fwd_cuda(*ins)
     name, args = fake_card.calls[-1]
-    want = rnn_cuda.lstm_cluster_plan("fwd", 32, 256, _clusters)
-    assert name == "bilstm_fwd_cluster_f32"
+    want = rnn_cuda.lstm_reg_plan("fwd", 32, 256, _reg_clusters)
+    assert name == "bilstm_fwd_reg_f32"
     assert args[6:] == (32, 5, 256, *want)
     assert rnn_cuda.bilstm_fwd_cuda.last_launch == {
-        "kernel": "cluster", "cluster": want[0], "rows": want[1],
-        "clusters": 2 * -(-32 // want[1]), "resident": 15}
-    rnn_cuda.lstm_fwd_train_cuda(z(3, 5, 520, dtype=torch.bfloat16),
-                                 z(130, 520), True)
+        "kernel": "reg", "cluster": want[0], "rows": want[1],
+        "clusters": 2 * -(-32 // want[1]), "resident": _reg_clusters(*want)}
+    old = rnn_cuda.lstm_cluster_plan("fwd", 32, 256, _clusters)
+    rnn_cuda.bilstm_fwd_cuda(*ins, plan=("cluster", *old))
     name, args = fake_card.calls[-1]
-    assert name == "lstm_fwd_train_cluster_bf16" and args[-1] == 1
-    assert args[5:8] == (3, 5, 130)
-    ins = _lstm_bwd_args(5, 4, 200)
-    rnn_cuda.bilstm_bwd_cuda(*ins)
-    name, args = fake_card.calls[-1]
-    assert name == "bilstm_bwd_cluster_f32" and args[10:13] == (5, 4, 200)
+    assert name == "bilstm_fwd_cluster_f32"
+    assert args[6:] == (32, 5, 256, *old)
+    assert rnn_cuda.bilstm_fwd_cuda.last_launch == {
+        "kernel": "cluster", "cluster": old[0], "rows": old[1],
+        "clusters": 2 * -(-32 // old[1]), "resident": 15}
+    for plan, entry in ((None, "reg"), (("cluster", 4, 4), "cluster")):
+        rnn_cuda.lstm_fwd_train_cuda(z(3, 5, 520, dtype=torch.bfloat16),
+                                     z(130, 520), True, plan=plan)
+        name, args = fake_card.calls[-1]
+        assert name == f"lstm_fwd_train_{entry}_bf16" and args[-1] == 1
+        assert args[5:8] == (3, 5, 130)
+    bwd = _lstm_bwd_args(5, 4, 200)
+    for plan, entry in ((None, "reg"), (("cluster", 4, 4), "cluster")):
+        rnn_cuda.bilstm_bwd_cuda(*bwd, plan=plan)
+        name, args = fake_card.calls[-1]
+        assert name == f"bilstm_bwd_{entry}_f32" and args[10:13] == (5, 4,
+                                                                     200)
     gru_cuda.bigru_fwd_cuda(*_bigru_args(32, 5, 139, torch.float32))
     last = gru_cuda.bigru_fwd_cuda.last_launch
     assert last["kernel"] == "cluster" and 139 % last["cluster"]
+
+
+# ---------------------------------------------------------------------------
+# The register cluster kernels (bilstm_fwd_reg_kernel, bilstm_bwd_reg_kernel):
+# the route above the wide kernels, their plan rule and layout mirror, the
+# planner on the card's counts, and every entry's launch and record
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind,first", [("fwd", 119), ("bwd", 117)])
+def test_reg_route_above_the_wide_kernels(kind, first):
+    """The forward's widths 119..256 and the BPTT's 117..256 take the
+    register cluster kernel; the unit and wide kernels keep theirs below;
+    no kernel takes 257."""
+    route = (lstm_fwd_kernel_route if kind == "fwd"
+             else lstm_bwd_kernel_route)
+    assert [route(h) for h in range(first, 257)] == ["reg"] * (257 - first)
+    assert {route(h) for h in range(1, 65)} == {"unit"}
+    assert {route(h) for h in range(65, first)} == {"wide"}
+    with pytest.raises(ValueError, match="H=257"):
+        route(257)
+
+
+def _reg_source(kind, hidden, c, rows, every_block=True, cells=True):
+    """The sources' ``valid_reg_plan`` and ``bilstm_<kind>_reg_layout``
+    (forward tiles of 1, 2 or 4 rows, the BPTT's also 8), written out
+    again: (bytes, threads, units) or -1s (``every_block``:
+    each block owns a unit; ``cells``: a BPTT thread loads at most 4 of
+    the 7 inputs of a cell a step)."""
+    if not (0 < hidden <= 256 and 1 <= c <= 16 and rows in (1, 2, 4, 8)
+            and (kind == "bwd" or rows < 8)):
+        return (-1, -1, -1)
+    u = 1
+    while u < -(-hidden // c):
+        u *= 2
+    if kind == "fwd":
+        lanes = 8 if hidden <= 128 else 16
+        U = max(u, 32 // lanes)
+        threads = U * lanes
+        tk = (max(c * U, 16 * lanes) + 3) // 4 * 4
+        floats = 2 * rows * tk + 26 * rows * (U + 1)
+    else:
+        U = max(u, 8)
+        threads = ((hidden + 1) // 2 * (U // 8) + 31) // 32 * 32
+        rq = min(rows, 4)
+        floats = ((rows // rq) * (U // 8) * (32 * rq + 4)
+                  + 2 * c * U * rows + 26 * rows * (U + 1))
+    if ((c - 1) * U >= hidden and every_block) or threads > 256 or (
+            cells and kind == "bwd" and 7 * U * rows > 4 * threads) \
+            or floats * 4 > 232448:
+        return (-1, -1, -1)
+    return (floats * 4, threads, U)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+def test_reg_mirror_check_against_source_layout(kind):
+    """``check_reg_mirror`` accepts the sources' layout query written out,
+    and names the first plan of a source whose rule differs: the other
+    kind's layout, a source that lets a block own no unit, and (the BPTT)
+    one that lets a thread load more of a step's inputs."""
+    layout = lambda w, h, c, r: _reg_source(kind, h, c, r)[w]  # noqa: E731
+    rnn_cuda.check_reg_mirror(layout, kind)
+    other = "bwd" if kind == "fwd" else "fwd"
+    with pytest.raises(RuntimeError, match="H=1, plan 1x1"):
+        rnn_cuda.check_reg_mirror(
+            lambda w, h, c, r: _reg_source(other, h, c, r)[w], kind)
+    with pytest.raises(RuntimeError, match="H=1, plan 2x1"):
+        rnn_cuda.check_reg_mirror(
+            lambda w, h, c, r: _reg_source(kind, h, c, r, False)[w], kind)
+    if kind == "bwd":
+        with pytest.raises(RuntimeError, match="H=1, plan 1x4"):
+            rnn_cuda.check_reg_mirror(
+                lambda w, h, c, r: _reg_source(kind, h, c, r,
+                                               cells=False)[w], kind)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+def test_reg_plans_from_card_counts(kind):
+    """Blocks have at most 256 threads, so above H=128 the slices are 16
+    units and the cluster 9 to 16 blocks (units a block are a power of
+    two: one C = ceil(H / U) for each U). At the timing shape (32, 256,
+    two directions) the BPTT's 8 clusters of 16 blocks of 8 rows make one
+    wave where the card holds 8 such clusters, two where it holds 7, and
+    still beat 16 clusters of 4 rows; the forward takes tiles of 4 rows at
+    most. The reference lstm request (1, 128) takes one row and the
+    cluster whose blocks have 128 threads."""
+    plan = rnn_cuda.lstm_reg_plan
+    rows = 8 if kind == "bwd" else 4
+    assert plan(kind, 32, 256, _reg_clusters) == (16, rows)
+    assert plan(kind, 32, 256, lambda c, r: 8) == (16, rows)
+    assert plan(kind, 1, 128, _reg_clusters) == (8, 1)
+    assert {c for c, _ in rnn_cuda.lstm_reg_plans(
+        kind, 5, 130, _reg_clusters)} == {9}
+    assert {c for c, _ in rnn_cuda.lstm_reg_plans(
+        kind, 5, 128, _reg_clusters)} == {4, 8, 16}
+    assert rnn_cuda.reg_units(kind, 256, 16) == 16
+    assert rnn_cuda.reg_threads(kind, 256, 16) == 256
+    assert not rnn_cuda.lstm_reg_plans(kind, 32, 256, lambda c, r: 0)
+    with pytest.raises(ValueError, match="no plan"):
+        plan(kind, 32, 256, lambda c, r: 0)
+
+
+_REG_ENTRIES = {
+    "bilstm_fwd": (6, False), "bilstm_fwd_train": (10, False),
+    "lstm_fwd": (3, True), "lstm_fwd_train": (5, True),
+    "bilstm_bwd": (10, False), "lstm_bwd": (5, True)}
+
+
+def _reg_call(name, B, N, H, dtype, plan=None):
+    """Call the wrapper ``name`` at (B, N, H) on zeros of ``dtype``."""
+    z = torch.zeros
+    fn = getattr(rnn_cuda, f"{name}_cuda")
+    kw = {} if plan is None else {"plan": plan}
+    if name.startswith("bilstm_fwd"):
+        xg = z(B, N, 4 * H, dtype=dtype)
+        fn(xg, xg.clone(), z(H, 4 * H), z(H, 4 * H), **kw)
+    elif name.startswith("lstm_fwd"):
+        fn(z(B, N, 4 * H, dtype=dtype), z(H, 4 * H), True, **kw)
+    elif name == "bilstm_bwd":
+        fn(*_lstm_bwd_args(B, N, H, dtype), **kw)
+    else:
+        fn(*_lstm_bwd_one(B, N, H, dtype), True, **kw)
+    return fn
+
+
+@pytest.mark.parametrize("name", sorted(_REG_ENTRIES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reg_entries_launch_and_record(fake_card, name, dtype):
+    """Each of the six wrappers at H=256 and 130 launches
+    ``<name>_reg_<dtype>`` with its pointers, then B, N, H, C, R (and a
+    one-direction grid's reverse flag), the planner's plan for its
+    direction count, and records it; the count rises by one a launch."""
+    n_ptr, one_dir = _REG_ENTRIES[name]
+    kind = "bwd" if name.endswith("bwd") else "fwd"
+    sfx = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    for B, H in ((32, 256), (5, 130)):
+        dirs = 1 if one_dir else 2
+        want = rnn_cuda.lstm_reg_plan(kind, B, H, _reg_clusters, dirs)
+        fn = getattr(rnn_cuda, f"{name}_cuda")
+        before = fn.launches
+        _reg_call(name, B, 7, H, dtype)
+        assert fn.launches == before + 1
+        called, args = fake_card.calls[-1]
+        assert called == f"{name}_reg_{sfx}"
+        assert len(args) == n_ptr + 5 + int(one_dir)
+        assert args[n_ptr:n_ptr + 5] == (B, 7, H, *want)
+        if one_dir:
+            assert args[-1] == 1
+        assert fn.last_launch == {
+            "kernel": "reg", "cluster": want[0], "rows": want[1],
+            "clusters": dirs * -(-B // want[1]),
+            "resident": _reg_clusters(*want)}
+
+
+@pytest.mark.parametrize("name", sorted(_REG_ENTRIES))
+def test_reg_and_old_cluster_plans_forced_or_refused(fake_card, name):
+    """``plan=("reg", C, R)`` takes any register plan that fits, and
+    ``("cluster", C, R)`` still reaches the first cluster kernel; a plan
+    whose blocks exceed 256 threads, a tile not of (1, 2, 4, 8), a cluster
+    over 16 blocks or one leaving a block without a unit is refused before
+    any launch, as is an old-cluster plan that does not fit."""
+    fn = _reg_call(name, 9, 7, 256, torch.float32, plan=("reg", 16, 2))
+    assert fake_card.calls[-1][0] == f"{name}_reg_f32"
+    assert (fn.last_launch["kernel"], fn.last_launch["cluster"],
+            fn.last_launch["rows"]) == ("reg", 16, 2)
+    assert fn.last_launch["clusters"] == 5 * (2 if name.startswith("bi")
+                                              else 1)
+    _reg_call(name, 9, 7, 256, torch.bfloat16, plan=("cluster", 8, 8))
+    assert fake_card.calls[-1][0] == f"{name}_cluster_bf16"
+    assert fn.last_launch["kernel"] == "cluster"
+    n = len(fake_card.calls)
+    for bad in (("reg", 8, 8), ("reg", 16, 3), ("reg", 17, 1),
+                ("reg", 12, 1), ("cluster", 4, 4)):
+        with pytest.raises(ValueError, match="does not fit"):
+            _reg_call(name, 9, 7, 256, torch.float32, plan=bad)
+    assert len(fake_card.calls) == n
