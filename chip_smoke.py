@@ -10,7 +10,8 @@ Phases, one line each or more (a failed check raises; nothing is caught):
 2. build: every kernel source in ``room_slam_torch/csrc``, one ``nvcc`` each,
    all started together (registers and spills from ``-Xptxas -v``); the
    BiGRU tensor-core kernels, the fused kind (#9), the GRU and LSTM BPTT
-   unit kernels and the LSTM register cluster kernels by name, the
+   unit kernels, the LSTM register cluster kernels and the stream
+   kernels by name, the
    tensor-core kernels, #9's bf16 kind and the LSTM BPTT unit kernels
    asserted free of spills; the native trace parser
    (``room_slam_torch/native/trace_parser.cc``, g++) into ``build/native``;
@@ -169,8 +170,9 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     H;
 33. the new routes' timing: the LSTM kernels at ``LSTM_REG_TIME``
     ((32, 500, 256) f32 and bf16, the reference lstm request's (1, 3000,
-    128) f32), the register cluster kernel beside the first cluster kernel
-    forced at its planner's pick in the same call; the GRU masked slices
+    128) f32), the register cluster kernel (at the first shape beside the
+    first cluster kernel forced at its planner's pick in the same call);
+    the GRU masked slices
     at ``WIDE_TIME`` with H=255, f32: kernel, plain version, bound and
     cuDNN ``nn.LSTM`` / ``nn.GRU`` (fp16 for the bf16 rows), µs a step;
 34. their main paths, counted: the flagship ``lstm`` at d_model 512
@@ -229,7 +231,28 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     (values and gradients, then CUDA-event times and peak memory); (f)
     ``tools.parity.score_checkpoint`` on 16 ``make_rooms`` traces for the
     (d) transformer and a port checkpoint, card vs CPU. No kernel launches
-    on the transformer's paths (asserted).
+    on the transformer's paths (asserted);
+40. (a) the ``bigru`` model at the CLI's defaults (``--model bigru``:
+    d_model 128, H=64, float32, B=20, N=3000) on the unit kernels, #5 / #5t
+    with a grid of two directions and #6 in one launch of two: their
+    timing at ``BIGRU_TIME`` beside the first cluster design forced at its
+    planner's pick, the plain versions, the bound and cuDNN's
+    bidirectional ``nn.GRU`` (#6 bit-equal run to run); the tensor-core
+    kernels against the unit kernels in bf16 at ``BIGRU_BF16``, in turns;
+    one train step and one served request card vs CPU, each launch on the
+    unit kernels (asserted), then the step p50 and the request p50 on the
+    unit kernels and with the first cluster design forced; (b) the stream
+    kernels (W_hh read from global memory every step, clusters of up to 16
+    blocks: every width above the cluster kernels') at ``STREAM_WIDTHS`` x
+    ``STREAM_BATCHES``, f32 and bf16, two directions and one, the twelve
+    LSTM and GRU wrappers against their plain versions (the GRU's stream
+    plan forced where a cluster plan takes H), the BPTT bit-equal run to
+    run, and their timing at ``STREAM_TIME`` beside the bound and cuDNN;
+    (c) their main paths: the lstm at d_model ``STREAM_LSTM_D`` (H=512), a
+    forward against the plain recurrence and one train step card vs CPU at
+    ``STREAM_STEP``'s B and N (cut from the config's 20 and 1500), the
+    ops-level ``lstm_recurrence`` / ``gru_recurrence(use_kernel=True)`` and
+    a bigru at d_model ``STREAM_LSTM_D``, one forward and one train step.
 
 Phases 10 (and 37's step), 16, 34 and 39's steps pin
 ``train.matmul_precision`` to float32: they compare two float32
@@ -329,10 +352,11 @@ SCALEUP_SETS = ("model.model_type=bigru", "model.d_model=512",
 GRU_SHAPES = ((SCALEUP, torch.bfloat16), ((16, 5000, 256), torch.float32),
               ((5, 43, 16), torch.float32), ((5, 43, 16), torch.bfloat16))
 # the tensor-core kernels' edges (bf16, both directions): a batch off the
-# 16-row tiles, a narrow H the rule takes (8-unit warps at C = 4 and 8) and
-# the served request's batch of one row
+# 16-row tiles, a narrow H the route takes (8-unit warps at C = 4 and 8;
+# not H=64, which the route sends to the unit kernels) and the served
+# request's batch of one row
 TC_EDGE_SHAPES = (((17, 300, 256), torch.bfloat16),
-                  ((5, 43, 64), torch.bfloat16),
+                  ((5, 43, 128), torch.bfloat16),
                   ((1, 500, 256), torch.bfloat16))
 BF16_RTOL, BF16_ATOL = 0.05, 0.03   # bf16 streams: values (the JAX suite's)
 BF16_GRAD_REL = 0.1                 # bf16 streams: gradients, max-rel
@@ -372,6 +396,25 @@ MASKED_WIDTHS = (139, 201, 255)   # and the first even H no dividing plan fits
 WIDE_TIME = (32, 500, 256)        # the new routes' timing (GRU: H=255)
 WIDE_LSTM_D = 512                 # the wide lstm model's d_model (H=256)
 WIDE_GRU = (8, 300, 139)          # the masked BiGRU / GRU paths
+# phase 40: the bigru model's defaults on the unit kernels (#5 / #5t / #6
+# timed at BIGRU_TIME f32 beside the first cluster design, the bf16 tc
+# kernels against the unit kernels at BIGRU_BF16; the CLI's default step
+# and request on BIGRU_ROOMS seeded rooms), and the stream kernels above
+# the cluster kernels' widths (checked at STREAM_WIDTHS x STREAM_BATCHES,
+# N=STREAM_N; timed at STREAM_TIME; the lstm and bigru at d_model
+# STREAM_LSTM_D, one step card vs CPU at STREAM_STEP's B, N, cut from 20,
+# 1500 for the CPU's step)
+BIGRU_TIME = ((20, 1500, 64), (1, 1500, 64))
+BIGRU_BF16 = (20, 1500, 64)
+BIGRU_ROOMS = 8
+BIGRU_STEPS, BIGRU_WARMUP = 20, 3
+BIGRU_REQUESTS = 20
+STREAM_WIDTHS = (257, 320, 512)
+STREAM_BATCHES = (1, 5, 32)
+STREAM_N = 20
+STREAM_TIME = ((32, 500, 320), (32, 500, 512))
+STREAM_LSTM_D = 1024
+STREAM_STEP = (8, 300)
 FUSED_SHAPES = (((3, 53, 16, 24), torch.float32),
                 ((2, 40, 16, 16), torch.bfloat16),
                 ((16, 1000, 256, 512), torch.bfloat16),
@@ -428,17 +471,22 @@ def log(phase: str, msg: str) -> None:
 
 # mangled-name parts of the kernels that phase 2 reports, by library
 USAGE_KERNELS = {
-    "bigru_fwd": {"bigru_fwd_tc": ("bigru_fwd_tc_kernel",)},
+    "bigru_fwd": {"bigru_fwd_tc": ("bigru_fwd_tc_kernel",),
+                  "bigru_fwd_stream": ("bigru_fwd_kernel", "Lb1EE")},
     "bigru_bwd": {"bigru_bwd_tc": ("bigru_bwd_tc_kernel",),
                   "bigru_bwd_fused_bf16": ("bigru_bwd_kernel", "bfloat16Li2E"),
                   "bigru_bwd_fused_f32": ("bigru_bwd_kernel", "IfLi2E"),
                   "gru_bwd_unit_f32": ("gru_bwd_unit_kernel", "IfLi"),
-                  "gru_bwd_unit_bf16": ("gru_bwd_unit_kernel", "bfloat16Li")},
+                  "gru_bwd_unit_bf16": ("gru_bwd_unit_kernel", "bfloat16Li"),
+                  "bigru_bwd_stream": ("bigru_bwd_kernel", "Li3EE")},
     "bilstm_bwd": {
         "bilstm_bwd_unit_f32": ("bilstm_bwd_unit_kernel", "IfLi"),
         "bilstm_bwd_unit_bf16": ("bilstm_bwd_unit_kernel", "bfloat16Li"),
-        "bilstm_bwd_reg": ("bilstm_bwd_reg_kernel",)},
-    "bilstm_fwd": {"bilstm_fwd_reg": ("bilstm_fwd_reg_kernel",)}}
+        "bilstm_bwd_reg": ("bilstm_bwd_reg_kernel",),
+        "bilstm_bwd_stream": ("bilstm_bwd_cluster_kernel", "Lb1EE")},
+    "bilstm_fwd": {"bilstm_fwd_reg": ("bilstm_fwd_reg_kernel",),
+                   "bilstm_fwd_stream": ("bilstm_fwd_cluster_kernel",
+                                         "Lb1EE")}}
 # the kernels that must spill nothing: the tensor-core BiGRU kernels (W_hh
 # fragments and an input ring in registers), #9's bf16 kind (its products
 # on tensor cores) and the LSTM BPTT unit kernels (W_hh and an 8-step input
@@ -2737,14 +2785,15 @@ def _lstm_bwd_case(ins, dtype, seed):
     return (ins[2], ins[3], res[4], res[2], dy_f, res[5], res[3], dy_b)
 
 
-def _lstm_cluster_case(H, B, dtype, dev, seed, kernel, plan_of=None):
-    """The six LSTM kernels at (B, ``CLUSTER_N``, H) in ``dtype`` against
-    their plain versions (f32 max abs err ``KERNEL_ATOL`` on values,
+def _lstm_cluster_case(H, B, dtype, dev, seed, kernel, plan_of=None,
+                       n=CLUSTER_N):
+    """The six LSTM kernels at (B, ``n``, H) in ``dtype`` against their
+    plain versions (f32 max abs err ``KERNEL_ATOL`` on values,
     ``GRAD_REL`` on dg; bf16 rtol / atol and ``BF16_GRAD_REL``), each
     launch's kernel asserted ``kernel``, the BPTT bit-equal on a second
     launch; ``plan_of(kind, save, dirs)`` forces a plan. Returns the
     values' and dg's worst errors and the plans."""
-    xg_f, xg_b, w_f, w_b = kernel_inputs(B, CLUSTER_N, H, dev, seed)
+    xg_f, xg_b, w_f, w_b = kernel_inputs(B, n, H, dev, seed)
     xg_f, xg_b = xg_f.to(dtype), xg_b.to(dtype)
     ins = (xg_f, xg_b, w_f, w_b)
     plans, errs = [], []
@@ -2975,9 +3024,10 @@ def _lstm_cases(B, N, H, dtype, dev, seed):
 
 def time_new_routes(dev, seed):
     """Phase 33: the new routes' timing. The six LSTM kernels on the
-    register cluster route at ``LSTM_REG_TIME``, each beside the first
-    cluster kernel forced at its planner's pick in the same call (ms, µs a
-    step), and at the first shape under the card's first
+    register cluster route at ``LSTM_REG_TIME``, at the first shape each
+    beside the first cluster kernel forced at its planner's pick in the
+    same call (ms, µs a step; PERF.md keeps PR 15's times of the others),
+    and at the first shape under the card's first
     ``REG_SWEEP_PLANS`` register plans; the six GRU kernels on masked slices at ``WIDE_TIME`` with
     H=255, f32; kernel ms (CUDA events), plain ms, the bound, cuDNN's
     ``nn.LSTM`` / ``nn.GRU`` (bidirectional for the two-direction kernels;
@@ -2989,14 +3039,16 @@ def time_new_routes(dev, seed):
         lib_ms = _library_ms(torch.nn.LSTM, B, N, H, dtype, dev, seed)
         for name, fn, plain, a, bnd, kind, save, dirs in _lstm_cases(
                 B, N, H, dtype, dev, seed):
-            old = ("cluster", *rnn_cuda.card_lstm_cluster_plans(
-                kind, B, H, dev, dtype, save, dirs)[0])
-            old_ms = cuda_ms(lambda: fn(*a, plan=old), 3, warmup=1)
-            old_launch = dict(fn.last_launch)
+            extra = {}
+            if name not in rows:   # the first shape: the first design too
+                old = ("cluster", *rnn_cuda.card_lstm_cluster_plans(
+                    kind, B, H, dev, dtype, save, dirs)[0])
+                old_ms = cuda_ms(lambda: fn(*a, plan=old), 3, warmup=1)
+                extra = {"old_cluster_ms": old_ms,
+                         "old_cluster_us_per_step": old_ms / N * 1e3,
+                         "old_cluster_launch": dict(fn.last_launch)}
             row = _time_row(name, fn, plain, a, bnd, lib_ms[name], dtype,
-                            (B, N, H), old_cluster_ms=old_ms,
-                            old_cluster_us_per_step=old_ms / N * 1e3,
-                            old_cluster_launch=old_launch)
+                            (B, N, H), **extra)
             assert row["launch"]["kernel"] == "reg", (name, row["launch"])
             if name not in rows:   # the first shape: the plans swept
                 row["plans"] = plan_sweep(
@@ -3013,8 +3065,9 @@ def time_new_routes(dev, seed):
                 + {"fwd": "forward without grad", "fwd_train":
                    "forward with grad on", "bwd": "forward + backward "
                    "minus forward"}[name.split("_", 1)[1]]
-                + ", includes the input projection; old_cluster_ms: the "
-                "first cluster kernel forced at its planner's pick)")
+                + ", includes the input projection; old_cluster_ms (the "
+                "first shape): the first cluster kernel forced at its "
+                "planner's pick)")
     B, N, H = WIDE_TIME[0], WIDE_TIME[1], WIDE_TIME[2] - 1
     f32 = torch.float32
     lib_ms = _library_ms(torch.nn.GRU, B, N, H, f32, dev, seed)
@@ -3225,6 +3278,545 @@ def wide_paths(dev, seed, smi):
     log("wide_bigru", f"bigru d_model={2 * Hg} (H={Hg}) f32: forward "
         f"B={Bg} N={Ng} vs the plain recurrence max abs diff {gerr:.3e} "
         f"(tol {MODEL_TOL:.0e}); one train step, total_loss "
+        f"{float(losses['total_loss']):.4f}; launches {launched} (bigru_bwd "
+        f"{plan_text(gru_cuda.bigru_bwd_cuda)})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 40: the bigru model's default path on the unit kernels (#5 / #5t /
+# #6 with two directions at H=64, float32), and the stream kernels at every
+# width above the cluster kernels'
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def old_bigru_route():
+    """Two-direction BiGRU launches routed as before: the cluster kernel
+    (the first design) where the unit kernels now take float32 at H <= 64;
+    one-direction launches and other widths unchanged."""
+    routes = {name: getattr(gru_cuda, name) for name in
+              ("gru_fwd_kernel_route", "gru_bwd_kernel_route")}
+
+    def old(route):
+        def pick(hidden, dirs, dtype=torch.float32):
+            got = route(hidden, dirs, dtype)
+            return "cluster" if dirs == 2 and got == "unit" else got
+        return pick
+
+    with mock.patch.multiple(gru_cuda, **{k: old(v)
+                                          for k, v in routes.items()}):
+        yield
+
+
+def bigru_default_config():
+    """``python -m room_slam_torch.train --model bigru`` without a config:
+    the default ExperimentConfig (d_model 128: H=64, float32 streams,
+    B=20, max_trace_len 3000) with the bigru encoder."""
+    return ExperimentConfig().apply_overrides(["model.model_type=bigru"])
+
+
+def step_p50(cfg, train_dir, dev, seed, n_steps, n_warmup):
+    """p50 host ms of the trainer's step (ending in a synchronise) over
+    ``n_steps`` after ``n_warmup``, and the launches of one step."""
+    ds = TraceColliderArrays(train_dir, cfg.data, augment=True,
+                             verbose=False)
+    data = {k: torch.from_numpy(v).to(dev)
+            for k, v in ds.device_arrays().items()}
+    B = cfg.train.batch_size
+    plan = ds.epoch_plan(B, seed=seed)
+    nb = plan["base_idx"].shape[0]
+    model = build_model(cfg.model, generator=torch.Generator()
+                        .manual_seed(seed)).to(dev)
+    opt = loop.make_optimizer(model, cfg)
+    step = loop.make_train_step(model, opt, cfg, augment=True)
+    gen = torch.Generator(dev).manual_seed(seed)
+    ms = []
+    for i in range(n_steps + n_warmup):
+        batch = loop.gather_batch(data, plan, i % nb)
+        reset_counts()
+        t0 = time.perf_counter()
+        losses = step(batch, gen)
+        torch.cuda.synchronize()
+        if i >= n_warmup:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        assert np.isfinite(float(losses["total_loss"]))
+    return float(np.percentile(ms, 50)), counts()
+
+
+def request_p50(predict, trace_file, n, warmup):
+    """p50 host ms of one served request (JSON load to collider dicts)
+    over ``n`` after ``warmup``, and the launches of one request."""
+    for _ in range(warmup):
+        predict(formats.load_trace_json(trace_file))
+    ms = []
+    for _ in range(n):
+        reset_counts()
+        t0 = time.perf_counter()
+        predict(formats.load_trace_json(trace_file))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(ms, 50)), counts()
+
+
+BIGRU_WRAPPERS = (("bigru_fwd", gru_cuda.bigru_fwd_plain, "fwd"),
+                  ("bigru_fwd_train", gru_cuda.bigru_fwd_train_plain,
+                   "fwd_train"),
+                  ("bigru_bwd", gru_cuda.bigru_bwd_plain, "bwd"))
+
+
+def time_bigru_unit(dev, seed):
+    """Phase 40 (a), the kernels: #5, #5t and #6 at ``BIGRU_TIME`` f32 on
+    the unit kernels (the route, asserted), each beside the first cluster
+    design forced at its planner's pick in the same call, the plain
+    version, the bound and cuDNN's bidirectional ``nn.GRU``; then at
+    ``BIGRU_BF16`` bf16 the unit kernels (the route there)
+    against the tensor-core kernels forced at their planner's pick, in
+    turns. Returns the
+    f32 rows by wrapper name (a list, ``BIGRU_TIME``'s order) and the bf16
+    comparison."""
+    f32 = torch.float32
+    rows = {}
+    for B, N, H in BIGRU_TIME:
+        lib_ms = _library_ms(torch.nn.GRU, B, N, H, f32, dev, seed)
+        ins = gru_inputs(B, N, H, f32, dev, seed)
+        args = gru_bwd_inputs(ins, seed + 1)
+        for name, plain, kind in BIGRU_WRAPPERS:
+            fn = getattr(*WRAPPERS[name])
+            a = args if kind == "bwd" else ins
+            src = "bwd" if kind == "bwd" else "fwd"
+            old = gru_cuda.card_plans(src, B, H, dev, f32)[0]
+            old_ms = cuda_ms(lambda: fn(*a, plan=old), 3, warmup=1)
+            old_launch = dict(fn.last_launch)
+            row = _time_row(name, fn, plain, a,
+                            gru_bound(kind, B, N, H, f32), lib_ms[name],
+                            f32, (B, N, H), old_cluster_ms=old_ms,
+                            old_cluster_us_per_step=old_ms / N * 1e3,
+                            old_cluster_launch=old_launch)
+            assert row["launch"]["kernel"] == "unit", (name, row["launch"])
+            if kind == "bwd":   # both directions in one launch, bit-equal
+                assert all(torch.equal(x, y) for x, y in
+                           zip(fn(*a), fn(*a))), name
+            rows.setdefault(name, []).append(row)
+            log("kernel_time", f"{name} (unit kernels, two directions) "
+                + json.dumps(row) + "  (library_ms: cuDNN bidirectional "
+                "nn.GRU f32, " + {"fwd": "forward without grad",
+                                  "fwd_train": "forward with grad on",
+                                  "bwd": "forward + backward minus forward"}[
+                                      kind]
+                + ", includes the input projection; old_cluster_ms: the "
+                "first cluster design forced at its planner's pick)")
+    B, N, H = BIGRU_BF16
+    bf16 = torch.bfloat16
+    ins = gru_inputs(B, N, H, bf16, dev, seed)
+    args = gru_bwd_inputs(ins, seed + 1)
+    cmp = {}
+    for name, plain, kind in BIGRU_WRAPPERS:
+        fn = getattr(*WRAPPERS[name])
+        a = args if kind == "bwd" else ins
+        src = "bwd" if kind == "bwd" else "fwd"
+        tc = ("tc", *gru_cuda.card_tc_plans(kind, B, H, dev)[0])
+        ref = plain(*a)
+        got = fn(*a)
+        unit = dict(fn.last_launch)
+        assert unit["kernel"] == "unit", unit
+        if kind == "bwd":
+            assert max(max_rel(x.float(), y.float())
+                       for x, y in zip(got, ref)) <= BF16_GRAD_REL, name
+        else:
+            value_err(got, ref, bf16)
+        turns = [cuda_ms(lambda: fn(*a, plan=p), 5)
+                 for p in (tc, None, None, tc)]
+        cmp[name] = {"tc_ms": [turns[0], turns[3]],
+                     "unit_ms": [turns[1], turns[2]],
+                     "tc_plan": list(tc), "unit_launch": unit,
+                     "tc_us_per_step": min(turns[0], turns[3]) / N * 1e3,
+                     "unit_us_per_step": min(turns[1], turns[2]) / N * 1e3}
+        log("kernel_time", f"{name} B,N,H={BIGRU_BF16} bf16, tc vs unit "
+            f"in turns (tc, unit, unit, tc): " + json.dumps(cmp[name]))
+    return rows, cmp
+
+
+def bigru_default_path(dev, seed, smi):
+    """Phase 40 (a): the ``bigru`` model at the CLI's defaults
+    (``bigru_default_config``), the counts set to 0 just before each part
+    and read just after: one train step card vs CPU (phase 10's rule:
+    assignments, losses rel ``LOSS_RTOL``, updated parameters), one served
+    request card vs CPU (colliders within ``MODEL_TOL``, labels equal),
+    each launch of #5 / #5t / #6 on the unit kernels (asserted); then the
+    step p50 (``BIGRU_STEPS`` after ``BIGRU_WARMUP``) and the request p50
+    (``BIGRU_REQUESTS`` after ``BIGRU_WARMUP``) on the unit kernels and
+    with the first cluster design forced (``old_bigru_route``), in turns
+    new, old. Returns the launches of the step and of the request."""
+    cfg = bigru_default_config()
+    H = cfg.model.d_model // 2
+    f32 = torch.float32
+    assert gru_cuda.gru_fwd_kernel_route(H, 2, f32) == "unit"
+    assert gru_cuda.gru_bwd_kernel_route(H, 2, f32) == "unit"
+    layers = cfg.model.lstm_layers
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rooms = Path(tmp) / "rooms"
+        write_rooms(rooms, BIGRU_ROOMS, seed + 900)
+        reset_counts()
+        step_parity(cfg, rooms, dev, seed, tag="bigru_step")
+        torch.cuda.synchronize()
+        # the card's step: its training forward and BPTT, and the light
+        # forward of the match before it (and of the unmodified init)
+        out["step"] = counts()
+        assert out["step"]["bigru_fwd_train"] == layers, out["step"]
+        assert out["step"]["bigru_bwd"] == layers, out["step"]
+        for name in ("bigru_fwd", "bigru_fwd_train", "bigru_bwd"):
+            last = getattr(*WRAPPERS[name]).last_launch
+            assert last["kernel"] == "unit", (name, last)
+        model = build_model(cfg.model)
+        params = random_params(model, seed)
+        sharpen(params)
+        load_params(model, params)
+        model = model.to(dev).eval()
+        kw = dict(max_trace_len=cfg.data.max_trace_len,
+                  confidence_threshold=0.0, nms_threshold=0.3,
+                  verbose=False)
+        predict = build_predictor(model, device=dev, **kw)
+        cpu_predict = build_predictor(copy.deepcopy(model).cpu(),
+                                      device="cpu", **kw)
+        trace = Path(tmp) / "trace.json"
+        formats.save_trace_json(trace, walk(cfg.data.max_trace_len,
+                                            seed + 901))
+        arr = formats.load_trace_json(trace)
+        predict(arr)
+        reset_counts()
+        got = predict(arr)
+        torch.cuda.synchronize()
+        out["request"] = counts()
+        assert out["request"] == expected_counts(bigru_fwd=layers), \
+            out["request"]
+        assert gru_cuda.bigru_fwd_cuda.last_launch["kernel"] == "unit"
+        err, moved = matched_diff(got, cpu_predict(arr))
+        assert err <= MODEL_TOL and len(got) > 0, err
+        log("bigru_default", f"one request of {len(arr)} points card vs "
+            f"CPU: {len(got)} colliders, labels equal, max abs diff "
+            f"{err:.3e} (tol {MODEL_TOL:.0e}), {moved} at another rank; "
+            f"launches {out['request']} "
+            f"({plan_text(gru_cuda.bigru_fwd_cuda)})")
+        timing = {}
+        for name, ctx in (("unit", contextlib.nullcontext),
+                          ("old_cluster", old_bigru_route)):
+            with ctx():
+                step_ms, step_launched = step_p50(cfg, rooms, dev, seed,
+                                                  BIGRU_STEPS, BIGRU_WARMUP)
+                kernel = gru_cuda.bigru_bwd_cuda.last_launch["kernel"]
+                req_ms, req_launched = request_p50(predict, trace,
+                                                   BIGRU_REQUESTS,
+                                                   BIGRU_WARMUP)
+            assert kernel == ("unit" if name == "unit" else "cluster")
+            assert gru_cuda.bigru_fwd_cuda.last_launch["kernel"] == kernel
+            timing[name] = {"step_p50_ms": step_ms,
+                            "request_p50_ms": req_ms,
+                            "step_launches": step_launched,
+                            "request_launches": req_launched}
+        log("bigru_default", f"bigru d_model {cfg.model.d_model} (H={H}) "
+            f"f32, B={cfg.train.batch_size}, N={cfg.data.max_trace_len}: "
+            f"step p50 over {BIGRU_STEPS} after {BIGRU_WARMUP} and request "
+            f"p50 over {BIGRU_REQUESTS} after {BIGRU_WARMUP}, unit kernels "
+            f"then the first cluster design forced: " + json.dumps(timing)
+            + f" on {smi}")
+    return out, timing
+
+
+def _gru_stream_case(H, B, N, dtype, dev, seed):
+    """The six GRU wrappers at (B, N, H) in ``dtype`` on the stream kernel
+    (the route, or its card's first plan forced where a cluster plan takes
+    H) against their plain versions (bounds as phase 31), the BPTT
+    bit-equal run to run. Returns the values' and the BPTT's worst errors
+    and the plans."""
+    ins = gru_inputs(B, N, H, dtype, dev, seed)
+    args = gru_bwd_inputs(ins, seed + 1)
+    ref_b = gru_cuda.bigru_bwd_plain(*args)
+    tol = GRAD_REL if dtype == torch.float32 else BF16_GRAD_REL
+    plans, errs, rels = [], [], []
+    for name, fn, a, ref, kind, dirs, save in (
+            ("bigru_fwd", gru_cuda.bigru_fwd_cuda, ins,
+             gru_cuda.bigru_fwd_plain(*ins), "fwd", 2, False),
+            ("bigru_fwd_train", gru_cuda.bigru_fwd_train_cuda, ins,
+             gru_cuda.bigru_fwd_train_plain(*ins), "fwd", 2, True),
+            ("bigru_bwd", gru_cuda.bigru_bwd_cuda, args, ref_b, "bwd", 2,
+             False),
+            ("gru_fwd", gru_cuda.gru_fwd_cuda, (ins[1], ins[4], ins[5], True),
+             (gru_cuda.gru_recurrence(ins[1], ins[4], ins[5], True),), "fwd",
+             1, False),
+            ("gru_fwd_train", gru_cuda.gru_fwd_train_cuda,
+             (ins[0], ins[2], ins[3], False),
+             gru_cuda.gru_fwd_train_plain(ins[0], ins[2], ins[3]), "fwd", 1,
+             True),
+            ("gru_bwd", gru_cuda.gru_bwd_cuda, (args[1], *args[6:], True),
+             ref_b[2:], "bwd", 1, False)):
+        route = (gru_cuda.gru_fwd_kernel_route if kind == "fwd"
+                 else gru_cuda.gru_bwd_kernel_route)(H, dirs, dtype)
+        kw = {} if route == "stream" else {"plan": (
+            "stream", *gru_cuda.card_stream_plans(kind, B, H, dev, dtype,
+                                                  save, dirs)[0])}
+        got = fn(*a, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        assert fn.last_launch["kernel"] == "stream", (name, fn.last_launch)
+        if kind == "bwd":
+            again = fn(*a, **kw)
+            assert all(torch.equal(x, y) for x, y in zip(got, again)), name
+            rels += [max_rel(x.float(), y.float()) for x, y in zip(got, ref)]
+            assert all(torch.isfinite(x).all() for x in got)
+        else:
+            errs.append(value_err(got, ref, dtype))
+        plans.append(f"{name} {plan_text(fn)}" + ("" if route == "stream"
+                                                  else " (forced)"))
+    assert max(rels) <= tol, (H, B, dtype, rels)
+    torch.cuda.synchronize()
+    return max(errs), max(rels), plans
+
+
+def check_stream_route(dev, seed):
+    """Phase 40 (b): the stream kernels at ``STREAM_WIDTHS`` x
+    ``STREAM_BATCHES``, N=``STREAM_N``, float32 and bf16, two directions
+    and one: the LSTM's six wrappers on their route (asserted "stream",
+    ``_lstm_cluster_case``), the GRU's six (``_gru_stream_case``), against
+    the plain versions, the BPTT bit-equal run to run."""
+    worst = {}
+    for H in STREAM_WIDTHS:
+        for B in STREAM_BATCHES:
+            for dtype in (torch.float32, torch.bfloat16):
+                key = str(dtype)[6:]
+                for fam, case in (
+                        ("lstm", lambda: _lstm_cluster_case(
+                            H, B, dtype, dev, seed, "stream", n=STREAM_N)),
+                        ("gru", lambda: _gru_stream_case(
+                            H, B, STREAM_N, dtype, dev, seed))):
+                    err, rel, plans = case()
+                    w = worst.setdefault(f"{fam}_{key}", [0.0, 0.0])
+                    w[0], w[1] = max(w[0], err), max(w[1], rel)
+                    log("stream_check", f"{fam} B,N,H=({B}, {STREAM_N}, {H}"
+                        f") {key}: values max_abs_err={err:.3e}, BPTT "
+                        f"max_rel_err={rel:.3e}, bit-equal run to run; "
+                        + "; ".join(plans))
+    return worst
+
+
+def time_stream_route(dev, seed):
+    """Phase 40 (b), the timing: the twelve wrappers on the stream kernel
+    at ``STREAM_TIME`` f32 (the GRU's forced at its card's first stream
+    plan where a cluster plan takes H): kernel ms (CUDA events), plain ms,
+    the bound, cuDNN's ``nn.LSTM`` / ``nn.GRU`` (bidirectional for the
+    two-direction kernels; never called by the port; input projection
+    included) and µs a step. Returns the rows by wrapper name, a list in
+    ``STREAM_TIME``'s order."""
+    f32 = torch.float32
+    rows = {}
+    for B, N, H in STREAM_TIME:
+        lib = {"lstm": _library_ms(torch.nn.LSTM, B, N, H, f32, dev, seed),
+               "gru": _library_ms(torch.nn.GRU, B, N, H, f32, dev, seed)}
+        cases = [(name, fn, plain, a, bnd, kind, save, dirs, "lstm")
+                 for name, fn, plain, a, bnd, kind, save, dirs
+                 in _lstm_cases(B, N, H, f32, dev, seed)]
+        ins = gru_inputs(B, N, H, f32, dev, seed)
+        args = gru_bwd_inputs(ins, seed + 1)
+        for name, fn, plain, a, kind, dirs, save in (
+                ("bigru_fwd", gru_cuda.bigru_fwd_cuda,
+                 gru_cuda.bigru_fwd_plain, ins, "fwd", 2, False),
+                ("bigru_fwd_train", gru_cuda.bigru_fwd_train_cuda,
+                 gru_cuda.bigru_fwd_train_plain, ins, "fwd_train", 2, True),
+                ("bigru_bwd", gru_cuda.bigru_bwd_cuda,
+                 gru_cuda.bigru_bwd_plain, args, "bwd", 2, False),
+                ("gru_fwd", gru_cuda.gru_fwd_cuda, gru_cuda.gru_recurrence,
+                 (ins[0], ins[2], ins[3]), "fwd", 1, False),
+                ("gru_fwd_train", gru_cuda.gru_fwd_train_cuda,
+                 gru_cuda.gru_fwd_train_plain, (ins[0], ins[2], ins[3]),
+                 "fwd_train", 1, True),
+                ("gru_bwd", gru_cuda.gru_bwd_cuda, gru_cuda.gru_bwd_plain,
+                 (args[0], *args[2:6]), "bwd", 1, False)):
+            src = "bwd" if kind == "bwd" else "fwd"
+            cases.append((name, fn, plain, a,
+                          gru_bound(kind, B, N, H, f32, dirs=dirs), src,
+                          save, dirs, "gru"))
+        for name, fn, plain, a, bnd, kind, save, dirs, fam in cases:
+            route = ((rnn_cuda.lstm_fwd_kernel_route if kind == "fwd"
+                      else rnn_cuda.lstm_bwd_kernel_route)(H)
+                     if fam == "lstm" else
+                     (gru_cuda.gru_fwd_kernel_route if kind == "fwd"
+                      else gru_cuda.gru_bwd_kernel_route)(H, dirs, f32))
+            caller = fn if route == "stream" else _Forced(
+                fn, ("stream", *gru_cuda.card_stream_plans(
+                    kind, B, H, dev, f32, save, dirs)[0]))
+            row = _time_row(name, caller, plain, a, bnd, lib[fam][name],
+                            f32, (B, N, H), route=route)
+            assert row["launch"]["kernel"] == "stream", (name, row)
+            rows.setdefault(name, []).append(row)
+            log("kernel_time", f"{name} (stream kernel"
+                + ("" if route == "stream" else f", forced; route {route}")
+                + ") " + json.dumps(row) + "  (library_ms: cuDNN "
+                + ("bidirectional " if name.startswith("bi") else
+                   "unidirectional ") + f"nn.{fam.upper()} f32, "
+                + {"fwd": "forward without grad", "fwd_train":
+                   "forward with grad on", "bwd": "forward + backward "
+                   "minus forward"}[name.split("_", 1)[1]]
+                + ", includes the input projection)")
+    return rows
+
+
+class _Forced:
+    """The wrapper ``fn`` with the launch plan ``plan`` forced, for
+    ``_time_row``: its calls pass the plan, its ``last_launch`` is
+    ``fn``'s."""
+
+    def __init__(self, fn, plan):
+        self.fn, self.plan = fn, plan
+
+    def __call__(self, *a):
+        return self.fn(*a, plan=self.plan)
+
+    @property
+    def last_launch(self):
+        return self.fn.last_launch
+
+
+def stream_paths(dev, seed, smi):
+    """Phase 40 (c), the stream kernels' main paths, the counts set to 0
+    just before each and read just after: the flagship ``lstm`` at
+    d_model ``STREAM_LSTM_D`` (H=512, f32), a forward at ``STREAM_STEP``'s
+    B and N through the stream kernels against the plain recurrence, then
+    one train step card vs CPU (``step_parity``: assignments, losses rel
+    ``LOSS_RTOL``, updated parameters) at B, N = ``STREAM_STEP`` (cut from
+    the config's 20 and 1500 for the CPU's step); a ``bigru`` at d_model
+    ``STREAM_LSTM_D`` (H=512, f32), one forward against the plain
+    recurrence and one train step; ``lstm_recurrence`` /
+    ``gru_recurrence(use_kernel=True)`` at (B, N, 512) forward and
+    backward. Returns each path's launches."""
+    out = {}
+    B, N = STREAM_STEP
+    cfg = ExperimentConfig.from_json(CONFIG)
+    cfg.model.d_model = STREAM_LSTM_D
+    cfg.model.dropout = 0.0
+    cfg.train.batch_size, cfg.data.max_trace_len = B, N
+    cfg.train.matmul_precision = "float32"    # the kernels are the change
+    H = STREAM_LSTM_D // 2
+    layers = cfg.model.lstm_layers
+    model = build_model(cfg.model)
+    params = random_params(model, seed)
+    sharpen(params)
+    load_params(model, params)
+    model = model.to(dev).eval()
+    raw = np.stack([walk(N, seed + 950 + b) for b in range(B)])
+    feats, mask = featurize(torch.from_numpy(raw).to(dev),
+                            torch.full((B,), N, device=dev))
+    with torch.inference_mode():
+        reset_counts()
+        res = model(feats, mask)
+        torch.cuda.synchronize()
+        out["lstm_forward"] = counts()
+        assert out["lstm_forward"] == expected_counts(bilstm_fwd=layers)
+        assert rnn_cuda.bilstm_fwd_cuda.last_launch["kernel"] == "stream"
+        with mock.patch.object(lstm_mod, "bilstm_recurrence",
+                               rnn_cuda.bilstm_recurrence_plain):
+            ref = model(feats, mask)
+    fwd_err = max((res[k] - ref[k]).abs().max().item() for k in res)
+    assert all(torch.allclose(res[k], ref[k], rtol=MODEL_TOL, atol=MODEL_TOL)
+               for k in res), fwd_err
+    # one step card vs CPU, phase 10's rule (the card's assignment optimal
+    # under the CPU's costs, both steps on the CPU's): at d_model 1024 the
+    # random queries tie more often than at 512
+    with tempfile.TemporaryDirectory() as tmp:
+        write_rooms(Path(tmp), B, seed + 960)
+        reset_counts()
+        step_parity(cfg, Path(tmp), dev, seed, tag="stream_lstm_step")
+        torch.cuda.synchronize()
+        c_k = counts()
+    # the card's step, and its match's light forward (and the unmodified
+    # init's): the CPU's launch nothing
+    assert c_k == expected_counts(bilstm_fwd=c_k["bilstm_fwd"],
+                                  bilstm_fwd_train=layers,
+                                  bilstm_bwd=layers), c_k
+    for name in ("bilstm_fwd_train", "bilstm_bwd"):
+        assert getattr(*WRAPPERS[name]).last_launch["kernel"] == "stream"
+    out["lstm_step"] = c_k
+    log("stream_lstm", f"flagship lstm d_model={STREAM_LSTM_D} (H={H}) f32:"
+        f" forward B={B} N={N} launches {out['lstm_forward']} "
+        f"({plan_text(rnn_cuda.bilstm_fwd_cuda)}), vs the plain recurrence "
+        f"max abs diff {fwd_err:.3e} (tol {MODEL_TOL:.0e}); one step card "
+        f"vs CPU at B={B}, N={N} (cut from the config's 20, 1500) as "
+        f"above; launches {c_k} (bilstm_bwd "
+        f"{plan_text(rnn_cuda.bilstm_bwd_cuda)}) on {smi}")
+
+    # the ops-level one-direction paths
+    for fam in ("lstm", "gru"):
+        if fam == "lstm":
+            xg, _, w, _ = kernel_inputs(B, N, H, dev, seed)
+            extra, fn = (), rnn_ops.lstm_recurrence
+        else:
+            xg, _, w, b, _, _ = gru_inputs(B, N, H, torch.float32, dev, seed)
+            extra, fn = (b,), rnn_ops.gru_recurrence
+        dy = torch.randn(B, N, H, device=dev,
+                         generator=torch.Generator(dev).manual_seed(seed))
+        reset_counts()
+        with torch.no_grad():
+            ys = fn(xg, w, *extra, False, use_kernel=True)
+        x = [t.clone().requires_grad_(True) for t in (xg, w, *extra)]
+        grads = torch.autograd.grad(fn(*x, True, use_kernel=True), x, dy)
+        torch.cuda.synchronize()
+        launched = counts()
+        assert launched == expected_counts(**{
+            f"{fam}_fwd": 1, f"{fam}_fwd_train": 1, f"{fam}_bwd": 1}), \
+            launched
+        mod = rnn_cuda if fam == "lstm" else gru_cuda
+        for kind in ("fwd", "fwd_train", "bwd"):
+            last = getattr(mod, f"{fam}_{kind}_cuda").last_launch
+            assert last["kernel"] == "stream", (fam, kind, last)
+        err = value_err((ys,), (fn(xg, w, *extra),), torch.float32)
+        ref_g = torch.autograd.grad(fn(*x, True), x, dy)
+        rel = max(max_rel(a, r) for a, r in zip(grads, ref_g))
+        assert rel <= GRAD_REL, rel
+        out[f"{fam}_ops"] = launched
+        log("stream_ops", f"{fam}_recurrence(use_kernel=True) B,N,H=({B}, "
+            f"{N}, {H}): launches {launched}; values max_abs_err={err:.3e}; "
+            f"gradients max_rel_err={rel:.3e}; BPTT "
+            f"{plan_text(getattr(mod, fam + '_bwd_cuda'))}")
+
+    # a bigru at H=512: one forward and one train step
+    gcfg = ExperimentConfig().apply_overrides(
+        ["model.model_type=bigru", f"model.d_model={STREAM_LSTM_D}",
+         "model.dropout=0.0"])
+    gcfg.train.batch_size, gcfg.data.max_trace_len = B, N
+    gmodel = build_model(gcfg.model).to(dev)
+    reset_counts()
+    with torch.inference_mode():
+        gout = gmodel.eval()(feats, mask)
+    with mock.patch.object(gru_mod, "bigru_recurrence",
+                           gru_cuda.bigru_fwd_plain), torch.inference_mode():
+        gref = gmodel(feats, mask)
+    gerr = max((gout[k] - gref[k]).abs().max().item() for k in gout)
+    assert all(torch.allclose(gout[k], gref[k], rtol=MODEL_TOL,
+                              atol=MODEL_TOL) for k in gout), gerr
+    fwd_launched = counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_rooms(Path(tmp), B, seed + 970)
+        ds = TraceColliderArrays(tmp, gcfg.data, augment=False,
+                                 verbose=False)
+        ghost = ds.gather(np.arange(B) % ds.num_samples)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in ghost.items()}
+    reset_counts()
+    opt = loop.make_optimizer(gmodel, gcfg)
+    losses = loop.make_train_step(gmodel, opt, gcfg, augment=False)(
+        batch, torch.Generator(dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    step_launched = counts()
+    gl = gcfg.model.lstm_layers
+    assert fwd_launched == expected_counts(bigru_fwd=gl), fwd_launched
+    assert step_launched == expected_counts(bigru_fwd_train=gl,
+                                            bigru_bwd=gl), step_launched
+    for name in ("bigru_fwd", "bigru_fwd_train", "bigru_bwd"):
+        last = getattr(*WRAPPERS[name]).last_launch
+        assert last["kernel"] == "stream", (name, last)
+    assert all(np.isfinite(float(v)) for v in losses.values())
+    launched = {k: fwd_launched[k] + step_launched[k] for k in WRAPPERS}
+    out["bigru"] = launched
+    log("stream_bigru", f"bigru d_model={STREAM_LSTM_D} (H={H}) f32: "
+        f"forward B={B} N={N} vs the plain recurrence max abs diff "
+        f"{gerr:.3e} (tol {MODEL_TOL:.0e}); one train step, total_loss "
         f"{float(losses['total_loss']):.4f}; launches {launched} (bigru_bwd "
         f"{plan_text(gru_cuda.bigru_bwd_cuda)})")
     return out
@@ -4440,6 +5032,18 @@ def main() -> int:
                                     args.warmup)
     log("done", f"phase 39 in {time.perf_counter() - t_trans:.1f} s")
 
+    # 40. the bigru model's defaults on the unit kernels (#5 / #5t / #6,
+    # two directions, H=64 f32) and the stream kernels at every width above
+    # the cluster kernels': their checks, timing and main paths
+    t_40 = time.perf_counter()
+    bigru_rows, bigru_bf16 = time_bigru_unit(dev, args.seed)
+    bigru_launched, bigru_timing = bigru_default_path(dev, args.seed, smi)
+    stream_worst = check_stream_route(dev, args.seed)
+    stream_rows = time_stream_route(dev, args.seed)
+    stream_launched = stream_paths(dev, args.seed, smi)
+    log("done", f"phase 40 in {time.perf_counter() - t_40:.1f} s; stream "
+                f"worst errors {json.dumps(stream_worst)}")
+
     def entry(name, source, replaces, launched, row):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launched,
@@ -4549,6 +5153,43 @@ def main() -> int:
                                 rows[0]),
                         **({"old_cluster_ms": rows[0]["old_cluster_ms"]}
                            if lstm else {}),
+                        "shapes": rows})
+    # phase 40: #5 / #5t / #6 on the unit kernels (the bigru default path's
+    # step and request), and the stream kernels with their main paths
+    for name, line, launched in (
+            ("bigru_fwd", "gru_pallas.py:314", bigru_launched["request"]),
+            ("bigru_fwd_train", "gru_pallas.py:454", bigru_launched["step"]),
+            ("bigru_bwd", "gru_pallas.py:357", bigru_launched["step"])):
+        rows = bigru_rows[name]
+        kernels.append({**entry(f"{name}_unit",
+                                f"room_slam_torch/csrc/{name[:9]}.cu",
+                                f"room_slam_tpu/ops/{line}", launched[name],
+                                rows[0]),
+                        "old_cluster_ms": rows[0]["old_cluster_ms"],
+                        "bf16_tc_vs_unit": bigru_bf16[name],
+                        "path_timing": bigru_timing, "shapes": rows})
+    for name, source, line, path in (
+            ("bilstm_fwd", "bilstm_fwd.cu", "rnn_pallas.py:390",
+             "lstm_forward"),
+            ("bilstm_fwd_train", "bilstm_fwd.cu", "rnn_pallas.py:531",
+             "lstm_step"),
+            ("bilstm_bwd", "bilstm_bwd.cu", "rnn_pallas.py:438", "lstm_step"),
+            ("lstm_fwd", "bilstm_fwd.cu", "rnn_pallas.py:105", "lstm_ops"),
+            ("lstm_fwd_train", "bilstm_fwd.cu", "rnn_pallas.py:183",
+             "lstm_ops"),
+            ("lstm_bwd", "bilstm_bwd.cu", "rnn_pallas.py:242", "lstm_ops"),
+            ("bigru_fwd", "bigru_fwd.cu", "gru_pallas.py:314", "bigru"),
+            ("bigru_fwd_train", "bigru_fwd.cu", "gru_pallas.py:454",
+             "bigru"),
+            ("bigru_bwd", "bigru_bwd.cu", "gru_pallas.py:357", "bigru"),
+            ("gru_fwd", "bigru_fwd.cu", "gru_pallas.py:39", "gru_ops"),
+            ("gru_fwd_train", "bigru_fwd.cu", "gru_pallas.py:155", "gru_ops"),
+            ("gru_bwd", "bigru_bwd.cu", "gru_pallas.py:71", "gru_ops")):
+        rows = stream_rows[name]
+        kernels.append({**entry(f"{name}_stream",
+                                f"room_slam_torch/csrc/{source}",
+                                f"room_slam_tpu/ops/{line}",
+                                stream_launched[path][name], rows[-1]),
                         "shapes": rows})
     for k in kernels[:3]:
         k["launches_recipe"] = recipe_launched[k["name"]]

@@ -183,6 +183,26 @@
 // 2.79 us a step (kLinear 18.4), of which the product and gate math about
 // 0.9; the exchange, 3/4 of the R x 3H tile into every block a step, bounds
 // the rest.
+//
+// Both directions of a BiGRU layer at H <= 64 (the `bigru` model at its
+// defaults, #6), float32 or bf16, run the unit kernel with a grid of two
+// directions (bigru_bwd_unit_*: y = 1 the backward-in-time direction), one
+// launch, not kLinear (4.1 us a step at such widths) or, with bf16
+// streams, the tensor-core BPTT (2.4x slower at H=64).
+//
+// Where no kLinear plan fits, the stream kernel (kStream) takes the launch,
+// for #6 and #8 alike: kLinear's chain, each block reading its units' rows
+// of W_hh from global memory every step instead of holding them in shared
+// memory, so that only the dg tile [2][3H][R] (rows padded to whole chunks)
+// sits there; clusters of up to 16 blocks. The wrapper passes W_hh^T [3H,
+// H] (a transposed copy) so that consecutive threads read consecutive
+// units. What bounds it: a block reads 3 H U values through L2 every step,
+// the grid all of W_hh once per batch tile and direction; the loads of the
+// next kStreamK values of j are issued a chunk ahead of their FMAs.
+// Measured on an H100 (phase 40): 80 us a step at (32, 500, 512) f32
+// (cuDNN 54), bound as kLinear by a thread's shared-memory loads of dg (a
+// float4 for four FMAs). The simple right kernel for these widths, not a
+// fast one.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -201,7 +221,16 @@ constexpr int kRowsPerThread = 4;  // batch rows of one thread (a float4)
 static_assert(kRowsPerThread == 4, "rows travel as one float4");
 constexpr int kMaxThreads = 512;
 
-enum Kind : int { kLinear = 0, kSplit = 1, kFused = 2 };
+// kStream: kLinear's chain with W_hh^T read from global memory (through
+// L2) every step instead of held in shared memory (the stream kernel)
+enum Kind : int { kLinear = 0, kSplit = 1, kFused = 2, kStream = 3 };
+// The stream kernel: j values of W_hh^T a thread has in flight ahead of its
+// sums (even: the sums alternate), clusters of up to 16 blocks (a
+// non-portable size above 8), the dynamic shared memory of one block
+constexpr int kStreamK = 8;
+constexpr int kStreamMaxC = 16;
+constexpr int kMaxSmem = 232448;
+static_assert(kStreamK % 2 == 0, "two partial sums a row");
 // kFused: threads of a block (8 warps for the products; the chain uses the
 // plan's U * R / 4 of them)
 constexpr int kFusedMaxThreads = 256;
@@ -269,6 +298,12 @@ __device__ __forceinline__ float round_to(float v) {
 
 __host__ __device__ __forceinline__ size_t pad4(size_t n) {
   return (n + 3) / 4 * 4;
+}
+
+// n rounded up to a multiple of kStreamK: the rows of the stream kernel's
+// exchange tile (the rows past n stay zero, so every chunk is whole)
+__host__ __device__ __forceinline__ int pad_stream(int n) {
+  return (n + kStreamK - 1) / kStreamK * kStreamK;
 }
 
 // Floats of kFused's exchange tile, which doubles as the products' staging
@@ -837,10 +872,13 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
   float* smem = reinterpret_cast<float*>(smem4);
   const int C = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
+  constexpr bool stream = kKind == kStream;
   const int U = (H + C - 1) / C;  // units a block owns (the last: fewer)
   const int G = 3 * H;
+  const int GT = stream ? pad_stream(G) : G;   // rows of a dg buffer
   float* wt_s = smem;                       // [3H][U] W_hh[unit, j]
-  float* dg_s = smem + pad4(static_cast<size_t>(G) * U);   // [2][3H][R]
+  // [2][GT][R]; the stream kernel holds no W_hh slice
+  float* dg_s = stream ? smem : smem + pad4(static_cast<size_t>(G) * U);
   // kFused: the exchange tile is the products' staging region between the
   // chunk's two cluster.sync()s (grown to kFusedStageFloats where smaller),
   // then the chunk's sample indices
@@ -862,13 +900,31 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
 
   // rows rank*U .. rank*U+U-1 of W_hh, transposed (zero past H):
   // consecutive threads read consecutive columns of one row
-  for (int idx = threadIdx.x; idx < U * G; idx += blockDim.x) {
-    const int uu = idx / G;
-    const int j = idx - uu * G;
-    const int row = rank * U + uu;
-    wt_s[j * U + uu] =
-        row < H ? to_f32<T>(w[static_cast<size_t>(row) * G + j]) : 0.0f;
-  }
+  if constexpr (!stream)
+    for (int idx = threadIdx.x; idx < U * G; idx += blockDim.x) {
+      const int uu = idx / G;
+      const int j = idx - uu * G;
+      const int row = rank * U + uu;
+      wt_s[j * U + uu] =
+          row < H ? to_f32<T>(w[static_cast<size_t>(row) * G + j]) : 0.0f;
+    }
+  // the stream kernel: both buffers' rows past 3H stay zero
+  if constexpr (stream)
+    for (int idx = threadIdx.x; idx < 2 * GT * R; idx += blockDim.x)
+      dg_s[idx] = 0.0f;
+
+  // the stream kernel: W_hh[gu, j] (w is W_hh^T [3H, H]) for the next
+  // kStreamK values of j, as loaded (zero past 3H); a step's last chunk
+  // loads the next step's first
+  const T* wu = w + (gu < H ? gu : 0);
+  T wq[kStreamK];
+  auto load_w = [&](int j0) {
+#pragma unroll
+    for (int e = 0; e < kStreamK; ++e)
+      wq[e] = j0 + e < G ? wu[static_cast<size_t>(j0 + e) * H]
+                         : from_f32<T>(0.0f);
+  };
+  if constexpr (stream) load_w(0);
 
   bool valid[kRowsPerThread];
   size_t goff[kRowsPerThread];  // gates / dx of (row, t = 0, unit gu)
@@ -972,7 +1028,7 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
     }
 
     // push this thread's dg = [dx_r, dx_z, dhn] into every block's tile
-    float* slot = dg_s + (s & 1) * G * R;
+    float* slot = dg_s + (s & 1) * GT * R;
     float* mine = slot + gu * R + r0;
     const float4 vr = make_float4(dgr[0], dgr[1], dgr[2], dgr[3]);
     const float4 vz = make_float4(dgz[0], dgz[1], dgz[2], dgz[3]);
@@ -1005,6 +1061,34 @@ bigru_bwd_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
   #pragma unroll
         for (int i = 0; i < kRowsPerThread; ++i)
           dh[i] = ((dhz[i] + acc[0][i]) + acc[1][i]) + acc[2][i];
+      } else if constexpr (stream) {
+        // kLinear's sum, W_hh^T from global memory a chunk ahead
+        float a0[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float a1[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int j0 = 0; j0 < G; j0 += kStreamK) {
+          float wc[kStreamK];
+  #pragma unroll
+          for (int e = 0; e < kStreamK; ++e) wc[e] = to_f32<T>(wq[e]);
+          load_w(j0 + kStreamK < G ? j0 + kStreamK : 0);
+  #pragma unroll
+          for (int e = 0; e < kStreamK; e += 2) {
+            const float4 d0 =
+                *reinterpret_cast<const float4*>(dgb + (j0 + e) * R);
+            const float4 d1 =
+                *reinterpret_cast<const float4*>(dgb + (j0 + e + 1) * R);
+            a0[0] = fmaf(d0.x, wc[e], a0[0]);
+            a0[1] = fmaf(d0.y, wc[e], a0[1]);
+            a0[2] = fmaf(d0.z, wc[e], a0[2]);
+            a0[3] = fmaf(d0.w, wc[e], a0[3]);
+            a1[0] = fmaf(d1.x, wc[e + 1], a1[0]);
+            a1[1] = fmaf(d1.y, wc[e + 1], a1[1]);
+            a1[2] = fmaf(d1.z, wc[e + 1], a1[2]);
+            a1[3] = fmaf(d1.w, wc[e + 1], a1[3]);
+          }
+        }
+  #pragma unroll
+        for (int i = 0; i < kRowsPerThread; ++i)
+          dh[i] = dhz[i] + (a0[i] + a1[i]);
       } else {
         // dh_carry = dh_t * z + dg . W_hh^T[:, unit]; two partial sums a row
         float a0[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -1140,17 +1224,31 @@ __device__ __forceinline__ float reduce_lanes(const float (&v)[R], int lane) {
 // ys and dy; rev != 0 for a direction whose forward walked t = N-1 .. 0.
 template <typename T, int R>
 __global__ void __launch_bounds__(kUnitThreads)
-gru_bwd_unit_kernel(const T* __restrict__ w, const T* __restrict__ gs,
-                    const T* __restrict__ hns, const T* __restrict__ ys,
-                    const T* __restrict__ dys, T* __restrict__ dx,
-                    T* __restrict__ dhn, int B, int N, int H, int rev) {
+gru_bwd_unit_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
+                    const T* __restrict__ gs_f, const T* __restrict__ hn_f,
+                    const T* __restrict__ ys_f, const T* __restrict__ dy_f,
+                    const T* __restrict__ gs_b, const T* __restrict__ hn_b,
+                    const T* __restrict__ ys_b, const T* __restrict__ dy_b,
+                    T* __restrict__ dx_f, T* __restrict__ dhn_f,
+                    T* __restrict__ dx_b, T* __restrict__ dhn_b, int B, int N,
+                    int H, int rev) {
   constexpr int KC = 4 / R;                  // k values in one float4 of dg
   constexpr int kChunks = kKPerLane / KC;    // float4 loads a gate a step
   // the step's rounded dg = [dx_r, dx_z, dhn] as [gate][k][R] floats (j =
   // gate * H + k), double buffered; k >= H stays 0
   __shared__ float4 dg_s[2][3][kMaxUnitH * R / 4];
   const int G = 3 * H;
-  const bool bwd = rev != 0;
+  // a grid of two directions: y = 1 walks the backward-in-time direction's
+  // BPTT; of one: rev says (the direction whose forward walked t = N-1 ..
+  // 0)
+  const bool bwd = (blockIdx.y == 1) != (rev != 0);
+  const T* w = bwd ? w_b : w_f;
+  const T* gs = bwd ? gs_b : gs_f;
+  const T* hns = bwd ? hn_b : hn_f;
+  const T* ys = bwd ? ys_b : ys_f;
+  const T* dys = bwd ? dy_b : dy_f;
+  T* dx = bwd ? dx_b : dx_f;
+  T* dhn = bwd ? dhn_b : dhn_f;
   const int lane = threadIdx.x % kLanes;
   const int u = threadIdx.x / kLanes;  // hidden unit; u >= H pads the warp
   const bool unit_valid = u < H;
@@ -1287,29 +1385,29 @@ const void* unit_kernel(int R) {
   return reinterpret_cast<const void*>(gru_bwd_unit_kernel<T, 4>);
 }
 
+// A grid of `dirs` directions (2: both of a BiGRU layer, y = 1 the
+// backward-in-time one; 1: the direction rev says).
 template <typename T>
-int launch_unit(const void* w, const void* gs, const void* hn, const void* ys,
-                const void* dy, void* dx, void* dhn, int B, int N, int H,
-                int R, int rev, void* stream) {
+int launch_unit(const void* w_f, const void* w_b, const void* gs_f,
+                const void* hn_f, const void* ys_f, const void* dy_f,
+                const void* gs_b, const void* hn_b, const void* ys_b,
+                const void* dy_b, void* dx_f, void* dhn_f, void* dx_b,
+                void* dhn_b, int B, int N, int H, int R, int dirs, int rev,
+                void* stream) {
   if (!valid_unit_plan(B, N, H, R))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((B + R - 1) / R, 1);
+  const dim3 grid((B + R - 1) / R, dirs);
   const int threads = unit_threads(H);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto in = [](const void* p) { return static_cast<const T*>(p); };
   auto out = [](void* p) { return static_cast<T*>(p); };
-  if (R == 1)
-    gru_bwd_unit_kernel<T, 1><<<grid, threads, 0, st>>>(
-        in(w), in(gs), in(hn), in(ys), in(dy), out(dx), out(dhn), B, N, H,
-        rev);
-  else if (R == 2)
-    gru_bwd_unit_kernel<T, 2><<<grid, threads, 0, st>>>(
-        in(w), in(gs), in(hn), in(ys), in(dy), out(dx), out(dhn), B, N, H,
-        rev);
-  else
-    gru_bwd_unit_kernel<T, 4><<<grid, threads, 0, st>>>(
-        in(w), in(gs), in(hn), in(ys), in(dy), out(dx), out(dhn), B, N, H,
-        rev);
+  auto* kernel = R == 1   ? gru_bwd_unit_kernel<T, 1>
+                 : R == 2 ? gru_bwd_unit_kernel<T, 2>
+                          : gru_bwd_unit_kernel<T, 4>;
+  kernel<<<grid, threads, 0, st>>>(
+      in(w_f), in(w_b), in(gs_f), in(hn_f), in(ys_f), in(dy_f), in(gs_b),
+      in(hn_b), in(ys_b), in(dy_b), out(dx_f), out(dhn_f), out(dx_b),
+      out(dhn_b), B, N, H, rev);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1794,6 +1892,8 @@ int tc_max_active_clusters_as(int H, int C) {
 size_t smem_bytes(int kind, int H, int C, int R) {
   const size_t U = static_cast<size_t>((H + C - 1) / C);
   const size_t G = 3 * static_cast<size_t>(H);
+  if (kind == kStream)   // the dg tile alone, its rows padded to chunks
+    return 2 * static_cast<size_t>(pad_stream(3 * H)) * R * sizeof(float);
   size_t floats = pad4(G * U) + 2 * G * R;
   if (kind == kFused)   // the exchange tile doubles as the staging region
     floats = pad4(G * U) + fused_stage_floats(G, R) +
@@ -1804,8 +1904,19 @@ size_t smem_bytes(int kind, int H, int C, int R) {
 // C in 1, 2, 4, 8 with every block owning one unit at least (kLinear and
 // kSplit: a slice of ceil(H / C) units, the last one masked where C does
 // not divide H; kFused: C divides H into multiples of 16 units), R a
-// multiple of kRowsPerThread, within the kind's thread bound
+// multiple of kRowsPerThread, within the kind's thread bound; the stream
+// kernel (kStream) takes C = 1 .. kStreamMaxC and any H whose dg tile fits
+// kMaxSmem (the wrapper's stream_smem_bytes and _stream_rule mirror it,
+// held to bigru_bwd_stream_smem_bytes when the library loads)
 bool valid_plan(int kind, int B, int N, int H, int C, int R) {
+  if (kind == kStream) {
+    if (B <= 0 || N <= 0 || H <= 0 || C < 1 || C > kStreamMaxC || R <= 0 ||
+        R % kRowsPerThread != 0)
+      return false;
+    const int U = (H + C - 1) / C;
+    return (C - 1) * U < H && U * (R / kRowsPerThread) <= kMaxThreads &&
+           smem_bytes(kStream, H, C, R) <= static_cast<size_t>(kMaxSmem);
+  }
   if (B <= 0 || N <= 0 || H <= 0 || (C != 1 && C != 2 && C != 4 && C != 8) ||
       R <= 0 || R % kRowsPerThread != 0)
     return false;
@@ -1824,6 +1935,12 @@ cudaError_t allow_smem(int smem) {
   if (err != cudaSuccess) return err;
   if (device < kMaxDevices && g_smem_allowed<T, kKind>[device].load() >= smem)
     return cudaSuccess;
+  if constexpr (kKind == kStream) {   // clusters above 8 blocks
+    err = cudaFuncSetAttribute(bigru_bwd_kernel<T, kKind>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (err != cudaSuccess) return err;
+  }
   err = cudaFuncSetAttribute(bigru_bwd_kernel<T, kKind>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && device < kMaxDevices)
@@ -1919,6 +2036,7 @@ int max_active_clusters_of(int kind, int H, int C, int R) {
   switch (kind) {
     case kLinear: return max_active_clusters<T, kLinear>(H, C, R);
     case kSplit: return max_active_clusters<T, kSplit>(H, C, R);
+    case kStream: return max_active_clusters<T, kStream>(H, C, R);
     default: return max_active_clusters<T, kFused>(H, C, R);
   }
 }
@@ -1951,6 +2069,10 @@ BIGRU_BWD_ENTRY(bigru_bwd_bf16, __nv_bfloat16, kLinear)
 // the gates unrounded and the carry's product as three H-deep sums.
 BIGRU_BWD_ENTRY(bigru_bwd_split_f32, float, kSplit)
 BIGRU_BWD_ENTRY(bigru_bwd_split_bf16, __nv_bfloat16, kSplit)
+// The stream kernel: as bigru_bwd_*, with w_* as W_hh^T [3H, H], clusters
+// of C = 1 .. 16 blocks and any H whose plan fits.
+BIGRU_BWD_ENTRY(bigru_bwd_stream_f32, float, kStream)
+BIGRU_BWD_ENTRY(bigru_bwd_stream_bf16, __nv_bfloat16, kStream)
 #undef BIGRU_BWD_ENTRY
 
 // The tensor-core BPTT (bf16 streams, both directions): arguments and
@@ -2043,22 +2165,71 @@ int gru_bwd_bf16(const void* w, const void* gs, const void* hn,
       1, reverse, FusedArgs<__nv_bfloat16>{}, stream);
 }
 
-// One direction of a GRU on the unit kernel (H <= 64), batch tiles of R
-// rows (1, 2 or 4): arguments and outputs as gru_bwd_* without the cluster
-// size.
-int gru_bwd_unit_f32(const void* w, const void* gs, const void* hn,
-                     const void* ys, const void* dy, void* dx, void* dhn,
-                     int B, int N, int H, int R, int reverse, void* stream) {
-  return launch_unit<float>(w, gs, hn, ys, dy, dx, dhn, B, N, H, R, reverse,
-                            stream);
+// The stream kernel with a grid of one direction: as gru_bwd_*, with w as
+// W_hh^T [3H, H] and clusters of C = 1 .. 16 blocks.
+int gru_bwd_stream_f32(const void* w, const void* gs, const void* hn,
+                       const void* ys, const void* dy, void* dx, void* dhn,
+                       int B, int N, int H, int C, int R, int reverse,
+                       void* stream) {
+  return launch<float, kStream>(w, w, gs, hn, ys, dy, gs, hn, ys, dy, dx,
+                                dhn, dx, dhn, B, N, H, C, R, 1, reverse,
+                                FusedArgs<float>{}, stream);
 }
 
-int gru_bwd_unit_bf16(const void* w, const void* gs, const void* hn,
-                      const void* ys, const void* dy, void* dx, void* dhn,
-                      int B, int N, int H, int R, int reverse, void* stream) {
-  return launch_unit<__nv_bfloat16>(w, gs, hn, ys, dy, dx, dhn, B, N, H, R,
-                                    reverse, stream);
+int gru_bwd_stream_bf16(const void* w, const void* gs, const void* hn,
+                        const void* ys, const void* dy, void* dx, void* dhn,
+                        int B, int N, int H, int C, int R, int reverse,
+                        void* stream) {
+  return launch<__nv_bfloat16, kStream>(
+      w, w, gs, hn, ys, dy, gs, hn, ys, dy, dx, dhn, dx, dhn, B, N, H, C, R,
+      1, reverse, FusedArgs<__nv_bfloat16>{}, stream);
 }
+
+// How many clusters of the stream kernel (bf16: 0 or 1; `save` is taken for
+// the forward source's signature and ignored) at H, C and R the current
+// device runs at once, and its dynamic shared memory in bytes (-1 for a
+// plan it does not take), for the wrapper's planner and mirror.
+int bigru_bwd_stream_max_active_clusters(int bf16, int save, int H, int C,
+                                         int R) {
+  (void)save;
+  if (!valid_plan(kStream, 1, 1, H, C, R))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return bf16 ? max_active_clusters<__nv_bfloat16, kStream>(H, C, R)
+              : max_active_clusters<float, kStream>(H, C, R);
+}
+
+int bigru_bwd_stream_smem_bytes(int H, int C, int R) {
+  if (!valid_plan(kStream, 1, 1, H, C, R)) return -1;
+  return static_cast<int>(smem_bytes(kStream, H, C, R));
+}
+
+// The unit kernel (H <= 64), batch tiles of R rows (1, 2 or 4): both
+// directions of a BiGRU layer (bigru_bwd_unit_*: arguments and outputs as
+// bigru_bwd_* without the cluster size) or one direction of a GRU
+// (gru_bwd_unit_*: as gru_bwd_*).
+#define GRU_BWD_UNIT_ENTRIES(SFX, TYPE)                                       \
+  int bigru_bwd_unit_##SFX(const void* w_f, const void* w_b,                 \
+                           const void* gs_f, const void* hn_f,               \
+                           const void* ys_f, const void* dy_f,               \
+                           const void* gs_b, const void* hn_b,               \
+                           const void* ys_b, const void* dy_b, void* dx_f,   \
+                           void* dhn_f, void* dx_b, void* dhn_b, int B,      \
+                           int N, int H, int R, void* stream) {              \
+    return launch_unit<TYPE>(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b,   \
+                             ys_b, dy_b, dx_f, dhn_f, dx_b, dhn_b, B, N, H,  \
+                             R, 2, 0, stream);                               \
+  }                                                                          \
+  int gru_bwd_unit_##SFX(const void* w, const void* gs, const void* hn,      \
+                         const void* ys, const void* dy, void* dx,           \
+                         void* dhn, int B, int N, int H, int R, int reverse, \
+                         void* stream) {                                     \
+    return launch_unit<TYPE>(w, w, gs, hn, ys, dy, gs, hn, ys, dy, dx, dhn,  \
+                             dx, dhn, B, N, H, R, 1, reverse, stream);       \
+  }
+
+GRU_BWD_UNIT_ENTRIES(f32, float)
+GRU_BWD_UNIT_ENTRIES(bf16, __nv_bfloat16)
+#undef GRU_BWD_UNIT_ENTRIES
 
 // How many blocks of the unit kernel (bf16: 0 or 1) at hidden size H and
 // tile R one SM of the current device runs at once; a negative cudaError_t

@@ -141,9 +141,32 @@
 // the rest the exchange, whose bytes (3/4 of the R x H tile into every
 // block a step) bound it. The wrapper (ops/gru_cuda.py
 // gru_fwd_kernel_route, bigru_tc_plan) sends bf16 launches of two
-// directions here where tc_plan_fits holds; float32 streams (TF32 would
-// miss the float32 bound), one direction and other shapes keep the
-// cluster kernel.
+// directions above H=64 here where tc_plan_fits holds; float32 streams
+// (TF32 would miss the float32 bound), one direction and other shapes
+// keep the cluster kernel.
+//
+// Both directions of a BiGRU layer at H <= 64 (the `bigru` model at its
+// default d_model 128) run the unit kernel with a grid of two directions
+// (bigru_fwd_unit_*: y = 1 walks backward, as in the cluster kernel): the
+// cluster kernel took 2.66 us a step at such widths, and with bf16 streams
+// the tensor-core kernel lost to the unit kernel 2-2.5x at H=64 (its
+// exchange is most of a short step).
+//
+// Where no plan of the cluster kernel fits (the W_hh slice and the h tile
+// over one block's shared memory at every cluster of 1, 2, 4 or 8 blocks,
+// or a masked slice above H = 256), the stream kernel takes the launch,
+// for #5 / #5t and #7 / #7t alike: the cluster kernel with kStream, whose
+// block reads the r, z and n columns of its U = ceil(H / C) units from
+// global memory every step, so that only the h tile (rows padded to whole
+// chunks) sits in shared memory; clusters of up to 16 blocks. What bounds
+// it: a block reads 3 H U values through L2 every step, the grid all of
+// W_hh once per batch tile and direction (3 MiB at H=512 in f32); the loads
+// of the next kStreamK values of k are issued a chunk ahead of their FMAs,
+// and gru_cuda's planner (rnn_cuda.stream_plans) weighs a block's FMA
+// issue against its and the grid's L2 bytes. Measured on an H100 (phase
+// 40): 29 us a step at (32, 500, 512) f32 (cuDNN 22), latency-bound as the
+// LSTM's (bilstm_fwd.cu). The simple right kernel for these widths, not a
+// fast one.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -216,7 +239,23 @@ __host__ __device__ __forceinline__ size_t pad4(size_t n) {
   return (n + 3) / 4 * 4;
 }
 
-template <typename T, bool kSave>
+// The stream kernel (the cluster kernel with kStream): k values of W_hh a
+// thread has in flight ahead of its sums, clusters of up to 16 blocks (a
+// non-portable size above 8), and the dynamic shared memory of one block
+constexpr int kStreamK = 8;
+constexpr int kStreamMaxC = 16;
+constexpr int kMaxSmem = 232448;
+
+// n rounded up to a multiple of kStreamK: the rows of the stream kernel's
+// exchange tile (the rows past n stay zero, so every chunk is whole)
+__host__ __device__ __forceinline__ int pad_stream(int n) {
+  return (n + kStreamK - 1) / kStreamK * kStreamK;
+}
+
+// The cluster kernel (see the notes at the top). kStream: the stream
+// kernel, which reads its slice of W_hh from global memory (through L2)
+// every step instead of holding it in shared memory.
+template <typename T, bool kSave, bool kStream>
 __global__ void __launch_bounds__(kMaxThreads)
 bigru_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
                  const T* __restrict__ w_f, const float* __restrict__ b_f,
@@ -232,8 +271,10 @@ bigru_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
   const int rank = static_cast<int>(cluster.block_rank());
   const int U = (H + C - 1) / C;  // units a block owns (the last: fewer)
   const int G = 3 * H;
+  const int HT = kStream ? pad_stream(H) : H;   // rows of an h buffer
   float* w_s = smem;                             // [H][3U] W_hh columns
-  float* h_s = smem + pad4(static_cast<size_t>(H) * 3 * U);  // [2][H][R]
+  // [2][HT][R]; the stream kernel holds no W_hh slice
+  float* h_s = kStream ? smem : smem + pad4(static_cast<size_t>(H) * 3 * U);
 
   // a grid of two directions: y = 1 walks backward; of one: rev says
   const bool bwd = (blockIdx.y == 1) != (rev != 0);
@@ -248,16 +289,37 @@ bigru_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
 
   // this block's W_hh columns: c = gate * U + unit, for every k; the
   // columns of units past H are zero
-  for (int idx = threadIdx.x; idx < H * 3 * U; idx += blockDim.x) {
-    const int k = idx / (3 * U);
-    const int c = idx - k * 3 * U;
-    const int gate = c / U;
-    const int unit = rank * U + (c - gate * U);
-    w_s[idx] = unit < H ? to_f32<T>(w[static_cast<size_t>(k) * G +
-                                      gate * H + unit])
-                        : 0.0f;
-  }
-  for (int idx = threadIdx.x; idx < H * R; idx += blockDim.x) h_s[idx] = 0.0f;
+  if constexpr (!kStream)
+    for (int idx = threadIdx.x; idx < H * 3 * U; idx += blockDim.x) {
+      const int k = idx / (3 * U);
+      const int c = idx - k * 3 * U;
+      const int gate = c / U;
+      const int unit = rank * U + (c - gate * U);
+      w_s[idx] = unit < H ? to_f32<T>(w[static_cast<size_t>(k) * G +
+                                        gate * H + unit])
+                          : 0.0f;
+    }
+  // h_{-1} = 0; the stream kernel also zeroes both buffers' rows past H
+  for (int idx = threadIdx.x; idx < (kStream ? 2 * HT : H) * R;
+       idx += blockDim.x)
+    h_s[idx] = 0.0f;
+
+  // the stream kernel: the r, z and n columns of unit gu for the next
+  // kStreamK values of k, as loaded (zero past H); a step's last chunk
+  // loads the next step's first
+  const T* wu = w + (unit_ok ? gu : 0);
+  T wq[kStreamK][3];
+  auto load_w = [&](int k0) {
+#pragma unroll
+    for (int e = 0; e < kStreamK; ++e) {
+      const int k = k0 + e;
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        wq[e][g] = k < H ? wu[static_cast<size_t>(k) * G + g * H]
+                         : from_f32<T>(0.0f);
+    }
+  };
+  if constexpr (kStream) load_w(0);
   const float br = unit_ok ? b[gu] : 0.0f;
   const float bz = unit_ok ? b[H + gu] : 0.0f;
   const float bn = unit_ok ? b[2 * H + gu] : 0.0f;
@@ -302,29 +364,53 @@ bigru_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
       for (int g = 0; g < 3; ++g) x[i][g] = xnext[i][g];
     if (s + 1 < N) load_x(bwd ? t - 1 : t + 1);
 
-    const float* hb = h_s + (s & 1) * H * R + r0;
+    const float* hb = h_s + (s & 1) * HT * R + r0;
     float ar[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
     float az[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
     float an[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if constexpr (kStream) {
+      for (int k0 = 0; k0 < H; k0 += kStreamK) {
+        float wc[kStreamK][3];
+#pragma unroll
+        for (int e = 0; e < kStreamK; ++e)
+#pragma unroll
+          for (int g = 0; g < 3; ++g) wc[e][g] = to_f32<T>(wq[e][g]);
+        load_w(k0 + kStreamK < H ? k0 + kStreamK : 0);
+#pragma unroll
+        for (int e = 0; e < kStreamK; ++e) {
+          const float4 hv =
+              *reinterpret_cast<const float4*>(hb + (k0 + e) * R);
+#pragma unroll
+          for (int i = 0; i < kRowsPerThread; ++i) {
+            const float hi = i == 0 ? hv.x : i == 1 ? hv.y : i == 2 ? hv.z
+                                                                  : hv.w;
+            ar[i] = fmaf(hi, wc[e][0], ar[i]);
+            az[i] = fmaf(hi, wc[e][1], az[i]);
+            an[i] = fmaf(hi, wc[e][2], an[i]);
+          }
+        }
+      }
+    } else {
 #pragma unroll 4
-    for (int k = 0; k < H; ++k) {
-      const float4 hv = *reinterpret_cast<const float4*>(hb + k * R);
-      const float* wk = w_s + k * 3 * U;
-      const float wr = wk[u];
-      const float wz = wk[U + u];
-      const float wn = wk[2 * U + u];
-      ar[0] = fmaf(hv.x, wr, ar[0]);
-      ar[1] = fmaf(hv.y, wr, ar[1]);
-      ar[2] = fmaf(hv.z, wr, ar[2]);
-      ar[3] = fmaf(hv.w, wr, ar[3]);
-      az[0] = fmaf(hv.x, wz, az[0]);
-      az[1] = fmaf(hv.y, wz, az[1]);
-      az[2] = fmaf(hv.z, wz, az[2]);
-      az[3] = fmaf(hv.w, wz, az[3]);
-      an[0] = fmaf(hv.x, wn, an[0]);
-      an[1] = fmaf(hv.y, wn, an[1]);
-      an[2] = fmaf(hv.z, wn, an[2]);
-      an[3] = fmaf(hv.w, wn, an[3]);
+      for (int k = 0; k < H; ++k) {
+        const float4 hv = *reinterpret_cast<const float4*>(hb + k * R);
+        const float* wk = w_s + k * 3 * U;
+        const float wr = wk[u];
+        const float wz = wk[U + u];
+        const float wn = wk[2 * U + u];
+        ar[0] = fmaf(hv.x, wr, ar[0]);
+        ar[1] = fmaf(hv.y, wr, ar[1]);
+        ar[2] = fmaf(hv.z, wr, ar[2]);
+        ar[3] = fmaf(hv.w, wr, ar[3]);
+        az[0] = fmaf(hv.x, wz, az[0]);
+        az[1] = fmaf(hv.y, wz, az[1]);
+        az[2] = fmaf(hv.z, wz, az[2]);
+        az[3] = fmaf(hv.w, wz, az[3]);
+        an[0] = fmaf(hv.x, wn, an[0]);
+        an[1] = fmaf(hv.y, wn, an[1]);
+        an[2] = fmaf(hv.z, wn, an[2]);
+        an[3] = fmaf(hv.w, wn, an[3]);
+      }
     }
 
     float hq[kRowsPerThread];  // h_t rounded to the stream type
@@ -350,7 +436,7 @@ bigru_fwd_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
 
     // push this thread's h_t into the other buffer of every block
     if (unit_ok) {
-      float* slot = h_s + ((s + 1) & 1) * H * R + gu * R + r0;
+      float* slot = h_s + ((s + 1) & 1) * HT * R + gu * R + r0;
       const float4 hv = make_float4(hq[0], hq[1], hq[2], hq[3]);
       for (int q = 0; q < C; ++q)
         *reinterpret_cast<float4*>(cluster.map_shared_rank(slot, q)) = hv;
@@ -1062,22 +1148,60 @@ bool valid_plan(int B, int N, int H, int C, int R) {
   return (C - 1) * U < H && U * (R / kRowsPerThread) <= kMaxThreads;
 }
 
+// The stream kernel's shared memory (the h tile alone, its rows padded to
+// whole chunks of kStreamK) and plan rule: any H, a cluster of 1 to
+// kStreamMaxC blocks each owning a unit at least, R a multiple of
+// kRowsPerThread, at most kMaxThreads threads and kMaxSmem bytes a block
+// (the wrapper's stream_smem_bytes and _stream_rule mirror them, held to
+// bigru_fwd_stream_smem_bytes when the library loads).
+size_t stream_smem_bytes(int H, int R) {
+  return 2 * static_cast<size_t>(pad_stream(H)) * R * sizeof(float);
+}
+
+bool valid_stream_plan(int B, int N, int H, int C, int R) {
+  if (B <= 0 || N <= 0 || H <= 0 || C < 1 || C > kStreamMaxC || R <= 0 ||
+      R % kRowsPerThread != 0)
+    return false;
+  const int U = cluster_units(H, C);
+  return (C - 1) * U < H && U * (R / kRowsPerThread) <= kMaxThreads &&
+         stream_smem_bytes(H, R) <= static_cast<size_t>(kMaxSmem);
+}
+
+template <bool kStream>
+bool valid_plan_of(int B, int N, int H, int C, int R) {
+  return kStream ? valid_stream_plan(B, N, H, C, R)
+                 : valid_plan(B, N, H, C, R);
+}
+
+template <bool kStream>
+size_t smem_of(int H, int C, int R) {
+  return kStream ? stream_smem_bytes(H, R) : smem_bytes(H, C, R);
+}
+
 // Dynamic shared memory each variant is already allowed on each device, so
-// the attribute is set once per device (and again only for a larger size).
-template <typename T, bool kSave>
+// the attribute is set once per device (and again only for a larger size);
+// the stream kernel also takes clusters above 8 blocks.
+template <typename T, bool kSave, bool kStream>
 std::atomic<int> g_smem_allowed[kMaxDevices];
 
-template <typename T, bool kSave>
+template <typename T, bool kSave, bool kStream>
 cudaError_t allow_smem(int smem) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  if (device < kMaxDevices && g_smem_allowed<T, kSave>[device].load() >= smem)
+  if (device < kMaxDevices &&
+      g_smem_allowed<T, kSave, kStream>[device].load() >= smem)
     return cudaSuccess;
-  err = cudaFuncSetAttribute(bigru_fwd_kernel<T, kSave>,
+  if constexpr (kStream) {
+    err = cudaFuncSetAttribute(bigru_fwd_kernel<T, kSave, kStream>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaFuncSetAttribute(bigru_fwd_kernel<T, kSave, kStream>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && device < kMaxDevices)
-    g_smem_allowed<T, kSave>[device].store(smem);
+    g_smem_allowed<T, kSave, kStream>[device].store(smem);
   return err;
 }
 
@@ -1096,21 +1220,22 @@ void make_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int B,
   cfg->numAttrs = 1;
 }
 
-template <typename T, bool kSave>
+template <typename T, bool kSave, bool kStream = false>
 int launch(const void* xg_f, const void* xg_b, const void* w_f,
            const float* b_f, const void* w_b, const float* b_b, void* ys_f,
            void* ys_b, void* gs_f, void* gs_b, void* hn_f, void* hn_b, int B,
            int N, int H, int C, int R, int dirs, int rev, void* stream) {
-  if (!valid_plan(B, N, H, C, R))
+  if (!valid_plan_of<kStream>(B, N, H, C, R))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(H, C, R);
-  cudaError_t err = allow_smem<T, kSave>(static_cast<int>(smem));
+  const size_t smem = smem_of<kStream>(H, C, R);
+  cudaError_t err = allow_smem<T, kSave, kStream>(static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   make_config(&cfg, &attr, B, H, C, R, dirs, smem, stream);
   err = cudaLaunchKernelEx(
-      &cfg, bigru_fwd_kernel<T, kSave>, static_cast<const T*>(xg_f),
+      &cfg, bigru_fwd_kernel<T, kSave, kStream>,
+      static_cast<const T*>(xg_f),
       static_cast<const T*>(xg_b), static_cast<const T*>(w_f), b_f,
       static_cast<const T*>(w_b), b_b, static_cast<T*>(ys_f),
       static_cast<T*>(ys_b), static_cast<T*>(gs_f), static_cast<T*>(gs_b),
@@ -1119,16 +1244,17 @@ int launch(const void* xg_f, const void* xg_b, const void* w_f,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kSave>
+template <typename T, bool kSave, bool kStream = false>
 int max_active_clusters(int H, int C, int R) {
-  const size_t smem = smem_bytes(H, C, R);
-  cudaError_t err = allow_smem<T, kSave>(static_cast<int>(smem));
+  const size_t smem = smem_of<kStream>(H, C, R);
+  cudaError_t err = allow_smem<T, kSave, kStream>(static_cast<int>(smem));
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   make_config(&cfg, &attr, R, H, C, R, 1, smem, nullptr);
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, bigru_fwd_kernel<T, kSave>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(
+      &n, bigru_fwd_kernel<T, kSave, kStream>, &cfg);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
@@ -1154,29 +1280,33 @@ const void* unit_kernel(int R) {
   return reinterpret_cast<const void*>(gru_fwd_unit_kernel<T, kSave, 4>);
 }
 
+// A grid of `dirs` directions (2: both of a BiGRU layer, y = 1 the
+// backward one; 1: the direction rev says).
 template <typename T, bool kSave>
-int launch_unit(const void* xg, const void* w, const float* b, void* ys,
-                void* gs, void* hn, int B, int N, int H, int R, int rev,
+int launch_unit(const void* xg_f, const void* xg_b, const void* w_f,
+                const float* b_f, const void* w_b, const float* b_b,
+                void* ys_f, void* ys_b, void* gs_f, void* gs_b, void* hn_f,
+                void* hn_b, int B, int N, int H, int R, int dirs, int rev,
                 void* stream) {
   if (!valid_unit_plan(B, N, H, R))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((B + R - 1) / R, 1);
+  const dim3 grid((B + R - 1) / R, dirs);
   const int threads = unit_threads(H);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const T* x = static_cast<const T*>(xg);
-  const T* wt = static_cast<const T*>(w);
-  T* y = static_cast<T*>(ys);
-  T* g = static_cast<T*>(gs);
-  T* n = static_cast<T*>(hn);
+  auto in = [](const void* p) { return static_cast<const T*>(p); };
+  auto out = [](void* p) { return static_cast<T*>(p); };
   if (R == 1)
     gru_fwd_unit_kernel<T, kSave, 1><<<grid, threads, 0, st>>>(
-        x, x, wt, b, wt, b, y, y, g, g, n, n, B, N, H, rev);
+        in(xg_f), in(xg_b), in(w_f), b_f, in(w_b), b_b, out(ys_f),
+        out(ys_b), out(gs_f), out(gs_b), out(hn_f), out(hn_b), B, N, H, rev);
   else if (R == 2)
     gru_fwd_unit_kernel<T, kSave, 2><<<grid, threads, 0, st>>>(
-        x, x, wt, b, wt, b, y, y, g, g, n, n, B, N, H, rev);
+        in(xg_f), in(xg_b), in(w_f), b_f, in(w_b), b_b, out(ys_f),
+        out(ys_b), out(gs_f), out(gs_b), out(hn_f), out(hn_b), B, N, H, rev);
   else
     gru_fwd_unit_kernel<T, kSave, 4><<<grid, threads, 0, st>>>(
-        x, x, wt, b, wt, b, y, y, g, g, n, n, B, N, H, rev);
+        in(xg_f), in(xg_b), in(w_f), b_f, in(w_b), b_b, out(ys_f),
+        out(ys_b), out(gs_f), out(gs_b), out(hn_f), out(hn_b), B, N, H, rev);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1323,34 +1453,109 @@ int gru_fwd_train_bf16(const void* xg, const void* w, const float* b,
                                      hn, B, N, H, C, R, 1, reverse, stream);
 }
 
-// One direction of a GRU on the unit kernel (H <= 64), batch tiles of R
-// rows (1, 2 or 4): arguments and outputs as gru_fwd_* and gru_fwd_train_*
-// without the cluster size.
-int gru_fwd_unit_f32(const void* xg, const void* w, const float* b, void* ys,
-                     int B, int N, int H, int R, int reverse, void* stream) {
-  return launch_unit<float, false>(xg, w, b, ys, nullptr, nullptr, B, N, H,
-                                   R, reverse, stream);
+// The unit kernel (H <= 64), batch tiles of R rows (1, 2 or 4): both
+// directions of a BiGRU layer (bigru_fwd_unit_*, bigru_fwd_unit_train_*:
+// arguments and outputs as bigru_fwd_* and bigru_fwd_train_* without the
+// cluster size) or one direction of a GRU (gru_fwd_unit_*,
+// gru_fwd_unit_train_*: as gru_fwd_* and gru_fwd_train_*).
+#define GRU_FWD_UNIT_ENTRIES(SFX, TYPE)                                       \
+  int bigru_fwd_unit_##SFX(const void* xg_f, const void* xg_b,               \
+                           const void* w_f, const float* b_f,                \
+                           const void* w_b, const float* b_b, void* ys_f,    \
+                           void* ys_b, int B, int N, int H, int R,           \
+                           void* stream) {                                   \
+    return launch_unit<TYPE, false>(xg_f, xg_b, w_f, b_f, w_b, b_b, ys_f,    \
+                                    ys_b, nullptr, nullptr, nullptr,         \
+                                    nullptr, B, N, H, R, 2, 0, stream);      \
+  }                                                                          \
+  int bigru_fwd_unit_train_##SFX(                                            \
+      const void* xg_f, const void* xg_b, const void* w_f, const float* b_f, \
+      const void* w_b, const float* b_b, void* ys_f, void* ys_b, void* gs_f, \
+      void* gs_b, void* hn_f, void* hn_b, int B, int N, int H, int R,        \
+      void* stream) {                                                        \
+    return launch_unit<TYPE, true>(xg_f, xg_b, w_f, b_f, w_b, b_b, ys_f,     \
+                                   ys_b, gs_f, gs_b, hn_f, hn_b, B, N, H, R, \
+                                   2, 0, stream);                            \
+  }                                                                          \
+  int gru_fwd_unit_##SFX(const void* xg, const void* w, const float* b,      \
+                         void* ys, int B, int N, int H, int R, int reverse,  \
+                         void* stream) {                                     \
+    return launch_unit<TYPE, false>(xg, xg, w, b, w, b, ys, ys, nullptr,     \
+                                    nullptr, nullptr, nullptr, B, N, H, R,   \
+                                    1, reverse, stream);                     \
+  }                                                                          \
+  int gru_fwd_unit_train_##SFX(const void* xg, const void* w, const float* b, \
+                               void* ys, void* gs, void* hn, int B, int N,   \
+                               int H, int R, int reverse, void* stream) {    \
+    return launch_unit<TYPE, true>(xg, xg, w, b, w, b, ys, ys, gs, gs, hn,   \
+                                   hn, B, N, H, R, 1, reverse, stream);      \
+  }
+
+GRU_FWD_UNIT_ENTRIES(f32, float)
+GRU_FWD_UNIT_ENTRIES(bf16, __nv_bfloat16)
+#undef GRU_FWD_UNIT_ENTRIES
+
+// The stream kernel: arguments and outputs as bigru_fwd_*,
+// bigru_fwd_train_*, gru_fwd_* and gru_fwd_train_*, with clusters of C = 1
+// .. 16 blocks over batch tiles of R rows (a multiple of 4); any H whose
+// plan fits.
+#define GRU_FWD_STREAM_ENTRIES(SFX, TYPE)                                     \
+  int bigru_fwd_stream_##SFX(const void* xg_f, const void* xg_b,             \
+                             const void* w_f, const float* b_f,              \
+                             const void* w_b, const float* b_b, void* ys_f,  \
+                             void* ys_b, int B, int N, int H, int C, int R,  \
+                             void* stream) {                                 \
+    return launch<TYPE, false, true>(xg_f, xg_b, w_f, b_f, w_b, b_b, ys_f,   \
+                                     ys_b, nullptr, nullptr, nullptr,        \
+                                     nullptr, B, N, H, C, R, 2, 0, stream);  \
+  }                                                                          \
+  int bigru_fwd_train_stream_##SFX(                                          \
+      const void* xg_f, const void* xg_b, const void* w_f, const float* b_f, \
+      const void* w_b, const float* b_b, void* ys_f, void* ys_b, void* gs_f, \
+      void* gs_b, void* hn_f, void* hn_b, int B, int N, int H, int C, int R, \
+      void* stream) {                                                        \
+    return launch<TYPE, true, true>(xg_f, xg_b, w_f, b_f, w_b, b_b, ys_f,    \
+                                    ys_b, gs_f, gs_b, hn_f, hn_b, B, N, H,   \
+                                    C, R, 2, 0, stream);                     \
+  }                                                                          \
+  int gru_fwd_stream_##SFX(const void* xg, const void* w, const float* b,    \
+                           void* ys, int B, int N, int H, int C, int R,      \
+                           int reverse, void* stream) {                      \
+    return launch<TYPE, false, true>(xg, xg, w, b, w, b, ys, ys, nullptr,    \
+                                     nullptr, nullptr, nullptr, B, N, H, C,  \
+                                     R, 1, reverse, stream);                 \
+  }                                                                          \
+  int gru_fwd_train_stream_##SFX(const void* xg, const void* w,              \
+                                 const float* b, void* ys, void* gs,         \
+                                 void* hn, int B, int N, int H, int C,       \
+                                 int R, int reverse, void* stream) {         \
+    return launch<TYPE, true, true>(xg, xg, w, b, w, b, ys, ys, gs, gs, hn,  \
+                                    hn, B, N, H, C, R, 1, reverse, stream);  \
+  }
+
+GRU_FWD_STREAM_ENTRIES(f32, float)
+GRU_FWD_STREAM_ENTRIES(bf16, __nv_bfloat16)
+#undef GRU_FWD_STREAM_ENTRIES
+
+// How many clusters of the stream kernel (bf16: 0 or 1, save: 0 or 1) at
+// H, C and R the current device runs at once; a negative cudaError_t code
+// on failure.
+int bigru_fwd_stream_max_active_clusters(int bf16, int save, int H, int C,
+                                         int R) {
+  if (!valid_stream_plan(1, 1, H, C, R))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  if (bf16)
+    return save ? max_active_clusters<__nv_bfloat16, true, true>(H, C, R)
+                : max_active_clusters<__nv_bfloat16, false, true>(H, C, R);
+  return save ? max_active_clusters<float, true, true>(H, C, R)
+              : max_active_clusters<float, false, true>(H, C, R);
 }
 
-int gru_fwd_unit_bf16(const void* xg, const void* w, const float* b,
-                      void* ys, int B, int N, int H, int R, int reverse,
-                      void* stream) {
-  return launch_unit<__nv_bfloat16, false>(xg, w, b, ys, nullptr, nullptr, B,
-                                           N, H, R, reverse, stream);
-}
-
-int gru_fwd_unit_train_f32(const void* xg, const void* w, const float* b,
-                           void* ys, void* gs, void* hn, int B, int N, int H,
-                           int R, int reverse, void* stream) {
-  return launch_unit<float, true>(xg, w, b, ys, gs, hn, B, N, H, R, reverse,
-                                  stream);
-}
-
-int gru_fwd_unit_train_bf16(const void* xg, const void* w, const float* b,
-                            void* ys, void* gs, void* hn, int B, int N,
-                            int H, int R, int reverse, void* stream) {
-  return launch_unit<__nv_bfloat16, true>(xg, w, b, ys, gs, hn, B, N, H, R,
-                                          reverse, stream);
+// The stream kernel's dynamic shared memory in bytes at H, C and R, for the
+// wrapper's mirror; -1 for a plan it does not take.
+int bigru_fwd_stream_smem_bytes(int H, int C, int R) {
+  if (!valid_stream_plan(1, 1, H, C, R)) return -1;
+  return static_cast<int>(stream_smem_bytes(H, R));
 }
 
 // How many blocks of the unit kernel (bf16: 0 or 1, save: 0 or 1) at hidden

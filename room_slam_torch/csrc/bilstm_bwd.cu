@@ -144,6 +144,23 @@
 // 32-deep FMA chain, the shuffles, the exchange and the arrival. The
 // wrapper picks the kernel (rnn_cuda.lstm_bwd_kernel_route, lstm_reg_plan
 // for the cluster and tile) and may force any of the four for an A/B.
+//
+// Above H = 256 the stream kernel takes every H whose dg tile fits a block
+// (to H = 1816), for #2 and #4 alike: the first cluster kernel with
+// kStream, whose block reads its units' rows of W_hh from global memory
+// every step instead of holding them in shared memory, so that only the dg
+// tile [2][4H][R] (rows padded to whole chunks) sits there; clusters of up
+// to 16 blocks. The wrapper passes W_hh^T [4H, H] (a transposed copy, made
+// per launch) so that consecutive threads read consecutive units. What
+// bounds it: a block reads 4 H U values of W_hh through L2 every step, the
+// grid all of W_hh once per batch tile and direction (4 MiB at H=512 in
+// f32); the loads of the next kStreamK values of j are issued a chunk
+// ahead of their FMAs, and rnn_cuda.stream_plans weighs a block's FMA
+// issue against its and the grid's L2 bytes. Measured on an H100 (phase
+// 40): about 105 us a step at (32, 500, 512) f32 (cuDNN 38), with 8 or 16
+// values of j in flight alike: as in the first cluster kernel, a float4 of
+// dg feeds four FMAs, and a thread's 4H shared-memory loads a step bound
+// it. The simple right kernel for these widths, not a fast one.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -510,14 +527,30 @@ bilstm_bwd_wide_kernel(const T* __restrict__ w_f,
 constexpr int kRowsPerThread = 4;
 constexpr int kClusterThreads = 512;   // __launch_bounds__
 constexpr int kMaxClusterH = 256;
+// The stream kernel (the cluster kernel with kStream): j values of W_hh^T a
+// thread has in flight ahead of its sums (even: the sums alternate), and
+// clusters of up to 16 blocks (a non-portable size above 8)
+constexpr int kStreamK = 8;
+constexpr int kStreamMaxC = 16;
+static_assert(kStreamK % 2 == 0, "two partial sums a row");
 
 __host__ __device__ __forceinline__ size_t pad4(size_t n) {
   return (n + 3) / 4 * 4;
 }
 
+// n rounded up to a multiple of kStreamK: the rows of the stream kernel's
+// exchange tile (the rows past n stay zero, so every chunk is whole)
+__host__ __device__ __forceinline__ int pad_stream(int n) {
+  return (n + kStreamK - 1) / kStreamK * kStreamK;
+}
+
 // The cluster kernel (H above the wide kernel's, see the notes at the top):
-// W_hh split by hidden units across a thread-block cluster.
-template <typename T>
+// W_hh split by hidden units across a thread-block cluster. kStream: the
+// stream kernel, which reads its rows of W_hh from global memory (through
+// L2) every step instead of holding them in shared memory, from W_hh^T
+// [4H, H] (the wrapper's transposed copy) so that consecutive threads read
+// consecutive units.
+template <typename T, bool kStream>
 __global__ void __launch_bounds__(kClusterThreads)
 bilstm_bwd_cluster_kernel(const T* __restrict__ w_f,
                           const T* __restrict__ w_b,
@@ -536,8 +569,10 @@ bilstm_bwd_cluster_kernel(const T* __restrict__ w_f,
   const int rank = static_cast<int>(cluster.block_rank());
   const int U = (H + C - 1) / C;   // units a block owns (the last: fewer)
   const int G = 4 * H;
+  const int GT = kStream ? pad_stream(G) : G;   // rows of a dg buffer
   float* wt_s = smem;                                     // [4H][U]
-  float* dg_s = smem + pad4(static_cast<size_t>(G) * U);  // [2][4H][R]
+  // [2][GT][R]; the stream kernel holds no W_hh slice
+  float* dg_s = kStream ? smem : smem + pad4(static_cast<size_t>(G) * U);
 
   // a grid of two directions: y = 1 walks backward; of one: rev says
   const bool bwd = (blockIdx.y == 1) != (rev != 0);
@@ -550,13 +585,31 @@ bilstm_bwd_cluster_kernel(const T* __restrict__ w_f,
 
   // rows rank*U .. rank*U+U-1 of W_hh, transposed (zero past H):
   // consecutive threads read consecutive columns of one row
-  for (int idx = threadIdx.x; idx < U * G; idx += blockDim.x) {
-    const int uu = idx / G;
-    const int j = idx - uu * G;
-    const int unit = rank * U + uu;
-    wt_s[j * U + uu] =
-        unit < H ? to_f32<T>(w[static_cast<size_t>(unit) * G + j]) : 0.0f;
-  }
+  if constexpr (!kStream)
+    for (int idx = threadIdx.x; idx < U * G; idx += blockDim.x) {
+      const int uu = idx / G;
+      const int j = idx - uu * G;
+      const int unit = rank * U + uu;
+      wt_s[j * U + uu] =
+          unit < H ? to_f32<T>(w[static_cast<size_t>(unit) * G + j]) : 0.0f;
+    }
+  // the stream kernel: both buffers' rows past 4H stay zero
+  if constexpr (kStream)
+    for (int idx = threadIdx.x; idx < 2 * GT * R; idx += blockDim.x)
+      dg_s[idx] = 0.0f;
+
+  // the stream kernel: W_hh[gu, j] (w is W_hh^T) for the next kStreamK
+  // values of j, as loaded (zero past 4H); a step's last chunk loads the
+  // next step's first
+  const T* wu = w + (unit_ok ? gu : 0);
+  T wn[kStreamK];
+  auto load_w = [&](int j0) {
+#pragma unroll
+    for (int e = 0; e < kStreamK; ++e)
+      wn[e] = j0 + e < G ? wu[static_cast<size_t>(j0 + e) * H]
+                         : from_f32<T>(0.0f);
+  };
+  if constexpr (kStream) load_w(0);
 
   bool valid[kRowsPerThread];
   size_t goff[kRowsPerThread];  // gates / dg of (row, t = 0, unit gu)
@@ -642,7 +695,7 @@ bilstm_bwd_cluster_kernel(const T* __restrict__ w_f,
     }
 
     // push this thread's dg into every block's tile
-    float* slot = dg_s + (s & 1) * G * R;
+    float* slot = dg_s + (s & 1) * GT * R;
     if (unit_ok) {
       float* mine = slot + gu * R + r0;
       for (int q = 0; q < C; ++q) {
@@ -659,20 +712,45 @@ bilstm_bwd_cluster_kernel(const T* __restrict__ w_f,
     const float* dgb = slot + r0;
     float a0[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
     float a1[kRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if constexpr (kStream) {
+      for (int j0 = 0; j0 < G; j0 += kStreamK) {
+        float wc[kStreamK];
+#pragma unroll
+        for (int e = 0; e < kStreamK; ++e) wc[e] = to_f32<T>(wn[e]);
+        load_w(j0 + kStreamK < G ? j0 + kStreamK : 0);
+#pragma unroll
+        for (int e = 0; e < kStreamK; e += 2) {
+          const float4 d0 =
+              *reinterpret_cast<const float4*>(dgb + (j0 + e) * R);
+          const float4 d1 =
+              *reinterpret_cast<const float4*>(dgb + (j0 + e + 1) * R);
+          a0[0] = fmaf(d0.x, wc[e], a0[0]);
+          a0[1] = fmaf(d0.y, wc[e], a0[1]);
+          a0[2] = fmaf(d0.z, wc[e], a0[2]);
+          a0[3] = fmaf(d0.w, wc[e], a0[3]);
+          a1[0] = fmaf(d1.x, wc[e + 1], a1[0]);
+          a1[1] = fmaf(d1.y, wc[e + 1], a1[1]);
+          a1[2] = fmaf(d1.z, wc[e + 1], a1[2]);
+          a1[3] = fmaf(d1.w, wc[e + 1], a1[3]);
+        }
+      }
+    } else {
 #pragma unroll 4
-    for (int j = 0; j < G; j += 2) {
-      const float4 d0 = *reinterpret_cast<const float4*>(dgb + j * R);
-      const float4 d1 = *reinterpret_cast<const float4*>(dgb + (j + 1) * R);
-      const float w0 = wt_s[j * U + u];
-      const float w1 = wt_s[(j + 1) * U + u];
-      a0[0] = fmaf(d0.x, w0, a0[0]);
-      a0[1] = fmaf(d0.y, w0, a0[1]);
-      a0[2] = fmaf(d0.z, w0, a0[2]);
-      a0[3] = fmaf(d0.w, w0, a0[3]);
-      a1[0] = fmaf(d1.x, w1, a1[0]);
-      a1[1] = fmaf(d1.y, w1, a1[1]);
-      a1[2] = fmaf(d1.z, w1, a1[2]);
-      a1[3] = fmaf(d1.w, w1, a1[3]);
+      for (int j = 0; j < G; j += 2) {
+        const float4 d0 = *reinterpret_cast<const float4*>(dgb + j * R);
+        const float4 d1 =
+            *reinterpret_cast<const float4*>(dgb + (j + 1) * R);
+        const float w0 = wt_s[j * U + u];
+        const float w1 = wt_s[(j + 1) * U + u];
+        a0[0] = fmaf(d0.x, w0, a0[0]);
+        a0[1] = fmaf(d0.y, w0, a0[1]);
+        a0[2] = fmaf(d0.z, w0, a0[2]);
+        a0[3] = fmaf(d0.w, w0, a0[3]);
+        a1[0] = fmaf(d1.x, w1, a1[0]);
+        a1[1] = fmaf(d1.y, w1, a1[1]);
+        a1[2] = fmaf(d1.z, w1, a1[2]);
+        a1[3] = fmaf(d1.w, w1, a1[3]);
+      }
     }
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) dh[i] = a0[i] + a1[i];
@@ -1168,20 +1246,59 @@ bool valid_cluster_plan(int B, int N, int H, int C, int R) {
   return (C - 1) * U < H && U * (R / kRowsPerThread) <= kClusterThreads;
 }
 
-template <typename T>
+// The stream kernel's shared memory (the dg tile alone, its rows padded to
+// whole chunks of kStreamK) and plan rule: any H, a cluster of 1 to
+// kStreamMaxC blocks each owning a unit at least, R a multiple of
+// kRowsPerThread, at most kClusterThreads threads and kMaxSmem bytes a
+// block (the wrapper's stream_smem_bytes and _stream_rule mirror them, held
+// to bilstm_bwd_stream_smem_bytes when the library loads).
+size_t stream_smem_bytes(int H, int R) {
+  return 2 * static_cast<size_t>(pad_stream(4 * H)) * R * sizeof(float);
+}
+
+bool valid_stream_plan(int B, int N, int H, int C, int R) {
+  if (B <= 0 || N <= 0 || H <= 0 || C < 1 || C > kStreamMaxC || R <= 0 ||
+      R % kRowsPerThread != 0)
+    return false;
+  const int U = cluster_units(H, C);
+  return (C - 1) * U < H && U * (R / kRowsPerThread) <= kClusterThreads &&
+         stream_smem_bytes(H, R) <= static_cast<size_t>(kMaxSmem);
+}
+
+template <bool kStream>
+bool valid_plan_of(int B, int N, int H, int C, int R) {
+  return kStream ? valid_stream_plan(B, N, H, C, R)
+                 : valid_cluster_plan(B, N, H, C, R);
+}
+
+template <bool kStream>
+size_t smem_of(int H, int C, int R) {
+  return kStream ? stream_smem_bytes(H, R) : cluster_smem_bytes(H, C, R);
+}
+
+template <typename T, bool kStream>
 std::atomic<int> g_cluster_smem_allowed[kMaxDevices];
 
-template <typename T>
+// The dynamic shared memory a variant may use (and, for the stream kernel,
+// clusters above 8 blocks), set once per device and again only for more.
+template <typename T, bool kStream>
 cudaError_t allow_cluster_smem(int smem) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  if (device < kMaxDevices && g_cluster_smem_allowed<T>[device].load() >= smem)
+  if (device < kMaxDevices &&
+      g_cluster_smem_allowed<T, kStream>[device].load() >= smem)
     return cudaSuccess;
-  err = cudaFuncSetAttribute(bilstm_bwd_cluster_kernel<T>,
+  if constexpr (kStream) {
+    err = cudaFuncSetAttribute(bilstm_bwd_cluster_kernel<T, kStream>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaFuncSetAttribute(bilstm_bwd_cluster_kernel<T, kStream>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && device < kMaxDevices)
-    g_cluster_smem_allowed<T>[device].store(smem);
+    g_cluster_smem_allowed<T, kStream>[device].store(smem);
   return err;
 }
 
@@ -1201,41 +1318,41 @@ void make_cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
   cfg->numAttrs = 1;
 }
 
-template <typename T>
+template <typename T, bool kStream>
 int launch_cluster(const void* w_f, const void* w_b, const void* gs_f,
                    const void* cs_f, const void* dy_f, const void* gs_b,
                    const void* cs_b, const void* dy_b, void* dg_f, void* dg_b,
                    int B, int N, int H, int C, int R, int dirs, int rev,
                    void* stream) {
-  if (!valid_cluster_plan(B, N, H, C, R))
+  if (!valid_plan_of<kStream>(B, N, H, C, R))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = cluster_smem_bytes(H, C, R);
-  cudaError_t err = allow_cluster_smem<T>(static_cast<int>(smem));
+  const size_t smem = smem_of<kStream>(H, C, R);
+  cudaError_t err = allow_cluster_smem<T, kStream>(static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   make_cluster_config(&cfg, &attr, B, H, C, R, dirs, smem, stream);
   auto in = [](const void* p) { return static_cast<const T*>(p); };
   auto out = [](void* p) { return static_cast<T*>(p); };
-  err = cudaLaunchKernelEx(&cfg, bilstm_bwd_cluster_kernel<T>, in(w_f),
-                           in(w_b), in(gs_f), in(cs_f), in(dy_f), in(gs_b),
-                           in(cs_b), in(dy_b), out(dg_f), out(dg_b), B, N, H,
-                           R, rev);
+  err = cudaLaunchKernelEx(&cfg, bilstm_bwd_cluster_kernel<T, kStream>,
+                           in(w_f), in(w_b), in(gs_f), in(cs_f), in(dy_f),
+                           in(gs_b), in(cs_b), in(dy_b), out(dg_f), out(dg_b),
+                           B, N, H, R, rev);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kStream>
 int cluster_max_active(int H, int C, int R) {
-  const size_t smem = cluster_smem_bytes(H, C, R);
-  cudaError_t err = allow_cluster_smem<T>(static_cast<int>(smem));
+  const size_t smem = smem_of<kStream>(H, C, R);
+  cudaError_t err = allow_cluster_smem<T, kStream>(static_cast<int>(smem));
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   make_cluster_config(&cfg, &attr, R, H, C, R, 1, smem, nullptr);
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, bilstm_bwd_cluster_kernel<T>,
-                                       &cfg);
+  err = cudaOccupancyMaxActiveClusters(
+      &n, bilstm_bwd_cluster_kernel<T, kStream>, &cfg);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
@@ -1443,27 +1560,32 @@ BILSTM_BWD_ENTRIES(bf16, __nv_bfloat16)
 
 // The cluster kernel: arguments and outputs as the entries above, with
 // clusters of C blocks (1, 2, 4 or 8) over batch tiles of R rows (a
-// multiple of 4); H up to 256.
-#define BILSTM_BWD_CLUSTER_ENTRIES(SFX, TYPE)                                 \
-  int bilstm_bwd_cluster_##SFX(const void* w_f, const void* w_b,             \
-                               const void* gs_f, const void* cs_f,           \
-                               const void* dy_f, const void* gs_b,           \
-                               const void* cs_b, const void* dy_b,           \
-                               void* dg_f, void* dg_b, int B, int N, int H,  \
-                               int C, int R, void* stream) {                 \
-    return launch_cluster<TYPE>(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b,      \
-                                dy_b, dg_f, dg_b, B, N, H, C, R, 2, 0,       \
-                                stream);                                     \
+// multiple of 4); H up to 256. The stream kernel (KIND stream): the same,
+// with clusters of 1 to 16 blocks, any H whose plan fits, and w_* as W_hh^T
+// [4H, H].
+#define BILSTM_BWD_CLUSTER_ENTRIES(SFX, TYPE, KIND, STREAM)                   \
+  int bilstm_bwd_##KIND##_##SFX(const void* w_f, const void* w_b,            \
+                                const void* gs_f, const void* cs_f,          \
+                                const void* dy_f, const void* gs_b,          \
+                                const void* cs_b, const void* dy_b,          \
+                                void* dg_f, void* dg_b, int B, int N, int H, \
+                                int C, int R, void* stream) {                \
+    return launch_cluster<TYPE, STREAM>(w_f, w_b, gs_f, cs_f, dy_f, gs_b,    \
+                                        cs_b, dy_b, dg_f, dg_b, B, N, H, C,  \
+                                        R, 2, 0, stream);                    \
   }                                                                          \
-  int lstm_bwd_cluster_##SFX(const void* w, const void* gs, const void* cs,  \
-                             const void* dy, void* dg, int B, int N, int H,  \
-                             int C, int R, int reverse, void* stream) {      \
-    return launch_cluster<TYPE>(w, w, gs, cs, dy, gs, cs, dy, dg, dg, B, N,  \
-                                H, C, R, 1, reverse, stream);                \
+  int lstm_bwd_##KIND##_##SFX(const void* w, const void* gs, const void* cs, \
+                              const void* dy, void* dg, int B, int N, int H, \
+                              int C, int R, int reverse, void* stream) {     \
+    return launch_cluster<TYPE, STREAM>(w, w, gs, cs, dy, gs, cs, dy, dg,    \
+                                        dg, B, N, H, C, R, 1, reverse,       \
+                                        stream);                             \
   }
 
-BILSTM_BWD_CLUSTER_ENTRIES(f32, float)
-BILSTM_BWD_CLUSTER_ENTRIES(bf16, __nv_bfloat16)
+BILSTM_BWD_CLUSTER_ENTRIES(f32, float, cluster, false)
+BILSTM_BWD_CLUSTER_ENTRIES(bf16, __nv_bfloat16, cluster, false)
+BILSTM_BWD_CLUSTER_ENTRIES(f32, float, stream, true)
+BILSTM_BWD_CLUSTER_ENTRIES(bf16, __nv_bfloat16, stream, true)
 #undef BILSTM_BWD_CLUSTER_ENTRIES
 
 // The register cluster kernel: arguments and outputs as the cluster
@@ -1523,8 +1645,8 @@ int bilstm_bwd_cluster_max_active_clusters(int bf16, int save, int H, int C,
   (void)save;
   if (!valid_cluster_plan(1, 1, H, C, R))
     return -static_cast<int>(cudaErrorInvalidValue);
-  return bf16 ? cluster_max_active<__nv_bfloat16>(H, C, R)
-              : cluster_max_active<float>(H, C, R);
+  return bf16 ? cluster_max_active<__nv_bfloat16, false>(H, C, R)
+              : cluster_max_active<float, false>(H, C, R);
 }
 
 // The cluster kernel's dynamic shared memory in bytes at H, C and R, for
@@ -1532,6 +1654,21 @@ int bilstm_bwd_cluster_max_active_clusters(int bf16, int save, int H, int C,
 int bilstm_bwd_cluster_smem_bytes(int H, int C, int R) {
   if (!valid_cluster_plan(1, 1, H, C, R)) return -1;
   return static_cast<int>(cluster_smem_bytes(H, C, R));
+}
+
+// The same two queries of the stream kernel.
+int bilstm_bwd_stream_max_active_clusters(int bf16, int save, int H, int C,
+                                          int R) {
+  (void)save;
+  if (!valid_stream_plan(1, 1, H, C, R))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return bf16 ? cluster_max_active<__nv_bfloat16, true>(H, C, R)
+              : cluster_max_active<float, true>(H, C, R);
+}
+
+int bilstm_bwd_stream_smem_bytes(int H, int C, int R) {
+  if (!valid_stream_plan(1, 1, H, C, R)) return -1;
+  return static_cast<int>(stream_smem_bytes(H, R));
 }
 
 // How many blocks of the unit kernel (bf16: 0 or 1) at hidden size H and

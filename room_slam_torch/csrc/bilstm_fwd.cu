@@ -144,6 +144,31 @@
 // arrival. The wrapper picks the kernel (rnn_cuda.lstm_fwd_kernel_route,
 // lstm_reg_plan for the cluster and tile) and may force any of the four
 // for an A/B.
+//
+// Above H = 256 (an lstm at d_model 514 to 2048 and beyond, which the JAX
+// package runs at any width) no block holds even a 16th of W_hh (4 MiB in
+// f32 at H=512). The stream kernel takes every such H, for #1 / #1t
+// (rnn_pallas.py:390, pallas_call :560 / :531) and #3 / #3t (:105, :210 /
+// :183) alike: the first cluster kernel with kStream, whose block reads the
+// four gate columns of its U = ceil(H / C) units from global memory every
+// step instead of holding them in shared memory, so that only the h tile
+// [2][H][R] (its rows padded to whole chunks) sits there; clusters of up to
+// 16 blocks (non-portable above 8). What bounds it: a block reads its slice,
+// 4 H U values, through L2 every step (256 KiB at H=512 in f32, C=16), and
+// the grid's blocks together read all of W_hh once per batch tile and
+// direction (4 MiB at H=512 in f32, 2 in bf16; the 50 MB L2 keeps it). What
+// the design does about it: the loads of the next kStreamK values of k are
+// issued a chunk ahead of the FMAs that use them (a step's last chunk loads
+// the next step's first), consecutive threads read consecutive units
+// (coalesced), the R / 4 row groups of a block read the same addresses
+// close together (L1 hits), and the planner (rnn_cuda.stream_plans)
+// weighs a block's FMA issue against its and the grid's L2 bytes.
+// Measured on an H100 (chip_smoke.py phase 40): 33 us a step at (32, 500,
+// 512) f32 on clusters of 16 blocks of 16-row tiles (cuDNN 42), 21 at
+// H=320, far above the L2 bytes' time: each chunk's loads wait out the L2
+// latency with four warps a block to cover it (a deeper pipeline, staged
+// through shared memory by cp.async, is the lever). The simple right
+// kernel for these widths, not a fast one.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -501,14 +526,27 @@ bilstm_fwd_wide_kernel(const T* __restrict__ xg_f,
 constexpr int kRowsPerThread = 4;
 constexpr int kClusterThreads = 512;   // __launch_bounds__
 constexpr int kMaxClusterH = 256;
+// The stream kernel (the cluster kernel with kStream): k values of W_hh a
+// thread has in flight ahead of its sums, and clusters of up to 16 blocks
+// (a non-portable size above 8)
+constexpr int kStreamK = 8;
+constexpr int kStreamMaxC = 16;
 
 __host__ __device__ __forceinline__ size_t pad4(size_t n) {
   return (n + 3) / 4 * 4;
 }
 
+// n rounded up to a multiple of kStreamK: the rows of the stream kernel's
+// exchange tile (the rows past n stay zero, so every chunk is whole)
+__host__ __device__ __forceinline__ int pad_stream(int n) {
+  return (n + kStreamK - 1) / kStreamK * kStreamK;
+}
+
 // The cluster kernel (H above the wide kernel's, see the notes at the top):
-// W_hh split by hidden units across a thread-block cluster.
-template <typename T, bool kSave>
+// W_hh split by hidden units across a thread-block cluster. kStream: the
+// stream kernel, which reads its slice of W_hh from global memory (through
+// L2) every step instead of holding it in shared memory.
+template <typename T, bool kSave, bool kStream>
 __global__ void __launch_bounds__(kClusterThreads)
 bilstm_fwd_cluster_kernel(const T* __restrict__ xg_f,
                           const T* __restrict__ xg_b,
@@ -525,8 +563,10 @@ bilstm_fwd_cluster_kernel(const T* __restrict__ xg_f,
   const int rank = static_cast<int>(cluster.block_rank());
   const int U = (H + C - 1) / C;   // units a block owns (the last: fewer)
   const int G = 4 * H;
+  const int HT = kStream ? pad_stream(H) : H;   // rows of an h buffer
   float* w_s = smem;                                         // [H][4U]
-  float* h_s = smem + pad4(static_cast<size_t>(H) * 4 * U);  // [2][H][R]
+  // [2][HT][R]; the stream kernel holds no W_hh slice
+  float* h_s = kStream ? smem : smem + pad4(static_cast<size_t>(H) * 4 * U);
 
   // a grid of two directions: y = 1 walks backward; of one: rev says
   const bool bwd = (blockIdx.y == 1) != (rev != 0);
@@ -540,16 +580,37 @@ bilstm_fwd_cluster_kernel(const T* __restrict__ xg_f,
 
   // this block's W_hh columns: c = gate * U + unit, for every k; the
   // columns of units past H are zero
-  for (int idx = threadIdx.x; idx < H * 4 * U; idx += blockDim.x) {
-    const int k = idx / (4 * U);
-    const int c = idx - k * 4 * U;
-    const int gate = c / U;
-    const int unit = rank * U + (c - gate * U);
-    w_s[idx] = unit < H ? to_f32<T>(w[static_cast<size_t>(k) * G +
-                                      gate * H + unit])
-                        : 0.0f;
-  }
-  for (int idx = threadIdx.x; idx < H * R; idx += blockDim.x) h_s[idx] = 0.0f;
+  if constexpr (!kStream)
+    for (int idx = threadIdx.x; idx < H * 4 * U; idx += blockDim.x) {
+      const int k = idx / (4 * U);
+      const int c = idx - k * 4 * U;
+      const int gate = c / U;
+      const int unit = rank * U + (c - gate * U);
+      w_s[idx] = unit < H ? to_f32<T>(w[static_cast<size_t>(k) * G +
+                                        gate * H + unit])
+                          : 0.0f;
+    }
+  // h_{-1} = 0; the stream kernel also zeroes both buffers' rows past H
+  for (int idx = threadIdx.x; idx < (kStream ? 2 * HT : H) * R;
+       idx += blockDim.x)
+    h_s[idx] = 0.0f;
+
+  // the stream kernel: the four gate columns of unit gu for the next
+  // kStreamK values of k, as loaded (zero past H); a step's last chunk
+  // loads the next step's first
+  const T* wu = w + (unit_ok ? gu : 0);
+  T wn[kStreamK][4];
+  auto load_w = [&](int k0) {
+#pragma unroll
+    for (int e = 0; e < kStreamK; ++e) {
+      const int k = k0 + e;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        wn[e][g] = k < H ? wu[static_cast<size_t>(k) * G + g * H]
+                         : from_f32<T>(0.0f);
+    }
+  };
+  if constexpr (kStream) load_w(0);
 
   bool valid[kRowsPerThread];
   size_t xoff[kRowsPerThread];  // xg / gates of (row, t = 0, unit gu)
@@ -592,18 +653,41 @@ bilstm_fwd_cluster_kernel(const T* __restrict__ xg_f,
       for (int g = 0; g < 4; ++g) acc[g][i] = to_f32<T>(xnext[i][g]);
     if (s + 1 < N) load_x(bwd ? t - 1 : t + 1);
 
-    const float* hb = h_s + (s & 1) * H * R + r0;
-#pragma unroll 4
-    for (int k = 0; k < H; ++k) {
-      const float4 hv = *reinterpret_cast<const float4*>(hb + k * R);
-      const float* wk = w_s + k * 4 * U + u;
+    const float* hb = h_s + (s & 1) * HT * R + r0;
+    if constexpr (kStream) {
+      for (int k0 = 0; k0 < H; k0 += kStreamK) {
+        float wc[kStreamK][4];
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float wv = wk[g * U];
-        acc[g][0] = fmaf(hv.x, wv, acc[g][0]);
-        acc[g][1] = fmaf(hv.y, wv, acc[g][1]);
-        acc[g][2] = fmaf(hv.z, wv, acc[g][2]);
-        acc[g][3] = fmaf(hv.w, wv, acc[g][3]);
+        for (int e = 0; e < kStreamK; ++e)
+#pragma unroll
+          for (int g = 0; g < 4; ++g) wc[e][g] = to_f32<T>(wn[e][g]);
+        load_w(k0 + kStreamK < H ? k0 + kStreamK : 0);
+#pragma unroll
+        for (int e = 0; e < kStreamK; ++e) {
+          const float4 hv =
+              *reinterpret_cast<const float4*>(hb + (k0 + e) * R);
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            acc[g][0] = fmaf(hv.x, wc[e][g], acc[g][0]);
+            acc[g][1] = fmaf(hv.y, wc[e][g], acc[g][1]);
+            acc[g][2] = fmaf(hv.z, wc[e][g], acc[g][2]);
+            acc[g][3] = fmaf(hv.w, wc[e][g], acc[g][3]);
+          }
+        }
+      }
+    } else {
+#pragma unroll 4
+      for (int k = 0; k < H; ++k) {
+        const float4 hv = *reinterpret_cast<const float4*>(hb + k * R);
+        const float* wk = w_s + k * 4 * U + u;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float wv = wk[g * U];
+          acc[g][0] = fmaf(hv.x, wv, acc[g][0]);
+          acc[g][1] = fmaf(hv.y, wv, acc[g][1]);
+          acc[g][2] = fmaf(hv.z, wv, acc[g][2]);
+          acc[g][3] = fmaf(hv.w, wv, acc[g][3]);
+        }
       }
     }
 
@@ -632,7 +716,7 @@ bilstm_fwd_cluster_kernel(const T* __restrict__ xg_f,
 
     // push this thread's h_t into the other buffer of every block
     if (unit_ok) {
-      float* slot = h_s + ((s + 1) & 1) * H * R + gu * R + r0;
+      float* slot = h_s + ((s + 1) & 1) * HT * R + gu * R + r0;
       const float4 hv = make_float4(hq[0], hq[1], hq[2], hq[3]);
       for (int q = 0; q < C; ++q)
         *reinterpret_cast<float4*>(cluster.map_shared_rank(slot, q)) = hv;
@@ -1182,21 +1266,59 @@ bool valid_cluster_plan(int B, int N, int H, int C, int R) {
   return (C - 1) * U < H && U * (R / kRowsPerThread) <= kClusterThreads;
 }
 
-template <typename T, bool kSave>
+// The stream kernel's shared memory (the h tile alone, its rows padded to
+// whole chunks of kStreamK) and plan rule: any H, a cluster of 1 to
+// kStreamMaxC blocks each owning a unit at least, R a multiple of
+// kRowsPerThread, at most kClusterThreads threads and kMaxSmem bytes a
+// block (the wrapper's stream_smem_bytes and _stream_rule mirror them, held
+// to bilstm_fwd_stream_smem_bytes when the library loads).
+size_t stream_smem_bytes(int H, int R) {
+  return 2 * static_cast<size_t>(pad_stream(H)) * R * sizeof(float);
+}
+
+bool valid_stream_plan(int B, int N, int H, int C, int R) {
+  if (B <= 0 || N <= 0 || H <= 0 || C < 1 || C > kStreamMaxC || R <= 0 ||
+      R % kRowsPerThread != 0)
+    return false;
+  const int U = cluster_units(H, C);
+  return (C - 1) * U < H && U * (R / kRowsPerThread) <= kClusterThreads &&
+         stream_smem_bytes(H, R) <= static_cast<size_t>(kMaxSmem);
+}
+
+template <bool kStream>
+bool valid_plan_of(int B, int N, int H, int C, int R) {
+  return kStream ? valid_stream_plan(B, N, H, C, R)
+                 : valid_cluster_plan(B, N, H, C, R);
+}
+
+template <bool kStream>
+size_t smem_of(int H, int C, int R) {
+  return kStream ? stream_smem_bytes(H, R) : cluster_smem_bytes(H, C, R);
+}
+
+template <typename T, bool kSave, bool kStream>
 std::atomic<int> g_cluster_smem_allowed[kMaxDevices];
 
-template <typename T, bool kSave>
+// The dynamic shared memory a variant may use (and, for the stream kernel,
+// clusters above 8 blocks), set once per device and again only for more.
+template <typename T, bool kSave, bool kStream>
 cudaError_t allow_cluster_smem(int smem) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device < kMaxDevices &&
-      g_cluster_smem_allowed<T, kSave>[device].load() >= smem)
+      g_cluster_smem_allowed<T, kSave, kStream>[device].load() >= smem)
     return cudaSuccess;
-  err = cudaFuncSetAttribute(bilstm_fwd_cluster_kernel<T, kSave>,
+  if constexpr (kStream) {
+    err = cudaFuncSetAttribute(bilstm_fwd_cluster_kernel<T, kSave, kStream>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaFuncSetAttribute(bilstm_fwd_cluster_kernel<T, kSave, kStream>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && device < kMaxDevices)
-    g_cluster_smem_allowed<T, kSave>[device].store(smem);
+    g_cluster_smem_allowed<T, kSave, kStream>[device].store(smem);
   return err;
 }
 
@@ -1216,22 +1338,23 @@ void make_cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
   cfg->numAttrs = 1;
 }
 
-template <typename T, bool kSave>
+template <typename T, bool kSave, bool kStream>
 int launch_cluster(const void* xg_f, const void* xg_b, const void* w_f,
                    const void* w_b, void* ys_f, void* ys_b, void* cs_f,
                    void* cs_b, void* gs_f, void* gs_b, int B, int N, int H,
                    int C, int R, int dirs, int rev, void* stream) {
-  if (!valid_cluster_plan(B, N, H, C, R))
+  if (!valid_plan_of<kStream>(B, N, H, C, R))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = cluster_smem_bytes(H, C, R);
-  cudaError_t err = allow_cluster_smem<T, kSave>(static_cast<int>(smem));
+  const size_t smem = smem_of<kStream>(H, C, R);
+  cudaError_t err =
+      allow_cluster_smem<T, kSave, kStream>(static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   make_cluster_config(&cfg, &attr, B, H, C, R, dirs, smem, stream);
   auto in = [](const void* p) { return static_cast<const T*>(p); };
   auto out = [](void* p) { return static_cast<T*>(p); };
-  err = cudaLaunchKernelEx(&cfg, bilstm_fwd_cluster_kernel<T, kSave>,
+  err = cudaLaunchKernelEx(&cfg, bilstm_fwd_cluster_kernel<T, kSave, kStream>,
                            in(xg_f), in(xg_b), in(w_f), in(w_b), out(ys_f),
                            out(ys_b), out(cs_f), out(cs_b), out(gs_f),
                            out(gs_b), B, N, H, R, rev);
@@ -1239,17 +1362,18 @@ int launch_cluster(const void* xg_f, const void* xg_b, const void* w_f,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kSave>
+template <typename T, bool kSave, bool kStream>
 int cluster_max_active(int H, int C, int R) {
-  const size_t smem = cluster_smem_bytes(H, C, R);
-  cudaError_t err = allow_cluster_smem<T, kSave>(static_cast<int>(smem));
+  const size_t smem = smem_of<kStream>(H, C, R);
+  cudaError_t err =
+      allow_cluster_smem<T, kSave, kStream>(static_cast<int>(smem));
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   make_cluster_config(&cfg, &attr, R, H, C, R, 1, smem, nullptr);
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(
-      &n, bilstm_fwd_cluster_kernel<T, kSave>, &cfg);
+      &n, bilstm_fwd_cluster_kernel<T, kSave, kStream>, &cfg);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
@@ -1416,40 +1540,45 @@ BILSTM_FWD_ENTRIES(bf16, __nv_bfloat16)
 // The cluster kernel: arguments and outputs as the entries above, with
 // clusters of C blocks (1, 2, 4 or 8) over batch tiles of R rows (a
 // multiple of 4) in place of the unit tile and the wide flag; H up to 256.
-#define BILSTM_FWD_CLUSTER_ENTRIES(SFX, TYPE)                                 \
-  int bilstm_fwd_cluster_##SFX(const void* xg_f, const void* xg_b,           \
-                               const void* w_f, const void* w_b, void* ys_f, \
-                               void* ys_b, int B, int N, int H, int C,       \
-                               int R, void* stream) {                        \
-    return launch_cluster<TYPE, false>(xg_f, xg_b, w_f, w_b, ys_f, ys_b,     \
-                                       nullptr, nullptr, nullptr, nullptr,   \
-                                       B, N, H, C, R, 2, 0, stream);         \
+// The stream kernel (KIND stream): the same, with clusters of 1 to 16
+// blocks and any H whose plan fits.
+#define BILSTM_FWD_CLUSTER_ENTRIES(SFX, TYPE, KIND, STREAM)                   \
+  int bilstm_fwd_##KIND##_##SFX(const void* xg_f, const void* xg_b,          \
+                                const void* w_f, const void* w_b,            \
+                                void* ys_f, void* ys_b, int B, int N, int H, \
+                                int C, int R, void* stream) {                \
+    return launch_cluster<TYPE, false, STREAM>(                              \
+        xg_f, xg_b, w_f, w_b, ys_f, ys_b, nullptr, nullptr, nullptr,         \
+        nullptr, B, N, H, C, R, 2, 0, stream);                               \
   }                                                                          \
-  int bilstm_fwd_train_cluster_##SFX(                                        \
+  int bilstm_fwd_train_##KIND##_##SFX(                                       \
       const void* xg_f, const void* xg_b, const void* w_f, const void* w_b,  \
       void* ys_f, void* ys_b, void* cs_f, void* cs_b, void* gs_f,            \
       void* gs_b, int B, int N, int H, int C, int R, void* stream) {         \
-    return launch_cluster<TYPE, true>(xg_f, xg_b, w_f, w_b, ys_f, ys_b,      \
-                                      cs_f, cs_b, gs_f, gs_b, B, N, H, C, R, \
-                                      2, 0, stream);                         \
+    return launch_cluster<TYPE, true, STREAM>(xg_f, xg_b, w_f, w_b, ys_f,    \
+                                              ys_b, cs_f, cs_b, gs_f, gs_b,  \
+                                              B, N, H, C, R, 2, 0, stream);  \
   }                                                                          \
-  int lstm_fwd_cluster_##SFX(const void* xg, const void* w, void* ys, int B, \
-                             int N, int H, int C, int R, int reverse,        \
-                             void* stream) {                                 \
-    return launch_cluster<TYPE, false>(xg, xg, w, w, ys, ys, nullptr,        \
-                                       nullptr, nullptr, nullptr, B, N, H,   \
-                                       C, R, 1, reverse, stream);            \
+  int lstm_fwd_##KIND##_##SFX(const void* xg, const void* w, void* ys,       \
+                              int B, int N, int H, int C, int R,             \
+                              int reverse, void* stream) {                   \
+    return launch_cluster<TYPE, false, STREAM>(                              \
+        xg, xg, w, w, ys, ys, nullptr, nullptr, nullptr, nullptr, B, N, H,   \
+        C, R, 1, reverse, stream);                                           \
   }                                                                          \
-  int lstm_fwd_train_cluster_##SFX(const void* xg, const void* w, void* ys,  \
-                                   void* cs, void* gs, int B, int N, int H,  \
-                                   int C, int R, int reverse,                \
-                                   void* stream) {                           \
-    return launch_cluster<TYPE, true>(xg, xg, w, w, ys, ys, cs, cs, gs, gs,  \
-                                      B, N, H, C, R, 1, reverse, stream);    \
+  int lstm_fwd_train_##KIND##_##SFX(const void* xg, const void* w, void* ys, \
+                                    void* cs, void* gs, int B, int N, int H, \
+                                    int C, int R, int reverse,               \
+                                    void* stream) {                          \
+    return launch_cluster<TYPE, true, STREAM>(xg, xg, w, w, ys, ys, cs, cs,  \
+                                              gs, gs, B, N, H, C, R, 1,      \
+                                              reverse, stream);              \
   }
 
-BILSTM_FWD_CLUSTER_ENTRIES(f32, float)
-BILSTM_FWD_CLUSTER_ENTRIES(bf16, __nv_bfloat16)
+BILSTM_FWD_CLUSTER_ENTRIES(f32, float, cluster, false)
+BILSTM_FWD_CLUSTER_ENTRIES(bf16, __nv_bfloat16, cluster, false)
+BILSTM_FWD_CLUSTER_ENTRIES(f32, float, stream, true)
+BILSTM_FWD_CLUSTER_ENTRIES(bf16, __nv_bfloat16, stream, true)
 #undef BILSTM_FWD_CLUSTER_ENTRIES
 
 // The register cluster kernel: arguments and outputs as the cluster
@@ -1525,10 +1654,10 @@ int bilstm_fwd_cluster_max_active_clusters(int bf16, int save, int H, int C,
   if (!valid_cluster_plan(1, 1, H, C, R))
     return -static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
-    return save ? cluster_max_active<__nv_bfloat16, true>(H, C, R)
-                : cluster_max_active<__nv_bfloat16, false>(H, C, R);
-  return save ? cluster_max_active<float, true>(H, C, R)
-              : cluster_max_active<float, false>(H, C, R);
+    return save ? cluster_max_active<__nv_bfloat16, true, false>(H, C, R)
+                : cluster_max_active<__nv_bfloat16, false, false>(H, C, R);
+  return save ? cluster_max_active<float, true, false>(H, C, R)
+              : cluster_max_active<float, false, false>(H, C, R);
 }
 
 // The cluster kernel's dynamic shared memory in bytes at H, C and R, for
@@ -1536,6 +1665,23 @@ int bilstm_fwd_cluster_max_active_clusters(int bf16, int save, int H, int C,
 int bilstm_fwd_cluster_smem_bytes(int H, int C, int R) {
   if (!valid_cluster_plan(1, 1, H, C, R)) return -1;
   return static_cast<int>(cluster_smem_bytes(H, C, R));
+}
+
+// The same two queries of the stream kernel.
+int bilstm_fwd_stream_max_active_clusters(int bf16, int save, int H, int C,
+                                          int R) {
+  if (!valid_stream_plan(1, 1, H, C, R))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  if (bf16)
+    return save ? cluster_max_active<__nv_bfloat16, true, true>(H, C, R)
+                : cluster_max_active<__nv_bfloat16, false, true>(H, C, R);
+  return save ? cluster_max_active<float, true, true>(H, C, R)
+              : cluster_max_active<float, false, true>(H, C, R);
+}
+
+int bilstm_fwd_stream_smem_bytes(int H, int C, int R) {
+  if (!valid_stream_plan(1, 1, H, C, R)) return -1;
+  return static_cast<int>(stream_smem_bytes(H, R));
 }
 
 // How many blocks of the unit kernel (bf16: 0 or 1, save: 0 or 1) at hidden

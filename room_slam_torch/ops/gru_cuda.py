@@ -65,13 +65,19 @@ it). The same two sources launch it with a grid of one direction:
 ``gru_fwd``, ``gru_fwd_train`` and ``gru_bwd``, with ``GRUFunction`` joining
 them. Their plain versions are ``ops/rnn.py`` ``gru_recurrence``,
 ``gru_fwd_train_plain`` (the same loop with ``residuals``) and
-``gru_bwd_plain``. At H <= ``UNIT_MAX_H`` (the legacy model's H=64) the
-one-direction forward and BPTT run the unit kernels of
-``csrc/bigru_fwd.cu`` and ``csrc/bigru_bwd.cu`` instead of the cluster
-kernels: four lanes of a warp own one hidden unit of a tile of 1, 2 or 4
-rows, W_hh in their registers, one block barrier a step;
-``gru_fwd_kernel_route`` / ``gru_bwd_kernel_route`` choose,
-``rnn_cuda.unit_plan`` sizes the tile, and ``last_launch`` records both.
+``gru_bwd_plain``. At H <= ``UNIT_MAX_H`` (the legacy model's H=64, the
+``bigru`` model's at its default d_model) the one-direction forward and
+BPTT, and the BiGRU's, run the unit kernels of
+``csrc/bigru_fwd.cu`` and ``csrc/bigru_bwd.cu`` (with a grid of two
+directions for a BiGRU layer) instead of the cluster kernels: four lanes
+of a warp own one hidden unit of a tile of 1, 2 or 4 rows, W_hh in their
+registers, one block barrier a step; ``gru_fwd_kernel_route`` /
+``gru_bwd_kernel_route`` choose, ``rnn_cuda.unit_plan`` sizes the tile,
+and ``last_launch`` records both. Where no cluster plan fits (W_hh's slice
+over a block's shared memory at every cluster of up to 8 blocks), the
+stream kernels take the launch: the cluster kernels reading their slice of
+W_hh from global memory every step, clusters of up to 16 blocks, planned
+by ``rnn_cuda.stream_plans``.
 
 With bf16 streams the fused kind (#9) runs its three input-side products on
 tensor cores (``mma.sync``); with float32 streams on CUDA cores.
@@ -89,13 +95,17 @@ from room_slam_torch.ops.rnn import gru_recurrence, input_gates
 from room_slam_torch.ops.rnn_cuda import (CLUSTER_MAX_H, CLUSTER_SIZES,
                                           MAX_ROWS, MAX_SMEM_BYTES,
                                           MAX_THREADS, ROWS_PER_THREAD,
+                                          STREAM_MAX_CLUSTER,
                                           UNIT_MAX_H, _device_type, _pad4,
-                                          _work_dtype, bind_unit_queries,
-                                          card_unit_plans, grad_product,
+                                          _stream_rule, _work_dtype,
+                                          bind_unit_queries, bwd_weights,
+                                          card_name, card_unit_plans,
+                                          check_stream_mirror, grad_product,
                                           grad_sum, launch, prev_steps,
                                           rank_cluster_plans,
                                           set_error_string, slice_units,
-                                          unit_launch_rows)
+                                          stream_plans, stream_refusal,
+                                          stream_takes, unit_launch_rows)
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -369,25 +379,51 @@ def bigru_tc_plan(kind: str, batch: int, hidden: int,
     return plans[0]
 
 
+def cluster_takes(kind: str, hidden: int) -> bool:
+    """Whether a plan of the cluster kernel ``kind`` that ``bigru_plans``
+    considers fits at H: a dividing plan, or a masked one up to
+    ``CLUSTER_MAX_H`` (whether the card runs it is the planner's
+    question)."""
+    return any(plan_fits(kind, hidden, c, rows)
+               and (hidden % c == 0 or hidden <= CLUSTER_MAX_H)
+               for c in CLUSTER_SIZES
+               for rows in range(ROWS_PER_THREAD, MAX_ROWS + 1,
+                                 ROWS_PER_THREAD))
+
+
 def _route(kind: str, hidden: int, dirs: int, dtype: torch.dtype) -> str:
-    if dirs == 1 and 0 < hidden <= UNIT_MAX_H:
+    name = f"bigru_{kind}"
+    if hidden <= 0:
+        raise ValueError(f"{name}: H must be positive, got {hidden}")
+    if hidden <= UNIT_MAX_H:
         return "unit"
     if dirs == 2 and dtype == torch.bfloat16 and any(
             tc_plan_fits(kind, hidden, c, r)
             for c in TC_CLUSTER_SIZES for r in TC_ROWS):
         return "tc"
-    return "cluster"
+    if cluster_takes(kind, hidden):
+        return "cluster"
+    if stream_takes(name, hidden):
+        return "stream"
+    raise ValueError(
+        f"{name}: no kernel takes H={hidden} on this card: no cluster of "
+        f"{CLUSTER_SIZES} blocks holds W_hh's slice and the exchange tile in "
+        f"{MAX_SMEM_BYTES} bytes a block, and {stream_refusal(name, hidden)}")
 
 
 def gru_fwd_kernel_route(hidden: int, dirs: int,
                          dtype: torch.dtype = torch.float32) -> str:
     """The forward kernel of ``csrc/bigru_fwd.cu`` that takes a launch of
     ``dirs`` directions at hidden size ``hidden`` with ``dtype`` streams
-    (whatever the batch): "unit" for one direction at H <=
-    ``UNIT_MAX_H``; "tc" (the tensor-core kernel) for two directions with
-    bf16 streams where ``tc_plan_fits`` holds for a plan of the planner's;
-    else "cluster" (``bigru_plan`` then picks its cluster and tile, or
-    raises for an H no cluster size takes)."""
+    (whatever the batch): "unit" at H <= ``UNIT_MAX_H`` (one or two
+    directions, float32 or bf16: at H=64 it beat the tensor-core kernels
+    2-2.5x with bf16 streams on an H100); "tc" (the tensor-core kernel)
+    above it for two directions with bf16 streams where ``tc_plan_fits``
+    holds for a plan of the planner's; else "cluster" where a plan of
+    ``bigru_plans`` fits
+    (``bigru_plan`` then picks its cluster and tile), else "stream" (the
+    stream kernel, ``bigru_stream_plans``). Raises, naming the width and
+    the card's limit, for an H none takes."""
     return _route("fwd", hidden, dirs, dtype)
 
 
@@ -395,10 +431,20 @@ def gru_bwd_kernel_route(hidden: int, dirs: int,
                          dtype: torch.dtype = torch.float32) -> str:
     """The BPTT kernel of ``csrc/bigru_bwd.cu`` that takes a launch of
     ``dirs`` directions at hidden size ``hidden`` with ``dtype`` streams:
-    "unit" (``gru_bwd_unit_kernel``) for one direction at H <=
-    ``UNIT_MAX_H``; "tc" (``bigru_bwd_tc_kernel``) for two directions with
-    bf16 streams where ``tc_plan_fits`` holds; else "cluster" (kLinear)."""
+    "unit" (``gru_bwd_unit_kernel``) at H <= ``UNIT_MAX_H``; "tc"
+    (``bigru_bwd_tc_kernel``) above it for two directions with bf16 streams
+    where ``tc_plan_fits`` holds; else "cluster" (kLinear) where a plan
+    fits, else "stream"."""
     return _route("bwd", hidden, dirs, dtype)
+
+
+def bigru_stream_plans(kind: str, batch: int, hidden: int,
+                       resident: Callable[[int, int], int], dirs: int = 2,
+                       wbytes: int = 4) -> List[Tuple[int, int]]:
+    """``rnn_cuda.stream_plans`` of the BiGRU stream kernel ``kind`` ("fwd"
+    or "bwd"): every ``(cluster, rows)`` it takes, fastest first."""
+    return stream_plans(f"bigru_{kind}", batch, hidden, resident, dirs,
+                        wbytes)
 
 
 # ---------------------------------------------------------------------------
@@ -775,13 +821,22 @@ def _library(name: str):
                    f"bigru_fwd_train_{sfx}": (12, 5),
                    f"gru_fwd_train_{sfx}": (6, 6),
                    f"gru_fwd_unit_{sfx}": (4, 5),
-                   f"gru_fwd_unit_train_{sfx}": (6, 5)}
+                   f"gru_fwd_unit_train_{sfx}": (6, 5),
+                   f"bigru_fwd_unit_{sfx}": (8, 4),
+                   f"bigru_fwd_unit_train_{sfx}": (12, 4),
+                   f"bigru_fwd_stream_{sfx}": (8, 5),
+                   f"bigru_fwd_train_stream_{sfx}": (12, 5),
+                   f"gru_fwd_stream_{sfx}": (4, 6),
+                   f"gru_fwd_train_stream_{sfx}": (6, 6)}
         else:
             fns = {f"bigru_bwd_{sfx}": (14, 5),
                    f"bigru_bwd_split_{sfx}": (14, 5),
                    f"bigru_bwd_fused_{sfx}": (28, 6),
                    f"gru_bwd_{sfx}": (7, 6),
-                   f"gru_bwd_unit_{sfx}": (7, 5)}
+                   f"gru_bwd_unit_{sfx}": (7, 5),
+                   f"bigru_bwd_unit_{sfx}": (14, 4),
+                   f"bigru_bwd_stream_{sfx}": (14, 5),
+                   f"gru_bwd_stream_{sfx}": (7, 6)}
         for fn_name, (n_ptr, n_int) in fns.items():
             fn = getattr(lib, fn_name)
             fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
@@ -804,6 +859,13 @@ def _library(name: str):
         fn.argtypes = [i] * 4
         fn.restype = ctypes.c_int
     check_tc_mirror(getattr(lib, f"{name}_tc_layout"), name[len("bigru_"):])
+    # the stream kernel: the bf16 and kSave flags, H, C, R; H, C, R
+    for query, n_int in (("stream_max_active_clusters", 5),
+                         ("stream_smem_bytes", 3)):
+        fn = getattr(lib, f"{name}_{query}")
+        fn.argtypes = [i] * n_int
+        fn.restype = ctypes.c_int
+    check_stream_mirror(getattr(lib, f"{name}_stream_smem_bytes"), name)
     # (kind,) H, C, R
     smem_query = getattr(lib, f"{name}_smem_bytes")
     smem_query.argtypes = [i] * (3 if fwd else 4)
@@ -868,6 +930,31 @@ def _tc_resident(kind: str, H: int, dev: torch.device, save: bool):
 
     return (lib, resident,
             torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+def _stream_resident(kind: str, H: int, dev: torch.device, T, save: bool):
+    """The kernel library of the stream kernel ``kind`` ("fwd" or "bwd")
+    and ``resident(cluster, rows)``: how many clusters of that plan the
+    card ``dev`` runs at once."""
+    lib = _library(f"bigru_{kind}")
+    query = getattr(lib, f"bigru_{kind}_stream_max_active_clusters")
+
+    def resident(c, rows):
+        with torch.cuda.device(dev):
+            return query(int(T == torch.bfloat16), int(save), H, c, rows)
+
+    return lib, resident
+
+
+def card_stream_plans(kind: str, B: int, H: int, dev: torch.device,
+                      dtype: torch.dtype, save: bool = False,
+                      dirs: int = 2) -> List[Tuple[int, int]]:
+    """``bigru_stream_plans`` of the stream kernel ``kind`` ("fwd" or
+    "bwd") on the card ``dev`` (its own counts), fastest first; the first
+    is the plan a launch takes."""
+    return bigru_stream_plans(
+        kind, B, H, _stream_resident(kind, H, dev, dtype, save)[1], dirs,
+        dtype.itemsize)
 
 
 def card_tc_plans(kind: str, B: int, H: int, dev: torch.device
@@ -959,21 +1046,76 @@ def _tc_plan_launch(kind: str, fn, B: int, H: int, dev: torch.device,
     return lib, fn.last_launch["cluster"], fn.last_launch["rows"]
 
 
+def _stream_plan_launch(kind: str, fn, B: int, H: int, dev: torch.device,
+                        T, save: bool, dirs: int,
+                        plan: Optional[Tuple[int, int]] = None):
+    """The launch's ``(cluster, rows)`` for the stream kernel ``kind``
+    ("fwd" or "bwd") over ``dirs`` directions: ``bigru_stream_plans``' pick
+    with the card's own counts, or the caller's ``plan``, refused unless
+    ``_stream_rule`` holds and the card runs at least one such cluster.
+    Recorded with the number of the grid's clusters in
+    ``fn.last_launch``."""
+    lib, resident = _stream_resident(kind, H, dev, T, save)
+    key = ("stream", kind, B, H, str(dev), T, save, dirs, plan)
+    if key not in _PLANS:
+        if plan is None:
+            plans = bigru_stream_plans(kind, B, H, resident, dirs,
+                                       T.itemsize)
+            if not plans:
+                raise ValueError(f"bigru_{kind}_stream: no plan of 1 to "
+                                 f"{STREAM_MAX_CLUSTER} blocks takes H={H} "
+                                 f"on {card_name(dev)}")
+            cluster, rows = plans[0]
+        else:
+            cluster, rows = plan
+            if not _stream_rule(f"bigru_{kind}", H, cluster, rows):
+                raise ValueError(
+                    f"bigru_{kind}_stream: plan {cluster}x{rows} does not fit"
+                    f" H={H}: 1 to {STREAM_MAX_CLUSTER} blocks each owning a"
+                    f" unit, the tile a multiple of {ROWS_PER_THREAD}, at "
+                    f"most {MAX_THREADS} threads and {MAX_SMEM_BYTES} bytes"
+                    " a block")
+            if resident(cluster, rows) <= 0:
+                raise ValueError(f"bigru_{kind}_stream: the card runs no "
+                                 f"cluster of plan {cluster}x{rows} at once")
+        _PLANS[key] = {"kernel": "stream", "cluster": cluster, "rows": rows,
+                       "clusters": dirs * -(-B // rows),
+                       "resident": resident(cluster, rows)}
+    fn.last_launch = _PLANS[key]
+    return lib, fn.last_launch["cluster"], fn.last_launch["rows"]
+
+
 def _bigru_kernel(kind: str, H: int, T: torch.dtype, plan):
     """The kernel a two-direction launch of ``kind`` ("fwd" or "bwd")
-    takes, "tc" or "cluster", and the plan the caller forces (None: the
-    planner's): ``plan=None`` follows the route, ``(cluster, rows)`` forces
-    the cluster kernel, ``("tc", cluster, rows)`` the tensor-core kernel,
-    refused for float32 streams."""
+    takes, "unit", "tc", "cluster" or "stream", and the plan the caller
+    forces (None: the planner's): ``plan=None`` follows the route,
+    ``(cluster, rows)`` forces the cluster kernel, ``("unit", rows)`` the
+    unit kernel, ``("stream", cluster, rows)`` the stream kernel, ``("tc",
+    cluster, rows)`` the tensor-core kernel, refused for float32
+    streams."""
     if plan is None:
         route = gru_fwd_kernel_route if kind == "fwd" else gru_bwd_kernel_route
         return route(H, 2, T), None
-    if plan[0] != "tc":
+    if plan[0] not in ("tc", "unit", "stream"):
         return "cluster", tuple(plan)
-    if T != torch.bfloat16:
+    if plan[0] == "tc" and T != torch.bfloat16:
         raise ValueError(f"bigru_{kind}: the tensor-core kernel takes "
                          f"bfloat16 streams, not {T}")
-    return "tc", tuple(plan[1:])
+    if plan[0] == "unit" and H > UNIT_MAX_H:
+        raise ValueError(f"bigru_{kind}: the unit kernel takes H <= "
+                         f"{UNIT_MAX_H}, not {H}")
+    return plan[0], tuple(plan[1:])
+
+
+def _unit_rows(fn, src: str, B: int, H: int, dev, T, save: bool,
+               dirs: int, forced):
+    """The kernel library and batch tile of a unit-kernel launch of
+    ``src`` ("gru_fwd" or "gru_bwd", the unit queries' name) over ``dirs``
+    directions: ``rnn_cuda.unit_launch_rows``, the caller's ``forced``
+    tile or the planner's."""
+    lib = _library(f"bi{src}")
+    return lib, unit_launch_rows(fn, lib, src, B, H, dev, T, save, dirs,
+                                 None if forced is None else forced[0])
 
 
 def _fwd_launch(fn, save: bool, plan, xg_f, xg_b, w_f, b_f, w_b, b_b):
@@ -989,17 +1131,26 @@ def _fwd_launch(fn, save: bool, plan, xg_f, xg_b, w_f, b_f, w_b, b_b):
     if B == 0 or N == 0:
         return tuple(outs)
     kernel, forced = _bigru_kernel("fwd", H, T, plan)
-    if kernel == "tc":
+    if kernel == "unit":
+        lib, rows = _unit_rows(fn, "gru_fwd", B, H, dev, T, save, 2, forced)
+        name = "bigru_fwd_unit_train" if save else "bigru_fwd_unit"
+        plan_ints = (rows,)
+    elif kernel == "tc":
         lib, cluster, rows = _tc_plan_launch("fwd", fn, B, H, dev, save,
                                              forced)
-        name = f"{name}_tc"
+        name, plan_ints = f"{name}_tc", (cluster, rows)
+    elif kernel == "stream":
+        lib, cluster, rows = _stream_plan_launch("fwd", fn, B, H, dev, T,
+                                                 save, 2, forced)
+        name, plan_ints = f"{name}_stream", (cluster, rows)
     else:
         lib, cluster, rows = _plan_launch("fwd", fn, B, H, dev, T, save, 2,
                                           forced)
+        plan_ints = (cluster, rows)
     w_f, w_b = w_f.to(T).contiguous(), w_b.to(T).contiguous()
     launch(lib, f"{name}_{_SUFFIX[T]}", dev,
            *(t.data_ptr() for t in (xg_f, xg_b, w_f, b_f, w_b, b_b)),
-           *(o.data_ptr() for o in outs), B, N, H, cluster, rows)
+           *(o.data_ptr() for o in outs), B, N, H, *plan_ints)
     fn.launches += 1
     return tuple(outs)
 
@@ -1008,9 +1159,10 @@ def bigru_fwd_cuda(xg_f, xg_b, w_f, b_f, w_b, b_b,
                    plan: Optional[tuple] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the light kernel of ``csrc/bigru_fwd.cu`` on the current
-    stream: ``(ys_f, ys_b)``. ``gru_fwd_kernel_route`` picks the
-    tensor-core kernel or the cluster kernel; ``plan=(cluster, rows)``
-    forces the cluster kernel's plan, ``plan=("tc", cluster, rows)`` the
+    stream: ``(ys_f, ys_b)``. ``gru_fwd_kernel_route`` picks the unit,
+    tensor-core, cluster or stream kernel; ``plan=(cluster, rows)`` forces
+    the cluster kernel's plan, ``plan=("unit", rows)``, ``("stream",
+    cluster, rows)`` or ``("tc", cluster, rows)`` the unit, stream or
     tensor-core kernel's (raises if it does not fit). Records the plan in
     ``bigru_fwd_cuda.last_launch`` and counts each launch in
     ``bigru_fwd_cuda.launches``. Its outputs carry no autograd history:
@@ -1053,17 +1205,26 @@ def _bwd_launch(fn, kind: str, plan, w_f, w_b, gs_f, hn_f, ys_f, dy_f,
         return tuple(outs)
     kernel, forced = ("cluster", plan) if kind == "split" \
         else _bigru_kernel("bwd", H, T, plan)
-    if kernel == "tc":
+    if kernel == "unit":
+        lib, rows = _unit_rows(fn, "gru_bwd", B, H, dev, T, False, 2, forced)
+        name, plan_ints = "bigru_bwd_unit", (rows,)
+    elif kernel == "tc":
         lib, cluster, rows = _tc_plan_launch("bwd", fn, B, H, dev, False,
                                              forced)
-        name = f"{name}_tc"
+        name, plan_ints = f"{name}_tc", (cluster, rows)
+    elif kernel == "stream":
+        lib, cluster, rows = _stream_plan_launch("bwd", fn, B, H, dev, T,
+                                                 False, 2, forced)
+        name, plan_ints = f"{name}_stream", (cluster, rows)
     else:
         lib, cluster, rows = _plan_launch(kind, fn, B, H, dev, T, False, 2,
                                           forced)
-    w_f, w_b = w_f.to(T).contiguous(), w_b.to(T).contiguous()
+        plan_ints = (cluster, rows)
+    w_f, w_b = bwd_weights(kernel, (w_f.to(T).contiguous(),
+                                    w_b.to(T).contiguous()))
     launch(lib, f"{name}_{_SUFFIX[T]}", dev,
            *(t.data_ptr() for t in (w_f, w_b, *streams)),
-           *(o.data_ptr() for o in outs), B, N, H, cluster, rows)
+           *(o.data_ptr() for o in outs), B, N, H, *plan_ints)
     fn.launches += 1
     return tuple(outs)
 
@@ -1071,11 +1232,13 @@ def _bwd_launch(fn, kind: str, plan, w_f, w_b, gs_f, hn_f, ys_f, dy_f,
 def bigru_bwd_cuda(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b, dy_b,
                    plan: Optional[tuple] = None):
     """Launch ``csrc/bigru_bwd.cu`` (#6): ``(dx_f, dhn_f, dx_b, dhn_b)``.
-    ``gru_bwd_kernel_route`` picks the tensor-core kernel or kLinear's
-    cluster kernel; ``plan=(cluster, rows)`` forces the cluster kernel's
-    plan, ``plan=("tc", cluster, rows)`` the tensor-core kernel's (raises
-    if it does not fit). Records the plan in ``bigru_bwd_cuda.last_launch``
-    and counts each launch in ``bigru_bwd_cuda.launches``."""
+    ``gru_bwd_kernel_route`` picks the unit kernel (both directions in one
+    launch), the tensor-core kernel, kLinear's cluster kernel or the stream
+    kernel; ``plan=(cluster, rows)`` forces the cluster kernel's plan,
+    ``plan=("unit", rows)``, ``("stream", cluster, rows)`` or ``("tc",
+    cluster, rows)`` the unit, stream or tensor-core kernel's (raises if it
+    does not fit). Records the plan in ``bigru_bwd_cuda.last_launch`` and
+    counts each launch in ``bigru_bwd_cuda.launches``."""
     return _bwd_launch(bigru_bwd_cuda, "bwd", plan, w_f, w_b, gs_f, hn_f,
                        ys_f, dy_f, gs_b, hn_b, ys_b, dy_b)
 
@@ -1158,31 +1321,37 @@ def _gru_launch(fn, name: str, route, save: bool, ptrs, B, N, H, dev, T,
                 reverse: bool, plan):
     """Launch one direction of a GRU: ``name`` "gru_fwd" or
     "gru_fwd_train" (``csrc/bigru_fwd.cu``) or "gru_bwd"
-    (``csrc/bigru_bwd.cu``) on the pointers ``ptrs``, on the unit kernel
-    (``rnn_cuda.unit_plan``'s tile) or the cluster kernel (``bigru_plan``'s
-    plan) as ``route(H, 1)`` says, or as the caller's ``plan`` ("unit",
-    rows) or ("cluster", cluster, rows) forces; counted and recorded on
-    ``fn``."""
+    (``csrc/bigru_bwd.cu``) on the tensors ``ptrs`` (the BPTT's: W_hh
+    first), on
+    the unit kernel (``rnn_cuda.unit_plan``'s tile), the cluster kernel
+    (``bigru_plan``'s plan) or the stream kernel (``bigru_stream_plans``'
+    plan; the BPTT's reads W_hh^T) as ``route(H, 1)`` says, or as the
+    caller's ``plan`` ("unit", rows), ("cluster", cluster, rows) or
+    ("stream", cluster, rows) forces; counted and recorded on ``fn``."""
     src = name[:len("gru_fwd")]          # the unit queries' name
     kernel = route(H, 1) if plan is None else plan[0]
+    forced = None if plan is None else tuple(plan[1:])
+    sfx = _SUFFIX[T]
     if kernel == "unit":
         if H > UNIT_MAX_H:
             raise ValueError(f"{name}: the unit kernel takes H <= "
                              f"{UNIT_MAX_H}, not {H}")
-        lib = _library(f"bi{src}")
-        rows = unit_launch_rows(fn, lib, src, B, H, dev, T, save, 1,
-                                None if plan is None else plan[1])
-        launch(lib, f"{src}_unit{name[len(src):]}_{_SUFFIX[T]}", dev, *ptrs,
-               B, N, H, rows, int(reverse))
-    elif kernel == "cluster":
-        lib, cluster, rows = _plan_launch(src[len("gru_"):], fn, B, H, dev,
-                                          T, save, 1,
-                                          None if plan is None else plan[1:])
-        launch(lib, f"{name}_{_SUFFIX[T]}", dev, *ptrs, B, N, H, cluster,
-               rows, int(reverse))
+        lib, rows = _unit_rows(fn, src, B, H, dev, T, save, 1, forced)
+        entry, plan_ints = f"{src}_unit{name[len(src):]}", (rows,)
+    elif kernel in ("cluster", "stream"):
+        plan_of = _plan_launch if kernel == "cluster" else _stream_plan_launch
+        lib, cluster, rows = plan_of(src[len("gru_"):], fn, B, H, dev, T,
+                                     save, 1, forced)
+        entry = name if kernel == "cluster" else f"{name}_stream"
+        plan_ints = (cluster, rows)
     else:
-        raise ValueError(f"{name}: plan must be ('unit', rows) or "
-                         f"('cluster', cluster, rows), got {plan}")
+        raise ValueError(f"{name}: plan must be ('unit', rows), ('cluster', "
+                         f"cluster, rows) or ('stream', cluster, rows), got "
+                         f"{plan}")
+    if src == "gru_bwd":
+        ptrs = [*bwd_weights(kernel, ptrs[:1]), *ptrs[1:]]
+    launch(lib, f"{entry}_{sfx}", dev, *(t.data_ptr() for t in ptrs), B, N,
+           H, *plan_ints, int(reverse))
     fn.launches += 1
 
 
@@ -1198,9 +1367,8 @@ def _gru_fwd_launch(fn, save: bool, xg, w, b, reverse: bool, plan):
     if B == 0 or N == 0:
         return tuple(outs)
     w = w.to(T).contiguous()
-    _gru_launch(fn, name, gru_fwd_kernel_route, save,
-                [t.data_ptr() for t in (xg, w, b, *outs)], B, N, H, dev, T,
-                reverse, plan)
+    _gru_launch(fn, name, gru_fwd_kernel_route, save, [xg, w, b, *outs], B,
+                N, H, dev, T, reverse, plan)
     return tuple(outs)
 
 
@@ -1261,8 +1429,7 @@ def gru_bwd_cuda(w, gs, hn, ys, dy, reverse: bool = False,
         return tuple(outs)
     w = w.to(T).contiguous()
     _gru_launch(gru_bwd_cuda, "gru_bwd", gru_bwd_kernel_route, False,
-                [t.data_ptr() for t in (w, *streams, *outs)], B, N, H, dev, T,
-                reverse, plan)
+                [w, *streams, *outs], B, N, H, dev, T, reverse, plan)
     return tuple(outs)
 
 

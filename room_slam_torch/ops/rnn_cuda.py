@@ -25,7 +25,7 @@ PyTorch version beside it:
 - ``bilstm_bwd`` (``csrc/bilstm_bwd.cu``): reverse-time BPTT from those
   residuals to the gate cotangent ``dg [B, N, 4H]`` per direction.
 
-Each source holds four kernels. At H <= ``UNIT_MAX_H`` (64, the
+Each source holds five kernels. At H <= ``UNIT_MAX_H`` (64, the
 flagship's and the legacy LSTM's width) the unit kernel runs: four lanes of
 a warp own one hidden unit of a tile of 1, 2 or 4 batch rows, W_hh (the
 forward's columns, the BPTT's row) in their registers, one block barrier a
@@ -38,7 +38,11 @@ of up to 16 blocks, each block's slice held in registers, h (the BPTT:
 partial sums of dh) exchanged by ``st.async`` on mbarriers;
 ``lstm_reg_plan`` picks the cluster and the batch tile from the card's own
 counts. The first cluster kernel ("cluster": the slice in shared memory, a
-cluster barrier a step) stays for the A/B, reached by a forced plan.
+cluster barrier a step) stays for the A/B, reached by a forced plan. Above
+``CLUSTER_MAX_H``, where no block holds its share of W_hh, the stream
+kernel ("stream": the first cluster kernel reading its slice of W_hh from
+global memory every step, clusters of up to 16 blocks) takes every width
+whose exchange tile fits a block; ``lstm_stream_plan`` picks its plan.
 ``lstm_fwd_kernel_route`` and ``lstm_bwd_kernel_route`` choose, and each
 launch records its kernel and plan in the wrapper's ``last_launch``.
 
@@ -111,6 +115,22 @@ REG_STAGES = 3    # output staging slots (kRegStages)
 # A step's fixed part (the exchange, the lane reduction, the gate math) in
 # thread-rows of a block's FMA issue, for rank_reg_plans' cost model
 REG_STEP_FIXED = 2400
+
+# The stream kernels (the first cluster kernels of the four sources with
+# kStream: W_hh read from global memory every step): clusters of 1 to
+# STREAM_MAX_CLUSTER blocks (kStreamMaxC), the exchange tile's rows padded
+# to whole chunks of STREAM_K (kStreamK: the values of k, or of j in the
+# BPTT, whose W_hh a thread has in flight); the tile's rows in units of H
+# by source (h: H; the BPTT's dg: 4H and 3H)
+STREAM_MAX_CLUSTER = 16
+STREAM_K = 8
+STREAM_GATES = {"bilstm_fwd": 1, "bilstm_bwd": 4, "bigru_fwd": 1,
+                "bigru_bwd": 3}
+# stream_plans' cost model, an H100's rates a cycle: FMAs one SM issues, L2
+# bytes one SM and the whole card read
+STREAM_SM_FMA = 128
+STREAM_SM_L2 = 32
+STREAM_CARD_L2 = 3072
 
 
 def bilstm_smem_bytes(hidden: int) -> int:
@@ -451,6 +471,114 @@ def lstm_reg_plan(kind: str, batch: int, hidden: int,
     return plans[0]
 
 
+def stream_smem_bytes(source: str, hidden: int, rows: int) -> int:
+    """Dynamic shared memory of a block of the stream kernel of ``source``
+    (``stream_smem_bytes`` of the sources): the double-buffered exchange
+    tile of ``STREAM_GATES[source]`` x H rows (h: H; the BPTT's dg: 4H or
+    3H) padded to whole chunks of ``STREAM_K``, ``rows`` float32 columns;
+    no W_hh slice."""
+    tile = STREAM_GATES[source] * hidden
+    return 2 * (-(-tile // STREAM_K) * STREAM_K) * rows * 4
+
+
+def _stream_rule(source: str, hidden: int, cluster: int, rows: int) -> bool:
+    """The plan rule of the stream kernel of ``source``
+    (``valid_stream_plan``): any H, a cluster of 1 to
+    ``STREAM_MAX_CLUSTER`` blocks each owning a unit at least, a tile a
+    multiple of ``ROWS_PER_THREAD``, at most ``MAX_THREADS`` threads and
+    ``MAX_SMEM_BYTES`` bytes a block."""
+    if not (hidden > 0 and 1 <= cluster <= STREAM_MAX_CLUSTER and rows > 0
+            and rows % ROWS_PER_THREAD == 0):
+        return False
+    U = slice_units(hidden, cluster)
+    return ((cluster - 1) * U < hidden
+            and U * (rows // ROWS_PER_THREAD) <= MAX_THREADS
+            and stream_smem_bytes(source, hidden, rows) <= MAX_SMEM_BYTES)
+
+
+def stream_takes(source: str, hidden: int) -> bool:
+    """Whether any plan of the stream kernel of ``source`` takes H."""
+    return any(_stream_rule(source, hidden, c, rows)
+               for c in range(1, STREAM_MAX_CLUSTER + 1)
+               for rows in range(ROWS_PER_THREAD, MAX_ROWS + 1,
+                                 ROWS_PER_THREAD))
+
+
+def stream_refusal(source: str, hidden: int) -> str:
+    """Why no stream plan of ``source`` takes H: its exchange tile at the
+    smallest batch tile (or a block's threads) against the card's limits."""
+    need = stream_smem_bytes(source, hidden, ROWS_PER_THREAD)
+    return (f"the stream kernel's exchange tile of {STREAM_GATES[source]} x "
+            f"H rows needs "
+            f"{need} bytes a block at {ROWS_PER_THREAD} rows, over the "
+            f"{MAX_SMEM_BYTES} an H100 block can have")
+
+
+def check_stream_mirror(smem_query, source: str) -> None:
+    """Hold ``_stream_rule`` and ``stream_smem_bytes`` to a built source's
+    ``<source>_stream_smem_bytes(H, C, R)`` (bytes, or -1 for a plan it
+    does not take) over H, every cluster size to one past the largest and a
+    few tiles; raises naming the first plan where they differ."""
+    for hidden in (1, 7, 64, 139, 256, 257, 260, 320, 511, 512, 1024, 1816,
+                   1817, 2422, 7265):
+        for c in range(1, STREAM_MAX_CLUSTER + 2):
+            for rows in (3, 4, 8, 12, 32, 64):
+                want = (stream_smem_bytes(source, hidden, rows)
+                        if _stream_rule(source, hidden, c, rows) else -1)
+                got = smem_query(hidden, c, rows)
+                if got != want:
+                    raise RuntimeError(
+                        f"{source}_stream: the wrapper's plan mirror gives "
+                        f"{want} bytes at H={hidden}, plan {c}x{rows}, the "
+                        f"built source {got}: update STREAM_* or "
+                        "stream_smem_bytes to match the source")
+
+
+def rank_stream_plans(plans, batch: int, hidden: int,
+                      resident: Callable[[int, int], int], dirs: int,
+                      wbytes: int) -> List[Tuple[int, int]]:
+    """The ``(cluster, rows)`` plans of a stream kernel, fastest first.
+
+    A block of U = ``slice_units`` units a step issues U x rows FMAs for
+    each of the gates x H (gate, k) pairs and reads U values of W_hh of
+    ``wbytes`` bytes for each through L2; the blocks of a wave together
+    read that many times more through the card's L2. So a step costs, per
+    (gate, k), the largest of U x rows / ``STREAM_SM_FMA``, U x wbytes /
+    ``STREAM_SM_L2`` and the wave's blocks x U x wbytes /
+    ``STREAM_CARD_L2`` cycles, times the waves of the grid of ``dirs``
+    directions (``resident(cluster, rows)`` clusters at once, the card's
+    own count; a plan the card runs none of is dropped). Ties go to the
+    plan that walks fewer rows past the batch, then the smaller tile, then
+    the larger cluster."""
+    keys = []
+    for c, rows in plans:
+        at_once = resident(c, rows)
+        if at_once <= 0:
+            continue
+        tiles = dirs * -(-batch // rows)
+        U = slice_units(hidden, c)
+        blocks = min(tiles, at_once) * c
+        step = max(U * rows / STREAM_SM_FMA, U * wbytes / STREAM_SM_L2,
+                   blocks * U * wbytes / STREAM_CARD_L2)
+        keys.append((-(-tiles // at_once) * step, tiles * rows, rows, -c,
+                     c))
+    return [(c, rows) for *_, rows, _, c in sorted(keys)]
+
+
+def stream_plans(source: str, batch: int, hidden: int,
+                 resident: Callable[[int, int], int], dirs: int = 2,
+                 wbytes: int = 4) -> List[Tuple[int, int]]:
+    """Every ``(cluster, rows)`` the stream kernel of ``source`` takes at
+    this batch and H over ``dirs`` directions, tiles up to ``MAX_ROWS``,
+    fastest first (``rank_stream_plans``; ``wbytes``: bytes of a W_hh
+    value, the stream dtype's)."""
+    return rank_stream_plans(
+        [(c, rows) for c in range(1, STREAM_MAX_CLUSTER + 1)
+         for rows in range(ROWS_PER_THREAD, MAX_ROWS + 1, ROWS_PER_THREAD)
+         if _stream_rule(source, hidden, c, rows)],
+        batch, hidden, resident, dirs, wbytes)
+
+
 def _lstm_route(kind: str, hidden: int, wide: bool, wide_smem: int) -> str:
     name = f"bilstm_{kind}"
     if hidden <= 0:
@@ -462,11 +590,13 @@ def _lstm_route(kind: str, hidden: int, wide: bool, wide_smem: int) -> str:
     if any(_reg_rule(kind, hidden, c, rows)
            for c in range(1, REG_MAX_CLUSTER + 1) for rows in REG_ROWS[kind]):
         return "reg"
+    if stream_takes(name, hidden):
+        return "stream"
     raise ValueError(
-        f"{name}: no kernel takes H={hidden}: the unit kernel holds "
-        f"H <= {UNIT_MAX_H}, the wide kernel needs {wide_smem} bytes of "
-        f"shared memory per block, over the {MAX_SMEM_BYTES} a block can "
-        f"have, and the cluster kernels take H <= {CLUSTER_MAX_H}")
+        f"{name}: no kernel takes H={hidden} on this card: the unit kernel "
+        f"holds H <= {UNIT_MAX_H}, the wide kernel needs {wide_smem} bytes "
+        f"of shared memory per block, the register cluster kernel takes "
+        f"H <= {CLUSTER_MAX_H}, and {stream_refusal(name, hidden)}")
 
 
 def lstm_fwd_kernel_route(hidden: int) -> str:
@@ -474,9 +604,10 @@ def lstm_fwd_kernel_route(hidden: int) -> str:
     ``hidden`` (whatever the batch, stream dtype or direction count):
     "unit" up to ``UNIT_MAX_H``, else "wide" where its W_hh fits one
     block's shared memory (H <= 118), else "reg" (the register cluster
-    kernel) up to ``CLUSTER_MAX_H``. The first cluster kernel ("cluster")
-    is reached only by a forced plan. Raises, naming the width, for an H
-    none takes."""
+    kernel) up to ``CLUSTER_MAX_H``, else "stream" (the stream kernel)
+    where its h tile fits a block. The first cluster kernel ("cluster") is
+    reached only by a forced plan. Raises, naming the width and the card's
+    limit, for an H none takes."""
     return _lstm_route("fwd", hidden,
                        4 * hidden <= 512
                        and bilstm_smem_bytes(hidden) <= MAX_SMEM_BYTES,
@@ -496,9 +627,10 @@ def lstm_bwd_kernel_route(hidden: int) -> str:
     ``hidden`` (whatever the batch, stream dtype or direction count):
     "unit" (``bilstm_bwd_unit_kernel``) up to ``UNIT_MAX_H``, else "wide"
     where its W_hh^T and dg tile fit one block's shared memory (H <= 116),
-    else "reg" (the register cluster kernel) up to ``CLUSTER_MAX_H``; the
-    first cluster kernel is reached only by a forced plan. Raises, naming
-    the width, for an H none takes."""
+    else "reg" (the register cluster kernel) up to ``CLUSTER_MAX_H``, else
+    "stream" where its dg tile fits a block (H <= 1816); the first cluster
+    kernel is reached only by a forced plan. Raises, naming the width and
+    the card's limit, for an H none takes."""
     return _lstm_route("bwd", hidden,
                        bilstm_bwd_smem_bytes(hidden) <= MAX_SMEM_BYTES,
                        bilstm_bwd_smem_bytes(hidden))
@@ -801,7 +933,7 @@ def _library(name: str):
     # the cluster kernels: the pointers, then B, N, H, C, R (and reverse)
     for fn_name in [f for f in fns if not f.endswith("_unit")]:
         n_ptr, n_int = fns[fn_name]
-        for kernel in ("cluster", "reg"):
+        for kernel in ("cluster", "reg", "stream"):
             fns[f"{fn_name}_{kernel}"] = (
                 n_ptr, 5 + int(fn_name.startswith("lstm")))
     for fn_name, (n_ptr, n_int) in fns.items():
@@ -816,7 +948,9 @@ def _library(name: str):
     # the bf16 and kSave flags, then H, C, R; H, C, R; what, H, C, R
     for query, n_int in (("cluster_max_active_clusters", 5),
                          ("cluster_smem_bytes", 3),
-                         ("reg_max_active_clusters", 5), ("reg_layout", 4)):
+                         ("reg_max_active_clusters", 5), ("reg_layout", 4),
+                         ("stream_max_active_clusters", 5),
+                         ("stream_smem_bytes", 3)):
         fn = getattr(lib, f"{name}_{query}")
         fn.argtypes = [i] * n_int
         fn.restype = i
@@ -824,6 +958,7 @@ def _library(name: str):
                               name[len("bilstm_"):])
     check_reg_mirror(getattr(lib, f"{name}_reg_layout"),
                      name[len("bilstm_"):])
+    check_stream_mirror(getattr(lib, f"{name}_stream_smem_bytes"), name)
     set_error_string(lib, name)
     return lib
 
@@ -851,7 +986,8 @@ def _cluster_resident(source: str, H: int, dev: torch.device, T,
                       save: bool, kernel: str = "cluster"
                       ) -> Callable[[int, int], int]:
     """``resident(cluster, rows)``: how many clusters of that plan of the
-    LSTM cluster kernel ``kernel`` ("cluster" or "reg") of ``source``
+    LSTM cluster kernel ``kernel`` ("cluster", "reg" or "stream") of
+    ``source``
     ("bilstm_fwd" or "bilstm_bwd") the card ``dev`` runs at once."""
     query = getattr(_library(source),
                     f"{source}_{kernel}_max_active_clusters")
@@ -886,19 +1022,47 @@ def card_lstm_reg_plans(kind: str, B: int, H: int, dev: torch.device,
         dirs)
 
 
-def _plan_rules(kind: str, H: int):
-    """The register (``"reg"``) and first (``"cluster"``) cluster kernels'
-    plan test, planner and plan rule as text, for ``cluster_launch_plan``."""
+def card_lstm_stream_plans(kind: str, B: int, H: int, dev: torch.device,
+                           dtype: torch.dtype, save: bool,
+                           dirs: int) -> List[Tuple[int, int]]:
+    """``stream_plans`` of the LSTM stream kernel ``kind`` ("fwd" or "bwd")
+    on the card ``dev`` (its own counts), fastest first; the first is the
+    plan a launch takes."""
+    source = f"bilstm_{kind}"
+    return stream_plans(
+        source, B, H,
+        _cluster_resident(source, H, dev, dtype, save, "stream"), dirs,
+        dtype.itemsize)
+
+
+def card_name(dev: torch.device) -> str:
+    """The card's name, for an error that names where a plan failed."""
+    return (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else str(dev))
+
+
+def _plan_rules(kind: str, H: int, T: torch.dtype):
+    """The register (``"reg"``), first (``"cluster"``) and stream
+    (``"stream"``) cluster kernels' plan test, planners (every plan,
+    fastest first) and plan rule as text, for ``cluster_launch_plan``."""
+    source = f"bilstm_{kind}"
     return {
-        "reg": (lambda c, r: _reg_rule(kind, H, c, r), lstm_reg_plan,
-                f"1 to {REG_MAX_CLUSTER} blocks each owning a unit, a tile "
-                f"of {REG_ROWS[kind]} rows, at most {REG_MAX_THREADS} "
-                "threads"),
+        "reg": (lambda c, r: _reg_rule(kind, H, c, r), lstm_reg_plans,
+                f"H at most {CLUSTER_MAX_H}, 1 to {REG_MAX_CLUSTER} blocks "
+                f"each owning a unit, a tile of {REG_ROWS[kind]} rows, at "
+                f"most {REG_MAX_THREADS} threads"),
         "cluster": (lambda c, r: lstm_cluster_fits(kind, H, c, r),
-                    lstm_cluster_plan,
-                    f"a cluster of {CLUSTER_SIZES} blocks each owning a unit,"
-                    f" the tile a multiple of {ROWS_PER_THREAD}, at most "
-                    f"{MAX_THREADS} threads")}
+                    lstm_cluster_plans,
+                    f"H at most {CLUSTER_MAX_H}, a cluster of "
+                    f"{CLUSTER_SIZES} blocks each owning a unit, the tile a "
+                    f"multiple of {ROWS_PER_THREAD}, at most {MAX_THREADS} "
+                    "threads"),
+        "stream": (lambda c, r: _stream_rule(source, H, c, r),
+                   lambda kind_, B, H_, res, dirs: stream_plans(
+                       source, B, H_, res, dirs, T.itemsize),
+                   f"1 to {STREAM_MAX_CLUSTER} blocks each owning a unit, "
+                   f"the tile a multiple of {ROWS_PER_THREAD}, at most "
+                   f"{MAX_THREADS} threads")}
 
 
 def cluster_launch_plan(fn, source: str, B: int, H: int, dev: torch.device,
@@ -907,24 +1071,28 @@ def cluster_launch_plan(fn, source: str, B: int, H: int, dev: torch.device,
                         kernel: str = "reg") -> Tuple[int, int]:
     """``(cluster, rows)`` of a launch of the LSTM cluster kernel
     ``kernel`` ("reg": the register cluster kernel, "cluster": the first
-    design) of ``source``: its planner's pick with the card's own counts,
-    or the caller's ``plan``, refused unless it fits and the card runs such
-    a cluster. Recorded with the grid's cluster count in
-    ``fn.last_launch``."""
+    design, "stream": the stream kernel) of ``source``: its planner's pick
+    with the card's own counts, or the caller's ``plan``, refused unless it
+    fits and the card runs such a cluster. Recorded with the grid's cluster
+    count in ``fn.last_launch``."""
     kind = source[len("bilstm_"):]
     key = (source, kernel, B, H, str(dev), T, save, dirs, plan)
     if key not in _CLUSTER_PLANS:
-        fits, planner, rule = _plan_rules(kind, H)[kernel]
+        fits, planner, rule = _plan_rules(kind, H, T)[kernel]
         resident = _cluster_resident(source, H, dev, T, save, kernel)
         if plan is None:
-            cluster, rows = planner(kind, B, H, resident, dirs)
+            plans = planner(kind, B, H, resident, dirs)
+            if not plans:
+                raise ValueError(f"{source}: no {kernel} plan ({rule}) takes "
+                                 f"H={H} on {card_name(dev)}")
+            cluster, rows = plans[0]
         else:
             cluster, rows = plan
             if not fits(cluster, rows):
                 raise ValueError(
                     f"{source}: {kernel} plan {cluster}x{rows} does not fit "
-                    f"H={H}: H at most {CLUSTER_MAX_H}, {rule} and "
-                    f"{MAX_SMEM_BYTES} bytes of shared memory a block")
+                    f"H={H}: {rule} and {MAX_SMEM_BYTES} bytes of shared "
+                    "memory a block")
             if resident(cluster, rows) <= 0:
                 raise ValueError(f"{source}: the card runs no cluster of "
                                  f"{kernel} plan {cluster}x{rows} at once")
@@ -1063,7 +1231,7 @@ def _smem(source: str, H: int, plan) -> int:
     if kernel == "unit":
         return unit_smem_bytes(max(UNIT_ROWS),
                                tiles=1 if source == "bilstm_fwd" else 4)
-    if kernel in ("cluster", "reg"):
+    if kernel in ("cluster", "reg", "stream"):
         return 0
     return (bilstm_smem_bytes if source == "bilstm_fwd"
             else bilstm_bwd_smem_bytes)(H)
@@ -1071,13 +1239,14 @@ def _smem(source: str, H: int, plan) -> int:
 
 def _plan(fn, source: str, name: str, B: int, H: int, dev, T, save: bool,
           dirs: int, plan):
-    """The kernel library, the kernel ("unit", "wide", "reg" or
+    """The kernel library, the kernel ("unit", "wide", "reg", "stream" or
     "cluster") and the plan's integers of a launch of ``source``
     ("bilstm_fwd" or "bilstm_bwd"): the route's kernel with ``unit_plan``'s
-    tile ``(rows,)``, the wide kernel's ``(4,)`` or ``lstm_reg_plan``'s
-    ``(cluster, rows)``; or the caller's ``plan`` ("unit", rows), ("wide",
-    4), ("reg", cluster, rows) or ("cluster", cluster, rows), the first
-    cluster kernel's. Recorded in ``fn.last_launch``."""
+    tile ``(rows,)``, the wide kernel's ``(4,)``, ``lstm_reg_plan``'s or
+    ``stream_plans``' ``(cluster, rows)``; or the caller's ``plan``
+    ("unit", rows), ("wide", 4), ("reg", cluster, rows), ("stream",
+    cluster, rows) or ("cluster", cluster, rows), the first cluster
+    kernel's. Recorded in ``fn.last_launch``."""
     kernel = _kernel(source, H, plan)
     lib = _library(source)
     forced = None if plan is None else tuple(plan[1:])
@@ -1088,13 +1257,14 @@ def _plan(fn, source: str, name: str, B: int, H: int, dev, T, save: bool,
         return lib, kernel, (unit_launch_rows(
             fn, lib, source, B, H, dev, T, save, dirs,
             None if forced is None else forced[0]),)
-    if kernel in ("cluster", "reg"):
+    if kernel in ("cluster", "reg", "stream"):
         return lib, kernel, cluster_launch_plan(fn, source, B, H, dev, T,
                                                 save, dirs, forced, kernel)
     if kernel != "wide" or forced not in (None, (_ROWS_PER_BLOCK,)):
         raise ValueError(f"{name}: plan must be ('unit', rows), ('wide', "
-                         f"{_ROWS_PER_BLOCK}), ('reg', cluster, rows) or "
-                         f"('cluster', cluster, rows), got {plan}")
+                         f"{_ROWS_PER_BLOCK}), ('reg', cluster, rows), "
+                         "('stream', cluster, rows) or ('cluster', cluster, "
+                         f"rows), got {plan}")
     fn.last_launch = {"kernel": "wide", "cluster": 1,
                       "rows": _ROWS_PER_BLOCK,
                       "clusters": dirs * -(-B // _ROWS_PER_BLOCK),
@@ -1104,9 +1274,10 @@ def _plan(fn, source: str, name: str, B: int, H: int, dev, T, save: bool,
 
 def _fwd_plan_args(lib_name: str, kernel: str, ints) -> Tuple[str, tuple]:
     """The entry point of ``csrc/bilstm_fwd.cu`` and the plan's integers
-    it takes: the cluster entries (``<name>_reg_*``, ``<name>_cluster_*``)
-    take (C, R), the others the unit tile or 4 and the wide flag."""
-    if kernel in ("cluster", "reg"):
+    it takes: the cluster entries (``<name>_reg_*``, ``<name>_stream_*``,
+    ``<name>_cluster_*``) take (C, R), the others the unit tile or 4 and
+    the wide flag."""
+    if kernel in ("cluster", "reg", "stream"):
         return f"{lib_name}_{kernel}", tuple(ints)
     return lib_name, (ints[0], int(kernel == "wide"))
 
@@ -1166,17 +1337,29 @@ def bilstm_fwd_train_cuda(xg_f: torch.Tensor, xg_b: torch.Tensor,
 bilstm_fwd_train_cuda.launches = 0
 
 
+def bwd_weights(kernel: str, weights) -> list:
+    """The BPTT's W_hh as a launch of ``kernel`` reads it: the stream
+    kernels read W_hh^T (a contiguous transposed copy, so that consecutive
+    threads read consecutive units), every other kernel W_hh itself."""
+    if kernel == "stream":
+        return [w.t().contiguous() for w in weights]
+    return list(weights)
+
+
 def _bwd_launch(fn, name: str, ptrs, B: int, N: int, H: int, dev, T,
                 dirs: int, plan, *tail) -> None:
     """Launch ``name`` ("bilstm_bwd" or "lstm_bwd", ``csrc/bilstm_bwd.cu``)
-    on the pointers ``ptrs``, then B, N, H, the plan's integers and
+    on the tensors ``ptrs``, then B, N, H, the plan's integers and
     ``tail`` (the reverse flag of one direction), as ``_plan`` picks: the
     wide kernel's entries take no tile, the unit kernel's
     (``<name>_unit_*``) its tile, the cluster kernels'
-    (``<name>_reg_*``, ``<name>_cluster_*``) C and R. Counted on
-    ``fn``."""
+    (``<name>_reg_*``, ``<name>_stream_*``, ``<name>_cluster_*``) C and R.
+    The stream kernel reads W_hh^T: ``ptrs`` start with the weights, which
+    are passed transposed there. Counted on ``fn``."""
     lib, kernel, ints = _plan(fn, "bilstm_bwd", name, B, H, dev, T, False,
                               dirs, plan)
+    tensors = [*bwd_weights(kernel, ptrs[:dirs]), *ptrs[dirs:]]
+    ptrs = [t.data_ptr() for t in tensors]   # tensors held to the launch
     sfx = _SUFFIX[T]
     if kernel == "wide":
         launch(lib, f"{name}_{sfx}", dev, *ptrs, B, N, H, *tail)
@@ -1213,8 +1396,7 @@ def bilstm_bwd_cuda(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b,
         return dg_f, dg_b
     w_f, w_b = w_f.to(T), w_b.to(T)
     _bwd_launch(bilstm_bwd_cuda, "bilstm_bwd",
-                [t.data_ptr() for t in (w_f, w_b, *streams, dg_f, dg_b)],
-                B, N, H, dev, T, 2, plan)
+                [w_f, w_b, *streams, dg_f, dg_b], B, N, H, dev, T, 2, plan)
     return dg_f, dg_b
 
 
@@ -1286,9 +1468,8 @@ def lstm_bwd_cuda(w, gs, cs, dy, reverse: bool = False,
     if B == 0 or N == 0:
         return dg
     w = w.to(T)
-    _bwd_launch(lstm_bwd_cuda, "lstm_bwd",
-                [t.data_ptr() for t in (w, gs, cs, dy, dg)], B, N, H, dev, T,
-                1, plan, int(reverse))
+    _bwd_launch(lstm_bwd_cuda, "lstm_bwd", [w, gs, cs, dy, dg], B, N, H,
+                dev, T, 1, plan, int(reverse))
     return dg
 
 

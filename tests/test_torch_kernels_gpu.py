@@ -162,9 +162,13 @@ def test_new_kernels_raise_on_bad_inputs(cuda):
         rnn_cuda.bilstm_bwd_cuda(*args[:4], ys_f[:, :4], *args[5:])
     with pytest.raises(ValueError):
         rnn_cuda.bilstm_bwd(*args[:7], ys_b.cpu())
-    wide = _inputs(1, 3, 257, cuda)     # above every LSTM kernel's width
-    with pytest.raises(ValueError, match="H=257"):
-        rnn_cuda.bilstm_fwd_train_cuda(*wide)
+    # above every LSTM BPTT kernel's width (the stream kernel's dg tile of
+    # 4H rows fits a block to H=1816)
+    H = 1817
+    z = [torch.zeros(1, 3, d, device=cuda) for d in (4 * H, H, H)]
+    w = torch.zeros(H, 4 * H, device=cuda)
+    with pytest.raises(ValueError, match="H=1817"):
+        rnn_cuda.bilstm_bwd_cuda(w, w, *z, *z)
 
 
 # ---------------------------------------------------------------------------
@@ -777,9 +781,12 @@ def test_bigru_tc_kernels_match_plain(cuda, shape):
             again = fn(*a, plan=plan)
             assert fn.launches == before + 2
             last = fn.last_launch
-            assert last["kernel"] == "tc", (kind, last)
-            want = plans[0] if plan is None else plan[1:]
-            assert (last["cluster"], last["rows"]) == want, (kind, last)
+            # at H <= 64 the route takes the unit kernels (faster there)
+            route = "unit" if plan is None and H <= 64 else "tc"
+            assert last["kernel"] == route, (kind, last)
+            if route == "tc":
+                want = plans[0] if plan is None else plan[1:]
+                assert (last["cluster"], last["rows"]) == want, (kind, last)
             for x, x2, r in zip(got, again, ref):
                 assert torch.equal(x, x2), (kind, plan)
                 if kind == "bwd":
@@ -790,8 +797,9 @@ def test_bigru_tc_kernels_match_plain(cuda, shape):
     x = [t.clone().requires_grad_(True) for t in ins]
     dys = [args[5], args[9]]
     grads = torch.autograd.grad(gru_cuda.bigru_recurrence(*x), x, dys)
-    assert gru_cuda.bigru_fwd_train_cuda.last_launch["kernel"] == "tc"
-    assert gru_cuda.bigru_bwd_cuda.last_launch["kernel"] == "tc"
+    route = "unit" if H <= 64 else "tc"
+    assert gru_cuda.bigru_fwd_train_cuda.last_launch["kernel"] == route
+    assert gru_cuda.bigru_bwd_cuda.last_launch["kernel"] == route
     ref = torch.autograd.grad(gru_cuda.bigru_fwd_plain(*x), x, dys)
     for name, a, r in zip(("dxg_f", "dxg_b", "dW_f", "db_f", "dW_b", "db_b"),
                           grads, ref):
@@ -1047,3 +1055,153 @@ def test_tta_serving_card_matches_cpu(cuda):
         va = [a["confidence"], *a["center"].values(), *a["size"].values()]
         vb = [b["confidence"], *b["center"].values(), *b["size"].values()]
         np.testing.assert_allclose(va, vb, rtol=1e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The stream kernels (the widths above the cluster kernels': W_hh read from
+# global memory every step, clusters of up to 16 blocks) at H in {257, 320,
+# 512} x B in {1, 5, 32}, a short walk, float32 and bf16, both direction
+# counts: the LSTM's six wrappers and BiLSTMFunction's / LSTMFunction's
+# gradients through the route (its BPTT bit-equal run to run), the GRU's
+# six (the stream plan forced where a cluster plan takes H, as at 320) and
+# BiGRUFunction's gradients; against the plain versions at the bounds above.
+# ---------------------------------------------------------------------------
+
+STREAM_WIDTHS = (257, 320, 512)
+STREAM_BATCHES = (1, 5, 32)
+STREAM_N = 9
+
+
+@pytest.mark.parametrize("H", STREAM_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_stream_kernels_match_plain(cuda, H, dtype):
+    assert rnn_cuda.lstm_fwd_kernel_route(H) == "stream"
+    assert rnn_cuda.lstm_bwd_kernel_route(H) == "stream"
+    for B in STREAM_BATCHES:
+        shape = (B, STREAM_N, H)
+        for fn, ins, ref, dirs, save in _lstm_fwd_cases(shape, dtype, cuda):
+            got = fn(*ins)
+            got = got if isinstance(got, tuple) else (got,)
+            last = fn.last_launch
+            assert last["kernel"] == "stream", last
+            assert (last["cluster"], last["rows"]) == \
+                rnn_cuda.card_lstm_stream_plans("fwd", B, H, cuda, dtype,
+                                                save, dirs)[0]
+            for a, r in zip(got, ref):
+                _assert_close(a, r, dtype)
+        _check_lstm_bwd(cuda, shape, dtype, [None], "stream")
+
+
+def _gru_stream_plan(kind, B, H, cuda, dtype, dirs, save=False):
+    """None where the route takes the stream kernel, else its card's first
+    plan, forced."""
+    route = (gru_cuda.gru_fwd_kernel_route if kind == "fwd"
+             else gru_cuda.gru_bwd_kernel_route)(H, dirs, dtype)
+    if route == "stream":
+        return None
+    return ("stream", *gru_cuda.card_stream_plans(kind, B, H, cuda, dtype,
+                                                  save, dirs)[0])
+
+
+@pytest.mark.parametrize("H", STREAM_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_stream_kernels_match_plain(cuda, H, dtype):
+    bound = GRAD_REL if dtype == torch.float32 else 0.1
+    for B in STREAM_BATCHES:
+        shape = (B, STREAM_N, H)
+        ins = _gru_inputs(*shape, dtype, cuda)
+        args = _bwd_args(shape, dtype, cuda)
+        for fn, a, ref, kind, dirs, save in (
+                (gru_cuda.bigru_fwd_cuda, ins, gru_cuda.bigru_fwd_plain(*ins),
+                 "fwd", 2, False),
+                (gru_cuda.bigru_fwd_train_cuda, ins,
+                 gru_cuda.bigru_fwd_train_plain(*ins), "fwd", 2, True),
+                (gru_cuda.bigru_bwd_cuda, args,
+                 gru_cuda.bigru_bwd_plain(*args), "bwd", 2, False),
+                (gru_cuda.gru_fwd_cuda, (ins[1], ins[4], ins[5], True),
+                 (gru_cuda.bigru_fwd_plain(*ins)[1],), "fwd", 1, False),
+                (gru_cuda.gru_fwd_train_cuda, (ins[0], ins[2], ins[3]),
+                 gru_cuda.gru_fwd_train_plain(ins[0], ins[2], ins[3]), "fwd",
+                 1, True),
+                (gru_cuda.gru_bwd_cuda, (args[1], *args[6:], True),
+                 gru_cuda.bigru_bwd_plain(*args)[2:], "bwd", 1, False)):
+            plan = _gru_stream_plan(kind, B, H, cuda, dtype, dirs, save)
+            kw = {} if plan is None else {"plan": plan}
+            got = fn(*a, **kw)
+            got = got if isinstance(got, tuple) else (got,)
+            assert fn.last_launch["kernel"] == "stream", fn.last_launch
+            again = fn(*a, **kw)
+            again = again if isinstance(again, tuple) else (again,)
+            for x, x2, r in zip(got, again, ref):
+                assert torch.equal(x, x2)
+                if kind == "bwd":
+                    assert x.dtype == r.dtype and torch.isfinite(x).all()
+                    assert _max_rel(x.float(), r.float()) <= bound, (B, fn)
+                else:
+                    _assert_close(x, r, dtype)
+        if _gru_stream_plan("bwd", B, H, cuda, dtype, 2) is None:
+            x = [t.clone().requires_grad_(True) for t in ins]
+            dys = [args[5], args[9]]
+            grads = torch.autograd.grad(gru_cuda.bigru_recurrence(*x), x,
+                                        dys)
+            assert gru_cuda.bigru_bwd_cuda.last_launch["kernel"] == "stream"
+            ref_g = torch.autograd.grad(gru_cuda.bigru_fwd_plain(*x), x, dys)
+            for name, a, r in zip(("dxg_f", "dxg_b", "dW_f", "db_f", "dW_b",
+                                   "db_b"), grads, ref_g):
+                assert a.dtype == r.dtype and torch.isfinite(a).all(), name
+                assert _max_rel(a.float(), r.float()) <= bound, (B, name)
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The float32 BiGRU at H <= 64 (the bigru model's defaults) on the unit
+# kernels: #5 / #5t with a grid of two directions and #6 in one launch of
+# two, at ragged batches and short walks, under every unit tile the card
+# runs and the planner's pick, against the plain versions (values 1e-4,
+# max-rel 1e-4), the BPTT bit-equal run to run; BiGRUFunction's gradients.
+# ---------------------------------------------------------------------------
+
+BIGRU_UNIT_SHAPES = [(1, 17, 64), (5, 43, 16), (20, 300, 64), (17, 5, 48)]
+
+
+@pytest.mark.parametrize("shape", BIGRU_UNIT_SHAPES)
+def test_bigru_unit_kernels_match_plain(cuda, shape):
+    B, N, H = shape
+    f32 = torch.float32
+    assert gru_cuda.gru_fwd_kernel_route(H, 2, f32) == "unit"
+    assert gru_cuda.gru_bwd_kernel_route(H, 2, f32) == "unit"
+    ins = _gru_inputs(*shape, f32, cuda)
+    args = _bwd_args(shape, f32, cuda)
+    tiles = [None, *(("unit", r) for r in (1, 2, 4))]
+    for fn, a, ref in (
+            (gru_cuda.bigru_fwd_cuda, ins, gru_cuda.bigru_fwd_plain(*ins)),
+            (gru_cuda.bigru_fwd_train_cuda, ins,
+             gru_cuda.bigru_fwd_train_plain(*ins)),
+            (gru_cuda.bigru_bwd_cuda, args, gru_cuda.bigru_bwd_plain(*args))):
+        for plan in tiles:
+            kw = {} if plan is None else {"plan": plan}
+            before = fn.launches
+            got = fn(*a, **kw)
+            assert fn.launches == before + 1
+            last = fn.last_launch
+            assert last["kernel"] == "unit", last
+            assert last["clusters"] == 2 * -(-B // last["rows"]), last
+            for x, r in zip(got, ref):
+                if fn is gru_cuda.bigru_bwd_cuda:
+                    assert torch.isfinite(x).all()
+                    assert _max_rel(x, r) <= GRAD_REL, plan
+                else:
+                    _assert_close(x, r, f32)
+            if fn is gru_cuda.bigru_bwd_cuda:
+                again = fn(*a, **kw)
+                assert all(torch.equal(x, y) for x, y in zip(got, again))
+    x = [t.clone().requires_grad_(True) for t in ins]
+    dys = [args[5], args[9]]
+    grads = torch.autograd.grad(gru_cuda.bigru_recurrence(*x), x, dys)
+    assert gru_cuda.bigru_bwd_cuda.last_launch["kernel"] == "unit"
+    ref_g = torch.autograd.grad(gru_cuda.bigru_fwd_plain(*x), x, dys)
+    for name, a, r in zip(("dxg_f", "dxg_b", "dW_f", "db_f", "dW_b", "db_b"),
+                          grads, ref_g):
+        assert torch.isfinite(a).all(), name
+        assert _max_rel(a, r) <= GRAD_REL, name
+    torch.cuda.synchronize()

@@ -33,6 +33,12 @@ def _reg_clusters(c, rows):
     return 120 // c if c <= 8 else 7
 
 
+def _stream_clusters(c, rows):
+    """Resident clusters of the stream kernels, any size from 1 to 16
+    blocks: 7 of 9 to 16 (non-portable sizes), as the register kernels'."""
+    return 120 // c if c <= 8 else 7
+
+
 @pytest.mark.parametrize("batch,dirs,per_sm,want", [
     (32, 1, 2, [1, 2, 4]),      # legacy GRU step: 32 blocks of one row
     (1, 2, 2, [1, 2, 4]),       # flagship serving: no padding rows
@@ -58,14 +64,16 @@ def test_unit_plan_skips_tiles_the_card_does_not_run():
 def test_gru_route_and_cluster_plans():
     """The legacy model's one-direction H=64 launch takes the unit kernel;
     the scale-up shape (128, 256) and the one-direction (8, 256) launch keep
-    the cluster kernel and the plans ``test_cluster_plan`` asserts, and a
-    two-direction launch at small H stays on the cluster kernel too."""
+    the cluster kernel and the plans ``test_cluster_plan`` asserts; a
+    two-direction launch at small H takes the unit kernel too, float32 or
+    bf16."""
     assert gru_fwd_kernel_route(64, 1) == "unit"
     assert gru_fwd_kernel_route(16, 1) == "unit"
     assert gru_fwd_kernel_route(65, 1) == "cluster"
     assert gru_fwd_kernel_route(256, 1) == "cluster"
     assert gru_fwd_kernel_route(256, 2) == "cluster"
-    assert gru_fwd_kernel_route(16, 2) == "cluster"
+    assert gru_fwd_kernel_route(16, 2) == "unit"
+    assert gru_fwd_kernel_route(16, 2, torch.bfloat16) == "unit"
     assert bigru_plan("fwd", 128, 256, _clusters) == (8, 20)
     assert bigru_plan("fwd", 8, 256, _clusters, dirs=1) == (4, 4)
     assert bigru_plan("fwd", 16, 256, _clusters) == (4, 4)
@@ -82,14 +90,23 @@ def test_lstm_route():
 
 @pytest.mark.parametrize("hidden", [0, 257, 300, 512])
 def test_shapes_no_kernel_takes_raise(hidden):
-    """No LSTM forward kernel takes H <= 0 or H above the cluster kernel's
-    256; the error names the width."""
-    with pytest.raises(ValueError, match="H"):
-        lstm_fwd_kernel_route(hidden)
-    if hidden > 0:
-        # W_hh of H=526 = 2 x 263 fits no cluster size that divides it
-        with pytest.raises(ValueError, match="cluster"):
-            bigru_plan("fwd", 8, 526, _clusters, dirs=1)
+    """No LSTM forward kernel takes H <= 0 (the error names the width); no
+    register cluster plan takes H above 256 and no cluster plan of the GRU
+    one at H=526 (their planners' errors name the width): those widths
+    take the stream kernel."""
+    if hidden <= 0:
+        with pytest.raises(ValueError, match="H"):
+            lstm_fwd_kernel_route(hidden)
+        with pytest.raises(ValueError, match="H"):
+            gru_fwd_kernel_route(hidden, 2)
+        return
+    with pytest.raises(ValueError, match=f"H={hidden}"):
+        rnn_cuda.lstm_reg_plan("fwd", 8, hidden, _reg_clusters)
+    assert lstm_fwd_kernel_route(hidden) == "stream"
+    # W_hh of H=526 = 2 x 263 fits no cluster size that divides it
+    with pytest.raises(ValueError, match="cluster"):
+        bigru_plan("fwd", 8, 526, _clusters, dirs=1)
+    assert gru_fwd_kernel_route(526, 1) == "stream"
 
 
 def test_unit_layout_mirrors():
@@ -149,8 +166,11 @@ def fake_card(monkeypatch):
                         lambda *a: (H100_SMS, lambda rows: 2))
     monkeypatch.setattr(gru_cuda, "_resident",
                         lambda *a: ("bigru_fwd", _clusters))
+    monkeypatch.setattr(gru_cuda, "_stream_resident",
+                        lambda kind, *a: (f"bigru_{kind}", _stream_clusters))
     monkeypatch.setattr(rnn_cuda, "_cluster_resident",
                         lambda *a: _reg_clusters if "reg" in a
+                        else _stream_clusters if "stream" in a
                         else _clusters)
     monkeypatch.setattr(rnn_cuda, "_UNIT_PLANS", {})
     monkeypatch.setattr(rnn_cuda, "_CLUSTER_PLANS", {})
@@ -231,9 +251,11 @@ def test_lstm_wrappers_launch_and_record(fake_card):
 
 
 @pytest.mark.parametrize("hidden,dirs,want", [
-    (16, 1, "unit"), (64, 1, "unit"), (65, 1, "cluster"), (64, 2, "cluster"),
+    (16, 1, "unit"), (64, 1, "unit"), (65, 1, "cluster"), (64, 2, "unit"),
     (256, 2, "cluster")])
 def test_gru_bwd_route(hidden, dirs, want):
+    """float32 streams (the default): the unit kernel at H <= 64 in both
+    direction counts, kLinear's cluster kernel above."""
     assert gru_bwd_kernel_route(hidden, dirs) == want
 
 
@@ -356,10 +378,18 @@ def test_lstm_bwd_route(hidden, want):
 
 @pytest.mark.parametrize("hidden", [0, 257, 260, 384])
 def test_lstm_bwd_route_raises_where_no_kernel_fits(hidden):
-    """No BPTT kernel takes H <= 0 or H above the cluster kernel's 256; the
-    error names the width."""
-    with pytest.raises(ValueError, match=f"H={hidden}" if hidden else "H"):
-        lstm_bwd_kernel_route(hidden)
+    """No BPTT kernel takes H <= 0, and no register or first cluster plan
+    H above 256: the errors name the width; those widths take the stream
+    kernel."""
+    if hidden <= 0:
+        with pytest.raises(ValueError, match="H"):
+            lstm_bwd_kernel_route(hidden)
+        return
+    with pytest.raises(ValueError, match=f"H={hidden}"):
+        rnn_cuda.lstm_reg_plan("bwd", 8, hidden, _reg_clusters)
+    with pytest.raises(ValueError, match=f"H={hidden}"):
+        rnn_cuda.lstm_cluster_plan("bwd", 8, hidden, _clusters)
+    assert lstm_bwd_kernel_route(hidden) == "stream"
 
 
 def test_lstm_bwd_unit_mirror_check_against_source_layout():
@@ -512,18 +542,21 @@ TC_CLUSTERS = {4: 30, 8: 15}
 @pytest.mark.parametrize("route", [gru_fwd_kernel_route,
                                    gru_bwd_kernel_route])
 def test_tc_route_takes_bf16_two_directions(route):
-    """bf16 streams of two directions at H=256 take the tensor-core
-    kernel; float32 (also the default dtype) keeps the cluster kernel; one
-    direction keeps its route whatever the dtype; an H no tensor-core plan
-    takes (not a multiple of 16, above 256, or no 8-unit warps at C = 4
-    and 8) keeps the cluster kernel."""
+    """bf16 streams of two directions at H=256 and 128 take the
+    tensor-core kernel, at H <= 64 the unit kernel (faster there); float32
+    (also the default dtype) keeps the cluster kernel; one direction keeps
+    its route whatever the dtype; an H no tensor-core plan takes (not a
+    multiple of 16, above 256, or no 8-unit warps at C = 4 and 8) keeps
+    the cluster kernel, or the stream kernel where no cluster plan fits
+    either (H=512)."""
     bf16 = torch.bfloat16
-    assert route(256, 2, bf16) == "tc"
-    assert route(64, 2, bf16) == route(32, 2, bf16) == "tc"
+    assert route(256, 2, bf16) == route(128, 2, bf16) == "tc"
+    assert route(64, 2, bf16) == route(32, 2, bf16) == "unit"
     assert route(256, 2) == route(256, 2, torch.float32) == "cluster"
     assert route(64, 1, bf16) == "unit" and route(256, 1, bf16) == "cluster"
-    for hidden in (16, 24, 40, 264, 512):
+    for hidden in (72, 88, 264):
         assert route(hidden, 2, bf16) == "cluster", hidden
+    assert route(512, 2, bf16) == "stream"
 
 
 @pytest.mark.parametrize("kind", ["fwd", "bwd"])
@@ -906,14 +939,13 @@ def test_cluster_routes_launch_and_record(fake_card):
 def test_reg_route_above_the_wide_kernels(kind, first):
     """The forward's widths 119..256 and the BPTT's 117..256 take the
     register cluster kernel; the unit and wide kernels keep theirs below;
-    no kernel takes 257."""
+    257 takes the stream kernel."""
     route = (lstm_fwd_kernel_route if kind == "fwd"
              else lstm_bwd_kernel_route)
     assert [route(h) for h in range(first, 257)] == ["reg"] * (257 - first)
     assert {route(h) for h in range(1, 65)} == {"unit"}
     assert {route(h) for h in range(65, first)} == {"wide"}
-    with pytest.raises(ValueError, match="H=257"):
-        route(257)
+    assert route(257) == "stream"
 
 
 def _reg_source(kind, hidden, c, rows, every_block=True, cells=True):
@@ -1069,3 +1101,252 @@ def test_reg_and_old_cluster_plans_forced_or_refused(fake_card, name):
         with pytest.raises(ValueError, match="does not fit"):
             _reg_call(name, 9, 7, 256, torch.float32, plan=bad)
     assert len(fake_card.calls) == n
+
+
+# ---------------------------------------------------------------------------
+# The stream kernels (the first cluster kernels reading W_hh from global
+# memory every step): every width to H=1024 gets a route, today's picks
+# stay; their plan rule, mirror, planner and launches; the float32 BiGRU at
+# H <= 64 on the unit kernels
+# ---------------------------------------------------------------------------
+
+def _before_gru_route(kind, hidden, dirs, dtype):
+    """The GRU routes as they were: unit for one direction at H <= 64, tc
+    for bf16 two-direction launches where a tc plan fits, else cluster."""
+    if dirs == 1 and hidden <= 64:
+        return "unit"
+    if dirs == 2 and dtype == torch.bfloat16 and any(
+            gru_cuda.tc_plan_fits(kind, hidden, c, r)
+            for c in gru_cuda.TC_CLUSTER_SIZES for r in gru_cuda.TC_ROWS):
+        return "tc"
+    return "cluster"
+
+
+@pytest.mark.parametrize("family", ["lstm", "gru"])
+def test_every_width_to_1024_has_a_route(family):
+    """Every H from 1 to 1024 (d_model 2048), forward and BPTT, one and two
+    directions, float32 and bf16, gets a route on the H100's counts; up to
+    H=256 every pick of before stays but the BiGRU's at H <= 64 (now the
+    unit kernel), and above it every width a cluster plan took keeps it;
+    the stream route has a plan in each direction count and dtype."""
+    for hidden in range(1, 1025):
+        for kind in ("fwd", "bwd"):
+            if family == "lstm":
+                route = (lstm_fwd_kernel_route if kind == "fwd"
+                         else lstm_bwd_kernel_route)(hidden)
+                before = _before_lstm_route(kind, hidden) or (
+                    "reg" if hidden <= 256 else None)
+                if before is not None:
+                    assert route == before, (kind, hidden)
+                else:
+                    assert route == "stream", (kind, hidden)
+                    for dirs in (1, 2)[:1 + (hidden % 61 == 0)]:
+                        for wbytes in (4, 2):
+                            assert rnn_cuda.stream_plans(
+                                f"bilstm_{kind}", 32, hidden,
+                                _stream_clusters, dirs, wbytes), hidden
+                continue
+            route_fn = (gru_fwd_kernel_route if kind == "fwd"
+                        else gru_bwd_kernel_route)
+            for dtype in (torch.float32, torch.bfloat16):
+                for dirs in (1, 2):
+                    route = route_fn(hidden, dirs, dtype)
+                    before = _before_gru_route(kind, hidden, dirs, dtype)
+                    if hidden <= 64:
+                        assert route == "unit", (kind, hidden)
+                    elif before != "cluster" or hidden <= 256 or \
+                            _before_bigru_plans(kind, 32, hidden, _clusters,
+                                                dirs):
+                        assert route == before, (kind, hidden, dtype, dirs)
+                    elif hidden % 61:
+                        assert route == "stream", (kind, hidden, dirs)
+                    else:   # the plans' existence at one width in 61
+                        assert route == "stream", (kind, hidden, dirs)
+                        assert gru_cuda.bigru_stream_plans(
+                            kind, 32, hidden, _stream_clusters, dirs,
+                            dtype.itemsize), (kind, hidden)
+
+
+@pytest.mark.parametrize("source", sorted(rnn_cuda.STREAM_GATES))
+def test_stream_plans_fit_a_block_and_the_cluster_bound(source):
+    """Every plan the stream planner offers (B=1, 5, 32, 128; H=257 to
+    1024) has at most 16 blocks, each owning a unit, at most 512 threads,
+    and an exchange tile of (gates x H rows, padded to chunks of 8) x R
+    float32 in a block's shared memory; the largest width is H=1816 for
+    the LSTM BPTT (a 4H-row dg tile at 4 rows), past it the route raises
+    naming the width and the card's limit."""
+    gates = rnn_cuda.STREAM_GATES[source]
+    for hidden in (257, 260, 300, 320, 384, 511, 512, 640, 760, 1000, 1024):
+        for batch in (1, 5, 32, 128):
+            plans = rnn_cuda.stream_plans(source, batch, hidden,
+                                          _stream_clusters)
+            assert plans, (hidden, batch)
+            for c, rows in plans:
+                U = -(-hidden // c)
+                assert 1 <= c <= 16 and (c - 1) * U < hidden
+                assert U * (rows // 4) <= 512 and rows % 4 == 0
+                tile = -(-gates * hidden // 8) * 8
+                assert rnn_cuda.stream_smem_bytes(source, hidden, rows) \
+                    == 2 * tile * rows * 4 <= rnn_cuda.MAX_SMEM_BYTES
+    lstm_bwd = "bilstm_bwd"
+    assert rnn_cuda.stream_smem_bytes(lstm_bwd, 1816, 4) \
+        <= rnn_cuda.MAX_SMEM_BYTES
+    assert rnn_cuda.stream_smem_bytes(lstm_bwd, 1817, 4) \
+        > rnn_cuda.MAX_SMEM_BYTES
+    assert lstm_bwd_kernel_route(1816) == "stream"
+    with pytest.raises(ValueError, match="H=1817.*H100"):
+        lstm_bwd_kernel_route(1817)
+
+
+def test_stream_planner_weighs_fma_against_l2():
+    """At (32, 500, 512) f32 the LSTM forward takes 16 blocks a cluster
+    (the least W_hh a block reads) over 16-row tiles (a block's FMA issue
+    and its L2 bytes even; 8 rows read W_hh twice as often over the card,
+    12 rows walk 4 past the batch); at B=1 one 4-row tile; a plan the card
+    runs none of is dropped."""
+    plan = rnn_cuda.stream_plans
+    assert plan("bilstm_fwd", 32, 512, _stream_clusters)[0] == (16, 16)
+    assert plan("bilstm_fwd", 1, 512, _stream_clusters)[0] == (16, 4)
+    assert (16, 16) not in plan(
+        "bilstm_fwd", 32, 512,
+        lambda c, r: 0 if (c, r) == (16, 16) else _stream_clusters(c, r))
+    assert not plan("bilstm_fwd", 32, 512, lambda c, r: 0)
+
+
+def _stream_source(source, hidden, c, rows, max_c=16):
+    """The sources' ``<source>_stream_smem_bytes`` written out again."""
+    gates = rnn_cuda.STREAM_GATES[source]
+    U = -(-hidden // c)
+    if not (hidden > 0 and 1 <= c <= max_c and rows > 0 and rows % 4 == 0
+            and (c - 1) * U < hidden and U * (rows // 4) <= 512):
+        return -1
+    smem = 2 * (-(-gates * hidden // 8) * 8) * rows * 4
+    return smem if smem <= 232448 else -1
+
+
+@pytest.mark.parametrize("source", sorted(rnn_cuda.STREAM_GATES))
+def test_stream_mirror_check_against_source_layout(source):
+    """``check_stream_mirror`` accepts the sources' query written out, and
+    names the first plan of a source that takes no cluster above 8 blocks
+    or lays out another source's tile."""
+    rnn_cuda.check_stream_mirror(
+        lambda h, c, r: _stream_source(source, h, c, r), source)
+    with pytest.raises(RuntimeError, match="H=64, plan 10x4"):
+        rnn_cuda.check_stream_mirror(
+            lambda h, c, r: _stream_source(source, h, c, r, max_c=8), source)
+    other = "bigru_bwd" if source != "bigru_bwd" else "bilstm_bwd"
+    with pytest.raises(RuntimeError, match="_stream: the wrapper"):
+        rnn_cuda.check_stream_mirror(
+            lambda h, c, r: _stream_source(other, h, c, r), source)
+
+
+def test_bwd_weights_transposed_for_the_stream_kernel():
+    """The stream BPTT reads W_hh^T (consecutive threads on consecutive
+    units): a contiguous transposed copy; every other kernel W_hh."""
+    w = torch.arange(12.0).reshape(2, 6)
+    (wt,) = rnn_cuda.bwd_weights("stream", [w])
+    assert wt.is_contiguous() and torch.equal(wt, w.t())
+    assert rnn_cuda.bwd_weights("cluster", [w])[0] is w
+
+
+_STREAM_LSTM = dict(_REG_ENTRIES)
+_STREAM_GRU = {"bigru_fwd": (8, False), "bigru_fwd_train": (12, False),
+               "bigru_bwd": (14, False), "gru_fwd": (4, True),
+               "gru_fwd_train": (6, True), "gru_bwd": (7, True)}
+
+
+def _gru_call(name, B, N, H, dtype, plan=None):
+    """Call the GRU wrapper ``name`` at (B, N, H) on zeros of ``dtype``."""
+    kw = {} if plan is None else {"plan": plan}
+    fn = getattr(gru_cuda, f"{name}_cuda")
+    if name.startswith("bigru_fwd"):
+        fn(*_bigru_args(B, N, H, dtype), **kw)
+    elif name == "bigru_bwd":
+        fn(*_bigru_bwd_args(B, N, H, dtype), **kw)
+    elif name.startswith("gru_fwd"):
+        fn(*_gru_args(B, N, H, dtype), True, **kw)
+    else:
+        fn(*_bwd_args(B, N, H, dtype), True, **kw)
+    return fn
+
+
+@pytest.mark.parametrize("name", sorted(_STREAM_LSTM) + sorted(_STREAM_GRU))
+def test_stream_entries_launch_and_record(fake_card, name):
+    """Each of the twelve wrappers at H=384 in f32 and 512 in bf16 (no
+    cluster plan of the GRU fits either) launches ``<name>_stream_<dtype>``
+    with its pointers, then B, N, H, C, R (and a one-direction grid's
+    reverse flag), the stream planner's plan for its direction count and
+    dtype, and records it; the count rises by one a launch; a forced
+    ("stream", C, R) is taken, one that does not fit refused before any
+    launch."""
+    lstm = name in _STREAM_LSTM
+    n_ptr, one_dir = (_STREAM_LSTM if lstm else _STREAM_GRU)[name]
+    source = (("bilstm_bwd" if name.endswith("bwd") else "bilstm_fwd")
+              if lstm else ("bigru_bwd" if name.endswith("bwd")
+                            else "bigru_fwd"))
+    call = _reg_call if lstm else _gru_call
+    dirs = 1 if one_dir else 2
+    for B, H, dtype in ((32, 384, torch.float32), (5, 512, torch.bfloat16)):
+        sfx = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+        want = rnn_cuda.stream_plans(source, B, H, _stream_clusters, dirs,
+                                     dtype.itemsize)[0]
+        fn = getattr(rnn_cuda if lstm else gru_cuda, f"{name}_cuda")
+        before = fn.launches
+        call(name, B, 1, H, dtype)
+        assert fn.launches == before + 1
+        called, args = fake_card.calls[-1]
+        assert called == f"{name}_stream_{sfx}"
+        assert len(args) == n_ptr + 5 + int(one_dir)
+        assert args[n_ptr:n_ptr + 5] == (B, 1, H, *want)
+        if one_dir:
+            assert args[-1] == 1
+        assert fn.last_launch == {
+            "kernel": "stream", "cluster": want[0], "rows": want[1],
+            "clusters": dirs * -(-B // want[1]),
+            "resident": _stream_clusters(*want)}
+    call(name, 9, 1, 512, dtype, plan=("stream", 12, 8))
+    assert fake_card.calls[-1][1][n_ptr:n_ptr + 5] == (9, 1, 512, 12, 8)
+    n = len(fake_card.calls)
+    for bad in (("stream", 17, 4), ("stream", 16, 6), ("stream", 1, 8)):
+        with pytest.raises(ValueError, match="does not fit"):
+            call(name, 9, 1, 512, dtype, plan=bad)
+    assert len(fake_card.calls) == n
+
+
+def test_bigru_float32_two_directions_take_the_unit_kernels(fake_card):
+    """The ``bigru`` model's default launches, (20, N, 64) f32 two
+    directions: ``bigru_fwd_unit_f32`` (8 pointers, B, N, H, R),
+    ``bigru_fwd_unit_train_f32`` (12 pointers) and ``bigru_bwd_unit_f32``
+    (14 pointers: both directions in one launch), the unit planner's tile
+    over 2 x ceil(B / R) blocks, recorded; ("unit", R) forces a tile, (C,
+    R) the first cluster design; bf16 at H=64 takes the unit kernels
+    too."""
+    f32 = torch.float32
+    for fn, n_ptr, entry, args in (
+            (gru_cuda.bigru_fwd_cuda, 8, "bigru_fwd_unit",
+             _bigru_args(20, 5, 64, f32)),
+            (gru_cuda.bigru_fwd_train_cuda, 12, "bigru_fwd_unit_train",
+             _bigru_args(20, 5, 64, f32)),
+            (gru_cuda.bigru_bwd_cuda, 14, "bigru_bwd_unit",
+             _bigru_bwd_args(20, 5, 64, f32))):
+        before = fn.launches
+        fn(*args)
+        assert fn.launches == before + 1
+        called, got = fake_card.calls[-1]
+        assert called == f"{entry}_f32" and len(got) == n_ptr + 4
+        assert got[n_ptr:] == (20, 5, 64, 1)
+        assert fn.last_launch == {"kernel": "unit", "cluster": 1, "rows": 1,
+                                  "clusters": 40, "resident": 264}
+        fn(*args, plan=("unit", 4))
+        assert fake_card.calls[-1][1][n_ptr:] == (20, 5, 64, 4)
+        assert fn.last_launch["clusters"] == 10
+        fn(*args, plan=(4, 4))
+        called, got = fake_card.calls[-1]
+        assert "unit" not in called and got[n_ptr:] == (20, 5, 64, 4, 4)
+        assert fn.last_launch["kernel"] == "cluster"
+        with pytest.raises(ValueError, match="unit kernel"):
+            big = (_bigru_bwd_args if n_ptr == 14 else _bigru_args)(
+                4, 5, 96, f32)
+            fn(*big, plan=("unit", 1))
+    assert gru_fwd_kernel_route(64, 2, torch.bfloat16) == "unit"
+    assert gru_bwd_kernel_route(64, 2, torch.bfloat16) == "unit"
