@@ -238,19 +238,28 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     timing at ``BIGRU_TIME`` beside the first cluster design forced at its
     planner's pick, the plain versions, the bound and cuDNN's
     bidirectional ``nn.GRU`` (#6 bit-equal run to run); the tensor-core
-    kernels against the unit kernels in bf16 at ``BIGRU_BF16``, in turns;
+    kernels against the unit kernels in bf16 at ``BIGRU_BF16``, in turns,
+    beside bf16 ``nn.GRU`` (PyTorch's own step loop) and cuDNN in fp16;
     one train step and one served request card vs CPU, each launch on the
     unit kernels (asserted), then the step p50 and the request p50 on the
     unit kernels and with the first cluster design forced; (b) the stream
     kernels (W_hh read from global memory every step, clusters of up to 16
-    blocks: every width above the cluster kernels') at ``STREAM_WIDTHS`` x
+    blocks: every width above the cluster kernels'; the LSTM BPTT's there:
+    the pipe kernel) at ``STREAM_WIDTHS`` x
     ``STREAM_BATCHES``, f32 and bf16, two directions and one, the twelve
     LSTM and GRU wrappers against their plain versions (the GRU's stream
     plan forced where a cluster plan takes H), the BPTT bit-equal run to
-    run, and their timing at ``STREAM_TIME`` beside the bound and cuDNN;
-    (c) their main paths: the lstm at d_model ``STREAM_LSTM_D`` (H=512), a
-    forward against the plain recurrence and one train step card vs CPU at
-    ``STREAM_STEP``'s B and N (cut from the config's 20 and 1500), the
+    run, the pipe kernel's wider instance families at ``PIPE_WIDTHS``, the
+    first stream BPTT forced at ``STREAM_OLD``, and their timing at
+    ``STREAM_TIME`` beside the bound and cuDNN (read before and after the
+    kernels; the pipe kernel beside the first stream design forced, in
+    turns, asserted faster, and beside the card's next pipe plans), the
+    LSTM BPTT so also at ``PIPE_TIME``; (c) their
+    main paths: the lstm at d_model ``STREAM_LSTM_D`` (H=512), a forward
+    against the plain recurrence and one train step card vs CPU at
+    ``STREAM_STEP``'s B and N (cut from the config's 20 and 1500), its
+    step p50 at ``STREAM_STEP_TIME`` (bench.py's B and N) with the BPTT on
+    the pipe kernel and on the first stream design, in turns, the
     ops-level ``lstm_recurrence`` / ``gru_recurrence(use_kernel=True)`` and
     a bigru at d_model ``STREAM_LSTM_D``, one forward and one train step.
 
@@ -400,10 +409,14 @@ WIDE_GRU = (8, 300, 139)          # the masked BiGRU / GRU paths
 # timed at BIGRU_TIME f32 beside the first cluster design, the bf16 tc
 # kernels against the unit kernels at BIGRU_BF16; the CLI's default step
 # and request on BIGRU_ROOMS seeded rooms), and the stream kernels above
-# the cluster kernels' widths (checked at STREAM_WIDTHS x STREAM_BATCHES,
-# N=STREAM_N; timed at STREAM_TIME; the lstm and bigru at d_model
-# STREAM_LSTM_D, one step card vs CPU at STREAM_STEP's B, N, cut from 20,
-# 1500 for the CPU's step)
+# the cluster kernels' widths, the LSTM BPTT's the pipe kernel (checked at
+# STREAM_WIDTHS x STREAM_BATCHES, N=STREAM_N, the first stream BPTT forced
+# at STREAM_OLD; timed at STREAM_TIME, the pipe kernel beside the first
+# stream design, cuDNN before and after the kernels; the lstm and bigru at d_model STREAM_LSTM_D, one step card
+# vs CPU at STREAM_STEP's B, N, cut from 20, 1500 for the CPU's step; the
+# lstm's step p50 at bench.py's B, N = STREAM_STEP_TIME over STREAM_STEPS
+# after STREAM_WARMUP on STREAM_ROOMS rooms, pipe and first stream BPTT in
+# turns)
 BIGRU_TIME = ((20, 1500, 64), (1, 1500, 64))
 BIGRU_BF16 = (20, 1500, 64)
 BIGRU_ROOMS = 8
@@ -413,8 +426,23 @@ STREAM_WIDTHS = (257, 320, 512)
 STREAM_BATCHES = (1, 5, 32)
 STREAM_N = 20
 STREAM_TIME = ((32, 500, 320), (32, 500, 512))
+# the pipe kernel's other instance families: blocks of more than four
+# consumer warps (H 513-1024) and two k groups a thread (1025-2048), checked
+# at PIPE_WIDTHS x PIPE_BATCHES (2048 by a forced plan: the route stops
+# where the first stream design does, at 1816; the GPU tests take every
+# STREAM_BATCHES) and timed at PIPE_TIME beside the first stream design;
+# at every timed shape the card's first PIPE_SWEEP pipe plans are timed
+# beside the planner's pick
+PIPE_WIDTHS = (640, 1024, 1100, 2048)
+PIPE_BATCHES = (5,)
+PIPE_TIME = ((32, 500, 1024), (32, 500, 1816))
+PIPE_SWEEP = 4
+STREAM_OLD = (5, 512)
 STREAM_LSTM_D = 1024
 STREAM_STEP = (8, 300)
+STREAM_STEP_TIME = (32, 500)
+STREAM_STEPS, STREAM_WARMUP = 10, 3
+STREAM_ROOMS = 8
 FUSED_SHAPES = (((3, 53, 16, 24), torch.float32),
                 ((2, 40, 16, 16), torch.bfloat16),
                 ((16, 1000, 256, 512), torch.bfloat16),
@@ -483,6 +511,7 @@ USAGE_KERNELS = {
         "bilstm_bwd_unit_f32": ("bilstm_bwd_unit_kernel", "IfLi"),
         "bilstm_bwd_unit_bf16": ("bilstm_bwd_unit_kernel", "bfloat16Li"),
         "bilstm_bwd_reg": ("bilstm_bwd_reg_kernel",),
+        "bilstm_bwd_pipe": ("bilstm_bwd_pipe_kernel",),
         "bilstm_bwd_stream": ("bilstm_bwd_cluster_kernel", "Lb1EE")},
     "bilstm_fwd": {"bilstm_fwd_reg": ("bilstm_fwd_reg_kernel",),
                    "bilstm_fwd_stream": ("bilstm_fwd_cluster_kernel",
@@ -776,17 +805,21 @@ def check_gru_kernels(dev, seed):
     for shape, dtype in (*GRU_SHAPES, *TC_EDGE_SHAPES):
         route = gru_route(shape, dtype)
         ins = gru_inputs(*shape, dtype, dev, seed)
-        light_ref = gru_cuda.bigru_fwd_plain(*ins)
+        plain_ms = {}
+        light_ref, plain_ms["bigru_fwd"] = timed_once(
+            lambda: gru_cuda.bigru_fwd_plain(*ins))
         light_err = value_err(gru_cuda.bigru_fwd_cuda(*ins), light_ref, dtype)
         plans = {"bigru_fwd": plan_text(gru_cuda.bigru_fwd_cuda)}
-        train_ref = gru_cuda.bigru_fwd_train_plain(*ins)
+        train_ref, plain_ms["bigru_fwd_train"] = timed_once(
+            lambda: gru_cuda.bigru_fwd_train_plain(*ins))
         train_err = value_err(gru_cuda.bigru_fwd_train_cuda(*ins), train_ref,
                               dtype)
         plans["bigru_fwd_train"] = plan_text(gru_cuda.bigru_fwd_train_cuda)
         args = gru_bwd_inputs(ins, seed + 1)
         got = gru_cuda.bigru_bwd_cuda(*args)
         plans["bigru_bwd"] = plan_text(gru_cuda.bigru_bwd_cuda)
-        ref = gru_cuda.bigru_bwd_plain(*args)
+        ref, plain_ms["bigru_bwd"] = timed_once(
+            lambda: gru_cuda.bigru_bwd_plain(*args))
         torch.cuda.synchronize()
         for fn in (gru_cuda.bigru_fwd_cuda, gru_cuda.bigru_fwd_train_cuda,
                    gru_cuda.bigru_bwd_cuda):
@@ -811,7 +844,8 @@ def check_gru_kernels(dev, seed):
         key = (shape, dtype)
         errs[key] = {"fwd": light_err, "fwd_train": train_err,
                      "bwd_abs": bwd_abs, "bwd_rel": bwd_rel,
-                     "function_rel": fn_rel, "tc_plans": tc_errs}
+                     "function_rel": fn_rel, "tc_plans": tc_errs,
+                     "plain_ms": plain_ms}
         rel_tol = GRAD_REL if dtype == torch.float32 else BF16_GRAD_REL
         tol = (f"tol {KERNEL_ATOL:.0e}" if dtype == torch.float32 else
                f"tol rtol {BF16_RTOL} atol {BF16_ATOL}")
@@ -843,7 +877,7 @@ def bigru_plans(name, B, H, dev, dtype):
 
 def time_gru_kernels(dev, seed, errs):
     """Phase 13: each BiGRU kernel at the scale-up shape in bf16, its plain
-    version, torch ``nn.GRU`` (bidirectional, bf16, its input projection
+    version (the one call phase 12 timed), torch ``nn.GRU`` (bidirectional, bf16, its input projection
     included; never called by the port) and the bound; then each kernel
     under every plan (the tensor-core kernel's and the cluster kernel at
     its planner's pick) at the scale-up shape and at the served request's
@@ -876,18 +910,15 @@ def time_gru_kernels(dev, seed, errs):
                        "bigru_bwd": fb - fwd}
     err = errs[(SCALEUP, dtype)]
     rows = {}
-    for name, fn, plain, a, e in (
-            ("bigru_fwd", gru_cuda.bigru_fwd_cuda, gru_cuda.bigru_fwd_plain,
-             ins, err["fwd"]),
-            ("bigru_fwd_train", gru_cuda.bigru_fwd_train_cuda,
-             gru_cuda.bigru_fwd_train_plain, ins, err["fwd_train"]),
-            ("bigru_bwd", gru_cuda.bigru_bwd_cuda, gru_cuda.bigru_bwd_plain,
-             args, err["bwd_abs"])):
+    for name, fn, a, e in (
+            ("bigru_fwd", gru_cuda.bigru_fwd_cuda, ins, err["fwd"]),
+            ("bigru_fwd_train", gru_cuda.bigru_fwd_train_cuda, ins,
+             err["fwd_train"]),
+            ("bigru_bwd", gru_cuda.bigru_bwd_cuda, args, err["bwd_abs"])):
         ms = cuda_ms(lambda: fn(*a), 3, warmup=1)
-        plain_ms = cuda_ms(lambda: plain(*a), 1, warmup=0)
         b = gru_bound(name[len("bigru_"):], B, N, H, dtype)
         rows[name] = {"shape": [B, N, H], "dtype": "bfloat16",
-                      "kernel_ms": ms, "plain_ms": plain_ms,
+                      "kernel_ms": ms, "plain_ms": err["plain_ms"][name],
                       "library_ms": lib_ms["bf16"][name],
                       "cudnn_fp16_ms": lib_ms["cudnn_fp16"][name],
                       "bound_us": b[0] * 1e3,
@@ -2786,13 +2817,14 @@ def _lstm_bwd_case(ins, dtype, seed):
 
 
 def _lstm_cluster_case(H, B, dtype, dev, seed, kernel, plan_of=None,
-                       n=CLUSTER_N):
+                       n=CLUSTER_N, bwd_kernel=None):
     """The six LSTM kernels at (B, ``n``, H) in ``dtype`` against their
     plain versions (f32 max abs err ``KERNEL_ATOL`` on values,
     ``GRAD_REL`` on dg; bf16 rtol / atol and ``BF16_GRAD_REL``), each
-    launch's kernel asserted ``kernel``, the BPTT bit-equal on a second
-    launch; ``plan_of(kind, save, dirs)`` forces a plan. Returns the
-    values' and dg's worst errors and the plans."""
+    launch's kernel asserted ``kernel`` (the BPTT's ``bwd_kernel``, by
+    default the same), the BPTT bit-equal on a second launch;
+    ``plan_of(kind, save, dirs)`` forces a plan. Returns the values' and
+    dg's worst errors and the plans."""
     xg_f, xg_b, w_f, w_b = kernel_inputs(B, n, H, dev, seed)
     xg_f, xg_b = xg_f.to(dtype), xg_b.to(dtype)
     ins = (xg_f, xg_b, w_f, w_b)
@@ -2829,7 +2861,8 @@ def _lstm_cluster_case(H, B, dtype, dev, seed, kernel, plan_of=None,
              (args[1], *args[5:8], True), ref[1:], 1)):
         got = fn(*a, **kw("bwd", False, dirs))
         got = got if isinstance(got, tuple) else (got,)
-        assert fn.last_launch["kernel"] == kernel, (name, fn.last_launch)
+        assert fn.last_launch["kernel"] == (bwd_kernel or kernel), (
+            name, fn.last_launch)
         again = fn(*a, **kw("bwd", False, dirs))
         again = again if isinstance(again, tuple) else (again,)
         assert all(torch.equal(x, y) for x, y in zip(got, again)), name
@@ -3371,9 +3404,11 @@ def time_bigru_unit(dev, seed):
     version, the bound and cuDNN's bidirectional ``nn.GRU``; then at
     ``BIGRU_BF16`` bf16 the unit kernels (the route there)
     against the tensor-core kernels forced at their planner's pick, in
-    turns. Returns the
-    f32 rows by wrapper name (a list, ``BIGRU_TIME``'s order) and the bf16
-    comparison."""
+    turns, beside the library: bidirectional ``nn.GRU`` in bf16 (cuDNN
+    takes no bf16 RNN: PyTorch's own step loop) and through cuDNN in fp16,
+    forward without grad, with grad on, and forward + backward minus
+    forward (``yardstick_ms``). Returns the f32 rows by wrapper name (a
+    list, ``BIGRU_TIME``'s order) and the bf16 comparison."""
     f32 = torch.float32
     rows = {}
     for B, N, H in BIGRU_TIME:
@@ -3407,6 +3442,24 @@ def time_bigru_unit(dev, seed):
                 "first cluster design forced at its planner's pick)")
     B, N, H = BIGRU_BF16
     bf16 = torch.bfloat16
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(B, N, 2 * H, device=dev, generator=g)
+    dy = torch.randn(B, N, 2 * H, device=dev, generator=g)
+    m = torch.nn.GRU(2 * H, H, batch_first=True, bidirectional=True).to(dev)
+    lib = {}
+    for key, dt in (("bf16", bf16), ("cudnn_fp16", torch.float16)):
+        m = m.to(dt)
+        m.flatten_parameters()
+        xi = x.to(dt).requires_grad_(True)
+        dyi = dy.to(dt)
+
+        def light():
+            with torch.no_grad():
+                return m(xi)
+
+        lib[key] = yardstick_ms({
+            "fwd": light, "fwd_train": lambda: m(xi),
+            "fwd_bwd": lambda: m(xi)[0].backward(dyi)})
     ins = gru_inputs(B, N, H, bf16, dev, seed)
     args = gru_bwd_inputs(ins, seed + 1)
     cmp = {}
@@ -3430,9 +3483,22 @@ def time_bigru_unit(dev, seed):
                      "unit_ms": [turns[1], turns[2]],
                      "tc_plan": list(tc), "unit_launch": unit,
                      "tc_us_per_step": min(turns[0], turns[3]) / N * 1e3,
-                     "unit_us_per_step": min(turns[1], turns[2]) / N * 1e3}
+                     "unit_us_per_step": min(turns[1], turns[2]) / N * 1e3,
+                     "library_ms": lib["bf16"][kind]["median"],
+                     "library_spread_ms": lib["bf16"][kind]["spread"],
+                     "cudnn_fp16_ms": lib["cudnn_fp16"][kind]["median"],
+                     "cudnn_fp16_spread_ms":
+                         lib["cudnn_fp16"][kind]["spread"]}
         log("kernel_time", f"{name} B,N,H={BIGRU_BF16} bf16, tc vs unit "
-            f"in turns (tc, unit, unit, tc): " + json.dumps(cmp[name]))
+            f"in turns (tc, unit, unit, tc): " + json.dumps(cmp[name])
+            + f"  (library_ms: nn.GRU bidirectional bf16, PyTorch's own "
+            f"step loop; cudnn_fp16_ms: the same in fp16 through cuDNN; each"
+            f" the median of {YARDSTICK_ROUNDS} rounds of 20 calls after 2 "
+            "warm-up, spread = max - min; " + {
+                "fwd": "forward without grad",
+                "fwd_train": "forward with grad on",
+                "bwd": "forward + backward minus forward"}[kind]
+            + ", includes the input projection)")
     return rows, cmp
 
 
@@ -3575,9 +3641,14 @@ def _gru_stream_case(H, B, N, dtype, dev, seed):
 def check_stream_route(dev, seed):
     """Phase 40 (b): the stream kernels at ``STREAM_WIDTHS`` x
     ``STREAM_BATCHES``, N=``STREAM_N``, float32 and bf16, two directions
-    and one: the LSTM's six wrappers on their route (asserted "stream",
-    ``_lstm_cluster_case``), the GRU's six (``_gru_stream_case``), against
-    the plain versions, the BPTT bit-equal run to run."""
+    and one: the LSTM's six wrappers on their route (asserted "stream", the
+    BPTT's "pipe", ``_lstm_cluster_case``), the GRU's six
+    (``_gru_stream_case``), against the plain versions, the BPTT bit-equal
+    run to run; the LSTM's six so at ``PIPE_WIDTHS`` x ``PIPE_BATCHES``
+    (the BPTT on the pipe kernel's wider instances: the route, or its card's first plan forced
+    where the route stops); then the first stream BPTT (and the forwards),
+    forced at its card's first plan, at ``STREAM_OLD``'s B and H in both
+    types."""
     worst = {}
     for H in STREAM_WIDTHS:
         for B in STREAM_BATCHES:
@@ -3585,7 +3656,8 @@ def check_stream_route(dev, seed):
                 key = str(dtype)[6:]
                 for fam, case in (
                         ("lstm", lambda: _lstm_cluster_case(
-                            H, B, dtype, dev, seed, "stream", n=STREAM_N)),
+                            H, B, dtype, dev, seed, "stream", n=STREAM_N,
+                            bwd_kernel="pipe")),
                         ("gru", lambda: _gru_stream_case(
                             H, B, STREAM_N, dtype, dev, seed))):
                     err, rel, plans = case()
@@ -3595,16 +3667,112 @@ def check_stream_route(dev, seed):
                         f") {key}: values max_abs_err={err:.3e}, BPTT "
                         f"max_rel_err={rel:.3e}, bit-equal run to run; "
                         + "; ".join(plans))
+    for H in PIPE_WIDTHS:
+        try:
+            routed = rnn_cuda.lstm_bwd_kernel_route(H) == "pipe"
+        except ValueError:
+            routed = False
+        for B in PIPE_BATCHES:
+            for dtype in (torch.float32, torch.bfloat16):
+                def pick(kind, save, dirs):
+                    # the route, or past it the card's first pipe plan
+                    return (None if kind == "fwd" or routed else
+                            ("pipe", *rnn_cuda.card_lstm_pipe_plans(
+                                B, H, dev, dtype, dirs)[0]))
+                err, rel, plans = _lstm_cluster_case(
+                    H, B, dtype, dev, seed, "stream", pick, n=STREAM_N,
+                    bwd_kernel="pipe")
+                w = worst.setdefault(f"lstm_pipe_{str(dtype)[6:]}",
+                                     [0.0, 0.0])
+                w[0], w[1] = max(w[0], err), max(w[1], rel)
+                log("stream_check", f"pipe kernel "
+                    f"({'the route' if routed else 'forced'}): lstm B,N,H=("
+                    f"{B}, {STREAM_N}, {H}) {str(dtype)[6:]}: values "
+                    f"max_abs_err={err:.3e}, BPTT max_rel_err={rel:.3e}, "
+                    "bit-equal run to run; " + "; ".join(plans))
+    B, H = STREAM_OLD
+    for dtype in (torch.float32, torch.bfloat16):
+        def first(kind, save, dirs):
+            return ("stream", *rnn_cuda.card_lstm_stream_plans(
+                kind, B, H, dev, dtype, save, dirs)[0])
+        err, rel, plans = _lstm_cluster_case(H, B, dtype, dev, seed,
+                                             "stream", first, n=STREAM_N)
+        log("stream_check", f"first stream BPTT, forced: lstm B,N,H=({B}, "
+            f"{STREAM_N}, {H}) {str(dtype)[6:]}: values max_abs_err="
+            f"{err:.3e}, BPTT max_rel_err={rel:.3e}, bit-equal run to run; "
+            + "; ".join(plans))
     return worst
+
+
+def _pipe_ab(fn, a, kind, B, N, H, save, dirs, dev):
+    """The LSTM BPTT wrapper ``fn`` on its route, the pipe kernel, beside
+    the first stream design forced at its card's first plan, in turns
+    (pipe, stream, stream, pipe; the pipe kernel asserted faster), and the
+    card's first ``PIPE_SWEEP`` pipe plans (the planner's pick first) in
+    f32: a row's extra keys."""
+    f32 = torch.float32
+    first = ("stream", *rnn_cuda.card_lstm_stream_plans(
+        kind, B, H, dev, f32, save, dirs)[0])
+    turns = [cuda_ms(lambda: fn(*a, plan=p), 3, warmup=1)
+             for p in (None, first, first, None)]
+    fn(*a, plan=first)
+    old_launch = dict(fn.last_launch)
+    assert max(turns[0], turns[3]) < min(turns[1], turns[2]), (
+        fn.__name__, H, turns)
+    sweep = [{"plan": list(p), "ms": cuda_ms(
+        lambda: fn(*a, plan=("pipe", *p)), 3, warmup=1)}
+        for p in rnn_cuda.card_lstm_pipe_plans(B, H, dev, f32,
+                                               dirs)[:PIPE_SWEEP]]
+    return {"pipe_turns_ms": [turns[0], turns[3]],
+            "stream_turns_ms": [turns[1], turns[2]],
+            "stream_ms": min(turns[1], turns[2]),
+            "stream_us_per_step": min(turns[1], turns[2]) / N * 1e3,
+            "stream_launch": old_launch, "pipe_plans_ms": sweep}
+
+
+def _library_turns(rows, second):
+    """Give ``rows`` (one shape's, a wrapper's name each) cuDNN's second
+    reading ``second`` (``_library_ms``'s, taken after the kernels): both
+    readings in ``library_turns_ms``, the lower one as the row's library
+    time."""
+    for name, row in rows:
+        N = row["shape"][1]
+        pair = [row["library_ms"], second[name]]
+        row.update(library_turns_ms=pair, library_ms=min(pair),
+                   library_us_per_step=min(pair) / N * 1e3)
+
+
+def _log_time_row(name, fam, row):
+    route = row["route"]
+    turns = "library_turns_ms" in row
+    log("kernel_time", f"{name} ("
+        + ("pipe kernel, the route; stream_ms: the first stream design "
+           "forced, in turns; pipe_plans_ms: the card's first pipe plans"
+           if route == "pipe" else "stream kernel"
+           + ("" if route == "stream" else f", forced; route {route}"))
+        + ") " + json.dumps(row) + "  (library_ms: "
+        + ("the lower of " if turns else "") + "cuDNN "
+        + ("bidirectional " if name.startswith("bi") else
+           "unidirectional ") + f"nn.{fam.upper()} f32"
+        + ("'s two readings, before and after the kernels, " if turns
+           else ", ")
+        + {"fwd": "forward without grad", "fwd_train":
+           "forward with grad on", "bwd": "forward + backward "
+           "minus forward"}[name.split("_", 1)[1]]
+        + ", includes the input projection)")
 
 
 def time_stream_route(dev, seed):
     """Phase 40 (b), the timing: the twelve wrappers on the stream kernel
     at ``STREAM_TIME`` f32 (the GRU's forced at its card's first stream
-    plan where a cluster plan takes H): kernel ms (CUDA events), plain ms,
-    the bound, cuDNN's ``nn.LSTM`` / ``nn.GRU`` (bidirectional for the
-    two-direction kernels; never called by the port; input projection
-    included) and µs a step. Returns the rows by wrapper name, a list in
+    plan where a cluster plan takes H), the LSTM BPTT's two on their route,
+    the pipe kernel, beside the first stream design and the pipe plans
+    (``_pipe_ab``): kernel ms (CUDA events), plain ms, the bound, cuDNN's
+    ``nn.LSTM`` / ``nn.GRU`` (bidirectional for the two-direction kernels;
+    never called by the port; input projection included; read before and
+    after the shape's kernels, ``_library_turns``) and µs a step. Then the
+    two LSTM BPTT wrappers so at ``PIPE_TIME`` (cuDNN read once; their rows
+    under the wrapper's name and ``"_wide"``). Returns the rows by wrapper name, a list in
     ``STREAM_TIME``'s order."""
     f32 = torch.float32
     rows = {}
@@ -3634,29 +3802,62 @@ def time_stream_route(dev, seed):
             cases.append((name, fn, plain, a,
                           gru_bound(kind, B, N, H, f32, dirs=dirs), src,
                           save, dirs, "gru"))
+        shape_rows = []
         for name, fn, plain, a, bnd, kind, save, dirs, fam in cases:
             route = ((rnn_cuda.lstm_fwd_kernel_route if kind == "fwd"
                       else rnn_cuda.lstm_bwd_kernel_route)(H)
                      if fam == "lstm" else
                      (gru_cuda.gru_fwd_kernel_route if kind == "fwd"
                       else gru_cuda.gru_bwd_kernel_route)(H, dirs, f32))
-            caller = fn if route == "stream" else _Forced(
-                fn, ("stream", *gru_cuda.card_stream_plans(
-                    kind, B, H, dev, f32, save, dirs)[0]))
+            extra = {}
+            if route == "pipe":
+                extra = _pipe_ab(fn, a, kind, B, N, H, save, dirs, dev)
+                caller = fn
+            else:
+                caller = fn if route == "stream" else _Forced(
+                    fn, ("stream", *gru_cuda.card_stream_plans(
+                        kind, B, H, dev, f32, save, dirs)[0]))
             row = _time_row(name, caller, plain, a, bnd, lib[fam][name],
-                            f32, (B, N, H), route=route)
-            assert row["launch"]["kernel"] == "stream", (name, row)
+                            f32, (B, N, H), route=route, **extra)
+            assert row["launch"]["kernel"] == (
+                "pipe" if route == "pipe" else "stream"), (name, row)
             rows.setdefault(name, []).append(row)
-            log("kernel_time", f"{name} (stream kernel"
-                + ("" if route == "stream" else f", forced; route {route}")
-                + ") " + json.dumps(row) + "  (library_ms: cuDNN "
-                + ("bidirectional " if name.startswith("bi") else
-                   "unidirectional ") + f"nn.{fam.upper()} f32, "
-                + {"fwd": "forward without grad", "fwd_train":
-                   "forward with grad on", "bwd": "forward + backward "
-                   "minus forward"}[name.split("_", 1)[1]]
-                + ", includes the input projection)")
+            shape_rows.append((name, fam, row))
+        second = {**_library_ms(torch.nn.LSTM, B, N, H, f32, dev, seed),
+                  **_library_ms(torch.nn.GRU, B, N, H, f32, dev, seed)}
+        _library_turns([(name, row) for name, _, row in shape_rows], second)
+        for name, fam, row in shape_rows:
+            _log_time_row(name, fam, row)
+    for B, N, H in PIPE_TIME:
+        lib = _library_ms(torch.nn.LSTM, B, N, H, f32, dev, seed)
+        for name, fn, plain, a, bnd, kind, save, dirs in _lstm_cases(
+                B, N, H, f32, dev, seed):
+            if kind != "bwd":
+                continue
+            route = rnn_cuda.lstm_bwd_kernel_route(H)
+            assert route == "pipe", (name, H, route)
+            row = _time_row(name, fn, plain, a, bnd, lib[name], f32,
+                            (B, N, H), route=route,
+                            **_pipe_ab(fn, a, kind, B, N, H, save, dirs,
+                                       dev))
+            assert row["launch"]["kernel"] == "pipe", (name, row)
+            rows.setdefault(f"{name}_wide", []).append(row)
+            _log_time_row(name, "lstm", row)
     return rows
+
+
+@contextlib.contextmanager
+def first_stream_bptt():
+    """The LSTM BPTT routed as before the pipe kernel: the first stream
+    design wherever the route says "pipe"; every other route unchanged."""
+    route = rnn_cuda.lstm_bwd_kernel_route
+
+    def old(hidden):
+        got = route(hidden)
+        return "stream" if got == "pipe" else got
+
+    with mock.patch.object(rnn_cuda, "lstm_bwd_kernel_route", old):
+        yield
 
 
 class _Forced:
@@ -3686,7 +3887,12 @@ def stream_paths(dev, seed, smi):
     ``STREAM_LSTM_D`` (H=512, f32), one forward against the plain
     recurrence and one train step; ``lstm_recurrence`` /
     ``gru_recurrence(use_kernel=True)`` at (B, N, 512) forward and
-    backward. Returns each path's launches."""
+    backward; the lstm's train-step p50 at ``STREAM_STEP_TIME`` (bench.py's
+    B and N) over ``STREAM_STEPS`` after ``STREAM_WARMUP``, the BPTT on
+    the pipe kernel (the route) and on the first stream design
+    (``first_stream_bptt``) in turns. Each launch of the LSTM BPTT is
+    asserted on the pipe kernel, every other one on the stream kernel.
+    Returns each path's launches and the step timing."""
     out = {}
     B, N = STREAM_STEP
     cfg = ExperimentConfig.from_json(CONFIG)
@@ -3732,7 +3938,8 @@ def stream_paths(dev, seed, smi):
                                   bilstm_fwd_train=layers,
                                   bilstm_bwd=layers), c_k
     for name in ("bilstm_fwd_train", "bilstm_bwd"):
-        assert getattr(*WRAPPERS[name]).last_launch["kernel"] == "stream"
+        assert getattr(*WRAPPERS[name]).last_launch["kernel"] == (
+            "pipe" if name == "bilstm_bwd" else "stream")
     out["lstm_step"] = c_k
     log("stream_lstm", f"flagship lstm d_model={STREAM_LSTM_D} (H={H}) f32:"
         f" forward B={B} N={N} launches {out['lstm_forward']} "
@@ -3741,6 +3948,38 @@ def stream_paths(dev, seed, smi):
         f"vs CPU at B={B}, N={N} (cut from the config's 20, 1500) as "
         f"above; launches {c_k} (bilstm_bwd "
         f"{plan_text(rnn_cuda.bilstm_bwd_cuda)}) on {smi}")
+
+    # the lstm's train step at bench.py's B and N (the config's precision),
+    # the BPTT on the pipe kernel and on the first stream design, in turns
+    tcfg = ExperimentConfig.from_json(CONFIG)
+    tcfg.model.d_model = STREAM_LSTM_D
+    tcfg.train.batch_size, tcfg.data.max_trace_len = STREAM_STEP_TIME
+    turns = {"pipe": [], "stream": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_rooms(Path(tmp), STREAM_ROOMS, seed + 980)
+        for kernel in ("pipe", "stream", "stream", "pipe"):
+            ctx = (first_stream_bptt if kernel == "stream"
+                   else contextlib.nullcontext)
+            with ctx():
+                ms, step_launched = step_p50(tcfg, Path(tmp), dev, seed,
+                                             STREAM_STEPS, STREAM_WARMUP)
+            assert step_launched == expected_counts(
+                bilstm_fwd_train=layers, bilstm_bwd=layers), step_launched
+            last = rnn_cuda.bilstm_bwd_cuda.last_launch
+            assert last["kernel"] == kernel, (kernel, last)
+            turns[kernel].append(ms)
+    out["lstm_step_p50"] = {
+        "shape": [*STREAM_STEP_TIME, H], "pipe_step_p50_ms": turns["pipe"],
+        "stream_step_p50_ms": turns["stream"],
+        "step_launches": step_launched,
+        "matmul_precision": tcfg.train.matmul_precision,
+        "pipe_plan": dict(last)}
+    log("stream_lstm", f"flagship lstm d_model={STREAM_LSTM_D} (H={H}) "
+        f"train step at B, N = {STREAM_STEP_TIME} (bench.py's), p50 over "
+        f"{STREAM_STEPS} after {STREAM_WARMUP}, in turns pipe, stream, "
+        f"stream, pipe (the BPTT's kernel; the config's matmul precision "
+        f"{tcfg.train.matmul_precision}): "
+        + json.dumps(out["lstm_step_p50"]) + f" on {smi}")
 
     # the ops-level one-direction paths
     for fam in ("lstm", "gru"):
@@ -3765,7 +4004,8 @@ def stream_paths(dev, seed, smi):
         mod = rnn_cuda if fam == "lstm" else gru_cuda
         for kind in ("fwd", "fwd_train", "bwd"):
             last = getattr(mod, f"{fam}_{kind}_cuda").last_launch
-            assert last["kernel"] == "stream", (fam, kind, last)
+            assert last["kernel"] == ("pipe" if (fam, kind) == ("lstm", "bwd")
+                                      else "stream"), (fam, kind, last)
         err = value_err((ys,), (fn(xg, w, *extra),), torch.float32)
         ref_g = torch.autograd.grad(fn(*x, True), x, dy)
         rel = max(max_rel(a, r) for a, r in zip(grads, ref_g))
@@ -5034,7 +5274,8 @@ def main() -> int:
 
     # 40. the bigru model's defaults on the unit kernels (#5 / #5t / #6,
     # two directions, H=64 f32) and the stream kernels at every width above
-    # the cluster kernels': their checks, timing and main paths
+    # the cluster kernels' (the LSTM BPTT's: the pipe kernel): their checks,
+    # timing and main paths
     t_40 = time.perf_counter()
     bigru_rows, bigru_bf16 = time_bigru_unit(dev, args.seed)
     bigru_launched, bigru_timing = bigru_default_path(dev, args.seed, smi)
@@ -5155,7 +5396,8 @@ def main() -> int:
                            if lstm else {}),
                         "shapes": rows})
     # phase 40: #5 / #5t / #6 on the unit kernels (the bigru default path's
-    # step and request), and the stream kernels with their main paths
+    # step and request), and the stream and pipe kernels with their main
+    # paths
     for name, line, launched in (
             ("bigru_fwd", "gru_pallas.py:314", bigru_launched["request"]),
             ("bigru_fwd_train", "gru_pallas.py:454", bigru_launched["step"]),
@@ -5186,10 +5428,17 @@ def main() -> int:
             ("gru_fwd_train", "bigru_fwd.cu", "gru_pallas.py:155", "gru_ops"),
             ("gru_bwd", "bigru_bwd.cu", "gru_pallas.py:71", "gru_ops")):
         rows = stream_rows[name]
-        kernels.append({**entry(f"{name}_stream",
+        # the LSTM BPTT: the pipe kernel, the first stream design beside it
+        pipe = name in ("bilstm_bwd", "lstm_bwd")
+        kernels.append({**entry(f"{name}_{'pipe' if pipe else 'stream'}",
                                 f"room_slam_torch/csrc/{source}",
                                 f"room_slam_tpu/ops/{line}",
                                 stream_launched[path][name], rows[-1]),
+                        **({"stream_ms": rows[-1]["stream_ms"],
+                            "wide_shapes": stream_rows[f"{name}_wide"]}
+                           if pipe else {}),
+                        **({"path_timing": stream_launched["lstm_step_p50"]}
+                           if name == "bilstm_bwd" else {}),
                         "shapes": rows})
     for k in kernels[:3]:
         k["launches_recipe"] = recipe_launched[k["name"]]

@@ -41,8 +41,15 @@ counts. The first cluster kernel ("cluster": the slice in shared memory, a
 cluster barrier a step) stays for the A/B, reached by a forced plan. Above
 ``CLUSTER_MAX_H``, where no block holds its share of W_hh, the stream
 kernel ("stream": the first cluster kernel reading its slice of W_hh from
-global memory every step, clusters of up to 16 blocks) takes every width
-whose exchange tile fits a block; ``lstm_stream_plan`` picks its plan.
+global memory every step, clusters of up to 16 blocks) takes the forward's
+widths whose exchange tile fits a block; ``stream_plans`` picks its plan.
+The BPTT there takes the pipe kernel ("pipe": the register kernel's
+K-split, each block's slice of W_hh streamed through shared memory by a
+producer warp's bulk copies, the part that fits held for the whole walk;
+``pipe_plans`` picks the cluster and the batch tile), routed as far as the
+first stream design takes H (1816) and by a forced plan to H=2048; the
+stream BPTT, the first design for those widths, is reached by a forced
+``("stream", C, R)`` plan.
 ``lstm_fwd_kernel_route`` and ``lstm_bwd_kernel_route`` choose, and each
 launch records its kernel and plan in the wrapper's ``last_launch``.
 
@@ -131,6 +138,27 @@ STREAM_GATES = {"bilstm_fwd": 1, "bilstm_bwd": 4, "bigru_fwd": 1,
 STREAM_SM_FMA = 128
 STREAM_SM_L2 = 32
 STREAM_CARD_L2 = 3072
+
+# The pipe kernel (bilstm_bwd_pipe_kernel, the LSTM BPTT above
+# CLUSTER_MAX_H): clusters of 1 to PIPE_MAX_CLUSTER blocks (kPipeMaxC), batch
+# tiles of PIPE_ROWS[k] rows where a thread sums k groups of 4 k values (1
+# pass of PIPE_GROUPS groups to H=1024, 2 to H=2048), chunks of PIPE_JC[k]
+# gate columns of the block's slice of W_hh, at least PIPE_MIN_WARPS consumer
+# warps, at most PIPE_CELLS (unit, row) cells a consumer thread, a ring of
+# PIPE_RING stages where the slice does not fit, at most PIPE_MAX_STAGES
+# chunks in shared memory (kPipe* in csrc/bilstm_bwd.cu)
+PIPE_MAX_CLUSTER = 16
+PIPE_ROWS = {1: (1, 2, 4, 8, 12, 16), 2: (1, 2, 4, 8)}
+PIPE_JC = {1: 16, 2: 8}
+PIPE_GROUPS = 256
+PIPE_MIN_WARPS = 4
+PIPE_CELLS = 4
+PIPE_RING = 4
+PIPE_MAX_STAGES = 32
+# pipe_plans' cost model, in cycles: a step's fixed part (the exchange's
+# latency, the waits and the block barrier) and one partial summed a cell
+PIPE_STEP_FIXED = 2000
+PIPE_CELL_PARTIAL = 8
 
 
 def bilstm_smem_bytes(hidden: int) -> int:
@@ -579,6 +607,179 @@ def stream_plans(source: str, batch: int, hidden: int,
         batch, hidden, resident, dirs, wbytes)
 
 
+def pipe_hp(hidden: int) -> int:
+    """H padded to a multiple of 8: the k values of a chunk row of the
+    pipe kernel's packed W_hh (whole 16-byte rows in bf16)."""
+    return -(-hidden // 8) * 8
+
+
+def pipe_units(hidden: int, cluster: int) -> int:
+    """Hidden units one block of the pipe kernel owns: ceil(H / C) up to a
+    multiple of 4, so that a k group of 4 lies in one block's units; the
+    last block's slice is masked past H."""
+    return -(-slice_units(hidden, cluster) // 4) * 4
+
+
+def pipe_kpt(hidden: int) -> int:
+    """k groups of 4 a consumer thread of the pipe kernel sums: 1 up to
+    H=1024, 2 up to 2048 (more the kernel does not take)."""
+    return -(-(pipe_hp(hidden) // 4) // PIPE_GROUPS)
+
+
+def pipe_jc(hidden: int) -> int:
+    """Gate columns of a chunk of the pipe kernel's W_hh slice: 16 where a
+    thread sums one k group (H <= 1024), 8 above (two chunks of 16 columns
+    of f32 there would not fit a block)."""
+    return PIPE_JC[min(pipe_kpt(hidden), 2)]
+
+
+def _pipe_busy(hidden: int) -> int:
+    """Consumer threads of the pipe kernel with a k group to sum."""
+    return -(-(pipe_hp(hidden) // 4) // pipe_kpt(hidden))
+
+
+def pipe_warps(hidden: int) -> int:
+    """Consumer warps of a pipe-kernel block: a thread for each k group of
+    a pass, ``PIPE_MIN_WARPS`` at least; the block adds a producer warp."""
+    return max(PIPE_MIN_WARPS, -(-_pipe_busy(hidden) // 32))
+
+
+def pipe_layout(hidden: int, cluster: int, rows: int,
+                wbytes: int) -> Tuple[int, int, int, int, int, int]:
+    """A pipe-kernel block at H, C and R with W_hh of ``wbytes`` bytes a
+    value (``bilstm_bwd_pipe_layout`` of the source, by ``what``): dynamic
+    shared memory in bytes, threads, units, chunks of the slice in shared
+    memory, of those the ones held for the whole walk, and the slice's
+    chunks. Shared memory: as many chunks of ``pipe_jc(H)`` x ``pipe_hp(H)``
+    values as fit (at most the slice's and ``PIPE_MAX_STAGES``) beside the
+    partials [2][C][R][U] and the dg tile [4U][R] in float32 and the
+    mbarriers; where the slice does not fit, ``PIPE_RING`` of them are the
+    ring the other chunks stream through."""
+    U = pipe_units(hidden, cluster)
+    chunk = pipe_jc(hidden) * pipe_hp(hidden) * wbytes
+    chunks = 4 * U // pipe_jc(hidden)
+    fixed = (2 * cluster * rows * U + 4 * U * rows) * 4 \
+        + (2 * PIPE_MAX_STAGES + 2) * 8
+    stages = (0 if fixed >= MAX_SMEM_BYTES else
+              min(chunks, PIPE_MAX_STAGES, (MAX_SMEM_BYTES - fixed) // chunk))
+    ring = 0 if stages >= chunks else min(stages, PIPE_RING)
+    return (stages * chunk + fixed, 32 * (pipe_warps(hidden) + 1), U, stages,
+            stages - ring, chunks)
+
+
+def _pipe_rule(hidden: int, cluster: int, rows: int, wbytes: int) -> bool:
+    """The pipe kernel's plan rule (``valid_pipe_plan``): 1 to
+    ``PIPE_MAX_CLUSTER`` blocks each owning a unit, at most two k groups a
+    thread (H <= 2048), a tile of ``PIPE_ROWS``, at most ``PIPE_CELLS``
+    cells a consumer thread, and two chunks of the slice in shared memory
+    at least (one where the slice is one chunk)."""
+    if not (hidden > 0 and 1 <= cluster <= PIPE_MAX_CLUSTER):
+        return False
+    if pipe_kpt(hidden) > 2 or rows not in PIPE_ROWS[pipe_kpt(hidden)]:
+        return False
+    U = pipe_units(hidden, cluster)
+    if (cluster - 1) * U >= hidden or \
+            U * rows > PIPE_CELLS * 32 * pipe_warps(hidden):
+        return False
+    _, _, _, stages, _, chunks = pipe_layout(hidden, cluster, rows, wbytes)
+    return stages >= min(chunks, 2)
+
+
+def _pipe_plan_grid(hidden: int, wbytes: int) -> List[Tuple[int, int]]:
+    return [(c, rows) for c in range(1, PIPE_MAX_CLUSTER + 1)
+            for rows in PIPE_ROWS[min(pipe_kpt(hidden), 2)]
+            if _pipe_rule(hidden, c, rows, wbytes)]
+
+
+def pipe_takes(hidden: int) -> bool:
+    """Whether any plan of the pipe kernel takes H in float32 (then also in
+    bf16, whose chunks are half the bytes)."""
+    return bool(_pipe_plan_grid(hidden, 4))
+
+
+def check_pipe_mirror(layout) -> None:
+    """Hold ``_pipe_rule`` and ``pipe_layout`` to a built source's
+    ``bilstm_bwd_pipe_layout(what, bf16, H, C, R)`` (or -1 for a plan it
+    does not take) over H, every cluster size to one past the largest, a
+    few tiles and both W_hh types; raises naming the first plan where they
+    differ."""
+    for hidden in (1, 7, 64, 139, 256, 257, 260, 320, 511, 512, 1024, 1025,
+                   1816, 1817, 2048, 2049):
+        for c in range(1, PIPE_MAX_CLUSTER + 2):
+            for rows in (1, 2, 3, 4, 8, 12, 16, 32):
+                for bf16 in (0, 1):
+                    wbytes = 2 if bf16 else 4
+                    want = (pipe_layout(hidden, c, rows, wbytes)
+                            if _pipe_rule(hidden, c, rows, wbytes)
+                            else (-1,) * 6)
+                    got = tuple(layout(what, bf16, hidden, c, rows)
+                                for what in range(6))
+                    if got != want:
+                        raise RuntimeError(
+                            f"bilstm_bwd_pipe: the wrapper's plan mirror "
+                            f"gives {want} (shared bytes, threads, units, "
+                            f"chunks there, held, of the slice) at H={hidden}"
+                            f", plan {c}x{rows}, {'bf16' if bf16 else 'f32'}"
+                            f" W_hh, the built source {got}: update PIPE_* "
+                            "or pipe_layout to match the source")
+
+
+def rank_pipe_plans(plans, batch: int, hidden: int,
+                    resident: Callable[[int, int], int], dirs: int,
+                    wbytes: int) -> List[Tuple[int, int]]:
+    """The ``(cluster, rows)`` plans of the pipe kernel, fastest first.
+
+    A block's step costs the larger of its FMA issue (4U x ``pipe_hp(H)``
+    x rows FMAs over its busy warps, four at most issuing at once, 32 a
+    warp instruction), its streamed chunks' L2 bytes at ``STREAM_SM_L2``
+    and the wave's at ``STREAM_CARD_L2``, plus ``PIPE_STEP_FIXED`` and
+    ``PIPE_CELL_PARTIAL`` for each of the C partials of each cell a
+    consumer thread sums; times the waves of the grid of ``dirs``
+    directions (``resident(cluster, rows)`` clusters at once, the card's
+    own count; a plan the card runs none of is dropped). Ties go to the
+    plan that walks fewer rows past the batch, then the smaller tile, then
+    the larger cluster."""
+    hp = pipe_hp(hidden)
+    busy = min(4, -(-_pipe_busy(hidden) // 32))
+    keys = []
+    for c, rows in plans:
+        at_once = resident(c, rows)
+        if at_once <= 0:
+            continue
+        _, threads, U, _, held, chunks = pipe_layout(hidden, c, rows, wbytes)
+        tiles = dirs * -(-batch // rows)
+        blocks = min(tiles, at_once) * c
+        streamed = (chunks - held) * pipe_jc(hidden) * hp * wbytes
+        cells = -(-U * rows // (threads - 32))
+        step = (max(4 * U * hp * rows / (32 * busy),
+                    streamed / STREAM_SM_L2,
+                    blocks * streamed / STREAM_CARD_L2)
+                + PIPE_STEP_FIXED + cells * c * PIPE_CELL_PARTIAL)
+        keys.append((-(-tiles // at_once) * step, tiles * rows, rows, -c,
+                     c))
+    return [(c, rows) for *_, rows, _, c in sorted(keys)]
+
+
+def pipe_plans(batch: int, hidden: int, resident: Callable[[int, int], int],
+               dirs: int = 2, wbytes: int = 4) -> List[Tuple[int, int]]:
+    """Every ``(cluster, rows)`` the pipe kernel takes at this batch and H
+    over ``dirs`` directions with W_hh of ``wbytes`` bytes (the stream
+    dtype's), fastest first (``rank_pipe_plans``)."""
+    return rank_pipe_plans(_pipe_plan_grid(hidden, wbytes), batch, hidden,
+                           resident, dirs, wbytes)
+
+
+def pipe_weights(w: torch.Tensor, cluster: int) -> torch.Tensor:
+    """W_hh [H, 4H] as the pipe kernel reads it at cluster size C: [C, 4,
+    U, HP] (``pipe_units``, ``pipe_hp``), contiguous, so that block q's
+    slice is one run of 4U rows, row g * U + u holding column g * H + q *
+    U + u of W_hh over k; zero past H in both."""
+    H = w.shape[0]
+    U, HP = pipe_units(H, cluster), pipe_hp(H)
+    wt = F.pad(w.t().reshape(4, H, H), (0, HP - H, 0, cluster * U - H))
+    return wt.reshape(4, cluster, U, HP).transpose(0, 1).contiguous()
+
+
 def _lstm_route(kind: str, hidden: int, wide: bool, wide_smem: int) -> str:
     name = f"bilstm_{kind}"
     if hidden <= 0:
@@ -590,13 +791,17 @@ def _lstm_route(kind: str, hidden: int, wide: bool, wide_smem: int) -> str:
     if any(_reg_rule(kind, hidden, c, rows)
            for c in range(1, REG_MAX_CLUSTER + 1) for rows in REG_ROWS[kind]):
         return "reg"
-    if stream_takes(name, hidden):
-        return "stream"
+    # the BPTT's pipe kernel is routed only as far as the first stream
+    # design (its A/B in chip_smoke.py phase 40) takes H
+    if stream_takes(name, hidden) and (kind == "fwd" or pipe_takes(hidden)):
+        return "stream" if kind == "fwd" else "pipe"
+    pipe = ("the pipe kernel is routed where the first stream design takes "
+            "H, and " if kind == "bwd" else "and ")
     raise ValueError(
         f"{name}: no kernel takes H={hidden} on this card: the unit kernel "
         f"holds H <= {UNIT_MAX_H}, the wide kernel needs {wide_smem} bytes "
         f"of shared memory per block, the register cluster kernel takes "
-        f"H <= {CLUSTER_MAX_H}, and {stream_refusal(name, hidden)}")
+        f"H <= {CLUSTER_MAX_H}, {pipe}{stream_refusal(name, hidden)}")
 
 
 def lstm_fwd_kernel_route(hidden: int) -> str:
@@ -628,9 +833,11 @@ def lstm_bwd_kernel_route(hidden: int) -> str:
     "unit" (``bilstm_bwd_unit_kernel``) up to ``UNIT_MAX_H``, else "wide"
     where its W_hh^T and dg tile fit one block's shared memory (H <= 116),
     else "reg" (the register cluster kernel) up to ``CLUSTER_MAX_H``, else
-    "stream" where its dg tile fits a block (H <= 1816); the first cluster
-    kernel is reached only by a forced plan. Raises, naming the width and
-    the card's limit, for an H none takes."""
+    "pipe" (the pipe kernel) where the first stream design's dg tile fits
+    a block (H <= 1816: the widths its A/B covers); the first cluster
+    kernel, the stream kernel and the pipe kernel's plans above 1816 (to
+    H=2048) are reached only by a forced plan. Raises, naming the width
+    and the card's limit, for an H none takes."""
     return _lstm_route("bwd", hidden,
                        bilstm_bwd_smem_bytes(hidden) <= MAX_SMEM_BYTES,
                        bilstm_bwd_smem_bytes(hidden))
@@ -931,9 +1138,11 @@ def _library(name: str):
         fns = {"bilstm_bwd": (10, 3), "lstm_bwd": (5, 4),
                "bilstm_bwd_unit": (10, 4), "lstm_bwd_unit": (5, 5)}
     # the cluster kernels: the pointers, then B, N, H, C, R (and reverse)
+    kernels = ("cluster", "reg", "stream",
+               *(("pipe",) if name == "bilstm_bwd" else ()))
     for fn_name in [f for f in fns if not f.endswith("_unit")]:
         n_ptr, n_int = fns[fn_name]
-        for kernel in ("cluster", "reg", "stream"):
+        for kernel in kernels:
             fns[f"{fn_name}_{kernel}"] = (
                 n_ptr, 5 + int(fn_name.startswith("lstm")))
     for fn_name, (n_ptr, n_int) in fns.items():
@@ -945,12 +1154,14 @@ def _library(name: str):
         bind_unit_queries(lib, name, gates=4)
     else:
         bind_unit_queries(lib, name, gates=4, tiles=4)
-    # the bf16 and kSave flags, then H, C, R; H, C, R; what, H, C, R
-    for query, n_int in (("cluster_max_active_clusters", 5),
-                         ("cluster_smem_bytes", 3),
-                         ("reg_max_active_clusters", 5), ("reg_layout", 4),
-                         ("stream_max_active_clusters", 5),
-                         ("stream_smem_bytes", 3)):
+    # the bf16 and kSave flags, then H, C, R; H, C, R; what, H, C, R; the
+    # pipe kernel's layout: what, the bf16 flag, H, C, R
+    queries = (("cluster_max_active_clusters", 5), ("cluster_smem_bytes", 3),
+               ("reg_max_active_clusters", 5), ("reg_layout", 4),
+               ("stream_max_active_clusters", 5), ("stream_smem_bytes", 3))
+    if name == "bilstm_bwd":
+        queries += (("pipe_max_active_clusters", 5), ("pipe_layout", 5))
+    for query, n_int in queries:
         fn = getattr(lib, f"{name}_{query}")
         fn.argtypes = [i] * n_int
         fn.restype = i
@@ -959,6 +1170,8 @@ def _library(name: str):
     check_reg_mirror(getattr(lib, f"{name}_reg_layout"),
                      name[len("bilstm_"):])
     check_stream_mirror(getattr(lib, f"{name}_stream_smem_bytes"), name)
+    if name == "bilstm_bwd":
+        check_pipe_mirror(lib.bilstm_bwd_pipe_layout)
     set_error_string(lib, name)
     return lib
 
@@ -986,9 +1199,9 @@ def _cluster_resident(source: str, H: int, dev: torch.device, T,
                       save: bool, kernel: str = "cluster"
                       ) -> Callable[[int, int], int]:
     """``resident(cluster, rows)``: how many clusters of that plan of the
-    LSTM cluster kernel ``kernel`` ("cluster", "reg" or "stream") of
-    ``source``
-    ("bilstm_fwd" or "bilstm_bwd") the card ``dev`` runs at once."""
+    LSTM cluster kernel ``kernel`` ("cluster", "reg", "stream"; the BPTT's
+    also "pipe") of ``source`` ("bilstm_fwd" or "bilstm_bwd") the card
+    ``dev`` runs at once."""
     query = getattr(_library(source),
                     f"{source}_{kernel}_max_active_clusters")
 
@@ -1035,6 +1248,17 @@ def card_lstm_stream_plans(kind: str, B: int, H: int, dev: torch.device,
         dtype.itemsize)
 
 
+def card_lstm_pipe_plans(B: int, H: int, dev: torch.device,
+                         dtype: torch.dtype,
+                         dirs: int) -> List[Tuple[int, int]]:
+    """``pipe_plans`` of the LSTM BPTT's pipe kernel on the card ``dev``
+    (its own counts), fastest first; the first is the plan a launch
+    takes."""
+    return pipe_plans(
+        B, H, _cluster_resident("bilstm_bwd", H, dev, dtype, False, "pipe"),
+        dirs, dtype.itemsize)
+
+
 def card_name(dev: torch.device) -> str:
     """The card's name, for an error that names where a plan failed."""
     return (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -1042,11 +1266,19 @@ def card_name(dev: torch.device) -> str:
 
 
 def _plan_rules(kind: str, H: int, T: torch.dtype):
-    """The register (``"reg"``), first (``"cluster"``) and stream
-    (``"stream"``) cluster kernels' plan test, planners (every plan,
-    fastest first) and plan rule as text, for ``cluster_launch_plan``."""
+    """The register (``"reg"``), first (``"cluster"``), stream
+    (``"stream"``) and, for the BPTT, pipe (``"pipe"``) cluster kernels'
+    plan test, planners (every plan, fastest first) and plan rule as text,
+    for ``cluster_launch_plan``."""
     source = f"bilstm_{kind}"
-    return {
+    pipe = {} if kind != "bwd" else {"pipe": (
+        lambda c, r: _pipe_rule(H, c, r, T.itemsize),
+        lambda kind_, B, H_, res, dirs: pipe_plans(B, H_, res, dirs,
+                                                   T.itemsize),
+        f"1 to {PIPE_MAX_CLUSTER} blocks each owning a unit, a tile of "
+        f"{PIPE_ROWS[min(pipe_kpt(H), 2)]} rows, at most {PIPE_CELLS} cells "
+        "a thread, two chunks of W_hh's slice in shared memory")}
+    return {**pipe,
         "reg": (lambda c, r: _reg_rule(kind, H, c, r), lstm_reg_plans,
                 f"H at most {CLUSTER_MAX_H}, 1 to {REG_MAX_CLUSTER} blocks "
                 f"each owning a unit, a tile of {REG_ROWS[kind]} rows, at "
@@ -1071,14 +1303,19 @@ def cluster_launch_plan(fn, source: str, B: int, H: int, dev: torch.device,
                         kernel: str = "reg") -> Tuple[int, int]:
     """``(cluster, rows)`` of a launch of the LSTM cluster kernel
     ``kernel`` ("reg": the register cluster kernel, "cluster": the first
-    design, "stream": the stream kernel) of ``source``: its planner's pick
-    with the card's own counts, or the caller's ``plan``, refused unless it
-    fits and the card runs such a cluster. Recorded with the grid's cluster
-    count in ``fn.last_launch``."""
+    design, "stream": the stream kernel, "pipe": the BPTT's pipe kernel) of
+    ``source``: its planner's pick with the card's own counts, or the
+    caller's ``plan``, refused unless it fits and the card runs such a
+    cluster. Recorded with the grid's cluster count in ``fn.last_launch``.
+    """
     kind = source[len("bilstm_"):]
     key = (source, kernel, B, H, str(dev), T, save, dirs, plan)
     if key not in _CLUSTER_PLANS:
-        fits, planner, rule = _plan_rules(kind, H, T)[kernel]
+        rules = _plan_rules(kind, H, T)
+        if kernel not in rules:
+            raise ValueError(f"{source}: no {kernel} kernel; plans of "
+                             f"{sorted(rules)} are taken")
+        fits, planner, rule = rules[kernel]
         resident = _cluster_resident(source, H, dev, T, save, kernel)
         if plan is None:
             plans = planner(kind, B, H, resident, dirs)
@@ -1231,7 +1468,7 @@ def _smem(source: str, H: int, plan) -> int:
     if kernel == "unit":
         return unit_smem_bytes(max(UNIT_ROWS),
                                tiles=1 if source == "bilstm_fwd" else 4)
-    if kernel in ("cluster", "reg", "stream"):
+    if kernel in ("cluster", "reg", "stream", "pipe"):
         return 0
     return (bilstm_smem_bytes if source == "bilstm_fwd"
             else bilstm_bwd_smem_bytes)(H)
@@ -1239,14 +1476,15 @@ def _smem(source: str, H: int, plan) -> int:
 
 def _plan(fn, source: str, name: str, B: int, H: int, dev, T, save: bool,
           dirs: int, plan):
-    """The kernel library, the kernel ("unit", "wide", "reg", "stream" or
-    "cluster") and the plan's integers of a launch of ``source``
-    ("bilstm_fwd" or "bilstm_bwd"): the route's kernel with ``unit_plan``'s
-    tile ``(rows,)``, the wide kernel's ``(4,)``, ``lstm_reg_plan``'s or
-    ``stream_plans``' ``(cluster, rows)``; or the caller's ``plan``
-    ("unit", rows), ("wide", 4), ("reg", cluster, rows), ("stream",
-    cluster, rows) or ("cluster", cluster, rows), the first cluster
-    kernel's. Recorded in ``fn.last_launch``."""
+    """The kernel library, the kernel ("unit", "wide", "reg", "pipe",
+    "stream" or "cluster") and the plan's integers of a launch of
+    ``source`` ("bilstm_fwd" or "bilstm_bwd"): the route's kernel with
+    ``unit_plan``'s tile ``(rows,)``, the wide kernel's ``(4,)``,
+    ``lstm_reg_plan``'s, ``pipe_plans``' or ``stream_plans``' ``(cluster,
+    rows)``; or the caller's ``plan`` ("unit", rows), ("wide", 4), ("reg",
+    cluster, rows), ("pipe", cluster, rows) (the BPTT), ("stream", cluster,
+    rows) or ("cluster", cluster, rows), the first cluster kernel's.
+    Recorded in ``fn.last_launch``."""
     kernel = _kernel(source, H, plan)
     lib = _library(source)
     forced = None if plan is None else tuple(plan[1:])
@@ -1257,14 +1495,14 @@ def _plan(fn, source: str, name: str, B: int, H: int, dev, T, save: bool,
         return lib, kernel, (unit_launch_rows(
             fn, lib, source, B, H, dev, T, save, dirs,
             None if forced is None else forced[0]),)
-    if kernel in ("cluster", "reg", "stream"):
+    if kernel in ("cluster", "reg", "stream", "pipe"):
         return lib, kernel, cluster_launch_plan(fn, source, B, H, dev, T,
                                                 save, dirs, forced, kernel)
     if kernel != "wide" or forced not in (None, (_ROWS_PER_BLOCK,)):
         raise ValueError(f"{name}: plan must be ('unit', rows), ('wide', "
                          f"{_ROWS_PER_BLOCK}), ('reg', cluster, rows), "
-                         "('stream', cluster, rows) or ('cluster', cluster, "
-                         f"rows), got {plan}")
+                         "('pipe', cluster, rows), ('stream', cluster, rows) "
+                         f"or ('cluster', cluster, rows), got {plan}")
     fn.last_launch = {"kernel": "wide", "cluster": 1,
                       "rows": _ROWS_PER_BLOCK,
                       "clusters": dirs * -(-B // _ROWS_PER_BLOCK),
@@ -1337,12 +1575,15 @@ def bilstm_fwd_train_cuda(xg_f: torch.Tensor, xg_b: torch.Tensor,
 bilstm_fwd_train_cuda.launches = 0
 
 
-def bwd_weights(kernel: str, weights) -> list:
+def bwd_weights(kernel: str, weights, cluster: int = 1) -> list:
     """The BPTT's W_hh as a launch of ``kernel`` reads it: the stream
     kernels read W_hh^T (a contiguous transposed copy, so that consecutive
-    threads read consecutive units), every other kernel W_hh itself."""
+    threads read consecutive units), the pipe kernel W_hh packed for its
+    cluster size (``pipe_weights``), every other kernel W_hh itself."""
     if kernel == "stream":
         return [w.t().contiguous() for w in weights]
+    if kernel == "pipe":
+        return [pipe_weights(w, cluster) for w in weights]
     return list(weights)
 
 
@@ -1353,12 +1594,13 @@ def _bwd_launch(fn, name: str, ptrs, B: int, N: int, H: int, dev, T,
     ``tail`` (the reverse flag of one direction), as ``_plan`` picks: the
     wide kernel's entries take no tile, the unit kernel's
     (``<name>_unit_*``) its tile, the cluster kernels'
-    (``<name>_reg_*``, ``<name>_stream_*``, ``<name>_cluster_*``) C and R.
-    The stream kernel reads W_hh^T: ``ptrs`` start with the weights, which
-    are passed transposed there. Counted on ``fn``."""
+    (``<name>_reg_*``, ``<name>_pipe_*``, ``<name>_stream_*``,
+    ``<name>_cluster_*``) C and R. The stream and pipe kernels read W_hh in
+    their own layouts (``bwd_weights``): ``ptrs`` start with the weights,
+    which are passed so there. Counted on ``fn``."""
     lib, kernel, ints = _plan(fn, "bilstm_bwd", name, B, H, dev, T, False,
                               dirs, plan)
-    tensors = [*bwd_weights(kernel, ptrs[:dirs]), *ptrs[dirs:]]
+    tensors = [*bwd_weights(kernel, ptrs[:dirs], ints[0]), *ptrs[dirs:]]
     ptrs = [t.data_ptr() for t in tensors]   # tensors held to the launch
     sfx = _SUFFIX[T]
     if kernel == "wide":
@@ -1373,8 +1615,9 @@ def bilstm_bwd_cuda(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b,
                     plan: Optional[Tuple[str, int]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/bilstm_bwd.cu``: returns ``(dg_f, dg_b)``.
-    ``lstm_bwd_kernel_route`` picks the unit, wide or register cluster
-    kernel; ``plan=("unit", rows)``, ``("wide", 4)``, ``("reg", cluster,
+    ``lstm_bwd_kernel_route`` picks the unit, wide, register cluster or
+    pipe kernel; ``plan=("unit", rows)``, ``("wide", 4)``, ``("reg",
+    cluster, rows)``, ``("pipe", cluster, rows)``, ``("stream", cluster,
     rows)`` or ``("cluster", cluster, rows)`` overrides the route and the
     planner (raises if it does not fit). Records the plan in
     ``bilstm_bwd_cuda.last_launch`` and counts each launch in

@@ -162,8 +162,8 @@ def test_new_kernels_raise_on_bad_inputs(cuda):
         rnn_cuda.bilstm_bwd_cuda(*args[:4], ys_f[:, :4], *args[5:])
     with pytest.raises(ValueError):
         rnn_cuda.bilstm_bwd(*args[:7], ys_b.cpu())
-    # above every LSTM BPTT kernel's width (the stream kernel's dg tile of
-    # 4H rows fits a block to H=1816)
+    # above every LSTM BPTT route's width (the pipe kernel is routed where
+    # the first stream design's dg tile of 4H rows fits a block, to H=1816)
     H = 1817
     z = [torch.zeros(1, 3, d, device=cuda) for d in (4 * H, H, H)]
     w = torch.zeros(H, 4 * H, device=cuda)
@@ -679,8 +679,8 @@ LSTM_BWD_WIDE_SHAPES = [(1, 17, 96), (5, 500, 96), (17, 43, 96)]
 def _check_lstm_bwd(cuda, shape, dtype, plans, kernel, route=None):
     """The BPTT under each of ``plans`` on ``kernel``, then the Functions'
     gradients through the route, whose kernel is ``route`` (default
-    ``kernel``)."""
-    route = route or kernel
+    ``kernel``; False: no route takes H, the Functions are not run)."""
+    route = kernel if route is None else route
     xg_f, xg_b, w_f, w_b = _inputs(*shape, cuda)
     xg_f, xg_b = xg_f.to(dtype), xg_b.to(dtype)
     bound = GRAD_REL if dtype == torch.float32 else 0.1
@@ -713,6 +713,9 @@ def _check_lstm_bwd(cuda, shape, dtype, plans, kernel, route=None):
                                                            plan=plan))
             assert got.dtype == r.dtype and torch.isfinite(got).all()
             assert _max_rel(got.float(), r.float()) <= bound, (plan, rev)
+    if route is False:
+        torch.cuda.synchronize()
+        return
     x = [t.clone().requires_grad_(True) for t in (xg_f, xg_b, w_f, w_b)]
     got = torch.autograd.grad(rnn_cuda.bilstm_recurrence(*x), x, [dy_f, dy_b])
     assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == route
@@ -1061,10 +1064,14 @@ def test_tta_serving_card_matches_cpu(cuda):
 # The stream kernels (the widths above the cluster kernels': W_hh read from
 # global memory every step, clusters of up to 16 blocks) at H in {257, 320,
 # 512} x B in {1, 5, 32}, a short walk, float32 and bf16, both direction
-# counts: the LSTM's six wrappers and BiLSTMFunction's / LSTMFunction's
-# gradients through the route (its BPTT bit-equal run to run), the GRU's
-# six (the stream plan forced where a cluster plan takes H, as at 320) and
+# counts: the LSTM's six wrappers (the BPTT's, whose route is now the pipe
+# kernel, by a forced plan) and BiLSTMFunction's / LSTMFunction's gradients
+# through the route (its BPTT bit-equal run to run), the GRU's six (the
+# stream plan forced where a cluster plan takes H, as at 320) and
 # BiGRUFunction's gradients; against the plain versions at the bounds above.
+# The pipe kernel (the LSTM BPTT's route above H=256) at the same shapes
+# and at PIPE_WIDTHS, on its route and under the card's next plans, and its
+# plans that do not fit refused.
 # ---------------------------------------------------------------------------
 
 STREAM_WIDTHS = (257, 320, 512)
@@ -1076,7 +1083,7 @@ STREAM_N = 9
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lstm_stream_kernels_match_plain(cuda, H, dtype):
     assert rnn_cuda.lstm_fwd_kernel_route(H) == "stream"
-    assert rnn_cuda.lstm_bwd_kernel_route(H) == "stream"
+    assert rnn_cuda.lstm_bwd_kernel_route(H) == "pipe"
     for B in STREAM_BATCHES:
         shape = (B, STREAM_N, H)
         for fn, ins, ref, dirs, save in _lstm_fwd_cases(shape, dtype, cuda):
@@ -1089,7 +1096,55 @@ def test_lstm_stream_kernels_match_plain(cuda, H, dtype):
                                                 save, dirs)[0]
             for a, r in zip(got, ref):
                 _assert_close(a, r, dtype)
-        _check_lstm_bwd(cuda, shape, dtype, [None], "stream")
+        first = ("stream", *rnn_cuda.card_lstm_stream_plans(
+            "bwd", B, H, cuda, dtype, False, 2)[0])
+        _check_lstm_bwd(cuda, shape, dtype, [first], "stream", route="pipe")
+
+
+# the pipe kernel's other instance families: blocks of more than four
+# consumer warps (H 513-1024) and two k groups a thread (1025-2048; the
+# route stops at 1816, where the first stream design does)
+PIPE_WIDTHS = (640, 1024, 1100, 2048)
+
+
+@pytest.mark.parametrize("H", STREAM_WIDTHS + PIPE_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_pipe_kernels_match_plain(cuda, H, dtype):
+    """Both BPTT grids on the pipe kernel under the card's first three
+    plans (the first through the route where it takes H), bit-equal run to
+    run, and the Functions' gradients through the route; past H=1816 the
+    route raises and the plans are forced."""
+    routed = H <= 1816
+    if routed:
+        assert rnn_cuda.lstm_bwd_kernel_route(H) == "pipe"
+    else:
+        with pytest.raises(ValueError, match=f"H={H}"):
+            rnn_cuda.lstm_bwd_kernel_route(H)
+    for B in STREAM_BATCHES:
+        plans = [("pipe", *p) for p in
+                 rnn_cuda.card_lstm_pipe_plans(B, H, cuda, dtype, 2)[:3]]
+        assert plans
+        _check_lstm_bwd(cuda, (B, STREAM_N, H), dtype,
+                        [None if routed else plans[0], *plans[1:]], "pipe",
+                        route=None if routed else False)
+
+
+def test_lstm_pipe_plans_that_do_not_fit_raise(cuda):
+    """A pipe plan over 16 blocks, with a tile it has not, or whose block
+    holds more cells than its threads is refused before any launch; the
+    forward has no pipe kernel."""
+    args = [t.to(cuda) for t in _inputs(5, 4, 512, cuda)]
+    res = rnn_cuda.bilstm_fwd_train_plain(*args)
+    bwd = (args[2], args[3], res[4], res[2], res[0], res[5], res[3], res[1])
+    before = rnn_cuda.bilstm_bwd_cuda.launches
+    for bad in (("pipe", 17, 4), ("pipe", 16, 6), ("pipe", 1, 16)):
+        with pytest.raises(ValueError, match="does not fit"):
+            rnn_cuda.bilstm_bwd_cuda(*bwd, plan=bad)
+        with pytest.raises(ValueError, match="does not fit"):
+            rnn_cuda.lstm_bwd_cuda(bwd[0], *bwd[2:5], plan=bad)
+    with pytest.raises(ValueError, match="no pipe kernel"):
+        rnn_cuda.bilstm_fwd_cuda(*args, plan=("pipe", 16, 4))
+    assert rnn_cuda.bilstm_bwd_cuda.launches == before
 
 
 def _gru_stream_plan(kind, B, H, cuda, dtype, dirs, save=False):

@@ -170,7 +170,7 @@ def fake_card(monkeypatch):
                         lambda kind, *a: (f"bigru_{kind}", _stream_clusters))
     monkeypatch.setattr(rnn_cuda, "_cluster_resident",
                         lambda *a: _reg_clusters if "reg" in a
-                        else _stream_clusters if "stream" in a
+                        else _stream_clusters if "stream" in a or "pipe" in a
                         else _clusters)
     monkeypatch.setattr(rnn_cuda, "_UNIT_PLANS", {})
     monkeypatch.setattr(rnn_cuda, "_CLUSTER_PLANS", {})
@@ -379,7 +379,7 @@ def test_lstm_bwd_route(hidden, want):
 @pytest.mark.parametrize("hidden", [0, 257, 260, 384])
 def test_lstm_bwd_route_raises_where_no_kernel_fits(hidden):
     """No BPTT kernel takes H <= 0, and no register or first cluster plan
-    H above 256: the errors name the width; those widths take the stream
+    H above 256: the errors name the width; those widths take the pipe
     kernel."""
     if hidden <= 0:
         with pytest.raises(ValueError, match="H"):
@@ -389,7 +389,7 @@ def test_lstm_bwd_route_raises_where_no_kernel_fits(hidden):
         rnn_cuda.lstm_reg_plan("bwd", 8, hidden, _reg_clusters)
     with pytest.raises(ValueError, match=f"H={hidden}"):
         rnn_cuda.lstm_cluster_plan("bwd", 8, hidden, _clusters)
-    assert lstm_bwd_kernel_route(hidden) == "stream"
+    assert lstm_bwd_kernel_route(hidden) == "pipe"
 
 
 def test_lstm_bwd_unit_mirror_check_against_source_layout():
@@ -939,13 +939,14 @@ def test_cluster_routes_launch_and_record(fake_card):
 def test_reg_route_above_the_wide_kernels(kind, first):
     """The forward's widths 119..256 and the BPTT's 117..256 take the
     register cluster kernel; the unit and wide kernels keep theirs below;
-    257 takes the stream kernel."""
+    257 takes the stream kernel in the forward, the pipe kernel in the
+    BPTT."""
     route = (lstm_fwd_kernel_route if kind == "fwd"
              else lstm_bwd_kernel_route)
     assert [route(h) for h in range(first, 257)] == ["reg"] * (257 - first)
     assert {route(h) for h in range(1, 65)} == {"unit"}
     assert {route(h) for h in range(65, first)} == {"wide"}
-    assert route(257) == "stream"
+    assert route(257) == ("stream" if kind == "fwd" else "pipe")
 
 
 def _reg_source(kind, hidden, c, rows, every_block=True, cells=True):
@@ -1128,7 +1129,8 @@ def test_every_width_to_1024_has_a_route(family):
     directions, float32 and bf16, gets a route on the H100's counts; up to
     H=256 every pick of before stays but the BiGRU's at H <= 64 (now the
     unit kernel), and above it every width a cluster plan took keeps it;
-    the stream route has a plan in each direction count and dtype."""
+    the stream route (the LSTM BPTT's: the pipe route) has a plan in each
+    direction count and dtype."""
     for hidden in range(1, 1025):
         for kind in ("fwd", "bwd"):
             if family == "lstm":
@@ -1138,6 +1140,13 @@ def test_every_width_to_1024_has_a_route(family):
                     "reg" if hidden <= 256 else None)
                 if before is not None:
                     assert route == before, (kind, hidden)
+                elif kind == "bwd":
+                    assert route == "pipe", hidden
+                    for dirs in (1, 2)[:1 + (hidden % 61 == 0)]:
+                        for wbytes in (4, 2):
+                            assert rnn_cuda.pipe_plans(
+                                32, hidden, _stream_clusters, dirs,
+                                wbytes), hidden
                 else:
                     assert route == "stream", (kind, hidden)
                     for dirs in (1, 2)[:1 + (hidden % 61 == 0)]:
@@ -1172,9 +1181,10 @@ def test_stream_plans_fit_a_block_and_the_cluster_bound(source):
     """Every plan the stream planner offers (B=1, 5, 32, 128; H=257 to
     1024) has at most 16 blocks, each owning a unit, at most 512 threads,
     and an exchange tile of (gates x H rows, padded to chunks of 8) x R
-    float32 in a block's shared memory; the largest width is H=1816 for
-    the LSTM BPTT (a 4H-row dg tile at 4 rows), past it the route raises
-    naming the width and the card's limit."""
+    float32 in a block's shared memory; the largest width the stream
+    kernel takes is H=1816 for the LSTM BPTT (a 4H-row dg tile at 4 rows);
+    the BPTT's route takes the pipe kernel as far, past it raises naming
+    the width and the card's limit."""
     gates = rnn_cuda.STREAM_GATES[source]
     for hidden in (257, 260, 300, 320, 384, 511, 512, 640, 760, 1000, 1024):
         for batch in (1, 5, 32, 128):
@@ -1193,7 +1203,8 @@ def test_stream_plans_fit_a_block_and_the_cluster_bound(source):
         <= rnn_cuda.MAX_SMEM_BYTES
     assert rnn_cuda.stream_smem_bytes(lstm_bwd, 1817, 4) \
         > rnn_cuda.MAX_SMEM_BYTES
-    assert lstm_bwd_kernel_route(1816) == "stream"
+    assert not rnn_cuda.stream_takes(lstm_bwd, 1817)
+    assert lstm_bwd_kernel_route(1816) == "pipe"
     with pytest.raises(ValueError, match="H=1817.*H100"):
         lstm_bwd_kernel_route(1817)
 
@@ -1276,9 +1287,9 @@ def test_stream_entries_launch_and_record(fake_card, name):
     cluster plan of the GRU fits either) launches ``<name>_stream_<dtype>``
     with its pointers, then B, N, H, C, R (and a one-direction grid's
     reverse flag), the stream planner's plan for its direction count and
-    dtype, and records it; the count rises by one a launch; a forced
-    ("stream", C, R) is taken, one that does not fit refused before any
-    launch."""
+    dtype (the LSTM BPTT's, whose route is the pipe kernel, forced), and
+    records it; the count rises by one a launch; a forced ("stream", C, R)
+    is taken, one that does not fit refused before any launch."""
     lstm = name in _STREAM_LSTM
     n_ptr, one_dir = (_STREAM_LSTM if lstm else _STREAM_GRU)[name]
     source = (("bilstm_bwd" if name.endswith("bwd") else "bilstm_fwd")
@@ -1292,7 +1303,8 @@ def test_stream_entries_launch_and_record(fake_card, name):
                                      dtype.itemsize)[0]
         fn = getattr(rnn_cuda if lstm else gru_cuda, f"{name}_cuda")
         before = fn.launches
-        call(name, B, 1, H, dtype)
+        call(name, B, 1, H, dtype, plan=("stream", *want)
+             if source == "bilstm_bwd" else None)
         assert fn.launches == before + 1
         called, args = fake_card.calls[-1]
         assert called == f"{name}_stream_{sfx}"
@@ -1350,3 +1362,187 @@ def test_bigru_float32_two_directions_take_the_unit_kernels(fake_card):
             fn(*big, plan=("unit", 1))
     assert gru_fwd_kernel_route(64, 2, torch.bfloat16) == "unit"
     assert gru_bwd_kernel_route(64, 2, torch.bfloat16) == "unit"
+
+
+# ---------------------------------------------------------------------------
+# The pipe kernel (bilstm_bwd_pipe_kernel: the LSTM BPTT above H=256, the
+# register kernel's K-split with each block's slice of W_hh streamed through
+# shared memory): its route, plan rule and layout mirror, the planner on the
+# card's counts, the packed W_hh, and the launches of both BPTT wrappers
+# ---------------------------------------------------------------------------
+
+def test_pipe_route_takes_the_bptt_above_the_register_kernel():
+    """Every BPTT width from 257 to 1816 (the first stream design's, its
+    A/B) takes the pipe kernel; the forward keeps the stream kernel; past
+    1816 the route raises naming the width, where the pipe kernel is routed
+    and the card, though pipe plans fit to H=2048 (reached by a forced
+    plan) and none at 2049."""
+    for hidden in [*range(257, 1817, 7), 1816]:
+        assert lstm_bwd_kernel_route(hidden) == "pipe", hidden
+        assert lstm_fwd_kernel_route(hidden) == "stream", hidden
+    for hidden in (1817, 2048, 2049):
+        with pytest.raises(ValueError,
+                           match=f"H={hidden}.*first stream design.*H100"):
+            lstm_bwd_kernel_route(hidden)
+    assert rnn_cuda.pipe_takes(2048) and not rnn_cuda.pipe_takes(2049)
+
+
+def _pipe_source(hidden, c, rows, wbytes, units=None, max_c=16,
+                 rows_of=None, cells=4):
+    """The source's ``bilstm_bwd_pipe_layout`` written out again (``units``,
+    ``max_c``, ``rows_of`` and ``cells`` vary its rule): (bytes, threads,
+    units, chunks there, held, of the slice) or -1s."""
+    hp = (hidden + 7) // 8 * 8
+    kpt = (hp // 4 + 255) // 256
+    jc = 16 if kpt == 1 else 8
+    rows_of = rows_of or {1: (1, 2, 4, 8, 12, 16), 2: (1, 2, 4, 8)}
+    U = (units or (lambda h, k: ((h + k - 1) // k + 3) // 4 * 4))(hidden, c)
+    warps = max(4, ((hp // 4 + kpt - 1) // kpt + 31) // 32)
+    if not (hidden > 0 and 1 <= c <= max_c and kpt <= 2
+            and rows in rows_of[kpt] and (c - 1) * U < hidden
+            and U * rows <= cells * 32 * warps):
+        return (-1,) * 6
+    chunk, chunks = jc * hp * wbytes, 4 * U // jc
+    fixed = (2 * c * rows * U + 4 * U * rows) * 4 + 66 * 8
+    stages = 0 if fixed >= 232448 else min(chunks, 32,
+                                           (232448 - fixed) // chunk)
+    if stages < min(chunks, 2):
+        return (-1,) * 6
+    ring = 0 if stages >= chunks else min(stages, 4)
+    return (stages * chunk + fixed, 32 * (warps + 1), U, stages,
+            stages - ring, chunks)
+
+
+def test_pipe_mirror_check_against_source_layout():
+    """``check_pipe_mirror`` accepts the source's layout query written out,
+    and names the first plan of a source whose rule differs: units not
+    rounded to whole k groups, no cluster above 8 blocks, no 12-row tile,
+    two cells a thread."""
+    def query(**kw):
+        return lambda what, bf16, h, c, r: _pipe_source(
+            h, c, r, 2 if bf16 else 4, **kw)[what]
+
+    rnn_cuda.check_pipe_mirror(query())
+    for kw, where in (
+            ({"units": lambda h, c: -(-h // c)}, "H=1, plan 1x1, f32"),
+            ({"max_c": 8}, "H=64, plan 16x1"),
+            ({"rows_of": {1: (1, 2, 4, 8, 16), 2: (1, 2, 4, 8)}},
+             "H=1, plan 1x12"),
+            ({"cells": 2}, "H=64, plan 1x8, f32")):
+        with pytest.raises(RuntimeError, match=where):
+            rnn_cuda.check_pipe_mirror(query(**kw))
+
+
+def test_pipe_layout_holds_what_fits():
+    """At H=320 in f32 a cluster of 16 holds the whole slice (20 units, 5
+    chunks of 16 x 320 floats); at H=512 in f32 the 12-row plan holds 1 of
+    its 8 chunks and streams 7 through the ring of 4, in bf16 the 4-row
+    plan holds all; above H=1024 a thread sums two k groups over up to 8
+    warps, in chunks of 8 columns."""
+    lay = rnn_cuda.pipe_layout
+    assert lay(320, 16, 12, 4)[2:] == (20, 5, 5, 5)
+    assert lay(512, 16, 12, 4) == (5 * 32768 + 55824, 160, 32, 5, 1, 8)
+    assert lay(512, 16, 4, 2)[3:] == (8, 8, 8)
+    assert rnn_cuda.pipe_jc(1024) == 16 and rnn_cuda.pipe_jc(1025) == 8
+    assert rnn_cuda.pipe_kpt(1024) == 1 and rnn_cuda.pipe_kpt(1025) == 2
+    assert rnn_cuda.pipe_warps(320) == 4 and rnn_cuda.pipe_warps(1025) == 5
+    assert rnn_cuda.pipe_warps(2048) == 8
+    assert not rnn_cuda._pipe_rule(1100, 16, 12, 4)   # 12 rows: one pass
+    assert rnn_cuda._pipe_rule(1100, 16, 8, 4)
+    assert not rnn_cuda._pipe_rule(257, 16, 1, 4)     # a block owns no unit
+    assert rnn_cuda._pipe_rule(257, 13, 1, 4)
+
+
+def test_pipe_plans_from_card_counts():
+    """At (32, 500, 512) f32 the two-direction BPTT takes 6 clusters of 16
+    blocks over 12-row tiles (the card holds 7 such clusters; 8-row tiles
+    need 8, and where 8 fit, 128 blocks would stream more of W_hh through
+    the card's L2 a step), one direction 4 clusters of 8 rows; B=1 one row;
+    a plan the card runs none of is dropped, and with none the launch is
+    refused."""
+    plan = rnn_cuda.pipe_plans
+    assert plan(32, 512, _stream_clusters, 2)[0] == (16, 12)
+    assert plan(32, 512, _stream_clusters, 1)[0] == (16, 8)
+    assert plan(1, 512, _stream_clusters, 2)[0] == (16, 1)
+    assert plan(32, 512, lambda c, r: 8 if c > 8 else 120 // c, 2)[0] \
+        == (16, 12)
+    assert (16, 12) not in plan(
+        32, 512, lambda c, r: 0 if (c, r) == (16, 12) else 7, 2)
+    assert not plan(32, 512, lambda c, r: 0, 2)
+    for hidden in (257, 320, 512, 1000, 1816, 2048):
+        for batch in (1, 5, 32):
+            for wbytes in (4, 2):
+                got = plan(batch, hidden, _stream_clusters, 2, wbytes)
+                assert got, (hidden, batch, wbytes)
+                for c, rows in got:
+                    assert rnn_cuda._pipe_rule(hidden, c, rows, wbytes)
+                    assert rnn_cuda.pipe_layout(hidden, c, rows, wbytes)[0] \
+                        <= rnn_cuda.MAX_SMEM_BYTES
+
+
+def test_pipe_weights_pack_each_blocks_slice():
+    """``pipe_weights`` lays W_hh [H, 4H] out as [C, 4, U, HP]: block q's
+    row g * U + u is column g * H + q * U + u of W_hh over k, zero past H
+    in both; ``bwd_weights`` packs for the launch's cluster size."""
+    H, C = 10, 3
+    w = torch.arange(H * 4 * H, dtype=torch.float32).reshape(H, 4 * H) + 1
+    U, HP = rnn_cuda.pipe_units(H, C), rnn_cuda.pipe_hp(H)
+    assert (U, HP) == (4, 16)
+    got = rnn_cuda.pipe_weights(w, C)
+    assert got.shape == (C, 4, U, HP) and got.is_contiguous()
+    for q in range(C):
+        for g in range(4):
+            for u in range(U):
+                unit = q * U + u
+                want = (w[:, g * H + unit] if unit < H
+                        else torch.zeros(H))
+                assert torch.equal(got[q, g, u, :H], want), (q, g, u)
+                assert not got[q, g, u, H:].any()
+    (packed,) = rnn_cuda.bwd_weights("pipe", [w], C)
+    assert torch.equal(packed, got)
+
+
+@pytest.mark.parametrize("name", ["bilstm_bwd", "lstm_bwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pipe_entries_launch_and_record(fake_card, name, dtype):
+    """Both BPTT wrappers at H=384 and 512 launch ``<name>_pipe_<dtype>``
+    with their pointers, then B, N, H, C, R (and a one-direction grid's
+    reverse flag), the pipe planner's plan for the direction count and
+    dtype, and record it; the count rises by one a launch; a forced
+    ("pipe", C, R) is taken; ("stream", C, R) still reaches the first
+    stream design; a pipe plan that does not fit, and a pipe plan of the
+    forward, are refused before any launch."""
+    n_ptr, one_dir = _REG_ENTRIES[name]
+    dirs = 1 if one_dir else 2
+    sfx = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    fn = getattr(rnn_cuda, f"{name}_cuda")
+    for B, H in ((32, 384), (5, 512)):
+        want = rnn_cuda.pipe_plans(B, H, _stream_clusters, dirs,
+                                   dtype.itemsize)[0]
+        before = fn.launches
+        _reg_call(name, B, 3, H, dtype)
+        assert fn.launches == before + 1
+        called, args = fake_card.calls[-1]
+        assert called == f"{name}_pipe_{sfx}"
+        assert len(args) == n_ptr + 5 + int(one_dir)
+        assert args[n_ptr:n_ptr + 5] == (B, 3, H, *want)
+        if one_dir:
+            assert args[-1] == 1
+        assert fn.last_launch == {
+            "kernel": "pipe", "cluster": want[0], "rows": want[1],
+            "clusters": dirs * -(-B // want[1]),
+            "resident": _stream_clusters(*want)}
+    _reg_call(name, 9, 3, 512, dtype, plan=("pipe", 8, 4))
+    assert fake_card.calls[-1][0] == f"{name}_pipe_{sfx}"
+    assert fake_card.calls[-1][1][n_ptr:n_ptr + 5] == (9, 3, 512, 8, 4)
+    assert fn.last_launch["clusters"] == dirs * 3
+    _reg_call(name, 9, 3, 512, dtype, plan=("stream", 12, 8))
+    assert fake_card.calls[-1][0] == f"{name}_stream_{sfx}"
+    assert fn.last_launch["kernel"] == "stream"
+    n = len(fake_card.calls)
+    for bad in (("pipe", 17, 4), ("pipe", 16, 6), ("pipe", 1, 16)):
+        with pytest.raises(ValueError, match="does not fit"):
+            _reg_call(name, 9, 3, 512, dtype, plan=bad)
+    with pytest.raises(ValueError, match="no pipe kernel"):
+        _reg_call("bilstm_fwd", 9, 3, 512, dtype, plan=("pipe", 16, 4))
+    assert len(fake_card.calls) == n
