@@ -10,8 +10,9 @@ Phases, one line each or more (a failed check raises; nothing is caught):
 2. build: every kernel source in ``room_slam_torch/csrc``, one ``nvcc`` each,
    all started together (registers and spills from ``-Xptxas -v``); the
    BiGRU tensor-core kernels, the fused kind (#9), the GRU and LSTM BPTT
-   unit kernels, the LSTM register cluster kernels and the stream
-   kernels by name, the
+   unit kernels, the LSTM register cluster kernels, the stream kernels
+   and the pipe kernels (``csrc/bilstm_pipe.cu``, ``csrc/bigru_pipe.cu``)
+   by name, the
    tensor-core kernels, #9's bf16 kind and the LSTM BPTT unit kernels
    asserted free of spills; the native trace parser
    (``room_slam_torch/native/trace_parser.cc``, g++) into ``build/native``;
@@ -244,24 +245,27 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     unit kernels (asserted), then the step p50 and the request p50 on the
     unit kernels and with the first cluster design forced; (b) the stream
     kernels (W_hh read from global memory every step, clusters of up to 16
-    blocks: every width above the cluster kernels'; the LSTM BPTT's there:
-    the pipe kernel) at ``STREAM_WIDTHS`` x
-    ``STREAM_BATCHES``, f32 and bf16, two directions and one, the twelve
-    LSTM and GRU wrappers against their plain versions (the GRU's stream
-    plan forced where a cluster plan takes H), the BPTT bit-equal run to
-    run, the pipe kernel's wider instance families at ``PIPE_WIDTHS``, the
-    first stream BPTT forced at ``STREAM_OLD``, and their timing at
-    ``STREAM_TIME`` beside the bound and cuDNN (read before and after the
-    kernels; the pipe kernel beside the first stream design forced, in
-    turns, asserted faster, and beside the card's next pipe plans), the
-    LSTM BPTT so also at ``PIPE_TIME``; (c) their
-    main paths: the lstm at d_model ``STREAM_LSTM_D`` (H=512), a forward
-    against the plain recurrence and one train step card vs CPU at
-    ``STREAM_STEP``'s B and N (cut from the config's 20 and 1500), its
-    step p50 at ``STREAM_STEP_TIME`` (bench.py's B and N) with the BPTT on
-    the pipe kernel and on the first stream design, in turns, the
-    ops-level ``lstm_recurrence`` / ``gru_recurrence(use_kernel=True)`` and
-    a bigru at d_model ``STREAM_LSTM_D``, one forward and one train step.
+    blocks: every forward width above the cluster kernels'; the LSTM and
+    GRU BPTTs' there: the pipe kernels, the GRU's to H=1024) at
+    ``STREAM_WIDTHS`` x ``STREAM_BATCHES``, f32 and bf16, two directions
+    and one, the twelve LSTM and GRU wrappers against their plain versions
+    (the GRU forwards' stream plan forced where a cluster plan takes H),
+    the BPTT bit-equal run to run, the pipe kernels' wider instance
+    families at ``PIPE_WIDTHS``, the GRU's under the card's first
+    ``GRU_PIPE_PLANS`` plans, the first stream BPTTs forced at
+    ``STREAM_OLD``, and their timing at ``STREAM_TIME`` beside the bound
+    and cuDNN (read before and after the kernels; the pipe kernels beside
+    the first stream design forced, in turns, asserted faster, at H=320
+    the GRU's also beside kLinear's cluster kernel, and beside the card's
+    next pipe plans), the BPTTs so also at ``PIPE_TIME`` (the GRU's at
+    1024); (c) their main paths: the lstm at d_model ``STREAM_LSTM_D``
+    (H=512), a forward against the plain recurrence and one train step
+    card vs CPU at ``STREAM_STEP``'s B and N (cut from the config's 20 and
+    1500), its step p50 at ``STREAM_STEP_TIME`` (bench.py's B and N) with
+    the BPTT on the pipe kernel and on the first stream design, in turns,
+    the ops-level ``lstm_recurrence`` / ``gru_recurrence(use_kernel=True)``
+    and a bigru at d_model ``STREAM_LSTM_D``, one forward and one train
+    step, then its step p50 as the lstm's.
 
 Phases 10 (and 37's step), 16, 34 and 39's steps pin
 ``train.matmul_precision`` to float32: they compare two float32
@@ -409,13 +413,14 @@ WIDE_GRU = (8, 300, 139)          # the masked BiGRU / GRU paths
 # timed at BIGRU_TIME f32 beside the first cluster design, the bf16 tc
 # kernels against the unit kernels at BIGRU_BF16; the CLI's default step
 # and request on BIGRU_ROOMS seeded rooms), and the stream kernels above
-# the cluster kernels' widths, the LSTM BPTT's the pipe kernel (checked at
-# STREAM_WIDTHS x STREAM_BATCHES, N=STREAM_N, the first stream BPTT forced
-# at STREAM_OLD; timed at STREAM_TIME, the pipe kernel beside the first
-# stream design, cuDNN before and after the kernels; the lstm and bigru at d_model STREAM_LSTM_D, one step card
-# vs CPU at STREAM_STEP's B, N, cut from 20, 1500 for the CPU's step; the
-# lstm's step p50 at bench.py's B, N = STREAM_STEP_TIME over STREAM_STEPS
-# after STREAM_WARMUP on STREAM_ROOMS rooms, pipe and first stream BPTT in
+# the cluster kernels' widths, the LSTM and GRU BPTTs' the pipe kernels
+# (checked at STREAM_WIDTHS x STREAM_BATCHES, N=STREAM_N, the first stream
+# BPTTs forced at STREAM_OLD; timed at STREAM_TIME, the pipe kernels beside
+# the first stream design, cuDNN before and after the kernels; the lstm and
+# bigru at d_model STREAM_LSTM_D, one step card vs CPU at STREAM_STEP's B,
+# N, cut from 20, 1500 for the CPU's step; the lstm's and the bigru's step
+# p50 at bench.py's B, N = STREAM_STEP_TIME over STREAM_STEPS after
+# STREAM_WARMUP on STREAM_ROOMS rooms, pipe and first stream BPTT in
 # turns)
 BIGRU_TIME = ((20, 1500, 64), (1, 1500, 64))
 BIGRU_BF16 = (20, 1500, 64)
@@ -437,6 +442,12 @@ PIPE_WIDTHS = (640, 1024, 1100, 2048)
 PIPE_BATCHES = (5,)
 PIPE_TIME = ((32, 500, 1024), (32, 500, 1816))
 PIPE_SWEEP = 4
+# the GRU BPTT's pipe kernel (to H=1024) is checked on its route at
+# STREAM_WIDTHS x STREAM_BATCHES and at the PIPE_WIDTHS it takes, under the
+# card's first GRU_PIPE_PLANS plans at STREAM_OLD, and timed at STREAM_TIME
+# and the PIPE_TIME it takes (1024) beside the first stream design (at
+# H=320 also beside kLinear's cluster kernel)
+GRU_PIPE_PLANS = 3
 STREAM_OLD = (5, 512)
 STREAM_LSTM_D = 1024
 STREAM_STEP = (8, 300)
@@ -511,8 +522,9 @@ USAGE_KERNELS = {
         "bilstm_bwd_unit_f32": ("bilstm_bwd_unit_kernel", "IfLi"),
         "bilstm_bwd_unit_bf16": ("bilstm_bwd_unit_kernel", "bfloat16Li"),
         "bilstm_bwd_reg": ("bilstm_bwd_reg_kernel",),
-        "bilstm_bwd_pipe": ("bilstm_bwd_pipe_kernel",),
         "bilstm_bwd_stream": ("bilstm_bwd_cluster_kernel", "Lb1EE")},
+    "bilstm_pipe": {"bilstm_bwd_pipe": ("bilstm_bwd_pipe_kernel",)},
+    "bigru_pipe": {"bigru_bwd_pipe": ("bigru_bwd_pipe_kernel",)},
     "bilstm_fwd": {"bilstm_fwd_reg": ("bilstm_fwd_reg_kernel",),
                    "bilstm_fwd_stream": ("bilstm_fwd_cluster_kernel",
                                          "Lb1EE")}}
@@ -3589,17 +3601,20 @@ def bigru_default_path(dev, seed, smi):
     return out, timing
 
 
-def _gru_stream_case(H, B, N, dtype, dev, seed):
-    """The six GRU wrappers at (B, N, H) in ``dtype`` on the stream kernel
-    (the route, or its card's first plan forced where a cluster plan takes
-    H) against their plain versions (bounds as phase 31), the BPTT
-    bit-equal run to run. Returns the values' and the BPTT's worst errors
-    and the plans."""
+def _gru_stream_case(H, B, N, dtype, dev, seed, bwd_plan=None,
+                     bwd_only=False):
+    """The six GRU wrappers at (B, N, H) in ``dtype`` (``bwd_only``: the two
+    BPTT ones) against their plain versions (bounds as phase 31), the BPTT
+    bit-equal run to run: the forwards on the stream kernel (the route, or
+    its card's first plan forced where a cluster plan takes H), the BPTTs on
+    their route, the pipe kernel, or on the plan ``bwd_plan(dirs)``
+    forces. Returns the values' and the BPTT's worst errors and the
+    plans."""
     ins = gru_inputs(B, N, H, dtype, dev, seed)
     args = gru_bwd_inputs(ins, seed + 1)
     ref_b = gru_cuda.bigru_bwd_plain(*args)
     tol = GRAD_REL if dtype == torch.float32 else BF16_GRAD_REL
-    plans, errs, rels = [], [], []
+    plans, errs, rels = [], [0.0], []
     for name, fn, a, ref, kind, dirs, save in (
             ("bigru_fwd", gru_cuda.bigru_fwd_cuda, ins,
              gru_cuda.bigru_fwd_plain(*ins), "fwd", 2, False),
@@ -3616,14 +3631,22 @@ def _gru_stream_case(H, B, N, dtype, dev, seed):
              True),
             ("gru_bwd", gru_cuda.gru_bwd_cuda, (args[1], *args[6:], True),
              ref_b[2:], "bwd", 1, False)):
+        if bwd_only and kind != "bwd":
+            continue
         route = (gru_cuda.gru_fwd_kernel_route if kind == "fwd"
                  else gru_cuda.gru_bwd_kernel_route)(H, dirs, dtype)
-        kw = {} if route == "stream" else {"plan": (
-            "stream", *gru_cuda.card_stream_plans(kind, B, H, dev, dtype,
-                                                  save, dirs)[0])}
+        if kind == "bwd":
+            forced = None if bwd_plan is None else bwd_plan(dirs)
+            want = route if forced is None else forced[0]
+        else:
+            forced = None if route == "stream" else (
+                "stream", *gru_cuda.card_stream_plans(kind, B, H, dev, dtype,
+                                                      save, dirs)[0])
+            want = "stream"
+        kw = {} if forced is None else {"plan": forced}
         got = fn(*a, **kw)
         got = got if isinstance(got, tuple) else (got,)
-        assert fn.last_launch["kernel"] == "stream", (name, fn.last_launch)
+        assert fn.last_launch["kernel"] == want, (name, fn.last_launch)
         if kind == "bwd":
             again = fn(*a, **kw)
             assert all(torch.equal(x, y) for x, y in zip(got, again)), name
@@ -3631,8 +3654,8 @@ def _gru_stream_case(H, B, N, dtype, dev, seed):
             assert all(torch.isfinite(x).all() for x in got)
         else:
             errs.append(value_err(got, ref, dtype))
-        plans.append(f"{name} {plan_text(fn)}" + ("" if route == "stream"
-                                                  else " (forced)"))
+        plans.append(f"{name} {plan_text(fn)}"
+                     + ("" if forced is None else " (forced)"))
     assert max(rels) <= tol, (H, B, dtype, rels)
     torch.cuda.synchronize()
     return max(errs), max(rels), plans
@@ -3642,13 +3665,15 @@ def check_stream_route(dev, seed):
     """Phase 40 (b): the stream kernels at ``STREAM_WIDTHS`` x
     ``STREAM_BATCHES``, N=``STREAM_N``, float32 and bf16, two directions
     and one: the LSTM's six wrappers on their route (asserted "stream", the
-    BPTT's "pipe", ``_lstm_cluster_case``), the GRU's six
-    (``_gru_stream_case``), against the plain versions, the BPTT bit-equal
-    run to run; the LSTM's six so at ``PIPE_WIDTHS`` x ``PIPE_BATCHES``
-    (the BPTT on the pipe kernel's wider instances: the route, or its card's first plan forced
-    where the route stops); then the first stream BPTT (and the forwards),
-    forced at its card's first plan, at ``STREAM_OLD``'s B and H in both
-    types."""
+    BPTT's "pipe", ``_lstm_cluster_case``), the GRU's six (the BPTT's
+    "pipe", ``_gru_stream_case``), against the plain versions, the BPTT
+    bit-equal run to run; the LSTM's six so at ``PIPE_WIDTHS`` x
+    ``PIPE_BATCHES`` (the BPTT on the pipe kernel's wider instances: the
+    route, or its card's first plan forced where the route stops), the
+    GRU's at those the GRU pipe kernel takes (to 1024); the GRU BPTT under
+    the card's first ``GRU_PIPE_PLANS`` pipe plans at ``STREAM_OLD``; then
+    the first stream BPTTs (and the LSTM forwards), forced at their card's
+    first plan, at ``STREAM_OLD``'s B and H in both types."""
     worst = {}
     for H in STREAM_WIDTHS:
         for B in STREAM_BATCHES:
@@ -3690,8 +3715,30 @@ def check_stream_route(dev, seed):
                     f"{B}, {STREAM_N}, {H}) {str(dtype)[6:]}: values "
                     f"max_abs_err={err:.3e}, BPTT max_rel_err={rel:.3e}, "
                     "bit-equal run to run; " + "; ".join(plans))
+                if gru_cuda.gru_bwd_kernel_route(H, 2, dtype) != "pipe":
+                    continue
+                err, rel, plans = _gru_stream_case(H, B, STREAM_N, dtype,
+                                                   dev, seed)
+                w = worst.setdefault(f"gru_pipe_{str(dtype)[6:]}",
+                                     [0.0, 0.0])
+                w[0], w[1] = max(w[0], err), max(w[1], rel)
+                log("stream_check", f"GRU pipe kernel (the route): gru "
+                    f"B,N,H=({B}, {STREAM_N}, {H}) {str(dtype)[6:]}: "
+                    f"values max_abs_err={err:.3e}, BPTT max_rel_err="
+                    f"{rel:.3e}, bit-equal run to run; " + "; ".join(plans))
     B, H = STREAM_OLD
     for dtype in (torch.float32, torch.bfloat16):
+        for i in range(GRU_PIPE_PLANS):
+            def nth(dirs, i=i):
+                found = gru_cuda.card_gru_pipe_plans(B, H, dev, dtype, dirs)
+                return ("pipe", *found[min(i, len(found) - 1)])
+            err, rel, plans = _gru_stream_case(H, B, STREAM_N, dtype, dev,
+                                               seed, nth, bwd_only=True)
+            log("stream_check", f"GRU pipe plan {i + 1} of the card's, "
+                f"forced: gru B,N,H=({B}, {STREAM_N}, {H}) "
+                f"{str(dtype)[6:]}: BPTT max_rel_err={rel:.3e}, bit-equal "
+                "run to run; " + "; ".join(plans))
+
         def first(kind, save, dirs):
             return ("stream", *rnn_cuda.card_lstm_stream_plans(
                 kind, B, H, dev, dtype, save, dirs)[0])
@@ -3701,33 +3748,69 @@ def check_stream_route(dev, seed):
             f"{STREAM_N}, {H}) {str(dtype)[6:]}: values max_abs_err="
             f"{err:.3e}, BPTT max_rel_err={rel:.3e}, bit-equal run to run; "
             + "; ".join(plans))
+        err, rel, plans = _gru_stream_case(
+            H, B, STREAM_N, dtype, dev, seed,
+            lambda dirs: ("stream", *gru_cuda.card_stream_plans(
+                "bwd", B, H, dev, dtype, False, dirs)[0]), bwd_only=True)
+        log("stream_check", f"first stream BPTT, forced: gru B,N,H=({B}, "
+            f"{STREAM_N}, {H}) {str(dtype)[6:]}: BPTT max_rel_err="
+            f"{rel:.3e}, bit-equal run to run; " + "; ".join(plans))
     return worst
 
 
-def _pipe_ab(fn, a, kind, B, N, H, save, dirs, dev):
-    """The LSTM BPTT wrapper ``fn`` on its route, the pipe kernel, beside
-    the first stream design forced at its card's first plan, in turns
-    (pipe, stream, stream, pipe; the pipe kernel asserted faster), and the
-    card's first ``PIPE_SWEEP`` pipe plans (the planner's pick first) in
-    f32: a row's extra keys."""
+def klinear_plan(name, B, H, dev, dirs):
+    """The card's first plan of kLinear's cluster kernel (the GRU BPTT's
+    first cluster design) as wrapper ``name`` takes it forced: ``(C, R)``
+    for ``bigru_bwd``, ``("cluster", C, R)`` for ``gru_bwd``; None where no
+    cluster plan takes H."""
+    if not gru_cuda.cluster_takes("bwd", H):
+        return None
+    plan = tuple(gru_cuda.card_plans("bwd", B, H, dev, torch.float32,
+                                     dirs)[0])
+    return plan if name == "bigru_bwd" else ("cluster", *plan)
+
+
+def _pipe_ab(fn, a, fam, kind, B, N, H, save, dirs, dev):
+    """The BPTT wrapper ``fn`` of family ``fam`` ("lstm" or "gru") on its
+    route, the pipe kernel, beside the first stream design forced at its
+    card's first plan and, for the GRU where a cluster plan takes H,
+    kLinear's cluster kernel at its card's pick, in turns (pipe, stream[,
+    kLinear, kLinear], stream, pipe; the pipe kernel asserted faster than
+    each), and the card's first ``PIPE_SWEEP`` pipe plans (the planner's
+    pick first) in f32: a row's extra keys."""
     f32 = torch.float32
-    first = ("stream", *rnn_cuda.card_lstm_stream_plans(
-        kind, B, H, dev, f32, save, dirs)[0])
-    turns = [cuda_ms(lambda: fn(*a, plan=p), 3, warmup=1)
-             for p in (None, first, first, None)]
+    if fam == "lstm":
+        first = ("stream", *rnn_cuda.card_lstm_stream_plans(
+            kind, B, H, dev, f32, save, dirs)[0])
+        pipes = rnn_cuda.card_lstm_pipe_plans(B, H, dev, f32, dirs)
+        klinear = None
+    else:
+        first = ("stream", *gru_cuda.card_stream_plans(
+            "bwd", B, H, dev, f32, False, dirs)[0])
+        pipes = gru_cuda.card_gru_pipe_plans(B, H, dev, f32, dirs)
+        klinear = klinear_plan(fn.__name__[:-len("_cuda")], B, H, dev, dirs)
+    order = [None, first, *([klinear] * 2 if klinear else []), first, None]
+    turns = [cuda_ms(lambda: fn(*a, plan=p), 3, warmup=1) for p in order]
     fn(*a, plan=first)
     old_launch = dict(fn.last_launch)
-    assert max(turns[0], turns[3]) < min(turns[1], turns[2]), (
-        fn.__name__, H, turns)
+    pipe_ms = [turns[0], turns[-1]]
+    stream_ms = [turns[1], turns[-2]]
+    assert max(pipe_ms) < min(stream_ms), (fn.__name__, H, turns)
+    extra = {}
+    if klinear:
+        kl_ms = turns[2:4]
+        assert max(pipe_ms) < min(kl_ms), (fn.__name__, H, turns)
+        fn(*a, plan=klinear)
+        extra = {"klinear_turns_ms": kl_ms, "klinear_ms": min(kl_ms),
+                 "klinear_us_per_step": min(kl_ms) / N * 1e3,
+                 "klinear_launch": dict(fn.last_launch)}
     sweep = [{"plan": list(p), "ms": cuda_ms(
         lambda: fn(*a, plan=("pipe", *p)), 3, warmup=1)}
-        for p in rnn_cuda.card_lstm_pipe_plans(B, H, dev, f32,
-                                               dirs)[:PIPE_SWEEP]]
-    return {"pipe_turns_ms": [turns[0], turns[3]],
-            "stream_turns_ms": [turns[1], turns[2]],
-            "stream_ms": min(turns[1], turns[2]),
-            "stream_us_per_step": min(turns[1], turns[2]) / N * 1e3,
-            "stream_launch": old_launch, "pipe_plans_ms": sweep}
+        for p in pipes[:PIPE_SWEEP]]
+    return {"pipe_turns_ms": pipe_ms, "stream_turns_ms": stream_ms,
+            "stream_ms": min(stream_ms),
+            "stream_us_per_step": min(stream_ms) / N * 1e3,
+            "stream_launch": old_launch, **extra, "pipe_plans_ms": sweep}
 
 
 def _library_turns(rows, second):
@@ -3747,7 +3830,10 @@ def _log_time_row(name, fam, row):
     turns = "library_turns_ms" in row
     log("kernel_time", f"{name} ("
         + ("pipe kernel, the route; stream_ms: the first stream design "
-           "forced, in turns; pipe_plans_ms: the card's first pipe plans"
+           "forced, in turns; "
+           + ("klinear_ms: kLinear's cluster kernel forced at its pick, "
+              "in turns; " if "klinear_ms" in row else "")
+           + "pipe_plans_ms: the card's first pipe plans"
            if route == "pipe" else "stream kernel"
            + ("" if route == "stream" else f", forced; route {route}"))
         + ") " + json.dumps(row) + "  (library_ms: "
@@ -3762,56 +3848,71 @@ def _log_time_row(name, fam, row):
         + ", includes the input projection)")
 
 
+def _gru_cases(B, N, H, dev, seed):
+    """The six GRU wrappers at (B, N, H) in float32, as ``_lstm_cases``:
+    name, wrapper, plain version, arguments, bound, kind, kSave and
+    directions."""
+    f32 = torch.float32
+    ins = gru_inputs(B, N, H, f32, dev, seed)
+    args = gru_bwd_inputs(ins, seed + 1)
+    cases = []
+    for name, fn, plain, a, kind, dirs, save in (
+            ("bigru_fwd", gru_cuda.bigru_fwd_cuda,
+             gru_cuda.bigru_fwd_plain, ins, "fwd", 2, False),
+            ("bigru_fwd_train", gru_cuda.bigru_fwd_train_cuda,
+             gru_cuda.bigru_fwd_train_plain, ins, "fwd_train", 2, True),
+            ("bigru_bwd", gru_cuda.bigru_bwd_cuda,
+             gru_cuda.bigru_bwd_plain, args, "bwd", 2, False),
+            ("gru_fwd", gru_cuda.gru_fwd_cuda, gru_cuda.gru_recurrence,
+             (ins[0], ins[2], ins[3]), "fwd", 1, False),
+            ("gru_fwd_train", gru_cuda.gru_fwd_train_cuda,
+             gru_cuda.gru_fwd_train_plain, (ins[0], ins[2], ins[3]),
+             "fwd_train", 1, True),
+            ("gru_bwd", gru_cuda.gru_bwd_cuda, gru_cuda.gru_bwd_plain,
+             (args[0], *args[2:6]), "bwd", 1, False)):
+        cases.append((name, fn, plain, a,
+                      gru_bound(kind, B, N, H, f32, dirs=dirs),
+                      "bwd" if kind == "bwd" else "fwd", save, dirs))
+    return cases
+
+
+def _route_of(fam, kind, H, dirs):
+    """The route of a float32 launch of family ``fam``'s ``kind``."""
+    if fam == "lstm":
+        return (rnn_cuda.lstm_fwd_kernel_route if kind == "fwd"
+                else rnn_cuda.lstm_bwd_kernel_route)(H)
+    return (gru_cuda.gru_fwd_kernel_route if kind == "fwd"
+            else gru_cuda.gru_bwd_kernel_route)(H, dirs, torch.float32)
+
+
 def time_stream_route(dev, seed):
-    """Phase 40 (b), the timing: the twelve wrappers on the stream kernel
-    at ``STREAM_TIME`` f32 (the GRU's forced at its card's first stream
-    plan where a cluster plan takes H), the LSTM BPTT's two on their route,
-    the pipe kernel, beside the first stream design and the pipe plans
+    """Phase 40 (b), the timing: the twelve wrappers at ``STREAM_TIME`` f32,
+    the forwards on the stream kernel (the GRU's forced at its card's first
+    stream plan where a cluster plan takes H), the four BPTT wrappers on
+    their route, the pipe kernel, beside the first stream design (and at
+    H=320 the GRU's kLinear cluster kernel) and the pipe plans
     (``_pipe_ab``): kernel ms (CUDA events), plain ms, the bound, cuDNN's
     ``nn.LSTM`` / ``nn.GRU`` (bidirectional for the two-direction kernels;
     never called by the port; input projection included; read before and
     after the shape's kernels, ``_library_turns``) and µs a step. Then the
-    two LSTM BPTT wrappers so at ``PIPE_TIME`` (cuDNN read once; their rows
-    under the wrapper's name and ``"_wide"``). Returns the rows by wrapper name, a list in
+    BPTT wrappers so at ``PIPE_TIME`` (the GRU's where its pipe kernel
+    takes H; cuDNN read once; their rows under the wrapper's name and
+    ``"_wide"``). Returns the rows by wrapper name, a list in
     ``STREAM_TIME``'s order."""
     f32 = torch.float32
     rows = {}
     for B, N, H in STREAM_TIME:
         lib = {"lstm": _library_ms(torch.nn.LSTM, B, N, H, f32, dev, seed),
                "gru": _library_ms(torch.nn.GRU, B, N, H, f32, dev, seed)}
-        cases = [(name, fn, plain, a, bnd, kind, save, dirs, "lstm")
-                 for name, fn, plain, a, bnd, kind, save, dirs
-                 in _lstm_cases(B, N, H, f32, dev, seed)]
-        ins = gru_inputs(B, N, H, f32, dev, seed)
-        args = gru_bwd_inputs(ins, seed + 1)
-        for name, fn, plain, a, kind, dirs, save in (
-                ("bigru_fwd", gru_cuda.bigru_fwd_cuda,
-                 gru_cuda.bigru_fwd_plain, ins, "fwd", 2, False),
-                ("bigru_fwd_train", gru_cuda.bigru_fwd_train_cuda,
-                 gru_cuda.bigru_fwd_train_plain, ins, "fwd_train", 2, True),
-                ("bigru_bwd", gru_cuda.bigru_bwd_cuda,
-                 gru_cuda.bigru_bwd_plain, args, "bwd", 2, False),
-                ("gru_fwd", gru_cuda.gru_fwd_cuda, gru_cuda.gru_recurrence,
-                 (ins[0], ins[2], ins[3]), "fwd", 1, False),
-                ("gru_fwd_train", gru_cuda.gru_fwd_train_cuda,
-                 gru_cuda.gru_fwd_train_plain, (ins[0], ins[2], ins[3]),
-                 "fwd_train", 1, True),
-                ("gru_bwd", gru_cuda.gru_bwd_cuda, gru_cuda.gru_bwd_plain,
-                 (args[0], *args[2:6]), "bwd", 1, False)):
-            src = "bwd" if kind == "bwd" else "fwd"
-            cases.append((name, fn, plain, a,
-                          gru_bound(kind, B, N, H, f32, dirs=dirs), src,
-                          save, dirs, "gru"))
+        cases = [(*case, "lstm") for case in _lstm_cases(B, N, H, f32, dev,
+                                                          seed)]
+        cases += [(*case, "gru") for case in _gru_cases(B, N, H, dev, seed)]
         shape_rows = []
         for name, fn, plain, a, bnd, kind, save, dirs, fam in cases:
-            route = ((rnn_cuda.lstm_fwd_kernel_route if kind == "fwd"
-                      else rnn_cuda.lstm_bwd_kernel_route)(H)
-                     if fam == "lstm" else
-                     (gru_cuda.gru_fwd_kernel_route if kind == "fwd"
-                      else gru_cuda.gru_bwd_kernel_route)(H, dirs, f32))
+            route = _route_of(fam, kind, H, dirs)
             extra = {}
             if route == "pipe":
-                extra = _pipe_ab(fn, a, kind, B, N, H, save, dirs, dev)
+                extra = _pipe_ab(fn, a, fam, kind, B, N, H, save, dirs, dev)
                 caller = fn
             else:
                 caller = fn if route == "stream" else _Forced(
@@ -3829,34 +3930,44 @@ def time_stream_route(dev, seed):
         for name, fam, row in shape_rows:
             _log_time_row(name, fam, row)
     for B, N, H in PIPE_TIME:
-        lib = _library_ms(torch.nn.LSTM, B, N, H, f32, dev, seed)
-        for name, fn, plain, a, bnd, kind, save, dirs in _lstm_cases(
-                B, N, H, f32, dev, seed):
-            if kind != "bwd":
-                continue
-            route = rnn_cuda.lstm_bwd_kernel_route(H)
-            assert route == "pipe", (name, H, route)
-            row = _time_row(name, fn, plain, a, bnd, lib[name], f32,
-                            (B, N, H), route=route,
-                            **_pipe_ab(fn, a, kind, B, N, H, save, dirs,
-                                       dev))
-            assert row["launch"]["kernel"] == "pipe", (name, row)
-            rows.setdefault(f"{name}_wide", []).append(row)
-            _log_time_row(name, "lstm", row)
+        for fam, mod, cases in (
+                ("lstm", torch.nn.LSTM, _lstm_cases(B, N, H, f32, dev, seed)),
+                ("gru", torch.nn.GRU, _gru_cases(B, N, H, dev, seed)
+                 if gru_cuda.gru_bwd_kernel_route(H, 2) == "pipe" else ())):
+            lib = _library_ms(mod, B, N, H, f32, dev, seed) if cases else {}
+            for name, fn, plain, a, bnd, kind, save, dirs in cases:
+                if kind != "bwd":
+                    continue
+                route = _route_of(fam, kind, H, dirs)
+                assert route == "pipe", (name, H, route)
+                row = _time_row(name, fn, plain, a, bnd, lib[name], f32,
+                                (B, N, H), route=route,
+                                **_pipe_ab(fn, a, fam, kind, B, N, H, save,
+                                           dirs, dev))
+                assert row["launch"]["kernel"] == "pipe", (name, row)
+                rows.setdefault(f"{name}_wide", []).append(row)
+                _log_time_row(name, fam, row)
     return rows
 
 
 @contextlib.contextmanager
 def first_stream_bptt():
-    """The LSTM BPTT routed as before the pipe kernel: the first stream
-    design wherever the route says "pipe"; every other route unchanged."""
-    route = rnn_cuda.lstm_bwd_kernel_route
+    """The LSTM and GRU BPTT routed as before their pipe kernels: the first
+    stream design wherever a route says "pipe"; every other route
+    unchanged."""
+    lstm = rnn_cuda.lstm_bwd_kernel_route
+    gru = gru_cuda.gru_bwd_kernel_route
 
-    def old(hidden):
-        got = route(hidden)
+    def old_lstm(hidden):
+        got = lstm(hidden)
         return "stream" if got == "pipe" else got
 
-    with mock.patch.object(rnn_cuda, "lstm_bwd_kernel_route", old):
+    def old_gru(hidden, dirs, dtype=torch.float32):
+        got = gru(hidden, dirs, dtype)
+        return "stream" if got == "pipe" else got
+
+    with mock.patch.object(rnn_cuda, "lstm_bwd_kernel_route", old_lstm), \
+            mock.patch.object(gru_cuda, "gru_bwd_kernel_route", old_gru):
         yield
 
 
@@ -3887,12 +3998,12 @@ def stream_paths(dev, seed, smi):
     ``STREAM_LSTM_D`` (H=512, f32), one forward against the plain
     recurrence and one train step; ``lstm_recurrence`` /
     ``gru_recurrence(use_kernel=True)`` at (B, N, 512) forward and
-    backward; the lstm's train-step p50 at ``STREAM_STEP_TIME`` (bench.py's
-    B and N) over ``STREAM_STEPS`` after ``STREAM_WARMUP``, the BPTT on
-    the pipe kernel (the route) and on the first stream design
-    (``first_stream_bptt``) in turns. Each launch of the LSTM BPTT is
-    asserted on the pipe kernel, every other one on the stream kernel.
-    Returns each path's launches and the step timing."""
+    backward; the lstm's and the bigru's train-step p50 at
+    ``STREAM_STEP_TIME`` (bench.py's B and N) over ``STREAM_STEPS`` after
+    ``STREAM_WARMUP``, the BPTT on the pipe kernel (the route) and on the
+    first stream design (``first_stream_bptt``) in turns. Each launch of
+    a BPTT is asserted on the pipe kernel, every other one on the stream
+    kernel. Returns each path's launches and the step timings."""
     out = {}
     B, N = STREAM_STEP
     cfg = ExperimentConfig.from_json(CONFIG)
@@ -4004,7 +4115,7 @@ def stream_paths(dev, seed, smi):
         mod = rnn_cuda if fam == "lstm" else gru_cuda
         for kind in ("fwd", "fwd_train", "bwd"):
             last = getattr(mod, f"{fam}_{kind}_cuda").last_launch
-            assert last["kernel"] == ("pipe" if (fam, kind) == ("lstm", "bwd")
+            assert last["kernel"] == ("pipe" if kind == "bwd"
                                       else "stream"), (fam, kind, last)
         err = value_err((ys,), (fn(xg, w, *extra),), torch.float32)
         ref_g = torch.autograd.grad(fn(*x, True), x, dy)
@@ -4050,7 +4161,8 @@ def stream_paths(dev, seed, smi):
                                             bigru_bwd=gl), step_launched
     for name in ("bigru_fwd", "bigru_fwd_train", "bigru_bwd"):
         last = getattr(*WRAPPERS[name]).last_launch
-        assert last["kernel"] == "stream", (name, last)
+        assert last["kernel"] == ("pipe" if name == "bigru_bwd"
+                                  else "stream"), (name, last)
     assert all(np.isfinite(float(v)) for v in losses.values())
     launched = {k: fwd_launched[k] + step_launched[k] for k in WRAPPERS}
     out["bigru"] = launched
@@ -4059,6 +4171,39 @@ def stream_paths(dev, seed, smi):
         f"{gerr:.3e} (tol {MODEL_TOL:.0e}); one train step, total_loss "
         f"{float(losses['total_loss']):.4f}; launches {launched} (bigru_bwd "
         f"{plan_text(gru_cuda.bigru_bwd_cuda)})")
+
+    # the bigru's train step at bench.py's B and N (the default config's
+    # precision), the BPTT on the pipe kernel and on the first stream
+    # design, in turns
+    bcfg = ExperimentConfig().apply_overrides(
+        ["model.model_type=bigru", f"model.d_model={STREAM_LSTM_D}"])
+    bcfg.train.batch_size, bcfg.data.max_trace_len = STREAM_STEP_TIME
+    turns = {"pipe": [], "stream": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_rooms(Path(tmp), STREAM_ROOMS, seed + 990)
+        for kernel in ("pipe", "stream", "stream", "pipe"):
+            ctx = (first_stream_bptt if kernel == "stream"
+                   else contextlib.nullcontext)
+            with ctx():
+                ms, step_launched = step_p50(bcfg, Path(tmp), dev, seed,
+                                             STREAM_STEPS, STREAM_WARMUP)
+            assert step_launched == expected_counts(
+                bigru_fwd_train=gl, bigru_bwd=gl), step_launched
+            last = gru_cuda.bigru_bwd_cuda.last_launch
+            assert last["kernel"] == kernel, (kernel, last)
+            turns[kernel].append(ms)
+    out["bigru_step_p50"] = {
+        "shape": [*STREAM_STEP_TIME, H], "pipe_step_p50_ms": turns["pipe"],
+        "stream_step_p50_ms": turns["stream"],
+        "step_launches": step_launched,
+        "matmul_precision": bcfg.train.matmul_precision,
+        "pipe_plan": dict(last)}
+    log("stream_bigru", f"bigru d_model={STREAM_LSTM_D} (H={H}) train step "
+        f"at B, N = {STREAM_STEP_TIME} (bench.py's), p50 over "
+        f"{STREAM_STEPS} after {STREAM_WARMUP}, in turns pipe, stream, "
+        f"stream, pipe (the BPTT's kernel; the config's matmul precision "
+        f"{bcfg.train.matmul_precision}): "
+        + json.dumps(out["bigru_step_p50"]) + f" on {smi}")
     return out
 
 
@@ -5428,8 +5573,13 @@ def main() -> int:
             ("gru_fwd_train", "bigru_fwd.cu", "gru_pallas.py:155", "gru_ops"),
             ("gru_bwd", "bigru_bwd.cu", "gru_pallas.py:71", "gru_ops")):
         rows = stream_rows[name]
-        # the LSTM BPTT: the pipe kernel, the first stream design beside it
-        pipe = name in ("bilstm_bwd", "lstm_bwd")
+        # the BPTTs: the pipe kernels (sources of their own), the first
+        # stream design (and at H=320 the GRU's kLinear) beside them
+        pipe = name.endswith("_bwd")
+        if pipe:
+            source = "bilstm_pipe.cu" if "lstm" in name else "bigru_pipe.cu"
+        step = {"bilstm_bwd": "lstm_step_p50",
+                "bigru_bwd": "bigru_step_p50"}.get(name)
         kernels.append({**entry(f"{name}_{'pipe' if pipe else 'stream'}",
                                 f"room_slam_torch/csrc/{source}",
                                 f"room_slam_tpu/ops/{line}",
@@ -5437,8 +5587,10 @@ def main() -> int:
                         **({"stream_ms": rows[-1]["stream_ms"],
                             "wide_shapes": stream_rows[f"{name}_wide"]}
                            if pipe else {}),
-                        **({"path_timing": stream_launched["lstm_step_p50"]}
-                           if name == "bilstm_bwd" else {}),
+                        **({"klinear_ms": rows[0]["klinear_ms"]}
+                           if "klinear_ms" in rows[0] else {}),
+                        **({"path_timing": stream_launched[step]}
+                           if step else {}),
                         "shapes": rows})
     for k in kernels[:3]:
         k["launches_recipe"] = recipe_launched[k["name"]]

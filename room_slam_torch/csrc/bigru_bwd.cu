@@ -190,8 +190,10 @@
 // launch, not kLinear (4.1 us a step at such widths) or, with bf16
 // streams, the tensor-core BPTT (2.4x slower at H=64).
 //
-// Where no kLinear plan fits, the stream kernel (kStream) takes the launch,
-// for #6 and #8 alike: kLinear's chain, each block reading its units' rows
+// The stream kernel (kStream), for #6 and #8 alike, the first design above
+// the cluster widths: the route above H = 1024 (to 2421), below it reached
+// by a forced ("stream", C, R) plan since the pipe kernel (bigru_pipe.cu)
+// took H 257-1024. kLinear's chain, each block reading its units' rows
 // of W_hh from global memory every step instead of holding them in shared
 // memory, so that only the dg tile [2][3H][R] (rows padded to whole chunks)
 // sits there; clusters of up to 16 blocks. The wrapper passes W_hh^T [3H,

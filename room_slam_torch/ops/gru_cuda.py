@@ -75,9 +75,16 @@ registers, one block barrier a step; ``gru_fwd_kernel_route`` /
 ``gru_bwd_kernel_route`` choose, ``rnn_cuda.unit_plan`` sizes the tile,
 and ``last_launch`` records both. Where no cluster plan fits (W_hh's slice
 over a block's shared memory at every cluster of up to 8 blocks), the
-stream kernels take the launch: the cluster kernels reading their slice of
-W_hh from global memory every step, clusters of up to 16 blocks, planned
-by ``rnn_cuda.stream_plans``.
+stream kernels take the forwards: the cluster kernels reading their slice
+of W_hh from global memory every step, clusters of up to 16 blocks,
+planned by ``rnn_cuda.stream_plans``. The BPTT above H=256 (to H=1024)
+takes the pipe kernel (``csrc/bigru_pipe.cu``, both grids): each block of
+a cluster of up to 16 forms dg for its own units and multiplies it by its
+own slice of W_hh (packed by ``rnn_cuda.pipe_weights``, streamed through
+shared memory by a producer warp), the float32 partial sums of dh_carry
+summed in rank order at their owners; ``rnn_cuda.pipe_plans`` (three
+gates) plans it. The stream BPTT stays for the widths above 1024 and, by a
+forced ``("stream", C, R)`` plan, for the A/B.
 
 With bf16 streams the fused kind (#9) runs its three input-side products on
 tensor cores (``mma.sync``); with float32 streams on CUDA cores.
@@ -94,14 +101,18 @@ from torch.autograd.function import once_differentiable
 from room_slam_torch.ops.rnn import gru_recurrence, input_gates
 from room_slam_torch.ops.rnn_cuda import (CLUSTER_MAX_H, CLUSTER_SIZES,
                                           MAX_ROWS, MAX_SMEM_BYTES,
-                                          MAX_THREADS, ROWS_PER_THREAD,
+                                          MAX_THREADS, PIPE_CELLS,
+                                          PIPE_MAX_CLUSTER, PIPE_ROWS,
+                                          ROWS_PER_THREAD,
                                           STREAM_MAX_CLUSTER,
-                                          UNIT_MAX_H, _device_type, _pad4,
+                                          UNIT_MAX_H, _bind_pipe,
+                                          _device_type, _pad4, _pipe_rule,
                                           _stream_rule, _work_dtype,
                                           bind_unit_queries, bwd_weights,
                                           card_name, card_unit_plans,
                                           check_stream_mirror, grad_product,
-                                          grad_sum, launch, prev_steps,
+                                          grad_sum, launch, pipe_plans,
+                                          pipe_takes, prev_steps,
                                           rank_cluster_plans,
                                           set_error_string, slice_units,
                                           stream_plans, stream_refusal,
@@ -391,6 +402,11 @@ def cluster_takes(kind: str, hidden: int) -> bool:
                                  ROWS_PER_THREAD))
 
 
+# The BPTT's pipe kernel (csrc/bigru_pipe.cu): three gates, so that
+# rnn_cuda's pipe planner, layout mirror and W_hh packing take gates=3
+PIPE_GATES = 3
+
+
 def _route(kind: str, hidden: int, dirs: int, dtype: torch.dtype) -> str:
     name = f"bigru_{kind}"
     if hidden <= 0:
@@ -401,6 +417,12 @@ def _route(kind: str, hidden: int, dirs: int, dtype: torch.dtype) -> str:
             tc_plan_fits(kind, hidden, c, r)
             for c in TC_CLUSTER_SIZES for r in TC_ROWS):
         return "tc"
+    # above CLUSTER_MAX_H the BPTT takes the pipe kernel also where a
+    # kLinear plan fits (the multiples of 8 up to 360): faster at H=320,
+    # where chip_smoke.py phase 40 times the two in turns
+    if kind == "bwd" and hidden > CLUSTER_MAX_H and \
+            pipe_takes(hidden, PIPE_GATES):
+        return "pipe"
     if cluster_takes(kind, hidden):
         return "cluster"
     if stream_takes(name, hidden):
@@ -429,12 +451,16 @@ def gru_fwd_kernel_route(hidden: int, dirs: int,
 
 def gru_bwd_kernel_route(hidden: int, dirs: int,
                          dtype: torch.dtype = torch.float32) -> str:
-    """The BPTT kernel of ``csrc/bigru_bwd.cu`` that takes a launch of
-    ``dirs`` directions at hidden size ``hidden`` with ``dtype`` streams:
-    "unit" (``gru_bwd_unit_kernel``) at H <= ``UNIT_MAX_H``; "tc"
+    """The BPTT kernel of ``csrc/bigru_bwd.cu`` (or, "pipe",
+    ``csrc/bigru_pipe.cu``) that takes a launch of ``dirs`` directions at
+    hidden size ``hidden`` with ``dtype`` streams: "unit"
+    (``gru_bwd_unit_kernel``) at H <= ``UNIT_MAX_H``; "tc"
     (``bigru_bwd_tc_kernel``) above it for two directions with bf16 streams
     where ``tc_plan_fits`` holds; else "cluster" (kLinear) where a plan
-    fits, else "stream"."""
+    fits up to ``CLUSTER_MAX_H``; above it "pipe" (the pipe kernel) where
+    a plan of it takes H (to H=1024), else "stream" (the first stream
+    design, also reached below by a forced plan). Raises, naming the width
+    and the card's limit, for an H none takes."""
     return _route("bwd", hidden, dirs, dtype)
 
 
@@ -811,6 +837,9 @@ def _library(name: str):
     lib = load_library(name)
     if getattr(lib, "_argtypes_set", False):
         return lib
+    if name == "bigru_pipe":
+        return _bind_pipe(lib, name, "bigru_bwd", "gru_bwd", 14, 7,
+                          PIPE_GATES)
     p, i = ctypes.c_void_p, ctypes.c_int
     fwd = name == "bigru_fwd"
     for sfx in _SUFFIX.values():
@@ -957,6 +986,30 @@ def card_stream_plans(kind: str, B: int, H: int, dev: torch.device,
         dtype.itemsize)
 
 
+def _pipe_resident(H: int, dev: torch.device, T):
+    """The pipe kernel's library (``csrc/bigru_pipe.cu``) and
+    ``resident(cluster, rows)``: how many clusters of that plan the card
+    ``dev`` runs at once."""
+    lib = _library("bigru_pipe")
+    query = lib.bigru_bwd_pipe_max_active_clusters
+
+    def resident(c, rows):
+        with torch.cuda.device(dev):
+            return query(int(T == torch.bfloat16), 0, H, c, rows)
+
+    return lib, resident
+
+
+def card_gru_pipe_plans(B: int, H: int, dev: torch.device,
+                        dtype: torch.dtype,
+                        dirs: int = 2) -> List[Tuple[int, int]]:
+    """``rnn_cuda.pipe_plans`` of the GRU BPTT's pipe kernel (three gates)
+    over ``dirs`` directions on the card ``dev`` (its own counts), fastest
+    first; the first is the plan a launch takes."""
+    return pipe_plans(B, H, _pipe_resident(H, dev, dtype)[1], dirs,
+                      dtype.itemsize, PIPE_GATES)
+
+
 def card_tc_plans(kind: str, B: int, H: int, dev: torch.device
                   ) -> List[Tuple[int, int]]:
     """``bigru_tc_plans`` of the tensor-core kernel behind wrapper ``kind``
@@ -1085,19 +1138,60 @@ def _stream_plan_launch(kind: str, fn, B: int, H: int, dev: torch.device,
     return lib, fn.last_launch["cluster"], fn.last_launch["rows"]
 
 
+def _pipe_plan_launch(fn, B: int, H: int, dev: torch.device, T, dirs: int,
+                      plan: Optional[Tuple[int, int]] = None):
+    """The launch's ``(cluster, rows)`` for the BPTT's pipe kernel over
+    ``dirs`` directions: ``rnn_cuda.pipe_plans``' pick (three gates) with
+    the card's own counts, or the caller's ``plan``, refused unless its
+    rule holds and the card runs at least one such cluster. Recorded with
+    the number of the grid's clusters in ``fn.last_launch``."""
+    lib, resident = _pipe_resident(H, dev, T)
+    key = ("pipe", B, H, str(dev), T, dirs, plan)
+    if key not in _PLANS:
+        if plan is None:
+            plans = pipe_plans(B, H, resident, dirs, T.itemsize, PIPE_GATES)
+            if not plans:
+                raise ValueError(f"bigru_bwd_pipe: no plan of 1 to "
+                                 f"{PIPE_MAX_CLUSTER} blocks takes H={H} on "
+                                 f"{card_name(dev)}")
+            cluster, rows = plans[0]
+        else:
+            cluster, rows = plan
+            if not _pipe_rule(H, cluster, rows, T.itemsize, PIPE_GATES):
+                raise ValueError(
+                    f"bigru_bwd_pipe: plan {cluster}x{rows} does not fit "
+                    f"H={H}: 1 to {PIPE_MAX_CLUSTER} blocks each owning a "
+                    f"unit, H at most 1024, a tile of {PIPE_ROWS[1]} rows, "
+                    f"at most {PIPE_CELLS} cells a thread and two chunks of "
+                    f"W_hh's slice in {MAX_SMEM_BYTES} bytes of shared "
+                    "memory a block")
+            if resident(cluster, rows) <= 0:
+                raise ValueError(f"bigru_bwd_pipe: the card runs no cluster "
+                                 f"of plan {cluster}x{rows} at once")
+        _PLANS[key] = {"kernel": "pipe", "cluster": cluster, "rows": rows,
+                       "clusters": dirs * -(-B // rows),
+                       "resident": resident(cluster, rows)}
+    fn.last_launch = _PLANS[key]
+    return lib, fn.last_launch["cluster"], fn.last_launch["rows"]
+
+
 def _bigru_kernel(kind: str, H: int, T: torch.dtype, plan):
     """The kernel a two-direction launch of ``kind`` ("fwd" or "bwd")
-    takes, "unit", "tc", "cluster" or "stream", and the plan the caller
-    forces (None: the planner's): ``plan=None`` follows the route,
-    ``(cluster, rows)`` forces the cluster kernel, ``("unit", rows)`` the
-    unit kernel, ``("stream", cluster, rows)`` the stream kernel, ``("tc",
-    cluster, rows)`` the tensor-core kernel, refused for float32
-    streams."""
+    takes, "unit", "tc", "cluster", "pipe" (the BPTT) or "stream", and the
+    plan the caller forces (None: the planner's): ``plan=None`` follows the
+    route, ``(cluster, rows)`` forces the cluster kernel, ``("unit",
+    rows)`` the unit kernel, ``("stream", cluster, rows)`` the stream
+    kernel, ``("pipe", cluster, rows)`` the pipe kernel (refused for the
+    forward), ``("tc", cluster, rows)`` the tensor-core kernel, refused for
+    float32 streams."""
     if plan is None:
         route = gru_fwd_kernel_route if kind == "fwd" else gru_bwd_kernel_route
         return route(H, 2, T), None
-    if plan[0] not in ("tc", "unit", "stream"):
+    if plan[0] not in ("tc", "unit", "stream", "pipe"):
         return "cluster", tuple(plan)
+    if plan[0] == "pipe" and kind != "bwd":
+        raise ValueError(f"bigru_{kind}: no pipe kernel; the BPTT takes "
+                         "plans ('pipe', cluster, rows)")
     if plan[0] == "tc" and T != torch.bfloat16:
         raise ValueError(f"bigru_{kind}: the tensor-core kernel takes "
                          f"bfloat16 streams, not {T}")
@@ -1216,12 +1310,15 @@ def _bwd_launch(fn, kind: str, plan, w_f, w_b, gs_f, hn_f, ys_f, dy_f,
         lib, cluster, rows = _stream_plan_launch("bwd", fn, B, H, dev, T,
                                                  False, 2, forced)
         name, plan_ints = f"{name}_stream", (cluster, rows)
+    elif kernel == "pipe":
+        lib, cluster, rows = _pipe_plan_launch(fn, B, H, dev, T, 2, forced)
+        name, plan_ints = f"{name}_pipe", (cluster, rows)
     else:
         lib, cluster, rows = _plan_launch(kind, fn, B, H, dev, T, False, 2,
                                           forced)
         plan_ints = (cluster, rows)
     w_f, w_b = bwd_weights(kernel, (w_f.to(T).contiguous(),
-                                    w_b.to(T).contiguous()))
+                                    w_b.to(T).contiguous()), plan_ints[0])
     launch(lib, f"{name}_{_SUFFIX[T]}", dev,
            *(t.data_ptr() for t in (w_f, w_b, *streams)),
            *(o.data_ptr() for o in outs), B, N, H, *plan_ints)
@@ -1231,13 +1328,15 @@ def _bwd_launch(fn, kind: str, plan, w_f, w_b, gs_f, hn_f, ys_f, dy_f,
 
 def bigru_bwd_cuda(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b, dy_b,
                    plan: Optional[tuple] = None):
-    """Launch ``csrc/bigru_bwd.cu`` (#6): ``(dx_f, dhn_f, dx_b, dhn_b)``.
+    """Launch ``csrc/bigru_bwd.cu`` (#6; the pipe kernel
+    ``csrc/bigru_pipe.cu``): ``(dx_f, dhn_f, dx_b, dhn_b)``.
     ``gru_bwd_kernel_route`` picks the unit kernel (both directions in one
-    launch), the tensor-core kernel, kLinear's cluster kernel or the stream
-    kernel; ``plan=(cluster, rows)`` forces the cluster kernel's plan,
-    ``plan=("unit", rows)``, ``("stream", cluster, rows)`` or ``("tc",
-    cluster, rows)`` the unit, stream or tensor-core kernel's (raises if it
-    does not fit). Records the plan in ``bigru_bwd_cuda.last_launch`` and
+    launch), the tensor-core kernel, kLinear's cluster kernel, the pipe
+    kernel or the stream kernel; ``plan=(cluster, rows)`` forces the
+    cluster kernel's plan, ``plan=("unit", rows)``, ``("pipe", cluster,
+    rows)``, ``("stream", cluster, rows)`` or ``("tc", cluster, rows)`` the
+    unit, pipe, stream or tensor-core kernel's (raises if it does not
+    fit). Records the plan in ``bigru_bwd_cuda.last_launch`` and
     counts each launch in ``bigru_bwd_cuda.launches``."""
     return _bwd_launch(bigru_bwd_cuda, "bwd", plan, w_f, w_b, gs_f, hn_f,
                        ys_f, dy_f, gs_b, hn_b, ys_b, dy_b)
@@ -1321,13 +1420,15 @@ def _gru_launch(fn, name: str, route, save: bool, ptrs, B, N, H, dev, T,
                 reverse: bool, plan):
     """Launch one direction of a GRU: ``name`` "gru_fwd" or
     "gru_fwd_train" (``csrc/bigru_fwd.cu``) or "gru_bwd"
-    (``csrc/bigru_bwd.cu``) on the tensors ``ptrs`` (the BPTT's: W_hh
-    first), on
-    the unit kernel (``rnn_cuda.unit_plan``'s tile), the cluster kernel
-    (``bigru_plan``'s plan) or the stream kernel (``bigru_stream_plans``'
-    plan; the BPTT's reads W_hh^T) as ``route(H, 1)`` says, or as the
-    caller's ``plan`` ("unit", rows), ("cluster", cluster, rows) or
-    ("stream", cluster, rows) forces; counted and recorded on ``fn``."""
+    (``csrc/bigru_bwd.cu``, the pipe kernel ``csrc/bigru_pipe.cu``) on the
+    tensors ``ptrs`` (the BPTT's: W_hh first), on the unit kernel
+    (``rnn_cuda.unit_plan``'s tile), the cluster kernel (``bigru_plan``'s
+    plan), the BPTT's pipe kernel (``rnn_cuda.pipe_plans``' plan; W_hh
+    packed by ``rnn_cuda.pipe_weights``) or the stream kernel
+    (``bigru_stream_plans``' plan; the BPTT's reads W_hh^T) as ``route(H,
+    1)`` says, or as the caller's ``plan`` ("unit", rows), ("cluster",
+    cluster, rows), ("pipe", cluster, rows) or ("stream", cluster, rows)
+    forces; counted and recorded on ``fn``."""
     src = name[:len("gru_fwd")]          # the unit queries' name
     kernel = route(H, 1) if plan is None else plan[0]
     forced = None if plan is None else tuple(plan[1:])
@@ -1344,12 +1445,18 @@ def _gru_launch(fn, name: str, route, save: bool, ptrs, B, N, H, dev, T,
                                      save, 1, forced)
         entry = name if kernel == "cluster" else f"{name}_stream"
         plan_ints = (cluster, rows)
+    elif kernel == "pipe" and src == "gru_bwd":
+        lib, cluster, rows = _pipe_plan_launch(fn, B, H, dev, T, 1, forced)
+        entry, plan_ints = f"{name}_pipe", (cluster, rows)
+    elif kernel == "pipe":
+        raise ValueError(f"{name}: no pipe kernel; the BPTT takes plans "
+                         "('pipe', cluster, rows)")
     else:
         raise ValueError(f"{name}: plan must be ('unit', rows), ('cluster', "
-                         f"cluster, rows) or ('stream', cluster, rows), got "
-                         f"{plan}")
+                         f"cluster, rows), ('pipe', cluster, rows) (the "
+                         f"BPTT) or ('stream', cluster, rows), got {plan}")
     if src == "gru_bwd":
-        ptrs = [*bwd_weights(kernel, ptrs[:1]), *ptrs[1:]]
+        ptrs = [*bwd_weights(kernel, ptrs[:1], plan_ints[0]), *ptrs[1:]]
     launch(lib, f"{entry}_{sfx}", dev, *(t.data_ptr() for t in ptrs), B, N,
            H, *plan_ints, int(reverse))
     fn.launches += 1
@@ -1409,11 +1516,12 @@ def card_gru_bwd_unit_plans(B: int, H: int, dev: torch.device,
 
 def gru_bwd_cuda(w, gs, hn, ys, dy, reverse: bool = False,
                  plan: Optional[tuple] = None):
-    """Launch ``csrc/bigru_bwd.cu`` with a grid of one direction:
-    ``(dx, dhn)``. ``gru_bwd_kernel_route`` picks the unit kernel or the
-    cluster kernel (kLinear); ``plan=("unit", rows)`` or ``("cluster",
-    cluster, rows)`` overrides the route and the planner (raises if it does
-    not fit). Records the plan in ``gru_bwd_cuda.last_launch`` and counts
+    """Launch ``csrc/bigru_bwd.cu`` (the pipe kernel ``csrc/bigru_pipe.cu``)
+    with a grid of one direction: ``(dx, dhn)``. ``gru_bwd_kernel_route``
+    picks the unit kernel, the cluster kernel (kLinear), the pipe kernel or
+    the stream kernel; ``plan=("unit", rows)``, ``("cluster", cluster,
+    rows)``, ``("pipe", cluster, rows)`` or ``("stream", cluster, rows)``
+    overrides the route and the planner (raises if it does not fit). Records the plan in ``gru_bwd_cuda.last_launch`` and counts
     each launch in ``gru_bwd_cuda.launches``."""
     H = w.shape[0]
     B, N, G = gs.shape

@@ -43,8 +43,8 @@ cluster barrier a step) stays for the A/B, reached by a forced plan. Above
 kernel ("stream": the first cluster kernel reading its slice of W_hh from
 global memory every step, clusters of up to 16 blocks) takes the forward's
 widths whose exchange tile fits a block; ``stream_plans`` picks its plan.
-The BPTT there takes the pipe kernel ("pipe": the register kernel's
-K-split, each block's slice of W_hh streamed through shared memory by a
+The BPTT there takes the pipe kernel (``csrc/bilstm_pipe.cu``, a source of
+its own: "pipe", the register kernel's K-split, each block's slice of W_hh streamed through shared memory by a
 producer warp's bulk copies, the part that fits held for the whole walk;
 ``pipe_plans`` picks the cluster and the batch tile), routed as far as the
 first stream design takes H (1816) and by a forced plan to H=2048; the
@@ -139,17 +139,20 @@ STREAM_SM_FMA = 128
 STREAM_SM_L2 = 32
 STREAM_CARD_L2 = 3072
 
-# The pipe kernel (bilstm_bwd_pipe_kernel, the LSTM BPTT above
-# CLUSTER_MAX_H): clusters of 1 to PIPE_MAX_CLUSTER blocks (kPipeMaxC), batch
-# tiles of PIPE_ROWS[k] rows where a thread sums k groups of 4 k values (1
-# pass of PIPE_GROUPS groups to H=1024, 2 to H=2048), chunks of PIPE_JC[k]
-# gate columns of the block's slice of W_hh, at least PIPE_MIN_WARPS consumer
-# warps, at most PIPE_CELLS (unit, row) cells a consumer thread, a ring of
-# PIPE_RING stages where the slice does not fit, at most PIPE_MAX_STAGES
-# chunks in shared memory (kPipe* in csrc/bilstm_bwd.cu)
+# The pipe kernels (the BPTT above CLUSTER_MAX_H: csrc/bilstm_pipe.cu
+# bilstm_bwd_pipe_kernel, the LSTM's, four gates; csrc/bigru_pipe.cu
+# bigru_bwd_pipe_kernel, the GRU's, three): clusters of 1 to
+# PIPE_MAX_CLUSTER blocks (kPipeMaxC), batch tiles of PIPE_ROWS[k] rows where
+# a thread sums k groups of 4 k values (1 pass of PIPE_GROUPS groups to
+# H=1024, 2 to H=2048), chunks of PIPE_JC[gates][k] gate columns of the
+# block's slice of W_hh (the GRU's kernel takes one pass only), at least
+# PIPE_MIN_WARPS consumer warps, at most PIPE_CELLS (unit, row) cells a
+# consumer thread, a ring of PIPE_RING stages where the slice does not fit,
+# at most PIPE_MAX_STAGES chunks in shared memory (kPipe* in the sources)
 PIPE_MAX_CLUSTER = 16
 PIPE_ROWS = {1: (1, 2, 4, 8, 12, 16), 2: (1, 2, 4, 8)}
-PIPE_JC = {1: 16, 2: 8}
+PIPE_JC = {4: {1: 16, 2: 8}, 3: {1: 12}}
+PIPE_SOURCE = {4: "bilstm_bwd", 3: "bigru_bwd"}   # the queries' prefix
 PIPE_GROUPS = 256
 PIPE_MIN_WARPS = 4
 PIPE_CELLS = 4
@@ -621,16 +624,19 @@ def pipe_units(hidden: int, cluster: int) -> int:
 
 
 def pipe_kpt(hidden: int) -> int:
-    """k groups of 4 a consumer thread of the pipe kernel sums: 1 up to
-    H=1024, 2 up to 2048 (more the kernel does not take)."""
+    """k groups of 4 a consumer thread of a pipe kernel sums: 1 up to
+    H=1024, 2 up to 2048 (more the LSTM's kernel does not take; the GRU's
+    takes one)."""
     return -(-(pipe_hp(hidden) // 4) // PIPE_GROUPS)
 
 
-def pipe_jc(hidden: int) -> int:
-    """Gate columns of a chunk of the pipe kernel's W_hh slice: 16 where a
-    thread sums one k group (H <= 1024), 8 above (two chunks of 16 columns
-    of f32 there would not fit a block)."""
-    return PIPE_JC[min(pipe_kpt(hidden), 2)]
+def pipe_jc(hidden: int, gates: int = 4) -> int:
+    """Gate columns of a chunk of the W_hh slice of the pipe kernel of
+    ``gates`` gates: the LSTM's 16 where a thread sums one k group (H <=
+    1024), 8 above (two chunks of 16 columns of f32 there would not fit a
+    block); the GRU's 12 (3U is a multiple of 12)."""
+    jc = PIPE_JC[gates]
+    return jc[min(pipe_kpt(hidden), max(jc))]
 
 
 def _pipe_busy(hidden: int) -> int:
@@ -644,21 +650,23 @@ def pipe_warps(hidden: int) -> int:
     return max(PIPE_MIN_WARPS, -(-_pipe_busy(hidden) // 32))
 
 
-def pipe_layout(hidden: int, cluster: int, rows: int,
-                wbytes: int) -> Tuple[int, int, int, int, int, int]:
-    """A pipe-kernel block at H, C and R with W_hh of ``wbytes`` bytes a
-    value (``bilstm_bwd_pipe_layout`` of the source, by ``what``): dynamic
-    shared memory in bytes, threads, units, chunks of the slice in shared
-    memory, of those the ones held for the whole walk, and the slice's
-    chunks. Shared memory: as many chunks of ``pipe_jc(H)`` x ``pipe_hp(H)``
-    values as fit (at most the slice's and ``PIPE_MAX_STAGES``) beside the
-    partials [2][C][R][U] and the dg tile [4U][R] in float32 and the
-    mbarriers; where the slice does not fit, ``PIPE_RING`` of them are the
-    ring the other chunks stream through."""
+def pipe_layout(hidden: int, cluster: int, rows: int, wbytes: int,
+                gates: int = 4) -> Tuple[int, int, int, int, int, int]:
+    """A block of the pipe kernel of ``gates`` gates at H, C and R with
+    W_hh of ``wbytes`` bytes a value (``<PIPE_SOURCE>_pipe_layout`` of its
+    source, by ``what``): dynamic shared memory in bytes, threads, units,
+    chunks of the slice in shared memory, of those the ones held for the
+    whole walk, and the slice's chunks. Shared memory: as many chunks of
+    ``pipe_jc(H, gates)`` x ``pipe_hp(H)`` values as fit (at most the
+    slice's and ``PIPE_MAX_STAGES``) beside the partials [2][C][R][U] and
+    the dg tile [gates x U][R] in float32 and the mbarriers; where the
+    slice does not fit, ``PIPE_RING`` of them are the ring the other chunks
+    stream through."""
     U = pipe_units(hidden, cluster)
-    chunk = pipe_jc(hidden) * pipe_hp(hidden) * wbytes
-    chunks = 4 * U // pipe_jc(hidden)
-    fixed = (2 * cluster * rows * U + 4 * U * rows) * 4 \
+    jc = pipe_jc(hidden, gates)
+    chunk = jc * pipe_hp(hidden) * wbytes
+    chunks = gates * U // jc
+    fixed = (2 * cluster * rows * U + gates * U * rows) * 4 \
         + (2 * PIPE_MAX_STAGES + 2) * 8
     stages = (0 if fixed >= MAX_SMEM_BYTES else
               min(chunks, PIPE_MAX_STAGES, (MAX_SMEM_BYTES - fixed) // chunk))
@@ -667,58 +675,64 @@ def pipe_layout(hidden: int, cluster: int, rows: int,
             stages - ring, chunks)
 
 
-def _pipe_rule(hidden: int, cluster: int, rows: int, wbytes: int) -> bool:
-    """The pipe kernel's plan rule (``valid_pipe_plan``): 1 to
-    ``PIPE_MAX_CLUSTER`` blocks each owning a unit, at most two k groups a
-    thread (H <= 2048), a tile of ``PIPE_ROWS``, at most ``PIPE_CELLS``
-    cells a consumer thread, and two chunks of the slice in shared memory
-    at least (one where the slice is one chunk)."""
+def _pipe_rule(hidden: int, cluster: int, rows: int, wbytes: int,
+               gates: int = 4) -> bool:
+    """The plan rule of the pipe kernel of ``gates`` gates
+    (``valid_pipe_plan``): 1 to ``PIPE_MAX_CLUSTER`` blocks each owning a
+    unit, at most as many k groups a thread as ``PIPE_JC[gates]`` has (the
+    LSTM's H <= 2048, the GRU's H <= 1024), a tile of ``PIPE_ROWS``, at
+    most ``PIPE_CELLS`` cells a consumer thread, and two chunks of the
+    slice in shared memory at least (one where the slice is one chunk)."""
     if not (hidden > 0 and 1 <= cluster <= PIPE_MAX_CLUSTER):
         return False
-    if pipe_kpt(hidden) > 2 or rows not in PIPE_ROWS[pipe_kpt(hidden)]:
+    kpt = pipe_kpt(hidden)
+    if kpt > max(PIPE_JC[gates]) or rows not in PIPE_ROWS[kpt]:
         return False
     U = pipe_units(hidden, cluster)
     if (cluster - 1) * U >= hidden or \
             U * rows > PIPE_CELLS * 32 * pipe_warps(hidden):
         return False
-    _, _, _, stages, _, chunks = pipe_layout(hidden, cluster, rows, wbytes)
+    _, _, _, stages, _, chunks = pipe_layout(hidden, cluster, rows, wbytes,
+                                             gates)
     return stages >= min(chunks, 2)
 
 
-def _pipe_plan_grid(hidden: int, wbytes: int) -> List[Tuple[int, int]]:
+def _pipe_plan_grid(hidden: int, wbytes: int,
+                    gates: int = 4) -> List[Tuple[int, int]]:
     return [(c, rows) for c in range(1, PIPE_MAX_CLUSTER + 1)
             for rows in PIPE_ROWS[min(pipe_kpt(hidden), 2)]
-            if _pipe_rule(hidden, c, rows, wbytes)]
+            if _pipe_rule(hidden, c, rows, wbytes, gates)]
 
 
-def pipe_takes(hidden: int) -> bool:
-    """Whether any plan of the pipe kernel takes H in float32 (then also in
-    bf16, whose chunks are half the bytes)."""
-    return bool(_pipe_plan_grid(hidden, 4))
+def pipe_takes(hidden: int, gates: int = 4) -> bool:
+    """Whether any plan of the pipe kernel of ``gates`` gates takes H in
+    float32 (then also in bf16, whose chunks are half the bytes)."""
+    return bool(_pipe_plan_grid(hidden, 4, gates))
 
 
-def check_pipe_mirror(layout) -> None:
-    """Hold ``_pipe_rule`` and ``pipe_layout`` to a built source's
-    ``bilstm_bwd_pipe_layout(what, bf16, H, C, R)`` (or -1 for a plan it
-    does not take) over H, every cluster size to one past the largest, a
-    few tiles and both W_hh types; raises naming the first plan where they
-    differ."""
+def check_pipe_mirror(layout, gates: int = 4) -> None:
+    """Hold ``_pipe_rule`` and ``pipe_layout`` of the pipe kernel of
+    ``gates`` gates to its built source's ``<PIPE_SOURCE>_pipe_layout(what,
+    bf16, H, C, R)`` (or -1 for a plan it does not take) over H, every
+    cluster size to one past the largest, a few tiles and both W_hh types;
+    raises naming the first plan where they differ."""
     for hidden in (1, 7, 64, 139, 256, 257, 260, 320, 511, 512, 1024, 1025,
                    1816, 1817, 2048, 2049):
         for c in range(1, PIPE_MAX_CLUSTER + 2):
             for rows in (1, 2, 3, 4, 8, 12, 16, 32):
                 for bf16 in (0, 1):
                     wbytes = 2 if bf16 else 4
-                    want = (pipe_layout(hidden, c, rows, wbytes)
-                            if _pipe_rule(hidden, c, rows, wbytes)
+                    want = (pipe_layout(hidden, c, rows, wbytes, gates)
+                            if _pipe_rule(hidden, c, rows, wbytes, gates)
                             else (-1,) * 6)
                     got = tuple(layout(what, bf16, hidden, c, rows)
                                 for what in range(6))
                     if got != want:
                         raise RuntimeError(
-                            f"bilstm_bwd_pipe: the wrapper's plan mirror "
-                            f"gives {want} (shared bytes, threads, units, "
-                            f"chunks there, held, of the slice) at H={hidden}"
+                            f"{PIPE_SOURCE[gates]}_pipe: the wrapper's plan "
+                            f"mirror gives {want} (shared bytes, threads, "
+                            "units, chunks there, held, of the slice) at "
+                            f"H={hidden}"
                             f", plan {c}x{rows}, {'bf16' if bf16 else 'f32'}"
                             f" W_hh, the built source {got}: update PIPE_* "
                             "or pipe_layout to match the source")
@@ -726,10 +740,12 @@ def check_pipe_mirror(layout) -> None:
 
 def rank_pipe_plans(plans, batch: int, hidden: int,
                     resident: Callable[[int, int], int], dirs: int,
-                    wbytes: int) -> List[Tuple[int, int]]:
-    """The ``(cluster, rows)`` plans of the pipe kernel, fastest first.
+                    wbytes: int, gates: int = 4) -> List[Tuple[int, int]]:
+    """The ``(cluster, rows)`` plans of the pipe kernel of ``gates``
+    gates, fastest first.
 
-    A block's step costs the larger of its FMA issue (4U x ``pipe_hp(H)``
+    A block's step costs the larger of its FMA issue (gates x U x
+    ``pipe_hp(H)``
     x rows FMAs over its busy warps, four at most issuing at once, 32 a
     warp instruction), its streamed chunks' L2 bytes at ``STREAM_SM_L2``
     and the wave's at ``STREAM_CARD_L2``, plus ``PIPE_STEP_FIXED`` and
@@ -746,12 +762,13 @@ def rank_pipe_plans(plans, batch: int, hidden: int,
         at_once = resident(c, rows)
         if at_once <= 0:
             continue
-        _, threads, U, _, held, chunks = pipe_layout(hidden, c, rows, wbytes)
+        _, threads, U, _, held, chunks = pipe_layout(hidden, c, rows, wbytes,
+                                                     gates)
         tiles = dirs * -(-batch // rows)
         blocks = min(tiles, at_once) * c
-        streamed = (chunks - held) * pipe_jc(hidden) * hp * wbytes
+        streamed = (chunks - held) * pipe_jc(hidden, gates) * hp * wbytes
         cells = -(-U * rows // (threads - 32))
-        step = (max(4 * U * hp * rows / (32 * busy),
+        step = (max(gates * U * hp * rows / (32 * busy),
                     streamed / STREAM_SM_L2,
                     blocks * streamed / STREAM_CARD_L2)
                 + PIPE_STEP_FIXED + cells * c * PIPE_CELL_PARTIAL)
@@ -761,23 +778,26 @@ def rank_pipe_plans(plans, batch: int, hidden: int,
 
 
 def pipe_plans(batch: int, hidden: int, resident: Callable[[int, int], int],
-               dirs: int = 2, wbytes: int = 4) -> List[Tuple[int, int]]:
-    """Every ``(cluster, rows)`` the pipe kernel takes at this batch and H
-    over ``dirs`` directions with W_hh of ``wbytes`` bytes (the stream
-    dtype's), fastest first (``rank_pipe_plans``)."""
-    return rank_pipe_plans(_pipe_plan_grid(hidden, wbytes), batch, hidden,
-                           resident, dirs, wbytes)
+               dirs: int = 2, wbytes: int = 4,
+               gates: int = 4) -> List[Tuple[int, int]]:
+    """Every ``(cluster, rows)`` the pipe kernel of ``gates`` gates takes
+    at this batch and H over ``dirs`` directions with W_hh of ``wbytes``
+    bytes (the stream dtype's), fastest first (``rank_pipe_plans``)."""
+    return rank_pipe_plans(_pipe_plan_grid(hidden, wbytes, gates), batch,
+                           hidden, resident, dirs, wbytes, gates)
 
 
 def pipe_weights(w: torch.Tensor, cluster: int) -> torch.Tensor:
-    """W_hh [H, 4H] as the pipe kernel reads it at cluster size C: [C, 4,
-    U, HP] (``pipe_units``, ``pipe_hp``), contiguous, so that block q's
-    slice is one run of 4U rows, row g * U + u holding column g * H + q *
-    U + u of W_hh over k; zero past H in both."""
+    """W_hh [H, gates x H] (the LSTM's four gates, the GRU's three) as a
+    pipe kernel reads it at cluster size C: [C, gates, U, HP]
+    (``pipe_units``, ``pipe_hp``), contiguous, so that block q's slice is
+    one run of gates x U rows, row g * U + u holding column g * H + q * U +
+    u of W_hh over k; zero past H in both."""
     H = w.shape[0]
+    gates = w.shape[1] // H
     U, HP = pipe_units(H, cluster), pipe_hp(H)
-    wt = F.pad(w.t().reshape(4, H, H), (0, HP - H, 0, cluster * U - H))
-    return wt.reshape(4, cluster, U, HP).transpose(0, 1).contiguous()
+    wt = F.pad(w.t().reshape(gates, H, H), (0, HP - H, 0, cluster * U - H))
+    return wt.reshape(gates, cluster, U, HP).transpose(0, 1).contiguous()
 
 
 def _lstm_route(kind: str, hidden: int, wide: bool, wide_smem: int) -> str:
@@ -828,8 +848,8 @@ def bilstm_bwd_smem_bytes(hidden: int) -> int:
 
 
 def lstm_bwd_kernel_route(hidden: int) -> str:
-    """The BPTT kernel of ``csrc/bilstm_bwd.cu`` that takes hidden size
-    ``hidden`` (whatever the batch, stream dtype or direction count):
+    """The BPTT kernel of ``csrc/bilstm_bwd.cu`` (or, "pipe",
+    ``csrc/bilstm_pipe.cu``) that takes hidden size ``hidden`` (whatever the batch, stream dtype or direction count):
     "unit" (``bilstm_bwd_unit_kernel``) up to ``UNIT_MAX_H``, else "wide"
     where its W_hh^T and dg tile fit one block's shared memory (H <= 116),
     else "reg" (the register cluster kernel) up to ``CLUSTER_MAX_H``, else
@@ -1128,6 +1148,8 @@ def _library(name: str):
     if getattr(lib, "_argtypes_set", False):
         return lib
     p, i = ctypes.c_void_p, ctypes.c_int
+    if name == "bilstm_pipe":
+        return _bind_pipe(lib, name, "bilstm_bwd", "lstm_bwd", 10, 5, 4)
     # pointers, then B, N, H (the forward: and the tile R and the wide
     # flag; the BPTT's unit kernel: and R), and the reverse flag of one
     # direction
@@ -1138,11 +1160,9 @@ def _library(name: str):
         fns = {"bilstm_bwd": (10, 3), "lstm_bwd": (5, 4),
                "bilstm_bwd_unit": (10, 4), "lstm_bwd_unit": (5, 5)}
     # the cluster kernels: the pointers, then B, N, H, C, R (and reverse)
-    kernels = ("cluster", "reg", "stream",
-               *(("pipe",) if name == "bilstm_bwd" else ()))
     for fn_name in [f for f in fns if not f.endswith("_unit")]:
         n_ptr, n_int = fns[fn_name]
-        for kernel in kernels:
+        for kernel in ("cluster", "reg", "stream"):
             fns[f"{fn_name}_{kernel}"] = (
                 n_ptr, 5 + int(fn_name.startswith("lstm")))
     for fn_name, (n_ptr, n_int) in fns.items():
@@ -1154,13 +1174,10 @@ def _library(name: str):
         bind_unit_queries(lib, name, gates=4)
     else:
         bind_unit_queries(lib, name, gates=4, tiles=4)
-    # the bf16 and kSave flags, then H, C, R; H, C, R; what, H, C, R; the
-    # pipe kernel's layout: what, the bf16 flag, H, C, R
+    # the bf16 and kSave flags, then H, C, R; H, C, R; what, H, C, R
     queries = (("cluster_max_active_clusters", 5), ("cluster_smem_bytes", 3),
                ("reg_max_active_clusters", 5), ("reg_layout", 4),
                ("stream_max_active_clusters", 5), ("stream_smem_bytes", 3))
-    if name == "bilstm_bwd":
-        queries += (("pipe_max_active_clusters", 5), ("pipe_layout", 5))
     for query, n_int in queries:
         fn = getattr(lib, f"{name}_{query}")
         fn.argtypes = [i] * n_int
@@ -1170,8 +1187,32 @@ def _library(name: str):
     check_reg_mirror(getattr(lib, f"{name}_reg_layout"),
                      name[len("bilstm_"):])
     check_stream_mirror(getattr(lib, f"{name}_stream_smem_bytes"), name)
-    if name == "bilstm_bwd":
-        check_pipe_mirror(lib.bilstm_bwd_pipe_layout)
+    set_error_string(lib, name)
+    return lib
+
+
+def _bind_pipe(lib, name: str, two: str, one: str, n_ptr: int,
+               n_one: int, gates: int):
+    """Bind a pipe kernel's library ``name`` (``csrc/bilstm_pipe.cu``,
+    ``csrc/bigru_pipe.cu``): the entries ``<two>_pipe_<dtype>`` (``n_ptr``
+    pointers of both directions, then B, N, H, C, R) and
+    ``<one>_pipe_<dtype>`` (``n_one`` pointers of one direction, then B, N,
+    H, C, R and the reverse flag), and the queries
+    ``<two>_pipe_max_active_clusters`` (the bf16 and kSave flags, H, C, R)
+    and ``<two>_pipe_layout`` (what, the bf16 flag, H, C, R), held to
+    ``pipe_layout`` of ``gates`` gates (``check_pipe_mirror``)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for sfx in _SUFFIX.values():
+        for fn_name, ptrs, ints in ((f"{two}_pipe_{sfx}", n_ptr, 5),
+                                    (f"{one}_pipe_{sfx}", n_one, 6)):
+            fn = getattr(lib, fn_name)
+            fn.argtypes = [p] * ptrs + [i] * ints + [p]
+            fn.restype = ctypes.c_int
+    for query in ("pipe_max_active_clusters", "pipe_layout"):
+        fn = getattr(lib, f"{two}_{query}")
+        fn.argtypes = [i] * 5
+        fn.restype = i
+    check_pipe_mirror(getattr(lib, f"{two}_pipe_layout"), gates)
     set_error_string(lib, name)
     return lib
 
@@ -1200,9 +1241,9 @@ def _cluster_resident(source: str, H: int, dev: torch.device, T,
                       ) -> Callable[[int, int], int]:
     """``resident(cluster, rows)``: how many clusters of that plan of the
     LSTM cluster kernel ``kernel`` ("cluster", "reg", "stream"; the BPTT's
-    also "pipe") of ``source`` ("bilstm_fwd" or "bilstm_bwd") the card
-    ``dev`` runs at once."""
-    query = getattr(_library(source),
+    also "pipe", whose library is ``csrc/bilstm_pipe.cu``'s) of ``source``
+    ("bilstm_fwd" or "bilstm_bwd") the card ``dev`` runs at once."""
+    query = getattr(_library("bilstm_pipe" if kernel == "pipe" else source),
                     f"{source}_{kernel}_max_active_clusters")
 
     def resident(c, rows):
@@ -1486,7 +1527,7 @@ def _plan(fn, source: str, name: str, B: int, H: int, dev, T, save: bool,
     rows) or ("cluster", cluster, rows), the first cluster kernel's.
     Recorded in ``fn.last_launch``."""
     kernel = _kernel(source, H, plan)
-    lib = _library(source)
+    lib = _library("bilstm_pipe" if kernel == "pipe" else source)
     forced = None if plan is None else tuple(plan[1:])
     if kernel == "unit":
         if H > UNIT_MAX_H:
@@ -1589,8 +1630,8 @@ def bwd_weights(kernel: str, weights, cluster: int = 1) -> list:
 
 def _bwd_launch(fn, name: str, ptrs, B: int, N: int, H: int, dev, T,
                 dirs: int, plan, *tail) -> None:
-    """Launch ``name`` ("bilstm_bwd" or "lstm_bwd", ``csrc/bilstm_bwd.cu``)
-    on the tensors ``ptrs``, then B, N, H, the plan's integers and
+    """Launch ``name`` ("bilstm_bwd" or "lstm_bwd", ``csrc/bilstm_bwd.cu``;
+    the pipe kernel ``csrc/bilstm_pipe.cu``) on the tensors ``ptrs``, then B, N, H, the plan's integers and
     ``tail`` (the reverse flag of one direction), as ``_plan`` picks: the
     wide kernel's entries take no tile, the unit kernel's
     (``<name>_unit_*``) its tile, the cluster kernels'
@@ -1614,7 +1655,8 @@ def _bwd_launch(fn, name: str, ptrs, B: int, N: int, H: int, dev, T,
 def bilstm_bwd_cuda(w_f, w_b, gs_f, cs_f, dy_f, gs_b, cs_b, dy_b,
                     plan: Optional[Tuple[str, int]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/bilstm_bwd.cu``: returns ``(dg_f, dg_b)``.
+    """Launch ``csrc/bilstm_bwd.cu`` (the pipe kernel:
+    ``csrc/bilstm_pipe.cu``): returns ``(dg_f, dg_b)``.
     ``lstm_bwd_kernel_route`` picks the unit, wide, register cluster or
     pipe kernel; ``plan=("unit", rows)``, ``("wide", 4)``, ``("reg",
     cluster, rows)``, ``("pipe", cluster, rows)``, ``("stream", cluster,

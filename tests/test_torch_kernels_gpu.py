@@ -1067,8 +1067,10 @@ def test_tta_serving_card_matches_cpu(cuda):
 # counts: the LSTM's six wrappers (the BPTT's, whose route is now the pipe
 # kernel, by a forced plan) and BiLSTMFunction's / LSTMFunction's gradients
 # through the route (its BPTT bit-equal run to run), the GRU's six (the
-# stream plan forced where a cluster plan takes H, as at 320) and
-# BiGRUFunction's gradients; against the plain versions at the bounds above.
+# stream plan forced where another kernel takes the route: a cluster plan
+# at 320, the BPTT's pipe kernel above 256) and BiGRUFunction's gradients
+# where the route takes the stream kernel; against the plain versions at
+# the bounds above.
 # The pipe kernel (the LSTM BPTT's route above H=256) at the same shapes
 # and at PIPE_WIDTHS, on its route and under the card's next plans, and its
 # plans that do not fit refused.
@@ -1145,6 +1147,122 @@ def test_lstm_pipe_plans_that_do_not_fit_raise(cuda):
     with pytest.raises(ValueError, match="no pipe kernel"):
         rnn_cuda.bilstm_fwd_cuda(*args, plan=("pipe", 16, 4))
     assert rnn_cuda.bilstm_bwd_cuda.launches == before
+
+
+# The GRU BPTT's pipe kernel (csrc/bigru_pipe.cu: the route of #6 and #8
+# above H=256, to 1024) at STREAM_WIDTHS and its blocks of more than four
+# consumer warps (640, 1024) x STREAM_BATCHES, float32 and bf16: both grids
+# on the route against the plain versions, bit-equal run to run, and
+# BiGRUFunction's / GRUFunction's gradients through the route; the card's
+# next plans at one shape; its plans that do not fit refused.
+GRU_PIPE_WIDTHS = STREAM_WIDTHS + (640, 1024)
+
+
+def _check_gru_bwd(cuda, shape, dtype, plans, kernel):
+    """The GRU BPTT, both grids (``bigru_bwd_cuda`` and ``gru_bwd_cuda`` in
+    each walk order), under each of ``plans`` on ``kernel``, bit-equal run
+    to run, against the plain versions (max-rel 1e-4 f32, 0.1 bf16)."""
+    args = _bwd_args(shape, dtype, cuda)
+    ref = gru_cuda.bigru_bwd_plain(*args)
+    bound = GRAD_REL if dtype == torch.float32 else 0.1
+    singles = ((False, args[0], args[2:6], ref[:2]),
+               (True, args[1], args[6:], ref[2:]))
+    for plan in plans:
+        kw = {} if plan is None else {"plan": plan}
+        before = gru_cuda.bigru_bwd_cuda.launches
+        got = gru_cuda.bigru_bwd_cuda(*args, **kw)
+        assert gru_cuda.bigru_bwd_cuda.launches == before + 1
+        assert gru_cuda.bigru_bwd_cuda.last_launch["kernel"] == kernel
+        again = gru_cuda.bigru_bwd_cuda(*args, **kw)
+        for a, a2, r in zip(got, again, ref):
+            assert torch.equal(a, a2), plan
+            assert a.dtype == r.dtype and torch.isfinite(a).all()
+            assert _max_rel(a.float(), r.float()) <= bound, plan
+        for rev, w, streams, r in singles:
+            got = gru_cuda.gru_bwd_cuda(w, *streams, rev, **kw)
+            assert gru_cuda.gru_bwd_cuda.last_launch["kernel"] == kernel
+            again = gru_cuda.gru_bwd_cuda(w, *streams, rev, **kw)
+            for a, a2, b in zip(got, again, r):
+                assert torch.equal(a, a2), (plan, rev)
+                assert a.dtype == b.dtype and torch.isfinite(a).all()
+                assert _max_rel(a.float(), b.float()) <= bound, (plan, rev)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("H", GRU_PIPE_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_pipe_kernels_match_plain(cuda, H, dtype):
+    assert gru_cuda.gru_bwd_kernel_route(H, 2, dtype) == "pipe"
+    assert gru_cuda.gru_bwd_kernel_route(H, 1, dtype) == "pipe"
+    bound = GRAD_REL if dtype == torch.float32 else 0.1
+    for B in STREAM_BATCHES:
+        shape = (B, STREAM_N, H)
+        _check_gru_bwd(cuda, shape, dtype, [None], "pipe")
+        ins = _gru_inputs(*shape, dtype, cuda)
+        g = torch.Generator(cuda).manual_seed(4)
+        dys = [torch.randn(B, STREAM_N, H, device=cuda, generator=g
+                           ).to(dtype) for _ in range(2)]
+        x = [t.clone().requires_grad_(True) for t in ins]
+        grads = torch.autograd.grad(gru_cuda.bigru_recurrence(*x), x, dys)
+        assert gru_cuda.bigru_bwd_cuda.last_launch["kernel"] == "pipe"
+        ref = torch.autograd.grad(gru_cuda.bigru_fwd_plain(*x), x, dys)
+        for name, a, r in zip(("dxg_f", "dxg_b", "dW_f", "db_f", "dW_b",
+                               "db_b"), grads, ref):
+            assert a.dtype == r.dtype and torch.isfinite(a).all(), name
+            assert _max_rel(a.float(), r.float()) <= bound, (B, name)
+        for rev in (False, True):
+            x = [t.clone().requires_grad_(True)
+                 for t in (ins[0], ins[2], ins[3])]
+            got = torch.autograd.grad(
+                gru_cuda.gru_recurrence_kernel(*x, rev), x, dys[0])
+            assert gru_cuda.gru_bwd_cuda.last_launch["kernel"] == "pipe"
+            ref = torch.autograd.grad(gru_cuda.gru_recurrence(*x, rev), x,
+                                      dys[0])
+            for name, a, r in zip(("dxg", "dW_hh", "db_hh"), got, ref):
+                assert a.dtype == r.dtype and torch.isfinite(a).all(), name
+                assert _max_rel(a.float(), r.float()) <= bound, (B, name,
+                                                                 rev)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_pipe_next_plans_match_plain(cuda, dtype):
+    """Both grids under the card's next three pipe plans at (5, 9, 512)
+    (the first is the route's), and the first stream design, forced,
+    beside them."""
+    B, H = 5, 512
+    plans = [("pipe", *p) for p in
+             gru_cuda.card_gru_pipe_plans(B, H, cuda, dtype, 2)[1:4]]
+    assert plans
+    _check_gru_bwd(cuda, (B, STREAM_N, H), dtype, plans, "pipe")
+    first = ("stream", *gru_cuda.card_stream_plans("bwd", B, H, cuda, dtype,
+                                                   False, 2)[0])
+    _check_gru_bwd(cuda, (B, STREAM_N, H), dtype, [first], "stream")
+
+
+def test_gru_pipe_plans_that_do_not_fit_raise(cuda):
+    """A pipe plan over 16 blocks, with a tile it has not, whose block
+    holds more cells than its threads, or above H=1024 is refused before
+    any launch; the forwards have no pipe kernel."""
+    args = _bwd_args((5, 4, 512), torch.float32, cuda)
+    before = (gru_cuda.bigru_bwd_cuda.launches,
+              gru_cuda.gru_bwd_cuda.launches)
+    for bad in (("pipe", 17, 4), ("pipe", 16, 6), ("pipe", 1, 16)):
+        with pytest.raises(ValueError, match=f"plan {bad[1]}x{bad[2]} does "
+                                             "not fit"):
+            gru_cuda.bigru_bwd_cuda(*args, plan=bad)
+        with pytest.raises(ValueError, match="does not fit"):
+            gru_cuda.gru_bwd_cuda(args[0], *args[2:6], plan=bad)
+    wide = _bwd_args((2, 3, 1032), torch.float32, cuda)
+    with pytest.raises(ValueError, match="does not fit H=1032"):
+        gru_cuda.bigru_bwd_cuda(*wide, plan=("pipe", 16, 1))
+    ins = _gru_inputs(5, 4, 512, torch.float32, cuda)
+    with pytest.raises(ValueError, match="no pipe kernel"):
+        gru_cuda.bigru_fwd_cuda(*ins, plan=("pipe", 16, 4))
+    with pytest.raises(ValueError, match="no pipe kernel"):
+        gru_cuda.gru_fwd_cuda(ins[0], ins[2], ins[3], plan=("pipe", 16, 4))
+    assert (gru_cuda.bigru_bwd_cuda.launches,
+            gru_cuda.gru_bwd_cuda.launches) == before
 
 
 def _gru_stream_plan(kind, B, H, cuda, dtype, dirs, save=False):

@@ -168,6 +168,8 @@ def fake_card(monkeypatch):
                         lambda *a: ("bigru_fwd", _clusters))
     monkeypatch.setattr(gru_cuda, "_stream_resident",
                         lambda kind, *a: (f"bigru_{kind}", _stream_clusters))
+    monkeypatch.setattr(gru_cuda, "_pipe_resident",
+                        lambda *a: ("bigru_pipe", _stream_clusters))
     monkeypatch.setattr(rnn_cuda, "_cluster_resident",
                         lambda *a: _reg_clusters if "reg" in a
                         else _stream_clusters if "stream" in a or "pipe" in a
@@ -548,15 +550,18 @@ def test_tc_route_takes_bf16_two_directions(route):
     its route whatever the dtype; an H no tensor-core plan takes (not a
     multiple of 16, above 256, or no 8-unit warps at C = 4 and 8) keeps
     the cluster kernel, or the stream kernel where no cluster plan fits
-    either (H=512)."""
+    either (H=512); the BPTT above H=256 takes the pipe kernel (H=264,
+    where a cluster plan fits, and 512)."""
     bf16 = torch.bfloat16
     assert route(256, 2, bf16) == route(128, 2, bf16) == "tc"
     assert route(64, 2, bf16) == route(32, 2, bf16) == "unit"
     assert route(256, 2) == route(256, 2, torch.float32) == "cluster"
     assert route(64, 1, bf16) == "unit" and route(256, 1, bf16) == "cluster"
-    for hidden in (72, 88, 264):
+    fwd = route is gru_fwd_kernel_route
+    for hidden in (72, 88):
         assert route(hidden, 2, bf16) == "cluster", hidden
-    assert route(512, 2, bf16) == "stream"
+    assert route(264, 2, bf16) == ("cluster" if fwd else "pipe")
+    assert route(512, 2, bf16) == ("stream" if fwd else "pipe")
 
 
 @pytest.mark.parametrize("kind", ["fwd", "bwd"])
@@ -1128,9 +1133,9 @@ def test_every_width_to_1024_has_a_route(family):
     """Every H from 1 to 1024 (d_model 2048), forward and BPTT, one and two
     directions, float32 and bf16, gets a route on the H100's counts; up to
     H=256 every pick of before stays but the BiGRU's at H <= 64 (now the
-    unit kernel), and above it every width a cluster plan took keeps it;
-    the stream route (the LSTM BPTT's: the pipe route) has a plan in each
-    direction count and dtype."""
+    unit kernel), and above it every width a cluster plan took keeps it
+    but the GRU BPTT's; the stream route (the BPTTs': the pipe route) has
+    a plan in each direction count and dtype."""
     for hidden in range(1, 1025):
         for kind in ("fwd", "bwd"):
             if family == "lstm":
@@ -1163,6 +1168,12 @@ def test_every_width_to_1024_has_a_route(family):
                     before = _before_gru_route(kind, hidden, dirs, dtype)
                     if hidden <= 64:
                         assert route == "unit", (kind, hidden)
+                    elif kind == "bwd" and hidden > 256:
+                        assert route == "pipe", (hidden, dtype, dirs)
+                        if hidden % 61 == 0:
+                            assert rnn_cuda.pipe_plans(
+                                32, hidden, _stream_clusters, dirs,
+                                dtype.itemsize, 3), hidden
                     elif before != "cluster" or hidden <= 256 or \
                             _before_bigru_plans(kind, 32, hidden, _clusters,
                                                 dirs):
@@ -1287,7 +1298,7 @@ def test_stream_entries_launch_and_record(fake_card, name):
     cluster plan of the GRU fits either) launches ``<name>_stream_<dtype>``
     with its pointers, then B, N, H, C, R (and a one-direction grid's
     reverse flag), the stream planner's plan for its direction count and
-    dtype (the LSTM BPTT's, whose route is the pipe kernel, forced), and
+    dtype (the BPTTs', whose route is the pipe kernel, forced), and
     records it; the count rises by one a launch; a forced ("stream", C, R)
     is taken, one that does not fit refused before any launch."""
     lstm = name in _STREAM_LSTM
@@ -1304,7 +1315,7 @@ def test_stream_entries_launch_and_record(fake_card, name):
         fn = getattr(rnn_cuda if lstm else gru_cuda, f"{name}_cuda")
         before = fn.launches
         call(name, B, 1, H, dtype, plan=("stream", *want)
-             if source == "bilstm_bwd" else None)
+             if source in ("bilstm_bwd", "bigru_bwd") else None)
         assert fn.launches == before + 1
         called, args = fake_card.calls[-1]
         assert called == f"{name}_stream_{sfx}"
@@ -1545,4 +1556,193 @@ def test_pipe_entries_launch_and_record(fake_card, name, dtype):
             _reg_call(name, 9, 3, 512, dtype, plan=bad)
     with pytest.raises(ValueError, match="no pipe kernel"):
         _reg_call("bilstm_fwd", 9, 3, 512, dtype, plan=("pipe", 16, 4))
+    assert len(fake_card.calls) == n
+
+
+# ---------------------------------------------------------------------------
+# The GRU BPTT's pipe kernel (bigru_bwd_pipe_kernel, csrc/bigru_pipe.cu: #6
+# and #8 above H=256, to 1024): its route, plan rule and layout mirror (three
+# gates), the planner on the card's counts, the packed W_hh, and the
+# launches of both BPTT wrappers
+# ---------------------------------------------------------------------------
+
+def test_gru_pipe_route_takes_the_bptt_above_the_cluster_kernels():
+    """Every GRU BPTT width from 257 to 1024, one and two directions,
+    float32 and bf16, takes the pipe kernel, the forwards keep theirs;
+    above 1024 the first stream design keeps the BPTT (to H=2421), past it
+    the route raises naming the width; no GRU pipe plan takes H=1025."""
+    for hidden in [*range(257, 1025, 7), 1024]:
+        for dtype in (torch.float32, torch.bfloat16):
+            for dirs in (1, 2):
+                assert gru_bwd_kernel_route(hidden, dirs, dtype) == "pipe"
+                assert gru_fwd_kernel_route(hidden, dirs, dtype) in (
+                    "cluster", "stream")
+    for hidden in (1025, 1816, 2421):
+        assert gru_bwd_kernel_route(hidden, 2) == "stream", hidden
+    with pytest.raises(ValueError, match="H=2422.*H100"):
+        gru_bwd_kernel_route(2422, 2)
+    assert rnn_cuda.pipe_takes(1024, 3) and not rnn_cuda.pipe_takes(1025, 3)
+    assert rnn_cuda.pipe_takes(1025)     # the LSTM's takes two k groups
+
+
+def _gru_pipe_source(hidden, c, rows, wbytes, max_h=1024, jc=12, cells=4):
+    """The source's ``bigru_bwd_pipe_layout`` written out again (``max_h``,
+    ``jc`` and ``cells`` vary its rule): (bytes, threads, units, chunks
+    there, held, of the slice) or -1s."""
+    hp = (hidden + 7) // 8 * 8
+    U = ((hidden + c - 1) // c + 3) // 4 * 4 if c > 0 else 0
+    warps = max(4, (hp // 4 + 31) // 32)
+    if not (hidden > 0 and 1 <= c <= 16 and hidden <= max_h
+            and rows in (1, 2, 4, 8, 12, 16) and (c - 1) * U < hidden
+            and U * rows <= cells * 32 * warps):
+        return (-1,) * 6
+    chunk, chunks = jc * hp * wbytes, 3 * U // jc
+    fixed = (2 * c * rows * U + 3 * U * rows) * 4 + 66 * 8
+    stages = 0 if fixed >= 232448 else min(chunks, 32,
+                                           (232448 - fixed) // chunk)
+    if stages < min(chunks, 2):
+        return (-1,) * 6
+    ring = 0 if stages >= chunks else min(stages, 4)
+    return (stages * chunk + fixed, 32 * (warps + 1), U, stages,
+            stages - ring, chunks)
+
+
+def test_gru_pipe_mirror_check_against_source_layout():
+    """``check_pipe_mirror(..., gates=3)`` accepts the GRU source's layout
+    query written out, and names the first plan where a source's rule or
+    layout differs: two k groups a thread (H to 2048), chunks of 6 gate
+    columns, two cells a thread, or the LSTM's four-gate layout."""
+    def query(**kw):
+        return lambda what, bf16, h, c, r: _gru_pipe_source(
+            h, c, r, 2 if bf16 else 4, **kw)[what]
+
+    rnn_cuda.check_pipe_mirror(query(), gates=3)
+    for kw, where in (({"max_h": 2048}, "H=1025, plan 1x1, f32"),
+                      ({"jc": 6}, "bigru_bwd_pipe.*H=1, plan 1x1, f32"),
+                      ({"cells": 2}, "H=64, plan 1x8, f32")):
+        with pytest.raises(RuntimeError, match=where):
+            rnn_cuda.check_pipe_mirror(query(**kw), gates=3)
+    with pytest.raises(RuntimeError, match="bigru_bwd_pipe.*H=1, plan 1x1"):
+        rnn_cuda.check_pipe_mirror(
+            lambda what, bf16, h, c, r: _pipe_source(
+                h, c, r, 2 if bf16 else 4)[what], gates=3)
+
+
+def test_gru_pipe_layout_holds_what_fits():
+    """At H=320 in f32 a cluster of 16 holds the whole slice (20 units, 3 x
+    20 x 320 floats = 75 KiB in 5 chunks of 12 gate columns); at H=512 in
+    f32 the 12-row plan holds 3 of its 8 chunks and streams 5 through the
+    ring of 4, in bf16 all 8; a thread sums one k group, so no plan takes
+    H=1025, where the LSTM's takes 8-row tiles."""
+    lay = rnn_cuda.pipe_layout
+    assert lay(320, 16, 12, 4, 3) == (5 * 15360 + 34128, 160, 20, 5, 5, 5)
+    assert 3 * 20 * 320 * 4 == 75 * 1024
+    assert lay(512, 16, 12, 4, 3) == (7 * 24576 + 54288, 160, 32, 7, 3, 8)
+    assert lay(512, 16, 12, 2, 3)[3:] == (8, 8, 8)
+    assert rnn_cuda.pipe_jc(320, 3) == rnn_cuda.pipe_jc(1024, 3) == 12
+    assert lay(1024, 16, 8, 4, 3)[1] == 288    # eight consumer warps
+    assert not rnn_cuda._pipe_rule(1025, 16, 8, 4, 3)
+    assert rnn_cuda._pipe_rule(1025, 16, 8, 4)
+    assert not rnn_cuda._pipe_rule(257, 16, 1, 4, 3)  # a block owns no unit
+    assert rnn_cuda._pipe_rule(257, 13, 1, 4, 3)
+
+
+def test_gru_pipe_plans_from_card_counts():
+    """At (32, 500, 512) f32 the two-direction BPTT takes 6 clusters of 16
+    blocks over 12-row tiles (the card holds 7), one direction 4 clusters
+    of 8 rows; B=1 one row; at H=320 clusters of 7 over 4-row tiles (16
+    clusters of 7 blocks: one wave); a plan the card runs none of is
+    dropped; every plan offered fits its rule and a block."""
+    def plan(B, H, resident=_stream_clusters, dirs=2, wbytes=4):
+        return rnn_cuda.pipe_plans(B, H, resident, dirs, wbytes, 3)
+
+    assert plan(32, 512)[0] == (16, 12)
+    assert plan(32, 512, dirs=1)[0] == (16, 8)
+    assert plan(1, 512)[0] == (16, 1)
+    assert plan(32, 320)[0] == (7, 4)
+    assert (16, 12) not in plan(
+        32, 512, lambda c, r: 0 if (c, r) == (16, 12) else 7)
+    assert not plan(32, 512, lambda c, r: 0)
+    for hidden in (257, 320, 512, 1000, 1024):
+        for batch in (1, 5, 32):
+            for wbytes in (4, 2):
+                got = plan(batch, hidden, wbytes=wbytes)
+                assert got, (hidden, batch, wbytes)
+                for c, rows in got:
+                    assert rnn_cuda._pipe_rule(hidden, c, rows, wbytes, 3)
+                    assert rnn_cuda.pipe_layout(
+                        hidden, c, rows, wbytes, 3)[0] \
+                        <= rnn_cuda.MAX_SMEM_BYTES
+
+
+def test_gru_pipe_weights_pack_each_blocks_slice():
+    """``pipe_weights`` lays the GRU's W_hh [H, 3H] out as [C, 3, U, HP]:
+    block q's row g * U + u is column g * H + q * U + u of W_hh over k,
+    zero past H in both; ``bwd_weights`` packs for the launch's cluster
+    size."""
+    H, C = 10, 3
+    w = torch.arange(H * 3 * H, dtype=torch.float32).reshape(H, 3 * H) + 1
+    U, HP = rnn_cuda.pipe_units(H, C), rnn_cuda.pipe_hp(H)
+    got = rnn_cuda.pipe_weights(w, C)
+    assert got.shape == (C, 3, U, HP) and got.is_contiguous()
+    for q in range(C):
+        for g in range(3):
+            for u in range(U):
+                unit = q * U + u
+                want = (w[:, g * H + unit] if unit < H
+                        else torch.zeros(H))
+                assert torch.equal(got[q, g, u, :H], want), (q, g, u)
+                assert not got[q, g, u, H:].any()
+    (packed,) = rnn_cuda.bwd_weights("pipe", [w], C)
+    assert torch.equal(packed, got)
+
+
+@pytest.mark.parametrize("name", ["bigru_bwd", "gru_bwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_pipe_entries_launch_and_record(fake_card, name, dtype):
+    """Both GRU BPTT wrappers at H=320 and 512 launch ``<name>_pipe_<dtype>``
+    with their pointers (W_hh packed for the plan's cluster), then B, N,
+    H, C, R (and a one-direction grid's reverse flag), the pipe planner's
+    plan (three gates) for the direction count and dtype, and record it;
+    the count rises by one a launch; a forced ("pipe", C, R) is taken;
+    ("stream", C, R) still reaches the first stream design; a pipe plan
+    that does not fit, and a pipe plan of a forward, are refused before
+    any launch."""
+    n_ptr, one_dir = _STREAM_GRU[name]
+    dirs = 1 if one_dir else 2
+    sfx = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    fn = getattr(gru_cuda, f"{name}_cuda")
+    for B, H in ((32, 320), (5, 512)):
+        want = rnn_cuda.pipe_plans(B, H, _stream_clusters, dirs,
+                                   dtype.itemsize, 3)[0]
+        before = fn.launches
+        _gru_call(name, B, 3, H, dtype)
+        assert fn.launches == before + 1
+        called, args = fake_card.calls[-1]
+        assert called == f"{name}_pipe_{sfx}"
+        assert len(args) == n_ptr + 5 + int(one_dir)
+        assert args[n_ptr:n_ptr + 5] == (B, 3, H, *want)
+        if one_dir:
+            assert args[-1] == 1
+        assert fn.last_launch == {
+            "kernel": "pipe", "cluster": want[0], "rows": want[1],
+            "clusters": dirs * -(-B // want[1]),
+            "resident": _stream_clusters(*want)}
+    _gru_call(name, 9, 3, 512, dtype, plan=("pipe", 8, 4))
+    assert fake_card.calls[-1][0] == f"{name}_pipe_{sfx}"
+    assert fake_card.calls[-1][1][n_ptr:n_ptr + 5] == (9, 3, 512, 8, 4)
+    assert fn.last_launch["clusters"] == dirs * 3
+    _gru_call(name, 9, 3, 512, dtype, plan=("stream", 12, 8))
+    assert fake_card.calls[-1][0] == f"{name}_stream_{sfx}"
+    assert fn.last_launch["kernel"] == "stream"
+    n = len(fake_card.calls)
+    for bad in (("pipe", 17, 4), ("pipe", 16, 6), ("pipe", 1, 16)):
+        with pytest.raises(ValueError,
+                           match=f"plan {bad[1]}x{bad[2]} does not fit"):
+            _gru_call(name, 9, 3, 512, dtype, plan=bad)
+    with pytest.raises(ValueError, match="does not fit H=1032"):
+        _gru_call(name, 2, 3, 1032, dtype, plan=("pipe", 16, 1))
+    fwd = "bigru_fwd" if name == "bigru_bwd" else "gru_fwd"
+    with pytest.raises(ValueError, match="no pipe kernel"):
+        _gru_call(fwd, 9, 3, 512, dtype, plan=("pipe", 16, 4))
     assert len(fake_card.calls) == n
