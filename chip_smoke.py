@@ -11,8 +11,9 @@ Phases, one line each or more (a failed check raises; nothing is caught):
    all started together (registers and spills from ``-Xptxas -v``); the
    BiGRU tensor-core kernels, the fused kind (#9), the GRU and LSTM BPTT
    unit kernels, the LSTM register cluster kernels, the stream kernels
-   and the pipe kernels (``csrc/bilstm_pipe.cu``, ``csrc/bigru_pipe.cu``)
-   by name, the
+   and the pipe kernels (``csrc/bilstm_pipe.cu``, ``csrc/bigru_pipe.cu``,
+   and the forwards' ``csrc/bilstm_fwd_pipe.cu``, ``csrc/bigru_fwd_pipe.cu``,
+   asserted free of spills) by name, the
    tensor-core kernels, #9's bf16 kind and the LSTM BPTT unit kernels
    asserted free of spills; the native trace parser
    (``room_slam_torch/native/trace_parser.cc``, g++) into ``build/native``;
@@ -243,29 +244,32 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     beside bf16 ``nn.GRU`` (PyTorch's own step loop) and cuDNN in fp16;
     one train step and one served request card vs CPU, each launch on the
     unit kernels (asserted), then the step p50 and the request p50 on the
-    unit kernels and with the first cluster design forced; (b) the stream
-    kernels (W_hh read from global memory every step, clusters of up to 16
-    blocks: every forward width above the cluster kernels'; the LSTM and
-    GRU BPTTs' there: the pipe kernels, the GRU's to H=1024) at
-    ``STREAM_WIDTHS`` x ``STREAM_BATCHES``, f32 and bf16, two directions
-    and one, the twelve LSTM and GRU wrappers against their plain versions
-    (the GRU forwards' stream plan forced where a cluster plan takes H),
-    the BPTT bit-equal run to run, the pipe kernels' wider instance
-    families at ``PIPE_WIDTHS``, the GRU's under the card's first
-    ``GRU_PIPE_PLANS`` plans, the first stream BPTTs forced at
-    ``STREAM_OLD``, and their timing at ``STREAM_TIME`` beside the bound
-    and cuDNN (read before and after the kernels; the pipe kernels beside
-    the first stream design forced, in turns, asserted faster, at H=320
-    the GRU's also beside kLinear's cluster kernel, and beside the card's
-    next pipe plans), the BPTTs so also at ``PIPE_TIME`` (the GRU's at
-    1024); (c) their main paths: the lstm at d_model ``STREAM_LSTM_D``
-    (H=512), a forward against the plain recurrence and one train step
-    card vs CPU at ``STREAM_STEP``'s B and N (cut from the config's 20 and
-    1500), its step p50 at ``STREAM_STEP_TIME`` (bench.py's B and N) with
-    the BPTT on the pipe kernel and on the first stream design, in turns,
+    unit kernels and with the first cluster design forced; (b) the pipe
+    kernels above the cluster kernels' widths (the forwards' to H=1816 for
+    the LSTM, 1024 for the GRU; the LSTM and GRU BPTTs', the GRU's to
+    H=1024; the first stream designs, W_hh read from global memory every
+    step, stay for the widths above and for the A/B) at ``STREAM_WIDTHS``
+    x ``STREAM_BATCHES``, f32 and bf16, two directions and one, the twelve
+    LSTM and GRU wrappers on their route against their plain versions,
+    bit-equal run to run, the pipe kernels' wider instance families at
+    ``PIPE_WIDTHS`` (on the route or forced where it stops), the forwards
+    under the card's first ``FWD_PIPE_PLANS`` forward pipe plans and the
+    GRU BPTT under its first ``GRU_PIPE_PLANS``, the first stream designs
+    forced at ``STREAM_OLD``, and their timing at ``STREAM_TIME`` beside
+    the bound and cuDNN (read before and after the kernels; the pipe
+    kernels beside the first stream design forced, in turns, asserted
+    faster, at H=320 the GRU's also beside its first cluster design
+    (kLinear's for the BPTT) at its pick, and beside the card's next pipe
+    plans), all twelve also at ``PIPE_TIME`` (the GRU's at 1024); (c)
+    their main paths: the lstm at d_model ``STREAM_LSTM_D`` (H=512), a
+    forward against the plain recurrence and one train step card vs CPU at
+    ``STREAM_STEP``'s B and N (cut from the config's 20 and 1500), its step
+    p50 at ``STREAM_STEP_TIME`` (bench.py's B and N) and its served
+    forward's p50 at ``STREAM_SERVE`` with the forwards on the pipe kernel
+    and on the first stream design, in turns (the BPTT on its pipe route),
     the ops-level ``lstm_recurrence`` / ``gru_recurrence(use_kernel=True)``
     and a bigru at d_model ``STREAM_LSTM_D``, one forward and one train
-    step, then its step p50 as the lstm's.
+    step, then its step p50 and served forward's p50 as the lstm's.
 
 Phases 10 (and 37's step), 16, 34 and 39's steps pin
 ``train.matmul_precision`` to float32: they compare two float32
@@ -412,16 +416,17 @@ WIDE_GRU = (8, 300, 139)          # the masked BiGRU / GRU paths
 # phase 40: the bigru model's defaults on the unit kernels (#5 / #5t / #6
 # timed at BIGRU_TIME f32 beside the first cluster design, the bf16 tc
 # kernels against the unit kernels at BIGRU_BF16; the CLI's default step
-# and request on BIGRU_ROOMS seeded rooms), and the stream kernels above
-# the cluster kernels' widths, the LSTM and GRU BPTTs' the pipe kernels
-# (checked at STREAM_WIDTHS x STREAM_BATCHES, N=STREAM_N, the first stream
-# BPTTs forced at STREAM_OLD; timed at STREAM_TIME, the pipe kernels beside
-# the first stream design, cuDNN before and after the kernels; the lstm and
-# bigru at d_model STREAM_LSTM_D, one step card vs CPU at STREAM_STEP's B,
-# N, cut from 20, 1500 for the CPU's step; the lstm's and the bigru's step
-# p50 at bench.py's B, N = STREAM_STEP_TIME over STREAM_STEPS after
-# STREAM_WARMUP on STREAM_ROOMS rooms, pipe and first stream BPTT in
-# turns)
+# and request on BIGRU_ROOMS seeded rooms), and the pipe kernels above
+# the cluster kernels' widths, forwards and BPTTs (checked at STREAM_WIDTHS
+# x STREAM_BATCHES, N=STREAM_N, the first stream designs forced at
+# STREAM_OLD; timed at STREAM_TIME beside the first stream design, cuDNN
+# before and after the kernels; the lstm and bigru at d_model
+# STREAM_LSTM_D, one step card vs CPU at STREAM_STEP's B, N, cut from 20,
+# 1500 for the CPU's step; the lstm's and the bigru's step p50 at
+# bench.py's B, N = STREAM_STEP_TIME over STREAM_STEPS after STREAM_WARMUP
+# on STREAM_ROOMS rooms, and their served forward's p50 at STREAM_SERVE
+# over STREAM_SERVE_CALLS after STREAM_WARMUP, the forwards on the pipe
+# kernel and on the first stream design in turns)
 BIGRU_TIME = ((20, 1500, 64), (1, 1500, 64))
 BIGRU_BF16 = (20, 1500, 64)
 BIGRU_ROOMS = 8
@@ -448,12 +453,17 @@ PIPE_SWEEP = 4
 # and the PIPE_TIME it takes (1024) beside the first stream design (at
 # H=320 also beside kLinear's cluster kernel)
 GRU_PIPE_PLANS = 3
+# the forwards' pipe kernels are also checked under the card's first
+# FWD_PIPE_PLANS forward pipe plans at STREAM_OLD
+FWD_PIPE_PLANS = 3
 STREAM_OLD = (5, 512)
 STREAM_LSTM_D = 1024
 STREAM_STEP = (8, 300)
 STREAM_STEP_TIME = (32, 500)
 STREAM_STEPS, STREAM_WARMUP = 10, 3
 STREAM_ROOMS = 8
+STREAM_SERVE = (1, 1500)       # a served request's forward: B, N
+STREAM_SERVE_CALLS = 10
 FUSED_SHAPES = (((3, 53, 16, 24), torch.float32),
                 ((2, 40, 16, 16), torch.bfloat16),
                 ((16, 1000, 256, 512), torch.bfloat16),
@@ -462,9 +472,10 @@ LSTM_BF16_SHAPES = LSTM_SHAPES   # bf16 BiLSTM kernel checks
 # phases 35-37: the serving path's options, #1 at the test-time view
 # batches, hole tokens
 RECIPE_REQUESTS = 5                       # requests checked card vs CPU
-# requests timed per recipe (25: 50 before phase 39 was added, cut to keep
-# the whole run near half its time limit)
-RECIPE_WINDOW, RECIPE_WARMUP = 25, 5
+# requests timed per recipe (15: 50 before phase 39 was added, 25 before
+# the forward pipe kernels' timing joined phase 40, cut to keep the whole
+# run inside its time limit on a slow host)
+RECIPE_WINDOW, RECIPE_WARMUP = 15, 5
 GATE_TAU = 0.448                          # the adopted auto gates' tau
 QSCORE_WEIGHTS = REPO / "results" / "r5_qscore_multi.json"
 TTA_SHAPES = ((4, 1500, 64), (8, 1500, 64), (24, 1500, 64))
@@ -525,16 +536,21 @@ USAGE_KERNELS = {
         "bilstm_bwd_stream": ("bilstm_bwd_cluster_kernel", "Lb1EE")},
     "bilstm_pipe": {"bilstm_bwd_pipe": ("bilstm_bwd_pipe_kernel",)},
     "bigru_pipe": {"bigru_bwd_pipe": ("bigru_bwd_pipe_kernel",)},
+    "bilstm_fwd_pipe": {"bilstm_fwd_pipe": ("bilstm_fwd_pipe_kernel",)},
+    "bigru_fwd_pipe": {"bigru_fwd_pipe": ("bigru_fwd_pipe_kernel",)},
     "bilstm_fwd": {"bilstm_fwd_reg": ("bilstm_fwd_reg_kernel",),
                    "bilstm_fwd_stream": ("bilstm_fwd_cluster_kernel",
                                          "Lb1EE")}}
 # the kernels that must spill nothing: the tensor-core BiGRU kernels (W_hh
 # fragments and an input ring in registers), #9's bf16 kind (its products
-# on tensor cores) and the LSTM BPTT unit kernels (W_hh and an 8-step input
-# ring in registers). The LSTM register cluster kernels are reported, not
-# held: at two blocks an SM (128 registers) their 8-row tiles spill.
+# on tensor cores), the LSTM BPTT unit kernels (W_hh and an 8-step input
+# ring in registers) and the forward pipe kernels (every instance: their
+# accumulators in registers). The LSTM register cluster kernels are
+# reported, not held: at two blocks an SM (128 registers) their 8-row
+# tiles spill.
 NO_SPILL = ("bigru_fwd_tc", "bigru_bwd_tc", "bigru_bwd_fused_bf16",
-            "bilstm_bwd_unit_f32", "bilstm_bwd_unit_bf16")
+            "bilstm_bwd_unit_f32", "bilstm_bwd_unit_bf16", "bilstm_fwd_pipe",
+            "bigru_fwd_pipe")
 
 
 def check_usage(lib: str, usage):
@@ -2829,12 +2845,14 @@ def _lstm_bwd_case(ins, dtype, seed):
 
 
 def _lstm_cluster_case(H, B, dtype, dev, seed, kernel, plan_of=None,
-                       n=CLUSTER_N, bwd_kernel=None):
-    """The six LSTM kernels at (B, ``n``, H) in ``dtype`` against their
-    plain versions (f32 max abs err ``KERNEL_ATOL`` on values,
-    ``GRAD_REL`` on dg; bf16 rtol / atol and ``BF16_GRAD_REL``), each
-    launch's kernel asserted ``kernel`` (the BPTT's ``bwd_kernel``, by
-    default the same), the BPTT bit-equal on a second launch;
+                       n=CLUSTER_N, bwd_kernel=None, fwd_again=False,
+                       bwd=True):
+    """The six LSTM kernels at (B, ``n``, H) in ``dtype`` (``bwd`` False:
+    the four forwards) against their plain versions (f32 max abs err
+    ``KERNEL_ATOL`` on values, ``GRAD_REL`` on dg; bf16 rtol / atol and
+    ``BF16_GRAD_REL``), each launch's kernel asserted ``kernel`` (the
+    BPTT's ``bwd_kernel``, by default the same), the BPTT (and with
+    ``fwd_again`` the forwards) bit-equal on a second launch;
     ``plan_of(kind, save, dirs)`` forces a plan. Returns the values' and
     dg's worst errors and the plans."""
     xg_f, xg_b, w_f, w_b = kernel_inputs(B, n, H, dev, seed)
@@ -2859,8 +2877,15 @@ def _lstm_cluster_case(H, B, dtype, dev, seed, kernel, plan_of=None,
         got = fn(*a, **kw("fwd", save, dirs))
         got = got if isinstance(got, tuple) else (got,)
         assert fn.last_launch["kernel"] == kernel, (name, fn.last_launch)
+        if fwd_again:
+            again = fn(*a, **kw("fwd", save, dirs))
+            again = again if isinstance(again, tuple) else (again,)
+            assert all(torch.equal(x, y) for x, y in zip(got, again)), name
         errs.append(value_err(got, ref, dtype))
         plans.append(f"{name} {plan_text(fn)}")
+    if not bwd:
+        torch.cuda.synchronize()
+        return max(errs), 0.0, plans
     args = _lstm_bwd_case(ins, dtype, seed + 1)
     ref = rnn_cuda.bilstm_bwd_plain(*args)
     tol = GRAD_REL if dtype == torch.float32 else BF16_GRAD_REL
@@ -3602,19 +3627,19 @@ def bigru_default_path(dev, seed, smi):
 
 
 def _gru_stream_case(H, B, N, dtype, dev, seed, bwd_plan=None,
-                     bwd_only=False):
+                     bwd_only=False, fwd_plan=None, fwd_only=False):
     """The six GRU wrappers at (B, N, H) in ``dtype`` (``bwd_only``: the two
-    BPTT ones) against their plain versions (bounds as phase 31), the BPTT
-    bit-equal run to run: the forwards on the stream kernel (the route, or
-    its card's first plan forced where a cluster plan takes H), the BPTTs on
-    their route, the pipe kernel, or on the plan ``bwd_plan(dirs)``
-    forces. Returns the values' and the BPTT's worst errors and the
-    plans."""
+    BPTT ones; ``fwd_only``: the four forwards) against their plain
+    versions (bounds as phase 31), bit-equal run to run: the forwards on
+    their route, the forward pipe kernel, or on the plan ``fwd_plan(kind,
+    save, dirs)`` forces, the BPTTs on their route, the pipe kernel, or on
+    the plan ``bwd_plan(dirs)`` forces. Returns the values' and the BPTT's
+    worst errors and the plans."""
     ins = gru_inputs(B, N, H, dtype, dev, seed)
     args = gru_bwd_inputs(ins, seed + 1)
     ref_b = gru_cuda.bigru_bwd_plain(*args)
     tol = GRAD_REL if dtype == torch.float32 else BF16_GRAD_REL
-    plans, errs, rels = [], [0.0], []
+    plans, errs, rels = [], [0.0], [0.0]
     for name, fn, a, ref, kind, dirs, save in (
             ("bigru_fwd", gru_cuda.bigru_fwd_cuda, ins,
              gru_cuda.bigru_fwd_plain(*ins), "fwd", 2, False),
@@ -3631,25 +3656,23 @@ def _gru_stream_case(H, B, N, dtype, dev, seed, bwd_plan=None,
              True),
             ("gru_bwd", gru_cuda.gru_bwd_cuda, (args[1], *args[6:], True),
              ref_b[2:], "bwd", 1, False)):
-        if bwd_only and kind != "bwd":
+        if (bwd_only and kind != "bwd") or (fwd_only and kind == "bwd"):
             continue
         route = (gru_cuda.gru_fwd_kernel_route if kind == "fwd"
                  else gru_cuda.gru_bwd_kernel_route)(H, dirs, dtype)
         if kind == "bwd":
             forced = None if bwd_plan is None else bwd_plan(dirs)
-            want = route if forced is None else forced[0]
         else:
-            forced = None if route == "stream" else (
-                "stream", *gru_cuda.card_stream_plans(kind, B, H, dev, dtype,
-                                                      save, dirs)[0])
-            want = "stream"
+            forced = None if fwd_plan is None else fwd_plan(kind, save, dirs)
+        want = route if forced is None else forced[0]
         kw = {} if forced is None else {"plan": forced}
         got = fn(*a, **kw)
         got = got if isinstance(got, tuple) else (got,)
         assert fn.last_launch["kernel"] == want, (name, fn.last_launch)
+        again = fn(*a, **kw)
+        again = again if isinstance(again, tuple) else (again,)
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), name
         if kind == "bwd":
-            again = fn(*a, **kw)
-            assert all(torch.equal(x, y) for x, y in zip(got, again)), name
             rels += [max_rel(x.float(), y.float()) for x, y in zip(got, ref)]
             assert all(torch.isfinite(x).all() for x in got)
         else:
@@ -3661,33 +3684,64 @@ def _gru_stream_case(H, B, N, dtype, dev, seed, bwd_plan=None,
     return max(errs), max(rels), plans
 
 
+def _fwd_pipe_or_route(fam, B, H, dev, dtype, i=None):
+    """``plan_of(kind, save, dirs)`` for the forwards of family ``fam``:
+    the route where it is the pipe kernel (``i`` None) or where no forward
+    pipe plan takes H (above 1920: the first stream design's), else the
+    card's ``i``-th forward pipe plan (the first by default), forced; None
+    for the BPTT (its route)."""
+    def plan_of(kind, save, dirs):
+        if kind == "bwd" or not rnn_cuda.fwd_pipe_takes(H):
+            return None
+        route = (rnn_cuda.lstm_fwd_kernel_route(H) if fam == "lstm" else
+                 gru_cuda.gru_fwd_kernel_route(H, dirs, dtype))
+        if route == "pipe" and i is None:
+            return None
+        found = (rnn_cuda.card_lstm_fwd_pipe_plans if fam == "lstm" else
+                 gru_cuda.card_gru_fwd_pipe_plans)(B, H, dev, dtype, save,
+                                                   dirs)
+        return ("pipe", *found[min(i or 0, len(found) - 1)])
+    return plan_of
+
+
 def check_stream_route(dev, seed):
-    """Phase 40 (b): the stream kernels at ``STREAM_WIDTHS`` x
+    """Phase 40 (b): the pipe kernels at ``STREAM_WIDTHS`` x
     ``STREAM_BATCHES``, N=``STREAM_N``, float32 and bf16, two directions
-    and one: the LSTM's six wrappers on their route (asserted "stream", the
-    BPTT's "pipe", ``_lstm_cluster_case``), the GRU's six (the BPTT's
-    "pipe", ``_gru_stream_case``), against the plain versions, the BPTT
-    bit-equal run to run; the LSTM's six so at ``PIPE_WIDTHS`` x
-    ``PIPE_BATCHES`` (the BPTT on the pipe kernel's wider instances: the
-    route, or its card's first plan forced where the route stops), the
-    GRU's at those the GRU pipe kernel takes (to 1024); the GRU BPTT under
-    the card's first ``GRU_PIPE_PLANS`` pipe plans at ``STREAM_OLD``; then
-    the first stream BPTTs (and the LSTM forwards), forced at their card's
-    first plan, at ``STREAM_OLD``'s B and H in both types."""
+    and one: the LSTM's six wrappers on their route (asserted "pipe",
+    ``_lstm_cluster_case``), the GRU's six (``_gru_stream_case``; at the
+    cluster kernel's widths the forwards' pipe plan forced where the route
+    is not the pipe kernel), against the plain versions, bit-equal run to
+    run; the LSTM's six so at ``PIPE_WIDTHS`` x ``PIPE_BATCHES`` (the pipe
+    kernels' wider instances: the route, or its card's first plan forced
+    where the route stops; the forwards above 1920, where no forward pipe
+    plan fits, on their route, the first stream design), the GRU's six at
+    those its BPTT's pipe kernel takes (to 1024) and its four forwards,
+    forced, at the others the forward pipe kernel takes; the
+    forwards under the card's first ``FWD_PIPE_PLANS`` forward pipe plans
+    and the GRU BPTT under its first ``GRU_PIPE_PLANS`` pipe plans at
+    ``STREAM_OLD``; then the first stream designs, all twelve wrappers
+    forced at their card's first plan, at ``STREAM_OLD``'s B and H in both
+    types."""
     worst = {}
+
+    def note(key, err, rel):
+        w = worst.setdefault(key, [0.0, 0.0])
+        w[0], w[1] = max(w[0], err), max(w[1], rel)
+
     for H in STREAM_WIDTHS:
         for B in STREAM_BATCHES:
             for dtype in (torch.float32, torch.bfloat16):
                 key = str(dtype)[6:]
                 for fam, case in (
                         ("lstm", lambda: _lstm_cluster_case(
-                            H, B, dtype, dev, seed, "stream", n=STREAM_N,
-                            bwd_kernel="pipe")),
+                            H, B, dtype, dev, seed, "pipe", n=STREAM_N,
+                            fwd_again=True)),
                         ("gru", lambda: _gru_stream_case(
-                            H, B, STREAM_N, dtype, dev, seed))):
+                            H, B, STREAM_N, dtype, dev, seed,
+                            fwd_plan=_fwd_pipe_or_route("gru", B, H, dev,
+                                                        dtype)))):
                     err, rel, plans = case()
-                    w = worst.setdefault(f"{fam}_{key}", [0.0, 0.0])
-                    w[0], w[1] = max(w[0], err), max(w[1], rel)
+                    note(f"{fam}_{key}", err, rel)
                     log("stream_check", f"{fam} B,N,H=({B}, {STREAM_N}, {H}"
                         f") {key}: values max_abs_err={err:.3e}, BPTT "
                         f"max_rel_err={rel:.3e}, bit-equal run to run; "
@@ -3699,35 +3753,52 @@ def check_stream_route(dev, seed):
             routed = False
         for B in PIPE_BATCHES:
             for dtype in (torch.float32, torch.bfloat16):
+                fwd = _fwd_pipe_or_route("lstm", B, H, dev, dtype)
+
                 def pick(kind, save, dirs):
                     # the route, or past it the card's first pipe plan
-                    return (None if kind == "fwd" or routed else
+                    if kind == "fwd":
+                        return fwd(kind, save, dirs)
+                    return (None if routed else
                             ("pipe", *rnn_cuda.card_lstm_pipe_plans(
                                 B, H, dev, dtype, dirs)[0]))
                 err, rel, plans = _lstm_cluster_case(
-                    H, B, dtype, dev, seed, "stream", pick, n=STREAM_N,
-                    bwd_kernel="pipe")
-                w = worst.setdefault(f"lstm_pipe_{str(dtype)[6:]}",
-                                     [0.0, 0.0])
-                w[0], w[1] = max(w[0], err), max(w[1], rel)
-                log("stream_check", f"pipe kernel "
-                    f"({'the route' if routed else 'forced'}): lstm B,N,H=("
+                    H, B, dtype, dev, seed,
+                    "pipe" if rnn_cuda.fwd_pipe_takes(H) else "stream", pick,
+                    n=STREAM_N, bwd_kernel="pipe", fwd_again=True)
+                note(f"lstm_pipe_{str(dtype)[6:]}", err, rel)
+                log("stream_check", f"pipe kernels: lstm B,N,H=("
                     f"{B}, {STREAM_N}, {H}) {str(dtype)[6:]}: values "
                     f"max_abs_err={err:.3e}, BPTT max_rel_err={rel:.3e}, "
                     "bit-equal run to run; " + "; ".join(plans))
-                if gru_cuda.gru_bwd_kernel_route(H, 2, dtype) != "pipe":
+                bwd = gru_cuda.gru_bwd_kernel_route(H, 2, dtype) == "pipe"
+                if not (bwd or rnn_cuda.fwd_pipe_takes(H)):
                     continue
-                err, rel, plans = _gru_stream_case(H, B, STREAM_N, dtype,
-                                                   dev, seed)
-                w = worst.setdefault(f"gru_pipe_{str(dtype)[6:]}",
-                                     [0.0, 0.0])
-                w[0], w[1] = max(w[0], err), max(w[1], rel)
-                log("stream_check", f"GRU pipe kernel (the route): gru "
-                    f"B,N,H=({B}, {STREAM_N}, {H}) {str(dtype)[6:]}: "
-                    f"values max_abs_err={err:.3e}, BPTT max_rel_err="
-                    f"{rel:.3e}, bit-equal run to run; " + "; ".join(plans))
+                err, rel, plans = _gru_stream_case(
+                    H, B, STREAM_N, dtype, dev, seed,
+                    fwd_plan=_fwd_pipe_or_route("gru", B, H, dev, dtype),
+                    fwd_only=not bwd)
+                note(f"gru_pipe_{str(dtype)[6:]}", err, rel)
+                log("stream_check", f"GRU pipe kernels: gru "
+                    f"B,N,H=({B}, {STREAM_N}, {H}) {str(dtype)[6:]}"
+                    f"{'' if bwd else ' (forwards only)'}: values "
+                    f"max_abs_err={err:.3e}, BPTT max_rel_err={rel:.3e}, "
+                    "bit-equal run to run; " + "; ".join(plans))
     B, H = STREAM_OLD
     for dtype in (torch.float32, torch.bfloat16):
+        for i in range(FWD_PIPE_PLANS):
+            err, _, plans = _lstm_cluster_case(
+                H, B, dtype, dev, seed, "pipe",
+                _fwd_pipe_or_route("lstm", B, H, dev, dtype, i), n=STREAM_N,
+                fwd_again=True, bwd=False)
+            err_g, _, plans_g = _gru_stream_case(
+                H, B, STREAM_N, dtype, dev, seed,
+                fwd_plan=_fwd_pipe_or_route("gru", B, H, dev, dtype, i),
+                fwd_only=True)
+            log("stream_check", f"forward pipe plan {i + 1} of the card's, "
+                f"forced: B,N,H=({B}, {STREAM_N}, {H}) {str(dtype)[6:]}: "
+                f"lstm values max_abs_err={err:.3e}, gru {err_g:.3e}, "
+                "bit-equal run to run; " + "; ".join(plans + plans_g))
         for i in range(GRU_PIPE_PLANS):
             def nth(dirs, i=i):
                 found = gru_cuda.card_gru_pipe_plans(B, H, dev, dtype, dirs)
@@ -3743,51 +3814,62 @@ def check_stream_route(dev, seed):
             return ("stream", *rnn_cuda.card_lstm_stream_plans(
                 kind, B, H, dev, dtype, save, dirs)[0])
         err, rel, plans = _lstm_cluster_case(H, B, dtype, dev, seed,
-                                             "stream", first, n=STREAM_N)
-        log("stream_check", f"first stream BPTT, forced: lstm B,N,H=({B}, "
-            f"{STREAM_N}, {H}) {str(dtype)[6:]}: values max_abs_err="
+                                             "stream", first, n=STREAM_N,
+                                             fwd_again=True)
+        log("stream_check", f"first stream designs, forced: lstm B,N,H=({B}"
+            f", {STREAM_N}, {H}) {str(dtype)[6:]}: values max_abs_err="
             f"{err:.3e}, BPTT max_rel_err={rel:.3e}, bit-equal run to run; "
             + "; ".join(plans))
         err, rel, plans = _gru_stream_case(
             H, B, STREAM_N, dtype, dev, seed,
             lambda dirs: ("stream", *gru_cuda.card_stream_plans(
-                "bwd", B, H, dev, dtype, False, dirs)[0]), bwd_only=True)
-        log("stream_check", f"first stream BPTT, forced: gru B,N,H=({B}, "
-            f"{STREAM_N}, {H}) {str(dtype)[6:]}: BPTT max_rel_err="
-            f"{rel:.3e}, bit-equal run to run; " + "; ".join(plans))
+                "bwd", B, H, dev, dtype, False, dirs)[0]),
+            fwd_plan=lambda kind, save, dirs: (
+                "stream", *gru_cuda.card_stream_plans(
+                    "fwd", B, H, dev, dtype, save, dirs)[0]))
+        log("stream_check", f"first stream designs, forced: gru B,N,H=({B}, "
+            f"{STREAM_N}, {H}) {str(dtype)[6:]}: values max_abs_err="
+            f"{err:.3e}, BPTT max_rel_err={rel:.3e}, bit-equal run to run; "
+            + "; ".join(plans))
     return worst
 
 
 def klinear_plan(name, B, H, dev, dirs):
-    """The card's first plan of kLinear's cluster kernel (the GRU BPTT's
-    first cluster design) as wrapper ``name`` takes it forced: ``(C, R)``
-    for ``bigru_bwd``, ``("cluster", C, R)`` for ``gru_bwd``; None where no
-    cluster plan takes H."""
-    if not gru_cuda.cluster_takes("bwd", H):
+    """The card's first plan of the GRU's first cluster design (kLinear's
+    for the BPTT) as wrapper ``name`` takes it forced: ``(C, R)`` for the
+    two-direction wrappers, ``("cluster", C, R)`` for the one-direction
+    ones; None where no cluster plan takes H."""
+    kind = "bwd" if name.endswith("bwd") else "fwd"
+    if not gru_cuda.cluster_takes(kind, H):
         return None
-    plan = tuple(gru_cuda.card_plans("bwd", B, H, dev, torch.float32,
+    plan = tuple(gru_cuda.card_plans(kind, B, H, dev, torch.float32,
                                      dirs)[0])
-    return plan if name == "bigru_bwd" else ("cluster", *plan)
+    return plan if name.startswith("bi") else ("cluster", *plan)
 
 
 def _pipe_ab(fn, a, fam, kind, B, N, H, save, dirs, dev):
-    """The BPTT wrapper ``fn`` of family ``fam`` ("lstm" or "gru") on its
-    route, the pipe kernel, beside the first stream design forced at its
-    card's first plan and, for the GRU where a cluster plan takes H,
-    kLinear's cluster kernel at its card's pick, in turns (pipe, stream[,
-    kLinear, kLinear], stream, pipe; the pipe kernel asserted faster than
-    each), and the card's first ``PIPE_SWEEP`` pipe plans (the planner's
-    pick first) in f32: a row's extra keys."""
+    """The wrapper ``fn`` of family ``fam`` ("lstm" or "gru") and ``kind``
+    ("fwd" or "bwd") on its route, the pipe kernel, beside the first stream
+    design forced at its card's first plan and, for the GRU where a cluster
+    plan takes H, its first cluster design (kLinear's for the BPTT) at its
+    card's pick, in turns (pipe, stream[, cluster, cluster], stream, pipe;
+    the pipe kernel asserted faster than each), and the card's first
+    ``PIPE_SWEEP`` pipe plans (the planner's pick first, and whether it is
+    the fastest) in f32: a row's extra keys."""
     f32 = torch.float32
     if fam == "lstm":
         first = ("stream", *rnn_cuda.card_lstm_stream_plans(
             kind, B, H, dev, f32, save, dirs)[0])
-        pipes = rnn_cuda.card_lstm_pipe_plans(B, H, dev, f32, dirs)
+        pipes = (rnn_cuda.card_lstm_pipe_plans(B, H, dev, f32, dirs)
+                 if kind == "bwd" else rnn_cuda.card_lstm_fwd_pipe_plans(
+                     B, H, dev, f32, save, dirs))
         klinear = None
     else:
         first = ("stream", *gru_cuda.card_stream_plans(
-            "bwd", B, H, dev, f32, False, dirs)[0])
-        pipes = gru_cuda.card_gru_pipe_plans(B, H, dev, f32, dirs)
+            kind, B, H, dev, f32, save, dirs)[0])
+        pipes = (gru_cuda.card_gru_pipe_plans(B, H, dev, f32, dirs)
+                 if kind == "bwd" else gru_cuda.card_gru_fwd_pipe_plans(
+                     B, H, dev, f32, save, dirs))
         klinear = klinear_plan(fn.__name__[:-len("_cuda")], B, H, dev, dirs)
     order = [None, first, *([klinear] * 2 if klinear else []), first, None]
     turns = [cuda_ms(lambda: fn(*a, plan=p), 3, warmup=1) for p in order]
@@ -3798,19 +3880,23 @@ def _pipe_ab(fn, a, fam, kind, B, N, H, save, dirs, dev):
     assert max(pipe_ms) < min(stream_ms), (fn.__name__, H, turns)
     extra = {}
     if klinear:
+        # kLinear's cluster kernel (the BPTT), the first cluster design
+        # (the forward)
+        key = "klinear" if kind == "bwd" else "cluster"
         kl_ms = turns[2:4]
         assert max(pipe_ms) < min(kl_ms), (fn.__name__, H, turns)
         fn(*a, plan=klinear)
-        extra = {"klinear_turns_ms": kl_ms, "klinear_ms": min(kl_ms),
-                 "klinear_us_per_step": min(kl_ms) / N * 1e3,
-                 "klinear_launch": dict(fn.last_launch)}
+        extra = {f"{key}_turns_ms": kl_ms, f"{key}_ms": min(kl_ms),
+                 f"{key}_us_per_step": min(kl_ms) / N * 1e3,
+                 f"{key}_launch": dict(fn.last_launch)}
     sweep = [{"plan": list(p), "ms": cuda_ms(
         lambda: fn(*a, plan=("pipe", *p)), 3, warmup=1)}
         for p in pipes[:PIPE_SWEEP]]
     return {"pipe_turns_ms": pipe_ms, "stream_turns_ms": stream_ms,
             "stream_ms": min(stream_ms),
             "stream_us_per_step": min(stream_ms) / N * 1e3,
-            "stream_launch": old_launch, **extra, "pipe_plans_ms": sweep}
+            "stream_launch": old_launch, **extra, "pipe_plans_ms": sweep,
+            "pick_fastest": sweep[0]["ms"] == min(r["ms"] for r in sweep)}
 
 
 def _library_turns(rows, second):
@@ -3833,7 +3919,10 @@ def _log_time_row(name, fam, row):
            "forced, in turns; "
            + ("klinear_ms: kLinear's cluster kernel forced at its pick, "
               "in turns; " if "klinear_ms" in row else "")
-           + "pipe_plans_ms: the card's first pipe plans"
+           + ("cluster_ms: the first cluster design forced at its pick, "
+              "in turns; " if "cluster_ms" in row else "")
+           + "pipe_plans_ms: the card's first pipe plans, pick_fastest: "
+           "the planner's pick the fastest of them"
            if route == "pipe" else "stream kernel"
            + ("" if route == "stream" else f", forced; route {route}"))
         + ") " + json.dumps(row) + "  (library_ms: "
@@ -3886,19 +3975,17 @@ def _route_of(fam, kind, H, dirs):
 
 
 def time_stream_route(dev, seed):
-    """Phase 40 (b), the timing: the twelve wrappers at ``STREAM_TIME`` f32,
-    the forwards on the stream kernel (the GRU's forced at its card's first
-    stream plan where a cluster plan takes H), the four BPTT wrappers on
-    their route, the pipe kernel, beside the first stream design (and at
-    H=320 the GRU's kLinear cluster kernel) and the pipe plans
-    (``_pipe_ab``): kernel ms (CUDA events), plain ms, the bound, cuDNN's
-    ``nn.LSTM`` / ``nn.GRU`` (bidirectional for the two-direction kernels;
-    never called by the port; input projection included; read before and
-    after the shape's kernels, ``_library_turns``) and µs a step. Then the
-    BPTT wrappers so at ``PIPE_TIME`` (the GRU's where its pipe kernel
-    takes H; cuDNN read once; their rows under the wrapper's name and
-    ``"_wide"``). Returns the rows by wrapper name, a list in
-    ``STREAM_TIME``'s order."""
+    """Phase 40 (b), the timing: the twelve wrappers at ``STREAM_TIME`` f32
+    on their route, the pipe kernels, beside the first stream design (and
+    at H=320 the GRU's first cluster design, kLinear's for the BPTT) and the
+    pipe plans (``_pipe_ab``): kernel ms (CUDA events), plain ms, the
+    bound, cuDNN's ``nn.LSTM`` / ``nn.GRU`` (bidirectional for the
+    two-direction kernels; never called by the port; input projection
+    included; read before and after the shape's kernels,
+    ``_library_turns``) and µs a step. Then all twelve so at ``PIPE_TIME``
+    (the GRU's where its pipe kernels take H; cuDNN read once; their rows
+    under the wrapper's name and ``"_wide"``). Returns the rows by wrapper
+    name, a list in ``STREAM_TIME``'s order."""
     f32 = torch.float32
     rows = {}
     for B, N, H in STREAM_TIME:
@@ -3910,18 +3997,12 @@ def time_stream_route(dev, seed):
         shape_rows = []
         for name, fn, plain, a, bnd, kind, save, dirs, fam in cases:
             route = _route_of(fam, kind, H, dirs)
-            extra = {}
-            if route == "pipe":
-                extra = _pipe_ab(fn, a, fam, kind, B, N, H, save, dirs, dev)
-                caller = fn
-            else:
-                caller = fn if route == "stream" else _Forced(
-                    fn, ("stream", *gru_cuda.card_stream_plans(
-                        kind, B, H, dev, f32, save, dirs)[0]))
-            row = _time_row(name, caller, plain, a, bnd, lib[fam][name],
-                            f32, (B, N, H), route=route, **extra)
-            assert row["launch"]["kernel"] == (
-                "pipe" if route == "pipe" else "stream"), (name, row)
+            assert route == "pipe", (name, H, route)
+            row = _time_row(name, fn, plain, a, bnd, lib[fam][name], f32,
+                            (B, N, H), route=route,
+                            **_pipe_ab(fn, a, fam, kind, B, N, H, save, dirs,
+                                       dev))
+            assert row["launch"]["kernel"] == "pipe", (name, row)
             rows.setdefault(name, []).append(row)
             shape_rows.append((name, fam, row))
         second = {**_library_ms(torch.nn.LSTM, B, N, H, f32, dev, seed),
@@ -3936,8 +4017,6 @@ def time_stream_route(dev, seed):
                  if gru_cuda.gru_bwd_kernel_route(H, 2) == "pipe" else ())):
             lib = _library_ms(mod, B, N, H, f32, dev, seed) if cases else {}
             for name, fn, plain, a, bnd, kind, save, dirs in cases:
-                if kind != "bwd":
-                    continue
                 route = _route_of(fam, kind, H, dirs)
                 assert route == "pipe", (name, H, route)
                 row = _time_row(name, fn, plain, a, bnd, lib[name], f32,
@@ -3951,12 +4030,12 @@ def time_stream_route(dev, seed):
 
 
 @contextlib.contextmanager
-def first_stream_bptt():
-    """The LSTM and GRU BPTT routed as before their pipe kernels: the first
-    stream design wherever a route says "pipe"; every other route
-    unchanged."""
-    lstm = rnn_cuda.lstm_bwd_kernel_route
-    gru = gru_cuda.gru_bwd_kernel_route
+def first_stream_fwd():
+    """The LSTM and GRU forwards routed as before their pipe kernels: the
+    first stream design wherever a route says "pipe"; every other route
+    (the BPTTs' too) unchanged."""
+    lstm = rnn_cuda.lstm_fwd_kernel_route
+    gru = gru_cuda.gru_fwd_kernel_route
 
     def old_lstm(hidden):
         got = lstm(hidden)
@@ -3966,32 +4045,47 @@ def first_stream_bptt():
         got = gru(hidden, dirs, dtype)
         return "stream" if got == "pipe" else got
 
-    with mock.patch.object(rnn_cuda, "lstm_bwd_kernel_route", old_lstm), \
-            mock.patch.object(gru_cuda, "gru_bwd_kernel_route", old_gru):
+    with mock.patch.object(rnn_cuda, "lstm_fwd_kernel_route", old_lstm), \
+            mock.patch.object(gru_cuda, "gru_fwd_kernel_route", old_gru):
         yield
 
 
-class _Forced:
-    """The wrapper ``fn`` with the launch plan ``plan`` forced, for
-    ``_time_row``: its calls pass the plan, its ``last_launch`` is
-    ``fn``'s."""
+def _fwd_turns(run, kernel_of):
+    """``run()`` in turns with the forwards on their pipe route and on the
+    first stream design (``first_stream_fwd``): pipe, stream, stream,
+    pipe. ``run`` returns (ms, launches); ``kernel_of()`` the kernel of the
+    last forward launch, asserted. Returns the ms by kernel and the last
+    launches."""
+    turns = {"pipe": [], "stream": []}
+    for kernel in ("pipe", "stream", "stream", "pipe"):
+        ctx = (first_stream_fwd if kernel == "stream"
+               else contextlib.nullcontext)
+        with ctx():
+            ms, launched = run()
+        assert kernel_of() == kernel, (kernel, kernel_of())
+        turns[kernel].append(ms)
+    return turns, launched
 
-    def __init__(self, fn, plan):
-        self.fn, self.plan = fn, plan
 
-    def __call__(self, *a):
-        return self.fn(*a, plan=self.plan)
-
-    @property
-    def last_launch(self):
-        return self.fn.last_launch
+def served_p50(model, feats, mask, n, warmup):
+    """p50 device ms (CUDA events) of one served forward of ``model``
+    (inference mode, the light kernels) over ``n`` after ``warmup``, and
+    the launches of one forward."""
+    ms = []
+    with torch.inference_mode():
+        for i in range(n + warmup):
+            reset_counts()
+            _, t = timed_once(lambda: model(feats, mask))
+            if i >= warmup:
+                ms.append(t)
+    return float(np.percentile(ms, 50)), counts()
 
 
 def stream_paths(dev, seed, smi):
-    """Phase 40 (c), the stream kernels' main paths, the counts set to 0
+    """Phase 40 (c), the pipe kernels' main paths, the counts set to 0
     just before each and read just after: the flagship ``lstm`` at
     d_model ``STREAM_LSTM_D`` (H=512, f32), a forward at ``STREAM_STEP``'s
-    B and N through the stream kernels against the plain recurrence, then
+    B and N through the pipe kernels against the plain recurrence, then
     one train step card vs CPU (``step_parity``: assignments, losses rel
     ``LOSS_RTOL``, updated parameters) at B, N = ``STREAM_STEP`` (cut from
     the config's 20 and 1500 for the CPU's step); a ``bigru`` at d_model
@@ -4000,10 +4094,12 @@ def stream_paths(dev, seed, smi):
     ``gru_recurrence(use_kernel=True)`` at (B, N, 512) forward and
     backward; the lstm's and the bigru's train-step p50 at
     ``STREAM_STEP_TIME`` (bench.py's B and N) over ``STREAM_STEPS`` after
-    ``STREAM_WARMUP``, the BPTT on the pipe kernel (the route) and on the
-    first stream design (``first_stream_bptt``) in turns. Each launch of
-    a BPTT is asserted on the pipe kernel, every other one on the stream
-    kernel. Returns each path's launches and the step timings."""
+    ``STREAM_WARMUP`` and their served forward's p50 at ``STREAM_SERVE``
+    (B=1, the light kernels) over ``STREAM_SERVE_CALLS``, the forwards on
+    the pipe kernel (the route) and on the first stream design
+    (``first_stream_fwd``) in turns, the BPTT on its pipe route in both.
+    Each launch is asserted on the pipe kernels but the forwards' stream
+    turns. Returns each path's launches and the timings."""
     out = {}
     B, N = STREAM_STEP
     cfg = ExperimentConfig.from_json(CONFIG)
@@ -4027,7 +4123,7 @@ def stream_paths(dev, seed, smi):
         torch.cuda.synchronize()
         out["lstm_forward"] = counts()
         assert out["lstm_forward"] == expected_counts(bilstm_fwd=layers)
-        assert rnn_cuda.bilstm_fwd_cuda.last_launch["kernel"] == "stream"
+        assert rnn_cuda.bilstm_fwd_cuda.last_launch["kernel"] == "pipe"
         with mock.patch.object(lstm_mod, "bilstm_recurrence",
                                rnn_cuda.bilstm_recurrence_plain):
             ref = model(feats, mask)
@@ -4048,48 +4144,61 @@ def stream_paths(dev, seed, smi):
     assert c_k == expected_counts(bilstm_fwd=c_k["bilstm_fwd"],
                                   bilstm_fwd_train=layers,
                                   bilstm_bwd=layers), c_k
-    for name in ("bilstm_fwd_train", "bilstm_bwd"):
-        assert getattr(*WRAPPERS[name]).last_launch["kernel"] == (
-            "pipe" if name == "bilstm_bwd" else "stream")
+    for name in ("bilstm_fwd", "bilstm_fwd_train", "bilstm_bwd"):
+        assert getattr(*WRAPPERS[name]).last_launch["kernel"] == "pipe"
     out["lstm_step"] = c_k
     log("stream_lstm", f"flagship lstm d_model={STREAM_LSTM_D} (H={H}) f32:"
         f" forward B={B} N={N} launches {out['lstm_forward']} "
         f"({plan_text(rnn_cuda.bilstm_fwd_cuda)}), vs the plain recurrence "
         f"max abs diff {fwd_err:.3e} (tol {MODEL_TOL:.0e}); one step card "
         f"vs CPU at B={B}, N={N} (cut from the config's 20, 1500) as "
-        f"above; launches {c_k} (bilstm_bwd "
+        f"above; launches {c_k} (bilstm_fwd_train "
+        f"{plan_text(rnn_cuda.bilstm_fwd_train_cuda)}; bilstm_bwd "
         f"{plan_text(rnn_cuda.bilstm_bwd_cuda)}) on {smi}")
 
-    # the lstm's train step at bench.py's B and N (the config's precision),
-    # the BPTT on the pipe kernel and on the first stream design, in turns
+    # the lstm's train step at bench.py's B and N (the config's precision)
+    # and its served forward, the forwards on the pipe kernel and on the
+    # first stream design, in turns
     tcfg = ExperimentConfig.from_json(CONFIG)
     tcfg.model.d_model = STREAM_LSTM_D
     tcfg.train.batch_size, tcfg.data.max_trace_len = STREAM_STEP_TIME
-    turns = {"pipe": [], "stream": []}
     with tempfile.TemporaryDirectory() as tmp:
         write_rooms(Path(tmp), STREAM_ROOMS, seed + 980)
-        for kernel in ("pipe", "stream", "stream", "pipe"):
-            ctx = (first_stream_bptt if kernel == "stream"
-                   else contextlib.nullcontext)
-            with ctx():
-                ms, step_launched = step_p50(tcfg, Path(tmp), dev, seed,
-                                             STREAM_STEPS, STREAM_WARMUP)
-            assert step_launched == expected_counts(
-                bilstm_fwd_train=layers, bilstm_bwd=layers), step_launched
-            last = rnn_cuda.bilstm_bwd_cuda.last_launch
-            assert last["kernel"] == kernel, (kernel, last)
-            turns[kernel].append(ms)
+        turns, step_launched = _fwd_turns(
+            lambda: step_p50(tcfg, Path(tmp), dev, seed, STREAM_STEPS,
+                             STREAM_WARMUP),
+            lambda: rnn_cuda.bilstm_fwd_train_cuda.last_launch["kernel"])
+    assert step_launched == expected_counts(
+        bilstm_fwd_train=layers, bilstm_bwd=layers), step_launched
+    assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == "pipe"
+    sB, sN = STREAM_SERVE
+    sraw = walk(sN, seed + 985)[None]
+    sfeats, smask = featurize(torch.from_numpy(sraw).to(dev),
+                              torch.full((sB,), sN, device=dev))
+    serve_turns, serve_launched = _fwd_turns(
+        lambda: served_p50(model, sfeats, smask, STREAM_SERVE_CALLS,
+                           STREAM_WARMUP),
+        lambda: rnn_cuda.bilstm_fwd_cuda.last_launch["kernel"])
+    assert serve_launched == expected_counts(bilstm_fwd=layers), \
+        serve_launched
     out["lstm_step_p50"] = {
         "shape": [*STREAM_STEP_TIME, H], "pipe_step_p50_ms": turns["pipe"],
         "stream_step_p50_ms": turns["stream"],
         "step_launches": step_launched,
         "matmul_precision": tcfg.train.matmul_precision,
-        "pipe_plan": dict(last)}
+        "fwd_train_plan": dict(rnn_cuda.bilstm_fwd_train_cuda.last_launch),
+        "bwd_plan": dict(rnn_cuda.bilstm_bwd_cuda.last_launch),
+        "serve_shape": [sB, sN, H],
+        "pipe_serve_p50_ms": serve_turns["pipe"],
+        "stream_serve_p50_ms": serve_turns["stream"],
+        "serve_launches": serve_launched}
     log("stream_lstm", f"flagship lstm d_model={STREAM_LSTM_D} (H={H}) "
         f"train step at B, N = {STREAM_STEP_TIME} (bench.py's), p50 over "
-        f"{STREAM_STEPS} after {STREAM_WARMUP}, in turns pipe, stream, "
-        f"stream, pipe (the BPTT's kernel; the config's matmul precision "
-        f"{tcfg.train.matmul_precision}): "
+        f"{STREAM_STEPS} after {STREAM_WARMUP}, and served forward at B, N "
+        f"= {STREAM_SERVE} (light kernels, CUDA events), p50 over "
+        f"{STREAM_SERVE_CALLS} after {STREAM_WARMUP}, in turns pipe, stream,"
+        f" stream, pipe (the forwards' kernel; the BPTT on its pipe route; "
+        f"the config's matmul precision {tcfg.train.matmul_precision}): "
         + json.dumps(out["lstm_step_p50"]) + f" on {smi}")
 
     # the ops-level one-direction paths
@@ -4115,8 +4224,7 @@ def stream_paths(dev, seed, smi):
         mod = rnn_cuda if fam == "lstm" else gru_cuda
         for kind in ("fwd", "fwd_train", "bwd"):
             last = getattr(mod, f"{fam}_{kind}_cuda").last_launch
-            assert last["kernel"] == ("pipe" if kind == "bwd"
-                                      else "stream"), (fam, kind, last)
+            assert last["kernel"] == "pipe", (fam, kind, last)
         err = value_err((ys,), (fn(xg, w, *extra),), torch.float32)
         ref_g = torch.autograd.grad(fn(*x, True), x, dy)
         rel = max(max_rel(a, r) for a, r in zip(grads, ref_g))
@@ -4124,7 +4232,8 @@ def stream_paths(dev, seed, smi):
         out[f"{fam}_ops"] = launched
         log("stream_ops", f"{fam}_recurrence(use_kernel=True) B,N,H=({B}, "
             f"{N}, {H}): launches {launched}; values max_abs_err={err:.3e}; "
-            f"gradients max_rel_err={rel:.3e}; BPTT "
+            f"gradients max_rel_err={rel:.3e}; forward "
+            f"{plan_text(getattr(mod, fam + '_fwd_cuda'))}; BPTT "
             f"{plan_text(getattr(mod, fam + '_bwd_cuda'))}")
 
     # a bigru at H=512: one forward and one train step
@@ -4161,48 +4270,55 @@ def stream_paths(dev, seed, smi):
                                             bigru_bwd=gl), step_launched
     for name in ("bigru_fwd", "bigru_fwd_train", "bigru_bwd"):
         last = getattr(*WRAPPERS[name]).last_launch
-        assert last["kernel"] == ("pipe" if name == "bigru_bwd"
-                                  else "stream"), (name, last)
+        assert last["kernel"] == "pipe", (name, last)
     assert all(np.isfinite(float(v)) for v in losses.values())
     launched = {k: fwd_launched[k] + step_launched[k] for k in WRAPPERS}
     out["bigru"] = launched
     log("stream_bigru", f"bigru d_model={STREAM_LSTM_D} (H={H}) f32: "
         f"forward B={B} N={N} vs the plain recurrence max abs diff "
         f"{gerr:.3e} (tol {MODEL_TOL:.0e}); one train step, total_loss "
-        f"{float(losses['total_loss']):.4f}; launches {launched} (bigru_bwd "
-        f"{plan_text(gru_cuda.bigru_bwd_cuda)})")
+        f"{float(losses['total_loss']):.4f}; launches {launched} "
+        f"(bigru_fwd_train {plan_text(gru_cuda.bigru_fwd_train_cuda)}; "
+        f"bigru_bwd {plan_text(gru_cuda.bigru_bwd_cuda)})")
 
     # the bigru's train step at bench.py's B and N (the default config's
-    # precision), the BPTT on the pipe kernel and on the first stream
-    # design, in turns
+    # precision) and its served forward, the forwards on the pipe kernel
+    # and on the first stream design, in turns
     bcfg = ExperimentConfig().apply_overrides(
         ["model.model_type=bigru", f"model.d_model={STREAM_LSTM_D}"])
     bcfg.train.batch_size, bcfg.data.max_trace_len = STREAM_STEP_TIME
-    turns = {"pipe": [], "stream": []}
     with tempfile.TemporaryDirectory() as tmp:
         write_rooms(Path(tmp), STREAM_ROOMS, seed + 990)
-        for kernel in ("pipe", "stream", "stream", "pipe"):
-            ctx = (first_stream_bptt if kernel == "stream"
-                   else contextlib.nullcontext)
-            with ctx():
-                ms, step_launched = step_p50(bcfg, Path(tmp), dev, seed,
-                                             STREAM_STEPS, STREAM_WARMUP)
-            assert step_launched == expected_counts(
-                bigru_fwd_train=gl, bigru_bwd=gl), step_launched
-            last = gru_cuda.bigru_bwd_cuda.last_launch
-            assert last["kernel"] == kernel, (kernel, last)
-            turns[kernel].append(ms)
+        turns, step_launched = _fwd_turns(
+            lambda: step_p50(bcfg, Path(tmp), dev, seed, STREAM_STEPS,
+                             STREAM_WARMUP),
+            lambda: gru_cuda.bigru_fwd_train_cuda.last_launch["kernel"])
+    assert step_launched == expected_counts(
+        bigru_fwd_train=gl, bigru_bwd=gl), step_launched
+    assert gru_cuda.bigru_bwd_cuda.last_launch["kernel"] == "pipe"
+    serve_turns, serve_launched = _fwd_turns(
+        lambda: served_p50(gmodel.eval(), sfeats, smask, STREAM_SERVE_CALLS,
+                           STREAM_WARMUP),
+        lambda: gru_cuda.bigru_fwd_cuda.last_launch["kernel"])
+    assert serve_launched == expected_counts(bigru_fwd=gl), serve_launched
     out["bigru_step_p50"] = {
         "shape": [*STREAM_STEP_TIME, H], "pipe_step_p50_ms": turns["pipe"],
         "stream_step_p50_ms": turns["stream"],
         "step_launches": step_launched,
         "matmul_precision": bcfg.train.matmul_precision,
-        "pipe_plan": dict(last)}
+        "fwd_train_plan": dict(gru_cuda.bigru_fwd_train_cuda.last_launch),
+        "bwd_plan": dict(gru_cuda.bigru_bwd_cuda.last_launch),
+        "serve_shape": [sB, sN, H],
+        "pipe_serve_p50_ms": serve_turns["pipe"],
+        "stream_serve_p50_ms": serve_turns["stream"],
+        "serve_launches": serve_launched}
     log("stream_bigru", f"bigru d_model={STREAM_LSTM_D} (H={H}) train step "
         f"at B, N = {STREAM_STEP_TIME} (bench.py's), p50 over "
-        f"{STREAM_STEPS} after {STREAM_WARMUP}, in turns pipe, stream, "
-        f"stream, pipe (the BPTT's kernel; the config's matmul precision "
-        f"{bcfg.train.matmul_precision}): "
+        f"{STREAM_STEPS} after {STREAM_WARMUP}, and served forward at B, N "
+        f"= {STREAM_SERVE} (light kernels, CUDA events), p50 over "
+        f"{STREAM_SERVE_CALLS} after {STREAM_WARMUP}, in turns pipe, stream,"
+        f" stream, pipe (the forwards' kernel; the BPTT on its pipe route; "
+        f"the config's matmul precision {bcfg.train.matmul_precision}): "
         + json.dumps(out["bigru_step_p50"]) + f" on {smi}")
     return out
 
@@ -5418,9 +5534,9 @@ def main() -> int:
     log("done", f"phase 39 in {time.perf_counter() - t_trans:.1f} s")
 
     # 40. the bigru model's defaults on the unit kernels (#5 / #5t / #6,
-    # two directions, H=64 f32) and the stream kernels at every width above
-    # the cluster kernels' (the LSTM BPTT's: the pipe kernel): their checks,
-    # timing and main paths
+    # two directions, H=64 f32) and the pipe kernels (forwards and BPTTs)
+    # above the cluster kernels' widths, beside the first stream designs:
+    # their checks, timing and main paths
     t_40 = time.perf_counter()
     bigru_rows, bigru_bf16 = time_bigru_unit(dev, args.seed)
     bigru_launched, bigru_timing = bigru_default_path(dev, args.seed, smi)
@@ -5541,8 +5657,7 @@ def main() -> int:
                            if lstm else {}),
                         "shapes": rows})
     # phase 40: #5 / #5t / #6 on the unit kernels (the bigru default path's
-    # step and request), and the stream and pipe kernels with their main
-    # paths
+    # step and request), and the pipe kernels with their main paths
     for name, line, launched in (
             ("bigru_fwd", "gru_pallas.py:314", bigru_launched["request"]),
             ("bigru_fwd_train", "gru_pallas.py:454", bigru_launched["step"]),
@@ -5573,22 +5688,23 @@ def main() -> int:
             ("gru_fwd_train", "bigru_fwd.cu", "gru_pallas.py:155", "gru_ops"),
             ("gru_bwd", "bigru_bwd.cu", "gru_pallas.py:71", "gru_ops")):
         rows = stream_rows[name]
-        # the BPTTs: the pipe kernels (sources of their own), the first
-        # stream design (and at H=320 the GRU's kLinear) beside them
-        pipe = name.endswith("_bwd")
-        if pipe:
-            source = "bilstm_pipe.cu" if "lstm" in name else "bigru_pipe.cu"
-        step = {"bilstm_bwd": "lstm_step_p50",
-                "bigru_bwd": "bigru_step_p50"}.get(name)
-        kernels.append({**entry(f"{name}_{'pipe' if pipe else 'stream'}",
+        # the pipe kernels (sources of their own), the first stream design
+        # (and at H=320 the GRU's first cluster design, kLinear's for the
+        # BPTT) beside them
+        source = {"bilstm_fwd.cu": "bilstm_fwd_pipe.cu",
+                  "bigru_fwd.cu": "bigru_fwd_pipe.cu",
+                  "bilstm_bwd.cu": "bilstm_pipe.cu",
+                  "bigru_bwd.cu": "bigru_pipe.cu"}[source]
+        step = ("lstm_step_p50" if name.startswith("bilstm") else
+                "bigru_step_p50" if name.startswith("bigru") else None)
+        kernels.append({**entry(f"{name}_pipe",
                                 f"room_slam_torch/csrc/{source}",
                                 f"room_slam_tpu/ops/{line}",
                                 stream_launched[path][name], rows[-1]),
-                        **({"stream_ms": rows[-1]["stream_ms"],
-                            "wide_shapes": stream_rows[f"{name}_wide"]}
-                           if pipe else {}),
-                        **({"klinear_ms": rows[0]["klinear_ms"]}
-                           if "klinear_ms" in rows[0] else {}),
+                        "stream_ms": rows[-1]["stream_ms"],
+                        "wide_shapes": stream_rows[f"{name}_wide"],
+                        **{k: rows[0][k] for k in ("klinear_ms", "cluster_ms")
+                           if k in rows[0]},
                         **({"path_timing": stream_launched[step]}
                            if step else {}),
                         "shapes": rows})

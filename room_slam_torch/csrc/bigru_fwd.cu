@@ -152,10 +152,12 @@
 // the tensor-core kernel lost to the unit kernel 2-2.5x at H=64 (its
 // exchange is most of a short step).
 //
-// Where no plan of the cluster kernel fits (the W_hh slice and the h tile
-// over one block's shared memory at every cluster of 1, 2, 4 or 8 blocks,
-// or a masked slice above H = 256), the stream kernel takes the launch,
-// for #5 / #5t and #7 / #7t alike: the cluster kernel with kStream, whose
+// Above H = 256 up to 1024 the pipe kernel (bigru_fwd_pipe.cu, its own
+// source) takes the launch, for #5 / #5t and #7 / #7t alike, also at the
+// widths where a cluster plan fits (the multiples of 8 to 360: its A/B at
+// H=320 against this cluster kernel). Above 1024 (and by a forced
+// ("stream", C, R) plan below) the stream kernel, the first design for
+// these widths, takes it: the cluster kernel with kStream, whose
 // block reads the r, z and n columns of its U = ceil(H / C) units from
 // global memory every step, so that only the h tile (rows padded to whole
 // chunks) sits in shared memory; clusters of up to 16 blocks. What bounds
@@ -165,8 +167,7 @@
 // and gru_cuda's planner (rnn_cuda.stream_plans) weighs a block's FMA
 // issue against its and the grid's L2 bytes. Measured on an H100 (phase
 // 40): 29 us a step at (32, 500, 512) f32 (cuDNN 22), latency-bound as the
-// LSTM's (bilstm_fwd.cu). The simple right kernel for these widths, not a
-// fast one.
+// LSTM's (bilstm_fwd.cu): the lever the pipe kernel took.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>

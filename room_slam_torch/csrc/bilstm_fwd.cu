@@ -147,9 +147,12 @@
 //
 // Above H = 256 (an lstm at d_model 514 to 2048 and beyond, which the JAX
 // package runs at any width) no block holds even a 16th of W_hh (4 MiB in
-// f32 at H=512). The stream kernel takes every such H, for #1 / #1t
-// (rnn_pallas.py:390, pallas_call :560 / :531) and #3 / #3t (:105, :210 /
-// :183) alike: the first cluster kernel with kStream, whose block reads the
+// f32 at H=512). The pipe kernel (bilstm_fwd_pipe.cu, its own source) takes
+// those widths up to H = 1816, for #1 / #1t (rnn_pallas.py:390,
+// pallas_call :560 / :531) and #3 / #3t (:105, :210 / :183) alike; the
+// stream kernel, the first design for them, keeps the widths above and is
+// reached below by a forced ("stream", C, R) plan: the first cluster
+// kernel with kStream, whose block reads the
 // four gate columns of its U = ceil(H / C) units from global memory every
 // step instead of holding them in shared memory, so that only the h tile
 // [2][H][R] (its rows padded to whole chunks) sits there; clusters of up to
@@ -166,9 +169,9 @@
 // Measured on an H100 (chip_smoke.py phase 40): 33 us a step at (32, 500,
 // 512) f32 on clusters of 16 blocks of 16-row tiles (cuDNN 42), 21 at
 // H=320, far above the L2 bytes' time: each chunk's loads wait out the L2
-// latency with four warps a block to cover it (a deeper pipeline, staged
-// through shared memory by cp.async, is the lever). The simple right
-// kernel for these widths, not a fast one.
+// latency with four warps a block to cover it: the lever the pipe kernel
+// took (each block's slice streamed through shared memory by bulk copies,
+// the part that fits held, h exchanged by st.async on mbarriers).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>

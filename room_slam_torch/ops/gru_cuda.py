@@ -73,12 +73,16 @@ directions for a BiGRU layer) instead of the cluster kernels: four lanes
 of a warp own one hidden unit of a tile of 1, 2 or 4 rows, W_hh in their
 registers, one block barrier a step; ``gru_fwd_kernel_route`` /
 ``gru_bwd_kernel_route`` choose, ``rnn_cuda.unit_plan`` sizes the tile,
-and ``last_launch`` records both. Where no cluster plan fits (W_hh's slice
-over a block's shared memory at every cluster of up to 8 blocks), the
-stream kernels take the forwards: the cluster kernels reading their slice
-of W_hh from global memory every step, clusters of up to 16 blocks,
-planned by ``rnn_cuda.stream_plans``. The BPTT above H=256 (to H=1024)
-takes the pipe kernel (``csrc/bigru_pipe.cu``, both grids): each block of
+and ``last_launch`` records both. Above H=256 (to ``GRU_FWD_PIPE_MAX_H``,
+1024) the forwards take the forward pipe kernel (``csrc/bigru_fwd_pipe.cu``:
+the LSTM's design with three gates, W_hh packed by
+``rnn_cuda.fwd_pipe_weights``, planned by ``rnn_cuda.fwd_pipe_plans``), at
+the cluster kernel's widths too (faster at H=320); above it
+the stream kernels (the cluster kernels reading their slice of W_hh from
+global memory every step, clusters of up to 16 blocks, planned by
+``rnn_cuda.stream_plans``; the first design for these widths, reached
+below by a forced ``("stream", C, R)`` plan). The BPTT above H=256 (to
+H=1024) takes the pipe kernel (``csrc/bigru_pipe.cu``, both grids): each block of
 a cluster of up to 16 forms dg for its own units and multiplies it by its
 own slice of W_hh (packed by ``rnn_cuda.pipe_weights``, streamed through
 shared memory by a producer warp), the float32 partial sums of dh_carry
@@ -101,14 +105,18 @@ from torch.autograd.function import once_differentiable
 from room_slam_torch.ops.rnn import gru_recurrence, input_gates
 from room_slam_torch.ops.rnn_cuda import (CLUSTER_MAX_H, CLUSTER_SIZES,
                                           MAX_ROWS, MAX_SMEM_BYTES,
-                                          MAX_THREADS, PIPE_CELLS,
+                                          MAX_THREADS, FPIPE_MAX_CLUSTER,
+                                          FPIPE_ROWS, PIPE_CELLS,
                                           PIPE_MAX_CLUSTER, PIPE_ROWS,
                                           ROWS_PER_THREAD,
                                           STREAM_MAX_CLUSTER,
                                           UNIT_MAX_H, _bind_pipe,
-                                          _device_type, _pad4, _pipe_rule,
+                                          _device_type, _fwd_pipe_rule,
+                                          _pad4, _pipe_rule,
                                           _stream_rule, _work_dtype,
-                                          bind_unit_queries, bwd_weights,
+                                          bind_fwd_pipe, bind_unit_queries,
+                                          bwd_weights, fwd_pipe_plans,
+                                          fwd_pipe_takes, fwd_weights,
                                           card_name, card_unit_plans,
                                           check_stream_mirror, grad_product,
                                           grad_sum, launch, pipe_plans,
@@ -405,6 +413,10 @@ def cluster_takes(kind: str, hidden: int) -> bool:
 # The BPTT's pipe kernel (csrc/bigru_pipe.cu): three gates, so that
 # rnn_cuda's pipe planner, layout mirror and W_hh packing take gates=3
 PIPE_GATES = 3
+# The forward's pipe kernel (csrc/bigru_fwd_pipe.cu) is routed above
+# CLUSTER_MAX_H up to GRU_FWD_PIPE_MAX_H (the widest width its A/B times,
+# chip_smoke.py phase 40)
+GRU_FWD_PIPE_MAX_H = 1024
 
 
 def _route(kind: str, hidden: int, dirs: int, dtype: torch.dtype) -> str:
@@ -422,6 +434,12 @@ def _route(kind: str, hidden: int, dirs: int, dtype: torch.dtype) -> str:
     # where chip_smoke.py phase 40 times the two in turns
     if kind == "bwd" and hidden > CLUSTER_MAX_H and \
             pipe_takes(hidden, PIPE_GATES):
+        return "pipe"
+    # above CLUSTER_MAX_H the pipe kernels take the launch also where a
+    # cluster plan fits (the multiples of 8 up to 360): faster at H=320,
+    # where chip_smoke.py phase 40 times the two in turns
+    if kind == "fwd" and CLUSTER_MAX_H < hidden <= GRU_FWD_PIPE_MAX_H \
+            and fwd_pipe_takes(hidden):
         return "pipe"
     if cluster_takes(kind, hidden):
         return "cluster"
@@ -441,11 +459,14 @@ def gru_fwd_kernel_route(hidden: int, dirs: int,
     directions, float32 or bf16: at H=64 it beat the tensor-core kernels
     2-2.5x with bf16 streams on an H100); "tc" (the tensor-core kernel)
     above it for two directions with bf16 streams where ``tc_plan_fits``
-    holds for a plan of the planner's; else "cluster" where a plan of
-    ``bigru_plans`` fits
-    (``bigru_plan`` then picks its cluster and tile), else "stream" (the
-    stream kernel, ``bigru_stream_plans``). Raises, naming the width and
-    the card's limit, for an H none takes."""
+    holds for a plan of the planner's; above ``CLUSTER_MAX_H`` up to
+    ``GRU_FWD_PIPE_MAX_H`` "pipe" (the forward pipe kernel,
+    ``csrc/bigru_fwd_pipe.cu``; also where a cluster plan fits); else
+    "cluster" where a plan of
+    ``bigru_plans`` fits (``bigru_plan`` then picks its cluster and tile),
+    else "stream" (the first stream design, ``bigru_stream_plans``; also
+    reached by a forced plan). Raises, naming the width and the card's
+    limit, for an H none takes."""
     return _route("fwd", hidden, dirs, dtype)
 
 
@@ -840,6 +861,9 @@ def _library(name: str):
     if name == "bigru_pipe":
         return _bind_pipe(lib, name, "bigru_bwd", "gru_bwd", 14, 7,
                           PIPE_GATES)
+    if name == "bigru_fwd_pipe":
+        return bind_fwd_pipe(lib, {"bigru_fwd": 8, "bigru_fwd_train": 12},
+                             {"gru_fwd": 4, "gru_fwd_train": 6}, PIPE_GATES)
     p, i = ctypes.c_void_p, ctypes.c_int
     fwd = name == "bigru_fwd"
     for sfx in _SUFFIX.values():
@@ -998,6 +1022,30 @@ def _pipe_resident(H: int, dev: torch.device, T):
             return query(int(T == torch.bfloat16), 0, H, c, rows)
 
     return lib, resident
+
+
+def _fwd_pipe_resident(H: int, dev: torch.device, T, save: bool):
+    """The forward pipe kernel's library (``csrc/bigru_fwd_pipe.cu``) and
+    ``resident(cluster, rows)``: how many clusters of that plan the card
+    ``dev`` runs at once."""
+    lib = _library("bigru_fwd_pipe")
+    query = lib.bigru_fwd_pipe_max_active_clusters
+
+    def resident(c, rows):
+        with torch.cuda.device(dev):
+            return query(int(T == torch.bfloat16), int(save), H, c, rows)
+
+    return lib, resident
+
+
+def card_gru_fwd_pipe_plans(B: int, H: int, dev: torch.device,
+                            dtype: torch.dtype, save: bool = False,
+                            dirs: int = 2) -> List[Tuple[int, int]]:
+    """``rnn_cuda.fwd_pipe_plans`` of the GRU forward's pipe kernel (three
+    gates) over ``dirs`` directions on the card ``dev`` (its own counts),
+    fastest first; the first is the plan a launch takes."""
+    return fwd_pipe_plans(B, H, _fwd_pipe_resident(H, dev, dtype, save)[1],
+                          dirs, dtype.itemsize, PIPE_GATES)
 
 
 def card_gru_pipe_plans(B: int, H: int, dev: torch.device,
@@ -1175,23 +1223,59 @@ def _pipe_plan_launch(fn, B: int, H: int, dev: torch.device, T, dirs: int,
     return lib, fn.last_launch["cluster"], fn.last_launch["rows"]
 
 
+def _fwd_pipe_plan_launch(fn, B: int, H: int, dev: torch.device, T,
+                          save: bool, dirs: int,
+                          plan: Optional[Tuple[int, int]] = None):
+    """The launch's ``(cluster, rows)`` for the forward's pipe kernel over
+    ``dirs`` directions: ``rnn_cuda.fwd_pipe_plans``' pick (three gates)
+    with the card's own counts, or the caller's ``plan``, refused unless
+    its rule holds and the card runs at least one such cluster. Recorded
+    with the number of the grid's clusters in ``fn.last_launch``."""
+    lib, resident = _fwd_pipe_resident(H, dev, T, save)
+    key = ("fwd_pipe", B, H, str(dev), T, save, dirs, plan)
+    if key not in _PLANS:
+        if plan is None:
+            plans = fwd_pipe_plans(B, H, resident, dirs, T.itemsize,
+                                   PIPE_GATES)
+            if not plans:
+                raise ValueError(f"bigru_fwd_pipe: no plan of 1 to "
+                                 f"{FPIPE_MAX_CLUSTER} blocks takes H={H} "
+                                 f"on {card_name(dev)}")
+            cluster, rows = plans[0]
+        else:
+            cluster, rows = plan
+            if not _fwd_pipe_rule(H, cluster, rows, T.itemsize):
+                raise ValueError(
+                    f"bigru_fwd_pipe: plan {cluster}x{rows} does not fit "
+                    f"H={H}: 1 to {FPIPE_MAX_CLUSTER} blocks each owning a "
+                    f"unit, at most 15 consumer warps of 8 units, a tile of "
+                    f"{FPIPE_ROWS} rows (16 in two row groups, 12 in at most "
+                    "8 warps) and two chunks of W_hh's slice in "
+                    f"{MAX_SMEM_BYTES} bytes of shared memory a block")
+            if resident(cluster, rows) <= 0:
+                raise ValueError(f"bigru_fwd_pipe: the card runs no cluster "
+                                 f"of plan {cluster}x{rows} at once")
+        _PLANS[key] = {"kernel": "pipe", "cluster": cluster, "rows": rows,
+                       "clusters": dirs * -(-B // rows),
+                       "resident": resident(cluster, rows)}
+    fn.last_launch = _PLANS[key]
+    return lib, fn.last_launch["cluster"], fn.last_launch["rows"]
+
+
 def _bigru_kernel(kind: str, H: int, T: torch.dtype, plan):
     """The kernel a two-direction launch of ``kind`` ("fwd" or "bwd")
-    takes, "unit", "tc", "cluster", "pipe" (the BPTT) or "stream", and the
-    plan the caller forces (None: the planner's): ``plan=None`` follows the
-    route, ``(cluster, rows)`` forces the cluster kernel, ``("unit",
-    rows)`` the unit kernel, ``("stream", cluster, rows)`` the stream
-    kernel, ``("pipe", cluster, rows)`` the pipe kernel (refused for the
-    forward), ``("tc", cluster, rows)`` the tensor-core kernel, refused for
-    float32 streams."""
+    takes, "unit", "tc", "cluster", "pipe" or "stream", and the plan the
+    caller forces (None: the planner's): ``plan=None`` follows the route,
+    ``(cluster, rows)`` forces the cluster kernel, ``("unit", rows)`` the
+    unit kernel, ``("stream", cluster, rows)`` the stream kernel,
+    ``("pipe", cluster, rows)`` the pipe kernel (the BPTT's or the
+    forward's), ``("tc", cluster, rows)`` the tensor-core kernel, refused
+    for float32 streams."""
     if plan is None:
         route = gru_fwd_kernel_route if kind == "fwd" else gru_bwd_kernel_route
         return route(H, 2, T), None
     if plan[0] not in ("tc", "unit", "stream", "pipe"):
         return "cluster", tuple(plan)
-    if plan[0] == "pipe" and kind != "bwd":
-        raise ValueError(f"bigru_{kind}: no pipe kernel; the BPTT takes "
-                         "plans ('pipe', cluster, rows)")
     if plan[0] == "tc" and T != torch.bfloat16:
         raise ValueError(f"bigru_{kind}: the tensor-core kernel takes "
                          f"bfloat16 streams, not {T}")
@@ -1237,11 +1321,16 @@ def _fwd_launch(fn, save: bool, plan, xg_f, xg_b, w_f, b_f, w_b, b_b):
         lib, cluster, rows = _stream_plan_launch("fwd", fn, B, H, dev, T,
                                                  save, 2, forced)
         name, plan_ints = f"{name}_stream", (cluster, rows)
+    elif kernel == "pipe":
+        lib, cluster, rows = _fwd_pipe_plan_launch(fn, B, H, dev, T, save, 2,
+                                                   forced)
+        name, plan_ints = f"{name}_pipe", (cluster, rows)
     else:
         lib, cluster, rows = _plan_launch("fwd", fn, B, H, dev, T, save, 2,
                                           forced)
         plan_ints = (cluster, rows)
-    w_f, w_b = w_f.to(T).contiguous(), w_b.to(T).contiguous()
+    w_f, w_b = fwd_weights(kernel, (w_f.to(T).contiguous(),
+                                    w_b.to(T).contiguous()), plan_ints[0])
     launch(lib, f"{name}_{_SUFFIX[T]}", dev,
            *(t.data_ptr() for t in (xg_f, xg_b, w_f, b_f, w_b, b_b)),
            *(o.data_ptr() for o in outs), B, N, H, *plan_ints)
@@ -1252,12 +1341,14 @@ def _fwd_launch(fn, save: bool, plan, xg_f, xg_b, w_f, b_f, w_b, b_b):
 def bigru_fwd_cuda(xg_f, xg_b, w_f, b_f, w_b, b_b,
                    plan: Optional[tuple] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the light kernel of ``csrc/bigru_fwd.cu`` on the current
-    stream: ``(ys_f, ys_b)``. ``gru_fwd_kernel_route`` picks the unit,
-    tensor-core, cluster or stream kernel; ``plan=(cluster, rows)`` forces
-    the cluster kernel's plan, ``plan=("unit", rows)``, ``("stream",
-    cluster, rows)`` or ``("tc", cluster, rows)`` the unit, stream or
-    tensor-core kernel's (raises if it does not fit). Records the plan in
+    """Launch the light kernel of ``csrc/bigru_fwd.cu`` (the pipe kernel:
+    ``csrc/bigru_fwd_pipe.cu``) on the current stream: ``(ys_f, ys_b)``.
+    ``gru_fwd_kernel_route`` picks the unit, tensor-core, cluster, pipe or
+    stream kernel; ``plan=(cluster, rows)`` forces the cluster kernel's
+    plan, ``plan=("unit", rows)``, ``("pipe", cluster, rows)``,
+    ``("stream", cluster, rows)`` or ``("tc", cluster, rows)`` the unit,
+    pipe, stream or tensor-core kernel's (raises if it does not fit).
+    Records the plan in
     ``bigru_fwd_cuda.last_launch`` and counts each launch in
     ``bigru_fwd_cuda.launches``. Its outputs carry no autograd history:
     ``bigru_recurrence`` sends inputs that need a gradient to
@@ -1423,8 +1514,10 @@ def _gru_launch(fn, name: str, route, save: bool, ptrs, B, N, H, dev, T,
     (``csrc/bigru_bwd.cu``, the pipe kernel ``csrc/bigru_pipe.cu``) on the
     tensors ``ptrs`` (the BPTT's: W_hh first), on the unit kernel
     (``rnn_cuda.unit_plan``'s tile), the cluster kernel (``bigru_plan``'s
-    plan), the BPTT's pipe kernel (``rnn_cuda.pipe_plans``' plan; W_hh
-    packed by ``rnn_cuda.pipe_weights``) or the stream kernel
+    plan), the pipe kernel (the BPTT's: ``rnn_cuda.pipe_plans``' plan, W_hh
+    packed by ``rnn_cuda.pipe_weights``; the forward's:
+    ``rnn_cuda.fwd_pipe_plans``', ``rnn_cuda.fwd_pipe_weights``) or the
+    stream kernel
     (``bigru_stream_plans``' plan; the BPTT's reads W_hh^T) as ``route(H,
     1)`` says, or as the caller's ``plan`` ("unit", rows), ("cluster",
     cluster, rows), ("pipe", cluster, rows) or ("stream", cluster, rows)
@@ -1449,14 +1542,18 @@ def _gru_launch(fn, name: str, route, save: bool, ptrs, B, N, H, dev, T,
         lib, cluster, rows = _pipe_plan_launch(fn, B, H, dev, T, 1, forced)
         entry, plan_ints = f"{name}_pipe", (cluster, rows)
     elif kernel == "pipe":
-        raise ValueError(f"{name}: no pipe kernel; the BPTT takes plans "
-                         "('pipe', cluster, rows)")
+        lib, cluster, rows = _fwd_pipe_plan_launch(fn, B, H, dev, T, save, 1,
+                                                   forced)
+        entry, plan_ints = f"{name}_pipe", (cluster, rows)
     else:
         raise ValueError(f"{name}: plan must be ('unit', rows), ('cluster', "
-                         f"cluster, rows), ('pipe', cluster, rows) (the "
-                         f"BPTT) or ('stream', cluster, rows), got {plan}")
+                         f"cluster, rows), ('pipe', cluster, rows) or "
+                         f"('stream', cluster, rows), got {plan}")
     if src == "gru_bwd":
         ptrs = [*bwd_weights(kernel, ptrs[:1], plan_ints[0]), *ptrs[1:]]
+    else:
+        ptrs = [ptrs[0], *fwd_weights(kernel, ptrs[1:2], plan_ints[0]),
+                *ptrs[2:]]
     launch(lib, f"{entry}_{sfx}", dev, *(t.data_ptr() for t in ptrs), B, N,
            H, *plan_ints, int(reverse))
     fn.launches += 1
@@ -1482,8 +1579,10 @@ def _gru_fwd_launch(fn, save: bool, xg, w, b, reverse: bool, plan):
 def gru_fwd_cuda(xg, w, b, reverse: bool = False,
                  plan: Optional[tuple] = None) -> torch.Tensor:
     """Launch the light kernel of ``csrc/bigru_fwd.cu`` with a grid of one
-    direction on the current stream: ``ys``. ``plan=("unit", rows)`` or
-    ``("cluster", cluster, rows)`` overrides the route and the planner
+    direction on the current stream (the pipe kernel:
+    ``csrc/bigru_fwd_pipe.cu``): ``ys``. ``plan=("unit", rows)``,
+    ``("cluster", cluster, rows)``, ``("pipe", cluster, rows)`` or
+    ``("stream", cluster, rows)`` overrides the route and the planner
     (raises if it does not fit). Counts each launch in
     ``gru_fwd_cuda.launches``. Its output carries no autograd history:
     ``gru_recurrence_kernel`` sends inputs that need a gradient to

@@ -39,10 +39,16 @@ partial sums of dh) exchanged by ``st.async`` on mbarriers;
 ``lstm_reg_plan`` picks the cluster and the batch tile from the card's own
 counts. The first cluster kernel ("cluster": the slice in shared memory, a
 cluster barrier a step) stays for the A/B, reached by a forced plan. Above
-``CLUSTER_MAX_H``, where no block holds its share of W_hh, the stream
-kernel ("stream": the first cluster kernel reading its slice of W_hh from
-global memory every step, clusters of up to 16 blocks) takes the forward's
-widths whose exchange tile fits a block; ``stream_plans`` picks its plan.
+``CLUSTER_MAX_H``, where no block holds its share of W_hh, the forward
+takes its pipe kernel (``csrc/bilstm_fwd_pipe.cu``, a source of its own:
+"pipe", each block's slice of W_hh packed k-major by ``fwd_pipe_weights``
+and streamed through shared memory by a producer warp's bulk copies, the
+part that fits held, h exchanged by ``st.async`` on mbarriers;
+``fwd_pipe_plans`` picks the cluster and the batch tile) up to
+``LSTM_FWD_PIPE_MAX_H``; the stream kernel ("stream": the first cluster
+kernel reading its slice of W_hh from global memory every step, clusters
+of up to 16 blocks; ``stream_plans``) keeps the forward's wider widths
+whose exchange tile fits a block and is reached below by a forced plan.
 The BPTT there takes the pipe kernel (``csrc/bilstm_pipe.cu``, a source of
 its own: "pipe", the register kernel's K-split, each block's slice of W_hh streamed through shared memory by a
 producer warp's bulk copies, the part that fits held for the whole walk;
@@ -162,6 +168,45 @@ PIPE_MAX_STAGES = 32
 # latency, the waits and the block barrier) and one partial summed a cell
 PIPE_STEP_FIXED = 2000
 PIPE_CELL_PARTIAL = 8
+
+# The forward pipe kernels (the forwards above CLUSTER_MAX_H:
+# csrc/bilstm_fwd_pipe.cu bilstm_fwd_pipe_kernel, the LSTM's, and
+# csrc/bigru_fwd_pipe.cu bigru_fwd_pipe_kernel, the GRU's; one layout, the
+# GRU's fourth gate slot zero): clusters of 1 to FPIPE_MAX_CLUSTER blocks,
+# the block's slice of W_hh k-major in chunks of FPIPE_JK rows of k,
+# FPIPE_UNITS_WARP units a consumer warp (its four quarters summing
+# interleaved rows of k), at most FPIPE_MAX_WARPS consumer warps (above
+# FPIPE_NARROW_WARPS a wide block), tiles of FPIPE_ROWS rows (those of
+# FPIPE_GROUP_ROWS split into two row groups where the block has the warps
+# for them), a ring of FPIPE_RING stages where the slice does not fit, at
+# most FPIPE_MAX_STAGES chunks in shared memory (kFp* in the sources)
+FPIPE_JK = 16
+FPIPE_UNITS_WARP = 8
+FPIPE_MAX_CLUSTER = 16
+FPIPE_MAX_WARPS = 15
+FPIPE_NARROW_WARPS = 8
+FPIPE_ROWS = (1, 2, 4, 8, 12, 16)
+FPIPE_GROUP_ROWS = (8, 16)
+FPIPE_RING = 4
+FPIPE_MAX_STAGES = 64
+FPIPE_SOURCE = {4: "bilstm_fwd", 3: "bigru_fwd"}   # the queries' prefix
+# fwd_pipe_plans' cost model, in cycles: a lane's FMA (the card's rate
+# with one or two warps a scheduler: the product's loads and their latency
+# included), a step's fixed part (the wait, the shuffles, the exchange) and
+# a row of a warp's cells (their activations, stores and pieces sent); the
+# bytes of the streamed chunks one SM's ring brings in a cycle (the ring's
+# depth against the bulk copies' latency: 72 KiB a step took 7.6 K cycles)
+FPIPE_FMA_CYCLES = 2.5
+FPIPE_SM_L2 = 10
+# the SMs the blocks of a wave share (an H100 SXM's): blocks beyond them
+# run two to an SM and share its issue and its ring's L2 rate
+FPIPE_SMS = 132
+FPIPE_STEP_FIXED = 1500
+FPIPE_ROW_CELLS = 250
+# The LSTM forward's pipe route stops at the widest width its A/B times
+# (chip_smoke.py phase 40, PIPE_TIME): the first stream design keeps the
+# widths above
+LSTM_FWD_PIPE_MAX_H = 1816
 
 
 def bilstm_smem_bytes(hidden: int) -> int:
@@ -800,6 +845,205 @@ def pipe_weights(w: torch.Tensor, cluster: int) -> torch.Tensor:
     return wt.reshape(gates, cluster, U, HP).transpose(0, 1).contiguous()
 
 
+def fwd_pipe_hp(hidden: int) -> int:
+    """H padded to whole chunks of ``FPIPE_JK`` rows of k: the rows of the
+    forward pipe kernels' packed W_hh."""
+    return -(-hidden // FPIPE_JK) * FPIPE_JK
+
+
+def fwd_pipe_units(hidden: int, cluster: int) -> int:
+    """Hidden units one block of a forward pipe kernel owns: ceil(H / C) up
+    to a multiple of 4 (the exchange's 16-byte pieces at any tile); the
+    last block's slice is masked past H."""
+    return -(-slice_units(hidden, cluster) // 4) * 4
+
+
+def fwd_pipe_unit_warps(hidden: int, cluster: int) -> int:
+    """Warps that cover a forward pipe block's units once,
+    ``FPIPE_UNITS_WARP`` units each."""
+    return -(-fwd_pipe_units(hidden, cluster) // FPIPE_UNITS_WARP)
+
+
+def fwd_pipe_groups(hidden: int, cluster: int, rows: int) -> int:
+    """Row groups of a forward pipe block: tiles of ``FPIPE_GROUP_ROWS``
+    split into two halves, each walked by its own warps, where the block
+    stays within ``FPIPE_MAX_WARPS``; else one."""
+    return (2 if rows in FPIPE_GROUP_ROWS and 2 * fwd_pipe_unit_warps(
+        hidden, cluster) <= FPIPE_MAX_WARPS else 1)
+
+
+def fwd_pipe_warps(hidden: int, cluster: int, rows: int) -> int:
+    """Consumer warps of a forward pipe block: its unit warps in each row
+    group; the block adds a producer warp."""
+    return (fwd_pipe_unit_warps(hidden, cluster)
+            * fwd_pipe_groups(hidden, cluster, rows))
+
+
+def fwd_pipe_row_stride(rows: int) -> int:
+    """Floats of a row of the forward pipe kernels' h tile: the tile's
+    rows, 20 at 16 (so that a warp's four quarters read four rows of k
+    without a bank conflict)."""
+    return 20 if rows == 16 else rows
+
+
+def fwd_pipe_layout(hidden: int, cluster: int, rows: int, wbytes: int
+                    ) -> Tuple[int, int, int, int, int, int]:
+    """A block of a forward pipe kernel (either family's) at H, C and R with
+    W_hh of ``wbytes`` bytes a value (``<FPIPE_SOURCE>_pipe_layout`` of its
+    source, by ``what``): dynamic shared memory in bytes, threads, units,
+    chunks of the slice in shared memory, of those the ones held for the
+    whole walk, and the slice's chunks. Shared memory: as many chunks of
+    ``FPIPE_JK`` x U x 4 values as fit (at most the slice's and
+    ``FPIPE_MAX_STAGES``) beside the double-buffered h tile [2][TK][RS]
+    (TK: the cluster's units or ``fwd_pipe_hp(H)``, the larger; RS:
+    ``fwd_pipe_row_stride``) in float32 and the mbarriers; where the slice
+    does not fit, ``FPIPE_RING`` of them are the ring the other chunks
+    stream through."""
+    U = fwd_pipe_units(hidden, cluster)
+    hp = fwd_pipe_hp(hidden)
+    chunk = FPIPE_JK * U * 4 * wbytes
+    chunks = hp // FPIPE_JK
+    tk = max(cluster * U, hp)
+    fixed = 2 * tk * fwd_pipe_row_stride(rows) * 4 \
+        + (2 * FPIPE_MAX_STAGES + 2) * 8
+    stages = (0 if fixed >= MAX_SMEM_BYTES else
+              min(chunks, FPIPE_MAX_STAGES, (MAX_SMEM_BYTES - fixed) // chunk))
+    ring = 0 if stages >= chunks else min(stages, FPIPE_RING)
+    return (stages * chunk + fixed,
+            32 * (fwd_pipe_warps(hidden, cluster, rows) + 1), U, stages,
+            stages - ring, chunks)
+
+
+def _fwd_pipe_rule(hidden: int, cluster: int, rows: int,
+                   wbytes: int) -> bool:
+    """The forward pipe kernels' plan rule (``valid_fp_plan``): 1 to
+    ``FPIPE_MAX_CLUSTER`` blocks each owning a unit, at most
+    ``FPIPE_MAX_WARPS`` consumer warps, a tile of ``FPIPE_ROWS`` (16 rows
+    in two row groups only, 12 in a narrow block only: at most 8 rows a
+    warp in a wide one), and two chunks of the slice in shared memory at
+    least (one where the slice is one chunk)."""
+    if not (hidden > 0 and 1 <= cluster <= FPIPE_MAX_CLUSTER
+            and rows in FPIPE_ROWS):
+        return False
+    warps = fwd_pipe_warps(hidden, cluster, rows)
+    if (cluster - 1) * fwd_pipe_units(hidden, cluster) >= hidden \
+            or warps > FPIPE_MAX_WARPS \
+            or (rows == 16 and fwd_pipe_groups(hidden, cluster, rows) != 2) \
+            or (rows == 12 and warps > FPIPE_NARROW_WARPS):
+        return False
+    _, _, _, stages, _, chunks = fwd_pipe_layout(hidden, cluster, rows,
+                                                 wbytes)
+    return stages >= min(chunks, 2)
+
+
+def _fwd_pipe_plan_grid(hidden: int, wbytes: int) -> List[Tuple[int, int]]:
+    return [(c, rows) for c in range(1, FPIPE_MAX_CLUSTER + 1)
+            for rows in FPIPE_ROWS
+            if _fwd_pipe_rule(hidden, c, rows, wbytes)]
+
+
+def fwd_pipe_takes(hidden: int) -> bool:
+    """Whether any plan of the forward pipe kernels takes H in float32
+    (then also in bf16, whose chunks are half the bytes): H <= 1920."""
+    return bool(_fwd_pipe_plan_grid(hidden, 4))
+
+
+def check_fwd_pipe_mirror(layout, gates: int = 4) -> None:
+    """Hold ``_fwd_pipe_rule`` and ``fwd_pipe_layout`` to the built
+    forward pipe source of ``gates`` gates (``<FPIPE_SOURCE>_pipe_layout(
+    what, bf16, H, C, R)``, or -1 for a plan it does not take) over H,
+    every cluster size to one past the largest, every tile and a few
+    others, and both W_hh types; raises naming the first plan where they
+    differ."""
+    for hidden in (1, 7, 64, 139, 256, 257, 260, 320, 511, 512, 1000, 1024,
+                   1025, 1816, 2048, 2049):
+        for c in range(1, FPIPE_MAX_CLUSTER + 2):
+            for rows in (*FPIPE_ROWS, 3, 32):
+                for bf16 in (0, 1):
+                    wbytes = 2 if bf16 else 4
+                    want = (fwd_pipe_layout(hidden, c, rows, wbytes)
+                            if _fwd_pipe_rule(hidden, c, rows, wbytes)
+                            else (-1,) * 6)
+                    got = tuple(layout(what, bf16, hidden, c, rows)
+                                for what in range(6))
+                    if got != want:
+                        raise RuntimeError(
+                            f"{FPIPE_SOURCE[gates]}_pipe: the wrapper's plan "
+                            f"mirror gives {want} (shared bytes, threads, "
+                            "units, chunks there, held, of the slice) at "
+                            f"H={hidden}, plan {c}x{rows}, "
+                            f"{'bf16' if bf16 else 'f32'} W_hh, the built "
+                            f"source {got}: update FPIPE_* or "
+                            "fwd_pipe_layout to match the source")
+
+
+def rank_fwd_pipe_plans(plans, batch: int, hidden: int,
+                        resident: Callable[[int, int], int], dirs: int,
+                        wbytes: int, gates: int = 4) -> List[Tuple[int, int]]:
+    """The ``(cluster, rows)`` plans of the forward pipe kernel of
+    ``gates`` gates, fastest first.
+
+    A lane sums ``fwd_pipe_hp(H)`` / 4 rows of k, each ``gates`` x R2
+    FMAs (R2: its row group's rows) at ``FPIPE_FMA_CYCLES`` each, and the
+    block's warps share four schedulers; a wave's blocks beyond
+    ``FPIPE_SMS`` share SMs. So a block's step costs the largest of its FMA
+    time (the warps a scheduler runs x the lane's FMAs) and its streamed
+    chunks' L2 bytes at ``FPIPE_SM_L2``, both times the blocks an SM runs,
+    and the wave's at ``STREAM_CARD_L2``, plus ``FPIPE_STEP_FIXED`` and
+    ``FPIPE_ROW_CELLS`` for each of a warp's R2 rows; times the waves of
+    the grid of ``dirs`` directions (``resident(cluster, rows)`` clusters
+    at once, the card's own count; a plan the card runs none of is
+    dropped). Fitted to phase
+    40's sweeps on an H100 (PERF.md section 6). Ties go to the plan that
+    walks fewer rows past the batch, then the smaller tile, then the
+    larger cluster."""
+    quads = fwd_pipe_hp(hidden) // 4
+    keys = []
+    for c, rows in plans:
+        at_once = resident(c, rows)
+        if at_once <= 0:
+            continue
+        _, _, U, _, held, chunks = fwd_pipe_layout(hidden, c, rows, wbytes)
+        warps = fwd_pipe_warps(hidden, c, rows)
+        r2 = rows // fwd_pipe_groups(hidden, c, rows)
+        tiles = dirs * -(-batch // rows)
+        blocks = min(tiles, at_once) * c
+        streamed = (chunks - held) * FPIPE_JK * U * 4 * wbytes
+        share = -(-blocks // FPIPE_SMS)
+        step = (max(share * -(-warps // 4) * quads * gates * r2
+                    * FPIPE_FMA_CYCLES, share * streamed / FPIPE_SM_L2,
+                    blocks * streamed / STREAM_CARD_L2)
+                + FPIPE_STEP_FIXED + FPIPE_ROW_CELLS * r2)
+        keys.append((-(-tiles // at_once) * step, tiles * rows, rows, -c,
+                     c))
+    return [(c, rows) for *_, rows, _, c in sorted(keys)]
+
+
+def fwd_pipe_plans(batch: int, hidden: int,
+                   resident: Callable[[int, int], int], dirs: int = 2,
+                   wbytes: int = 4, gates: int = 4) -> List[Tuple[int, int]]:
+    """Every ``(cluster, rows)`` the forward pipe kernel of ``gates`` gates
+    takes at this batch and H over ``dirs`` directions with W_hh of
+    ``wbytes`` bytes (the stream dtype's), fastest first
+    (``rank_fwd_pipe_plans``)."""
+    return rank_fwd_pipe_plans(_fwd_pipe_plan_grid(hidden, wbytes), batch,
+                               hidden, resident, dirs, wbytes, gates)
+
+
+def fwd_pipe_weights(w: torch.Tensor, cluster: int) -> torch.Tensor:
+    """W_hh [H, gates x H] (the LSTM's four gates, the GRU's three) as a
+    forward pipe kernel reads it at cluster size C: [C, HP, U, 4]
+    (``fwd_pipe_units``, ``fwd_pipe_hp``), contiguous, so that block q's
+    slice is one run of HP x U x 4 values, value (k, u, g) holding W_hh[k,
+    g * H + q * U + u]; zero past H in both and, for the GRU, at g = 3."""
+    H = w.shape[0]
+    gates = w.shape[1] // H
+    U, HP = fwd_pipe_units(H, cluster), fwd_pipe_hp(H)
+    wk = F.pad(w.reshape(H, gates, H), (0, cluster * U - H, 0, 4 - gates,
+                                        0, HP - H))
+    return wk.reshape(HP, 4, cluster, U).permute(2, 0, 3, 1).contiguous()
+
+
 def _lstm_route(kind: str, hidden: int, wide: bool, wide_smem: int) -> str:
     name = f"bilstm_{kind}"
     if hidden <= 0:
@@ -811,8 +1055,12 @@ def _lstm_route(kind: str, hidden: int, wide: bool, wide_smem: int) -> str:
     if any(_reg_rule(kind, hidden, c, rows)
            for c in range(1, REG_MAX_CLUSTER + 1) for rows in REG_ROWS[kind]):
         return "reg"
-    # the BPTT's pipe kernel is routed only as far as the first stream
-    # design (its A/B in chip_smoke.py phase 40) takes H
+    # the forward's pipe kernel is routed as far as its A/B against the
+    # first stream design (chip_smoke.py phase 40) reaches, the BPTT's as
+    # far as the first stream design takes H
+    if kind == "fwd" and hidden <= LSTM_FWD_PIPE_MAX_H \
+            and fwd_pipe_takes(hidden):
+        return "pipe"
     if stream_takes(name, hidden) and (kind == "fwd" or pipe_takes(hidden)):
         return "stream" if kind == "fwd" else "pipe"
     pipe = ("the pipe kernel is routed where the first stream design takes "
@@ -829,10 +1077,13 @@ def lstm_fwd_kernel_route(hidden: int) -> str:
     ``hidden`` (whatever the batch, stream dtype or direction count):
     "unit" up to ``UNIT_MAX_H``, else "wide" where its W_hh fits one
     block's shared memory (H <= 118), else "reg" (the register cluster
-    kernel) up to ``CLUSTER_MAX_H``, else "stream" (the stream kernel)
-    where its h tile fits a block. The first cluster kernel ("cluster") is
-    reached only by a forced plan. Raises, naming the width and the card's
-    limit, for an H none takes."""
+    kernel) up to ``CLUSTER_MAX_H``, else "pipe" (the forward pipe kernel,
+    ``csrc/bilstm_fwd_pipe.cu``) up to ``LSTM_FWD_PIPE_MAX_H`` (the widest
+    width its A/B times), else "stream" (the first stream design) where its
+    h tile fits a block. The first cluster kernel ("cluster"), and the
+    stream kernel at the pipe kernel's widths, are reached only by a forced
+    plan. Raises, naming the width and the card's limit, for an H none
+    takes."""
     return _lstm_route("fwd", hidden,
                        4 * hidden <= 512
                        and bilstm_smem_bytes(hidden) <= MAX_SMEM_BYTES,
@@ -1150,6 +1401,9 @@ def _library(name: str):
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "bilstm_pipe":
         return _bind_pipe(lib, name, "bilstm_bwd", "lstm_bwd", 10, 5, 4)
+    if name == "bilstm_fwd_pipe":
+        return bind_fwd_pipe(lib, {"bilstm_fwd": 6, "bilstm_fwd_train": 10},
+                             {"lstm_fwd": 3, "lstm_fwd_train": 5}, 4)
     # pointers, then B, N, H (the forward: and the tile R and the wide
     # flag; the BPTT's unit kernel: and R), and the reverse flag of one
     # direction
@@ -1217,6 +1471,32 @@ def _bind_pipe(lib, name: str, two: str, one: str, n_ptr: int,
     return lib
 
 
+def bind_fwd_pipe(lib, two: dict, one: dict, gates: int):
+    """Bind a forward pipe kernel's library (``csrc/bilstm_fwd_pipe.cu``,
+    ``csrc/bigru_fwd_pipe.cu``): the entries ``<name>_pipe_<dtype>`` of
+    ``two`` (pointers of both directions by name, then B, N, H, C, R) and
+    of ``one`` (pointers of one direction, then B, N, H, C, R and the
+    reverse flag), and the queries ``<source>_pipe_max_active_clusters``
+    (the bf16 and kSave flags, H, C, R) and ``<source>_pipe_layout`` (what,
+    the bf16 flag, H, C, R), held to ``fwd_pipe_layout``
+    (``check_fwd_pipe_mirror``)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    source = FPIPE_SOURCE[gates]
+    for sfx in _SUFFIX.values():
+        for entries, ints in ((two, 5), (one, 6)):
+            for name, ptrs in entries.items():
+                fn = getattr(lib, f"{name}_pipe_{sfx}")
+                fn.argtypes = [p] * ptrs + [i] * ints + [p]
+                fn.restype = ctypes.c_int
+    for query in ("pipe_max_active_clusters", "pipe_layout"):
+        fn = getattr(lib, f"{source}_{query}")
+        fn.argtypes = [i] * 5
+        fn.restype = i
+    check_fwd_pipe_mirror(getattr(lib, f"{source}_pipe_layout"), gates)
+    set_error_string(lib, f"{source}_pipe")
+    return lib
+
+
 def bind_unit_queries(lib, name: str, gates: int, tiles: int = 1) -> None:
     """Bind ``<name>_unit_blocks_per_sm`` (the bf16 flag, the kSave flag,
     H, R) and ``<name>_unit_layout`` (what, H, R) of a unit kernel
@@ -1240,10 +1520,11 @@ def _cluster_resident(source: str, H: int, dev: torch.device, T,
                       save: bool, kernel: str = "cluster"
                       ) -> Callable[[int, int], int]:
     """``resident(cluster, rows)``: how many clusters of that plan of the
-    LSTM cluster kernel ``kernel`` ("cluster", "reg", "stream"; the BPTT's
-    also "pipe", whose library is ``csrc/bilstm_pipe.cu``'s) of ``source``
+    LSTM cluster kernel ``kernel`` ("cluster", "reg", "stream" or "pipe",
+    whose library is ``csrc/bilstm_pipe.cu``'s for the BPTT and
+    ``csrc/bilstm_fwd_pipe.cu``'s for the forward) of ``source``
     ("bilstm_fwd" or "bilstm_bwd") the card ``dev`` runs at once."""
-    query = getattr(_library("bilstm_pipe" if kernel == "pipe" else source),
+    query = getattr(_library(_lstm_library(source, kernel)),
                     f"{source}_{kernel}_max_active_clusters")
 
     def resident(c, rows):
@@ -1300,6 +1581,17 @@ def card_lstm_pipe_plans(B: int, H: int, dev: torch.device,
         dirs, dtype.itemsize)
 
 
+def card_lstm_fwd_pipe_plans(B: int, H: int, dev: torch.device,
+                             dtype: torch.dtype, save: bool,
+                             dirs: int) -> List[Tuple[int, int]]:
+    """``fwd_pipe_plans`` of the LSTM forward's pipe kernel on the card
+    ``dev`` (its own counts), fastest first; the first is the plan a launch
+    takes."""
+    return fwd_pipe_plans(
+        B, H, _cluster_resident("bilstm_fwd", H, dev, dtype, save, "pipe"),
+        dirs, dtype.itemsize)
+
+
 def card_name(dev: torch.device) -> str:
     """The card's name, for an error that names where a plan failed."""
     return (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -1308,17 +1600,26 @@ def card_name(dev: torch.device) -> str:
 
 def _plan_rules(kind: str, H: int, T: torch.dtype):
     """The register (``"reg"``), first (``"cluster"``), stream
-    (``"stream"``) and, for the BPTT, pipe (``"pipe"``) cluster kernels'
-    plan test, planners (every plan, fastest first) and plan rule as text,
-    for ``cluster_launch_plan``."""
+    (``"stream"``) and pipe (``"pipe"``: the BPTT's or the forward's)
+    cluster kernels' plan test, planners (every plan, fastest first) and
+    plan rule as text, for ``cluster_launch_plan``."""
     source = f"bilstm_{kind}"
-    pipe = {} if kind != "bwd" else {"pipe": (
+    pipe = {"pipe": (
         lambda c, r: _pipe_rule(H, c, r, T.itemsize),
         lambda kind_, B, H_, res, dirs: pipe_plans(B, H_, res, dirs,
                                                    T.itemsize),
         f"1 to {PIPE_MAX_CLUSTER} blocks each owning a unit, a tile of "
         f"{PIPE_ROWS[min(pipe_kpt(H), 2)]} rows, at most {PIPE_CELLS} cells "
-        "a thread, two chunks of W_hh's slice in shared memory")}
+        "a thread, two chunks of W_hh's slice in shared memory")
+    } if kind == "bwd" else {"pipe": (
+        lambda c, r: _fwd_pipe_rule(H, c, r, T.itemsize),
+        lambda kind_, B, H_, res, dirs: fwd_pipe_plans(B, H_, res, dirs,
+                                                       T.itemsize),
+        f"1 to {FPIPE_MAX_CLUSTER} blocks each owning a unit, at most "
+        f"{FPIPE_MAX_WARPS} consumer warps of {FPIPE_UNITS_WARP} units, a "
+        f"tile of {FPIPE_ROWS} rows (16 in two row groups, 12 in at most "
+        f"{FPIPE_NARROW_WARPS} warps), two chunks of W_hh's slice in shared "
+        "memory")}
     return {**pipe,
         "reg": (lambda c, r: _reg_rule(kind, H, c, r), lstm_reg_plans,
                 f"H at most {CLUSTER_MAX_H}, 1 to {REG_MAX_CLUSTER} blocks "
@@ -1521,13 +1822,14 @@ def _plan(fn, source: str, name: str, B: int, H: int, dev, T, save: bool,
     "stream" or "cluster") and the plan's integers of a launch of
     ``source`` ("bilstm_fwd" or "bilstm_bwd"): the route's kernel with
     ``unit_plan``'s tile ``(rows,)``, the wide kernel's ``(4,)``,
-    ``lstm_reg_plan``'s, ``pipe_plans``' or ``stream_plans``' ``(cluster,
-    rows)``; or the caller's ``plan`` ("unit", rows), ("wide", 4), ("reg",
-    cluster, rows), ("pipe", cluster, rows) (the BPTT), ("stream", cluster,
-    rows) or ("cluster", cluster, rows), the first cluster kernel's.
+    ``lstm_reg_plan``'s, ``pipe_plans``' (the BPTT), ``fwd_pipe_plans``'
+    (the forward) or ``stream_plans``' ``(cluster, rows)``; or the caller's
+    ``plan`` ("unit", rows), ("wide", 4), ("reg", cluster, rows), ("pipe",
+    cluster, rows), ("stream", cluster, rows) or ("cluster", cluster,
+    rows), the first cluster kernel's.
     Recorded in ``fn.last_launch``."""
     kernel = _kernel(source, H, plan)
-    lib = _library("bilstm_pipe" if kernel == "pipe" else source)
+    lib = _library(_lstm_library(source, kernel))
     forced = None if plan is None else tuple(plan[1:])
     if kernel == "unit":
         if H > UNIT_MAX_H:
@@ -1551,12 +1853,22 @@ def _plan(fn, source: str, name: str, B: int, H: int, dev, T, save: bool,
     return lib, kernel, (_ROWS_PER_BLOCK,)
 
 
+def _lstm_library(source: str, kernel: str) -> str:
+    """The kernel library of ``kernel`` of ``source``: the pipe kernels'
+    sources of their own (``csrc/bilstm_pipe.cu`` for the BPTT,
+    ``csrc/bilstm_fwd_pipe.cu`` for the forward), else ``source``'s."""
+    if kernel != "pipe":
+        return source
+    return "bilstm_pipe" if source == "bilstm_bwd" else "bilstm_fwd_pipe"
+
+
 def _fwd_plan_args(lib_name: str, kernel: str, ints) -> Tuple[str, tuple]:
-    """The entry point of ``csrc/bilstm_fwd.cu`` and the plan's integers
-    it takes: the cluster entries (``<name>_reg_*``, ``<name>_stream_*``,
-    ``<name>_cluster_*``) take (C, R), the others the unit tile or 4 and
-    the wide flag."""
-    if kernel in ("cluster", "reg", "stream"):
+    """The entry point of ``csrc/bilstm_fwd.cu`` (the pipe kernel's:
+    ``csrc/bilstm_fwd_pipe.cu``) and the plan's integers it takes: the
+    cluster entries (``<name>_reg_*``, ``<name>_pipe_*``,
+    ``<name>_stream_*``, ``<name>_cluster_*``) take (C, R), the others the
+    unit tile or 4 and the wide flag."""
+    if kernel in ("cluster", "reg", "stream", "pipe"):
         return f"{lib_name}_{kernel}", tuple(ints)
     return lib_name, (ints[0], int(kernel == "wide"))
 
@@ -1575,7 +1887,7 @@ def _bilstm_fwd_launch(fn, save: bool, xg_f, xg_b, w_f, w_b, plan):
     lib, kernel, ints = _plan(fn, "bilstm_fwd", name, B, H, dev, T, save, 2,
                               plan)
     entry, ints = _fwd_plan_args(name, kernel, ints)
-    w_f, w_b = w_f.to(T), w_b.to(T)
+    w_f, w_b = fwd_weights(kernel, (w_f.to(T), w_b.to(T)), ints[0])
     launch(lib, f"{entry}_{_SUFFIX[T]}", dev,
            *(t.data_ptr() for t in (xg_f, xg_b, w_f, w_b, *outs)), B, N, H,
            *ints)
@@ -1587,10 +1899,12 @@ def bilstm_fwd_cuda(xg_f: torch.Tensor, xg_b: torch.Tensor,
                     w_f: torch.Tensor, w_b: torch.Tensor,
                     plan: Optional[Tuple[str, int]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the light kernel of ``csrc/bilstm_fwd.cu`` on the current
-    stream. ``plan=("unit", rows)``, ``("wide", 4)``, ``("reg", cluster,
-    rows)`` or ``("cluster", cluster, rows)`` overrides the route and the
-    planner (raises if it does not fit). Records the plan in
+    """Launch the light kernel of ``csrc/bilstm_fwd.cu`` (the pipe kernel:
+    ``csrc/bilstm_fwd_pipe.cu``) on the current stream. ``plan=("unit",
+    rows)``, ``("wide", 4)``, ``("reg", cluster, rows)``, ``("pipe",
+    cluster, rows)``, ``("stream", cluster, rows)`` or ``("cluster",
+    cluster, rows)`` overrides the route and the planner (raises if it
+    does not fit). Records the plan in
     ``bilstm_fwd_cuda.last_launch``. Counts each launch in
     ``bilstm_fwd_cuda.launches``. Its outputs carry no autograd history:
     ``bilstm_recurrence`` sends inputs that need a gradient to
@@ -1614,6 +1928,15 @@ def bilstm_fwd_train_cuda(xg_f: torch.Tensor, xg_b: torch.Tensor,
 
 
 bilstm_fwd_train_cuda.launches = 0
+
+
+def fwd_weights(kernel: str, weights, cluster: int = 1) -> list:
+    """The forward's W_hh as a launch of ``kernel`` reads it: the pipe
+    kernels packed for their cluster size (``fwd_pipe_weights``), every
+    other kernel W_hh itself."""
+    if kernel == "pipe":
+        return [fwd_pipe_weights(w, cluster) for w in weights]
+    return list(weights)
 
 
 def bwd_weights(kernel: str, weights, cluster: int = 1) -> list:
@@ -1701,7 +2024,7 @@ def _lstm_fwd_launch(fn, save: bool, xg, w, reverse: bool, plan):
     lib, kernel, ints = _plan(fn, "bilstm_fwd", name, B, H, dev, T, save, 1,
                               plan)
     entry, ints = _fwd_plan_args(name, kernel, ints)
-    w = w.to(T)
+    (w,) = fwd_weights(kernel, (w.to(T),), ints[0])
     launch(lib, f"{entry}_{_SUFFIX[T]}", dev,
            xg.data_ptr(), w.data_ptr(), *(o.data_ptr() for o in outs),
            B, N, H, *ints, int(reverse))

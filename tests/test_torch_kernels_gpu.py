@@ -1064,13 +1064,13 @@ def test_tta_serving_card_matches_cpu(cuda):
 # The stream kernels (the widths above the cluster kernels': W_hh read from
 # global memory every step, clusters of up to 16 blocks) at H in {257, 320,
 # 512} x B in {1, 5, 32}, a short walk, float32 and bf16, both direction
-# counts: the LSTM's six wrappers (the BPTT's, whose route is now the pipe
-# kernel, by a forced plan) and BiLSTMFunction's / LSTMFunction's gradients
+# counts: the LSTM's six wrappers (by a forced plan: the routes there are
+# now the pipe kernels) and BiLSTMFunction's / LSTMFunction's gradients
 # through the route (its BPTT bit-equal run to run), the GRU's six (the
-# stream plan forced where another kernel takes the route: a cluster plan
-# at 320, the BPTT's pipe kernel above 256) and BiGRUFunction's gradients
-# where the route takes the stream kernel; against the plain versions at
-# the bounds above.
+# stream plan forced where another kernel takes the route: every width
+# here since the forward pipe kernel, the BPTT's pipe kernel above 256)
+# and BiGRUFunction's gradients where the route takes the stream kernel;
+# against the plain versions at the bounds above.
 # The pipe kernel (the LSTM BPTT's route above H=256) at the same shapes
 # and at PIPE_WIDTHS, on its route and under the card's next plans, and its
 # plans that do not fit refused.
@@ -1084,18 +1084,18 @@ STREAM_N = 9
 @pytest.mark.parametrize("H", STREAM_WIDTHS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lstm_stream_kernels_match_plain(cuda, H, dtype):
-    assert rnn_cuda.lstm_fwd_kernel_route(H) == "stream"
+    assert rnn_cuda.lstm_fwd_kernel_route(H) == "pipe"
     assert rnn_cuda.lstm_bwd_kernel_route(H) == "pipe"
     for B in STREAM_BATCHES:
         shape = (B, STREAM_N, H)
         for fn, ins, ref, dirs, save in _lstm_fwd_cases(shape, dtype, cuda):
-            got = fn(*ins)
+            first = rnn_cuda.card_lstm_stream_plans("fwd", B, H, cuda, dtype,
+                                                    save, dirs)[0]
+            got = fn(*ins, plan=("stream", *first))
             got = got if isinstance(got, tuple) else (got,)
             last = fn.last_launch
             assert last["kernel"] == "stream", last
-            assert (last["cluster"], last["rows"]) == \
-                rnn_cuda.card_lstm_stream_plans("fwd", B, H, cuda, dtype,
-                                                save, dirs)[0]
+            assert (last["cluster"], last["rows"]) == first
             for a, r in zip(got, ref):
                 _assert_close(a, r, dtype)
         first = ("stream", *rnn_cuda.card_lstm_stream_plans(
@@ -1133,8 +1133,9 @@ def test_lstm_pipe_kernels_match_plain(cuda, H, dtype):
 
 def test_lstm_pipe_plans_that_do_not_fit_raise(cuda):
     """A pipe plan over 16 blocks, with a tile it has not, or whose block
-    holds more cells than its threads is refused before any launch; the
-    forward has no pipe kernel."""
+    holds more cells than its threads is refused before any launch; so is
+    a forward pipe plan over 16 blocks, with a tile it has not or whose
+    block needs more than 16 consumer warps."""
     args = [t.to(cuda) for t in _inputs(5, 4, 512, cuda)]
     res = rnn_cuda.bilstm_fwd_train_plain(*args)
     bwd = (args[2], args[3], res[4], res[2], res[0], res[5], res[3], res[1])
@@ -1144,9 +1145,12 @@ def test_lstm_pipe_plans_that_do_not_fit_raise(cuda):
             rnn_cuda.bilstm_bwd_cuda(*bwd, plan=bad)
         with pytest.raises(ValueError, match="does not fit"):
             rnn_cuda.lstm_bwd_cuda(bwd[0], *bwd[2:5], plan=bad)
-    with pytest.raises(ValueError, match="no pipe kernel"):
-        rnn_cuda.bilstm_fwd_cuda(*args, plan=("pipe", 16, 4))
+    fwd_before = rnn_cuda.bilstm_fwd_cuda.launches
+    for bad in (("pipe", 17, 4), ("pipe", 16, 6), ("pipe", 1, 16)):
+        with pytest.raises(ValueError, match="does not fit"):
+            rnn_cuda.bilstm_fwd_cuda(*args, plan=bad)
     assert rnn_cuda.bilstm_bwd_cuda.launches == before
+    assert rnn_cuda.bilstm_fwd_cuda.launches == fwd_before
 
 
 # The GRU BPTT's pipe kernel (csrc/bigru_pipe.cu: the route of #6 and #8
@@ -1243,7 +1247,8 @@ def test_gru_pipe_next_plans_match_plain(cuda, dtype):
 def test_gru_pipe_plans_that_do_not_fit_raise(cuda):
     """A pipe plan over 16 blocks, with a tile it has not, whose block
     holds more cells than its threads, or above H=1024 is refused before
-    any launch; the forwards have no pipe kernel."""
+    any launch; so is a forward pipe plan over 16 blocks, with a tile it
+    has not or whose block needs more than 16 consumer warps."""
     args = _bwd_args((5, 4, 512), torch.float32, cuda)
     before = (gru_cuda.bigru_bwd_cuda.launches,
               gru_cuda.gru_bwd_cuda.launches)
@@ -1257,12 +1262,18 @@ def test_gru_pipe_plans_that_do_not_fit_raise(cuda):
     with pytest.raises(ValueError, match="does not fit H=1032"):
         gru_cuda.bigru_bwd_cuda(*wide, plan=("pipe", 16, 1))
     ins = _gru_inputs(5, 4, 512, torch.float32, cuda)
-    with pytest.raises(ValueError, match="no pipe kernel"):
-        gru_cuda.bigru_fwd_cuda(*ins, plan=("pipe", 16, 4))
-    with pytest.raises(ValueError, match="no pipe kernel"):
-        gru_cuda.gru_fwd_cuda(ins[0], ins[2], ins[3], plan=("pipe", 16, 4))
+    fwd_before = (gru_cuda.bigru_fwd_cuda.launches,
+                  gru_cuda.gru_fwd_cuda.launches)
+    for bad in (("pipe", 17, 4), ("pipe", 16, 6), ("pipe", 1, 16)):
+        with pytest.raises(ValueError, match=f"plan {bad[1]}x{bad[2]} does "
+                                             "not fit"):
+            gru_cuda.bigru_fwd_cuda(*ins, plan=bad)
+        with pytest.raises(ValueError, match="does not fit"):
+            gru_cuda.gru_fwd_cuda(ins[0], ins[2], ins[3], plan=bad)
     assert (gru_cuda.bigru_bwd_cuda.launches,
             gru_cuda.gru_bwd_cuda.launches) == before
+    assert (gru_cuda.bigru_fwd_cuda.launches,
+            gru_cuda.gru_fwd_cuda.launches) == fwd_before
 
 
 def _gru_stream_plan(kind, B, H, cuda, dtype, dirs, save=False):
@@ -1279,6 +1290,7 @@ def _gru_stream_plan(kind, B, H, cuda, dtype, dirs, save=False):
 @pytest.mark.parametrize("H", STREAM_WIDTHS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gru_stream_kernels_match_plain(cuda, H, dtype):
+    assert gru_cuda.gru_fwd_kernel_route(H, 2, dtype) == "pipe"
     bound = GRAD_REL if dtype == torch.float32 else 0.1
     for B in STREAM_BATCHES:
         shape = (B, STREAM_N, H)
@@ -1324,6 +1336,151 @@ def test_gru_stream_kernels_match_plain(cuda, H, dtype):
                 assert a.dtype == r.dtype and torch.isfinite(a).all(), name
                 assert _max_rel(a.float(), r.float()) <= bound, (B, name)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The forward pipe kernels (csrc/bilstm_fwd_pipe.cu and csrc/bigru_fwd_pipe.cu:
+# the route of #1/#1t, #3/#3t, #5/#5t and #7/#7t above H=256) at
+# STREAM_WIDTHS x STREAM_BATCHES, float32 and bf16: the eight forward
+# wrappers on the route against the plain versions, bit-equal run to run,
+# and the four Functions' gradients through the new forward; the card's
+# next plans at one shape; plans that do not fit refused.
+# ---------------------------------------------------------------------------
+
+
+def _gru_fwd_cases(shape, dtype, cuda):
+    ins = _gru_inputs(*shape, dtype, cuda)
+    return ((gru_cuda.bigru_fwd_cuda, ins, gru_cuda.bigru_fwd_plain(*ins), 2,
+             False),
+            (gru_cuda.bigru_fwd_train_cuda, ins,
+             gru_cuda.bigru_fwd_train_plain(*ins), 2, True),
+            (gru_cuda.gru_fwd_cuda, (ins[1], ins[4], ins[5], True),
+             (gru_cuda.gru_recurrence(ins[1], ins[4], ins[5], True),), 1,
+             False),
+            (gru_cuda.gru_fwd_train_cuda, (ins[0], ins[2], ins[3], False),
+             gru_cuda.gru_fwd_train_plain(ins[0], ins[2], ins[3]), 1, True))
+
+
+def _fwd_cases(family, shape, dtype, cuda):
+    return (_lstm_fwd_cases if family == "lstm" else _gru_fwd_cases)(
+        shape, dtype, cuda)
+
+
+def _card_fwd_pipe_plans(family, B, H, cuda, dtype, save, dirs):
+    if family == "lstm":
+        return rnn_cuda.card_lstm_fwd_pipe_plans(B, H, cuda, dtype, save,
+                                                 dirs)
+    return gru_cuda.card_gru_fwd_pipe_plans(B, H, cuda, dtype, save, dirs)
+
+
+def _check_fwd_pipe(cuda, family, shape, dtype, plans_of):
+    """The four forward wrappers of ``family`` under each plan
+    ``plans_of(save, dirs)`` gives (None: the route, the planner's pick),
+    on the pipe kernel, bit-equal run to run, against the plain versions;
+    returns the plans checked."""
+    B, N, H = shape
+    seen = []
+    for fn, ins, ref, dirs, save in _fwd_cases(family, shape, dtype, cuda):
+        card = _card_fwd_pipe_plans(family, B, H, cuda, dtype, save, dirs)
+        assert card
+        for plan in plans_of(card):
+            kw = {} if plan is None else {"plan": plan}
+            before = fn.launches
+            got = fn(*ins, **kw)
+            got = got if isinstance(got, tuple) else (got,)
+            assert fn.launches == before + 1
+            last = fn.last_launch
+            assert last["kernel"] == "pipe", last
+            assert (last["cluster"], last["rows"]) == (
+                card[0] if plan is None else plan[1:]), last
+            again = fn(*ins, **kw)
+            again = again if isinstance(again, tuple) else (again,)
+            for a, a2, r in zip(got, again, ref):
+                assert torch.equal(a, a2), plan
+                _assert_close(a, r, dtype)
+            seen.append((fn.__name__, plan))
+    torch.cuda.synchronize()
+    return seen
+
+
+@pytest.mark.parametrize("family", ["lstm", "gru"])
+@pytest.mark.parametrize("H", STREAM_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_pipe_kernels_match_plain(cuda, family, H, dtype):
+    route = (rnn_cuda.lstm_fwd_kernel_route(H) if family == "lstm" else
+             gru_cuda.gru_fwd_kernel_route(H, 2, dtype))
+    assert route == "pipe"
+    bound = GRAD_REL if dtype == torch.float32 else 0.1
+    for B in STREAM_BATCHES:
+        shape = (B, STREAM_N, H)
+        _check_fwd_pipe(cuda, family, shape, dtype, lambda card: [None])
+        # the Functions' gradients through the new forward (and the BPTT's
+        # pipe route)
+        if family == "lstm":
+            ins = [t.to(dtype) if t.dim() == 3 else t
+                   for t in _inputs(*shape, cuda)]
+            both, plain_both = (rnn_cuda.bilstm_recurrence,
+                                rnn_cuda.bilstm_recurrence_plain)
+            one = (rnn_cuda.lstm_recurrence_kernel, rnn_cuda.lstm_recurrence,
+                   (ins[0], ins[2]), rnn_cuda.lstm_fwd_train_cuda)
+            fwd_train = rnn_cuda.bilstm_fwd_train_cuda
+        else:
+            ins = _gru_inputs(*shape, dtype, cuda)
+            both, plain_both = (gru_cuda.bigru_recurrence,
+                                gru_cuda.bigru_fwd_plain)
+            one = (gru_cuda.gru_recurrence_kernel, gru_cuda.gru_recurrence,
+                   (ins[0], ins[2], ins[3]), gru_cuda.gru_fwd_train_cuda)
+            fwd_train = gru_cuda.bigru_fwd_train_cuda
+        g = torch.Generator(cuda).manual_seed(5)
+        dys = [torch.randn(B, STREAM_N, H, device=cuda, generator=g
+                           ).to(dtype) for _ in range(2)]
+        x = [t.clone().requires_grad_(True) for t in ins]
+        got = torch.autograd.grad(both(*x), x, dys)
+        assert fwd_train.last_launch["kernel"] == "pipe"
+        ref = torch.autograd.grad(plain_both(*x), x, dys)
+        for i, (a, r) in enumerate(zip(got, ref)):
+            assert a.dtype == r.dtype and torch.isfinite(a).all(), i
+            assert _max_rel(a.float(), r.float()) <= bound, (B, i)
+        kernel_fn, plain_fn, args, train_one = one
+        for rev in (False, True):
+            x = [t.clone().requires_grad_(True) for t in args]
+            got = torch.autograd.grad(kernel_fn(*x, rev), x, dys[0])
+            assert train_one.last_launch["kernel"] == "pipe"
+            ref = torch.autograd.grad(plain_fn(*x, rev), x, dys[0])
+            for i, (a, r) in enumerate(zip(got, ref)):
+                assert a.dtype == r.dtype and torch.isfinite(a).all(), i
+                assert _max_rel(a.float(), r.float()) <= bound, (B, i, rev)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("family", ["lstm", "gru"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_pipe_next_plans_match_plain(cuda, family, dtype):
+    """The four forward wrappers under the card's next three pipe plans at
+    (5, 9, 512) and (32, 9, 512) (the first is the route's), forced."""
+    for B in (5, 32):
+        seen = _check_fwd_pipe(
+            cuda, family, (B, STREAM_N, 512), dtype,
+            lambda card: [("pipe", *p) for p in card[1:4]])
+        assert seen
+
+
+def test_fwd_pipe_plans_that_do_not_fit_raise(cuda):
+    """A forward pipe plan over 16 blocks, with a tile it has not, whose
+    block needs more than 16 consumer warps, or with 16 rows where the
+    block has no room for two row groups is refused, naming the plan,
+    before any launch."""
+    shape = (5, 4, 1816)
+    for family in ("lstm", "gru"):
+        for fn, ins, _, _, _ in _fwd_cases(family, shape, torch.float32,
+                                           cuda):
+            before = fn.launches
+            for bad in (("pipe", 17, 4), ("pipe", 16, 6), ("pipe", 1, 16),
+                        ("pipe", 16, 16)):
+                with pytest.raises(ValueError,
+                                   match=f"{bad[1]}x{bad[2]} does not fit"):
+                    fn(*ins, plan=bad)
+            assert fn.launches == before
 
 
 # ---------------------------------------------------------------------------

@@ -93,7 +93,7 @@ def test_shapes_no_kernel_takes_raise(hidden):
     """No LSTM forward kernel takes H <= 0 (the error names the width); no
     register cluster plan takes H above 256 and no cluster plan of the GRU
     one at H=526 (their planners' errors name the width): those widths
-    take the stream kernel."""
+    take the forward pipe kernels."""
     if hidden <= 0:
         with pytest.raises(ValueError, match="H"):
             lstm_fwd_kernel_route(hidden)
@@ -102,11 +102,11 @@ def test_shapes_no_kernel_takes_raise(hidden):
         return
     with pytest.raises(ValueError, match=f"H={hidden}"):
         rnn_cuda.lstm_reg_plan("fwd", 8, hidden, _reg_clusters)
-    assert lstm_fwd_kernel_route(hidden) == "stream"
+    assert lstm_fwd_kernel_route(hidden) == "pipe"
     # W_hh of H=526 = 2 x 263 fits no cluster size that divides it
     with pytest.raises(ValueError, match="cluster"):
         bigru_plan("fwd", 8, 526, _clusters, dirs=1)
-    assert gru_fwd_kernel_route(526, 1) == "stream"
+    assert gru_fwd_kernel_route(526, 1) == "pipe"
 
 
 def test_unit_layout_mirrors():
@@ -170,6 +170,8 @@ def fake_card(monkeypatch):
                         lambda kind, *a: (f"bigru_{kind}", _stream_clusters))
     monkeypatch.setattr(gru_cuda, "_pipe_resident",
                         lambda *a: ("bigru_pipe", _stream_clusters))
+    monkeypatch.setattr(gru_cuda, "_fwd_pipe_resident",
+                        lambda *a: ("bigru_fwd_pipe", _stream_clusters))
     monkeypatch.setattr(rnn_cuda, "_cluster_resident",
                         lambda *a: _reg_clusters if "reg" in a
                         else _stream_clusters if "stream" in a or "pipe" in a
@@ -549,9 +551,9 @@ def test_tc_route_takes_bf16_two_directions(route):
     (also the default dtype) keeps the cluster kernel; one direction keeps
     its route whatever the dtype; an H no tensor-core plan takes (not a
     multiple of 16, above 256, or no 8-unit warps at C = 4 and 8) keeps
-    the cluster kernel, or the stream kernel where no cluster plan fits
-    either (H=512); the BPTT above H=256 takes the pipe kernel (H=264,
-    where a cluster plan fits, and 512)."""
+    the cluster kernel, or above H=256 the pipe kernel (the forward's at
+    H=264, where a cluster plan fits: faster at H=320, and
+    at 512); the BPTT above H=256 takes its pipe kernel (H=264 and 512)."""
     bf16 = torch.bfloat16
     assert route(256, 2, bf16) == route(128, 2, bf16) == "tc"
     assert route(64, 2, bf16) == route(32, 2, bf16) == "unit"
@@ -560,8 +562,8 @@ def test_tc_route_takes_bf16_two_directions(route):
     fwd = route is gru_fwd_kernel_route
     for hidden in (72, 88):
         assert route(hidden, 2, bf16) == "cluster", hidden
-    assert route(264, 2, bf16) == ("cluster" if fwd else "pipe")
-    assert route(512, 2, bf16) == ("stream" if fwd else "pipe")
+    assert route(264, 2, bf16) == "pipe"
+    assert route(512, 2, bf16) == "pipe"
 
 
 @pytest.mark.parametrize("kind", ["fwd", "bwd"])
@@ -944,14 +946,13 @@ def test_cluster_routes_launch_and_record(fake_card):
 def test_reg_route_above_the_wide_kernels(kind, first):
     """The forward's widths 119..256 and the BPTT's 117..256 take the
     register cluster kernel; the unit and wide kernels keep theirs below;
-    257 takes the stream kernel in the forward, the pipe kernel in the
-    BPTT."""
+    257 takes the pipe kernels (the forward's and the BPTT's)."""
     route = (lstm_fwd_kernel_route if kind == "fwd"
              else lstm_bwd_kernel_route)
     assert [route(h) for h in range(first, 257)] == ["reg"] * (257 - first)
     assert {route(h) for h in range(1, 65)} == {"unit"}
     assert {route(h) for h in range(65, first)} == {"wide"}
-    assert route(257) == ("stream" if kind == "fwd" else "pipe")
+    assert route(257) == "pipe"
 
 
 def _reg_source(kind, hidden, c, rows, every_block=True, cells=True):
@@ -1134,8 +1135,9 @@ def test_every_width_to_1024_has_a_route(family):
     directions, float32 and bf16, gets a route on the H100's counts; up to
     H=256 every pick of before stays but the BiGRU's at H <= 64 (now the
     unit kernel), and above it every width a cluster plan took keeps it
-    but the GRU BPTT's; the stream route (the BPTTs': the pipe route) has
-    a plan in each direction count and dtype."""
+    but the GRU BPTT's and the GRU
+    forward's; the pipe routes (the forwards' and the BPTTs') have a plan
+    in each direction count and dtype."""
     for hidden in range(1, 1025):
         for kind in ("fwd", "bwd"):
             if family == "lstm":
@@ -1153,12 +1155,12 @@ def test_every_width_to_1024_has_a_route(family):
                                 32, hidden, _stream_clusters, dirs,
                                 wbytes), hidden
                 else:
-                    assert route == "stream", (kind, hidden)
+                    assert route == "pipe", (kind, hidden)
                     for dirs in (1, 2)[:1 + (hidden % 61 == 0)]:
                         for wbytes in (4, 2):
-                            assert rnn_cuda.stream_plans(
-                                f"bilstm_{kind}", 32, hidden,
-                                _stream_clusters, dirs, wbytes), hidden
+                            assert rnn_cuda.fwd_pipe_plans(
+                                32, hidden, _stream_clusters, dirs,
+                                wbytes), hidden
                 continue
             route_fn = (gru_fwd_kernel_route if kind == "fwd"
                         else gru_bwd_kernel_route)
@@ -1172,6 +1174,12 @@ def test_every_width_to_1024_has_a_route(family):
                         assert route == "pipe", (hidden, dtype, dirs)
                         if hidden % 61 == 0:
                             assert rnn_cuda.pipe_plans(
+                                32, hidden, _stream_clusters, dirs,
+                                dtype.itemsize, 3), hidden
+                    elif hidden > 256:
+                        assert route == "pipe", (hidden, dtype, dirs)
+                        if hidden % 61 == 0:
+                            assert rnn_cuda.fwd_pipe_plans(
                                 32, hidden, _stream_clusters, dirs,
                                 dtype.itemsize, 3), hidden
                     elif before != "cluster" or hidden <= 256 or \
@@ -1298,9 +1306,9 @@ def test_stream_entries_launch_and_record(fake_card, name):
     cluster plan of the GRU fits either) launches ``<name>_stream_<dtype>``
     with its pointers, then B, N, H, C, R (and a one-direction grid's
     reverse flag), the stream planner's plan for its direction count and
-    dtype (the BPTTs', whose route is the pipe kernel, forced), and
-    records it; the count rises by one a launch; a forced ("stream", C, R)
-    is taken, one that does not fit refused before any launch."""
+    dtype forced (every route there is a pipe kernel), and records it; the
+    count rises by one a launch; a forced ("stream", C, R) is taken, one
+    that does not fit refused before any launch."""
     lstm = name in _STREAM_LSTM
     n_ptr, one_dir = (_STREAM_LSTM if lstm else _STREAM_GRU)[name]
     source = (("bilstm_bwd" if name.endswith("bwd") else "bilstm_fwd")
@@ -1314,8 +1322,7 @@ def test_stream_entries_launch_and_record(fake_card, name):
                                      dtype.itemsize)[0]
         fn = getattr(rnn_cuda if lstm else gru_cuda, f"{name}_cuda")
         before = fn.launches
-        call(name, B, 1, H, dtype, plan=("stream", *want)
-             if source in ("bilstm_bwd", "bigru_bwd") else None)
+        call(name, B, 1, H, dtype, plan=("stream", *want))
         assert fn.launches == before + 1
         called, args = fake_card.calls[-1]
         assert called == f"{name}_stream_{sfx}"
@@ -1384,13 +1391,13 @@ def test_bigru_float32_two_directions_take_the_unit_kernels(fake_card):
 
 def test_pipe_route_takes_the_bptt_above_the_register_kernel():
     """Every BPTT width from 257 to 1816 (the first stream design's, its
-    A/B) takes the pipe kernel; the forward keeps the stream kernel; past
+    A/B) takes the pipe kernel; the forward takes its own pipe kernel; past
     1816 the route raises naming the width, where the pipe kernel is routed
     and the card, though pipe plans fit to H=2048 (reached by a forced
     plan) and none at 2049."""
     for hidden in [*range(257, 1817, 7), 1816]:
         assert lstm_bwd_kernel_route(hidden) == "pipe", hidden
-        assert lstm_fwd_kernel_route(hidden) == "stream", hidden
+        assert lstm_fwd_kernel_route(hidden) == "pipe", hidden
     for hidden in (1817, 2048, 2049):
         with pytest.raises(ValueError,
                            match=f"H={hidden}.*first stream design.*H100"):
@@ -1521,8 +1528,9 @@ def test_pipe_entries_launch_and_record(fake_card, name, dtype):
     reverse flag), the pipe planner's plan for the direction count and
     dtype, and record it; the count rises by one a launch; a forced
     ("pipe", C, R) is taken; ("stream", C, R) still reaches the first
-    stream design; a pipe plan that does not fit, and a pipe plan of the
-    forward, are refused before any launch."""
+    stream design; a pipe plan that does not fit is refused before any
+    launch; a pipe plan of the forward reaches the forward's pipe
+    kernel."""
     n_ptr, one_dir = _REG_ENTRIES[name]
     dirs = 1 if one_dir else 2
     sfx = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
@@ -1554,9 +1562,9 @@ def test_pipe_entries_launch_and_record(fake_card, name, dtype):
     for bad in (("pipe", 17, 4), ("pipe", 16, 6), ("pipe", 1, 16)):
         with pytest.raises(ValueError, match="does not fit"):
             _reg_call(name, 9, 3, 512, dtype, plan=bad)
-    with pytest.raises(ValueError, match="no pipe kernel"):
-        _reg_call("bilstm_fwd", 9, 3, 512, dtype, plan=("pipe", 16, 4))
     assert len(fake_card.calls) == n
+    _reg_call("bilstm_fwd", 9, 3, 512, dtype, plan=("pipe", 16, 4))
+    assert fake_card.calls[-1][0] == f"bilstm_fwd_pipe_{sfx}"
 
 
 # ---------------------------------------------------------------------------
@@ -1576,7 +1584,7 @@ def test_gru_pipe_route_takes_the_bptt_above_the_cluster_kernels():
             for dirs in (1, 2):
                 assert gru_bwd_kernel_route(hidden, dirs, dtype) == "pipe"
                 assert gru_fwd_kernel_route(hidden, dirs, dtype) in (
-                    "cluster", "stream")
+                    "cluster", "pipe")
     for hidden in (1025, 1816, 2421):
         assert gru_bwd_kernel_route(hidden, 2) == "stream", hidden
     with pytest.raises(ValueError, match="H=2422.*H100"):
@@ -1706,8 +1714,8 @@ def test_gru_pipe_entries_launch_and_record(fake_card, name, dtype):
     plan (three gates) for the direction count and dtype, and record it;
     the count rises by one a launch; a forced ("pipe", C, R) is taken;
     ("stream", C, R) still reaches the first stream design; a pipe plan
-    that does not fit, and a pipe plan of a forward, are refused before
-    any launch."""
+    that does not fit is refused before any launch; a pipe plan of a
+    forward reaches the forward's pipe kernel."""
     n_ptr, one_dir = _STREAM_GRU[name]
     dirs = 1 if one_dir else 2
     sfx = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
@@ -1742,7 +1750,224 @@ def test_gru_pipe_entries_launch_and_record(fake_card, name, dtype):
             _gru_call(name, 9, 3, 512, dtype, plan=bad)
     with pytest.raises(ValueError, match="does not fit H=1032"):
         _gru_call(name, 2, 3, 1032, dtype, plan=("pipe", 16, 1))
+    assert len(fake_card.calls) == n
     fwd = "bigru_fwd" if name == "bigru_bwd" else "gru_fwd"
-    with pytest.raises(ValueError, match="no pipe kernel"):
-        _gru_call(fwd, 9, 3, 512, dtype, plan=("pipe", 16, 4))
+    _gru_call(fwd, 9, 3, 512, dtype, plan=("pipe", 16, 4))
+    assert fake_card.calls[-1][0] == f"{fwd}_pipe_{sfx}"
+
+
+# ---------------------------------------------------------------------------
+# The forward pipe kernels (bilstm_fwd_pipe_kernel, csrc/bilstm_fwd_pipe.cu:
+# #1/#1t and #3/#3t above H=256; bigru_fwd_pipe_kernel, csrc/bigru_fwd_pipe.cu:
+# #5/#5t and #7/#7t): their routes, the layout mirror both sources share,
+# the planner on the card's counts, the packed W_hh, and the launches of the
+# eight forward wrappers
+# ---------------------------------------------------------------------------
+
+def test_fwd_pipe_routes_take_the_forwards_above_256():
+    """The LSTM forward takes its pipe kernel from H=257 to
+    ``LSTM_FWD_PIPE_MAX_H`` (1816, the widest width its A/B times), the
+    first stream design above; the GRU forward takes its pipe kernel from
+    257 to ``GRU_FWD_PIPE_MAX_H`` (1024), also at the cluster kernel's
+    widths (the multiples of 8 to 360: faster at H=320), one and two
+    directions, float32 and bf16, the first stream design above; every
+    width to 1024 keeps a route with a plan; the forward pipe kernels
+    take H to 1920 (15 consumer warps of 8 units at 16 blocks)."""
+    assert rnn_cuda.LSTM_FWD_PIPE_MAX_H == 1816
+    for hidden in [*range(257, 1817, 11), 1816]:
+        assert lstm_fwd_kernel_route(hidden) == "pipe", hidden
+        assert rnn_cuda.fwd_pipe_plans(5, hidden, _stream_clusters, 2)
+    for hidden in (1817, 2048, 2049, 4000):
+        assert lstm_fwd_kernel_route(hidden) == "stream", hidden
+    assert gru_cuda.GRU_FWD_PIPE_MAX_H == 1024
+    for hidden in [*range(257, 1025, 7), 264, 320, 360, 1024]:
+        for dirs in (1, 2):
+            for dtype in (torch.float32, torch.bfloat16):
+                assert gru_fwd_kernel_route(hidden, dirs, dtype) == "pipe", \
+                    (hidden, dirs, dtype)
+    for hidden in (1025, 1816, 2048):
+        assert gru_fwd_kernel_route(hidden, 2) == "stream", hidden
+    assert gru_fwd_kernel_route(256, 2) == "cluster"
+    assert gru_fwd_kernel_route(256, 2, torch.bfloat16) == "tc"
+    assert rnn_cuda.fwd_pipe_takes(1920) and not rnn_cuda.fwd_pipe_takes(1921)
+
+
+def _fwd_pipe_source(hidden, c, rows, wbytes, groups=True, rs16=20, jk=16,
+                     max_stages=64):
+    """The sources' ``<family>_fwd_pipe_layout`` written out again
+    (``groups``, ``rs16``, ``jk`` and ``max_stages`` vary them): (bytes,
+    threads, units, chunks there, held, of the slice) or -1s."""
+    if not (hidden > 0 and 1 <= c <= 16):
+        return (-1,) * 6
+    hp = (hidden + jk - 1) // jk * jk
+    U = ((hidden + c - 1) // c + 3) // 4 * 4
+    nwu = (U + 7) // 8
+    rg = 2 if groups and rows in (8, 16) and 2 * nwu <= 15 else 1
+    warps = nwu * rg
+    if not (rows in (1, 2, 4, 8, 12, 16) and (c - 1) * U < hidden
+            and warps <= 15 and not (rows == 16 and rg != 2)
+            and not (rows == 12 and warps > 8)):
+        return (-1,) * 6
+    rs = rs16 if rows == 16 else rows
+    chunk, chunks = jk * U * 4 * wbytes, hp // jk
+    fixed = 2 * max(c * U, hp) * rs * 4 + (2 * max_stages + 2) * 8
+    stages = 0 if fixed >= 232448 else min(chunks, max_stages,
+                                           (232448 - fixed) // chunk)
+    if stages < min(chunks, 2):
+        return (-1,) * 6
+    ring = 0 if stages >= chunks else min(stages, 4)
+    return (stages * chunk + fixed, 32 * (warps + 1), U, stages,
+            stages - ring, chunks)
+
+
+@pytest.mark.parametrize("gates", [4, 3])
+def test_fwd_pipe_mirror_check_against_source_layout(gates):
+    """``check_fwd_pipe_mirror`` accepts each source's layout query written
+    out (one layout for both families), and names the source and the first
+    plan where a source differs: no row groups, an unpadded 16-row tile,
+    chunks of 8 rows of k, or 32 stages at most."""
+    def query(**kw):
+        return lambda what, bf16, h, c, r: _fwd_pipe_source(
+            h, c, r, 2 if bf16 else 4, **kw)[what]
+
+    rnn_cuda.check_fwd_pipe_mirror(query(), gates)
+    name = rnn_cuda.FPIPE_SOURCE[gates]
+    for kw, where in (({"groups": False}, "H=1, plan 1x8, f32"),
+                      ({"rs16": 16}, "H=1, plan 1x16, f32"),
+                      ({"jk": 8}, "H=1, plan 1x1, f32"),
+                      ({"max_stages": 32}, "H=1, plan 1x1, f32")):
+        with pytest.raises(RuntimeError, match=f"{name}_pipe.*{where}"):
+            rnn_cuda.check_fwd_pipe_mirror(query(**kw), gates)
+
+
+def test_fwd_pipe_layout_holds_what_fits():
+    """At H=320 in f32 a cluster of 16 holds the whole slice (20 units, 20
+    chunks of 16 x 20 x 4 floats, 100 KiB); at H=512 in f32 the 12-row plan
+    holds 18 of its 32 chunks and streams 14 through the ring of 4, the
+    16-row plan (two row groups, eight consumer warps) holds 14, in bf16 it
+    holds all; 8- and 16-row tiles take two row groups while the block has
+    the warps (H=1816 at 16 blocks: 15 warps of units, one group, and no
+    16-row plan)."""
+    lay = rnn_cuda.fwd_pipe_layout
+    assert lay(320, 16, 12, 4)[1:] == (128, 20, 20, 20, 20)
+    assert 20 * 16 * 20 * 4 * 4 == 100 * 1024
+    assert lay(512, 16, 12, 4) == (22 * 8192 + 50192, 160, 32, 22, 18, 32)
+    assert lay(512, 16, 16, 4)[1:] == (288, 32, 18, 14, 32)
+    assert lay(512, 16, 16, 2)[3:] == (32, 32, 32)
+    assert rnn_cuda.fwd_pipe_groups(512, 16, 8) == 2
+    assert rnn_cuda.fwd_pipe_groups(512, 16, 12) == 1
+    assert rnn_cuda.fwd_pipe_warps(1816, 16, 8) == 15
+    assert not rnn_cuda._fwd_pipe_rule(1816, 16, 16, 4)
+    assert not rnn_cuda._fwd_pipe_rule(1816, 16, 12, 4)
+    assert rnn_cuda._fwd_pipe_rule(1816, 16, 8, 4)
+    assert not rnn_cuda._fwd_pipe_rule(257, 16, 1, 4)   # a block owns none
+    assert rnn_cuda._fwd_pipe_rule(257, 13, 1, 4)
+    assert rnn_cuda.fwd_pipe_row_stride(16) == 20
+    assert rnn_cuda.fwd_pipe_row_stride(12) == 12
+
+
+def test_fwd_pipe_plans_from_card_counts():
+    """At (32, 500, 512) f32 both families' two-direction forward takes 6
+    clusters of 16 blocks over 12-row tiles (the card holds 7), one
+    direction 4 clusters of 8 rows (two row groups); B=1 one row; a plan
+    the card runs none of is dropped, with none the list is empty; every
+    plan offered fits its rule and a block."""
+    plan = rnn_cuda.fwd_pipe_plans
+    for gates in (4, 3):
+        assert plan(32, 512, _stream_clusters, 2, 4, gates)[0] == (16, 12)
+        assert plan(32, 512, _stream_clusters, 1, 4, gates)[0] == (16, 8)
+        assert plan(1, 512, _stream_clusters, 2, 4, gates)[0] == (16, 1)
+    assert (16, 12) not in plan(
+        32, 512, lambda c, r: 0 if (c, r) == (16, 12) else 7, 2)
+    assert not plan(32, 512, lambda c, r: 0, 2)
+    for hidden in (257, 320, 512, 1000, 1816, 1920):
+        for batch in (1, 5, 32):
+            for wbytes in (4, 2):
+                got = plan(batch, hidden, _stream_clusters, 2, wbytes)
+                assert got, (hidden, batch, wbytes)
+                for c, rows in got:
+                    assert rnn_cuda._fwd_pipe_rule(hidden, c, rows, wbytes)
+                    assert rnn_cuda.fwd_pipe_layout(
+                        hidden, c, rows, wbytes)[0] <= rnn_cuda.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("gates", [4, 3])
+def test_fwd_pipe_weights_pack_each_blocks_slice(gates):
+    """``fwd_pipe_weights`` lays W_hh [H, gates x H] out k-major as [C, HP,
+    U, 4]: block q's value (k, u, g) is W_hh[k, g * H + q * U + u], zero
+    past H in both and (the GRU) at g = 3; ``fwd_weights`` packs for the
+    launch's cluster size and passes W_hh itself to every other kernel."""
+    H, C = 10, 3
+    w = torch.arange(H * gates * H, dtype=torch.float32).reshape(
+        H, gates * H) + 1
+    U, HP = rnn_cuda.fwd_pipe_units(H, C), rnn_cuda.fwd_pipe_hp(H)
+    assert (U, HP) == (4, 16)
+    got = rnn_cuda.fwd_pipe_weights(w, C)
+    assert got.shape == (C, HP, U, 4) and got.is_contiguous()
+    for q in range(C):
+        for u in range(U):
+            unit = q * U + u
+            for g in range(4):
+                want = (w[:, g * H + unit] if unit < H and g < gates
+                        else torch.zeros(H))
+                assert torch.equal(got[q, :H, u, g], want), (q, u, g)
+                assert not got[q, H:, u, g].any()
+    (packed,) = rnn_cuda.fwd_weights("pipe", [w], C)
+    assert torch.equal(packed, got)
+    assert rnn_cuda.fwd_weights("stream", [w])[0] is w
+
+
+_FWD_PIPE = {"bilstm_fwd": (6, False, 4), "bilstm_fwd_train": (10, False, 4),
+             "lstm_fwd": (3, True, 4), "lstm_fwd_train": (5, True, 4),
+             "bigru_fwd": (8, False, 3), "bigru_fwd_train": (12, False, 3),
+             "gru_fwd": (4, True, 3), "gru_fwd_train": (6, True, 3)}
+
+
+@pytest.mark.parametrize("name", sorted(_FWD_PIPE))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_pipe_entries_launch_and_record(fake_card, name, dtype):
+    """The eight forward wrappers at H=384 and 512 launch
+    ``<name>_pipe_<dtype>`` with their pointers, then B, N, H, C, R (and a
+    one-direction grid's reverse flag), the forward pipe planner's plan
+    for the family's gates, direction count and dtype, and record it; the
+    count rises by one a launch; a forced ("pipe", C, R) is taken;
+    ("stream", C, R) still reaches the first stream design; a pipe plan
+    that does not fit is refused, naming the plan, before any launch."""
+    n_ptr, one_dir, gates = _FWD_PIPE[name]
+    dirs = 1 if one_dir else 2
+    sfx = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    lstm = gates == 4
+    call = _reg_call if lstm else _gru_call
+    fn = getattr(rnn_cuda if lstm else gru_cuda, f"{name}_cuda")
+    for B, H in ((32, 384), (5, 512)):
+        want = rnn_cuda.fwd_pipe_plans(B, H, _stream_clusters, dirs,
+                                       dtype.itemsize, gates)[0]
+        before = fn.launches
+        call(name, B, 3, H, dtype)
+        assert fn.launches == before + 1
+        called, args = fake_card.calls[-1]
+        assert called == f"{name}_pipe_{sfx}"
+        assert len(args) == n_ptr + 5 + int(one_dir)
+        assert args[n_ptr:n_ptr + 5] == (B, 3, H, *want)
+        if one_dir:
+            assert args[-1] == 1
+        assert fn.last_launch == {
+            "kernel": "pipe", "cluster": want[0], "rows": want[1],
+            "clusters": dirs * -(-B // want[1]),
+            "resident": _stream_clusters(*want)}
+    call(name, 9, 3, 512, dtype, plan=("pipe", 8, 4))
+    assert fake_card.calls[-1][0] == f"{name}_pipe_{sfx}"
+    assert fake_card.calls[-1][1][n_ptr:n_ptr + 5] == (9, 3, 512, 8, 4)
+    assert fn.last_launch["clusters"] == dirs * 3
+    call(name, 9, 3, 512, dtype, plan=("stream", 12, 8))
+    assert fake_card.calls[-1][0] == f"{name}_stream_{sfx}"
+    assert fn.last_launch["kernel"] == "stream"
+    n = len(fake_card.calls)
+    for bad in (("pipe", 17, 4), ("pipe", 16, 6), ("pipe", 1, 16),
+                ("pipe", 1, 1)):
+        with pytest.raises(ValueError,
+                           match=f"pipe plan {bad[1]}x{bad[2]} does not fit"
+                           if lstm else f"plan {bad[1]}x{bad[2]} does not "
+                           "fit"):
+            call(name, 9, 3, 512, dtype, plan=bad)
     assert len(fake_card.calls) == n
