@@ -13,7 +13,9 @@ Phases, one line each or more (a failed check raises; nothing is caught):
    unit kernels, the LSTM register cluster kernels, the stream kernels
    and the pipe kernels (``csrc/bilstm_pipe.cu``, ``csrc/bigru_pipe.cu``,
    and the forwards' ``csrc/bilstm_fwd_pipe.cu``, ``csrc/bigru_fwd_pipe.cu``,
-   asserted free of spills) by name, the
+   asserted free of spills) and the GRU register cluster kernels
+   (``csrc/bigru_fwd_reg.cu``, ``csrc/bigru_bwd_reg.cu``, every instance;
+   those that spilled nothing when they were added asserted so) by name, the
    tensor-core kernels, #9's bf16 kind and the LSTM BPTT unit kernels
    asserted free of spills; the native trace parser
    (``room_slam_torch/native/trace_parser.cc``, g++) into ``build/native``;
@@ -166,23 +168,25 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     on a second launch; the first cluster kernels, forced at their
     planner's pick, the same way at ``OLD_CLUSTER_WIDTHS`` (one width a
     kind and dtype);
-32. the GRU cluster kernels' masked slices (the cluster size need not
-    divide H) at ``MASKED_WIDTHS`` and the first even H no dividing plan
-    fits, checked the same way, each plan's cluster asserted not to divide
-    H;
+32. the GRU cluster kernels' masked slices (the first design, the
+    cluster size need not divide H; forced at the card's pick since the
+    GRU register cluster kernels took the route) at ``MASKED_WIDTHS`` and
+    the first even H no dividing plan fits, ``MASKED_BATCHES``,
+    N=``MASKED_N``, checked the same way, each plan's cluster asserted not
+    to divide H;
 33. the new routes' timing: the LSTM kernels at ``LSTM_REG_TIME``
     ((32, 500, 256) f32 and bf16, the reference lstm request's (1, 3000,
     128) f32), the register cluster kernel (at the first shape beside the
-    first cluster kernel forced at its planner's pick in the same call);
-    the GRU masked slices
-    at ``WIDE_TIME`` with H=255, f32: kernel, plain version, bound and
-    cuDNN ``nn.LSTM`` / ``nn.GRU`` (fp16 for the bf16 rows), µs a step;
+    first cluster kernel forced at its planner's pick in the same call):
+    kernel, plain version, bound and cuDNN ``nn.LSTM`` (fp16 for the bf16
+    rows), µs a step (the GRU's rows are phase 41's);
 34. their main paths, counted: the flagship ``lstm`` at d_model 512
     (H=256) forward against the plain recurrence and one train step with
     the kernels and with the plain versions patched in (equal assignments,
     losses rel 1e-4); ``lstm_recurrence`` / ``gru_recurrence``
     (``use_kernel=True``) at H=256 / 139; a ``bigru`` at H=139, one
-    forward and one train step;
+    forward and one train step (the GRU's on the register cluster
+    kernels);
 35. serving recipes on the flagship (a main path): ``unseen`` (``y_planes``
     from a written colliders JSON, soft-NMS 0.25 at ``nms`` 0.5, ttopt with
     deadband 0.25 behind its auto gate), ``tta`` (rotations, reflection,
@@ -260,7 +264,7 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     kernels beside the first stream design forced, in turns, asserted
     faster, at H=320 the GRU's also beside its first cluster design
     (kLinear's for the BPTT) at its pick, and beside the card's next pipe
-    plans), all twelve also at ``PIPE_TIME`` (the GRU's at 1024); (c)
+    plans), all twelve also at ``PIPE_TIME`` (H=1024); (c)
     their main paths: the lstm at d_model ``STREAM_LSTM_D`` (H=512), a
     forward against the plain recurrence and one train step card vs CPU at
     ``STREAM_STEP``'s B and N (cut from the config's 20 and 1500), its step
@@ -269,7 +273,29 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     and on the first stream design, in turns (the BPTT on its pipe route),
     the ops-level ``lstm_recurrence`` / ``gru_recurrence(use_kernel=True)``
     and a bigru at d_model ``STREAM_LSTM_D``, one forward and one train
-    step, then its step p50 and served forward's p50 as the lstm's.
+    step, then its step p50 and served forward's p50 as the lstm's;
+41. the GRU register cluster kernels (``csrc/bigru_fwd_reg.cu``,
+    ``csrc/bigru_bwd_reg.cu``: #5 / #5t, #7 / #7t, #6 and #8 at H 65-256,
+    the route for float32, for bf16 with one direction and for bf16 with
+    two where no tensor-core plan fits): (a) the six wrappers at
+    ``REG_WIDTHS`` x ``REG_BATCHES``, N=``REG_N``, f32 and bf16, both walk
+    orders, each launch asserted on the register kernels (bf16
+    two-direction launches the tensor-core kernels take: the card's
+    register pick forced), against the plain versions, the BPTT bit-equal
+    run to run; (b) the A/B at ``REG_TIME`` f32 ((32, 500, 255) all six,
+    (128, 5000, 256) the scale-up's #5 / #5t / #6, (1, 1500, 128) a served
+    request's #5): the route (the register kernels; the forwards' batch
+    rule sends a register grid of more than two waves to the pipe kernel)
+    beside the first cluster design and the pipe kernel, each forced at its
+    planner's pick, in turns (the route asserted faster than the first
+    design; the first design and the pipe kernel held to the route's
+    outputs), the card's first ``REG_SWEEP`` register plans, the bound and
+    cuDNN (at the first shape before and after the kernels; the plain
+    versions held and timed there only); (c) a ``bigru`` at d_model ``REG_GRU_D`` (H=256, f32): one
+    train step card vs CPU at ``REG_STEP``'s B and N, then the step p50 at
+    bench.py's B, N = ``REG_STEP_TIME`` and a served forward's p50 at
+    ``REG_SERVE`` on the register kernels and on the first cluster design
+    in turns, each launch's kernel asserted.
 
 Phases 10 (and 37's step), 16, 34 and 39's steps pin
 ``train.matmul_precision`` to float32: they compare two float32
@@ -410,6 +436,11 @@ LSTM_REG_TIME = (((32, 500, 256), torch.float32),
 REG_SWEEP_PLANS = 4   # register plans swept at LSTM_REG_TIME's first shape
 CLUSTER_N = 300
 MASKED_WIDTHS = (139, 201, 255)   # and the first even H no dividing plan fits
+# phase 32's N and batches (CLUSTER_N and CLUSTER_BATCHES until the register
+# cluster kernels took the GRU route and the masked slices became a forced
+# plan's)
+MASKED_N = 100
+MASKED_BATCHES = (5,)
 WIDE_TIME = (32, 500, 256)        # the new routes' timing (GRU: H=255)
 WIDE_LSTM_D = 512                 # the wide lstm model's d_model (H=256)
 WIDE_GRU = (8, 300, 139)          # the masked BiGRU / GRU paths
@@ -440,13 +471,14 @@ STREAM_TIME = ((32, 500, 320), (32, 500, 512))
 # consumer warps (H 513-1024) and two k groups a thread (1025-2048), checked
 # at PIPE_WIDTHS x PIPE_BATCHES (2048 by a forced plan: the route stops
 # where the first stream design does, at 1816; the GPU tests take every
-# STREAM_BATCHES) and timed at PIPE_TIME beside the first stream design;
-# at every timed shape the card's first PIPE_SWEEP pipe plans are timed
-# beside the planner's pick
+# STREAM_BATCHES) and timed at PIPE_TIME beside the first stream design
+# (the H=1816 row, timed until the GRU register kernels' phase 41 joined,
+# is in PERF.md); at every timed shape the card's first PIPE_SWEEP pipe
+# plans (4 until then) are timed beside the planner's pick
 PIPE_WIDTHS = (640, 1024, 1100, 2048)
 PIPE_BATCHES = (5,)
-PIPE_TIME = ((32, 500, 1024), (32, 500, 1816))
-PIPE_SWEEP = 4
+PIPE_TIME = ((32, 500, 1024),)
+PIPE_SWEEP = 2
 # the GRU BPTT's pipe kernel (to H=1024) is checked on its route at
 # STREAM_WIDTHS x STREAM_BATCHES and at the PIPE_WIDTHS it takes, under the
 # card's first GRU_PIPE_PLANS plans at STREAM_OLD, and timed at STREAM_TIME
@@ -464,6 +496,34 @@ STREAM_STEPS, STREAM_WARMUP = 10, 3
 STREAM_ROOMS = 8
 STREAM_SERVE = (1, 1500)       # a served request's forward: B, N
 STREAM_SERVE_CALLS = 10
+# phase 41: the GRU register cluster kernels (#5/#5t, #7/#7t, #6 and #8 at
+# H 65-256): the six wrappers on their route against the plain versions at
+# REG_WIDTHS x REG_BATCHES (N=REG_N), float32 and bf16, both walk orders,
+# the BPTT bit-equal run to run (bf16 two-direction launches the
+# tensor-core kernels take are checked on the card's register pick,
+# forced); the kernel A/B at REG_TIME (the kernels REG_TIME names: the
+# route beside the first cluster design forced at its planner's pick and
+# the pipe kernels forced at theirs, in turns, the card's first REG_SWEEP
+# register plans beside the pick, cuDNN before and after; the plain
+# versions timed at the first shape only); the bigru at d_model REG_GRU_D
+# (H=256, f32): one step card vs CPU at REG_STEP's B, N, the step p50 at
+# bench.py's B, N = REG_STEP_TIME and a served forward's p50 at REG_SERVE,
+# each REG_STEPS after REG_WARMUP, on the register kernels and on the first
+# cluster design in turns (new, first, first, new)
+REG_WIDTHS = (65, 128, 139, 201, 255, 256)
+REG_BATCHES = (1, 5, 17, 32)
+REG_N = 24
+REG_TIME = {(32, 500, 255): ("bigru_fwd", "bigru_fwd_train", "bigru_bwd",
+                             "gru_fwd", "gru_fwd_train", "gru_bwd"),
+            (128, 5000, 256): ("bigru_fwd", "bigru_fwd_train", "bigru_bwd"),
+            (1, 1500, 128): ("bigru_fwd",)}
+REG_SWEEP = 3
+REG_GRU_D = 512
+REG_STEP = (4, 120)
+REG_STEP_TIME = (32, 500)
+REG_SERVE = (1, 1500)
+REG_STEPS, REG_WARMUP = 10, 3
+REG_ROOMS = 8
 FUSED_SHAPES = (((3, 53, 16, 24), torch.float32),
                 ((2, 40, 16, 16), torch.bfloat16),
                 ((16, 1000, 256, 512), torch.bfloat16),
@@ -540,7 +600,9 @@ USAGE_KERNELS = {
     "bigru_fwd_pipe": {"bigru_fwd_pipe": ("bigru_fwd_pipe_kernel",)},
     "bilstm_fwd": {"bilstm_fwd_reg": ("bilstm_fwd_reg_kernel",),
                    "bilstm_fwd_stream": ("bilstm_fwd_cluster_kernel",
-                                         "Lb1EE")}}
+                                         "Lb1EE")},
+    "bigru_fwd_reg": {"bigru_fwd_reg": ("bigru_fwd_reg_kernel",)},
+    "bigru_bwd_reg": {"bigru_bwd_reg": ("bigru_bwd_reg_kernel",)}}
 # the kernels that must spill nothing: the tensor-core BiGRU kernels (W_hh
 # fragments and an input ring in registers), #9's bf16 kind (its products
 # on tensor cores), the LSTM BPTT unit kernels (W_hh and an 8-step input
@@ -551,12 +613,22 @@ USAGE_KERNELS = {
 NO_SPILL = ("bigru_fwd_tc", "bigru_bwd_tc", "bigru_bwd_fused_bf16",
             "bilstm_bwd_unit_f32", "bilstm_bwd_unit_bf16", "bilstm_fwd_pipe",
             "bigru_fwd_pipe")
+# and, of the GRU register cluster kernels (every instance reported), the
+# instances that spilled nothing on an H100 when they were added (mangled
+# template parts): the forward's float32 light variant, its 1- and 2-row
+# tiles and its light 4-row tiles; the BPTT's 1-row tiles. The others (the
+# training forward's 4- and 8-row tiles, bf16's light 8-row tile, the
+# BPTT's 2- to 8-row tiles) spilled 8 to 68 bytes at 128 registers.
+NO_SPILL_PARTS = {"bigru_fwd_reg": ("IfLb0E", "Li1EE", "Li2EE",
+                                    "Lb0ELi4EE"),
+                  "bigru_bwd_reg": ("Li1EE",)}
 
 
 def check_usage(lib: str, usage):
     """Phase 2: registers, stack and spills of the kernels of library
     ``lib`` named in ``USAGE_KERNELS`` from ``-Xptxas -v``; those of
-    ``NO_SPILL`` must spill nothing."""
+    ``NO_SPILL`` and the instances ``NO_SPILL_PARTS`` names must spill
+    nothing."""
     for key, parts in USAGE_KERNELS[lib].items():
         found = {name: u for name, u in usage.items()
                  if all(p in name for p in parts)}
@@ -567,7 +639,8 @@ def check_usage(lib: str, usage):
                 f"registers, {u.get('stack')} bytes stack, "
                 f"{u.get('spill_stores')} / {u.get('spill_loads')} bytes "
                 "spill stores / loads")
-            if key in NO_SPILL:
+            if key in NO_SPILL or any(
+                    p in name for p in NO_SPILL_PARTS.get(key, ())):
                 assert u.get("spill_stores") == u.get("spill_loads") == 0, u
 
 
@@ -787,8 +860,8 @@ def plan_sweep(name, fn, args, plans, shape, iters):
 
 
 def gru_route(shape, dtype):
-    """The kernel a two-direction BiGRU launch at ``shape`` takes ("tc" or
-    "cluster", the forward's and the BPTT's routes agreeing)."""
+    """The kernel a two-direction BiGRU launch at ``shape`` takes ("tc",
+    "unit" or "reg", the forward's and the BPTT's routes agreeing)."""
     H = shape[2]
     route = gru_cuda.gru_fwd_kernel_route(H, 2, dtype)
     assert gru_cuda.gru_bwd_kernel_route(H, 2, dtype) == route, shape
@@ -828,7 +901,8 @@ def check_gru_kernels(dev, seed):
     plain loop, at ``GRU_SHAPES`` and ``TC_EDGE_SHAPES``; at the shapes the
     tensor-core kernels take also under every tc plan the card runs. Each
     launch records the kernel its route names ("tc" for bf16 streams where
-    the rule holds, else "cluster"). Returns errors by (shape, dtype)."""
+    the rule holds, "unit" at H <= 64, else "reg"). Returns errors by
+    (shape, dtype)."""
     errs = {}
     for shape, dtype in (*GRU_SHAPES, *TC_EDGE_SHAPES):
         route = gru_route(shape, dtype)
@@ -1774,9 +1848,8 @@ def check_single_kernels(dev, seed):
             last = gru_cuda.gru_fwd_train_cuda.last_launch
             bwd_kernel = gru_cuda.gru_bwd_cuda.last_launch["kernel"]
             if shape[-1] == 256:    # W_hh of H=256 needs a cluster
-                assert last["kernel"] == "cluster" and last["cluster"] > 1, \
-                    plan
-                assert bwd_kernel == "cluster", bwd_plan
+                assert last["kernel"] == "reg" and last["cluster"] > 1, plan
+                assert bwd_kernel == "reg", bwd_plan
             else:                   # H <= 64, one direction: the unit kernel
                 assert last["kernel"] == "unit", plan
                 assert gru_cuda.gru_fwd_cuda.last_launch["kernel"] == "unit"
@@ -2960,17 +3033,19 @@ def first_masked_even(dev):
 
 
 def check_gru_masked(dev, seed):
-    """Phase 32: the GRU cluster kernels' masked slices at ``MASKED_WIDTHS``
-    and the first even H no dividing plan fits, B in ``CLUSTER_BATCHES``,
-    N=``CLUSTER_N``, float32 and bf16: the BiGRU light and training
-    forward and BPTT and the one-direction GRU's, each launch on the
-    cluster kernel with a cluster size that does not divide H (asserted,
-    printed), against the plain versions (bounds as phase 31)."""
+    """Phase 32: the GRU cluster kernels' masked slices (the first design,
+    forced at its planner's pick since the register cluster kernels took
+    the route) at ``MASKED_WIDTHS`` and the first even H no dividing plan
+    fits, B in ``MASKED_BATCHES``, N=``MASKED_N``, float32 and bf16: the
+    BiGRU light and training forward and BPTT and the one-direction GRU's,
+    each launch on the cluster kernel with a cluster size that does not
+    divide H (asserted, printed), against the plain versions (bounds as
+    phase 31)."""
     widths = (*MASKED_WIDTHS, first_masked_even(dev))
     for H in widths:
-        for B in CLUSTER_BATCHES:
+        for B in MASKED_BATCHES:
             for dtype in (torch.float32, torch.bfloat16):
-                ins = gru_inputs(B, CLUSTER_N, H, dtype, dev, seed)
+                ins = gru_inputs(B, MASKED_N, H, dtype, dev, seed)
                 args = gru_bwd_inputs(ins, seed + 1)
                 ref_b = gru_cuda.bigru_bwd_plain(*args)
                 tol = GRAD_REL if dtype == torch.float32 else BF16_GRAD_REL
@@ -2992,7 +3067,10 @@ def check_gru_masked(dev, seed):
                                                       ins[3]), False),
                         ("gru_bwd", gru_cuda.gru_bwd_cuda,
                          (args[1], *args[6:], True), ref_b[2:], True)):
-                    got = fn(*a)
+                    plan = ("cluster", *gru_cuda.card_plans(
+                        "bwd" if bwd else "fwd", B, H, dev, dtype,
+                        2 if name.startswith("bi") else 1)[0])
+                    got = fn(*a, plan=plan)
                     got = got if isinstance(got, tuple) else (got,)
                     last = fn.last_launch
                     assert last["kernel"] == "cluster" and \
@@ -3006,24 +3084,24 @@ def check_gru_masked(dev, seed):
                     plans.append(f"{name} {plan_text(fn)}")
                 assert max(rels) <= tol, (H, B, dtype, rels)
                 torch.cuda.synchronize()
-                log("gru_masked", f"B,N,H=({B}, {CLUSTER_N}, {H}) "
+                log("gru_masked", f"B,N,H=({B}, {MASKED_N}, {H}) "
                     f"{str(dtype)[6:]}: values max_abs_err={max(errs):.3e},"
                     f" dx/dhn max_rel_err={max(rels):.3e}; "
                     + "; ".join(plans))
     return widths
 
 
-def _library_ms(mod, B, N, H, dtype, dev, seed):
+def _library_ms(mod, B, N, H, dtype, dev, seed, dir_counts=(2, 1)):
     """cuDNN's ``mod`` (``nn.LSTM`` / ``nn.GRU``; fp16 for bf16 streams,
-    which cuDNN refuses) at (B, N, H) in both direction counts, input
-    projection included, never called by the port: forward without grad,
-    forward with grad on, and forward + backward minus forward, ms by
-    wrapper name."""
+    which cuDNN refuses) at (B, N, H) in each of ``dir_counts`` (both by
+    default), input projection included, never called by the port:
+    forward without grad, forward with grad on, and forward + backward
+    minus forward, ms by wrapper name."""
     fam = "lstm" if mod is torch.nn.LSTM else "gru"
     dt = torch.float16 if dtype == torch.bfloat16 else torch.float32
     g = torch.Generator(dev).manual_seed(seed)
     out = {}
-    for dirs in (2, 1):
+    for dirs in dir_counts:
         lib = mod(2 * H, H, batch_first=True,
                   bidirectional=dirs == 2).to(dev, dt)
         x = torch.randn(B, N, 2 * H, device=dev, generator=g).to(dt)
@@ -3098,12 +3176,13 @@ def time_new_routes(dev, seed):
     beside the first cluster kernel forced at its planner's pick in the
     same call (ms, µs a step; PERF.md keeps PR 15's times of the others),
     and at the first shape under the card's first
-    ``REG_SWEEP_PLANS`` register plans; the six GRU kernels on masked slices at ``WIDE_TIME`` with
-    H=255, f32; kernel ms (CUDA events), plain ms, the bound, cuDNN's
-    ``nn.LSTM`` / ``nn.GRU`` (bidirectional for the two-direction kernels;
-    fp16 for bf16 streams; never called by the port; input projection
-    included) and µs a step. Returns the rows by wrapper name (the LSTM
-    ones as a list, the (32, 500, 256) f32 row first)."""
+    ``REG_SWEEP_PLANS`` register plans; kernel ms (CUDA events), plain ms,
+    the bound, cuDNN's ``nn.LSTM`` (bidirectional for the two-direction
+    kernels; fp16 for bf16 streams; never called by the port; input
+    projection included) and µs a step. (The six GRU kernels, timed here at
+    (32, 500, 255) on their masked slices until the GRU register cluster
+    kernels took the route, are phase 41's.) Returns the rows by wrapper
+    name, a list each, the (32, 500, 256) f32 row first."""
     rows = {}
     for (B, N, H), dtype in LSTM_REG_TIME:
         lib_ms = _library_ms(torch.nn.LSTM, B, N, H, dtype, dev, seed)
@@ -3138,39 +3217,6 @@ def time_new_routes(dev, seed):
                 + ", includes the input projection; old_cluster_ms (the "
                 "first shape): the first cluster kernel forced at its "
                 "planner's pick)")
-    B, N, H = WIDE_TIME[0], WIDE_TIME[1], WIDE_TIME[2] - 1
-    f32 = torch.float32
-    lib_ms = _library_ms(torch.nn.GRU, B, N, H, f32, dev, seed)
-    ins = gru_inputs(B, N, H, f32, dev, seed)
-    args = gru_bwd_inputs(ins, seed + 1)
-    cases = (
-        ("bigru_fwd", gru_cuda.bigru_fwd_cuda, gru_cuda.bigru_fwd_plain, ins,
-         gru_bound("fwd", B, N, H, f32)),
-        ("bigru_fwd_train", gru_cuda.bigru_fwd_train_cuda,
-         gru_cuda.bigru_fwd_train_plain, ins,
-         gru_bound("fwd_train", B, N, H, f32)),
-        ("bigru_bwd", gru_cuda.bigru_bwd_cuda, gru_cuda.bigru_bwd_plain, args,
-         gru_bound("bwd", B, N, H, f32)),
-        ("gru_fwd", gru_cuda.gru_fwd_cuda, gru_cuda.gru_recurrence,
-         (ins[0], ins[2], ins[3]), gru_bound("fwd", B, N, H, f32, dirs=1)),
-        ("gru_fwd_train", gru_cuda.gru_fwd_train_cuda,
-         gru_cuda.gru_fwd_train_plain, (ins[0], ins[2], ins[3]),
-         gru_bound("fwd_train", B, N, H, f32, dirs=1)),
-        ("gru_bwd", gru_cuda.gru_bwd_cuda, gru_cuda.gru_bwd_plain,
-         (args[0], *args[2:6]), gru_bound("bwd", B, N, H, f32, dirs=1)))
-    for name, fn, plain, a, bnd in cases:
-        row = _time_row(name, fn, plain, a, bnd, lib_ms[name], f32,
-                        (B, N, H))
-        assert row["launch"]["kernel"] == "cluster", name
-        rows[name] = row
-        log("kernel_time", f"{name} (new route) "
-            + json.dumps(row) + "  (library_ms: cuDNN "
-            + ("bidirectional " if name.startswith("bi") else
-               "unidirectional ") + "nn.GRU f32, "
-            + {"fwd": "forward without grad", "fwd_train":
-               "forward with grad on", "bwd": "forward + backward "
-               "minus forward"}[name.split("_", 1)[1]]
-            + ", includes the input projection)")
     return rows
 
 
@@ -3187,9 +3233,10 @@ def wide_paths(dev, seed, smi):
     then one train step with the kernels, with the plain versions patched
     in and on the CPU (equal assignments, losses rel ``LOSS_RTOL``); (b) ``lstm_recurrence(use_kernel=True)`` at
     ``WIDE_TIME`` forward and backward; (c) a ``bigru`` at d_model
-    2 x ``WIDE_GRU``'s H (f32, masked slices), one forward and one train
-    step; (d) ``gru_recurrence(use_kernel=True)`` at ``WIDE_GRU`` forward
-    and backward. Returns each path's launches."""
+    2 x ``WIDE_GRU``'s H (f32, a masked slice; on the GRU register cluster
+    kernels since they took the route), one forward and one train step;
+    (d) ``gru_recurrence(use_kernel=True)`` at ``WIDE_GRU`` forward and
+    backward (the register kernels). Returns each path's launches."""
     out = {}
     cfg = ExperimentConfig.from_json(CONFIG)
     cfg.model.d_model = WIDE_LSTM_D
@@ -3294,10 +3341,7 @@ def wide_paths(dev, seed, smi):
             launched
         mod = rnn_cuda if fam == "lstm" else gru_cuda
         last = getattr(mod, f"{fam}_bwd_cuda").last_launch
-        if fam == "lstm":
-            assert last["kernel"] == "reg", last
-        else:
-            assert last["kernel"] == "cluster" and Hs % last["cluster"], last
+        assert last["kernel"] == "reg", last
         err = value_err((ys,), (fn(xg, w, *extra),), torch.float32)
         ref_g = torch.autograd.grad(fn(*x, True), x, dy)
         rel = max(max_rel(a, r) for a, r in zip(grads, ref_g))
@@ -3342,7 +3386,7 @@ def wide_paths(dev, seed, smi):
                                        bigru_bwd=gl), launched
     for name in ("bigru_fwd", "bigru_fwd_train", "bigru_bwd"):
         last = getattr(*WRAPPERS[name]).last_launch
-        assert last["kernel"] == "cluster" and Hg % last["cluster"], last
+        assert last["kernel"] == "reg", last
     assert all(np.isfinite(float(v)) for v in losses.values())
     out["bigru"] = launched
     log("wide_bigru", f"bigru d_model={2 * Hg} (H={Hg}) f32: forward "
@@ -4323,6 +4367,358 @@ def stream_paths(dev, seed, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 41: the GRU register cluster kernels (csrc/bigru_fwd_reg.cu,
+# csrc/bigru_bwd_reg.cu: #5/#5t, #7/#7t, #6 and #8 at H 65-256), their
+# checks, their A/B beside the first cluster design and the pipe kernels,
+# and a bigru at d_model 512 on them
+# ---------------------------------------------------------------------------
+
+
+def _reg_cases(B, N, H, dtype, dev, seed, card_residuals=False):
+    """The six GRU wrappers at (B, N, H) in ``dtype``, the one-direction
+    ones in both walk orders: name, wrapper, plain version, arguments,
+    kind ("fwd" or "bwd"), kSave and directions. The BPTT's residuals come
+    from the plain training forward, or (``card_residuals``, at the large
+    shapes where the plain walk takes seconds) from the card's."""
+    ins = gru_inputs(B, N, H, dtype, dev, seed)
+    if card_residuals:
+        ys_f, ys_b, gs_f, gs_b, hn_f, hn_b = gru_cuda.bigru_fwd_train_cuda(
+            *ins)
+        g = torch.Generator(dev).manual_seed(seed + 1)
+        dy_f, dy_b = (torch.randn(ys_f.shape, device=dev, generator=g
+                                  ).to(dtype) for _ in range(2))
+        args = (ins[2], ins[4], gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b,
+                dy_b)
+    else:
+        args = gru_bwd_inputs(ins, seed + 1)
+    g = gru_cuda
+    fwd_one = ((ins[0], ins[2], ins[3], False), (ins[1], ins[4], ins[5], True))
+    bwd_one = ((args[0], *args[2:6], False), (args[1], *args[6:], True))
+    return (
+        ("bigru_fwd", g.bigru_fwd_cuda, g.bigru_fwd_plain, ins, "fwd", False,
+         2),
+        ("bigru_fwd_train", g.bigru_fwd_train_cuda, g.bigru_fwd_train_plain,
+         ins, "fwd", True, 2),
+        ("bigru_bwd", g.bigru_bwd_cuda, g.bigru_bwd_plain, args, "bwd",
+         False, 2),
+        *(("gru_fwd", g.gru_fwd_cuda, g.gru_recurrence, a, "fwd", False, 1)
+          for a in fwd_one),
+        *(("gru_fwd_train", g.gru_fwd_train_cuda, g.gru_fwd_train_plain, a,
+           "fwd", True, 1) for a in fwd_one),
+        *(("gru_bwd", g.gru_bwd_cuda, g.gru_bwd_plain, a, "bwd", False, 1)
+          for a in bwd_one))
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def check_gru_reg(dev, seed):
+    """Phase 41 (a): the six GRU wrappers on their route, the register
+    cluster kernels (asserted), at ``REG_WIDTHS`` x ``REG_BATCHES``,
+    N=``REG_N``, float32 and bf16, the one-direction ones in both walk
+    orders, against the plain versions (values: f32 max abs err
+    ``KERNEL_ATOL``, bf16 rtol / atol ``BF16_RTOL`` / ``BF16_ATOL``; the
+    BPTT's dx and dhn max-rel ``GRAD_REL`` / ``BF16_GRAD_REL``), the BPTT
+    bit-equal run to run. bf16 two-direction launches the tensor-core
+    kernels take (H=128, 256) are checked on the card's register pick,
+    forced. Returns the worst errors by dtype."""
+    worst = {}
+    for H in REG_WIDTHS:
+        for B in REG_BATCHES:
+            for dtype in (torch.float32, torch.bfloat16):
+                tol = GRAD_REL if dtype == torch.float32 else BF16_GRAD_REL
+                errs, rels, plans = [], [], {}
+                for name, fn, plain, a, kind, save, dirs in _reg_cases(
+                        B, REG_N, H, dtype, dev, seed):
+                    route = (gru_cuda.gru_fwd_kernel_route if kind == "fwd"
+                             else gru_cuda.gru_bwd_kernel_route)(H, dirs,
+                                                                 dtype)
+                    plan = None if route == "reg" else ("reg", *(
+                        gru_cuda.card_gru_reg_plans(kind, B, H, dev, dtype,
+                                                    save, dirs)[0]))
+                    got = _as_tuple(fn(*a, plan=plan))
+                    assert fn.last_launch["kernel"] == "reg", (
+                        name, H, B, dtype, route, fn.last_launch)
+                    ref = _as_tuple(plain(*a))
+                    if kind == "bwd":
+                        again = _as_tuple(fn(*a, plan=plan))
+                        assert all(torch.equal(x, y)
+                                   for x, y in zip(got, again)), (name, H, B)
+                        assert all(torch.isfinite(x).all() for x in got)
+                        rels += [max_rel(x.float(), y.float())
+                                 for x, y in zip(got, ref)]
+                    else:
+                        errs.append(value_err(got, ref, dtype))
+                    plans.setdefault(name, (
+                        f"{name} {plan_text(fn)}"
+                        + ("" if plan is None else f" (route {route})")))
+                assert max(rels) <= tol, (H, B, dtype, rels)
+                torch.cuda.synchronize()
+                key = str(dtype)[6:]
+                w = worst.setdefault(key, [0.0, 0.0])
+                w[0], w[1] = max(w[0], max(errs)), max(w[1], max(rels))
+                log("gru_reg", f"B,N,H=({B}, {REG_N}, {H}) {key}: values "
+                    f"max_abs_err={max(errs):.3e}, dx/dhn max_rel_err="
+                    f"{max(rels):.3e} (tol {tol:g}), both walk orders, the "
+                    "BPTT bit-equal run to run; " + "; ".join(plans.values()))
+    return worst
+
+
+def _reg_ab(fn, a, kind, save, dirs, B, N, H, dev, route, got):
+    """The register kernel (forced at its card's pick), the first cluster
+    design and the pipe kernel (each forced at its planner's pick, as the
+    wrapper ``fn`` takes them) in turns, reg, cluster, pipe, pipe, cluster,
+    reg (CUDA events, 3 after 1 each); the route's kernel ``route`` ("reg"
+    or "pipe") asserted faster than the first design; whether it is the
+    fastest of the three; the first design's and the pipe kernel's outputs
+    held to the route's ``got`` (f32 values ``KERNEL_ATOL``, the BPTT
+    max-rel ``GRAD_REL``); and the card's first ``REG_SWEEP`` register
+    plans: a row's extra keys."""
+    f32 = torch.float32
+    plans = {
+        "reg": ("reg", *gru_cuda.card_gru_reg_plans(kind, B, H, dev, f32,
+                                                    save, dirs)[0]),
+        "cluster": ("cluster", *gru_cuda.card_plans(kind, B, H, dev, f32,
+                                                    dirs)[0]),
+        "pipe": ("pipe", *(gru_cuda.card_gru_pipe_plans(B, H, dev, f32, dirs)
+                           if kind == "bwd" else
+                           gru_cuda.card_gru_fwd_pipe_plans(
+                               B, H, dev, f32, save, dirs))[0])}
+    turns, launches, agree = {}, {}, {}
+    for key in ("reg", "cluster", "pipe", "pipe", "cluster", "reg"):
+        plan = plans[key]
+        turns.setdefault(key, []).append(
+            cuda_ms(lambda: fn(*a, plan=plan), 3, warmup=1))
+        launches[key] = dict(fn.last_launch)
+        assert launches[key]["kernel"] == key, launches[key]
+    for key in ("cluster", "pipe"):
+        out = _as_tuple(fn(*a, plan=plans[key]))
+        if kind == "bwd":
+            agree[key] = max(max_rel(x.float(), y.float())
+                             for x, y in zip(out, got))
+            assert agree[key] <= GRAD_REL, (key, agree[key])
+        else:
+            agree[key] = value_err(out, got, f32)
+        del out
+    best = {k: min(v) for k, v in turns.items()}
+    assert best[route] < best["cluster"], (route, turns)
+    sweep = [{"plan": [c, r], "ms": cuda_ms(
+        lambda: fn(*a, plan=("reg", c, r)), 3, warmup=1)}
+        for c, r in gru_cuda.card_gru_reg_plans(kind, B, H, dev, f32, save,
+                                                dirs)[:REG_SWEEP]]
+    return {**{f"{k}_turns_ms": v for k, v in turns.items()},
+            **{f"{k}_ms": v for k, v in best.items()},
+            **{f"{k}_us_per_step": v / N * 1e3 for k, v in best.items()},
+            **{f"{k}_launch": v for k, v in launches.items()},
+            "route_fastest": best[route] == min(best.values()),
+            "first_over_route": best["cluster"] / best[route],
+            "max_err_vs_route": agree, "reg_plans_ms": sweep,
+            "reg_pick_fastest": sweep[0]["ms"] == min(r["ms"] for r in sweep)}
+
+
+def time_gru_reg(dev, seed):
+    """Phase 41 (b), the kernel A/B at each ``REG_TIME`` shape (float32)
+    for the wrappers it names (the one-direction ones walking forward): the
+    route (the register kernel; at the scale-up batch the forwards' batch
+    rule takes the pipe kernel) beside the first cluster design and the
+    pipe kernel in turns (``_reg_ab``), the register plans swept; at the
+    first shape the plain version held and timed (one call), at the others
+    the route held to the first design (``_reg_ab``); the bound; cuDNN's
+    ``nn.GRU`` (bidirectional for the two-direction kernels; never called
+    by the port; input projection included; read before and after the
+    first shape's kernels, the lower kept: ``_library_turns``; at the
+    others read once) and µs a step. Returns the rows by wrapper name, a
+    list in ``REG_TIME``'s order."""
+    f32 = torch.float32
+    rows = {}
+    for i, ((B, N, H), names) in enumerate(REG_TIME.items()):
+        first = i == 0
+        # cuDNN in the direction counts the shape's wrappers take
+        dir_counts = tuple(sorted({2 if n.startswith("bi") else 1
+                                   for n in names}, reverse=True))
+        lib = _library_ms(torch.nn.GRU, B, N, H, f32, dev, seed, dir_counts)
+        shape_rows, seen = [], set()
+        for name, fn, plain, a, kind, save, dirs in _reg_cases(
+                B, N, H, f32, dev, seed, card_residuals=not first):
+            if name not in names or name in seen:
+                continue
+            seen.add(name)
+            got = _as_tuple(fn(*a))
+            launch = dict(fn.last_launch)
+            route = launch["kernel"]
+            assert route in ("reg", "pipe"), (name, launch)
+            row = {"shape": [B, N, H], "dtype": "float32", "route": route,
+                   "launch": launch, "plain_ms": None, "err": None}
+            if first:
+                ref, row["plain_ms"] = timed_once(lambda: _as_tuple(plain(*a)))
+                if kind == "bwd":
+                    row["err"] = max((x.float() - y.float()).abs().max().item()
+                                     for x, y in zip(got, ref))
+                    row["max_rel_err"] = max(
+                        max_rel(x.float(), y.float()) for x, y in zip(got, ref))
+                    assert row["max_rel_err"] <= GRAD_REL, (name, row)
+                else:
+                    row["err"] = value_err(got, ref, f32)
+                del ref
+            row.update(_reg_ab(fn, a, kind, save, dirs, B, N, H, dev, route,
+                               got))
+            if not first:   # held to the first design there
+                row["err"] = row["max_err_vs_route"]["cluster"]
+            del got
+            ms = row[f"{route}_ms"]
+            bnd = gru_bound("bwd" if kind == "bwd" else
+                            "fwd_train" if save else "fwd", B, N, H, f32,
+                            dirs=dirs)
+            row.update(kernel_ms=ms, us_per_step=ms / N * 1e3,
+                       bound_us=bnd[0] * 1e3, bound_by=bnd[1],
+                       library_ms=lib[name])
+            rows.setdefault(name, []).append(row)
+            shape_rows.append((name, row))
+        if first:
+            _library_turns(shape_rows, _library_ms(torch.nn.GRU, B, N, H,
+                                                   f32, dev, seed,
+                                                   dir_counts))
+        for name, row in shape_rows:
+            log("kernel_time", f"{name} (GRU register route, kernel "
+                f"{row['route']}: kernel_ms its lower reading in turns; "
+                "cluster_ms: the first cluster design forced at its pick, "
+                "pipe_ms: the pipe kernel forced at its pick, in turns reg, "
+                "cluster, pipe, pipe, cluster, reg; reg_plans_ms: the card's "
+                "first register plans) " + json.dumps(row)
+                + "  (library_ms: cuDNN "
+                + ("bidirectional " if name.startswith("bi") else
+                   "unidirectional ") + "nn.GRU f32"
+                + ("'s lower reading, before and after the kernels, "
+                   if "library_turns_ms" in row else ", ")
+                + {"fwd": "forward without grad", "fwd_train":
+                   "forward with grad on", "bwd": "forward + backward "
+                   "minus forward"}[name.split("_", 1)[1]]
+                + ", includes the input projection; plain_ms one call, at "
+                "the first shape only)")
+    return rows
+
+
+@contextlib.contextmanager
+def first_gru_cluster():
+    """The GRU routes as before the register cluster kernels: the first
+    cluster design wherever a route says "reg" (both grids, forward and
+    BPTT); every other route unchanged."""
+    routes = {name: getattr(gru_cuda, name) for name in
+              ("gru_fwd_kernel_route", "gru_bwd_kernel_route")}
+
+    def old(route):
+        def pick(hidden, dirs, dtype=torch.float32):
+            got = route(hidden, dirs, dtype)
+            return "cluster" if got == "reg" else got
+        return pick
+
+    with mock.patch.multiple(gru_cuda, **{k: old(v)
+                                          for k, v in routes.items()}):
+        yield
+
+
+def _reg_turns(run, kernels_of):
+    """``run()`` in turns on the GRU register route and on the first
+    cluster design (``first_gru_cluster``): reg, cluster, cluster, reg.
+    ``run`` returns (ms, launches); ``kernels_of()`` the kernels of the
+    last launches, each asserted. Returns the ms by kernel and the last
+    launches (a register turn's)."""
+    turns = {"reg": [], "cluster": []}
+    for kernel in ("reg", "cluster", "cluster", "reg"):
+        ctx = (first_gru_cluster if kernel == "cluster"
+               else contextlib.nullcontext)
+        with ctx():
+            ms, launched = run()
+        assert all(k == kernel for k in kernels_of()), (kernel, kernels_of())
+        turns[kernel].append(ms)
+    return turns, launched
+
+
+def reg_paths(dev, seed, smi):
+    """Phase 41 (c), a ``bigru`` at d_model ``REG_GRU_D`` (H=256, f32) on
+    the GRU register cluster kernels, the counts set to 0 just before each
+    path and read just after: one train step card vs CPU
+    (``step_parity``: assignments, losses rel ``LOSS_RTOL``, updated
+    parameters) at B, N = ``REG_STEP``; the train step's p50 at bench.py's
+    B, N = ``REG_STEP_TIME`` over ``REG_STEPS`` after ``REG_WARMUP`` on
+    ``REG_ROOMS`` rooms (the default config's matmul precision) and a
+    served forward's p50 (CUDA events, the light kernels) at ``REG_SERVE``,
+    on the register kernels and on the first cluster design
+    (``first_gru_cluster``) in turns, each launch's kernel asserted.
+    Returns the launches of the step and of the served forward (a register
+    turn's) and the timings."""
+    out = {}
+    H = REG_GRU_D // 2
+    B, N = REG_STEP
+    sets = ["model.model_type=bigru", f"model.d_model={REG_GRU_D}"]
+    cfg = ExperimentConfig().apply_overrides([*sets, "model.dropout=0.0"])
+    cfg.train.batch_size, cfg.data.max_trace_len = B, N
+    gl = cfg.model.lstm_layers
+    bigru = ("bigru_fwd", "bigru_fwd_train", "bigru_bwd")
+    with tempfile.TemporaryDirectory() as tmp:
+        write_rooms(Path(tmp), B, seed + 1010)
+        reset_counts()
+        step_parity(cfg, Path(tmp), dev, seed, tag="reg_bigru_step")
+        torch.cuda.synchronize()
+        c_k = counts()
+    # the card's step and its match's light forward (and the unmodified
+    # init's); the CPU's launch nothing
+    assert c_k == expected_counts(bigru_fwd=c_k["bigru_fwd"],
+                                  bigru_fwd_train=gl, bigru_bwd=gl), c_k
+    for name in bigru:
+        assert getattr(*WRAPPERS[name]).last_launch["kernel"] == "reg"
+    out["parity_step"] = c_k
+    log("reg_bigru", f"bigru d_model={REG_GRU_D} (H={H}) f32: one step card "
+        f"vs CPU at B={B}, N={N} as above; launches {c_k} (bigru_fwd_train "
+        f"{plan_text(gru_cuda.bigru_fwd_train_cuda)}; bigru_bwd "
+        f"{plan_text(gru_cuda.bigru_bwd_cuda)}) on {smi}")
+
+    tcfg = ExperimentConfig().apply_overrides(sets)
+    tcfg.train.batch_size, tcfg.data.max_trace_len = REG_STEP_TIME
+    with tempfile.TemporaryDirectory() as tmp:
+        write_rooms(Path(tmp), REG_ROOMS, seed + 1020)
+        turns, step_launched = _reg_turns(
+            lambda: step_p50(tcfg, Path(tmp), dev, seed, REG_STEPS,
+                             REG_WARMUP),
+            lambda: [getattr(*WRAPPERS[n]).last_launch["kernel"]
+                     for n in bigru[1:]])
+    assert step_launched == expected_counts(bigru_fwd_train=gl,
+                                            bigru_bwd=gl), step_launched
+    model = build_model(tcfg.model, generator=torch.Generator()
+                        .manual_seed(seed)).to(dev).eval()
+    sB, sN = REG_SERVE
+    raw = walk(sN, seed + 1030)[None]
+    feats, mask = featurize(torch.from_numpy(raw).to(dev),
+                            torch.full((sB,), sN, device=dev))
+    serve_turns, serve_launched = _reg_turns(
+        lambda: served_p50(model, feats, mask, REG_STEPS, REG_WARMUP),
+        lambda: [gru_cuda.bigru_fwd_cuda.last_launch["kernel"]])
+    assert serve_launched == expected_counts(bigru_fwd=gl), serve_launched
+    out["step"], out["serve"] = step_launched, serve_launched
+    out["timing"] = {
+        "shape": [*REG_STEP_TIME, H], "reg_step_p50_ms": turns["reg"],
+        "cluster_step_p50_ms": turns["cluster"],
+        "step_launches": step_launched,
+        "matmul_precision": tcfg.train.matmul_precision,
+        "fwd_train_plan": dict(gru_cuda.bigru_fwd_train_cuda.last_launch),
+        "bwd_plan": dict(gru_cuda.bigru_bwd_cuda.last_launch),
+        "serve_shape": [sB, sN, H], "reg_serve_p50_ms": serve_turns["reg"],
+        "cluster_serve_p50_ms": serve_turns["cluster"],
+        "serve_launches": serve_launched,
+        "serve_plan": dict(gru_cuda.bigru_fwd_cuda.last_launch)}
+    log("reg_bigru", f"bigru d_model={REG_GRU_D} (H={H}) train step at B, N "
+        f"= {REG_STEP_TIME} (bench.py's), p50 over {REG_STEPS} after "
+        f"{REG_WARMUP}, and served forward at B, N = {REG_SERVE} (light "
+        f"kernels, CUDA events), p50 over {REG_STEPS} after {REG_WARMUP}, in "
+        "turns reg, cluster, cluster, reg (the forwards' and the BPTT's "
+        "kernel; the config's matmul precision "
+        f"{tcfg.train.matmul_precision}): " + json.dumps(out["timing"])
+        + f" on {smi}")
+    return out
+
+
 class EventTimer:
     """CUDA events around every call of the functions it wraps."""
 
@@ -5205,6 +5601,9 @@ def main() -> int:
                  f"{parser_lib.relative_to(REPO)} in "
                  f"{time.perf_counter() - t0:.1f} s")
 
+    log("done", f"phases 1-2 in {time.perf_counter() - t_start:.1f} s")
+    t_phase = time.perf_counter()
+
     # 3. kernel check against the plain versions on the card
     errs = {}
     for shape in LSTM_SHAPES:
@@ -5260,6 +5659,8 @@ def main() -> int:
         log("kernel_time", json.dumps(row) + "  (library_ms: cuDNN "
             "bidirectional nn.LSTM, includes the input projection)")
     train_rows = time_training_kernels(dev, args.seed, train_errs)
+    log("done", f"phases 3-4 in {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
 
     # 5. the flagship model at full width
     cfg = ExperimentConfig.from_json(CONFIG)
@@ -5407,6 +5808,9 @@ def main() -> int:
         f"{serve_row['kernel_ms']:.3f} ms; run {run_ms:.3f} ms, so "
         f"post_process {run_ms - fwd1_ms:.3f} ms")
 
+    log("done", f"phases 5-7 in {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+
     # 8-11. training: the main path, its checkpoint served, card vs CPU
     # parity of one step, step timing
     with tempfile.TemporaryDirectory() as tmp:
@@ -5424,6 +5828,9 @@ def main() -> int:
         precision_check(cfg, train_dir, dev, args.seed, smi)
         time_steps(cfg, train_dir, dev, args.seed, smi, train_rows,
                    STEP_SHAPES, STEPS, STEP_WARMUP, "bilstm")
+
+    log("done", f"phases 8-11 in {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
 
     # 12-17. the scale-up bigru: kernel checks and timing, training (a
     # main path), its checkpoint served (a main path), kernels vs plain
@@ -5453,6 +5860,8 @@ def main() -> int:
         time_steps(up, rooms / "train", dev, args.seed, smi,
                    {k: [v] for k, v in gru_rows.items()}, [SCALEUP[:2]],
                    SCALEUP_STEPS, SCALEUP_WARMUP, "bigru")
+
+    log("done", f"phases 12-17 in {time.perf_counter() - t_phase:.1f} s")
 
     # 18-24. the single-direction kernels and the legacy GRU surface:
     # kernel checks and timing, training and evaluation (main paths), one
@@ -5504,7 +5913,8 @@ def main() -> int:
     masked = check_gru_masked(dev, args.seed)
     wide_rows = time_new_routes(dev, args.seed)
     wide_launched = wide_paths(dev, args.seed, smi)
-    log("done", f"phases 31-34 (GRU masked widths {list(masked)}) in "
+    log("done", f"phases 31-34 (GRU masked widths of the first design, "
+                f"forced: {list(masked)}) in "
                 f"{time.perf_counter() - t_wide:.1f} s")
 
     # 35-37. the serving path's recipes on the flagship (a main path), #1
@@ -5545,6 +5955,16 @@ def main() -> int:
     stream_launched = stream_paths(dev, args.seed, smi)
     log("done", f"phase 40 in {time.perf_counter() - t_40:.1f} s; stream "
                 f"worst errors {json.dumps(stream_worst)}")
+
+    # 41. the GRU register cluster kernels (#5 / #5t, #7 / #7t, #6, #8 at H
+    # 65-256): their checks, their A/B beside the first cluster design and
+    # the pipe kernels, and a bigru at d_model 512 on them (a main path)
+    t_41 = time.perf_counter()
+    reg_worst = check_gru_reg(dev, args.seed)
+    reg_rows = time_gru_reg(dev, args.seed)
+    reg_launched = reg_paths(dev, args.seed, smi)
+    log("done", f"phase 41 in {time.perf_counter() - t_41:.1f} s; worst "
+                f"errors (values, BPTT max-rel) {json.dumps(reg_worst)}")
 
     def entry(name, source, replaces, launched, row):
         return {"name": name, "route": "cuda", "source": source,
@@ -5634,27 +6054,41 @@ def main() -> int:
             ("lstm_fwd_train", "bilstm_fwd.cu", "rnn_pallas.py:183",
              wide_launched["lstm_ops"]),
             ("lstm_bwd", "bilstm_bwd.cu", "rnn_pallas.py:242",
-             wide_launched["lstm_ops"]),
-            ("bigru_fwd", "bigru_fwd.cu", "gru_pallas.py:314",
-             wide_launched["bigru"]),
-            ("bigru_fwd_train", "bigru_fwd.cu", "gru_pallas.py:454",
-             wide_launched["bigru"]),
-            ("bigru_bwd", "bigru_bwd.cu", "gru_pallas.py:357",
-             wide_launched["bigru"]),
-            ("gru_fwd", "bigru_fwd.cu", "gru_pallas.py:39",
-             wide_launched["gru_ops"]),
-            ("gru_fwd_train", "bigru_fwd.cu", "gru_pallas.py:155",
-             wide_launched["gru_ops"]),
-            ("gru_bwd", "bigru_bwd.cu", "gru_pallas.py:71",
-             wide_launched["gru_ops"])):
-        lstm = name.startswith(("bilstm", "lstm"))
-        rows = wide_rows[name] if lstm else [wide_rows[name]]
-        kernels.append({**entry(f"{name}_{'reg' if lstm else 'masked'}",
+             wide_launched["lstm_ops"])):
+        rows = wide_rows[name]
+        kernels.append({**entry(f"{name}_reg",
                                 f"room_slam_torch/csrc/{source}",
                                 f"room_slam_tpu/ops/{line}", launched[name],
                                 rows[0]),
-                        **({"old_cluster_ms": rows[0]["old_cluster_ms"]}
-                           if lstm else {}),
+                        "old_cluster_ms": rows[0]["old_cluster_ms"],
+                        "shapes": rows})
+    # the GRU register cluster kernels (phase 41): the bigru at d_model 512
+    # (its step's and its served forward's launches), the one-direction
+    # kernels on phase 34's gru_recurrence path (H=139); the first cluster
+    # design's and the pipe kernel's times beside them
+    for name, source, line, launched in (
+            ("bigru_fwd", "bigru_fwd_reg.cu", "gru_pallas.py:314",
+             reg_launched["serve"]),
+            ("bigru_fwd_train", "bigru_fwd_reg.cu", "gru_pallas.py:454",
+             reg_launched["step"]),
+            ("bigru_bwd", "bigru_bwd_reg.cu", "gru_pallas.py:357",
+             reg_launched["step"]),
+            ("gru_fwd", "bigru_fwd_reg.cu", "gru_pallas.py:39",
+             wide_launched["gru_ops"]),
+            ("gru_fwd_train", "bigru_fwd_reg.cu", "gru_pallas.py:155",
+             wide_launched["gru_ops"]),
+            ("gru_bwd", "bigru_bwd_reg.cu", "gru_pallas.py:71",
+             wide_launched["gru_ops"])):
+        rows = reg_rows[name]
+        kernels.append({**entry(f"{name}_reg",
+                                f"room_slam_torch/csrc/{source}",
+                                f"room_slam_tpu/ops/{line}", launched[name],
+                                rows[0]),
+                        **{k: rows[0][k] for k in (
+                            "cluster_ms", "pipe_ms", "route_fastest",
+                            "first_over_route")},
+                        **({"path_timing": reg_launched["timing"]}
+                           if name.startswith("bigru") else {}),
                         "shapes": rows})
     # phase 40: #5 / #5t / #6 on the unit kernels (the bigru default path's
     # step and request), and the pipe kernels with their main paths

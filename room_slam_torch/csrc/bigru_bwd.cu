@@ -190,6 +190,17 @@
 // launch, not kLinear (4.1 us a step at such widths) or, with bf16
 // streams, the tensor-core BPTT (2.4x slower at H=64).
 //
+// From H = 65 to 256 the route takes the register cluster BPTT
+// (bigru_bwd_reg.cu, its own source: each block's gate columns of W_hh in
+// registers, a K-split whose float32 partials of dh_carry go by st.async
+// to their owners, no dg exchange and no cluster barrier) for float32 in
+// both grids, bf16 with one direction and bf16 with two where no
+// tensor-core plan fits; at (32, 500, 255) f32 it took a step from
+// kLinear's 13.6 us to about 3.4 (chip_smoke.py phase 41, PERF.md section
+// 6). kLinear stays the body of #9 (kFused),
+// #10 (kSplit) and the stream kernel, and is reached for the A/B by a
+// forced ("cluster", C, R) plan.
+//
 // The stream kernel (kStream), for #6 and #8 alike, the first design above
 // the cluster widths: the route above H = 1024 (to 2421), below it reached
 // by a forced ("stream", C, R) plan since the pipe kernel (bigru_pipe.cu)

@@ -143,7 +143,7 @@
 // gru_fwd_kernel_route, bigru_tc_plan) sends bf16 launches of two
 // directions above H=64 here where tc_plan_fits holds; float32 streams
 // (TF32 would miss the float32 bound), one direction and other shapes
-// keep the cluster kernel.
+// take the register cluster kernel (bigru_fwd_reg.cu) up to H=256.
 //
 // Both directions of a BiGRU layer at H <= 64 (the `bigru` model at its
 // default d_model 128) run the unit kernel with a grid of two directions
@@ -151,6 +151,15 @@
 // cluster kernel took 2.66 us a step at such widths, and with bf16 streams
 // the tensor-core kernel lost to the unit kernel 2-2.5x at H=64 (its
 // exchange is most of a short step).
+//
+// From H = 65 to 256 the route takes the register cluster kernel
+// (bigru_fwd_reg.cu, its own source: each block's slice of W_hh in
+// registers, h exchanged by st.async on mbarriers, no cluster barrier) for
+// float32 in both grids, bf16 with one direction and bf16 with two where
+// no tensor-core plan fits; at (32, 500, 255) f32 it took a step from 6.6
+// us here to about 2.5 (chip_smoke.py phase 41, PERF.md section 6). This cluster kernel stays for the A/B,
+// reached by a forced ("cluster", C, R) plan, and as the kStream kernel
+// below.
 //
 // Above H = 256 up to 1024 the pipe kernel (bigru_fwd_pipe.cu, its own
 // source) takes the launch, for #5 / #5t and #7 / #7t alike, also at the

@@ -48,15 +48,29 @@ through ``BiGRUFunction`` (training forward, then BPTT, then ``dW_hh`` and
 light forward. The tensor's device picks the implementation: a CUDA tensor
 launches the kernel (or raises); a CPU tensor takes the plain version.
 
-At H=256 one direction's W_hh does not fit one block's shared memory, so
-each kernel splits it across the blocks of a thread-block cluster
-(``bigru_plan``). With bf16 streams and both directions (the scale-up
-model's launches) ``bigru_fwd``, ``bigru_fwd_train`` and ``bigru_bwd`` run
-tensor-core kernels of the same sources instead (``gru_fwd_kernel_route``
-/ ``gru_bwd_kernel_route`` say "tc"): each warp holds its 8 units' slice
-of W_hh as ``mma.sync`` fragments in registers, a cluster of 4 or 8
-blocks walks a batch tile of 16 or 32 rows, and ``bigru_tc_plan`` picks
-the plan from the card's own counts.
+From H=65 to 256 one direction's W_hh does not fit the registers of one
+block, so the kernels split it across the blocks of a thread-block
+cluster. The register cluster kernels (``csrc/bigru_fwd_reg.cu``,
+``csrc/bigru_bwd_reg.cu``; ``gru_fwd_kernel_route`` /
+``gru_bwd_kernel_route`` say "reg") take these widths for float32 streams
+in both grids, for bf16 with one direction and for bf16 with two where no
+tensor-core plan fits: the LSTM's register scheme (``rnn_cuda.py``) with
+three gates, each block's slice of W_hh in registers over a cluster of up
+to 16 blocks, h (the BPTT: float32 partial sums of dh_carry, a K-split
+summed in rank order at their owners) exchanged by ``st.async`` on
+mbarriers; ``bigru_reg_plan`` picks the cluster and the tile of 1, 2, 4
+or 8 rows from the card's own counts, and ``reg_route`` sends a forward
+whose register grid needs more than ``REG_FWD_MAX_WAVES`` waves (the
+scale-up batch of 128 rows in float32) to the forward pipe kernel. The
+first cluster design (W_hh in shared memory, a cluster barrier a step;
+``bigru_plan``) stays for the A/B, reached by a forced ``("cluster", C,
+R)`` plan (or, for the two-direction wrappers, ``(C, R)``). With bf16
+streams and both directions (the scale-up model's launches) ``bigru_fwd``,
+``bigru_fwd_train`` and ``bigru_bwd`` run tensor-core kernels of the first
+design's sources instead (the routes say "tc"): each warp holds its 8
+units' slice of W_hh as ``mma.sync`` fragments in registers, a cluster of
+4 or 8 blocks walks a batch tile of 16 or 32 rows, and ``bigru_tc_plan``
+picks the plan from the card's own counts.
 
 ``gru_recurrence_kernel(xg, w_hh, b_hh, reverse)`` is one direction (the
 counterpart of ``gru_pallas.py::gru_recurrence_pallas`` and its
@@ -73,11 +87,13 @@ directions for a BiGRU layer) instead of the cluster kernels: four lanes
 of a warp own one hidden unit of a tile of 1, 2 or 4 rows, W_hh in their
 registers, one block barrier a step; ``gru_fwd_kernel_route`` /
 ``gru_bwd_kernel_route`` choose, ``rnn_cuda.unit_plan`` sizes the tile,
-and ``last_launch`` records both. Above H=256 (to ``GRU_FWD_PIPE_MAX_H``,
-1024) the forwards take the forward pipe kernel (``csrc/bigru_fwd_pipe.cu``:
-the LSTM's design with three gates, W_hh packed by
-``rnn_cuda.fwd_pipe_weights``, planned by ``rnn_cuda.fwd_pipe_plans``), at
-the cluster kernel's widths too (faster at H=320); above it
+and ``last_launch`` records both. From H=65 to 256 the one-direction
+launches take the register cluster kernels (as above). Above H=256 (to
+``GRU_FWD_PIPE_MAX_H``, 1024) the forwards take the forward pipe kernel
+(``csrc/bigru_fwd_pipe.cu``: the LSTM's design with three gates, W_hh
+packed by ``rnn_cuda.fwd_pipe_weights``, planned by
+``rnn_cuda.fwd_pipe_plans``), at the cluster kernel's widths too (faster
+at H=320); above it
 the stream kernels (the cluster kernels reading their slice of W_hh from
 global memory every step, clusters of up to 16 blocks, planned by
 ``rnn_cuda.stream_plans``; the first design for these widths, reached
@@ -106,22 +122,26 @@ from room_slam_torch.ops.rnn import gru_recurrence, input_gates
 from room_slam_torch.ops.rnn_cuda import (CLUSTER_MAX_H, CLUSTER_SIZES,
                                           MAX_ROWS, MAX_SMEM_BYTES,
                                           MAX_THREADS, FPIPE_MAX_CLUSTER,
-                                          FPIPE_ROWS, PIPE_CELLS,
+                                          FPIPE_ROWS, GRU_REG_ROWS,
+                                          PIPE_CELLS,
                                           PIPE_MAX_CLUSTER, PIPE_ROWS,
+                                          REG_MAX_CLUSTER, REG_MAX_THREADS,
                                           ROWS_PER_THREAD,
                                           STREAM_MAX_CLUSTER,
                                           UNIT_MAX_H, _bind_pipe,
                                           _device_type, _fwd_pipe_rule,
-                                          _pad4, _pipe_rule,
+                                          _pad4, _pipe_rule, _reg_rule,
                                           _stream_rule, _work_dtype,
                                           bind_fwd_pipe, bind_unit_queries,
                                           bwd_weights, fwd_pipe_plans,
                                           fwd_pipe_takes, fwd_weights,
                                           card_name, card_unit_plans,
+                                          check_reg_mirror,
                                           check_stream_mirror, grad_product,
                                           grad_sum, launch, pipe_plans,
                                           pipe_takes, prev_steps,
-                                          rank_cluster_plans,
+                                          rank_cluster_plans, reg_plans,
+                                          reg_takes,
                                           set_error_string, slice_units,
                                           stream_plans, stream_refusal,
                                           stream_takes, unit_launch_rows)
@@ -410,6 +430,67 @@ def cluster_takes(kind: str, hidden: int) -> bool:
                                  ROWS_PER_THREAD))
 
 
+# ---------------------------------------------------------------------------
+# The register cluster kernels (csrc/bigru_fwd_reg.cu, csrc/bigru_bwd_reg.cu):
+# the LSTM's register scheme with three gates, so that rnn_cuda's register
+# plan rule, layout mirror and planner take gates=3
+# ---------------------------------------------------------------------------
+
+REG_GATES = 3
+
+
+def bigru_reg_plans(kind: str, batch: int, hidden: int,
+                    resident: Callable[[int, int], int],
+                    dirs: int = 2) -> List[Tuple[int, int]]:
+    """Every ``(cluster, rows)`` the GRU register cluster kernel ``kind``
+    ("fwd": both forward variants; "bwd": the BPTT) takes at this batch and
+    H over ``dirs`` directions, fastest first (``rnn_cuda.rank_reg_plans``
+    with three gates: ``resident(cluster, rows)`` is the card's own count
+    of such clusters at once)."""
+    return reg_plans(kind, batch, hidden, resident, dirs, REG_GATES)
+
+
+def bigru_reg_plan(kind: str, batch: int, hidden: int,
+                   resident: Callable[[int, int], int],
+                   dirs: int = 2) -> Tuple[int, int]:
+    """``(cluster, rows)`` of the GRU register cluster kernel ``kind``: the
+    first of ``bigru_reg_plans``. Raises where the card runs no plan."""
+    plans = bigru_reg_plans(kind, batch, hidden, resident, dirs)
+    if not plans:
+        raise ValueError(f"bigru_{kind}_reg: no plan of 1 to "
+                         f"{REG_MAX_CLUSTER} blocks takes H={hidden} on this "
+                         "card")
+    return plans[0]
+
+
+# A forward launch whose register grid needs more waves than this (the
+# card's resident clusters of its plan) takes the forward pipe kernel: at
+# the scale-up batch (128, 5000, 256) f32 the register grid's three waves
+# lost to the pipe kernel's one on an H100 (chip_smoke.py phase 41 times
+# both in turns; the BPTT's register grid won there and keeps the route)
+REG_FWD_MAX_WAVES = 2
+
+
+def reg_waves(kind: str, batch: int, hidden: int,
+              resident: Callable[[int, int], int], dirs: int = 2) -> int:
+    """The waves of the register kernel ``kind``'s grid at its planner's
+    pick: ``dirs`` x ceil(B / R) clusters, ``resident(C, R)`` at once."""
+    c, rows = bigru_reg_plan(kind, batch, hidden, resident, dirs)
+    return -(-dirs * -(-batch // rows) // resident(c, rows))
+
+
+def reg_route(kind: str, batch: int, hidden: int,
+              resident: Callable[[int, int], int], dirs: int = 2) -> str:
+    """Where a launch the route sends to the register kernel ``kind`` goes
+    at this batch: "pipe" for a forward whose register grid needs more
+    than ``REG_FWD_MAX_WAVES`` waves (where the forward pipe kernel takes
+    H), else "reg"."""
+    if kind == "fwd" and fwd_pipe_takes(hidden) and reg_waves(
+            kind, batch, hidden, resident, dirs) > REG_FWD_MAX_WAVES:
+        return "pipe"
+    return "reg"
+
+
 # The BPTT's pipe kernel (csrc/bigru_pipe.cu): three gates, so that
 # rnn_cuda's pipe planner, layout mirror and W_hh packing take gates=3
 PIPE_GATES = 3
@@ -429,6 +510,8 @@ def _route(kind: str, hidden: int, dirs: int, dtype: torch.dtype) -> str:
             tc_plan_fits(kind, hidden, c, r)
             for c in TC_CLUSTER_SIZES for r in TC_ROWS):
         return "tc"
+    if hidden <= CLUSTER_MAX_H and reg_takes(kind, hidden, REG_GATES):
+        return "reg"
     # above CLUSTER_MAX_H the BPTT takes the pipe kernel also where a
     # kLinear plan fits (the multiples of 8 up to 360): faster at H=320,
     # where chip_smoke.py phase 40 times the two in turns
@@ -459,14 +542,17 @@ def gru_fwd_kernel_route(hidden: int, dirs: int,
     directions, float32 or bf16: at H=64 it beat the tensor-core kernels
     2-2.5x with bf16 streams on an H100); "tc" (the tensor-core kernel)
     above it for two directions with bf16 streams where ``tc_plan_fits``
-    holds for a plan of the planner's; above ``CLUSTER_MAX_H`` up to
-    ``GRU_FWD_PIPE_MAX_H`` "pipe" (the forward pipe kernel,
+    holds for a plan of the planner's; else "reg" (the register cluster
+    kernel, ``csrc/bigru_fwd_reg.cu``) up to ``CLUSTER_MAX_H``
+    (``bigru_reg_plan`` picks its cluster and tile; ``reg_route`` may send
+    a batch whose register grid needs more waves to the pipe kernel);
+    above it up to ``GRU_FWD_PIPE_MAX_H`` "pipe" (the forward pipe kernel,
     ``csrc/bigru_fwd_pipe.cu``; also where a cluster plan fits); else
-    "cluster" where a plan of
-    ``bigru_plans`` fits (``bigru_plan`` then picks its cluster and tile),
-    else "stream" (the first stream design, ``bigru_stream_plans``; also
-    reached by a forced plan). Raises, naming the width and the card's
-    limit, for an H none takes."""
+    "cluster" where a plan of ``bigru_plans`` fits (the first design,
+    ``bigru_plan`` picks its cluster and tile; also reached by a forced
+    ``("cluster", C, R)`` plan), else "stream" (the first stream design,
+    ``bigru_stream_plans``; also reached by a forced plan). Raises, naming
+    the width and the card's limit, for an H none takes."""
     return _route("fwd", hidden, dirs, dtype)
 
 
@@ -477,11 +563,13 @@ def gru_bwd_kernel_route(hidden: int, dirs: int,
     hidden size ``hidden`` with ``dtype`` streams: "unit"
     (``gru_bwd_unit_kernel``) at H <= ``UNIT_MAX_H``; "tc"
     (``bigru_bwd_tc_kernel``) above it for two directions with bf16 streams
-    where ``tc_plan_fits`` holds; else "cluster" (kLinear) where a plan
-    fits up to ``CLUSTER_MAX_H``; above it "pipe" (the pipe kernel) where
-    a plan of it takes H (to H=1024), else "stream" (the first stream
-    design, also reached below by a forced plan). Raises, naming the width
-    and the card's limit, for an H none takes."""
+    where ``tc_plan_fits`` holds; else "reg" (the register cluster kernel,
+    ``csrc/bigru_bwd_reg.cu``) up to ``CLUSTER_MAX_H`` (``reg_route`` as
+    the forward's); above it "pipe" (the pipe kernel) where a plan of it
+    takes H (to H=1024), else "stream" (the first stream design, also
+    reached below by a forced plan). kLinear's cluster kernel, the first
+    design up to H=256, is reached by a forced ``("cluster", C, R)`` plan.
+    Raises, naming the width and the card's limit, for an H none takes."""
     return _route("bwd", hidden, dirs, dtype)
 
 
@@ -864,6 +952,8 @@ def _library(name: str):
     if name == "bigru_fwd_pipe":
         return bind_fwd_pipe(lib, {"bigru_fwd": 8, "bigru_fwd_train": 12},
                              {"gru_fwd": 4, "gru_fwd_train": 6}, PIPE_GATES)
+    if name in ("bigru_fwd_reg", "bigru_bwd_reg"):
+        return _bind_reg(lib, name)
     p, i = ctypes.c_void_p, ctypes.c_int
     fwd = name == "bigru_fwd"
     for sfx in _SUFFIX.values():
@@ -928,6 +1018,34 @@ def _library(name: str):
         bind_unit_queries(lib, "gru_fwd", gates=3)
     else:
         bind_unit_queries(lib, "gru_bwd", gates=3, tiles=3)
+    set_error_string(lib, name)
+    return lib
+
+
+def _bind_reg(lib, name: str):
+    """Bind a register cluster kernel's library ``name``
+    (``csrc/bigru_fwd_reg.cu``, ``csrc/bigru_bwd_reg.cu``): the entries of
+    both grids (the cluster entries' pointers, then B, N, H, C, R, and a
+    grid of one direction's reverse flag) and the queries
+    ``<name>_max_active_clusters`` (the bf16 and kSave flags, H, C, R) and
+    ``<name>_layout`` (what, H, C, R), held to ``rnn_cuda.reg_smem_bytes``
+    / ``_reg_rule`` with three gates (``check_reg_mirror``)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    kind = name[len("bigru_"):-len("_reg")]
+    entries = ({"bigru_fwd_reg": (8, 5), "bigru_fwd_train_reg": (12, 5),
+                "gru_fwd_reg": (4, 6), "gru_fwd_train_reg": (6, 6)}
+               if kind == "fwd" else
+               {"bigru_bwd_reg": (14, 5), "gru_bwd_reg": (7, 6)})
+    for sfx in _SUFFIX.values():
+        for fn_name, (n_ptr, n_int) in entries.items():
+            fn = getattr(lib, f"{fn_name}_{sfx}")
+            fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
+            fn.restype = ctypes.c_int
+    for query, n_int in (("max_active_clusters", 5), ("layout", 4)):
+        fn = getattr(lib, f"{name}_{query}")
+        fn.argtypes = [i] * n_int
+        fn.restype = i
+    check_reg_mirror(getattr(lib, f"{name}_layout"), kind, REG_GATES)
     set_error_string(lib, name)
     return lib
 
@@ -1036,6 +1154,31 @@ def _fwd_pipe_resident(H: int, dev: torch.device, T, save: bool):
             return query(int(T == torch.bfloat16), int(save), H, c, rows)
 
     return lib, resident
+
+
+def _reg_resident(kind: str, H: int, dev: torch.device, T, save: bool):
+    """The register cluster kernel ``kind``'s library
+    (``csrc/bigru_fwd_reg.cu`` or ``csrc/bigru_bwd_reg.cu``) and
+    ``resident(cluster, rows)``: how many clusters of that plan the card
+    ``dev`` runs at once."""
+    lib = _library(f"bigru_{kind}_reg")
+    query = getattr(lib, f"bigru_{kind}_reg_max_active_clusters")
+
+    def resident(c, rows):
+        with torch.cuda.device(dev):
+            return query(int(T == torch.bfloat16), int(save), H, c, rows)
+
+    return lib, resident
+
+
+def card_gru_reg_plans(kind: str, B: int, H: int, dev: torch.device,
+                       dtype: torch.dtype, save: bool = False,
+                       dirs: int = 2) -> List[Tuple[int, int]]:
+    """``bigru_reg_plans`` of the register cluster kernel ``kind`` ("fwd"
+    or "bwd") over ``dirs`` directions on the card ``dev`` (its own
+    counts), fastest first; the first is the plan a launch takes."""
+    return bigru_reg_plans(kind, B, H,
+                           _reg_resident(kind, H, dev, dtype, save)[1], dirs)
 
 
 def card_gru_fwd_pipe_plans(B: int, H: int, dev: torch.device,
@@ -1186,6 +1329,56 @@ def _stream_plan_launch(kind: str, fn, B: int, H: int, dev: torch.device,
     return lib, fn.last_launch["cluster"], fn.last_launch["rows"]
 
 
+def _batch_route(kind: str, B: int, H: int, dev: torch.device, T,
+                 save: bool, dirs: int) -> str:
+    """``reg_route`` of a launch the route sends to the register kernel
+    ``kind``, with the card's own counts (cached by shape)."""
+    key = ("route", kind, B, H, str(dev), T, save, dirs)
+    if key not in _PLANS:
+        _PLANS[key] = reg_route(kind, B, H,
+                                _reg_resident(kind, H, dev, T, save)[1],
+                                dirs)
+    return _PLANS[key]
+
+
+def _reg_plan_launch(kind: str, fn, B: int, H: int, dev: torch.device, T,
+                     save: bool, dirs: int,
+                     plan: Optional[Tuple[int, int]] = None):
+    """The launch's ``(cluster, rows)`` for the register cluster kernel
+    ``kind`` ("fwd" or "bwd") over ``dirs`` directions:
+    ``bigru_reg_plan``'s pick with the card's own counts, or the caller's
+    ``plan``, refused unless the register rule holds (``_reg_rule`` with
+    three gates) and the card runs at least one such cluster. Recorded
+    with the number of the grid's clusters in ``fn.last_launch``."""
+    lib, resident = _reg_resident(kind, H, dev, T, save)
+    key = ("reg", kind, B, H, str(dev), T, save, dirs, plan)
+    if key not in _PLANS:
+        if plan is None:
+            plans = bigru_reg_plans(kind, B, H, resident, dirs)
+            if not plans:
+                raise ValueError(f"bigru_{kind}_reg: no plan of 1 to "
+                                 f"{REG_MAX_CLUSTER} blocks takes H={H} on "
+                                 f"{card_name(dev)}")
+            cluster, rows = plans[0]
+        else:
+            cluster, rows = plan
+            if not _reg_rule(kind, H, cluster, rows, REG_GATES):
+                raise ValueError(
+                    f"bigru_{kind}_reg: plan {cluster}x{rows} does not fit "
+                    f"H={H}: H at most {CLUSTER_MAX_H}, 1 to "
+                    f"{REG_MAX_CLUSTER} blocks each owning a unit, a tile of "
+                    f"{GRU_REG_ROWS} rows, at most {REG_MAX_THREADS} threads"
+                    f" and {MAX_SMEM_BYTES} bytes of shared memory a block")
+            if resident(cluster, rows) <= 0:
+                raise ValueError(f"bigru_{kind}_reg: the card runs no "
+                                 f"cluster of plan {cluster}x{rows} at once")
+        _PLANS[key] = {"kernel": "reg", "cluster": cluster, "rows": rows,
+                       "clusters": dirs * -(-B // rows),
+                       "resident": resident(cluster, rows)}
+    fn.last_launch = _PLANS[key]
+    return lib, fn.last_launch["cluster"], fn.last_launch["rows"]
+
+
 def _pipe_plan_launch(fn, B: int, H: int, dev: torch.device, T, dirs: int,
                       plan: Optional[Tuple[int, int]] = None):
     """The launch's ``(cluster, rows)`` for the BPTT's pipe kernel over
@@ -1264,17 +1457,18 @@ def _fwd_pipe_plan_launch(fn, B: int, H: int, dev: torch.device, T,
 
 def _bigru_kernel(kind: str, H: int, T: torch.dtype, plan):
     """The kernel a two-direction launch of ``kind`` ("fwd" or "bwd")
-    takes, "unit", "tc", "cluster", "pipe" or "stream", and the plan the
-    caller forces (None: the planner's): ``plan=None`` follows the route,
-    ``(cluster, rows)`` forces the cluster kernel, ``("unit", rows)`` the
-    unit kernel, ``("stream", cluster, rows)`` the stream kernel,
-    ``("pipe", cluster, rows)`` the pipe kernel (the BPTT's or the
-    forward's), ``("tc", cluster, rows)`` the tensor-core kernel, refused
-    for float32 streams."""
+    takes, "unit", "tc", "reg", "cluster", "pipe" or "stream", and the plan
+    the caller forces (None: the planner's): ``plan=None`` follows the
+    route, ``("cluster", cluster, rows)`` or ``(cluster, rows)`` forces the
+    first cluster kernel, ``("reg", cluster, rows)`` the register cluster
+    kernel, ``("unit", rows)`` the unit kernel, ``("stream", cluster,
+    rows)`` the stream kernel, ``("pipe", cluster, rows)`` the pipe kernel
+    (the BPTT's or the forward's), ``("tc", cluster, rows)`` the
+    tensor-core kernel, refused for float32 streams."""
     if plan is None:
         route = gru_fwd_kernel_route if kind == "fwd" else gru_bwd_kernel_route
         return route(H, 2, T), None
-    if plan[0] not in ("tc", "unit", "stream", "pipe"):
+    if plan[0] not in ("tc", "unit", "stream", "pipe", "reg", "cluster"):
         return "cluster", tuple(plan)
     if plan[0] == "tc" and T != torch.bfloat16:
         raise ValueError(f"bigru_{kind}: the tensor-core kernel takes "
@@ -1309,6 +1503,8 @@ def _fwd_launch(fn, save: bool, plan, xg_f, xg_b, w_f, b_f, w_b, b_b):
     if B == 0 or N == 0:
         return tuple(outs)
     kernel, forced = _bigru_kernel("fwd", H, T, plan)
+    if kernel == "reg" and plan is None:
+        kernel = _batch_route("fwd", B, H, dev, T, save, 2)
     if kernel == "unit":
         lib, rows = _unit_rows(fn, "gru_fwd", B, H, dev, T, save, 2, forced)
         name = "bigru_fwd_unit_train" if save else "bigru_fwd_unit"
@@ -1325,6 +1521,10 @@ def _fwd_launch(fn, save: bool, plan, xg_f, xg_b, w_f, b_f, w_b, b_b):
         lib, cluster, rows = _fwd_pipe_plan_launch(fn, B, H, dev, T, save, 2,
                                                    forced)
         name, plan_ints = f"{name}_pipe", (cluster, rows)
+    elif kernel == "reg":
+        lib, cluster, rows = _reg_plan_launch("fwd", fn, B, H, dev, T, save,
+                                              2, forced)
+        name, plan_ints = f"{name}_reg", (cluster, rows)
     else:
         lib, cluster, rows = _plan_launch("fwd", fn, B, H, dev, T, save, 2,
                                           forced)
@@ -1341,13 +1541,16 @@ def _fwd_launch(fn, save: bool, plan, xg_f, xg_b, w_f, b_f, w_b, b_b):
 def bigru_fwd_cuda(xg_f, xg_b, w_f, b_f, w_b, b_b,
                    plan: Optional[tuple] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the light kernel of ``csrc/bigru_fwd.cu`` (the pipe kernel:
+    """Launch the light kernel of ``csrc/bigru_fwd.cu`` (the register
+    kernel: ``csrc/bigru_fwd_reg.cu``; the pipe kernel:
     ``csrc/bigru_fwd_pipe.cu``) on the current stream: ``(ys_f, ys_b)``.
-    ``gru_fwd_kernel_route`` picks the unit, tensor-core, cluster, pipe or
-    stream kernel; ``plan=(cluster, rows)`` forces the cluster kernel's
-    plan, ``plan=("unit", rows)``, ``("pipe", cluster, rows)``,
-    ``("stream", cluster, rows)`` or ``("tc", cluster, rows)`` the unit,
-    pipe, stream or tensor-core kernel's (raises if it does not fit).
+    ``gru_fwd_kernel_route`` (and, for the register kernel, ``reg_route``)
+    picks the unit, tensor-core, register, cluster, pipe or stream kernel;
+    ``plan=("cluster", cluster, rows)`` or ``(cluster, rows)`` forces the
+    first cluster kernel's plan, ``plan=("unit", rows)``, ``("reg",
+    cluster, rows)``, ``("pipe", cluster, rows)``, ``("stream", cluster,
+    rows)`` or ``("tc", cluster, rows)`` the unit, register, pipe, stream
+    or tensor-core kernel's (raises if it does not fit).
     Records the plan in
     ``bigru_fwd_cuda.last_launch`` and counts each launch in
     ``bigru_fwd_cuda.launches``. Its outputs carry no autograd history:
@@ -1388,8 +1591,14 @@ def _bwd_launch(fn, kind: str, plan, w_f, w_b, gs_f, hn_f, ys_f, dy_f,
     outs = [torch.empty(B, N, d, dtype=T, device=dev) for d in (G, H, G, H)]
     if B == 0 or N == 0:
         return tuple(outs)
-    kernel, forced = ("cluster", plan) if kind == "split" \
-        else _bigru_kernel("bwd", H, T, plan)
+    if kind == "split":
+        kernel, forced = "cluster", (
+            tuple(plan[1:]) if plan is not None and plan[0] == "cluster"
+            else plan)
+    else:
+        kernel, forced = _bigru_kernel("bwd", H, T, plan)
+    if kernel == "reg" and plan is None:
+        kernel = _batch_route("bwd", B, H, dev, T, False, 2)
     if kernel == "unit":
         lib, rows = _unit_rows(fn, "gru_bwd", B, H, dev, T, False, 2, forced)
         name, plan_ints = "bigru_bwd_unit", (rows,)
@@ -1404,6 +1613,10 @@ def _bwd_launch(fn, kind: str, plan, w_f, w_b, gs_f, hn_f, ys_f, dy_f,
     elif kernel == "pipe":
         lib, cluster, rows = _pipe_plan_launch(fn, B, H, dev, T, 2, forced)
         name, plan_ints = f"{name}_pipe", (cluster, rows)
+    elif kernel == "reg":
+        lib, cluster, rows = _reg_plan_launch("bwd", fn, B, H, dev, T, False,
+                                              2, forced)
+        name, plan_ints = f"{name}_reg", (cluster, rows)
     else:
         lib, cluster, rows = _plan_launch(kind, fn, B, H, dev, T, False, 2,
                                           forced)
@@ -1419,15 +1632,16 @@ def _bwd_launch(fn, kind: str, plan, w_f, w_b, gs_f, hn_f, ys_f, dy_f,
 
 def bigru_bwd_cuda(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b, dy_b,
                    plan: Optional[tuple] = None):
-    """Launch ``csrc/bigru_bwd.cu`` (#6; the pipe kernel
-    ``csrc/bigru_pipe.cu``): ``(dx_f, dhn_f, dx_b, dhn_b)``.
-    ``gru_bwd_kernel_route`` picks the unit kernel (both directions in one
-    launch), the tensor-core kernel, kLinear's cluster kernel, the pipe
-    kernel or the stream kernel; ``plan=(cluster, rows)`` forces the
-    cluster kernel's plan, ``plan=("unit", rows)``, ``("pipe", cluster,
-    rows)``, ``("stream", cluster, rows)`` or ``("tc", cluster, rows)`` the
-    unit, pipe, stream or tensor-core kernel's (raises if it does not
-    fit). Records the plan in ``bigru_bwd_cuda.last_launch`` and
+    """Launch ``csrc/bigru_bwd.cu`` (#6; the register kernel
+    ``csrc/bigru_bwd_reg.cu``, the pipe kernel ``csrc/bigru_pipe.cu``):
+    ``(dx_f, dhn_f, dx_b, dhn_b)``. ``gru_bwd_kernel_route`` picks the unit
+    kernel (both directions in one launch), the tensor-core kernel, the
+    register kernel, the pipe kernel or the stream kernel;
+    ``plan=("cluster", cluster, rows)`` or ``(cluster, rows)`` forces
+    kLinear's cluster kernel (the first design), ``plan=("unit", rows)``,
+    ``("reg", cluster, rows)``, ``("pipe", cluster, rows)``, ``("stream",
+    cluster, rows)`` or ``("tc", cluster, rows)`` the unit, register,
+    pipe, stream or tensor-core kernel's (raises if it does not fit). Records the plan in ``bigru_bwd_cuda.last_launch`` and
     counts each launch in ``bigru_bwd_cuda.launches``."""
     return _bwd_launch(bigru_bwd_cuda, "bwd", plan, w_f, w_b, gs_f, hn_f,
                        ys_f, dy_f, gs_b, hn_b, ys_b, dy_b)
@@ -1513,17 +1727,21 @@ def _gru_launch(fn, name: str, route, save: bool, ptrs, B, N, H, dev, T,
     "gru_fwd_train" (``csrc/bigru_fwd.cu``) or "gru_bwd"
     (``csrc/bigru_bwd.cu``, the pipe kernel ``csrc/bigru_pipe.cu``) on the
     tensors ``ptrs`` (the BPTT's: W_hh first), on the unit kernel
-    (``rnn_cuda.unit_plan``'s tile), the cluster kernel (``bigru_plan``'s
-    plan), the pipe kernel (the BPTT's: ``rnn_cuda.pipe_plans``' plan, W_hh
+    (``rnn_cuda.unit_plan``'s tile), the register kernel
+    (``bigru_reg_plan``'s plan; ``reg_route`` may send a forward to the
+    pipe kernel), the cluster kernel (``bigru_plan``'s plan), the pipe
+    kernel (the BPTT's: ``rnn_cuda.pipe_plans``' plan, W_hh
     packed by ``rnn_cuda.pipe_weights``; the forward's:
     ``rnn_cuda.fwd_pipe_plans``', ``rnn_cuda.fwd_pipe_weights``) or the
     stream kernel
     (``bigru_stream_plans``' plan; the BPTT's reads W_hh^T) as ``route(H,
-    1)`` says, or as the caller's ``plan`` ("unit", rows), ("cluster",
-    cluster, rows), ("pipe", cluster, rows) or ("stream", cluster, rows)
-    forces; counted and recorded on ``fn``."""
+    1)`` says, or as the caller's ``plan`` ("unit", rows), ("reg",
+    cluster, rows), ("cluster", cluster, rows), ("pipe", cluster, rows) or
+    ("stream", cluster, rows) forces; counted and recorded on ``fn``."""
     src = name[:len("gru_fwd")]          # the unit queries' name
     kernel = route(H, 1) if plan is None else plan[0]
+    if kernel == "reg" and plan is None:
+        kernel = _batch_route(src[len("gru_"):], B, H, dev, T, save, 1)
     forced = None if plan is None else tuple(plan[1:])
     sfx = _SUFFIX[T]
     if kernel == "unit":
@@ -1538,6 +1756,10 @@ def _gru_launch(fn, name: str, route, save: bool, ptrs, B, N, H, dev, T,
                                      save, 1, forced)
         entry = name if kernel == "cluster" else f"{name}_stream"
         plan_ints = (cluster, rows)
+    elif kernel == "reg":
+        lib, cluster, rows = _reg_plan_launch(src[len("gru_"):], fn, B, H,
+                                              dev, T, save, 1, forced)
+        entry, plan_ints = f"{name}_reg", (cluster, rows)
     elif kernel == "pipe" and src == "gru_bwd":
         lib, cluster, rows = _pipe_plan_launch(fn, B, H, dev, T, 1, forced)
         entry, plan_ints = f"{name}_pipe", (cluster, rows)
@@ -1546,9 +1768,10 @@ def _gru_launch(fn, name: str, route, save: bool, ptrs, B, N, H, dev, T,
                                                    forced)
         entry, plan_ints = f"{name}_pipe", (cluster, rows)
     else:
-        raise ValueError(f"{name}: plan must be ('unit', rows), ('cluster', "
-                         f"cluster, rows), ('pipe', cluster, rows) or "
-                         f"('stream', cluster, rows), got {plan}")
+        raise ValueError(f"{name}: plan must be ('unit', rows), ('reg', "
+                         "cluster, rows), ('cluster', cluster, rows), "
+                         "('pipe', cluster, rows) or ('stream', cluster, "
+                         f"rows), got {plan}")
     if src == "gru_bwd":
         ptrs = [*bwd_weights(kernel, ptrs[:1], plan_ints[0]), *ptrs[1:]]
     else:
@@ -1579,8 +1802,9 @@ def _gru_fwd_launch(fn, save: bool, xg, w, b, reverse: bool, plan):
 def gru_fwd_cuda(xg, w, b, reverse: bool = False,
                  plan: Optional[tuple] = None) -> torch.Tensor:
     """Launch the light kernel of ``csrc/bigru_fwd.cu`` with a grid of one
-    direction on the current stream (the pipe kernel:
-    ``csrc/bigru_fwd_pipe.cu``): ``ys``. ``plan=("unit", rows)``,
+    direction on the current stream (the register kernel:
+    ``csrc/bigru_fwd_reg.cu``; the pipe kernel: ``csrc/bigru_fwd_pipe.cu``):
+    ``ys``. ``plan=("unit", rows)``, ``("reg", cluster, rows)``,
     ``("cluster", cluster, rows)``, ``("pipe", cluster, rows)`` or
     ``("stream", cluster, rows)`` overrides the route and the planner
     (raises if it does not fit). Counts each launch in
@@ -1615,12 +1839,14 @@ def card_gru_bwd_unit_plans(B: int, H: int, dev: torch.device,
 
 def gru_bwd_cuda(w, gs, hn, ys, dy, reverse: bool = False,
                  plan: Optional[tuple] = None):
-    """Launch ``csrc/bigru_bwd.cu`` (the pipe kernel ``csrc/bigru_pipe.cu``)
-    with a grid of one direction: ``(dx, dhn)``. ``gru_bwd_kernel_route``
-    picks the unit kernel, the cluster kernel (kLinear), the pipe kernel or
-    the stream kernel; ``plan=("unit", rows)``, ``("cluster", cluster,
-    rows)``, ``("pipe", cluster, rows)`` or ``("stream", cluster, rows)``
-    overrides the route and the planner (raises if it does not fit). Records the plan in ``gru_bwd_cuda.last_launch`` and counts
+    """Launch ``csrc/bigru_bwd.cu`` (the register kernel
+    ``csrc/bigru_bwd_reg.cu``, the pipe kernel ``csrc/bigru_pipe.cu``) with
+    a grid of one direction: ``(dx, dhn)``. ``gru_bwd_kernel_route`` picks
+    the unit kernel, the register kernel, the pipe kernel or the stream
+    kernel; ``plan=("unit", rows)``, ``("reg", cluster, rows)``,
+    ``("cluster", cluster, rows)`` (kLinear, the first design), ``("pipe",
+    cluster, rows)`` or ``("stream", cluster, rows)`` overrides the route
+    and the planner (raises if it does not fit). Records the plan in ``gru_bwd_cuda.last_launch`` and counts
     each launch in ``gru_bwd_cuda.launches``."""
     H = w.shape[0]
     B, N, G = gs.shape

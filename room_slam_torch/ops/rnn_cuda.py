@@ -111,20 +111,24 @@ MAX_ROWS = 32
 MAX_THREADS = 512
 CLUSTER_MAX_H = 256
 
-# The register cluster kernels (bilstm_*_reg_kernel): clusters of 1 to
+# The register cluster kernels (bilstm_*_reg_kernel; with three gates
+# csrc/bigru_fwd_reg.cu and csrc/bigru_bwd_reg.cu): clusters of 1 to
 # REG_MAX_CLUSTER blocks (above 8 a non-portable size), batch tiles of
-# REG_ROWS[kind] rows, the k values a forward lane holds (kRegKPerLane) and the
-# gate columns a BPTT lane holds (kRegJPerLane), the inputs the BPTT stages
-# a cell (kRegIn) and the outputs the forward stages (kRegStreams)
+# REG_ROWS[kind] rows (the GRU's: GRU_REG_ROWS), the k values a forward lane
+# holds (kRegKPerLane; a BPTT lane holds 8 columns of each gate, kRegJPerLane
+# / kJPerLane), the inputs the BPTT stages a cell (kRegIn) and the outputs
+# the forward stages (kRegStreams), by gate count
 REG_MAX_CLUSTER = 16
 REG_ROWS = {"fwd": (1, 2, 4), "bwd": (1, 2, 4, 8)}
+GRU_REG_ROWS = (1, 2, 4, 8)
 REG_MAX_THREADS = 256   # the launch bound: 255 registers a thread
 REG_K_PER_LANE = 16
-REG_J_PER_LANE = 32
-REG_IN = 7
+REG_IN = {4: 7, 3: 6}        # i, f, g, o, c, c_prev, dy; r, z, n, hn, h_prev, dy
 REG_LOADS = 4     # input values a BPTT thread loads a step (kRegLoads)
-REG_STREAMS = 6
+REG_STREAMS = {4: 6, 3: 5}   # ys, c, i, f, g, o; ys, r, z, n, hn
+REG_BWD_OUT = 4   # staged BPTT outputs: dg of four gates; dx of three and dhn
 REG_STAGES = 3    # output staging slots (kRegStages)
+REG_SOURCE = {4: "bilstm", 3: "bigru"}   # the layout queries' prefix
 # A step's fixed part (the exchange, the lane reduction, the gate math) in
 # thread-rows of a block's FMA issue, for rank_reg_plans' cost model
 REG_STEP_FIXED = 2400
@@ -411,16 +415,23 @@ def _pow2_at_least(n: int) -> int:
 
 
 def reg_lanes(hidden: int) -> int:
-    """Lanes of a hidden unit in the forward register cluster kernel: 8 up
+    """Lanes of a hidden unit in the forward register cluster kernels: 8 up
     to H=128 (16 k values a lane), 16 above."""
     return 8 if hidden <= 8 * REG_K_PER_LANE else 16
+
+
+def reg_rows(kind: str, gates: int = 4) -> Tuple[int, ...]:
+    """The batch tiles of the register cluster kernel ``kind`` with
+    ``gates`` gates: the LSTM forward's 1, 2 or 4 rows (8 spilled), the
+    LSTM BPTT's and both GRU kernels' also 8."""
+    return REG_ROWS[kind] if gates == 4 else GRU_REG_ROWS
 
 
 def reg_units(kind: str, hidden: int, cluster: int) -> int:
     """Hidden units one block of the register cluster kernel ``kind``
     owns: ceil(H / C) up to a power of two, at least a warp's worth of
-    units in the forward (32 / lanes) and 8 in the BPTT (a lane's 32 gate
-    columns); the last block's slice is masked past H."""
+    units in the forward (32 / lanes) and 8 in the BPTT (a lane's 8
+    columns of each gate); the last block's slice is masked past H."""
     u = _pow2_at_least(-(-hidden // cluster))
     return max(u, 32 // reg_lanes(hidden) if kind == "fwd" else 8)
 
@@ -434,81 +445,88 @@ def reg_threads(kind: str, hidden: int, cluster: int) -> int:
     return -(-(-(-hidden // 2) * (U // 8)) // 32) * 32
 
 
-def reg_smem_bytes(kind: str, hidden: int, cluster: int, rows: int) -> int:
+def reg_smem_bytes(kind: str, hidden: int, cluster: int, rows: int,
+                   gates: int = 4) -> int:
     """Dynamic shared memory of a block of the register cluster kernel
-    ``kind`` (``reg_smem_floats`` of the sources): the forward's h tile
-    [2][rows][TK] (TK covers the cluster's units and every k a lane reads),
-    xg ring [2][rows][4][U + 1] and output staging [3][6][rows][U + 1]; the
-    BPTT's dg tile (32-column groups padded by 4 floats), partials
-    [2][C][U][rows], input ring [2][rows][7][U + 1] and output staging
-    [3][4][rows][U + 1]."""
+    ``kind`` with ``gates`` gates (``reg_smem_floats`` of the sources): the
+    forward's h tile [2][rows][TK] (TK covers the cluster's units and every
+    k a lane reads), xg ring [2][rows][gates][U + 1] and output staging
+    [3][REG_STREAMS][rows][U + 1]; the BPTT's dg tile (groups of 8 columns
+    a gate, padded by 4 floats), partials [2][C][U][rows], input ring
+    [2][rows][REG_IN][U + 1] and output staging [3][4][rows][U + 1]."""
     U = reg_units(kind, hidden, cluster)
     if kind == "fwd":
         tk = _pad4(max(cluster * U, REG_K_PER_LANE * reg_lanes(hidden)))
-        floats = (2 * rows * tk
-                  + (2 * 4 + REG_STAGES * REG_STREAMS) * rows * (U + 1))
+        floats = (2 * rows * tk + (2 * gates + REG_STAGES
+                                   * REG_STREAMS[gates]) * rows * (U + 1))
     else:
         rq = min(rows, 4)
-        floats = ((rows // rq) * (U // 8) * (REG_J_PER_LANE * rq + 4)
-                  + 2 * cluster * U * rows + (2 * REG_IN + REG_STAGES * 4)
+        floats = ((rows // rq) * (U // 8) * (8 * gates * rq + 4)
+                  + 2 * cluster * U * rows
+                  + (2 * REG_IN[gates] + REG_STAGES * REG_BWD_OUT)
                   * rows * (U + 1))
     return floats * 4
 
 
-def _reg_rule(kind: str, hidden: int, cluster: int, rows: int) -> bool:
+def _reg_rule(kind: str, hidden: int, cluster: int, rows: int,
+              gates: int = 4) -> bool:
     """The register cluster kernels' plan rule (``valid_reg_plan``): H up
     to ``CLUSTER_MAX_H``, 1 to ``REG_MAX_CLUSTER`` blocks each owning a
-    unit at least, a tile of ``REG_ROWS[kind]``, at most ``REG_MAX_THREADS``
-    threads and ``MAX_SMEM_BYTES`` bytes a block; the BPTT also at most
-    ``REG_LOADS`` of its ``REG_IN`` input values a cell a thread a step."""
+    unit at least, a tile of ``reg_rows(kind, gates)``, at most
+    ``REG_MAX_THREADS`` threads and ``MAX_SMEM_BYTES`` bytes a block; the
+    BPTT also at most ``REG_LOADS`` of its ``REG_IN`` input values a cell
+    a thread a step."""
     if not (0 < hidden <= CLUSTER_MAX_H and 1 <= cluster <= REG_MAX_CLUSTER
-            and rows in REG_ROWS[kind]):
+            and rows in reg_rows(kind, gates)):
         return False
     U = reg_units(kind, hidden, cluster)
     threads = reg_threads(kind, hidden, cluster)
     return ((cluster - 1) * U < hidden and threads <= REG_MAX_THREADS
-            and (kind == "fwd" or REG_IN * U * rows <= REG_LOADS * threads)
-            and reg_smem_bytes(kind, hidden, cluster, rows)
+            and (kind == "fwd"
+                 or REG_IN[gates] * U * rows <= REG_LOADS * threads)
+            and reg_smem_bytes(kind, hidden, cluster, rows, gates)
             <= MAX_SMEM_BYTES)
 
 
-def check_reg_mirror(layout, kind: str) -> None:
+def check_reg_mirror(layout, kind: str, gates: int = 4) -> None:
     """Hold ``_reg_rule``, ``reg_smem_bytes``, ``reg_threads`` and
-    ``reg_units`` to a built source's ``bilstm_<kind>_reg_layout(what, H,
-    C, R)`` (bytes, threads, units, or -1 for a plan it does not take) over
-    H, every cluster size and tile; raises naming the first plan where
-    they differ."""
-    for hidden in (1, 7, 64, 96, 117, 118, 119, 128, 130, 201, 255, 256,
-                   257):
+    ``reg_units`` of ``gates`` gates to a built source's
+    ``<bilstm|bigru>_<kind>_reg_layout(what, H, C, R)`` (bytes, threads,
+    units, or -1 for a plan it does not take) over H, every cluster size
+    and tile; raises naming the first plan where they differ."""
+    for hidden in (1, 7, 64, 65, 96, 117, 118, 119, 128, 130, 139, 201, 255,
+                   256, 257):
         for c in range(1, REG_MAX_CLUSTER + 2):
             for rows in (1, 2, 3, 4, 8, 16):
-                want = ((reg_smem_bytes(kind, hidden, c, rows),
+                want = ((reg_smem_bytes(kind, hidden, c, rows, gates),
                          reg_threads(kind, hidden, c),
                          reg_units(kind, hidden, c))
-                        if _reg_rule(kind, hidden, c, rows) else (-1,) * 3)
+                        if _reg_rule(kind, hidden, c, rows, gates)
+                        else (-1,) * 3)
                 got = tuple(layout(what, hidden, c, rows)
                             for what in range(3))
                 if got != want:
                     raise RuntimeError(
-                        f"bilstm_{kind}_reg: the wrapper's plan mirror gives "
-                        f"{want} (shared bytes, threads, units) at H={hidden}"
-                        f", plan {c}x{rows}, the built source {got}: update "
-                        "REG_* or reg_* to match the source")
+                        f"{REG_SOURCE[gates]}_{kind}_reg: the wrapper's plan "
+                        f"mirror gives {want} (shared bytes, threads, units) "
+                        f"at H={hidden}, plan {c}x{rows}, the built source "
+                        f"{got}: update REG_* or reg_* to match the source")
 
 
 def rank_reg_plans(kind: str, plans, batch: int, hidden: int,
                    resident: Callable[[int, int], int],
-                   dirs: int) -> List[Tuple[int, int]]:
+                   dirs: int, gates: int = 4) -> List[Tuple[int, int]]:
     """The ``(cluster, rows)`` plans of the register cluster kernel
     ``kind``, fastest first.
 
-    A lane runs 64 FMAs a row a step whatever the plan, so a block's step
-    costs its threads (at least 128: four warps, one per scheduler) times
-    its rows, plus ``REG_STEP_FIXED`` for the exchange, the lane reduction
-    and the gate math; the grid of ``dirs`` directions takes ``waves`` such
-    steps, with ``resident(cluster, rows)`` clusters at once (the card's
-    own count, ``cudaOccupancyMaxActiveClusters``); a plan the card runs
-    none of is dropped. Ties go to the smaller cluster, then the smaller
+    A lane runs 16 FMAs a gate a row a step whatever the plan (64 with four
+    gates, 48 with three), so a block's step costs its threads (at least
+    128: four warps, one per scheduler) times its rows times gates / 4,
+    plus ``REG_STEP_FIXED`` for the exchange, the lane reduction and the
+    gate math; the grid of ``dirs`` directions takes ``waves`` such steps,
+    with ``resident(cluster, rows)`` clusters at once (the card's own
+    count, ``cudaOccupancyMaxActiveClusters``); a plan the card runs none
+    of is dropped. Ties go to the smaller cluster, then the smaller
     tile."""
     keys = []
     for c, rows in plans:
@@ -516,22 +534,40 @@ def rank_reg_plans(kind: str, plans, batch: int, hidden: int,
         if at_once <= 0:
             continue
         waves = -(-dirs * -(-batch // rows) // at_once)
-        step = max(reg_threads(kind, hidden, c), 128) * rows + REG_STEP_FIXED
+        step = (max(reg_threads(kind, hidden, c), 128) * rows * gates // 4
+                + REG_STEP_FIXED)
         keys.append((waves * step, c, rows))
     return [(c, rows) for _, c, rows in sorted(keys)]
+
+
+def reg_plans(kind: str, batch: int, hidden: int,
+              resident: Callable[[int, int], int], dirs: int = 2,
+              gates: int = 4) -> List[Tuple[int, int]]:
+    """Every ``(cluster, rows)`` the register cluster kernel ``kind`` of
+    ``gates`` gates takes at this batch and H over ``dirs`` directions,
+    fastest first (``rank_reg_plans``)."""
+    return rank_reg_plans(
+        kind, [(c, rows) for c in range(1, REG_MAX_CLUSTER + 1)
+               for rows in reg_rows(kind, gates)
+               if _reg_rule(kind, hidden, c, rows, gates)],
+        batch, hidden, resident, dirs, gates)
+
+
+def reg_takes(kind: str, hidden: int, gates: int = 4) -> bool:
+    """Whether a plan of the register cluster kernel ``kind`` fits at H
+    (whether the card runs it is the planner's question)."""
+    return any(_reg_rule(kind, hidden, c, rows, gates)
+               for c in range(1, REG_MAX_CLUSTER + 1)
+               for rows in reg_rows(kind, gates))
 
 
 def lstm_reg_plans(kind: str, batch: int, hidden: int,
                    resident: Callable[[int, int], int],
                    dirs: int = 2) -> List[Tuple[int, int]]:
-    """Every ``(cluster, rows)`` the register cluster kernel ``kind``
+    """Every ``(cluster, rows)`` the LSTM register cluster kernel ``kind``
     takes at this batch and H over ``dirs`` directions, fastest first
     (``rank_reg_plans``)."""
-    return rank_reg_plans(
-        kind, [(c, rows) for c in range(1, REG_MAX_CLUSTER + 1)
-               for rows in REG_ROWS[kind]
-               if _reg_rule(kind, hidden, c, rows)],
-        batch, hidden, resident, dirs)
+    return reg_plans(kind, batch, hidden, resident, dirs)
 
 
 def lstm_reg_plan(kind: str, batch: int, hidden: int,
@@ -1052,8 +1088,7 @@ def _lstm_route(kind: str, hidden: int, wide: bool, wide_smem: int) -> str:
         return "unit"
     if wide:
         return "wide"
-    if any(_reg_rule(kind, hidden, c, rows)
-           for c in range(1, REG_MAX_CLUSTER + 1) for rows in REG_ROWS[kind]):
+    if reg_takes(kind, hidden):
         return "reg"
     # the forward's pipe kernel is routed as far as its A/B against the
     # first stream design (chip_smoke.py phase 40) reaches, the BPTT's as

@@ -897,9 +897,11 @@ def test_lstm_reg_kernels_match_plain(cuda, shape, dtype):
 
 
 # ---------------------------------------------------------------------------
-# The GRU cluster kernels at widths no dividing plan fits: slices of
-# ceil(H / C) units, the last block's masked; BiGRU forward, training
-# forward and BPTT, the one-direction GRU's, and BiGRUFunction's gradients.
+# The GRU cluster kernels (the first design, reached by a forced ("cluster",
+# C, R) plan since the register cluster kernels took the route) at widths no
+# dividing plan fits: slices of ceil(H / C) units, the last block's masked;
+# BiGRU forward, training forward and BPTT, the one-direction GRU's, and
+# BiGRUFunction's gradients (on the route).
 # ---------------------------------------------------------------------------
 
 MASKED_GRU_SHAPES = [((5, 43, 139), torch.float32),
@@ -914,20 +916,24 @@ def test_gru_masked_slice_kernels_match_plain(cuda, shape, dtype):
     ins = _gru_inputs(*shape, dtype, cuda)
     args = _bwd_args(shape, dtype, cuda)
     bound = GRAD_REL if dtype == torch.float32 else 0.1
-    for fn, a, ref in (
-            (gru_cuda.bigru_fwd_cuda, ins, gru_cuda.bigru_fwd_plain(*ins)),
+    for fn, a, ref, kind, dirs in (
+            (gru_cuda.bigru_fwd_cuda, ins, gru_cuda.bigru_fwd_plain(*ins),
+             "fwd", 2),
             (gru_cuda.bigru_fwd_train_cuda, ins,
-             gru_cuda.bigru_fwd_train_plain(*ins)),
-            (gru_cuda.bigru_bwd_cuda, args, gru_cuda.bigru_bwd_plain(*args)),
+             gru_cuda.bigru_fwd_train_plain(*ins), "fwd", 2),
+            (gru_cuda.bigru_bwd_cuda, args, gru_cuda.bigru_bwd_plain(*args),
+             "bwd", 2),
             (gru_cuda.gru_fwd_cuda, (ins[1], ins[4], ins[5], True),
-             (gru_cuda.bigru_fwd_plain(*ins)[1],)),
+             (gru_cuda.bigru_fwd_plain(*ins)[1],), "fwd", 1),
             (gru_cuda.gru_bwd_cuda, (args[1], *args[6:], True),
-             gru_cuda.bigru_bwd_plain(*args)[2:])):
-        got = fn(*a)
+             gru_cuda.bigru_bwd_plain(*args)[2:], "bwd", 1)):
+        plan = ("cluster", *gru_cuda.card_plans(kind, B, H, cuda, dtype,
+                                                dirs)[0])
+        got = fn(*a, plan=plan)
         got = got if isinstance(got, tuple) else (got,)
         last = fn.last_launch
         assert last["kernel"] == "cluster" and H % last["cluster"], last
-        again = fn(*a)
+        again = fn(*a, plan=plan)
         again = again if isinstance(again, tuple) else (again,)
         for x, x2, r in zip(got, again, ref):
             assert torch.equal(x, x2)
@@ -1535,3 +1541,144 @@ def test_bigru_unit_kernels_match_plain(cuda, shape):
         assert torch.isfinite(a).all(), name
         assert _max_rel(a, r) <= GRAD_REL, name
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The GRU register cluster kernels (csrc/bigru_fwd_reg.cu,
+# csrc/bigru_bwd_reg.cu), the route of #5/#5t, #7/#7t, #6 and #8 at H
+# 65-256 (float32; bf16 with one direction, and with two where no
+# tensor-core plan fits): every wrapper on the route, both walk orders,
+# against the plain versions, the BPTT bit-equal run to run; the card's
+# register plans forced; BiGRUFunction's and GRUFunction's gradients; plans
+# that do not fit refused.
+# ---------------------------------------------------------------------------
+
+REG_GRU_WIDTHS = (65, 128, 139, 201, 255, 256)
+REG_GRU_BATCHES = (1, 5, 17)
+REG_GRU_N = 24
+
+
+def _reg_kernel(name, H, dtype):
+    """The kernel the route takes for wrapper ``name`` at H: the
+    tensor-core kernels keep bf16 two-direction launches where a plan of
+    theirs fits."""
+    dirs = 2 if name.startswith("bi") else 1
+    route = (gru_cuda.gru_bwd_kernel_route if name.endswith("bwd")
+             else gru_cuda.gru_fwd_kernel_route)
+    return route(H, dirs, dtype)
+
+
+@pytest.mark.parametrize("H", REG_GRU_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_reg_kernels_match_plain(cuda, H, dtype):
+    bound = GRAD_REL if dtype == torch.float32 else 0.1
+    for B in REG_GRU_BATCHES:
+        shape = (B, REG_GRU_N, H)
+        ins = _gru_inputs(*shape, dtype, cuda)
+        args = _bwd_args(shape, dtype, cuda)
+        ref_b = gru_cuda.bigru_bwd_plain(*args)
+        for name, fn, a, ref in (
+                ("bigru_fwd", gru_cuda.bigru_fwd_cuda, ins,
+                 gru_cuda.bigru_fwd_plain(*ins)),
+                ("bigru_fwd_train", gru_cuda.bigru_fwd_train_cuda, ins,
+                 gru_cuda.bigru_fwd_train_plain(*ins)),
+                ("bigru_bwd", gru_cuda.bigru_bwd_cuda, args, ref_b),
+                ("gru_fwd", gru_cuda.gru_fwd_cuda,
+                 (ins[1], ins[4], ins[5], True),
+                 (gru_cuda.bigru_fwd_plain(*ins)[1],)),
+                ("gru_fwd_train", gru_cuda.gru_fwd_train_cuda,
+                 (ins[0], ins[2], ins[3], False),
+                 gru_cuda.gru_fwd_train_plain(ins[0], ins[2], ins[3])),
+                ("gru_bwd", gru_cuda.gru_bwd_cuda,
+                 (args[0], *args[2:6], False), ref_b[:2]),
+                ("gru_bwd", gru_cuda.gru_bwd_cuda,
+                 (args[1], *args[6:], True), ref_b[2:])):
+            route = _reg_kernel(name, H, dtype)
+            kw = {} if route == "reg" else {"plan": ("reg", *(
+                gru_cuda.card_gru_reg_plans(
+                    "bwd" if name.endswith("bwd") else "fwd", B, H, cuda,
+                    dtype, name.endswith("train"), 2)[0]))}
+            got = fn(*a, **kw)
+            got = got if isinstance(got, tuple) else (got,)
+            assert fn.last_launch["kernel"] == "reg", (name, fn.last_launch)
+            if name.endswith("bwd"):
+                again = fn(*a, **kw)
+                for x, x2, r in zip(got, again, ref):
+                    assert torch.equal(x, x2), (name, B)
+                    assert x.dtype == r.dtype and torch.isfinite(x).all()
+                    assert _max_rel(x.float(), r.float()) <= bound, (name, B)
+            else:
+                for x, r in zip(got, ref):
+                    _assert_close(x, r, dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_reg_every_tile_matches_plain(cuda, dtype):
+    """The card's register plans of each kernel forced, every tile (1, 2,
+    4 and 8 rows) among them, at a masked width and a batch that pads the
+    8-row tile."""
+    B, H = 17, 201
+    shape = (B, REG_GRU_N, H)
+    ins = _gru_inputs(*shape, dtype, cuda)
+    args = _bwd_args(shape, dtype, cuda)
+    for kind, fn, a, ref, save in (
+            ("fwd", gru_cuda.bigru_fwd_train_cuda, ins,
+             gru_cuda.bigru_fwd_train_plain(*ins), True),
+            ("fwd", gru_cuda.bigru_fwd_cuda, ins,
+             gru_cuda.bigru_fwd_plain(*ins), False)):
+        plans = gru_cuda.card_gru_reg_plans(kind, B, H, cuda, dtype, save)
+        assert {r for _, r in plans} == {1, 2, 4, 8}
+        for c, r in plans:
+            for x, y in zip(fn(*a, plan=("reg", c, r)), ref):
+                _assert_close(x, y, dtype)
+    plans = [("reg", *p) for p in gru_cuda.card_gru_reg_plans(
+        "bwd", B, H, cuda, dtype)]
+    assert {p[2] for p in plans} == {1, 2, 4, 8}
+    _check_gru_bwd(cuda, shape, dtype, plans, "reg")
+
+
+@pytest.mark.parametrize("shape,dtype", [((5, 43, 139), torch.float32),
+                                         ((9, 30, 255), torch.bfloat16)])
+def test_gru_reg_function_grads_match_autograd(cuda, shape, dtype):
+    """BiGRUFunction's six and GRUFunction's three gradients through the
+    register kernels against torch autograd through the plain loops."""
+    ins = _gru_inputs(*shape, dtype, cuda)
+    bound = GRAD_REL if dtype == torch.float32 else 0.1
+    g = torch.Generator(cuda).manual_seed(5)
+    dys = [torch.randn(shape, device=cuda, generator=g).to(dtype)
+           for _ in range(2)]
+    x = [t.clone().requires_grad_(True) for t in ins]
+    got = torch.autograd.grad(gru_cuda.bigru_recurrence(*x), x, dys)
+    assert gru_cuda.bigru_bwd_cuda.last_launch["kernel"] == "reg"
+    ref = torch.autograd.grad(gru_cuda.bigru_fwd_plain(*x), x, dys)
+    for name, a, r in zip(("dxg_f", "dxg_b", "dW_f", "db_f", "dW_b", "db_b"),
+                          got, ref):
+        assert a.dtype == r.dtype and torch.isfinite(a).all(), name
+        assert _max_rel(a.float(), r.float()) <= bound, name
+    for rev in (False, True):
+        x = [t.clone().requires_grad_(True) for t in (ins[0], ins[2], ins[3])]
+        got = torch.autograd.grad(gru_cuda.gru_recurrence_kernel(*x, rev), x,
+                                  dys[0])
+        assert gru_cuda.gru_bwd_cuda.last_launch["kernel"] == "reg"
+        ref = torch.autograd.grad(gru_cuda.gru_recurrence(*x, rev), x, dys[0])
+        for name, a, r in zip(("dxg", "dW_hh", "db_hh"), got, ref):
+            assert a.dtype == r.dtype and torch.isfinite(a).all(), name
+            assert _max_rel(a.float(), r.float()) <= bound, (name, rev)
+    torch.cuda.synchronize()
+
+
+def test_gru_reg_plans_that_do_not_fit_raise(cuda):
+    """A register plan over 16 blocks, with a tile it has not, whose
+    blocks exceed 256 threads or above H=256 is refused before any
+    launch."""
+    ins = _gru_inputs(3, 5, 256, torch.float32, cuda)
+    args = _bwd_args((3, 5, 256), torch.float32, cuda)
+    for plan in (("reg", 17, 1), ("reg", 16, 3), ("reg", 8, 1)):
+        with pytest.raises(ValueError, match="does not fit"):
+            gru_cuda.bigru_fwd_cuda(*ins, plan=plan)
+        with pytest.raises(ValueError, match="does not fit"):
+            gru_cuda.bigru_bwd_cuda(*args, plan=plan)
+    wide = _gru_inputs(3, 5, 264, torch.float32, cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        gru_cuda.gru_fwd_cuda(wide[0], wide[2], wide[3], plan=("reg", 16, 1))

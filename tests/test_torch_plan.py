@@ -63,15 +63,16 @@ def test_unit_plan_skips_tiles_the_card_does_not_run():
 
 def test_gru_route_and_cluster_plans():
     """The legacy model's one-direction H=64 launch takes the unit kernel;
-    the scale-up shape (128, 256) and the one-direction (8, 256) launch keep
-    the cluster kernel and the plans ``test_cluster_plan`` asserts; a
-    two-direction launch at small H takes the unit kernel too, float32 or
-    bf16."""
+    above it to H=256 float32 launches take the register cluster kernel
+    (the first cluster design, reached by a forced plan, keeps the plans
+    ``test_cluster_plan`` asserts at the scale-up shape (128, 256) and the
+    one-direction (8, 256) launch); a two-direction launch at small H takes
+    the unit kernel too, float32 or bf16."""
     assert gru_fwd_kernel_route(64, 1) == "unit"
     assert gru_fwd_kernel_route(16, 1) == "unit"
-    assert gru_fwd_kernel_route(65, 1) == "cluster"
-    assert gru_fwd_kernel_route(256, 1) == "cluster"
-    assert gru_fwd_kernel_route(256, 2) == "cluster"
+    assert gru_fwd_kernel_route(65, 1) == "reg"
+    assert gru_fwd_kernel_route(256, 1) == "reg"
+    assert gru_fwd_kernel_route(256, 2) == "reg"
     assert gru_fwd_kernel_route(16, 2) == "unit"
     assert gru_fwd_kernel_route(16, 2, torch.bfloat16) == "unit"
     assert bigru_plan("fwd", 128, 256, _clusters) == (8, 20)
@@ -172,6 +173,9 @@ def fake_card(monkeypatch):
                         lambda *a: ("bigru_pipe", _stream_clusters))
     monkeypatch.setattr(gru_cuda, "_fwd_pipe_resident",
                         lambda *a: ("bigru_fwd_pipe", _stream_clusters))
+    monkeypatch.setattr(gru_cuda, "_reg_resident",
+                        lambda kind, *a: (f"bigru_{kind}_reg",
+                                          _reg_clusters))
     monkeypatch.setattr(rnn_cuda, "_cluster_resident",
                         lambda *a: _reg_clusters if "reg" in a
                         else _stream_clusters if "stream" in a or "pipe" in a
@@ -190,8 +194,10 @@ def _gru_args(B, N, H, dtype=torch.float32):
 def test_gru_wrapper_launches_and_records(fake_card):
     """The legacy shape launches the unit kernel's entry point (6 pointers,
     B, N, H, R, reverse) with the planner's tile; H=256 launches the
-    cluster entry point (6 pointers, B, N, H, C, R, reverse); both record
-    their plan in ``last_launch``; a forced plan is taken or refused."""
+    register cluster entry point (6 pointers, B, N, H, C, R, reverse) and,
+    under a forced ("cluster", C, R) plan, the first cluster design's;
+    each records its plan in ``last_launch``; a forced plan is taken or
+    refused."""
     fn = gru_cuda.gru_fwd_train_cuda
     fn(*_gru_args(32, 5, 64), True)
     name, args = fake_card.calls[-1]
@@ -200,6 +206,13 @@ def test_gru_wrapper_launches_and_records(fake_card):
     assert fn.last_launch == {"kernel": "unit", "cluster": 1, "rows": 1,
                               "clusters": 32, "resident": 264}
     gru_cuda.gru_fwd_cuda(*_gru_args(8, 5, 256, torch.bfloat16))
+    name, args = fake_card.calls[-1]
+    c, r = gru_cuda.bigru_reg_plan("fwd", 8, 256, _reg_clusters, 1)
+    assert name == "gru_fwd_reg_bf16"
+    assert len(args) == 10 and args[4:] == (8, 5, 256, c, r, 0)
+    assert gru_cuda.gru_fwd_cuda.last_launch["kernel"] == "reg"
+    gru_cuda.gru_fwd_cuda(*_gru_args(8, 5, 256, torch.bfloat16),
+                          plan=("cluster", 4, 4))
     name, args = fake_card.calls[-1]
     assert name == "gru_fwd_bf16"
     assert len(args) == 10 and args[4:] == (8, 5, 256, 4, 4, 0)
@@ -255,11 +268,12 @@ def test_lstm_wrappers_launch_and_record(fake_card):
 
 
 @pytest.mark.parametrize("hidden,dirs,want", [
-    (16, 1, "unit"), (64, 1, "unit"), (65, 1, "cluster"), (64, 2, "unit"),
-    (256, 2, "cluster")])
+    (16, 1, "unit"), (64, 1, "unit"), (65, 1, "reg"), (64, 2, "unit"),
+    (256, 2, "reg")])
 def test_gru_bwd_route(hidden, dirs, want):
     """float32 streams (the default): the unit kernel at H <= 64 in both
-    direction counts, kLinear's cluster kernel above."""
+    direction counts, the register cluster kernel above (kLinear's cluster
+    kernel, the first design, by a forced plan)."""
     assert gru_bwd_kernel_route(hidden, dirs) == want
 
 
@@ -290,8 +304,9 @@ def _bwd_args(B, N, H, dtype=torch.float32):
 def test_gru_bwd_wrapper_launches_unit_and_cluster(fake_card):
     """The legacy shape (32, 500, 64) launches ``gru_bwd_unit_*`` (7
     pointers, B, N, H, R, reverse) with the planner's one-row tile; the
-    one-direction H=256 launch the cluster entry (7 pointers, B, N, H, C,
-    R, reverse) at the planner's plan; both record it."""
+    one-direction H=256 launch the register cluster entry (7 pointers, B,
+    N, H, C, R, reverse) at the planner's plan, and under a forced
+    ("cluster", C, R) plan kLinear's cluster entry; each records it."""
     fn = gru_cuda.gru_bwd_cuda
     fn(*_bwd_args(32, 500, 64), True)
     name, args = fake_card.calls[-1]
@@ -301,7 +316,14 @@ def test_gru_bwd_wrapper_launches_unit_and_cluster(fake_card):
                               "clusters": 32, "resident": 264}
     fn(*_bwd_args(8, 1000, 256, torch.bfloat16))
     name, args = fake_card.calls[-1]
+    c, r = gru_cuda.bigru_reg_plan("bwd", 8, 256, _reg_clusters, dirs=1)
+    assert name == "gru_bwd_reg_bf16"
+    assert len(args) == 13 and args[7:] == (8, 1000, 256, c, r, 0)
+    assert fn.last_launch["kernel"] == "reg"
+    assert fn.last_launch["clusters"] == -(-8 // r)
     c, r = bigru_plan("bwd", 8, 256, _clusters, dirs=1)
+    fn(*_bwd_args(8, 1000, 256, torch.bfloat16), plan=("cluster", c, r))
+    name, args = fake_card.calls[-1]
     assert name == "gru_bwd_bf16"
     assert len(args) == 13 and args[7:] == (8, 1000, 256, c, r, 0)
     assert fn.last_launch["kernel"] == "cluster"
@@ -548,20 +570,21 @@ TC_CLUSTERS = {4: 30, 8: 15}
 def test_tc_route_takes_bf16_two_directions(route):
     """bf16 streams of two directions at H=256 and 128 take the
     tensor-core kernel, at H <= 64 the unit kernel (faster there); float32
-    (also the default dtype) keeps the cluster kernel; one direction keeps
-    its route whatever the dtype; an H no tensor-core plan takes (not a
-    multiple of 16, above 256, or no 8-unit warps at C = 4 and 8) keeps
-    the cluster kernel, or above H=256 the pipe kernel (the forward's at
-    H=264, where a cluster plan fits: faster at H=320, and
-    at 512); the BPTT above H=256 takes its pipe kernel (H=264 and 512)."""
+    (also the default dtype) takes the register cluster kernel; one
+    direction keeps its route whatever the dtype; an H no tensor-core plan
+    takes (not a multiple of 16, above 256, or no 8-unit warps at C = 4 and
+    8) takes the register cluster kernel up to H=256, above it the pipe
+    kernel (the forward's at H=264, where a cluster plan fits: faster at
+    H=320, and at 512); the BPTT above H=256 takes its pipe kernel (H=264
+    and 512)."""
     bf16 = torch.bfloat16
     assert route(256, 2, bf16) == route(128, 2, bf16) == "tc"
     assert route(64, 2, bf16) == route(32, 2, bf16) == "unit"
-    assert route(256, 2) == route(256, 2, torch.float32) == "cluster"
-    assert route(64, 1, bf16) == "unit" and route(256, 1, bf16) == "cluster"
+    assert route(256, 2) == route(256, 2, torch.float32) == "reg"
+    assert route(64, 1, bf16) == "unit" and route(256, 1, bf16) == "reg"
     fwd = route is gru_fwd_kernel_route
-    for hidden in (72, 88):
-        assert route(hidden, 2, bf16) == "cluster", hidden
+    for hidden in (72, 88, 139):
+        assert route(hidden, 2, bf16) == "reg", hidden
     assert route(264, 2, bf16) == "pipe"
     assert route(512, 2, bf16) == "pipe"
 
@@ -675,8 +698,10 @@ def test_bigru_wrappers_launch_tc_entries(fake_tc_card):
     """At the scale-up batch and width with bf16 streams the three BiGRU
     wrappers launch the ``*_tc_bf16`` entries (the cluster entries'
     pointers, then B, N, H, C, R) with the planner's (4, 16) and record
-    it; float32 streams launch the cluster entries at ``bigru_plan``'s
-    (8, 20)."""
+    it; with float32 streams the BPTT launches the register entry at its
+    planner's pick, and the forwards, whose register grid needs more than
+    ``REG_FWD_MAX_WAVES`` waves at this batch, the forward pipe kernel's
+    entries at its planner's pick (the batch rule)."""
     bf16 = torch.bfloat16
     for fn, n_ptr, name in ((gru_cuda.bigru_fwd_cuda, 8, "bigru_fwd"),
                             (gru_cuda.bigru_fwd_train_cuda, 12,
@@ -689,8 +714,13 @@ def test_bigru_wrappers_launch_tc_entries(fake_tc_card):
                                   "clusters": 16, "resident": 30}
         fn(*_bigru_args(128, 3, 256, torch.float32))
         got, args = fake_tc_card.calls[-1]
-        assert got == f"{name}_f32" and args[n_ptr:] == (128, 3, 256, 8, 20)
-        assert fn.last_launch["kernel"] == "cluster"
+        assert gru_cuda.reg_waves("fwd", 128, 256, _reg_clusters) > \
+            gru_cuda.REG_FWD_MAX_WAVES
+        want = rnn_cuda.fwd_pipe_plans(128, 256, _stream_clusters, 2, 4,
+                                       3)[0]
+        assert got == f"{name}_pipe_f32"
+        assert args[n_ptr:] == (128, 3, 256, *want)
+        assert fn.last_launch["kernel"] == "pipe"
     fn = gru_cuda.bigru_bwd_cuda
     before = fn.launches
     fn(*_bigru_bwd_args(128, 3, 256, bf16))
@@ -700,8 +730,9 @@ def test_bigru_wrappers_launch_tc_entries(fake_tc_card):
     assert fn.last_launch["kernel"] == "tc" and fn.launches == before + 1
     fn(*_bigru_bwd_args(128, 3, 256, torch.float32))
     got, args = fake_tc_card.calls[-1]
-    c, r = bigru_plan("bwd", 128, 256, _clusters)
-    assert got == "bigru_bwd_f32" and args[14:] == (128, 3, 256, c, r)
+    c, r = gru_cuda.bigru_reg_plan("bwd", 128, 256, _reg_clusters)
+    assert got == "bigru_bwd_reg_f32" and args[14:] == (128, 3, 256, c, r)
+    assert fn.last_launch["kernel"] == "reg"
     # the served request's batch of one row takes the planner's pick there
     gru_cuda.bigru_fwd_cuda(*_bigru_args(1, 3, 256, bf16))
     assert fake_tc_card.calls[-1][1][8:] == (1, 3, 256, 8, 16)
@@ -899,8 +930,9 @@ def test_cluster_routes_launch_and_record(fake_card):
     """H=256 launches the register cluster entries (pointers, B, N, H, C, R
     and a one-direction grid's reverse flag) with the planner's plan; the
     first cluster kernel's entries take the same arguments under a forced
-    ("cluster", C, R) plan; a GRU width no dividing cluster fits launches a
-    masked plan."""
+    ("cluster", C, R) plan; a GRU width no dividing cluster fits launches
+    the register cluster kernel on its route and a masked plan of the
+    first design under a forced ("cluster", C, R) plan."""
     z = torch.zeros
     ins = (z(32, 5, 1024), z(32, 5, 1024), z(256, 1024), z(256, 1024))
     rnn_cuda.bilstm_fwd_cuda(*ins)
@@ -932,8 +964,13 @@ def test_cluster_routes_launch_and_record(fake_card):
         assert name == f"bilstm_bwd_{entry}_f32" and args[10:13] == (5, 4,
                                                                      200)
     gru_cuda.bigru_fwd_cuda(*_bigru_args(32, 5, 139, torch.float32))
+    assert gru_cuda.bigru_fwd_cuda.last_launch["kernel"] == "reg"
+    old = bigru_plan("fwd", 32, 139, _clusters)
+    gru_cuda.bigru_fwd_cuda(*_bigru_args(32, 5, 139, torch.float32),
+                            plan=("cluster", *old))
     last = gru_cuda.bigru_fwd_cuda.last_launch
     assert last["kernel"] == "cluster" and 139 % last["cluster"]
+    assert fake_card.calls[-1][0] == "bigru_fwd_f32"
 
 
 # ---------------------------------------------------------------------------
@@ -1134,8 +1171,10 @@ def test_every_width_to_1024_has_a_route(family):
     """Every H from 1 to 1024 (d_model 2048), forward and BPTT, one and two
     directions, float32 and bf16, gets a route on the H100's counts; up to
     H=256 every pick of before stays but the BiGRU's at H <= 64 (now the
-    unit kernel), and above it every width a cluster plan took keeps it
-    but the GRU BPTT's and the GRU
+    unit kernel) and the GRU cluster kernels' from 65 (now the register
+    cluster kernels, with a plan in each direction count, while the first
+    design, reached by a forced plan, still plans there), and above it
+    every width a cluster plan took keeps it but the GRU BPTT's and the GRU
     forward's; the pipe routes (the forwards' and the BPTTs') have a plan
     in each direction count and dtype."""
     for hidden in range(1, 1025):
@@ -1182,7 +1221,13 @@ def test_every_width_to_1024_has_a_route(family):
                             assert rnn_cuda.fwd_pipe_plans(
                                 32, hidden, _stream_clusters, dirs,
                                 dtype.itemsize, 3), hidden
-                    elif before != "cluster" or hidden <= 256 or \
+                    elif before == "cluster" and hidden <= 256:
+                        assert route == "reg", (kind, hidden, dtype, dirs)
+                        assert gru_cuda.bigru_reg_plans(
+                            kind, 32, hidden, _reg_clusters, dirs), hidden
+                        assert gru_cuda.bigru_plans(
+                            kind, 32, hidden, _clusters, dirs), hidden
+                    elif before != "cluster" or \
                             _before_bigru_plans(kind, 32, hidden, _clusters,
                                                 dirs):
                         assert route == before, (kind, hidden, dtype, dirs)
@@ -1787,7 +1832,7 @@ def test_fwd_pipe_routes_take_the_forwards_above_256():
                     (hidden, dirs, dtype)
     for hidden in (1025, 1816, 2048):
         assert gru_fwd_kernel_route(hidden, 2) == "stream", hidden
-    assert gru_fwd_kernel_route(256, 2) == "cluster"
+    assert gru_fwd_kernel_route(256, 2) == "reg"
     assert gru_fwd_kernel_route(256, 2, torch.bfloat16) == "tc"
     assert rnn_cuda.fwd_pipe_takes(1920) and not rnn_cuda.fwd_pipe_takes(1921)
 
@@ -1970,4 +2015,200 @@ def test_fwd_pipe_entries_launch_and_record(fake_card, name, dtype):
                            if lstm else f"plan {bad[1]}x{bad[2]} does not "
                            "fit"):
             call(name, 9, 3, 512, dtype, plan=bad)
+    assert len(fake_card.calls) == n
+
+
+# ---------------------------------------------------------------------------
+# The GRU register cluster kernels (bigru_fwd_reg_kernel, csrc/bigru_fwd_reg.cu;
+# bigru_bwd_reg_kernel, csrc/bigru_bwd_reg.cu): #5/#5t, #7/#7t, #6 and #8 at
+# H 65-256, their route, the batch rule, the plan rule and layout mirror, the
+# planner on the card's counts, and every entry's launch and record
+# ---------------------------------------------------------------------------
+
+def test_gru_reg_route_from_65_to_256():
+    """Every width from 65 to 256 takes the register cluster kernel for
+    float32 in both grids and for bf16 with one direction, and for bf16
+    with two directions where no tensor-core plan fits (139, 255: off the
+    16-deep k-steps); the tensor-core kernels keep the bf16 two-direction
+    widths they took (128, 256), the unit kernels H <= 64, the pipe kernels
+    257 and up."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for route in (gru_fwd_kernel_route, gru_bwd_kernel_route):
+        kind = "fwd" if route is gru_fwd_kernel_route else "bwd"
+        for hidden in range(65, 257):
+            tc = any(gru_cuda.tc_plan_fits(kind, hidden, c, r)
+                     for c in gru_cuda.TC_CLUSTER_SIZES
+                     for r in gru_cuda.TC_ROWS)
+            for dirs in (1, 2):
+                assert route(hidden, dirs, f32) == "reg", (kind, hidden)
+                want = "tc" if dirs == 2 and tc else "reg"
+                assert route(hidden, dirs, bf16) == want, (kind, hidden)
+        assert route(139, 2, bf16) == route(255, 2, bf16) == "reg"
+        assert route(128, 2, bf16) == route(256, 2, bf16) == "tc"
+        assert route(64, 1) == route(64, 2) == "unit"
+        assert route(257, 1) == route(257, 2) == "pipe"
+
+
+def _gru_reg_source(kind, hidden, c, rows, every_block=True, cells=True):
+    """The sources' ``valid_reg_plan`` and ``bigru_<kind>_reg_layout``
+    written out again (tiles of 1, 2, 4 or 8 rows; the forward's xg ring of
+    3 gates and 5 staged streams, the BPTT's dg groups of 24 columns, 6
+    staged inputs and 4 outputs): (bytes, threads, units) or -1s
+    (``every_block``: each block owns a unit; ``cells``: a BPTT thread
+    loads at most 4 of the 6 inputs of a cell a step)."""
+    if not (0 < hidden <= 256 and 1 <= c <= 16 and rows in (1, 2, 4, 8)):
+        return (-1, -1, -1)
+    u = 1
+    while u < -(-hidden // c):
+        u *= 2
+    if kind == "fwd":
+        lanes = 8 if hidden <= 128 else 16
+        U = max(u, 32 // lanes)
+        threads = U * lanes
+        tk = (max(c * U, 16 * lanes) + 3) // 4 * 4
+        floats = 2 * rows * tk + (2 * 3 + 3 * 5) * rows * (U + 1)
+    else:
+        U = max(u, 8)
+        threads = ((hidden + 1) // 2 * (U // 8) + 31) // 32 * 32
+        rq = min(rows, 4)
+        floats = ((rows // rq) * (U // 8) * (24 * rq + 4)
+                  + 2 * c * U * rows + (2 * 6 + 3 * 4) * rows * (U + 1))
+    if ((c - 1) * U >= hidden and every_block) or threads > 256 or (
+            cells and kind == "bwd" and 6 * U * rows > 4 * threads) \
+            or floats * 4 > 232448:
+        return (-1, -1, -1)
+    return (floats * 4, threads, U)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+def test_gru_reg_mirror_check_against_source_layout(kind):
+    """``check_reg_mirror`` with three gates accepts the GRU sources'
+    layout query written out, and names the first plan of a source whose
+    layout or rule differs: the LSTM's layout (four gates), a source that
+    lets a block own no unit, and (the BPTT) one that lets a thread load
+    more of a step's inputs."""
+    layout = lambda w, h, c, r: _gru_reg_source(kind, h, c, r)[w]  # noqa
+    rnn_cuda.check_reg_mirror(layout, kind, gates=3)
+    with pytest.raises(RuntimeError, match="bigru_.*H=1, plan 1x1"):
+        rnn_cuda.check_reg_mirror(
+            lambda w, h, c, r: _reg_source(kind, h, c, r)[w], kind, gates=3)
+    with pytest.raises(RuntimeError, match="H=1, plan 2x1"):
+        rnn_cuda.check_reg_mirror(
+            lambda w, h, c, r: _gru_reg_source(kind, h, c, r, False)[w],
+            kind, gates=3)
+    if kind == "bwd":
+        with pytest.raises(RuntimeError, match="H=1, plan 1x4"):
+            rnn_cuda.check_reg_mirror(
+                lambda w, h, c, r: _gru_reg_source(kind, h, c, r,
+                                                   cells=False)[w],
+                kind, gates=3)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+def test_gru_reg_plans_from_card_counts(kind):
+    """Blocks have at most 256 threads, so above H=128 the slices are 16
+    units and the cluster 9 to 16 blocks (one C = ceil(H / U) for each
+    power-of-two U); with an H100's counts (14 clusters of 16 blocks at
+    once) at the timing shape (32, 255) both kernels take 8-row tiles on 16
+    blocks for two directions and 4-row tiles for one (both one wave; the
+    card timed those fastest of its sweep); where the card holds 7, the
+    one-direction grid takes 8 rows (one wave, not two); a served request
+    (1, 128) takes one row on 8 blocks of 16 units; H=139 (a masked slice)
+    takes C = 9 only; no plan where the card runs none."""
+    plan = gru_cuda.bigru_reg_plan
+    h100 = lambda c, r: 14 if c == 16 else 120 // c  # noqa: E731
+    assert plan(kind, 32, 255, h100) == (16, 8)
+    assert plan(kind, 32, 255, h100, dirs=1) == (16, 4)
+    assert plan(kind, 32, 255, _reg_clusters, dirs=1) == (16, 8)
+    assert plan(kind, 1, 128, h100) == (8, 1)
+    assert {c for c, _ in gru_cuda.bigru_reg_plans(
+        kind, 5, 139, _reg_clusters)} == {9}
+    assert rnn_cuda.reg_units(kind, 256, 16) == 16
+    assert rnn_cuda.reg_threads(kind, 256, 16) == 256
+    assert not gru_cuda.bigru_reg_plans(kind, 32, 256, lambda c, r: 0)
+    with pytest.raises(ValueError, match="no plan"):
+        plan(kind, 32, 256, lambda c, r: 0)
+
+
+def test_gru_reg_batch_rule():
+    """A forward whose register grid needs more than ``REG_FWD_MAX_WAVES``
+    waves on the card's counts takes the forward pipe kernel (the
+    scale-up batch, 128 rows of two directions: 32 clusters of 8-row tiles
+    against 14 resident on an H100 make three waves); the BPTT keeps the
+    register kernel whatever the waves; the request and timing batches
+    stay on the register kernel."""
+    h100 = lambda c, r: 14 if c == 16 else 120 // c  # noqa: E731
+    assert gru_cuda.REG_FWD_MAX_WAVES == 2
+    assert gru_cuda.reg_waves("fwd", 128, 256, h100) == 3
+    assert gru_cuda.reg_route("fwd", 128, 256, h100) == "pipe"
+    assert gru_cuda.reg_route("bwd", 128, 256, h100) == "reg"
+    assert gru_cuda.reg_waves("fwd", 64, 256, h100) == 2
+    assert gru_cuda.reg_route("fwd", 64, 256, h100) == "reg"
+    for batch, hidden, dirs in ((32, 255, 2), (32, 255, 1), (1, 128, 2),
+                                (8, 256, 2)):
+        assert gru_cuda.reg_route("fwd", batch, hidden, h100, dirs) == "reg"
+
+
+_GRU_REG = dict(_STREAM_GRU)
+
+
+@pytest.mark.parametrize("name", sorted(_GRU_REG))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_reg_entries_launch_and_record(fake_card, name, dtype):
+    """Each of the six wrappers at H=255 (a masked slice) and 130, at
+    batches of one wave, launches ``<name>_reg_<dtype>`` with its
+    pointers, then B, N, H, C, R (and a one-direction grid's reverse
+    flag), the planner's plan for its direction count, and records it;
+    the count rises by one a launch."""
+    n_ptr, one_dir = _GRU_REG[name]
+    kind = "bwd" if name.endswith("bwd") else "fwd"
+    sfx = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    dirs = 1 if one_dir else 2
+    for B, H in ((32, 255), (5, 130)):
+        want = gru_cuda.bigru_reg_plan(kind, B, H, _reg_clusters, dirs)
+        fn = getattr(gru_cuda, f"{name}_cuda")
+        before = fn.launches
+        _gru_call(name, B, 7, H, dtype)
+        assert fn.launches == before + 1
+        called, args = fake_card.calls[-1]
+        assert called == f"{name}_reg_{sfx}"
+        assert len(args) == n_ptr + 5 + int(one_dir)
+        assert args[n_ptr:n_ptr + 5] == (B, 7, H, *want)
+        if one_dir:
+            assert args[-1] == 1
+        assert fn.last_launch == {
+            "kernel": "reg", "cluster": want[0], "rows": want[1],
+            "clusters": dirs * -(-B // want[1]),
+            "resident": _reg_clusters(*want)}
+
+
+@pytest.mark.parametrize("name", sorted(_GRU_REG))
+def test_gru_reg_and_old_cluster_plans_forced_or_refused(fake_card, name):
+    """``plan=("reg", C, R)`` takes any register plan that fits, and
+    ``("cluster", C, R)`` reaches the first cluster design (the two-
+    direction wrappers also by a bare ``(C, R)``); a register plan whose
+    blocks exceed 256 threads, a tile not of (1, 2, 4, 8), a cluster over
+    16 blocks or one leaving a block without a unit is refused before any
+    launch, as is a first-design plan that does not fit."""
+    fn = _gru_call(name, 9, 7, 256, torch.float32, plan=("reg", 16, 2))
+    assert fake_card.calls[-1][0] == f"{name}_reg_f32"
+    assert (fn.last_launch["kernel"], fn.last_launch["cluster"],
+            fn.last_launch["rows"]) == ("reg", 16, 2)
+    assert fn.last_launch["clusters"] == 5 * (2 if name.startswith("bi")
+                                              else 1)
+    _gru_call(name, 9, 7, 256, torch.bfloat16, plan=("cluster", 8, 8))
+    called, args = fake_card.calls[-1]
+    assert called == f"{name}_bf16"
+    assert args[-2:] == (8, 8) if name.startswith("bi") else \
+        args[-3:] == (8, 8, 1)
+    assert fn.last_launch["kernel"] == "cluster"
+    if name.startswith("bi"):
+        _gru_call(name, 9, 7, 256, torch.float32, plan=(8, 8))
+        assert fake_card.calls[-1][0] == f"{name}_f32"
+        assert fn.last_launch["kernel"] == "cluster"
+    n = len(fake_card.calls)
+    for bad in (("reg", 8, 8), ("reg", 16, 3), ("reg", 17, 1),
+                ("reg", 12, 1), ("cluster", 3, 4)):
+        with pytest.raises(ValueError, match="does not fit"):
+            _gru_call(name, 9, 7, 256, torch.float32, plan=bad)
     assert len(fake_card.calls) == n
