@@ -26,8 +26,9 @@ Phases, one line each or more (a failed check raises; nothing is caught):
    four gradients against torch autograd through the plain loop, at the
    bench, serving, flagship training and a ragged shape, H=16 and 17 rows;
    the wide forward kernel (the first design) forced at the ragged shape;
-   ``bilstm_bwd`` and ``lstm_bwd`` (both walk orders) on the wide kernel
-   at its own width, ``WIDE`` (H=96, asserted);
+   ``bilstm_bwd`` and ``lstm_bwd`` (both walk orders) on their route at
+   ``WIDE`` (H=96: the register cluster kernel, asserted), and
+   ``bilstm_bwd`` on the wide kernel forced there;
 4. kernel timing: each kernel, its plain version, the cuDNN yardstick
    (never called by the port) and the roofline bound, at the bench and
    serving shapes (``bilstm_fwd``) or bench and training shapes (the
@@ -170,8 +171,8 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     kind and dtype);
 32. the GRU cluster kernels' masked slices (the first design, the
     cluster size need not divide H; forced at the card's pick since the
-    GRU register cluster kernels took the route) at ``MASKED_WIDTHS`` and
-    the first even H no dividing plan fits, ``MASKED_BATCHES``,
+    GRU register cluster kernels took the route) at ``MASKED_WIDTHS``,
+    ``MASKED_BATCHES``,
     N=``MASKED_N``, checked the same way, each plan's cluster asserted not
     to divide H;
 33. the new routes' timing: the LSTM kernels at ``LSTM_REG_TIME``
@@ -295,7 +296,29 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     train step card vs CPU at ``REG_STEP``'s B and N, then the step p50 at
     bench.py's B, N = ``REG_STEP_TIME`` and a served forward's p50 at
     ``REG_SERVE`` on the register kernels and on the first cluster design
-    in turns, each launch's kernel asserted.
+    in turns, each launch's kernel asserted;
+42. the LSTM register cluster kernels at H 65-118, the route there since
+    they replaced the wide kernels (#1 / #1t, #3 / #3t, #2, #4): (a) the
+    six wrappers at ``MID_WIDTHS`` x ``MID_BATCHES``, N=``MID_N``, f32 and
+    bf16, both walk orders, each launch asserted on the register kernels,
+    against the plain versions, the BPTT bit-equal run to run, the
+    Functions' gradients against autograd through the plain loop, and the
+    wide kernel forced at H=96; (b) the A/B at ``MID_TIME`` f32 ((32, 500,
+    96) and (32, 500, 116), bench.py's B and N, and a served request's (1,
+    1500, 96)): the register kernel at the card's pick beside the wide
+    kernel forced, in turns (the route asserted faster), the card's first
+    ``MID_SWEEP`` register plans with their resident counts, the LSTM
+    planner's pick beside the shared ranking's, the bound and cuDNN before
+    and after the kernels (the plain versions held at every shape, timed
+    at the first); the card's resident clusters at ``MID_RESIDENT_H``; the
+    planner's pick beside the shared ranking's at ``MID_TERMS``; (c) the
+    lstm at d_model ``MID_LSTM_D`` (H=96, f32): a forward against the
+    plain recurrence, one train step card vs CPU at ``MID_STEP``'s B and
+    N, ``lstm_recurrence(use_kernel=True)``, then the step p50 at
+    ``MID_STEP_TIME``, a profiler trace of its steps, and a served
+    forward's p50 at ``MID_SERVE`` (held to the plain recurrence) on the
+    register kernels and on the wide kernels in turns, and the step p50
+    again at d_model ``MID_WIDE_D`` (H=116).
 
 Phases 10 (and 37's step), 16, 34 and 39's steps pin
 ``train.matmul_precision`` to float32: they compare two float32
@@ -383,7 +406,7 @@ TRAIN = (20, 1500, 64)   # flagship batch_size, max_trace_len, d_model / 2
 # multiple of a 2- or 4-row tile
 NARROW, ODD = (5, 43, 16), (17, 300, 64)
 LSTM_SHAPES = (BENCH, SERVE, TRAIN, RAGGED, NARROW, ODD)   # phases 3, 29
-WIDE = (5, 43, 96)   # above the unit kernels' H <= 64: the wide BPTT kernel
+WIDE = (5, 43, 96)   # above the unit kernels' H <= 64: the BPTT's route
 STEP_SHAPES = ((20, 1500), (32, 500))
 ROOMS, EPOCHS = 40, 2        # seeded rooms (1 in 5 for validation), epochs
 STEPS, STEP_WARMUP = 50, 5   # train steps timed per shape, after warm-up
@@ -435,10 +458,11 @@ LSTM_REG_TIME = (((32, 500, 256), torch.float32),
                  ((1, 3000, 128), torch.float32))
 REG_SWEEP_PLANS = 4   # register plans swept at LSTM_REG_TIME's first shape
 CLUSTER_N = 300
-MASKED_WIDTHS = (139, 201, 255)   # and the first even H no dividing plan fits
-# phase 32's N and batches (CLUSTER_N and CLUSTER_BATCHES until the register
-# cluster kernels took the GRU route and the masked slices became a forced
-# plan's)
+# phase 32's widths, N and batches (CLUSTER_N and CLUSTER_BATCHES until the
+# register cluster kernels took the GRU route and the masked slices became a
+# forced plan's; widths 139, 201, 255 and the first even H no dividing plan
+# fits until phase 42 joined)
+MASKED_WIDTHS = (139,)
 MASKED_N = 100
 MASKED_BATCHES = (5,)
 WIDE_TIME = (32, 500, 256)        # the new routes' timing (GRU: H=255)
@@ -524,6 +548,41 @@ REG_STEP_TIME = (32, 500)
 REG_SERVE = (1, 1500)
 REG_STEPS, REG_WARMUP = 10, 3
 REG_ROOMS = 8
+# phase 42: the LSTM register cluster kernels at the wide kernels' widths,
+# H 65-118 (#1/#1t, #3/#3t, #2 and #4): the six wrappers on their route
+# against the plain versions at MID_WIDTHS x MID_BATCHES (N=MID_N), float32
+# and bf16, both walk orders, the BPTT bit-equal run to run, then the wide
+# kernel forced once at H=96; the card's resident clusters of every
+# register plan at MID_RESIDENT_H; the kernel A/B at MID_TIME f32 (the
+# register kernel at the card's pick beside the wide kernel, the first
+# design, forced, in turns; the card's first MID_SWEEP register plans; the
+# LSTM planner's pick beside the shared ranking's; cuDNN before and after;
+# the plain versions held at every shape, timed at the first only); the
+# planner's pick beside the shared ranking's at MID_TERMS; the lstm at
+# d_model MID_LSTM_D (H=96, f32): one forward against the plain
+# recurrence, one step card vs CPU at MID_STEP's B, N, the step p50 at
+# bench.py's B, N = MID_STEP_TIME and a served forward's p50 at MID_SERVE
+# (held to the plain recurrence), each MID_STEPS after MID_WARMUP, and a
+# profiler trace of MID_TRACE_STEPS steps (MID_RANGED's calls in ranges),
+# on the route and on the wide kernels in turns (new, wide, wide, new); the
+# step p50 again at d_model MID_WIDE_D (H=116)
+MID_WIDTHS = (65, 80, 96, 116, 117, 118)
+MID_BATCHES = (1, 5, 17, 32)
+MID_N = 24
+MID_TIME = ((32, 500, 96), (32, 500, 116), (1, 1500, 96))
+MID_SWEEP = 3
+MID_RESIDENT_H = (96, 116)
+MID_TERMS = ((1, 3000, 128), (32, 500, 160), (1, 1500, 160), (32, 500, 256))
+MID_LSTM_D = 192
+MID_WIDE_D = 232
+MID_STEP = (8, 300)
+MID_STEP_TIME = (32, 500)
+MID_SERVE = (1, 1500)
+MID_STEPS, MID_WARMUP = 10, 3
+MID_TRACE_STEPS = 3
+MID_RANGED = {"bilstm_fwd_train": (rnn_cuda, "bilstm_fwd_train"),
+              "bilstm_bwd": (rnn_cuda, "bilstm_bwd")}
+MID_ROOMS = 8
 FUSED_SHAPES = (((3, 53, 16, 24), torch.float32),
                 ((2, 40, 16, 16), torch.bfloat16),
                 ((16, 1000, 256, 512), torch.bfloat16),
@@ -619,9 +678,14 @@ NO_SPILL = ("bigru_fwd_tc", "bigru_bwd_tc", "bigru_bwd_fused_bf16",
 # tiles and its light 4-row tiles; the BPTT's 1-row tiles. The others (the
 # training forward's 4- and 8-row tiles, bf16's light 8-row tile, the
 # BPTT's 2- to 8-row tiles) spilled 8 to 68 bytes at 128 registers.
+# The LSTM forward register kernel's instances with 12 k a lane (H <= 96)
+# that spilled nothing when they were added: the 1- and 2-row tiles and the
+# light 4-row tiles (the training 4-row tiles spilled 4 and 8 bytes).
 NO_SPILL_PARTS = {"bigru_fwd_reg": ("IfLb0E", "Li1EE", "Li2EE",
                                     "Lb0ELi4EE"),
-                  "bigru_bwd_reg": ("Li1EE",)}
+                  "bigru_bwd_reg": ("Li1EE",),
+                  "bilstm_fwd_reg": ("Li1ELi12EE", "Li2ELi12EE",
+                                     "Lb0ELi4ELi12EE")}
 
 
 def check_usage(lib: str, usage):
@@ -1217,23 +1281,27 @@ def check_training_kernels(dev, seed):
 
 def check_wide_bwd(dev, seed):
     """Phase 3, last: the BPTT at ``WIDE`` (H above the unit kernel's 64)
-    takes the wide kernel, both directions and one direction in both walk
-    orders, against the plain versions."""
+    on its route, the register cluster kernel (asserted), both directions
+    and one direction in both walk orders, then both directions on the
+    wide kernel (the first design) forced, against the plain versions."""
     args = bwd_inputs(kernel_inputs(*WIDE, dev, seed), seed + 1)
     ref = rnn_cuda.bilstm_bwd_plain(*args)
     rel = {"bilstm_bwd": max(max_rel(a, b) for a, b in zip(
         rnn_cuda.bilstm_bwd_cuda(*args), ref))}
-    assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == "wide"
+    assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == "reg"
+    launch = plan_text(rnn_cuda.bilstm_bwd_cuda)
     for rev, w, streams, r in ((False, args[0], args[2:5], ref[0]),
                                (True, args[1], args[5:8], ref[1])):
         got = rnn_cuda.lstm_bwd_cuda(w, *streams, rev)
-        assert rnn_cuda.lstm_bwd_cuda.last_launch["kernel"] == "wide"
+        assert rnn_cuda.lstm_bwd_cuda.last_launch["kernel"] == "reg"
         rel[f"lstm_bwd reverse={rev}"] = max_rel(got, r)
+    rel["bilstm_bwd wide, forced"] = max(max_rel(a, b) for a, b in zip(
+        rnn_cuda.bilstm_bwd_cuda(*args, plan=("wide", 4)), ref))
+    assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == "wide"
     torch.cuda.synchronize()
-    log("kernel_check", f"BPTT on the wide kernel B,N,H={WIDE} max_rel_err "
-        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
-        + f" tol={GRAD_REL:.0e}; launch "
-        + plan_text(rnn_cuda.bilstm_bwd_cuda))
+    log("kernel_check", f"BPTT above the unit kernel B,N,H={WIDE} "
+        "max_rel_err " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+        + f" tol={GRAD_REL:.0e}; launch {launch}")
     assert max(rel.values()) <= GRAD_REL, rel
 
 
@@ -3019,30 +3087,15 @@ def check_lstm_cluster(dev, seed):
     return worst
 
 
-def first_masked_even(dev):
-    """The first even H up to 256 at which the BiGRU cluster planner, with
-    the card's counts, takes a masked plan for both kinds (no dividing plan
-    fits) at B=32."""
-    for H in range(2, 257, 2):
-        plans = [p for kind in ("fwd", "bwd")
-                 for p in gru_cuda.card_plans(kind, 32, H, dev,
-                                              torch.float32)]
-        if plans and all(H % c for c, _ in plans):
-            return H
-    raise AssertionError("no even H takes a masked plan")
-
-
 def check_gru_masked(dev, seed):
     """Phase 32: the GRU cluster kernels' masked slices (the first design,
     forced at its planner's pick since the register cluster kernels took
-    the route) at ``MASKED_WIDTHS`` and the first even H no dividing plan
-    fits, B in ``MASKED_BATCHES``, N=``MASKED_N``, float32 and bf16: the
-    BiGRU light and training forward and BPTT and the one-direction GRU's,
-    each launch on the cluster kernel with a cluster size that does not
-    divide H (asserted, printed), against the plain versions (bounds as
-    phase 31)."""
-    widths = (*MASKED_WIDTHS, first_masked_even(dev))
-    for H in widths:
+    the route) at ``MASKED_WIDTHS``, B in ``MASKED_BATCHES``,
+    N=``MASKED_N``, float32 and bf16: the BiGRU light and training forward
+    and BPTT and the one-direction GRU's, each launch on the cluster kernel
+    with a cluster size that does not divide H (asserted, printed), against
+    the plain versions (bounds as phase 31)."""
+    for H in MASKED_WIDTHS:
         for B in MASKED_BATCHES:
             for dtype in (torch.float32, torch.bfloat16):
                 ins = gru_inputs(B, MASKED_N, H, dtype, dev, seed)
@@ -3088,7 +3141,7 @@ def check_gru_masked(dev, seed):
                     f"{str(dtype)[6:]}: values max_abs_err={max(errs):.3e},"
                     f" dx/dhn max_rel_err={max(rels):.3e}; "
                     + "; ".join(plans))
-    return widths
+    return MASKED_WIDTHS
 
 
 def _library_ms(mod, B, N, H, dtype, dev, seed, dir_counts=(2, 1)):
@@ -3430,9 +3483,9 @@ def bigru_default_config():
     return ExperimentConfig().apply_overrides(["model.model_type=bigru"])
 
 
-def step_p50(cfg, train_dir, dev, seed, n_steps, n_warmup):
-    """p50 host ms of the trainer's step (ending in a synchronise) over
-    ``n_steps`` after ``n_warmup``, and the launches of one step."""
+def train_steps(cfg, train_dir, dev, seed):
+    """The trainer on ``train_dir``'s rooms: ``batch(i)``, the i-th batch
+    of its epoch plan, and ``take(batch)``, one step, its losses."""
     ds = TraceColliderArrays(train_dir, cfg.data, augment=True,
                              verbose=False)
     data = {k: torch.from_numpy(v).to(dev)
@@ -3445,17 +3498,101 @@ def step_p50(cfg, train_dir, dev, seed, n_steps, n_warmup):
     opt = loop.make_optimizer(model, cfg)
     step = loop.make_train_step(model, opt, cfg, augment=True)
     gen = torch.Generator(dev).manual_seed(seed)
+    return (lambda i: loop.gather_batch(data, plan, i % nb),
+            lambda batch: step(batch, gen))
+
+
+def step_p50(cfg, train_dir, dev, seed, n_steps, n_warmup):
+    """p50 host ms of the trainer's step (ending in a synchronise) over
+    ``n_steps`` after ``n_warmup``, and the launches of one step."""
+    batch_of, take = train_steps(cfg, train_dir, dev, seed)
     ms = []
     for i in range(n_steps + n_warmup):
-        batch = loop.gather_batch(data, plan, i % nb)
+        batch = batch_of(i)
         reset_counts()
         t0 = time.perf_counter()
-        losses = step(batch, gen)
+        losses = take(batch)
         torch.cuda.synchronize()
         if i >= n_warmup:
             ms.append((time.perf_counter() - t0) * 1e3)
         assert np.isfinite(float(losses["total_loss"]))
     return float(np.percentile(ms, 50)), counts()
+
+
+# the CUDA API calls in which the host waits for the card
+STEP_WAITS = ("cudaDeviceSynchronize", "cudaStreamSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpyAsync")
+
+
+def step_trace(cfg, train_dir, dev, seed, n_steps, n_warmup, ranged):
+    """One ``torch.profiler`` trace (CPU and CUDA activities) of the
+    trainer's ``n_steps`` steps after ``n_warmup``, each ending in a
+    synchronise, each function ``ranged`` names (``(module, attribute)``
+    by label) run inside a ``record_function`` range of its label. Returns
+    the host ms a step over the traced steps (the profiler's own cost
+    included), the device's busy ms a step (the union of its kernels' and
+    copies' intervals, the ranges' device spans left out) and idle share
+    (1 - busy / host), the device ms a
+    step of the kernels whose names hold "bilstm", the host ms a step in
+    the CUDA API's launches and in its waits (``STEP_WAITS``), each label's
+    host ms a call and calls a step, and the launches of the last step."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    batch_of, take = train_steps(cfg, train_dir, dev, seed)
+    for i in range(n_warmup):
+        take(batch_of(i))
+    torch.cuda.synchronize()
+
+    def in_range(label, fn):
+        def call(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for label, (mod, attr) in ranged.items():
+            stack.enter_context(mock.patch.object(
+                mod, attr, in_range(label, getattr(mod, attr))))
+        prof = stack.enter_context(profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+        t0 = time.perf_counter()
+        for i in range(n_warmup, n_warmup + n_steps):
+            reset_counts()
+            take(batch_of(i))
+            torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    launched = counts()
+    events = prof.events()
+    # the ranges' own device spans (user annotations) are no device work
+    on_dev = [e for e in events
+              if e.device_type.name == "CUDA" and e.name not in ranged]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in on_dev):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy_ms = busy / 1e3 / n_steps
+    out = {"steps": n_steps, "host_ms": host_ms,
+           "device_events": len(on_dev),
+           "device_busy_ms": busy_ms if on_dev else None,
+           "device_idle_share": 1 - busy_ms / host_ms if on_dev else None,
+           "bilstm_kernels_device_ms": sum(
+               e.time_range.elapsed_us() for e in on_dev
+               if "bilstm" in e.name) / 1e3 / n_steps}
+    on_host = [e for e in events if e.device_type.name == "CPU"]
+    out["launch_api_ms"] = sum(
+        e.time_range.elapsed_us() for e in on_host
+        if e.name.startswith(("cudaLaunch", "cuLaunch"))) / 1e3 / n_steps
+    out["wait_api_ms"] = sum(
+        e.time_range.elapsed_us() for e in on_host
+        if e.name in STEP_WAITS) / 1e3 / n_steps
+    for label in ranged:
+        host = [e.time_range.elapsed_us() for e in events
+                if e.name == label and e.device_type.name == "CPU"]
+        out[f"{label}_host_ms_a_call"] = (sum(host) / len(host) / 1e3
+                                          if host else None)
+        out[f"{label}_calls_a_step"] = len(host) / n_steps
+    return out, launched
 
 
 def request_p50(predict, trace_file, n, warmup):
@@ -4595,8 +4732,8 @@ def time_gru_reg(dev, seed):
                 + {"fwd": "forward without grad", "fwd_train":
                    "forward with grad on", "bwd": "forward + backward "
                    "minus forward"}[name.split("_", 1)[1]]
-                + ", includes the input projection; plain_ms one call, at "
-                "the first shape only)")
+                + ", includes the input projection; err against the plain "
+                "version; plain_ms one call, at the first shape only)")
     return rows
 
 
@@ -4716,6 +4853,462 @@ def reg_paths(dev, seed, smi):
         "kernel; the config's matmul precision "
         f"{tcfg.train.matmul_precision}): " + json.dumps(out["timing"])
         + f" on {smi}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 42: the LSTM register cluster kernels at H 65-118, the widths of the
+# wide kernels (the first design)
+# ---------------------------------------------------------------------------
+
+
+def lstm_mid_phase(dev, seed, smi):
+    """Phase 42, (a) to (c); returns the worst errors, the A/B rows and
+    the paths' launches and timings."""
+    t0 = time.perf_counter()
+    worst = check_lstm_mid(dev, seed)
+    mid_resident(dev)
+    rows = time_lstm_mid(dev, seed)
+    time_plan_terms(dev, seed)
+    launched = mid_paths(dev, seed, smi)
+    log("done", f"phase 42 in {time.perf_counter() - t0:.1f} s; worst "
+                "errors (values, BPTT max-rel, the Functions' max-rel) "
+                f"{json.dumps(worst)}")
+    return worst, rows, launched
+
+
+def check_lstm_mid(dev, seed):
+    """Phase 42 (a): the six LSTM wrappers on their route, the register
+    cluster kernels (asserted), at ``MID_WIDTHS`` x ``MID_BATCHES``,
+    N=``MID_N``, float32 and bf16, two directions and one in both walk
+    orders, against the plain versions, the BPTT bit-equal on a second
+    launch (``_lstm_cluster_case``); ``BiLSTMFunction``'s and
+    ``LSTMFunction``'s gradients (both walk orders) against autograd
+    through the plain loop (``grads_rel``: max-rel ``GRAD_REL``, bf16
+    ``BF16_GRAD_REL``); then the wide kernel (the first design) forced at
+    H=96, B=5. Returns the worst errors by dtype."""
+    worst = {}
+    for H in MID_WIDTHS:
+        for B in MID_BATCHES:
+            for dtype in (torch.float32, torch.bfloat16):
+                err, rel, plans = _lstm_cluster_case(H, B, dtype, dev, seed,
+                                                     "reg", n=MID_N)
+                xg_f, xg_b, w_f, w_b = kernel_inputs(B, MID_N, H, dev, seed)
+                xg_f, xg_b = xg_f.to(dtype), xg_b.to(dtype)
+                g = torch.Generator(dev).manual_seed(seed + 2)
+                dy = [torch.randn(B, MID_N, H, device=dev, generator=g
+                                  ).to(dtype) for _ in range(2)]
+                fn_rel = grads_rel(rnn_cuda.bilstm_recurrence,
+                                   rnn_cuda.bilstm_recurrence_plain,
+                                   (xg_f, xg_b, w_f, w_b), dy, dtype)
+                for reverse in (False, True):
+                    fn_rel += grads_rel(
+                        lambda *a: rnn_cuda.lstm_recurrence_kernel(*a,
+                                                                   reverse),
+                        lambda *a: rnn_cuda.lstm_recurrence(*a, reverse),
+                        (xg_b, w_b), dy[1], dtype)
+                for name in ("bilstm_fwd_train", "bilstm_bwd",
+                             "lstm_fwd_train", "lstm_bwd"):
+                    last = getattr(*WRAPPERS[name]).last_launch
+                    assert last["kernel"] == "reg", (name, last)
+                key = str(dtype)[6:]
+                w = worst.setdefault(key, [0.0, 0.0, 0.0])
+                w[:] = max(w[0], err), max(w[1], rel), max(w[2], *fn_rel)
+                log("lstm_mid", f"B,N,H=({B}, {MID_N}, {H}) {key}: values "
+                    f"max_abs_err={err:.3e}, dg max_rel_err={rel:.3e}, the "
+                    "BPTT bit-equal run to run; BiLSTMFunction / "
+                    "LSTMFunction (both walk orders) vs autograd through the "
+                    f"plain loop max_rel_err {max(fn_rel):.3e}; "
+                    + "; ".join(plans))
+    err, rel, plans = _lstm_cluster_case(
+        96, 5, torch.float32, dev, seed, "wide",
+        lambda kind, save, dirs: ("wide", 4), n=MID_N)
+    log("lstm_mid", f"the wide kernel (the first design), forced: B,N,H=(5, "
+        f"{MID_N}, 96) float32: values max_abs_err={err:.3e}, dg "
+        f"max_rel_err={rel:.3e}; " + "; ".join(plans))
+    return worst
+
+
+def _mid_ab(fn, a, kind, save, dirs, B, N, H, dev, got):
+    """The register kernel at the card's pick and the wide kernel (the
+    first design), both forced, in turns reg, wide, wide, reg (CUDA
+    events, 5 after 1 each); the wide kernel's output held to the route's
+    ``got`` (f32 values ``KERNEL_ATOL``, the BPTT max-rel ``GRAD_REL``);
+    the card's first ``MID_SWEEP`` register plans: a row's extra keys."""
+    f32 = torch.float32
+    reg = rnn_cuda.card_lstm_reg_plans(kind, B, H, dev, f32, save, dirs)
+    plans = {"reg": ("reg", *reg[0]), "wide": ("wide", 4)}
+    turns, launches = {}, {}
+    for key in ("reg", "wide", "wide", "reg"):
+        turns.setdefault(key, []).append(
+            cuda_ms(lambda: fn(*a, plan=plans[key]), 5, warmup=1))
+        launches[key] = dict(fn.last_launch)
+        assert launches[key]["kernel"] == key, launches[key]
+    out = _as_tuple(fn(*a, plan=plans["wide"]))
+    if kind == "bwd":
+        agree = max(max_rel(x.float(), y.float()) for x, y in zip(out, got))
+        assert agree <= GRAD_REL, agree
+    else:
+        agree = value_err(out, got, f32)
+    del out
+    best = {k: min(v) for k, v in turns.items()}
+    resident = _reg_resident(kind, H, dev, save)
+    sweep = [{"plan": [c, r], "resident": resident(c, r), "ms": cuda_ms(
+        lambda: fn(*a, plan=("reg", c, r)), 5, warmup=1)}
+        for c, r in reg[:MID_SWEEP]]
+    return {**{f"{k}_turns_ms": v for k, v in turns.items()},
+            **{f"{k}_ms": v for k, v in best.items()},
+            **{f"{k}_us_per_step": v / N * 1e3 for k, v in best.items()},
+            **{f"{k}_launch": v for k, v in launches.items()},
+            "wide_over_reg": best["wide"] / best["reg"],
+            "wide_err_vs_route": agree, "reg_plans_ms": sweep,
+            "reg_pick_fastest": sweep[0]["ms"] == min(r["ms"] for r in sweep),
+            "terms_ab": _terms_ab(fn, a, kind, save, dirs, B, H, dev)}
+
+
+def _reg_resident(kind, H, dev, save):
+    """``resident(cluster, rows)``: the card's count of clusters of that
+    plan of the LSTM register kernel ``kind`` (float32) at H."""
+    return rnn_cuda._cluster_resident(f"bilstm_{kind}", H, dev,
+                                      torch.float32, save, "reg")
+
+
+def _terms_ab(fn, a, kind, save, dirs, B, H, dev):
+    """The LSTM planner's pick (``rnn_cuda.lstm_reg_terms``' cost terms)
+    beside the shared ranking's pick without them (``rnn_cuda.reg_plans``,
+    the GRU's and the LSTM's before the terms), on the card's counts; where
+    they differ both forced in turns pick, shared, shared, pick (CUDA
+    events, 5 after 1 each)."""
+    resident = _reg_resident(kind, H, dev, save)
+    pick = rnn_cuda.lstm_reg_plans(kind, B, H, resident, dirs)[0]
+    shared = rnn_cuda.reg_plans(kind, B, H, resident, dirs)[0]
+    row = {"pick": list(pick), "shared_pick": list(shared)}
+    if pick != shared:
+        turns = {"pick": [], "shared": []}
+        for key in ("pick", "shared", "shared", "pick"):
+            c, r = pick if key == "pick" else shared
+            turns[key].append(cuda_ms(lambda: fn(*a, plan=("reg", c, r)), 5,
+                                      warmup=1))
+        row.update(pick_turns_ms=turns["pick"],
+                   shared_turns_ms=turns["shared"],
+                   shared_over_pick=min(turns["shared"]) / min(turns["pick"]))
+    return row
+
+
+def mid_resident(dev):
+    """Phase 42 (b): the card's resident clusters
+    (``cudaOccupancyMaxActiveClusters``) of every plan the register rule
+    takes at ``MID_RESIDENT_H``, float32, for the light and the training
+    forward and the BPTT: the counts behind the planner's picks."""
+    table = {}
+    for H in MID_RESIDENT_H:
+        for kind, save in (("fwd", False), ("fwd", True), ("bwd", False)):
+            resident = _reg_resident(kind, H, dev, save)
+            table[f"{kind}{'_train' if save else ''} H={H}"] = {
+                f"{c}x{r}": resident(c, r)
+                for c in range(1, rnn_cuda.REG_MAX_CLUSTER + 1)
+                for r in rnn_cuda.reg_rows(kind)
+                if rnn_cuda._reg_rule(kind, H, c, r)}
+    log("lstm_mid_resident", "float32 resident clusters by plan CxR: "
+        + json.dumps(table))
+    return table
+
+
+def time_plan_terms(dev, seed):
+    """Phase 42 (b), the LSTM planner's cost terms at register widths
+    outside H 65-118, ``MID_TERMS`` float32: for each of the six wrappers
+    ``_terms_ab`` (the pick beside the shared ranking's, in turns where
+    they differ). Returns the rows by wrapper name."""
+    rows = {}
+    for B, N, H in MID_TERMS:
+        for name, fn, _, a, _, kind, save, dirs in _lstm_cases(
+                B, N, H, torch.float32, dev, seed):
+            row = {"shape": [B, N, H],
+                   **_terms_ab(fn, a, kind, save, dirs, B, H, dev)}
+            rows.setdefault(name, []).append(row)
+            log("plan_terms", f"{name} (the LSTM register planner's pick "
+                "with its cost terms beside the shared ranking's, forced, "
+                "in turns pick, shared, shared, pick where they differ; "
+                "float32) " + json.dumps(row))
+    return rows
+
+
+def time_lstm_mid(dev, seed, route="reg"):
+    """Phase 42 (b), the kernel A/B at each ``MID_TIME`` shape (float32)
+    for the six LSTM wrappers (the one-direction ones walking forward): the
+    route (asserted ``route``) and ``_mid_ab``'s turns of the register
+    kernel and the wide kernel, forced; the register kernel asserted faster
+    where it is the route; the bound; the plain version held at every
+    shape (f32 values ``KERNEL_ATOL``, the BPTT max-rel ``GRAD_REL``) and
+    timed (one call) at the first; cuDNN's ``nn.LSTM`` (bidirectional for
+    the two-direction
+    kernels; never called by the port; input projection included) read
+    before and after each shape's kernels, the lower kept
+    (``_library_turns``); µs a step. Returns the rows by wrapper name, a
+    list in ``MID_TIME``'s order."""
+    f32 = torch.float32
+    rows = {}
+    for i, (B, N, H) in enumerate(MID_TIME):
+        first = i == 0
+        lib = _library_ms(torch.nn.LSTM, B, N, H, f32, dev, seed)
+        shape_rows = []
+        for name, fn, plain, a, bnd, kind, save, dirs in _lstm_cases(
+                B, N, H, f32, dev, seed):
+            got = _as_tuple(fn(*a))
+            launch = dict(fn.last_launch)
+            assert launch["kernel"] == route, (name, launch)
+            ref, plain_ms = timed_once(lambda: _as_tuple(plain(*a)))
+            row = {"shape": [B, N, H], "dtype": "float32", "route": route,
+                   "launch": launch, "plain_ms": plain_ms if first else None}
+            if kind == "bwd":
+                row["err"] = max((x - y).abs().max().item()
+                                 for x, y in zip(got, ref))
+                row["max_rel_err"] = max(max_rel(x, y)
+                                         for x, y in zip(got, ref))
+                assert row["max_rel_err"] <= GRAD_REL, (name, row)
+            else:
+                row["err"] = value_err(got, ref, f32)
+            del ref
+            row.update(_mid_ab(fn, a, kind, save, dirs, B, N, H, dev, got))
+            del got
+            if route == "reg":
+                assert row["reg_ms"] < row["wide_ms"], (name, row)
+            ms = row[f"{route}_ms"]
+            row.update(kernel_ms=ms, us_per_step=ms / N * 1e3,
+                       bound_us=bnd[0] * 1e3, bound_by=bnd[1],
+                       library_ms=lib[name])
+            rows.setdefault(name, []).append(row)
+            shape_rows.append((name, row))
+        _library_turns(shape_rows, _library_ms(torch.nn.LSTM, B, N, H, f32,
+                                               dev, seed))
+        for name, row in shape_rows:
+            log("kernel_time", f"{name} (LSTM at H 65-118, kernel "
+                f"{row['route']}: kernel_ms its lower reading in turns reg, "
+                "wide, wide, reg, both forced, reg at the card's pick; "
+                "reg_plans_ms: the card's first register plans) "
+                + json.dumps(row) + "  (library_ms: the lower of cuDNN "
+                + ("bidirectional " if name.startswith("bi") else
+                   "unidirectional ") + "nn.LSTM f32's two readings, before "
+                "and after the kernels, "
+                + {"fwd": "forward without grad", "fwd_train":
+                   "forward with grad on", "bwd": "forward + backward "
+                   "minus forward"}[name.split("_", 1)[1]]
+                + ", includes the input projection; err against the plain "
+                "version; plain_ms one call, at the first shape only)")
+    return rows
+
+
+@contextlib.contextmanager
+def wide_lstm():
+    """The LSTM routes as before the register cluster kernels took H
+    65-118: the wide kernel (the first design) wherever it fits (the
+    forward to H=118, the BPTT to 116); every other route unchanged."""
+    fwd, bwd = rnn_cuda.lstm_fwd_kernel_route, rnn_cuda.lstm_bwd_kernel_route
+
+    def old(route, fits):
+        def pick(hidden):
+            got = route(hidden)
+            return "wide" if got == "reg" and fits(hidden) else got
+        return pick
+
+    with mock.patch.multiple(rnn_cuda, lstm_fwd_kernel_route=old(
+            fwd, lambda h: 4 * h <= rnn_cuda.MAX_THREADS and
+            rnn_cuda.bilstm_smem_bytes(h) <= rnn_cuda.MAX_SMEM_BYTES),
+            lstm_bwd_kernel_route=old(
+                bwd, lambda h: rnn_cuda.bilstm_bwd_smem_bytes(h)
+                <= rnn_cuda.MAX_SMEM_BYTES)):
+        yield
+
+
+def _mid_turns(run, kernels_of):
+    """``run()`` in turns on the route (the register cluster kernels) and
+    on the wide kernels (``wide_lstm``): reg, wide, wide, reg. ``run``
+    returns (ms, launches); ``kernels_of()`` the kernels of the last
+    launches, each asserted. Returns the ms by kernel and the last
+    launches (a register turn's)."""
+    turns = {"reg": [], "wide": []}
+    for kernel in ("reg", "wide", "wide", "reg"):
+        ctx = wide_lstm if kernel == "wide" else contextlib.nullcontext
+        with ctx():
+            ms, launched = run()
+        assert all(k == kernel for k in kernels_of()), (kernel, kernels_of())
+        turns[kernel].append(ms)
+    return turns, launched
+
+
+def mid_config(d_model, B, N):
+    """``configs/flagship_v15.json``'s lstm at ``d_model``, B and N."""
+    cfg = ExperimentConfig.from_json(CONFIG)
+    cfg.model.d_model = d_model
+    cfg.train.batch_size, cfg.data.max_trace_len = B, N
+    return cfg
+
+
+def mid_paths(dev, seed, smi):
+    """Phase 42 (c), the lstm at d_model ``MID_LSTM_D`` (H=96, f32; the
+    other fields ``configs/flagship_v15.json``'s, seeded weights) on the
+    register cluster kernels, the counts set to 0 just before each path and
+    read just after: a forward at ``MID_STEP_TIME``'s B, N against the plain
+    recurrence; one train step card vs CPU (``step_parity``: assignments,
+    losses rel ``LOSS_RTOL``, updated parameters) at ``MID_STEP``'s B, N;
+    ``lstm_recurrence(use_kernel=True)`` at (``MID_STEP``, 96) forward and
+    backward; the train step's p50 at bench.py's B, N = ``MID_STEP_TIME``
+    over ``MID_STEPS`` after ``MID_WARMUP`` on ``MID_ROOMS`` rooms (the
+    config's matmul precision) and a served forward's p50 (CUDA events,
+    the light kernel) at ``MID_SERVE``, each on the register kernels and on
+    the wide kernels (``wide_lstm``) in turns; then ``MID_TRACE_STEPS``
+    steps in one ``step_trace`` on each, in turns (the device's busy ms and
+    idle share a step, the LSTM kernels' device ms, the host ms of each
+    ``MID_RANGED`` call); the served forward held to the plain recurrence
+    (``MODEL_TOL``); the step p50 again at d_model ``MID_WIDE_D`` (H=116).
+    Each launch's kernel is asserted. Returns the paths' launches and the
+    timings."""
+    out = {}
+    H = MID_LSTM_D // 2
+    B, N = MID_STEP_TIME
+    cfg = mid_config(MID_LSTM_D, B, N)
+    cfg.model.dropout = 0.0
+    layers = cfg.model.lstm_layers
+    model = build_model(cfg.model)
+    params = random_params(model, seed)
+    sharpen(params)
+    load_params(model, params)
+    model = model.to(dev).eval()
+    raw = np.stack([walk(N, seed + 1100 + b) for b in range(B)])
+    feats, mask = featurize(torch.from_numpy(raw).to(dev),
+                            torch.full((B,), N, device=dev))
+    with torch.inference_mode():
+        reset_counts()
+        res = model(feats, mask)
+        torch.cuda.synchronize()
+        out["forward"] = counts()
+        assert out["forward"] == expected_counts(bilstm_fwd=layers)
+        assert rnn_cuda.bilstm_fwd_cuda.last_launch["kernel"] == "reg"
+        with mock.patch.object(lstm_mod, "bilstm_recurrence",
+                               rnn_cuda.bilstm_recurrence_plain):
+            ref = model(feats, mask)
+    fwd_err = max((res[k] - ref[k]).abs().max().item() for k in res)
+    assert all(torch.allclose(res[k], ref[k], rtol=MODEL_TOL, atol=MODEL_TOL)
+               for k in res), fwd_err
+    sB, sN = MID_STEP
+    scfg = mid_config(MID_LSTM_D, sB, sN)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_rooms(Path(tmp), sB, seed + 1110)
+        reset_counts()
+        step_parity(scfg, Path(tmp), dev, seed, tag="mid_lstm_step")
+        torch.cuda.synchronize()
+        c_k = counts()
+    # the card's step, and its match's light forward (and the unmodified
+    # init's): the CPU's launch nothing
+    assert c_k == expected_counts(bilstm_fwd=c_k["bilstm_fwd"],
+                                  bilstm_fwd_train=layers,
+                                  bilstm_bwd=layers), c_k
+    for name in ("bilstm_fwd", "bilstm_fwd_train", "bilstm_bwd"):
+        assert getattr(*WRAPPERS[name]).last_launch["kernel"] == "reg"
+    out["parity_step"] = c_k
+    log("mid_lstm", f"flagship lstm d_model={MID_LSTM_D} (H={H}) f32: "
+        f"forward B={B} N={N} launches {out['forward']} "
+        f"({plan_text(rnn_cuda.bilstm_fwd_cuda)}), vs the plain recurrence "
+        f"max abs diff {fwd_err:.3e} (tol {MODEL_TOL:.0e}); one step card "
+        f"vs CPU at B={sB}, N={sN} as above; launches {c_k} "
+        f"(bilstm_fwd_train {plan_text(rnn_cuda.bilstm_fwd_train_cuda)}; "
+        f"bilstm_bwd {plan_text(rnn_cuda.bilstm_bwd_cuda)}) on {smi}")
+
+    # the ops-level one-direction path (#3, #3t, #4)
+    xg, _, w, _ = kernel_inputs(sB, sN, H, dev, seed)
+    dy = torch.randn(sB, sN, H, device=dev,
+                     generator=torch.Generator(dev).manual_seed(seed))
+    reset_counts()
+    with torch.no_grad():
+        ys = rnn_ops.lstm_recurrence(xg, w, False, use_kernel=True)
+    x = [t.clone().requires_grad_(True) for t in (xg, w)]
+    grads = torch.autograd.grad(
+        rnn_ops.lstm_recurrence(*x, True, use_kernel=True), x, dy)
+    torch.cuda.synchronize()
+    out["ops"] = counts()
+    assert out["ops"] == expected_counts(lstm_fwd=1, lstm_fwd_train=1,
+                                         lstm_bwd=1), out["ops"]
+    for name in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd"):
+        assert getattr(*WRAPPERS[name]).last_launch["kernel"] == "reg"
+    err = value_err((ys,), (rnn_ops.lstm_recurrence(xg, w, False),),
+                    torch.float32)
+    rel = max(max_rel(a, r) for a, r in zip(grads, torch.autograd.grad(
+        rnn_ops.lstm_recurrence(*x, True), x, dy)))
+    assert rel <= GRAD_REL, rel
+    log("mid_ops", f"lstm_recurrence(use_kernel=True) B,N,H=({sB}, {sN}, "
+        f"{H}): launches {out['ops']}; values max_abs_err={err:.3e}; "
+        f"gradients max_rel_err={rel:.3e}; BPTT "
+        f"{plan_text(rnn_cuda.lstm_bwd_cuda)}")
+
+    # the train step at bench.py's B and N (the config's precision) and a
+    # served forward, on the register kernels and on the wide kernels, in
+    # turns; the step again at d_model MID_WIDE_D
+    kernels = ("bilstm_fwd_train", "bilstm_bwd")
+    timing = {}
+    for d_model in (MID_LSTM_D, MID_WIDE_D):
+        tcfg = mid_config(d_model, *MID_STEP_TIME)
+        with tempfile.TemporaryDirectory() as tmp:
+            write_rooms(Path(tmp), MID_ROOMS, seed + 1120)
+            turns, launched = _mid_turns(
+                lambda: step_p50(tcfg, Path(tmp), dev, seed, MID_STEPS,
+                                 MID_WARMUP),
+                lambda: [getattr(*WRAPPERS[n]).last_launch["kernel"]
+                         for n in kernels])
+            if d_model == MID_LSTM_D:
+                traces, _ = _mid_turns(
+                    lambda: step_trace(tcfg, Path(tmp), dev, seed,
+                                       MID_TRACE_STEPS, MID_WARMUP,
+                                       MID_RANGED),
+                    lambda: [getattr(*WRAPPERS[n]).last_launch["kernel"]
+                             for n in kernels])
+        assert launched == expected_counts(bilstm_fwd_train=layers,
+                                           bilstm_bwd=layers), launched
+        timing[d_model] = {
+            "shape": [*MID_STEP_TIME, d_model // 2],
+            "reg_step_p50_ms": turns["reg"],
+            "wide_step_p50_ms": turns["wide"], "step_launches": launched,
+            "matmul_precision": tcfg.train.matmul_precision,
+            "fwd_train_plan": dict(rnn_cuda.bilstm_fwd_train_cuda
+                                   .last_launch),
+            "bwd_plan": dict(rnn_cuda.bilstm_bwd_cuda.last_launch)}
+        if d_model == MID_LSTM_D:
+            out["step"] = launched
+            timing[d_model].update(reg_trace=traces["reg"],
+                                   wide_trace=traces["wide"])
+    vB, vN = MID_SERVE
+    vraw = walk(vN, seed + 1130)[None]
+    vfeats, vmask = featurize(torch.from_numpy(vraw).to(dev),
+                              torch.full((vB,), vN, device=dev))
+    with torch.inference_mode():
+        res = model(vfeats, vmask)
+        assert rnn_cuda.bilstm_fwd_cuda.last_launch["kernel"] == "reg"
+        with mock.patch.object(lstm_mod, "bilstm_recurrence",
+                               rnn_cuda.bilstm_recurrence_plain):
+            ref = model(vfeats, vmask)
+    serve_err = max((res[k] - ref[k]).abs().max().item() for k in res)
+    assert all(torch.allclose(res[k], ref[k], rtol=MODEL_TOL, atol=MODEL_TOL)
+               for k in res), serve_err
+    del res, ref
+    serve_turns, serve_launched = _mid_turns(
+        lambda: served_p50(model, vfeats, vmask, MID_STEPS, MID_WARMUP),
+        lambda: [rnn_cuda.bilstm_fwd_cuda.last_launch["kernel"]])
+    assert serve_launched == expected_counts(bilstm_fwd=layers), \
+        serve_launched
+    out["serve"] = serve_launched
+    timing[MID_LSTM_D].update(
+        serve_shape=[vB, vN, H], serve_err_vs_plain=serve_err,
+        reg_serve_p50_ms=serve_turns["reg"],
+        wide_serve_p50_ms=serve_turns["wide"],
+        serve_launches=serve_launched,
+        serve_plan=dict(rnn_cuda.bilstm_fwd_cuda.last_launch))
+    out["timing"] = timing
+    log("mid_lstm", f"flagship lstm d_model={MID_LSTM_D} (H={H}) and "
+        f"{MID_WIDE_D} (H={MID_WIDE_D // 2}): train step at B, N = "
+        f"{MID_STEP_TIME} (bench.py's), p50 over {MID_STEPS} after "
+        f"{MID_WARMUP}, and (d_model {MID_LSTM_D}) served forward at B, N = "
+        f"{MID_SERVE} (light kernels, CUDA events), p50 over {MID_STEPS} "
+        f"after {MID_WARMUP}, in turns reg, wide, wide, reg (the forwards' "
+        "and the BPTT's kernel): " + json.dumps(timing) + f" on {smi}")
     return out
 
 
@@ -5966,6 +6559,11 @@ def main() -> int:
     log("done", f"phase 41 in {time.perf_counter() - t_41:.1f} s; worst "
                 f"errors (values, BPTT max-rel) {json.dumps(reg_worst)}")
 
+    # 42. the LSTM register cluster kernels at H 65-118 (#1 / #1t, #3 / #3t,
+    # #2, #4 at the wide kernels' widths): their checks, their A/B beside
+    # the wide kernels, and an lstm at d_model 192 on them (a main path)
+    mid_worst, mid_rows, mid_launched = lstm_mid_phase(dev, args.seed, smi)
+
     def entry(name, source, replaces, launched, row):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launched,
@@ -6089,6 +6687,28 @@ def main() -> int:
                             "first_over_route")},
                         **({"path_timing": reg_launched["timing"]}
                            if name.startswith("bigru") else {}),
+                        "shapes": rows})
+    # the LSTM register cluster kernels at H 65-118 (phase 42): the lstm at
+    # d_model 192 (its served forward's and its step's launches), the
+    # one-direction kernels on its lstm_recurrence path; the wide kernels'
+    # times beside them
+    for name, source, line, path in (
+            ("bilstm_fwd", "bilstm_fwd.cu", "rnn_pallas.py:390", "serve"),
+            ("bilstm_fwd_train", "bilstm_fwd.cu", "rnn_pallas.py:531",
+             "step"),
+            ("bilstm_bwd", "bilstm_bwd.cu", "rnn_pallas.py:438", "step"),
+            ("lstm_fwd", "bilstm_fwd.cu", "rnn_pallas.py:105", "ops"),
+            ("lstm_fwd_train", "bilstm_fwd.cu", "rnn_pallas.py:183", "ops"),
+            ("lstm_bwd", "bilstm_bwd.cu", "rnn_pallas.py:242", "ops")):
+        rows = mid_rows[name]
+        kernels.append({**entry(f"{name}_mid",
+                                f"room_slam_torch/csrc/{source}",
+                                f"room_slam_tpu/ops/{line}",
+                                mid_launched[path][name], rows[0]),
+                        **{k: rows[0][k] for k in ("wide_ms",
+                                                   "wide_over_reg")},
+                        **({"path_timing": mid_launched["timing"]}
+                           if name.startswith("bilstm") else {}),
                         "shapes": rows})
     # phase 40: #5 / #5t / #6 on the unit kernels (the bigru default path's
     # step and request), and the pipe kernels with their main paths

@@ -80,15 +80,31 @@
 // lane, not by the FMA chain's depth: the GRU BPTT unit kernel (12 R loads)
 // and the forward unit kernel (4 R) take less a step (PERF.md).
 //
-// H above 64 (no model runs one: the flagship and legacy LSTMs are H=64)
-// takes the wide kernel, the first design kept as it was: W_hh^T and a
-// double-buffered [4][4H] dg tile in dynamic shared memory, up to H=116 in
-// f32.
-//
-// Above that, up to H = kMaxClusterH = 256 (an lstm model at d_model 512),
-// a cluster of blocks splits W_hh by hidden units: one cluster per
+// H above 64 (no shipped model runs one: the flagship and legacy LSTMs are
+// H=64; an lstm at d_model 130-512 does), up to H = kMaxClusterH = 256 (an
+// lstm model at d_model 512), takes the register cluster kernel below: a
+// cluster of blocks splits W_hh by hidden units, one cluster per
 // (direction, batch tile of R rows), the block of rank q owning units q*U
 // .. q*U+U-1 (the last block's slice masked past H).
+//
+// The first design at H 65-116, the wide kernel (bilstm_bwd_wide_kernel;
+// since the register cluster kernel took these widths, reached only by a
+// forced ("wide", 4) plan): W_hh^T and a double-buffered [4][4H] dg tile in
+// dynamic shared memory, thread j owning the (row, unit) cell (j / H, j % H)
+// of a 4-row tile. What held it back: the unit kernel's predecessor's chain
+// (above) at 4H-deep, one shared load of W and one of dg a FMA, and three
+// of four rows padding at B=1: measured on an H100 (chip_smoke.py phase 42,
+// PERF.md section 6) 3.9-4.1 us a step at (32, 500, 96) and (1, 1500, 96)
+// f32, 6.6 at (32, 500, 116). What the design does about it: the register
+// cluster kernel's K-split at these widths. Its padding costs little there:
+// at H=96 the planner's clusters of 3, 6 and 12 blocks divide H (32, 16 and
+// 8 units a block), and at H=116 the 8-block plan pads 12 of 128 columns
+// a gate, a tenth of FMAs that do not bound the step; so U stays a power
+// of two. The planner's cost terms are fitted to the card's sweeps there:
+// each block of the grid costs (few blocks at B=32), each shuffle round of
+// the K-split costs (8 units a block, no shuffle, at B=1: 12 blocks at
+// H=96). What bounds it now: the step's chain, as at H=128 below (about
+// 0.9 us a step at B=1, H=96; 1.2 at B=32 two directions).
 //
 // The first cluster design (bilstm_bwd_cluster_kernel, the scheme of
 // bigru_bwd.cu's cluster kernel, kind kLinear; reached only by a forced

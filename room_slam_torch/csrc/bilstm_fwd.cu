@@ -71,17 +71,34 @@
 // rest is the step's fixed chain: barrier, two shuffle rounds, the
 // activations' MUFU latency and the h broadcast.
 //
-// H above 64 (no model runs one: the flagship and legacy LSTMs are H=64)
-// takes the wide kernel, the first design kept as it was: W_hh [H, 4H] in
-// dynamic shared memory (64 KiB at H=64, up to H=118 in f32), thread j owns
-// gate column j of a 4-row tile.
+// H above 64 (no shipped model runs one: the flagship and legacy LSTMs are
+// H=64; an lstm at d_model 130-512 does) takes the register cluster kernel
+// below, up to H = kMaxClusterH = 256 (an lstm model at d_model 512; H=128
+// is a reference lstm checkpoint at the loader's d_model 256). One
+// direction's W_hh (147 KiB in f32 at H=96, 1 MiB at H=256) fits no
+// block's registers beside its working set, and a cluster of blocks splits
+// it by hidden units: one cluster per (direction, batch tile of R rows),
+// the block of rank q owning units q*U .. q*U+U-1 (the last block's slice
+// masked past H).
 //
-// Above that, up to H = kMaxClusterH = 256 (an lstm model at d_model 512;
-// H=128 is a reference lstm checkpoint at the loader's d_model 256), one
-// direction's W_hh (1 MiB in f32 at H=256) fits no block, and a cluster of
-// blocks splits it by hidden units: one cluster per (direction, batch tile
-// of R rows), the block of rank q owning units q*U .. q*U+U-1 (the last
-// block's slice masked past H).
+// The first design at H 65-118, the wide kernel (bilstm_fwd_wide_kernel; since
+// the register cluster kernel took these widths, reached only by a forced
+// ("wide", 4) plan): W_hh [H, 4H] in dynamic shared memory (up to H=118 in
+// f32), thread j owning gate column j of a 4-row tile. What held it back: a
+// serial H-deep k loop a step, each k one shared load of W and four of h for
+// four FMAs, two block barriers a step, and three of the four rows padding at
+// the serving batch of 1: measured on an H100 (chip_smoke.py phase 42, PERF.md
+// section 6) 3.1-3.4 us a step at (32, 500, 96) and (1, 1500, 96) f32, 4.5-4.8
+// at (32, 500, 116), against cuDNN's 0.7-1.8 (2.6-5.1 at H=116). What the
+// design does about it: the register cluster kernel at these widths, its
+// lane's k count fitted to H (12 up to H=96, where a unit's 8 lanes' 12 cover
+// H: at H=96 no lane holds zeros, a quarter fewer FMAs and registers a lane
+// than 16, and no spill in the light and 1- and 2-row tiles; 16 above, as
+// before) and the planner's cost terms
+// fitted to the card's sweeps there (tiles of 2 rows at B=32). What bounds it
+// now: the step's fixed chain, as at H=128 below (about 0.75 us a step at a
+// served request's B=1, H=96; 1.0 at B=32 two directions); the 2-4x over the
+// wide kernel is the chain of shared loads it no longer walks.
 //
 // The first cluster design (bilstm_fwd_cluster_kernel, the scheme of
 // bigru_fwd.cu's cluster kernel; reached only by a forced plan) holds the
@@ -101,8 +118,9 @@
 // - W_hh in registers. U = ceil(H / C) units a block, up to a power of two
 //   (C up to 16, a non-portable cluster size above 8), L = 8 lanes a unit up
 //   to H=128 and 16 above: lane p holds the four gate columns of its unit
-//   for the 16 k = (c * L + p) * KC + e, c < 16 / KC, e < KC, as float32
-//   rounded from the stream type once (64 registers), for the whole walk.
+//   for its KL k = (c * L + p) * KC + e, c < KL / KC, e < KC, as float32
+//   rounded from the stream type once (KL = 12 up to H=96, where 12 L
+//   cover H, else 16: 48 or 64 registers), for the whole walk.
 // - h_{t-1} from a double-buffered [2][TK][R] tile (R = 1, 2 or 4 rows) as
 //   16-byte broadcasts, each feeding KC = 4 / R k x R rows x 4 gates FMAs.
 //   The L lanes' partial sums meet by __shfl_xor_sync, a reduce-scatter
@@ -125,7 +143,7 @@
 //   warp's arrival. Every index is a shift and a mask (U is a power of
 //   two): these loops run every step, and a division by a runtime U is a
 //   few dozen instructions.
-// Register budget: 64 W_hh values, 4R accumulators and 4R / L xg values a
+// Register budget: 4 KL W_hh values, 4R accumulators and 4R / L xg values a
 // thread; blocks of at most 256 threads (U * L), launch bound two blocks an
 // SM, so 128 registers a thread (phase 2 reports the spills, a few dozen
 // bytes in some of the tiles). Two blocks an SM: clusters of 16 at one
@@ -734,7 +752,8 @@ bilstm_fwd_cluster_kernel(const T* __restrict__ xg_f,
 // registers, h exchanged by st.async on mbarriers.
 // ---------------------------------------------------------------------------
 
-constexpr int kRegKPerLane = 16;     // k values of the sum a lane holds
+constexpr int kRegKPerLane = 16;     // k values of the sum a lane holds,
+constexpr int kRegKFit = 12;         // or 12 where 8 lanes' 12 cover H
 constexpr int kRegMaxThreads = 256;  // __launch_bounds__, two blocks an SM
 constexpr int kRegStages = 3;        // output staging slots (steps)
 constexpr int kRegMaxC = 16;         // a non-portable cluster of 16 at most
@@ -744,6 +763,12 @@ constexpr int kMaxSmem = 232448;     // dynamic shared memory of one block
 // lanes a hidden unit: 8 up to H = 128 (16 k a lane), 16 above
 __host__ __device__ __forceinline__ int reg_lanes(int H) {
   return H <= 8 * kRegKPerLane ? 8 : 16;
+}
+
+// k values of the sum a lane holds: 12 where a unit's 8 lanes' 12 cover H
+// (H up to 96), else 16; the lanes past H would hold zeros
+__host__ __device__ __forceinline__ int reg_k_per_lane(int H) {
+  return H <= kRegKFit * 8 ? kRegKFit : kRegKPerLane;
 }
 
 __host__ __device__ __forceinline__ int pow2_at_least(int n) {
@@ -763,7 +788,7 @@ __host__ __device__ __forceinline__ int reg_units(int H, int C) {
 // rows of the h tile: every unit of the cluster and every k a lane reads
 __host__ __device__ __forceinline__ int reg_tile_k(int H, int C) {
   const int a = C * reg_units(H, C);
-  const int b = kRegKPerLane * reg_lanes(H);
+  const int b = reg_k_per_lane(H) * reg_lanes(H);
   return ((a > b ? a : b) + 3) / 4 * 4;
 }
 
@@ -917,7 +942,7 @@ __device__ __forceinline__ void reduce_rows(const float (&v)[4][R],
 
 // One cluster per (direction, batch tile of R rows); see the notes at the
 // top. Block `rank` owns units rank * U .. rank * U + U - 1, L lanes each.
-template <typename T, bool kSave, int R>
+template <typename T, bool kSave, int R, int KL>
 __global__ void __launch_bounds__(kRegMaxThreads, 2)
 bilstm_fwd_reg_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
                       const T* __restrict__ w_f, const T* __restrict__ w_b,
@@ -926,7 +951,7 @@ bilstm_fwd_reg_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
                       T* __restrict__ gs_f, T* __restrict__ gs_b, int B,
                       int N, int H, int rev) {
   constexpr int KC = 4 / R;               // k values of one float4 read
-  constexpr int kChunks = kRegKPerLane / KC;
+  constexpr int kChunks = KL / KC;         // KL = reg_k_per_lane(H)
   constexpr int NX = (4 * R + 7) / 8;     // xg values a thread loads a step
   constexpr int NQ = kSave ? kRegStreams : 1;
   cg::cluster_group cluster = cg::this_cluster();
@@ -962,7 +987,7 @@ bilstm_fwd_reg_kernel(const T* __restrict__ xg_f, const T* __restrict__ xg_b,
 
   // this lane's W_hh values: chunk c covers k = (c * L + p) * KC + e, e <
   // KC, for the four gate columns of the unit; zero past H
-  float wr[4][kRegKPerLane];
+  float wr[4][KL];
 #pragma unroll
   for (int c = 0; c < kChunks; ++c)
 #pragma unroll
@@ -1402,7 +1427,7 @@ bool valid_reg_plan(int B, int N, int H, int C, int R) {
          reg_smem_floats(H, C, R) * sizeof(float) <= kMaxSmem;
 }
 
-template <typename T, bool kSave, int R>
+template <typename T, bool kSave, int R, int KL>
 cudaError_t reg_prepare(int smem) {
   static std::atomic<int> allowed[kMaxDevices];
   int device = 0;
@@ -1410,11 +1435,11 @@ cudaError_t reg_prepare(int smem) {
   if (err != cudaSuccess) return err;
   if (device < kMaxDevices && allowed[device].load() >= smem)
     return cudaSuccess;
-  err = cudaFuncSetAttribute(bilstm_fwd_reg_kernel<T, kSave, R>,
+  err = cudaFuncSetAttribute(bilstm_fwd_reg_kernel<T, kSave, R, KL>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bilstm_fwd_reg_kernel<T, kSave, R>,
+  err = cudaFuncSetAttribute(bilstm_fwd_reg_kernel<T, kSave, R, KL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && device < kMaxDevices) allowed[device].store(smem);
   return err;
@@ -1436,23 +1461,23 @@ void make_reg_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
   cfg->numAttrs = 1;
 }
 
-template <typename T, bool kSave, int R>
+template <typename T, bool kSave, int R, int KL>
 int launch_reg_as(const void* xg_f, const void* xg_b, const void* w_f,
                   const void* w_b, void* ys_f, void* ys_b, void* cs_f,
                   void* cs_b, void* gs_f, void* gs_b, int B, int N, int H,
                   int C, int dirs, int rev, void* stream) {
   const size_t smem = reg_smem_floats(H, C, R) * sizeof(float);
-  cudaError_t err = reg_prepare<T, kSave, R>(static_cast<int>(smem));
+  cudaError_t err = reg_prepare<T, kSave, R, KL>(static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   make_reg_config(&cfg, &attr, (B + R - 1) / R, H, C, dirs, smem, stream);
   auto in = [](const void* p) { return static_cast<const T*>(p); };
   auto out = [](void* p) { return static_cast<T*>(p); };
-  err = cudaLaunchKernelEx(&cfg, bilstm_fwd_reg_kernel<T, kSave, R>, in(xg_f),
-                           in(xg_b), in(w_f), in(w_b), out(ys_f), out(ys_b),
-                           out(cs_f), out(cs_b), out(gs_f), out(gs_b), B, N,
-                           H, rev);
+  err = cudaLaunchKernelEx(&cfg, bilstm_fwd_reg_kernel<T, kSave, R, KL>,
+                           in(xg_f), in(xg_b), in(w_f), in(w_b), out(ys_f),
+                           out(ys_b), out(cs_f), out(cs_b), out(gs_f),
+                           out(gs_b), B, N, H, rev);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1464,32 +1489,43 @@ int launch_reg(const void* xg_f, const void* xg_b, const void* w_f,
                int R, int dirs, int rev, void* stream) {
   if (!valid_reg_plan(B, N, H, C, R))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto* fn = R == 1   ? launch_reg_as<T, kSave, 1>
-             : R == 2 ? launch_reg_as<T, kSave, 2>
-                      : launch_reg_as<T, kSave, 4>;
+  const bool fit = reg_k_per_lane(H) == kRegKFit;
+  auto* fn = R == 1   ? (fit ? launch_reg_as<T, kSave, 1, kRegKFit>
+                             : launch_reg_as<T, kSave, 1, kRegKPerLane>)
+             : R == 2 ? (fit ? launch_reg_as<T, kSave, 2, kRegKFit>
+                             : launch_reg_as<T, kSave, 2, kRegKPerLane>)
+                      : (fit ? launch_reg_as<T, kSave, 4, kRegKFit>
+                             : launch_reg_as<T, kSave, 4, kRegKPerLane>);
   return fn(xg_f, xg_b, w_f, w_b, ys_f, ys_b, cs_f, cs_b, gs_f, gs_b, B, N, H,
             C, dirs, rev, stream);
 }
 
-template <typename T, bool kSave, int R>
+template <typename T, bool kSave, int R, int KL>
 int reg_max_active_as(int H, int C) {
   const size_t smem = reg_smem_floats(H, C, R) * sizeof(float);
-  cudaError_t err = reg_prepare<T, kSave, R>(static_cast<int>(smem));
+  cudaError_t err = reg_prepare<T, kSave, R, KL>(static_cast<int>(smem));
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   make_reg_config(&cfg, &attr, 1, H, C, 1, smem, nullptr);
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(
-      &n, bilstm_fwd_reg_kernel<T, kSave, R>, &cfg);
+      &n, bilstm_fwd_reg_kernel<T, kSave, R, KL>, &cfg);
   return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+template <typename T, bool kSave, int KL>
+int reg_max_active_k(int H, int C, int R) {
+  return R == 1   ? reg_max_active_as<T, kSave, 1, KL>(H, C)
+         : R == 2 ? reg_max_active_as<T, kSave, 2, KL>(H, C)
+                  : reg_max_active_as<T, kSave, 4, KL>(H, C);
 }
 
 template <typename T, bool kSave>
 int reg_max_active(int H, int C, int R) {
-  return R == 1   ? reg_max_active_as<T, kSave, 1>(H, C)
-         : R == 2 ? reg_max_active_as<T, kSave, 2>(H, C)
-                  : reg_max_active_as<T, kSave, 4>(H, C);
+  return reg_k_per_lane(H) == kRegKFit
+             ? reg_max_active_k<T, kSave, kRegKFit>(H, C, R)
+             : reg_max_active_k<T, kSave, kRegKPerLane>(H, C, R);
 }
 
 }  // namespace

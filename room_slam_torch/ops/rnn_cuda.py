@@ -25,39 +25,41 @@ PyTorch version beside it:
 - ``bilstm_bwd`` (``csrc/bilstm_bwd.cu``): reverse-time BPTT from those
   residuals to the gate cotangent ``dg [B, N, 4H]`` per direction.
 
-Each source holds five kernels. At H <= ``UNIT_MAX_H`` (64, the
-flagship's and the legacy LSTM's width) the unit kernel runs: four lanes of
-a warp own one hidden unit of a tile of 1, 2 or 4 batch rows, W_hh (the
-forward's columns, the BPTT's row) in their registers, one block barrier a
-step; ``unit_plan`` sizes the tile to the batch and the card. Above it the
-wide kernel (the first design, W_hh in shared memory, one block of 4H
-threads per 4-row tile) runs, up to H=118 in the forward and H=116 in the
-BPTT. Above that, up to ``CLUSTER_MAX_H`` (256), the register cluster
-kernel ("reg") splits W_hh by hidden units across a thread-block cluster
-of up to 16 blocks, each block's slice held in registers, h (the BPTT:
-partial sums of dh) exchanged by ``st.async`` on mbarriers;
-``lstm_reg_plan`` picks the cluster and the batch tile from the card's own
-counts. The first cluster kernel ("cluster": the slice in shared memory, a
-cluster barrier a step) stays for the A/B, reached by a forced plan. Above
-``CLUSTER_MAX_H``, where no block holds its share of W_hh, the forward
-takes its pipe kernel (``csrc/bilstm_fwd_pipe.cu``, a source of its own:
-"pipe", each block's slice of W_hh packed k-major by ``fwd_pipe_weights``
-and streamed through shared memory by a producer warp's bulk copies, the
-part that fits held, h exchanged by ``st.async`` on mbarriers;
-``fwd_pipe_plans`` picks the cluster and the batch tile) up to
-``LSTM_FWD_PIPE_MAX_H``; the stream kernel ("stream": the first cluster
-kernel reading its slice of W_hh from global memory every step, clusters
-of up to 16 blocks; ``stream_plans``) keeps the forward's wider widths
-whose exchange tile fits a block and is reached below by a forced plan.
-The BPTT there takes the pipe kernel (``csrc/bilstm_pipe.cu``, a source of
-its own: "pipe", the register kernel's K-split, each block's slice of W_hh streamed through shared memory by a
-producer warp's bulk copies, the part that fits held for the whole walk;
-``pipe_plans`` picks the cluster and the batch tile), routed as far as the
-first stream design takes H (1816) and by a forced plan to H=2048; the
-stream BPTT, the first design for those widths, is reached by a forced
-``("stream", C, R)`` plan.
-``lstm_fwd_kernel_route`` and ``lstm_bwd_kernel_route`` choose, and each
-launch records its kernel and plan in the wrapper's ``last_launch``.
+Each source holds five kernels. At H <= ``UNIT_MAX_H`` (64, the flagship's
+and the legacy LSTM's width) the unit kernel runs: four lanes of a warp own
+one hidden unit of a tile of 1, 2 or 4 batch rows, W_hh (the forward's
+columns, the BPTT's row) in their registers, one block barrier a step;
+``unit_plan`` sizes the tile to the batch and the card. Above it, up to
+``CLUSTER_MAX_H`` (256), the register cluster kernel ("reg") splits W_hh by
+hidden units across a thread-block cluster of up to 16 blocks, each block's
+slice held in registers (a forward lane's k count fitted to H:
+``reg_k_per_lane``), h (the BPTT: partial sums of dh) exchanged by
+``st.async`` on mbarriers; ``lstm_reg_plan`` picks the cluster and the
+batch tile from the card's own counts. The wide kernel (the first design
+above H=64: W_hh in shared memory, one block of 4H threads per 4-row tile,
+up to H=118 in the forward and H=116 in the BPTT) stays for the A/B,
+reached by a forced ``("wide", 4)`` plan. The first cluster kernel
+("cluster": the slice in shared memory, a cluster barrier a step) stays for
+the A/B, reached by a forced plan. Above ``CLUSTER_MAX_H``, where no block
+holds its share of W_hh, the forward takes its pipe kernel
+(``csrc/bilstm_fwd_pipe.cu``, a source of its own: "pipe", each block's
+slice of W_hh packed k-major by ``fwd_pipe_weights`` and streamed through
+shared memory by a producer warp's bulk copies, the part that fits held, h
+exchanged by ``st.async`` on mbarriers; ``fwd_pipe_plans`` picks the
+cluster and the batch tile) up to ``LSTM_FWD_PIPE_MAX_H``; the stream
+kernel ("stream": the first cluster kernel reading its slice of W_hh from
+global memory every step, clusters of up to 16 blocks; ``stream_plans``)
+keeps the forward's wider widths whose exchange tile fits a block and is
+reached below by a forced plan. The BPTT there takes the pipe kernel
+(``csrc/bilstm_pipe.cu``, a source of its own: "pipe", the register
+kernel's K-split, each block's slice of W_hh streamed through shared memory
+by a producer warp's bulk copies, the part that fits held for the whole
+walk; ``pipe_plans`` picks the cluster and the batch tile), routed as far
+as the first stream design takes H (1816) and by a forced plan to H=2048;
+the stream BPTT, the first design for those widths, is reached by a forced
+``("stream", C, R)`` plan. ``lstm_fwd_kernel_route`` and
+``lstm_bwd_kernel_route`` choose, and each launch records its kernel and
+plan in the wrapper's ``last_launch``.
 
 With grad enabled and an input that requires it, ``bilstm_recurrence``
 goes through ``BiLSTMFunction`` (training forward, then BPTT and
@@ -115,14 +117,16 @@ CLUSTER_MAX_H = 256
 # csrc/bigru_fwd_reg.cu and csrc/bigru_bwd_reg.cu): clusters of 1 to
 # REG_MAX_CLUSTER blocks (above 8 a non-portable size), batch tiles of
 # REG_ROWS[kind] rows (the GRU's: GRU_REG_ROWS), the k values a forward lane
-# holds (kRegKPerLane; a BPTT lane holds 8 columns of each gate, kRegJPerLane
-# / kJPerLane), the inputs the BPTT stages a cell (kRegIn) and the outputs
-# the forward stages (kRegStreams), by gate count
+# holds (kRegKPerLane, or the LSTM's kRegKFit to H=96; a BPTT lane holds 8
+# columns of each gate, kRegJPerLane / kJPerLane), the inputs the BPTT
+# stages a cell (kRegIn) and the outputs the forward stages (kRegStreams),
+# by gate count
 REG_MAX_CLUSTER = 16
 REG_ROWS = {"fwd": (1, 2, 4), "bwd": (1, 2, 4, 8)}
 GRU_REG_ROWS = (1, 2, 4, 8)
 REG_MAX_THREADS = 256   # the launch bound: 255 registers a thread
 REG_K_PER_LANE = 16
+REG_K_FIT = 12
 REG_IN = {4: 7, 3: 6}        # i, f, g, o, c, c_prev, dy; r, z, n, hn, h_prev, dy
 REG_LOADS = 4     # input values a BPTT thread loads a step (kRegLoads)
 REG_STREAMS = {4: 6, 3: 5}   # ys, c, i, f, g, o; ys, r, z, n, hn
@@ -130,8 +134,14 @@ REG_BWD_OUT = 4   # staged BPTT outputs: dg of four gates; dx of three and dhn
 REG_STAGES = 3    # output staging slots (kRegStages)
 REG_SOURCE = {4: "bilstm", 3: "bigru"}   # the layout queries' prefix
 # A step's fixed part (the exchange, the lane reduction, the gate math) in
-# thread-rows of a block's FMA issue, for rank_reg_plans' cost model
+# thread-rows of a block's FMA issue, for rank_reg_plans' cost model; and
+# the LSTM kernels' own terms (lstm_reg_terms): each cluster of a forward
+# grid, each block of a BPTT grid, and each shuffle round of the BPTT's
+# K-split (log2 of U / 8 lanes a pair of k)
 REG_STEP_FIXED = 2400
+REG_FWD_CLUSTER = 10
+REG_BWD_BLOCK = 1
+REG_BWD_SHUFFLE = 60
 
 # The stream kernels (the first cluster kernels of the four sources with
 # kStream: W_hh read from global memory every step): clusters of 1 to
@@ -420,6 +430,14 @@ def reg_lanes(hidden: int) -> int:
     return 8 if hidden <= 8 * REG_K_PER_LANE else 16
 
 
+def reg_k_per_lane(hidden: int, gates: int = 4) -> int:
+    """k values of the sum a lane of the forward register cluster kernel
+    holds: the LSTM's 12 where a unit's 8 lanes' 12 cover H (H <= 96),
+    else 16; the GRU's always 16."""
+    fit = gates == 4 and hidden <= REG_K_FIT * 8
+    return REG_K_FIT if fit else REG_K_PER_LANE
+
+
 def reg_rows(kind: str, gates: int = 4) -> Tuple[int, ...]:
     """The batch tiles of the register cluster kernel ``kind`` with
     ``gates`` gates: the LSTM forward's 1, 2 or 4 rows (8 spilled), the
@@ -456,7 +474,8 @@ def reg_smem_bytes(kind: str, hidden: int, cluster: int, rows: int,
     [2][rows][REG_IN][U + 1] and output staging [3][4][rows][U + 1]."""
     U = reg_units(kind, hidden, cluster)
     if kind == "fwd":
-        tk = _pad4(max(cluster * U, REG_K_PER_LANE * reg_lanes(hidden)))
+        tk = _pad4(max(cluster * U,
+                       reg_k_per_lane(hidden, gates) * reg_lanes(hidden)))
         floats = (2 * rows * tk + (2 * gates + REG_STAGES
                                    * REG_STREAMS[gates]) * rows * (U + 1))
     else:
@@ -494,8 +513,8 @@ def check_reg_mirror(layout, kind: str, gates: int = 4) -> None:
     ``<bilstm|bigru>_<kind>_reg_layout(what, H, C, R)`` (bytes, threads,
     units, or -1 for a plan it does not take) over H, every cluster size
     and tile; raises naming the first plan where they differ."""
-    for hidden in (1, 7, 64, 65, 96, 117, 118, 119, 128, 130, 139, 201, 255,
-                   256, 257):
+    for hidden in (1, 7, 64, 65, 80, 96, 97, 116, 117, 118, 119, 128, 130,
+                   139, 192, 193, 201, 255, 256, 257):
         for c in range(1, REG_MAX_CLUSTER + 2):
             for rows in (1, 2, 3, 4, 8, 16):
                 want = ((reg_smem_bytes(kind, hidden, c, rows, gates),
@@ -515,42 +534,49 @@ def check_reg_mirror(layout, kind: str, gates: int = 4) -> None:
 
 def rank_reg_plans(kind: str, plans, batch: int, hidden: int,
                    resident: Callable[[int, int], int],
-                   dirs: int, gates: int = 4) -> List[Tuple[int, int]]:
+                   dirs: int, gates: int = 4,
+                   terms: Optional[Callable[[int, int, int],
+                                            Tuple[int, int]]] = None
+                   ) -> List[Tuple[int, int]]:
     """The ``(cluster, rows)`` plans of the register cluster kernel
     ``kind``, fastest first.
 
-    A lane runs 16 FMAs a gate a row a step whatever the plan (64 with four
-    gates, 48 with three), so a block's step costs its threads (at least
-    128: four warps, one per scheduler) times its rows times gates / 4,
-    plus ``REG_STEP_FIXED`` for the exchange, the lane reduction and the
-    gate math; the grid of ``dirs`` directions takes ``waves`` such steps,
-    with ``resident(cluster, rows)`` clusters at once (the card's own
-    count, ``cudaOccupancyMaxActiveClusters``); a plan the card runs none
-    of is dropped. Ties go to the smaller cluster, then the smaller
-    tile."""
+    A lane runs the same FMAs a gate a row a step whatever the plan at one
+    H, so a block's step costs its threads (at least 128: four warps, one
+    per scheduler) times its rows times gates / 4, plus
+    ``REG_STEP_FIXED`` for the exchange, the lane reduction and the gate
+    math; the grid of ``dirs`` directions takes ``waves`` such steps, with
+    ``resident(cluster, rows)`` clusters at once (the card's own count,
+    ``cudaOccupancyMaxActiveClusters``); a plan the card runs none of is
+    dropped. ``terms(cluster, rows, clusters)``, where given, is a
+    kernel's own (cost a step, cost once) for a grid of ``clusters``
+    clusters (``lstm_reg_terms``). Ties go to the smaller cluster, then the
+    smaller tile."""
     keys = []
     for c, rows in plans:
         at_once = resident(c, rows)
         if at_once <= 0:
             continue
-        waves = -(-dirs * -(-batch // rows) // at_once)
+        clusters = dirs * -(-batch // rows)
+        waves = -(-clusters // at_once)
         step = (max(reg_threads(kind, hidden, c), 128) * rows * gates // 4
                 + REG_STEP_FIXED)
-        keys.append((waves * step, c, rows))
+        per_step, once = terms(c, rows, clusters) if terms else (0, 0)
+        keys.append((waves * (step + per_step) + once, c, rows))
     return [(c, rows) for _, c, rows in sorted(keys)]
 
 
 def reg_plans(kind: str, batch: int, hidden: int,
               resident: Callable[[int, int], int], dirs: int = 2,
-              gates: int = 4) -> List[Tuple[int, int]]:
+              gates: int = 4, terms=None) -> List[Tuple[int, int]]:
     """Every ``(cluster, rows)`` the register cluster kernel ``kind`` of
     ``gates`` gates takes at this batch and H over ``dirs`` directions,
-    fastest first (``rank_reg_plans``)."""
+    fastest first (``rank_reg_plans``, with the kernel's own ``terms``)."""
     return rank_reg_plans(
         kind, [(c, rows) for c in range(1, REG_MAX_CLUSTER + 1)
                for rows in reg_rows(kind, gates)
                if _reg_rule(kind, hidden, c, rows, gates)],
-        batch, hidden, resident, dirs, gates)
+        batch, hidden, resident, dirs, gates, terms)
 
 
 def reg_takes(kind: str, hidden: int, gates: int = 4) -> bool:
@@ -561,13 +587,31 @@ def reg_takes(kind: str, hidden: int, gates: int = 4) -> bool:
                for rows in reg_rows(kind, gates))
 
 
+def lstm_reg_terms(kind: str, hidden: int):
+    """The LSTM register kernels' own cost terms for ``rank_reg_plans``,
+    fitted to an H100's plan sweeps at H 96-256 (chip_smoke.py phase 42):
+    ``REG_FWD_CLUSTER`` once for each cluster of a forward grid (at B=32
+    tiles of 2 rows beat tiles of 1 where both make one wave);
+    ``REG_BWD_SHUFFLE`` a step for each shuffle round of the BPTT's K-split
+    (log2 of U / 8 lanes a pair of k: at B=1 eight units a block, no
+    shuffle, beat 16 or 32) and ``REG_BWD_BLOCK`` once for each block of
+    its grid (few blocks at B=32)."""
+    def terms(c, rows, clusters):
+        if kind == "fwd":
+            return 0, REG_FWD_CLUSTER * clusters
+        rounds = (reg_units(kind, hidden, c) // 8).bit_length() - 1
+        return REG_BWD_SHUFFLE * rounds, REG_BWD_BLOCK * clusters * c
+    return terms
+
+
 def lstm_reg_plans(kind: str, batch: int, hidden: int,
                    resident: Callable[[int, int], int],
                    dirs: int = 2) -> List[Tuple[int, int]]:
     """Every ``(cluster, rows)`` the LSTM register cluster kernel ``kind``
     takes at this batch and H over ``dirs`` directions, fastest first
-    (``rank_reg_plans``)."""
-    return reg_plans(kind, batch, hidden, resident, dirs)
+    (``rank_reg_plans`` with ``lstm_reg_terms``)."""
+    return reg_plans(kind, batch, hidden, resident, dirs,
+                     terms=lstm_reg_terms(kind, hidden))
 
 
 def lstm_reg_plan(kind: str, batch: int, hidden: int,
@@ -1080,14 +1124,12 @@ def fwd_pipe_weights(w: torch.Tensor, cluster: int) -> torch.Tensor:
     return wk.reshape(HP, 4, cluster, U).permute(2, 0, 3, 1).contiguous()
 
 
-def _lstm_route(kind: str, hidden: int, wide: bool, wide_smem: int) -> str:
+def _lstm_route(kind: str, hidden: int) -> str:
     name = f"bilstm_{kind}"
     if hidden <= 0:
         raise ValueError(f"{name}: H must be positive, got {hidden}")
     if hidden <= UNIT_MAX_H:
         return "unit"
-    if wide:
-        return "wide"
     if reg_takes(kind, hidden):
         return "reg"
     # the forward's pipe kernel is routed as far as its A/B against the
@@ -1102,27 +1144,23 @@ def _lstm_route(kind: str, hidden: int, wide: bool, wide_smem: int) -> str:
             "H, and " if kind == "bwd" else "and ")
     raise ValueError(
         f"{name}: no kernel takes H={hidden} on this card: the unit kernel "
-        f"holds H <= {UNIT_MAX_H}, the wide kernel needs {wide_smem} bytes "
-        f"of shared memory per block, the register cluster kernel takes "
+        f"holds H <= {UNIT_MAX_H}, the register cluster kernel takes "
         f"H <= {CLUSTER_MAX_H}, {pipe}{stream_refusal(name, hidden)}")
 
 
 def lstm_fwd_kernel_route(hidden: int) -> str:
     """The forward kernel of ``csrc/bilstm_fwd.cu`` that takes hidden size
     ``hidden`` (whatever the batch, stream dtype or direction count):
-    "unit" up to ``UNIT_MAX_H``, else "wide" where its W_hh fits one
-    block's shared memory (H <= 118), else "reg" (the register cluster
-    kernel) up to ``CLUSTER_MAX_H``, else "pipe" (the forward pipe kernel,
+    "unit" up to ``UNIT_MAX_H``, else "reg" (the register cluster kernel)
+    up to ``CLUSTER_MAX_H``, else "pipe" (the forward pipe kernel,
     ``csrc/bilstm_fwd_pipe.cu``) up to ``LSTM_FWD_PIPE_MAX_H`` (the widest
     width its A/B times), else "stream" (the first stream design) where its
-    h tile fits a block. The first cluster kernel ("cluster"), and the
-    stream kernel at the pipe kernel's widths, are reached only by a forced
-    plan. Raises, naming the width and the card's limit, for an H none
-    takes."""
-    return _lstm_route("fwd", hidden,
-                       4 * hidden <= 512
-                       and bilstm_smem_bytes(hidden) <= MAX_SMEM_BYTES,
-                       bilstm_smem_bytes(hidden))
+    h tile fits a block. The wide kernel (the first design above H=64,
+    where its W_hh fits one block's shared memory: H <= 118), the first
+    cluster kernel ("cluster") and the stream kernel at the pipe kernel's
+    widths are reached only by a forced plan. Raises, naming the width and
+    the card's limit, for an H none takes."""
+    return _lstm_route("fwd", hidden)
 
 
 def bilstm_bwd_smem_bytes(hidden: int) -> int:
@@ -1135,18 +1173,18 @@ def bilstm_bwd_smem_bytes(hidden: int) -> int:
 
 def lstm_bwd_kernel_route(hidden: int) -> str:
     """The BPTT kernel of ``csrc/bilstm_bwd.cu`` (or, "pipe",
-    ``csrc/bilstm_pipe.cu``) that takes hidden size ``hidden`` (whatever the batch, stream dtype or direction count):
-    "unit" (``bilstm_bwd_unit_kernel``) up to ``UNIT_MAX_H``, else "wide"
-    where its W_hh^T and dg tile fit one block's shared memory (H <= 116),
-    else "reg" (the register cluster kernel) up to ``CLUSTER_MAX_H``, else
-    "pipe" (the pipe kernel) where the first stream design's dg tile fits
-    a block (H <= 1816: the widths its A/B covers); the first cluster
-    kernel, the stream kernel and the pipe kernel's plans above 1816 (to
-    H=2048) are reached only by a forced plan. Raises, naming the width
-    and the card's limit, for an H none takes."""
-    return _lstm_route("bwd", hidden,
-                       bilstm_bwd_smem_bytes(hidden) <= MAX_SMEM_BYTES,
-                       bilstm_bwd_smem_bytes(hidden))
+    ``csrc/bilstm_pipe.cu``) that takes hidden size ``hidden`` (whatever
+    the batch, stream dtype or direction count): "unit"
+    (``bilstm_bwd_unit_kernel``) up to ``UNIT_MAX_H``, else "reg" (the
+    register cluster kernel) up to ``CLUSTER_MAX_H``, else "pipe" (the pipe
+    kernel) where the first stream design's dg tile fits a block (H <=
+    1816: the widths its A/B covers); the wide kernel (the first design
+    above H=64, where its W_hh^T and dg tile fit one block's shared memory:
+    H <= 116), the first cluster kernel, the stream kernel and the pipe
+    kernel's plans above 1816 (to H=2048) are reached only by a forced
+    plan. Raises, naming the width and the card's limit, for an H none
+    takes."""
+    return _lstm_route("bwd", hidden)
 
 
 # ---------------------------------------------------------------------------

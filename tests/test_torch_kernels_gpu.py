@@ -568,15 +568,20 @@ def test_gru_unit_kernels_match_plain(cuda, shape, dtype):
 
 
 def test_lstm_wide_kernel_above_unit_width(cuda):
-    """H=96 takes the wide kernel (W_hh in shared memory), both grids."""
+    """H=96 takes the register cluster kernel on its route; the wide kernel
+    (the first design, W_hh in shared memory) by a forced plan, both
+    grids."""
     xg_f, xg_b, w_f, w_b = _inputs(5, 43, 96, cuda)
-    got = rnn_cuda.bilstm_fwd_train_cuda(xg_f, xg_b, w_f, w_b)
+    assert rnn_cuda.lstm_fwd_kernel_route(96) == "reg"
+    got = rnn_cuda.bilstm_fwd_train_cuda(xg_f, xg_b, w_f, w_b,
+                                         plan=("wide", 4))
     assert rnn_cuda.bilstm_fwd_train_cuda.last_launch["kernel"] == "wide"
     for a, r in zip(got, rnn_cuda.bilstm_fwd_train_plain(xg_f, xg_b, w_f,
                                                          w_b)):
         _assert_close(a, r, torch.float32)
-    _assert_close(rnn_cuda.lstm_fwd_cuda(xg_b, w_b, True),
+    _assert_close(rnn_cuda.lstm_fwd_cuda(xg_b, w_b, True, plan=("wide", 4)),
                   rnn_cuda.lstm_recurrence(xg_b, w_b, True), torch.float32)
+    assert rnn_cuda.lstm_fwd_cuda.last_launch["kernel"] == "wide"
 
 
 # ---------------------------------------------------------------------------
@@ -746,7 +751,7 @@ def test_lstm_bwd_unit_kernels_match_plain(cuda, shape, dtype):
 @pytest.mark.parametrize("shape", LSTM_BWD_WIDE_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lstm_bwd_wide_kernel_matches_plain(cuda, shape, dtype):
-    _check_lstm_bwd(cuda, shape, dtype, [None, ("wide", 4)], "wide")
+    _check_lstm_bwd(cuda, shape, dtype, [("wide", 4)], "wide", route="reg")
 
 
 # ---------------------------------------------------------------------------
@@ -849,18 +854,17 @@ def test_lstm_cluster_kernels_match_plain(cuda, shape, dtype):
 def _check_lstm_cluster_kernels(cuda, shape, dtype, kernel):
     """The cluster kernel ``kernel`` ("cluster": the first design, "reg":
     the register cluster kernel) under its card's first plans, forced, and
-    (the register kernel, the route above the wide kernels) the route's
+    (the register kernel, the route above the unit kernels) the route's
     own pick."""
     B, N, H = shape
     assert rnn_cuda.lstm_bwd_kernel_route(H) == "reg"
-    if H > 118:
-        assert rnn_cuda.lstm_fwd_kernel_route(H) == "reg"
+    assert rnn_cuda.lstm_fwd_kernel_route(H) == "reg"
     card_plans = (rnn_cuda.card_lstm_cluster_plans if kernel == "cluster"
                   else rnn_cuda.card_lstm_reg_plans)
     for fn, ins, ref, dirs, save in _lstm_fwd_cases(shape, dtype, cuda):
         plans = card_plans("fwd", B, H, cuda, dtype, save, dirs)
         assert plans
-        route = [None] if kernel == "reg" and H > 118 else []
+        route = [None] if kernel == "reg" else []
         for plan in (*route, *((kernel, c, r) for c, r in plans[:3])):
             before = fn.launches
             got = fn(*ins, plan=plan)
@@ -893,6 +897,19 @@ LSTM_REG_SHAPES = [(1, 17, 119), (5, 43, 130), (32, 60, 192),
 @pytest.mark.parametrize("shape", LSTM_REG_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lstm_reg_kernels_match_plain(cuda, shape, dtype):
+    _check_lstm_cluster_kernels(cuda, shape, dtype, "reg")
+
+
+# The register cluster kernels at the wide kernels' widths (H 65-118, their
+# route since they replaced the first design there): the lane k count
+# fitted to H (12 to H=96, 16 above), padding rows in 2- and 4-row tiles.
+LSTM_MID_SHAPES = [(B, 33, H) for H in (65, 96, 116, 118)
+                   for B in (1, 5, 17, 32)]
+
+
+@pytest.mark.parametrize("shape", LSTM_MID_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_mid_kernels_match_plain(cuda, shape, dtype):
     _check_lstm_cluster_kernels(cuda, shape, dtype, "reg")
 
 

@@ -81,12 +81,15 @@ def test_gru_route_and_cluster_plans():
 
 
 def test_lstm_route():
-    """The unit kernel up to H=64 (the flagship's), the wide kernel where
-    its W_hh fits one block's shared memory (up to H=118 in float32)."""
+    """The unit kernel up to H=64 (the flagship's); above it the register
+    cluster kernel, also where the wide kernel's W_hh fits one block's
+    shared memory (H 65-118 in float32: the wide kernel is the first
+    design there, reached by a forced plan)."""
     assert lstm_fwd_kernel_route(64) == "unit"
     assert lstm_fwd_kernel_route(1) == "unit"
-    assert lstm_fwd_kernel_route(65) == "wide"
-    assert lstm_fwd_kernel_route(118) == "wide"
+    assert lstm_fwd_kernel_route(65) == "reg"
+    assert lstm_fwd_kernel_route(118) == "reg"
+    assert rnn_cuda.bilstm_smem_bytes(118) <= rnn_cuda.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("hidden", [0, 257, 300, 512])
@@ -233,8 +236,9 @@ def test_gru_wrapper_launches_and_records(fake_card):
 
 def test_lstm_wrappers_launch_and_record(fake_card):
     """The serving shape launches the unit kernel with one row (R=1, wide
-    0); H=96 the wide kernel (R=4, wide 1); a grid of one direction passes
-    the reverse flag last; forced plans are taken or refused."""
+    0); H=96 the register cluster kernel (C, R) on its route and the wide
+    kernel (R=4, wide 1) forced; a grid of one direction passes the reverse
+    flag last; forced plans are taken or refused."""
     z = torch.zeros
     rnn_cuda.bilstm_fwd_cuda(z(1, 5, 256), z(1, 5, 256), z(64, 256),
                              z(64, 256))
@@ -245,6 +249,12 @@ def test_lstm_wrappers_launch_and_record(fake_card):
         "resident": 264}
     rnn_cuda.bilstm_fwd_train_cuda(z(5, 3, 384), z(5, 3, 384), z(96, 384),
                                    z(96, 384))
+    name, args = fake_card.calls[-1]
+    assert name == "bilstm_fwd_train_reg_f32" and args[10:] == (5, 3, 96, 6,
+                                                                1)
+    assert rnn_cuda.bilstm_fwd_train_cuda.last_launch["kernel"] == "reg"
+    rnn_cuda.bilstm_fwd_train_cuda(z(5, 3, 384), z(5, 3, 384), z(96, 384),
+                                   z(96, 384), plan=("wide", 4))
     name, args = fake_card.calls[-1]
     assert name == "bilstm_fwd_train_f32" and args[10:] == (5, 3, 96, 4, 1)
     assert rnn_cuda.bilstm_fwd_train_cuda.last_launch["kernel"] == "wide"
@@ -382,8 +392,9 @@ def test_fused_staging_reuses_exchange_tile(hidden, cluster, rows, floats):
 
 
 # ---------------------------------------------------------------------------
-# The LSTM BPTT (both grids): the unit kernel at H <= 64, the wide kernel
-# above it
+# The LSTM BPTT (both grids): the unit kernel at H <= 64, the register
+# cluster kernel above it (the wide kernel, the first design to H=116, by a
+# forced plan)
 # ---------------------------------------------------------------------------
 
 
@@ -392,14 +403,16 @@ def test_fused_staging_reuses_exchange_tile(hidden, cluster, rows, floats):
     (117, "cluster"), (118, "cluster"), (119, "cluster"), (256, "cluster")])
 def test_lstm_bwd_route(hidden, want):
     """The wide BPTT kernel's W_hh^T and double-buffered [4][4H] dg tile
-    fit one block to H=116 (the wide forward's smaller tile to H=118); the
-    widths above, to 256, split W_hh across a cluster ("cluster" here):
-    they take the register cluster kernel ("reg"), and the first cluster
-    kernel only by a forced plan."""
-    assert lstm_bwd_kernel_route(hidden) == {"cluster": "reg"}.get(want,
-                                                                   want)
+    fit one block to H=116 ("wide" here; the wide forward's smaller tile to
+    H=118); the widths above, to 256, split W_hh across a cluster
+    ("cluster" here). Both take the register cluster kernel ("reg"); the
+    wide and the first cluster kernels only a forced plan."""
+    assert lstm_bwd_kernel_route(hidden) == {"cluster": "reg", "wide": "reg"
+                                             }.get(want, want)
+    assert (want == "wide") == (64 < hidden and rnn_cuda.bilstm_bwd_smem_bytes(
+        hidden) <= rnn_cuda.MAX_SMEM_BYTES)
     if 64 < hidden <= 118:
-        assert lstm_fwd_kernel_route(hidden) == "wide"
+        assert lstm_fwd_kernel_route(hidden) == "reg"
 
 
 @pytest.mark.parametrize("hidden", [0, 257, 260, 384])
@@ -475,16 +488,22 @@ def test_lstm_bwd_wrappers_launch_unit(fake_card, dtype):
 
 
 def test_lstm_bwd_wide_entry_above_unit_width(fake_card):
-    """H=96 launches the wide entries: ``bilstm_bwd_*`` (10 pointers, B, N,
-    H) and ``lstm_bwd_*`` (5 pointers, B, N, H, reverse), 4-row tiles."""
+    """H=96 launches the register entries on its route and the wide entries
+    by a forced ("wide", 4) plan: ``bilstm_bwd_*`` (10 pointers, B, N, H)
+    and ``lstm_bwd_*`` (5 pointers, B, N, H, reverse), 4-row tiles."""
     rnn_cuda.bilstm_bwd_cuda(*_lstm_bwd_args(5, 3, 96))
+    name, args = fake_card.calls[-1]
+    assert name == "bilstm_bwd_reg_f32" and args[10:] == (5, 3, 96, 6, 1)
+    assert rnn_cuda.bilstm_bwd_cuda.last_launch["kernel"] == "reg"
+    rnn_cuda.bilstm_bwd_cuda(*_lstm_bwd_args(5, 3, 96), plan=("wide", 4))
     name, args = fake_card.calls[-1]
     assert name == "bilstm_bwd_f32" and len(args) == 13
     assert args[10:] == (5, 3, 96)
     assert rnn_cuda.bilstm_bwd_cuda.last_launch == {
         "kernel": "wide", "cluster": 1, "rows": 4, "clusters": 4,
         "resident": None}
-    rnn_cuda.lstm_bwd_cuda(*_lstm_bwd_one(5, 3, 96, torch.bfloat16), True)
+    rnn_cuda.lstm_bwd_cuda(*_lstm_bwd_one(5, 3, 96, torch.bfloat16), True,
+                           plan=("wide", 4))
     name, args = fake_card.calls[-1]
     assert name == "lstm_bwd_bf16" and len(args) == 9
     assert args[5:] == (5, 3, 96, 1)
@@ -818,17 +837,17 @@ def _before_lstm_route(kind, hidden):
 
 @pytest.mark.parametrize("batch", [1, 5, 32, 128])
 def test_every_width_gets_a_kernel_and_keeps_its_pick(batch):
-    """Every H the unit and wide kernels took keeps its kernel; every H
-    above them takes the register cluster kernel with a plan in each
-    direction count, and the first cluster kernel, reached by a forced
-    plan, still plans there too."""
+    """Every H the unit kernels took keeps its kernel; every H above them
+    (the wide kernels' widths included) takes the register cluster kernel
+    with a plan in each direction count, and the first cluster kernel,
+    reached by a forced plan, still plans there too."""
     tc_counts = {4: 30, 8: 15}
     for hidden in range(1, 257):
         for kind in ("fwd", "bwd"):
             route = (rnn_cuda.lstm_fwd_kernel_route if kind == "fwd"
                      else rnn_cuda.lstm_bwd_kernel_route)(hidden)
             before = _before_lstm_route(kind, hidden)
-            if before is not None:
+            if before == "unit":
                 assert route == before, (kind, hidden)
             elif route == "reg":
                 for dirs in (1, 2):
@@ -982,13 +1001,17 @@ def test_cluster_routes_launch_and_record(fake_card):
 @pytest.mark.parametrize("kind,first", [("fwd", 119), ("bwd", 117)])
 def test_reg_route_above_the_wide_kernels(kind, first):
     """The forward's widths 119..256 and the BPTT's 117..256 take the
-    register cluster kernel; the unit and wide kernels keep theirs below;
-    257 takes the pipe kernels (the forward's and the BPTT's)."""
+    register cluster kernel, and so do the wide kernels' widths below
+    (65..118 and 65..116: the wide kernel only by a forced plan); the unit
+    kernels keep theirs; 257 takes the pipe kernels (the forward's and the
+    BPTT's)."""
     route = (lstm_fwd_kernel_route if kind == "fwd"
              else lstm_bwd_kernel_route)
     assert [route(h) for h in range(first, 257)] == ["reg"] * (257 - first)
     assert {route(h) for h in range(1, 65)} == {"unit"}
-    assert {route(h) for h in range(65, first)} == {"wide"}
+    assert {route(h) for h in range(65, first)} == {"reg"}
+    assert {_before_lstm_route(kind, h) for h in range(65, first)} == {
+        "wide"}
     assert route(257) == "pipe"
 
 
@@ -1006,9 +1029,10 @@ def _reg_source(kind, hidden, c, rows, every_block=True, cells=True):
         u *= 2
     if kind == "fwd":
         lanes = 8 if hidden <= 128 else 16
+        k_lane = 12 if hidden <= 96 else 16
         U = max(u, 32 // lanes)
         threads = U * lanes
-        tk = (max(c * U, 16 * lanes) + 3) // 4 * 4
+        tk = (max(c * U, k_lane * lanes) + 3) // 4 * 4
         floats = 2 * rows * tk + 26 * rows * (U + 1)
     else:
         U = max(u, 8)
@@ -1053,13 +1077,15 @@ def test_reg_plans_from_card_counts(kind):
     two directions) the BPTT's 8 clusters of 16 blocks of 8 rows make one
     wave where the card holds 8 such clusters, two where it holds 7, and
     still beat 16 clusters of 4 rows; the forward takes tiles of 4 rows at
-    most. The reference lstm request (1, 128) takes one row and the
-    cluster whose blocks have 128 threads."""
+    most. The reference lstm request (1, 128) takes one row: the
+    forward's cluster whose blocks have 128 threads, the BPTT's of 8 units
+    a block (its K-split without a shuffle round)."""
     plan = rnn_cuda.lstm_reg_plan
     rows = 8 if kind == "bwd" else 4
     assert plan(kind, 32, 256, _reg_clusters) == (16, rows)
     assert plan(kind, 32, 256, lambda c, r: 8) == (16, rows)
-    assert plan(kind, 1, 128, _reg_clusters) == (8, 1)
+    assert plan(kind, 1, 128, _reg_clusters) == ((8, 1) if kind == "fwd"
+                                                 else (16, 1))
     assert {c for c, _ in rnn_cuda.lstm_reg_plans(
         kind, 5, 130, _reg_clusters)} == {9}
     assert {c for c, _ in rnn_cuda.lstm_reg_plans(
@@ -1069,6 +1095,47 @@ def test_reg_plans_from_card_counts(kind):
     assert not rnn_cuda.lstm_reg_plans(kind, 32, 256, lambda c, r: 0)
     with pytest.raises(ValueError, match="no plan"):
         plan(kind, 32, 256, lambda c, r: 0)
+
+
+# An H100's resident clusters (cudaOccupancyMaxActiveClusters, float32) of
+# every plan the register rule takes at H=96 and 116, as chip_smoke.py
+# phase 42 printed them ("lstm_mid_resident"; NVIDIA H100 80GB HBM3,
+# 700.00 W); the training forward's equal the light forward's
+_MID_RESIDENT = {
+    ("fwd", 96): {"3x1": 79, "3x2": 79, "3x4": 79, "6x1": 79, "6x2": 79,
+                  "6x4": 79, "12x1": 74, "12x2": 74, "12x4": 74},
+    ("bwd", 96): {"3x1": 79, "3x2": 79, "6x1": 101, "6x2": 101, "12x1": 74,
+                  "12x2": 74, "12x4": 74},
+    ("fwd", 116): {"4x1": 62, "4x2": 62, "4x4": 62, "8x1": 62, "8x2": 62,
+                   "8x4": 62, "15x1": 58, "15x2": 58, "15x4": 58},
+    ("bwd", 116): {"4x1": 62, "4x2": 62, "4x4": 62, "8x1": 62, "8x2": 62,
+                   "8x4": 62, "15x1": 58, "15x2": 58, "15x4": 58}}
+
+
+def _mid_counts(kind, hidden):
+    """``resident(cluster, rows)`` from ``_MID_RESIDENT``; a plan the card
+    printed no count for runs none."""
+    table = _MID_RESIDENT[kind, hidden]
+    return lambda c, rows: table.get(f"{c}x{rows}", 0)
+
+
+@pytest.mark.parametrize("kind,batch,hidden,dirs,want", [
+    ("fwd", 32, 96, 2, (6, 2)), ("fwd", 32, 96, 1, (6, 2)),
+    ("fwd", 1, 96, 2, (6, 1)), ("fwd", 32, 116, 2, (8, 2)),
+    ("fwd", 32, 116, 1, (8, 2)), ("bwd", 32, 96, 2, (3, 1)),
+    ("bwd", 1, 96, 2, (12, 1)), ("bwd", 1, 96, 1, (12, 1)),
+    ("bwd", 32, 116, 2, (8, 2)), ("bwd", 32, 116, 1, (8, 1))])
+def test_reg_plans_at_the_wide_kernels_widths(kind, batch, hidden, dirs,
+                                              want):
+    """At the widths the wide kernels held (H 65-118) the register
+    planner's pick on the card's counts is the card's fastest plan of its
+    sweep (or within 2% of it): forward tiles of 2 rows at B=32 (each
+    cluster of a grid costs, ``REG_FWD_CLUSTER``) and of 1 at B=1; the
+    BPTT's tiles of 1 row where a wave holds them, 8 units a block at B=1
+    (no shuffle round, ``REG_BWD_SHUFFLE``) and few blocks at B=32
+    (``REG_BWD_BLOCK``)."""
+    assert rnn_cuda.lstm_reg_plan(kind, batch, hidden,
+                                  _mid_counts(kind, hidden), dirs) == want
 
 
 _REG_ENTRIES = {
@@ -1171,7 +1238,8 @@ def test_every_width_to_1024_has_a_route(family):
     """Every H from 1 to 1024 (d_model 2048), forward and BPTT, one and two
     directions, float32 and bf16, gets a route on the H100's counts; up to
     H=256 every pick of before stays but the BiGRU's at H <= 64 (now the
-    unit kernel) and the GRU cluster kernels' from 65 (now the register
+    unit kernel), the LSTM wide kernels' (H 65-118, now the register
+    cluster kernels) and the GRU cluster kernels' from 65 (now the register
     cluster kernels, with a plan in each direction count, while the first
     design, reached by a forced plan, still plans there), and above it
     every width a cluster plan took keeps it but the GRU BPTT's and the GRU
@@ -1182,7 +1250,9 @@ def test_every_width_to_1024_has_a_route(family):
             if family == "lstm":
                 route = (lstm_fwd_kernel_route if kind == "fwd"
                          else lstm_bwd_kernel_route)(hidden)
-                before = _before_lstm_route(kind, hidden) or (
+                before = {"wide": "reg"}.get(
+                    _before_lstm_route(kind, hidden),
+                    _before_lstm_route(kind, hidden)) or (
                     "reg" if hidden <= 256 else None)
                 if before is not None:
                     assert route == before, (kind, hidden)
