@@ -34,10 +34,18 @@ checkout's root that imports that checkout's ``chip_smoke.py`` and
   (512: H=256, the LSTM cluster routes), dropout 0, the train step at
   (32, 500) p50 over ``STEPS`` after ``STEP_WARMUP`` on phase 8's rooms,
   with the ``bilstm_fwd_train`` and ``bilstm_bwd`` kernel times at (32,
-  500, 256) f32 and the kernel each launch took.
+  500, 256) f32 and the kernel each launch took;
+- the split BPTT (#10) at the shapes of #6's four route kernels, (128,
+  5000, 256) bf16 (tc), (20, 1500, 64) bf16 (unit), (32, 500, 255) bf16
+  and f32 (reg), (32, 500, 512) bf16 (pipe): #6 on its route, #10 as the
+  checkout routes it, #10 on its first cluster design at the planner's
+  pick and #10 forced onto #6's kernel and plan (a refusal is recorded as
+  such), then cuDNN's bidirectional nn.GRU backward (fp16 for bf16
+  streams) and, for bf16, torch's own bf16 nn.GRU, each forward +
+  backward minus forward.
 
 ``--parts`` picks some of them (legacy, fused, flagship, scaleup,
-lstm512; all by default). It prints one line per run and, last, a JSON
+lstm512, split; all by default). It prints one line per run and, last, a JSON
 object of all runs (also written to ``--output``). Exits non-zero without
 a CUDA card; every number comes from the card.
 """
@@ -174,12 +182,59 @@ if "scaleup" in parts:
             "bigru")[0]
     result["bigru_fwd_train_ms"] = up_rows["bigru_fwd_train"][0]["kernel_ms"]
     result["bigru_bwd_ms"] = up_rows["bigru_bwd"][0]["kernel_ms"]
+
+
+def split_row(B, N, H, dt):
+    """#6 on its route, #10 as routed, #10 on the first design at its
+    pick and at #6's kernel and plan, cuDNN (fp16 for bf16) and torch's
+    bf16 nn.GRU: ms, or the refusal's text."""
+    args = cs.gru_bwd_inputs(cs.gru_inputs(B, N, H, dt, dev, seed), seed + 1)
+    row = {"shape": [B, N, H], "dtype": str(dt)[6:]}
+
+    def timed(key, fn, plan=None):
+        kw = {} if plan is None else {"plan": plan}
+        try:
+            row[key] = {"ms": cs.cuda_ms(lambda: fn(*args, **kw), 5),
+                        "launch": dict(fn.last_launch)}
+        except (ValueError, TypeError) as e:
+            row[key] = {"refused": str(e)[:160]}
+
+    timed("bwd", gru_cuda.bigru_bwd_cuda)
+    timed("split", gru_cuda.bigru_bwd_split_cuda)
+    first = gru_cuda.card_plans("split", B, H, dev, dt)
+    if first:
+        timed("split_first", gru_cuda.bigru_bwd_split_cuda,
+              ("cluster", *first[0]))
+    k6 = row["bwd"]["launch"]
+    timed("split_at_bwd_plan", gru_cuda.bigru_bwd_split_cuda,
+          ("unit", k6["rows"]) if k6["kernel"] == "unit"
+          else (k6["kernel"], k6["cluster"], k6["rows"]))
+    row["cudnn_ms"] = cs._library_ms(torch.nn.GRU, B, N, H, dt, dev, seed,
+                                     (2,))["bigru_bwd"]
+    if dt == torch.bfloat16:
+        lib = torch.nn.GRU(2 * H, H, batch_first=True,
+                           bidirectional=True).to(dev, dt)
+        g = torch.Generator(dev).manual_seed(seed)
+        x = torch.randn(B, N, 2 * H, device=dev, generator=g).to(dt)
+        x.requires_grad_(True)
+        dy = torch.randn(B, N, 2 * H, device=dev, generator=g).to(dt)
+        fwd = cs.cuda_ms(lambda: lib(x), 3)
+        row["torch_bf16_ms"] = cs.cuda_ms(
+            lambda: lib(x)[0].backward(dy), 3) - fwd
+    return row
+
+
+if "split" in parts:
+    bf, f32 = torch.bfloat16, torch.float32
+    result["split"] = [split_row(*shape, dt) for shape, dt in (
+        ((128, 5000, 256), bf), ((20, 1500, 64), bf), ((32, 500, 255), bf),
+        ((32, 500, 255), f32), ((32, 500, 512), bf))]
 print("AB_RESULT " + json.dumps(result), flush=True)
 '''
 
 
 ORDER = "pccp"   # parent, change, change, parent
-PARTS = ("legacy", "fused", "flagship", "scaleup", "lstm512")
+PARTS = ("legacy", "fused", "flagship", "scaleup", "lstm512", "split")
 
 
 def run_one(root: Path, parts) -> dict:
@@ -223,6 +278,16 @@ def _summary(part: str, res: dict) -> str:
                 f"{res['bigru_bwd_ms']:.3f} ms, "
                 f"{res['bigru_launches']['bigru_bwd']['kernel']} kernel; "
                 f"hidden_grads {res['hidden_grads_ms']:.3f} ms)")
+    if part == "split":
+        def ms(cell):
+            return f"{cell['ms']:.3f}" if "ms" in cell else "refused"
+
+        return "; ".join(
+            f"{tuple(r['shape'])} {r['dtype']}: #6 {ms(r['bwd'])} ms "
+            f"({r['bwd']['launch']['kernel']}), #10 {ms(r['split'])}, "
+            f"#10 at #6's plan {ms(r['split_at_bwd_plan'])}, #10 first "
+            f"design {ms(r.get('split_first', {}))}, cuDNN "
+            f"{r['cudnn_ms']:.3f}" for r in res["split"])
     big = res["lstm512"]
     return (f"lstm d_model 512 step p50 {big['p50_ms']:.3f} ms "
             f"({big['traces_per_s']:.1f} traces/s; bilstm_fwd_train "

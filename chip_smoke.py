@@ -135,9 +135,11 @@ Phases, one line each or more (a failed check raises; nothing is caught):
 24. the ops-level LSTM path: ``ops/rnn.py`` ``lstm_recurrence(use_kernel=
     True)`` forward and backward at (32, 500, 64) in f32 and in bf16, its
     launches and its values and gradients against the plain loop;
-25. split BPTT check: ``bigru_bwd_split`` (#10) against its plain version
-    and against ``bigru_bwd`` (#6; in float32 the same function up to sum
-    order) at the phase 12 shapes, with each launch's plan;
+25. split BPTT check: ``bigru_bwd_split`` (#10, on #6's route) against its
+    plain version and against ``bigru_bwd`` (#6; in float32 the same
+    function up to sum order) at the phase 12 shapes and ``SPLIT_SHAPES``
+    (a shape for each kernel of the route), each launch's kernel asserted
+    #6's, a second launch bit-equal, with each launch's plan;
 26. fused layer check: ``bigru_layer`` under grad (its backward the fused
     kernel #9) at (3, 53, 16, 24) f32, (2, 40, 16, 16) bf16,
     (16, 1000, 256, 512) bf16 and (5, 97, 32, 40) bf16 (samples, D and 3H
@@ -150,7 +152,9 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     #6 at #9's plan and their difference (what the chunks' products cost),
     its plain version once, its bound;
 28. the tool (#10's path): ``room_slam_torch.tools.bench_bigru_bwd`` at the
-    scale-up shape, ``--tiles auto --reps 5``, its rows;
+    scale-up shape, ``--tiles auto --reps 5`` (the plans of the route's
+    kernel), its rows; then #10 on the route, #10's first design and #6 in
+    turns at ``SPLIT_SHAPES`` beside cuDNN and the bound;
 29. the six LSTM kernels in bf16 against their plain versions (values, BPTT
     on the unit kernel and under every plan, and the Functions'
     gradients) at phase 3's shapes, and their timing against ``nn.LSTM``
@@ -417,6 +421,12 @@ SCALEUP_SETS = ("model.model_type=bigru", "model.d_model=512",
                 "data.max_colliders=32")
 GRU_SHAPES = ((SCALEUP, torch.bfloat16), ((16, 5000, 256), torch.float32),
               ((5, 43, 16), torch.float32), ((5, 43, 16), torch.bfloat16))
+# phases 25 and 28: #10 on each kernel of #6's route (tc, unit, reg in bf16
+# and f32, pipe), checked and timed beside #10's first design and #6
+SPLIT_SHAPES = ((SCALEUP, torch.bfloat16), ((20, 1500, 64), torch.bfloat16),
+                ((32, 500, 255), torch.bfloat16),
+                ((32, 500, 255), torch.float32),
+                ((32, 500, 512), torch.bfloat16))
 # the tensor-core kernels' edges (bf16, both directions): a batch off the
 # 16-row tiles, a narrow H the route takes (8-unit warps at C = 4 and 8;
 # not H=64, which the route sends to the unit kernels) and the served
@@ -535,7 +545,7 @@ STREAM_SERVE_CALLS = 10
 # each REG_STEPS after REG_WARMUP, on the register kernels and on the first
 # cluster design in turns (new, first, first, new)
 REG_WIDTHS = (65, 128, 139, 201, 255, 256)
-REG_BATCHES = (1, 5, 17, 32)
+REG_BATCHES = (1, 17)
 REG_N = 24
 REG_TIME = {(32, 500, 255): ("bigru_fwd", "bigru_fwd_train", "bigru_bwd",
                              "gru_fwd", "gru_fwd_train", "gru_bwd"),
@@ -681,9 +691,17 @@ NO_SPILL = ("bigru_fwd_tc", "bigru_bwd_tc", "bigru_bwd_fused_bf16",
 # The LSTM forward register kernel's instances with 12 k a lane (H <= 96)
 # that spilled nothing when they were added: the 1- and 2-row tiles and the
 # light 4-row tiles (the training 4-row tiles spilled 4 and 8 bytes).
+# #10's instances (kSplitCoef, the last template flag true) that spilled
+# nothing when they were added, each as #6's of the same tile: the unit
+# kernels, the register BPTT's 1-row tiles, the pipe BPTT's narrow blocks
+# and its wide ones of 1, 2 and 4 rows (the tensor-core ones: NO_SPILL).
 NO_SPILL_PARTS = {"bigru_fwd_reg": ("IfLb0E", "Li1EE", "Li2EE",
                                     "Lb0ELi4EE"),
-                  "bigru_bwd_reg": ("Li1EE",),
+                  "bigru_bwd_reg": ("Li1ELb0EE", "Li1ELb1EE"),
+                  "gru_bwd_unit_f32": ("Lb1EE",),
+                  "gru_bwd_unit_bf16": ("Lb1EE",),
+                  "bigru_bwd_pipe": ("Lb0ELb1EE", "Li1ELb1ELb1EE",
+                                     "Li2ELb1ELb1EE", "Li4ELb1ELb1EE"),
                   "bilstm_fwd_reg": ("Li1ELi12EE", "Li2ELi12EE",
                                      "Lb0ELi4ELi12EE")}
 
@@ -2373,8 +2391,9 @@ def bwd_errs(got, ref):
 
 def check_tool_plans(args, ref, plans):
     """At the scale-up shape: #10 and #6 under each plan the tool sweeps
-    (``--tiles auto``) against their plain versions (``ref``: #10's; #6's
-    is computed here), max-rel at the bf16 bound."""
+    (``--tiles auto``: the plans of the route's kernel) against their plain
+    versions (``ref``: #10's; #6's is computed here), max-rel at the bf16
+    bound."""
     ref6 = gru_cuda.bigru_bwd_plain(*args)
     for p in plans:
         for name, fn, want in (
@@ -2382,7 +2401,7 @@ def check_tool_plans(args, ref, plans):
                 ("bigru_bwd", gru_cuda.bigru_bwd_cuda, ref6)):
             err, rel = bwd_errs(fn(*args, plan=p), want)
             log("split_check",
-                f"B,N,H={SCALEUP} bfloat16, the tool's plan {p[0]}x{p[1]}: "
+                f"B,N,H={SCALEUP} bfloat16, the tool's plan {plan_key(p)}: "
                 f"{name} vs plain max_abs_err={err:.3e} max_rel_err="
                 f"{rel:.3e} tol {BF16_GRAD_REL:g}; launch "
                 f"{plan_text(fn)}")
@@ -2390,23 +2409,25 @@ def check_tool_plans(args, ref, plans):
 
 
 def check_split(dev, seed):
-    """Phase 25: ``bigru_bwd_split`` (#10) against its plain version and
-    against #6 at the BiGRU check shapes, each launch's plan printed, and
-    at the scale-up shape both under every plan the tool sweeps; returns
-    errors by shape and dtype, the plain version's ms at the scale-up shape
-    and the plans checked there."""
-    errs, plain_ms = {}, None
-    plans = gru_cuda.card_plans("bwd", SCALEUP[0], SCALEUP[2], dev,
-                                torch.bfloat16)[:6]
-    for shape, dtype in GRU_SHAPES:
+    """Phase 25: ``bigru_bwd_split`` (#10) on #6's route against its plain
+    version and against #6 at the BiGRU check shapes and ``SPLIT_SHAPES``
+    (a shape for each kernel of the route), each launch's kernel asserted
+    #6's and its plan printed, a second launch bit-equal, and at the
+    scale-up shape both under every plan the tool sweeps; returns errors
+    and the plain version's ms by shape and dtype, and the plans checked at
+    the scale-up shape."""
+    errs, plain_ms = {}, {}
+    plans = gru_cuda.card_bwd_plans(SCALEUP[0], SCALEUP[2], dev,
+                                    torch.bfloat16)[1][:6]
+    for shape, dtype in dict.fromkeys((*GRU_SHAPES, *SPLIT_SHAPES)):
         args = gru_bwd_inputs(gru_inputs(*shape, dtype, dev, seed), seed + 1)
         got = gru_cuda.bigru_bwd_split_cuda(*args)
+        same = all(torch.equal(a, b) for a, b in zip(
+            got, gru_cuda.bigru_bwd_split_cuda(*args)))
         plan = plan_text(gru_cuda.bigru_bwd_split_cuda)
-        if shape == SCALEUP:
-            ref, plain_ms = timed_once(
-                lambda: gru_cuda.bigru_bwd_split_plain(*args))
-        else:
-            ref = gru_cuda.bigru_bwd_split_plain(*args)
+        kernel = gru_cuda.bigru_bwd_split_cuda.last_launch["kernel"]
+        ref, plain_ms[(shape, dtype)] = timed_once(
+            lambda: gru_cuda.bigru_bwd_split_plain(*args))
         err, rel = bwd_errs(got, ref)
         if dtype == torch.bfloat16:
             value_err(got, ref, dtype)
@@ -2414,17 +2435,20 @@ def check_split(dev, seed):
             check_tool_plans(args, ref, plans)
         del ref
         vs6, vs6_rel = bwd_errs(got, gru_cuda.bigru_bwd_cuda(*args))
+        kernel6 = gru_cuda.bigru_bwd_cuda.last_launch["kernel"]
         rel_tol = GRAD_REL if dtype == torch.float32 else BF16_GRAD_REL
         errs[(shape, dtype)] = {"abs": err, "rel": rel, "vs6_abs": vs6}
         log("split_check",
             f"B,N,H={shape} {str(dtype)[6:]}: bigru_bwd_split (dx, dhn) vs "
             f"plain max_abs_err={err:.3e} max_rel_err={rel:.3e} tol "
-            f"{rel_tol:g}; vs bigru_bwd (#6) max_abs_diff={vs6:.3e} "
-            f"max_rel_diff={vs6_rel:.3e}"
+            f"{rel_tol:g}; vs bigru_bwd (#6, {kernel6} kernel) "
+            f"max_abs_diff={vs6:.3e} max_rel_diff={vs6_rel:.3e}"
             + (f" tol {KERNEL_ATOL:.0e}" if dtype == torch.float32 else
                " (the coefficients' bf16 rounding differs)")
-            + f"; launch {plan}")
+            + f"; twice bit-equal={same}; launch {plan}")
         assert rel <= rel_tol, (shape, rel)
+        assert kernel == kernel6, (shape, kernel, kernel6)
+        assert same, shape
         if dtype == torch.float32:
             assert vs6 <= KERNEL_ATOL, (shape, vs6)
     return errs, plain_ms, plans
@@ -2586,8 +2610,8 @@ def fused_ab(dev, seed, smi, lib_ms):
 def run_bench_tool(dev, smi, checked):
     """Phase 28: ``room_slam_torch.tools.bench_bigru_bwd`` at the scale-up
     shape, ``--tiles auto --reps 5``; #6 and #10 launch in it (#10's path:
-    its launches are counted around it), at the plans phase 25 checked
-    (``checked``)."""
+    its launches are counted around it), on the route's kernel at the
+    plans phase 25 checked (``checked``)."""
     from room_slam_torch.tools import bench_bigru_bwd
 
     reset_counts()
@@ -2602,13 +2626,76 @@ def run_bench_tool(dev, smi, checked):
     launched = gru_cuda.bigru_bwd_split_cuda.launches
     assert launched > 0 and counts()["bigru_bwd"] > 0, launched
     assert result["config"]["platform"] == "gpu"
-    assert result["config"]["tiles"] == [f"{c}x{r}" for c, r in checked], \
-        (result["config"]["tiles"], checked)
+    assert result["config"]["plans"] == [list(p) for p in checked], \
+        (result["config"]["plans"], checked)
+    assert result["config"]["kernel"] == checked[0][0], result["config"]
     log("bench_tool", f"bench_bigru_bwd in {time.perf_counter() - t0:.1f} s "
         f"on {smi}: launches bigru_bwd {counts()['bigru_bwd']}, "
         f"bigru_bwd_split {launched}; rows " + json.dumps(
             result["measured_ms"]))
     return result, launched
+
+
+def time_split_route(dev, seed, smi, errs, plain_ms):
+    """Phase 28, after the tool: at each of ``SPLIT_SHAPES`` #10 on the
+    route, #10's first design (the split kind of the first cluster kernel
+    at its planner's pick, where one fits) and #6 on the route, in turns
+    (route, first, #6, #6, first, route; CUDA events), beside cuDNN's
+    bidirectional backward (fp16 for bf16 streams; forward + backward
+    minus forward) and the bound; #10's launches on the route are counted
+    by shape. ``errs`` and ``plain_ms``: phase 25's, by shape and dtype."""
+    rows = []
+    for shape, dtype in SPLIT_SHAPES:
+        B, N, H = shape
+        args = gru_bwd_inputs(gru_inputs(*shape, dtype, dev, seed), seed + 1)
+        iters = 3 if B * N >= 100000 else 10
+        first = gru_cuda.card_plans("split", B, H, dev, dtype)
+        fns = {"route": lambda: gru_cuda.bigru_bwd_split_cuda(*args),
+               "bwd": lambda: gru_cuda.bigru_bwd_cuda(*args)}
+        if first:
+            fns["first"] = lambda: gru_cuda.bigru_bwd_split_cuda(
+                *args, plan=("cluster", *first[0]))
+        ms = {k: [] for k in fns}
+        launches = 0
+        for key in ("route", "first", "bwd", "bwd", "first", "route"):
+            if key not in fns:
+                continue
+            before = gru_cuda.bigru_bwd_split_cuda.launches
+            ms[key].append(cuda_ms(fns[key], iters))
+            if key == "route":
+                launches += gru_cuda.bigru_bwd_split_cuda.launches - before
+                launch = dict(gru_cuda.bigru_bwd_split_cuda.last_launch)
+        lib = _library_ms(torch.nn.GRU, B, N, H, dtype, dev, seed,
+                          (2,))["bigru_bwd"]
+        b = gru_bound("bwd", B, N, H, dtype)
+        kernel_ms = float(np.mean(ms["route"]))
+        row = {"shape": list(shape), "dtype": str(dtype)[6:],
+               "kernel": launch["kernel"], "kernel_ms": kernel_ms,
+               "route_ms": ms["route"], "bwd_ms": ms["bwd"],
+               "first_ms": ms.get("first"),
+               "first_plan": list(first[0]) if first else None,
+               "plain_ms": plain_ms[(shape, dtype)], "library_ms": lib,
+               "bound_us": b[0] * 1e3, "bound_by": b[1],
+               "us_per_step": kernel_ms / N * 1e3,
+               "err": errs[(shape, dtype)]["abs"],
+               "max_rel_err": errs[(shape, dtype)]["rel"],
+               "launch": launch, "launches": launches}
+        log("split_route", json.dumps(row) + f" on {smi}  (library_ms: "
+            "cuDNN's bidirectional nn.GRU, fp16 for bf16 streams, forward "
+            "+ backward minus forward)")
+        bwd_ms = float(np.mean(ms["bwd"]))
+        first_ms = float(np.mean(ms["first"])) if first else None
+        log("split_route",
+            f"B,N,H={shape} {row['dtype']}: #10 on the {launch['kernel']} "
+            f"kernel {kernel_ms:.3f} ms, #6 {bwd_ms:.3f} (#10 / #6 "
+            f"{kernel_ms / bwd_ms:.3f}), #10's first design "
+            + (f"{first_ms:.3f} ({first_ms / kernel_ms:.2f}x the route)"
+               if first else "takes no plan")
+            + f", cuDNN {lib:.3f}, bound {b[0]:.4f} ({b[1]})")
+        assert launch["kernel"] == gru_cuda.bigru_bwd_cuda.last_launch[
+            "kernel"], (shape, launch)
+        rows.append(row)
+    return rows
 
 
 LSTM_BF16_NAMES = ("bilstm_fwd", "bilstm_fwd_train", "bilstm_bwd",
@@ -6488,6 +6575,8 @@ def main() -> int:
     ab_row, fused_launched = fused_ab(dev, args.seed, smi,
                                       gru_rows["bigru_bwd"]["library_ms"])
     tool, split_launched = run_bench_tool(dev, smi, split_plans)
+    split_rows = time_split_route(dev, args.seed, smi, split_errs,
+                                  split_plain_ms)
     lstm_bf16_errs = check_lstm_bf16(dev, args.seed)
     lstm_bf16_rows = time_lstm_bf16(dev, args.seed, lstm_bf16_errs)
     bf16_launched = flagship_bf16_path(dev, args.seed, smi)
@@ -6620,9 +6709,9 @@ def main() -> int:
     pick = tool["config"]["tiles"][0]
     b = gru_bound("bwd", *SCALEUP, torch.bfloat16)
     split_row = {"shape": list(SCALEUP), "dtype": "bfloat16",
-                 "plan": pick,
+                 "plan": pick, "kernel": tool["config"]["kernel"],
                  "kernel_ms": tool["measured_ms"][f"bwd_split@{pick}_ms"],
-                 "plain_ms": split_plain_ms,
+                 "plain_ms": split_plain_ms[(SCALEUP, torch.bfloat16)],
                  "library_ms": gru_rows["bigru_bwd"]["library_ms"],
                  "bound_us": b[0] * 1e3, "bound_by": b[1],
                  "err": split_errs[(SCALEUP, torch.bfloat16)]["abs"]}
@@ -6631,7 +6720,7 @@ def main() -> int:
                  "room_slam_tpu/tools/bench_bigru_bwd.py:127",
                  split_launched, split_row),
          "max_rel_err": split_errs[(SCALEUP, torch.bfloat16)]["rel"],
-         "shapes": [split_row]},
+         "shapes": [split_row, *split_rows]},
         {**entry("bigru_bwd_fused", "room_slam_torch/csrc/bigru_bwd.cu",
                  "room_slam_tpu/ops/gru_pallas.py:646", fused_launched,
                  ab_row),

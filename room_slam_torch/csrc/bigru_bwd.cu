@@ -14,8 +14,10 @@
 //   (gru_bwd_unit_kernel, below), above it kLinear with a grid of one
 //   direction;
 // - room_slam_tpu/tools/bench_bigru_bwd.py::_bwd_kernel_split (:127,
-//   pallas_call :198, a closure of the micro-benchmark's main()): the split
-//   kind (kSplit);
+//   pallas_call :198, a closure of the micro-benchmark's main()): #6's
+//   kernels with the kSplitCoef switch (the tensor-core and unit kernels
+//   here, bigru_bwd_reg.cu, bigru_pipe.cu); its first design, the split
+//   kind (kSplit) of the cluster kernel, by a forced plan;
 // - gru_pallas.py::_bigru_bwd_fused_kernel (:646, pallas_call :784,
 //   launched through _bigru_bwd_fused_pallas from _bigru_layer_core_bwd,
 //   reached by bigru_layer_pallas): the fused layer VJP (kFused).
@@ -38,7 +40,7 @@
 //   dh_carry = dh_t * z + T([dx_r, dx_z, dhn]) @ T(W_hh)^T   (f32 sums, two
 //              interleaved partial sums over the whole 3H)
 //
-// kSplit, from the gates without pre-rounded coefficients
+// kSplit (#10), from the gates without pre-rounded coefficients
 // (bench_bigru_bwd.py:140-159):
 //
 //   dn_pre = dh_t (1 - z)(1 - n^2),  dr_pre = dn_pre hn r (1 - r)
@@ -197,9 +199,40 @@
 // both grids, bf16 with one direction and bf16 with two where no
 // tensor-core plan fits; at (32, 500, 255) f32 it took a step from
 // kLinear's 13.6 us to about 3.4 (chip_smoke.py phase 41, PERF.md section
-// 6). kLinear stays the body of #9 (kFused),
-// #10 (kSplit) and the stream kernel, and is reached for the A/B by a
-// forced ("cluster", C, R) plan.
+// 6). kLinear stays the body of #9 (kFused), of #10's first design
+// (kSplit) and of the stream kernel, and is reached for the A/B by a forced
+// ("cluster", C, R) plan.
+//
+// #10 on #6's route (the second design of kSplit). What held it back: the
+// first cluster design, its only kernel until then, 15.0-16.1 us a step at
+// the scale-up shape (75.0-80.4 ms; NVIDIA H100 80GB HBM3, 700.00 W, PERF.md
+// section 6): each thread a serial 768-deep chain of shared loads and f32
+// FMAs in three gate loops, float4 pushes of f32 dg into every block and a
+// full cluster.sync() a step, the design #6 left for the tensor-core
+// chain. What the design does: #10 is a compile-time switch (kSplitCoef)
+// of the coefficient step in each of #6's second-design kernels, whose
+// chain, exchange, plan rule and launch it keeps: the tensor-core chain
+// (bigru_bwd_split_tc_bf16), the unit kernel (bigru_bwd_split_unit_*),
+// the register cluster kernel (bigru_bwd_reg.cu, bigru_bwd_split_reg_*)
+// and the pipe kernel (bigru_pipe.cu, bigru_bwd_split_pipe_*). The wrapper
+// routes and plans #10 as #6 (gru_bwd_kernel_route, the same planners and
+// cluster counts: each instance pair has the same threads and shared
+// memory). With the switch on, a cell forms dn_pre, dz_pre, dr_pre and dhn
+// from its gates unrounded and sends T(dr_pre), T(dz_pre), T(dhn) as #6
+// sends its dg. The carry's sum order is the kernel's own: the tensor-core
+// chain sums per gate block, ((dh_t z + acc_r) + acc_z) + acc_n, #10's
+// order; the unit kernel adds its lanes' 3H-deep sum (gates interleaved),
+// dy + (dh_t z + sum); the register and pipe kernels add the C blocks'
+// partials over their own gate columns in rank order, dy + (partials +
+// dh_t z). Above H = 1024, where #6 takes the stream kernel, #10 has no
+// kernel: it stays on its first design, which no cluster plan fits there,
+// so the wrapper raises naming the width. What bounds it now: #6's bounds
+// (see each kernel's notes). Measured on an H100 (NVIDIA H100 80GB HBM3,
+// 700.00 W; chip_smoke.py phase 28, PERF.md section 6): 13.5-13.9 ms at
+// the scale-up shape (2.7-2.8 us a step) beside #6's 14.0-14.2, 5.4x under
+// the first design and 14.5% of the 1.96 ms bound: the tile's exchange
+// bounds it as it bounds #6; 0.847 ms at (20, 1500, 64) bf16 on the unit
+// kernel (#6 0.849, the first design 7.67).
 //
 // The stream kernel (kStream), for #6 and #8 alike, the first design above
 // the cluster widths: the route above H = 1024 (to 2421), below it reached
@@ -1235,7 +1268,9 @@ __device__ __forceinline__ float reduce_lanes(const float (&v)[R], int lane) {
 // top). Same function, rounding points and outputs as kLinear with a grid
 // of one direction: dx [B, N, 3H] and dhn [B, N, H] from the gates gs, hn,
 // ys and dy; rev != 0 for a direction whose forward walked t = N-1 .. 0.
-template <typename T, int R>
+// kSplitCoef: #10's coefficient step (kSplit's function); the carry keeps
+// this kernel's sum order, dy + (dh_t z + the lanes' 3H-deep sum).
+template <typename T, int R, bool kSplitCoef>
 __global__ void __launch_bounds__(kUnitThreads)
 gru_bwd_unit_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
                     const T* __restrict__ gs_f, const T* __restrict__ hn_f,
@@ -1347,13 +1382,20 @@ gru_bwd_unit_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
     const float dh_t = v[5] + (dhz + reduce_lanes<R>(acc, lane));
 
     const float r = v[0], z = v[1], n = v[2], hn = v[3], hp = v[4];
-    const float a = (1.0f - z) * (1.0f - n * n);
-    const float c_r = round_to<T>(a * hn * r * (1.0f - r));
-    const float c_z = round_to<T>((hp - n) * z * (1.0f - z));
-    const float c_n = round_to<T>(a);
-    const float dxr = dh_t * c_r;
-    const float dxz = dh_t * c_z;
-    const float dxn = dh_t * c_n;
+    float dxr, dxz, dxn;
+    if constexpr (kSplitCoef) {
+      dxn = dh_t * (1.0f - z) * (1.0f - n * n);
+      dxz = dh_t * (hp - n) * z * (1.0f - z);
+      dxr = dxn * hn * r * (1.0f - r);
+    } else {
+      const float a = (1.0f - z) * (1.0f - n * n);
+      const float c_r = round_to<T>(a * hn * r * (1.0f - r));
+      const float c_z = round_to<T>((hp - n) * z * (1.0f - z));
+      const float c_n = round_to<T>(a);
+      dxr = dh_t * c_r;
+      dxz = dh_t * c_z;
+      dxn = dh_t * c_n;
+    }
     const float dhn_t = dxn * r;
     dhz = dh_t * z;
     if (lane < R && unit_valid) {
@@ -1391,16 +1433,19 @@ bool valid_unit_plan(int B, int N, int H, int R) {
          (R == 1 || R == 2 || R == 4);
 }
 
+// kLinear's instances (#10's have the same threads and shared memory)
 template <typename T>
 const void* unit_kernel(int R) {
-  if (R == 1) return reinterpret_cast<const void*>(gru_bwd_unit_kernel<T, 1>);
-  if (R == 2) return reinterpret_cast<const void*>(gru_bwd_unit_kernel<T, 2>);
-  return reinterpret_cast<const void*>(gru_bwd_unit_kernel<T, 4>);
+  if (R == 1)
+    return reinterpret_cast<const void*>(gru_bwd_unit_kernel<T, 1, false>);
+  if (R == 2)
+    return reinterpret_cast<const void*>(gru_bwd_unit_kernel<T, 2, false>);
+  return reinterpret_cast<const void*>(gru_bwd_unit_kernel<T, 4, false>);
 }
 
 // A grid of `dirs` directions (2: both of a BiGRU layer, y = 1 the
 // backward-in-time one; 1: the direction rev says).
-template <typename T>
+template <typename T, bool kSplitCoef>
 int launch_unit(const void* w_f, const void* w_b, const void* gs_f,
                 const void* hn_f, const void* ys_f, const void* dy_f,
                 const void* gs_b, const void* hn_b, const void* ys_b,
@@ -1414,9 +1459,9 @@ int launch_unit(const void* w_f, const void* w_b, const void* gs_f,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto in = [](const void* p) { return static_cast<const T*>(p); };
   auto out = [](void* p) { return static_cast<T*>(p); };
-  auto* kernel = R == 1   ? gru_bwd_unit_kernel<T, 1>
-                 : R == 2 ? gru_bwd_unit_kernel<T, 2>
-                          : gru_bwd_unit_kernel<T, 4>;
+  auto* kernel = R == 1   ? gru_bwd_unit_kernel<T, 1, kSplitCoef>
+                 : R == 2 ? gru_bwd_unit_kernel<T, 2, kSplitCoef>
+                          : gru_bwd_unit_kernel<T, 4, kSplitCoef>;
   kernel<<<grid, threads, 0, st>>>(
       in(w_f), in(w_b), in(gs_f), in(hn_f), in(ys_f), in(dy_f), in(gs_b),
       in(hn_b), in(ys_b), in(dy_b), out(dx_f), out(dhn_f), out(dx_b),
@@ -1550,8 +1595,9 @@ constexpr int kTcOutStreams = 4;   // dx_r, dx_z, dx_n, dhn
 // 16 * kMT rows, U / 8 warps a block, each warp the dh of 8 units. Same
 // function, rounding points and outputs as bigru_bwd_kernel<bf16, kLinear>;
 // the carry's product is summed per gate block, ((dh_t z + acc_r) + acc_z)
-// + acc_n.
-template <int kMT>
+// + acc_n. kSplitCoef: #10's coefficient step (kSplit's function, from the
+// gates unrounded), the same chain, exchange and plan.
+template <int kMT, bool kSplitCoef>
 __global__ void __launch_bounds__(kTcMaxThreads, 1)
 bigru_bwd_tc_kernel(const bf16* __restrict__ w_f, const bf16* __restrict__ w_b,
                     const bf16* __restrict__ gs_f, const bf16* __restrict__ hn_f,
@@ -1752,13 +1798,19 @@ bigru_bwd_tc_kernel(const bf16* __restrict__ w_f, const bf16* __restrict__ w_b,
           const float dh_t =
               dy + (((dhz[mt][hr][e] + acc[0][mt][i]) + acc[1][mt][i]) +
                     acc[2][mt][i]);
-          const float a = (1.0f - z) * (1.0f - n * n);
-          const float c_r = round_to<bf16>(a * hn * r * (1.0f - r));
-          const float c_z = round_to<bf16>((hp - n) * z * (1.0f - z));
-          const float c_n = round_to<bf16>(a);
-          vr[e] = dh_t * c_r;
-          vz[e] = dh_t * c_z;
-          vn[e] = dh_t * c_n;
+          if constexpr (kSplitCoef) {
+            vn[e] = dh_t * (1.0f - z) * (1.0f - n * n);
+            vz[e] = dh_t * (hp - n) * z * (1.0f - z);
+            vr[e] = vn[e] * hn * r * (1.0f - r);
+          } else {
+            const float a = (1.0f - z) * (1.0f - n * n);
+            const float c_r = round_to<bf16>(a * hn * r * (1.0f - r));
+            const float c_z = round_to<bf16>((hp - n) * z * (1.0f - z));
+            const float c_n = round_to<bf16>(a);
+            vr[e] = dh_t * c_r;
+            vz[e] = dh_t * c_z;
+            vn[e] = dh_t * c_n;
+          }
           vhn[e] = vn[e] * r;
           dhz[mt][hr][e] = dh_t * z;
         }
@@ -1833,7 +1885,7 @@ bool valid_tc_plan(int B, int N, int H, int C, int R) {
          (R == 16 || R == 32);
 }
 
-template <int kMT>
+template <int kMT, bool kSplitCoef>
 cudaError_t allow_tc_smem(int smem) {
   static std::atomic<int> allowed[kMaxDevices];
   int device = 0;
@@ -1841,7 +1893,7 @@ cudaError_t allow_tc_smem(int smem) {
   if (err != cudaSuccess) return err;
   if (device < kMaxDevices && allowed[device].load() >= smem)
     return cudaSuccess;
-  err = cudaFuncSetAttribute(bigru_bwd_tc_kernel<kMT>,
+  err = cudaFuncSetAttribute(bigru_bwd_tc_kernel<kMT, kSplitCoef>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && device < kMaxDevices) allowed[device].store(smem);
   return err;
@@ -1863,7 +1915,7 @@ void make_tc_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
   cfg->numAttrs = 1;
 }
 
-template <int kMT>
+template <int kMT, bool kSplitCoef>
 int launch_tc_as(const void* w_f, const void* w_b, const void* gs_f,
                  const void* hn_f, const void* ys_f, const void* dy_f,
                  const void* gs_b, const void* hn_b, const void* ys_b,
@@ -1871,14 +1923,15 @@ int launch_tc_as(const void* w_f, const void* w_b, const void* gs_f,
                  void* dhn_b, int B, int N, int H, int C, void* stream) {
   constexpr int R = 16 * kMT;
   const size_t smem = tc_smem_bytes(H, C, R);
-  cudaError_t err = allow_tc_smem<kMT>(static_cast<int>(smem));
+  cudaError_t err = allow_tc_smem<kMT, kSplitCoef>(static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   make_tc_config(&cfg, &attr, C * ((B + R - 1) / R), 2, H, C, smem, stream);
   auto in = [](const void* p) { return static_cast<const bf16*>(p); };
   auto out = [](void* p) { return static_cast<bf16*>(p); };
-  err = cudaLaunchKernelEx(&cfg, bigru_bwd_tc_kernel<kMT>, in(w_f), in(w_b),
+  err = cudaLaunchKernelEx(&cfg, bigru_bwd_tc_kernel<kMT, kSplitCoef>,
+                           in(w_f), in(w_b),
                            in(gs_f), in(hn_f), in(ys_f), in(dy_f), in(gs_b),
                            in(hn_b), in(ys_b), in(dy_b), out(dx_f),
                            out(dhn_f), out(dx_b), out(dhn_b), B, N, H);
@@ -1889,13 +1942,14 @@ int launch_tc_as(const void* w_f, const void* w_b, const void* gs_f,
 template <int kMT>
 int tc_max_active_clusters_as(int H, int C) {
   const size_t smem = tc_smem_bytes(H, C, 16 * kMT);
-  cudaError_t err = allow_tc_smem<kMT>(static_cast<int>(smem));
+  cudaError_t err = allow_tc_smem<kMT, false>(static_cast<int>(smem));
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   make_tc_config(&cfg, &attr, C, 1, H, C, smem, nullptr);
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, bigru_bwd_tc_kernel<kMT>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, bigru_bwd_tc_kernel<kMT, false>,
+                                       &cfg);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
@@ -2100,13 +2154,32 @@ int bigru_bwd_tc_bf16(const void* w_f, const void* w_b, const void* gs_f,
                       void* stream) {
   if (!valid_tc_plan(B, N, H, C, R))
     return static_cast<int>(cudaErrorInvalidValue);
-  return (R == 16 ? launch_tc_as<1> : launch_tc_as<2>)(
+  return (R == 16 ? launch_tc_as<1, false> : launch_tc_as<2, false>)(
+      w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b, dy_b, dx_f, dhn_f,
+      dx_b, dhn_b, B, N, H, C, stream);
+}
+
+// #10 (kSplit's function) on the tensor-core BPTT: arguments, outputs and
+// plans as bigru_bwd_tc_bf16, whose layout (bigru_bwd_tc_layout) and
+// cluster counts hold for it.
+int bigru_bwd_split_tc_bf16(const void* w_f, const void* w_b,
+                            const void* gs_f, const void* hn_f,
+                            const void* ys_f, const void* dy_f,
+                            const void* gs_b, const void* hn_b,
+                            const void* ys_b, const void* dy_b, void* dx_f,
+                            void* dhn_f, void* dx_b, void* dhn_b, int B,
+                            int N, int H, int C, int R, void* stream) {
+  if (!valid_tc_plan(B, N, H, C, R))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return (R == 16 ? launch_tc_as<1, true> : launch_tc_as<2, true>)(
       w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b, dy_b, dx_f, dhn_f,
       dx_b, dhn_b, B, N, H, C, stream);
 }
 
 // How many clusters of the tensor-core BPTT at hidden size H, cluster size
-// C and tile R the current device runs at once; a negative cudaError_t code
+// C and tile R the current device runs at once (kLinear's instance; #10's
+// kSplitCoef instance has the same threads and shared memory, and the
+// wrapper plans both from this count); a negative cudaError_t code
 // on failure. `save` is taken for the forward source's signature of this
 // query and ignored.
 int bigru_bwd_tc_max_active_clusters(int save, int H, int C, int R) {
@@ -2218,8 +2291,9 @@ int bigru_bwd_stream_smem_bytes(int H, int C, int R) {
 
 // The unit kernel (H <= 64), batch tiles of R rows (1, 2 or 4): both
 // directions of a BiGRU layer (bigru_bwd_unit_*: arguments and outputs as
-// bigru_bwd_* without the cluster size) or one direction of a GRU
-// (gru_bwd_unit_*: as gru_bwd_*).
+// bigru_bwd_* without the cluster size; bigru_bwd_split_unit_*: #10, the
+// same with kSplit's function) or one direction of a GRU (gru_bwd_unit_*:
+// as gru_bwd_*).
 #define GRU_BWD_UNIT_ENTRIES(SFX, TYPE)                                       \
   int bigru_bwd_unit_##SFX(const void* w_f, const void* w_b,                 \
                            const void* gs_f, const void* hn_f,               \
@@ -2228,16 +2302,27 @@ int bigru_bwd_stream_smem_bytes(int H, int C, int R) {
                            const void* ys_b, const void* dy_b, void* dx_f,   \
                            void* dhn_f, void* dx_b, void* dhn_b, int B,      \
                            int N, int H, int R, void* stream) {              \
-    return launch_unit<TYPE>(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b,   \
-                             ys_b, dy_b, dx_f, dhn_f, dx_b, dhn_b, B, N, H,  \
-                             R, 2, 0, stream);                               \
+    return launch_unit<TYPE, false>(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b,  \
+                                    hn_b, ys_b, dy_b, dx_f, dhn_f, dx_b,     \
+                                    dhn_b, B, N, H, R, 2, 0, stream);        \
+  }                                                                          \
+  int bigru_bwd_split_unit_##SFX(                                            \
+      const void* w_f, const void* w_b, const void* gs_f, const void* hn_f,  \
+      const void* ys_f, const void* dy_f, const void* gs_b,                  \
+      const void* hn_b, const void* ys_b, const void* dy_b, void* dx_f,      \
+      void* dhn_f, void* dx_b, void* dhn_b, int B, int N, int H, int R,      \
+      void* stream) {                                                        \
+    return launch_unit<TYPE, true>(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b,   \
+                                   hn_b, ys_b, dy_b, dx_f, dhn_f, dx_b,      \
+                                   dhn_b, B, N, H, R, 2, 0, stream);         \
   }                                                                          \
   int gru_bwd_unit_##SFX(const void* w, const void* gs, const void* hn,      \
                          const void* ys, const void* dy, void* dx,           \
                          void* dhn, int B, int N, int H, int R, int reverse, \
                          void* stream) {                                     \
-    return launch_unit<TYPE>(w, w, gs, hn, ys, dy, gs, hn, ys, dy, dx, dhn,  \
-                             dx, dhn, B, N, H, R, 1, reverse, stream);       \
+    return launch_unit<TYPE, false>(w, w, gs, hn, ys, dy, gs, hn, ys, dy,    \
+                                    dx, dhn, dx, dhn, B, N, H, R, 1,         \
+                                    reverse, stream);                        \
   }
 
 GRU_BWD_UNIT_ENTRIES(f32, float)

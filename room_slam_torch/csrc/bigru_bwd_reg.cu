@@ -23,6 +23,21 @@
 // The forward direction walks t = N-1 .. 0; the backward-in-time direction
 // (and a one-direction GRU run with reverse) t = 0 .. N-1.
 //
+// With kSplitCoef (bigru_bwd_split_reg_*, #10: room_slam_tpu/tools/
+// bench_bigru_bwd.py::_bwd_kernel_split, :127, pallas_call :198, at these
+// widths on #6's route) a cell forms bigru_bwd.cu's kSplit function
+// instead, from its gates unrounded: dn = dh_t (1 - z)(1 - n^2), dz = dh_t
+// (h_prev - n) z (1 - z), dr = dn hn r (1 - r), dhn = dn r, and sends
+// T([dr, dz, dhn]). The carry keeps this kernel's order, the C blocks'
+// partials (each over the block's 3U gate columns, the gates interleaved)
+// in rank order, then dh_t z: no three per-gate sums, which would cost
+// 4R more registers a thread. #10 is planned and launched as #6; its
+// first design (bigru_bwd.cu's kSplit cluster kernel, which held it back:
+// 5.4 / 6.1 ms at (32, 500, 255) f32 / bf16) stays reachable by a forced
+// cluster plan. On an H100 (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py
+// phase 28) #10 takes 1.714 / 1.710 ms there beside #6's 1.707 / 1.724:
+// what bounds #6 below bounds it.
+//
 // What bounds it on an H100. At (32, 500, 255) f32, two directions, it
 // reads 3H + H + H + H and writes 3H + H values per (row, step) and
 // direction (163 MB, 49 us at 3.35 TB/s) and does 12.5 GFLOP for the
@@ -252,8 +267,10 @@ __device__ __forceinline__ void st_async8(uint32_t dst, float a, float b,
 // top. Thread t holds W_hh[k0 + i, column of jl * 24 + jj] (i < 2, jj < 24)
 // of the block's 3U gate columns (column jb: gate jb / U of unit rank * U +
 // jb % U), k0 = 2 * (t / JL), jl = t % JL, JL = U / 8; thread t < U * R
-// also owns the cell (unit t / R, row t % R) of the block.
-template <typename T, int R>
+// also owns the cell (unit t / R, row t % R) of the block. kSplitCoef:
+// #10's coefficient step (bigru_bwd.cu's kSplit function), the same chain,
+// exchange and plan.
+template <typename T, int R, bool kSplitCoef>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 bigru_bwd_reg_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
                      const T* __restrict__ gs_f, const T* __restrict__ hn_f,
@@ -426,10 +443,13 @@ bigru_bwd_reg_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
       const float* in = ring + buf * kIn * R * UP + cr * kIn * UP + cu;
       const float rg = in[0], zg = in[UP], ng = in[2 * UP];
       const float hn = in[3 * UP], hp = in[4 * UP];
-      const float a = (1.0f - zg) * (1.0f - ng * ng);
-      const float c_r = round_to<T>(a * hn * rg * (1.0f - rg));
-      const float c_z = round_to<T>((hp - ng) * zg * (1.0f - zg));
-      const float c_n = round_to<T>(a);
+      float c_r = 0.0f, c_z = 0.0f, c_n = 0.0f;   // kLinear's coefficients
+      if constexpr (!kSplitCoef) {
+        const float a = (1.0f - zg) * (1.0f - ng * ng);
+        c_r = round_to<T>(a * hn * rg * (1.0f - rg));
+        c_z = round_to<T>((hp - ng) * zg * (1.0f - zg));
+        c_n = round_to<T>(a);
+      }
       // the carry's product: the C blocks' partials in rank order (none at
       // step 0), then dh_t * z of the previous step
       float dh = 0.0f;
@@ -438,7 +458,16 @@ bigru_bwd_reg_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
         for (int q = 0; q < C; ++q) dh += pp[q * U * R];
       }
       const float dh_t = in[5 * UP] + (dh + dhz);
-      const float d[3] = {dh_t * c_r, dh_t * c_z, dh_t * c_n};
+      float d[3];
+      if constexpr (kSplitCoef) {
+        d[2] = dh_t * (1.0f - zg) * (1.0f - ng * ng);
+        d[1] = dh_t * (hp - ng) * zg * (1.0f - zg);
+        d[0] = d[2] * hn * rg * (1.0f - rg);
+      } else {
+        d[0] = dh_t * c_r;
+        d[1] = dh_t * c_z;
+        d[2] = dh_t * c_n;
+      }
       const float dhn_t = d[2] * rg;
       dhz = dh_t * zg;
       const float dg[3] = {d[0], d[1], dhn_t};
@@ -567,7 +596,7 @@ bool valid_reg_plan(int B, int N, int H, int C, int R) {
 
 // The dynamic shared memory (and clusters above 8 blocks) an instance may
 // use, set once per device and again only for more.
-template <typename T, int R>
+template <typename T, int R, bool kSplitCoef>
 cudaError_t reg_prepare(int smem) {
   static std::atomic<int> allowed[kMaxDevices];
   int device = 0;
@@ -575,11 +604,11 @@ cudaError_t reg_prepare(int smem) {
   if (err != cudaSuccess) return err;
   if (device < kMaxDevices && allowed[device].load() >= smem)
     return cudaSuccess;
-  err = cudaFuncSetAttribute(bigru_bwd_reg_kernel<T, R>,
+  err = cudaFuncSetAttribute(bigru_bwd_reg_kernel<T, R, kSplitCoef>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bigru_bwd_reg_kernel<T, R>,
+  err = cudaFuncSetAttribute(bigru_bwd_reg_kernel<T, R, kSplitCoef>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && device < kMaxDevices) allowed[device].store(smem);
   return err;
@@ -601,7 +630,7 @@ void make_reg_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
   cfg->numAttrs = 1;
 }
 
-template <typename T, int R>
+template <typename T, int R, bool kSplitCoef>
 int launch_reg_as(const void* w_f, const void* w_b, const void* gs_f,
                   const void* hn_f, const void* ys_f, const void* dy_f,
                   const void* gs_b, const void* hn_b, const void* ys_b,
@@ -609,14 +638,15 @@ int launch_reg_as(const void* w_f, const void* w_b, const void* gs_f,
                   void* dhn_b, int B, int N, int H, int C, int dirs, int rev,
                   void* stream) {
   const size_t smem = reg_smem_floats(H, C, R) * sizeof(float);
-  cudaError_t err = reg_prepare<T, R>(static_cast<int>(smem));
+  cudaError_t err = reg_prepare<T, R, kSplitCoef>(static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   make_reg_config(&cfg, &attr, (B + R - 1) / R, H, C, dirs, smem, stream);
   auto in = [](const void* p) { return static_cast<const T*>(p); };
   auto out = [](void* p) { return static_cast<T*>(p); };
-  err = cudaLaunchKernelEx(&cfg, bigru_bwd_reg_kernel<T, R>, in(w_f),
+  err = cudaLaunchKernelEx(&cfg, bigru_bwd_reg_kernel<T, R, kSplitCoef>,
+                           in(w_f),
                            in(w_b), in(gs_f), in(hn_f), in(ys_f), in(dy_f),
                            in(gs_b), in(hn_b), in(ys_b), in(dy_b), out(dx_f),
                            out(dhn_f), out(dx_b), out(dhn_b), B, N, H, rev);
@@ -624,7 +654,7 @@ int launch_reg_as(const void* w_f, const void* w_b, const void* gs_f,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kSplitCoef>
 int launch_reg(const void* w_f, const void* w_b, const void* gs_f,
                const void* hn_f, const void* ys_f, const void* dy_f,
                const void* gs_b, const void* hn_b, const void* ys_b,
@@ -633,24 +663,26 @@ int launch_reg(const void* w_f, const void* w_b, const void* gs_f,
                int rev, void* stream) {
   if (!valid_reg_plan(B, N, H, C, R))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto* fn = R == 1   ? launch_reg_as<T, 1>
-             : R == 2 ? launch_reg_as<T, 2>
-             : R == 4 ? launch_reg_as<T, 4>
-                      : launch_reg_as<T, 8>;
+  auto* fn = R == 1   ? launch_reg_as<T, 1, kSplitCoef>
+             : R == 2 ? launch_reg_as<T, 2, kSplitCoef>
+             : R == 4 ? launch_reg_as<T, 4, kSplitCoef>
+                      : launch_reg_as<T, 8, kSplitCoef>;
   return fn(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b, dy_b, dx_f,
             dhn_f, dx_b, dhn_b, B, N, H, C, dirs, rev, stream);
 }
 
+// kLinear's instances (#10's have the same threads and shared memory)
 template <typename T, int R>
 int reg_max_active_as(int H, int C) {
   const size_t smem = reg_smem_floats(H, C, R) * sizeof(float);
-  cudaError_t err = reg_prepare<T, R>(static_cast<int>(smem));
+  cudaError_t err = reg_prepare<T, R, false>(static_cast<int>(smem));
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   make_reg_config(&cfg, &attr, 1, H, C, 1, smem, nullptr);
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, bigru_bwd_reg_kernel<T, R>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, bigru_bwd_reg_kernel<T, R, false>,
+                                       &cfg);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
@@ -672,8 +704,9 @@ extern "C" {
 // cluster entries: contiguous tensors in the stream type float (_f32) or
 // bfloat16 (_bf16), w [H, 3H]; gs and dx [B, N, 3H]; hn, ys, dy and dhn
 // [B, N, H]; the one-direction entry for a direction whose forward walked
-// t = N-1 .. 0 where reverse != 0. Returns a cudaError_t code; 0 means the
-// launch was accepted.
+// t = N-1 .. 0 where reverse != 0. bigru_bwd_split_reg_*: #10, as
+// bigru_bwd_reg_* with kSplit's function. Returns a cudaError_t code; 0
+// means the launch was accepted.
 #define BIGRU_BWD_REG_ENTRIES(SFX, TYPE)                                      \
   int bigru_bwd_reg_##SFX(const void* w_f, const void* w_b,                  \
                           const void* gs_f, const void* hn_f,                \
@@ -682,16 +715,27 @@ extern "C" {
                           const void* ys_b, const void* dy_b, void* dx_f,    \
                           void* dhn_f, void* dx_b, void* dhn_b, int B,       \
                           int N, int H, int C, int R, void* stream) {        \
-    return launch_reg<TYPE>(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b,    \
-                            ys_b, dy_b, dx_f, dhn_f, dx_b, dhn_b, B, N, H,   \
-                            C, R, 2, 0, stream);                             \
+    return launch_reg<TYPE, false>(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b,   \
+                                   hn_b, ys_b, dy_b, dx_f, dhn_f, dx_b,      \
+                                   dhn_b, B, N, H, C, R, 2, 0, stream);      \
+  }                                                                          \
+  int bigru_bwd_split_reg_##SFX(                                             \
+      const void* w_f, const void* w_b, const void* gs_f, const void* hn_f,  \
+      const void* ys_f, const void* dy_f, const void* gs_b,                  \
+      const void* hn_b, const void* ys_b, const void* dy_b, void* dx_f,      \
+      void* dhn_f, void* dx_b, void* dhn_b, int B, int N, int H, int C,      \
+      int R, void* stream) {                                                 \
+    return launch_reg<TYPE, true>(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b,    \
+                                  hn_b, ys_b, dy_b, dx_f, dhn_f, dx_b,       \
+                                  dhn_b, B, N, H, C, R, 2, 0, stream);       \
   }                                                                          \
   int gru_bwd_reg_##SFX(const void* w, const void* gs, const void* hn,       \
                         const void* ys, const void* dy, void* dx, void* dhn, \
                         int B, int N, int H, int C, int R, int reverse,      \
                         void* stream) {                                      \
-    return launch_reg<TYPE>(w, w, gs, hn, ys, dy, gs, hn, ys, dy, dx, dhn,   \
-                            dx, dhn, B, N, H, C, R, 1, reverse, stream);     \
+    return launch_reg<TYPE, false>(w, w, gs, hn, ys, dy, gs, hn, ys, dy, dx, \
+                                   dhn, dx, dhn, B, N, H, C, R, 1, reverse,  \
+                                   stream);                                  \
   }
 
 BIGRU_BWD_REG_ENTRIES(f32, float)

@@ -24,6 +24,20 @@
 // blocks' partial sums, each over its own 3U gate columns, added in rank
 // order, then dh_t * z.
 //
+// With kSplitCoef (bigru_bwd_split_pipe_*, #10: room_slam_tpu/tools/
+// bench_bigru_bwd.py::_bwd_kernel_split, :127, pallas_call :198, at these
+// widths on #6's route) a cell forms bigru_bwd.cu's kSplit function
+// instead, from its gates unrounded (dn = dh_t (1 - z)(1 - n^2), dz = dh_t
+// (h_prev - n) z (1 - z), dr = dn hn r (1 - r), dhn = dn r) and stores
+// T([dr, dz, dhn]) as its dg. The carry keeps this kernel's order (the
+// partials above, a chunk's 12 columns mixing gates): three per-gate
+// accumulators would take 8R more registers a consumer thread. #10's first
+// design (the kSplit cluster kernel) takes only the multiples of 8 from 264
+// to 360 of these widths, which held it back: no kernel above; #10 is
+// planned and launched as #6. On an H100 (NVIDIA H100 80GB HBM3, 700.00 W;
+// chip_smoke.py phase 28) it takes 4.644 ms at (32, 500, 512) bf16 beside
+// #6's 4.659: what bounds #6 below bounds it.
+//
 // The first design for these widths (the stream kernel, bigru_bwd.cu's
 // kStream, reached by a forced ("stream", C, R) plan below H = 1025 and
 // the route above): kLinear's chain with each thread walking its unit's
@@ -319,10 +333,12 @@ __host__ __device__ __forceinline__ int pipe_ring(int H, int C, int R,
 // + u of block q the column g * H + q * U + u of W_hh over k, zero past H.
 // Consumer thread t owns the cells t + i * NTC (unit e % U, row e / U) and
 // the k group t (k = 4 t .. 4 t + 3); the last warp is the producer.
-// kWide: blocks of more than kPipeMinWarps consumer warps.
+// kWide: blocks of more than kPipeMinWarps consumer warps. kSplitCoef:
+// #10's coefficient step (bigru_bwd.cu's kSplit function), the same chain,
+// exchange and plan.
 // ---------------------------------------------------------------------------
 
-template <typename T, int R, bool kWide>
+template <typename T, int R, bool kWide, bool kSplitCoef>
 __global__ void __launch_bounds__(kWide ? kPipeThreads : kPipeNarrowThreads,
                                   1)
 bigru_bwd_pipe_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
@@ -498,10 +514,13 @@ bigru_bwd_pipe_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
 #pragma unroll
         for (int q = 0; q < kIn; ++q) v[q] = to_f32<T>(x[i][q]);
         const float r = v[0], z = v[1], n = v[2], hn = v[3], hp = v[4];
-        const float a = (1.0f - z) * (1.0f - n * n);
-        const float c_r = round_to<T>(a * hn * r * (1.0f - r));
-        const float c_z = round_to<T>((hp - n) * z * (1.0f - z));
-        const float c_n = round_to<T>(a);
+        float c_r = 0.0f, c_z = 0.0f, c_n = 0.0f;   // kLinear's coefficients
+        if constexpr (!kSplitCoef) {
+          const float a = (1.0f - z) * (1.0f - n * n);
+          c_r = round_to<T>(a * hn * r * (1.0f - r));
+          c_z = round_to<T>((hp - n) * z * (1.0f - z));
+          c_n = round_to<T>(a);
+        }
         // dh_carry: the C blocks' partials in rank order (none at step 0),
         // then dh_t * z of the previous step
         float dh = 0.0f;
@@ -510,9 +529,16 @@ bigru_bwd_pipe_kernel(const T* __restrict__ w_f, const T* __restrict__ w_b,
           for (int q = 0; q < C; ++q) dh += pp[q * R * U];
         }
         const float dh_t = v[5] + (dhz[i] + dh);
-        const float dxr = dh_t * c_r;
-        const float dxz = dh_t * c_z;
-        const float dxn = dh_t * c_n;
+        float dxr, dxz, dxn;
+        if constexpr (kSplitCoef) {
+          dxn = dh_t * (1.0f - z) * (1.0f - n * n);
+          dxz = dh_t * (hp - n) * z * (1.0f - z);
+          dxr = dxn * hn * r * (1.0f - r);
+        } else {
+          dxr = dh_t * c_r;
+          dxz = dh_t * c_z;
+          dxn = dh_t * c_n;
+        }
         const float dhn_t = dxn * r;
         dhz[i] = dh_t * z;
         if (cok[i]) {
@@ -648,31 +674,32 @@ using PipeKernel = void (*)(const T*, const T*, const T*, const T*,
                             const T*, const T*, T*, T*, T*, T*, int, int,
                             int, int);
 
-template <typename T, bool kWide>
+template <typename T, bool kWide, bool kSplitCoef>
 PipeKernel<T> pipe_kernel_as(int R) {
   switch (R) {
-    case 1: return bigru_bwd_pipe_kernel<T, 1, kWide>;
-    case 2: return bigru_bwd_pipe_kernel<T, 2, kWide>;
-    case 4: return bigru_bwd_pipe_kernel<T, 4, kWide>;
-    case 8: return bigru_bwd_pipe_kernel<T, 8, kWide>;
-    case 12: return bigru_bwd_pipe_kernel<T, 12, kWide>;
-    case 16: return bigru_bwd_pipe_kernel<T, 16, kWide>;
+    case 1: return bigru_bwd_pipe_kernel<T, 1, kWide, kSplitCoef>;
+    case 2: return bigru_bwd_pipe_kernel<T, 2, kWide, kSplitCoef>;
+    case 4: return bigru_bwd_pipe_kernel<T, 4, kWide, kSplitCoef>;
+    case 8: return bigru_bwd_pipe_kernel<T, 8, kWide, kSplitCoef>;
+    case 12: return bigru_bwd_pipe_kernel<T, 12, kWide, kSplitCoef>;
+    case 16: return bigru_bwd_pipe_kernel<T, 16, kWide, kSplitCoef>;
     default: return nullptr;
   }
 }
 
 // the instance for tile R at H: narrow blocks (four consumer warps, to
 // H = 512) or wide ones
-template <typename T>
+template <typename T, bool kSplitCoef>
 PipeKernel<T> pipe_kernel(int R, int H) {
-  return pipe_warps(H) > kPipeMinWarps ? pipe_kernel_as<T, true>(R)
-                                       : pipe_kernel_as<T, false>(R);
+  return pipe_warps(H) > kPipeMinWarps
+             ? pipe_kernel_as<T, true, kSplitCoef>(R)
+             : pipe_kernel_as<T, false, kSplitCoef>(R);
 }
 
 // The dynamic shared memory the instance of slot `slot` (a tile and a block
-// width) may use and its non-portable cluster size, set once per device
-// and again only for more.
-template <typename T>
+// width; #6's and #10's instances apart, by kSplitCoef) may use and its
+// non-portable cluster size, set once per device and again only for more.
+template <typename T, bool kSplitCoef>
 cudaError_t pipe_prepare(PipeKernel<T> fn, int slot, int smem) {
   static std::atomic<int> allowed[12][kMaxDevices];
   int device = 0;
@@ -711,7 +738,7 @@ void make_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
   cfg->numAttrs = 1;
 }
 
-template <typename T>
+template <typename T, bool kSplitCoef>
 int launch_pipe(const void* w_f, const void* w_b, const void* gs_f,
                 const void* hn_f, const void* ys_f, const void* dy_f,
                 const void* gs_b, const void* hn_b, const void* ys_b,
@@ -721,10 +748,10 @@ int launch_pipe(const void* w_f, const void* w_b, const void* gs_f,
   const int wbytes = static_cast<int>(sizeof(T));
   if (!valid_pipe_plan(B, N, H, C, R, wbytes))
     return static_cast<int>(cudaErrorInvalidValue);
-  const PipeKernel<T> fn = pipe_kernel<T>(R, H);
+  const PipeKernel<T> fn = pipe_kernel<T, kSplitCoef>(R, H);
   const size_t smem = pipe_smem_bytes(H, C, R, wbytes);
-  cudaError_t err =
-      pipe_prepare<T>(fn, pipe_slot(R, H), static_cast<int>(smem));
+  cudaError_t err = pipe_prepare<T, kSplitCoef>(fn, pipe_slot(R, H),
+                                                static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
@@ -739,13 +766,14 @@ int launch_pipe(const void* w_f, const void* w_b, const void* gs_f,
   return static_cast<int>(cudaGetLastError());
 }
 
+// kLinear's instances (#10's have the same threads and shared memory)
 template <typename T>
 int pipe_max_active(int H, int C, int R) {
   const int wbytes = static_cast<int>(sizeof(T));
-  const PipeKernel<T> fn = pipe_kernel<T>(R, H);
+  const PipeKernel<T> fn = pipe_kernel<T, false>(R, H);
   const size_t smem = pipe_smem_bytes(H, C, R, wbytes);
-  cudaError_t err =
-      pipe_prepare<T>(fn, pipe_slot(R, H), static_cast<int>(smem));
+  cudaError_t err = pipe_prepare<T, false>(fn, pipe_slot(R, H),
+                                           static_cast<int>(smem));
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
@@ -767,6 +795,7 @@ extern "C" {
 // [B, N, H]; clusters of C = 1 .. 16 blocks over batch tiles of R = 1, 2,
 // 4, 8, 12 or 16 rows. gru_bwd_pipe_*: a grid of one direction, reverse !=
 // 0 for a direction whose forward walked t = N-1 .. 0.
+// bigru_bwd_split_pipe_*: #10, as bigru_bwd_pipe_* with kSplit's function.
 #define BIGRU_BWD_PIPE_ENTRIES(SFX, TYPE)                                     \
   int bigru_bwd_pipe_##SFX(const void* w_f, const void* w_b,                 \
                            const void* gs_f, const void* hn_f,               \
@@ -775,16 +804,27 @@ extern "C" {
                            const void* ys_b, const void* dy_b, void* dx_f,   \
                            void* dhn_f, void* dx_b, void* dhn_b, int B,      \
                            int N, int H, int C, int R, void* stream) {       \
-    return launch_pipe<TYPE>(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b,   \
-                             ys_b, dy_b, dx_f, dhn_f, dx_b, dhn_b, B, N, H,  \
-                             C, R, 2, 0, stream);                            \
+    return launch_pipe<TYPE, false>(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b,  \
+                                    hn_b, ys_b, dy_b, dx_f, dhn_f, dx_b,     \
+                                    dhn_b, B, N, H, C, R, 2, 0, stream);     \
+  }                                                                          \
+  int bigru_bwd_split_pipe_##SFX(                                            \
+      const void* w_f, const void* w_b, const void* gs_f, const void* hn_f,  \
+      const void* ys_f, const void* dy_f, const void* gs_b,                  \
+      const void* hn_b, const void* ys_b, const void* dy_b, void* dx_f,      \
+      void* dhn_f, void* dx_b, void* dhn_b, int B, int N, int H, int C,      \
+      int R, void* stream) {                                                 \
+    return launch_pipe<TYPE, true>(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b,   \
+                                   hn_b, ys_b, dy_b, dx_f, dhn_f, dx_b,      \
+                                   dhn_b, B, N, H, C, R, 2, 0, stream);      \
   }                                                                          \
   int gru_bwd_pipe_##SFX(const void* w, const void* gs, const void* hn,      \
                          const void* ys, const void* dy, void* dx,           \
                          void* dhn, int B, int N, int H, int C, int R,       \
                          int reverse, void* stream) {                        \
-    return launch_pipe<TYPE>(w, w, gs, hn, ys, dy, gs, hn, ys, dy, dx, dhn,  \
-                             dx, dhn, B, N, H, C, R, 1, reverse, stream);    \
+    return launch_pipe<TYPE, false>(w, w, gs, hn, ys, dy, gs, hn, ys, dy,    \
+                                    dx, dhn, dx, dhn, B, N, H, C, R, 1,      \
+                                    reverse, stream);                        \
   }
 
 BIGRU_BWD_PIPE_ENTRIES(f32, float)

@@ -32,10 +32,15 @@ PyTorch version beside it that repeats its arithmetic:
 Two more kinds of the BPTT source, which no model calls (as in the JAX
 package):
 
-- ``bigru_bwd_split`` (#10): the BPTT with the carry's product as three
-  H-deep sums and the coefficients unrounded, the counterpart of the JAX
-  micro-benchmark's ``_bwd_kernel_split``; ``tools/bench_bigru_bwd.py``
-  times it against ``bigru_bwd`` under a sweep of launch plans (``plan=``);
+- ``bigru_bwd_split`` (#10): the BPTT with the coefficients unrounded and
+  (where the kernel sums the carry per gate block) the carry's product as
+  three H-deep sums, the counterpart of the JAX micro-benchmark's
+  ``_bwd_kernel_split``. It takes ``bigru_bwd``'s route and plans, each
+  kernel's kSplitCoef instance (``bigru_bwd_split_{unit,tc,reg,pipe}_*``);
+  its first design, the split kind of the first cluster kernel, stays
+  reachable by a forced ``("cluster", C, R)`` plan;
+  ``tools/bench_bigru_bwd.py`` times it against ``bigru_bwd`` under the
+  plans of the route's kernel (``plan=``);
 - ``bigru_bwd_fused`` (#9): a whole BiGRU layer's VJP, the counterpart of
   ``gru_pallas.py::_bigru_bwd_fused_kernel``: ``bigru_bwd``'s walk and, in
   the same launch, dX, dW_ih, dW_hh and both biases; ``bigru_layer`` (a
@@ -128,7 +133,7 @@ from room_slam_torch.ops.rnn_cuda import (CLUSTER_MAX_H, CLUSTER_SIZES,
                                           REG_MAX_CLUSTER, REG_MAX_THREADS,
                                           ROWS_PER_THREAD,
                                           STREAM_MAX_CLUSTER,
-                                          UNIT_MAX_H, _bind_pipe,
+                                          UNIT_MAX_H, UNIT_ROWS, _bind_pipe,
                                           _device_type, _fwd_pipe_rule,
                                           _pad4, _pipe_rule, _reg_rule,
                                           _stream_rule, _work_dtype,
@@ -947,6 +952,11 @@ def _library(name: str):
     if getattr(lib, "_argtypes_set", False):
         return lib
     if name == "bigru_pipe":
+        for sfx in _SUFFIX.values():   # #10's entries: bigru_bwd_pipe_*'s
+            fn = getattr(lib, f"bigru_bwd_split_pipe_{sfx}")
+            fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         return _bind_pipe(lib, name, "bigru_bwd", "gru_bwd", 14, 7,
                           PIPE_GATES)
     if name == "bigru_fwd_pipe":
@@ -978,6 +988,7 @@ def _library(name: str):
                    f"gru_bwd_{sfx}": (7, 6),
                    f"gru_bwd_unit_{sfx}": (7, 5),
                    f"bigru_bwd_unit_{sfx}": (14, 4),
+                   f"bigru_bwd_split_unit_{sfx}": (14, 4),
                    f"bigru_bwd_stream_{sfx}": (14, 5),
                    f"gru_bwd_stream_{sfx}": (7, 6)}
         for fn_name, (n_ptr, n_int) in fns.items():
@@ -987,7 +998,7 @@ def _library(name: str):
     # the tensor-core kernels: bf16 only, the pointers of the cluster
     # entries, then B, N, H, C, R
     tc = ({"bigru_fwd_tc_bf16": 8, "bigru_fwd_train_tc_bf16": 12} if fwd
-          else {"bigru_bwd_tc_bf16": 14})
+          else {"bigru_bwd_tc_bf16": 14, "bigru_bwd_split_tc_bf16": 14})
     for fn_name, n_ptr in tc.items():
         fn = getattr(lib, fn_name)
         fn.argtypes = [p] * n_ptr + [i] * 5 + [p]
@@ -1035,7 +1046,8 @@ def _bind_reg(lib, name: str):
     entries = ({"bigru_fwd_reg": (8, 5), "bigru_fwd_train_reg": (12, 5),
                 "gru_fwd_reg": (4, 6), "gru_fwd_train_reg": (6, 6)}
                if kind == "fwd" else
-               {"bigru_bwd_reg": (14, 5), "gru_bwd_reg": (7, 6)})
+               {"bigru_bwd_reg": (14, 5), "bigru_bwd_split_reg": (14, 5),
+                "gru_bwd_reg": (7, 6)})
     for sfx in _SUFFIX.values():
         for fn_name, (n_ptr, n_int) in entries.items():
             fn = getattr(lib, f"{fn_name}_{sfx}")
@@ -1219,6 +1231,44 @@ def card_plans(kind: str, B: int, H: int, dev: torch.device,
     takes."""
     return bigru_plans(kind, B, H, _resident(kind, H, dev, dtype, False)[1],
                        dirs)
+
+
+def bwd_plan_fits(plan: tuple, hidden: int, dtype: torch.dtype) -> bool:
+    """Whether a forced plan of the two-direction BPTT (#6's or #10's:
+    ``("tc" | "reg" | "pipe" | "stream" | "cluster", C, R)`` or ``("unit",
+    R)``) fits its kernel's rule at H with ``dtype`` streams, whatever the
+    card (which may still run no such cluster)."""
+    kernel, *ints = plan
+    if kernel == "unit":
+        return hidden <= UNIT_MAX_H and ints[0] in UNIT_ROWS
+    cluster, rows = ints
+    return {"tc": lambda: dtype == torch.bfloat16
+            and tc_plan_fits("bwd", hidden, cluster, rows),
+            "reg": lambda: _reg_rule("bwd", hidden, cluster, rows, REG_GATES),
+            "pipe": lambda: _pipe_rule(hidden, cluster, rows, dtype.itemsize,
+                                       PIPE_GATES),
+            "stream": lambda: _stream_rule("bigru_bwd", hidden, cluster,
+                                           rows),
+            "cluster": lambda: plan_fits("bwd", hidden, cluster, rows)
+            }[kernel]()
+
+
+def card_bwd_plans(B: int, H: int, dev: torch.device, dtype: torch.dtype
+                   ) -> Tuple[str, List[tuple]]:
+    """The kernel of #6's two-direction route at (B, H) with ``dtype``
+    streams (#10 takes the same) and that kernel's plans on the card
+    ``dev`` as forced plans, ``("tc", C, R)`` ... or ``("unit", R)``,
+    fastest first: the first is the plan a launch takes."""
+    kernel = gru_bwd_kernel_route(H, 2, dtype)
+    if kernel == "unit":
+        return kernel, [("unit", r) for r in card_unit_plans(
+            _library("bigru_bwd"), "gru_bwd", B, H, dev, dtype, False, 2)]
+    plans = {"tc": lambda: card_tc_plans("bwd", B, H, dev),
+             "reg": lambda: card_gru_reg_plans("bwd", B, H, dev, dtype),
+             "pipe": lambda: card_gru_pipe_plans(B, H, dev, dtype),
+             "stream": lambda: card_stream_plans("bwd", B, H, dev, dtype),
+             "cluster": lambda: card_plans("bwd", B, H, dev, dtype)}[kernel]()
+    return kernel, [(kernel, c, r) for c, r in plans]
 
 
 def _plan_launch(kind: str, fn, B: int, H: int, dev: torch.device, T,
@@ -1591,17 +1641,22 @@ def _bwd_launch(fn, kind: str, plan, w_f, w_b, gs_f, hn_f, ys_f, dy_f,
     outs = [torch.empty(B, N, d, dtype=T, device=dev) for d in (G, H, G, H)]
     if B == 0 or N == 0:
         return tuple(outs)
-    if kind == "split":
-        kernel, forced = "cluster", (
-            tuple(plan[1:]) if plan is not None and plan[0] == "cluster"
-            else plan)
-    else:
-        kernel, forced = _bigru_kernel("bwd", H, T, plan)
+    # #10 takes #6's route, kernels and plans (each kernel's kSplitCoef
+    # instance); above H=1024, where #6 takes the stream kernel, #10 has no
+    # kernel of its own and stays on its first design, which takes no such
+    # width: the cluster planner raises, naming it
+    kernel, forced = _bigru_kernel("bwd", H, T, plan)
+    if kind == "split" and kernel == "stream":
+        if plan is not None:
+            raise ValueError(f"{name}: #10 has no stream kernel; plans are "
+                             "('tc' | 'reg' | 'pipe' | 'cluster', C, R) or "
+                             "('unit', R)")
+        kernel = "cluster"
     if kernel == "reg" and plan is None:
         kernel = _batch_route("bwd", B, H, dev, T, False, 2)
     if kernel == "unit":
         lib, rows = _unit_rows(fn, "gru_bwd", B, H, dev, T, False, 2, forced)
-        name, plan_ints = "bigru_bwd_unit", (rows,)
+        name, plan_ints = f"{name}_unit", (rows,)
     elif kernel == "tc":
         lib, cluster, rows = _tc_plan_launch("bwd", fn, B, H, dev, False,
                                              forced)
@@ -1651,10 +1706,18 @@ bigru_bwd_cuda.launches = 0
 
 
 def bigru_bwd_split_cuda(w_f, w_b, gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b,
-                         dy_b, plan: Optional[Tuple[int, int]] = None):
-    """Launch the split kind of ``csrc/bigru_bwd.cu`` (#10): arguments,
-    outputs and ``plan`` as ``bigru_bwd_cuda``. Counts each launch in
-    ``bigru_bwd_split_cuda.launches``."""
+                         dy_b, plan: Optional[tuple] = None):
+    """Launch #10, the split BPTT: on #6's route and plans
+    (``gru_bwd_kernel_route``), the kSplitCoef instance of the kernel #6
+    takes there (``bigru_bwd_split_{unit,tc,reg,pipe}_*`` of
+    ``csrc/bigru_bwd.cu``, ``csrc/bigru_bwd_reg.cu`` and
+    ``csrc/bigru_pipe.cu``). Arguments, outputs and ``plan`` as
+    ``bigru_bwd_cuda``: ``("cluster", cluster, rows)`` or ``(cluster,
+    rows)`` forces the first design (the split kind of the first cluster
+    kernel); there is no stream kernel of #10, so above H=1024 (#6's stream
+    widths) it stays on the first design, which raises for want of a plan.
+    Records the kernel and plan in ``bigru_bwd_split_cuda.last_launch`` and
+    counts each launch in ``bigru_bwd_split_cuda.launches``."""
     return _bwd_launch(bigru_bwd_split_cuda, "split", plan, w_f, w_b, gs_f,
                        hn_f, ys_f, dy_f, gs_b, hn_b, ys_b, dy_b)
 

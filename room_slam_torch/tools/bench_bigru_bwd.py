@@ -5,7 +5,9 @@ with its rows and JSON keys:
 
 - ``elementwise_pass_ms``    one read-and-write pass over a ``[B, N, 3H]``
                              stream, the memory yardstick
-- ``bwd_kernel@CxR_ms``      ``bigru_bwd`` (#6) under launch plan CxR
+- ``bwd_kernel@CxR_ms``      ``bigru_bwd`` (#6) under launch plan CxR of the
+                             kernel #6's route takes at the shape (a plan of
+                             another kernel: ``bwd_kernel@<kernel>CxR_ms``)
 - ``bwd_split@CxR_ms``       ``bigru_bwd_split`` (#10) under the same plan
 - ``dw_einsum_ms``           one direction's ``h_prev^T dx`` product, float32
 - ``hprev_build_ms``         one direction's shifted ys (``prev_steps``)
@@ -17,6 +19,7 @@ On the card every row is the mean over ``--reps`` calls after two warm-up
 calls, timed with CUDA events; ``--device cpu`` runs the plain versions at
 a small shape on the host clock (a check that the tool runs, not a
 measurement of any device). Streams are bfloat16, as in the scale-up model.
+``config`` records the route's kernel ("plain" on the CPU) and the plans.
 
     python -m room_slam_torch.tools.bench_bigru_bwd [--tiles auto]
         [--batch 128 --seq 5000 --hidden 256 --reps 8]
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -39,12 +43,45 @@ from room_slam_torch.ops import gru_cuda
 from room_slam_torch.ops.rnn_cuda import prev_steps
 
 TILES_HELP = (
-    "comma list of CxR launch plans (cluster size x batch-tile rows) to "
-    "sweep for bwd_kernel (#6) and bwd_split (#10) on the card; 'auto' "
-    "(the default) is the planner's pick plus up to five other plans that "
-    "fit, in the planner's order. The CPU's plain versions take no plan: "
-    "with --device cpu only 'auto' is accepted and gives one row each, "
-    "named @plain")
+    "comma list of launch plans (cluster size x batch-tile rows) to sweep "
+    "for bwd_kernel (#6) and bwd_split (#10) on the card: CxR, a plan of "
+    "the kernel #6's route takes at the shape, or <kernel>CxR naming the "
+    "kernel (tc, reg, pipe, stream, cluster: the first design, unit with "
+    "C = 1), e.g. tc4x16,cluster8x20; 'auto' (the default) is the route "
+    "kernel's pick plus up to five other plans the card runs, in its "
+    "planner's order. The CPU's plain versions take no plan: with --device "
+    "cpu only 'auto' is accepted and gives one row each, named @plain")
+KERNELS = ("tc", "reg", "pipe", "stream", "cluster", "unit")
+_SPEC = re.compile(r"([a-z]*)(\d+)x(\d+)")
+
+
+def parse_tiles(spec: str, B: int, H: int) -> List[tuple]:
+    """The forced plans (``gru_cuda.bwd_plan_fits``' form) an explicit
+    ``--tiles`` list names at batch B and H with bf16 streams: ``CxR`` a
+    plan of the route's kernel, ``<kernel>CxR`` of the kernel named (the
+    unit kernel's with C = 1). Raises ``ValueError`` for an unknown kernel
+    or a plan that does not fit its kernel's rule."""
+    route = gru_cuda.gru_bwd_kernel_route(H, 2, torch.bfloat16)
+    plans = []
+    for item in spec.split(","):
+        m = _SPEC.fullmatch(item.strip())
+        kernel = (m.group(1) or route) if m else None
+        if kernel not in KERNELS:
+            raise ValueError(f"--tiles: {item!r} is not [kernel]CxR with a "
+                             f"kernel of {KERNELS}")
+        c, r = int(m.group(2)), int(m.group(3))
+        plan = ("unit", r) if kernel == "unit" else (kernel, c, r)
+        if (kernel == "unit" and c != 1) or not gru_cuda.bwd_plan_fits(
+                plan, H, torch.bfloat16):
+            raise ValueError(f"--tiles: plan {item!r} does not fit the "
+                             f"{kernel} kernel at B={B}, H={H} (bf16)")
+        plans.append(plan)
+    return plans
+
+
+def plan_tile(plan: tuple) -> str:
+    """A forced plan's CxR: the unit kernel's cluster is one block."""
+    return f"1x{plan[1]}" if plan[0] == "unit" else f"{plan[1]}x{plan[2]}"
 
 
 def _timer(dev: torch.device, reps: int, warmup: int = 2
@@ -97,17 +134,19 @@ def _inputs(B: int, N: int, H: int, dev: torch.device):
 
 
 def _tiles(spec: str, dev: torch.device, B: int, H: int
-           ) -> List[Optional[Tuple[int, int]]]:
-    """The launch plans to sweep; ``[None]`` (the plain versions) on the
-    CPU."""
+           ) -> Tuple[str, List[Optional[tuple]]]:
+    """The route's kernel and the launch plans to sweep; ``("plain",
+    [None])`` (the plain versions) on the CPU."""
     if dev.type != "cuda":
         if spec != "auto":
             raise ValueError("--tiles: the CPU's plain versions take no "
                              "launch plan; use --tiles auto")
-        return [None]
+        return "plain", [None]
     if spec != "auto":
-        return [tuple(int(v) for v in s.split("x")) for s in spec.split(",")]
-    return gru_cuda.card_plans("bwd", B, H, dev, torch.bfloat16)[:6]
+        return (gru_cuda.gru_bwd_kernel_route(H, 2, torch.bfloat16),
+                parse_tiles(spec, B, H))
+    kernel, plans = gru_cuda.card_bwd_plans(B, H, dev, torch.bfloat16)
+    return kernel, plans[:6]
 
 
 def _card(dev: torch.device) -> Dict[str, object]:
@@ -145,7 +184,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         print(f"  {key}: {rows[key]:.3f} ms", flush=True)
 
     row("elementwise_pass_ms", lambda: t["gs_f"] * 1.01)
-    tiles = _tiles(args.tiles, dev, B, H)
+    kernel, tiles = _tiles(args.tiles, dev, B, H)
     for name, cuda_fn, plain in (
             ("bwd_kernel", gru_cuda.bigru_bwd_cuda, gru_cuda.bigru_bwd_plain),
             ("bwd_split", gru_cuda.bigru_bwd_split_cuda,
@@ -154,7 +193,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
             if plan is None:
                 row(f"{name}@plain_ms", lambda: plain(*bwd_args))
             else:
-                row(f"{name}@{plan[0]}x{plan[1]}_ms",
+                other = "" if plan[0] == kernel else plan[0]
+                row(f"{name}@{other}{plan_tile(plan)}_ms",
                     lambda p=plan, f=cuda_fn: f(*bwd_args, plan=p))
     hp = prev_steps(t["ys_f"], False)
     dx, dhn = gru_cuda.bigru_bwd(*bwd_args)[:2]
@@ -181,11 +221,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     result = {
         "config": {"batch": B, "seq": N, "hidden": H,
                    "stream_dtype": "bfloat16", "reps": args.reps,
-                   "tiles": [None if p is None else f"{p[0]}x{p[1]}"
-                             for p in tiles], **_card(dev)},
+                   "kernel": kernel,
+                   "tiles": [None if p is None else plan_tile(p)
+                             for p in tiles],
+                   "plans": [None if p is None else list(p) for p in tiles],
+                   **_card(dev)},
         "measured_ms": rows,
         "note": ("CUDA events over --reps calls after 2 warm-up calls; "
-                 "tiles are cluster x batch-tile rows" if on_card else
+                 "tiles are cluster x batch-tile rows of the plans' kernels"
+                 if on_card else
                  "plain versions on the host clock: a check that the tool "
                  "runs, no device measurement"),
     }

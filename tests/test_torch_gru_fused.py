@@ -118,7 +118,10 @@ def _bwd_args(B, N, H, dtype, seed):
     return ws[0], ws[2], gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b, dy_b
 
 
-@pytest.mark.parametrize("shape", [(5, 43, 16), (3, 17, 16)])
+# the last two: widths of #10's register kernel (H=80) and unit kernel
+# (H=64) on #6's route
+@pytest.mark.parametrize("shape", [(5, 43, 16), (3, 17, 16), (3, 17, 80),
+                                   (4, 19, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_plain_matches_jax_split_kernel(shape, dtype):
     """#10's plain version against the JAX ``_bwd_kernel_split`` (and, in

@@ -432,38 +432,55 @@ def _bwd_args(shape, dtype, device):
     return (ins[2], ins[4], gs_f, hn_f, ys_f, dy_f, gs_b, hn_b, ys_b, dy_b)
 
 
-@pytest.mark.parametrize("shape,dtype", GRU_CASES)
+# #10 on each kernel of #6's route: the tensor-core chain (GRU_CASES[3]),
+# the unit kernel, the register kernel in bf16 and f32, the pipe kernel
+SPLIT_CASES = GRU_CASES + [((20, 300, 64), torch.bfloat16),
+                           ((16, 300, 255), torch.bfloat16),
+                           ((16, 300, 255), torch.float32),
+                           ((8, 200, 512), torch.bfloat16)]
+
+
+@pytest.mark.parametrize("shape,dtype", SPLIT_CASES)
 def test_bigru_bwd_split_kernel_matches_plain(cuda, shape, dtype):
-    """#10 against its plain version (max-rel 1e-4 f32, 0.1 bf16) and, in
-    float32, against #6 (the same function up to sum order)."""
+    """#10 on #6's kernel (the launch's kernel asserted #6's) against its
+    plain version (max-rel 1e-4 f32, 0.1 bf16), a second launch bit-equal,
+    and, in float32, against #6 (the same function up to sum order)."""
     args = _bwd_args(shape, dtype, cuda)
     before = gru_cuda.bigru_bwd_split_cuda.launches
     got = gru_cuda.bigru_bwd_split_cuda(*args)
+    again = gru_cuda.bigru_bwd_split_cuda(*args)
     torch.cuda.synchronize()
-    assert gru_cuda.bigru_bwd_split_cuda.launches == before + 1
+    assert gru_cuda.bigru_bwd_split_cuda.launches == before + 2
+    kernel = gru_cuda.bigru_bwd_split_cuda.last_launch["kernel"]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     bound = GRAD_REL if dtype == torch.float32 else 0.1
     for a, b in zip(got, gru_cuda.bigru_bwd_split_plain(*args)):
         assert a.dtype == b.dtype and torch.isfinite(a).all()
         assert _max_rel(a.float(), b.float()) <= bound
+    got6 = gru_cuda.bigru_bwd_cuda(*args)
+    assert kernel == gru_cuda.bigru_bwd_cuda.last_launch["kernel"]
     if dtype == torch.float32:
-        for a, b in zip(got, gru_cuda.bigru_bwd_cuda(*args)):
+        for a, b in zip(got, got6):
             assert (a - b).abs().max().item() <= ATOL
 
 
 def test_bigru_bwd_kernels_every_tool_plan(cuda):
     """#10 and #6 under each plan ``bench_bigru_bwd --tiles auto`` sweeps at
-    the scale-up batch and width (fewer steps) against their plain
-    versions, max-rel 0.1 in bf16."""
+    the scale-up batch and width (fewer steps: the plans of the route's
+    tensor-core kernel) against their plain versions, max-rel 0.1 in
+    bf16."""
     args = _bwd_args((128, 200, 256), torch.bfloat16, cuda)
-    plans = gru_cuda.card_plans("bwd", 128, 256, cuda, torch.bfloat16)[:6]
-    assert len(plans) > 1
+    kernel, plans = gru_cuda.card_bwd_plans(128, 256, cuda, torch.bfloat16)
+    plans = plans[:6]
+    assert kernel == "tc" and len(plans) > 1
     for fn, plain in ((gru_cuda.bigru_bwd_split_cuda,
                        gru_cuda.bigru_bwd_split_plain),
                       (gru_cuda.bigru_bwd_cuda, gru_cuda.bigru_bwd_plain)):
         ref = plain(*args)
         for p in plans:
             got = fn(*args, plan=p)
-            assert (fn.last_launch["cluster"], fn.last_launch["rows"]) == p
+            last = fn.last_launch
+            assert (last["kernel"], last["cluster"], last["rows"]) == p
             for a, b in zip(got, ref):
                 assert _max_rel(a.float(), b.float()) <= 0.1, (fn, p)
 
