@@ -75,7 +75,7 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     (ys, gates, hn) and ``bigru_bwd`` (dx, dhn) against their plain
     versions, and ``BiGRUFunction``'s six gradients against torch autograd
     through the plain loop, at the scale-up shape (128, 5000, 256) in bf16,
-    (16, 5000, 256) in f32, (5, 43, 16) in both and the tensor-core
+    (16, 1000, 256) in f32, (5, 43, 16) in both and the tensor-core
     kernels' edges in bf16 ((17, 300, 256), (5, 43, 64), (1, 500, 256)),
     with each launch's kernel (asserted: "tc" for bf16 where the rule
     holds, else "cluster"), cluster size and batch tile; where the
@@ -219,7 +219,7 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     at 2048 mixed rooms, seed 100, L 1500 and its val split on the card
     (time, walks/s, peak memory; time strictly increasing, inside the
     walls within 0.05 m and never inside a blocking footprint on every
-    walk; the first 16 rooms of each half against the CPU: labels and
+    walk; the first 8 rooms of each half against the CPU: labels and
     valid equal, boxes within 1e-5, the share of traces within 1e-3),
     ``make_rooms``' captures tiled 16 times in with ``concat``, one epoch
     at the config's ``bfloat16`` precision (TF32 on in every step and in
@@ -322,7 +322,36 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     ``MID_STEP_TIME``, a profiler trace of its steps, and a served
     forward's p50 at ``MID_SERVE`` (held to the plain recurrence) on the
     register kernels and on the wide kernels in turns, and the step p50
-    again at d_model ``MID_WIDE_D`` (H=116).
+    again at d_model ``MID_WIDE_D`` (H=116);
+43. the exact matcher (``csrc/hungarian.cu``, one block a problem, one
+    thread a column): both forms (``hungarian_match_fast``, the set
+    criterion's; ``hungarian_match``, the legacy loss's square form) at
+    ``MATCH_CASES`` (the flagship's B=20, Q=30, M=50; the scale-up's
+    B=128, Q=32, M=32; the legacy square form; M > Q), each on seeded
+    float costs and on integer costs full of ties, with an item of no
+    valid column, one launch a call, against the plain version on the CPU
+    (assignments equal to the bit) and scipy's optimum (rtol
+    ``MATCH_TOTAL_RTOL``); the kernel's time (CUDA events) beside the
+    plain version's on the card and the host path it replaced (copy,
+    scipy per item, copy back), with the bound by bytes;
+44. the fused run (a main path): ``train_benchmark_fused`` on the flagship
+    at phase 8's size (``ROOMS`` rooms, ``EPOCHS`` epochs) and
+    ``train_benchmark`` on the same seed and rooms (both on the plateau
+    rule, the fused run's whatever the config says; both on the fused
+    run's AdamW, capturable): losses and learning
+    rates within ``FUSED_RTOL``, the count sums and the best epoch equal;
+    launch counts (the matcher once a step and twice a validation batch),
+    both wall times; the per-epoch driver again on its default AdamW (its
+    distance from the fused run printed, not held); the flagship's train
+    step p50 with AdamW
+    ``capturable`` (the fused run's) and with a float learning rate
+    and host step count, in turns;
+45. the profilers at the scale-up shape: ``tools/profile_scaleup2.py``
+    (``--k PROFILE_K --kernels``) and ``tools/profile_scaleup.py``
+    (``--reps PROFILE_REPS``), ``PROFILE_RUNS`` runs each, their JSON under
+    ``build/``, each run's decomposition and each row's range over the
+    runs printed, and one ``utils/profiling.device_trace`` of
+    ``PROFILE_TRACE_STEPS`` train steps: the device's busy share.
 
 Phases 10 (and 37's step), 16, 34 and 39's steps pin
 ``train.matmul_precision`` to float32: they compare two float32
@@ -370,7 +399,7 @@ from room_slam_torch.models.factory import build_model
 from room_slam_torch.models.common import MultiHeadAttention
 from room_slam_torch.models.legacy_gru import RoomSlamGRU
 from room_slam_torch.native import trace_parser
-from room_slam_torch.ops import build, gru_cuda, rnn_cuda
+from room_slam_torch.ops import build, gru_cuda, hungarian, rnn_cuda
 from room_slam_torch.ops import losses as losses_mod
 from room_slam_torch.ops import rnn as rnn_ops
 from room_slam_torch.ops.losses import legacy_criterion, legacy_match
@@ -386,7 +415,8 @@ from room_slam_torch.train.driver import (legacy_batches, legacy_data,
                                           load_model_for_inference,
                                           make_legacy_step,
                                           make_synthetic_datasets,
-                                          train_benchmark, train_legacy)
+                                          train_benchmark,
+                                          train_benchmark_fused, train_legacy)
 from room_slam_torch.weights import load_params, random_params
 
 REPO = Path(__file__).resolve().parent
@@ -419,7 +449,7 @@ SCALEUP = (128, 5000, 256)
 SCALEUP_SETS = ("model.model_type=bigru", "model.d_model=512",
                 "model.num_queries=32", "model.compute_dtype=bfloat16",
                 "data.max_colliders=32")
-GRU_SHAPES = ((SCALEUP, torch.bfloat16), ((16, 5000, 256), torch.float32),
+GRU_SHAPES = ((SCALEUP, torch.bfloat16), ((16, 1000, 256), torch.float32),
               ((5, 43, 16), torch.float32), ((5, 43, 16), torch.bfloat16))
 # phases 25 and 28: #10 on each kernel of #6's route (tc, unit, reg in bf16
 # and f32, pipe), checked and timed beside #10's first design and #6
@@ -526,7 +556,7 @@ STREAM_OLD = (5, 512)
 STREAM_LSTM_D = 1024
 STREAM_STEP = (8, 300)
 STREAM_STEP_TIME = (32, 500)
-STREAM_STEPS, STREAM_WARMUP = 10, 3
+STREAM_STEPS, STREAM_WARMUP = 5, 2
 STREAM_ROOMS = 8
 STREAM_SERVE = (1, 1500)       # a served request's forward: B, N
 STREAM_SERVE_CALLS = 10
@@ -556,7 +586,7 @@ REG_GRU_D = 512
 REG_STEP = (4, 120)
 REG_STEP_TIME = (32, 500)
 REG_SERVE = (1, 1500)
-REG_STEPS, REG_WARMUP = 10, 3
+REG_STEPS, REG_WARMUP = 5, 2
 REG_ROOMS = 8
 # phase 42: the LSTM register cluster kernels at the wide kernels' widths,
 # H 65-118 (#1/#1t, #3/#3t, #2 and #4): the six wrappers on their route
@@ -588,7 +618,7 @@ MID_WIDE_D = 232
 MID_STEP = (8, 300)
 MID_STEP_TIME = (32, 500)
 MID_SERVE = (1, 1500)
-MID_STEPS, MID_WARMUP = 10, 3
+MID_STEPS, MID_WARMUP = 5, 2
 MID_TRACE_STEPS = 3
 MID_RANGED = {"bilstm_fwd_train": (rnn_cuda, "bilstm_fwd_train"),
               "bilstm_bwd": (rnn_cuda, "bilstm_bwd")}
@@ -604,7 +634,7 @@ RECIPE_REQUESTS = 5                       # requests checked card vs CPU
 # requests timed per recipe (15: 50 before phase 39 was added, 25 before
 # the forward pipe kernels' timing joined phase 40, cut to keep the whole
 # run inside its time limit on a slow host)
-RECIPE_WINDOW, RECIPE_WARMUP = 15, 5
+RECIPE_WINDOW, RECIPE_WARMUP = 10, 3
 GATE_TAU = 0.448                          # the adopted auto gates' tau
 QSCORE_WEIGHTS = REPO / "results" / "r5_qscore_multi.json"
 TTA_SHAPES = ((4, 1500, 64), (8, 1500, 64), (24, 1500, 64))
@@ -617,7 +647,7 @@ PRECISION_GRAD_REL = 5e-2
 # phase 38: the flagship's frozen recipe (FINAL.md: --synthetic 2048
 # --synthetic_mode mixed --mix_real DIR --mix_copies C --seed 100)
 RECIPE_ROOMS, RECIPE_SEED = 2048, 100
-RECIPE_CPU_ROOMS = 16          # per half, generated again on the CPU
+RECIPE_CPU_ROOMS = 8           # per half, generated again on the CPU
 RECIPE_REAL_ROOMS = 8          # make_rooms: 7 captures to mix in, 1 val
 RECIPE_MIX_COPIES = 16
 WALL_SLACK = 0.05              # the JAX suite's: inside the walls
@@ -627,7 +657,7 @@ DEMO_ROOMS, SAMPLE_TRACES = 3, 10
 # N=1500
 TRANSFORMER_REQUESTS = 5                  # requests checked card vs CPU
 TRANSFORMER_ROOMS = 10                    # make_rooms: 8 train rooms
-TRANSFORMER_STEPS, TRANSFORMER_WARMUP = 50, 5
+TRANSFORMER_STEPS, TRANSFORMER_WARMUP = 30, 3
 MOE_EXPERTS = 4
 MOE_STEPS, MOE_WARMUP = 20, 3
 PTH_MODELS = (("transformer", 128), ("lstm", 128), ("lstm", 256))
@@ -639,13 +669,39 @@ PARITY_KW = dict(batch_size=8, iou_thresh=0.5, threshold=0.1, nms=0.3)
 # phase 7's JSON stage measured with the Python parser before the native
 # one (NVIDIA H100 80GB HBM3, 700.00 W)
 PYTHON_PARSER_JSON_MS = 7.710
+# phase 43: the matcher's cases (name, form, B, Q, M, share of valid
+# columns), each on float and on integer costs; timing rounds
+MATCH_CASES = (("flagship", "fast", 20, 30, 50, 0.3),
+               ("scaleup", "fast", 128, 32, 32, 0.4),
+               ("legacy", "square", 32, 10, 10, 0.5),
+               ("m_over_q", "square", 8, 5, 9, 0.9))
+MATCH_TOTAL_RTOL = 1e-5
+MATCH_ITERS = 50
+MATCH_HOST_ITERS = 10
+# phase 44: the fused run against the per-epoch driver on one seed; the
+# flagship step's p50 with AdamW capturable and not, in turns
+FUSED_RTOL = 1e-5
+ADAMW_STEPS, ADAMW_WARMUP = 20, 3
+# phase 45: the profilers' depth (profile_scaleup2's default K, the
+# --reps the JAX tool's decomposition took), runs of each, the traced steps
+PROFILE_K = 8
+PROFILE_REPS = 5
+PROFILE_RUNS = 2
+PROFILE_TRACE_STEPS = 3
+# the seed offset of the large inputs' device generator (``stream_generator``)
+STREAM_SEED = 10_000
 GRU_PLAIN = {"bigru_fwd_cuda": gru_cuda.bigru_fwd_plain,
              "bigru_fwd_train_cuda": gru_cuda.bigru_fwd_train_plain,
              "bigru_bwd_cuda": gru_cuda.bigru_bwd_plain}
 
 
+_T0 = time.perf_counter()
+
+
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line: seconds since the script started, the phase's tag, the
+    message."""
+    print(f"{time.perf_counter() - _T0:7.1f} [{phase}] {msg}", flush=True)
 
 
 # mangled-name parts of the kernels that phase 2 reports, by library
@@ -827,13 +883,21 @@ def fused_bound(B: int, N: int, H: int, D: int, dtype: torch.dtype):
     return bound(nbytes, 2 * B * N * 2 * 3 * H * (2 * H + 2 * D), peak)
 
 
+def stream_generator(dev, seed):
+    """The device generator of the large seeded inputs (gate streams,
+    layer inputs): drawn on the card, where numpy takes seconds a tensor
+    at the scale-up shape; a stream of its own (the upstream gradients
+    draw from generators seeded ``seed`` and ``seed + 1``)."""
+    return torch.Generator(dev).manual_seed(STREAM_SEED + seed)
+
+
 def gru_inputs(B, N, H, dtype, dev, seed):
-    """Seeded BiGRU kernel inputs: gate streams in ``dtype``, W_hh and b_hh
-    float32 U(+-1/sqrt(H))."""
+    """Seeded BiGRU kernel inputs: gate streams in ``dtype`` (N(0, 0.25),
+    drawn on the device), W_hh and b_hh float32 U(+-1/sqrt(H))."""
     g = np.random.default_rng(seed)
-    xs = [torch.tensor(g.normal(size=(B, N, 3 * H)) * 0.5,
-                       dtype=torch.float32, device=dev).to(dtype)
-          for _ in range(2)]
+    gen = stream_generator(dev, seed)
+    xs = [(torch.randn(B, N, 3 * H, device=dev, generator=gen) * 0.5
+           ).to(dtype) for _ in range(2)]
     ws = [torch.tensor(g.uniform(-1, 1, size=sz) / np.sqrt(H),
                        dtype=torch.float32, device=dev)
           for sz in ((H, 3 * H), (3 * H,), (H, 3 * H), (3 * H,))]
@@ -1478,7 +1542,7 @@ def assignments(model, host, data_cfg, d):
         out = m.train()(feats, mask)
         cost = losses_mod.match_cost(out["pred_boxes"], out["pred_classes"],
                                      targets["boxes"], targets["labels"])
-        rows, matched = losses_mod.hungarian_match_batch(
+        rows, matched = losses_mod.hungarian_match_fast(
             cost, targets["valid_mask"])
     return m, rows.cpu(), matched.cpu(), batch, cost.cpu()
 
@@ -1527,7 +1591,7 @@ def step_parity(cfg, train_dir, dev, seed, tag="step_parity"):
     # assignment must be optimal under the CPU's costs; the two steps then
     # take the CPU's matcher output, replayed on the card.
     res, replay = {}, []
-    match_batch = losses_mod.hungarian_match_batch
+    match_batch = losses_mod.hungarian_match_fast
 
     def record(cost, valid):
         replay.append(match_batch(cost, valid))
@@ -1541,7 +1605,7 @@ def step_parity(cfg, train_dir, dev, seed, tag="step_parity"):
         m, rows, matched, batch, cost = assignments(model, host, cfg.data, d)
         opt = loop.make_optimizer(m, cfg)
         step = loop.make_train_step(m, opt, cfg, augment=False)
-        with mock.patch.object(losses_mod, "hungarian_match_batch",
+        with mock.patch.object(losses_mod, "hungarian_match_fast",
                                record if name == "cpu" else replayed):
             losses = step(batch, torch.Generator(d).manual_seed(seed))
         res[name] = ({k: float(v) for k, v in losses.items()},
@@ -1613,7 +1677,7 @@ def precision_check(cfg, train_dir, dev, seed, smi):
     sharpen(params)
     load_params(model, params)
     replay = []
-    match_batch = losses_mod.hungarian_match_batch
+    match_batch = losses_mod.hungarian_match_fast
 
     def record(cost, valid):
         replay.append(match_batch(cost, valid))
@@ -1630,7 +1694,7 @@ def precision_check(cfg, train_dir, dev, seed, smi):
         m, _, _, batch, _ = assignments(model, host, c.data, dev)
         opt = loop.make_optimizer(m, c)
         step = loop.make_train_step(m, opt, c, augment=False)
-        with mock.patch.object(losses_mod, "hungarian_match_batch",
+        with mock.patch.object(losses_mod, "hungarian_match_fast",
                                record if prec == "float32" else replayed):
             losses = step(batch, torch.Generator(dev).manual_seed(seed))
         torch.cuda.synchronize()
@@ -1864,7 +1928,7 @@ def time_steps(cfg, train_dir, dev, seed, smi, kernel_rows, shapes,
                "last_losses": {k: float(v) for k, v in losses.items()},
                "stage_ms": {"augment_featurize": mean[0],
                             "forward": mean[1],
-                            "criterion_host_matching": m_ms,
+                            "criterion_matching": m_ms,
                             "criterion_rest": mean[2] - m_ms,
                             "backward": mean[3], "optimizer": mean[4]},
                "staged_step_ms": float(mean.sum()),
@@ -2459,8 +2523,8 @@ def fused_case(B, N, H, D, dtype, dev, seed):
     weights U(+-1/sqrt(H)) (W_ih U(+-1/sqrt(D))), and an upstream
     gradient."""
     g = np.random.default_rng(seed)
-    x = torch.tensor(g.normal(size=(B, N, D)) * 0.5, dtype=torch.float32,
-                     device=dev).to(dtype)
+    x = (torch.randn(B, N, D, device=dev, generator=stream_generator(
+        dev, seed)) * 0.5).to(dtype)
     ws = [torch.tensor(g.uniform(-1, 1, size=sz) / np.sqrt(sz[0]),
                        dtype=torch.float32, device=dev)
           for _ in range(2)
@@ -3570,9 +3634,10 @@ def bigru_default_config():
     return ExperimentConfig().apply_overrides(["model.model_type=bigru"])
 
 
-def train_steps(cfg, train_dir, dev, seed):
+def train_steps(cfg, train_dir, dev, seed, capturable=None):
     """The trainer on ``train_dir``'s rooms: ``batch(i)``, the i-th batch
-    of its epoch plan, and ``take(batch)``, one step, its losses."""
+    of its epoch plan, and ``take(batch)``, one step, its losses
+    (``capturable``: ``loop.make_optimizer``'s, None its default)."""
     ds = TraceColliderArrays(train_dir, cfg.data, augment=True,
                              verbose=False)
     data = {k: torch.from_numpy(v).to(dev)
@@ -3582,17 +3647,17 @@ def train_steps(cfg, train_dir, dev, seed):
     nb = plan["base_idx"].shape[0]
     model = build_model(cfg.model, generator=torch.Generator()
                         .manual_seed(seed)).to(dev)
-    opt = loop.make_optimizer(model, cfg)
+    opt = loop.make_optimizer(model, cfg, capturable=capturable)
     step = loop.make_train_step(model, opt, cfg, augment=True)
     gen = torch.Generator(dev).manual_seed(seed)
     return (lambda i: loop.gather_batch(data, plan, i % nb),
             lambda batch: step(batch, gen))
 
 
-def step_p50(cfg, train_dir, dev, seed, n_steps, n_warmup):
+def step_p50(cfg, train_dir, dev, seed, n_steps, n_warmup, capturable=None):
     """p50 host ms of the trainer's step (ending in a synchronise) over
     ``n_steps`` after ``n_warmup``, and the launches of one step."""
-    batch_of, take = train_steps(cfg, train_dir, dev, seed)
+    batch_of, take = train_steps(cfg, train_dir, dev, seed, capturable)
     ms = []
     for i in range(n_steps + n_warmup):
         batch = batch_of(i)
@@ -3604,6 +3669,20 @@ def step_p50(cfg, train_dir, dev, seed, n_steps, n_warmup):
             ms.append((time.perf_counter() - t0) * 1e3)
         assert np.isfinite(float(losses["total_loss"]))
     return float(np.percentile(ms, 50)), counts()
+
+
+def device_busy_us(events, skip=()):
+    """The union of the device intervals of a ``torch.profiler`` trace's
+    events (kernels and copies; names in ``skip`` left out) in us, and
+    those events."""
+    on_dev = [e for e in events
+              if e.device_type.name == "CUDA" and e.name not in skip]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in on_dev):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy, on_dev
 
 
 # the CUDA API calls in which the host waits for the card
@@ -3651,13 +3730,7 @@ def step_trace(cfg, train_dir, dev, seed, n_steps, n_warmup, ranged):
     launched = counts()
     events = prof.events()
     # the ranges' own device spans (user annotations) are no device work
-    on_dev = [e for e in events
-              if e.device_type.name == "CUDA" and e.name not in ranged]
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end)
-                       for e in on_dev):
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
+    busy, on_dev = device_busy_us(events, skip=ranged)
     busy_ms = busy / 1e3 / n_steps
     out = {"steps": n_steps, "host_ms": host_ms,
            "device_events": len(on_dev),
@@ -6232,6 +6305,308 @@ def transformer_path(dev, seed, smi, window, warmup):
     return launched
 
 
+MATCH_FORMS = {"fast": hungarian.hungarian_match_fast,
+               "square": hungarian.hungarian_match}
+
+
+def match_inputs(B, Q, M, share, ints, dev, seed):
+    """A seeded match cost ``[B, Q, M]`` (normal, or integers 0-2: ties
+    everywhere) and valid mask, item 0 with no valid column."""
+    g = np.random.default_rng(seed)
+    cost = (g.integers(0, 3, (B, Q, M)) if ints
+            else g.normal(size=(B, Q, M))).astype(np.float32)
+    valid = g.uniform(size=(B, M)) < share
+    valid[0] = False
+    return torch.tensor(cost, device=dev), torch.tensor(valid, device=dev)
+
+
+def host_match(cost, valid):
+    """The matcher the kernel replaced, kept here as its yardstick: the
+    batch's cost copied to the host, scipy on each item's first
+    ``min(M, Q)`` valid columns (``hungarian_match_fast``'s contract), the
+    assignment copied back."""
+    from scipy.optimize import linear_sum_assignment
+
+    c = cost.detach().float().cpu().numpy()
+    v = valid.cpu().numpy()
+    B, Q, M = c.shape
+    rows = np.zeros((B, M), np.int64)
+    matched = np.zeros((B, M), bool)
+    for b in range(B):
+        sel = np.flatnonzero(v[b])[:min(M, Q)]
+        if len(sel):
+            gt, pred = linear_sum_assignment(c[b][:, sel].T)
+            rows[b, sel[gt]] = pred
+            matched[b, sel[gt]] = True
+    return (torch.from_numpy(rows).to(cost.device),
+            torch.from_numpy(matched).to(cost.device))
+
+
+def scipy_totals(cost, valid):
+    """Each item's optimal total over its valid columns (scipy, float64)."""
+    from scipy.optimize import linear_sum_assignment
+
+    out = []
+    for c, v in zip(cost.double().numpy(), valid.numpy()):
+        sub = c[:, np.flatnonzero(v)]
+        r, k = linear_sum_assignment(sub)
+        out.append(sub[r, k].sum())
+    return torch.tensor(out, dtype=torch.float64)
+
+
+def hungarian_phase(dev, seed, smi):
+    """Phase 43: both matcher forms at ``MATCH_CASES`` on float and tie
+    costs, the kernel (one launch a call) against the plain version on the
+    CPU, bit for bit, and against scipy's optimum; the kernel's time beside
+    the plain version's on the card and the host path's. Returns the
+    flagship case's row for the kernels line."""
+    rows, worst = {}, 0
+    for name, form, B, Q, M, share in MATCH_CASES:
+        fn = MATCH_FORMS[form]
+        for ints in (False, True):
+            cost, valid = match_inputs(B, Q, M, share, ints, dev, seed)
+            before = hungarian.hungarian_cuda.launches
+            got = fn(cost, valid)
+            torch.cuda.synchronize()
+            assert hungarian.hungarian_cuda.launches == before + 1
+            c_cpu, v_cpu = cost.cpu(), valid.cpu()
+            ref = fn(c_cpu, v_cpu)
+            assert torch.equal(got[0].cpu(), ref[0]), (name, ints)
+            assert torch.equal(got[1].cpu(), ref[1]), (name, ints)
+            assert not got[1][0].any(), name
+            worst = max(worst, int((got[0].cpu() - ref[0]).abs().max()))
+            # the optimum over the valid columns (the fast form: where
+            # every one is kept)
+            keep = (torch.ones(B, dtype=torch.bool) if form == "square"
+                    else v_cpu.sum(1) <= Q)
+            total = assignment_cost(c_cpu, ref[0], ref[1])[keep]
+            opt = scipy_totals(c_cpu[keep], v_cpu[keep])
+            gap = ((total - opt).abs() / opt.abs().clamp_min(1.0)).max()
+            assert float(gap) <= MATCH_TOTAL_RTOL, (name, ints, float(gap))
+        # timing on the float costs
+        cost, valid = match_inputs(B, Q, M, share, False, dev, seed)
+        if form == "fast":
+            _, _, sub, n_rows = hungarian.fast_problem(cost, valid)
+        else:
+            sub, n_rows = hungarian.square_problem(cost, valid), None
+        n, m = sub.shape[1:]
+        kernel_ms = cuda_ms(lambda: hungarian.hungarian_cuda(sub, n_rows),
+                            MATCH_ITERS)
+        match_ms = cuda_ms(lambda: fn(cost, valid), MATCH_ITERS)
+        plain_ms = np.mean([timed_host(lambda: hungarian.assign_plain(
+            sub, n_rows)) for _ in range(MATCH_HOST_ITERS)])
+        host_ms = np.mean([timed_host(lambda: host_match(cost, valid))
+                           for _ in range(MATCH_HOST_ITERS)])
+        inserted = B * n if n_rows is None else int(n_rows.sum())
+        nbytes = B * (n * m * 4 + 4 + (n + m) * 4)
+        bnd, by = bound(nbytes, 4.0 * inserted * m)
+        rows[name] = {"form": form, "shape": [B, Q, M], "problem": [B, n, m],
+                      "inserted_rows": inserted, "err": worst,
+                      "kernel_ms": kernel_ms, "match_ms": match_ms,
+                      "plain_ms": float(plain_ms), "host_ms": float(host_ms),
+                      "bound_us": bnd * 1e3, "bound_by": by,
+                      "library_ms": None}
+        log("matcher", f"{name}: " + json.dumps(rows[name]) + f" on {smi} "
+            "(kernel_ms: the kernel alone, CUDA events over "
+            f"{MATCH_ITERS} calls; match_ms: the whole {form} matcher; "
+            "plain_ms: assign_plain on the card, host clock; host_ms: the "
+            "host path it replaced: copy, scipy per item, copy back)")
+    return rows
+
+
+def timed_host(fn) -> float:
+    """Host ms of one call of ``fn``, synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def fused_run_phase(cfg, dev, seed, smi):
+    """Phase 44: ``train_benchmark_fused`` and ``train_benchmark`` on the
+    flagship, one seed and one set of rooms: histories, best epochs,
+    launch counts and wall times, the per-epoch driver on the fused run's
+    AdamW (capturable), then on its own default AdamW (the distance
+    printed); then the flagship's train step (a
+    host-bound one) with AdamW ``capturable`` (a device learning rate and
+    step count, the fused run's) and without (a float learning
+    rate, the host's step count), p50 over ``ADAMW_STEPS`` after
+    ``ADAMW_WARMUP`` in turns on, off, off, on. Returns the matcher's
+    launches in the fused run, the two wall times and the step p50s."""
+    c = copy.deepcopy(cfg)
+    c.train.num_epochs = EPOCHS
+    # the fused run applies the plateau rule whatever the config says (the
+    # flagship's is cosine), as the JAX package's: the per-epoch driver
+    # takes the same rule here
+    c.train.lr_schedule = "plateau"
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dir, val_dir = make_rooms(Path(tmp) / "rooms", ROOMS, seed)
+        c.data.data_dir, c.data.val_dir = str(train_dir), str(val_dir)
+        train_ds = TraceColliderArrays(train_dir, c.data, augment=True,
+                                       verbose=False)
+        val_ds = TraceColliderArrays(val_dir, c.data, augment=False,
+                                     verbose=False)
+        steps = EPOCHS * train_ds.num_batches(c.train.batch_size)
+        val_batches = EPOCHS * val_ds.num_batches(c.train.batch_size)
+        # the per-epoch driver on the fused run's AdamW (capturable), so
+        # that the two runs differ in their drivers only; then on its own
+        # default AdamW (the step size rounded on the host: its distance is
+        # printed, not held)
+        per_epoch_opt = mock.patch.object(
+            driver_mod, "make_optimizer",
+            lambda model, cfg: loop.make_optimizer(model, cfg,
+                                                   capturable=True))
+        for name, fn, ctx in (
+                ("fused", train_benchmark_fused, contextlib.nullcontext()),
+                ("per_epoch", train_benchmark, per_epoch_opt),
+                ("per_epoch_default", train_benchmark,
+                 contextlib.nullcontext())):
+            c.train.save_dir = str(Path(tmp) / name)
+            reset_counts()
+            hungarian.hungarian_cuda.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ctx:
+                res = fn(c, device=dev, verbose=False, train_ds=train_ds,
+                         val_ds=val_ds)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            layers = c.model.lstm_layers
+            launched = counts()
+            assert launched == expected_counts(
+                bilstm_fwd=layers * val_batches,
+                bilstm_fwd_train=layers * steps,
+                bilstm_bwd=layers * steps), (name, launched)
+            matcher = hungarian.hungarian_cuda.launches
+            # one match a step; the criterion's and the metrics' a batch
+            assert matcher == steps + 2 * val_batches, (name, matcher)
+            logged = [json.loads(x) for x in (Path(tmp) / name /
+                      "history.jsonl").read_text().splitlines()]
+            runs[name] = (res, wall, matcher, [r["lr"] for r in logged])
+        adamw = {"capturable": [], "host_step": []}
+        for cap in (True, False, False, True):
+            ms, _ = step_p50(cfg, train_dir, dev, seed, ADAMW_STEPS,
+                             ADAMW_WARMUP, capturable=cap)
+            adamw["capturable" if cap else "host_step"].append(ms)
+    (fused, f_wall, f_match, f_lr), (plain, p_wall, _, p_lr) = \
+        runs["fused"], runs["per_epoch"]
+
+    def distance(a, b, a_lr, b_lr):
+        d = {"loss_rel": 0.0, "lr_rel": 0.0, "miou_rel": 0.0,
+             "counts_equal": True}
+        for f, p, fl, pl in zip(a["history"], b["history"], a_lr, b_lr):
+            for k in ("train_loss", "val_loss"):
+                d["loss_rel"] = max(d["loss_rel"],
+                                    abs(f[k] - p[k]) / abs(p[k]))
+            d["lr_rel"] = max(d["lr_rel"], abs(fl - pl) / pl)
+            d["miou_rel"] = max(d["miou_rel"], abs(f["mIoU"] - p["mIoU"])
+                                / max(abs(p["mIoU"]), 1e-12))
+            d["counts_equal"] &= all(f[k] == p[k] for k in
+                                     ("tp", "fp", "fn", "cls_acc"))
+        return d
+
+    diffs = distance(fused, plain, f_lr, p_lr)
+    assert diffs.pop("counts_equal"), (fused["history"], plain["history"])
+    assert all(v <= FUSED_RTOL for v in diffs.values()), diffs
+    vals = [r["val_loss"] for r in plain["history"]]
+    assert fused["best_epoch"] == int(np.argmin(vals)), (fused, vals)
+    timing = {"fused_wall_s": f_wall, "per_epoch_wall_s": p_wall,
+              "epochs": EPOCHS, "steps": steps,
+              "validation_batches": val_batches, "matcher_launches": f_match,
+              "best_epoch": fused["best_epoch"], **diffs}
+    log("fused_run", json.dumps(timing) + f" on {smi} (host clock, the "
+        "fused run first; losses and learning rates within "
+        f"{FUSED_RTOL} rel, tp / fp / fn / cls_acc and the best epoch "
+        "equal)")
+    timing["adamw_step_p50_ms"] = adamw
+    default, d_wall, _, d_lr = runs["per_epoch_default"]
+    timing["per_epoch_default_adamw"] = {
+        "wall_s": d_wall, **distance(fused, default, f_lr, d_lr)}
+    log("fused_run", "the per-epoch driver on its default AdamW (float lr, "
+        "host step count) against the fused run, not held: "
+        + json.dumps(timing["per_epoch_default_adamw"]) + f" on {smi}")
+    log("fused_run", "flagship train step p50 (host ms, B="
+        f"{cfg.train.batch_size}, N={cfg.data.max_trace_len}, over "
+        f"{ADAMW_STEPS} after {ADAMW_WARMUP}, turns on, off, off, on) with "
+        "AdamW capturable (device lr and step count) and with a float lr "
+        f"and host step count: {json.dumps(adamw)} on {smi}")
+    return timing
+
+
+def row_ranges(results):
+    """Each number of the runs' ``measured_ms`` and ``derived`` blocks as
+    ``[min, max]`` over the runs (nested dicts kept)."""
+    def span(vals):
+        if isinstance(vals[0], dict):
+            return {k: span([v[k] for v in vals]) for k in vals[0]}
+        if any(v is None for v in vals):
+            return None
+        return [min(vals), max(vals)]
+    return {block: span([r[block] for r in results])
+            for block in ("measured_ms", "derived")}
+
+
+def profiler_phase(dev, smi):
+    """Phase 45: both profilers at the scale-up shape, ``PROFILE_RUNS``
+    runs each (the JSON of each run under ``build/``, each row's range over
+    the runs printed), and one device trace of the scale-up train step:
+    the device's busy share."""
+    from room_slam_torch.tools import profile_scaleup, profile_scaleup2
+    from room_slam_torch.utils.profiling import device_trace
+
+    out = REPO / "build"
+    B, N = SCALEUP[:2]
+    shape = ["--batch", str(B), "--seq", str(N), "--device", "cuda"]
+    tools = (("profile_scaleup2", profile_scaleup2,
+              ["--k", str(PROFILE_K), "--kernels"]),
+             ("profile_scaleup", profile_scaleup,
+              ["--reps", str(PROFILE_REPS)]))
+    results = {}
+    for run in range(PROFILE_RUNS):
+        for name, tool, flags in tools:
+            r = tool.main(shape + flags + [
+                "--output", str(out / f"{name}_run{run}.json")])
+            results.setdefault(name, []).append(r)
+            log("profile", f"{name} run {run}: measured "
+                + json.dumps(r["measured_ms"]) + " derived "
+                + json.dumps(r["derived"]) + f" on {smi}")
+            torch.cuda.empty_cache()
+    for name, _, flags in tools:
+        log("profile", f"{name} over {PROFILE_RUNS} runs ([min, max], ms; "
+            f"{' '.join(flags)}): " + json.dumps(row_ranges(results[name]))
+            + f" on {smi}")
+    cfg = profile_scaleup.scaleup_config(B, N)
+    model = build_model(cfg.model,
+                        generator=torch.Generator().manual_seed(0)).to(dev)
+    step = loop.make_train_step(model, loop.make_optimizer(model, cfg), cfg)
+    batch = profile_scaleup.scaleup_batch(B, N, cfg.data.max_colliders, dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    for _ in range(2):
+        step(batch, gen)
+    torch.cuda.synchronize()
+    with device_trace(out / "trace_scaleup") as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_TRACE_STEPS):
+            step(batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_TRACE_STEPS
+    busy, on_dev = device_busy_us(prof.events())
+    busy_ms = busy / 1e3 / PROFILE_TRACE_STEPS
+    trace = {"steps": PROFILE_TRACE_STEPS, "host_ms_a_step": wall_ms,
+             "device_events": len(on_dev),
+             "device_busy_ms_a_step": busy_ms if on_dev else None,
+             "device_busy_share": busy_ms / wall_ms if on_dev else None}
+    log("profile", "full_step device trace " + json.dumps(trace)
+        + f" on {smi} (torch.profiler, the union of kernel and copy "
+        "intervals over the host's step time; the profiler's own cost "
+        "included)")
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return {**results, "trace": trace}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6653,6 +7028,15 @@ def main() -> int:
     # the wide kernels, and an lstm at d_model 192 on them (a main path)
     mid_worst, mid_rows, mid_launched = lstm_mid_phase(dev, args.seed, smi)
 
+    # 43-45. the exact matcher on the card, the fused run (a main path)
+    # beside the per-epoch driver, the profilers at the scale-up shape
+    t_43 = time.perf_counter()
+    match_rows = hungarian_phase(dev, args.seed, smi)
+    fused_timing = fused_run_phase(ExperimentConfig.from_json(CONFIG), dev,
+                                   args.seed, smi)
+    profiler_phase(dev, smi)
+    log("done", f"phases 43-45 in {time.perf_counter() - t_43:.1f} s")
+
     def entry(name, source, replaces, launched, row):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launched,
@@ -6860,6 +7244,13 @@ def main() -> int:
         "launches_pth"] = pth_launched["lstm_256"]
     kernels[0]["shapes"] += tta_rows
     kernels[0]["recipes"] = recipe_rows
+    kernels.append({
+        **entry("hungarian", "room_slam_torch/csrc/hungarian.cu",
+                "room_slam_tpu/ops/hungarian.py:227",
+                fused_timing["matcher_launches"], match_rows["flagship"]),
+        "host_ms": match_rows["flagship"]["host_ms"],
+        "match_ms": match_rows["flagship"]["match_ms"],
+        "shapes": list(match_rows.values())})
     log("done", f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -77,3 +77,9 @@ def build_model(cfg: ModelConfig,
     raise ValueError(f"Unknown model_type: {cfg.model_type}. Use "
                      "'transformer', 'lstm', 'bigru' or 'gru' (legacy "
                      "surface).")
+
+
+def count_parameters(model: nn.Module) -> int:
+    """Trainable parameters: the JAX package's count over its parameter
+    tree (the same leaves, through the weight bridge)."""
+    return sum(p.numel() for p in model.parameters())

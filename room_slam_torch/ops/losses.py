@@ -10,11 +10,13 @@
   ``objectness_iou``).
 
 All means are weighted by pair and sample weights, so batch-padding
-samples (weight 0) contribute nothing. Matching runs on the host
-(``ops/hungarian.py``): one device-to-host copy of the cost per call.
+samples (weight 0) contribute nothing. Matching runs on the cost's device
+(``ops/hungarian.py``: the kernel on the card, one launch a batch):
+``hungarian_match_fast`` here, as the JAX package's ``match``.
 
 ``legacy_criterion`` is the legacy surface's 2D loss (class, position,
-size, orientation, validity) with the same matcher.
+size, orientation, validity), matched by the exact square form
+(``hungarian_match_batch``), as the JAX package's.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from room_slam_torch.ops import iou as iou_ops
-from room_slam_torch.ops.hungarian import hungarian_match_batch
+from room_slam_torch.ops.hungarian import (hungarian_match_batch,
+                                           hungarian_match_fast)
 
 DEFAULT_COST_CLASS = 1.0
 DEFAULT_COST_BOX = 5.0
@@ -48,10 +51,11 @@ def match_cost(pred_boxes: torch.Tensor, pred_logits: torch.Tensor,
 
 def match(pred_boxes, pred_logits, gt_boxes, gt_labels, gt_valid
           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Hungarian matching per batch item: ``(row_for_col [B, M] int64,
-    matched [B, M] bool)`` on the inputs' device."""
+    """Hungarian matching per batch item (``hungarian_match_fast``):
+    ``(row_for_col [B, M] int64, matched [B, M] bool)`` on the inputs'
+    device."""
     cost = match_cost(pred_boxes, pred_logits, gt_boxes, gt_labels)
-    return hungarian_match_batch(cost, gt_valid)
+    return hungarian_match_fast(cost, gt_valid)
 
 
 def _weighted_mean(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -223,10 +227,9 @@ def legacy_criterion(outputs: Dict[str, torch.Tensor],
     (logits); targets: ``boxes [B, M, 5]`` (x, y, w, h, theta), ``labels
     [B, M]``, ``valid_mask [B, M]``.
 
-    The match cost is -softmax prob of the GT class + 5 * position L1. The
-    JAX package solves it with its exact square solver; the host matcher
-    here gives the same assignment to every valid column and row 0 to the
-    invalid ones, which carry weight 0 in every term."""
+    The match cost is -softmax prob of the GT class + 5 * position L1,
+    solved by the exact square form (``hungarian_match_batch``), as the
+    JAX package's."""
     logits = outputs["classes"]
     pos = outputs["positions"]
     size = outputs["sizes"]

@@ -4,11 +4,18 @@
         --data_dir DIR [--val_dir DIR] [--epochs N] [--batch_size B] \\
         [--lr LR] [--model lstm|bigru|transformer] [--d_model D] \\
         [--num_queries Q] [--max_trace_len L] [--schedule plateau|cosine] \\
-        [--resume STEM] [--save_dir DIR] [--seed S] \\
+        [--resume STEM] [--save_dir DIR] [--seed S] [--no_fused] \\
         [--set section.key=value ...] [--device cuda|cpu]
     python -m room_slam_torch.train --surface legacy --data_dir DIR \\
         [--epochs N] [--batch_size B] [--lr LR] [--hidden_size 128] \\
         [--seq_len 500] [--max_objects 10] [--save_dir DIR] [--device cuda]
+
+The benchmark surface trains with the fused run (``train_benchmark_fused``:
+epochs, validation, the plateau scheduler and the best model on the
+device, one host read a segment of epochs), as the JAX package's
+``train.py``, unless ``--no_fused``, ``--synthetic`` or ``--resume`` is
+given: those take the per-epoch driver (``train_benchmark``: cosine
+schedule, periodic checkpoints, resume, recovery).
 
 ``--surface auto`` (the default) trains the legacy GRU surface when
 ``--data_dir`` holds ``*.csv`` traces, else the benchmark surface. The
@@ -54,7 +61,14 @@ from room_slam_torch.config import ExperimentConfig
 from room_slam_torch.data.dataset import TraceColliderArrays
 from room_slam_torch.data.legacy import create_sample_data
 from room_slam_torch.train.driver import (make_synthetic_datasets,
-                                          train_benchmark, train_legacy)
+                                          train_benchmark,
+                                          train_benchmark_fused, train_legacy)
+
+
+def use_fused(args: argparse.Namespace) -> bool:
+    """The JAX package's ``train.py`` rule: the fused run unless
+    ``--no_fused``, ``--synthetic`` or ``--resume``."""
+    return not (args.no_fused or args.synthetic or args.resume)
 
 
 def main(argv=None) -> None:
@@ -89,6 +103,9 @@ def main(argv=None) -> None:
     p.add_argument("--resume", type=str, default=None,
                    help="continue from a checkpoint stem (params + "
                         "optimizer state + epoch + scheduler)")
+    p.add_argument("--no_fused", action="store_true",
+                   help="train with the per-epoch host loop instead of the "
+                        "fused run")
     p.add_argument("--set", dest="overrides", action="append", default=[],
                    help="config override section.key=value (repeatable)")
     p.add_argument("--device", type=str, default="cuda",
@@ -192,8 +209,11 @@ def main(argv=None) -> None:
                 tr = TraceColliderArrays.concat([tr, real],
                                                 [1, args.mix_copies])
             kwargs = {"train_ds": tr, "val_ds": va}
-        result = train_benchmark(cfg, device=args.device,
-                                 resume=args.resume, **kwargs)
+        if use_fused(args):
+            result = train_benchmark_fused(cfg, device=args.device, **kwargs)
+        else:
+            result = train_benchmark(cfg, device=args.device,
+                                     resume=args.resume, **kwargs)
     print(json.dumps({k: v for k, v in result.items()
                       if isinstance(v, (int, float, str))}, indent=2))
 

@@ -1,12 +1,13 @@
 """Training driver and model loading (counterpart of the JAX package's
-``train/driver.py``: ``make_synthetic_datasets``, ``train_benchmark`` with
-its per-epoch host loop, ``_check_query_capacity``, ``train_legacy`` and
-``load_model_for_inference``).
+``train/driver.py``: ``make_synthetic_datasets``, ``train_benchmark_fused``
+(the whole run on the device, read back once a segment),
+``train_benchmark`` with its per-epoch host loop, ``_check_query_capacity``,
+``train_legacy`` and ``load_model_for_inference``).
 
 ``train_benchmark`` resumes from a checkpoint (``resume=``) and recovers
 from a CUDA runtime error (``max_recoveries``), as the JAX package's does;
 its validation runs at ``train.matmul_precision``, as its steps.
-Not ported: the fused whole-run dispatch (``train_benchmark_fused``).
+``train_benchmark_fused`` does neither, as the JAX package's fused run.
 """
 
 from __future__ import annotations
@@ -26,13 +27,15 @@ from room_slam_torch.config import ExperimentConfig, TrainConfig
 from room_slam_torch.data import prng, synthetic
 from room_slam_torch.data.dataset import TraceColliderArrays
 from room_slam_torch.data.legacy import LegacyArrays
-from room_slam_torch.models.factory import build_model
+from room_slam_torch.models.factory import build_model, count_parameters
 from room_slam_torch.models.legacy_gru import RoomSlamGRU
 from room_slam_torch.ops.losses import legacy_criterion
 from room_slam_torch.train import checkpoint as ckpt_lib
-from room_slam_torch.train.loop import (Batch, Optimizer, PlateauScheduler,
-                                        eval_model, gather_batch,
-                                        make_eval_epoch, make_optimizer,
+from room_slam_torch.train.loop import (METRIC_KEYS, Batch, Optimizer,
+                                        PlateauScheduler, device_plan,
+                                        eval_model, fused_run_init,
+                                        gather_batch, make_eval_epoch,
+                                        make_fused_run, make_optimizer,
                                         make_train_step, matmul_precision,
                                         warmup_cosine_lr)
 from room_slam_torch.train.metrics import summarize_metrics
@@ -118,6 +121,122 @@ def make_synthetic_datasets(cfg: ExperimentConfig, n_rooms: int,
             TraceColliderArrays.from_arrays(val, cfg.data, augment=False))
 
 
+def fused_segment(num_epochs: int, num_batches: int) -> int:
+    """Epochs a fused segment runs between host reads: about 200 optimizer
+    steps, at most 20 epochs (the JAX package's rule)."""
+    return max(1, min(20, num_epochs, max(1, 200 // num_batches)))
+
+
+def train_benchmark_fused(cfg: ExperimentConfig,
+                          device: str | torch.device = "cuda",
+                          verbose: bool = True,
+                          train_ds: TraceColliderArrays | None = None,
+                          val_ds: TraceColliderArrays | None = None
+                          ) -> Dict:
+    """Train a benchmark-surface model with the whole run on the device
+    (``loop.make_fused_run``): epochs, validation, the plateau scheduler
+    and the best parameters, with one host read of the history a segment
+    of ``fused_segment`` epochs. Every epoch's index plan is built up front
+    and, with both datasets, copied to the device once. The steps and the
+    validation run at ``train.matmul_precision``.
+
+    As the JAX package's fused run: the plateau rule applies whatever
+    ``train.lr_schedule`` says, no periodic checkpoint is kept and nothing
+    resumes; ``best_model`` (the best epoch's evaluation parameters) and
+    ``final_model`` (with the optimizer state) are written under
+    ``train.save_dir`` with ``history.jsonl``. The augmentation and dropout
+    come from one device generator in ``train_benchmark``'s order, so on
+    one seed both drivers take the same steps."""
+    dev = resolve_device(device)
+    t = cfg.train
+    if train_ds is None:
+        train_ds = TraceColliderArrays(cfg.data.data_dir, cfg.data,
+                                       augment=True, verbose=verbose)
+    if val_ds is None:
+        val_ds = TraceColliderArrays(cfg.data.val_dir, cfg.data,
+                                     augment=False, verbose=verbose)
+    model = build_model(cfg.model,
+                        generator=torch.Generator().manual_seed(t.seed))
+    model = model.to(dev)
+    n_params = count_parameters(model)
+    if verbose:
+        print(f"Model parameters: {n_params:,}")
+    _check_query_capacity(cfg, train_ds, val_ds)
+
+    # the scheduler's device learning rate goes into AdamW with no host read
+    opt = make_optimizer(model, cfg, capturable=dev.type == "cuda")
+    run = make_fused_run(model, opt, cfg)
+    sched, best = fused_run_init(cfg, model, opt)
+
+    E = t.num_epochs
+    seg = fused_segment(E, train_ds.num_batches(t.batch_size))
+    plans_np = [train_ds.epoch_plan(t.batch_size, seed=t.seed + e)
+                for e in range(E)]
+    val_plan = device_plan(val_ds.epoch_plan(t.batch_size, shuffle=False),
+                           dev)
+    train_data = device_plan(train_ds.device_arrays(), dev)
+    val_data = device_plan(val_ds.device_arrays(), dev)
+    gen = torch.Generator(device=dev).manual_seed(t.seed)
+
+    t0 = time.time()
+    chunks = []
+    for lo in range(0, E, seg):
+        idxs = list(range(lo, min(lo + seg, E)))
+        plans = device_plan({k: np.stack([plans_np[i][k] for i in idxs])
+                             for k in plans_np[0]}, dev)
+        epoch_ids = torch.tensor(idxs, dtype=torch.int32, device=dev)
+        sched, best, hist = run(sched, best, train_data, val_data, plans,
+                                val_plan, epoch_ids, gen)
+        chunks.append({k: v.cpu().numpy() for k, v in hist.items()})
+    history = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+    best_val = float(best["val_loss"])
+    wall = time.time() - t0
+
+    save_dir = Path(t.save_dir)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    cfg.to_json(save_dir / "config.json")
+    mlog = MetricsLogger(save_dir / "history.jsonl")
+    hist_rows = []
+    for e in range(E):
+        m = summarize_metrics({k: float(history[k][e]) for k in METRIC_KEYS})
+        row = {"epoch": e, "train_loss": float(history["train_loss"][e]),
+               "val_loss": float(history["val_loss"][e]),
+               "lr": float(history["lr"][e]), **m}
+        hist_rows.append(row)
+        mlog.log(**{k: v for k, v in row.items()
+                    if isinstance(v, (int, float))})
+        if verbose and (e % 10 == 0 or e == E - 1):
+            print(f"Epoch {e}: Train {row['train_loss']:.4f} | "
+                  f"Val {row['val_loss']:.4f} | mIoU={row['mIoU']:.3f} "
+                  f"F1={row['f1']:.3f} ClsAcc={row['cls_acc']:.3f} | "
+                  f"LR={row['lr']:.6f}")
+
+    best_epoch = int(best["epoch"])
+    best_metrics = hist_rows[best_epoch] if 0 <= best_epoch < E else {}
+    ckpt_lib.save_checkpoint(
+        save_dir / "best_model", best["params"], epoch=best_epoch,
+        val_loss=best_val, metrics=best_metrics, config=cfg, model=model)
+    ckpt_lib.save_checkpoint(
+        save_dir / "final_model", model.state_dict(), opt.state_dict(),
+        epoch=E - 1, val_loss=hist_rows[-1]["val_loss"],
+        metrics=hist_rows[-1], config=cfg, model=model)
+    if verbose:
+        print(f"✓ Saved BEST model from epoch {best_epoch} "
+              f"(val_loss={best_val:.4f}) and final model")
+
+    samples_seen = train_ds.num_samples * E
+    return {
+        "best_val_loss": best_val,
+        "best_epoch": best_epoch,
+        "history": hist_rows,
+        "wall_time_s": wall,
+        "samples_seen": samples_seen,
+        "samples_per_sec": samples_seen / max(wall, 1e-9),
+        "n_params": n_params,
+        "save_dir": str(save_dir),
+    }
+
+
 def train_benchmark(cfg: ExperimentConfig,
                     device: str | torch.device = "cuda",
                     verbose: bool = True,
@@ -173,7 +292,7 @@ def train_benchmark(cfg: ExperimentConfig,
             side, opt_state is not None
 
     model, opt, step, side, has_opt = fresh(resume)
-    n_params = sum(p.numel() for p in model.parameters())
+    n_params = count_parameters(model)
     if verbose:
         print(f"Model parameters: {n_params:,}")
     _check_query_capacity(cfg, train_ds, val_ds)

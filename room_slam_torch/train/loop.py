@@ -2,11 +2,20 @@
 ``train/loop.py``).
 
 One training step: augment -> featurize -> forward (train mode, dropout
-from the step's generator) -> set criterion (host Hungarian matching) ->
-backward (the BiLSTM recurrence through ``BiLSTMFunction``: the training
-forward and BPTT kernels on the card) -> clip by global norm -> AdamW
-[-> parameter EMA]. PyTorch runs eagerly, so there is no fused whole-epoch
-or whole-run dispatch; a CUDA graph is the tool for that, later.
+from the step's generator) -> set criterion (Hungarian matching on the
+device: ``ops/hungarian.py``'s kernel on the card) -> backward (the
+recurrences through their autograd ``Function``s: the training forward and
+BPTT kernels on the card) -> clip by global norm -> AdamW [-> parameter
+EMA]. Nothing in a step reads a value back to the host.
+
+Above the step, as in the JAX package: ``make_train_steps`` (N steps on one
+batch), ``make_train_epoch`` (an epoch over a device index plan),
+``make_eval_epoch`` (a whole split's mean losses and metric sums), the
+device plateau scheduler (``SchedState``, ``sched_init``,
+``sched_update``) and ``make_fused_run`` / ``fused_run_init``: epochs,
+validation, the scheduler and the best parameters, all on the device with
+no host read. PyTorch runs eagerly, so these are Python loops over device
+work, not one dispatch.
 """
 
 from __future__ import annotations
@@ -14,7 +23,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,17 +54,30 @@ class Optimizer:
     ``state_dict`` / ``load_state_dict`` read and write the state in the
     layout flax serializes for the JAX package's optimizer,
     ``inject_hyperparams(chain(clip_by_global_norm, adamw[, ema]))``, so a
-    checkpoint resumes in either package."""
+    checkpoint resumes in either package.
 
-    def __init__(self, model: nn.Module, cfg: ExperimentConfig):
+    The learning rate is a 0-d float32 tensor, as ``inject_hyperparams``
+    keeps it, and ``set_learning_rate`` takes a number or a tensor. On the
+    card AdamW keeps its default there: a float learning rate and the step
+    count on the host (a tensor is read back). ``capturable=True`` (the
+    fused run's, on the card) keeps both on the device, so that the
+    scheduler's device value goes in without a host read; it costs a
+    host-bound step a few ms (PERF.md)."""
+
+    def __init__(self, model: nn.Module, cfg: ExperimentConfig,
+                 capturable: bool = False):
         t = cfg.train
         self.model = model
         self.named = list(model.named_parameters())
         self.params = [p for _, p in self.named]
         self.grad_clip = t.grad_clip
-        self.adamw = torch.optim.AdamW(self.params, lr=t.lr,
-                                       betas=(0.9, 0.999), eps=1e-8,
-                                       weight_decay=t.weight_decay)
+        dev = self.params[0].device if self.params else torch.device("cpu")
+        self.capturable = capturable
+        lr = (torch.tensor(t.lr, dtype=torch.float32, device=dev)
+              if capturable or dev.type != "cuda" else t.lr)
+        self.adamw = torch.optim.AdamW(
+            self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+            weight_decay=t.weight_decay, capturable=self.capturable)
         self.ema_decay = t.ema_decay
         self.ema = ({n: p.detach().clone() for n, p in self.named}
                     if t.ema_decay > 0 else None)
@@ -64,9 +86,14 @@ class Optimizer:
     def lr(self) -> float:
         return float(self.adamw.param_groups[0]["lr"])
 
-    def set_learning_rate(self, lr: float) -> None:
+    def set_learning_rate(self, lr: float | torch.Tensor) -> None:
         for group in self.adamw.param_groups:
-            group["lr"] = float(lr)
+            if not isinstance(group["lr"], torch.Tensor):
+                group["lr"] = float(lr)
+            elif isinstance(lr, torch.Tensor):
+                group["lr"].copy_(lr)
+            else:
+                group["lr"].fill_(float(lr))
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -133,7 +160,9 @@ class Optimizer:
         if count > 0:
             for n, p in self.named:
                 self.adamw.state[p] = {
-                    "step": torch.tensor(float(count)),
+                    "step": torch.tensor(
+                        float(count),
+                        device=p.device if self.capturable else "cpu"),
                     "exp_avg": mu[n].to(p.device, p.dtype),
                     "exp_avg_sq": nu[n].to(p.device, p.dtype)}
         self.set_learning_rate(float(np.asarray(
@@ -145,8 +174,9 @@ class Optimizer:
                     self.ema[n].copy_(v)
 
 
-def make_optimizer(model: nn.Module, cfg: ExperimentConfig) -> Optimizer:
-    return Optimizer(model, cfg)
+def make_optimizer(model: nn.Module, cfg: ExperimentConfig,
+                   capturable: bool = False) -> Optimizer:
+    return Optimizer(model, cfg, capturable)
 
 
 def eval_model(model: nn.Module, opt: Optimizer) -> nn.Module:
@@ -371,15 +401,17 @@ def make_eval_epoch(cfg: ExperimentConfig, iou_thresh: float = 0.5
                     ) -> Callable:
     """Whole-split evaluation: ``epoch(model, data, plan) -> (mean losses,
     metric sums)`` with the training loss weights, over the batches of an
-    index plan (``TraceColliderArrays.epoch_plan``) on device-resident
-    ``data``."""
+    index plan (``TraceColliderArrays.epoch_plan``, numpy or already on the
+    device: ``device_plan``) on device-resident ``data``. The results are
+    device tensors; nothing is read back."""
     lw = _loss_weight_dict(cfg)
 
     @torch.no_grad()
-    def epoch(model: nn.Module, data: Batch, plan: Dict[str, np.ndarray]):
+    def epoch(model: nn.Module, data: Batch, plan: Dict[str, Any]):
         model.eval()
         losses: Batch = {}
         sums: Batch = {}
+        plan = device_plan(plan, data["raw"].device)
         nb = plan["base_idx"].shape[0]
         for i in range(nb):
             batch = gather_batch(data, plan, i)
@@ -395,12 +427,174 @@ def make_eval_epoch(cfg: ExperimentConfig, iou_thresh: float = 0.5
     return epoch
 
 
-def gather_batch(data: Batch, plan: Dict[str, np.ndarray], i: int) -> Batch:
-    """Batch ``i`` of an index plan from device-resident dataset arrays."""
+def device_plan(plan: Dict[str, Any], dev: torch.device
+                ) -> Dict[str, torch.Tensor]:
+    """An index plan's arrays as tensors on ``dev`` (one copy each; tensors
+    already there are kept)."""
+    return {k: torch.as_tensor(v).to(dev) for k, v in plan.items()}
+
+
+def gather_batch(data: Batch, plan: Dict[str, Any], i: int) -> Batch:
+    """Batch ``i`` of an index plan (numpy, or tensors on the data's
+    device) from device-resident dataset arrays."""
     dev = data["raw"].device
-    idx = torch.from_numpy(plan["base_idx"][i]).to(dev).long()
+    idx = torch.as_tensor(plan["base_idx"][i]).to(dev).long()
     batch = {k: v[idx] for k, v in data.items()}
-    batch["weight"] = torch.from_numpy(plan["weight"][i]).to(dev)
+    batch["weight"] = torch.as_tensor(plan["weight"][i]).to(dev)
     if "rotation_k" in plan:
-        batch["rotation_k"] = torch.from_numpy(plan["rotation_k"][i]).to(dev)
+        batch["rotation_k"] = torch.as_tensor(plan["rotation_k"][i]).to(dev)
     return batch
+
+
+def make_train_steps(model: nn.Module, opt: Optimizer, cfg: ExperimentConfig,
+                     augment: bool = True
+                     ) -> Callable[[Batch, torch.Generator, int],
+                                   torch.Tensor]:
+    """``run(batch, generator, n) -> total_loss [n]``: ``n`` optimizer
+    updates on one batch, the losses kept on the device (the JAX package's
+    multi-step runner; ``bench.py`` times the headline with it)."""
+    step = make_train_step(model, opt, cfg, augment)
+
+    def run(batch: Batch, generator: torch.Generator, n: int
+            ) -> torch.Tensor:
+        return torch.stack([step(batch, generator)["total_loss"]
+                            for _ in range(n)])
+
+    return run
+
+
+def make_train_epoch(model: nn.Module, opt: Optimizer, cfg: ExperimentConfig,
+                     augment: bool = True) -> Callable:
+    """``epoch(data, plan, generator) -> mean losses``: one pass over an
+    index plan (``base_idx``, ``rotation_k``, ``weight``, each ``[nb,
+    B]``, numpy or on the device) of device-resident ``data``, one update a
+    batch; the losses' epoch means come back as device tensors."""
+    step = make_train_step(model, opt, cfg, augment)
+
+    def epoch(data: Batch, plan: Dict[str, Any],
+              generator: torch.Generator) -> Batch:
+        plan = device_plan(plan, data["raw"].device)
+        nb = plan["base_idx"].shape[0]
+        per = [step(gather_batch(data, plan, i), generator)
+               for i in range(nb)]
+        return {k: torch.stack([p[k] for p in per]).mean() for k in per[0]}
+
+    return epoch
+
+
+class SchedState(NamedTuple):
+    """Device-side ReduceLROnPlateau state (torch semantics, as
+    ``PlateauScheduler``): 0-d tensors."""
+
+    lr: torch.Tensor
+    best: torch.Tensor
+    num_bad: torch.Tensor
+    cooldown: torch.Tensor
+
+
+def sched_init(cfg: ExperimentConfig,
+               device: torch.device | str = "cpu") -> SchedState:
+    return SchedState(
+        lr=torch.tensor(cfg.train.lr, dtype=torch.float32, device=device),
+        best=torch.tensor(float("inf"), dtype=torch.float32, device=device),
+        num_bad=torch.tensor(0, dtype=torch.int32, device=device),
+        cooldown=torch.tensor(0, dtype=torch.int32, device=device))
+
+
+def sched_update(s: SchedState, value: torch.Tensor,
+                 cfg: ExperimentConfig) -> SchedState:
+    """One plateau step on the device, in the JAX package's order: the bad
+    epoch counted, then, in cooldown, the counter decremented and
+    ``num_bad`` zeroed, then the decay."""
+    t = cfg.train
+    min_lr = t.lr * t.plateau_min_scale
+    value = value.to(torch.float32)
+    improved = value < s.best * (1.0 - 1e-3)
+    best = torch.where(improved, value, s.best)
+    zero = torch.zeros_like(s.num_bad)
+    num_bad = torch.where(improved, zero, s.num_bad + 1)
+    in_cooldown = s.cooldown > 0
+    cooldown = torch.where(in_cooldown, s.cooldown - 1, s.cooldown)
+    num_bad = torch.where(in_cooldown, zero, num_bad)
+    decay = num_bad > t.plateau_patience
+    lr = torch.where(decay, torch.clamp(s.lr * t.plateau_factor, min=min_lr),
+                     s.lr)
+    cooldown = torch.where(decay, torch.full_like(cooldown,
+                                                  t.plateau_cooldown),
+                           cooldown)
+    num_bad = torch.where(decay, zero, num_bad)
+    return SchedState(lr=lr, best=best, num_bad=num_bad, cooldown=cooldown)
+
+
+METRIC_KEYS = ("iou_sum", "iou_cnt", "tp", "fp", "fn", "cls_correct",
+               "cls_total")
+
+
+def fused_run_init(cfg: ExperimentConfig, model: nn.Module, opt: Optimizer
+                   ) -> Tuple[SchedState, Batch]:
+    """The initial ``(sched, best)`` carry of ``make_fused_run``'s
+    segments: the scheduler at ``train.lr`` and the best parameters as
+    copies of the evaluation model's (never views of the live ones),
+    ``val_loss`` inf and ``epoch`` -1, on the parameters' device."""
+    dev = opt.params[0].device
+    best = {"params": {k: v.detach().clone() for k, v in
+                       eval_model(model, opt).state_dict().items()},
+            "val_loss": torch.tensor(float("inf"), device=dev),
+            "epoch": torch.tensor(-1, dtype=torch.int32, device=dev)}
+    return sched_init(cfg, dev), best
+
+
+def make_fused_run(model: nn.Module, opt: Optimizer, cfg: ExperimentConfig
+                   ) -> Callable:
+    """A segment of a whole training run with no host read: ``run(sched,
+    best, train_data, val_data, plans, val_plan, epoch_ids, generator) ->
+    (sched, best, history)``.
+
+    Each epoch trains over its plan (``plans``: ``base_idx``,
+    ``rotation_k``, ``weight``, each ``[E, nb, B]`` on the device), then
+    validates the evaluation parameters (the EMA when ``train.ema_decay >
+    0``) over ``val_plan`` at ``train.matmul_precision``, steps the plateau
+    scheduler (whatever ``train.lr_schedule`` says, as the JAX package's
+    fused run) and hands its learning rate to AdamW as a device value, and
+    keeps the best parameters by ``torch.where(is_best, new, old)`` in
+    ``best``'s buffers. ``history`` holds ``[E]`` tensors of
+    ``train_loss``, ``val_loss``, ``lr`` and the seven metric sums.
+    ``generator`` draws the augmentation and dropout in
+    ``train_benchmark``'s order."""
+    epoch_fn = make_train_epoch(model, opt, cfg, augment=True)
+    eval_fn = make_eval_epoch(cfg, cfg.train.iou_thresh)
+
+    def run(sched: SchedState, best: Batch, train_data: Batch,
+            val_data: Batch, plans: Dict[str, torch.Tensor],
+            val_plan: Dict[str, torch.Tensor], epoch_ids: torch.Tensor,
+            generator: torch.Generator):
+        records = []
+        for e in range(plans["base_idx"].shape[0]):
+            plan = {k: v[e] for k, v in plans.items()}
+            train_loss = epoch_fn(train_data, plan, generator)["total_loss"]
+            em = eval_model(model, opt)
+            with matmul_precision(cfg.train.matmul_precision,
+                                  train_data["raw"].device):
+                val_losses, sums = eval_fn(em, val_data, val_plan)
+            val_loss = val_losses["total_loss"]
+            sched = sched_update(sched, val_loss, cfg)
+            opt.set_learning_rate(sched.lr)
+            is_best = val_loss < best["val_loss"]
+            with torch.no_grad():
+                for k, v in em.state_dict().items():
+                    old = best["params"][k]
+                    old.copy_(torch.where(is_best, v, old))
+            best = {"params": best["params"],
+                    "val_loss": torch.where(is_best, val_loss,
+                                            best["val_loss"]),
+                    "epoch": torch.where(is_best, epoch_ids[e],
+                                         best["epoch"])}
+            records.append({"train_loss": train_loss.float(),
+                            "val_loss": val_loss.float(),
+                            "lr": sched.lr.clone(),
+                            **{k: sums[k].float() for k in METRIC_KEYS}})
+        history = {k: torch.stack([r[k] for r in records])
+                   for k in records[0]}
+        return sched, best, history
+
+    return run

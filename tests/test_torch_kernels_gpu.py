@@ -11,6 +11,7 @@ the reference's max abs value) 1e-4, the JAX suite's bound for its Pallas
 BPTT against autograd through the scan.
 """
 
+import copy
 from unittest import mock
 
 import numpy as np
@@ -1716,3 +1717,95 @@ def test_gru_reg_plans_that_do_not_fit_raise(cuda):
     wide = _gru_inputs(3, 5, 264, torch.float32, cuda)
     with pytest.raises(ValueError, match="does not fit"):
         gru_cuda.gru_fwd_cuda(wide[0], wide[2], wide[3], plan=("reg", 16, 1))
+
+
+# ---------------------------------------------------------------------------
+# The exact matcher (csrc/hungarian.cu) against its plain version: the
+# assignments equal to the bit, ties included.
+# ---------------------------------------------------------------------------
+
+HUNGARIAN_CASES = [      # B, Q, M, integer costs (ties), share valid
+    (20, 30, 50, False, 0.3),     # the flagship's matcher shape
+    (20, 30, 50, True, 0.3),
+    (128, 32, 32, False, 0.4),    # the scale-up model's
+    (128, 32, 32, True, 0.4),
+    (7, 5, 9, True, 0.9),         # M > Q
+    (3, 40, 40, False, 1.0),
+]
+
+
+def _hungarian_case(B, Q, M, ints, share, device, seed=0):
+    from room_slam_torch.ops import hungarian
+    g = np.random.default_rng(seed)
+    cost = (g.integers(0, 3, (B, Q, M)) if ints
+            else g.normal(size=(B, Q, M))).astype(np.float32)
+    valid = g.uniform(size=(B, M)) < share
+    valid[0] = False                         # an item with no valid column
+    return hungarian, (torch.tensor(cost, device=device),
+                       torch.tensor(valid, device=device))
+
+
+@pytest.mark.parametrize("case", HUNGARIAN_CASES)
+def test_hungarian_kernel_matches_plain(cuda, case):
+    """Both matcher forms on the card (one launch each) against the plain
+    version of the same inputs on the CPU."""
+    hungarian, (cost, valid) = _hungarian_case(*case, cuda)
+    for fn in (hungarian.hungarian_match_fast, hungarian.hungarian_match):
+        before = hungarian.hungarian_cuda.launches
+        rows, matched = fn(cost, valid)
+        torch.cuda.synchronize()
+        assert hungarian.hungarian_cuda.launches == before + 1
+        ref_rows, ref_matched = fn(cost.cpu(), valid.cpu())
+        assert torch.equal(rows.cpu(), ref_rows), fn.__name__
+        assert torch.equal(matched.cpu(), ref_matched), fn.__name__
+        assert not matched[0].any()
+
+
+def test_hungarian_kernel_solvers(cuda):
+    """``solve_square`` and ``solve_rect`` (a device ``n_rows`` per item,
+    0 and n included) on the card against the plain version."""
+    from room_slam_torch.ops import hungarian
+    g = np.random.default_rng(1)
+    sq = torch.tensor(g.integers(0, 4, (9, 33, 33)), dtype=torch.float32,
+                      device=cuda)
+    assert torch.equal(hungarian.solve_square(sq).cpu(),
+                       hungarian.solve_square(sq.cpu()))
+    rect = torch.tensor(g.normal(size=(9, 12, 40)), dtype=torch.float32,
+                        device=cuda)
+    k = torch.tensor([0, 12, 3, 7, 1, 12, 5, 9, 2], device=cuda)
+    assert torch.equal(hungarian.solve_rect(rect, k).cpu(),
+                       hungarian.solve_rect(rect.cpu(), k.cpu()))
+    with pytest.raises(ValueError, match="1023"):
+        hungarian.hungarian_cuda(torch.zeros(1, 2, 1024, device=cuda))
+
+
+def test_optimizer_capturable_matches_host_step(cuda):
+    """AdamW capturable (a device learning rate and step count) against
+    AdamW with a float learning rate and a host step count on the card:
+    the same parameters after three updates, each at a new learning rate
+    (a float, then a device tensor), and the same count."""
+    from room_slam_torch.config import ExperimentConfig
+    from room_slam_torch.train.loop import make_optimizer
+
+    cfg = ExperimentConfig()
+    torch.manual_seed(0)
+    base = torch.nn.Sequential(torch.nn.Linear(6, 5), torch.nn.Tanh(),
+                               torch.nn.Linear(5, 3)).to(cuda)
+    models, opts = [], []
+    for capturable in (True, False):
+        m = copy.deepcopy(base)
+        models.append(m)
+        opts.append(make_optimizer(m, cfg, capturable=capturable))
+    assert [o.capturable for o in opts] == [True, False]
+    x = torch.randn(4, 6, device=cuda, generator=torch.Generator(cuda)
+                    .manual_seed(1))
+    for i, lr in enumerate((1e-3, torch.tensor(5e-4, device=cuda), 2e-4)):
+        for m, o in zip(models, opts):
+            o.set_learning_rate(lr)
+            o.zero_grad()
+            (m(x * (i + 1)) ** 2).sum().backward()
+            o.step()
+    for a, b in zip(models[0].parameters(), models[1].parameters()):
+        assert torch.allclose(a, b, rtol=1e-6, atol=1e-7)
+    assert opts[0].count == opts[1].count == 3
+    assert opts[0].lr == pytest.approx(opts[1].lr)

@@ -258,7 +258,9 @@ def test_cli_model_flags_and_resume(rooms, tmp_path, capsys):
             "--num_queries", "6", "--schedule", "cosine",
             "--max_trace_len", "24", "--batch_size", "4",
             "--save_dir", str(tmp_path), "--device", "cpu"]
-    train_cli(args + ["--epochs", "1"])
+    # the per-epoch driver (the CLI's default is the fused run, whose best
+    # model carries no optimizer state to resume from)
+    train_cli(args + ["--epochs", "1", "--no_fused"])
     saved = json.loads((tmp_path / "config.json").read_text())
     assert saved["model"]["model_type"] == "bigru"
     assert saved["model"]["d_model"] == 32
