@@ -351,7 +351,23 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     (``--reps PROFILE_REPS``), ``PROFILE_RUNS`` runs each, their JSON under
     ``build/``, each run's decomposition and each row's range over the
     runs printed, and one ``utils/profiling.device_trace`` of
-    ``PROFILE_TRACE_STEPS`` train steps: the device's busy share.
+    ``PROFILE_TRACE_STEPS`` train steps: the device's busy share;
+46. the model-selection tools (a main path: the calibration forward on
+    the card through #1), run right after phase 11 on phase 8's best
+    checkpoint and the first ``TOOLS_ROOMS`` of its validation rooms, each
+    card against CPU: (a) ``calibrate._forward_val_set`` at batch
+    ``TOOLS_BATCH`` with 8 views x 3 temporal variants, #1's launches
+    asserted (2 layers x 8 x 3 a batch), the arrays within ``TOOLS_TOL``,
+    names and ground truth equal; (c) ``qscore.fit`` (``TOOLS_FIT_EPOCHS``
+    epochs) weights within ``TOOLS_FIT_ATOL``, AUCs within ``TOOLS_TOL``,
+    its weight file swept by (b); (b) ``calibrate.sweep`` over 16 cells
+    touching every axis on (a)'s card and CPU arrays: the same cells in the
+    same order, mAP and det_f1 within ``TOOLS_TOL`` and equal where the
+    kept detections (recorded from ``post_process``) are the same, cells/s
+    on both; (d) ``realbench.run`` over two directories with
+    ``TOOLS_BOOTSTRAP`` resamples under (b)'s rule, then
+    ``diagnose_zeroshot.diagnose`` on the card; the wall times beside the
+    card's name and power limit.
 
 Phases 10 (and 37's step), 16, 34 and 39's steps pin
 ``train.matmul_precision`` to float32: they compare two float32
@@ -405,8 +421,13 @@ from room_slam_torch.ops import rnn as rnn_ops
 from room_slam_torch.ops.losses import legacy_criterion, legacy_match
 from room_slam_torch.ops.nms import post_process
 from room_slam_torch.ops.refine import y_planes_from_colliders
+from room_slam_torch.ops.ttopt import TTOptParams
 from room_slam_torch.predictor import build_predictor
+from room_slam_torch.tools import calibrate as calibrate_tool
+from room_slam_torch.tools import diagnose_zeroshot as diagnose_tool
 from room_slam_torch.tools import parity as parity_tool
+from room_slam_torch.tools import qscore as qscore_tool
+from room_slam_torch.tools import realbench as realbench_tool
 from room_slam_torch.train import checkpoint as ckpt_lib
 from room_slam_torch.train import driver as driver_mod
 from room_slam_torch.train import loop
@@ -630,7 +651,7 @@ FUSED_SHAPES = (((3, 53, 16, 24), torch.float32),
 LSTM_BF16_SHAPES = LSTM_SHAPES   # bf16 BiLSTM kernel checks
 # phases 35-37: the serving path's options, #1 at the test-time view
 # batches, hole tokens
-RECIPE_REQUESTS = 5                       # requests checked card vs CPU
+RECIPE_REQUESTS = 3                       # requests checked card vs CPU
 # requests timed per recipe (15: 50 before phase 39 was added, 25 before
 # the forward pipe kernels' timing joined phase 40, cut to keep the whole
 # run inside its time limit on a slow host)
@@ -647,7 +668,7 @@ PRECISION_GRAD_REL = 5e-2
 # phase 38: the flagship's frozen recipe (FINAL.md: --synthetic 2048
 # --synthetic_mode mixed --mix_real DIR --mix_copies C --seed 100)
 RECIPE_ROOMS, RECIPE_SEED = 2048, 100
-RECIPE_CPU_ROOMS = 8           # per half, generated again on the CPU
+RECIPE_CPU_ROOMS = 4           # per half, generated again on the CPU
 RECIPE_REAL_ROOMS = 8          # make_rooms: 7 captures to mix in, 1 val
 RECIPE_MIX_COPIES = 16
 WALL_SLACK = 0.05              # the JAX suite's: inside the walls
@@ -688,6 +709,16 @@ PROFILE_K = 8
 PROFILE_REPS = 5
 PROFILE_RUNS = 2
 PROFILE_TRACE_STEPS = 3
+# phase 46: the model-selection tools on phase 8's checkpoint and rooms
+TOOLS_ROOMS = 2                 # phase 8's validation rooms the tools read
+TOOLS_BATCH = 8                 # _forward_val_set's batch (the CLIs')
+TOOLS_VIEWS = dict(tta=True, tta_reflect=True, tta_windows=2)  # 8 x 3
+TOOLS_TTOPT = dict(steps=3, deadband=0.25)
+TOOLS_FIT_EPOCHS = 200
+TOOLS_FIT_IOU = 0.01            # phase 8's boxes barely overlap the GT
+TOOLS_BOOTSTRAP = 200
+TOOLS_TOL = 1e-3                # card vs CPU: forwards, mAP / det_f1, AUCs
+TOOLS_FIT_ATOL = 1e-4           # card vs CPU: the quality fit's weights
 # the seed offset of the large inputs' device generator (``stream_generator``)
 STREAM_SEED = 10_000
 GRU_PLAIN = {"bigru_fwd_cuda": gru_cuda.bigru_fwd_plain,
@@ -6607,6 +6638,254 @@ def profiler_phase(dev, smi):
     return {**results, "trace": trace}
 
 
+# Phase 46: the model-selection tools (tools/calibrate.py, realbench.py,
+# qscore.py, diagnose_zeroshot.py) on phase 8's flagship checkpoint and
+# rooms: the cached forward through #1, the post-pass sweep, the quality
+# fit and the per-capture scoring, each card against CPU.
+
+
+def tools_rooms(val_dir: Path, root: Path):
+    """Phase 46's directories: the first ``TOOLS_ROOMS`` of phase 8's
+    validation rooms, and the same rooms split in two for realbench."""
+    pairs = formats.find_data_pairs(val_dir)[:TOOLS_ROOMS]
+    half = (len(pairs) + 1) // 2
+    out = {"all": root / "tools", "a": root / "tools_a",
+           "b": root / "tools_b"}
+    for i, pair in enumerate(pairs):
+        for d in (out["all"], out["a" if i < half else "b"]):
+            d.mkdir(parents=True, exist_ok=True)
+            for f in pair:
+                (d / f.name).write_bytes(f.read_bytes())
+    return out
+
+
+def kept_record(store):
+    """``post_process`` that keeps each call's keep mask and labels (device
+    tensors, read after the sweep: no synchronization in it)."""
+    def wrapped(*args, **kw):
+        out = post_process(*args, **kw)
+        store.append((out[0], out[1]))
+        return out
+    return wrapped
+
+
+def same_kept(a, b) -> bool:
+    return all(torch.equal(ka.cpu(), kb.cpu())
+               and torch.equal(la.cpu()[ka.cpu()], lb.cpu()[kb.cpu()])
+               for (ka, la), (kb, lb) in zip(a, b))
+
+
+def tools_sweep_grid(qs_path):
+    """Phase 46 (b)'s grid: 16 cells, every axis of the sweep touched
+    (refine none / 0.3 with trust, wall and furniture (v2) synthesis,
+    ttopt, extent, consensus, top_k, fusion, support, physics and learned
+    rescoring, soft-NMS)."""
+    return dict(thresholds=[0.0, 0.3], nms_vals=[0.3],
+                refine_vals=[None, 0.3], trust_vals=[0.6],
+                extent_vals=[1.0], consensus_vals=[True], top_k_vals=[10],
+                synth_vals=[False, True], synthf_vals=["v2"],
+                ttopt_vals=[True], ttopt_params=TTOptParams(**TOOLS_TTOPT),
+                fuse_vals=[True], support_vals=[0.25], pen_vals=[1.0],
+                soft_vals=[None, 0.25], qscore_vals=[str(qs_path)])
+
+
+def grid_keys(cell):
+    """A sweep cell's operating-point keys (not its metrics)."""
+    return [k for k in cell if not k.startswith(
+        ("mAP", "AP_", "det_", "tp@", "num_"))]
+
+
+def metric_rule(got, want, same, keys, tag):
+    """(b)'s rule: each metric within ``TOOLS_TOL`` of the CPU's, equal
+    (1e-6) where the kept detections are the same. Returns the largest
+    difference."""
+    worst = 0.0
+    for k in keys:
+        d = abs(got[k] - want[k])
+        worst = max(worst, d)
+        assert d <= (1e-6 if same else TOOLS_TOL), (tag, k, got[k], want[k])
+    return worst
+
+
+def tools_phase(best, val_dir, root, dev, seed, smi):
+    """Phase 46, (a) to (d); returns #1's launches on each tool's card
+    run."""
+    dirs = tools_rooms(val_dir, root)
+    apply_op = realbench_tool.apply_operating_point
+    launched = {}
+
+    # (a) the cached forward: 8 views x (the full trace + 2 windows)
+    reset_counts()
+    t0 = time.perf_counter()
+    card = calibrate_tool._forward_val_set(str(best), str(dirs["all"]),
+                                           TOOLS_BATCH, device=dev,
+                                           **TOOLS_VIEWS)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launched["forward_val_set"] = counts()["bilstm_fwd"]
+    n_batches = -(-TOOLS_ROOMS // TOOLS_BATCH)
+    assert counts() == expected_counts(bilstm_fwd=2 * 8 * 3 * n_batches), \
+        counts()
+    t0 = time.perf_counter()
+    cpu = calibrate_tool._forward_val_set(str(best), str(dirs["all"]),
+                                          TOOLS_BATCH, device="cpu",
+                                          **TOOLS_VIEWS)
+    cpu_s = time.perf_counter() - t0
+    assert card["names"] == cpu["names"] and card.keys() == cpu.keys()
+    errs = {}
+    for k in cpu:
+        if k == "names":
+            continue
+        assert card[k].shape == cpu[k].shape and \
+            np.isfinite(card[k]).all(), k
+        if k in ("raw", "length", "gt_boxes", "gt_labels", "gt_valid"):
+            assert np.array_equal(card[k], cpu[k]), k
+        else:
+            errs[k] = float(np.abs(card[k] - cpu[k]).max())
+            assert errs[k] <= TOOLS_TOL, (k, errs[k])
+    log("tools", f"_forward_val_set {TOOLS_ROOMS} rooms, batch "
+        f"{TOOLS_BATCH}, {TOOLS_VIEWS}: candidates "
+        f"{tuple(card['pred_boxes'].shape)}; card {card_s:.2f} s, CPU "
+        f"{cpu_s:.2f} s on {smi}; bilstm_fwd launches "
+        f"{launched['forward_val_set']} (2 layers x 8 views x 3 variants "
+        f"x {n_batches} batch); card vs CPU max abs {json.dumps(errs)} "
+        f"(tol {TOOLS_TOL:.0e})")
+
+    # (c) the quality fit on all of phase 8's validation rooms (one batch),
+    # card against CPU; its weights feed (b)
+    specs = [{"checkpoint": str(best), "data_dir": str(val_dir)}]
+    fit_batches = -(-len(formats.find_data_pairs(val_dir)) // TOOLS_BATCH)
+    fits, fit_s = {}, {}
+    for d in (dev, "cpu"):
+        reset_counts()
+        t0 = time.perf_counter()
+        fits[d] = qscore_tool.fit(specs, tta=True, batch_size=TOOLS_BATCH,
+                                  epochs=TOOLS_FIT_EPOCHS, seed=seed,
+                                  iou=TOOLS_FIT_IOU, synthf="v2", device=d,
+                                  log=lambda *_: None)
+        if d == dev:
+            torch.cuda.synchronize()
+            launched["qscore_fit"] = counts()["bilstm_fwd"]
+            assert counts() == expected_counts(
+                bilstm_fwd=2 * 4 * fit_batches)
+        fit_s[d] = time.perf_counter() - t0
+    (w_card, rep_card), (w_cpu, rep_cpu) = fits[dev], fits["cpu"]
+    w_err = max(float(np.abs(np.subtract(w_card[k], w_cpu[k])).max())
+                for k in ("w1", "b1", "w2", "b2", "mu", "sigma"))
+    assert w_err <= TOOLS_FIT_ATOL, w_err
+    for k, v in rep_cpu.items():
+        assert (v != v and rep_card[k] != rep_card[k]) or \
+            abs(rep_card[k] - v) <= (TOOLS_TOL if "auc" in k else 0), \
+            (k, rep_card[k], v)
+    qs_path = root / "qscore_weights.json"
+    qs_path.write_text(json.dumps(w_card))
+    log("tools", f"qscore.fit {TOOLS_FIT_EPOCHS} epochs (4 views, synthf v2, "
+        f"IoU {TOOLS_FIT_IOU}): card "
+        f"{fit_s[dev]:.2f} s, CPU {fit_s['cpu']:.2f} s; weights "
+        f"card vs CPU max abs {w_err:.2e} (tol {TOOLS_FIT_ATOL:.0e}); "
+        f"report card {json.dumps(rep_card)} CPU {json.dumps(rep_cpu)}; "
+        f"bilstm_fwd launches {launched['qscore_fit']}")
+
+    # (b) the sweep on (a)'s card arrays on the card, its CPU arrays on
+    # the CPU; the kept detections recorded to decide the rule
+    grid = tools_sweep_grid(qs_path)
+    kept, cells, wall = {}, {}, {}
+    for d, cached in ((dev, card), ("cpu", cpu)):
+        kept[d] = []
+        with mock.patch.object(calibrate_tool, "post_process",
+                               kept_record(kept[d])):
+            t0 = time.perf_counter()
+            cells[d] = calibrate_tool.sweep(cached, device=d, **grid)
+            if d == dev:
+                torch.cuda.synchronize()
+            wall[d] = time.perf_counter() - t0
+    n = len(cells["cpu"])
+    assert n >= 16 and len(cells[dev]) == n
+    per = len(kept["cpu"]) // n
+    worst, n_same = 0.0, 0
+    keys = ("mAP@0.5", "mAP@0.25", "det_f1@0.5", "det_f1@0.25")
+    for i, (g, w) in enumerate(zip(cells[dev], cells["cpu"])):
+        assert {k: g[k] for k in grid_keys(g)} == \
+            {k: w[k] for k in grid_keys(w)}, (i, g, w)
+        same = same_kept(kept[dev][i * per:(i + 1) * per],
+                         kept["cpu"][i * per:(i + 1) * per])
+        n_same += same
+        worst = max(worst, metric_rule(g, w, same, keys, ("cell", i)))
+        assert all(np.isfinite(g[k]) for k in keys), g
+    log("tools", f"sweep {n} cells x {TOOLS_ROOMS} rooms ({per} post_process "
+        f"calls a cell): card {wall[dev]:.2f} s = {n / wall[dev]:.2f} "
+        f"cells/s, CPU {wall['cpu']:.2f} s = {n / wall['cpu']:.2f} cells/s"
+        f" on {smi}; kept detections equal in {n_same}/{n} cells; worst "
+        f"mAP / det_f1 difference {worst:.2e} (tol {TOOLS_TOL:.0e}); best "
+        f"cell (card) mAP@0.25 "
+        f"{max(c['mAP@0.25'] for c in cells[dev]):.4f}")
+
+    # (d) the per-capture scoring, two directories, card against CPU, then
+    # the zero-shot diagnosis on the card
+    cell = {"threshold": 0.0, "nms": 0.3, "refine": 0.3, "trust": 0.6,
+            "synth": True, "extent": 1.0, "consensus": False, "top_k": 10,
+            "fuse": True, "ttopt": dict(TOOLS_TTOPT, auto=GATE_TAU),
+            "support": None, "pen_beta": None, "soft": None,
+            "synthf": "v2", "qscore": str(qs_path), "qscore_auto": GATE_TAU,
+            "ycal": list(y_planes_from_colliders(str(formats.find_data_pairs(
+                dirs["all"])[0][1])))}
+    reports, dets, wall = {}, {}, {}
+    for d in (dev, "cpu"):
+        dets[d] = []
+
+        def keep_dets(*args, _store=dets[d], **kw):
+            out = apply_op(*args, **kw)
+            _store.append(out)
+            return out
+
+        reset_counts()
+        with mock.patch.object(realbench_tool, "apply_operating_point",
+                               keep_dets):
+            t0 = time.perf_counter()
+            reports[d] = realbench_tool.run(
+                str(best), [str(dirs["a"]), str(dirs["b"])], dict(cell),
+                bootstrap=TOOLS_BOOTSTRAP, batch_size=TOOLS_BATCH,
+                seed=seed, device=d)
+            if d == dev:
+                torch.cuda.synchronize()
+                launched["realbench"] = counts()["bilstm_fwd"]
+            wall[d] = time.perf_counter() - t0
+    a, b = dets[dev][0], dets["cpu"][0]
+    same = (np.array_equal(a["img"], b["img"])
+            and np.array_equal(a["labels"], b["labels"])
+            and np.abs(a["boxes"] - b["boxes"]).max(initial=0) <= TOOLS_TOL)
+    got, want = reports[dev], reports["cpu"]
+    assert [r["name"] for r in got["captures"]] == \
+        [r["name"] for r in want["captures"]]
+    assert got["per_dir"].keys() == want["per_dir"].keys() == \
+        {"tools_a", "tools_b"}
+    rb_worst = metric_rule(got["aggregate"], want["aggregate"], same, keys,
+                           "aggregate")
+    for g, w in zip(got["captures"], want["captures"]):
+        rb_worst = max(rb_worst, metric_rule(g, w, same, keys, g["name"]))
+    if same:
+        assert got["bootstrap"] == want["bootstrap"]
+    reset_counts()
+    t0 = time.perf_counter()
+    diag = diagnose_tool.diagnose(str(best), str(dirs["a"]), dict(cell),
+                                  batch_size=TOOLS_BATCH, device=dev)
+    torch.cuda.synchronize()
+    diag_s = time.perf_counter() - t0
+    launched["diagnose"] = counts()["bilstm_fwd"]
+    assert diag["aggregate"]["all"]["n"] == sum(
+        len(c["boxes"]) for c in diag["captures"]) > 0
+    agg = got["aggregate"]
+    log("tools", f"realbench.run 2 directories, bootstrap "
+        f"{TOOLS_BOOTSTRAP}: card {wall[dev]:.2f} s, CPU {wall['cpu']:.2f} s;"
+        f" detections {len(a['img'])} / {len(b['img'])}, equal {same}; "
+        f"worst mAP / det_f1 difference {rb_worst:.2e}; aggregate mAP@0.25 "
+        f"{agg['mAP@0.25']:.4f} det_f1@0.25 {agg['det_f1@0.25']:.4f}; "
+        f"diagnose on the card {diag_s:.2f} s, "
+        f"{json.dumps(diag['aggregate']['all'])}; launches "
+        f"{json.dumps(launched)}")
+    return launched
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6883,8 +7162,14 @@ def main() -> int:
         precision_check(cfg, train_dir, dev, args.seed, smi)
         time_steps(cfg, train_dir, dev, args.seed, smi, train_rows,
                    STEP_SHAPES, STEPS, STEP_WARMUP, "bilstm")
+        log("done", f"phases 8-11 in {time.perf_counter() - t_phase:.1f} s")
 
-    log("done", f"phases 8-11 in {time.perf_counter() - t_phase:.1f} s")
+        # 46. the model-selection tools on phase 8's checkpoint and rooms
+        # (a main path: the cached forward through #1), card against CPU
+        t_phase = time.perf_counter()
+        tools_launched = tools_phase(best, val_dir, Path(tmp), dev,
+                                     args.seed, smi)
+        log("done", f"phase 46 in {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
 
     # 12-17. the scale-up bigru: kernel checks and timing, training (a
@@ -7238,6 +7523,7 @@ def main() -> int:
     for k in kernels[:3]:
         k["launches_recipe"] = recipe_launched[k["name"]]
     kernels[0]["launches_evaluate"] = evaluated["bilstm_fwd"]
+    kernels[0]["launches_tools"] = tools_launched
     # the reference lstm checkpoints' requests: H=64 (unit), H=128 (reg)
     kernels[0]["launches_pth"] = pth_launched["lstm_128"]
     next(k for k in kernels if k["name"] == "bilstm_fwd_reg")[

@@ -14,7 +14,7 @@ Batch contract (every step has the same shapes):
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterator, List
 
 import numpy as np
 
@@ -155,6 +155,24 @@ class TraceColliderArrays:
             "rotation_k": self._rotation_k(indices),
             "weight": np.ones((len(indices),), dtype=np.float32),
         }
+
+    def epoch_batches(self, batch_size: int, seed: int = 0,
+                      shuffle: bool = True
+                      ) -> Iterator[Dict[str, np.ndarray]]:
+        """Yield host batches covering the epoch once, in ``epoch_plan``'s
+        order. The last partial batch is padded by repeating index 0 at
+        weight 0, so every batch has ``batch_size`` rows."""
+        rng = np.random.default_rng(seed)
+        order = (rng.permutation(self.num_samples) if shuffle
+                 else np.arange(self.num_samples))
+        for lo in range(0, self.num_samples, batch_size):
+            chunk = order[lo:lo + batch_size]
+            pad = batch_size - len(chunk)
+            batch = self.gather(np.concatenate(
+                [chunk, np.zeros(pad, dtype=chunk.dtype)]))
+            if pad:
+                batch["weight"][-pad:] = 0.0
+            yield batch
 
     def num_batches(self, batch_size: int) -> int:
         return -(-self.num_samples // batch_size)

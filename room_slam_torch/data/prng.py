@@ -133,6 +133,16 @@ def uniform(keys: torch.Tensor, shape: Shape = (), minval=0.0,
     return torch.maximum(lo, fma(floats, hi - lo, lo))
 
 
+def normal(keys: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+    """``jax.random.normal`` in float32: a uniform on
+    ``[nextafter(-1, 0), 1)`` (the same bits as JAX's), then
+    ``sqrt(2) * erfinv(u)``. ``torch.erfinv`` is not XLA's polynomial, so
+    the last bits may differ from JAX's draws."""
+    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).item()
+    u = uniform(keys, shape, lo, 1.0)
+    return torch.erfinv(u) * _as_f32(2.0 ** 0.5, u)
+
+
 def randint(keys: torch.Tensor, shape: Shape, minval: int,
             maxval: int) -> torch.Tensor:
     """``jax.random.randint`` for int32 on [minval, maxval): two words per

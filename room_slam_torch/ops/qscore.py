@@ -1,9 +1,9 @@
 """Learned per-candidate quality scoring (counterpart of the JAX package's
 ``ops/qscore.py``): a small MLP over physics, geometry and agreement
 features of each candidate, applied at post-process time as
-``post_process``'s ``conf_scale`` multiplier. Training the scorer belongs
-to the JAX package's ``tools/qscore.py``; this module reads its weight
-JSON."""
+``post_process``'s ``conf_scale`` multiplier. ``tools/qscore.py`` fits
+the scorer from ``mlp_init``'s draw; ``load_params`` reads its weight
+JSON (the JAX package's tool writes the same file)."""
 
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from room_slam_torch.data import prng
 from room_slam_torch.ops.iou import pairwise_iou_3d
 from room_slam_torch.ops.refine import trace_extent
 from room_slam_torch.ops.ttopt import penetration_depth
@@ -83,6 +84,23 @@ def candidate_features(boxes: torch.Tensor, logits: torch.Tensor,
         torch.stack([near.to(boxes.dtype), min_d], -1),
         support[:, None], n_votes[:, None],
     ], dim=-1)
+
+
+def mlp_init(key: torch.Tensor, hidden: int = 16,
+             n_features: int = N_FEATURES) -> Dict[str, torch.Tensor]:
+    """The scorer's initial weights from the threefry ``key`` (``prng.key``),
+    as the JAX package's ``mlp_init`` draws them: normal layers scaled by
+    0.3, zero biases, identity standardization. On the key's device."""
+    k1, k2 = prng.split(key)
+    dev = key.device
+    return {
+        "w1": prng.normal(k1, (n_features, hidden)) * 0.3,
+        "b1": torch.zeros(hidden, device=dev),
+        "w2": prng.normal(k2, (hidden, 1)) * 0.3,
+        "b2": torch.zeros(1, device=dev),
+        "mu": torch.zeros(n_features, device=dev),
+        "sigma": torch.ones(n_features, device=dev),
+    }
 
 
 def mlp_apply(params: Dict[str, torch.Tensor],

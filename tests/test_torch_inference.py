@@ -21,6 +21,9 @@ from room_slam_torch import resolve_device
 from room_slam_torch.data import formats
 from room_slam_torch.inference import predict
 from room_slam_torch.predictor import build_predictor
+from room_slam_torch.tools import calibrate as tcalibrate
+from room_slam_torch.tools import qscore as tqscore
+from room_slam_torch.tools import realbench as trealbench
 from room_slam_torch.train.driver import load_model_for_inference
 from room_slam_tpu.config import ExperimentConfig
 from room_slam_tpu.models.factory import build_model, init_params
@@ -242,6 +245,13 @@ def test_entry_points_raise_without_card(served, monkeypatch):
         lambda: load_model_for_inference(str(ckpt)),
         lambda: build_predictor(model, max_trace_len=MAX_LEN),
         lambda: predict(model, str(trace), max_trace_len=MAX_LEN),
+        lambda: tcalibrate._forward_val_set(str(ckpt), str(trace.parent),
+                                            2),
+        lambda: tcalibrate.sweep({}, [0.5], [0.3], [None]),
+        lambda: trealbench.run(str(ckpt), [str(trace.parent)],
+                               {"threshold": 0.5, "nms": 0.3}),
+        lambda: tqscore.fit([{"checkpoint": str(ckpt),
+                              "data_dir": str(trace.parent)}]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -275,7 +285,10 @@ def test_port_imports_no_jax():
                 "models/transformer.py", "train/torch_import.py",
                 "tools/parity.py", "train/driver.py", "models/factory.py",
                 "utils/profiling.py", "tools/profile_scaleup.py",
-                "tools/profile_scaleup2.py"}
+                "tools/profile_scaleup2.py", "tools/calibrate.py",
+                "tools/realbench.py", "tools/qscore.py", "tools/blindcal.py",
+                "tools/ceiling.py", "tools/diagnose_zeroshot.py",
+                "tools/soup.py"}
     rel = {str(f.relative_to(REPO / "room_slam_torch")) for f in files[:-1]}
     assert training <= rel, training - rel
     assert len(files) > 30

@@ -1809,3 +1809,39 @@ def test_optimizer_capturable_matches_host_step(cuda):
         assert torch.allclose(a, b, rtol=1e-6, atol=1e-7)
     assert opts[0].count == opts[1].count == 3
     assert opts[0].lr == pytest.approx(opts[1].lr)
+
+
+def test_forward_val_set_card_matches_cpu(cuda, tmp_path):
+    """The calibration tool's cached forward of a flagship checkpoint
+    (random weights, max_trace_len 300) on the card against the same call
+    on the CPU, the 8 views x 2 temporal windows + the full trace each a
+    light ``bilstm_fwd`` launch a layer and batch."""
+    from pathlib import Path
+
+    from room_slam_torch.config import ExperimentConfig
+    from room_slam_torch.data.rooms import write_rooms
+    from room_slam_torch.models.factory import build_model
+    from room_slam_torch.tools.calibrate import _forward_val_set
+    from room_slam_torch.train.checkpoint import save_checkpoint
+    from room_slam_torch.weights import load_params, random_params
+
+    cfg = ExperimentConfig.from_json(
+        Path(__file__).resolve().parents[1] / "configs/flagship_v15.json")
+    cfg.data.max_trace_len = 300
+    model = build_model(cfg.model)
+    load_params(model, random_params(model, 0))
+    save_checkpoint(tmp_path / "best", model.state_dict(), config=cfg,
+                    model=model)
+    write_rooms(tmp_path / "val", 5, seed=1, points=(400, 600))
+    args = (str(tmp_path / "best"), str(tmp_path / "val"), 4)
+    kw = dict(tta=True, tta_reflect=True, tta_windows=2)
+    before = rnn_cuda.bilstm_fwd_cuda.launches
+    got = _forward_val_set(*args, device="cuda", **kw)
+    launched = rnn_cuda.bilstm_fwd_cuda.launches - before
+    want = _forward_val_set(*args, device="cpu", **kw)
+    assert launched == cfg.model.lstm_layers * 8 * 3 * 2
+    assert got["names"] == want["names"]
+    for k in want:
+        if k != "names":
+            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-3,
+                                       err_msg=k)
