@@ -367,7 +367,27 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     on both; (d) ``realbench.run`` over two directories with
     ``TOOLS_BOOTSTRAP`` resamples under (b)'s rule, then
     ``diagnose_zeroshot.diagnose`` on the card; the wall times beside the
-    card's name and power limit.
+    card's name and power limit;
+47. the serving export (main paths), run right after phase 46:
+    ``tools/export.py`` at the JAX tool's defaults (threshold 0.05, NMS
+    0.1, extent 1.0, top-K 12, fusion, max_trace_len 3000), three exports
+    at once: phase 8's best (#1) on the card in this process through
+    ``export_checkpoint``, and through the CLI, each in a process of its
+    own, the same checkpoint on the CPU and a seeded ``bigru`` at the CLI's
+    defaults (#5, the unit kernel) on the card; each artifact loaded onto
+    the card with ``load_exported`` and called once on the first validation
+    trace, held to ``predict.run`` (keep and label columns equal, rows
+    within ``EXPORT_TOL``) with one launch a layer of its kernel and
+    nothing else; export seconds, artifact bytes, the p50 of the exported
+    call beside ``predict.run`` (``EXPORT_CALLS`` synchronised calls each)
+    and one profiled call of each (the flagship);
+48. the live UDP path (a main path): loopback UDP probed, then
+    ``data/ingest.py`` ``live(device="cuda")`` on phase 8's best, fed by
+    ``replay --realtime`` of the first validation trace from a process of
+    its own over ``LIVE_STREAM_S``; #1 asserted once a layer a refresh,
+    no packet lost, the last refresh's rows held to ``build_predictor`` on
+    the same rows (``LIVE_TOL``); the refresh times' spread while the trace
+    streams and over ``LIVE_IDLE_CALLS`` at its full length.
 
 Phases 10 (and 37's step), 16, 34 and 39's steps pin
 ``train.matmul_precision`` to float32: they compare two float32
@@ -652,10 +672,11 @@ LSTM_BF16_SHAPES = LSTM_SHAPES   # bf16 BiLSTM kernel checks
 # phases 35-37: the serving path's options, #1 at the test-time view
 # batches, hole tokens
 RECIPE_REQUESTS = 3                       # requests checked card vs CPU
-# requests timed per recipe (15: 50 before phase 39 was added, 25 before
-# the forward pipe kernels' timing joined phase 40, cut to keep the whole
-# run inside its time limit on a slow host)
-RECIPE_WINDOW, RECIPE_WARMUP = 10, 3
+# requests timed per recipe (7: 50 before phase 39 was added, 25 before
+# the forward pipe kernels' timing joined phase 40, 13 before phases 47-48
+# were added, cut to keep the whole run inside its time limit on a slow
+# host)
+RECIPE_WINDOW, RECIPE_WARMUP = 5, 2
 GATE_TAU = 0.448                          # the adopted auto gates' tau
 QSCORE_WEIGHTS = REPO / "results" / "r5_qscore_multi.json"
 TTA_SHAPES = ((4, 1500, 64), (8, 1500, 64), (24, 1500, 64))
@@ -668,7 +689,7 @@ PRECISION_GRAD_REL = 5e-2
 # phase 38: the flagship's frozen recipe (FINAL.md: --synthetic 2048
 # --synthetic_mode mixed --mix_real DIR --mix_copies C --seed 100)
 RECIPE_ROOMS, RECIPE_SEED = 2048, 100
-RECIPE_CPU_ROOMS = 4           # per half, generated again on the CPU
+RECIPE_CPU_ROOMS = 2           # per half, generated again on the CPU
 RECIPE_REAL_ROOMS = 8          # make_rooms: 7 captures to mix in, 1 val
 RECIPE_MIX_COPIES = 16
 WALL_SLACK = 0.05              # the JAX suite's: inside the walls
@@ -6886,6 +6907,372 @@ def tools_phase(best, val_dir, root, dev, seed, smi):
     return launched
 
 
+# phases 47-48: the serving export and the live UDP path on phase 8's best
+EXPORT_TOL = 1e-5          # the exported program against predict.run: rows
+EXPORT_CALLS = 20          # calls of each timed for the p50 (host clock)
+LIVE_INTERVAL = 0.1        # live's refresh interval, seconds
+LIVE_STREAM_S = 2.5        # the sender streams the trace over about this
+LIVE_DURATION = 60.0       # live's time limit, reached only if packets drop
+LIVE_IDLE_CALLS = 20       # refreshes timed at the full length, sender idle
+LIVE_TOL = 1e-5            # live's final estimate against build_predictor
+
+
+def same_rows(got, want, tol: float) -> float:
+    """``[RQ', 9]`` rows: the keep and label columns equal, the rest within
+    ``tol``; returns the max abs difference."""
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape, (got.shape, want.shape)
+    assert torch.equal(got[:, 6:8], want[:, 6:8])
+    assert got[:, 6].sum() > 0          # something is kept
+    err = (got - want).abs().max().item()
+    assert err <= tol, err
+    return err
+
+
+def operating_predictor(model, meta, dev):
+    """``build_predictor`` at an export sidecar's shape and operating
+    point (the live ``predict.run`` the artifact is held to)."""
+    op = meta["operating_point"]
+    return build_predictor(
+        model, max_trace_len=meta["input"]["traces"][1],
+        confidence_threshold=op["threshold"], nms_threshold=op["nms"],
+        refine_clearance=op["refine"],
+        refine_furniture=op["refine_furniture"], extent_slack=op["extent"],
+        top_k=op["top_k"], tta_rotations=op["tta"], fuse=op["fuse"],
+        device=dev, verbose=False)
+
+
+def host_split(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (host activity only):
+    the outermost operator calls (``aten::`` and custom ops, each counted
+    once however deep it dispatches), the host ms inside them, and the
+    call's wall ms (the profiler's own cost included in both); ``by_op``
+    holds each operator's calls and host ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    outer = []
+    for e in prof.events():
+        if "::" not in e.name:
+            continue
+        p = e.cpu_parent
+        while p is not None and "::" not in p.name:
+            p = p.cpu_parent
+        if p is None:
+            outer.append(e)
+    by_op = {}
+    for e in outer:
+        calls, ms = by_op.get(e.name, (0, 0.0))
+        by_op[e.name] = (calls + 1, ms + e.cpu_time_total / 1e3)
+    return {"ops": len(outer),
+            "in_ops_ms": round(sum(ms for _, ms in by_op.values()), 3),
+            "wall_ms": round(wall, 3), "by_op": by_op}
+
+
+def export_cli(checkpoint, output, device, platforms):
+    """``python -m room_slam_torch.tools.export`` in a process of its own
+    (started, not waited for; its errors go to ``output`` + ``.err``)."""
+    with open(f"{output}.err", "w") as err:
+        return subprocess.Popen(
+            [sys.executable, "-m", "room_slam_torch.tools.export",
+             "--checkpoint", str(checkpoint), "--output", str(output),
+             "--device", device, "--platforms", platforms],
+            cwd=REPO, stdout=subprocess.DEVNULL, stderr=err)
+
+
+def export_phase(best, val_dir, root, dev, seed, smi):
+    """Phase 47: ``tools/export.py`` at the JAX tool's defaults. Three
+    exports run at once, each a host-bound process of its own: the flagship
+    (phase 8's best: #1) on the card here through ``export_checkpoint``,
+    and through the CLI the flagship on the CPU and a seeded ``bigru`` at
+    the CLI's defaults (#5 on the unit kernel) on the card. Each artifact
+    is loaded onto the card with ``load_exported`` and called once on the
+    first validation trace (prepared by ``predict.prepare``), held to
+    ``predict.run``, the counts set to 0 just before the call and read
+    just after (one launch a layer, nothing else); the card export's is
+    held while the CLI's processes still run. Then, all processes ended,
+    the p50 of the exported call beside ``predict.run`` (alternating, for
+    the two card exports) and one profiled call of each (the flagship).
+    Logs the seconds of each export (the save apart for the one here), the
+    artifacts' bytes and the loads. Returns the launches of the held calls
+    by kernel."""
+    from room_slam_torch.tools import export as export_tool
+
+    cfg = bigru_default_config()
+    model = build_model(cfg.model)
+    params = random_params(model, seed)
+    sharpen(params)
+    load_params(model, params)
+    gru_stem = root / "export_bigru" / "best_model"
+    ckpt_lib.save_checkpoint(gru_stem, model.state_dict(), config=cfg,
+                             model=model)
+    arr = formats.load_trace_json(sorted(val_dir.glob("*_trace.json"))[0])
+    cases = {"lstm": (best, "bilstm_fwd", ["cuda"]),
+             "lstm_cpu": (best, "bilstm_fwd", ["cpu"]),
+             "bigru": (gru_stem, "bigru_fwd", ["cuda"])}
+    outs = {name: root / f"export_{name}.pt2" for name in cases}
+    launched = {"bilstm_fwd": 0, "bigru_fwd": 0}
+    held = {}
+
+    def hold(name):
+        """Load one artifact onto the card and hold one call of it."""
+        stem, kernel, platforms = cases[name]
+        meta = json.loads(outs[name].with_suffix(".json").read_text())
+        assert meta["platforms"] == platforms and meta["bytes"] > 0, meta
+        t0 = time.perf_counter()
+        fn = export_tool.load_exported(str(outs[name]), device=dev)
+        load_s = time.perf_counter() - t0
+        model, mcfg = load_model_for_inference(str(stem), device=dev)
+        layers = mcfg.model.lstm_layers
+        predict = operating_predictor(model, meta, dev)
+        x, m = predict.prepare(arr)
+        reset_counts()
+        served = fn(x, m)
+        torch.cuda.synchronize()
+        got = counts()
+        assert got == expected_counts(**{kernel: layers}), got
+        assert getattr(*WRAPPERS[kernel]).last_launch["kernel"] == "unit"
+        launched[kernel] += layers
+        err = same_rows(served, predict.run(x, m), EXPORT_TOL)
+        held[name] = (fn, predict, x, m, served)
+        line = (f"{name} ({mcfg.model.model_type}, d_model "
+                f"{mcfg.model.d_model}, {layers} layers, exported for "
+                f"{meta['platforms']}) at "
+                f"{json.dumps(meta['operating_point'])}, input "
+                f"{meta['input']['traces']}: artifact {meta['bytes']} bytes, "
+                f"loaded onto the card in {load_s:.2f} s; {kernel} launches "
+                f"{got[kernel]} a call "
+                f"({plan_text(getattr(*WRAPPERS[kernel]))}); "
+                f"{int(served[:, 6].sum())} kept of {served.shape[0]} rows, "
+                f"max abs vs predict.run {err:.3e} (tol {EXPORT_TOL:.0e})")
+        if name == "lstm_cpu":
+            line += (", equal to the card export's rows: "
+                     f"{torch.equal(served, held['lstm'][4])}")
+        log("export", f"{line} on {smi}")
+
+    t0 = time.perf_counter()
+    procs = {"lstm_cpu": export_cli(best, outs["lstm_cpu"], "cpu", "cpu"),
+             "bigru": export_cli(gru_stem, outs["bigru"], "cuda", "cuda")}
+    wall = {}
+    try:
+        saving = []
+        real_save = torch.export.save
+
+        def timed_save(*a, **k):
+            t = time.perf_counter()
+            real_save(*a, **k)
+            saving.append(time.perf_counter() - t)
+
+        with mock.patch.object(torch.export, "save", timed_save):
+            export_tool.export_checkpoint(str(best), str(outs["lstm"]),
+                                          platforms=("cuda",), device=dev)
+        wall["lstm"] = time.perf_counter() - t0
+        hold("lstm")
+        while len(wall) < 3:
+            assert time.perf_counter() - t0 < 600, wall
+            for name, proc in procs.items():
+                if name not in wall and proc.poll() is not None:
+                    wall[name] = time.perf_counter() - t0
+                    assert proc.returncode == 0, (
+                        name, Path(f"{outs[name]}.err").read_text()[-2000:])
+            time.sleep(0.05)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log("export", f"three exports at once: the flagship on the card here "
+        f"{wall['lstm']:.2f} s (of it the save {saving[0]:.2f} s; the "
+        f"first export of this process, torch.export's imports included), "
+        f"the CLI's processes (interpreter start, imports, load, export, "
+        f"save) ending at {wall['lstm_cpu']:.2f} s (the flagship on the "
+        f"CPU) and {wall['bigru']:.2f} s (the bigru on the card), the card "
+        f"export's artifact loaded and held meanwhile; "
+        f"{time.perf_counter() - t0:.2f} s in all")
+    hold("lstm_cpu")
+    hold("bigru")
+
+    for name in ("lstm", "bigru"):
+        fn, predict, x, m, _ = held[name]
+        ms = {"exported": [], "predict.run": []}
+        for _ in range(EXPORT_CALLS):
+            ms["exported"].append(timed_host(lambda: fn(x, m)))
+            ms["predict.run"].append(timed_host(lambda: predict.run(x, m)))
+        line = (f"{name}: p50 over {EXPORT_CALLS} synchronised calls each, "
+                "alternating: " + ", ".join(
+                    f"{k} {np.percentile(v, 50):.3f} ms (min {min(v):.3f}, "
+                    f"max {max(v):.3f})" for k, v in ms.items()))
+        if name == "lstm":
+            split = {"exported": host_split(lambda: fn(x, m)),
+                     "predict.run": host_split(lambda: predict.run(x, m))}
+            a, b = (split[k].pop("by_op") for k in split)
+            diff = sorted(((a.get(k, (0, 0.0))[1] - b.get(k, (0, 0.0))[1],
+                            k, a.get(k, (0,))[0], b.get(k, (0,))[0])
+                           for k in set(a) | set(b)), reverse=True)
+            line += ("; one profiled call each (outer operator calls, host "
+                     f"ms inside them, wall ms): {json.dumps(split)}; the "
+                     "operators with the most extra host ms in the exported "
+                     "call (ms, name, calls exported / predict.run): "
+                     + json.dumps([[round(d, 3), k, ca, cb]
+                                   for d, k, ca, cb in diff[:6]]))
+        log("export", f"{line} on {smi}")
+    return launched
+
+
+def live_phase(best, val_dir, root, dev, seed, smi):
+    """Phase 48: ``data/ingest.py`` ``live(device="cuda")`` on phase 8's
+    best in a thread on a free 127.0.0.1 port (loopback UDP probed first),
+    ``max_points`` the first validation trace's length, fed by ``replay``
+    of that trace in a process of its own (``--realtime``, over about
+    ``LIVE_STREAM_S``; started once live's socket is bound, so what
+    arrives during the model load queues as the backlog); each refresh's
+    host time recorded around the predictor ``live`` builds, and the last
+    refresh's rows and ``[RQ', 9]`` result; the counts set to 0 just
+    before and read just after (#1 once a layer a refresh, nothing else).
+    Asserts every packet arrived, and holds the last result to
+    ``build_predictor``'s on the same rows (keep and label columns equal,
+    values within ``LIVE_TOL``; the estimate's colliders too). Then, the
+    counts read and the sender gone, times ``LIVE_IDLE_CALLS`` refreshes
+    of live's predictor on the whole trace. Returns #1's launches."""
+    import socket
+    import threading
+
+    from room_slam_torch.data import ingest
+
+    # loopback UDP on this host: a refusal fails the phase
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.bind(("127.0.0.1", 0))
+    rx.settimeout(5)
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    tx.sendto(b"probe", rx.getsockname())
+    assert rx.recvfrom(16)[0] == b"probe"
+    port = rx.getsockname()[1]
+    tx.close()
+    rx.close()
+
+    trace = sorted(val_dir.glob("*_trace.json"))[0]
+    arr = formats.sort_by_time(formats.load_trace_json(trace))
+    n = len(arr)
+    seen, last, result = [], {}, {}
+    bound = threading.Event()
+    real_build = predictor_mod.build_predictor
+    real_bind = ingest._bind
+
+    def signalling_bind(*a):
+        sock = real_bind(*a)
+        bound.set()
+        return sock
+
+    def recording_build(*a, **k):
+        predict = real_build(*a, **k)
+
+        last["predict"] = predict
+
+        def predict_array(rows):      # = predict(rows) for rows non-empty
+            t0 = time.perf_counter()
+            stacked = predict.run(*predict.prepare(rows))
+            out = predict.finish(stacked)   # reads the result back
+            seen.append((len(rows), (time.perf_counter() - t0) * 1e3))
+            last.update(rows=rows.copy(), stacked=stacked)
+            return out
+
+        return predict_array
+
+    def runner():
+        try:
+            result["preds"] = ingest.live(
+                str(best), host="127.0.0.1", port=port,
+                interval=LIVE_INTERVAL, duration=LIVE_DURATION, max_points=n,
+                output=str(root / "live.json"), threshold=0.0, device=dev)
+        except BaseException as e:  # noqa: BLE001 (raised below)
+            result["error"] = e
+        bound.set()
+
+    t_start = time.perf_counter()
+    reset_counts()
+    with mock.patch.object(predictor_mod, "build_predictor",
+                           recording_build), \
+            mock.patch.object(ingest, "_bind", signalling_bind):
+        th = threading.Thread(target=runner)
+        th.start()
+        assert bound.wait(60) and "error" not in result, result
+        t_sender = time.perf_counter()
+        sender = subprocess.Popen(
+            [sys.executable, "-m", "room_slam_torch.data.ingest", "replay",
+             str(trace), "--host", "127.0.0.1", "--port", str(port),
+             "--hz", f"{n / LIVE_STREAM_S:.1f}", "--realtime"],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        try:
+            out, err = sender.communicate(timeout=LIVE_DURATION)
+            sender_s = time.perf_counter() - t_sender
+        finally:
+            if sender.poll() is None:
+                sender.kill()
+                sender.wait()
+        th.join(LIVE_DURATION + 60)
+    wall_s = time.perf_counter() - t_start
+    assert not th.is_alive()
+    if "error" in result:
+        raise result["error"]
+    assert sender.returncode == 0, err[-2000:]
+    sent = int(out.split("Sent ")[-1].split()[0])
+    launched = counts()
+    layers = ckpt_lib.load_config_from_checkpoint(str(best)).model.lstm_layers
+    refreshes = len(seen)
+    assert refreshes > 0 and sent == n, (refreshes, sent, n)
+    assert launched == expected_counts(bilstm_fwd=refreshes * layers), \
+        launched
+    rows = last["rows"]
+    lost = n - len(rows)
+    assert lost == 0, f"{lost} of {n} packets lost"
+    t = arr[:, 3].astype(np.float64)
+    want = np.column_stack([arr[:, :3], t - t[0]]).astype(np.float32)
+    assert np.array_equal(rows, want)
+    model, mcfg = load_model_for_inference(str(best), device=dev)
+    ref = build_predictor(model, max_trace_len=mcfg.data.max_trace_len,
+                          confidence_threshold=0.0, nms_threshold=0.3,
+                          device=dev, verbose=False)
+    err = same_rows(last["stacked"], ref.run(*ref.prepare(rows)), LIVE_TOL)
+    got, want_preds = result["preds"], ref(rows)
+    assert [c["label"] for c in got] == [c["label"] for c in want_preds]
+    assert len(got) > 0
+    cerr = max(np.abs(np.subtract(collider_values(a), collider_values(b))
+                      ).max() for a, b in zip(got, want_preds))
+    assert cerr <= LIVE_TOL, cerr
+    saved = json.loads((root / "live.json").read_text())
+    assert saved["metadata"]["num_colliders"] == len(got)
+    idle = [timed_host(lambda: last["predict"](rows))
+            for _ in range(LIVE_IDLE_CALLS)]
+
+    def spread(ms):
+        return json.dumps({q: round(float(np.percentile(ms, q)), 3)
+                           for q in (0, 10, 50, 90, 100)})
+
+    log("live", f"live(device={dev}) on 127.0.0.1:{port}, interval "
+        f"{LIVE_INTERVAL} s: {sent} poses sent by replay --realtime at "
+        f"{n / LIVE_STREAM_S:.1f} Hz from its own process ({sender_s:.2f} "
+        f"s from its start to its exit), {len(rows)} "
+        f"received ({lost} lost); {refreshes} refreshes at n from "
+        f"{seen[0][0]} to {seen[-1][0]}, bilstm_fwd launches "
+        f"{launched['bilstm_fwd']} = {refreshes} x {layers} layers; refresh "
+        f"host ms (predict_array: prepare, run, finish) percentiles "
+        f"{spread([s for _, s in seen])} over the {refreshes} while the "
+        f"trace streamed, {spread(idle)} over {LIVE_IDLE_CALLS} at its full "
+        f"length with the sender idle; the last refresh's "
+        f"{tuple(last['stacked'].shape)} "
+        f"rows against build_predictor's on the same rows: max abs "
+        f"{err:.3e} (tol {LIVE_TOL:.0e}), {len(got)} colliders kept; phase "
+        f"wall {wall_s:.2f} s on {smi}")
+    return launched["bilstm_fwd"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7170,6 +7557,16 @@ def main() -> int:
         tools_launched = tools_phase(best, val_dir, Path(tmp), dev,
                                      args.seed, smi)
         log("done", f"phase 46 in {time.perf_counter() - t_phase:.1f} s")
+
+        # 47-48. the serving export (main paths: #1 and #5 inside exported
+        # programs) and the live UDP path (#1 on every refresh) on phase 8's
+        # checkpoint and rooms
+        t_phase = time.perf_counter()
+        export_launched = export_phase(best, val_dir, Path(tmp), dev,
+                                       args.seed, smi)
+        live_launched = live_phase(best, val_dir, Path(tmp), dev, args.seed,
+                                   smi)
+        log("done", f"phases 47-48 in {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
 
     # 12-17. the scale-up bigru: kernel checks and timing, training (a
@@ -7524,6 +7921,10 @@ def main() -> int:
         k["launches_recipe"] = recipe_launched[k["name"]]
     kernels[0]["launches_evaluate"] = evaluated["bilstm_fwd"]
     kernels[0]["launches_tools"] = tools_launched
+    kernels[0]["launches_export"] = export_launched["bilstm_fwd"]
+    kernels[0]["launches_live"] = live_launched
+    next(k for k in kernels if k["name"] == "bigru_fwd_unit")[
+        "launches_export"] = export_launched["bigru_fwd"]
     # the reference lstm checkpoints' requests: H=64 (unit), H=128 (reg)
     kernels[0]["launches_pth"] = pth_launched["lstm_128"]
     next(k for k in kernels if k["name"] == "bilstm_fwd_reg")[

@@ -12,7 +12,10 @@ for explicitly (the CPU tests do).
 
 from __future__ import annotations
 
-import torch
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    import torch
 
 __version__ = "0.1.0"
 
@@ -24,6 +27,10 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     Also pins float32 matmuls and convolutions to full float32: the JAX
     reference computes in float32, and TF32 (about three decimal digits)
     would put the port out of tolerance against it."""
+    # imported here, not with the package: the UDP tools (data/ingest.py's
+    # listen, record, replay) run without torch's seconds of import
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

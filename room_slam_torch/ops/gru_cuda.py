@@ -50,7 +50,9 @@ package):
 With grad enabled and an input that requires it, ``bigru_recurrence`` goes
 through ``BiGRUFunction`` (training forward, then BPTT, then ``dW_hh`` and
 ``db_hh`` as matmuls and sums outside the kernel); otherwise it runs the
-light forward. The tensor's device picks the implementation: a CUDA tensor
+light forward through the custom op ``room_slam::bigru_fwd``
+(``bigru_fwd_op``), which ``torch.export`` records as one node. The
+tensor's device picks the implementation: a CUDA tensor
 launches the kernel (or raises); a CPU tensor takes the plain version.
 
 From H=65 to 256 one direction's W_hh does not fit the registers of one
@@ -926,6 +928,28 @@ def bigru_layer(x: torch.Tensor, wih_f: torch.Tensor, bih_f: torch.Tensor,
     return torch.cat([ys_f, ys_b], dim=-1)
 
 
+@torch.library.custom_op("room_slam::bigru_fwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def bigru_fwd_op(xg_f: torch.Tensor, xg_b: torch.Tensor, w_f: torch.Tensor,
+                 b_f: torch.Tensor, w_b: torch.Tensor, b_b: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The light forward of one BiGRU layer as the custom op
+    ``room_slam::bigru_fwd``: kernel #5 (``bigru_fwd_cuda``, launch or
+    raise) for CUDA tensors, the plain version for CPU tensors. One body
+    for both dispatch keys, picking by ``_device_type`` as the recurrences
+    always did; ``torch.export`` records it as one node."""
+    tensors = (xg_f, xg_b, w_f, b_f, w_b, b_b)
+    if _device_type("bigru_fwd", *tensors) == "cpu":
+        return bigru_fwd_plain(*tensors)
+    return bigru_fwd_cuda(*tensors)
+
+
+@bigru_fwd_op.register_fake
+def _(xg_f, xg_b, w_f, b_f, w_b, b_b):
+    B, N, H = xg_f.shape[0], xg_f.shape[1], w_f.shape[0]
+    return xg_f.new_empty(B, N, H), xg_f.new_empty(B, N, H)
+
+
 def bigru_recurrence(xg_f: torch.Tensor, xg_b: torch.Tensor,
                      w_f: torch.Tensor, b_f: torch.Tensor,
                      w_b: torch.Tensor, b_b: torch.Tensor
@@ -935,9 +959,7 @@ def bigru_recurrence(xg_f: torch.Tensor, xg_b: torch.Tensor,
     _check_shapes(*tensors)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return BiGRUFunction.apply(*tensors)
-    if _device_type("bigru_recurrence", *tensors) == "cpu":
-        return bigru_fwd_plain(*tensors)
-    return bigru_fwd_cuda(*tensors)
+    return torch.ops.room_slam.bigru_fwd(*tensors)
 
 
 # ---------------------------------------------------------------------------

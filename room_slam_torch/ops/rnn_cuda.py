@@ -64,7 +64,9 @@ plan in the wrapper's ``last_launch``.
 With grad enabled and an input that requires it, ``bilstm_recurrence``
 goes through ``BiLSTMFunction`` (training forward, then BPTT and
 ``dW_hh = sum_t h_{t-1}^T dg_t`` as one matmul); otherwise it runs the
-light forward. The tensor's device picks the implementation: a CUDA tensor
+light forward through the custom op ``room_slam::bilstm_fwd``
+(``bilstm_fwd_op``), which ``torch.export`` records as one node. The
+tensor's device picks the implementation: a CUDA tensor
 launches the kernel (or raises); a CPU tensor takes the plain version.
 Nothing routes a CUDA tensor to a plain version.
 
@@ -1447,6 +1449,27 @@ def lstm_recurrence_kernel(xg: torch.Tensor, w_hh: torch.Tensor,
     return lstm_fwd_cuda(xg, w_hh, reverse)
 
 
+@torch.library.custom_op("room_slam::bilstm_fwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def bilstm_fwd_op(xg_f: torch.Tensor, xg_b: torch.Tensor, w_f: torch.Tensor,
+                  w_b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The light forward of one BiLSTM layer as the custom op
+    ``room_slam::bilstm_fwd``: kernel #1 (``bilstm_fwd_cuda``, launch or
+    raise) for CUDA tensors, the plain version for CPU tensors. One body
+    for both dispatch keys, picking by ``_device_type`` as the recurrences
+    always did; ``torch.export`` records it as one node."""
+    tensors = (xg_f, xg_b, w_f, w_b)
+    if _device_type("bilstm_fwd", *tensors) == "cpu":
+        return bilstm_recurrence_plain(*tensors)
+    return bilstm_fwd_cuda(*tensors)
+
+
+@bilstm_fwd_op.register_fake
+def _(xg_f, xg_b, w_f, w_b):
+    B, N, H = xg_f.shape[0], xg_f.shape[1], w_f.shape[0]
+    return xg_f.new_empty(B, N, H), xg_f.new_empty(B, N, H)
+
+
 def bilstm_recurrence(xg_f: torch.Tensor, xg_b: torch.Tensor,
                       w_f: torch.Tensor, w_b: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1455,9 +1478,7 @@ def bilstm_recurrence(xg_f: torch.Tensor, xg_b: torch.Tensor,
     tensors = (xg_f, xg_b, w_f, w_b)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return BiLSTMFunction.apply(*tensors)
-    if _device_type("bilstm_recurrence", *tensors) == "cpu":
-        return bilstm_recurrence_plain(*tensors)
-    return bilstm_fwd_cuda(*tensors)
+    return torch.ops.room_slam.bilstm_fwd(*tensors)
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,14 @@ from room_slam_torch.ops.nms import post_process
 from room_slam_torch.ops.ttopt import TTOptParams, adapt_boxes
 
 
+def model_input_dim(model: nn.Module, default: int = 11) -> int:
+    """The encoder's input width, read from ``encoder.input_proj`` (the
+    source of truth even where the saved config disagrees); ``default``
+    for a model without one."""
+    proj = getattr(getattr(model, "encoder", None), "input_proj", None)
+    return int(proj.in_features) if isinstance(proj, nn.Linear) else default
+
+
 def adapt_features(feats: np.ndarray, in_feat: int) -> np.ndarray:
     """Truncate or zero-pad the trailing feature dim to the model's input
     width, so a checkpoint trained on fewer features (e.g. raw 4-D) runs."""
@@ -102,7 +110,7 @@ def build_predictor(model: nn.Module, max_trace_len: int = 3000,
     """
     dev = resolve_device(device)
     model = model.to(dev).eval()
-    in_feat = model.encoder.input_proj.in_features
+    in_feat = model_input_dim(model)
     qscore_params = (None if qscore is None
                      else qscore_ops.load_params(qscore, dev))
     tcfg = dict(ttopt_params) if ttopt_params else {}

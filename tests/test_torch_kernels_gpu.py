@@ -1845,3 +1845,88 @@ def test_forward_val_set_card_matches_cpu(cuda, tmp_path):
         if k != "names":
             np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-3,
                                        err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_serving_ops_opcheck_on_card(cuda, dtype):
+    """``torch.library.opcheck`` of ``room_slam::bilstm_fwd`` and
+    ``room_slam::bigru_fwd`` on CUDA tensors: the schema and the fake
+    implementation against the kernels' outputs; each call launches the
+    kernel (#1 / #5)."""
+    from room_slam_torch.ops import gru_cuda
+
+    g = np.random.default_rng(7)
+    B, N, H = 3, 29, 64
+
+    def t(*shape, scale=0.5):
+        return torch.tensor(g.normal(size=shape) * scale,
+                            dtype=torch.float32, device=cuda)
+
+    lstm = [t(B, N, 4 * H).to(dtype), t(B, N, 4 * H).to(dtype),
+            t(H, 4 * H, scale=0.1), t(H, 4 * H, scale=0.1)]
+    gru = [t(B, N, 3 * H).to(dtype), t(B, N, 3 * H).to(dtype),
+           t(H, 3 * H, scale=0.1), t(3 * H, scale=0.1),
+           t(H, 3 * H, scale=0.1), t(3 * H, scale=0.1)]
+    tests = ("test_schema", "test_faketensor")
+    before = (rnn_cuda.bilstm_fwd_cuda.launches,
+              gru_cuda.bigru_fwd_cuda.launches)
+    torch.library.opcheck(torch.ops.room_slam.bilstm_fwd.default, lstm,
+                          test_utils=tests)
+    torch.library.opcheck(torch.ops.room_slam.bigru_fwd.default, gru,
+                          test_utils=tests)
+    assert rnn_cuda.bilstm_fwd_cuda.launches > before[0]
+    assert gru_cuda.bigru_fwd_cuda.launches > before[1]
+    for op, ins, plain in (
+            (torch.ops.room_slam.bilstm_fwd, lstm,
+             rnn_cuda.bilstm_recurrence_plain),
+            (torch.ops.room_slam.bigru_fwd, gru, gru_cuda.bigru_fwd_plain)):
+        got, ref = op(*ins), plain(*ins)
+        for a, b in zip(got, ref):
+            assert a.dtype == dtype and a.shape == (B, N, H)
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= (ATOL if dtype == torch.float32 else 0.03), err
+
+
+def test_exported_program_matches_live_on_card(cuda, tmp_path):
+    """A small lstm's serving program exported on the card, and the same
+    program exported on the CPU and moved to the card, against the live
+    ``predict.run``: each call launches #1 once a layer."""
+    from room_slam_torch.config import ExperimentConfig, ModelConfig
+    from room_slam_torch.models.factory import build_model
+    from room_slam_torch.predictor import build_predictor
+    from room_slam_torch.tools.export import export_checkpoint, load_exported
+    from room_slam_torch.train.checkpoint import save_checkpoint
+    from room_slam_torch.weights import load_params, random_params
+
+    cfg = ExperimentConfig()
+    cfg.model = ModelConfig(model_type="lstm", d_model=32, num_queries=8,
+                            lstm_layers=2, dropout=0.0, objectness=True,
+                            refine_stages=1)
+    model = build_model(cfg.model)
+    load_params(model, random_params(model, 0))
+    save_checkpoint(tmp_path / "best", model.state_dict(), config=cfg,
+                    model=model)
+    point = dict(max_trace_len=200, threshold=0.0, nms=0.1, extent=1.0,
+                 top_k=5, fuse=True)
+    for device in ("cuda", "cpu"):
+        export_checkpoint(str(tmp_path / "best"),
+                          str(tmp_path / f"{device}.pt2"), device=device,
+                          **point)
+    predict = build_predictor(model, max_trace_len=200,
+                              confidence_threshold=0.0, nms_threshold=0.1,
+                              refine_furniture=True, extent_slack=1.0,
+                              top_k=5, fuse=True, device=cuda, verbose=False)
+    g = np.random.default_rng(3)
+    feats = torch.tensor(g.normal(size=(1, 200, 11)), dtype=torch.float32,
+                         device=cuda)
+    feats[..., 3] = torch.cumsum(feats[..., 3].abs() * 0.03, dim=-1)
+    mask = torch.ones(1, 200, dtype=torch.bool, device=cuda)
+    mask[0, 150:] = False
+    live = predict.run(feats, mask)
+    for device in ("cuda", "cpu"):
+        fn = load_exported(str(tmp_path / f"{device}.pt2"), device="cuda")
+        before = rnn_cuda.bilstm_fwd_cuda.launches
+        served = fn(feats, mask)
+        assert rnn_cuda.bilstm_fwd_cuda.launches - before == 2
+        assert served.is_cuda
+        torch.testing.assert_close(served, live, rtol=0, atol=1e-5)
