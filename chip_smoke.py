@@ -387,7 +387,19 @@ Phases, one line each or more (a failed check raises; nothing is caught):
     its own over ``LIVE_STREAM_S``; #1 asserted once a layer a refresh,
     no packet lost, the last refresh's rows held to ``build_predictor`` on
     the same rows (``LIVE_TOL``); the refresh times' spread while the trace
-    streams and over ``LIVE_IDLE_CALLS`` at its full length.
+    streams and over ``LIVE_IDLE_CALLS`` at its full length;
+49. the behaviour probes (a main path): ``diagnose.run_probes`` on phase
+    8's best on the card, #1 asserted once a layer a forward and nothing
+    else, held to the same probes on the CPU (boxes within ``MODEL_TOL``,
+    verdicts equal);
+50. the parallel strategies on a one-rank NCCL group (a main path; the
+    machine has one card, so several ranks are held only on the CPU by the
+    tests): the flagship's fused run at full width on a (1, 1) mesh against
+    the run without one (#1t / #2 / #1 and the matcher counted),
+    ``shard_params(tensor_parallel=True)`` on the transformer and one step
+    against the unsharded step, and ``pipeline_apply`` of
+    ``bilstm_stage_fn`` at S=1 against ``sequential_apply``, forward and
+    gradients (#3t / #4 counted); the group destroyed at the end.
 
 Phases 10 (and 37's step), 16, 34 and 39's steps pin
 ``train.matmul_precision`` to float32: they compare two float32
@@ -422,6 +434,7 @@ from room_slam_torch import resolve_device
 from room_slam_torch.config import ExperimentConfig
 from room_slam_torch.data import formats
 from room_slam_torch import demo
+from room_slam_torch import diagnose as diag_mod
 from room_slam_torch.data import synthetic
 from room_slam_torch.data.dataset import TraceColliderArrays
 from room_slam_torch.data.features import featurize
@@ -475,6 +488,13 @@ LOSS_RTOL = 1e-4     # card vs CPU train step: losses
 # rounding; a real mismatch costs O(1)
 TIE_RTOL = 1e-5
 PARAM_ATOL = 1e-5    # card vs CPU train step: updated parameters
+# phase 50: the flagship's fused run on a one-rank mesh against the run
+# without one (the same kernels on the same inputs; only the global norm's
+# sum order differs), the transformer's TP step, the S=1 pipeline
+DP_BATCH, DP_LEN, DP_STEPS = 32, 500, 3
+DP_RTOL, DP_ATOL = 1e-5, 1e-6
+TP_BATCH = 4
+PIPE_D, PIPE_BATCH, PIPE_MB = 128, 8, 4
 BENCH, SERVE, RAGGED = (32, 500, 64), (1, 1500, 64), (5, 43, 64)
 TRAIN = (20, 1500, 64)   # flagship batch_size, max_trace_len, d_model / 2
 # the unit kernels' checks also run at a narrow H and at 17 rows, no
@@ -699,9 +719,9 @@ DEMO_ROOMS, SAMPLE_TRACES = 3, 10
 # N=1500
 TRANSFORMER_REQUESTS = 5                  # requests checked card vs CPU
 TRANSFORMER_ROOMS = 10                    # make_rooms: 8 train rooms
-TRANSFORMER_STEPS, TRANSFORMER_WARMUP = 30, 3
+TRANSFORMER_STEPS, TRANSFORMER_WARMUP = 15, 3
 MOE_EXPERTS = 4
-MOE_STEPS, MOE_WARMUP = 20, 3
+MOE_STEPS, MOE_WARMUP = 10, 3
 PTH_MODELS = (("transformer", 128), ("lstm", 128), ("lstm", 256))
 PTH_ROUTE = {128: "unit", 256: "reg"}  # #1's route at H = d_model / 2
 PTH_REQUESTS = 5
@@ -7273,6 +7293,287 @@ def live_phase(best, val_dir, root, dev, seed, smi):
     return launched["bilstm_fwd"]
 
 
+# phases 49-50: the behaviour probes (diagnose.py) and the parallel
+# strategies on a one-rank NCCL group, on phase 8's checkpoint and rooms
+
+
+def diagnose_phase(best, val_dir, dev, smi):
+    """Phase 49: ``diagnose.run_probes`` (three probes, eight forwards
+    padded to 1000 rows) on phase 8's best on the card, the counts set to 0
+    just before and read just after (#1 once a layer a forward, nothing
+    else), held to the same probes on the CPU: each forward's boxes within
+    ``MODEL_TOL`` and the verdicts equal. Returns #1's launches."""
+    trace = sorted(val_dir.glob("*_trace.json"))[0]
+    model, cfg = load_model_for_inference(str(best), dev)
+    cpu_model, _ = load_model_for_inference(str(best), "cpu")
+    reset_counts()
+    t0 = time.perf_counter()
+    got = diag_mod.run_probes(model, str(trace))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launched = counts()
+    forwards = sum(len(p.boxes) for _, p in got)
+    assert launched == expected_counts(
+        bilstm_fwd=forwards * cfg.model.lstm_layers), launched
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(None):
+        want = diag_mod.run_probes(cpu_model, str(trace))
+    cpu_s = time.perf_counter() - t0
+    err = 0.0
+    for (name, a), (_, b) in zip(got, want):
+        assert a.ok == b.ok, name
+        for x, y in zip(a.boxes, b.boxes):
+            assert np.allclose(x, y, rtol=MODEL_TOL, atol=MODEL_TOL), name
+            err = max(err, float(np.abs(x - y).max()))
+    values = {name: {k: np.round(np.asarray(v, float), 6).tolist()
+                     for k, v in p.values.items()} for name, p in got}
+    log("diagnose", f"3 probes on {best.name} ({forwards} forwards at "
+        f"N={diag_mod.PAD_TO}, bilstm_fwd launches {launched['bilstm_fwd']})"
+        f" card {card_s:.3f} s vs CPU {cpu_s:.3f} s; verdicts "
+        f"{[p.ok for _, p in got]} equal; boxes card vs CPU max abs "
+        f"{err:.3e} (tol {MODEL_TOL:.0e}); numbers {json.dumps(values)} "
+        f"on {smi}")
+    return launched["bilstm_fwd"]
+
+
+def _clone_state(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _timed_cuda(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def parallel_phase(train_dir, val_dir, tmp, dev, seed, smi):
+    """Phase 50: the parallel strategies on a one-rank NCCL group (the
+    machine has one card; several ranks are held on the CPU by the tests):
+    (a) ``make_fused_run`` of the flagship at full width (B=``DP_BATCH``,
+    N=``DP_LEN``) for ``DP_STEPS`` steps and one validation batch, on a
+    ('data', 'model') mesh of (1, 1) and without one, from the same
+    parameters and generator, timed in turns (without, with, with,
+    without): history equal within ``DP_RTOL``, parameters
+    within ``DP_ATOL``, the counts of the mesh run set to 0 just before and
+    read just after (#1t and #2 a layer a step, #1 a layer a validation
+    batch, the matcher); (b) ``shard_params(tensor_parallel=True)`` on the
+    transformer at n_model 1 (its q/k/v, FFN and out projections split
+    over 'model'), one step against the unsharded step, both at float32,
+    warmed up and timed in turns: losses within ``DP_RTOL``, gradients
+    within ``GRAD_REL`` of the largest; (a) and (b) at one rank run the
+    unsharded path's operations (every collective of a one-rank axis is
+    skipped); (c) ``pipeline_apply``
+    of ``bilstm_stage_fn`` at S=1, M=``PIPE_MB`` (the schedule of S > 1:
+    its ticks and masks, the identity for the ring shift, an NCCL
+    all-reduce for each stage sum) against ``sequential_apply``, both
+    warmed up and timed in turns: output within ``KERNEL_ATOL``, stage and
+    input gradients max-rel ``GRAD_REL``, the counts of the pipeline run
+    (#3t and #4, two a microbatch); (d) the all-reduce and all-gather
+    autograd functions applied directly on the one-rank NCCL group,
+    forward and gradient held to the identity's. The group is destroyed
+    at the end. Returns the launches of (a) and (c)."""
+    import torch.distributed as dist
+
+    from room_slam_torch.parallel import collectives as coll
+    from room_slam_torch.parallel import mesh as mesh_lib
+    from room_slam_torch.parallel import pipeline as pipe
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store",
+                            rank=0, world_size=1)
+    try:
+        cfg = ExperimentConfig.from_json(CONFIG)
+        cfg.train.batch_size, cfg.data.max_trace_len = DP_BATCH, DP_LEN
+        ds = TraceColliderArrays(train_dir, cfg.data, augment=True,
+                                 verbose=False)
+        vds = TraceColliderArrays(val_dir, cfg.data, augment=False,
+                                  verbose=False)
+        data = loop.device_plan(ds.device_arrays(), dev)
+        vdata = loop.device_plan(vds.device_arrays(), dev)
+        plan = {k: v[None, :DP_STEPS] for k, v in
+                ds.epoch_plan(DP_BATCH, seed=seed).items()}
+        vplan = {k: v[:1] for k, v in
+                 vds.epoch_plan(DP_BATCH, shuffle=False).items()}
+        mesh = mesh_lib.make_mesh((1, 1))
+        init = build_model(cfg.model,
+                           generator=torch.Generator().manual_seed(seed))
+
+        def fused(on_mesh):
+            model = copy.deepcopy(init).to(dev)
+            if on_mesh:
+                mesh_lib.shard_params(model, mesh)
+            opt = loop.make_optimizer(
+                model, cfg, capturable=torch.device(dev).type == "cuda")
+            run = loop.make_fused_run(model, opt, cfg,
+                                      mesh if on_mesh else None)
+            sched, best = loop.fused_run_init(cfg, model, opt)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            if on_mesh:
+                reset_counts()
+                hungarian.hungarian_cuda.launches = 0
+            (_, _, hist), ms = _timed_cuda(lambda: run(
+                sched, best, data, vdata, loop.device_plan(plan, dev),
+                loop.device_plan(vplan, dev),
+                torch.zeros(1, dtype=torch.int32, device=dev), gen))
+            launched = {**counts(),
+                        "hungarian": hungarian.hungarian_cuda.launches}
+            return ({k: v.cpu().numpy() for k, v in hist.items()},
+                    _clone_state(model), ms, launched)
+
+        # in turns: without, with, with, without
+        ref_hist, ref_state, ref_ms, _ = fused(False)
+        hist, state, ms, dp_launched = fused(True)
+        ms = [ms, fused(True)[2]]
+        ref_ms = [ref_ms, fused(False)[2]]
+        layers = cfg.model.lstm_layers
+        assert {k: v for k, v in dp_launched.items() if v} == {
+            "bilstm_fwd_train": layers * DP_STEPS,
+            "bilstm_bwd": layers * DP_STEPS, "bilstm_fwd": layers,
+            "hungarian": dp_launched["hungarian"]}, dp_launched
+        assert dp_launched["hungarian"] >= DP_STEPS + 1, dp_launched
+        for k, v in ref_hist.items():
+            assert np.allclose(hist[k], v, rtol=DP_RTOL, atol=0), (k, hist[k],
+                                                                   v)
+        perr = max((state[k] - v).abs().max().item()
+                   for k, v in ref_state.items())
+        assert perr <= DP_ATOL, perr
+        log("parallel", f"(a) fused run on a one-rank NCCL mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}: flagship "
+            f"d_model {cfg.model.d_model}, B={DP_BATCH}, N={DP_LEN}, "
+            f"{DP_STEPS} steps + 1 validation batch in {ms[0]:.1f} / "
+            f"{ms[1]:.1f} ms against {ref_ms[0]:.1f} / {ref_ms[1]:.1f} ms "
+            f"without the mesh (in turns); train_loss "
+            f"{float(hist['train_loss'][0]):.6f} val_loss "
+            f"{float(hist['val_loss'][0]):.6f} (rtol {DP_RTOL:.0e}); "
+            f"params max abs diff {perr:.3e} (tol {DP_ATOL:.0e}); launches "
+            f"{json.dumps({k: v for k, v in dp_launched.items() if v})}")
+
+        # (b) tensor parallelism on the transformer at n_model 1
+        tcfg = transformer_config()
+        tcfg.train.batch_size, tcfg.data.max_trace_len = TP_BATCH, DP_LEN
+        # two float32 computations (as phases 10, 16, 34)
+        tcfg.train.matmul_precision = "float32"
+        tds = TraceColliderArrays(train_dir, tcfg.data, augment=False,
+                                  verbose=False)
+        batch = loop.gather_batch(loop.device_plan(tds.device_arrays(), dev),
+                                  tds.epoch_plan(TP_BATCH, seed=seed), 0)
+        tinit = build_model(tcfg.model,
+                            generator=torch.Generator().manual_seed(seed))
+
+        def tp_step(on_mesh):
+            model = copy.deepcopy(tinit).to(dev)
+            if on_mesh:
+                mesh_lib.shard_params(model, mesh, tensor_parallel=True)
+            opt = loop.make_optimizer(model, tcfg)
+            step = loop.make_train_step(model, opt, tcfg, augment=True,
+                                        mesh=mesh if on_mesh else None)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            losses, ms = _timed_cuda(lambda: step(batch, gen))
+            return ({k: float(v) for k, v in losses.items()},
+                    {n: q.grad.detach().clone()
+                     for n, q in model.named_parameters()}, ms, model)
+
+        # warmed up, then in turns: without, with, with, without
+        tp_step(False)
+        ref_l, ref_g, ref_tms, _ = tp_step(False)
+        got_l, got_g, tms, tmodel = tp_step(True)
+        tms = [tms, tp_step(True)[2]]
+        ref_tms = [ref_tms, tp_step(False)[2]]
+        split = [n for n in tmodel.placement.shardings
+                 if tmodel.placement.sharded(n)]
+        assert any(n.endswith("self_attn.q_proj.weight") for n in split)
+        assert any(n.endswith("linear2.weight") for n in split)
+        for k, v in ref_l.items():
+            assert abs(got_l[k] - v) <= DP_RTOL * abs(v) + 1e-7, (k, got_l[k],
+                                                                  v)
+        # over the largest gradient: a leaf whose gradient is 0 in exact
+        # arithmetic (k_proj's bias under softmax) holds rounding noise
+        top = max(v.abs().max().item() for v in ref_g.values())
+        grel = max((got_g[k] - v).abs().max().item()
+                   for k, v in ref_g.items()) / top
+        assert grel <= GRAD_REL, grel
+        log("parallel", f"(b) transformer d_model {tcfg.model.d_model} with "
+            f"tensor_parallel=True at n_model 1 ({len(split)} parameters "
+            f"split over 'model'), one step B={TP_BATCH}, N={DP_LEN} in "
+            f"{tms[0]:.1f} / {tms[1]:.1f} ms against {ref_tms[0]:.1f} / "
+            f"{ref_tms[1]:.1f} ms unsharded (warm, in turns); total_loss "
+            f"{got_l['total_loss']:.6f}, gradients max abs diff / largest "
+            f"{grel:.3e} (tol {GRAD_REL:.0e})")
+
+        # (c) the GPipe schedule at S=1
+        pmesh = pipe.make_pipeline_mesh((1, 1))
+        g = torch.Generator(device=dev).manual_seed(seed)
+        stacked = pipe.init_bilstm_stage_params(g, 1, PIPE_D, dev)
+        x = torch.randn(PIPE_BATCH, DP_LEN, PIPE_D, generator=g, device=dev)
+
+        def grads_of(fn, params):
+            xx = x.clone().requires_grad_(True)
+            ps = {k: v.clone().requires_grad_(True)
+                  for k, v in params.items()}
+            out = fn(ps, xx)
+            out.pow(2).mean().backward()
+            return out.detach(), {k: v.grad for k, v in ps.items()}, xx.grad
+
+        def piped():
+            return grads_of(lambda ps, xx: pipe.pipeline_apply(
+                pipe.bilstm_stage_fn, ps, xx, pmesh, PIPE_MB), stacked)
+
+        def sequential():
+            return grads_of(lambda ps, xx: pipe.sequential_apply(
+                pipe.bilstm_stage_fn, ps, xx), stacked)
+
+        # both warmed up, then timed in turns: pipeline, sequential,
+        # sequential, pipeline; the counts are those of the first timed run
+        piped(), sequential()
+        reset_counts()
+        (out, gp, gx), pms = _timed_cuda(piped)
+        pipe_launched = counts()
+        (ref, rgp, rgx), sms = _timed_cuda(sequential)
+        sms = [sms, _timed_cuda(sequential)[1]]
+        pms = [pms, _timed_cuda(piped)[1]]
+        assert pipe_launched == expected_counts(
+            lstm_fwd_train=2 * PIPE_MB, lstm_bwd=2 * PIPE_MB), pipe_launched
+        oerr = (out - ref).abs().max().item()
+        assert oerr <= KERNEL_ATOL, oerr
+        perr = max([max_rel(gp[k], v) for k, v in rgp.items()]
+                   + [max_rel(gx, rgx)])
+        assert perr <= GRAD_REL, perr
+        launched = {k: v for k, v in pipe_launched.items() if v}
+        log("parallel", f"(c) pipeline_apply(bilstm_stage_fn) S=1 M={PIPE_MB}"
+            f" on {dict(zip(pmesh.mesh_dim_names, pmesh.shape))}, x "
+            f"{tuple(x.shape)} (the M + S - 1 tick schedule, its shift the "
+            f"identity, its stage sums NCCL all-reduces): forward + "
+            f"backward {pms[0]:.1f} / {pms[1]:.1f} ms against "
+            f"sequential_apply's {sms[0]:.1f} / {sms[1]:.1f} ms (warm, in "
+            f"turns); output max abs {oerr:.3e} (tol {KERNEL_ATOL:.0e}), "
+            f"gradients max-rel {perr:.3e} (tol {GRAD_REL:.0e}); launches "
+            f"{json.dumps(launched)} on {smi}")
+
+        # (d) the port's collectives on the one-rank NCCL group: the sum
+        # and the gather over one rank are the identity, and so are their
+        # adjoints (the public wrappers skip a one-rank axis, so the
+        # autograd functions are applied directly)
+        group = coll.axis(pmesh, "stage").group
+        assert dist.get_backend(group) == "nccl"
+        xc = torch.randn(PIPE_BATCH, DP_LEN, PIPE_D, generator=g,
+                         device=dev, requires_grad=True)
+        w = torch.randn(PIPE_BATCH, 2 * DP_LEN, PIPE_D, generator=g,
+                        device=dev)
+        reduced = coll._AllReduce.apply(xc, group)
+        gathered = coll._AllGather.apply(xc, group, 1, 0, 1)
+        (torch.cat([reduced, gathered], dim=1) * w).sum().backward()
+        torch.cuda.synchronize()
+        assert torch.equal(reduced, xc) and torch.equal(gathered, xc)
+        assert torch.equal(xc.grad, w[:, :DP_LEN] + w[:, DP_LEN:])
+        log("parallel", f"(d) _AllReduce and _AllGather on the one-rank "
+            f"NCCL group, {tuple(xc.shape)}: forward and gradient equal to "
+            f"the identity's")
+    finally:
+        dist.destroy_process_group()
+    return dp_launched, pipe_launched
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7567,6 +7868,17 @@ def main() -> int:
         live_launched = live_phase(best, val_dir, Path(tmp), dev, args.seed,
                                    smi)
         log("done", f"phases 47-48 in {time.perf_counter() - t_phase:.1f} s")
+
+        # 49-50. the behaviour probes (#1) on phase 8's checkpoint, and the
+        # parallel strategies on a one-rank NCCL group (#1t / #2 / #1, the
+        # matcher, #3t / #4)
+        t_phase = time.perf_counter()
+        diag_launched = diagnose_phase(best, val_dir, dev, smi)
+        log("done", f"phase 49 in {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        dp_launched, pipe_launched = parallel_phase(
+            train_dir, val_dir, Path(tmp), dev, args.seed, smi)
+        log("done", f"phase 50 in {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
 
     # 12-17. the scale-up bigru: kernel checks and timing, training (a
@@ -7923,6 +8235,12 @@ def main() -> int:
     kernels[0]["launches_tools"] = tools_launched
     kernels[0]["launches_export"] = export_launched["bilstm_fwd"]
     kernels[0]["launches_live"] = live_launched
+    kernels[0]["launches_diagnose"] = diag_launched
+    for k in kernels[:3]:
+        k["launches_dp"] = dp_launched[k["name"]]
+    for name in ("lstm_fwd_train", "lstm_bwd"):
+        next(k for k in kernels if k["name"] == name)[
+            "launches_pipeline"] = pipe_launched[name]
     next(k for k in kernels if k["name"] == "bigru_fwd_unit")[
         "launches_export"] = export_launched["bigru_fwd"]
     # the reference lstm checkpoints' requests: H=64 (unit), H=128 (reg)
@@ -7935,6 +8253,7 @@ def main() -> int:
         **entry("hungarian", "room_slam_torch/csrc/hungarian.cu",
                 "room_slam_tpu/ops/hungarian.py:227",
                 fused_timing["matcher_launches"], match_rows["flagship"]),
+        "launches_dp": dp_launched["hungarian"],
         "host_ms": match_rows["flagship"]["host_ms"],
         "match_ms": match_rows["flagship"]["match_ms"],
         "shapes": list(match_rows.values())})

@@ -3,8 +3,7 @@
 The fields and defaults match the JAX package one for one, so the same
 ``configs/*.json`` files and checkpoint sidecars load unchanged. The copy
 exists because importing ``room_slam_tpu.config`` runs
-``room_slam_tpu/__init__.py``, which imports jax. Sections this port does
-not use yet (``mesh``) are ignored on load.
+``room_slam_tpu/__init__.py``, which imports jax.
 """
 
 from __future__ import annotations
@@ -116,10 +115,28 @@ class TrainConfig:
 
 
 @dataclass
+class MeshConfig:
+    """Device mesh of a multi-rank run (``parallel/mesh.py``).
+
+    ``mesh_shape`` is ``(n_data, n_model)`` for a ('data', 'model') mesh,
+    ``(0, 1)`` putting every rank on 'data', or ``(n_data, n_seq,
+    n_model)`` for a ('data', 'seq', 'model') mesh (sequence parallelism:
+    each rank takes a slice of the raw trace's L axis); a 0 entry is
+    filled with the ranks left. Set from the CLI with e.g. ``--set
+    mesh.mesh_shape=[2,2,2]``. A recurrence encoder gathers its whole
+    sequence on each rank before the recurrence."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    mesh_shape: Tuple[int, ...] = (0, 1)
+
+
+@dataclass
 class ExperimentConfig:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -139,6 +156,7 @@ class ExperimentConfig:
             data=build(DataConfig, d.get("data")),
             model=build(ModelConfig, d.get("model")),
             train=build(TrainConfig, d.get("train")),
+            mesh=build(MeshConfig, d.get("mesh")),
         )
 
     @classmethod

@@ -18,7 +18,7 @@ from typing import Dict, Iterator, List
 
 import numpy as np
 
-from room_slam_torch.config import DataConfig
+from room_slam_torch.config import BENCH_ID_TO_LABEL, DataConfig
 from room_slam_torch.data import formats
 
 
@@ -201,3 +201,42 @@ class TraceColliderArrays:
         return {"base_idx": base.reshape(nb, batch_size),
                 "rotation_k": self._rotation_k(idx).reshape(nb, batch_size),
                 "weight": weight.reshape(nb, batch_size)}
+
+
+def print_dataset_statistics(data_dir: str, cfg: DataConfig | None = None,
+                             augment_rotation: bool = True) -> None:
+    """Print the dataset report of the JAX package's
+    ``print_dataset_statistics``: sample counts, rotations, trace lengths,
+    colliders per sample and the label distribution."""
+    cfg = cfg or DataConfig()
+    ds = TraceColliderArrays(data_dir, cfg, augment=augment_rotation)
+    print("=" * 50)
+    print("Dataset Statistics")
+    print("=" * 50)
+    print(f"Base samples: {ds.n_base}")
+    print(f"Total samples (with rotation expansion): {len(ds)}")
+    print(f"Rotations: {ds.rotation_angles}°")
+    lengths = ds.length
+    print(f"\nTrace lengths (after window cap {cfg.max_trace_len}):")
+    print(f"  Min: {lengths.min()}  Max: {lengths.max()}  "
+          f"Avg: {lengths.mean():.1f}")
+    counts = ds.valid.sum(axis=1)
+    print(f"\nColliders per sample: min {counts.min()} max {counts.max()} "
+          f"avg {counts.mean():.1f}")
+    flat = ds.labels[ds.valid]
+    print("\nLabel distribution (base samples):")
+    for lid, name in BENCH_ID_TO_LABEL.items():
+        print(f"  {name}: {(flat == lid).sum()}")
+    print("=" * 50)
+
+
+if __name__ == "__main__":
+    # python -m room_slam_torch.data.dataset [DATA_DIR]: the report with
+    # and without the rotation expansion
+    import sys
+
+    data_dir = sys.argv[1] if len(sys.argv) > 1 else "dataset/train"
+    print("=== WITH rotation expansion ===")
+    print_dataset_statistics(data_dir, augment_rotation=True)
+    print("=== WITHOUT rotation expansion ===")
+    print_dataset_statistics(data_dir, augment_rotation=False)

@@ -37,14 +37,20 @@ def featurize(raw: torch.Tensor,
     """
     L = raw.shape[-2]
     mask = torch.arange(L, device=raw.device) < length[..., None]
+    feats = kinematics(raw, raw[..., :1, 3:4])
+    return feats * mask[..., None].to(raw.dtype), mask
+
+
+def kinematics(raw: torch.Tensor, t0: torch.Tensor) -> torch.Tensor:
+    """The 11 features of ``raw [..., L, 4]`` before masking, time counted
+    from ``t0 [..., 1, 1]``; the first row's diffs are 0."""
     pos = raw[..., :3]
-    t = raw[..., 3:4] - raw[..., :1, 3:4]
+    t = raw[..., 3:4] - t0
     vel = _diff_prepend_first(pos) / torch.clamp(_diff_prepend_first(t),
                                                  min=1e-3)
     acc = _diff_prepend_first(vel)
     speed = torch.linalg.vector_norm(vel, dim=-1, keepdim=True)
-    feats = torch.cat([pos, t, vel, acc, speed], dim=-1)
-    return feats * mask[..., None].to(raw.dtype), mask
+    return torch.cat([pos, t, vel, acc, speed], dim=-1)
 
 
 def trace_stats(coords: torch.Tensor,

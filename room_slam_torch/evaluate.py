@@ -26,11 +26,12 @@ through the model in one batch, the slots whose confidence (sigmoid
 validity times the top class probability) exceeds ``--threshold`` pool
 into the trace's predictions, and the trace's ground truth counts once;
 rotated-box mAP at ``--iou_thresh``. ``--compare_baseline`` scores the
-rule-based occupancy baseline on each whole trace beside it. Prints the
-metrics as JSON.
-
-Not ported yet, raising ``NotImplementedError``: ``--visualize`` (ROADMAP
-queue 1 item 16).
+rule-based occupancy baseline on each whole trace beside it.
+``--visualize OUT_DIR`` writes ``eval_trace_<id>.png`` for the first 12
+traces: the trace, the ground truth (red) and the model's predictions
+(blue, dashed), as the root script does; like it, the benchmark surface
+ignores the flag. The plots need matplotlib (an ``ImportError`` naming it
+without). Prints the metrics as JSON.
 ``--device`` defaults to ``cuda`` and raises without a card unless
 ``--device cpu`` is given.
 """
@@ -46,7 +47,7 @@ import torch
 from torch import nn
 
 from room_slam_torch import resolve_device
-from room_slam_torch.config import BENCH_ID_TO_LABEL
+from room_slam_torch.config import BENCH_ID_TO_LABEL, LEGACY_ID_TO_LABEL
 from room_slam_torch.data.dataset import TraceColliderArrays
 from room_slam_torch.data.features import featurize
 from room_slam_torch.data.legacy import LegacyArrays
@@ -235,21 +236,70 @@ def score(pred: List[Tuple], gt: List[Tuple], iou_thresh: float):
 def evaluate_legacy(checkpoint: str, data_dir: str, hidden_size: int = 128,
                     max_objects: int = 10, threshold: float = 0.5,
                     iou_thresh: float = 0.5, compare_baseline: bool = False,
-                    device: str | torch.device = "cuda") -> Dict:
+                    device: str | torch.device = "cuda",
+                    visualize: str | None = None) -> Dict:
     """The metrics of the JAX package's ``evaluate_legacy``: ``mAP``,
     ``AP_per_class``, ``checkpoint_epoch`` and, with ``compare_baseline``,
-    ``baseline_mAP`` and ``baseline_AP_per_class``."""
+    ``baseline_mAP`` and ``baseline_AP_per_class``; with ``visualize``, the
+    per-trace plots in that directory (``visualize_legacy``)."""
     ds = LegacyArrays(data_dir)
     model, side = load_legacy_model(checkpoint, hidden_size, max_objects,
                                     device)
     gt = gt_rows(ds)
-    mAP, aps = score(model_rows(model, ds, threshold), gt, iou_thresh)
+    pred = model_rows(model, ds, threshold)
+    mAP, aps = score(pred, gt, iou_thresh)
     result = {"mAP": mAP, "AP_per_class": aps,
               "checkpoint_epoch": side.get("epoch")}
     if compare_baseline:
         result["baseline_mAP"], result["baseline_AP_per_class"] = score(
             baseline_rows(ds, max_objects, device), gt, iou_thresh)
+    if visualize:
+        visualize_legacy(visualize, ds, pred, gt)
     return result
+
+
+def visualize_legacy(out_dir: str, ds: LegacyArrays, pred: List[Tuple],
+                     gt: List[Tuple]) -> None:
+    """``eval_trace_<id>.png`` in ``out_dir`` for the first 12 traces: the
+    whole trace, its GT rows (red) and prediction rows (blue, dashed), as
+    the root ``evaluate.py``'s ``_visualize_legacy`` draws them."""
+    from pathlib import Path
+
+    from room_slam_torch.viz import pyplot, rectangle
+
+    plt = pyplot()
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    for tid in sorted(set(ds.trace_id.tolist()))[:12]:
+        full = np.concatenate([ds.traces[i]
+                               for i in np.where(ds.trace_id == tid)[0]])
+        fig, ax = plt.subplots(figsize=(9, 9))
+        ax.plot(full[:, 1], full[:, 2], "b-", lw=0.4, alpha=0.6,
+                label="trace")
+        for b, l, t in gt:
+            if t != tid:
+                continue
+            ax.add_patch(rectangle(
+                (b[0] - b[2] / 2, b[1] - b[3] / 2), b[2], b[3],
+                ec="red", fc="red", alpha=0.2))
+            ax.text(b[0], b[1], LEGACY_ID_TO_LABEL.get(int(l), "?"),
+                    color="red", fontsize=7, ha="center")
+        for b, l, c, t in pred:
+            if t != tid:
+                continue
+            ax.add_patch(rectangle(
+                (b[0] - b[2] / 2, b[1] - b[3] / 2), b[2], b[3],
+                ec="blue", fc="none", ls="--"))
+            ax.text(b[0], b[1],
+                    f"{LEGACY_ID_TO_LABEL.get(int(l), '?')}\n{c:.2f}",
+                    color="blue", fontsize=6, ha="center")
+        ax.set_aspect("equal")
+        ax.set_title(f"trace {tid}: GT (red) vs prediction (blue)")
+        ax.legend()
+        fig.savefig(out / f"eval_trace_{tid}.png", dpi=110,
+                    bbox_inches="tight")
+        plt.close(fig)
+    print(f"saved visualizations to {out}")
 
 
 def main(argv: List[str] | None = None) -> None:
@@ -272,7 +322,9 @@ def main(argv: List[str] | None = None) -> None:
     p.add_argument("--hidden_size", type=int, default=128)
     p.add_argument("--max_objects", type=int, default=10)
     p.add_argument("--compare_baseline", action="store_true")
-    p.add_argument("--visualize", type=str, default=None, metavar="OUT_DIR")
+    p.add_argument("--visualize", type=str, default=None, metavar="OUT_DIR",
+                   help="write per-trace GT-vs-prediction PNGs (legacy "
+                        "surface; needs matplotlib)")
     p.add_argument("--output", type=str, default=None)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
@@ -282,9 +334,6 @@ def main(argv: List[str] | None = None) -> None:
     if surface == "auto":
         surface = "legacy" if "legacy" in args.checkpoint else "bench"
         print(f"[evaluate] auto-detected surface: {surface}")
-    if args.visualize:
-        raise NotImplementedError(
-            "--visualize is not ported yet (ROADMAP queue 1 item 16)")
     if surface == "bench":
         metrics = evaluate_benchmark(
             args.checkpoint, args.data_dir, args.batch_size, args.iou_thresh,
@@ -294,7 +343,7 @@ def main(argv: List[str] | None = None) -> None:
         metrics = evaluate_legacy(
             args.checkpoint, args.data_dir, args.hidden_size,
             args.max_objects, args.threshold, args.iou_thresh,
-            args.compare_baseline, args.device)
+            args.compare_baseline, args.device, args.visualize)
     print(json.dumps(metrics, indent=2, default=float))
     if args.output:
         with open(args.output, "w") as f:

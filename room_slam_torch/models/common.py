@@ -11,6 +11,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from room_slam_torch.parallel.collectives import all_gather, all_reduce
+
 
 class Dense(nn.Linear):
     """``nn.Linear`` with the JAX package's init: weight and bias
@@ -21,6 +23,12 @@ class Dense(nn.Linear):
     and the output comes in it (bfloat16 halves the ``[B, N, D]`` streams).
     The parameters stay float32."""
 
+    # (axis, "column" | "row") when the weight is split over a mesh's
+    # 'model' axis (parallel/mesh.shard_params): a column-parallel layer's
+    # output stays local; a row-parallel one on an axis of several ranks
+    # sums its partial products over the axis and adds the bias once
+    parallel = None
+
     def __init__(self, in_features: int, out_features: int,
                  zero_init: bool = False, dtype: torch.dtype | None = None):
         self.zero_init = zero_init
@@ -29,10 +37,14 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
-        if cd is None:
-            return super().forward(x)
-        return nn.functional.linear(x.to(cd), self.weight.to(cd),
-                                    self.bias.to(cd))
+        w, b = self.weight, self.bias
+        if cd is not None:
+            x, w, b = x.to(cd), w.to(cd), b.to(cd)
+        if self.parallel is not None and self.parallel[1] == "row" \
+                and self.parallel[0].size > 1:
+            return all_reduce(nn.functional.linear(x, w),
+                              self.parallel[0]) + b
+        return nn.functional.linear(x, w, b)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
@@ -136,6 +148,7 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, d_model: int, nhead: int, dropout: float = 0.0):
         super().__init__()
         self.nhead = nhead
+        self.head_dim = d_model // nhead
         self.dropout = dropout
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             self.add_module(name, Dense(d_model, d_model))
@@ -145,22 +158,34 @@ class MultiHeadAttention(nn.Module):
                 key_padding_mask: Optional[torch.Tensor] = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """``query [B, Tq, D]``, ``key`` / ``value [B, Tk, D]``,
-        ``key_padding_mask [B, Tk]`` (True = valid)."""
-        B, Tq, D = query.shape
-        hd = D // self.nhead
+        ``key_padding_mask [B, Tk]`` (True = valid). Under tensor
+        parallelism the projections hold this rank's columns: the rank
+        attends with its own heads, or, when its columns cut a head, with
+        every rank's columns gathered, keeping its own for ``out_proj``."""
+        B, Tq, _ = query.shape
+        hd = self.head_dim
+        q, k, v = (self.q_proj(query), self.k_proj(key),
+                   self.v_proj(value))
+        cut = None
+        if self.q_proj.parallel is not None and q.shape[-1] % hd:
+            ax = self.q_proj.parallel[0]
+            cut = (ax.rank * q.shape[-1], q.shape[-1])
+            q, k, v = (all_gather(t, ax, -1) for t in (q, k, v))
+        Dl = q.shape[-1]
 
         def split(x):
-            return x.view(B, x.shape[1], self.nhead, hd).transpose(1, 2)
+            return x.view(B, x.shape[1], Dl // hd, hd).transpose(1, 2)
 
-        q = split(self.q_proj(query)) / math.sqrt(hd)
-        k = split(self.k_proj(key))
-        v = split(self.v_proj(value))
+        q = split(q) / math.sqrt(hd)
+        k, v = split(k), split(v)
         scores = torch.matmul(q, k.transpose(-1, -2))        # [B, H, Tq, Tk]
         if key_padding_mask is not None:
             scores = masked_scores(scores, key_padding_mask[:, None, None, :])
         attn = dropout(torch.softmax(scores, dim=-1), self.dropout,
                        self.training, generator)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(B, Tq, D)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(B, Tq, Dl)
+        if cut is not None:
+            out = out.narrow(-1, *cut)
         return self.out_proj(out)
 
 
@@ -191,6 +216,13 @@ class MoEFFN(nn.Module):
         self.aux: Optional[torch.Tensor] = None
         self.reset_parameters()
 
+    # on a mesh (parallel/mesh.shard_params): the axes whose ranks hold
+    # other tokens of the batch (the load-balance statistics sum over
+    # them), and (axis, first expert) when the experts are split over
+    # 'model'
+    token_axes = ()
+    experts = None
+
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
         b1 = 1.0 / math.sqrt(self.w1.shape[1])
@@ -206,20 +238,29 @@ class MoEFFN(nn.Module):
         top = probs.argmax(dim=-1)                              # [B, N]
         onehot = nn.functional.one_hot(top, E).to(x.dtype)
         route = onehot * probs.gather(-1, top[..., None])
+        if self.experts is not None:
+            lo = self.experts[1]
+            route = route[..., lo: lo + self.w1.shape[0]]
         h = torch.relu(torch.einsum("bnd,edf->benf", x, self.w1)
                        + self.b1[None, :, None, :])             # [B, E, N, F]
         h = dropout(h, self.dropout, self.training, generator)
         y = (torch.einsum("benf,efd->bend", h, self.w2)
              + self.b2[None, :, None, :])                       # [B, E, N, D]
         out = torch.einsum("bend,bne->bnd", y, route)
-        if mask is None:
+        if self.experts is not None:
+            out = all_reduce(out, self.experts[0])
+        if mask is None and not self.token_axes:
             frac = onehot.float().mean(dim=(0, 1))
             mean_p = probs.float().mean(dim=(0, 1))
         else:
-            m = mask.float()[..., None]
-            denom = torch.clamp(m.sum(), min=1.0)
-            frac = (onehot.float() * m).sum(dim=(0, 1)) / denom
-            mean_p = (probs.float() * m).sum(dim=(0, 1)) / denom
+            m = (torch.ones_like(top, dtype=torch.float32) if mask is None
+                 else mask.float())[..., None]
+            denom = torch.clamp(all_reduce(m.sum(), *self.token_axes),
+                                min=1.0)
+            frac = all_reduce((onehot.float() * m).sum(dim=(0, 1)),
+                              *self.token_axes) / denom
+            mean_p = all_reduce((probs.float() * m).sum(dim=(0, 1)),
+                                *self.token_axes) / denom
         self.aux = E * torch.sum(frac * mean_p)
         return out
 

@@ -29,6 +29,7 @@ from room_slam_torch.models.common import (Dense, assemble_output,
 from room_slam_torch.models.lstm import SimpleQueryDecoder
 from room_slam_torch.ops.gru_cuda import bigru_recurrence
 from room_slam_torch.ops.rnn import input_gates
+from room_slam_torch.parallel.collectives import ONE_RANK, gather_sequence
 
 
 class BiGRULayer(nn.Module):
@@ -114,6 +115,9 @@ class TraceToColliderGRU(nn.Module):
     only). ``generator`` seeds the initial weights; serving loads real
     weights through ``weights.py``."""
 
+    # the mesh axis splitting the input sequence (parallel/mesh.py)
+    seq = ONE_RANK
+
     def __init__(self, input_dim: int = 11, d_model: int = 512,
                  num_queries: int = 32, gru_layers: int = 2,
                  dropout: float = 0.1, num_classes: int = 4,
@@ -137,7 +141,10 @@ class TraceToColliderGRU(nn.Module):
                 mask: Optional[torch.Tensor] = None,
                 generator: torch.Generator | None = None):
         """``generator`` draws the dropout masks in training mode
-        (``model.train()``); it is unused in eval mode."""
+        (``model.train()``); it is unused in eval mode. With ``seq`` above
+        one rank the input is this rank's slice of the sequence, gathered
+        whole first: the recurrences take the whole sequence."""
+        traces, mask = gather_sequence(traces, mask, self.seq)
         offs = None
         if self.center_xz:
             traces, offs = center_traces_xz(traces, mask)

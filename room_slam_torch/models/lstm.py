@@ -39,6 +39,7 @@ from room_slam_torch.models.common import (MLP, ContactRefineStage, Dense,
 from room_slam_torch.ops.refine import hole_components
 from room_slam_torch.ops.rnn import input_gates
 from room_slam_torch.ops.rnn_cuda import bilstm_recurrence
+from room_slam_torch.parallel.collectives import ONE_RANK, gather_sequence
 
 
 class BiLSTMLayer(nn.Module):
@@ -214,6 +215,9 @@ class TraceToColliderLSTM(nn.Module):
     only). ``generator`` seeds the initial weights (the JAX package's init
     distributions); serving loads real weights through ``weights.py``."""
 
+    # the mesh axis splitting the input sequence (parallel/mesh.py)
+    seq = ONE_RANK
+
     def __init__(self, input_dim: int = 11, d_model: int = 128,
                  num_queries: int = 30, lstm_layers: int = 2,
                  dropout: float = 0.1,
@@ -245,7 +249,10 @@ class TraceToColliderLSTM(nn.Module):
                 mask: Optional[torch.Tensor] = None,
                 generator: torch.Generator | None = None):
         """``generator`` draws the dropout masks in training mode
-        (``model.train()``); it is unused in eval mode."""
+        (``model.train()``); it is unused in eval mode. With ``seq`` above
+        one rank the input is this rank's slice of the sequence, gathered
+        whole first: the recurrences take the whole sequence."""
+        traces, mask = gather_sequence(traces, mask, self.seq)
         offs = None
         if self.center_xz:
             traces, offs = center_traces_xz(traces, mask)

@@ -35,11 +35,17 @@ from room_slam_torch.models.common import (MLP, ContactRefineStage, Dense,
                                            reset_parameters,
                                            sinusoidal_positions,
                                            trace_extent_planes)
+from room_slam_torch.parallel.collectives import (ONE_RANK, all_gather,
+                                                  gather_sequence)
 
 
 class EncoderLayer(nn.Module):
     """Post-norm encoder layer: self-attention with key padding, then a
-    ReLU FFN (or ``MoEFFN`` with ``moe_experts > 0``)."""
+    ReLU FFN (or ``MoEFFN`` with ``moe_experts > 0``). The keys and
+    values are every rank's rows of ``seq`` (the mesh axis splitting the
+    sequence), gathered."""
+
+    seq = ONE_RANK
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 512,
                  dropout: float = 0.1, moe_experts: int = 0):
@@ -60,7 +66,8 @@ class EncoderLayer(nn.Module):
         def drop(t):
             return dropout(t, self.dropout, self.training, generator)
 
-        attn = self.self_attn(x, x, x, key_padding_mask=mask,
+        kv, kv_mask = (all_gather(t, self.seq, 1) for t in (x, mask))
+        attn = self.self_attn(x, kv, kv, key_padding_mask=kv_mask,
                               generator=generator)
         x = self.norm1(x + drop(attn))
         if self.moe_experts:
@@ -103,7 +110,12 @@ class DecoderLayer(nn.Module):
 
 class TraceEncoder(nn.Module):
     """``input_proj`` + sinusoidal positions + the encoder layers, plus the
-    masked coordinate statistics used for relative decoding."""
+    masked coordinate statistics used for relative decoding. The input is
+    this rank's slice of ``seq`` (the mesh axis splitting the sequence):
+    the positions start at the slice's start, and the statistics are
+    those of the whole sequence's coordinates, gathered."""
+
+    seq = ONE_RANK
 
     def __init__(self, input_dim: int = 11, d_model: int = 128,
                  nhead: int = 4, num_layers: int = 3,
@@ -124,9 +136,11 @@ class TraceEncoder(nn.Module):
         coords = traces[..., :3]
         if mask is None:
             mask = torch.ones(B, N, dtype=torch.bool, device=traces.device)
-        mean, scale = trace_stats(coords, mask)
+        mean, scale = trace_stats(*gather_sequence(coords, mask, self.seq))
         x = self.input_proj(traces)
-        x = x + sinusoidal_positions(N, self.d_model, x.dtype, x.device)[None]
+        start = self.seq.rank * N
+        x = x + sinusoidal_positions(N * self.seq.size, self.d_model,
+                                     x.dtype, x.device)[start: start + N][None]
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(x, mask, generator)
         return x, coords, mean, scale
@@ -215,7 +229,15 @@ class TraceToColliderTransformer(nn.Module):
     """Transformer encoder + collider decoder (the JAX package's
     ``TraceToColliderTransformer``). ``generator`` seeds the initial
     weights (the JAX package's init distributions); serving loads real
-    weights through ``weights.py``."""
+    weights through ``weights.py``.
+
+    ``traces`` and ``mask`` are this rank's slice of the sequence along
+    ``seq`` (the mesh axis ``parallel/mesh.shard_params`` sets; one rank,
+    the whole sequence, by default): the centering and the coordinate
+    statistics use the whole (gathered) input, the encoder runs on the
+    slice, and the decoder on the gathered memory."""
+
+    seq = ONE_RANK
 
     def __init__(self, input_dim: int = 11, d_model: int = 128,
                  nhead: int = 4, num_encoder_layers: int = 3,
@@ -243,10 +265,15 @@ class TraceToColliderTransformer(nn.Module):
                 generator: torch.Generator | None = None):
         """``generator`` draws the dropout masks in training mode
         (``model.train()``); it is unused in eval mode."""
+        seq = self.seq
+        full, full_mask = gather_sequence(traces, mask, seq)
         offs = None
         if self.center_xz:
-            traces, offs = center_traces_xz(traces, mask)
-        memory, coords, mean, scale = self.encoder(traces, mask, generator)
-        outs = self.decoder(memory, coords, mean, scale, mask, generator)
+            full, offs = center_traces_xz(full, full_mask)
+        n = traces.shape[1]
+        memory, _, mean, scale = self.encoder(
+            full.narrow(1, seq.rank * n, n), mask, generator)
+        outs = self.decoder(all_gather(memory, seq, 1), full[..., :3], mean,
+                            scale, full_mask, generator)
         return assemble_output(outs, offs, self.objectness,
                                self.refine_stages)

@@ -21,6 +21,7 @@ size, orientation, validity), matched by the exact square form
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 from room_slam_torch.ops import iou as iou_ops
 from room_slam_torch.ops.hungarian import (hungarian_match_batch,
                                            hungarian_match_fast)
+from room_slam_torch.parallel.collectives import ONE_RANK, Axis, all_reduce
 
 DEFAULT_COST_CLASS = 1.0
 DEFAULT_COST_BOX = 5.0
@@ -58,9 +60,14 @@ def match(pred_boxes, pred_logits, gt_boxes, gt_labels, gt_valid
     return hungarian_match_fast(cost, gt_valid)
 
 
-def _weighted_mean(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    denom = w.sum()
-    return torch.where(denom > 0, (x * w).sum() / denom.clamp(min=1e-12),
+def _weighted_mean(x: torch.Tensor, w: torch.Tensor,
+                   data: Axis = ONE_RANK) -> torch.Tensor:
+    """``sum(x * w) / sum(w)`` (0 where ``sum(w)`` is 0); both sums run
+    over the ranks of ``data`` too (a mesh axis, ``parallel/mesh.py``), so
+    each rank gets the mean of the global batch."""
+    num = all_reduce((x * w).sum(), data)
+    denom = all_reduce(w.sum().detach(), data)
+    return torch.where(denom > 0, num / denom.clamp(min=1e-12),
                        torch.zeros_like(denom))
 
 
@@ -79,15 +86,18 @@ def optax_sigmoid_bce(logits: torch.Tensor,
 def set_criterion(outputs: Dict[str, torch.Tensor],
                   targets: Dict[str, torch.Tensor],
                   sample_weight: torch.Tensor | None = None,
-                  loss_weights: Dict[str, float] = DEFAULT_WEIGHTS
-                  ) -> Dict[str, torch.Tensor]:
+                  loss_weights: Dict[str, float] = DEFAULT_WEIGHTS,
+                  data: Axis = ONE_RANK) -> Dict[str, torch.Tensor]:
     """Full set loss.
 
     outputs: ``pred_boxes [B, Q, 6]``, ``pred_classes [B, Q, C]``, and
     optionally ``pred_objectness [B, Q]``, ``pred_aux_boxes [S, B, Q, 6]``;
     targets: ``boxes [B, M, 6]``, ``labels [B, M]``, ``valid_mask [B, M]``;
-    sample_weight: ``[B]`` (1 = real sample, 0 = batch padding).
+    sample_weight: ``[B]`` (1 = real sample, 0 = batch padding). With
+    ``data`` (a mesh axis whose ranks hold the batch's other rows) every
+    mean is over the global batch.
     """
+    wmean = functools.partial(_weighted_mean, data=data)
     pred_boxes = outputs["pred_boxes"]
     pred_logits = outputs["pred_classes"]
     gt_boxes = targets["boxes"]
@@ -108,10 +118,10 @@ def set_criterion(outputs: Dict[str, torch.Tensor],
     safe_labels = gt_labels.long().clamp(0, C - 1)
     logp = F.log_softmax(mp_logits, dim=-1)
     ce = -torch.gather(logp, 2, safe_labels[..., None])[..., 0]
-    class_loss = _weighted_mean(ce, pair_w)
-    l1_loss = _weighted_mean((mp_boxes - gt_boxes).abs().mean(-1), pair_w)
+    class_loss = wmean(ce, pair_w)
+    l1_loss = wmean((mp_boxes - gt_boxes).abs().mean(-1), pair_w)
     _, giou = iou_ops.iou_giou_3d(mp_boxes, gt_boxes)
-    giou_loss = _weighted_mean(1.0 - giou, pair_w)
+    giou_loss = wmean(1.0 - giou, pair_w)
 
     total = (loss_weights["class_loss"] * class_loss
              + loss_weights["l1_loss"] * l1_loss
@@ -122,7 +132,7 @@ def set_criterion(outputs: Dict[str, torch.Tensor],
     fw = loss_weights.get("footprint_loss", 0.0)
     if fw:
         _, giou2d = iou_ops.iou_giou_2d_xz(mp_boxes, gt_boxes)
-        out["footprint_loss"] = _weighted_mean(1.0 - giou2d, pair_w)
+        out["footprint_loss"] = wmean(1.0 - giou2d, pair_w)
         total = total + fw * out["footprint_loss"]
 
     sw = loss_weights.get("size_log_loss", 0.0)
@@ -130,7 +140,7 @@ def set_criterion(outputs: Dict[str, torch.Tensor],
         eps = 1e-3
         log_ratio = torch.log((mp_boxes[..., 3:].abs() + eps)
                               / (gt_boxes[..., 3:].abs() + eps))
-        out["size_log_loss"] = _weighted_mean(log_ratio.abs().mean(-1),
+        out["size_log_loss"] = wmean(log_ratio.abs().mean(-1),
                                               pair_w)
         total = total + sw * out["size_log_loss"]
 
@@ -143,9 +153,9 @@ def set_criterion(outputs: Dict[str, torch.Tensor],
         aux_l1 = (ma_boxes - gt_boxes[None]).abs().mean(-1)   # [S, B, M]
         _, aux_giou = iou_ops.iou_giou_3d(ma_boxes, gt_boxes[None])
         pw = pair_w[None].expand_as(aux_l1)
-        out["aux_loss"] = (_weighted_mean(aux_l1, pw)
+        out["aux_loss"] = (wmean(aux_l1, pw)
                            * loss_weights["l1_loss"]
-                           + _weighted_mean(1.0 - aux_giou, pw)
+                           + wmean(1.0 - aux_giou, pw)
                            * loss_weights["giou_loss"])
         total = total + aw * out["aux_loss"]
 
@@ -166,7 +176,7 @@ def set_criterion(outputs: Dict[str, torch.Tensor],
         cov_w = pair_w
         if loss_weights.get("coverage_furniture_only", 0.0):
             cov_w = cov_w * (gt_labels != 0).to(dt)
-        out["coverage_loss"] = _weighted_mean(runner, cov_w)
+        out["coverage_loss"] = wmean(runner, cov_w)
         total = total + cw * out["coverage_loss"]
 
     if "pred_objectness" in outputs:
@@ -179,7 +189,7 @@ def set_criterion(outputs: Dict[str, torch.Tensor],
         slot_target = torch.zeros(B, Q, dtype=dt, device=obj_logits.device) \
             .scatter_reduce(1, rows, pair_val.to(dt), reduce="amax")
         bce = optax_sigmoid_bce(obj_logits, slot_target)
-        out["objectness_loss"] = _weighted_mean(
+        out["objectness_loss"] = wmean(
             bce, sample_weight[:, None].expand_as(bce))
         total = total + loss_weights.get("objectness_loss", 1.0) \
             * out["objectness_loss"]

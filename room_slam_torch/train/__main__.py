@@ -49,6 +49,19 @@ given).
 
 ``--device`` defaults to ``cuda`` and raises without a card unless
 ``--device cpu`` is given. Prints the summary dict as JSON.
+
+Several ranks: launch the benchmark surface with ``torchrun``; each rank
+joins the process group (NCCL on ``cuda:$LOCAL_RANK``, gloo with
+``--device cpu``: ``parallel/mesh.init_from_env``), and both drivers train
+on the mesh of ``mesh.mesh_shape`` (default ``[0, 1]``: every rank on
+'data'; ``--set mesh.mesh_shape=[2,2,2]`` adds sequence parallelism),
+rank 0 printing and writing the checkpoints:
+
+    torchrun --standalone --nproc_per_node 4 -m room_slam_torch.train \
+        --config configs/flagship_v15.json --data_dir DIR --device cpu
+
+NCCL takes one card per rank: on a machine with one card only a one-rank
+group runs there.
 """
 
 from __future__ import annotations
@@ -57,9 +70,12 @@ import argparse
 import json
 from pathlib import Path
 
+import torch.distributed as dist
+
 from room_slam_torch.config import ExperimentConfig
 from room_slam_torch.data.dataset import TraceColliderArrays
 from room_slam_torch.data.legacy import create_sample_data
+from room_slam_torch.parallel import mesh as mesh_lib
 from room_slam_torch.train.driver import (make_synthetic_datasets,
                                           train_benchmark,
                                           train_benchmark_fused, train_legacy)
@@ -141,7 +157,17 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     if args.data_dir is None and not args.synthetic:
         p.error("--data_dir is required unless --synthetic is given")
+    joined = not dist.is_initialized()
+    args.device = mesh_lib.init_from_env(args.device)
+    joined = joined and dist.is_initialized()
+    try:
+        _run(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
+
+def _run(args: argparse.Namespace) -> None:
     if args.create_sample_data:
         create_sample_data(args.data_dir, n_traces=args.num_sample_traces,
                            seed=args.seed, device=args.device)
@@ -214,8 +240,9 @@ def main(argv=None) -> None:
         else:
             result = train_benchmark(cfg, device=args.device,
                                      resume=args.resume, **kwargs)
-    print(json.dumps({k: v for k, v in result.items()
-                      if isinstance(v, (int, float, str))}, indent=2))
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps({k: v for k, v in result.items()
+                          if isinstance(v, (int, float, str))}, indent=2))
 
 
 if __name__ == "__main__":

@@ -8,6 +8,14 @@
 from a CUDA runtime error (``max_recoveries``), as the JAX package's does;
 its validation runs at ``train.matmul_precision``, as its steps.
 ``train_benchmark_fused`` does neither, as the JAX package's fused run.
+
+Both benchmark drivers train on a mesh when ``torch.distributed`` is
+initialised with more than one rank (a ``torchrun`` launch of the CLI,
+``parallel/mesh.init_from_env``), as the JAX drivers do with more than one
+device: the mesh of ``cfg.mesh.mesh_shape``, the parameters replicated
+(``shard_params`` without tensor parallelism), every rank holding the
+whole dataset and plans and training on its part of each batch; only rank
+0 prints, logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from room_slam_torch.data.legacy import LegacyArrays
 from room_slam_torch.models.factory import build_model, count_parameters
 from room_slam_torch.models.legacy_gru import RoomSlamGRU
 from room_slam_torch.ops.losses import legacy_criterion
+from room_slam_torch.parallel import mesh as mesh_lib
 from room_slam_torch.train import checkpoint as ckpt_lib
 from room_slam_torch.train.loop import (METRIC_KEYS, Batch, Optimizer,
                                         PlateauScheduler, device_plan,
@@ -121,6 +130,18 @@ def make_synthetic_datasets(cfg: ExperimentConfig, n_rooms: int,
             TraceColliderArrays.from_arrays(val, cfg.data, augment=False))
 
 
+def run_mesh(cfg: ExperimentConfig):
+    """``(mesh, rank 0?)``: the mesh of ``cfg.mesh.mesh_shape`` when
+    ``torch.distributed`` runs more than one rank, else ``(None, True)``."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return None, True
+    return (mesh_lib.make_mesh_from_config(cfg.mesh.mesh_shape),
+            dist.get_rank() == 0)
+
+
 def fused_segment(num_epochs: int, num_batches: int) -> int:
     """Epochs a fused segment runs between host reads: about 200 optimizer
     steps, at most 20 epochs (the JAX package's rule)."""
@@ -146,8 +167,11 @@ def train_benchmark_fused(cfg: ExperimentConfig,
     ``final_model`` (with the optimizer state) are written under
     ``train.save_dir`` with ``history.jsonl``. The augmentation and dropout
     come from one device generator in ``train_benchmark``'s order, so on
-    one seed both drivers take the same steps."""
+    one seed both drivers take the same steps. On several ranks see the
+    module docstring."""
     dev = resolve_device(device)
+    mesh, rank0 = run_mesh(cfg)
+    verbose = verbose and rank0
     t = cfg.train
     if train_ds is None:
         train_ds = TraceColliderArrays(cfg.data.data_dir, cfg.data,
@@ -158,6 +182,8 @@ def train_benchmark_fused(cfg: ExperimentConfig,
     model = build_model(cfg.model,
                         generator=torch.Generator().manual_seed(t.seed))
     model = model.to(dev)
+    if mesh is not None:
+        mesh_lib.shard_params(model, mesh)
     n_params = count_parameters(model)
     if verbose:
         print(f"Model parameters: {n_params:,}")
@@ -165,7 +191,7 @@ def train_benchmark_fused(cfg: ExperimentConfig,
 
     # the scheduler's device learning rate goes into AdamW with no host read
     opt = make_optimizer(model, cfg, capturable=dev.type == "cuda")
-    run = make_fused_run(model, opt, cfg)
+    run = make_fused_run(model, opt, cfg, mesh)
     sched, best = fused_run_init(cfg, model, opt)
 
     E = t.num_epochs
@@ -193,9 +219,10 @@ def train_benchmark_fused(cfg: ExperimentConfig,
     wall = time.time() - t0
 
     save_dir = Path(t.save_dir)
-    save_dir.mkdir(parents=True, exist_ok=True)
-    cfg.to_json(save_dir / "config.json")
-    mlog = MetricsLogger(save_dir / "history.jsonl")
+    if rank0:
+        save_dir.mkdir(parents=True, exist_ok=True)
+        cfg.to_json(save_dir / "config.json")
+    mlog = MetricsLogger(save_dir / "history.jsonl") if rank0 else None
     hist_rows = []
     for e in range(E):
         m = summarize_metrics({k: float(history[k][e]) for k in METRIC_KEYS})
@@ -203,8 +230,9 @@ def train_benchmark_fused(cfg: ExperimentConfig,
                "val_loss": float(history["val_loss"][e]),
                "lr": float(history["lr"][e]), **m}
         hist_rows.append(row)
-        mlog.log(**{k: v for k, v in row.items()
-                    if isinstance(v, (int, float))})
+        if mlog is not None:
+            mlog.log(**{k: v for k, v in row.items()
+                        if isinstance(v, (int, float))})
         if verbose and (e % 10 == 0 or e == E - 1):
             print(f"Epoch {e}: Train {row['train_loss']:.4f} | "
                   f"Val {row['val_loss']:.4f} | mIoU={row['mIoU']:.3f} "
@@ -213,13 +241,15 @@ def train_benchmark_fused(cfg: ExperimentConfig,
 
     best_epoch = int(best["epoch"])
     best_metrics = hist_rows[best_epoch] if 0 <= best_epoch < E else {}
-    ckpt_lib.save_checkpoint(
-        save_dir / "best_model", best["params"], epoch=best_epoch,
-        val_loss=best_val, metrics=best_metrics, config=cfg, model=model)
-    ckpt_lib.save_checkpoint(
-        save_dir / "final_model", model.state_dict(), opt.state_dict(),
-        epoch=E - 1, val_loss=hist_rows[-1]["val_loss"],
-        metrics=hist_rows[-1], config=cfg, model=model)
+    if rank0:
+        ckpt_lib.save_checkpoint(
+            save_dir / "best_model", best["params"], epoch=best_epoch,
+            val_loss=best_val, metrics=best_metrics, config=cfg,
+            model=model)
+        ckpt_lib.save_checkpoint(
+            save_dir / "final_model", model.state_dict(), opt.state_dict(),
+            epoch=E - 1, val_loss=hist_rows[-1]["val_loss"],
+            metrics=hist_rows[-1], config=cfg, model=model)
     if verbose:
         print(f"✓ Saved BEST model from epoch {best_epoch} "
               f"(val_loss={best_val:.4f}) and final model")
@@ -263,8 +293,11 @@ def train_benchmark(cfg: ExperimentConfig,
     during an epoch's training reloads the last periodic checkpoint, or the
     initial state, moves the data to the device again and redoes the
     epoch; each recovery is printed, and the error is raised again after
-    ``max_recoveries``. Nothing else is caught."""
+    ``max_recoveries``. Nothing else is caught. On several ranks see the
+    module docstring."""
     dev = resolve_device(device)
+    mesh, rank0 = run_mesh(cfg)
+    verbose = verbose and rank0
     t = cfg.train
     if train_ds is None:
         train_ds = TraceColliderArrays(cfg.data.data_dir, cfg.data,
@@ -285,10 +318,12 @@ def train_benchmark(cfg: ExperimentConfig,
                 ckpt, with_opt_state=True)
             load_params(model, params)
         model = model.to(dev)
+        if mesh is not None:
+            mesh_lib.shard_params(model, mesh)
         opt = make_optimizer(model, cfg)
         if opt_state is not None:
             opt.load_state_dict(opt_state)
-        return model, opt, make_train_step(model, opt, cfg, augment=True), \
+        return model, opt, make_train_step(model, opt, cfg, True, mesh), \
             side, opt_state is not None
 
     model, opt, step, side, has_opt = fresh(resume)
@@ -297,15 +332,16 @@ def train_benchmark(cfg: ExperimentConfig,
         print(f"Model parameters: {n_params:,}")
     _check_query_capacity(cfg, train_ds, val_ds)
 
-    eval_epoch = make_eval_epoch(cfg, t.iou_thresh)
+    eval_epoch = make_eval_epoch(cfg, t.iou_thresh, mesh)
     sched = PlateauScheduler(lr=t.lr, factor=t.plateau_factor,
                              patience=t.plateau_patience,
                              cooldown=t.plateau_cooldown,
                              min_lr=t.lr * t.plateau_min_scale)
     save_dir = Path(t.save_dir)
-    save_dir.mkdir(parents=True, exist_ok=True)
-    cfg.to_json(save_dir / "config.json")
-    mlog = MetricsLogger(save_dir / "history.jsonl")
+    if rank0:
+        save_dir.mkdir(parents=True, exist_ok=True)
+        cfg.to_json(save_dir / "config.json")
+    mlog = MetricsLogger(save_dir / "history.jsonl") if rank0 else None
 
     best_val = float("inf")
     start_epoch = 0
@@ -392,15 +428,17 @@ def train_benchmark(cfg: ExperimentConfig,
                       f"ClsAcc={metrics['cls_acc']:.3f} | LR={lr:.6f}")
             history.append({"epoch": epoch, "train_loss": train_loss,
                             "val_loss": val_loss, **metrics})
-            mlog.log(epoch=epoch, train_loss=train_loss, val_loss=val_loss,
-                     lr=lr, **metrics)
+            if mlog is not None:
+                mlog.log(epoch=epoch, train_loss=train_loss,
+                         val_loss=val_loss, lr=lr, **metrics)
             if val_loss < best_val:
                 best_val = val_loss
-                ckpt_lib.save_checkpoint(
-                    save_dir / "best_model", em.state_dict(),
-                    opt.state_dict(), epoch=epoch, val_loss=val_loss,
-                    metrics=metrics, config=cfg,
-                    extra={"sched": sched.state_dict()}, model=em)
+                if rank0:
+                    ckpt_lib.save_checkpoint(
+                        save_dir / "best_model", em.state_dict(),
+                        opt.state_dict(), epoch=epoch, val_loss=val_loss,
+                        metrics=metrics, config=cfg,
+                        extra={"sched": sched.state_dict()}, model=em)
                 if verbose:
                     print(f"✓ Saved BEST model (val_loss={best_val:.4f})")
         elif verbose:
@@ -408,9 +446,11 @@ def train_benchmark(cfg: ExperimentConfig,
 
         if (epoch + 1) % checkpoint_every == 0:
             last_ckpt = save_dir / f"checkpoint_epoch_{epoch}"
-            ckpt_lib.save_checkpoint(
-                last_ckpt, model.state_dict(), opt.state_dict(), epoch=epoch,
-                config=cfg, extra={"sched": sched.state_dict()}, model=model)
+            if rank0:
+                ckpt_lib.save_checkpoint(
+                    last_ckpt, model.state_dict(), opt.state_dict(),
+                    epoch=epoch, config=cfg,
+                    extra={"sched": sched.state_dict()}, model=model)
         epoch += 1
 
     wall = time.time() - t0

@@ -34,6 +34,8 @@ from room_slam_torch.data.augment import Sample, apply_augment, draw_rands
 from room_slam_torch.data.features import featurize
 from room_slam_torch.models.common import MoEFFN
 from room_slam_torch.ops.losses import set_criterion
+from room_slam_torch.parallel import mesh as mesh_lib
+from room_slam_torch.parallel.collectives import all_reduce, axis
 from room_slam_torch.train.metrics import metrics_sums
 from room_slam_torch.weights import params_to_state_dict, state_dict_to_params
 
@@ -62,7 +64,12 @@ class Optimizer:
     count on the host (a tensor is read back). ``capturable=True`` (the
     fused run's, on the card) keeps both on the device, so that the
     scheduler's device value goes in without a host read; it costs a
-    host-bound step a few ms (PERF.md)."""
+    host-bound step a few ms (PERF.md).
+
+    On a model placed on a mesh (``parallel/mesh.shard_params``, before
+    the optimizer is made) ``step`` first turns the gradients into the
+    one-device ones (``reduce_gradients``) and takes the global norm with
+    each sharded parameter counted once (``grad_norm_sq``)."""
 
     def __init__(self, model: nn.Module, cfg: ExperimentConfig,
                  capturable: bool = False):
@@ -101,11 +108,15 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
+        placed = hasattr(self.model, "placement")
+        if placed:
+            mesh_lib.reduce_gradients(self.model)
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        g_norm = torch.sqrt(mesh_lib.grad_norm_sq(self.model, grads)
+                            if placed else sum((g * g).sum() for g in grads))
         trigger = g_norm < self.grad_clip
         for g in grads:
             g.copy_(torch.where(trigger, g, g / g_norm * self.grad_clip))
@@ -273,6 +284,17 @@ def prepare_batch(batch: Batch, cfg: DataConfig,
                   ) -> Tuple[torch.Tensor, torch.Tensor, Batch]:
     """Augment (when ``generator`` is given) and featurize a batch:
     returns ``(feats, mask, targets)``."""
+    return _prepare(batch, cfg, generator)[:3]
+
+
+def _prepare(batch: Batch, cfg: DataConfig,
+             generator: Optional[torch.Generator] = None, mesh=None,
+             accum: int = 1):
+    """``prepare_batch`` and the sample weights. With ``mesh``, ``batch``
+    is the global batch, augmented whole (the draws of the one-device
+    step), and what comes back is this rank's part of it
+    (``parallel/mesh.shard_batch`` with ``accum`` microbatches, featurized
+    by ``featurize_seq``)."""
     sample = Sample(raw=batch["raw"], length=batch["length"],
                     boxes=batch["boxes"], labels=batch["labels"],
                     valid=batch["valid"])
@@ -281,8 +303,17 @@ def prepare_batch(batch: Batch, cfg: DataConfig,
         r = draw_rands(generator, B, L, sample.boxes.shape[1], cfg,
                        device=sample.raw.device)
         sample = apply_augment(sample, batch["rotation_k"], r, cfg)
-    feats, mask = featurize(sample.raw, sample.length)
-    return feats, mask, _targets(sample)
+    weight = batch["weight"]
+    if mesh is None:
+        feats, mask = featurize(sample.raw, sample.length)
+        return feats, mask, _targets(sample), weight
+    local = mesh_lib.shard_batch({**sample._asdict(), "weight": weight},
+                                 mesh, accum)
+    weight = local.pop("weight")
+    sample = Sample(**local)
+    feats, mask = mesh_lib.featurize_seq(sample.raw, sample.length,
+                                         axis(mesh, "seq"))
+    return feats, mask, _targets(sample), weight
 
 
 # train.matmul_precision (JAX's jax_default_matmul_precision names) -> TF32
@@ -317,7 +348,7 @@ def matmul_precision(level: str, device: torch.device | str):
 
 
 def make_train_step(model: nn.Module, opt: Optimizer, cfg: ExperimentConfig,
-                    augment: bool = True
+                    augment: bool = True, mesh=None
                     ) -> Callable[[Batch, torch.Generator], Batch]:
     """Return ``step(batch, generator) -> losses``: one optimizer update.
     ``generator`` (on the batch's device) draws the augmentation and the
@@ -329,16 +360,24 @@ def make_train_step(model: nn.Module, opt: Optimizer, cfg: ExperimentConfig,
 
     With ``model.moe_experts`` and a non-zero ``train.moe_aux_weight`` w,
     each microbatch's ``moe_aux`` is the mean over the ``MoEFFN`` layers of
-    their load-balance terms, and ``total_loss`` gains ``w * moe_aux``."""
+    their load-balance terms, and ``total_loss`` gains ``w * moe_aux``.
+
+    With ``mesh`` (the model placed on it by ``parallel/mesh.shard_params``
+    and ``opt`` made after that), ``batch`` is the global batch on every
+    rank and the step is the one-device step of it: each rank augments it
+    whole with the same draws, takes its part (``_prepare``), computes the
+    global loss with means over 'data' and the gradients of
+    ``reduce_gradients``; every rank returns the global losses."""
     lw = _loss_weight_dict(cfg)
+    data = axis(mesh, "data")
     A = max(1, int(cfg.train.grad_accum))
     precision = cfg.train.matmul_precision
     moe_w = cfg.train.moe_aux_weight if cfg.model.moe_experts else 0.0
     moe_layers = [m for m in model.modules() if isinstance(m, MoEFFN)]
 
     def step(batch: Batch, generator: torch.Generator) -> Batch:
-        feats, mask, targets = prepare_batch(
-            batch, cfg.data, generator if augment else None)
+        feats, mask, targets, weight = _prepare(
+            batch, cfg.data, generator if augment else None, mesh, A)
         B, dev = feats.shape[0], feats.device
         if B % A:
             raise ValueError(f"train.grad_accum={A} must divide the batch "
@@ -353,7 +392,7 @@ def make_train_step(model: nn.Module, opt: Optimizer, cfg: ExperimentConfig,
                 out = model(feats[sl], mask[sl], generator=generator)
                 part = set_criterion(
                     out, {k: v[sl] for k, v in targets.items()},
-                    batch["weight"][sl], lw)
+                    weight[sl], lw, data=data)
                 if moe_w:
                     # the mean over the layers, so the weight does not
                     # depend on the encoder's depth
@@ -397,14 +436,17 @@ def make_eval_step(model: nn.Module, cfg: ExperimentConfig
     return step
 
 
-def make_eval_epoch(cfg: ExperimentConfig, iou_thresh: float = 0.5
-                    ) -> Callable:
+def make_eval_epoch(cfg: ExperimentConfig, iou_thresh: float = 0.5,
+                    mesh=None) -> Callable:
     """Whole-split evaluation: ``epoch(model, data, plan) -> (mean losses,
     metric sums)`` with the training loss weights, over the batches of an
     index plan (``TraceColliderArrays.epoch_plan``, numpy or already on the
     device: ``device_plan``) on device-resident ``data``. The results are
-    device tensors; nothing is read back."""
+    device tensors; nothing is read back. With ``mesh`` each rank
+    evaluates its part of every batch (``_prepare``) and every rank gets
+    the global results."""
     lw = _loss_weight_dict(cfg)
+    data_ax = axis(mesh, "data")
 
     @torch.no_grad()
     def epoch(model: nn.Module, data: Batch, plan: Dict[str, Any]):
@@ -414,14 +456,16 @@ def make_eval_epoch(cfg: ExperimentConfig, iou_thresh: float = 0.5
         plan = device_plan(plan, data["raw"].device)
         nb = plan["base_idx"].shape[0]
         for i in range(nb):
-            batch = gather_batch(data, plan, i)
-            feats, mask, targets = prepare_batch(batch, cfg.data)
+            feats, mask, targets, weight = _prepare(
+                gather_batch(data, plan, i), cfg.data, mesh=mesh)
             out = model(feats, mask)
-            for k, v in set_criterion(out, targets, batch["weight"],
-                                      lw).items():
+            for k, v in set_criterion(out, targets, weight, lw,
+                                      data=data_ax).items():
                 losses[k] = losses.get(k, 0.0) + v / nb
-            for k, v in metrics_sums(out, batch, iou_thresh).items():
-                sums[k] = sums.get(k, 0) + v
+            local = {"boxes": targets["boxes"], "labels": targets["labels"],
+                     "valid": targets["valid_mask"], "weight": weight}
+            for k, v in metrics_sums(out, local, iou_thresh).items():
+                sums[k] = sums.get(k, 0) + all_reduce(v, data_ax)
         return losses, sums
 
     return epoch
@@ -447,13 +491,13 @@ def gather_batch(data: Batch, plan: Dict[str, Any], i: int) -> Batch:
 
 
 def make_train_steps(model: nn.Module, opt: Optimizer, cfg: ExperimentConfig,
-                     augment: bool = True
+                     augment: bool = True, mesh=None
                      ) -> Callable[[Batch, torch.Generator, int],
                                    torch.Tensor]:
     """``run(batch, generator, n) -> total_loss [n]``: ``n`` optimizer
     updates on one batch, the losses kept on the device (the JAX package's
     multi-step runner; ``bench.py`` times the headline with it)."""
-    step = make_train_step(model, opt, cfg, augment)
+    step = make_train_step(model, opt, cfg, augment, mesh)
 
     def run(batch: Batch, generator: torch.Generator, n: int
             ) -> torch.Tensor:
@@ -464,12 +508,13 @@ def make_train_steps(model: nn.Module, opt: Optimizer, cfg: ExperimentConfig,
 
 
 def make_train_epoch(model: nn.Module, opt: Optimizer, cfg: ExperimentConfig,
-                     augment: bool = True) -> Callable:
+                     augment: bool = True, mesh=None) -> Callable:
     """``epoch(data, plan, generator) -> mean losses``: one pass over an
     index plan (``base_idx``, ``rotation_k``, ``weight``, each ``[nb,
     B]``, numpy or on the device) of device-resident ``data``, one update a
-    batch; the losses' epoch means come back as device tensors."""
-    step = make_train_step(model, opt, cfg, augment)
+    batch (``make_train_step``, with ``mesh`` too); the losses' epoch means
+    come back as device tensors."""
+    step = make_train_step(model, opt, cfg, augment, mesh)
 
     def epoch(data: Batch, plan: Dict[str, Any],
               generator: torch.Generator) -> Batch:
@@ -544,8 +589,8 @@ def fused_run_init(cfg: ExperimentConfig, model: nn.Module, opt: Optimizer
     return sched_init(cfg, dev), best
 
 
-def make_fused_run(model: nn.Module, opt: Optimizer, cfg: ExperimentConfig
-                   ) -> Callable:
+def make_fused_run(model: nn.Module, opt: Optimizer, cfg: ExperimentConfig,
+                   mesh=None) -> Callable:
     """A segment of a whole training run with no host read: ``run(sched,
     best, train_data, val_data, plans, val_plan, epoch_ids, generator) ->
     (sched, best, history)``.
@@ -560,9 +605,11 @@ def make_fused_run(model: nn.Module, opt: Optimizer, cfg: ExperimentConfig
     ``best``'s buffers. ``history`` holds ``[E]`` tensors of
     ``train_loss``, ``val_loss``, ``lr`` and the seven metric sums.
     ``generator`` draws the augmentation and dropout in
-    ``train_benchmark``'s order."""
-    epoch_fn = make_train_epoch(model, opt, cfg, augment=True)
-    eval_fn = make_eval_epoch(cfg, cfg.train.iou_thresh)
+    ``train_benchmark``'s order. With ``mesh`` the steps and the
+    validation run on each rank's part of every batch
+    (``make_train_step``, ``make_eval_epoch``)."""
+    epoch_fn = make_train_epoch(model, opt, cfg, augment=True, mesh=mesh)
+    eval_fn = make_eval_epoch(cfg, cfg.train.iou_thresh, mesh)
 
     def run(sched: SchedState, best: Batch, train_data: Batch,
             val_data: Batch, plans: Dict[str, torch.Tensor],

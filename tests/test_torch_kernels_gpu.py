@@ -1930,3 +1930,152 @@ def test_exported_program_matches_live_on_card(cuda, tmp_path):
         assert rnn_cuda.bilstm_fwd_cuda.launches - before == 2
         assert served.is_cuda
         torch.testing.assert_close(served, live, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------- diagnose, parallel
+
+from room_slam_torch import diagnose as diag_mod  # noqa: E402
+from room_slam_torch.config import ExperimentConfig  # noqa: E402
+from room_slam_torch.data.features import process_traces_np  # noqa: E402
+from room_slam_torch.models import gru as gru_mod  # noqa: E402
+from room_slam_torch.models import lstm as lstm_mod  # noqa: E402
+from room_slam_torch.models.factory import build_model  # noqa: E402
+from room_slam_torch.weights import load_params, random_params  # noqa: E402
+
+
+@pytest.mark.parametrize("model_type", ["lstm", "bigru"])
+def test_diagnose_forward_through_the_kernels(cuda, model_type):
+    """``diagnose``'s padded forward (N=1000) launches #1 (lstm) or #5
+    (bigru) once a layer and gives the plain recurrence's boxes (the model
+    outputs' 1e-3)."""
+    cfg = ExperimentConfig.from_json("configs/flagship_v15.json")
+    cfg.model.model_type = model_type
+    model = build_model(cfg.model)
+    load_params(model, random_params(model, 0))
+    model = model.to(cuda).eval()
+    g = np.random.default_rng(1)
+    raw = g.normal(size=(700, 4)).astype(np.float32)
+    raw[:, 3] = np.sort(g.uniform(0, 30, 700))
+    feats = process_traces_np(raw, max_len=diag_mod.PAD_TO)
+    wrapper = (rnn_cuda.bilstm_fwd_cuda if model_type == "lstm"
+               else gru_cuda.bigru_fwd_cuda)
+    before = wrapper.launches
+    got = diag_mod._forward(model, feats)
+    torch.cuda.synchronize()
+    # the bigru takes its depth from lstm_layers too (models/factory.py)
+    assert wrapper.launches - before == cfg.model.lstm_layers
+    patch = (mock.patch.object(lstm_mod, "bilstm_recurrence",
+                               rnn_cuda.bilstm_recurrence_plain)
+             if model_type == "lstm" else
+             mock.patch.object(gru_mod, "bigru_recurrence",
+                               gru_cuda.bigru_fwd_plain))
+    with patch:
+        ref = diag_mod._forward(model, feats)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-3)
+
+
+def test_one_rank_nccl_mesh_step_and_pipeline(cuda, tmp_path):
+    """On a one-rank NCCL group: the flagship-shaped step on a (1, 1) mesh
+    gives the unsharded step's losses (rtol 1e-5) and gradients (1e-4 of
+    the largest), through #1t / #2 and the matcher; ``pipeline_apply`` of
+    ``bilstm_stage_fn`` at S=1 gives ``sequential_apply``'s output (1e-4)
+    and gradients (max-rel 1e-4) through #3t / #4; the all-reduce and
+    all-gather autograd functions on the group are the identity, forward
+    and backward."""
+    import torch.distributed as dist
+
+    from room_slam_torch.ops import hungarian
+    from room_slam_torch.parallel import collectives as coll
+    from room_slam_torch.parallel import mesh as mesh_lib
+    from room_slam_torch.parallel import pipeline as pipe
+    from room_slam_torch.train import loop
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        cfg = ExperimentConfig.from_json("configs/flagship_v15.json")
+        cfg.data.max_trace_len, cfg.train.batch_size = 200, 8
+        init = build_model(cfg.model,
+                           generator=torch.Generator().manual_seed(0))
+        g = np.random.default_rng(2)
+        B, L, M = 8, 200, cfg.data.max_colliders
+        raw = np.cumsum(g.normal(size=(B, L, 4)) * 0.1, axis=1)
+        raw[..., 3] = np.arange(L) * 0.03
+        boxes = np.zeros((B, M, 6), np.float32)
+        boxes[:, :4] = g.uniform(0.5, 3.0, size=(B, 4, 6))
+        batch = {"raw": raw.astype(np.float32),
+                 "length": np.full(B, L, np.int32), "boxes": boxes,
+                 "labels": np.where(np.arange(M) < 4, 0, -1).repeat(
+                     B).reshape(M, B).T.astype(np.int32),
+                 "valid": (np.arange(M) < 4)[None].repeat(B, 0),
+                 "rotation_k": np.zeros(B, np.int32),
+                 "weight": np.ones(B, np.float32)}
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+                 for k, v in batch.items()}
+        mesh = mesh_lib.make_mesh((1, 1))
+
+        def step(on_mesh):
+            model = copy.deepcopy(init).to(cuda)
+            if on_mesh:
+                mesh_lib.shard_params(model, mesh)
+            opt = loop.make_optimizer(model, cfg)
+            run = loop.make_train_step(model, opt, cfg, augment=True,
+                                       mesh=mesh if on_mesh else None)
+            losses = run(batch, torch.Generator(device=cuda).manual_seed(0))
+            return ({k: float(v) for k, v in losses.items()},
+                    {n: p.grad.clone() for n, p in model.named_parameters()})
+
+        ref_l, ref_g = step(False)
+        before = (rnn_cuda.bilstm_fwd_train_cuda.launches,
+                  rnn_cuda.bilstm_bwd_cuda.launches,
+                  hungarian.hungarian_cuda.launches)
+        got_l, got_g = step(True)
+        after = (rnn_cuda.bilstm_fwd_train_cuda.launches,
+                 rnn_cuda.bilstm_bwd_cuda.launches,
+                 hungarian.hungarian_cuda.launches)
+        assert [a - b for a, b in zip(after, before)] == [
+            cfg.model.lstm_layers, cfg.model.lstm_layers, 1]
+        for k, v in ref_l.items():
+            assert abs(got_l[k] - v) <= 1e-5 * abs(v) + 1e-7, k
+        top = max(v.abs().max().item() for v in ref_g.values())
+        for k, v in ref_g.items():
+            assert (got_g[k] - v).abs().max().item() <= 1e-4 * top, k
+
+        pmesh = pipe.make_pipeline_mesh((1, 1))
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        stacked = pipe.init_bilstm_stage_params(gen, 1, 64, cuda)
+        x = torch.randn(8, 300, 64, generator=gen, device=cuda)
+
+        def run(fn):
+            xx = x.clone().requires_grad_(True)
+            ps = {k: v.clone().requires_grad_(True)
+                  for k, v in stacked.items()}
+            out = fn(ps, xx)
+            out.pow(2).mean().backward()
+            return out.detach(), [ps[k].grad for k in sorted(ps)] + [xx.grad]
+
+        before = (rnn_cuda.lstm_fwd_train_cuda.launches,
+                  rnn_cuda.lstm_bwd_cuda.launches)
+        out, grads = run(lambda ps, xx: pipe.pipeline_apply(
+            pipe.bilstm_stage_fn, ps, xx, pmesh, 4))
+        assert (rnn_cuda.lstm_fwd_train_cuda.launches - before[0],
+                rnn_cuda.lstm_bwd_cuda.launches - before[1]) == (8, 8)
+        ref, rgrads = run(lambda ps, xx: pipe.sequential_apply(
+            pipe.bilstm_stage_fn, ps, xx))
+        assert (out - ref).abs().max().item() <= ATOL
+        for a, b in zip(grads, rgrads):
+            assert _max_rel(a, b) <= GRAD_REL
+
+        # the collectives' autograd functions on the one-rank NCCL group:
+        # the identity, forward and backward
+        group = coll.axis(pmesh, "stage").group
+        xc = x.clone().requires_grad_(True)
+        w = torch.randn(8, 600, 64, generator=gen, device=cuda)
+        y = torch.cat([coll._AllReduce.apply(xc, group),
+                       coll._AllGather.apply(xc, group, 1, 0, 1)], dim=1)
+        (y * w).sum().backward()
+        assert torch.equal(y, torch.cat([x, x], dim=1))
+        assert torch.equal(xc.grad, w[:, :300] + w[:, 300:])
+    finally:
+        dist.destroy_process_group()

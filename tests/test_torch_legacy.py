@@ -43,6 +43,7 @@ from room_slam_torch.train.metrics import average_precision_rotated_2d
 from room_slam_torch.weights import (_flatten, load_params, random_params,
                                      state_dict_to_params)
 from room_slam_tpu.data import legacy as jlegacy
+from torch_viz_cases import assert_same_figure, record_savefig
 from room_slam_tpu.models.baseline import OccupancyBaseline as JaxBaseline
 from room_slam_tpu.models.legacy_gru import RoomSlamGRU as JaxGRU
 from room_slam_tpu.ops.hungarian import hungarian_match
@@ -382,7 +383,8 @@ def test_checkpoint_round_trips(tmp_path):
                                    rtol=1e-4, atol=1e-5, err_msg=k)
 
 
-def test_train_and_evaluate_clis_match_jax(rooms, tmp_path, capsys):
+def test_train_and_evaluate_clis_match_jax(rooms, tmp_path, capsys,
+                                          monkeypatch):
     """``python -m room_slam_torch.train`` auto-detects the CSV surface and
     trains on the CPU; ``python -m room_slam_torch.evaluate`` scores its
     checkpoint with the baseline beside it, as the JAX ``evaluate_legacy``
@@ -403,7 +405,9 @@ def test_train_and_evaluate_clis_match_jax(rooms, tmp_path, capsys):
     args = argparse.Namespace(checkpoint=ckpt, data_dir=str(rooms),
                               hidden_size=HIDDEN, max_objects=M,
                               threshold=0.0, iou_thresh=0.5,
-                              compare_baseline=True, visualize=None)
+                              compare_baseline=True,
+                              visualize=str(tmp_path / "jviz"))
+    record = record_savefig(monkeypatch)
     ref = jax_evaluate.evaluate_legacy(args)
     for k in ("mAP", "baseline_mAP"):
         assert abs(got[k] - ref[k]) < 1e-6, k
@@ -411,9 +415,17 @@ def test_train_and_evaluate_clis_match_jax(rooms, tmp_path, capsys):
     direct = evaluate_legacy(ckpt, str(rooms), HIDDEN, M, threshold=0.0,
                              device="cpu")
     assert direct["mAP"] == got["mAP"]
-    with pytest.raises(NotImplementedError, match="item"):
-        evaluate_cli(["--checkpoint", ckpt, "--visualize", str(tmp_path),
-                      "--device", "cpu"])
+    # --visualize writes the root script's plots, drawing the same data
+    jrec = dict(record)
+    record.clear()
+    evaluate_cli(["--checkpoint", ckpt, "--data_dir", str(rooms),
+                  "--hidden_size", str(HIDDEN), "--threshold", "0.0",
+                  "--visualize", str(tmp_path / "tviz"), "--device", "cpu"])
+    assert sorted(record) == sorted(jrec) and jrec
+    for name in jrec:
+        assert_same_figure(record[name], jrec[name])
+    assert sorted(p.name for p in (tmp_path / "tviz").iterdir()) == \
+        sorted(p.name for p in (tmp_path / "jviz").iterdir())
 
 
 def test_dropout_draws_from_the_generator():

@@ -317,8 +317,8 @@ def test_validation_runs_at_the_run_matmul_precision(rooms, tmp_path,
 
     real_epoch = driver_mod.make_eval_epoch
 
-    def make_eval_epoch(cfg, iou_thresh=0.5):
-        epoch = real_epoch(cfg, iou_thresh)
+    def make_eval_epoch(cfg, iou_thresh=0.5, mesh=None):
+        epoch = real_epoch(cfg, iou_thresh, mesh)
 
         def run(*args):
             seen.append(bool(inside))

@@ -703,8 +703,10 @@ def test_demo_runs_the_baseline_on_generated_rooms(tmp_path, capsys):
     assert [r["room"] for r in res] == [0, 1]
     assert all(len(r["objects"]) > 0 for r in res)
     assert "Room 1:" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Item 16"):
-        demo.main(["--save_viz", str(tmp_path), "--device", "cpu"])
+    demo.main(["--n_rooms", "2", "--num_steps", "600", "--save_viz",
+               str(tmp_path / "viz"), "--device", "cpu"])
+    assert sorted(p.name for p in (tmp_path / "viz").iterdir()) == \
+        ["demo_room_0.png", "demo_room_1.png"]
 
 
 # ------------------------------------------------------ matmul precision
